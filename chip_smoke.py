@@ -1,24 +1,40 @@
-"""Drive the PyTorch port's render path once on one NVIDIA GPU.
+"""Drive the PyTorch port's render and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the ray-march kernel from fsnerf_tpu_torch/csrc with nvcc;
-  3. kernel vs its plain PyTorch version at full width — NeRF 8x256 with
-     seeded weights, the 16,384 rays of a 128x128 held-out SphereScene view,
-     a res-128 grid rebuilt from the model's densities, compaction to the
-     eval K and the depth-coherence sort — in a normal case and in a case
-     whose raised sigma bias saturates rays so blocks exit early: rgb and
-     opacity within 7e-3, depth within 3e-2, equal executed-step counts;
-  4. the slice: render_path over 3 path poses at 128x128 through
+  2. build the kernels of fsnerf_tpu_torch/csrc with nvcc (one process per
+     source, in parallel);
+  3. ray-march kernel vs its plain PyTorch version at full width — NeRF
+     8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
+     SphereScene view, a res-128 grid rebuilt from the model's densities,
+     compaction to the eval K and the depth-coherence sort — in a normal
+     case and in a case whose raised sigma bias saturates rays so blocks
+     exit early: rgb and opacity within 7e-3, depth within 3e-2, equal
+     executed-step counts;
+  4. the render slice: render_path over 3 path poses at 128x128 through
      make_fused_render_fn, derive_eval_n_compact and render_frame, with the
-     kernel's launch count read around that run;
-  5. one JSON line describing each kernel, then the device line.
+     ray-march launch count read around that run;
+  5. train kernels vs their plain versions at full width (8x256, 1024 rays
+     x K 192 = 196,608 rows, the cotangent of an MSE loss): rgb within
+     1e-3, sigma within 1e-2 of max |sigma|, every weight and bias gradient
+     within 1e-2 of its max |plain gradient|, two kernel runs bitwise equal,
+     saved-activations and recompute backwards bitwise equal; CUDA-event
+     times of both, kernel and plain;
+  6. the training slice: train() from seeded weights on an 8-view 128x128
+     SphereScene with the default sampling, then the held-out views through
+     the ray march on the trained grid, with the three kernels' launch
+     counts read around that run; the loss must fall and the held-out PSNR
+     must rise at least 5 dB above the untrained weights'; the trained
+     weights' eval K and ray-march skip fraction are printed;
+  7. one JSON line describing each kernel, then the device line.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -29,6 +45,16 @@ import torch
 RGB_OPACITY_TOL = 7e-3      # tests/test_pallas.py ray-march tolerances
 DEPTH_TOL = 3e-2
 SATURATING_SIGMA_BIAS = 5000.0
+# Train kernels vs plain, tighter than the JAX package's fused-MLP
+# tolerances (rgb 5e-3, sigma 2e-2 of max, gradients 2e-2 of max): on an
+# H100 the kernels reached rgb 9.0e-5, sigma 2.2e-3 of max and gradients
+# 4.2e-3 of max at these inputs.
+TRAIN_RGB_TOL = 1e-3
+TRAIN_SIGMA_TOL = 1e-2      # of max |sigma|
+GRAD_TOL = 1e-2             # of each gradient's max |plain gradient|
+TRAIN_ROWS = 1024 * 192     # batch x compaction ceiling
+TRAIN_STEPS = 1500
+MIN_PSNR_GAIN_DB = 5.0
 
 
 def fail(msg: str):
@@ -71,12 +97,9 @@ def compare(name, kr, padded, params, bR, cs, eps):
     def plain():
         kr.ray_march_reference(*padded, params, bR, cs, eps)
 
-    kernel(), plain()                                   # warm up
-    # in turns: plain, kernel, kernel, plain
-    p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kernel, 10),
-                      cuda_ms(kernel, 10), cuda_ms(plain, 3))
-    out = dict(max_abs_err=float(err[:5].max()), ms=(k1 + k2) / 2,
-               plain_ms=(p1 + p2) / 2, executed=executed, total=total)
+    ms, plain_ms = in_turns(plain, kernel)
+    out = dict(max_abs_err=float(err[:5].max()), ms=ms, plain_ms=plain_ms,
+               executed=executed, total=total)
     print(f"{name}: max abs err rgb/opacity {float(err[:4].max()):.3e} "
           f"depth {float(err[4]):.3e}; steps {executed}/{total} "
           f"(skip fraction {1 - executed / total:.4f}); kernel "
@@ -84,48 +107,19 @@ def compare(name, kr, padded, params, bR, cs, eps):
     return out
 
 
-def main():
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs an "
-             "NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+def march_inputs(cfg, grid, split, dev):
+    """The ray march's padded inputs for the first view of `split`, as the
+    render path builds them: lattice, grid mask, compaction to the eval K,
+    depth-coherence sort. Returns (padded, block rows, chunk, eval K)."""
     from fsnerf_tpu_torch import cli
-    from fsnerf_tpu_torch.config import Config
-    from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.data.rays import get_rays
-    from fsnerf_tpu_torch.data.synthetic import (SphereScene,
-                                                 render_sphere_image)
-    from fsnerf_tpu_torch.eval.metrics import psnr, ssim
     from fsnerf_tpu_torch.ops import occgrid as og
-    from fsnerf_tpu_torch.ops.kernels import build
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.sampling import (compact_samples_uniform,
                                                sample_points)
-    from fsnerf_tpu_torch.render.renderer import _masked_lattice, render_path
+    from fsnerf_tpu_torch.render.renderer import _masked_lattice
 
-    # -- 2. build -------------------------------------------------------
-    built = build.build()
-    build.load_library()
-    print(f"build: {built.seconds:.1f} s -> {built.path.name}")
-    for line in built.log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem")):
-            print(f"  ptxas: {line.strip()}")
-
-    # -- 3. kernel vs plain at full width ---------------------------------
-    dev = torch.device("cuda")
-    cfg = Config()
     s = cfg.sampling
-    model = make_model(cfg, torch.bfloat16, torch.Generator().manual_seed(0),
-                       dev)
-    split = cli.build_split("sphere", 1, 128, True, seed=1)
-    grid = cli.rebuild_grid(model, cfg, split.aabb, dev)
     eval_k = cli.derive_eval_n_compact(grid, split, cfg, dev)
     q_stride = og.resolve_query_stride(s, split.aabb)
     pose = torch.as_tensor(split.poses[0], dtype=torch.float32, device=dev)
@@ -143,6 +137,212 @@ def main():
     print(f"rays {ro.shape[0]}, eval K {eval_k}, query stride {q_stride}, "
           f"mean valid samples {float(n_valid.mean()):.1f}, "
           f"block {bR} x chunk {cs}")
+    return padded, bR, cs, eval_k
+
+
+def in_turns(plain, kernel, plain_reps=3, kernel_reps=10):
+    """CUDA-event ms of plain and kernel, timed plain, kernel, kernel,
+    plain after one warm-up call of each."""
+    kernel(), plain()
+    p1, k1, k2, p2 = (cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps),
+                      cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def train_kernels(cfg, dev, card):
+    """Phase 5: the train kernels vs their plain versions at full width."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    lay = mt.TrainLayout.from_config(cfg)
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(3), dev)
+    params = mt.pack_train_params(
+        model.state_dict(), lay,
+        kr.enc_table(lay.n_freqs, lay.n_freqs_views, device=dev))
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = TRAIN_ROWS
+    x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
+                        torch.zeros((n, 1), device=dev)], dim=-1)
+    out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    ref, _ = mt.mlp_train_fwd_reference(x, d, params)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("train forward: kernel output is not finite")
+    rgb_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    sig_err = float((out[:, 3] - ref[:, 3]).abs().max())
+    sig_scale = float(ref[:, 3].abs().max()) + 1e-9
+    if rgb_err > TRAIN_RGB_TOL or sig_err / sig_scale > TRAIN_SIGMA_TOL:
+        fail(f"train forward vs plain: rgb err {rgb_err:.3e}, sigma err "
+             f"{sig_err:.3e} of max {sig_scale:.3e}")
+    dout = (2.0 * (ref - target) / ref.numel()).contiguous()
+    saved = mt.mlp_train_bwd(x, d, dout, params, acts)
+    again = mt.mlp_train_bwd(x, d, dout, params, acts)
+    recomputed = mt.mlp_train_bwd(x, d, dout, params, None)
+    plain = mt.mlp_train_bwd_reference(x, d, dout, params)
+    torch.cuda.synchronize()
+    for a, b, c in zip(saved, again, recomputed):
+        if not torch.equal(a, b):
+            fail("train backward: two kernel runs differ")
+        if not torch.equal(a, c):
+            fail("train backward: saved-acts and recompute grads differ")
+    worst, grad_abs = ("", 0.0), 0.0
+    for name, gk, gp in zip(lay.param_names, lay.grads_from_packed(*saved),
+                            lay.grads_from_packed(*plain)):
+        abs_err = float((gk - gp).abs().max())
+        rel = abs_err / (float(gp.abs().max()) + 1e-30)
+        grad_abs = max(grad_abs, abs_err)
+        if rel > worst[1]:
+            worst = (name, rel)
+    if worst[1] > GRAD_TOL:
+        fail(f"train backward vs plain: {worst[0]} off by {worst[1]:.3e} of "
+             "its max")
+
+    fwd_ms, fwd_plain_ms = in_turns(
+        lambda: mt.mlp_train_fwd_reference(x, d, params, True),
+        lambda: mt.mlp_train_fwd(x, d, params, True))
+    bwd_ms, bwd_plain_ms = in_turns(
+        lambda: mt.mlp_train_bwd_reference(x, d, dout, params, acts),
+        lambda: mt.mlp_train_bwd(x, d, dout, params, acts))
+    print(f"train kernels at {n} rows on {card}: forward max abs err rgb "
+          f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| "
+          f"{sig_scale:.3e}); gradients worst {worst[0]} at {worst[1]:.3e} "
+          f"of its max, max abs err {grad_abs:.3e}; bitwise repeatable, "
+          f"saved == recompute; forward {fwd_ms:.3f} ms (plain "
+          f"{fwd_plain_ms:.3f}), backward {bwd_ms:.3f} ms (plain "
+          f"{bwd_plain_ms:.3f})")
+    return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
+                 plain_ms=fwd_plain_ms),
+            dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms))
+
+
+class ListLogger:
+    """The train loop's logger, kept in memory."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics):
+        self.records.append({"step": step, **metrics})
+
+
+def train_slice(cfg, dev, card):
+    """Phase 6: train, then render the held-out views on the trained grid.
+    Returns the launch counts of the run."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import DataConfig
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.train.loop import train
+
+    tcfg = cfg.replace(
+        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True),
+        train=dataclasses.replace(cfg.train, n_iters=TRAIN_STEPS))
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    model = make_model(tcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    base, _ = cli.evaluate_split(
+        model, og.conservative(cli.rebuild_grid(model, tcfg, scene.aabb,
+                                                dev)), held, tcfg, device=dev)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    log = ListLogger()
+
+    kr.ray_march.launches = 0
+    mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(model, tcfg, pool, scene, logger=log, log_every=100)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    eval_grid = og.conservative(state.grid)
+    got, _ = cli.evaluate_split(model, eval_grid, held, tcfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {"ray_march": kr.ray_march.launches,
+                "mlp_train_fwd": mt.mlp_train_fwd.launches,
+                "mlp_train_bwd": mt.mlp_train_bwd.launches}
+
+    losses = [r["loss"] for r in log.records]
+    print(f"train slice on {card}: {state.step} steps in {train_s:.3f} s, "
+          f"{state.step / train_s:.2f} steps/s, "
+          f"{state.step * tcfg.train.batch_size / train_s:.0f} rays/s "
+          f"(first call included); loss {losses[0]:.5f} at step "
+          f"{log.records[0]['step']} -> {losses[-1]:.5f}; final K "
+          f"{log.records[-1]['n_compact']:.0f}, occupancy "
+          f"{log.records[-1]['occupancy']:.4f}; launches {launches}")
+    print(f"held-out (3 views 128x128): PSNR {got['psnr']:.3f} SSIM "
+          f"{got['ssim']:.4f} eval K {got['eval_k']} after training; "
+          f"untrained PSNR {base['psnr']:.3f} SSIM {base['ssim']:.4f} "
+          f"eval K {base['eval_k']}")
+    if min(launches.values()) == 0:
+        fail(f"the training slice did not launch every kernel: {launches}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"held-out PSNR {got['psnr']:.3f} is not {MIN_PSNR_GAIN_DB} dB "
+             f"above the untrained {base['psnr']:.3f}")
+    # the ray march on trained weights: skip fraction of a held-out view
+    padded, bR, cs, _ = march_inputs(tcfg, eval_grid, held, dev)
+    sd = model.state_dict()
+    compare("trained", kr, padded, kr.prep_params(
+        sd, n_layers=cfg.model.n_layers, skip=cfg.model.skip,
+        n_freqs=cfg.encoder.n_freqs,
+        n_freqs_views=cfg.encoder.n_freqs_views, device=dev), bR, cs,
+        tcfg.sampling.early_stop_eps)
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an "
+             "NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import (SphereScene,
+                                                 render_sphere_image)
+    from fsnerf_tpu_torch.eval.metrics import psnr, ssim
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import build
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.render.renderer import render_path
+
+    # -- 2. build -------------------------------------------------------
+    built = build.build()
+    build.load_library()
+    print(f"build: {built.seconds:.1f} s -> {built.path.name}")
+    for line in built.log.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem")):
+            print(f"  ptxas: {line.strip()}")
+
+    # -- 3. kernel vs plain at full width ---------------------------------
+    dev = torch.device("cuda")
+    cfg = Config()
+    s = cfg.sampling
+    model = make_model(cfg, torch.bfloat16, torch.Generator().manual_seed(0),
+                       dev)
+    split = cli.build_split("sphere", 1, 128, True, seed=1)
+    grid = cli.rebuild_grid(model, cfg, split.aabb, dev)
+    padded, bR, cs, eval_k = march_inputs(cfg, grid, split, dev)
     sd = model.state_dict()
     arch = dict(n_layers=cfg.model.n_layers, skip=cfg.model.skip,
                 n_freqs=cfg.encoder.n_freqs,
@@ -155,7 +355,7 @@ def main():
                   bR, cs, s.early_stop_eps)
     if hot["executed"] >= normal["executed"]:
         fail("a saturating sigma bias did not make blocks exit early")
-    n_rays = ro.shape[0]
+    n_rays = split.hwf[0] * split.hwf[1]
     print(f"ray march at {n_rays} rays x K {eval_k} on {card}: kernel "
           f"{n_rays / normal['ms'] * 1e3:.0f} rays/s, plain "
           f"{n_rays / normal['plain_ms'] * 1e3:.0f} rays/s")
@@ -166,6 +366,7 @@ def main():
     path_split = cli.Split(
         np.stack([render_sphere_image(p, scene.hwf)[0] for p in path]), path,
         scene.hwf, scene.near, scene.far, False, scene.aabb, True)
+    q_stride = og.resolve_query_stride(s, scene.aabb)
     kr.ray_march.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -195,7 +396,13 @@ def main():
           f"end on {card} (first call, grid queries and sort included); "
           f"PSNR {p:.3f} SSIM {q:.4f} vs ground truth (random weights)")
 
-    # -- 5. report --------------------------------------------------------
+    # -- 5. train kernels vs plain at full width ---------------------------
+    fwd, bwd = train_kernels(cfg, dev, card)
+
+    # -- 6. the training slice ----------------------------------------------
+    train_launches = train_slice(cfg, dev, card)
+
+    # -- 7. report --------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "ray_march",
         "route": "cuda",
@@ -205,6 +412,20 @@ def main():
         "max_abs_err": max(normal["max_abs_err"], hot["max_abs_err"]),
         "ms": normal["ms"],
         "plain_ms": normal["plain_ms"],
+    }, {
+        "name": "mlp_train_fwd",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/mlp_train.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/mlp_train.py:560",
+        "launches": train_launches["mlp_train_fwd"],
+        **fwd,
+    }, {
+        "name": "mlp_train_bwd",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/mlp_train.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/mlp_train.py:595",
+        "launches": train_launches["mlp_train_bwd"],
+        **bwd,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,16 +3,19 @@
 Imports torch and numpy only; never jax, flax or fsnerf_tpu. The module
 layout mirrors fsnerf_tpu so each module's counterpart is easy to find:
 
-  cli.py          — render-only command line (fsnerf_tpu/cli.py)
+  cli.py          — train / render-only command line (fsnerf_tpu/cli.py)
   config.py       — config dataclasses, no yaml/argparse (fsnerf_tpu/config.py)
-  data/           — poses, procedural scenes, ray geometry
-  core/           — positional encoding, the NeRF nn.Module
+  data/           — poses, procedural scenes, ray geometry, ray pool
+  core/           — positional encoding, the NeRF nn.Module, losses,
+                    LR schedules
   ops/            — sampling, occupancy grid, volume integration
   ops/kernels/    — hand-written Hopper kernels, their plain-PyTorch
                     versions and the nvcc build (sources in csrc/)
+  train/          — train state, step and loop
   render/         — occgrid ray/frame/path rendering
   eval/           — PSNR / SSIM
-  utils/interop.py — JAX params and reference nn.pt -> port state dict
+  utils/interop.py — JAX params / train state and reference nn.pt -> port
+  scripts/        — card-only measurements (lattice gate, step profile)
 
 Kernel wrappers launch their CUDA kernel for CUDA tensors and run the plain
 PyTorch version only for CPU tensors; there is no fallback between the two.

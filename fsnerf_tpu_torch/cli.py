@@ -1,15 +1,25 @@
-"""Render-only command line (the render path of fsnerf_tpu/cli.py).
+"""Command line of the port (the occgrid train and eval paths of
+fsnerf_tpu/cli.py).
 
-Loads reference-keyed NeRF weights (`--import_torch_ckpt nn.pt`, or a
-seeded init when none are given), rebuilds the occupancy grid with one full
-refresh from the model's densities, derives the eval compaction K from the
-grid, renders held-out views of a procedural scene through the fused
-ray-march kernel and prints PSNR/SSIM as one JSON line.
+Train (the default): builds `--n_imgs` views of a procedural scene, a
+device-resident ray pool and a seeded NeRF, trains it for `--n_iters` steps
+(train/loop.py; the MLP through the fused train kernels on a CUDA device),
+then renders held-out views of the scene through the fused ray-march kernel
+on the conservative view of the trained grid and prints PSNR/SSIM and the
+training rates as one JSON line.
 
-Run:  python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
-          [--import_torch_ckpt nn.pt] [--device cuda]
+Render only (`--render_only`): loads reference-keyed NeRF weights
+(`--import_torch_ckpt nn.pt`, or a seeded init when none are given),
+rebuilds the occupancy grid with one full refresh from the model's
+densities and renders held-out views the same way.
 
-Training, hierarchical sampling, SiNeRF, LLFF and video are not ported yet.
+Run:  python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
+          --white_bkgd [--n_iters 8000] [--hw 800] [--device cuda]
+      python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
+          [--import_torch_ckpt nn.pt]
+
+Hierarchical sampling, SiNeRF, LLFF, checkpoints, in-loop validation and
+video are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,16 +28,17 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .config import (Config, DataConfig, EncoderConfig, ModelConfig,
-                     SamplingConfig)
+                     SamplingConfig, TrainConfig)
 from .ops import occgrid as og
+from .train.loop import COMPACT_STEP, compaction_target
 
-COMPACT_STEP = 16       # ladder step of fsnerf_tpu/train/loop.py
 HELD_OUT_VIEWS = 2
 
 
@@ -43,14 +54,6 @@ class Split:
     ndc: bool
     aabb: np.ndarray
     white_bkgd: bool
-
-
-def compaction_target(nv_q: float, k_max: int, margin: float = 1.0) -> int:
-    """Ladder K for a valid-sample count: ceil(margin * nv / 16) * 16,
-    clamped to [16, k_max] (CompactionController.target,
-    fsnerf_tpu/train/loop.py)."""
-    t = int(-(-margin * max(nv_q, 1.0) // COMPACT_STEP)) * COMPACT_STEP
-    return min(max(t, COMPACT_STEP), k_max)
 
 
 def make_fused_render_fn(state_dict, cfg, step=None, device=None):
@@ -168,39 +171,57 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
 
 def build_split(dataset: str, n_views: int, hw: int, white_bkgd: bool,
                 seed: int) -> Split:
-    """Held-out views of a procedural scene (the K-means splitter of the
-    JAX package is not ported; these views come from their own seed)."""
+    """Views of a procedural scene (the K-means splitter of the JAX package
+    is not ported; these views come from their own seed)."""
+    return split_of(scene_class(dataset)(n_imgs=n_views, hw=hw,
+                                         white_bkgd=white_bkgd, seed=seed))
+
+
+def scene_class(dataset: str):
     from .data.synthetic import LatticeScene, SphereScene
 
-    cls = {"sphere": SphereScene, "lattice": LatticeScene}[dataset]
-    ds = cls(n_imgs=n_views, hw=hw, white_bkgd=white_bkgd, seed=seed)
-    return Split(ds.imgs, ds.poses, ds.hwf, ds.near, ds.far, False,
-                 np.asarray(ds.aabb), white_bkgd)
+    return {"sphere": SphereScene, "lattice": LatticeScene}[dataset]
+
+
+def split_of(scene) -> Split:
+    return Split(scene.imgs, scene.poses, scene.hwf, scene.near, scene.far,
+                 False, np.asarray(scene.aabb), scene.white_bkgd)
 
 
 def parse_args(argv=None):
     d_enc, d_mod, d_smp = EncoderConfig(), ModelConfig(), SamplingConfig()
+    d_trn, d_dat = TrainConfig(), DataConfig()
     p = argparse.ArgumentParser(
-        description="Render held-out views of a procedural scene from NeRF "
-                    "weights (PyTorch + CUDA port).", allow_abbrev=False)
+        description="Train a NeRF on a procedural scene and render its "
+                    "held-out views, or render them from given weights "
+                    "(PyTorch + CUDA port).", allow_abbrev=False)
     p.add_argument("--dataset", choices=["sphere", "lattice"],
                    default="sphere")
     p.add_argument("--render_only", action="store_true",
-                   help="required: training is not ported yet")
+                   help="skip training: render from --import_torch_ckpt "
+                        "weights (or the seeded init)")
     p.add_argument("--import_torch_ckpt", default=None,
                    help="reference nn.pt state dict (default: seeded init)")
     p.add_argument("--device", default=None,
                    help="cuda or cpu (default: cuda when present)")
-    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--seed", type=int, default=d_trn.seed)
     p.add_argument("--hw", type=int, default=64, help="image side")
+    p.add_argument("--n_imgs", type=int, default=d_dat.n_imgs,
+                   help="training views")
     p.add_argument("--white_bkgd", action="store_true")
+    p.add_argument("--out_dir", default="",
+                   help="write metrics.jsonl of the training run here")
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
-                   default="bfloat16", help="model compute dtype")
+                   default=d_trn.dtype, help="NeRF module compute dtype")
     p.add_argument("--n_layers", type=int, default=d_mod.n_layers)
     p.add_argument("--d_filter", type=int, default=d_mod.d_filter)
     p.add_argument("--skip", default=",".join(map(str, d_mod.skip)))
     p.add_argument("--density_activation", default=d_mod.density_activation,
                    choices=["none", "relu", "trunc_exp"])
+    p.add_argument("--fused_kernel", action="store_true", default=None,
+                   help="train through the fused train kernels' plain "
+                        "versions on the CPU too (default: on for CUDA "
+                        "devices only)")
     p.add_argument("--n_freqs", type=int, default=d_enc.n_freqs)
     p.add_argument("--n_freqs_views", type=int, default=d_enc.n_freqs_views)
     p.add_argument("--n_samples", type=int, default=d_smp.n_samples)
@@ -211,6 +232,9 @@ def parse_args(argv=None):
                    default=d_smp.render_step_size)
     p.add_argument("--early_stop_eps", type=float,
                    default=d_smp.early_stop_eps)
+    p.add_argument("--n_iters", type=int, default=d_trn.n_iters)
+    p.add_argument("--batch_size", type=int, default=d_trn.batch_size)
+    p.add_argument("--lro", type=float, default=d_trn.lro)
     return p.parse_args(argv)
 
 
@@ -222,14 +246,43 @@ def config_from_args(args) -> Config:
                                     n_freqs_views=args.n_freqs_views),
         model=dataclasses.replace(
             cfg.model, n_layers=args.n_layers, d_filter=args.d_filter,
-            skip=skip, density_activation=args.density_activation),
-        data=DataConfig(dataset=args.dataset, white_bkgd=args.white_bkgd),
+            skip=skip, density_activation=args.density_activation,
+            fused_kernel=args.fused_kernel),
+        data=DataConfig(dataset=args.dataset, n_imgs=args.n_imgs,
+                        white_bkgd=args.white_bkgd),
         sampling=dataclasses.replace(
             cfg.sampling, n_samples=args.n_samples,
             n_compact=args.n_compact,
             grid_resolution=args.grid_resolution,
             render_step_size=args.render_step_size,
-            early_stop_eps=args.early_stop_eps))
+            early_stop_eps=args.early_stop_eps),
+        train=dataclasses.replace(
+            cfg.train, n_iters=args.n_iters, batch_size=args.batch_size,
+            lro=args.lro, seed=args.seed, dtype=args.dtype))
+
+
+def run_training(model, cfg, hw: int, device, out_dir: str = ""):
+    """Train on cfg.data.n_imgs views of the procedural scene.
+
+    Returns (final TrainState, the scene, dict of training numbers)."""
+    from .data.pool import pool_from_images
+    from .train.loop import MetricsLogger, train
+
+    scene = scene_class(cfg.data.dataset)(
+        n_imgs=cfg.data.n_imgs, hw=hw, white_bkgd=cfg.data.white_bkgd,
+        seed=cfg.train.seed)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf,
+                            device=device)
+    logger = MetricsLogger(out_dir or None)
+    t0 = time.perf_counter()
+    state = train(model, cfg, pool, scene, logger=logger)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    logger.close()
+    return state, scene, {"steps": state.step, "train_seconds": seconds,
+                          "rays_per_sec": state.step * cfg.train.batch_size
+                          / seconds}
 
 
 def main(argv=None) -> int:
@@ -237,22 +290,28 @@ def main(argv=None) -> int:
     from .utils.interop import load_state_dict_file
 
     args = parse_args(argv)
-    if not args.render_only:
-        raise SystemExit("only --render_only is ported; training comes in "
-                         "a later change")
     device = torch.device(args.device or
                           ("cuda" if torch.cuda.is_available() else "cpu"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs stay f32
     cfg = config_from_args(args)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
     model = make_model(cfg, dtype,
                        torch.Generator().manual_seed(args.seed), device)
     if args.import_torch_ckpt:
         model.load_state_dict(load_state_dict_file(args.import_torch_ckpt))
-    split = build_split(args.dataset, HELD_OUT_VIEWS, args.hw,
-                        args.white_bkgd, args.seed + 1)
-    grid = rebuild_grid(model, cfg, split.aabb, device)
-    metrics, _ = evaluate_split(model, grid, split, cfg, device=device)
+    if args.render_only:
+        split = build_split(args.dataset, HELD_OUT_VIEWS, args.hw,
+                            args.white_bkgd, args.seed + 1)
+        grid = rebuild_grid(model, cfg, split.aabb, device)
+        metrics, _ = evaluate_split(model, grid, split, cfg, device=device)
+    else:
+        state, scene, numbers = run_training(model, cfg, args.hw, device,
+                                             args.out_dir)
+        held_out = split_of(scene.holdout(n=HELD_OUT_VIEWS,
+                                          seed=args.seed + 1))
+        metrics, _ = evaluate_split(model, og.conservative(state.grid),
+                                    held_out, cfg, device=device)
+        metrics.update(numbers)
     metrics["device"] = (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")
     print(json.dumps(metrics))

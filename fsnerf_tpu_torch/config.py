@@ -1,11 +1,11 @@
-"""Configuration dataclasses of the render path.
+"""Configuration dataclasses of the render and training paths.
 
 Same section names, field names and defaults as fsnerf_tpu/config.py
-(EncoderConfig, ModelConfig, DataConfig, SamplingConfig), without the yaml
-I/O and the argparse layer: the port's CLI parses its own flags
-(fsnerf_tpu_torch/cli.py). Fields that only the JAX training path or the
-TPU kernels read are kept so a config built for one package names the same
-things in the other.
+(EncoderConfig, ModelConfig, DataConfig, SamplingConfig, TrainConfig),
+without the yaml I/O and the argparse layer: the port's CLI parses its own
+flags (fsnerf_tpu_torch/cli.py). Fields that only the TPU kernels or
+unported features read are kept so a config built for one package names the
+same things in the other; each says so where it is declared.
 """
 
 from __future__ import annotations
@@ -38,10 +38,17 @@ class ModelConfig:
     n_layers: int = 8
     skip: Tuple[int, ...] = (4,)
     density_activation: str = "none"  # none | relu | trunc_exp
-    # Fused train-kernel knobs of the JAX package; the port's training path
-    # is not ported yet, so these are carried but unread.
+    # Train through the fused MLP kernels (ops/kernels/mlp_train.py); None =
+    # auto: on for CUDA devices (train/step.py::resolve_fused_kernel).
     fused_kernel: Optional[bool] = None
+    # The train forward streams the trunk activations to device memory and
+    # the backward reads them (True), or the backward recomputes the trunk
+    # (False); the gradients are bitwise equal either way.
     fused_save_acts: bool = True
+    # TPU tuning knobs of the JAX package's train kernels, carried but
+    # unread: the port always encodes inside its kernels and fixes its own
+    # tiles (fused_encode, block rows, VMEM limit, acts stride, interleave);
+    # siren_save_acts waits for the SiNeRF port.
     fused_encode: bool = True
     fused_block_rows: Optional[int] = None
     fused_fwd_block_rows: Optional[int] = None
@@ -101,11 +108,42 @@ class SamplingConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training options."""
+
+    n_iters: int = 8000
+    batch_size: int = 1024
+    lro: float = 5e-4
+    decay_rate: float = 0.1
+    Td: int = 250000                # weight-reg schedule only (T = n_iters)
+    scheduler: str = "exp"          # const | exp
+    seed: int = 42
+    # weight regularization (alpha, active while step < reg_ratio * Td)
+    ao: Optional[float] = None
+    reg_ratio: float = 0.5
+    reg: str = "l1"                 # l1 | l2
+    # occlusion regularization; beta gates it (it does not scale it)
+    occ_a: Optional[float] = None
+    occ_b: Optional[float] = None
+    occ_func: str = "linear"        # linear | exp
+    beta: Optional[float] = None
+    # compute dtype of the NeRF module (the grid refresh and the path that
+    # does not use the fused kernels): float32 | bfloat16
+    dtype: str = "bfloat16"
+    # hides XLA compile time in the JAX package; the port recompiles nothing
+    # when the compaction K changes, so it is carried but unread
+    async_ladder: Optional[bool] = None
+    # a train-PSNR collapse halts training (a non-finite loss always does)
+    halt_on_divergence: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **sections) -> "Config":
         return dataclasses.replace(self, **sections)

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
-The sources compile with nvcc into a shared library with a plain C
+The sources compile with nvcc into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes seconds,
-not minutes):
+not minutes). Each source compiles in its own nvcc process, all started
+together, and the objects link into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/libfsnerf_kernels_<hash>.so csrc/render.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \
+         -fPIC -Xptxas -v -c -o build/<src>.o csrc/<src>      (per source)
+    nvcc -shared -o build/libfsnerf_kernels_<hash>.so build/*.o
 
 at first use, into the `build/` directory beside csrc/. The file name
 carries a hash of the sources and flags, so an edited source rebuilds and an
@@ -28,10 +30,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("render.cu",)
-HEADERS = ("fastmath.cuh",)
+SOURCES = ("render.cu", "mlp_train.cu")
+HEADERS = ("fastmath.cuh", "mlp_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -62,24 +64,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfsnerf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; their output, or RuntimeError with
+    that of each one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{' '.join(c)} -> {p.returncode}\n{log}"
+              for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "\n".join(logs)
+
+
 def build() -> Built:
     """Compile csrc/ unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s}.o" for s in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)            # atomic: a reader never sees half a file
-    return Built(out, seconds, log)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)        # atomic: a reader never sees half a file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return Built(out, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +107,11 @@ def load_library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
     lib.fsnerf_ray_march.restype = i
+    lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
+    lib.fsnerf_mlp_train_fwd.restype = i
+    lib.fsnerf_mlp_train_bwd.argtypes = (
+        [vp] * 8 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 8 + [vp])
+    lib.fsnerf_mlp_train_bwd.restype = i
     lib.fsnerf_error_string.argtypes = [i]
     lib.fsnerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -78,6 +78,51 @@ class RayMarchParams:
                        bpack=self.bpack.to(device), enc=self.enc.to(device))
 
 
+def pack_weights(sd: Dict[str, torch.Tensor], n_layers: int,
+                 skip: Tuple[int, ...], d_enc_pad: int, d_dir_pad: int):
+    """(wpack bf16, bpack float32 holding bf16-rounded values) of a
+    reference-keyed NeRF state dict in the walk order of RayMarchParams, on
+    the state dict's device."""
+    W = sd["layers.0.weight"].shape[0]
+
+    def rows_padded(w_t: torch.Tensor, rows: int) -> torch.Tensor:
+        return torch.nn.functional.pad(w_t, (0, 0, 0, rows - w_t.shape[0]))
+
+    mats, biases = [], []
+    for i in range(n_layers):
+        w = sd[f"layers.{i}.weight"]                      # [W, in]
+        if i == 0:
+            mats.append(rows_padded(w.t(), d_enc_pad))
+        elif (i - 1) in skip:
+            mats += [w[:, :W].t(), rows_padded(w[:, W:].t(), d_enc_pad)]
+        else:
+            mats.append(w.t())
+        biases.append(sd[f"layers.{i}.bias"])
+    wb = sd["branch.weight"]
+    mats += [sd["sigma.weight"].reshape(-1), sd["connection.weight"].t(),
+             wb[:, :W].t(), rows_padded(wb[:, W:].t(), d_dir_pad),
+             sd["rgb.weight"].t()]
+    biases += [sd["sigma.bias"], sd["connection.bias"], sd["branch.bias"],
+               sd["rgb.bias"]]
+    wpack = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
+    bpack = _bf16(torch.cat([b.reshape(-1) for b in biases]))
+    return wpack.contiguous(), bpack.contiguous()
+
+
+def enc_table(n_freqs: int, n_freqs_views: int, log_space: bool = True,
+              pos_mask=None, dir_mask=None, device=None) -> torch.Tensor:
+    """[2F + 2Fv] float32: freq_x, mask_x, freq_d, mask_d (ones where no
+    FreeNeRF mask is given)."""
+    def band_mask(m, n):
+        return (torch.ones(n, device=device) if m is None
+                else torch.as_tensor(m, dtype=torch.float32).to(device))
+
+    return torch.cat([frequencies(n_freqs, log_space, device),
+                      band_mask(pos_mask, n_freqs),
+                      frequencies(n_freqs_views, log_space, device),
+                      band_mask(dir_mask, n_freqs_views)]).contiguous()
+
+
 def prep_params(
     state_dict: Dict[str, torch.Tensor],
     n_layers: int = 8,
@@ -110,73 +155,50 @@ def prep_params(
     if W % 32:
         raise ValueError(f"width {W} must be a multiple of 32")
     de, dd = _round_up(d_enc, 16), _round_up(d_dir, 16)
-
-    def rows_padded(w_t: torch.Tensor, rows: int) -> torch.Tensor:
-        out = torch.zeros(rows, w_t.shape[1])
-        out[: w_t.shape[0]] = w_t
-        return out
-
-    mats, biases = [], []
-    for i in range(n_layers):
-        w = sd[f"layers.{i}.weight"]                      # [W, in]
-        if i == 0:
-            mats.append(rows_padded(w.t(), de))
-        elif (i - 1) in skip:
-            mats += [w[:, :W].t(), rows_padded(w[:, W:].t(), de)]
-        else:
-            mats.append(w.t())
-        biases.append(sd[f"layers.{i}.bias"])
-    wb = sd["branch.weight"]
-    mats += [sd["sigma.weight"].reshape(-1), sd["connection.weight"].t(),
-             wb[:, :W].t(), rows_padded(wb[:, W:].t(), dd),
-             sd["rgb.weight"].t()]
-    biases += [sd["sigma.bias"], sd["connection.bias"], sd["branch.bias"],
-               sd["rgb.bias"]]
-    wpack = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
-    bpack = _bf16(torch.cat([b.reshape(-1) for b in biases]))
-
-    def band_mask(m, n):
-        return (torch.ones(n) if m is None
-                else torch.as_tensor(m, dtype=torch.float32).cpu())
-
-    enc = torch.cat([frequencies(n_freqs, log_space),
-                     band_mask(pos_mask, n_freqs),
-                     frequencies(n_freqs_views, log_space),
-                     band_mask(dir_mask, n_freqs_views)])
-    return RayMarchParams(wpack.contiguous(), bpack.contiguous(),
-                          enc.contiguous(), n_layers, skip, W, n_freqs,
+    wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
+    enc = enc_table(n_freqs, n_freqs_views, log_space, pos_mask, dir_mask)
+    return RayMarchParams(wpack, bpack, enc, n_layers, skip, W, n_freqs,
                           n_freqs_views, de, dd,
                           density_activation).to(device)
 
 
-def _unpack(p: RayMarchParams):
-    """float32 views of the packed weights, in the kernel's walk order."""
-    W, Wh, de, dd = p.width, p.width // 2, p.d_enc_pad, p.d_dir_pad
-    wf, off = p.wpack.to(torch.float32), 0
+def unpack(wflat: torch.Tensor, bflat: torch.Tensor, n_layers: int,
+           skip: Tuple[int, ...], width: int, d_enc_pad: int,
+           d_dir_pad: int):
+    """Views of flat packed weights and biases in the kernels' walk order:
+    (trunk [(W0,) | (W_h, W_e) | (W_i,)], biases [b_i], heads dict)."""
+    W, Wh, de, dd = width, width // 2, d_enc_pad, d_dir_pad
+    off = 0
 
     def take(rows, cols):
         nonlocal off
-        m = wf[off:off + rows * cols].reshape(rows, cols)
+        m = wflat[off:off + rows * cols].reshape(rows, cols)
         off += rows * cols
         return m
 
     trunk = []
-    for i in range(p.n_layers):
+    for i in range(n_layers):
         if i == 0:
             trunk.append((take(de, W),))
-        elif (i - 1) in p.skip:
+        elif (i - 1) in skip:
             trunk.append((take(W, W), take(de, W)))
         else:
             trunk.append((take(W, W),))
     heads = dict(sigma=take(W, 1), conn=take(W, W), branch_h=take(W, Wh),
                  branch_d=take(dd, Wh), rgb=take(Wh, 3))
-    b = p.bpack
-    b_trunk = [b[i * W:(i + 1) * W] for i in range(p.n_layers)]
-    o = p.n_layers * W
+    b = bflat
+    b_trunk = [b[i * W:(i + 1) * W] for i in range(n_layers)]
+    o = n_layers * W
     heads.update(b_sigma=b[o:o + 1], b_conn=b[o + 1:o + 1 + W],
                  b_branch=b[o + 1 + W:o + 1 + W + Wh],
                  b_rgb=b[o + 1 + W + Wh:o + 4 + W + Wh])
     return trunk, b_trunk, heads
+
+
+def _unpack(p: RayMarchParams):
+    """float32 views of the packed weights, in the kernel's walk order."""
+    return unpack(p.wpack.to(torch.float32), p.bpack, p.n_layers, p.skip,
+                  p.width, p.d_enc_pad, p.d_dir_pad)
 
 
 def encode(v: torch.Tensor, freqs: torch.Tensor, band_mask: torch.Tensor,
@@ -194,10 +216,10 @@ def encode(v: torch.Tensor, freqs: torch.Tensor, band_mask: torch.Tensor,
     return _bf16(out)
 
 
-def _mlp(ex, ed, p: RayMarchParams, unpacked):
-    """(rgb [N, 3], sigma [N]) as f32 matmuls of bf16-rounded operands."""
-    trunk, b_trunk, hd = unpacked
-    h = None
+def trunk_forward(ex, trunk, b_trunk):
+    """Trunk activations [h_0 .. h_{L-1}] (bf16-rounded float32) from the
+    encoded points, as matmuls of bf16-rounded operands."""
+    hs, h = [], None
     for i, ws in enumerate(trunk):
         if i == 0:
             y = ex @ ws[0]
@@ -206,16 +228,29 @@ def _mlp(ex, ed, p: RayMarchParams, unpacked):
         else:
             y = h @ ws[0]
         h = _bf16(torch.relu(y + b_trunk[i]))
+        hs.append(h)
+    return hs
+
+
+def heads_forward(h, ed, hd):
+    """(feat, br, rgb): feat bf16 without activation, br ReLU then bf16,
+    rgb an f32 sigmoid."""
+    feat = _bf16(h @ hd["conn"] + hd["b_conn"])
+    br = _bf16(torch.relu(feat @ hd["branch_h"] + ed @ hd["branch_d"]
+                          + hd["b_branch"]))
+    return feat, br, torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
+
+
+def _mlp(ex, ed, p: RayMarchParams, unpacked):
+    """(rgb [N, 3], sigma [N]) as f32 matmuls of bf16-rounded operands."""
+    trunk, b_trunk, hd = unpacked
+    h = trunk_forward(ex, trunk, b_trunk)[-1]
     sigma = (h @ hd["sigma"])[:, 0] + hd["b_sigma"]
     if p.density_activation == "relu":
         sigma = torch.relu(sigma)
     elif p.density_activation == "trunc_exp":
         sigma = torch.exp(torch.clamp(sigma, -15.0, 15.0))
-    feat = _bf16(h @ hd["conn"] + hd["b_conn"])
-    br = _bf16(torch.relu(feat @ hd["branch_h"] + ed @ hd["branch_d"]
-                          + hd["b_branch"]))
-    rgb = torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
-    return rgb, sigma
+    return heads_forward(h, ed, hd)[2], sigma
 
 
 def _check(x, dirs, t, deltas, mask, block_rows, chunk_s):

@@ -289,6 +289,11 @@ def conservative(grid: OccGrid) -> OccGrid:
     return grid.replace(query_dilation=0, occ_q=occ_q, od_q=od_q)
 
 
+def occupancy_fraction(grid: OccGrid) -> torch.Tensor:
+    """Fraction of occupied cells (diagnostic), on the grid's device."""
+    return torch.mean(grid.binaries.to(torch.float32))
+
+
 def auto_query_stride(aabb, resolution: int, step_size: float,
                       n_samples: int, max_stride: int = 4,
                       dilation: int = 0) -> int:

@@ -1,5 +1,5 @@
-"""Weights across packages: JAX params and reference `nn.pt` files -> the
-port's NeRF state dict.
+"""Weights and training state across packages: JAX params and reference
+`nn.pt` files -> the port's NeRF state dict; a JAX TrainState -> the port's.
 
 The port's NeRF (core/models.py) uses the reference state-dict keys, so a
 reference `nn.pt` loads as it is. JAX/flax params ({'params': {'layers_0':
@@ -35,7 +35,7 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, entry in p.items():
         prefix = _torch_prefix(name)
-        kernel = np.asarray(entry["kernel"], dtype=np.float32)
+        kernel = np.array(entry["kernel"], dtype=np.float32)
         out[f"{prefix}.weight"] = torch.from_numpy(
             np.ascontiguousarray(kernel.T))
         out[f"{prefix}.bias"] = torch.from_numpy(
@@ -46,3 +46,34 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """Reference `nn.pt` (torch.save(model.state_dict())) -> state dict."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def train_state_from_jax(jax_state, model, optimizer, grid, generator):
+    """The port's TrainState carrying a fsnerf_tpu TrainState: its params
+    into `model`, both Adam moment trees and the update count into
+    `optimizer`'s state, its step, and its grid's EMA occupancy and
+    threshold into `grid` (a port grid of the same shape, whose query
+    tables are rebuilt). The JAX key has no counterpart: the port's state
+    takes `generator`. Reads the JAX state by attribute; imports no jax.
+
+    Both packages then start a step from the same state (optax.adam's
+    count, mu, nu are torch.optim.Adam's step, exp_avg, exp_avg_sq)."""
+    from ..ops import occgrid as og
+    from ..train.state import TrainState
+
+    model.load_state_dict(state_dict_from_jax(jax_state.params))
+    adam = next(s for s in jax_state.opt_state
+                if hasattr(s, "mu") and hasattr(s, "nu"))
+    mu = state_dict_from_jax(adam.mu)
+    nu = state_dict_from_jax(adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device).clone(),
+            "exp_avg_sq": nu[name].to(p.device).clone(),
+        }
+    g = og.with_occs(grid, torch.from_numpy(np.array(jax_state.grid.occs)),
+                     torch.from_numpy(np.array(jax_state.grid.thre)))
+    return TrainState(model, optimizer, g, int(np.asarray(jax_state.step)),
+                      generator)

@@ -1,6 +1,14 @@
-"""The ray-march CUDA kernel (fsnerf_tpu_torch/csrc/render.cu) against its
-plain PyTorch version, on an NVIDIA card: rgb/opacity within 7e-3, depth
-within 3e-2, equal executed-step counts.
+"""The CUDA kernels of fsnerf_tpu_torch/csrc against their plain PyTorch
+versions, on an NVIDIA card.
+
+Ray march (render.cu): rgb/opacity within 7e-3, depth within 3e-2, equal
+executed-step counts. Train forward/backward (mlp_train.cu): rgb within
+5e-3 and sigma within 2e-2 of max |sigma| (the fused-MLP tolerances of
+tests/test_pallas.py), every weight and bias gradient within 2e-2 of that
+tensor's max |plain gradient| (the kernels sum in another order, and each
+cotangent is rounded to bf16 before its products, so a rounding flip can
+move a gradient by a bf16 step); gradients bitwise repeatable and bitwise
+equal between the saved-activations and recompute backwards.
 
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor fsnerf_tpu, so on the card's machine (which has no
@@ -12,9 +20,11 @@ jax) it runs without the JAX conftest:
 import pytest
 import torch
 
+from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
 from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
-from torch_parity import march_inputs, nerf_params_np
+from torch_parity import (march_inputs, mlp_inputs, mse_cotangent,
+                          nerf_params_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +90,89 @@ def test_wrapper_counts_launches_and_validates(cuda):
     x_strided = padded[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
         kr.ray_march(x_strided, *padded[1:], params, bR, cs)
+
+
+def _train_params(seed, width, arch, cuda, pos_mask=None, dir_mask=None):
+    sd = {k: v.to(cuda) for k, v in state_dict_from_jax(
+        nerf_params_np(seed, d_filter=width, **arch)).items()}
+    lay = mt.TrainLayout(arch["n_layers"], arch["skip"], width,
+                         arch["n_freqs"], arch["n_freqs_views"])
+    enc = kr.enc_table(lay.n_freqs, lay.n_freqs_views, True, pos_mask,
+                       dir_mask, cuda)
+    return mt.pack_train_params(sd, lay, enc)
+
+
+def _check_train(params, x, d, target):
+    """Kernel vs plain, forward and both backward modes, with the cotangent
+    of an MSE loss; returns the kernel's saved-acts gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    ref, _ = mt.mlp_train_fwd_reference(x, d, params)
+    dout = mse_cotangent(ref, target)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert ((out[:, 3] - ref[:, 3]).abs().max() / scale) < 2e-2
+    saved = mt.mlp_train_bwd(x, d, dout, params, acts)
+    recomputed = mt.mlp_train_bwd(x, d, dout, params, None)
+    plain = mt.mlp_train_bwd_reference(x, d, dout, params)
+    torch.cuda.synchronize()
+    for got, again, want in zip(saved, recomputed, plain):
+        assert torch.equal(got, again)              # saved == recompute
+        assert torch.equal(got, got.bfloat16().float())
+    lay = params.layout
+    for name, g, w in zip(lay.param_names,
+                          lay.grads_from_packed(*saved),
+                          lay.grads_from_packed(*plain)):
+        err = (g - w).abs().max() / (w.abs().max() + 1e-12)
+        assert err < 2e-2, (name, float(err))
+    return saved
+
+
+def test_train_kernels_match_plain_at_full_width(cuda):
+    """NeRF 8x256, skip (4,), n_freqs 10/4 at 8,192 + 72 rows."""
+    params = _train_params(6, 256, FULL, cuda)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(8192 + 72, seed=1))
+    _check_train(params, x, d, target)
+
+
+def test_train_kernels_small_ragged_masked(cuda):
+    """A narrow model, FreeNeRF masks and fewer rows than one tile."""
+    params = _train_params(7, 64, SMALL, cuda,
+                           torch.tensor([1.0, 1.0, 0.4, 0.0]),
+                           torch.tensor([1.0, 0.5]))
+    x, d, target = (a.to(cuda) for a in mlp_inputs(77, seed=2))
+    _check_train(params, x, d, target)
+
+
+def test_train_grads_bitwise_repeatable(cuda):
+    params = _train_params(8, 256, FULL, cuda)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(20_000, seed=3))
+    dout = mse_cotangent(mt.mlp_train_fwd(x, d, params)[0], target)
+    runs = []
+    for _ in range(2):
+        _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+        runs.append(mt.mlp_train_bwd(x, d, dout, params, acts))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_train_wrappers_count_launches_and_validate(cuda):
+    params = _train_params(9, 64, SMALL, cuda)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(300, seed=4))
+    dout = mse_cotangent(mt.mlp_train_fwd(x, d, params)[0], target)
+    f0, b0 = mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches
+    _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    mt.mlp_train_bwd(x, d, dout, params, acts)
+    mt.mlp_train_fwd_reference(x, d, params)
+    assert (mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    x_strided = x.t().contiguous().t()
+    with pytest.raises(ValueError):
+        mt.mlp_train_fwd(x_strided, d, params)
+    with pytest.raises(ValueError):
+        mt.mlp_train_bwd(x, d.cpu(), dout, params, acts)
+    with pytest.raises(ValueError):
+        mt.mlp_train_bwd(x, d, dout, params, acts[:128])

@@ -75,3 +75,20 @@ def march_inputs(seed=0, R=40, K=24):
     n_valid = np.sort(rng.integers(1, K + 1, R))    # depth-coherence order
     mask = t(np.arange(K)[None, :] < n_valid[:, None])
     return x, dirs, tv, dl, mask
+
+
+def mlp_inputs(n, seed=0):
+    """Train-MLP inputs: points in the scene box, unit view directions and
+    an MSE target [n, 4] (rgb in [0, 1], sigma 0), float32 tensors."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.5, 1.5, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    target = np.concatenate([rng.uniform(size=(n, 3)), np.zeros((n, 1))], 1)
+    return t(x), t(d), t(target)
+
+
+def mse_cotangent(out, target):
+    """d/d out of mean((out - target)^2): the cotangent a loss hands the
+    MLP's backward."""
+    return (2.0 * (out - target) / out.numel()).contiguous()
