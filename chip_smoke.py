@@ -29,7 +29,30 @@ Phases (any failure exits non-zero; nothing is caught):
      counts read around that run; the loss must fall and the held-out PSNR
      must rise at least 5 dB above the untrained weights'; the trained
      weights' eval K and ray-march skip fraction are printed;
-  7. one JSON line describing each kernel, then the device line.
+  7. forward-MLP kernel vs its plain version at full width (8x256 seeded
+     weights, the 1,048,576 coarse samples of a 128x128 held-out
+     SphereScene view at 64 per ray, encoded and padded as
+     make_fused_model_fn does): rgb within 5e-3, sigma within 2e-2 of max
+     |sigma|, two runs bitwise equal; relu and trunc_exp sigma at 65,573
+     rows; CUDA-event times of the kernel, the plain version and the bf16
+     NeRF module on the same points (the cuBLAS route);
+  8. the hierarchical render slice: render_path over 3 path poses at
+     128x128 (64 coarse + 128 fine), once with the fused fine pass (the
+     forward MLP and the ray march must launch) and once without it (the
+     forward MLP for both passes), launch counts read around each run;
+  9. the hierarchical training slice: train() from seeded weights on the
+     8-view 128x128 SphereScene with 64 + 128 samples, then the held-out
+     views through evaluate_split, launch counts read around that run: the
+     train kernels must launch twice per step (coarse and fine pass), the
+     forward MLP and the ray march at least once; the loss must fall, the
+     held-out PSNR must rise at least 5 dB above the untrained weights',
+     and the eval without the fused fine pass must land within 0.5 dB of
+     it;
+ 10. the nearest cuBLAS route of each kernel (the bf16 NeRF module on the
+     same rows: no single PyTorch call computes these functions), one JSON
+     line describing each kernel with its bound (the larger of its bytes
+     over 3.35 TB/s and its bf16 FLOP over 989 TFLOP/s, from this run's
+     shapes and executed work), then the device line.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -55,6 +78,15 @@ GRAD_TOL = 1e-2             # of each gradient's max |plain gradient|
 TRAIN_ROWS = 1024 * 192     # batch x compaction ceiling
 TRAIN_STEPS = 1500
 MIN_PSNR_GAIN_DB = 5.0
+# the forward MLP vs plain: tests/test_pallas.py's fused-MLP tolerances
+MLP_RGB_TOL = 5e-3
+MLP_SIGMA_TOL = 2e-2        # of max |sigma|
+HIER_COARSE, HIER_FINE = 64, 128    # BASELINE.json config 2
+HIER_STEPS = 1500
+HIER_FUSED_PSNR_TOL_DB = 0.5
+# the H100 SXM's published peaks (the roofline of the kernels' bound)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
@@ -205,6 +237,12 @@ def train_kernels(cfg, dev, card):
     fwd_ms, fwd_plain_ms = in_turns(
         lambda: mt.mlp_train_fwd_reference(x, d, params, True),
         lambda: mt.mlp_train_fwd(x, d, params, True))
+    weights = (params.wpack, params.bpack, params.enc)
+    fwd_bound = bound(2.0 * mlp_macs(cfg) * n,
+                      nbytes(x, d, *weights, out, acts))
+    bwd_bound = bound(2.0 * bwd_macs(cfg) * n,
+                      nbytes(x, d, dout, acts, *weights, params.wtpack,
+                             *saved))
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: mt.mlp_train_bwd_reference(x, d, dout, params, acts),
         lambda: mt.mlp_train_bwd(x, d, dout, params, acts))
@@ -216,8 +254,9 @@ def train_kernels(cfg, dev, card):
           f"{fwd_plain_ms:.3f}), backward {bwd_ms:.3f} ms (plain "
           f"{bwd_plain_ms:.3f})")
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
-                 plain_ms=fwd_plain_ms),
-            dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms))
+                 plain_ms=fwd_plain_ms, **fwd_bound),
+            dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                 **bwd_bound))
 
 
 class ListLogger:
@@ -303,6 +342,275 @@ def train_slice(cfg, dev, card):
     return launches
 
 
+def mlp_macs(cfg) -> int:
+    """Multiply-adds of one NeRF MLP row at the config's widths (the
+    unpadded encodings: the work the function asks for)."""
+    L, W, skip = cfg.model.n_layers, cfg.model.d_filter, cfg.model.skip
+    de = 3 * (1 + 2 * cfg.encoder.n_freqs)
+    dd = 3 * (1 + 2 * cfg.encoder.n_freqs_views)
+    trunk = de * W + sum(W * W + (de * W if (i - 1) in skip else 0)
+                         for i in range(1, L))
+    return trunk + W + W * W + (W + dd) * (W // 2) + (W // 2) * 3
+
+
+def bwd_macs(cfg) -> int:
+    """Multiply-adds of one row of the MLP's weight-gradient backward from
+    saved trunk activations: the heads' recompute, the input-cotangent
+    products down to layer 1, and the weight-gradient products."""
+    L, W = cfg.model.n_layers, cfg.model.d_filter
+    dd = 3 * (1 + 2 * cfg.encoder.n_freqs_views)
+    heads = W * W + (W + dd) * (W // 2) + (W // 2) * 3
+    dx = (L - 1) * W * W + W * W + W + W * (W // 2) + (W // 2) * 3
+    return heads + dx + mlp_macs(cfg)
+
+
+def nbytes(*tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def bound(flops: float, moved: int) -> dict:
+    """The least time at the published peaks, and which of the two sets
+    it."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def mlp_kernel(cfg, dev, card):
+    """Phase 7: the forward MLP kernel vs its plain version at full width.
+    Returns (the report's numbers, the rows' module time in ms)."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.encoding import positional_encoding
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.rays import get_rays
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.sampling import (sample_points,
+                                               stratified_samples)
+
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(5), dev)
+    params = km.prep_params(model.state_dict(), cfg.model.n_layers,
+                            cfg.model.skip, dev)
+    held = cli.build_split("sphere", 1, 128, True, seed=101)
+    pose = torch.as_tensor(held.poses[0], dtype=torch.float32, device=dev)
+    ro, rd = (a.reshape(-1, 3) for a in get_rays(pose, held.hwf))
+    with torch.no_grad():
+        t_c, _ = stratified_samples(ro, rd, held.near, held.far,
+                                    HIER_COARSE)
+        x = sample_points(ro, rd, t_c).reshape(-1, 3)
+        d = rd[:, None, :].expand(-1, HIER_COARSE, 3).reshape(-1, 3)
+        encx = km.pad_features(positional_encoding(x, cfg.encoder.n_freqs),
+                               params.d_enc_pad)
+        encd = km.pad_features(
+            positional_encoding(d, cfg.encoder.n_freqs_views),
+            params.d_dir_pad)
+    n = encx.shape[0]
+    out = km.nerf_mlp(encx, encd, params)
+    again = km.nerf_mlp(encx, encd, params)
+    ref = km.nerf_mlp_reference(encx, encd, params)
+    torch.cuda.synchronize()
+    if out.shape != (n, 4) or not torch.isfinite(out).all():
+        fail("forward MLP: kernel output is not finite or misshapen")
+    if not torch.equal(out, again):
+        fail("forward MLP: two kernel runs differ")
+    rgb_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    sig_err = float((out[:, 3] - ref[:, 3]).abs().max())
+    sig_scale = float(ref[:, 3].abs().max()) + 1e-9
+    if rgb_err > MLP_RGB_TOL or sig_err / sig_scale > MLP_SIGMA_TOL:
+        fail(f"forward MLP vs plain: rgb err {rgb_err:.3e}, sigma err "
+             f"{sig_err:.3e} of max {sig_scale:.3e}")
+    acts = []
+    small = 65_536 + 37
+    for act in ("relu", "trunc_exp"):
+        a_out = km.nerf_mlp(encx[:small], encd[:small], params, act)
+        a_ref = km.nerf_mlp_reference(encx[:small], encd[:small], params,
+                                      act)
+        torch.cuda.synchronize()
+        a_rgb = float((a_out[:, :3] - a_ref[:, :3]).abs().max())
+        a_sig = float((a_out[:, 3] - a_ref[:, 3]).abs().max()) / (
+            float(a_ref[:, 3].abs().max()) + 1e-9)
+        if not torch.isfinite(a_out).all() or a_rgb > MLP_RGB_TOL or \
+                a_sig > MLP_SIGMA_TOL or (a_out[:, 3] < 0).any():
+            fail(f"forward MLP {act}: rgb err {a_rgb:.3e}, sigma err "
+                 f"{a_sig:.3e} of max")
+        acts.append(f"{act} rgb {a_rgb:.3e} sigma {a_sig:.3e} of max")
+    ms, plain_ms = in_turns(lambda: km.nerf_mlp_reference(encx, encd, params),
+                            lambda: km.nerf_mlp(encx, encd, params))
+    with torch.no_grad():
+        module_ms = cuda_ms(lambda: model(x, d), 3)
+    print(f"forward MLP at {n} rows on {card}: max abs err rgb "
+          f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| {sig_scale:.3e}); "
+          f"{'; '.join(acts)} at {small} rows; bitwise repeatable; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 NeRF module "
+          f"{module_ms:.3f} ms")
+    moved = nbytes(encx, encd, params.wpack, params.bpack, out)
+    return dict(max_abs_err=max(rgb_err, sig_err), ms=ms, plain_ms=plain_ms,
+                **bound(2.0 * mlp_macs(cfg) * n, moved)), module_ms
+
+
+def hier_config(cfg, **train):
+    import dataclasses
+
+    return cfg.replace(
+        sampling=dataclasses.replace(cfg.sampling, strategy="hierarchical",
+                                     n_samples=HIER_COARSE,
+                                     n_fine=HIER_FINE),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def hier_render_slice(model, cfg, dev, card):
+    """Phase 8: render_path with the hierarchical strategy, with and
+    without the fused fine pass."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.data.synthetic import (SphereScene,
+                                                 render_sphere_image)
+    from fsnerf_tpu_torch.eval.metrics import psnr
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.render.renderer import render_path
+
+    hcfg = hier_config(cfg)
+    scene = SphereScene(n_imgs=1, hw=128)
+    path = scene.path_poses[:3]
+    gt = torch.as_tensor(np.stack([render_sphere_image(p, scene.hwf)[0]
+                                   for p in path]))
+    for fused_on in (True, False):
+        km.nerf_mlp.launches = kr.ray_march.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_fn = cli.make_render_model_fn(model, hcfg, device=dev)
+        fused = (cli.make_fused_render_fn(model.state_dict(), hcfg,
+                                          device=dev) if fused_on else None)
+        frames, _ = render_path(
+            model_fn, path, scene.hwf, scene.near, scene.far, device=dev,
+            strategy="hierarchical", n_samples=HIER_COARSE, n_fine=HIER_FINE,
+            white_bkgd=True, fused_render_fn=fused)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"nerf_mlp": km.nerf_mlp.launches,
+                    "ray_march": kr.ray_march.launches}
+        want_march = 1 if fused_on else 0
+        if launches["nerf_mlp"] == 0 or \
+                (launches["ray_march"] > 0) != bool(want_march):
+            fail(f"hierarchical render (fused fine pass {fused_on}) "
+                 f"launched {launches}")
+        if frames.shape != (3, 128, 128, 3) or not np.isfinite(frames).all():
+            fail(f"bad hierarchical frames: shape {frames.shape}")
+        p = float(psnr(torch.as_tensor(frames), gt))
+        print(f"hierarchical render slice (fused fine pass {fused_on}): 3 "
+              f"frames 128x128, C {HIER_COARSE} + F {HIER_FINE}, launches "
+              f"{launches}, {seconds:.3f} s, {3 * 128 * 128 / seconds:.0f} "
+              f"rays/s end to end on {card} (first call included); PSNR "
+              f"{p:.3f} vs ground truth (random weights)")
+
+
+def hier_train_slice(cfg, dev, card):
+    """Phase 9: train the hierarchical strategy, then evaluate the held-out
+    views. Returns the launch counts of the run."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import DataConfig
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.train.loop import train
+
+    tcfg = hier_config(cfg, n_iters=HIER_STEPS).replace(
+        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True))
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    model = make_model(tcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    base, _ = cli.evaluate_split(model, None, held, tcfg, device=dev)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    log = ListLogger()
+
+    kr.ray_march.launches = km.nerf_mlp.launches = 0
+    mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(model, tcfg, pool, scene, logger=log, log_every=100)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, _ = cli.evaluate_split(model, state.grid, held, tcfg, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
+                "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                "nerf_mlp": km.nerf_mlp.launches,
+                "ray_march": kr.ray_march.launches}
+    plain_fine = tcfg.replace(model=dataclasses.replace(tcfg.model,
+                                                        fused_render=False))
+    unfused, _ = cli.evaluate_split(model, state.grid, held, plain_fine,
+                                    device=dev)
+
+    losses = [r["loss"] for r in log.records]
+    print(f"hierarchical train slice on {card}: {state.step} steps in "
+          f"{train_s:.3f} s, {state.step / train_s:.2f} steps/s, "
+          f"{state.step * tcfg.train.batch_size / train_s:.0f} rays/s "
+          f"(first call included); loss {losses[0]:.5f} at step "
+          f"{log.records[0]['step']} -> {losses[-1]:.5f}; launches "
+          f"{launches}")
+    print(f"hierarchical held-out (3 views 128x128): PSNR {got['psnr']:.3f} "
+          f"SSIM {got['ssim']:.4f} in {eval_s:.3f} s after training "
+          f"(without the fused fine pass: PSNR {unfused['psnr']:.3f}); "
+          f"untrained PSNR {base['psnr']:.3f} SSIM {base['ssim']:.4f}")
+    steps = state.step
+    if launches["mlp_train_fwd"] != 2 * steps or \
+            launches["mlp_train_bwd"] != 2 * steps:
+        fail(f"the hierarchical step did not run the train kernels for "
+             f"both passes: {launches} over {steps} steps")
+    if launches["nerf_mlp"] == 0 or launches["ray_march"] == 0:
+        fail(f"the hierarchical eval did not launch every kernel: "
+             f"{launches}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"hierarchical training loss did not fall: {losses}")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"hierarchical held-out PSNR {got['psnr']:.3f} is not "
+             f"{MIN_PSNR_GAIN_DB} dB above the untrained {base['psnr']:.3f}")
+    if abs(unfused["psnr"] - got["psnr"]) > HIER_FUSED_PSNR_TOL_DB:
+        fail(f"the fused fine pass ({got['psnr']:.3f} dB) and the forward "
+             f"MLP's ({unfused['psnr']:.3f} dB) disagree")
+    return launches
+
+
+def module_routes(cfg, dev, march_padded):
+    """Phase 10: the bf16 NeRF module (cuBLAS GEMMs) on each kernel's rows:
+    the ray march's points + volume_render, and the train kernels' 196,608
+    rows forward and backward. Returns ms by kernel name."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.volrend import volume_render
+
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(3), dev)
+    x, dirs, t, deltas, mask = march_padded
+    with torch.no_grad():
+        def march():
+            out = model(x, dirs[:, None, :].expand(x.shape)).float()
+            volume_render(out[..., 3], out[..., :3], t, deltas, mask > 0)
+
+        march_ms = cuda_ms(march, 3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    xs = torch.rand((TRAIN_ROWS, 3), generator=g, device=dev) * 3.0 - 1.5
+    ds = torch.nn.functional.normalize(
+        torch.randn((TRAIN_ROWS, 3), generator=g, device=dev), dim=-1)
+    fwd_ms = cuda_ms(lambda: model(xs, ds), 3)
+    out = model(xs, ds).float()
+    dout = torch.full_like(out, 1.0 / out.numel())
+    params = list(model.parameters())
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, params, dout,
+                                                 retain_graph=True), 3)
+    return {"ray_march": march_ms, "mlp_train_fwd": fwd_ms,
+            "mlp_train_bwd": bwd_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -347,8 +655,14 @@ def main():
     arch = dict(n_layers=cfg.model.n_layers, skip=cfg.model.skip,
                 n_freqs=cfg.encoder.n_freqs,
                 n_freqs_views=cfg.encoder.n_freqs_views, device=dev)
-    normal = compare("normal", kr, padded, kr.prep_params(sd, **arch), bR,
-                     cs, s.early_stop_eps)
+    march_params = kr.prep_params(sd, **arch)
+    normal = compare("normal", kr, padded, march_params, bR, cs,
+                     s.early_stop_eps)
+    # the rows of the block x chunk steps this input needs, through the MLP
+    march_bound = bound(
+        2.0 * mlp_macs(cfg) * normal["executed"] * bR * cs,
+        nbytes(*padded, march_params.wpack, march_params.bpack,
+               march_params.enc) + padded[0].shape[0] * (8 + 1 / bR) * 4)
     hot_sd = dict(sd, **{"sigma.bias": sd["sigma.bias"]
                          + SATURATING_SIGMA_BIAS})
     hot = compare("early-exit", kr, padded, kr.prep_params(hot_sd, **arch),
@@ -402,7 +716,20 @@ def main():
     # -- 6. the training slice ----------------------------------------------
     train_launches = train_slice(cfg, dev, card)
 
-    # -- 7. report --------------------------------------------------------
+    # -- 7. forward MLP kernel vs plain at full width -----------------------
+    mlp, mlp_module_ms = mlp_kernel(cfg, dev, card)
+
+    # -- 8. the hierarchical render slice -----------------------------------
+    hier_render_slice(model, cfg, dev, card)
+
+    # -- 9. the hierarchical training slice ---------------------------------
+    hier_launches = hier_train_slice(cfg, dev, card)
+
+    # -- 10. report ---------------------------------------------------------
+    module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms)
+    print(f"nearest cuBLAS route, the bf16 NeRF module on each kernel's rows "
+          f"on {card} (no single PyTorch call computes these functions): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in module_ms.items()))
     print(json.dumps({"kernels": [{
         "name": "ray_march",
         "route": "cuda",
@@ -412,6 +739,8 @@ def main():
         "max_abs_err": max(normal["max_abs_err"], hot["max_abs_err"]),
         "ms": normal["ms"],
         "plain_ms": normal["plain_ms"],
+        **march_bound,
+        "library_ms": None,
     }, {
         "name": "mlp_train_fwd",
         "route": "cuda",
@@ -419,6 +748,7 @@ def main():
         "replaces": "fsnerf_tpu/ops/pallas/mlp_train.py:560",
         "launches": train_launches["mlp_train_fwd"],
         **fwd,
+        "library_ms": None,
     }, {
         "name": "mlp_train_bwd",
         "route": "cuda",
@@ -426,6 +756,15 @@ def main():
         "replaces": "fsnerf_tpu/ops/pallas/mlp_train.py:595",
         "launches": train_launches["mlp_train_bwd"],
         **bwd,
+        "library_ms": None,
+    }, {
+        "name": "nerf_mlp",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/mlp.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/mlp.py:276",
+        "launches": hier_launches["nerf_mlp"],
+        **mlp,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

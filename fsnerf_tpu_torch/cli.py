@@ -1,25 +1,33 @@
-"""Command line of the port (the occgrid train and eval paths of
-fsnerf_tpu/cli.py).
+"""Command line of the port (the train and eval paths of
+fsnerf_tpu/cli.py, both sampling strategies).
 
 Train (the default): builds `--n_imgs` views of a procedural scene, a
 device-resident ray pool and a seeded NeRF, trains it for `--n_iters` steps
 (train/loop.py; the MLP through the fused train kernels on a CUDA device),
-then renders held-out views of the scene through the fused ray-march kernel
-on the conservative view of the trained grid and prints PSNR/SSIM and the
-training rates as one JSON line.
+then renders held-out views of the scene and prints PSNR/SSIM and the
+training rates as one JSON line. occgrid renders them through the fused
+ray-march kernel on the conservative view of the trained grid;
+hierarchical runs the coarse pass through the fused forward MLP
+(ops/kernels/mlp.py) and the fine pass through the ray march over the
+sorted coarse-and-fine union (`--no_fused_render`: through the forward
+MLP too).
 
 Render only (`--render_only`): loads reference-keyed NeRF weights
 (`--import_torch_ckpt nn.pt`, or a seeded init when none are given),
-rebuilds the occupancy grid with one full refresh from the model's
-densities and renders held-out views the same way.
+rebuilds the occupancy grid (occgrid) with one full refresh from the
+model's densities and renders held-out views the same way.
+
+The kernels run on the card: the device is `cuda` unless `--device cpu`
+asks for the CPU, where the kernels' plain versions run.
 
 Run:  python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
-          --white_bkgd [--n_iters 8000] [--hw 800] [--device cuda]
+          --white_bkgd [--n_iters 8000] [--hw 800]
+      python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
+          --white_bkgd --strategy hierarchical --n_samples 64 --n_fine 128
       python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
           [--import_torch_ckpt nn.pt]
 
-Hierarchical sampling, SiNeRF, LLFF, checkpoints, in-loop validation and
-video are not ported yet.
+SiNeRF, LLFF, checkpoints, in-loop validation and video are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,24 +64,48 @@ class Split:
     white_bkgd: bool
 
 
+def make_render_model_fn(model, cfg, step=None, device=None):
+    """The eval-time model_fn: the fused forward MLP (ops/kernels/mlp.py,
+    the weights packed once) when resolve_fused_kernel says so for a NeRF,
+    else the module. `step` anneals the FreeNeRF masks (None: no masks)."""
+    from .train.step import make_masks, resolve_fused_kernel
+
+    if device is None:
+        device = next(model.parameters()).device
+    pos_mask, dir_mask = ((None, None) if step is None
+                          else make_masks(cfg, step, device))
+    if resolve_fused_kernel(cfg, device) and cfg.model.model == "nerf":
+        from .ops.kernels.mlp import make_fused_model_fn
+        return make_fused_model_fn(
+            model.state_dict(), n_layers=cfg.model.n_layers,
+            skip=tuple(cfg.model.skip), n_freqs=cfg.encoder.n_freqs,
+            n_freqs_views=cfg.encoder.n_freqs_views,
+            log_space=cfg.encoder.log_space,
+            density_activation=cfg.model.density_activation,
+            pos_mask=pos_mask, dir_mask=dir_mask, device=device)
+
+    def model_fn(x, d=None):
+        return model(x, d, pos_mask=pos_mask, dir_mask=dir_mask)
+
+    return model_fn
+
+
 def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     """The fused ray-march renderer (ops/kernels/render.py) when the config
-    allows it (NeRF with view dirs, occgrid, skip feeding a trunk layer,
-    fused_render on); None otherwise. `step` anneals the FreeNeRF masks."""
+    allows it (NeRF with view dirs, skip feeding a trunk layer, fused_render
+    on; occgrid marches the compacted samples, hierarchical its fine pass);
+    None otherwise. `step` anneals the FreeNeRF masks."""
     skip = tuple(cfg.model.skip)
     if not (cfg.model.fused_render and cfg.model.model == "nerf"
-            and cfg.sampling.strategy == "occgrid"
+            and cfg.sampling.strategy in ("occgrid", "hierarchical")
             and not cfg.encoder.no_dirs
             and not (skip and max(skip) >= cfg.model.n_layers - 1)):
         return None
-    from .core.encoding import freq_mask
     from .ops.kernels.render import make_fused_ray_renderer
+    from .train.step import make_masks
 
-    pos_mask = dir_mask = None
-    if step is not None and cfg.encoder.freq_reg_end > 0:
-        T = cfg.encoder.freq_reg_end
-        pos_mask = freq_mask(cfg.encoder.n_freqs, step, T)
-        dir_mask = freq_mask(cfg.encoder.n_freqs_views, step, T)
+    pos_mask, dir_mask = ((None, None) if step is None
+                          else make_masks(cfg, step))
     return make_fused_ray_renderer(
         state_dict, n_layers=cfg.model.n_layers, skip=skip,
         n_freqs=cfg.encoder.n_freqs, n_freqs_views=cfg.encoder.n_freqs_views,
@@ -141,13 +173,11 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
     s = cfg.sampling
     q_stride = og.resolve_query_stride(s, split.aabb)
     eval_k = derive_eval_n_compact(grid, split, cfg, device)
-
-    def model_fn(x, d=None):
-        return model(x, d)
-
+    model_fn = make_render_model_fn(model, cfg, device=device)
     chunk_renderer = make_chunk_renderer(
-        model_fn, grid=grid, n_samples=s.n_samples,
-        render_step_size=s.render_step_size, white_bkgd=split.white_bkgd,
+        model_fn, strategy=s.strategy, grid=grid, n_samples=s.n_samples,
+        n_fine=s.n_fine, render_step_size=s.render_step_size,
+        white_bkgd=split.white_bkgd, near=split.near, far=split.far,
         n_compact=eval_k, early_stop_eps=s.early_stop_eps,
         query_stride=q_stride,
         fused_render_fn=make_fused_render_fn(model.state_dict(), cfg,
@@ -157,8 +187,9 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
         img, _ = render_frame(
             model_fn, torch.as_tensor(np.asarray(pose, np.float32),
                                       device=device),
-            split.hwf, split.near, split.far, ndc=split.ndc,
-            chunksize=chunksize, chunk_renderer=chunk_renderer)
+            split.hwf, split.near, split.far, strategy=s.strategy,
+            ndc=split.ndc, chunksize=chunksize,
+            chunk_renderer=chunk_renderer)
         preds.append(img)
     preds = torch.stack(preds)
     metrics = evaluate_frames(
@@ -202,8 +233,9 @@ def parse_args(argv=None):
                         "weights (or the seeded init)")
     p.add_argument("--import_torch_ckpt", default=None,
                    help="reference nn.pt state dict (default: seeded init)")
-    p.add_argument("--device", default=None,
-                   help="cuda or cpu (default: cuda when present)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu, where the kernels' "
+                        "plain versions run")
     p.add_argument("--seed", type=int, default=d_trn.seed)
     p.add_argument("--hw", type=int, default=64, help="image side")
     p.add_argument("--n_imgs", type=int, default=d_dat.n_imgs,
@@ -219,12 +251,20 @@ def parse_args(argv=None):
     p.add_argument("--density_activation", default=d_mod.density_activation,
                    choices=["none", "relu", "trunc_exp"])
     p.add_argument("--fused_kernel", action="store_true", default=None,
-                   help="train through the fused train kernels' plain "
-                        "versions on the CPU too (default: on for CUDA "
-                        "devices only)")
+                   help="train and render through the fused MLP kernels' "
+                        "plain versions on the CPU too (default: on for "
+                        "CUDA devices only)")
+    p.add_argument("--no_fused_render", action="store_true",
+                   help="render without the fused ray-march kernel")
     p.add_argument("--n_freqs", type=int, default=d_enc.n_freqs)
     p.add_argument("--n_freqs_views", type=int, default=d_enc.n_freqs_views)
-    p.add_argument("--n_samples", type=int, default=d_smp.n_samples)
+    p.add_argument("--strategy", choices=["occgrid", "hierarchical"],
+                   default=d_smp.strategy)
+    p.add_argument("--n_samples", type=int, default=d_smp.n_samples,
+                   help="occgrid lattice samples, or hierarchical coarse "
+                        "samples")
+    p.add_argument("--n_fine", type=int, default=d_smp.n_fine,
+                   help="hierarchical inverse-CDF samples")
     p.add_argument("--n_compact", type=int, default=d_smp.n_compact)
     p.add_argument("--grid_resolution", type=int,
                    default=d_smp.grid_resolution)
@@ -247,12 +287,13 @@ def config_from_args(args) -> Config:
         model=dataclasses.replace(
             cfg.model, n_layers=args.n_layers, d_filter=args.d_filter,
             skip=skip, density_activation=args.density_activation,
-            fused_kernel=args.fused_kernel),
+            fused_kernel=args.fused_kernel,
+            fused_render=not args.no_fused_render),
         data=DataConfig(dataset=args.dataset, n_imgs=args.n_imgs,
                         white_bkgd=args.white_bkgd),
         sampling=dataclasses.replace(
-            cfg.sampling, n_samples=args.n_samples,
-            n_compact=args.n_compact,
+            cfg.sampling, strategy=args.strategy, n_samples=args.n_samples,
+            n_fine=args.n_fine, n_compact=args.n_compact,
             grid_resolution=args.grid_resolution,
             render_step_size=args.render_step_size,
             early_stop_eps=args.early_stop_eps),
@@ -290,8 +331,12 @@ def main(argv=None) -> int:
     from .utils.interop import load_state_dict_file
 
     args = parse_args(argv)
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("fsnerf_tpu_torch.cli: no CUDA device is available; pass "
+              "--device cpu to run the kernels' plain versions on the CPU",
+              file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs stay f32
     cfg = config_from_args(args)
     dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
@@ -302,7 +347,8 @@ def main(argv=None) -> int:
     if args.render_only:
         split = build_split(args.dataset, HELD_OUT_VIEWS, args.hw,
                             args.white_bkgd, args.seed + 1)
-        grid = rebuild_grid(model, cfg, split.aabb, device)
+        grid = (rebuild_grid(model, cfg, split.aabb, device)
+                if cfg.sampling.strategy == "occgrid" else None)
         metrics, _ = evaluate_split(model, grid, split, cfg, device=device)
     else:
         state, scene, numbers = run_training(model, cfg, args.hw, device,

@@ -81,9 +81,9 @@ class DataConfig:
 class SamplingConfig:
     """Ray sampling and occupancy grid."""
 
-    strategy: str = "occgrid"       # occgrid (hierarchical is not ported yet)
-    n_samples: int = 512
-    n_fine: int = 128
+    strategy: str = "occgrid"       # occgrid | hierarchical
+    n_samples: int = 512            # occgrid lattice, or hierarchical coarse
+    n_fine: int = 128               # hierarchical inverse-CDF samples
     # compact each ray's valid samples to this many before the MLP runs;
     # the ceiling of the adaptive ladder (derive_eval_n_compact)
     n_compact: int = 192

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 
-def _linspace(start: float, stop: float, n: int, device=None):
+def linspace(start: float, stop: float, n: int, device=None):
     """float32 linspace by jnp.linspace's formula, start*(1-s) + stop*s with
     s = i/(n-1) and the endpoint exact. torch.linspace rounds differently;
     this gives the JAX package's log-spaced bands to the bit (XLA may still
@@ -30,8 +30,8 @@ def frequencies(n_freqs: int, log_space: bool = True,
                 device=None) -> torch.Tensor:
     """Frequency bands [F] float32."""
     if log_space:
-        return 2.0 ** _linspace(0.0, n_freqs - 1, n_freqs, device)
-    return _linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs, device)
+        return 2.0 ** linspace(0.0, n_freqs - 1, n_freqs, device)
+    return linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs, device)
 
 
 def positional_encoding(

@@ -1,7 +1,8 @@
 // Building blocks shared by the NeRF-MLP kernels of csrc/ (the ray march of
-// render.cu and the train forward/backward of mlp_train.cu): the 128-row
-// tensor-core GEMM with weights streamed through shared memory, its
-// forward epilogue, and the positional encoding of one feature.
+// render.cu, the forward MLP of mlp.cu and the train forward/backward of
+// mlp_train.cu): the 128-row tensor-core GEMM with weights streamed through
+// shared memory, its forward epilogue, the forward NeRF MLP on encoded rows,
+// and the positional encoding of one feature.
 //
 // Every kernel that uses them runs kThreads threads per CTA over a tile of
 // kRows rows held in shared memory as bf16 (row stride padded by kPad so
@@ -223,6 +224,104 @@ __device__ __forceinline__ void gemm_layer(const Seg& s0, const Seg& s1,
   gemm(s0, s1, N, slabs, epi);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The NeRF MLP's shape and the packed weights it walks
+// (ops/kernels/render.py::pack_weights).
+struct Mlp {
+  const bf16* wpack;    // [in, out] matrices in walk order
+  const float* bpack;   // biases (bf16-rounded values)
+  int n_layers, skip_mask, width, d_enc_pad, d_dir_pad, density_act;
+};
+
+// The forward NeRF MLP on the kRows encoded rows encx [kRows, LDE] and encd
+// [kRows, LDD] in shared memory: sig[row] and rgb[3 row] (shared, f32) for
+// rows < nrows. buf0 / buf1 are [kRows, width + kPad] bf16 activation
+// buffers, slabs the weight staging of gemm(). Numerics of the TPU kernels:
+// bf16 operands, f32 accumulation, bf16-rounded bias added in f32, trunk
+// ReLU then bf16, the skip concat [h, enc] as two GEMMs into one
+// accumulator, sigma raw / ReLU / exp(clip(., -15, 15)), feat = bf16(conn
+// + bias), branch ReLU then bf16, rgb an f32 sigmoid. Ends with a barrier.
+__device__ void nerf_mlp_rows(const Mlp& m, const bf16* encx, int LDE,
+                              const bf16* encd, int LDD, bf16* buf0,
+                              bf16* buf1, bf16* slabs, int nrows, float* sig,
+                              float* rgb) {
+  const int W = m.width, Wh = m.width / 2, LDH = W + kPad;
+  const int DE = m.d_enc_pad, DD = m.d_dir_pad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* w = m.wpack;
+  const float* b = m.bpack;
+  bf16* hin = nullptr;
+  bf16* hout = buf0;
+  const Seg none = {nullptr, 0, nullptr, 0};
+  for (int i = 0; i < m.n_layers; ++i) {
+    if (i == 0) {
+      gemm_layer(Seg{encx, LDE, w, DE}, none, b, W, true, hout, LDH, slabs);
+      w += DE * W;
+    } else if ((m.skip_mask >> i) & 1) {
+      gemm_layer(Seg{hin, LDH, w, W}, Seg{encx, LDE, w + W * W, DE}, b, W,
+                 true, hout, LDH, slabs);
+      w += W * W + DE * W;
+    } else {
+      gemm_layer(Seg{hin, LDH, w, W}, none, b, W, true, hout, LDH, slabs);
+      w += W * W;
+    }
+    b += W;
+    __syncthreads();
+    hin = hout;
+    hout = (hout == buf0) ? buf1 : buf0;
+  }
+
+  // sigma head from h_last (hin): a warp per row, lanes across k
+  const bf16* w_sigma = w;
+  w += W;
+  const float b_sigma = b[0];
+  b += 1;
+  for (int row = warp; row < nrows; row += kThreads / 32) {
+    const bf16* h = hin + row * LDH;
+    float s = 0.f;
+    for (int k = lane; k < W; k += 32)
+      s += __bfloat162float(h[k]) * __bfloat162float(w_sigma[k]);
+    s = warp_sum(s) + b_sigma;
+    if (m.density_act == 1) s = fmaxf(s, 0.f);
+    else if (m.density_act == 2) s = expf(fminf(fmaxf(s, -15.f), 15.f));
+    if (lane == 0) sig[row] = s;
+  }
+  // connection (no activation) -> hout; branch [feat, dir] -> hin
+  gemm_layer(Seg{hin, LDH, w, W}, none, b, W, false, hout, LDH, slabs);
+  w += W * W;
+  b += W;
+  __syncthreads();
+  gemm_layer(Seg{hout, LDH, w, W}, Seg{encd, LDD, w + W * Wh, DD}, b, Wh,
+             true, hin, LDH, slabs);
+  w += W * Wh + DD * Wh;
+  b += Wh;
+  __syncthreads();
+  for (int row = warp; row < nrows; row += kThreads / 32) {
+    const bf16* h = hin + row * LDH;
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+    for (int k = lane; k < Wh; k += 32) {
+      const float hv = __bfloat162float(h[k]);
+      v0 += hv * __bfloat162float(w[3 * k]);
+      v1 += hv * __bfloat162float(w[3 * k + 1]);
+      v2 += hv * __bfloat162float(w[3 * k + 2]);
+    }
+    v0 = warp_sum(v0) + b[0];
+    v1 = warp_sum(v1) + b[1];
+    v2 = warp_sum(v2) + b[2];
+    if (lane == 0) {
+      rgb[3 * row] = 1.f / (1.f + expf(-v0));
+      rgb[3 * row + 1] = 1.f / (1.f + expf(-v1));
+      rgb[3 * row + 2] = 1.f / (1.f + expf(-v2));
+    }
+  }
+  __syncthreads();
+}
+
 // One encoded feature of v in the reference layout [v, sin f0 v, cos f0 v,
 // ...] (3 lanes per group), times the band's FreeNeRF mask; 0 past the end.
 __device__ __forceinline__ float encode_lane(const float* v, int col,
@@ -236,12 +335,6 @@ __device__ __forceinline__ float encode_lane(const float* v, int col,
   const float phase = w >= 3 ? kHalfPi : 0.f;
   const float arg = __fadd_rn(__fmul_rn(v[w % 3], freq[band]), phase);
   return __fmul_rn(sin_fast(arg), band_mask[band]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 }  // namespace

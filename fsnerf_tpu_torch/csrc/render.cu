@@ -36,7 +36,8 @@
 // The encoding uses the polynomial sin of fastmath.cuh (cos x = sin(x+pi/2))
 // in the reference layout [x, sin f0 x, cos f0 x, ...], zero-padded. The
 // GEMM, its epilogue and the encoding live in mlp_common.cuh, shared with
-// the train kernels of mlp_train.cu.
+// the train kernels of mlp_train.cu; the MLP itself (nerf_mlp_rows) with the
+// forward MLP of mlp.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,7 +108,7 @@ __device__ __forceinline__ void chunk_store(const ChunkIn& in, float* xs,
 
 __global__ void __launch_bounds__(kThreads, 1) ray_march_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int W = a.width, Wh = a.width / 2;
+  const int W = a.width;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
   // shared row strides, padded by 16 B so ldmatrix rows hit distinct banks
   const int LDH = W + kPad, LDE = DE + kPad, LDD = DD + kPad;
@@ -127,7 +128,9 @@ __global__ void __launch_bounds__(kThreads, 1) ray_march_kernel(Args a) {
   float* ds = ts + kRows;
   float* ms = ds + kRows;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
+  const Mlp mlp = {a.wpack, a.bpack,     a.n_layers,  a.skip_mask,
+                   a.width, a.d_enc_pad, a.d_dir_pad, a.density_act};
   const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
   const int ray0 = blockIdx.x * bR;
   const int n_chunks = a.K / cs;
@@ -175,75 +178,8 @@ __global__ void __launch_bounds__(kThreads, 1) ray_march_kernel(Args a) {
     }
     __syncthreads();
 
-    // trunk: the weight walk follows ops/kernels/render.py::prep_params
-    const bf16* w = a.wpack;
-    const float* b = a.bpack;
-    bf16* hin = nullptr;
-    bf16* hout = buf0;
-    const Seg none = {nullptr, 0, nullptr, 0};
-    for (int i = 0; i < a.n_layers; ++i) {
-      if (i == 0) {
-        gemm_layer(Seg{encx, LDE, w, DE}, none, b, W, true, hout, LDH, slabs);
-        w += DE * W;
-      } else if ((a.skip_mask >> i) & 1) {
-        // the skip concat [h, enc] as two GEMMs into one accumulator
-        gemm_layer(Seg{hin, LDH, w, W}, Seg{encx, LDE, w + W * W, DE}, b, W,
-                   true, hout, LDH, slabs);
-        w += W * W + DE * W;
-      } else {
-        gemm_layer(Seg{hin, LDH, w, W}, none, b, W, true, hout, LDH, slabs);
-        w += W * W;
-      }
-      b += W;
-      __syncthreads();
-      hin = hout;
-      hout = (hout == buf0) ? buf1 : buf0;
-    }
-
-    // sigma head from h_last (hin): a warp per row, lanes across k
-    const bf16* w_sigma = w;
-    w += W;
-    const float b_sigma = b[0];
-    b += 1;
-    for (int row = warp; row < nrows; row += kThreads / 32) {
-      const bf16* h = hin + row * LDH;
-      float s = 0.f;
-      for (int k = lane; k < W; k += 32)
-        s += __bfloat162float(h[k]) * __bfloat162float(w_sigma[k]);
-      s = warp_sum(s) + b_sigma;
-      if (a.density_act == 1) s = fmaxf(s, 0.f);
-      else if (a.density_act == 2) s = expf(fminf(fmaxf(s, -15.f), 15.f));
-      if (lane == 0) sig[row] = s;
-    }
-    // connection (no activation) -> hout; branch [feat, dir] -> hin
-    gemm_layer(Seg{hin, LDH, w, W}, none, b, W, false, hout, LDH, slabs);
-    w += W * W;
-    b += W;
-    __syncthreads();
-    gemm_layer(Seg{hout, LDH, w, W}, Seg{encd, LDD, w + W * Wh, DD}, b, Wh,
-               true, hin, LDH, slabs);
-    w += W * Wh + DD * Wh;
-    b += Wh;
-    __syncthreads();
-    for (int row = warp; row < nrows; row += kThreads / 32) {
-      const bf16* h = hin + row * LDH;
-      float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-      for (int k = lane; k < Wh; k += 32) {
-        const float hv = __bfloat162float(h[k]);
-        v0 += hv * __bfloat162float(w[3 * k]);
-        v1 += hv * __bfloat162float(w[3 * k + 1]);
-        v2 += hv * __bfloat162float(w[3 * k + 2]);
-      }
-      v0 = warp_sum(v0) + b[0];
-      v1 = warp_sum(v1) + b[1];
-      v2 = warp_sum(v2) + b[2];
-      if (lane == 0) {
-        rgb[3 * row] = 1.f / (1.f + expf(-v0));
-        rgb[3 * row + 1] = 1.f / (1.f + expf(-v1));
-        rgb[3 * row + 2] = 1.f / (1.f + expf(-v2));
-      }
-    }
-    __syncthreads();
+    nerf_mlp_rows(mlp, encx, LDE, encd, LDD, buf0, buf1, slabs, nrows, sig,
+                  rgb);
 
     // composite: per-ray serial scan over the chunk, od carried across chunks
     if (tid < bR) {

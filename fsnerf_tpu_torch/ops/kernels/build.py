@@ -30,7 +30,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("render.cu", "mlp_train.cu")
+SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu")
 HEADERS = ("fastmath.cuh", "mlp_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +107,8 @@ def load_library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
     lib.fsnerf_ray_march.restype = i
+    lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 7 + [vp]
+    lib.fsnerf_nerf_mlp.restype = i
     lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
     lib.fsnerf_mlp_train_fwd.restype = i
     lib.fsnerf_mlp_train_bwd.argtypes = (

@@ -241,14 +241,15 @@ def heads_forward(h, ed, hd):
     return feat, br, torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
 
 
-def _mlp(ex, ed, p: RayMarchParams, unpacked):
-    """(rgb [N, 3], sigma [N]) as f32 matmuls of bf16-rounded operands."""
+def mlp_forward(ex, ed, density_activation: str, unpacked):
+    """(rgb [N, 3], sigma [N]) of the encoded rows as f32 matmuls of
+    bf16-rounded operands; unpacked as unpack() returns it."""
     trunk, b_trunk, hd = unpacked
     h = trunk_forward(ex, trunk, b_trunk)[-1]
     sigma = (h @ hd["sigma"])[:, 0] + hd["b_sigma"]
-    if p.density_activation == "relu":
+    if density_activation == "relu":
         sigma = torch.relu(sigma)
-    elif p.density_activation == "trunc_exp":
+    elif density_activation == "trunc_exp":
         sigma = torch.exp(torch.clamp(sigma, -15.0, 15.0))
     return heads_forward(h, ed, hd)[2], sigma
 
@@ -306,7 +307,8 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
         n = idx.numel()
         ex = encode(x[idx, sl].reshape(-1, 3), fx, mx, params.d_enc_pad)
         ed = ed_all[idx].repeat_interleave(cs, dim=0)
-        rgb, sigma = _mlp(ex, ed, params, unpacked)
+        rgb, sigma = mlp_forward(ex, ed, params.density_activation,
+                                 unpacked)
         od = sigma.view(n, cs) * deltas[idx, sl] * mask[idx, sl]
         cum = torch.cumsum(od, dim=-1)
         w = torch.exp(-(od_acc[idx, None] + cum - od)) * (1.0 - torch.exp(-od))

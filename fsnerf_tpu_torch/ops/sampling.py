@@ -1,9 +1,10 @@
-"""Dense per-ray sample lattices and their compaction (port of the occgrid
-half of fsnerf_tpu/ops/sampling.py).
+"""Ray sampling (port of fsnerf_tpu/ops/sampling.py): dense per-ray sample
+lattices and their compaction for the occgrid strategy; stratified bins and
+inverse-CDF resampling for the hierarchical strategy.
 
-Every ray gets a fixed number of samples inside its ray/AABB intersection;
-out-of-grid samples are masked, not dropped. Where JAX took a PRNG key, the
-port takes the jitter itself as a tensor.
+Every ray gets a fixed number of samples; out-of-grid samples are masked,
+not dropped. Where JAX took a PRNG key, the port takes the draws themselves
+as tensors (None gives the deterministic eval-time values).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.encoding import linspace
 from ..data.rays import ray_aabb_intersect
 
 
@@ -54,6 +56,90 @@ def uniform_samples(
     deltas = dt[:, None].expand(R, n_samples)
     valid = hit[:, None] & (t_mid < t_max[:, None])
     return t_mid, deltas, valid
+
+
+def stratified_samples(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    u: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classic-NeRF stratified sampling in [near, far]: bin i of
+    linspace(near, far, S + 1) holds t = lower_i + (upper_i - lower_i) * u.
+
+    u: [R, S] per-bin jitter in [0, 1), or None for the bin centres.
+    Returns t_vals [R, S] sorted and deltas [R, S] (the last closes to far).
+    """
+    R = rays_o.shape[0]
+    edges = linspace(near, far, n_samples + 1, rays_o.device)
+    lower, upper = edges[:-1], edges[1:]
+    if u is None:
+        u = torch.full((R, n_samples), 0.5, device=rays_o.device)
+    t_vals = lower[None, :] + (upper - lower)[None, :] * u
+    return t_vals, _deltas_from_t(t_vals, far)
+
+
+def _deltas_from_t(t_vals: torch.Tensor, far: float) -> torch.Tensor:
+    """Forward differences of sorted t [R, S]; the last is max(far - t, 0)."""
+    last = torch.clamp(far - t_vals[..., -1:], min=0.0)
+    return torch.cat([torch.diff(t_vals, dim=-1), last], dim=-1)
+
+
+def sample_pdf(
+    u: Optional[torch.Tensor],
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+) -> torch.Tensor:
+    """Inverse-CDF sampling of n_samples points from the piecewise-constant
+    PDF over `bins` [R, B+1] (edges) with `weights` [R, B].
+
+    u: [R, n_samples] draws in [0, 1 - 1e-5), or None for the evenly spaced
+    quantiles linspace(0, 1 - 1e-5, n_samples). The brackets are the
+    reference's masked max/min over le = (cdf <= u), not a searchsorted:
+    with a raw sigma head the compositing weights can be negative, the CDF
+    is then not monotone, and only the masked form gives the reference's
+    samples. Returns samples [R, n_samples] within [bins[0], bins[-1]],
+    unsorted.
+    """
+    R, B = weights.shape
+    weights = weights + 1e-5                              # avoid nans
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros((R, 1), device=cdf.device), cdf], dim=-1)
+    if u is None:
+        u = linspace(0.0, 1.0 - 1e-5, n_samples, bins.device).expand(
+            R, n_samples)
+    # le[r, s, j] <=> cdf[r, j] <= u[r, s]; j = 0 (cdf 0) is always in, and
+    # u past the whole CDF takes the last bin as the upper end
+    le = cdf[:, None, :] <= u[:, :, None]                 # [R, S, B+1]
+    c, b = cdf[:, None, :], bins[:, None, :]
+    cdf_below = torch.amax(torch.where(le, c, 0.0), dim=-1)
+    cdf_above = torch.amin(torch.where(le, c[..., -1:], c), dim=-1)
+    bin_below = torch.amax(torch.where(le, b, b[..., :1]), dim=-1)
+    bin_above = torch.amin(torch.where(le, b[..., -1:], b), dim=-1)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, 1.0, denom)
+    frac = (u - cdf_below) / denom
+    return bin_below + frac * (bin_above - bin_below)
+
+
+def hierarchical_samples(
+    u: Optional[torch.Tensor],
+    t_coarse: torch.Tensor,
+    weights_coarse: torch.Tensor,
+    n_fine: int,
+    far: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The coarse samples [R, C] and n_fine inverse-CDF samples drawn over
+    the midpoints of the coarse samples (the first and last coarse weights
+    dropped), sorted: (t_all [R, C + n_fine], deltas)."""
+    mids = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
+    t_fine = sample_pdf(u, mids, weights_coarse[..., 1:-1], n_fine)
+    t_all = torch.sort(torch.cat([t_coarse, t_fine], dim=-1), dim=-1).values
+    return t_all, _deltas_from_t(t_all, far)
 
 
 def sample_points(rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -1,10 +1,16 @@
-"""Occgrid ray, frame and path rendering (port of the occgrid path of
-fsnerf_tpu/render/renderer.py).
+"""Ray, frame and path rendering (port of fsnerf_tpu/render/renderer.py,
+without the video export).
 
-Stages over dense [R, S] tensors: uniform sample lattice -> occupancy mask
--> approximate (grid-EMA) transmittance early termination -> per-ray
-compaction to K samples -> either the fused ray-march kernel (after a
-depth-coherence sort of the rays) or the model + volume_render.
+occgrid: stages over dense [R, S] tensors: uniform sample lattice ->
+occupancy mask -> approximate (grid-EMA) transmittance early termination ->
+per-ray compaction to K samples -> either the fused ray-march kernel (after
+a depth-coherence sort of the rays) or the model + volume_render.
+
+hierarchical: stratified coarse samples in [near, far] -> model +
+volume_render -> inverse-CDF fine samples from the coarse weights -> the
+fine pass over the sorted coarse-and-fine union, either merging the shared
+network's coarse outputs with the new samples' or marching the union
+through the fused ray-march kernel.
 
 The model is passed as `model_fn(x [..., 3], dirs [..., 3]) -> [..., 4]`
 ([rgb, sigma]) with weights and frequency masks already bound.
@@ -19,9 +25,38 @@ import torch
 
 from ..data.rays import get_rays, to_ndc
 from ..ops import occgrid as og
-from ..ops.sampling import (compact_samples_uniform, sample_points,
-                            uniform_samples)
+from ..ops.sampling import (_deltas_from_t, compact_samples_uniform,
+                            hierarchical_samples, sample_pdf, sample_points,
+                            stratified_samples, uniform_samples)
 from ..ops.volrend import volume_render
+
+
+class _MergeSortedUnion(torch.autograd.Function):
+    """Sort the coarse-and-fine union by t [R, S] and permute the outputs
+    [R, S, C] to match: a stable sort (the coarse sample first on a tie, as
+    lax.sort), the outputs gathered by the same permutation. The backward
+    scatters each cotangent back to its source slot by that permutation."""
+
+    @staticmethod
+    def forward(ctx, t_cat, o_cat):
+        t_sorted, perm = torch.sort(t_cat, dim=-1, stable=True)
+        ctx.save_for_backward(perm)
+        return t_sorted, torch.gather(
+            o_cat, 1, perm[..., None].expand(o_cat.shape))
+
+    @staticmethod
+    def backward(ctx, dt_sorted, dmerged):
+        (perm,) = ctx.saved_tensors
+        dt = torch.zeros_like(dt_sorted).scatter_(1, perm, dt_sorted)
+        do = torch.zeros_like(dmerged).scatter_(
+            1, perm[..., None].expand(dmerged.shape), dmerged)
+        return dt, do
+
+
+def _merge_sorted_union(t_cat: torch.Tensor, o_cat: torch.Tensor):
+    """(t_sorted [R, S], outputs_sorted [R, S, C]); exact, gradients to
+    both inputs by the inverse permutation."""
+    return _MergeSortedUnion.apply(t_cat, o_cat)
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -127,26 +162,124 @@ def render_rays_occgrid(
     return out
 
 
+def render_rays_hierarchical(
+    model_fn: Optional[Callable],
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: float,
+    far: float,
+    n_coarse: int,
+    n_fine: int,
+    u_coarse: Optional[torch.Tensor] = None,
+    u_fine: Optional[torch.Tensor] = None,
+    white_bkgd: bool = False,
+    coarse_model_fn: Optional[Callable] = None,
+    fused_render_fn: Optional[Callable] = None,
+) -> Tuple[dict, dict]:
+    """Classic-NeRF coarse/fine rendering with inverse-CDF resampling.
+
+    u_coarse [R, n_coarse] / u_fine [R, n_fine] are the stratified and PDF
+    draws (None: bin centres / evenly spaced quantiles). coarse_model_fn
+    defaults to model_fn (the shared network). With the shared network the
+    fine pass evaluates only the n_fine new samples and merges them with the
+    coarse outputs by a sort on t (exact: a sort permutes, it never
+    recomputes; gradients reach both uses). A distinct coarse_model_fn makes
+    model_fn evaluate the whole union. fused_render_fn (shared network,
+    eval only) marches the sorted union through the ray-march kernel with
+    every sample valid; its fine dict then holds rgb, opacity, depth,
+    trans_final, t_vals and mask None. The coarse weights that drive the
+    resampling carry no gradient.
+
+    Returns (coarse, fine) dicts as render_rays_occgrid's model path.
+    """
+    shared = coarse_model_fn is None
+    coarse_fn = coarse_model_fn or model_fn
+    t_c, d_c = stratified_samples(rays_o, rays_d, near, far, n_coarse,
+                                  u_coarse)
+    x_c = sample_points(rays_o, rays_d, t_c)
+    out4_c = coarse_fn(x_c, rays_d[:, None, :].expand(x_c.shape)).to(
+        torch.float32)
+    bkgd = 1.0 if white_bkgd else 0.0
+    coarse = volume_render(out4_c[..., 3], out4_c[..., :3], t_c, d_c, None,
+                           bkgd)
+    coarse.update(sigmas=out4_c[..., 3], t_vals=t_c, mask=None)
+
+    w = coarse["weights"].detach()
+    if not shared:
+        t_f, d_f = hierarchical_samples(u_fine, t_c, w, n_fine, far)
+        x_f = sample_points(rays_o, rays_d, t_f)
+        out4_f = model_fn(x_f, rays_d[:, None, :].expand(x_f.shape)).to(
+            torch.float32)
+        sig, rgb_f = out4_f[..., 3], out4_f[..., :3]
+    else:
+        mids = 0.5 * (t_c[..., 1:] + t_c[..., :-1])
+        t_new = sample_pdf(u_fine, mids, w[..., 1:-1], n_fine)   # [R, F]
+        if fused_render_fn is not None:
+            t_f = torch.sort(torch.cat([t_c, t_new], dim=-1), dim=-1).values
+            fine = dict(fused_render_fn(
+                sample_points(rays_o, rays_d, t_f), rays_d, t_f,
+                _deltas_from_t(t_f, far),
+                torch.ones_like(t_f, dtype=torch.bool), bkgd))
+            fine.update(t_vals=t_f, mask=None)
+            return coarse, fine
+        x_new = sample_points(rays_o, rays_d, t_new)
+        out4_new = model_fn(x_new, rays_d[:, None, :].expand(x_new.shape)).to(
+            torch.float32)
+        t_f, merged = _merge_sorted_union(
+            torch.cat([t_c, t_new], dim=-1),
+            torch.cat([out4_c, out4_new], dim=-2))
+        rgb_f, sig = merged[..., :3], merged[..., 3]
+        d_f = _deltas_from_t(t_f, far)
+    fine = volume_render(sig, rgb_f, t_f, d_f, None, bkgd)
+    fine.update(sigmas=sig, t_vals=t_f, mask=None)
+    return coarse, fine
+
+
+def _render_rays_dispatch(model_fn, rays_o, rays_d, white_bkgd, *, strategy,
+                          grid, n_samples, n_fine, near, far,
+                          render_step_size, n_compact=0, early_stop_eps=1e-4,
+                          query_stride=1, fused_render_fn=None):
+    """One strategy's eval-time render of rays (no draws): the occgrid
+    result, or the hierarchical fine pass."""
+    if strategy == "occgrid":
+        return render_rays_occgrid(
+            model_fn, rays_o, rays_d, grid, n_samples,
+            render_step_size=render_step_size, white_bkgd=white_bkgd,
+            n_compact=n_compact, early_stop_eps=early_stop_eps,
+            query_stride=query_stride, fused_render_fn=fused_render_fn)
+    if strategy != "hierarchical":
+        raise ValueError(f"unknown sampling strategy {strategy!r}")
+    _, fine = render_rays_hierarchical(
+        model_fn, rays_o, rays_d, near, far, n_samples, n_fine,
+        white_bkgd=white_bkgd, fused_render_fn=fused_render_fn)
+    return fine
+
+
 def make_chunk_renderer(
     model_fn: Optional[Callable],
     *,
-    grid: og.OccGrid,
+    strategy: str = "occgrid",
+    grid: Optional[og.OccGrid] = None,
     n_samples: int = 512,
+    n_fine: int = 128,
     render_step_size: float = 5e-3,
     white_bkgd: bool = False,
+    near: float = 2.0,
+    far: float = 6.0,
     n_compact: int = 0,
     early_stop_eps: float = 1e-4,
     query_stride: int = 1,
     fused_render_fn: Optional[Callable] = None,
 ) -> Callable:
-    """(rays_o, rays_d) -> (rgb, depth) chunk renderer (occgrid strategy)."""
+    """(rays_o, rays_d) -> (rgb, depth) chunk renderer of one strategy."""
     @torch.no_grad()
     def render(rays_o, rays_d):
-        out = render_rays_occgrid(
-            model_fn, rays_o, rays_d, grid, n_samples,
-            render_step_size=render_step_size, white_bkgd=white_bkgd,
-            n_compact=n_compact, early_stop_eps=early_stop_eps,
-            query_stride=query_stride, fused_render_fn=fused_render_fn)
+        out = _render_rays_dispatch(
+            model_fn, rays_o, rays_d, white_bkgd, strategy=strategy,
+            grid=grid, n_samples=n_samples, n_fine=n_fine, near=near,
+            far=far, render_step_size=render_step_size, n_compact=n_compact,
+            early_stop_eps=early_stop_eps, query_stride=query_stride,
+            fused_render_fn=fused_render_fn)
         return out["rgb"], out["depth"]
 
     return render
@@ -159,8 +292,10 @@ def render_frame(
     near: float,
     far: float,
     *,
+    strategy: str = "occgrid",
     grid: Optional[og.OccGrid] = None,
     n_samples: int = 512,
+    n_fine: int = 128,
     render_step_size: float = 5e-3,
     ndc: bool = False,
     white_bkgd: bool = False,
@@ -172,12 +307,13 @@ def render_frame(
     fused_render_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a full H x W frame from one pose [4, 4] (on the pose's device)
-    in chunks of at most 16384 rays; the last chunk is padded with rays of
-    direction (0, 0, -1).
+    in chunks of `chunksize` rays (at most 16384 under occgrid); the last
+    chunk is padded with rays of direction (0, 0, -1).
 
     Returns img [H, W, 3] and depth [H, W] clamped to [near, far]."""
     H, W, _ = hwf
-    chunksize = min(chunksize, 16384)
+    if strategy == "occgrid":
+        chunksize = min(chunksize, 16384)
     rays_o, rays_d = get_rays(pose, hwf)
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
@@ -194,10 +330,11 @@ def render_frame(
                             .expand(pad, 3)])
 
     render = chunk_renderer or make_chunk_renderer(
-        model_fn, grid=grid, n_samples=n_samples,
-        render_step_size=render_step_size, white_bkgd=white_bkgd,
-        n_compact=n_compact, early_stop_eps=early_stop_eps,
-        query_stride=query_stride, fused_render_fn=fused_render_fn)
+        model_fn, strategy=strategy, grid=grid, n_samples=n_samples,
+        n_fine=n_fine, render_step_size=render_step_size,
+        white_bkgd=white_bkgd, near=near, far=far, n_compact=n_compact,
+        early_stop_eps=early_stop_eps, query_stride=query_stride,
+        fused_render_fn=fused_render_fn)
     imgs, depths = [], []
     for c in range(n_chunks):
         sl = slice(c * chunksize, (c + 1) * chunksize)
@@ -222,10 +359,12 @@ def render_path(
 
     Returns frames [F, H, W, 3] and depths [F, H, W] as float32 numpy."""
     renderer_kwargs = {k: v for k, v in frame_kwargs.items()
-                       if k in ("grid", "n_samples", "render_step_size",
-                                "white_bkgd", "n_compact", "early_stop_eps",
-                                "query_stride", "fused_render_fn")}
-    chunk_renderer = make_chunk_renderer(model_fn, **renderer_kwargs)
+                       if k in ("strategy", "grid", "n_samples", "n_fine",
+                                "render_step_size", "white_bkgd", "n_compact",
+                                "early_stop_eps", "query_stride",
+                                "fused_render_fn")}
+    chunk_renderer = make_chunk_renderer(model_fn, near=near, far=far,
+                                         **renderer_kwargs)
     frames, d_frames = [], []
     for pose in render_poses:
         pose = torch.as_tensor(np.asarray(pose, np.float32), device=device)

@@ -1,9 +1,11 @@
 """Where a training step's time goes on the card: trains `--warmup` steps of
-the default config on a procedural scene (so the grid and the compaction K
-reach their steady state), then profiles `--steps` more with torch.profiler.
+the default config (or of hierarchical sampling, 64 + 128 samples) on a
+procedural scene (so the grid and the compaction K reach their steady
+state), then profiles `--steps` more with torch.profiler.
 
     python -m fsnerf_tpu_torch.scripts.profile_train [--dataset lattice] \
-        [--hw 800] [--warmup 1000] [--steps 30] [--out chiprun_out]
+        [--hw 800] [--warmup 1000] [--steps 30] [--out DIR] \
+        [--strategy occgrid|hierarchical]
 
 Prints the wall time per step of `--steps` steps without the profiler and
 with it (the profiler's host-side tracing slows dispatch), the device's
@@ -11,8 +13,9 @@ busy time per step (the union of kernel and copy intervals in the trace)
 and its idle share against the unprofiled wall time, the train kernels' and
 the other kernels' device time per step, the grid-refresh steps inside the
 profiled window (all cells before `warmup_steps`, one of `update_parts`
-parts after) with the time of one refresh of each kind (CUDA events), and
-writes the Chrome trace to <out>/train_trace.json.gz.
+parts after) with the time of one refresh of each kind (CUDA events; none
+under hierarchical, which never refreshes the grid), and writes the Chrome
+trace to <out>/train_trace.json.gz.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--strategy", choices=["occgrid", "hierarchical"],
+                    default="occgrid")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs an NVIDIA GPU")
@@ -72,6 +77,10 @@ def main(argv=None):
                                  white_bkgd=True))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 n_iters=args.warmup))
+    hier = args.strategy == "hierarchical"
+    if hier:
+        cfg = cfg.replace(sampling=dataclasses.replace(
+            cfg.sampling, strategy="hierarchical", n_samples=64, n_fine=128))
     scene = scene_class(args.dataset)(n_imgs=8, hw=args.hw)
     model = make_model(cfg, torch.bfloat16, torch.Generator().manual_seed(0),
                        dev)
@@ -109,8 +118,9 @@ def main(argv=None):
     wall_ms = timed_steps()
     s_cfg, first = cfg.sampling, state.step
     window = range(first, first + args.steps)
-    refreshes = [(k, "all" if k < s_cfg.warmup_steps else "part")
-                 for k in window if k % resolve_update_interval(s_cfg, k) == 0]
+    refreshes = [] if hier else [
+        (k, "all" if k < s_cfg.warmup_steps else "part")
+        for k in window if k % resolve_update_interval(s_cfg, k) == 0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_steps()
@@ -138,6 +148,7 @@ def main(argv=None):
     launches = sum(1 for e in dev_events if e.get("cat") == "kernel") / n
     print(json.dumps({
         "card": card_name(), "dataset": args.dataset, "hw": args.hw,
+        "strategy": args.strategy,
         "warmup_steps": args.warmup, "profiled_steps": n,
         "n_compact": step_cfg.sampling.n_compact,
         "n_valid_mean": float(m["n_valid_mean"]),
@@ -148,8 +159,8 @@ def main(argv=None):
         "device_kernels_per_step": launches,
         "profiled_steps_from": first,
         "refreshes_in_window": refreshes,
-        "refresh_all_cells_ms": refresh_ms(0),
-        "refresh_one_part_ms": refresh_ms(next(
+        "refresh_all_cells_ms": None if hier else refresh_ms(0),
+        "refresh_one_part_ms": None if hier else refresh_ms(next(
             k for k in itertools.count(s_cfg.warmup_steps)
             if k % resolve_update_interval(s_cfg, k) == 0))}))
     for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):

@@ -1,16 +1,19 @@
 """The training step (port of fsnerf_tpu/train/step.py).
 
-One step: batch draw on the device -> sample lattice -> occupancy mask ->
-compaction -> the MLP (the fused train kernels of
+One step: batch draw on the device -> samples (occgrid: lattice, occupancy
+mask, compaction; hierarchical: stratified coarse bins, then inverse-CDF
+fine samples) -> the MLP (the fused train kernels of
 ops/kernels/mlp_train.py, or the NeRF module) -> volume integration -> MSE
-(+ regularizers) -> gradients -> Adam -> every update_interval steps the
-occupancy-grid EMA refresh with the updated weights. Nothing in a step
-waits on the device: its metrics stay there as tensors.
+(+ regularizers) -> gradients -> Adam -> under occgrid, every
+update_interval steps the occupancy-grid EMA refresh with the updated
+weights. Nothing in a step waits on the device: its metrics stay there as
+tensors.
 
-Randomness. The JAX step splits its key into batch, render-jitter and
-grid-jitter keys. The port's step takes the same three draws from one
-source (`Draws`): by default the state's generator, or draws handed in
-(the tests hand it the JAX step's own).
+Randomness. The JAX step splits its key into batch, render and grid keys,
+and the hierarchical renderer splits the render key into the coarse
+jitter's and the PDF draws'. The port's step takes the same draws from one
+source (`GeneratorDraws`): by default the state's generator, or draws
+handed in (the tests hand it the JAX step's own).
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ from ..core.encoding import freq_mask
 from ..core.losses import mse, occlusion_reg, psnr_from_mse, weight_reg
 from ..core.schedules import make_schedule
 from ..ops import occgrid as og
-from ..render.renderer import render_rays_occgrid
+from ..render.renderer import render_rays_hierarchical, render_rays_occgrid
 from .state import TrainState
 
 
 class GeneratorDraws:
     """The step's random draws from one torch.Generator on the training
-    device: batch indices, then the per-ray phase jitter, then the
-    per-level cell jitter of a grid refresh."""
+    device: batch indices, then the render draws (occgrid: the per-ray
+    phase jitter; hierarchical: the per-bin coarse jitter, then the PDF
+    draws), then the per-level cell jitter of a grid refresh."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -42,6 +46,17 @@ class GeneratorDraws:
         """[n_rays, 1] uniform [0, 1) stratified phase."""
         return torch.rand((n_rays, 1), generator=self.generator,
                           device=device)
+
+    def stratified_u(self, n_rays: int, n_samples: int, device):
+        """[n_rays, n_samples] uniform [0, 1) per-bin coarse jitter."""
+        return torch.rand((n_rays, n_samples), generator=self.generator,
+                          device=device)
+
+    def pdf_u(self, n_rays: int, n_samples: int, device):
+        """[n_rays, n_samples] uniform [0, 1 - 1e-5) inverse-CDF draws (the
+        JAX draw's maxval)."""
+        return torch.rand((n_rays, n_samples), generator=self.generator,
+                          device=device) * (1.0 - 1e-5)
 
     def grid_jitter(self, grid: og.OccGrid, k_cells: int):
         """Per level, [k_cells, 3] uniform [0, 1) positions in the cells."""
@@ -84,23 +99,30 @@ def make_masks(cfg, step: int, device=None):
 
 
 def make_loss_fn(model, cfg, scene, device) -> Callable:
-    """loss_fn(batch, grid, jitter, step) -> (loss, (main_mse,
-    samples_per_ray, n_valid_mean)) for the occgrid strategy, with the
-    fused train kernels when resolve_fused_kernel says so, the FreeNeRF
-    masks and the occlusion / weight regularizers (beta gates the occlusion
-    term and does not scale it, as in the reference)."""
+    """loss_fn(batch, grid, render_u, step) -> (loss, (main_mse,
+    samples_per_ray, n_valid_mean)), with the fused train kernels when
+    resolve_fused_kernel says so, the FreeNeRF masks and the occlusion /
+    weight regularizers (beta gates the occlusion term and does not scale
+    it, as in the reference).
+
+    occgrid: render_u is the [R, 1] phase jitter or None. hierarchical:
+    render_u is (u_coarse [R, n_samples], u_fine [R, n_fine]) or None; the
+    loss is the fine pass's MSE plus the coarse pass's, main_mse the fine
+    pass's, and the occlusion term reads the fine pass's samples."""
     s_cfg, t_cfg = cfg.sampling, cfg.train
-    if s_cfg.strategy != "occgrid":
-        raise NotImplementedError(
-            f"sampling strategy {s_cfg.strategy!r} is not ported yet")
+    if s_cfg.strategy not in ("occgrid", "hierarchical"):
+        raise ValueError(f"unknown sampling strategy {s_cfg.strategy!r}")
     fused = None
     if resolve_fused_kernel(cfg, device):
         from ..ops.kernels.mlp_train import make_fused_train_model_fn
         fused = make_fused_train_model_fn(cfg)
     Ts = int(t_cfg.reg_ratio * t_cfg.Td)
     q_stride = og.resolve_query_stride(s_cfg, scene.aabb)
+    # MLP-evaluated samples per ray of the hierarchical strategy
+    n_hier = torch.tensor(float(s_cfg.n_samples + s_cfg.n_fine),
+                          device=device)
 
-    def loss_fn(batch, grid, jitter, step):
+    def loss_fn(batch, grid, render_u, step):
         rays_o, rays_d, rgb_gt = batch
         pos_mask, dir_mask = make_masks(cfg, step, device)
 
@@ -109,17 +131,26 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
                 return fused(model, x, d, pos_mask, dir_mask)
             return model(x, d, pos_mask=pos_mask, dir_mask=dir_mask)
 
-        out = render_rays_occgrid(
-            model_fn, rays_o, rays_d, grid, s_cfg.n_samples,
-            render_step_size=s_cfg.render_step_size,
-            jitter=jitter if s_cfg.perturb else None,
-            white_bkgd=cfg.data.white_bkgd, n_compact=s_cfg.n_compact,
-            early_stop_eps=s_cfg.early_stop_eps, query_stride=q_stride)
-        loss = main_mse = mse(out["rgb"], rgb_gt)
-        # MLP-evaluated samples per ray, and the mean pre-compaction valid
-        # count that drives the compaction ladder (train/loop.py)
-        spr = torch.mean(torch.sum(out["mask"].to(torch.float32), dim=-1))
-        nv = torch.mean(out["n_valid"])
+        if s_cfg.strategy == "occgrid":
+            out = render_rays_occgrid(
+                model_fn, rays_o, rays_d, grid, s_cfg.n_samples,
+                render_step_size=s_cfg.render_step_size, jitter=render_u,
+                white_bkgd=cfg.data.white_bkgd, n_compact=s_cfg.n_compact,
+                early_stop_eps=s_cfg.early_stop_eps, query_stride=q_stride)
+            loss = main_mse = mse(out["rgb"], rgb_gt)
+            # MLP-evaluated samples per ray, and the mean pre-compaction
+            # valid count that drives the compaction ladder (train/loop.py)
+            spr = torch.mean(torch.sum(out["mask"].to(torch.float32), dim=-1))
+            nv = torch.mean(out["n_valid"])
+        else:
+            u_c, u_f = render_u if render_u is not None else (None, None)
+            coarse, out = render_rays_hierarchical(
+                model_fn, rays_o, rays_d, scene.near, scene.far,
+                s_cfg.n_samples, s_cfg.n_fine, u_c, u_f,
+                white_bkgd=cfg.data.white_bkgd)
+            main_mse = mse(out["rgb"], rgb_gt)
+            loss = main_mse + mse(coarse["rgb"], rgb_gt)
+            spr = nv = n_hier
         if t_cfg.beta is not None:
             loss = loss + occlusion_reg(out["sigmas"], out["t_vals"],
                                         out["mask"], t_cfg.occ_a,
@@ -130,6 +161,18 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
         return loss, (main_mse, spr, nv)
 
     return loss_fn
+
+
+def render_draws(cfg, draws, n_rays: int, device):
+    """The render draws of one step (None without perturb): the occgrid
+    phase jitter [R, 1], or the hierarchical (coarse jitter, PDF draws)."""
+    s = cfg.sampling
+    if not s.perturb:
+        return None
+    if s.strategy == "occgrid":
+        return draws.render_jitter(n_rays, device)
+    return (draws.stratified_u(n_rays, s.n_samples, device),
+            draws.pdf_u(n_rays, s.n_fine, device))
 
 
 def resolve_update_interval(s_cfg, step: int) -> int:
@@ -184,10 +227,9 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, pool,
         pool = default_pool if pool is None else pool
         draws = GeneratorDraws(state.generator) if draws is None else draws
         batch = pool.gather(draws.batch_indices(pool, cfg.train.batch_size))
-        jitter = (draws.render_jitter(cfg.train.batch_size, device)
-                  if cfg.sampling.perturb else None)
+        render_u = render_draws(cfg, draws, cfg.train.batch_size, device)
         optimizer.zero_grad(set_to_none=True)
-        loss, (main_mse, spr, nv) = loss_fn(batch, state.grid, jitter,
+        loss, (main_mse, spr, nv) = loss_fn(batch, state.grid, render_u,
                                             state.step)
         loss.backward()
         lr = schedule(state.step)          # optax reads the pre-update count
@@ -211,7 +253,8 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, pool,
 
 def init_state(model, cfg, optimizer, aabb, device=None) -> TrainState:
     """A fresh TrainState around an initialized model: an empty grid (all
-    cells occupied until the first refresh) and the generator seeded from
+    cells occupied until the first refresh; hierarchical never refreshes
+    it, as in the reference) and the generator seeded from
     cfg.train.seed."""
     _, q_dilation = og.resolve_query_plan(cfg.sampling, aabb)
     grid = og.create(aabb, cfg.sampling.grid_resolution,

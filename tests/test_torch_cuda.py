@@ -2,7 +2,10 @@
 versions, on an NVIDIA card.
 
 Ray march (render.cu): rgb/opacity within 7e-3, depth within 3e-2, equal
-executed-step counts. Train forward/backward (mlp_train.cu): rgb within
+executed-step counts. Forward MLP (mlp.cu): rgb within 5e-3 and sigma
+within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
+for the three density activations and a row count that is not a multiple
+of the 128-row tile; two runs bitwise equal. Train forward/backward (mlp_train.cu): rgb within
 5e-3 and sigma within 2e-2 of max |sigma| (the fused-MLP tolerances of
 tests/test_pallas.py), every weight and bias gradient within 2e-2 of that
 tensor's max |plain gradient| (the kernels sum in another order, and each
@@ -20,6 +23,8 @@ jax) it runs without the JAX conftest:
 import pytest
 import torch
 
+from fsnerf_tpu_torch.core.encoding import positional_encoding
+from fsnerf_tpu_torch.ops.kernels import mlp as km
 from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
 from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
@@ -176,3 +181,59 @@ def test_train_wrappers_count_launches_and_validate(cuda):
         mt.mlp_train_bwd(x, d.cpu(), dout, params, acts)
     with pytest.raises(ValueError):
         mt.mlp_train_bwd(x, d, dout, params, acts[:128])
+
+
+def _mlp_case(seed, width, arch, n, cuda, pos_mask=None, dir_mask=None):
+    """(encx, encd, params) on the card: encodings of mlp_inputs' points
+    and directions, padded as make_fused_model_fn pads them."""
+    sd = state_dict_from_jax(nerf_params_np(seed, d_filter=width, **arch))
+    params = km.prep_params(sd, arch["n_layers"], arch["skip"], cuda)
+    x, d, _ = mlp_inputs(n, seed=seed)
+    ex = positional_encoding(x, arch["n_freqs"], True, pos_mask)
+    ed = positional_encoding(d, arch["n_freqs_views"], True, dir_mask)
+    return (km.pad_features(ex, params.d_enc_pad).to(cuda),
+            km.pad_features(ed, params.d_dir_pad).to(cuda), params)
+
+
+def _check_mlp(encx, encd, params, act):
+    got = km.nerf_mlp(encx, encd, params, act)
+    again = km.nerf_mlp(encx, encd, params, act)
+    ref = km.nerf_mlp_reference(encx, encd, params, act)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert (got[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert (got[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
+    if act == "relu":
+        assert (got[:, 3] >= 0).all()
+    if act == "trunc_exp":
+        assert (got[:, 3] > 0).all()
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
+def test_nerf_mlp_matches_plain_at_full_width(cuda, act):
+    """NeRF 8x256, skip (4,), n_freqs 10/4 at 20,000 + 37 rows."""
+    _check_mlp(*_mlp_case(11, 256, FULL, 20_037, cuda), act)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
+def test_nerf_mlp_small_ragged_masked(cuda, act):
+    """A narrow model, FreeNeRF masks and fewer rows than one tile."""
+    _check_mlp(*_mlp_case(12, 64, SMALL, 77, cuda,
+                          torch.tensor([1.0, 1.0, 0.4, 0.0]),
+                          torch.tensor([1.0, 0.5])), act)
+
+
+def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
+    encx, encd, params = _mlp_case(13, 64, SMALL, 300, cuda)
+    before = km.nerf_mlp.launches
+    km.nerf_mlp(encx, encd, params)
+    km.nerf_mlp_reference(encx, encd, params)
+    assert km.nerf_mlp.launches == before + 1
+    with pytest.raises(ValueError):
+        km.nerf_mlp(encx.float(), encd, params)
+    with pytest.raises(ValueError):
+        km.nerf_mlp(encx, encd.cpu(), params)
+    with pytest.raises(ValueError):
+        km.nerf_mlp(encx.t().contiguous().t(), encd, params)

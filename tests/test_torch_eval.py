@@ -10,6 +10,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fsnerf_tpu.config import Config as JConfig
 from fsnerf_tpu.eval import metrics as jmet
@@ -81,6 +82,17 @@ def test_render_only_main_runs_small(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["psnr"]) and 0.0 < out["ssim"] <= 1.0
     assert out["device"] == "cpu" and out["eval_k"] % 16 == 0
+
+
+def test_cli_refuses_without_cuda_unless_asked_for_the_cpu(monkeypatch,
+                                                          capsys):
+    """The device defaults to cuda: without a card the command line exits
+    non-zero with a message instead of running on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--dataset", "sphere", "--render_only", "--hw", "8"])
+    captured = capsys.readouterr()
+    assert rc != 0 and "--device cpu" in captured.err
+    assert captured.out == ""
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

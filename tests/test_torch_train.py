@@ -361,10 +361,9 @@ def test_resolve_fused_kernel_by_device():
                    dict(d_filter=48)):
         off = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert not step.resolve_fused_kernel(off, "cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         step.make_loss_fn(None, cfg.replace(sampling=dataclasses.replace(
-            cfg.sampling, strategy="hierarchical")), SphereScene(1, 4),
-            "cpu")
+            cfg.sampling, strategy="uniform")), SphereScene(1, 4), "cpu")
 
 
 def test_cli_trains_and_evaluates_small(capsys):
