@@ -48,11 +48,35 @@ Phases (any failure exits non-zero; nothing is caught):
      held-out PSNR must rise at least 5 dB above the untrained weights',
      and the eval without the fused fine pass must land within 0.5 dB of
      it;
- 10. the nearest cuBLAS route of each kernel (the bf16 NeRF module on the
-     same rows: no single PyTorch call computes these functions), one JSON
-     line describing each kernel with its bound (the larger of its bytes
-     over 3.35 TB/s and its bf16 FLOP over 989 TFLOP/s, from this run's
-     shapes and executed work), then the device line.
+ 10. the SIREN train kernels vs their plain versions at full width
+     (SiNeRF 8x256 with seeded weights, 196,608 rows, an MSE cotangent):
+     rgb within 5e-3, sigma within 2e-2 of max |sigma|, every gradient
+     within 1e-2 of its max |plain gradient| in each backward mode (saved
+     activations and recompute, each against its plain version), the two
+     modes within 1e-2 of each other's max, two runs bitwise equal in each
+     mode; CUDA-event times of the kernels, the plain versions and the bf16
+     SiNeRF module (forward, and its backward by autograd);
+ 11. the SIREN ray march vs its plain version on the 16,384 rays of a
+     128x128 held-out SphereScene view, a grid rebuilt from a seeded
+     SiNeRF's densities, the eval K and the depth-coherence sort, in a
+     normal and a saturating case (+5000 on the sigma head's bias): rgb and
+     opacity within 7e-3, depth within 3e-2, equal executed-step counts,
+     fewer steps when saturated;
+ 12. the SiNeRF training slice: train() from seeded weights on the 8-view
+     128x128 SphereScene (occgrid), then the held-out views through
+     evaluate_split, launch counts read around that run: the SIREN train
+     kernels must launch once per step and the SIREN ray march at least
+     once; the loss must fall and the held-out PSNR rise at least 5 dB
+     above the untrained weights';
+ 13. the SiNeRF hierarchical render slice: render_path over 3 path poses
+     (64 coarse + 128 fine): the SIREN forward kernel (coarse pass) and the
+     SIREN ray march (fine pass) must both launch;
+ 14. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+     module on the same rows: no single PyTorch call computes these
+     functions), one JSON line describing each kernel with its bound (the
+     larger of its bytes over 3.35 TB/s and its bf16 FLOP over 989
+     TFLOP/s, from this run's shapes and executed work), then the device
+     line.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -84,6 +108,7 @@ MLP_SIGMA_TOL = 2e-2        # of max |sigma|
 HIER_COARSE, HIER_FINE = 64, 128    # BASELINE.json config 2
 HIER_STEPS = 1500
 HIER_FUSED_PSNR_TOL_DB = 0.5
+SIREN_STEPS = 1500
 # the H100 SXM's published peaks (the roofline of the kernels' bound)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -106,11 +131,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kr, padded, params, bR, cs, eps):
-    """Kernel vs plain on the same inputs; returns the numbers for the
-    report."""
-    got, steps = kr.ray_march(*padded, params, bR, cs, eps)
-    ref, steps_ref = kr.ray_march_reference(*padded, params, bR, cs, eps)
+def compare(name, march, reference, padded, params, bR, cs, eps):
+    """A ray-march kernel vs its plain version on the same inputs; returns
+    the numbers for the report."""
+    got, steps = march(*padded, params, bR, cs, eps)
+    ref, steps_ref = reference(*padded, params, bR, cs, eps)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
@@ -124,10 +149,10 @@ def compare(name, kr, padded, params, bR, cs, eps):
     executed = int(steps.sum())
 
     def kernel():
-        kr.ray_march(*padded, params, bR, cs, eps)
+        march(*padded, params, bR, cs, eps)
 
     def plain():
-        kr.ray_march_reference(*padded, params, bR, cs, eps)
+        reference(*padded, params, bR, cs, eps)
 
     ms, plain_ms = in_turns(plain, kernel)
     out = dict(max_abs_err=float(err[:5].max()), ms=ms, plain_ms=plain_ms,
@@ -334,11 +359,12 @@ def train_slice(cfg, dev, card):
     # the ray march on trained weights: skip fraction of a held-out view
     padded, bR, cs, _ = march_inputs(tcfg, eval_grid, held, dev)
     sd = model.state_dict()
-    compare("trained", kr, padded, kr.prep_params(
-        sd, n_layers=cfg.model.n_layers, skip=cfg.model.skip,
-        n_freqs=cfg.encoder.n_freqs,
-        n_freqs_views=cfg.encoder.n_freqs_views, device=dev), bR, cs,
-        tcfg.sampling.early_stop_eps)
+    params = kr.prep_params(sd, n_layers=cfg.model.n_layers,
+                            skip=cfg.model.skip, n_freqs=cfg.encoder.n_freqs,
+                            n_freqs_views=cfg.encoder.n_freqs_views,
+                            device=dev)
+    compare("trained", kr.ray_march, kr.ray_march_reference, padded, params,
+            bR, cs, tcfg.sampling.early_stop_eps)
     return launches
 
 
@@ -582,7 +608,7 @@ def hier_train_slice(cfg, dev, card):
 
 
 def module_routes(cfg, dev, march_padded):
-    """Phase 10: the bf16 NeRF module (cuBLAS GEMMs) on each kernel's rows:
+    """Phase 14: the bf16 NeRF module (cuBLAS GEMMs) on each kernel's rows:
     the ray march's points + volume_render, and the train kernels' 196,608
     rows forward and backward. Returns ms by kernel name."""
     from fsnerf_tpu_torch.core.models import make_model
@@ -609,6 +635,295 @@ def module_routes(cfg, dev, march_padded):
                                                  retain_graph=True), 3)
     return {"ray_march": march_ms, "mlp_train_fwd": fwd_ms,
             "mlp_train_bwd": bwd_ms}
+
+
+def sinerf_config(cfg, **train):
+    import dataclasses
+
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, model="sinerf"),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def siren_macs(L: int, W: int) -> int:
+    """Multiply-adds of one SiNeRF MLP row (raw 3-wide inputs, unpadded):
+    the trunk, the sigma head, feat and the rgb head."""
+    Wh = W // 2
+    return 3 * W + (L - 1) * W * W + W * Wh + Wh + W * W + (W + 3) * Wh + \
+        Wh * 3
+
+
+def siren_bwd_macs(L: int, W: int) -> int:
+    """Multiply-adds of one row of the SIREN backward from saved
+    activations: the heads' recompute and their weight gradients, the
+    heads' and the trunk's input cotangents down to layer 1, and the
+    trunk's weight gradients."""
+    Wh = W // 2
+    heads = W * Wh + Wh + W * W + (W + 3) * Wh + Wh * 3
+    dx = Wh * W + W * W + Wh * W + Wh + 3 * Wh + (L - 1) * W * W
+    return 2 * heads + dx + 3 * W + (L - 1) * W * W
+
+
+def siren_kernels(cfg, dev, card):
+    """Phase 10: the SIREN train kernels vs their plain versions at full
+    width, both backward modes. Returns the report's numbers of each."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    scfg = sinerf_config(cfg)
+    L, W = scfg.model.n_layers, scfg.model.d_filter
+    model = make_model(scfg, torch.bfloat16,
+                       torch.Generator().manual_seed(3), dev)
+    params = ks.prep_siren_params(model.state_dict(), L,
+                                  with_transposed=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = TRAIN_ROWS
+    x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
+                        torch.zeros((n, 1), device=dev)], dim=-1)
+    xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
+    out, acts = ks.siren_mlp_fwd(xp, dp, params, save_acts=True)
+    primal, _ = ks.siren_mlp_fwd(xp, dp, params)
+    ref, ref_acts = ks.siren_mlp_fwd_reference(xp, dp, params, True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.equal(out, primal):
+        fail("SIREN forward: not finite, or saving changed the output")
+    rgb_err = float((out[:, :3] - ref[:, :3]).abs().max())
+    sig_err = float((out[:, 3] - ref[:, 3]).abs().max())
+    sig_scale = float(ref[:, 3].abs().max()) + 1e-9
+    if rgb_err > MLP_RGB_TOL or sig_err / sig_scale > MLP_SIGMA_TOL:
+        fail(f"SIREN forward vs plain: rgb err {rgb_err:.3e}, sigma err "
+             f"{sig_err:.3e} of max {sig_scale:.3e}")
+    dout = (2.0 * (ref - target) / ref.numel()).contiguous()
+    runs = {}
+    for mode, a, plain_a in (("saved", acts, ref_acts),
+                             ("recompute", None, None)):
+        got = ks.siren_mlp_bwd(xp, dp, dout, params, a)
+        again = ks.siren_mlp_bwd(xp, dp, dout, params, a)
+        plain = ks.siren_mlp_bwd_reference(xp, dp, dout, params, plain_a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail(f"SIREN backward ({mode}): two kernel runs differ")
+        runs[mode] = got
+        runs[mode + " plain"] = plain
+    lay = params.layout
+    worst = {}
+    grad_abs = 0.0
+    for name, got_k, want_k in (("saved", "saved", "saved plain"),
+                                ("recompute", "recompute",
+                                 "recompute plain"),
+                                ("saved vs recompute", "saved",
+                                 "recompute")):
+        rel = ("", 0.0)
+        for pname, gk, gp in zip(lay.param_names,
+                                 lay.grads_from_packed(*runs[got_k]),
+                                 lay.grads_from_packed(*runs[want_k])):
+            abs_err = float((gk - gp).abs().max())
+            r = abs_err / (float(gp.abs().max()) + 1e-30)
+            if got_k != "saved" or want_k != "recompute":
+                grad_abs = max(grad_abs, abs_err)
+            if r > rel[1]:
+                rel = (pname, r)
+        worst[name] = rel
+        if rel[1] > GRAD_TOL:
+            fail(f"SIREN backward, {name}: {rel[0]} off by {rel[1]:.3e} of "
+                 "its max")
+
+    fwd_ms, fwd_plain_ms = in_turns(
+        lambda: ks.siren_mlp_fwd_reference(xp, dp, params, True),
+        lambda: ks.siren_mlp_fwd(xp, dp, params, True))
+    bwd_ms, bwd_plain_ms = in_turns(
+        lambda: ks.siren_mlp_bwd_reference(xp, dp, dout, params, ref_acts),
+        lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
+    rec_ms = cuda_ms(lambda: ks.siren_mlp_bwd(xp, dp, dout, params, None),
+                     10)
+    weights = (params.wpack, params.bpack, params.alphas)
+    fwd_bound = bound(2.0 * siren_macs(L, W) * n,
+                      nbytes(xp, dp, *weights, out, acts))
+    bwd_bound = bound(2.0 * siren_bwd_macs(L, W) * n,
+                      nbytes(xp, dp, dout, acts, *weights, params.wtpack,
+                             *runs["saved"]))
+    module_fwd_ms = cuda_ms(lambda: model(x, d), 3)
+    m_out = model(x, d).float()
+    m_params = list(model.parameters())
+    module_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        m_out, m_params, torch.full_like(m_out, 1.0 / m_out.numel()),
+        retain_graph=True), 3)
+    print(f"SIREN kernels at {n} rows on {card}: forward max abs err rgb "
+          f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| {sig_scale:.3e}); "
+          "gradients worst " + ", ".join(
+              f"{k} {v[0]} at {v[1]:.3e}" for k, v in worst.items())
+          + f" of its max, max abs err {grad_abs:.3e}; bitwise repeatable "
+          f"in each mode; forward {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f}),"
+          f" backward saved {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}), "
+          f"recompute {rec_ms:.3f} ms; bf16 SiNeRF module forward "
+          f"{module_fwd_ms:.3f} ms, its autograd backward "
+          f"{module_bwd_ms:.3f} ms")
+    return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
+                 plain_ms=fwd_plain_ms, **fwd_bound),
+            dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                 **bwd_bound),
+            {"siren_mlp_fwd": module_fwd_ms, "siren_mlp_bwd": module_bwd_ms})
+
+
+def siren_march(cfg, dev, card):
+    """Phase 11: the SIREN ray march vs its plain version on a held-out
+    128x128 view, normal and saturating. Returns (the report's numbers,
+    the bf16 SiNeRF module's time on the same points)."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.ops.volrend import volume_render
+
+    scfg = sinerf_config(cfg)
+    L, W = scfg.model.n_layers, scfg.model.d_filter
+    model = make_model(scfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    split = cli.build_split("sphere", 1, 128, True, seed=1)
+    grid = cli.rebuild_grid(model, scfg, split.aabb, dev)
+    padded, bR, cs, eval_k = march_inputs(scfg, grid, split, dev)
+    sd = model.state_dict()
+    params = ks.prep_siren_params(sd, L, device=dev)
+    eps = scfg.sampling.early_stop_eps
+    normal = compare("SIREN normal", kr.siren_ray_march,
+                     kr.siren_ray_march_reference, padded, params, bR, cs,
+                     eps)
+    hot_sd = dict(sd, **{"sigma_layers.1.bias": sd["sigma_layers.1.bias"]
+                         + SATURATING_SIGMA_BIAS})
+    hot = compare("SIREN early-exit", kr.siren_ray_march,
+                  kr.siren_ray_march_reference, padded,
+                  ks.prep_siren_params(hot_sd, L, device=dev), bR, cs, eps)
+    if hot["executed"] >= normal["executed"]:
+        fail("a saturating sigma bias did not make SIREN blocks exit early")
+    march_bound = bound(
+        2.0 * siren_macs(L, W) * normal["executed"] * bR * cs,
+        nbytes(*padded, params.wpack, params.bpack, params.alphas)
+        + padded[0].shape[0] * (8 + 1 / bR) * 4)
+    x, dirs, t, deltas, mask = padded
+    with torch.no_grad():
+        def module_march():
+            out = model(x, dirs[:, None, :].expand(x.shape)).float()
+            volume_render(out[..., 3], out[..., :3], t, deltas, mask > 0)
+
+        module_ms = cuda_ms(module_march, 3)
+    print(f"SIREN ray march at {x.shape[0]} rays x K {eval_k} on {card}: "
+          f"bf16 SiNeRF module + volume_render {module_ms:.3f} ms")
+    return dict(max_abs_err=max(normal["max_abs_err"], hot["max_abs_err"]),
+                ms=normal["ms"], plain_ms=normal["plain_ms"],
+                **march_bound), module_ms
+
+
+def siren_train_slice(cfg, dev, card):
+    """Phase 12: train SiNeRF, then render the held-out views through the
+    SIREN ray march. Returns the launch counts of the run."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import DataConfig
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.train.loop import train
+
+    tcfg = sinerf_config(cfg, n_iters=SIREN_STEPS).replace(
+        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True))
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    model = make_model(tcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    base, _ = cli.evaluate_split(
+        model, og.conservative(cli.rebuild_grid(model, tcfg, scene.aabb,
+                                                dev)), held, tcfg, device=dev)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    log = ListLogger()
+
+    kr.siren_ray_march.launches = 0
+    ks.siren_mlp_fwd.launches = ks.siren_mlp_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(model, tcfg, pool, scene, logger=log, log_every=100)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, _ = cli.evaluate_split(model, og.conservative(state.grid), held,
+                                tcfg, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
+                "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
+                "siren_ray_march": kr.siren_ray_march.launches}
+    losses = [r["loss"] for r in log.records]
+    print(f"SiNeRF train slice on {card}: {state.step} steps in "
+          f"{train_s:.3f} s, {state.step / train_s:.2f} steps/s, "
+          f"{state.step * tcfg.train.batch_size / train_s:.0f} rays/s "
+          f"(first call included); loss {losses[0]:.5f} at step "
+          f"{log.records[0]['step']} -> {losses[-1]:.5f}; final K "
+          f"{log.records[-1]['n_compact']:.0f}, occupancy "
+          f"{log.records[-1]['occupancy']:.4f}; launches {launches}")
+    print(f"SiNeRF held-out (3 views 128x128): PSNR {got['psnr']:.3f} SSIM "
+          f"{got['ssim']:.4f} eval K {got['eval_k']} in {eval_s:.3f} s after "
+          f"training; untrained PSNR {base['psnr']:.3f} SSIM "
+          f"{base['ssim']:.4f}")
+    steps = state.step
+    if launches["siren_mlp_fwd"] != steps or \
+            launches["siren_mlp_bwd"] != steps:
+        fail(f"the SiNeRF step did not run the SIREN train kernels once per "
+             f"step: {launches} over {steps} steps")
+    if launches["siren_ray_march"] == 0:
+        fail(f"the SiNeRF eval did not launch the SIREN ray march: "
+             f"{launches}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"SiNeRF training loss did not fall: {losses}")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"SiNeRF held-out PSNR {got['psnr']:.3f} is not "
+             f"{MIN_PSNR_GAIN_DB} dB above the untrained {base['psnr']:.3f}")
+    return launches
+
+
+def siren_hier_render_slice(cfg, dev, card):
+    """Phase 13: render_path of a SiNeRF with the hierarchical strategy:
+    the coarse pass on the SIREN forward kernel, the fine pass on the SIREN
+    ray march."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.render.renderer import render_path
+
+    hcfg = sinerf_config(hier_config(cfg))
+    model = make_model(hcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    scene = SphereScene(n_imgs=1, hw=128)
+    ks.siren_mlp_fwd.launches = kr.siren_ray_march.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, _ = render_path(
+        cli.make_render_model_fn(model, hcfg, device=dev),
+        scene.path_poses[:3], scene.hwf, scene.near, scene.far, device=dev,
+        strategy="hierarchical", n_samples=HIER_COARSE, n_fine=HIER_FINE,
+        white_bkgd=True,
+        fused_render_fn=cli.make_fused_render_fn(model.state_dict(), hcfg,
+                                                 device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
+                "siren_ray_march": kr.siren_ray_march.launches}
+    if min(launches.values()) == 0:
+        fail(f"the SiNeRF hierarchical render launched {launches}")
+    if frames.shape != (3, 128, 128, 3) or not np.isfinite(frames).all():
+        fail(f"bad SiNeRF hierarchical frames: shape {frames.shape}")
+    print(f"SiNeRF hierarchical render slice: 3 frames 128x128, C "
+          f"{HIER_COARSE} + F {HIER_FINE}, launches {launches}, "
+          f"{seconds:.3f} s, {3 * 128 * 128 / seconds:.0f} rays/s end to end "
+          f"on {card} (first call included)")
 
 
 def main():
@@ -656,8 +971,8 @@ def main():
                 n_freqs=cfg.encoder.n_freqs,
                 n_freqs_views=cfg.encoder.n_freqs_views, device=dev)
     march_params = kr.prep_params(sd, **arch)
-    normal = compare("normal", kr, padded, march_params, bR, cs,
-                     s.early_stop_eps)
+    normal = compare("normal", kr.ray_march, kr.ray_march_reference, padded,
+                     march_params, bR, cs, s.early_stop_eps)
     # the rows of the block x chunk steps this input needs, through the MLP
     march_bound = bound(
         2.0 * mlp_macs(cfg) * normal["executed"] * bR * cs,
@@ -665,8 +980,9 @@ def main():
                march_params.enc) + padded[0].shape[0] * (8 + 1 / bR) * 4)
     hot_sd = dict(sd, **{"sigma.bias": sd["sigma.bias"]
                          + SATURATING_SIGMA_BIAS})
-    hot = compare("early-exit", kr, padded, kr.prep_params(hot_sd, **arch),
-                  bR, cs, s.early_stop_eps)
+    hot = compare("early-exit", kr.ray_march, kr.ray_march_reference,
+                  padded, kr.prep_params(hot_sd, **arch), bR, cs,
+                  s.early_stop_eps)
     if hot["executed"] >= normal["executed"]:
         fail("a saturating sigma bias did not make blocks exit early")
     n_rays = split.hwf[0] * split.hwf[1]
@@ -725,10 +1041,19 @@ def main():
     # -- 9. the hierarchical training slice ---------------------------------
     hier_launches = hier_train_slice(cfg, dev, card)
 
-    # -- 10. report ---------------------------------------------------------
-    module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms)
-    print(f"nearest cuBLAS route, the bf16 NeRF module on each kernel's rows "
-          f"on {card} (no single PyTorch call computes these functions): "
+    # -- 10.-13. SiNeRF: the SIREN kernels and their slices ------------------
+    siren_fwd, siren_bwd, siren_module_ms = siren_kernels(cfg, dev, card)
+    siren_rm, siren_march_module_ms = siren_march(cfg, dev, card)
+    siren_launches = siren_train_slice(cfg, dev, card)
+    siren_hier_render_slice(cfg, dev, card)
+
+    # -- 14. report ---------------------------------------------------------
+    module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
+                     siren_ray_march=siren_march_module_ms,
+                     **siren_module_ms)
+    print(f"nearest cuBLAS route, the bf16 NeRF or SiNeRF module on each "
+          f"kernel's rows on {card} (no single PyTorch call computes these "
+          f"functions): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in module_ms.items()))
     print(json.dumps({"kernels": [{
         "name": "ray_march",
@@ -764,6 +1089,30 @@ def main():
         "replaces": "fsnerf_tpu/ops/pallas/mlp.py:276",
         "launches": hier_launches["nerf_mlp"],
         **mlp,
+        "library_ms": None,
+    }, {
+        "name": "siren_ray_march",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/render.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/render.py:238",
+        "launches": siren_launches["siren_ray_march"],
+        **siren_rm,
+        "library_ms": None,
+    }, {
+        "name": "siren_mlp_fwd",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/siren.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/siren.py:325",
+        "launches": siren_launches["siren_mlp_fwd"],
+        **siren_fwd,
+        "library_ms": None,
+    }, {
+        "name": "siren_mlp_bwd",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/siren.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/siren.py:355",
+        "launches": siren_launches["siren_mlp_bwd"],
+        **siren_bwd,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,21 @@
 fsnerf_tpu/cli.py, both sampling strategies).
 
 Train (the default): builds `--n_imgs` views of a procedural scene, a
-device-resident ray pool and a seeded NeRF, trains it for `--n_iters` steps
-(train/loop.py; the MLP through the fused train kernels on a CUDA device),
-then renders held-out views of the scene and prints PSNR/SSIM and the
-training rates as one JSON line. occgrid renders them through the fused
-ray-march kernel on the conservative view of the trained grid;
-hierarchical runs the coarse pass through the fused forward MLP
+device-resident ray pool and a seeded NeRF (or SiNeRF), trains it for
+`--n_iters` steps (train/loop.py; the MLP through the fused train kernels
+on a CUDA device), then renders held-out views of the scene and prints
+PSNR/SSIM and the training rates as one JSON line. occgrid renders them
+through the fused ray-march kernel on the conservative view of the trained
+grid; hierarchical runs the coarse pass through the fused forward MLP
 (ops/kernels/mlp.py) and the fine pass through the ray march over the
-sorted coarse-and-fine union (`--no_fused_render`: through the forward
-MLP too).
+sorted coarse-and-fine union (`--no_fused_render`: through the forward MLP
+too).
 
-Render only (`--render_only`): loads reference-keyed NeRF weights
+`--model sinerf` trains and renders SiNeRF the same ways: the MLP through
+the SIREN train kernels, occgrid held-out views through the SIREN ray
+march, the hierarchical coarse pass through the SIREN forward kernel.
+
+Render only (`--render_only`): loads reference-keyed weights
 (`--import_torch_ckpt nn.pt`, or a seeded init when none are given),
 rebuilds the occupancy grid (occgrid) with one full refresh from the
 model's densities and renders held-out views the same way.
@@ -24,10 +28,12 @@ Run:  python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
           --white_bkgd [--n_iters 8000] [--hw 800]
       python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
           --white_bkgd --strategy hierarchical --n_samples 64 --n_fine 128
+      python -m fsnerf_tpu_torch.cli --dataset sphere --model sinerf \
+          --white_bkgd --hw 800 --n_iters 8000
       python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
           [--import_torch_ckpt nn.pt]
 
-SiNeRF, LLFF, checkpoints, in-loop validation and video are not ported yet.
+LLFF, checkpoints, in-loop validation and video are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,15 +71,26 @@ class Split:
 
 
 def make_render_model_fn(model, cfg, step=None, device=None):
-    """The eval-time model_fn: the fused forward MLP (ops/kernels/mlp.py,
-    the weights packed once) when resolve_fused_kernel says so for a NeRF,
-    else the module. `step` anneals the FreeNeRF masks (None: no masks)."""
+    """The eval-time model_fn when resolve_fused_kernel says so: for a NeRF
+    the fused forward MLP (ops/kernels/mlp.py), for a SiNeRF the SIREN
+    forward kernel (ops/kernels/siren.py) with the module answering the
+    density-only calls; the weights packed once. Else the module. `step`
+    anneals the FreeNeRF masks (None: no masks)."""
     from .train.step import make_masks, resolve_fused_kernel
 
     if device is None:
         device = next(model.parameters()).device
     pos_mask, dir_mask = ((None, None) if step is None
                           else make_masks(cfg, step, device))
+    if resolve_fused_kernel(cfg, device) and cfg.model.model == "sinerf":
+        from .ops.kernels.siren import make_siren_forward_fn
+        forward = make_siren_forward_fn(model.state_dict(),
+                                        cfg.model.n_layers, device=device)
+
+        def siren_fn(x, d=None):
+            return model(x) if d is None else forward(x, d)
+
+        return siren_fn
     if resolve_fused_kernel(cfg, device) and cfg.model.model == "nerf":
         from .ops.kernels.mlp import make_fused_model_fn
         return make_fused_model_fn(
@@ -92,14 +109,21 @@ def make_render_model_fn(model, cfg, step=None, device=None):
 
 def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     """The fused ray-march renderer (ops/kernels/render.py) when the config
-    allows it (NeRF with view dirs, skip feeding a trunk layer, fused_render
-    on; occgrid marches the compacted samples, hierarchical its fine pass);
-    None otherwise. `step` anneals the FreeNeRF masks."""
+    allows it (fused_render on; SiNeRF, or NeRF with view dirs and the skip
+    feeding a trunk layer; occgrid marches the compacted samples,
+    hierarchical its fine pass); None otherwise. `step` anneals the
+    FreeNeRF masks."""
+    if not (cfg.model.fused_render
+            and cfg.model.model in ("nerf", "sinerf")
+            and cfg.sampling.strategy in ("occgrid", "hierarchical")):
+        return None
+    if cfg.model.model == "sinerf":
+        from .ops.kernels.render import make_fused_siren_ray_renderer
+        return make_fused_siren_ray_renderer(
+            state_dict, n_layers=cfg.model.n_layers,
+            early_stop_eps=cfg.sampling.early_stop_eps, device=device)
     skip = tuple(cfg.model.skip)
-    if not (cfg.model.fused_render and cfg.model.model == "nerf"
-            and cfg.sampling.strategy in ("occgrid", "hierarchical")
-            and not cfg.encoder.no_dirs
-            and not (skip and max(skip) >= cfg.model.n_layers - 1)):
+    if cfg.encoder.no_dirs or (skip and max(skip) >= cfg.model.n_layers - 1):
         return None
     from .ops.kernels.render import make_fused_ray_renderer
     from .train.step import make_masks
@@ -223,9 +247,9 @@ def parse_args(argv=None):
     d_enc, d_mod, d_smp = EncoderConfig(), ModelConfig(), SamplingConfig()
     d_trn, d_dat = TrainConfig(), DataConfig()
     p = argparse.ArgumentParser(
-        description="Train a NeRF on a procedural scene and render its "
-                    "held-out views, or render them from given weights "
-                    "(PyTorch + CUDA port).", allow_abbrev=False)
+        description="Train a NeRF or SiNeRF on a procedural scene and "
+                    "render its held-out views, or render them from given "
+                    "weights (PyTorch + CUDA port).", allow_abbrev=False)
     p.add_argument("--dataset", choices=["sphere", "lattice"],
                    default="sphere")
     p.add_argument("--render_only", action="store_true",
@@ -243,8 +267,10 @@ def parse_args(argv=None):
     p.add_argument("--white_bkgd", action="store_true")
     p.add_argument("--out_dir", default="",
                    help="write metrics.jsonl of the training run here")
+    p.add_argument("--model", choices=["nerf", "sinerf"],
+                   default=d_mod.model)
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
-                   default=d_trn.dtype, help="NeRF module compute dtype")
+                   default=d_trn.dtype, help="the module's compute dtype")
     p.add_argument("--n_layers", type=int, default=d_mod.n_layers)
     p.add_argument("--d_filter", type=int, default=d_mod.d_filter)
     p.add_argument("--skip", default=",".join(map(str, d_mod.skip)))
@@ -285,7 +311,8 @@ def config_from_args(args) -> Config:
         encoder=dataclasses.replace(cfg.encoder, n_freqs=args.n_freqs,
                                     n_freqs_views=args.n_freqs_views),
         model=dataclasses.replace(
-            cfg.model, n_layers=args.n_layers, d_filter=args.d_filter,
+            cfg.model, model=args.model, n_layers=args.n_layers,
+            d_filter=args.d_filter,
             skip=skip, density_activation=args.density_activation,
             fused_kernel=args.fused_kernel,
             fused_render=not args.no_fused_render),

@@ -33,28 +33,33 @@ class EncoderConfig:
 class ModelConfig:
     """Model options."""
 
-    model: str = "nerf"             # nerf (sinerf is not ported yet)
+    model: str = "nerf"             # nerf | sinerf
     d_filter: int = 256
     n_layers: int = 8
     skip: Tuple[int, ...] = (4,)
     density_activation: str = "none"  # none | relu | trunc_exp
-    # Train through the fused MLP kernels (ops/kernels/mlp_train.py); None =
-    # auto: on for CUDA devices (train/step.py::resolve_fused_kernel).
+    # Train through the fused MLP kernels (ops/kernels/mlp_train.py for
+    # NeRF, ops/kernels/siren.py for SiNeRF); None = auto: on for CUDA
+    # devices (train/step.py::resolve_fused_kernel).
     fused_kernel: Optional[bool] = None
-    # The train forward streams the trunk activations to device memory and
-    # the backward reads them (True), or the backward recomputes the trunk
-    # (False); the gradients are bitwise equal either way.
+    # The NeRF train forward streams the trunk activations to device memory
+    # and the backward reads them (True), or the backward recomputes the
+    # trunk (False); the gradients are bitwise equal either way.
     fused_save_acts: bool = True
     # TPU tuning knobs of the JAX package's train kernels, carried but
     # unread: the port always encodes inside its kernels and fixes its own
-    # tiles (fused_encode, block rows, VMEM limit, acts stride, interleave);
-    # siren_save_acts waits for the SiNeRF port.
+    # tiles (fused_encode, block rows, VMEM limit, acts stride, interleave).
     fused_encode: bool = True
     fused_block_rows: Optional[int] = None
     fused_fwd_block_rows: Optional[int] = None
     fused_vmem_limit_mb: Optional[int] = None
     fused_acts_stride: Optional[int] = None
     fused_interleave: Optional[int] = None
+    # SiNeRF's train forward streams the sine activations and their
+    # premultiplied derivatives a cos(a y) to device memory as bf16 and the
+    # backward reads them (True), or the backward recomputes the trunk and
+    # holds the derivatives in float32 (False); the gradients of the two
+    # modes differ by that rounding (ops/kernels/siren.py).
     siren_save_acts: bool = True
     # Render through the fused ray-march kernel (ops/kernels/render.py).
     fused_render: bool = True

@@ -1,8 +1,9 @@
-// Building blocks shared by the NeRF-MLP kernels of csrc/ (the ray march of
-// render.cu, the forward MLP of mlp.cu and the train forward/backward of
-// mlp_train.cu): the 128-row tensor-core GEMM with weights streamed through
-// shared memory, its forward epilogue, the forward NeRF MLP on encoded rows,
-// and the positional encoding of one feature.
+// Building blocks shared by the MLP kernels of csrc/ (the ray marches of
+// render.cu, the forward MLP of mlp.cu, the train forward/backward of
+// mlp_train.cu and siren.cu): the 128-row tensor-core GEMM with weights
+// streamed through shared memory, its forward epilogue, the forward NeRF MLP
+// on encoded rows, copies of a tile's rows to and from device memory, and
+// the positional encoding of one feature.
 //
 // Every kernel that uses them runs kThreads threads per CTA over a tile of
 // kRows rows held in shared memory as bf16 (row stride padded by kPad so
@@ -320,6 +321,31 @@ __device__ void nerf_mlp_rows(const Mlp& m, const bf16* encx, int LDE,
     }
   }
   __syncthreads();
+}
+
+// dst[r0 + row, col0 : col0 + ncols] = src[row, :ncols] for the CTA's 128
+// rows, in 16-byte pieces (ncols, ld and col0 multiples of 8).
+__device__ __forceinline__ void rows_to_global(const bf16* src, int lds,
+                                               bf16* dst, int ld, int r0,
+                                               int col0, int ncols) {
+  const int per_row = ncols / 8;
+  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
+    const int row = e / per_row, c8 = (e - row * per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)(r0 + row) * ld + col0 + c8) =
+        *reinterpret_cast<const uint4*>(src + row * lds + c8);
+  }
+}
+
+__device__ __forceinline__ void rows_from_global(const bf16* src, int ld,
+                                                 int r0, int col0, bf16* dst,
+                                                 int ldd, int ncols) {
+  const int per_row = ncols / 8;
+  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
+    const int row = e / per_row, c8 = (e - row * per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + row * ldd + c8) =
+        *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * ld +
+                                        col0 + c8);
+  }
 }
 
 // One encoded feature of v in the reference layout [v, sin f0 v, cos f0 v,

@@ -5,9 +5,10 @@
 // Replaces fsnerf_tpu/ops/pallas/mlp_train.py::make_fused_train_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (the forward, kernel
 // mlp_train_fwd_kernel here) and bwd_call (the backward, the three kernels
-// mlp_train_bwd_rows_kernel, mlp_train_dw_kernel and mlp_train_reduce_kernel
-// here). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/mlp_train.py::
-// mlp_train_fwd_reference / mlp_train_bwd_reference.
+// mlp_train_bwd_rows_kernel here, then dw_tiles_kernel and dw_reduce_kernel
+// of train_common.cuh). Plain PyTorch twins:
+// fsnerf_tpu_torch/ops/kernels/mlp_train.py::mlp_train_fwd_reference /
+// mlp_train_bwd_reference.
 //
 // What bounds them on this card: the GEMMs. A sample costs ~1.2 MFLOP
 // forward and ~2.4 MFLOP backward (the head recompute, the input-cotangent
@@ -28,11 +29,11 @@
 //      (the encodings, feat, branch activation and each layer's bf16
 //      cotangent) and each CTA's column sums of the f32 cotangents (the
 //      bias-gradient partials).
-//   2. mlp_train_dw_kernel: dW = X^T dY for every weight matrix, one CTA
-//      per (64 x 64 output tile, split of rows), the rows of its split in a
+//   2. dw_tiles_kernel: dW = X^T dY for every weight matrix, one CTA per
+//      (64 x 64 output tile, split of rows), the rows of its split in a
 //      fixed order; each split writes its own f32 partial.
-//   3. mlp_train_reduce_kernel: sums the partials of each gradient in a
-//      fixed order and rounds to bf16, as the TPU kernel's caller does.
+//   3. dw_reduce_kernel: sums the partials of each gradient in a fixed
+//      order and rounds to bf16, as the TPU kernel's caller does.
 // Nothing is summed in an order that depends on scheduling, so two runs give
 // bitwise-equal gradients, and both backward modes give bitwise-equal
 // gradients (the activations they read are the same bits, and all other
@@ -50,7 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_common.cuh"
+#include "train_common.cuh"
 
 namespace fsnerf {
 namespace {
@@ -144,31 +145,6 @@ __device__ void stage_and_encode(const TrainArgs& a, const Smem& s, int r0) {
         encode_lane(s.din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
   }
   __syncthreads();
-}
-
-// dst[r0 + row, col0 : col0 + ncols] = src[row, :ncols] for the CTA's 128
-// rows, in 16-byte pieces (ncols, ld and col0 multiples of 8).
-__device__ __forceinline__ void rows_to_global(const bf16* src, int lds,
-                                               bf16* dst, int ld, int r0,
-                                               int col0, int ncols) {
-  const int per_row = ncols / 8;
-  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
-    const int row = e / per_row, c8 = (e - row * per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + (size_t)(r0 + row) * ld + col0 + c8) =
-        *reinterpret_cast<const uint4*>(src + row * lds + c8);
-  }
-}
-
-__device__ __forceinline__ void rows_from_global(const bf16* src, int ld,
-                                                 int r0, int col0, bf16* dst,
-                                                 int ldd, int ncols) {
-  const int per_row = ncols / 8;
-  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
-    const int row = e / per_row, c8 = (e - row * per_row) * 8;
-    *reinterpret_cast<uint4*>(dst + row * ldd + c8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * ld +
-                                        col0 + c8);
-  }
 }
 
 // The trunk forward on the encoded rows; streams each activation to `acts`
@@ -312,26 +288,9 @@ struct CotangentEpi {
         s1 += v1;
       }
     }
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    if ((threadIdx.x & 31) < 4) {
-      float* cp = colpart + ((threadIdx.x >> 5) & 3) * width + col;
-      cp[0] = s0;
-      cp[1] = s1;
-    }
+    warp_colsums(s0, s1, colpart, width, col);
   }
 };
-
-// pbias[blk, off : off + n] = the four row groups' column sums, in order.
-__device__ __forceinline__ void store_colsums(const Smem& s, float* pb,
-                                              int off, int n, int width) {
-  for (int c = threadIdx.x; c < n; c += kThreads)
-    pb[off + c] = ((s.colpart[c] + s.colpart[width + c]) +
-                   s.colpart[2 * width + c]) + s.colpart[3 * width + c];
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
@@ -424,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   CotangentEpi epi{other, s.LDH, false, nullptr, nullptr, s.colpart, W};
   gemm(Seg{hl, s.LDH, wt_bh, Wh}, none, W, s.slabs, epi);
   __syncthreads();
-  store_colsums(s, pb, off_conn, W, W);
+  store_colsums(s.colpart, pb, off_conn, W, W);
   rows_to_global(other, s.LDH, a.dy, DYW, r0, dy_conn, W);
 
   // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
@@ -435,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      a.wpack + trunk_offset(a, L), s.colpart, W};
   gemm(Seg{other, s.LDH, wt_conn, W}, none, W, s.slabs, epi);
   __syncthreads();
-  store_colsums(s, pb, (L - 1) * W, W, W);
+  store_colsums(s.colpart, pb, (L - 1) * W, W, W);
   rows_to_global(hl, s.LDH, a.dy, DYW, r0, (L - 1) * W, W);
 
   // trunk: d h_{i-1} = d h_i_b @ W_i^T (the h part at a skip layer)
@@ -448,159 +407,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     gemm(Seg{cur, s.LDH, wt + (size_t)(i - 1) * W * W, W}, none, W, s.slabs,
          epi);
     __syncthreads();
-    store_colsums(s, pb, (i - 1) * W, W, W);
+    store_colsums(s.colpart, pb, (i - 1) * W, W, W);
     rows_to_global(nxt, s.LDH, a.dy, DYW, r0, (i - 1) * W, W);
     bf16* t = cur;
     cur = nxt;
     nxt = t;
   }
-}
-
-// ---- weight gradients: dW = X^T dY ----------------------------------------
-
-constexpr int kDwThreads = 128;
-constexpr int kDwTile = 64;           // output tile 64 x 64, row chunk 64
-constexpr int kDwLd = kDwTile + kPad;
-constexpr int kDwPieces = kDwTile * kDwTile / 8 / kDwThreads;
-
-// One weight matrix: X columns [x_col, x_col + k_in) of acts (x_src 0) or
-// xs (x_src 1), dY columns [y_col, y_col + n_out) of dy, written as the
-// [k_in, n_out] row-major block at w_off of the packed gradient.
-struct DwJob {
-  int x_src, x_col, k_in, y_col, n_out, w_off;
-};
-
-__device__ __forceinline__ void dw_load(uint4 (&r)[kDwPieces], const bf16* p,
-                                        int ld, int k0, int lim) {
-#pragma unroll
-  for (int q = 0; q < kDwPieces; ++q) {
-    const int idx = threadIdx.x + q * kDwThreads;
-    const int row = idx >> 3, c8 = (idx & 7) * 8;
-    r[q] = c8 < lim ? *reinterpret_cast<const uint4*>(
-                          p + (size_t)(k0 + row) * ld + c8)
-                    : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-__device__ __forceinline__ void dw_store(const uint4 (&r)[kDwPieces],
-                                         bf16* dst) {
-#pragma unroll
-  for (int q = 0; q < kDwPieces; ++q) {
-    const int idx = threadIdx.x + q * kDwThreads;
-    *reinterpret_cast<uint4*>(dst + (idx >> 3) * kDwLd + (idx & 7) * 8) = r[q];
-  }
-}
-
-// blockIdx.x: an output tile (tiles[3t] = job, tm, tn); blockIdx.y: a split
-// of split_rows rows. Each warp owns 16 rows (input dims) x 64 columns
-// (output dims) of the tile and walks the split's rows in order, 16 at a
-// time: A = X^T through ldmatrix.trans of the [rows, in] chunk, B = dY
-// through ldmatrix.trans of the [rows, out] chunk.
-__global__ void __launch_bounds__(kDwThreads)
-    mlp_train_dw_kernel(const bf16* acts, int ld_acts, const bf16* xs,
-                        int ld_xs, const bf16* dy, int ld_dy,
-                        const int* tiles, const int* jobs, float* part,
-                        int n_w, int n_rows, int split_rows) {
-  __shared__ __align__(16) bf16 Xs[2][kDwTile * kDwLd];
-  __shared__ __align__(16) bf16 Ys[2][kDwTile * kDwLd];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int* t = tiles + 3 * blockIdx.x;
-  const int* jp = jobs + 6 * t[0];
-  const DwJob job = {jp[0], jp[1], jp[2], jp[3], jp[4], jp[5]};
-  const int m0 = t[1] * kDwTile, n0 = t[2] * kDwTile;
-  const bf16* X = (job.x_src ? xs : acts) + job.x_col + m0;
-  const int ldx = job.x_src ? ld_xs : ld_acts;
-  const bf16* Y = dy + job.y_col + n0;
-  const int mlim = job.k_in - m0;
-  const int nlim = ((job.n_out + 7) / 8) * 8 - n0;
-  const int row_begin = blockIdx.y * split_rows;
-  const int row_end = min(n_rows, row_begin + split_rows);
-
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint4 rx[kDwPieces], ry[kDwPieces];
-  dw_load(rx, X, ldx, row_begin, mlim);
-  dw_load(ry, Y, ld_dy, row_begin, nlim);
-  dw_store(rx, Xs[0]);
-  dw_store(ry, Ys[0]);
-  __syncthreads();
-  const int q = lane >> 3, r = lane & 7;
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;
-  int it = 0;
-  for (int k0 = row_begin; k0 < row_end; k0 += kDwTile, ++it) {
-    const bool more = k0 + kDwTile < row_end;
-    if (more) {
-      dw_load(rx, X, ldx, k0 + kDwTile, mlim);
-      dw_load(ry, Y, ld_dy, k0 + kDwTile, nlim);
-    }
-    const bf16* xb = Xs[it & 1];
-    const bf16* yb = Ys[it & 1];
-#pragma unroll
-    for (int kk = 0; kk < kDwTile; kk += 16) {
-      uint32_t a[4], b[4][4];
-      ldsm_x4_trans(a, xb + (kk + r + ((q >> 1) << 3)) * kDwLd + warp * 16 +
-                           ((q & 1) << 3));
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2)
-        ldsm_x4_trans(b[j2], yb + (kk + lrow) * kDwLd + 16 * j2 + lcol);
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        mma_bf16(acc[2 * j2], a, b[j2][0], b[j2][1]);
-        mma_bf16(acc[2 * j2 + 1], a, b[j2][2], b[j2][3]);
-      }
-    }
-    if (more) {
-      dw_store(rx, Xs[(it + 1) & 1]);
-      dw_store(ry, Ys[(it + 1) & 1]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * n_w + job.w_off;
-  const int qr = lane >> 2, qc = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + warp * 16 + 8 * h + qr;
-      if (m >= job.k_in) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * j + qc + e;
-        if (n < job.n_out) out[(size_t)m * job.n_out + n] = acc[j][2 * h + e];
-      }
-    }
-  }
-}
-
-// dw[e] = bf16(sum over splits of part[., e]) for the first n_w threads of
-// the grid; then one warp per bias: db[e] = bf16(sum over row CTAs of
-// pbias[., e]), lanes striding the CTAs, then a fixed shuffle tree.
-constexpr int kReduceThreads = 256;
-
-__global__ void __launch_bounds__(kReduceThreads)
-    mlp_train_reduce_kernel(const float* part, int n_splits, int n_w,
-                            const float* pbias, int n_blocks, int n_b,
-                            int w_blocks, float* dw, float* db) {
-  if (blockIdx.x < w_blocks) {
-    const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-    if (e >= n_w) return;
-    float v = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) v += part[(size_t)sp * n_w + e];
-    dw[e] = __bfloat162float(__float2bfloat16_rn(v));
-    return;
-  }
-  const int e = (blockIdx.x - w_blocks) * (kReduceThreads / 32) +
-                (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (e >= n_b) return;
-  float v = 0.f;
-  for (int blk = lane; blk < n_blocks; blk += 32)
-    v += pbias[(size_t)blk * n_b + e];
-  v = warp_sum(v);
-  if (lane == 0) db[e] = __bfloat162float(__float2bfloat16_rn(v));
 }
 
 void fill_args(TrainArgs& a, const void* x, const void* d, const void* wpack,
@@ -658,7 +470,8 @@ extern "C" int fsnerf_mlp_train_fwd(
 // dw [n_w], db [n_b]: bf16-rounded gradients in the wpack / bpack layouts.
 // acts is read (recompute = 0) or written (recompute = 1); xs, dy, pbias
 // and part are scratch of the shapes documented in TrainArgs and
-// mlp_train_dw_kernel; jobs [n_jobs, 6] and tiles [n_tiles, 3] int32.
+// train_common.cuh::dw_tiles_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
+// 3] int32.
 extern "C" int fsnerf_mlp_train_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
     const void* bpack, const void* wtpack, const void* enc, void* acts,
@@ -689,24 +502,16 @@ extern "C" int fsnerf_mlp_train_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int Wh = width / 2, n_rows = n_blocks * kRows;
+  const int Wh = width / 2;
   const int n_w = (int)(trunk_offset(a, n_layers)) + width + width * width +
                   width * Wh + d_dir_pad * Wh + Wh * 3;
   const int n_b = n_layers * width + 1 + width + Wh + 3;
-  const int n_splits = (n_rows + split_rows - 1) / split_rows;
-  mlp_train_dw_kernel<<<dim3(n_tiles, n_splits), kDwThreads, 0, st>>>(
+  return static_cast<int>(launch_dw(
       static_cast<const bf16*>(acts), n_layers * width,
       static_cast<const bf16*>(xs), d_enc_pad + d_dir_pad + width + Wh,
       static_cast<const bf16*>(dy), n_layers * width + width + Wh + 16,
-      static_cast<const int*>(tiles), static_cast<const int*>(jobs),
-      static_cast<float*>(part), n_w, n_rows, split_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int w_blocks = (n_w + kReduceThreads - 1) / kReduceThreads;
-  const int b_blocks = (n_b + kReduceThreads / 32 - 1) / (kReduceThreads / 32);
-  mlp_train_reduce_kernel<<<w_blocks + b_blocks, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(part), n_splits, n_w,
-      static_cast<const float*>(pbias), n_blocks, n_b, w_blocks,
-      static_cast<float*>(dw), static_cast<float*>(db));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int*>(tiles), n_tiles, static_cast<const int*>(jobs),
+      static_cast<float*>(part), n_w, split_rows,
+      static_cast<const float*>(pbias), n_blocks, n_b, 1,
+      static_cast<float*>(dw), static_cast<float*>(db), st));
 }

@@ -30,8 +30,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu")
-HEADERS = ("fastmath.cuh", "mlp_common.cuh")
+SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu", "siren.cu")
+HEADERS = ("fastmath.cuh", "mlp_common.cuh", "siren_common.cuh",
+           "train_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,6 +115,13 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_mlp_train_bwd.argtypes = (
         [vp] * 8 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 8 + [vp])
     lib.fsnerf_mlp_train_bwd.restype = i
+    lib.fsnerf_siren_ray_march.argtypes = [vp] * 10 + [i] * 6 + [f, vp]
+    lib.fsnerf_siren_ray_march.restype = i
+    lib.fsnerf_siren_fwd.argtypes = [vp] * 7 + [i] * 3 + [vp]
+    lib.fsnerf_siren_fwd.restype = i
+    lib.fsnerf_siren_bwd.argtypes = (
+        [vp] * 8 + [i] + [vp] * 6 + [i, vp, i, vp, vp] + [i] * 3 + [vp])
+    lib.fsnerf_siren_bwd.restype = i
     lib.fsnerf_error_string.argtypes = [i]
     lib.fsnerf_error_string.restype = ctypes.c_char_p
     return lib

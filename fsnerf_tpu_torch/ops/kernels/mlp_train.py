@@ -314,9 +314,9 @@ def dw_jobs(lay: TrainLayout):
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_plan(lay: TrainLayout, device: str):
-    """(jobs [n_jobs, 6], tiles [n_tiles, 3]) int32 on `device`."""
-    jobs = dw_jobs(lay)
+def dw_plan(jobs: Tuple[Tuple[int, ...], ...], device: str):
+    """(jobs [n_jobs, 6], tiles [n_tiles, 3]) int32 on `device`: one tile
+    per DW_TILE x DW_TILE block of each job's [k_in, n_out] gradient."""
     tiles = [(j, tm, tn) for j, job in enumerate(jobs)
              for tm in range(-(-job[2] // DW_TILE))
              for tn in range(-(-job[4] // DW_TILE))]
@@ -356,7 +356,7 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
                      dtype=torch.bfloat16, device=dev)
     pbias = torch.empty((n_pad // ROWS, lay.n_b), dtype=torch.float32,
                         device=dev)
-    jobs, tiles = _dw_plan(lay, str(dev))
+    jobs, tiles = dw_plan(tuple(dw_jobs(lay)), str(dev))
     part = torch.empty((-(-n_pad // SPLIT_ROWS), lay.n_w),
                        dtype=torch.float32, device=dev)
     dw = torch.empty(lay.n_w, dtype=torch.float32, device=dev)

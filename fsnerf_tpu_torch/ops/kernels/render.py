@@ -1,6 +1,7 @@
-"""Fused ray-march render: the CUDA kernel's wrapper, its plain PyTorch
-version and the renderer built on them (port of
-fsnerf_tpu/ops/pallas/render.py::make_fused_ray_renderer).
+"""Fused ray-march render: the CUDA kernels' wrappers, their plain PyTorch
+versions and the renderers built on them (port of
+fsnerf_tpu/ops/pallas/render.py::make_fused_ray_renderer and
+::make_fused_siren_ray_renderer).
 
 Per block of `block_rows` rays and chunk of `chunk_s` samples: skip the
 chunk unless some ray of the block is still below the transmittance cutoff
@@ -15,6 +16,10 @@ depth, trans_final, 0, 0; the background is blended by the caller.
 `ray_march_reference` only for CPU tensors. The two share one signature,
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
+
+The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
+same shell with the SIREN MLP of siren.py on the raw points and directions
+(bf16, no encoding) in place of the encoding and the NeRF MLP.
 """
 
 from __future__ import annotations
@@ -267,28 +272,22 @@ def _check(x, dirs, t, deltas, mask, block_rows, chunk_s):
                              f"{a.dtype} {tuple(a.shape)}")
 
 
-def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
-                        block_rows: int, chunk_s: int,
-                        early_stop_eps: float = 1e-4):
-    """Plain PyTorch version of the ray-march kernel.
+def _march(x, dirs, t, deltas, mask, block_rows: int, chunk_s: int,
+           early_stop_eps: float, mlp_rows):
+    """The block x chunk loop both ray marches share: per block of
+    `block_rows` rays and chunk of `chunk_s` samples, skip unless a ray of
+    the block is below the transmittance cutoff and a sample of the chunk
+    is valid; else mlp_rows(idx, sl) -> (rgb [n * chunk_s, 3], sigma
+    [n * chunk_s]) for rays idx over samples sl, then exp/cumsum
+    compositing with the optical depth carried across chunks.
 
-    Args:
-      x [R, K, 3], dirs [R, 3], t/deltas/mask [R, K] float32, R a multiple
-      of block_rows and K of chunk_s; params from prep_params.
-
-    Returns (stats [R, 8] float32, steps [R / block_rows] int32).
-    """
+    Returns (stats [R, 8] float32, steps [R / block_rows] int32)."""
     _check(x, dirs, t, deltas, mask, block_rows, chunk_s)
     R, K, _ = x.shape
     bR, cs = block_rows, chunk_s
     nB = R // bR
     dev = x.device
     thresh = -math.log(max(float(early_stop_eps), 1e-30))
-    F, Fv = params.n_freqs, params.n_freqs_views
-    e = params.enc
-    fx, mx, fd, md = e[:F], e[F:2 * F], e[2 * F:2 * F + Fv], e[2 * F + Fv:]
-    unpacked = _unpack(params)
-    ed_all = encode(dirs, fd, md, params.d_dir_pad)
 
     od_acc = torch.zeros(R, device=dev)
     rgb_acc = torch.zeros(R, 3, device=dev)
@@ -305,10 +304,7 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
         if idx.numel() == 0:
             continue
         n = idx.numel()
-        ex = encode(x[idx, sl].reshape(-1, 3), fx, mx, params.d_enc_pad)
-        ed = ed_all[idx].repeat_interleave(cs, dim=0)
-        rgb, sigma = mlp_forward(ex, ed, params.density_activation,
-                                 unpacked)
+        rgb, sigma = mlp_rows(idx, sl)
         od = sigma.view(n, cs) * deltas[idx, sl] * mask[idx, sl]
         cum = torch.cumsum(od, dim=-1)
         w = torch.exp(-(od_acc[idx, None] + cum - od)) * (1.0 - torch.exp(-od))
@@ -322,6 +318,32 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
     return stats, steps
 
 
+def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
+                        block_rows: int, chunk_s: int,
+                        early_stop_eps: float = 1e-4):
+    """Plain PyTorch version of the ray-march kernel.
+
+    Args:
+      x [R, K, 3], dirs [R, 3], t/deltas/mask [R, K] float32, R a multiple
+      of block_rows and K of chunk_s; params from prep_params.
+
+    Returns (stats [R, 8] float32, steps [R / block_rows] int32).
+    """
+    F, Fv = params.n_freqs, params.n_freqs_views
+    e = params.enc
+    fx, mx, fd, md = e[:F], e[F:2 * F], e[2 * F:2 * F + Fv], e[2 * F + Fv:]
+    unpacked = _unpack(params)
+    ed_all = encode(dirs, fd, md, params.d_dir_pad)
+
+    def mlp_rows(idx, sl):
+        ex = encode(x[idx, sl].reshape(-1, 3), fx, mx, params.d_enc_pad)
+        ed = ed_all[idx].repeat_interleave(chunk_s, dim=0)
+        return mlp_forward(ex, ed, params.density_activation, unpacked)
+
+    return _march(x, dirs, t, deltas, mask, block_rows, chunk_s,
+                  early_stop_eps, mlp_rows)
+
+
 def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
               block_rows: int, chunk_s: int, early_stop_eps: float = 1e-4):
     """The ray march: csrc/render.cu for CUDA tensors, ray_march_reference
@@ -330,16 +352,31 @@ def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
     if x.device.type == "cpu":
         return ray_march_reference(x, dirs, t, deltas, mask, params,
                                    block_rows, chunk_s, early_stop_eps)
+    stats, steps = _launch_march(
+        "ray_march", x, dirs, t, deltas, mask,
+        (params.wpack, params.bpack, params.enc), block_rows, chunk_s,
+        early_stop_eps, params.n_layers, params.skip_mask, params.width,
+        params.n_freqs, params.n_freqs_views, params.d_enc_pad,
+        params.d_dir_pad, _DENSITY_ACT[params.density_activation])
+    ray_march.launches += 1
+    return stats, steps
+
+
+def _launch_march(name, x, dirs, t, deltas, mask, weights, block_rows,
+                  chunk_s, early_stop_eps, *arch):
+    """Check the inputs and launch the C entry fsnerf_<name> of
+    csrc/render.cu on CUDA tensors: (x, dirs, t, deltas, mask, *weights,
+    stats, steps, R, K, block_rows, chunk_s, *arch, thresh, stream).
+    Returns (stats [R, 8], steps [R / block_rows])."""
     if x.device.type != "cuda":
-        raise ValueError(f"ray_march runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     _check(x, dirs, t, deltas, mask, block_rows, chunk_s)
     if block_rows * chunk_s > KERNEL_ROWS:
         raise ValueError(f"block_rows * chunk_s must be <= {KERNEL_ROWS}")
-    tensors = (x, dirs, t, deltas, mask, params.wpack, params.bpack,
-               params.enc)
+    tensors = (x, dirs, t, deltas, mask, *weights)
     for a in tensors:
         if a.device != x.device or not a.is_contiguous():
-            raise ValueError("ray_march needs contiguous tensors on one "
+            raise ValueError(f"{name} needs contiguous tensors on one "
                              "device")
     from .build import load_library
 
@@ -349,17 +386,13 @@ def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
     steps = torch.empty((R // block_rows,), dtype=torch.int32,
                         device=x.device)
     thresh = -math.log(max(float(early_stop_eps), 1e-30))
-    err = lib.fsnerf_ray_march(
+    err = getattr(lib, f"fsnerf_{name}")(
         *(a.data_ptr() for a in tensors), stats.data_ptr(), steps.data_ptr(),
-        R, K, block_rows, chunk_s, params.n_layers, params.skip_mask,
-        params.width, params.n_freqs, params.n_freqs_views,
-        params.d_enc_pad, params.d_dir_pad,
-        _DENSITY_ACT[params.density_activation], thresh,
+        R, K, block_rows, chunk_s, *arch, thresh,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError("ray_march kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.fsnerf_error_string(err).decode())
-    ray_march.launches += 1
     return stats, steps
 
 
@@ -415,12 +448,19 @@ def make_fused_ray_renderer(
     params = prep_params(state_dict, n_layers, skip, n_freqs, n_freqs_views,
                          log_space, density_activation, pos_mask, dir_mask,
                          device)
+    return _renderer(ray_march, params, early_stop_eps, block_rows, chunk_s)
+
+
+def _renderer(march, params, early_stop_eps: float, block_rows: int,
+              chunk_s: int):
+    """render_fn over a ray march (ray_march or siren_ray_march): pad,
+    march, blend the background."""
 
     def render_fn(x, dirs, t, deltas, mask, bkgd=0.0):
         R = x.shape[0]
         padded, bR, cs = pad_for_march(x, dirs, t, deltas, mask, block_rows,
                                        chunk_s)
-        stats, _ = ray_march(*padded, params, bR, cs, early_stop_eps)
+        stats, _ = march(*padded, params, bR, cs, early_stop_eps)
         stats = stats[:R]
         trans_final = stats[:, 5]
         bk = torch.as_tensor(bkgd, dtype=torch.float32, device=stats.device)
@@ -429,3 +469,66 @@ def make_fused_ray_renderer(
                 "trans_final": trans_final}
 
     return render_fn
+
+
+def siren_ray_march_reference(x, dirs, t, deltas, mask, params,
+                              block_rows: int, chunk_s: int,
+                              early_stop_eps: float = 1e-4):
+    """Plain PyTorch version of the SIREN ray-march kernel: the block x
+    chunk loop of ray_march_reference with the SiNeRF MLP
+    (siren.py::siren_mlp_fwd_reference) on the bf16-rounded raw points and
+    directions in place of the encoding and the NeRF MLP.
+
+    Args: as ray_march_reference; params from siren.py::prep_siren_params.
+    Returns (stats [R, 8] float32, steps [R / block_rows] int32)."""
+    from .siren import pad_inputs, siren_mlp_fwd_reference
+
+    d_all = pad_inputs(dirs)
+
+    def mlp_rows(idx, sl):
+        xb = pad_inputs(x[idx, sl].reshape(-1, 3))
+        db = d_all[idx].repeat_interleave(chunk_s, dim=0)
+        out, _ = siren_mlp_fwd_reference(xb, db, params)
+        return out[:, :3], out[:, 3]
+
+    return _march(x, dirs, t, deltas, mask, block_rows, chunk_s,
+                  early_stop_eps, mlp_rows)
+
+
+def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
+                    chunk_s: int, early_stop_eps: float = 1e-4):
+    """The SIREN ray march: csrc/render.cu for CUDA tensors,
+    siren_ray_march_reference for CPU tensors. Same arguments and returns.
+    Counts its kernel launches in `siren_ray_march.launches`."""
+    if x.device.type == "cpu":
+        return siren_ray_march_reference(x, dirs, t, deltas, mask, params,
+                                         block_rows, chunk_s, early_stop_eps)
+    lay = params.layout
+    stats, steps = _launch_march(
+        "siren_ray_march", x, dirs, t, deltas, mask,
+        (params.wpack, params.bpack, params.alphas), block_rows, chunk_s,
+        early_stop_eps, lay.n_layers, lay.width)
+    siren_ray_march.launches += 1
+    return stats, steps
+
+
+siren_ray_march.launches = 0
+
+
+def make_fused_siren_ray_renderer(
+    state_dict: Dict[str, torch.Tensor],
+    n_layers: int = 8,
+    alphas=None,
+    early_stop_eps: float = 1e-4,
+    block_rows: int = 16,
+    chunk_s: int = 8,
+    device=None,
+):
+    """render_fn(x, dirs, t, deltas, mask, bkgd) -> dict as
+    make_fused_ray_renderer's, over the SIREN ray march of a
+    reference-keyed SiNeRF state dict (alphas None: (30, 1, ..., 1))."""
+    from .siren import prep_siren_params
+
+    params = prep_siren_params(state_dict, n_layers, alphas, device=device)
+    return _renderer(siren_ray_march, params, early_stop_eps, block_rows,
+                     chunk_s)

@@ -42,20 +42,24 @@ def card_name() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def render_views(model, grid, cfg, poses, hwf, near, far, dev):
-    """[V, H, W, 3] frames by the strategy's protocol: occgrid through the
-    ray march at n_compact 192 and query stride 1, hierarchical through the
-    eval model_fn for both passes."""
+def render_views(model, grid, cfg, poses, hwf, near, far, dev,
+                 march: bool = True):
+    """[V, H, W, 3] frames by the strategy's protocol: occgrid at
+    n_compact 192 and query stride 1, through the ray march (or, without
+    `march`, the eval model_fn on every compacted sample), hierarchical
+    through the eval model_fn for both passes."""
     from ..cli import make_fused_render_fn, make_render_model_fn
     from ..render.renderer import render_frame
 
     s = cfg.sampling
     if s.strategy == "occgrid":
-        model_fn = None
+        model_fn = None if march else make_render_model_fn(model, cfg,
+                                                           device=dev)
         kw = dict(grid=grid, render_step_size=s.render_step_size,
                   n_compact=192, early_stop_eps=s.early_stop_eps,
                   query_stride=1, fused_render_fn=make_fused_render_fn(
-                      model.state_dict(), cfg, device=dev))
+                      model.state_dict(), cfg, device=dev) if march
+                  else None)
     else:
         model_fn = make_render_model_fn(model, cfg, device=dev)
         kw = dict(strategy="hierarchical", n_fine=s.n_fine)

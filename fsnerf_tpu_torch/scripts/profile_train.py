@@ -1,11 +1,11 @@
 """Where a training step's time goes on the card: trains `--warmup` steps of
-the default config (or of hierarchical sampling, 64 + 128 samples) on a
-procedural scene (so the grid and the compaction K reach their steady
-state), then profiles `--steps` more with torch.profiler.
+the default config (or of hierarchical sampling, 64 + 128 samples; or of
+SiNeRF) on a procedural scene (so the grid and the compaction K reach their
+steady state), then profiles `--steps` more with torch.profiler.
 
     python -m fsnerf_tpu_torch.scripts.profile_train [--dataset lattice] \
         [--hw 800] [--warmup 1000] [--steps 30] [--out DIR] \
-        [--strategy occgrid|hierarchical]
+        [--strategy occgrid|hierarchical] [--model nerf|sinerf]
 
 Prints the wall time per step of `--steps` steps without the profiler and
 with it (the profiler's host-side tracing slows dispatch), the device's
@@ -33,7 +33,8 @@ import torch
 from .lattice_gate import card_name
 
 _TRAIN_KERNELS = ("mlp_train_fwd_kernel", "mlp_train_bwd_rows_kernel",
-                  "mlp_train_dw_kernel", "mlp_train_reduce_kernel")
+                  "siren_fwd_kernel", "siren_bwd_rows_kernel",
+                  "dw_tiles_kernel", "dw_reduce_kernel")
 
 
 def busy_us(events) -> float:
@@ -58,6 +59,7 @@ def main(argv=None):
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--strategy", choices=["occgrid", "hierarchical"],
                     default="occgrid")
+    ap.add_argument("--model", choices=["nerf", "sinerf"], default="nerf")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs an NVIDIA GPU")
@@ -65,7 +67,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from ..cli import scene_class
-    from ..config import Config, DataConfig
+    from ..config import Config, DataConfig, ModelConfig
     from ..core.models import make_model
     from ..data.pool import pool_from_images
     from ..train.loop import CompactionController, train
@@ -74,7 +76,8 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     cfg = Config(data=DataConfig(dataset=args.dataset, n_imgs=8,
-                                 white_bkgd=True))
+                                 white_bkgd=True),
+                 model=ModelConfig(model=args.model))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 n_iters=args.warmup))
     hier = args.strategy == "hierarchical"
@@ -148,7 +151,7 @@ def main(argv=None):
     launches = sum(1 for e in dev_events if e.get("cat") == "kernel") / n
     print(json.dumps({
         "card": card_name(), "dataset": args.dataset, "hw": args.hw,
-        "strategy": args.strategy,
+        "strategy": args.strategy, "model": args.model,
         "warmup_steps": args.warmup, "profiled_steps": n,
         "n_compact": step_cfg.sampling.n_compact,
         "n_valid_mean": float(m["n_valid_mean"]),

@@ -3,7 +3,8 @@
 One step: batch draw on the device -> samples (occgrid: lattice, occupancy
 mask, compaction; hierarchical: stratified coarse bins, then inverse-CDF
 fine samples) -> the MLP (the fused train kernels of
-ops/kernels/mlp_train.py, or the NeRF module) -> volume integration -> MSE
+ops/kernels/mlp_train.py for NeRF or ops/kernels/siren.py for SiNeRF, or
+the module) -> volume integration -> MSE
 (+ regularizers) -> gradients -> Adam -> under occgrid, every
 update_interval steps the occupancy-grid EMA refresh with the updated
 weights. Nothing in a step waits on the device: its metrics stay there as
@@ -74,18 +75,19 @@ def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
 
 def resolve_fused_kernel(cfg, device) -> bool:
     """ModelConfig.fused_kernel with its auto mode (None) resolved: on for
-    CUDA devices. The train kernels exist for the plain NeRF with a raw
-    sigma head, view directions, a skip concat feeding a trunk layer and a
-    width that is a multiple of 32; other configs resolve False."""
+    CUDA devices. The train kernels exist for view directions and a width
+    that is a multiple of 32, with the plain NeRF (a raw sigma head and a
+    skip concat feeding a trunk layer) or SiNeRF (its ReLU sigma head is
+    built in); other configs resolve False."""
     want = cfg.model.fused_kernel
     if want is None:
         want = torch.device(device).type == "cuda"
     skip = tuple(cfg.model.skip)
-    ok = (cfg.model.model == "nerf"
-          and cfg.model.density_activation == "none"
-          and not cfg.encoder.no_dirs
-          and cfg.model.d_filter % 32 == 0
-          and (not skip or max(skip) < cfg.model.n_layers - 1))
+    ok_nerf = (cfg.model.model == "nerf"
+               and cfg.model.density_activation == "none"
+               and (not skip or max(skip) < cfg.model.n_layers - 1))
+    ok = ((ok_nerf or cfg.model.model == "sinerf")
+          and not cfg.encoder.no_dirs and cfg.model.d_filter % 32 == 0)
     return bool(want and ok)
 
 
@@ -113,7 +115,10 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
     if s_cfg.strategy not in ("occgrid", "hierarchical"):
         raise ValueError(f"unknown sampling strategy {s_cfg.strategy!r}")
     fused = None
-    if resolve_fused_kernel(cfg, device):
+    if resolve_fused_kernel(cfg, device) and cfg.model.model == "sinerf":
+        from ..ops.kernels.siren import make_fused_siren_model_fn
+        fused = make_fused_siren_model_fn(cfg)
+    elif resolve_fused_kernel(cfg, device):
         from ..ops.kernels.mlp_train import make_fused_train_model_fn
         fused = make_fused_train_model_fn(cfg)
     Ts = int(t_cfg.reg_ratio * t_cfg.Td)
@@ -188,8 +193,8 @@ def resolve_update_interval(s_cfg, step: int) -> int:
 def maybe_update_grid(model, cfg, grid: og.OccGrid, step: int, draws,
                       device=None) -> og.OccGrid:
     """The occupancy-grid EMA refresh when `step` is on the interval: the
-    NeRF module's densities (as the JAX package, the refresh does not use
-    the train kernels) at jittered cell positions, all cells during warmup
+    module's densities (as the JAX package, the refresh does not use the
+    train kernels) at jittered cell positions, all cells during warmup
     and a round-robin part after."""
     s = cfg.sampling
     if s.strategy != "occgrid":

@@ -1,11 +1,16 @@
 """Weights and training state across packages: JAX params and reference
-`nn.pt` files -> the port's NeRF state dict; a JAX TrainState -> the port's.
+`nn.pt` files -> the port's NeRF / SiNeRF state dict; a JAX TrainState ->
+the port's.
 
-The port's NeRF (core/models.py) uses the reference state-dict keys, so a
+The port's models (core/models.py) use the reference state-dict keys, so a
 reference `nn.pt` loads as it is. JAX/flax params ({'params': {'layers_0':
 {'kernel' [in, out], 'bias'}, ...}}) map by the same rule as
-fsnerf_tpu/utils/torch_interop.py::export_torch_state_dict: `layers_{i}` ->
-`layers.{i}`, heads keep their names, kernels transpose to [out, in].
+fsnerf_tpu/utils/torch_interop.py::export_torch_state_dict, and kernels
+transpose to [out, in]. NeRF: `layers_{i}` -> `layers.{i}`, heads keep
+their names. SiNeRF: `first_{i}` -> `first_layers.{i}.fc_layer`, `sigma_0`
+-> `sigma_layers.0.fc_layer`, `sigma_1` -> `sigma_layers.1`, `fc_feature`
+keeps its name, `rgb_0` -> `rgb_layers.0.fc_layer`, `rgb_1` ->
+`rgb_layers.1`.
 """
 
 from __future__ import annotations
@@ -17,6 +22,13 @@ import numpy as np
 import torch
 
 _NERF_HEADS = ("sigma", "connection", "branch", "rgb")
+_SINERF_FIXED = {
+    "sigma_0": "sigma_layers.0.fc_layer",
+    "sigma_1": "sigma_layers.1",
+    "fc_feature": "fc_feature",
+    "rgb_0": "rgb_layers.0.fc_layer",
+    "rgb_1": "rgb_layers.1",
+}
 
 
 def _torch_prefix(name: str) -> str:
@@ -25,12 +37,17 @@ def _torch_prefix(name: str) -> str:
         return f"layers.{m.group(1)}"
     if name in _NERF_HEADS:
         return name
-    raise ValueError(f"unrecognized NeRF module name: {name!r}")
+    m = re.fullmatch(r"first_(\d+)", name)
+    if m:
+        return f"first_layers.{m.group(1)}.fc_layer"
+    if name in _SINERF_FIXED:
+        return _SINERF_FIXED[name]
+    raise ValueError(f"unrecognized NeRF / SiNeRF module name: {name!r}")
 
 
 def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """flax NeRF params (numpy or array-likes) -> reference-keyed state dict
-    of float32 CPU tensors."""
+    """flax NeRF or SiNeRF params (numpy or array-likes) -> reference-keyed
+    state dict of float32 CPU tensors."""
     p = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     for name, entry in p.items():

@@ -11,7 +11,13 @@ tests/test_pallas.py), every weight and bias gradient within 2e-2 of that
 tensor's max |plain gradient| (the kernels sum in another order, and each
 cotangent is rounded to bf16 before its products, so a rounding flip can
 move a gradient by a bf16 step); gradients bitwise repeatable and bitwise
-equal between the saved-activations and recompute backwards.
+equal between the saved-activations and recompute backwards. SIREN
+forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
+|sigma|; every gradient within 1e-2 of that tensor's max |plain gradient|
+in each backward mode, and the two modes within 1e-2 of each other's max
+(they differ by design: the saved mode's derivative factors are bf16, the
+recompute's f32); each mode bitwise repeatable. SIREN ray march (render.cu):
+the ray march's tolerances and equal executed-step counts.
 
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor fsnerf_tpu, so on the card's machine (which has no
@@ -27,9 +33,10 @@ from fsnerf_tpu_torch.core.encoding import positional_encoding
 from fsnerf_tpu_torch.ops.kernels import mlp as km
 from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
 from fsnerf_tpu_torch.ops.kernels import render as kr
+from fsnerf_tpu_torch.ops.kernels import siren as ks
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
 from torch_parity import (march_inputs, mlp_inputs, mse_cotangent,
-                          nerf_params_np)
+                          nerf_params_np, sinerf_params_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +244,120 @@ def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
         km.nerf_mlp(encx, encd.cpu(), params)
     with pytest.raises(ValueError):
         km.nerf_mlp(encx.t().contiguous().t(), encd, params)
+
+
+def _siren_params(seed, n_layers, width, cuda, sigma_bias=0.0):
+    sd = state_dict_from_jax(sinerf_params_np(seed, n_layers, width))
+    sd["sigma_layers.1.bias"] = sd["sigma_layers.1.bias"] + sigma_bias
+    return ks.prep_siren_params(sd, n_layers, with_transposed=True,
+                                device=cuda)
+
+
+def _siren_inputs(n, seed, cuda):
+    x, d, target = mlp_inputs(n, seed=seed)
+    return (ks.pad_inputs(x).to(cuda), ks.pad_inputs(d).to(cuda),
+            target.to(cuda))
+
+
+def _rel_errs(lay, got, want):
+    return {name: float((g - w).abs().max() / (w.abs().max() + 1e-12))
+            for name, g, w in zip(lay.param_names,
+                                  lay.grads_from_packed(*got),
+                                  lay.grads_from_packed(*want))}
+
+
+def _check_siren(params, x, d, target):
+    """Kernels vs plain: the forward (primal and saving), both backward
+    modes against their plain versions and each other, repeatability."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    primal, no_acts = ks.siren_mlp_fwd(x, d, params)
+    ref, ref_acts = ks.siren_mlp_fwd_reference(x, d, params, save_acts=True)
+    torch.cuda.synchronize()
+    assert no_acts is None and torch.equal(out, primal)
+    assert torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert (out[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
+    dout = mse_cotangent(ref, target)
+    saved = ks.siren_mlp_bwd(x, d, dout, params, acts)
+    saved2 = ks.siren_mlp_bwd(x, d, dout, params, acts)
+    rec = ks.siren_mlp_bwd(x, d, dout, params, None)
+    rec2 = ks.siren_mlp_bwd(x, d, dout, params, None)
+    plain_saved = ks.siren_mlp_bwd_reference(x, d, dout, params, ref_acts)
+    plain_rec = ks.siren_mlp_bwd_reference(x, d, dout, params, None)
+    torch.cuda.synchronize()
+    for a, b in zip(saved + rec, saved2 + rec2):
+        assert torch.equal(a, b)                    # bitwise repeatable
+    assert torch.equal(saved[0], saved[0].bfloat16().float())
+    lay = params.layout
+    for got, want in ((saved, plain_saved), (rec, plain_rec), (saved, rec)):
+        errs = _rel_errs(lay, got, want)
+        worst = max(errs, key=errs.get)
+        assert errs[worst] < 1e-2, (worst, errs[worst])
+
+
+def test_siren_kernels_match_plain_at_full_width(cuda):
+    """SiNeRF 8x256 at 8,192 + 72 rows."""
+    _check_siren(_siren_params(21, 8, 256, cuda),
+                 *_siren_inputs(8192 + 72, 1, cuda))
+
+
+def test_siren_kernels_small_ragged(cuda):
+    """A narrow SiNeRF and fewer rows than one tile."""
+    _check_siren(_siren_params(22, 4, 64, cuda), *_siren_inputs(77, 2, cuda))
+
+
+def test_siren_wrappers_count_launches_and_validate(cuda):
+    params = _siren_params(23, 4, 64, cuda)
+    x, d, target = _siren_inputs(300, 4, cuda)
+    dout = mse_cotangent(ks.siren_mlp_fwd(x, d, params)[0], target)
+    f0, b0 = ks.siren_mlp_fwd.launches, ks.siren_mlp_bwd.launches
+    _, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    ks.siren_mlp_bwd(x, d, dout, params, acts)
+    ks.siren_mlp_fwd_reference(x, d, params)
+    assert (ks.siren_mlp_fwd.launches, ks.siren_mlp_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    with pytest.raises(ValueError):
+        ks.siren_mlp_fwd(x.float(), d, params)
+    with pytest.raises(ValueError):
+        ks.siren_mlp_bwd(x, d.cpu(), dout, params, acts)
+    with pytest.raises(ValueError):
+        ks.siren_mlp_bwd(x, d, dout, params, acts[:128])
+
+
+def _check_siren_march(padded, params, bR, cs, eps=1e-4):
+    got, steps = kr.siren_ray_march(*padded, params, bR, cs, eps)
+    again, _ = kr.siren_ray_march(*padded, params, bR, cs, eps)
+    ref, steps_ref = kr.siren_ray_march_reference(*padded, params, bR, cs,
+                                                  eps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    err = (got - ref).abs().amax(dim=0).cpu()
+    assert err[:4].max() < 7e-3 and err[4] < 3e-2, err
+    assert torch.equal(steps, steps_ref)
+    return steps
+
+
+@pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
+def test_siren_march_matches_plain_at_full_width(cuda, sigma_bias):
+    """SiNeRF 8x256; the saturating bias makes blocks exit early."""
+    params = _siren_params(24, 8, 256, cuda, sigma_bias)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(R=300, K=48))
+    steps = _check_siren_march(tuple(p.to(cuda) for p in padded), params,
+                               bR, cs)
+    if sigma_bias:
+        assert int(steps.sum()) < steps.numel() * 48 // cs
+
+
+def test_siren_march_small_ragged_and_counted(cuda):
+    """A narrow SiNeRF, a ray count below one block (block 10 x chunk 4),
+    and the launch count."""
+    params = _siren_params(25, 4, 64, cuda)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=3, R=10, K=12))
+    padded = tuple(p.to(cuda) for p in padded)
+    before = kr.siren_ray_march.launches
+    _check_siren_march(padded, params, bR, cs)
+    assert kr.siren_ray_march.launches == before + 2
+    with pytest.raises(ValueError):
+        kr.siren_ray_march(*padded, params, 32, 16)

@@ -3,7 +3,8 @@
 Everything is made with numpy from a seed and handed to both packages:
 weights as a flax params tree (carried to the port by
 utils/interop.py::state_dict_from_jax), rays, jitter and masks as arrays.
-Small sizes: NeRF 4x64 with skip (2,), n_freqs 4/2, grid res 16, 48 rays.
+Small sizes: NeRF 4x64 with skip (2,), n_freqs 4/2, SiNeRF 4x64, grid res
+16, 48 rays.
 """
 
 import numpy as np
@@ -35,6 +36,31 @@ def nerf_params_np(seed=0, n_layers=4, d_filter=64, skip=(2,), n_freqs=4,
     p["connection"] = dense(fan, d_filter)
     p["branch"] = dense(d_filter + d_dir, d_filter // 2)
     p["rgb"] = dense(d_filter // 2, 3)
+    return {"params": p}
+
+
+def sinerf_params_np(seed=0, n_layers=4, width=64, use_viewdirs=True):
+    """flax SiNeRF params {'params': {module: {kernel [in, out], bias}}}
+    with the SIREN init of the sine layers (U(-s, s), s = 1/fan_in first,
+    sqrt(6/fan_in) after) and torch.nn.Linear's for the plain ones, from
+    numpy."""
+    rng = np.random.default_rng(seed)
+
+    def dense(fan_in, fan_out, s=None):
+        b = 1.0 / np.sqrt(fan_in) if s is None else s
+        return {"kernel": rng.uniform(-b, b, (fan_in, fan_out))
+                .astype(np.float32),
+                "bias": rng.uniform(-b, b, (fan_out,)).astype(np.float32)}
+
+    p = {"first_0": dense(3, width, 1.0 / 3)}
+    for i in range(1, n_layers):
+        p[f"first_{i}"] = dense(width, width, np.sqrt(6.0 / width))
+    p["sigma_0"] = dense(width, width // 2, np.sqrt(6.0 / width))
+    p["sigma_1"] = dense(width // 2, 1)
+    p["fc_feature"] = dense(width, width)
+    d_r = width + (3 if use_viewdirs else 0)
+    p["rgb_0"] = dense(d_r, width // 2, np.sqrt(6.0 / d_r))
+    p["rgb_1"] = dense(width // 2, 3)
     return {"params": p}
 
 
