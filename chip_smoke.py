@@ -38,16 +38,18 @@ Phases (any failure exits non-zero; nothing is caught):
      NeRF module on the same points (the cuBLAS route);
   8. the hierarchical render slice: render_path over 3 path poses at
      128x128 (64 coarse + 128 fine), once with the fused fine pass (the
-     forward MLP and the ray march must launch) and once without it (the
-     forward MLP for both passes), launch counts read around each run;
+     forward MLP, the compositing kernel once per chunk's coarse pass and
+     the ray march must launch) and once without it (the forward MLP and
+     the compositing kernel for both passes), launch counts read around
+     each run;
   9. the hierarchical training slice: train() from seeded weights on the
      8-view 128x128 SphereScene with 64 + 128 samples, then the held-out
      views through evaluate_split, launch counts read around that run: the
      train kernels must launch twice per step (coarse and fine pass), the
-     forward MLP and the ray march at least once; the loss must fall, the
-     held-out PSNR must rise at least 5 dB above the untrained weights',
-     and the eval without the fused fine pass must land within 0.5 dB of
-     it;
+     forward MLP and the ray march at least once, the compositing kernel
+     once per chunk; the loss must fall, the held-out PSNR must rise at
+     least 5 dB above the untrained weights', and the eval without the
+     fused fine pass must land within 0.5 dB of it;
  10. the SIREN train kernels vs their plain versions at full width
      (SiNeRF 8x256 with seeded weights, 196,608 rows, an MSE cotangent):
      rgb within 5e-3, sigma within 2e-2 of max |sigma|, every gradient
@@ -71,12 +73,40 @@ Phases (any failure exits non-zero; nothing is caught):
  13. the SiNeRF hierarchical render slice: render_path over 3 path poses
      (64 coarse + 128 fine): the SIREN forward kernel (coarse pass) and the
      SIREN ray march (fine pass) must both launch;
- 14. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+ 14. the density kernel vs its plain version at full width (NeRF 8x256
+     with seeded weights and a mid-anneal FreeNeRF mask at all 2,097,152
+     cell centres of a res-128 grid and one jittered quarter of 524,288
+     cells; relu and trunc_exp at 65,573 rows): sigma within 2e-2 of max
+     |sigma|, two runs bitwise equal; CUDA-event times of the kernel, the
+     plain version and the bf16 module's density (the route it replaces),
+     and of one all-cell and one quarter og.update through each route;
+ 15. the compositing kernel vs volume_render on the card at 16,384 rays x
+     64 samples (a 128x128 view's coarse pass through the forward MLP, no
+     mask) and x 192 (its occgrid lattice compacted to the validation K,
+     with the mask, fully masked rays included): rgb, opacity, depth,
+     weights and trans_final within rtol 1e-5 and atol 1e-6, two runs
+     bitwise equal; CUDA-event times of both over input
+     copies that exceed the L2 cache, replayed from CUDA graphs (the
+     device time) and called eagerly (the host's);
+ 16. the few-shot training slice: train() from seeded weights on 3 views
+     of a 128x128 LatticeScene, 1,500 steps with FreeNeRF annealing over
+     750 (the auto culling hold), the occlusion regularizer (a 0.003, b 2,
+     exp, beta 1), the weight regularizer (ao 1e-6), validation every 500
+     steps and a checkpoint at step 1,000, then the held-out views through
+     evaluate_split, launch counts read around that run: the train kernels
+     once per step, the density kernel at every refresh (8 launches per
+     all-cell refresh, 2 per quarter), the compositing kernel in each
+     validation; the grid's occupancy exactly 1.0 at every logged step
+     through 700 and below 1.0 from 800; the loss must fall and the
+     held-out PSNR rise at least 5 dB above the untrained weights'; then
+     the run resumed from its step-1,000 checkpoint to 1,500 must land
+     bitwise on the same weights and grid;
+ 17. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
-     larger of its bytes over 3.35 TB/s and its bf16 FLOP over 989
-     TFLOP/s, from this run's shapes and executed work), then the device
-     line.
+     larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
+     bf16, or 67 TFLOP/s in float32 for the compositing kernel, from this
+     run's shapes and executed work), then the device line.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -109,8 +139,18 @@ HIER_COARSE, HIER_FINE = 64, 128    # BASELINE.json config 2
 HIER_STEPS = 1500
 HIER_FUSED_PSNR_TOL_DB = 0.5
 SIREN_STEPS = 1500
+# the few-shot slice: kernel 4 refreshes its grid, kernel 9 composites
+# its validation renders
+FEWSHOT_STEPS, FEWSHOT_ANNEAL, FEWSHOT_CKPT, FEWSHOT_VAL = 1500, 750, 1000, 500
+# the density kernel vs plain: the ceiling of tests/test_pallas.py::
+# test_fused_density_matches_model
+DENSITY_SIGMA_TOL = 2e-2    # of max |sigma|
+# the compositing kernel vs volume_render: tests/test_pallas.py's volrend
+# tolerance
+VOLREND_RTOL, VOLREND_ATOL = 1e-5, 1e-6
 # the H100 SXM's published peaks (the roofline of the kernels' bound)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -120,7 +160,10 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn on the current stream."""
+    """Mean milliseconds per call of fn on the current stream, after one
+    untimed call (a first cuBLAS call at new shapes also loads and picks
+    its kernels)."""
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -197,10 +240,25 @@ def march_inputs(cfg, grid, split, dev):
     return padded, bR, cs, eval_k
 
 
+def graphed(fn, calls: int):
+    """The replay of a CUDA graph of `calls` calls of fn: for a call whose
+    host time exceeds its device time, where CUDA events around eager calls
+    would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
 def in_turns(plain, kernel, plain_reps=3, kernel_reps=10):
     """CUDA-event ms of plain and kernel, timed plain, kernel, kernel,
-    plain after one warm-up call of each."""
-    kernel(), plain()
+    plain."""
     p1, k1, k2, p2 = (cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps),
                       cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps))
     return (k1 + k2) / 2, (p1 + p2) / 2
@@ -305,6 +363,7 @@ def train_slice(cfg, dev, card):
     from fsnerf_tpu_torch.data.pool import pool_from_images
     from fsnerf_tpu_torch.data.synthetic import SphereScene
     from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.train.loop import train
@@ -322,7 +381,7 @@ def train_slice(cfg, dev, card):
     pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
     log = ListLogger()
 
-    kr.ray_march.launches = 0
+    kr.ray_march.launches = km.nerf_density.launches = 0
     mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -334,7 +393,8 @@ def train_slice(cfg, dev, card):
     torch.cuda.synchronize()
     launches = {"ray_march": kr.ray_march.launches,
                 "mlp_train_fwd": mt.mlp_train_fwd.launches,
-                "mlp_train_bwd": mt.mlp_train_bwd.launches}
+                "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                "nerf_density": km.nerf_density.launches}
 
     losses = [r["loss"] for r in log.records]
     print(f"train slice on {card}: {state.step} steps in {train_s:.3f} s, "
@@ -350,6 +410,10 @@ def train_slice(cfg, dev, card):
           f"eval K {base['eval_k']}")
     if min(launches.values()) == 0:
         fail(f"the training slice did not launch every kernel: {launches}")
+    want_density = refresh_launches(tcfg, state.grid.n_cells, state.step)
+    if launches["nerf_density"] != want_density:
+        fail(f"the grid refreshes launched the density kernel "
+             f"{launches['nerf_density']} times, not {want_density}")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         fail(f"training loss did not fall: {losses}")
@@ -368,15 +432,39 @@ def train_slice(cfg, dev, card):
     return launches
 
 
-def mlp_macs(cfg) -> int:
-    """Multiply-adds of one NeRF MLP row at the config's widths (the
-    unpadded encodings: the work the function asks for)."""
+def density_macs(cfg) -> int:
+    """Multiply-adds of one row of the NeRF trunk and sigma head at the
+    config's widths (the unpadded encoding: the work the function asks
+    for)."""
     L, W, skip = cfg.model.n_layers, cfg.model.d_filter, cfg.model.skip
     de = 3 * (1 + 2 * cfg.encoder.n_freqs)
+    return de * W + sum(W * W + (de * W if (i - 1) in skip else 0)
+                        for i in range(1, L)) + W
+
+
+def mlp_macs(cfg) -> int:
+    """Multiply-adds of one NeRF MLP row at the config's widths: the trunk
+    and sigma head, the connection, the view branch and the rgb head."""
+    W = cfg.model.d_filter
     dd = 3 * (1 + 2 * cfg.encoder.n_freqs_views)
-    trunk = de * W + sum(W * W + (de * W if (i - 1) in skip else 0)
-                         for i in range(1, L))
-    return trunk + W + W * W + (W + dd) * (W // 2) + (W // 2) * 3
+    return density_macs(cfg) + W * W + (W + dd) * (W // 2) + (W // 2) * 3
+
+
+def refresh_launches(cfg, n_cells: int, steps: int) -> int:
+    """The density kernel's launches in `steps` training steps: og.update
+    evaluates its cells in chunks of _EVAL_CHUNK per level, all cells
+    before warmup_steps and one of update_parts parts after, at every
+    refresh step."""
+    from fsnerf_tpu_torch.ops.occgrid import _EVAL_CHUNK
+    from fsnerf_tpu_torch.train.step import resolve_update_interval
+
+    s, total = cfg.sampling, 0
+    for k in range(steps):
+        if k % resolve_update_interval(s, k) == 0:
+            cells = n_cells if k < s.warmup_steps else \
+                n_cells // s.update_parts
+            total += -(-cells // _EVAL_CHUNK) * s.grid_levels
+    return total
 
 
 def bwd_macs(cfg) -> int:
@@ -394,10 +482,10 @@ def nbytes(*tensors) -> int:
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
-def bound(flops: float, moved: int) -> dict:
-    """The least time at the published peaks, and which of the two sets
-    it."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, moved: int, peak: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time at the published peaks (bf16 tensor-core FLOP/s by
+    default), and which of the two sets it."""
+    ops_ms = flops / peak * 1e3
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
@@ -494,6 +582,7 @@ def hier_render_slice(model, cfg, dev, card):
     from fsnerf_tpu_torch.eval.metrics import psnr
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import volrend as kv
     from fsnerf_tpu_torch.render.renderer import render_path
 
     hcfg = hier_config(cfg)
@@ -501,8 +590,10 @@ def hier_render_slice(model, cfg, dev, card):
     path = scene.path_poses[:3]
     gt = torch.as_tensor(np.stack([render_sphere_image(p, scene.hwf)[0]
                                    for p in path]))
+    chunks = len(path)          # one 16,384-ray chunk per 128x128 frame
     for fused_on in (True, False):
         km.nerf_mlp.launches = kr.ray_march.launches = 0
+        kv.volume_render_fused.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model_fn = cli.make_render_model_fn(model, hcfg, device=dev)
@@ -511,14 +602,17 @@ def hier_render_slice(model, cfg, dev, card):
         frames, _ = render_path(
             model_fn, path, scene.hwf, scene.near, scene.far, device=dev,
             strategy="hierarchical", n_samples=HIER_COARSE, n_fine=HIER_FINE,
-            white_bkgd=True, fused_render_fn=fused)
+            white_bkgd=True, fused_render_fn=fused,
+            composite_fn=cli.make_composite_fn(hcfg, dev))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"nerf_mlp": km.nerf_mlp.launches,
-                    "ray_march": kr.ray_march.launches}
+                    "ray_march": kr.ray_march.launches,
+                    "volrend": kv.volume_render_fused.launches}
         want_march = 1 if fused_on else 0
         if launches["nerf_mlp"] == 0 or \
-                (launches["ray_march"] > 0) != bool(want_march):
+                (launches["ray_march"] > 0) != bool(want_march) or \
+                launches["volrend"] != chunks * (2 - want_march):
             fail(f"hierarchical render (fused fine pass {fused_on}) "
                  f"launched {launches}")
         if frames.shape != (3, 128, 128, 3) or not np.isfinite(frames).all():
@@ -544,6 +638,7 @@ def hier_train_slice(cfg, dev, card):
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import volrend as kv
     from fsnerf_tpu_torch.train.loop import train
 
     tcfg = hier_config(cfg, n_iters=HIER_STEPS).replace(
@@ -558,6 +653,7 @@ def hier_train_slice(cfg, dev, card):
 
     kr.ray_march.launches = km.nerf_mlp.launches = 0
     mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+    kv.volume_render_fused.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = train(model, tcfg, pool, scene, logger=log, log_every=100)
@@ -570,7 +666,8 @@ def hier_train_slice(cfg, dev, card):
     launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
                 "mlp_train_bwd": mt.mlp_train_bwd.launches,
                 "nerf_mlp": km.nerf_mlp.launches,
-                "ray_march": kr.ray_march.launches}
+                "ray_march": kr.ray_march.launches,
+                "volrend": kv.volume_render_fused.launches}
     plain_fine = tcfg.replace(model=dataclasses.replace(tcfg.model,
                                                         fused_render=False))
     unfused, _ = cli.evaluate_split(model, state.grid, held, plain_fine,
@@ -592,9 +689,10 @@ def hier_train_slice(cfg, dev, card):
             launches["mlp_train_bwd"] != 2 * steps:
         fail(f"the hierarchical step did not run the train kernels for "
              f"both passes: {launches} over {steps} steps")
-    if launches["nerf_mlp"] == 0 or launches["ray_march"] == 0:
-        fail(f"the hierarchical eval did not launch every kernel: "
-             f"{launches}")
+    if launches["nerf_mlp"] == 0 or launches["ray_march"] == 0 or \
+            launches["volrend"] != len(held.poses):
+        fail(f"the hierarchical eval did not launch every kernel (the "
+             f"compositing kernel once per view's chunk): {launches}")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         fail(f"hierarchical training loss did not fall: {losses}")
@@ -926,6 +1024,361 @@ def siren_hier_render_slice(cfg, dev, card):
           f"on {card} (first call included)")
 
 
+def density_kernel(cfg, dev, card):
+    """Phase 14: the density kernel vs its plain version at full width, and
+    the grid refresh through it and through the bf16 module. Returns (the
+    report's numbers, the module's density ms on the same rows)."""
+    from fsnerf_tpu_torch.core.encoding import freq_mask, positional_encoding
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.train.step import make_density_fn
+
+    s = cfg.sampling
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(6), dev)
+    grid = og.create(np.array([-1.5] * 3 + [1.5] * 3, np.float32),
+                     s.grid_resolution, device=dev)
+    n, res = grid.n_cells, grid.resolution
+    k = n // s.update_parts
+    # mid-anneal: bands 1-5 open, the sixth at a third
+    pm = freq_mask(cfg.encoder.n_freqs, 400, FEWSHOT_ANNEAL, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.arange(n, device=dev)
+    x_all = og._cell_positions(idx, grid.base_aabb, res)
+    x_part = og._cell_positions(idx[k:2 * k], grid.base_aabb, res,
+                                torch.rand((k, 3), generator=g, device=dev))
+    params = km.prep_params(model.state_dict(), cfg.model.n_layers,
+                            cfg.model.skip)          # packed on the card
+    if params.wpack.device != x_all.device:
+        fail("the density weights were not packed on the card")
+
+    def encode(x):
+        return km.pad_features(positional_encoding(x, cfg.encoder.n_freqs,
+                                                   True, pm),
+                               params.d_enc_pad)
+
+    with torch.no_grad():
+        encx, encq = encode(x_all), encode(x_part)
+    errs = {}
+    for name, e, act in (("all cells", encx, "none"),
+                         ("jittered quarter", encq, "none"),
+                         ("relu", encx[:65_573], "relu"),
+                         ("trunc_exp", encx[:65_573], "trunc_exp")):
+        got = km.nerf_density(e, params, act)
+        again = km.nerf_density(e, params, act)
+        ref = km.nerf_density_reference(e, params, act)
+        torch.cuda.synchronize()
+        if got.shape != (e.shape[0],) or not torch.isfinite(got).all():
+            fail(f"density kernel ({name}): not finite or misshapen")
+        if not torch.equal(got, again):
+            fail(f"density kernel ({name}): two runs differ")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max()) + 1e-9
+        if err / scale > DENSITY_SIGMA_TOL or (act != "none"
+                                               and (got < 0).any()):
+            fail(f"density kernel ({name}) vs plain: err {err:.3e} of max "
+                 f"{scale:.3e}")
+        errs[name] = (err, err / scale)
+    ms, plain_ms = in_turns(lambda: km.nerf_density_reference(encx, params),
+                            lambda: km.nerf_density(encx, params))
+    with torch.no_grad():
+        module_ms = cuda_ms(lambda: model(x_all, pos_mask=pm), 3)
+
+        def module_fn(x):
+            return model(x, pos_mask=pm)[..., 0]
+
+        jit_all = [torch.rand((n, 3), generator=g, device=dev)]
+        jit_part = [torch.rand((k, 3), generator=g, device=dev)]
+        times, grids = {}, {}
+        for route, make_fn in (
+                ("density kernel", lambda: make_density_fn(model, cfg, pm,
+                                                           dev)),
+                ("bf16 module", lambda: module_fn)):
+            for kind, step, jit in (("all cells", 0, jit_all),
+                                    ("quarter", s.warmup_steps, jit_part)):
+                def refresh():
+                    return og.update(grid, make_fn(), step,
+                                     render_step_size=s.render_step_size,
+                                     occ_thre=s.occ_thre,
+                                     ema_decay=s.ema_decay,
+                                     warmup_steps=s.warmup_steps,
+                                     update_parts=s.update_parts,
+                                     update_interval=s.update_interval,
+                                     jitter=jit)
+
+                grids[route, kind] = refresh()
+                times[route, kind] = cuda_ms(refresh, 3)
+    agree = float((grids["density kernel", "all cells"].binaries
+                   == grids["bf16 module", "all cells"].binaries)
+                  .float().mean())
+    if agree < 0.98:
+        fail(f"the two refresh routes agree on {agree:.4f} of the cells")
+    print(f"density kernel at {n} cell centres of a res-{res} grid on "
+          f"{card}: " + "; ".join(f"{k} err {v[0]:.3e} ({v[1]:.3e} of max)"
+                                  for k, v in errs.items())
+          + f"; bitwise repeatable; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bf16 module density {module_ms:.3f} ms")
+    print(f"grid refresh on {card}: " + ", ".join(
+        f"{r} {kind} {t:.3f} ms" for (r, kind), t in times.items())
+          + f"; all-cell binaries of the two routes agree on {agree:.5f}")
+    out = torch.empty(n, device=dev)
+    return (dict(max_abs_err=max(v[0] for v in errs.values()), ms=ms,
+                 plain_ms=plain_ms,
+                 **bound(2.0 * density_macs(cfg) * n,
+                         nbytes(encx, params.wpack, params.bpack, out))),
+            module_ms, times)
+
+
+def composite_check(name, got, again, ref):
+    """The compositing kernel's outputs vs volume_render's: bitwise
+    repeatable, and within VOLREND_RTOL of the value plus VOLREND_ATOL.
+    Returns the max abs error."""
+    worst, excess = 0.0, {}
+    for key in ("rgb", "opacity", "depth", "weights", "trans_final"):
+        if not torch.equal(got[key], again[key]):
+            fail(f"compositing kernel ({name}): two runs differ in {key}")
+        err = (got[key] - ref[key]).abs()
+        worst = max(worst, float(err.max()))
+        excess[key] = float((err / (VOLREND_ATOL + VOLREND_RTOL
+                                    * ref[key].abs())).max())
+    if max(excess.values()) > 1.0:
+        fail(f"compositing kernel ({name}) vs volume_render: {excess}")
+    print(f"compositing kernel ({name}): max abs err {worst:.3e}; of rtol "
+          f"{VOLREND_RTOL} atol {VOLREND_ATOL}: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in excess.items()))
+    return worst
+
+
+def volrend_kernel(cfg, dev, card):
+    """Phase 15: the compositing kernel vs volume_render at the coarse
+    pass's and the validation's shapes. Returns the report's numbers (the
+    coarse pass)."""
+    import itertools
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.rays import get_rays
+    from fsnerf_tpu_torch.ops.kernels import volrend as kv
+    from fsnerf_tpu_torch.ops.sampling import (compact_samples_uniform,
+                                               sample_points,
+                                               stratified_samples)
+    from fsnerf_tpu_torch.ops.volrend import volume_render
+    from fsnerf_tpu_torch.render.renderer import _masked_lattice
+
+    s = cfg.sampling
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(8), dev)
+    model_fn = cli.make_render_model_fn(model, cfg, device=dev)
+    held = cli.build_split("sphere", 1, 128, True, seed=101)
+    pose = torch.as_tensor(held.poses[0], dtype=torch.float32, device=dev)
+    ro, rd = (a.reshape(-1, 3) for a in get_rays(pose, held.hwf))
+    R = ro.shape[0]
+    grid = cli.rebuild_grid(model, cfg, held.aabb, dev)
+    with torch.no_grad():
+        t_c, d_c = stratified_samples(ro, rd, held.near, held.far,
+                                      HIER_COARSE)
+        x_c = sample_points(ro, rd, t_c)
+        coarse = (model_fn(x_c, rd[:, None, :].expand(x_c.shape)).float(),
+                  t_c, d_c, None)
+        t_mid, deltas, mask, _ = _masked_lattice(
+            ro, rd, grid, s.n_samples, None, s.render_step_size,
+            s.early_stop_eps, 1)
+        t_k, d_k, m_k = compact_samples_uniform(t_mid, deltas[:, 0], mask,
+                                                s.n_compact)
+        m_k[:R // 8] = False                    # fully masked rays
+        x_k = sample_points(ro, rd, t_k)
+        val = (model_fn(x_k, rd[:, None, :].expand(x_k.shape)).float(), t_k,
+               d_k, m_k)
+    report = None
+    for name, (out4, tv, dl, m) in (("coarse pass, no mask", coarse),
+                                    ("validation K, masked", val)):
+        S = tv.shape[1]
+        args = (out4[..., 3], out4[..., :3], tv, dl, m, 1.0)
+        got = kv.volume_render_fused(*args)
+        again = kv.volume_render_fused(*args)
+        ref = volume_render(*args)
+        torch.cuda.synchronize()
+        err = composite_check(f"{R} rays x {S}, {name}", got, again, ref)
+        # four copies of the inputs exceed the 50 MB L2 cache, so each
+        # timed call reads its inputs from device memory
+        copies = itertools.cycle([tuple(None if a is None else a.clone()
+                                        for a in (out4, tv, dl, m))
+                                  for _ in range(4)])
+
+        white = torch.ones((), device=dev)  # no host copy in graph capture
+
+        def call(fn):
+            o4, tv_, dl_, m_ = next(copies)
+            fn(o4[..., 3], o4[..., :3], tv_, dl_, m_, white)
+
+        # eager calls time the host (the wrapper's checks take longer than
+        # the kernel); the device time comes from CUDA graphs of 20 calls
+        eager_ms, eager_plain_ms = in_turns(
+            lambda: call(volume_render), lambda: call(kv.volume_render_fused),
+            plain_reps=10, kernel_reps=20)
+        calls = 20
+        ms, plain_ms = (t / calls for t in in_turns(
+            graphed(lambda: call(volume_render), calls),
+            graphed(lambda: call(kv.volume_render_fused), calls)))
+        moved = nbytes(out4, tv, dl, got["weights"]) + R * 8 * 4 + (
+            0 if m is None else m.numel())
+        # per sample: od, its cumsum, the exclusive subtract, two exp, 1 -
+        # exp, w, and the five sums' multiply-adds: ~17 float32 operations
+        b = bound(17.0 * R * S, moved, PEAK_F32_FLOPS)
+        print(f"compositing kernel at {R} rays x {S} ({name}) on {card}: "
+              f"device time from CUDA graphs: kernel {ms:.4f} ms, "
+              f"volume_render {plain_ms:.4f} ms; eager calls (host-bound) "
+              f"{eager_ms:.4f} / {eager_plain_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {moved} bytes)")
+        if report is None:
+            report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+    return report
+
+
+def fewshot_config(cfg):
+    import dataclasses
+
+    from fsnerf_tpu_torch.config import DataConfig
+
+    return cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder,
+                                    freq_reg_end=FEWSHOT_ANNEAL),
+        data=DataConfig(dataset="lattice", n_imgs=3, white_bkgd=True),
+        train=dataclasses.replace(
+            cfg.train, n_iters=FEWSHOT_STEPS, occ_a=0.003, occ_b=2.0,
+            occ_func="exp", beta=1.0, ao=1e-6, val=True,
+            val_rate=FEWSHOT_VAL, ckpt_every=FEWSHOT_CKPT))
+
+
+def fewshot_slice(cfg, dev, card):
+    """Phase 16: the few-shot recipe's training, its validations and
+    checkpoint, the held-out eval, and the resumed run. Returns the launch
+    counts of the uninterrupted run."""
+    import os
+    import tempfile
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import LatticeScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import volrend as kv
+    from fsnerf_tpu_torch.train.loop import train
+    from fsnerf_tpu_torch.train.step import init_state, make_optimizer
+    from fsnerf_tpu_torch.utils.checkpoint import Checkpointer
+
+    tcfg = fewshot_config(cfg)
+    scene = LatticeScene(n_imgs=3, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+
+    def fresh_model():
+        return make_model(tcfg, torch.bfloat16,
+                          torch.Generator().manual_seed(0), dev)
+
+    model = fresh_model()
+    base, _ = cli.evaluate_split(
+        model, og.conservative(cli.rebuild_grid(model, tcfg, scene.aabb,
+                                                dev)), held, tcfg, device=dev)
+    log = ListLogger()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(os.path.join(tmp, "ckpt"))
+        mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+        km.nerf_density.launches = kv.volume_render_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train(model, tcfg, pool, scene, logger=log, log_every=100,
+                      checkpointer=ckpt,
+                      val_fn=cli.make_val_fn(model, tcfg, held, dev))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
+                    "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                    "nerf_density": km.nerf_density.launches,
+                    "volrend": kv.volume_render_fused.launches}
+        saved = ckpt.steps()
+        # resume from the step-1,000 checkpoint and run to the end again
+        os.remove(ckpt.path(FEWSHOT_STEPS))
+        model2 = fresh_model()
+        resumed = ckpt.restore(init_state(model2, tcfg,
+                                          make_optimizer(tcfg, model2),
+                                          scene.aabb, dev))
+        restored_step = resumed.step
+        resumed = train(model2, tcfg, pool, scene, state=resumed,
+                        log_every=100, checkpointer=ckpt,
+                        val_fn=cli.make_val_fn(model2, tcfg, held, dev))
+        torch.cuda.synchronize()
+    got, _ = cli.evaluate_split(model, og.conservative(state.grid), held,
+                                tcfg, device=dev)
+    torch.cuda.synchronize()
+
+    steps = state.step
+    train_recs = [r for r in log.records if "loss" in r]
+    val_recs = [r for r in log.records if "val_psnr" in r]
+    losses = [r["loss"] for r in train_recs]
+    occ = [(r["step"], r["occupancy"]) for r in train_recs]
+    val_chunks = -(-held.hwf[0] * held.hwf[1] // (2 * tcfg.train.batch_size))
+    want = {"mlp_train_fwd": steps, "mlp_train_bwd": steps,
+            "nerf_density": refresh_launches(tcfg, state.grid.n_cells,
+                                             steps),
+            "volrend": len(val_recs) * val_chunks}
+    print(f"few-shot train slice on {card}: {steps} steps in {train_s:.3f} "
+          f"s, {steps / train_s:.2f} steps/s (validations and the "
+          f"checkpoint included); loss {losses[0]:.5f} at step "
+          f"{train_recs[0]['step']} -> {losses[-1]:.5f}; occupancy by step "
+          f"{occ}; validation PSNR "
+          + ", ".join(f"{r['step']}: {r['val_psnr']:.3f}" for r in val_recs)
+          + f"; launches {launches}")
+    print(f"few-shot held-out (3 views 128x128): PSNR {got['psnr']:.3f} SSIM "
+          f"{got['ssim']:.4f} eval K {got['eval_k']} after training; "
+          f"untrained PSNR {base['psnr']:.3f} SSIM {base['ssim']:.4f}")
+    if launches != want:
+        fail(f"the few-shot slice launched {launches}, not {want}")
+    if [r["step"] for r in val_recs] != list(range(
+            FEWSHOT_VAL, steps + 1, FEWSHOT_VAL)) or \
+            not all(math.isfinite(r["val_psnr"]) for r in val_recs):
+        fail(f"the validations were not run every {FEWSHOT_VAL} steps: "
+             f"{val_recs}")
+    # a logged step reads the grid of the last refresh before it (every
+    # 16 steps here): held through 700, released by 800
+    if any(v != 1.0 for k, v in occ if k <= FEWSHOT_ANNEAL - 50) or \
+            any(v >= 1.0 for k, v in occ if k >= FEWSHOT_ANNEAL + 50):
+        fail(f"the culling hold did not hold to step {FEWSHOT_ANNEAL} and "
+             f"release after it: {occ}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"few-shot training loss did not fall: {losses}")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"few-shot held-out PSNR {got['psnr']:.3f} is not "
+             f"{MIN_PSNR_GAIN_DB} dB above the untrained {base['psnr']:.3f}")
+
+    if saved != [FEWSHOT_CKPT, FEWSHOT_STEPS] or \
+            restored_step != FEWSHOT_CKPT:
+        fail(f"checkpoints {saved}, restored at {restored_step}: not at "
+             f"{FEWSHOT_CKPT} and {FEWSHOT_STEPS}")
+    grid_keys = ("occs", "binaries", "thre", "occ_q", "od_q")
+    diffs = {name: float((a.detach() - b.detach()).abs().max())
+             for (name, a), b in zip(model.named_parameters(),
+                                     model2.parameters())}
+    diffs.update({f"grid.{k}": float((getattr(state.grid, k).float()
+                                      - getattr(resumed.grid, k).float())
+                                     .abs().max()) for k in grid_keys})
+    bitwise = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                    model2.parameters())) \
+        and all(torch.equal(getattr(state.grid, k), getattr(resumed.grid, k))
+                for k in grid_keys)
+    print(f"few-shot resume: step {restored_step} checkpoint -> "
+          f"{resumed.step}: weights and grid "
+          + ("bitwise equal to the uninterrupted run's" if bitwise else
+             f"differ: largest {max(diffs.items(), key=lambda kv: kv[1])}"))
+    if not bitwise:
+        fail(f"the resumed run differs from the uninterrupted one: {diffs}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -1047,10 +1500,15 @@ def main():
     siren_launches = siren_train_slice(cfg, dev, card)
     siren_hier_render_slice(cfg, dev, card)
 
-    # -- 14. report ---------------------------------------------------------
+    # -- 14.-16. the few-shot path: the density and compositing kernels ----
+    density, density_module_ms, _ = density_kernel(cfg, dev, card)
+    volrend = volrend_kernel(cfg, dev, card)
+    fewshot_launches = fewshot_slice(cfg, dev, card)
+
+    # -- 17. report ---------------------------------------------------------
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
-                     **siren_module_ms)
+                     **siren_module_ms, nerf_density=density_module_ms)
     print(f"nearest cuBLAS route, the bf16 NeRF or SiNeRF module on each "
           f"kernel's rows on {card} (no single PyTorch call computes these "
           f"functions): "
@@ -1113,6 +1571,22 @@ def main():
         "replaces": "fsnerf_tpu/ops/pallas/siren.py:355",
         "launches": siren_launches["siren_mlp_bwd"],
         **siren_bwd,
+        "library_ms": None,
+    }, {
+        "name": "nerf_density",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/mlp.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/mlp.py:428",
+        "launches": fewshot_launches["nerf_density"],
+        **density,
+        "library_ms": None,
+    }, {
+        "name": "volrend",
+        "route": "cuda",
+        "source": "fsnerf_tpu_torch/csrc/volrend.cu",
+        "replaces": "fsnerf_tpu/ops/pallas/volrend.py:91",
+        "launches": fewshot_launches["volrend"],
+        **volrend,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,19 @@ too).
 the SIREN train kernels, occgrid held-out views through the SIREN ray
 march, the hierarchical coarse pass through the SIREN forward kernel.
 
+Few-shot training: `--freq_reg_end T` anneals the FreeNeRF frequency
+masks over T steps, with the occupancy grid's culling hold through the
+anneal (`--grid_hold_steps`, -1 = auto); `--beta` turns on the occlusion
+regularizer (`--a`, `--b`, `--func`) and `--ao` the weight regularizer
+(`--reg`, `--reg_ratio`, `--Td`). The grid refresh of a NeRF runs the
+density kernel (ops/kernels/mlp.py::nerf_density) at the step's masks.
+`--val` renders the first held-out view every `--val_rate` steps at the
+live masks (the fused forward MLP, then the compositing kernel
+ops/kernels/volrend.py) and logs its PSNR/SSIM. With `--out_dir`, the run
+writes metrics.jsonl and full-state checkpoints under <out_dir>/ckpt
+(every `--ckpt_every` steps and at the end; `--resume` continues from the
+latest).
+
 Render only (`--render_only`): loads reference-keyed weights
 (`--import_torch_ckpt nn.pt`, or a seeded init when none are given),
 rebuilds the occupancy grid (occgrid) with one full refresh from the
@@ -30,10 +43,12 @@ Run:  python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
           --white_bkgd --strategy hierarchical --n_samples 64 --n_fine 128
       python -m fsnerf_tpu_torch.cli --dataset sphere --model sinerf \
           --white_bkgd --hw 800 --n_iters 8000
+      python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 3 \
+          --white_bkgd --freq_reg_end 7200 --val --out_dir out/fewshot
       python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
           [--import_torch_ckpt nn.pt]
 
-LLFF, checkpoints, in-loop validation and video are not ported yet.
+LLFF, video and rendering from a saved checkpoint are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -174,16 +190,72 @@ def derive_eval_n_compact(grid, split: Split, cfg, device=None) -> int:
 
 
 def rebuild_grid(model, cfg, aabb, device=None):
-    """Occupancy grid from the model's densities: one full refresh at step
-    0 with deterministic cell centres (fsnerf_tpu/cli.py, import path)."""
+    """Occupancy grid from the model's densities (the refresh's density
+    function, train/step.py::make_density_fn): one full refresh at step 0
+    with deterministic cell centres (fsnerf_tpu/cli.py, import path)."""
+    from .train.step import make_density_fn
+
     s = cfg.sampling
     _, dilation = og.resolve_query_plan(s, aabb)
     grid = og.create(aabb, s.grid_resolution, s.grid_levels, dilation,
                      device=device)
     with torch.no_grad():
-        return og.update(grid, lambda x: model(x)[..., 0], 0,
+        return og.update(grid, make_density_fn(model, cfg, device=device), 0,
                          render_step_size=s.render_step_size,
                          occ_thre=s.occ_thre, ema_decay=s.ema_decay)
+
+
+def make_composite_fn(cfg, device=None):
+    """The eval-time compositing of the model's outputs: the forward kernel
+    ops/kernels/volrend.py::volume_render_fused when resolve_fused_kernel
+    says so, else ops/volrend.py::volume_render."""
+    from .train.step import resolve_fused_kernel
+
+    if resolve_fused_kernel(cfg, device):
+        from .ops.kernels.volrend import volume_render_fused
+        return volume_render_fused
+    from .ops.volrend import volume_render
+    return volume_render
+
+
+def render_val_view(model, cfg, grid, split: Split, step: int, device=None):
+    """The first view of `split` as the in-loop validation renders it
+    (fsnerf_tpu/cli.py::_val_chunk): the eval model_fn at the FreeNeRF
+    masks of `step`, make_composite_fn's compositing, the live grid at the
+    configured n_compact, chunks of 2 * batch_size rays, no ray march.
+    Returns the image [H, W, 3]."""
+    from .render.renderer import render_frame
+
+    s = cfg.sampling
+    img, _ = render_frame(
+        make_render_model_fn(model, cfg, step=step, device=device),
+        torch.as_tensor(np.asarray(split.poses[0], np.float32),
+                        device=device),
+        split.hwf, split.near, split.far, strategy=s.strategy, grid=grid,
+        n_samples=s.n_samples, n_fine=s.n_fine,
+        render_step_size=s.render_step_size, ndc=split.ndc,
+        white_bkgd=split.white_bkgd, chunksize=2 * cfg.train.batch_size,
+        n_compact=s.n_compact, early_stop_eps=s.early_stop_eps,
+        query_stride=og.resolve_query_stride(s, split.aabb),
+        composite_fn=make_composite_fn(cfg, device))
+    return img
+
+
+def make_val_fn(model, cfg, split: Split, device=None):
+    """The train loop's val_fn(state, step) -> {"psnr", "ssim"} of
+    render_val_view on the live grid against the view's image (port of
+    the val_fn of fsnerf_tpu/cli.py::main); {} for an empty split."""
+    from .eval.metrics import psnr, ssim
+
+    def val_fn(state, step):
+        if len(split.poses) == 0:
+            return {}
+        img = render_val_view(model, cfg, state.grid, split, step, device)
+        gt = torch.as_tensor(split.imgs[0], dtype=torch.float32,
+                             device=img.device)
+        return {"psnr": float(psnr(img, gt)), "ssim": float(ssim(img, gt))}
+
+    return val_fn
 
 
 def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
@@ -205,7 +277,8 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
         n_compact=eval_k, early_stop_eps=s.early_stop_eps,
         query_stride=q_stride,
         fused_render_fn=make_fused_render_fn(model.state_dict(), cfg,
-                                             device=device))
+                                             device=device),
+        composite_fn=make_composite_fn(cfg, device))
     preds = []
     for pose in split.poses:
         img, _ = render_frame(
@@ -266,7 +339,8 @@ def parse_args(argv=None):
                    help="training views")
     p.add_argument("--white_bkgd", action="store_true")
     p.add_argument("--out_dir", default="",
-                   help="write metrics.jsonl of the training run here")
+                   help="write metrics.jsonl and the checkpoints (ckpt/) "
+                        "of the training run here")
     p.add_argument("--model", choices=["nerf", "sinerf"],
                    default=d_mod.model)
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
@@ -301,6 +375,42 @@ def parse_args(argv=None):
     p.add_argument("--n_iters", type=int, default=d_trn.n_iters)
     p.add_argument("--batch_size", type=int, default=d_trn.batch_size)
     p.add_argument("--lro", type=float, default=d_trn.lro)
+    g = p.add_argument_group("few-shot regularization")
+    g.add_argument("--freq_reg_end", type=int, default=d_enc.freq_reg_end,
+                   help="FreeNeRF: steps over which the frequency masks "
+                        "anneal (0 = off)")
+    g.add_argument("--grid_hold_steps", type=int,
+                   default=d_smp.grid_hold_steps,
+                   help="keep every grid cell occupied until this step; "
+                        "-1 = auto (freq_reg_end when annealing)")
+    g.add_argument("--ao", type=float, default=d_trn.ao,
+                   help="weight regularizer's alpha (off when not given)")
+    g.add_argument("--reg_ratio", type=float, default=d_trn.reg_ratio,
+                   help="the weight regularizer runs while step < "
+                        "reg_ratio * Td")
+    g.add_argument("--reg", choices=["l1", "l2"], default=d_trn.reg)
+    g.add_argument("--Td", type=int, default=d_trn.Td)
+    g.add_argument("--a", type=float, default=d_trn.occ_a,
+                   help="occlusion regularizer's amplitude")
+    g.add_argument("--b", type=float, default=d_trn.occ_b,
+                   help="occlusion regularizer's decay")
+    g.add_argument("--func", choices=["linear", "exp"],
+                   default=d_trn.occ_func,
+                   help="occlusion regularizer's weighting")
+    g.add_argument("--beta", type=float, default=d_trn.beta,
+                   help="turns the occlusion regularizer on (it gates the "
+                        "term and does not scale it)")
+    g = p.add_argument_group("validation and checkpoints")
+    g.add_argument("--val", action="store_true",
+                   help="render the first held-out view every --val_rate "
+                        "steps and log its PSNR/SSIM")
+    g.add_argument("--val_rate", type=int, default=d_trn.val_rate)
+    g.add_argument("--ckpt_every", type=int, default=d_trn.ckpt_every,
+                   help="checkpoint every this many steps under --out_dir "
+                        "(0 = only at the end)")
+    g.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint under "
+                        "--out_dir")
     return p.parse_args(argv)
 
 
@@ -309,7 +419,8 @@ def config_from_args(args) -> Config:
     skip = tuple(int(s) for s in args.skip.split(",") if s.strip())
     return cfg.replace(
         encoder=dataclasses.replace(cfg.encoder, n_freqs=args.n_freqs,
-                                    n_freqs_views=args.n_freqs_views),
+                                    n_freqs_views=args.n_freqs_views,
+                                    freq_reg_end=args.freq_reg_end),
         model=dataclasses.replace(
             cfg.model, model=args.model, n_layers=args.n_layers,
             d_filter=args.d_filter,
@@ -323,34 +434,60 @@ def config_from_args(args) -> Config:
             n_fine=args.n_fine, n_compact=args.n_compact,
             grid_resolution=args.grid_resolution,
             render_step_size=args.render_step_size,
-            early_stop_eps=args.early_stop_eps),
+            early_stop_eps=args.early_stop_eps,
+            grid_hold_steps=args.grid_hold_steps),
         train=dataclasses.replace(
             cfg.train, n_iters=args.n_iters, batch_size=args.batch_size,
-            lro=args.lro, seed=args.seed, dtype=args.dtype))
+            lro=args.lro, seed=args.seed, dtype=args.dtype, ao=args.ao,
+            reg_ratio=args.reg_ratio, reg=args.reg, Td=args.Td,
+            occ_a=args.a, occ_b=args.b, occ_func=args.func, beta=args.beta,
+            val=args.val, val_rate=args.val_rate,
+            ckpt_every=args.ckpt_every, resume=args.resume))
 
 
 def run_training(model, cfg, hw: int, device, out_dir: str = ""):
-    """Train on cfg.data.n_imgs views of the procedural scene.
+    """Train on cfg.data.n_imgs views of the procedural scene, validating
+    on the first held-out view when cfg.train.val is set. With an out_dir:
+    metrics.jsonl there, and checkpoints under <out_dir>/ckpt every
+    cfg.train.ckpt_every steps and at the end, the run continuing from the
+    latest one when cfg.train.resume is set.
 
-    Returns (final TrainState, the scene, dict of training numbers)."""
+    Returns (final TrainState, the held-out split, dict of training
+    numbers)."""
     from .data.pool import pool_from_images
     from .train.loop import MetricsLogger, train
+    from .train.step import init_state, make_optimizer
+    from .utils.checkpoint import Checkpointer
 
     scene = scene_class(cfg.data.dataset)(
         n_imgs=cfg.data.n_imgs, hw=hw, white_bkgd=cfg.data.white_bkgd,
         seed=cfg.train.seed)
+    held_out = split_of(scene.holdout(n=HELD_OUT_VIEWS,
+                                      seed=cfg.train.seed + 1))
     pool = pool_from_images(scene.imgs, scene.poses, scene.hwf,
                             device=device)
+    ckpt = Checkpointer(os.path.join(out_dir, "ckpt")) if out_dir else None
+    state = None
+    if cfg.train.resume and ckpt is not None:
+        state = ckpt.restore(init_state(model, cfg,
+                                        make_optimizer(cfg, model),
+                                        scene.aabb, device))
+    start = 0 if state is None else state.step
+    val_fn = make_val_fn(model, cfg, held_out, device) if cfg.train.val \
+        else None
     logger = MetricsLogger(out_dir or None)
     t0 = time.perf_counter()
-    state = train(model, cfg, pool, scene, logger=logger)
+    state = train(model, cfg, pool, scene, state=state, logger=logger,
+                  checkpointer=ckpt, val_fn=val_fn)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     logger.close()
-    return state, scene, {"steps": state.step, "train_seconds": seconds,
-                          "rays_per_sec": state.step * cfg.train.batch_size
-                          / seconds}
+    return state, held_out, {
+        "steps": state.step, "resumed_from": start,
+        "train_seconds": seconds,
+        "rays_per_sec": (state.step - start) * cfg.train.batch_size
+        / seconds}
 
 
 def main(argv=None) -> int:
@@ -363,6 +500,10 @@ def main(argv=None) -> int:
         print("fsnerf_tpu_torch.cli: no CUDA device is available; pass "
               "--device cpu to run the kernels' plain versions on the CPU",
               file=sys.stderr)
+        return 2
+    if (args.resume or args.ckpt_every) and not args.out_dir:
+        print("fsnerf_tpu_torch.cli: --resume and --ckpt_every need "
+              "--out_dir, where the checkpoints live", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs stay f32
     cfg = config_from_args(args)
@@ -378,10 +519,8 @@ def main(argv=None) -> int:
                 if cfg.sampling.strategy == "occgrid" else None)
         metrics, _ = evaluate_split(model, grid, split, cfg, device=device)
     else:
-        state, scene, numbers = run_training(model, cfg, args.hw, device,
-                                             args.out_dir)
-        held_out = split_of(scene.holdout(n=HELD_OUT_VIEWS,
-                                          seed=args.seed + 1))
+        state, held_out, numbers = run_training(model, cfg, args.hw, device,
+                                                args.out_dir)
         metrics, _ = evaluate_split(model, og.conservative(state.grid),
                                     held_out, cfg, device=device)
         metrics.update(numbers)

@@ -132,9 +132,16 @@ class TrainConfig:
     occ_b: Optional[float] = None
     occ_func: str = "linear"        # linear | exp
     beta: Optional[float] = None
-    # compute dtype of the NeRF module (the grid refresh and the path that
-    # does not use the fused kernels): float32 | bfloat16
+    # compute dtype of the NeRF module (the path that does not use the fused
+    # kernels, and a SiNeRF's grid refresh): float32 | bfloat16
     dtype: str = "bfloat16"
+    # in-loop validation (train/loop.py): val_fn every val_rate steps
+    val: bool = False
+    val_rate: int = 500
+    # full-state checkpoints (utils/checkpoint.py) every ckpt_every steps
+    # (0 = only the final one), and continuing from the latest one
+    ckpt_every: int = 0
+    resume: bool = False
     # hides XLA compile time in the JAX package; the port recompiles nothing
     # when the compaction K changes, so it is carried but unread
     async_ladder: Optional[bool] = None

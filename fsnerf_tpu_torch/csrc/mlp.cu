@@ -1,6 +1,7 @@
 // Forward NeRF MLP on pre-encoded features for Hopper (sm_90a): the 8x256
 // trunk with its skip, the sigma head, the connection, the view branch and
-// the rgb head, one 128-row tile per CTA.
+// the rgb head, one 128-row tile per CTA; and its density pass (trunk and
+// sigma head only, nerf_density_kernel at the end of this file).
 //
 // Replaces fsnerf_tpu/ops/pallas/mlp.py::_fused_call (the Pallas TPU kernel
 // reached from fused_nerf_mlp / make_fused_model_fn). Plain PyTorch twin:
@@ -88,6 +89,47 @@ size_t mlp_smem_bytes(int width, int d_enc_pad, int d_dir_pad) {
          sizeof(float) * 4 * kRows;
 }
 
+// The density pass: trunk and sigma head only (no connection, branch or rgb
+// head, no view input), the occupancy grid refresh's workload. Replaces
+// fsnerf_tpu/ops/pallas/mlp.py::_density_call (reached from fused_density /
+// make_fused_density_fn). Plain PyTorch twin:
+// fsnerf_tpu_torch/ops/kernels/mlp.py::nerf_density_reference. Same tile,
+// GEMM core and numerics as nerf_mlp_kernel through nerf_trunk_sigma; the
+// sigma head writes each row's sigma straight to device memory. A row costs
+// ~0.98 MFLOP at 8x256 against 132 bytes of HBM traffic, so it is
+// compute-bound like nerf_mlp_kernel.
+struct DensityArgs {
+  const bf16* encx;   // [N, d_enc_pad] positional encodings
+  Mlp mlp;
+  float* out;         // [N] sigma
+  int N;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    nerf_density_kernel(DensityArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int DE = a.mlp.d_enc_pad;
+  const int LDH = a.mlp.width + kPad, LDE = DE + kPad;
+  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* buf1 = buf0 + kRows * LDH;
+  bf16* encx = buf1 + kRows * LDH;
+  bf16* slabs = encx + kRows * LDE;
+
+  const int r0 = blockIdx.x * kRows;
+  const int nrows = min(kRows, a.N - r0);
+  stage_rows(a.encx, DE, encx, LDE, r0, nrows);
+  __syncthreads();
+  const bf16* w = a.mlp.wpack;
+  const float* b = a.mlp.bpack;
+  nerf_trunk_sigma(a.mlp, encx, LDE, buf0, buf1, slabs, nrows, a.out + r0, w,
+                   b);
+}
+
+size_t density_smem_bytes(int width, int d_enc_pad) {
+  return sizeof(bf16) * ((size_t)kRows * (2 * width + d_enc_pad + 3 * kPad) +
+                         2 * kSlabRows * kSlabLd);
+}
+
 }  // namespace
 }  // namespace fsnerf
 
@@ -122,5 +164,37 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
   if (n_blocks > 0)
     nerf_mlp_kernel<<<n_blocks, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The density pass (ops/kernels/mlp.py::nerf_density): the same packed
+// weights, walked only through the sigma head.
+extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
+                                   const void* bpack, void* out, int n_rows,
+                                   int n_layers, int skip_mask, int width,
+                                   int d_enc_pad, int density_act,
+                                   void* stream) {
+  using namespace fsnerf;
+  DensityArgs a;
+  a.encx = static_cast<const bf16*>(encx);
+  a.mlp = Mlp{static_cast<const bf16*>(wpack),
+              static_cast<const float*>(bpack),
+              n_layers,
+              skip_mask,
+              width,
+              d_enc_pad,
+              0,
+              density_act};
+  a.out = static_cast<float*>(out);
+  a.N = n_rows;
+  const size_t smem = density_smem_bytes(width, d_enc_pad);
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_density_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = (n_rows + kRows - 1) / kRows;
+  if (n_blocks > 0)
+    nerf_density_kernel<<<n_blocks, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 // render.cu, the forward MLP of mlp.cu, the train forward/backward of
 // mlp_train.cu and siren.cu): the 128-row tensor-core GEMM with weights
 // streamed through shared memory, its forward epilogue, the forward NeRF MLP
-// on encoded rows, copies of a tile's rows to and from device memory, and
+// on encoded rows (and its trunk + sigma head alone, the density pass of
+// mlp.cu), copies of a tile's rows to and from device memory, and
 // the positional encoding of one feature.
 //
 // Every kernel that uses them runs kThreads threads per CTA over a tile of
@@ -239,23 +240,22 @@ struct Mlp {
   int n_layers, skip_mask, width, d_enc_pad, d_dir_pad, density_act;
 };
 
-// The forward NeRF MLP on the kRows encoded rows encx [kRows, LDE] and encd
-// [kRows, LDD] in shared memory: sig[row] and rgb[3 row] (shared, f32) for
-// rows < nrows. buf0 / buf1 are [kRows, width + kPad] bf16 activation
-// buffers, slabs the weight staging of gemm(). Numerics of the TPU kernels:
-// bf16 operands, f32 accumulation, bf16-rounded bias added in f32, trunk
-// ReLU then bf16, the skip concat [h, enc] as two GEMMs into one
-// accumulator, sigma raw / ReLU / exp(clip(., -15, 15)), feat = bf16(conn
-// + bias), branch ReLU then bf16, rgb an f32 sigmoid. Ends with a barrier.
-__device__ void nerf_mlp_rows(const Mlp& m, const bf16* encx, int LDE,
-                              const bf16* encd, int LDD, bf16* buf0,
-                              bf16* buf1, bf16* slabs, int nrows, float* sig,
-                              float* rgb) {
-  const int W = m.width, Wh = m.width / 2, LDH = W + kPad;
-  const int DE = m.d_enc_pad, DD = m.d_dir_pad;
+// The trunk and the sigma head of the NeRF MLP on the kRows encoded rows
+// encx [kRows, LDE] in shared memory: sig[row] (f32, in shared or global
+// memory) for rows < nrows. buf0 / buf1 are [kRows, width + kPad] bf16
+// activation buffers, slabs the weight staging of gemm(). Walks w / b from
+// the start of the packed weights and leaves them past the sigma head.
+// Returns the buffer holding the last trunk activations. Numerics of the
+// TPU kernels: bf16 operands, f32 accumulation, bf16-rounded bias added in
+// f32, trunk ReLU then bf16, the skip concat [h, enc] as two GEMMs into one
+// accumulator, sigma raw / ReLU / exp(clip(., -15, 15)). The sigma head
+// only reads the activations, so no barrier follows it.
+__device__ bf16* nerf_trunk_sigma(const Mlp& m, const bf16* encx, int LDE,
+                                  bf16* buf0, bf16* buf1, bf16* slabs,
+                                  int nrows, float* sig, const bf16*& w,
+                                  const float*& b) {
+  const int W = m.width, LDH = W + kPad, DE = m.d_enc_pad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* w = m.wpack;
-  const float* b = m.bpack;
   bf16* hin = nullptr;
   bf16* hout = buf0;
   const Seg none = {nullptr, 0, nullptr, 0};
@@ -292,6 +292,27 @@ __device__ void nerf_mlp_rows(const Mlp& m, const bf16* encx, int LDE,
     else if (m.density_act == 2) s = expf(fminf(fmaxf(s, -15.f), 15.f));
     if (lane == 0) sig[row] = s;
   }
+  return hin;
+}
+
+// The forward NeRF MLP on the kRows encoded rows encx [kRows, LDE] and encd
+// [kRows, LDD] in shared memory: sig[row] and rgb[3 row] (shared, f32) for
+// rows < nrows. The trunk and sigma head of nerf_trunk_sigma, then feat =
+// bf16(conn + bias), branch ReLU then bf16, rgb an f32 sigmoid. Ends with a
+// barrier.
+__device__ void nerf_mlp_rows(const Mlp& m, const bf16* encx, int LDE,
+                              const bf16* encd, int LDD, bf16* buf0,
+                              bf16* buf1, bf16* slabs, int nrows, float* sig,
+                              float* rgb) {
+  const int W = m.width, Wh = m.width / 2, LDH = W + kPad;
+  const int DD = m.d_dir_pad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* w = m.wpack;
+  const float* b = m.bpack;
+  bf16* hin = nerf_trunk_sigma(m, encx, LDE, buf0, buf1, slabs, nrows, sig,
+                               w, b);
+  bf16* hout = (hin == buf0) ? buf1 : buf0;
+  const Seg none = {nullptr, 0, nullptr, 0};
   // connection (no activation) -> hout; branch [feat, dir] -> hin
   gemm_layer(Seg{hin, LDH, w, W}, none, b, W, false, hout, LDH, slabs);
   w += W * W;

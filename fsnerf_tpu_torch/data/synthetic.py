@@ -1,7 +1,8 @@
 """Procedural scenes with exact ground truth (numpy copy of
 fsnerf_tpu/data/synthetic.py): the normal-coloured sphere and the lego-like
 box lattice, both on the Blender camera regime (orbit radius ~4, near 2 /
-far 6, AABB [-1.5, 1.5]^3).
+far 6, AABB [-1.5, 1.5]^3), and the floater contamination of training
+images (add_floaters), the occlusion regularizer's design regime.
 """
 
 from __future__ import annotations
@@ -223,3 +224,49 @@ class LatticeScene:
         return LatticeScene(n_imgs=n, hw=self.hw,
                             white_bkgd=self.white_bkgd, radius=self.radius,
                             seed=seed, geom_seed=self.geom_seed)
+
+
+def add_floaters(
+    imgs: np.ndarray,
+    poses: np.ndarray,
+    hwf,
+    aabb_r: float = 1.5,
+    n_blobs: int = 4,
+    alpha: float = 0.55,
+    blob_radius: float = 0.12,
+    seed: int = 0,
+) -> np.ndarray:
+    """Composite view-inconsistent translucent blobs into training images.
+
+    Content that appears in one training view and in no other has no
+    photometrically consistent volumetric explanation except density
+    parked just inside the AABB in front of that camera: a near-camera
+    floater, the occlusion regularizer's target. Each blob is a gaussian
+    splat centred on a random pixel's ray 0.18 inside the AABB, its alpha
+    falling off with the perpendicular ray-to-centre distance. Returns a new
+    float32 image stack; the draws come from `seed`.
+    """
+    rng = np.random.default_rng(seed)
+    out = imgs.astype(np.float32).copy()
+    H, W, _ = hwf
+    color = np.array([0.55, 0.58, 0.68], np.float32)        # smoky gray
+    for i, pose in enumerate(poses):
+        o, d = _numpy_get_rays(pose, hwf)
+        for _ in range(n_blobs):
+            pi = rng.integers(H // 4, 3 * H // 4)
+            pj = rng.integers(W // 4, 3 * W // 4)
+            oc, dc = o[pi, pj], d[pi, pj]
+            # the ray's entry into the AABB plus a small inward offset
+            inv = np.where(np.abs(dc) > 1e-9, 1.0 / dc, 1e12)
+            t1, t2 = (-aabb_r - oc) * inv, (aabb_r - oc) * inv
+            t_in = np.minimum(t1, t2).max() + 0.18
+            center = oc + t_in * dc
+            # perpendicular distance of every pixel's ray to the centre
+            rel = center - o.reshape(-1, 3)
+            t_proj = (rel * d.reshape(-1, 3)).sum(-1)
+            closest = o.reshape(-1, 3) + t_proj[:, None] * d.reshape(-1, 3)
+            dist = np.linalg.norm(closest - center, axis=-1)
+            a = alpha * np.exp(-0.5 * (dist / blob_radius) ** 2)
+            a = np.where(t_proj > 0, a, 0.0).reshape(H, W, 1)
+            out[i] = a * color + (1.0 - a) * out[i]
+    return out

@@ -30,7 +30,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu", "siren.cu")
+SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu", "siren.cu",
+           "volrend.cu")
 HEADERS = ("fastmath.cuh", "mlp_common.cuh", "siren_common.cuh",
            "train_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -110,6 +111,10 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_ray_march.restype = i
     lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.fsnerf_nerf_mlp.restype = i
+    lib.fsnerf_nerf_density.argtypes = [vp] * 4 + [i] * 6 + [vp]
+    lib.fsnerf_nerf_density.restype = i
+    lib.fsnerf_volrend.argtypes = [vp, i, vp, i] + [vp] * 5 + [i, i, vp]
+    lib.fsnerf_volrend.restype = i
     lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
     lib.fsnerf_mlp_train_fwd.restype = i
     lib.fsnerf_mlp_train_bwd.argtypes = (

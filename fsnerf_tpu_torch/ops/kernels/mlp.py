@@ -1,7 +1,7 @@
-"""Forward NeRF MLP on pre-encoded features: the CUDA kernel's wrapper, its
-plain PyTorch version and the drop-in model_fn built on them (port of
-fsnerf_tpu/ops/pallas/mlp.py::prep_params, fused_nerf_mlp and
-make_fused_model_fn).
+"""Forward NeRF MLP on pre-encoded features: the CUDA kernels' wrappers,
+their plain PyTorch versions and the drop-ins built on them (port of
+fsnerf_tpu/ops/pallas/mlp.py::prep_params, fused_nerf_mlp,
+make_fused_model_fn, fused_density and make_fused_density_fn).
 
 Inputs are the positional encodings of the points and the view directions
 in the reference layout [v, sin f0 v, cos f0 v, ...], computed in float32
@@ -13,9 +13,14 @@ every trunk layer; sigma raw, ReLU or exp(clip(., -15, 15)); feat =
 bf16(connection + bias) without activation; branch ReLU then bf16; rgb an
 f32 sigmoid. Out [N, 4] float32 = rgb, sigma.
 
-`nerf_mlp` launches csrc/mlp.cu for CUDA tensors and runs
-`nerf_mlp_reference` only for CPU tensors. Weights travel packed in the ray
-march's walk order (render.py::pack_weights).
+The density pass (`nerf_density`, the occupancy grid refresh's workload)
+runs the trunk and the sigma head alone, with the same numerics, on the
+positional encodings only.
+
+`nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
+`nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
+Weights travel packed in the ray march's walk order (render.py::
+pack_weights), packed on the state dict's own device.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 
 from ...core.encoding import encoded_dim, positional_encoding
 from .render import (_DENSITY_ACT, _round_up, mlp_forward, pack_weights,
-                     unpack)
+                     sigma_head, trunk_forward, unpack)
 
 @dataclass(frozen=True)
 class MlpParams:
@@ -59,14 +64,14 @@ class MlpParams:
 def prep_params(state_dict: Dict[str, torch.Tensor], n_layers: int = 8,
                 skip: Sequence[int] = (4,), device=None) -> MlpParams:
     """Pack a reference-keyed NeRF state dict (core/models.py) for
-    nerf_mlp."""
+    nerf_mlp and nerf_density, on the state dict's own device (no host
+    round trip), then move it to `device` when one is given."""
     skip = tuple(skip)
     if skip and max(skip) >= n_layers - 1:
         raise ValueError(
             "the fused MLP needs the skip concat to feed a TRUNK layer "
             f"(skip {skip} with n_layers {n_layers} would feed the heads)")
-    sd = {k: v.detach().to("cpu", torch.float32) for k, v in
-          state_dict.items()}
+    sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
     W = sd["layers.0.weight"].shape[0]
     if W % 32:
         raise ValueError(f"width {W} must be a multiple of 32")
@@ -87,9 +92,12 @@ def pad_features(feat: torch.Tensor, d_pad: int) -> torch.Tensor:
 
 
 def _check(encx, encd, params: MlpParams, density_activation: str):
+    """encd None: the density pass, which takes no view input."""
     N = encx.shape[0]
     for name, a, shape in (("encx", encx, (N, params.d_enc_pad)),
                            ("encd", encd, (N, params.d_dir_pad))):
+        if a is None:
+            continue
         if tuple(a.shape) != shape or a.dtype != torch.bfloat16:
             raise ValueError(f"{name}: want bfloat16 {shape}, got "
                              f"{a.dtype} {tuple(a.shape)}")
@@ -169,10 +177,11 @@ def make_fused_model_fn(
     if (params.d_enc, params.d_dir) != (encoded_dim(3, n_freqs),
                                         encoded_dim(3, n_freqs_views)):
         raise ValueError("state dict does not match n_freqs/n_freqs_views")
+    dev = params.wpack.device
     pm = None if pos_mask is None else torch.as_tensor(
-        pos_mask, dtype=torch.float32, device=device)
+        pos_mask, dtype=torch.float32, device=dev)
     dm = None if dir_mask is None else torch.as_tensor(
-        dir_mask, dtype=torch.float32, device=device)
+        dir_mask, dtype=torch.float32, device=dev)
 
     def model_fn(x, dirs=None):
         if dirs is None:
@@ -189,3 +198,84 @@ def make_fused_model_fn(
         return out.reshape(*shape, 4)
 
     return model_fn
+
+
+def nerf_density_reference(encx, params: MlpParams,
+                           density_activation: str = "none") -> torch.Tensor:
+    """Plain PyTorch version of the density kernel, step for step as
+    fsnerf_tpu/ops/pallas/mlp.py::_density_kernel_body: the trunk as f32
+    matmuls of bf16 operands with h rounded to bf16, sigma an f32 dot plus
+    the bf16-rounded bias, raw, ReLU or exp(clip(., -15, 15)).
+
+    Args: encx [N, d_enc_pad] bf16 (pad_features); params from
+    prep_params. Returns sigma [N] float32."""
+    _check(encx, None, params, density_activation)
+    trunk, b_trunk, hd = unpack(params.wpack.to(torch.float32), params.bpack,
+                                params.n_layers, params.skip, params.width,
+                                params.d_enc_pad, params.d_dir_pad)
+    h = trunk_forward(encx.to(torch.float32), trunk, b_trunk)[-1]
+    return sigma_head(h, hd, density_activation)
+
+
+def nerf_density(encx, params: MlpParams,
+                 density_activation: str = "none") -> torch.Tensor:
+    """The density pass: csrc/mlp.cu's nerf_density_kernel for CUDA tensors,
+    nerf_density_reference for CPU tensors; same arguments and return. Any
+    N. Counts its kernel launches in `nerf_density.launches`."""
+    if encx.device.type == "cpu":
+        return nerf_density_reference(encx, params, density_activation)
+    if encx.device.type != "cuda":
+        raise ValueError(f"nerf_density runs on cpu or cuda, not "
+                         f"{encx.device}")
+    _check(encx, None, params, density_activation)
+    for a in (encx, params.wpack, params.bpack):
+        if a.device != encx.device or not a.is_contiguous():
+            raise ValueError("nerf_density needs contiguous tensors on one "
+                             "device")
+    from .build import load_library
+
+    lib = load_library()
+    N = encx.shape[0]
+    out = torch.empty(N, dtype=torch.float32, device=encx.device)
+    err = lib.fsnerf_nerf_density(
+        encx.data_ptr(), params.wpack.data_ptr(), params.bpack.data_ptr(),
+        out.data_ptr(), N, params.n_layers, params.skip_mask, params.width,
+        params.d_enc_pad, _DENSITY_ACT[density_activation],
+        torch.cuda.current_stream(encx.device).cuda_stream)
+    if err:
+        raise RuntimeError("nerf_density kernel launch failed: "
+                           + lib.fsnerf_error_string(err).decode())
+    nerf_density.launches += 1
+    return out
+
+
+nerf_density.launches = 0
+
+
+def make_fused_density_fn(
+    state_dict: Dict[str, torch.Tensor],
+    n_layers: int = 8,
+    skip: Sequence[int] = (4,),
+    n_freqs: int = 10,
+    log_space: bool = True,
+    density_activation: str = "none",
+    pos_mask: Optional[torch.Tensor] = None,
+    device=None,
+):
+    """density_fn(x [..., 3]) -> sigma [...] float32 backed by
+    nerf_density: the drop-in density function of occgrid.update. The
+    weights are packed once, on the state dict's device; pos_mask is the
+    optional FreeNeRF band mask of the positional encoding."""
+    params = prep_params(state_dict, n_layers, skip, device)
+    if params.d_enc != encoded_dim(3, n_freqs):
+        raise ValueError("state dict does not match n_freqs")
+    pm = None if pos_mask is None else torch.as_tensor(
+        pos_mask, dtype=torch.float32, device=params.wpack.device)
+
+    def density_fn(x):
+        encx = positional_encoding(x.reshape(-1, 3).to(torch.float32),
+                                   n_freqs, log_space, pm)
+        return nerf_density(pad_features(encx, params.d_enc_pad), params,
+                            density_activation).reshape(x.shape[:-1])
+
+    return density_fn

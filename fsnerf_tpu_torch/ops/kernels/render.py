@@ -246,17 +246,24 @@ def heads_forward(h, ed, hd):
     return feat, br, torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
 
 
-def mlp_forward(ex, ed, density_activation: str, unpacked):
-    """(rgb [N, 3], sigma [N]) of the encoded rows as f32 matmuls of
-    bf16-rounded operands; unpacked as unpack() returns it."""
-    trunk, b_trunk, hd = unpacked
-    h = trunk_forward(ex, trunk, b_trunk)[-1]
+def sigma_head(h, hd, density_activation: str):
+    """sigma [N] of the last trunk activations: an f32 dot plus the
+    bf16-rounded bias, raw, ReLU or exp(clip(., -15, 15))."""
     sigma = (h @ hd["sigma"])[:, 0] + hd["b_sigma"]
     if density_activation == "relu":
         sigma = torch.relu(sigma)
     elif density_activation == "trunc_exp":
         sigma = torch.exp(torch.clamp(sigma, -15.0, 15.0))
-    return heads_forward(h, ed, hd)[2], sigma
+    return sigma
+
+
+def mlp_forward(ex, ed, density_activation: str, unpacked):
+    """(rgb [N, 3], sigma [N]) of the encoded rows as f32 matmuls of
+    bf16-rounded operands; unpacked as unpack() returns it."""
+    trunk, b_trunk, hd = unpacked
+    h = trunk_forward(ex, trunk, b_trunk)[-1]
+    return (heads_forward(h, ed, hd)[2],
+            sigma_head(h, hd, density_activation))
 
 
 def _check(x, dirs, t, deltas, mask, block_rows, chunk_s):

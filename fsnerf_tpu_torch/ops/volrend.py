@@ -5,9 +5,11 @@
     w_i     = T_i * alpha_i
 
 Masked samples contribute zero optical depth, so an all-masked ray
-composites to pure background with well-defined gradients. Serves the
-non-fused render path and the tests; the fused path composites inside the
-ray-march kernel (ops/kernels/render.py).
+composites to pure background with well-defined gradients. This is the
+training loss's compositing (autograd) and the plain version of the
+forward-only compositing kernel, ops/kernels/volrend.py::
+volume_render_fused, which evaluation uses; the fused ray march composites
+inside its own kernel (ops/kernels/render.py).
 """
 
 from __future__ import annotations

@@ -13,7 +13,11 @@ network's coarse outputs with the new samples' or marching the union
 through the fused ray-march kernel.
 
 The model is passed as `model_fn(x [..., 3], dirs [..., 3]) -> [..., 4]`
-([rgb, sigma]) with weights and frequency masks already bound.
+([rgb, sigma]) with weights and frequency masks already bound. Where the
+model's outputs are composited outside a ray march, `composite_fn` does it:
+ops/volrend.py::volume_render by default (autograd, the training loss), or
+the forward-only kernel ops/kernels/volrend.py::volume_render_fused at
+evaluation.
 """
 
 from __future__ import annotations
@@ -124,6 +128,7 @@ def render_rays_occgrid(
     early_stop_eps: float = 1e-4,
     query_stride: int = 1,
     fused_render_fn: Optional[Callable] = None,
+    composite_fn: Callable = volume_render,
 ) -> dict:
     """Occupancy-grid-masked dense rendering of rays [R, 3].
 
@@ -132,7 +137,8 @@ def render_rays_occgrid(
     make_fused_ray_renderer) runs MLP + compositing + exact early exit in
     one kernel after a stable depth-coherence sort of the rays by n_valid;
     model_fn is then unused and the result holds rgb, opacity, depth,
-    trans_final and n_valid.
+    trans_final and n_valid. Otherwise composite_fn composites model_fn's
+    outputs.
     """
     t_mid, deltas, mask, n_valid = _masked_lattice(
         rays_o, rays_d, grid, n_samples, jitter, render_step_size,
@@ -157,7 +163,7 @@ def render_rays_occgrid(
     dirs = rays_d[:, None, :].expand(x.shape)
     out4 = model_fn(x, dirs).to(torch.float32)
     rgbs, sigmas = out4[..., :3], out4[..., 3]
-    out = volume_render(sigmas, rgbs, t_mid, deltas, mask, bkgd)
+    out = composite_fn(sigmas, rgbs, t_mid, deltas, mask, bkgd)
     out.update(sigmas=sigmas, t_vals=t_mid, mask=mask, n_valid=n_valid)
     return out
 
@@ -175,6 +181,7 @@ def render_rays_hierarchical(
     white_bkgd: bool = False,
     coarse_model_fn: Optional[Callable] = None,
     fused_render_fn: Optional[Callable] = None,
+    composite_fn: Callable = volume_render,
 ) -> Tuple[dict, dict]:
     """Classic-NeRF coarse/fine rendering with inverse-CDF resampling.
 
@@ -187,7 +194,8 @@ def render_rays_hierarchical(
     model_fn evaluate the whole union. fused_render_fn (shared network,
     eval only) marches the sorted union through the ray-march kernel with
     every sample valid; its fine dict then holds rgb, opacity, depth,
-    trans_final, t_vals and mask None. The coarse weights that drive the
+    trans_final, t_vals and mask None. composite_fn composites both passes
+    otherwise (the coarse pass always). The coarse weights that drive the
     resampling carry no gradient.
 
     Returns (coarse, fine) dicts as render_rays_occgrid's model path.
@@ -200,8 +208,8 @@ def render_rays_hierarchical(
     out4_c = coarse_fn(x_c, rays_d[:, None, :].expand(x_c.shape)).to(
         torch.float32)
     bkgd = 1.0 if white_bkgd else 0.0
-    coarse = volume_render(out4_c[..., 3], out4_c[..., :3], t_c, d_c, None,
-                           bkgd)
+    coarse = composite_fn(out4_c[..., 3], out4_c[..., :3], t_c, d_c, None,
+                          bkgd)
     coarse.update(sigmas=out4_c[..., 3], t_vals=t_c, mask=None)
 
     w = coarse["weights"].detach()
@@ -230,7 +238,7 @@ def render_rays_hierarchical(
             torch.cat([out4_c, out4_new], dim=-2))
         rgb_f, sig = merged[..., :3], merged[..., 3]
         d_f = _deltas_from_t(t_f, far)
-    fine = volume_render(sig, rgb_f, t_f, d_f, None, bkgd)
+    fine = composite_fn(sig, rgb_f, t_f, d_f, None, bkgd)
     fine.update(sigmas=sig, t_vals=t_f, mask=None)
     return coarse, fine
 
@@ -238,7 +246,8 @@ def render_rays_hierarchical(
 def _render_rays_dispatch(model_fn, rays_o, rays_d, white_bkgd, *, strategy,
                           grid, n_samples, n_fine, near, far,
                           render_step_size, n_compact=0, early_stop_eps=1e-4,
-                          query_stride=1, fused_render_fn=None):
+                          query_stride=1, fused_render_fn=None,
+                          composite_fn=volume_render):
     """One strategy's eval-time render of rays (no draws): the occgrid
     result, or the hierarchical fine pass."""
     if strategy == "occgrid":
@@ -246,12 +255,14 @@ def _render_rays_dispatch(model_fn, rays_o, rays_d, white_bkgd, *, strategy,
             model_fn, rays_o, rays_d, grid, n_samples,
             render_step_size=render_step_size, white_bkgd=white_bkgd,
             n_compact=n_compact, early_stop_eps=early_stop_eps,
-            query_stride=query_stride, fused_render_fn=fused_render_fn)
+            query_stride=query_stride, fused_render_fn=fused_render_fn,
+            composite_fn=composite_fn)
     if strategy != "hierarchical":
         raise ValueError(f"unknown sampling strategy {strategy!r}")
     _, fine = render_rays_hierarchical(
         model_fn, rays_o, rays_d, near, far, n_samples, n_fine,
-        white_bkgd=white_bkgd, fused_render_fn=fused_render_fn)
+        white_bkgd=white_bkgd, fused_render_fn=fused_render_fn,
+        composite_fn=composite_fn)
     return fine
 
 
@@ -270,6 +281,7 @@ def make_chunk_renderer(
     early_stop_eps: float = 1e-4,
     query_stride: int = 1,
     fused_render_fn: Optional[Callable] = None,
+    composite_fn: Callable = volume_render,
 ) -> Callable:
     """(rays_o, rays_d) -> (rgb, depth) chunk renderer of one strategy."""
     @torch.no_grad()
@@ -279,7 +291,7 @@ def make_chunk_renderer(
             grid=grid, n_samples=n_samples, n_fine=n_fine, near=near,
             far=far, render_step_size=render_step_size, n_compact=n_compact,
             early_stop_eps=early_stop_eps, query_stride=query_stride,
-            fused_render_fn=fused_render_fn)
+            fused_render_fn=fused_render_fn, composite_fn=composite_fn)
         return out["rgb"], out["depth"]
 
     return render
@@ -305,6 +317,7 @@ def render_frame(
     query_stride: int = 1,
     chunk_renderer: Optional[Callable] = None,
     fused_render_fn: Optional[Callable] = None,
+    composite_fn: Callable = volume_render,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a full H x W frame from one pose [4, 4] (on the pose's device)
     in chunks of `chunksize` rays (at most 16384 under occgrid); the last
@@ -334,7 +347,7 @@ def render_frame(
         n_fine=n_fine, render_step_size=render_step_size,
         white_bkgd=white_bkgd, near=near, far=far, n_compact=n_compact,
         early_stop_eps=early_stop_eps, query_stride=query_stride,
-        fused_render_fn=fused_render_fn)
+        fused_render_fn=fused_render_fn, composite_fn=composite_fn)
     imgs, depths = [], []
     for c in range(n_chunks):
         sl = slice(c * chunksize, (c + 1) * chunksize)
@@ -362,7 +375,7 @@ def render_path(
                        if k in ("strategy", "grid", "n_samples", "n_fine",
                                 "render_step_size", "white_bkgd", "n_compact",
                                 "early_stop_eps", "query_stride",
-                                "fused_render_fn")}
+                                "fused_render_fn", "composite_fn")}
     chunk_renderer = make_chunk_renderer(model_fn, near=near, far=far,
                                          **renderer_kwargs)
     frames, d_frames = [], []

@@ -1,11 +1,11 @@
 """Training driver (port of fsnerf_tpu/train/loop.py): the adaptive
 compaction ladder, the divergence guard, a JSON-lines metrics sink and the
-loop itself.
+loop itself, with its in-loop validation and checkpoint hooks.
 
 The loop runs one step per Python iteration; the device queue stays full
 because a step never waits on it. Metrics cross to the host only at the
 ladder's boundaries (every `chunk` steps, where the JAX package ends a
-lax.scan chunk) and at log steps.
+lax.scan chunk), at log steps and at validations.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import logging
 import math
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from ..core.schedules import make_schedule
 from .state import TrainState
@@ -80,6 +80,12 @@ class CompactionController:
         """cfg with n_compact pinned to the controller's current K."""
         return cfg.replace(sampling=dataclasses.replace(
             cfg.sampling, n_compact=self.k))
+
+    def state_dict(self) -> dict:
+        return {"k": self.k, "below": self._below}
+
+    def load_state_dict(self, d: dict):
+        self.k, self._below = int(d["k"]), int(d["below"])
 
 
 class DivergenceGuard:
@@ -154,20 +160,34 @@ def chunk_length(log_every: int) -> int:
 
 def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
           logger: Optional[MetricsLogger] = None,
-          log_every: int = 100) -> TrainState:
+          log_every: int = 100, checkpointer=None,
+          val_fn: Optional[Callable] = None) -> TrainState:
     """Run steps until cfg.train.n_iters.
 
     Args: model, the NeRF module on the pool's device; pool: RayPool;
     scene: .aabb; state: a TrainState to continue (None = fresh, around
-    `model`). Returns the final TrainState."""
+    `model`); checkpointer: utils/checkpoint.py::Checkpointer, saved every
+    cfg.train.ckpt_every steps and at the end; val_fn(state, step) -> dict,
+    run every cfg.train.val_rate steps when cfg.train.val is set, its
+    metrics logged with a "val_" prefix. Returns the final TrainState."""
     if state is None:
         state = init_state(model, cfg, make_optimizer(cfg, model),
                            scene.aabb, pool.device)
     compactor = CompactionController(cfg)
+    if state.ladder:
+        compactor.load_state_dict(state.ladder)
     schedule = make_schedule(cfg)
     guard = DivergenceGuard(halt_on_collapse=cfg.train.halt_on_divergence)
-    chunk = chunk_length(log_every)
-    n_iters = cfg.train.n_iters
+    t_cfg = cfg.train
+    val_on = bool(t_cfg.val and val_fn)
+    ckpt_on = bool(checkpointer and t_cfg.ckpt_every)
+    # the ladder observes at a common divisor of every callback boundary,
+    # as the JAX loop sizes its lax.scan chunks
+    bounds = [max(1, log_every)]
+    bounds += [max(1, t_cfg.val_rate)] if val_on else []
+    bounds += [max(1, t_cfg.ckpt_every)] if ckpt_on else []
+    chunk = chunk_length(math.gcd(*bounds))
+    n_iters = t_cfg.n_iters
 
     def build(c):
         return make_train_step(state.model, c, state.optimizer, pool, scene)
@@ -195,4 +215,15 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
                 logger.log(k, m)
             if guard.observe(k, m):
                 break
+        if val_on and k % t_cfg.val_rate == 0:
+            val_metrics = val_fn(state, k)
+            if logger and val_metrics:
+                logger.log(k, {f"val_{n}": v for n, v in val_metrics.items()
+                               if v is not None})
+        if ckpt_on and k % t_cfg.ckpt_every == 0:
+            state.ladder = compactor.state_dict()
+            checkpointer.save(state, k)
+    state.ladder = compactor.state_dict()
+    if checkpointer:
+        checkpointer.save(state, state.step)
     return state

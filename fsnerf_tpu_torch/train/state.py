@@ -8,6 +8,7 @@ the step count and the generator's stream.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -21,3 +22,6 @@ class TrainState:
     grid: OccGrid
     step: int
     generator: torch.Generator      # on the training device: batch and jitter
+    # the compaction ladder's state (train/loop.py::CompactionController),
+    # kept so a run continued from this state steps as the unbroken one
+    ladder: Optional[dict] = None

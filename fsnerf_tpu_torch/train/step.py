@@ -7,8 +7,9 @@ ops/kernels/mlp_train.py for NeRF or ops/kernels/siren.py for SiNeRF, or
 the module) -> volume integration -> MSE
 (+ regularizers) -> gradients -> Adam -> under occgrid, every
 update_interval steps the occupancy-grid EMA refresh with the updated
-weights. Nothing in a step waits on the device: its metrics stay there as
-tensors.
+weights (a NeRF's densities through the density kernel of
+ops/kernels/mlp.py where the fused kernels are on). Nothing in a step waits
+on the device: its metrics stay there as tensors.
 
 Randomness. The JAX step splits its key into batch, render and grid keys,
 and the hierarchical renderer splits the render key into the coarse
@@ -190,12 +191,34 @@ def resolve_update_interval(s_cfg, step: int) -> int:
     return late if step >= s_cfg.update_interval_late_start else early
 
 
+def make_density_fn(model, cfg, pos_mask=None, device=None) -> Callable:
+    """density_fn(x [N, 3]) -> sigma [N] of the grid refresh at the
+    FreeNeRF mask pos_mask: for a NeRF where resolve_fused_kernel holds, the
+    density kernel (ops/kernels/mlp.py::make_fused_density_fn, weights
+    packed on their device; float32 sigma, as the JAX package's
+    fused_density returns), else the module (a SiNeRF always: there is no
+    SIREN density kernel)."""
+    if resolve_fused_kernel(cfg, device) and cfg.model.model == "nerf":
+        from ..ops.kernels.mlp import make_fused_density_fn
+        return make_fused_density_fn(
+            model.state_dict(), n_layers=cfg.model.n_layers,
+            skip=tuple(cfg.model.skip), n_freqs=cfg.encoder.n_freqs,
+            log_space=cfg.encoder.log_space,
+            density_activation=cfg.model.density_activation,
+            pos_mask=pos_mask, device=device)
+
+    def density_fn(x):
+        return model(x, pos_mask=pos_mask)[..., 0]
+
+    return density_fn
+
+
 def maybe_update_grid(model, cfg, grid: og.OccGrid, step: int, draws,
                       device=None) -> og.OccGrid:
     """The occupancy-grid EMA refresh when `step` is on the interval: the
-    module's densities (as the JAX package, the refresh does not use the
-    train kernels) at jittered cell positions, all cells during warmup
-    and a round-robin part after."""
+    densities of make_density_fn at the step's FreeNeRF mask, at jittered
+    cell positions, all cells during warmup and a round-robin part after;
+    every cell stays occupied through the culling hold."""
     s = cfg.sampling
     if s.strategy != "occgrid":
         return grid
@@ -211,7 +234,7 @@ def maybe_update_grid(model, cfg, grid: og.OccGrid, step: int, draws,
     jitter = draws.grid_jitter(grid, k_cells)
     with torch.no_grad():
         return og.update(
-            grid, lambda x: model(x, pos_mask=pos_mask)[..., 0], step,
+            grid, make_density_fn(model, cfg, pos_mask, device), step,
             render_step_size=s.render_step_size, occ_thre=s.occ_thre,
             ema_decay=s.ema_decay, warmup_steps=s.warmup_steps,
             update_parts=s.update_parts, update_interval=interval,

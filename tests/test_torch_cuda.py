@@ -17,7 +17,16 @@ forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
 in each backward mode, and the two modes within 1e-2 of each other's max
 (they differ by design: the saved mode's derivative factors are bf16, the
 recompute's f32); each mode bitwise repeatable. SIREN ray march (render.cu):
-the ray march's tolerances and equal executed-step counts.
+the ray march's tolerances and equal executed-step counts. Density pass
+(mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
+ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
+runs bitwise equal. Compositing (volrend.cu): rgb, opacity, depth, weights
+and trans_final within rtol 1e-5 and atol 1e-6 (tests/test_pallas.py's
+volrend tolerance) of ops/volrend.py::volume_render, taken of |want| for
+the weights and trans_final and of the magnitude of the terms for the sums
+over the samples (torch_parity.composite_excess: the kernel adds them in
+another order, and raw sigmas let a depth cancel far below its terms); two
+runs bitwise equal.
 
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor fsnerf_tpu, so on the card's machine (which has no
@@ -34,9 +43,11 @@ from fsnerf_tpu_torch.ops.kernels import mlp as km
 from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
 from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.ops.kernels import siren as ks
+from fsnerf_tpu_torch.ops.kernels import volrend as kv
+from fsnerf_tpu_torch.ops.volrend import volume_render
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
-from torch_parity import (march_inputs, mlp_inputs, mse_cotangent,
-                          nerf_params_np, sinerf_params_np)
+from torch_parity import (composite_excess, march_inputs, mlp_inputs,
+                          mse_cotangent, nerf_params_np, sinerf_params_np)
 
 pytestmark = pytest.mark.cuda
 
@@ -361,3 +372,95 @@ def test_siren_march_small_ragged_and_counted(cuda):
     assert kr.siren_ray_march.launches == before + 2
     with pytest.raises(ValueError):
         kr.siren_ray_march(*padded, params, 32, 16)
+
+
+def _density_case(seed, width, arch, n, cuda, pos_mask=None):
+    sd = {k: v.to(cuda) for k, v in state_dict_from_jax(
+        nerf_params_np(seed, d_filter=width, **arch)).items()}
+    params = km.prep_params(sd, arch["n_layers"], arch["skip"])
+    x, _, _ = mlp_inputs(n, seed=seed)
+    ex = positional_encoding(x.to(cuda), arch["n_freqs"], True, pos_mask)
+    return km.pad_features(ex, params.d_enc_pad), params
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
+@pytest.mark.parametrize("width,arch,n", [(256, FULL, 20_037),
+                                         (64, SMALL, 77)])
+def test_nerf_density_matches_plain(cuda, act, width, arch, n):
+    """NeRF 8x256 at 20,000 + 37 rows and a narrow model with a FreeNeRF
+    mask below one tile; the weights packed on the card."""
+    pm = None if width == 256 else torch.tensor([1.0, 1.0, 0.4, 0.0],
+                                                device=cuda)
+    encx, params = _density_case(14, width, arch, n, cuda, pm)
+    assert params.wpack.device.type == "cuda"
+    got = km.nerf_density(encx, params, act)
+    again = km.nerf_density(encx, params, act)
+    ref = km.nerf_density_reference(encx, params, act)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max() / (ref.abs().max() + 1e-9) < 2e-2
+    if act != "none":
+        assert (got >= 0).all()
+
+
+def test_nerf_density_wrapper_counts_launches_and_validates(cuda):
+    encx, params = _density_case(15, 64, SMALL, 300, cuda)
+    before = km.nerf_density.launches
+    km.nerf_density(encx, params)
+    km.nerf_density_reference(encx, params)
+    assert km.nerf_density.launches == before + 1
+    with pytest.raises(ValueError):
+        km.nerf_density(encx.float(), params)
+    with pytest.raises(ValueError):
+        km.nerf_density(encx[:, :32].contiguous(), params)
+
+
+def _volrend_case(R, S, cuda, seed=0, masked=True, view4=False):
+    g = torch.Generator().manual_seed(seed)
+    sig = torch.randn((R, S), generator=g) * 3.0
+    rgb = torch.rand((R, S, 3), generator=g)
+    tv = torch.sort(torch.rand((R, S), generator=g) * 4.0 + 2.0).values
+    dl = torch.rand((R, S), generator=g) * 0.1 + 1e-3
+    mask = None
+    if masked:
+        mask = torch.rand((R, S), generator=g) > 0.3
+        mask[:4] = False                        # fully masked rays
+    if view4:                                   # the MLP's [R, S, 4] output
+        out4 = torch.cat([rgb, sig[..., None]], dim=-1).to(cuda)
+        sig, rgb = out4[..., 3], out4[..., :3]
+    else:
+        sig, rgb = sig.to(cuda), rgb.to(cuda)
+    return (sig, rgb, tv.to(cuda), dl.to(cuda),
+            None if mask is None else mask.to(cuda))
+
+
+@pytest.mark.parametrize("R,S,masked,view4,bkgd", [
+    (1000, 48, True, False, 1.0), (333, 192, True, True, 0.0),
+    (16384, 64, False, True, 1.0), (37, 5, True, False, [0.2, 0.5, 0.9])])
+def test_volrend_matches_volume_render(cuda, R, S, masked, view4, bkgd):
+    """Masked and unmasked, S below / above one warp's 32 lanes and not a
+    multiple of them, the MLP's output views read in place, scalar and
+    vector backgrounds."""
+    args = _volrend_case(R, S, cuda, masked=masked, view4=view4)
+    got = kv.volume_render_fused(*args, bkgd=bkgd)
+    again = kv.volume_render_fused(*args, bkgd=bkgd)
+    ref = volume_render(*args, bkgd=bkgd)
+    torch.cuda.synchronize()
+    for k in ("rgb", "opacity", "depth", "weights", "trans_final"):
+        assert got[k].shape == ref[k].shape
+        assert torch.equal(got[k], again[k]), k
+    excess = composite_excess(got, ref, args[1], args[2], bkgd)
+    assert max(excess.values()) <= 1.0, excess
+
+
+def test_volrend_wrapper_counts_launches_and_validates(cuda):
+    sig, rgb, tv, dl, mask = _volrend_case(64, 16, cuda)
+    before = kv.volume_render_fused.launches
+    kv.volume_render_fused(sig, rgb, tv, dl, mask)
+    volume_render(sig, rgb, tv, dl, mask)
+    assert kv.volume_render_fused.launches == before + 1
+    with pytest.raises(ValueError):
+        kv.volume_render_fused(sig, rgb, tv, dl, mask.float())
+    with pytest.raises(ValueError):
+        kv.volume_render_fused(sig, rgb, tv.cpu(), dl, mask)

@@ -241,13 +241,37 @@ def jax_interpret_kernel(monkeypatch):
         jmt.make_fused_train_model_fn, block_rows=128, interpret=True))
 
 
+def jax_refresh(params, grid, key, step, jcfg, pos_mask=None):
+    """The JAX package's counterpart of the port's NeRF grid refresh: its
+    og.update driven by make_fused_density_fn (the density kernel, in
+    interpret mode) with the step's grid key, FreeNeRF mask and hold."""
+    from fsnerf_tpu.ops.pallas.mlp import make_fused_density_fn
+
+    s = jcfg.sampling
+    hold = s.grid_hold_steps
+    if hold < 0:
+        hold = jcfg.encoder.freq_reg_end or 0
+    fn = make_fused_density_fn(
+        params, n_layers=jcfg.model.n_layers, skip=tuple(jcfg.model.skip),
+        n_freqs=jcfg.encoder.n_freqs, interpret=True, pos_mask=pos_mask)
+    return jog.update(grid, fn, key, jnp.asarray(step),
+                      render_step_size=s.render_step_size,
+                      occ_thre=s.occ_thre, ema_decay=s.ema_decay,
+                      warmup_steps=s.warmup_steps,
+                      update_parts=s.update_parts,
+                      update_interval=int(jstep.resolve_update_interval(
+                          s, step)), hold_steps=hold)
+
+
 def test_train_step_matches_jax(jax_interpret_kernel):
     """One whole step from the same state with the JAX step's draws: loss
     within rel 1e-3, every parameter gradient within 2e-2 of its max
-    |JAX gradient|, and the grid after the step's refresh: binarized
+    |JAX gradient|, and the grid after the step's refresh (the density
+    kernel's plain version) against the JAX og.update driven by the
+    density kernel on the JAX step's weights (jax_refresh): binarized
     occupancy equal, the threshold within rel 1e-5 and the EMA values
-    within 1e-7 + 5e-4 * |occ| (why not bitwise: below). Then a 5-step loss
-    trajectory within rel 2e-2."""
+    within 1e-7 + 1e-2 * |occ| (why not bitwise: below). Then a 5-step
+    loss trajectory within rel 2e-2."""
     sections = dict(
         encoder=dict(n_freqs=4, n_freqs_views=2),
         model=dict(n_layers=4, d_filter=64, skip=(2,), fused_kernel=True),
@@ -285,8 +309,11 @@ def test_train_step_matches_jax(jax_interpret_kernel):
     batch = jpool.sample(k_batch, 64)
     (jl, _), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         js.params, batch, js.grid, k_render, js.step)
+    k_grid = jax.random.split(js.key, 4)[3]
+    grid0 = js.grid
     js, jm = jfn(js)
     ts, tm = tfn(ts, draws=draws)
+    jgrid = jax_refresh(js.params, grid0, k_grid, 0, jcfg)
     assert abs(float(tm["loss"]) - float(jl)) / float(jl) < 1e-3
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-3)
@@ -297,19 +324,19 @@ def test_train_step_matches_jax(jax_interpret_kernel):
                                                       + 1e-12)
         assert err < 2e-2, (name, err)
     np.testing.assert_array_equal(ts.grid.binaries.numpy(),
-                                  np.asarray(js.grid.binaries))
-    # Not bitwise: with the same weights and points, the float32 NeRF of
-    # XLA and of torch sum in another order (sigma differed by up to 8.9e-8
-    # of a max 0.36, at 2,169 of 4,096 points), and after Adam's first step
-    # 21,219 weights differed by up to 1.4e-4 (Adam moves a weight by +-lr
-    # whatever the size of its gradient, so a gradient within rounding of
-    # zero can move it either way). Largest differences read on the CPU:
-    # thre 3.9e-6 relative; occs 2.9e-7 absolute, and every |difference|
-    # within 1e-7 + 1.9e-4 * |occ|.
-    np.testing.assert_allclose(ts.grid.thre.item(), float(js.grid.thre),
+                                  np.asarray(jgrid.binaries))
+    # Not bitwise: the density kernel rounds the encodings and every trunk
+    # activation to bf16, so a float32 sin or matmul that rounds one ulp
+    # apart in XLA and in torch flips a bf16 rounding, which moves a
+    # density by up to 2^-8 of one term (the same read on the CPU with the
+    # port's weights on both sides); and after Adam's first step 21,219
+    # weights differed by up to 1.4e-4 (Adam moves a weight by +-lr
+    # whatever the size of its gradient). Largest differences read on the
+    # CPU: thre 1.4e-6 relative; occs 1.0e-5 absolute, 4.7e-3 relative.
+    np.testing.assert_allclose(ts.grid.thre.item(), float(jgrid.thre),
                                rtol=1e-5)
-    np.testing.assert_allclose(ts.grid.occs.numpy(), np.asarray(js.grid.occs),
-                               rtol=5e-4, atol=1e-7)
+    np.testing.assert_allclose(ts.grid.occs.numpy(), np.asarray(jgrid.occs),
+                               rtol=1e-2, atol=1e-7)
     assert ts.step == int(js.step) == 1
 
     # steps 1..4: the loss trajectory

@@ -118,3 +118,30 @@ def mse_cotangent(out, target):
     """d/d out of mean((out - target)^2): the cotangent a loss hands the
     MLP's backward."""
     return (2.0 * (out - target) / out.numel()).contiguous()
+
+
+def composite_excess(got, want, rgbs, t_vals, bkgd=0.0, rtol=1e-5,
+                     atol=1e-6):
+    """Per output of a compositing (rgb, opacity, depth, weights,
+    trans_final), the largest |got - want| / (atol + rtol * scale); 1 or
+    less passes. The elementwise outputs (weights, trans_final) scale by
+    |want|. The sums over a ray's samples (rgb, opacity, depth) scale by
+    the sum of their terms' magnitudes (sum |w| |rgb| + |T bkgd|, sum |w|,
+    sum |w| |t|): adding the same terms in another order moves a sum by
+    rounding errors of that size, and with a raw density head (negative
+    sigmas make weights of either sign) a sum can cancel to far below
+    it."""
+    def np_(a):
+        return np.asarray(a.detach().cpu() if hasattr(a, "detach") else a,
+                          np.float64)
+
+    w, tf = np.abs(np_(want["weights"])), np.abs(np_(want["trans_final"]))
+    rgb, tv = np.abs(np_(rgbs)), np.abs(np_(t_vals))
+    scales = {
+        "rgb": np.einsum("rs,rsc->rc", w, rgb)
+        + tf[:, None] * np.abs(np.asarray(bkgd, np.float64)),
+        "opacity": w.sum(-1), "depth": (w * tv).sum(-1),
+        "weights": w, "trans_final": tf}
+    return {k: float((np.abs(np_(got[k]) - np_(want[k]))
+                      / (atol + rtol * sc)).max())
+            for k, sc in scales.items()}
