@@ -221,7 +221,7 @@ def march_inputs(cfg, grid, split, dev):
 
     s = cfg.sampling
     eval_k = cli.derive_eval_n_compact(grid, split, cfg, dev)
-    q_stride = og.resolve_query_stride(s, split.aabb)
+    q_stride = og.grid_query_stride(s, split.aabb, grid)
     pose = torch.as_tensor(split.poses[0], dtype=torch.float32, device=dev)
     ro, rd = (a.reshape(-1, 3) for a in get_rays(pose, split.hwf))
     with torch.no_grad():
@@ -1449,7 +1449,7 @@ def main():
     path_split = cli.Split(
         np.stack([render_sphere_image(p, scene.hwf)[0] for p in path]), path,
         scene.hwf, scene.near, scene.far, False, scene.aabb, True)
-    q_stride = og.resolve_query_stride(s, scene.aabb)
+    q_stride = og.grid_query_stride(s, scene.aabb, grid)
     kr.ray_march.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -6,8 +6,8 @@ device-resident ray pool and a seeded NeRF (or SiNeRF), trains it for
 `--n_iters` steps (train/loop.py; the MLP through the fused train kernels
 on a CUDA device), then renders held-out views of the scene and prints
 PSNR/SSIM and the training rates as one JSON line. occgrid renders them
-through the fused ray-march kernel on the conservative view of the trained
-grid; hierarchical runs the coarse pass through the fused forward MLP
+through the fused ray-march kernel on the trained grid, as the reference
+does, at the query stride that grid admits; hierarchical runs the coarse pass through the fused forward MLP
 (ops/kernels/mlp.py) and the fine pass through the ray march over the
 sorted coarse-and-fine union (`--no_fused_render`: through the forward MLP
 too).
@@ -168,7 +168,7 @@ def derive_eval_n_compact(grid, split: Split, cfg, device=None) -> int:
                and k_max > COMPACT_STEP)
     if not enabled or len(split.poses) == 0:
         return s.n_compact
-    q_stride = og.resolve_query_stride(s, split.aabb)
+    q_stride = og.grid_query_stride(s, split.aabb, grid)
     n_probe = min(3, len(split.poses))
     probe_idx = [int(i * len(split.poses) / n_probe) for i in range(n_probe)]
     k = COMPACT_STEP
@@ -236,7 +236,7 @@ def render_val_view(model, cfg, grid, split: Split, step: int, device=None):
         render_step_size=s.render_step_size, ndc=split.ndc,
         white_bkgd=split.white_bkgd, chunksize=2 * cfg.train.batch_size,
         n_compact=s.n_compact, early_stop_eps=s.early_stop_eps,
-        query_stride=og.resolve_query_stride(s, split.aabb),
+        query_stride=og.grid_query_stride(s, split.aabb, grid),
         composite_fn=make_composite_fn(cfg, device))
     return img
 
@@ -267,7 +267,7 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
     from .render.renderer import make_chunk_renderer, render_frame
 
     s = cfg.sampling
-    q_stride = og.resolve_query_stride(s, split.aabb)
+    q_stride = og.grid_query_stride(s, split.aabb, grid)
     eval_k = derive_eval_n_compact(grid, split, cfg, device)
     model_fn = make_render_model_fn(model, cfg, device=device)
     chunk_renderer = make_chunk_renderer(
@@ -521,8 +521,8 @@ def main(argv=None) -> int:
     else:
         state, held_out, numbers = run_training(model, cfg, args.hw, device,
                                                 args.out_dir)
-        metrics, _ = evaluate_split(model, og.conservative(state.grid),
-                                    held_out, cfg, device=device)
+        metrics, _ = evaluate_split(model, state.grid, held_out, cfg,
+                                    device=device)
         metrics.update(numbers)
     metrics["device"] = (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")

@@ -252,10 +252,12 @@ def test_val_render_matches_jax_val_chunk():
     split = cli.split_of(view)
     params = nerf_params_np(24)
     jmodel = jmake_model(jcfg)
-    jgrid = jog.update(jog.create(jnp.asarray(AABB), 16), sphere_density_jax,
-                       None, jnp.asarray(0))
-    grid = og.update(og.create(AABB, 16), sphere_density_torch, 0)
     s = jcfg.sampling
+    # the live grid: its tables at the plan's dilation, as training keeps it
+    _, dil = jog.resolve_query_plan(s, view.aabb)
+    jgrid = jog.update(jog.create(jnp.asarray(AABB), 16, 1, dil),
+                       sphere_density_jax, None, jnp.asarray(0))
+    grid = og.update(og.create(AABB, 16, 1, dil), sphere_density_torch, 0)
     pm, dm = jstep.make_masks(jcfg, jnp.asarray(MID_ANNEAL))
 
     def model_fn(x, d=None):

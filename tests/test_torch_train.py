@@ -395,16 +395,18 @@ def test_resolve_fused_kernel_by_device():
 
 def test_cli_trains_and_evaluates_small(capsys):
     """The training main path end to end at a tiny size on the CPU: train,
-    then render held-out views through the ray march's plain version."""
+    then render held-out views through the ray march's plain version. The
+    eval composites the live grid, dilated by a cell at this size as the
+    reference's is, so the model trains long enough to be more than fog."""
     rc = cli.main(["--dataset", "sphere", "--device", "cpu", "--hw", "12",
                    "--n_imgs", "3", "--n_layers", "3", "--d_filter", "32",
                    "--skip", "1", "--n_freqs", "3", "--n_freqs_views", "2",
                    "--grid_resolution", "8", "--n_samples", "32",
                    "--n_compact", "32", "--render_step_size", "0.2",
-                   "--n_iters", "12", "--batch_size", "32", "--fused_kernel",
+                   "--n_iters", "150", "--batch_size", "32", "--fused_kernel",
                    "--white_bkgd"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["steps"] == 12 and out["device"] == "cpu"
+    assert out["steps"] == 150 and out["device"] == "cpu"
     assert np.isfinite(out["psnr"]) and 0.0 < out["ssim"] <= 1.0
     assert out["rays_per_sec"] > 0 and out["eval_k"] % 16 == 0
