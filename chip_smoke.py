@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
      1e-3, sigma within 1e-2 of max |sigma|, every weight and bias gradient
      within 1e-2 of its max |plain gradient|, two kernel runs bitwise equal,
      saved-activations and recompute backwards bitwise equal; CUDA-event
-     times of both, kernel and plain;
+     times of both, kernel and plain, and the backward's three launches
+     (row pass, weight-gradient pass, reduce) from torch.profiler's kernel
+     events;
   6. the training slice: train() from seeded weights on an 8-view 128x128
      SphereScene with the default sampling, then the held-out views through
      the ray march on the trained grid, with the three kernels' launch
@@ -57,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught):
      activations and recompute, each against its plain version), the two
      modes within 1e-2 of each other's max, two runs bitwise equal in each
      mode; CUDA-event times of the kernels, the plain versions and the bf16
-     SiNeRF module (forward, and its backward by autograd);
+     SiNeRF module (forward, and its backward by autograd), and the saved
+     mode's three backward launches from torch.profiler;
  11. the SIREN ray march vs its plain version on the 16,384 rays of a
      128x128 held-out SphereScene view, a grid rebuilt from a seeded
      SiNeRF's densities, the eval K and the depth-coherence sort, in a
@@ -106,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught):
      functions), one JSON line describing each kernel with its bound (the
      larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
      bf16, or 67 TFLOP/s in float32 for the compositing kernel, from this
-     run's shapes and executed work), then the device line.
+     run's shapes and executed work; the two train backwards also with the
+     ms of each launch, `parts_ms`), then the device line.
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
@@ -264,8 +268,52 @@ def in_turns(plain, kernel, plain_reps=3, kernel_reps=10):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def train_kernels(cfg, dev, card):
-    """Phase 5: the train kernels vs their plain versions at full width."""
+# the launches of each train backward, in order (csrc/mlp_train.cu,
+# csrc/siren.cu and their shared weight-gradient pass, train_common.cuh)
+NERF_BWD_PARTS = ("mlp_train_bwd_rows_kernel", "dw_gemm_kernel",
+                  "dw_reduce_kernel")
+SIREN_BWD_PARTS = ("siren_bwd_rows_kernel", "dw_gemm_kernel",
+                   "dw_reduce_kernel")
+
+
+def kernel_split_ms(fn, names, calls: int = 5) -> dict:
+    """Device ms per call of fn in each of the kernels `names`, from the
+    kernel events of a torch.profiler trace over `calls` calls (after one
+    untimed call). Fails if a named kernel left no event."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    ms = dict.fromkeys(names, 0.0)
+    seen = set()
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        for name in names:
+            if name in e["name"]:
+                ms[name] += e["dur"] / 1e3 / calls
+                seen.add(name)
+                break
+    if seen != set(names):
+        fail(f"the profiler saw no kernel events of {set(names) - seen}")
+    return ms
+
+
+def train_kernels(cfg, dev, card, bwd_parts=NERF_BWD_PARTS):
+    """Phase 5: the train kernels vs their plain versions at full width,
+    and the device time of each of the backward's launches."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
@@ -324,11 +372,12 @@ def train_kernels(cfg, dev, card):
     fwd_bound = bound(2.0 * mlp_macs(cfg) * n,
                       nbytes(x, d, *weights, out, acts))
     bwd_bound = bound(2.0 * bwd_macs(cfg) * n,
-                      nbytes(x, d, dout, acts, *weights, params.wtpack,
-                             *saved))
+                      nbytes(x, d, dout, acts, *weights, *saved))
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: mt.mlp_train_bwd_reference(x, d, dout, params, acts),
         lambda: mt.mlp_train_bwd(x, d, dout, params, acts))
+    parts = kernel_split_ms(lambda: mt.mlp_train_bwd(x, d, dout, params, acts),
+                            bwd_parts)
     print(f"train kernels at {n} rows on {card}: forward max abs err rgb "
           f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| "
           f"{sig_scale:.3e}); gradients worst {worst[0]} at {worst[1]:.3e} "
@@ -336,10 +385,12 @@ def train_kernels(cfg, dev, card):
           f"saved == recompute; forward {fwd_ms:.3f} ms (plain "
           f"{fwd_plain_ms:.3f}), backward {bwd_ms:.3f} ms (plain "
           f"{bwd_plain_ms:.3f})")
+    print("train backward's launches (profiler, saved activations): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
                  plain_ms=fwd_plain_ms, **fwd_bound),
             dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
-                 **bwd_bound))
+                 parts_ms=parts, **bwd_bound))
 
 
 class ListLogger:
@@ -762,9 +813,10 @@ def siren_bwd_macs(L: int, W: int) -> int:
     return 2 * heads + dx + 3 * W + (L - 1) * W * W
 
 
-def siren_kernels(cfg, dev, card):
+def siren_kernels(cfg, dev, card, bwd_parts=SIREN_BWD_PARTS):
     """Phase 10: the SIREN train kernels vs their plain versions at full
-    width, both backward modes. Returns the report's numbers of each."""
+    width, both backward modes, and the device time of each of the saved
+    mode's backward launches. Returns the report's numbers of each."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
@@ -837,6 +889,8 @@ def siren_kernels(cfg, dev, card):
         lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
     rec_ms = cuda_ms(lambda: ks.siren_mlp_bwd(xp, dp, dout, params, None),
                      10)
+    parts = kernel_split_ms(lambda: ks.siren_mlp_bwd(xp, dp, dout, params,
+                                                     acts), bwd_parts)
     weights = (params.wpack, params.bpack, params.alphas)
     fwd_bound = bound(2.0 * siren_macs(L, W) * n,
                       nbytes(xp, dp, *weights, out, acts))
@@ -859,10 +913,12 @@ def siren_kernels(cfg, dev, card):
           f"recompute {rec_ms:.3f} ms; bf16 SiNeRF module forward "
           f"{module_fwd_ms:.3f} ms, its autograd backward "
           f"{module_bwd_ms:.3f} ms")
+    print("SIREN backward's launches (profiler, saved activations): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
                  plain_ms=fwd_plain_ms, **fwd_bound),
             dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
-                 **bwd_bound),
+                 parts_ms=parts, **bwd_bound),
             {"siren_mlp_fwd": module_fwd_ms, "siren_mlp_bwd": module_bwd_ms})
 
 

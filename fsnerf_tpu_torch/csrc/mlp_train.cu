@@ -5,16 +5,22 @@
 // Replaces fsnerf_tpu/ops/pallas/mlp_train.py::make_fused_train_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (the forward, kernel
 // mlp_train_fwd_kernel here) and bwd_call (the backward, the three kernels
-// mlp_train_bwd_rows_kernel here, then dw_tiles_kernel and dw_reduce_kernel
+// mlp_train_bwd_rows_kernel here, then dw_gemm_kernel and dw_reduce_kernel
 // of train_common.cuh). Plain PyTorch twins:
 // fsnerf_tpu_torch/ops/kernels/mlp_train.py::mlp_train_fwd_reference /
 // mlp_train_bwd_reference.
 //
-// What bounds them on this card: the GEMMs. A sample costs ~1.2 MFLOP
-// forward and ~2.4 MFLOP backward (the head recompute, the input-cotangent
-// products and the weight-gradient products) against ~10 KB of HBM traffic
-// per sample in the backward, so all of it is compute-bound; the tensor
-// cores run mma.sync m16n8k16 bf16 with f32 accumulation, as the ray march.
+// What bounds them on this card. A sample costs ~1.2 MFLOP forward and
+// ~2.5 MFLOP backward (the head recompute, the input-cotangent products and
+// the weight-gradient products) against ~10 KB of HBM traffic per sample
+// in the backward (acts read, the scratch operands written and read back):
+// at the main path's 196,608 rows the backward's ~2 GB of scratch traffic
+// (~0.6 ms at 3.35 TB/s) weighs as much as its operations. The forward and
+// the heads' recompute run mma.sync m16n8k16 (mlp_common.cuh::gemm); the
+// backward's input-cotangent products run wgmma.m64n128k16 with A from
+// registers and the weights streamed by cp.async into 128B-swizzled tiles
+// (cotangent_gemm), and its weight gradients wgmma fed by TMA
+// (train_common.cuh::dw_gemm_kernel).
 //
 // What the design does about the TPU kernels' sequential grid. The Pallas
 // backward keeps every weight-gradient block resident in VMEM across a
@@ -24,14 +30,16 @@
 //   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA): encodes
 //      the inputs, takes the trunk activations from the forward's stream
 //      (saved mode) or recomputes them and writes that stream itself
-//      (recompute mode), recomputes the heads, and walks the layers back.
-//      It writes every GEMM operand a weight gradient needs to HBM as bf16
-//      (the encodings, feat, branch activation and each layer's bf16
-//      cotangent) and each CTA's column sums of the f32 cotangents (the
-//      bias-gradient partials).
-//   2. dw_tiles_kernel: dW = X^T dY for every weight matrix, one CTA per
-//      (64 x 64 output tile, split of rows), the rows of its split in a
-//      fixed order; each split writes its own f32 partial.
+//      (recompute mode), recomputes the heads, and walks the layers back,
+//      each layer's activations prefetched by cp.async while the tensor
+//      cores run its cotangent product. It writes every GEMM operand a
+//      weight gradient needs to HBM as bf16 (the encodings, feat, branch
+//      activation and each layer's bf16 cotangent) and each CTA's column
+//      sums of the f32 cotangents (the bias-gradient partials).
+//   2. dw_gemm_kernel: dW = X^T dY for every weight matrix on wgmma fed by
+//      TMA, one CTA per (128 x 256 output tile, split of rows), the rows
+//      of its split in a fixed order; each split writes its own f32
+//      partial.
 //   3. dw_reduce_kernel: sums the partials of each gradient in a fixed
 //      order and rounds to bf16, as the TPU kernel's caller does.
 // Nothing is summed in an order that depends on scheduling, so two runs give
@@ -61,7 +69,6 @@ struct TrainArgs {
   const float* d;        // [N, 3] view directions
   const bf16* wpack;     // packed [in, out] weights (ops/kernels/render.py)
   const float* bpack;    // packed biases (bf16-rounded values)
-  const bf16* wtpack;    // [out, in] weights of the input-cotangent products
   const float* enc;      // [2F + 2Fv]: freq_x, mask_x, freq_d, mask_d
   float* out;            // [N, 4] rgb, sigma
   bf16* acts;            // [N_pad, L*W] trunk activations, or null
@@ -85,14 +92,26 @@ __host__ __device__ __forceinline__ size_t trunk_offset(const TrainArgs& a,
   return off;
 }
 
-// Shared-memory carve-up common to the forward and the backward row kernel.
+// The weight staging of gemm() (mlp_common.cuh), and that of the backward's
+// wgmma GEMMs: a ring of kBwdStages tiles of kBwdPassCols weight rows x 64
+// K (128B-swizzled, 1024-byte aligned), which the slabs alias.
+constexpr int kSlabBytes = 2 * kSlabRows * kSlabLd * sizeof(bf16);
+constexpr int kBwdStages = 3;
+constexpr int kBwdPassCols = 128;
+constexpr int kBwdStageBytes = kBwdPassCols * 128;
+constexpr int kBwdSlabBytes = kBwdStages * kBwdStageBytes + 1024;
+
+// Shared-memory carve-up common to the forward and the backward row kernel:
+// the forward stages weights in kSlabBytes and keeps 4 row groups of
+// column sums, the backward kBwdSlabBytes and 8.
 struct Smem {
   bf16 *buf0, *buf1, *encx, *encd, *slabs;
   float *xin, *din, *sig, *rgb, *drgb, *dsig, *colpart;
   int LDH, LDE, LDD;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a) {
+__device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
+                                      int slab_bytes = kSlabBytes) {
   Smem s;
   s.LDH = a.width + kPad;
   s.LDE = a.d_enc_pad + kPad;
@@ -102,21 +121,23 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a) {
   s.encx = s.buf1 + kRows * s.LDH;
   s.encd = s.encx + kRows * s.LDE;
   s.slabs = s.encd + kRows * s.LDD;
-  s.xin = reinterpret_cast<float*>(s.slabs + 2 * kSlabRows * kSlabLd);
+  s.xin = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
+                                   slab_bytes);
   s.din = s.xin + 3 * kRows;
   s.sig = s.din + 3 * kRows;
   s.rgb = s.sig + kRows;
   s.drgb = s.rgb + 3 * kRows;
   s.dsig = s.drgb + 3 * kRows;
-  s.colpart = s.dsig + kRows;              // [4][width]
+  s.colpart = s.dsig + kRows;              // [row groups][width]
   return s;
 }
 
-size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad) {
-  return sizeof(bf16) * ((size_t)kRows * (2 * width + d_enc_pad + d_dir_pad +
-                                          4 * kPad) +
-                         2 * kSlabRows * kSlabLd) +
-         sizeof(float) * (14 * kRows + 4 * (size_t)width);
+size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad,
+                  int slab_bytes = kSlabBytes, int col_groups = 4) {
+  return sizeof(bf16) * (size_t)kRows * (2 * width + d_enc_pad + d_dir_pad +
+                                         4 * kPad) +
+         slab_bytes +
+         sizeof(float) * (14 * kRows + (size_t)col_groups * width);
 }
 
 // Rows r0 .. r0+127 of x and d into shared memory (zeros past N), then
@@ -250,52 +271,172 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The backward layer epilogue: v = acc (+ dsig[row] * w_sigma[col]),
-// v = 0 where the activation already in C is not > 0 (ReLU'), C = bf16(v)
-// in place, and this warp's column sums of the f32 v into
-// colpart[warp row group][col] (fixed-order adds and shuffles).
-struct CotangentEpi {
+// Where a cotangent GEMM's epilogue writes: C (in shared memory, row
+// stride ldc) = bf16(v), v = acc (+ dsig[row] * w_sigma[col]), v = 0 where
+// the activation prefetched into C is not > 0 (ReLU', when masked), and
+// each warp's column sums of the f32 v over its 16 rows into
+// colpart[warp][col].
+struct CotangentOut {
   bf16* C;
   int ldc;
-  bool mask;
+  const bf16* acts;        // C's layer's first activation column (of
+  int acts_ld;             // acts [., acts_ld]): ReLU'; null: none
   const float* dsig;       // null: no rank-1 term
   const bf16* w_sigma;
-  float* colpart;
-  int width;
-  __device__ __forceinline__ void operator()(int row, int col,
-                                             const float (&c)[2][4]) const {
+  float* colpart;          // [8][width]
+};
+
+__device__ __forceinline__ void cotangent_epilogue(const CotangentOut& o,
+                                                   const float (&acc)[64],
+                                                   int n0, int N,
+                                                   int width) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane >> 2);
+  float ds[2] = {0.f, 0.f};
+  if (o.dsig) {
+    ds[0] = o.dsig[row];
+    ds[1] = o.dsig[row + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < kBwdPassCols / 8; ++j) {
+    if (n0 + 8 * j >= N) break;            // the same for the whole warp
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    float w0 = 0.f, w1 = 0.f;
+    if (o.dsig) {
+      w0 = __bfloat162float(o.w_sigma[col]);
+      w1 = __bfloat162float(o.w_sigma[col + 1]);
+    }
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (o.dsig) {
+        v0 += ds[h] * w0;
+        v1 += ds[h] * w1;
+      }
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+          o.C + (row + 8 * h) * o.ldc + col);
+      if (o.acts) {
+        const __nv_bfloat162 hv = *p;
+        if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
+        if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
+      }
+      *p = __floats2bfloat162_rn(v0, v1);
+      s0 += v0;
+      s1 += v1;
+    }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row + 16 * i + 8 * h;
-        float v0 = c[i][2 * h], v1 = c[i][2 * h + 1];
-        if (dsig) {
-          const float ds = dsig[r];
-          v0 += ds * __bfloat162float(w_sigma[col]);
-          v1 += ds * __bfloat162float(w_sigma[col + 1]);
-        }
-        __nv_bfloat162* p =
-            reinterpret_cast<__nv_bfloat162*>(C + r * ldc + col);
-        if (mask) {
-          const __nv_bfloat162 hv = *p;
-          if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
-          if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
-        }
-        *p = __floats2bfloat162_rn(v0, v1);
-        s0 += v0;
-        s1 += v1;
+    for (int m = 4; m < 32; m <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+    }
+    if (lane < 4) {
+      o.colpart[warp * width + col] = s0;
+      o.colpart[warp * width + col + 1] = s1;
+    }
+  }
+}
+
+// KS k16 steps of a cotangent GEMM: this warp's A fragments from shared
+// memory at ap (ldmatrix), then the warpgroup's wgmma on the weight tile at
+// shared address b; returns when they have completed.
+template <int KS>
+__device__ __forceinline__ void cotangent_stage(float (&acc)[64],
+                                                const bf16* ap, uint32_t b) {
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], ap + 16 * kk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs(acc, a[kk], sw128_desc(b + 32 * kk, 16, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) fence_regs(a[kk]);
+}
+
+// An input-cotangent product of the backward on the tensor cores:
+// C[kRows, :N] = epilogue(A[kRows, :K] @ B^T), A the bf16 cotangent tile in
+// shared memory (row stride lda), B [N, K] a weight matrix of wpack read
+// K-major (its [in, out] rows, row stride ldb = K). Each warpgroup owns 64
+// rows and runs wgmma.m64n128k16 per 128 output columns, its A fragments
+// loaded by ldmatrix (the register-A layout), B streamed by cp.async
+// through a ring of kBwdStages 128B-swizzled tiles of 64 K. With o.acts,
+// C's rows of this layer's activations are copied into C by cp.async at
+// the start, for the epilogue's ReLU'. Ends with a barrier; then
+// colpart holds the column sums of every output column.
+__device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
+                               int N, int r0, int width,
+                               const CotangentOut& o, unsigned char* ring) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (o.acts) {
+    const int per_row = N / 8;
+    for (int e = tid; e < kRows * per_row; e += kThreads) {
+      const int row = e / per_row, c8 = (e - row * per_row) * 8;
+      cp_async_16(o.C + row * o.ldc + c8,
+                  o.acts + (size_t)(r0 + row) * o.acts_ld + c8, true);
+    }
+  }
+  cp_async_commit();
+  const int nk = (K + 63) / 64;
+  const bf16* ap = A + (16 * warp + (lane & 15)) * lda + (lane >> 4) * 8;
+  for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
+    // stage kc: rows n0 .. n0 + 127 of B, K columns 64 kc .. 64 kc + 63
+    auto load = [&](int kc) {
+      unsigned char* tile = ring + (kc % kBwdStages) * kBwdStageBytes;
+      for (int q = tid; q < kBwdPassCols * 8; q += kThreads) {
+        const int n = q >> 3, c = q & 7, k = kc * 64 + c * 8;
+        const bool ok = n0 + n < N && k < K;
+        cp_async_16(tile + n * 128 + (((c ^ n) & 7) << 4),
+                    ok ? B + (size_t)(n0 + n) * K + k : B, ok);
+      }
+    };
+#pragma unroll
+    for (int st = 0; st < kBwdStages - 1; ++st) {
+      if (st < nk) load(st);
+      cp_async_commit();
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kc = 0; kc < nk; ++kc) {
+      cp_async_wait<kBwdStages - 2>();     // stage kc (and the acts) landed
+      fence_proxy_async();                 // ... visible to the tensor cores
+      __syncthreads();                     // for every thread's copies
+      if (kc + kBwdStages - 1 < nk) load(kc + kBwdStages - 1);
+      cp_async_commit();
+      const uint32_t tile = smem_u32(ring + (kc % kBwdStages) *
+                                               kBwdStageBytes);
+      if (kc * 64 + 64 <= K) {
+        cotangent_stage<4>(acc, ap + kc * 64, tile);
+      } else {                             // a last stage of 16 or 48 K
+        for (int kk = 0; kc * 64 + 16 * kk < K; ++kk)
+          cotangent_stage<1>(acc, ap + kc * 64 + 16 * kk, tile + 32 * kk);
       }
     }
-    warp_colsums(s0, s1, colpart, width, col);
+    fence_regs(acc);
+    cotangent_epilogue(o, acc, n0, N, width);
   }
-};
+  __syncthreads();
+}
+
+// pb[off : off + n] = the eight row groups' column sums, in order.
+__device__ __forceinline__ void store_colsums8(const float* colpart,
+                                               float* pb, int off, int n,
+                                               int width) {
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    float v = colpart[c];
+#pragma unroll
+    for (int g = 1; g < 8; ++g) v += colpart[g * width + c];
+    pb[off + c] = v;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a);
+  const Smem s = carve(smem_raw, a, kBwdSlabBytes);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = a.width, Wh = W / 2, L = a.n_layers;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
@@ -376,38 +517,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   rows_to_global(hl, s.LDH, a.dy, DYW, r0, dy_branch, Wh);
 
   // conn: d feat = d br_b @ w_branch_h^T (feat has no activation)
-  const bf16* wt = a.wtpack;
-  const bf16* wt_conn = wt + (size_t)(L - 1) * W * W;
-  const bf16* wt_bh = wt_conn + (size_t)W * W;
-  const Seg none = {nullptr, 0, nullptr, 0};
-  CotangentEpi epi{other, s.LDH, false, nullptr, nullptr, s.colpart, W};
-  gemm(Seg{hl, s.LDH, wt_bh, Wh}, none, W, s.slabs, epi);
-  __syncthreads();
-  store_colsums(s.colpart, pb, off_conn, W, W);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(s.slabs) + 1023) & ~uintptr_t(1023));
+  const bf16* w_conn = a.wpack + trunk_offset(a, L) + W;
+  cotangent_gemm(hl, s.LDH, Wh, w_conn + (size_t)W * W, W, r0, W,
+                 CotangentOut{other, s.LDH, nullptr, 0, nullptr, nullptr,
+                              s.colpart},
+                 ring);
+  store_colsums8(s.colpart, pb, off_conn, W, W);
   rows_to_global(other, s.LDH, a.dy, DYW, r0, dy_conn, W);
 
   // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
-  // masked by h_{L-1} > 0, which is loaded into the output buffer first
-  rows_from_global(a.acts, LA, r0, (L - 1) * W, hl, s.LDH, W);
-  __syncthreads();
-  epi = CotangentEpi{hl, s.LDH, true, s.dsig,
-                     a.wpack + trunk_offset(a, L), s.colpart, W};
-  gemm(Seg{other, s.LDH, wt_conn, W}, none, W, s.slabs, epi);
-  __syncthreads();
-  store_colsums(s.colpart, pb, (L - 1) * W, W, W);
+  // masked by h_{L-1} > 0, which is prefetched into the output buffer
+  cotangent_gemm(other, s.LDH, W, w_conn, W, r0, W,
+                 CotangentOut{hl, s.LDH, a.acts + (L - 1) * W, LA, s.dsig,
+                              a.wpack + trunk_offset(a, L), s.colpart},
+                 ring);
+  store_colsums8(s.colpart, pb, (L - 1) * W, W, W);
   rows_to_global(hl, s.LDH, a.dy, DYW, r0, (L - 1) * W, W);
 
   // trunk: d h_{i-1} = d h_i_b @ W_i^T (the h part at a skip layer)
   bf16* cur = hl;
   bf16* nxt = other;
   for (int i = L - 1; i >= 1; --i) {
-    rows_from_global(a.acts, LA, r0, (i - 1) * W, nxt, s.LDH, W);
-    __syncthreads();
-    epi = CotangentEpi{nxt, s.LDH, true, nullptr, nullptr, s.colpart, W};
-    gemm(Seg{cur, s.LDH, wt + (size_t)(i - 1) * W * W, W}, none, W, s.slabs,
-         epi);
-    __syncthreads();
-    store_colsums(s.colpart, pb, (i - 1) * W, W, W);
+    cotangent_gemm(cur, s.LDH, W, a.wpack + trunk_offset(a, i), W, r0, W,
+                   CotangentOut{nxt, s.LDH, a.acts + (i - 1) * W, LA,
+                                nullptr, nullptr, s.colpart},
+                   ring);
+    store_colsums8(s.colpart, pb, (i - 1) * W, W, W);
     rows_to_global(nxt, s.LDH, a.dy, DYW, r0, (i - 1) * W, W);
     bf16* t = cur;
     cur = nxt;
@@ -470,11 +607,11 @@ extern "C" int fsnerf_mlp_train_fwd(
 // dw [n_w], db [n_b]: bf16-rounded gradients in the wpack / bpack layouts.
 // acts is read (recompute = 0) or written (recompute = 1); xs, dy, pbias
 // and part are scratch of the shapes documented in TrainArgs and
-// train_common.cuh::dw_tiles_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
+// train_common.cuh::dw_gemm_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
 // 3] int32.
 extern "C" int fsnerf_mlp_train_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
-    const void* bpack, const void* wtpack, const void* enc, void* acts,
+    const void* bpack, const void* enc, void* acts,
     int recompute, void* xs, void* dy, void* pbias, const void* jobs,
     const void* tiles, int n_tiles, void* part, int split_rows, void* dw,
     void* db, int n, int n_layers, int skip_mask, int width, int n_freqs,
@@ -483,7 +620,6 @@ extern "C" int fsnerf_mlp_train_bwd(
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
-  a.wtpack = static_cast<const bf16*>(wtpack);
   a.acts = static_cast<bf16*>(acts);
   a.dout = static_cast<const float*>(dout);
   a.xs = static_cast<bf16*>(xs);
@@ -493,7 +629,8 @@ extern "C" int fsnerf_mlp_train_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad);
+  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, kBwdSlabBytes,
+                                 8);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_train_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -514,4 +651,24 @@ extern "C" int fsnerf_mlp_train_bwd(
       static_cast<float*>(part), n_w, split_rows,
       static_cast<const float*>(pbias), n_blocks, n_b, 1,
       static_cast<float*>(dw), static_cast<float*>(db), st));
+}
+
+// The weight-gradient pass alone (the backward's last two launches) over
+// operands already in device memory: dw [n_w] = bf16(sum over splits of
+// X^T dY) for each job, X from acts [n_rows, ld_acts] or xs [n_rows,
+// ld_xs], dY from dy [n_rows, ld_dy]; n_rows a multiple of 128, part
+// [ceil(n_rows / split_rows), n_w] f32 scratch.
+extern "C" int fsnerf_dw_pass(const void* acts, int ld_acts, const void* xs,
+                              int ld_xs, const void* dy, int ld_dy,
+                              int n_rows, const void* jobs, const void* tiles,
+                              int n_tiles, void* part, int n_w,
+                              int split_rows, void* dw, void* stream) {
+  using namespace fsnerf;
+  return static_cast<int>(launch_dw(
+      static_cast<const bf16*>(acts), ld_acts, static_cast<const bf16*>(xs),
+      ld_xs, static_cast<const bf16*>(dy), ld_dy,
+      static_cast<const int*>(tiles), n_tiles, static_cast<const int*>(jobs),
+      static_cast<float*>(part), n_w, split_rows, nullptr, n_rows / kRows, 0,
+      1, static_cast<float*>(dw), nullptr,
+      static_cast<cudaStream_t>(stream)));
 }

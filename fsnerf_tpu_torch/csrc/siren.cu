@@ -6,7 +6,7 @@
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
 // siren_fwd_kernel) and bwd_call (kernel 8; here siren_bwd_rows_kernel,
-// then dw_tiles_kernel and dw_reduce_kernel of train_common.cuh). Plain
+// then dw_gemm_kernel and dw_reduce_kernel of train_common.cuh). Plain
 // PyTorch twins: fsnerf_tpu_torch/ops/kernels/siren.py::
 // siren_mlp_fwd_reference / siren_mlp_bwd_reference.
 //
@@ -409,7 +409,7 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
 // Recompute mode (cfs given): acts [n_pad, lda = L W] bf16 and cfs [n_pad,
 // L W] f32 are scratch the row pass writes. xs, dy, pbias and part are
 // scratch of the shapes documented in SirenTrainArgs and
-// train_common.cuh::dw_tiles_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
+// train_common.cuh::dw_gemm_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
 // 3] int32 (ops/kernels/siren.py::dw_jobs).
 extern "C" int fsnerf_siren_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,

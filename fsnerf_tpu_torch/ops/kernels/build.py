@@ -33,7 +33,7 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu", "siren.cu",
            "volrend.cu")
 HEADERS = ("fastmath.cuh", "mlp_common.cuh", "siren_common.cuh",
-           "train_common.cuh")
+           "train_common.cuh", "wgmma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,8 +118,11 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
     lib.fsnerf_mlp_train_fwd.restype = i
     lib.fsnerf_mlp_train_bwd.argtypes = (
-        [vp] * 8 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 8 + [vp])
+        [vp] * 7 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 8 + [vp])
     lib.fsnerf_mlp_train_bwd.restype = i
+    lib.fsnerf_dw_pass.argtypes = [vp, i, vp, i, vp, i, i, vp, vp, i, vp, i,
+                                   i, vp, vp]
+    lib.fsnerf_dw_pass.restype = i
     lib.fsnerf_siren_ray_march.argtypes = [vp] * 10 + [i] * 6 + [f, vp]
     lib.fsnerf_siren_ray_march.restype = i
     lib.fsnerf_siren_fwd.argtypes = [vp] * 7 + [i] * 3 + [vp]

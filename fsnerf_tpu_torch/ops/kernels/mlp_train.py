@@ -29,8 +29,10 @@ from .render import (_bf16, _round_up, enc_table, encode, heads_forward,
                      pack_weights, trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
-DW_TILE = 64            # weight-gradient output tile and row chunk
-SPLIT_ROWS = 8192       # rows per weight-gradient split, a multiple of DW_TILE
+# weight-gradient output tile: input dims x output dims
+# (csrc/train_common.cuh kDwTileM, kDwTileN), rows per pipeline stage (kDwBk)
+DW_TILE_M, DW_TILE_N, DW_BK = 128, 256, 64
+SPLIT_ROWS = 8192       # rows per weight-gradient split, a multiple of DW_BK
 
 
 @dataclass(frozen=True)
@@ -119,14 +121,12 @@ class TrainLayout:
 @dataclass(frozen=True)
 class TrainParams:
     """Weights packed for the train kernels: wpack / bpack as
-    render.py::pack_weights; wtpack (bf16) the [out, in] matrices of the
-    input-cotangent products: the h part of trunk layers 1..L-1, then
-    connection, then the h part of branch; enc the band table of
+    render.py::pack_weights (the backward reads wpack's [in, out] matrices
+    K-major for its input-cotangent products); enc the band table of
     render.py::enc_table."""
 
     wpack: torch.Tensor
     bpack: torch.Tensor
-    wtpack: torch.Tensor
     enc: torch.Tensor
     layout: TrainLayout
 
@@ -138,13 +138,7 @@ def pack_train_params(state_dict: Dict[str, torch.Tensor],
         sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
         wpack, bpack = pack_weights(sd, layout.n_layers, layout.skip,
                                     layout.de, layout.dd)
-        W = layout.width
-        wt = [sd[f"layers.{i}.weight"][:, :W].reshape(-1)
-              for i in range(1, layout.n_layers)]
-        wt += [sd["connection.weight"].reshape(-1),
-               sd["branch.weight"][:, :W].reshape(-1)]
-        wtpack = torch.cat(wt).to(torch.bfloat16).contiguous()
-    return TrainParams(wpack, bpack, wtpack, enc, layout)
+    return TrainParams(wpack, bpack, enc, layout)
 
 
 def _encodings(x, d, p: TrainParams):
@@ -177,15 +171,12 @@ def mlp_train_fwd_reference(x, d, params: TrainParams,
     return torch.cat([rgb, sigma], dim=-1), acts
 
 
-def mlp_train_bwd_reference(x, d, dout, params: TrainParams, acts=None):
-    """Plain PyTorch version of the train backward kernels, step for step
-    as fsnerf_tpu/ops/pallas/mlp_train.py::_bwd_grads: each cotangent is
+def _bwd_terms(x, d, dout, params: TrainParams, acts=None):
+    """The backward's operands and cotangents, step for step as
+    fsnerf_tpu/ops/pallas/mlp_train.py::_bwd_grads: each cotangent is
     rounded to bf16 before it enters a product, ReLU' is the bf16
-    activation > 0, bias gradients are column sums of the f32 cotangents.
-
-    Args: x, d [N, 3]; dout [N, 4] float32; acts from the forward (None =
-    recompute the trunk). Returns (dw [n_w], db [n_b]) float32 holding
-    bf16-rounded values, packed as wpack / bpack."""
+    activation > 0. Returns a dict of them; dh / dh_b [layer] are the
+    trunk's masked f32 cotangents and their bf16 roundings."""
     lay = params.layout
     W = lay.width
     ex, ed = _encodings(x, d, params)
@@ -195,8 +186,7 @@ def mlp_train_bwd_reference(x, d, dout, params: TrainParams, acts=None):
     else:
         hs = [acts[:, i * W:(i + 1) * W].to(torch.float32)
               for i in range(lay.n_layers)]
-    h = hs[-1]
-    feat, br, rgb = heads_forward(h, ed, hd)
+    feat, br, rgb = heads_forward(hs[-1], ed, hd)
     dout = dout.to(torch.float32)
 
     drgb = dout[:, :3] * rgb * (1.0 - rgb)
@@ -207,28 +197,68 @@ def mlp_train_bwd_reference(x, d, dout, params: TrainParams, acts=None):
     dfeat_b = _bf16(dfeat)
     dsig = dout[:, 3:4]
     dsig_b = _bf16(dsig)
-    heads_w = [h.t() @ dsig_b, h.t() @ dfeat_b, feat.t() @ dbr_b,
-               ed.t() @ dbr_b, br.t() @ drgb_b]
-    heads_b = [dsig.sum(0), dfeat.sum(0), dbr.sum(0), drgb.sum(0)]
-
+    dh_all, dh_b_all = [None] * lay.n_layers, [None] * lay.n_layers
     dh = dfeat_b @ hd["conn"].t() + dsig_b @ hd["sigma"].t()
-    g_trunk, b_grads = [None] * lay.n_layers, [None] * lay.n_layers
     for i in range(lay.n_layers - 1, -1, -1):
         dh = torch.where(hs[i] > 0, dh, 0.0)
-        dh_b = _bf16(dh)
-        b_grads[i] = dh.sum(0)
-        ws = trunk[i]
+        dh_all[i], dh_b_all[i] = dh, _bf16(dh)
+        if i > 0:
+            dh = dh_b_all[i] @ trunk[i][0].t()
+    return dict(ex=ex, ed=ed, hs=hs, feat=feat, br=br, drgb=drgb,
+                drgb_b=drgb_b, dbr=dbr, dbr_b=dbr_b, dfeat=dfeat,
+                dfeat_b=dfeat_b, dsig=dsig, dsig_b=dsig_b, dh=dh_all,
+                dh_b=dh_b_all, trunk=trunk)
+
+
+def mlp_train_bwd_reference(x, d, dout, params: TrainParams, acts=None):
+    """Plain PyTorch version of the train backward kernels, step for step
+    as fsnerf_tpu/ops/pallas/mlp_train.py::_bwd_grads: each cotangent is
+    rounded to bf16 before it enters a product, ReLU' is the bf16
+    activation > 0, bias gradients are column sums of the f32 cotangents.
+
+    Args: x, d [N, 3]; dout [N, 4] float32; acts from the forward (None =
+    recompute the trunk). Returns (dw [n_w], db [n_b]) float32 holding
+    bf16-rounded values, packed as wpack / bpack."""
+    lay = params.layout
+    t = _bwd_terms(x, d, dout, params, acts)
+    h, ex = t["hs"][-1], t["ex"]
+    heads_w = [h.t() @ t["dsig_b"], h.t() @ t["dfeat_b"],
+               t["feat"].t() @ t["dbr_b"], t["ed"].t() @ t["dbr_b"],
+               t["br"].t() @ t["drgb_b"]]
+    heads_b = [t["dsig"].sum(0), t["dfeat"].sum(0), t["dbr"].sum(0),
+               t["drgb"].sum(0)]
+    g_trunk = []
+    for i in range(lay.n_layers):
+        dh_b = t["dh_b"][i]
         if i == 0:
-            g_trunk[i] = [ex.t() @ dh_b]
+            g_trunk.append([ex.t() @ dh_b])
         else:
-            g_trunk[i] = [hs[i - 1].t() @ dh_b]
-            if len(ws) == 2:
+            g_trunk.append([t["hs"][i - 1].t() @ dh_b])
+            if len(t["trunk"][i]) == 2:
                 g_trunk[i].append(ex.t() @ dh_b)
-            dh = dh_b @ ws[0].t()
+    b_grads = [dh.sum(0) for dh in t["dh"]]
     dw = torch.cat([g.reshape(-1) for gs in g_trunk for g in gs]
                    + [g.reshape(-1) for g in heads_w])
     db = torch.cat(b_grads + heads_b)
     return _bf16(dw), _bf16(db)
+
+
+def bwd_operands_reference(x, d, dout, params: TrainParams, acts=None):
+    """Plain PyTorch version of what the backward's row pass leaves in
+    device memory for the weight-gradient pass, in its layouts (csrc/
+    mlp_train.cu TrainArgs): (acts [N, L*W], xs [N, XW] = encx | encd |
+    feat | br, dy [N, DYW] = dY_0..L-1 | conn | branch | sigma (8) | rgb
+    (8)), all bf16."""
+    t = _bwd_terms(x, d, dout, params, acts)
+    zeros = torch.zeros((x.shape[0], 5), dtype=torch.float32,
+                        device=x.device)
+    bf = torch.bfloat16
+    acts_out = torch.cat(t["hs"], dim=-1).to(bf)
+    xs = torch.cat([t["ex"], t["ed"], t["feat"], t["br"]], dim=-1).to(bf)
+    dy = torch.cat(t["dh_b"] + [t["dfeat_b"], t["dbr_b"], t["dsig_b"],
+                                zeros, zeros[:, :2], t["drgb_b"], zeros],
+                   dim=-1).to(bf)
+    return acts_out, xs, dy
 
 
 def _check(name, x, d, params: TrainParams, extra=()):
@@ -237,7 +267,7 @@ def _check(name, x, d, params: TrainParams, extra=()):
         if tuple(a.shape) != shape or a.dtype != torch.float32:
             raise ValueError(f"{name}: {nm} wants float32 {shape}, got "
                              f"{a.dtype} {tuple(a.shape)}")
-    tensors = [x, d, params.wpack, params.bpack, params.wtpack, params.enc]
+    tensors = [x, d, params.wpack, params.bpack, params.enc]
     tensors += [a for _, a, _ in extra]
     for a in tensors:
         if a.device != x.device or not a.is_contiguous():
@@ -316,12 +346,70 @@ def dw_jobs(lay: TrainLayout):
 @functools.lru_cache(maxsize=None)
 def dw_plan(jobs: Tuple[Tuple[int, ...], ...], device: str):
     """(jobs [n_jobs, 6], tiles [n_tiles, 3]) int32 on `device`: one tile
-    per DW_TILE x DW_TILE block of each job's [k_in, n_out] gradient."""
+    (job, tm, tn) per DW_TILE_M x DW_TILE_N block of each job's [k_in,
+    n_out] gradient, the blocks of one job next to each other."""
     tiles = [(j, tm, tn) for j, job in enumerate(jobs)
-             for tm in range(-(-job[2] // DW_TILE))
-             for tn in range(-(-job[4] // DW_TILE))]
+             for tn in range(-(-job[4] // DW_TILE_N))
+             for tm in range(-(-job[2] // DW_TILE_M))]
     return (torch.tensor(jobs, dtype=torch.int32, device=device),
             torch.tensor(tiles, dtype=torch.int32, device=device))
+
+
+def dw_pass_reference(acts, xs, dy, jobs, split_rows: int = SPLIT_ROWS):
+    """Plain PyTorch version of the weight-gradient pass: for each job
+    (x_src, x_col, k_in, y_col, n_out, w_off), f32 X^T dY over each split
+    of split_rows rows, the splits summed in order, rounded to bf16.
+    Returns dw [n_w] float32."""
+    n_w = max(j[5] + j[2] * j[4] for j in jobs)
+    dw = torch.zeros(n_w, dtype=torch.float32, device=dy.device)
+    for x_src, x_col, k_in, y_col, n_out, w_off in jobs:
+        X = (xs if x_src else acts)[:, x_col:x_col + k_in].float()
+        Y = dy[:, y_col:y_col + n_out].float()
+        g = torch.zeros((k_in, n_out), dtype=torch.float32,
+                        device=dy.device)
+        for r in range(0, dy.shape[0], split_rows):
+            g = g + X[r:r + split_rows].t() @ Y[r:r + split_rows]
+        dw[w_off:w_off + k_in * n_out] = g.reshape(-1)
+    return _bf16(dw)
+
+
+def dw_pass(acts, xs, dy, jobs, split_rows: int = SPLIT_ROWS):
+    """The weight-gradient pass alone (the backward's last two launches,
+    csrc/train_common.cuh) over bf16 operands acts, xs, dy [rows, .] for
+    CUDA tensors (rows a multiple of ROWS); dw_pass_reference for CPU
+    tensors. Counts its launches in `dw_pass.launches`."""
+    if dy.device.type == "cpu":
+        return dw_pass_reference(acts, xs, dy, jobs, split_rows)
+    if dy.device.type != "cuda":
+        raise ValueError(f"dw_pass runs on cpu or cuda, not {dy.device}")
+    n = dy.shape[0]
+    for a in (acts, xs, dy):
+        if (a.dim() != 2 or a.shape[0] != n or a.dtype != torch.bfloat16
+                or a.device != dy.device or not a.is_contiguous()):
+            raise ValueError("dw_pass needs contiguous bf16 [rows, .] "
+                             "operands on one device")
+    if n % ROWS or split_rows % DW_BK:
+        raise ValueError(f"dw_pass: rows {n} must be a multiple of {ROWS} "
+                         f"and split_rows of {DW_BK}")
+    from .build import load_library
+
+    lib = load_library()
+    jobs_t, tiles = dw_plan(tuple(tuple(j) for j in jobs), str(dy.device))
+    n_w = max(j[5] + j[2] * j[4] for j in jobs)
+    part = torch.empty((-(-n // split_rows), n_w), dtype=torch.float32,
+                       device=dy.device)
+    dw = torch.empty(n_w, dtype=torch.float32, device=dy.device)
+    err = lib.fsnerf_dw_pass(
+        acts.data_ptr(), acts.shape[1], xs.data_ptr(), xs.shape[1],
+        dy.data_ptr(), dy.shape[1], n, jobs_t.data_ptr(), tiles.data_ptr(),
+        tiles.shape[0], part.data_ptr(), n_w, split_rows, dw.data_ptr(),
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _launch_error(lib, err, "dw_pass")
+    dw_pass.launches += 1
+    return dw
+
+
+dw_pass.launches = 0
 
 
 def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
@@ -363,8 +451,8 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     db = torch.empty(lay.n_b, dtype=torch.float32, device=dev)
     err = lib.fsnerf_mlp_train_bwd(
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
-        params.bpack.data_ptr(), params.wtpack.data_ptr(),
-        params.enc.data_ptr(), acts.data_ptr(), int(recompute),
+        params.bpack.data_ptr(), params.enc.data_ptr(), acts.data_ptr(),
+        int(recompute),
         xs.data_ptr(), dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(),
         tiles.data_ptr(), tiles.shape[0], part.data_ptr(), SPLIT_ROWS,
         dw.data_ptr(), db.data_ptr(), N, lay.n_layers, lay.skip_mask, W,

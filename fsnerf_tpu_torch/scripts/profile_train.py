@@ -34,7 +34,7 @@ from .lattice_gate import card_name
 
 _TRAIN_KERNELS = ("mlp_train_fwd_kernel", "mlp_train_bwd_rows_kernel",
                   "siren_fwd_kernel", "siren_bwd_rows_kernel",
-                  "dw_tiles_kernel", "dw_reduce_kernel")
+                  "dw_gemm_kernel", "dw_reduce_kernel")
 
 
 def busy_us(events) -> float:

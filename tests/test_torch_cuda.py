@@ -182,6 +182,94 @@ def test_train_grads_bitwise_repeatable(cuda):
         assert torch.equal(a, b)
 
 
+def _dw_operands(n, widths, seed, cuda):
+    """Random bf16 operands acts, xs, dy [n, width] on the card."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((n, w), generator=g).to(torch.bfloat16).to(cuda)
+                 for w in widths)
+
+
+def _dw_layouts():
+    """(name, jobs, (acts, xs, dy) widths): the NeRF and SIREN backwards'
+    weight-gradient jobs at full and narrow width, and a set of narrow
+    jobs (1 to 72 output columns, 8 to 40 input columns, a job wider than
+    one 256-column tile) at odd offsets."""
+    full = mt.TrainLayout(8, (4,), 256, 10, 4)
+    small = mt.TrainLayout(4, (2,), 64, 4, 2)
+    out = []
+    for name, lay in (("nerf 8x256", full), ("nerf 4x64", small)):
+        W, Wh = lay.width, lay.width // 2
+        out.append((name, mt.dw_jobs(lay),
+                    (lay.n_layers * W, lay.de + lay.dd + W + Wh,
+                     lay.n_layers * W + W + Wh + 16)))
+    slay = ks.SirenLayout(8, 256, ks.siren_alphas(8))
+    out.append(("siren 8x256", ks.dw_jobs(slay),
+                (2 * 8 * 256, 2 * ks.D_IN_PAD + 2 * 256, 8 * 256 + 512 + 16)))
+    narrow, off = [], 0
+    for x_src, x_col, k_in, y_col, n_out in ((0, 8, 8, 0, 1),
+                                             (1, 24, 40, 8, 3),
+                                             (0, 64, 200, 16, 72),
+                                             (1, 0, 16, 96, 320),
+                                             (0, 136, 136, 48, 8)):
+        narrow.append((x_src, x_col, k_in, y_col, n_out, off))
+        off += k_in * n_out
+    out.append(("narrow", narrow, (272, 64, 432)))
+    return out
+
+
+@pytest.mark.parametrize("layout", range(4))
+def test_dw_pass_matches_plain(cuda, layout):
+    """The weight-gradient pass alone (wgmma fed by TMA, then the fixed-order
+    reduce) against dw_pass_reference: each job within 1e-2 of its max
+    (bf16 results of f32 sums taken in another order), on a row count that
+    ends in a partial split; two runs bitwise equal."""
+    name, jobs, widths = _dw_layouts()[layout]
+    n = 2 * mt.SPLIT_ROWS + 3 * mt.ROWS
+    acts, xs, dy = _dw_operands(n, widths, layout, cuda)
+    got = mt.dw_pass(acts, xs, dy, jobs)
+    again = mt.dw_pass(acts, xs, dy, jobs)
+    want = mt.dw_pass_reference(acts, xs, dy, jobs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.bfloat16().float())
+    for job in jobs:
+        w_off, size = job[5], job[2] * job[4]
+        g, w = got[w_off:w_off + size], want[w_off:w_off + size]
+        err = float((g - w).abs().max() / (w.abs().max() + 1e-12))
+        assert err < 1e-2, (name, job, err)
+
+
+def test_dw_pass_validates(cuda):
+    jobs = mt.dw_jobs(mt.TrainLayout(4, (2,), 64, 4, 2))
+    acts, xs, dy = _dw_operands(256, (256, 144, 368), 0, cuda)
+    before = mt.dw_pass.launches
+    mt.dw_pass(acts, xs, dy, jobs)
+    assert mt.dw_pass.launches == before + 1
+    with pytest.raises(ValueError):
+        mt.dw_pass(acts[:200], xs[:200], dy[:200], jobs)   # not 128 rows
+    with pytest.raises(ValueError):
+        mt.dw_pass(acts, xs, dy.float(), jobs)
+    with pytest.raises(ValueError):
+        mt.dw_pass(acts, xs, dy, jobs, split_rows=100)
+
+
+def test_train_kernels_match_plain_over_splits(cuda):
+    """NeRF 8x256 on rows that fill two weight-gradient splits and part of
+    a third: gradients within tolerance, bitwise repeatable, saved ==
+    recompute."""
+    params = _train_params(10, 256, FULL, cuda)
+    x, d, target = (a.to(cuda) for a in
+                    mlp_inputs(2 * mt.SPLIT_ROWS + 1000, seed=5))
+    saved = _check_train(params, x, d, target)
+    _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    dout = mse_cotangent(mt.mlp_train_fwd_reference(x, d, params)[0],
+                         target)
+    again = mt.mlp_train_bwd(x, d, dout, params, acts)
+    torch.cuda.synchronize()
+    for a, b in zip(saved, again):
+        assert torch.equal(a, b)
+
+
 def test_train_wrappers_count_launches_and_validate(cuda):
     params = _train_params(9, 64, SMALL, cuda)
     x, d, target = (a.to(cuda) for a in mlp_inputs(300, seed=4))
@@ -317,6 +405,13 @@ def test_siren_kernels_match_plain_at_full_width(cuda):
 def test_siren_kernels_small_ragged(cuda):
     """A narrow SiNeRF and fewer rows than one tile."""
     _check_siren(_siren_params(22, 4, 64, cuda), *_siren_inputs(77, 2, cuda))
+
+
+def test_siren_kernels_match_plain_over_splits(cuda):
+    """SiNeRF 8x256 on the weight-gradient pass over two splits and part
+    of a third."""
+    _check_siren(_siren_params(24, 8, 256, cuda),
+                 *_siren_inputs(2 * mt.SPLIT_ROWS + 1000, 5, cuda))
 
 
 def test_siren_wrappers_count_launches_and_validate(cuda):

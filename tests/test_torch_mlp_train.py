@@ -157,13 +157,21 @@ def test_packed_layout_round_trips():
     for name, v in zip(LAYOUT.param_names, back):
         assert torch.equal(v, sd[name].bfloat16().float()), name
     assert p.wpack.numel() == LAYOUT.n_w and p.bpack.numel() == LAYOUT.n_b
+    # the backward reads each trunk layer's h part as [in, out] rows of
+    # wpack (K-major B of its input-cotangent products)
     W = LAYOUT.width
-    assert p.wtpack.numel() == (LAYOUT.n_layers * W + W // 2) * W
+    trunk, _, _ = kr.unpack(p.wpack.float(), p.bpack, LAYOUT.n_layers,
+                            LAYOUT.skip, W, LAYOUT.de, LAYOUT.dd)
+    for i in range(1, LAYOUT.n_layers):
+        assert torch.equal(trunk[i][0], sd[f"layers.{i}.weight"][:, :W].t()
+                           .bfloat16().float()), i
 
 
 def test_weight_gradient_plan_covers_the_packed_layout():
     """The backward's weight-gradient jobs tile the packed gradient without
-    gaps or overlaps and read inside the scratch rows' widths."""
+    gaps or overlaps and read inside the scratch rows' widths; the plan's
+    128 x 256 tiles cover each job's gradient once, the tiles of one job
+    next to each other (the kernel's L2 reuse of a dY block)."""
     lay = mt.TrainLayout(8, (4,), 256, 10, 4)
     jobs = mt.dw_jobs(lay)
     W, L = lay.width, lay.n_layers
@@ -177,6 +185,44 @@ def test_weight_gradient_plan_covers_the_packed_layout():
         assert y_col + -(-n_out // 8) * 8 <= dy_width and y_col % 8 == 0
     assert off == lay.n_w == 594_560
     assert len(jobs) == 8 + 1 + 5                 # trunk, skip half, heads
+    _, tiles = mt.dw_plan(tuple(jobs), "cpu")
+    tiles = tiles.tolist()
+    assert len(tiles) == 24
+    cover = [np.zeros((j[2], j[4]), np.int64) for j in jobs]
+    for j, tm, tn in tiles:
+        cover[j][tm * mt.DW_TILE_M:(tm + 1) * mt.DW_TILE_M,
+                 tn * mt.DW_TILE_N:(tn + 1) * mt.DW_TILE_N] += 1
+    assert all((c == 1).all() for c in cover)
+    order = [j for j, _, _ in tiles]
+    assert order == sorted(order)
+    assert mt.SPLIT_ROWS % mt.DW_BK == 0
+
+
+@pytest.mark.parametrize("split_rows", [128, 4096])
+def test_dw_pass_reference_matches_the_backward(split_rows):
+    """The plain weight-gradient pass over the row pass's scratch
+    (bwd_operands_reference) gives mlp_train_bwd_reference's weight
+    gradients: bitwise with one split, within one bf16 step of each
+    gradient's max over 3 splits (the f32 sums group by split)."""
+    params = _packed(12)
+    x, d, target = mlp_inputs(300, seed=13)
+    dout = mse_cotangent(mt.mlp_train_fwd_reference(x, d, params)[0],
+                         target)
+    want, _ = mt.mlp_train_bwd_reference(x, d, dout, params)
+    acts, xs, dy = mt.bwd_operands_reference(x, d, dout, params)
+    assert acts.shape == (300, LAYOUT.n_layers * 64)
+    assert xs.shape == (300, LAYOUT.de + LAYOUT.dd + 64 + 32)
+    assert dy.shape == (300, LAYOUT.n_layers * 64 + 64 + 32 + 16)
+    got = mt.dw_pass_reference(acts, xs, dy, mt.dw_jobs(LAYOUT), split_rows)
+    assert torch.equal(mt.dw_pass(acts, xs, dy, mt.dw_jobs(LAYOUT),
+                                  split_rows), got)
+    if split_rows >= 300:
+        assert torch.equal(got, want)
+    for name, g, w in zip(LAYOUT.param_names,
+                          *(LAYOUT.grads_from_packed(v, torch.zeros(
+                              LAYOUT.n_b)) for v in (got, want))):
+        if name.endswith("weight"):
+            assert (g - w).abs().max() <= w.abs().max() / 128, name
 
 
 def test_wrappers_dispatch_on_device():
