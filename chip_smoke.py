@@ -277,9 +277,11 @@ SIREN_BWD_PARTS = ("siren_bwd_rows_kernel", "dw_gemm_kernel",
 
 
 def kernel_split_ms(fn, names, calls: int = 5) -> dict:
-    """Device ms per call of fn in each of the kernels `names`, from the
-    kernel events of a torch.profiler trace over `calls` calls (after one
-    untimed call). Fails if a named kernel left no event."""
+    """Device ms per call of fn in each of the kernels `names` (each
+    launched once per call), the mean of the kernel events of a
+    torch.profiler trace over `calls` calls (after one untimed call); the
+    profiler may keep the events of only some of them. Fails if a named
+    kernel left no event."""
     import os
     import tempfile
 
@@ -296,19 +298,18 @@ def kernel_split_ms(fn, names, calls: int = 5) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    ms = dict.fromkeys(names, 0.0)
-    seen = set()
+    durs = {name: [] for name in names}
     for e in events:
         if e.get("cat") != "kernel" or "dur" not in e:
             continue
         for name in names:
             if name in e["name"]:
-                ms[name] += e["dur"] / 1e3 / calls
-                seen.add(name)
+                durs[name].append(e["dur"] / 1e3)
                 break
-    if seen != set(names):
-        fail(f"the profiler saw no kernel events of {set(names) - seen}")
-    return ms
+    missing = [name for name, d in durs.items() if not d]
+    if missing:
+        fail(f"the profiler saw no kernel events of {missing}")
+    return {name: sum(d) / len(d) for name, d in durs.items()}
 
 
 def train_kernels(cfg, dev, card, bwd_parts=NERF_BWD_PARTS):

@@ -292,21 +292,35 @@ __device__ __forceinline__ void cotangent_epilogue(const CotangentOut& o,
                                                    int width) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = 16 * warp + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
   float ds[2] = {0.f, 0.f};
   if (o.dsig) {
     ds[0] = o.dsig[row];
     ds[1] = o.dsig[row + 8];
   }
+  // all loads of the activations first (a store to C may alias them for
+  // the compiler), then every 8-column block, then the column sums'
+  // shuffles of all of them together, so that their latencies overlap
+  __nv_bfloat162 hv[kBwdPassCols / 8][2];
+#pragma unroll
+  for (int j = 0; j < kBwdPassCols / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      hv[j][h] = o.acts && n0 + 8 * j < N
+                     ? *reinterpret_cast<const __nv_bfloat162*>(
+                           o.C + (row + 8 * h) * o.ldc + c0 + 8 * j)
+                     : __floats2bfloat162_rn(1.f, 1.f);
+  float cs[kBwdPassCols / 4];
 #pragma unroll
   for (int j = 0; j < kBwdPassCols / 8; ++j) {
-    if (n0 + 8 * j >= N) break;            // the same for the whole warp
-    const int col = n0 + 8 * j + 2 * (lane & 3);
+    cs[2 * j] = cs[2 * j + 1] = 0.f;
+    if (n0 + 8 * j >= N) continue;         // the same for the whole warp
+    const int col = c0 + 8 * j;
     float w0 = 0.f, w1 = 0.f;
     if (o.dsig) {
       w0 = __bfloat162float(o.w_sigma[col]);
       w1 = __bfloat162float(o.w_sigma[col + 1]);
     }
-    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
@@ -314,25 +328,25 @@ __device__ __forceinline__ void cotangent_epilogue(const CotangentOut& o,
         v0 += ds[h] * w0;
         v1 += ds[h] * w1;
       }
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
-          o.C + (row + 8 * h) * o.ldc + col);
-      if (o.acts) {
-        const __nv_bfloat162 hv = *p;
-        if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
-        if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
-      }
-      *p = __floats2bfloat162_rn(v0, v1);
-      s0 += v0;
-      s1 += v1;
+      if (!(__bfloat162float(hv[j][h].x) > 0.f)) v0 = 0.f;
+      if (!(__bfloat162float(hv[j][h].y) > 0.f)) v1 = 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(o.C + (row + 8 * h) * o.ldc +
+                                         col) = __floats2bfloat162_rn(v0, v1);
+      cs[2 * j] += v0;
+      cs[2 * j + 1] += v1;
     }
+  }
 #pragma unroll
-    for (int m = 4; m < 32; m <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, m);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-    }
-    if (lane < 4) {
-      o.colpart[warp * width + col] = s0;
-      o.colpart[warp * width + col + 1] = s1;
+  for (int m = 4; m < 32; m <<= 1)
+#pragma unroll
+    for (int q = 0; q < kBwdPassCols / 4; ++q)
+      cs[q] += __shfl_xor_sync(0xffffffffu, cs[q], m);
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < kBwdPassCols / 8; ++j) {
+      if (n0 + 8 * j >= N) continue;
+      o.colpart[warp * width + c0 + 8 * j] = cs[2 * j];
+      o.colpart[warp * width + c0 + 8 * j + 1] = cs[2 * j + 1];
     }
   }
 }
@@ -363,26 +377,19 @@ __device__ __forceinline__ void cotangent_stage(float (&acc)[64],
 // rows and runs wgmma.m64n128k16 per 128 output columns, its A fragments
 // loaded by ldmatrix (the register-A layout), B streamed by cp.async
 // through a ring of kBwdStages 128B-swizzled tiles of 64 K. With o.acts,
-// C's rows of this layer's activations are copied into C by cp.async at
-// the start, for the epilogue's ReLU'. Ends with a barrier; then
-// colpart holds the column sums of every output column.
+// C's rows of this layer's activations are copied into C by cp.async
+// while the product runs, for the epilogue's ReLU'. Ends with a barrier;
+// then colpart holds the column sums of every output column.
 __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
                                int N, int r0, int width,
                                const CotangentOut& o, unsigned char* ring) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (o.acts) {
-    const int per_row = N / 8;
-    for (int e = tid; e < kRows * per_row; e += kThreads) {
-      const int row = e / per_row, c8 = (e - row * per_row) * 8;
-      cp_async_16(o.C + row * o.ldc + c8,
-                  o.acts + (size_t)(r0 + row) * o.acts_ld + c8, true);
-    }
-  }
-  cp_async_commit();
   const int nk = (K + 63) / 64;
   const bf16* ap = A + (16 * warp + (lane & 15)) * lda + (lane >> 4) * 8;
   for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
-    // stage kc: rows n0 .. n0 + 127 of B, K columns 64 kc .. 64 kc + 63
+    // stage kc: rows n0 .. n0 + 127 of B, K columns 64 kc .. 64 kc + 63;
+    // the first pass's last stage also brings the activations, so they
+    // land while the earlier stages run and are waited for with it
     auto load = [&](int kc) {
       unsigned char* tile = ring + (kc % kBwdStages) * kBwdStageBytes;
       for (int q = tid; q < kBwdPassCols * 8; q += kThreads) {
@@ -390,6 +397,14 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
         const bool ok = n0 + n < N && k < K;
         cp_async_16(tile + n * 128 + (((c ^ n) & 7) << 4),
                     ok ? B + (size_t)(n0 + n) * K + k : B, ok);
+      }
+      if (o.acts && n0 == 0 && kc == nk - 1) {
+        const int per_row = N / 8;
+        for (int e = tid; e < kRows * per_row; e += kThreads) {
+          const int row = e / per_row, c8 = (e - row * per_row) * 8;
+          cp_async_16(o.C + row * o.ldc + c8,
+                      o.acts + (size_t)(r0 + row) * o.acts_ld + c8, true);
+        }
       }
     };
 #pragma unroll
@@ -401,7 +416,7 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     for (int kc = 0; kc < nk; ++kc) {
-      cp_async_wait<kBwdStages - 2>();     // stage kc (and the acts) landed
+      cp_async_wait<kBwdStages - 2>();     // stage kc landed
       fence_proxy_async();                 // ... visible to the tensor cores
       __syncthreads();                     // for every thread's copies
       if (kc + kBwdStages - 1 < nk) load(kc + kBwdStages - 1);

@@ -153,7 +153,9 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   const DwJob job = {jp[0], jp[1], jp[2], jp[3], jp[4], jp[5]};
   const int m0 = t[1] * kDwTileM, n0 = t[2] * kDwTileN;
   const int na = job.k_in - m0 > 64 ? 2 : 1;             // A boxes
-  const int nb = min(kDwTileN / 64, (job.n_out - n0 + 63) / 64);
+  // B boxes: 1, 2 or 4 (a tile 192 wide reads a fourth, not stored)
+  int nb = min(kDwTileN / 64, (job.n_out - n0 + 63) / 64);
+  if (nb == 3) nb = 4;
   const int row_begin = blockIdx.y * split_rows;
   const int n_iters = (min(n_rows, row_begin + split_rows) - row_begin) /
                       kDwBk;
@@ -194,9 +196,6 @@ __global__ void __launch_bounds__(kDwThreads, 1)
       break;
     case 2:
       dw_consume<2>(ring, full, empty, n_iters, wg, job, m0, n0, out);
-      break;
-    case 3:
-      dw_consume<3>(ring, full, empty, n_iters, wg, job, m0, n0, out);
       break;
     default:
       dw_consume<4>(ring, full, empty, n_iters, wg, job, m0, n0, out);

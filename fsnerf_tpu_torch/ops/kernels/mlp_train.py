@@ -452,9 +452,9 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     err = lib.fsnerf_mlp_train_bwd(
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.enc.data_ptr(), acts.data_ptr(),
-        int(recompute),
-        xs.data_ptr(), dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(),
-        tiles.data_ptr(), tiles.shape[0], part.data_ptr(), SPLIT_ROWS,
+        int(recompute), xs.data_ptr(), dy.data_ptr(), pbias.data_ptr(),
+        jobs.data_ptr(), tiles.data_ptr(), tiles.shape[0], part.data_ptr(),
+        SPLIT_ROWS,
         dw.data_ptr(), db.data_ptr(), N, lay.n_layers, lay.skip_mask, W,
         lay.n_freqs, lay.n_freqs_views, lay.de, lay.dd,
         torch.cuda.current_stream(dev).cuda_stream)

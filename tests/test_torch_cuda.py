@@ -191,8 +191,8 @@ def _dw_operands(n, widths, seed, cuda):
 
 def _dw_layouts():
     """(name, jobs, (acts, xs, dy) widths): the NeRF and SIREN backwards'
-    weight-gradient jobs at full and narrow width, and a set of narrow
-    jobs (1 to 72 output columns, 8 to 40 input columns, a job wider than
+    weight-gradient jobs at full and narrow width, and a set of odd jobs
+    (1 to 150 output columns, 8 to 200 input columns, a job wider than
     one 256-column tile) at odd offsets."""
     full = mt.TrainLayout(8, (4,), 256, 10, 4)
     small = mt.TrainLayout(4, (2,), 64, 4, 2)
@@ -208,7 +208,7 @@ def _dw_layouts():
     narrow, off = [], 0
     for x_src, x_col, k_in, y_col, n_out in ((0, 8, 8, 0, 1),
                                              (1, 24, 40, 8, 3),
-                                             (0, 64, 200, 16, 72),
+                                             (0, 64, 200, 16, 150),
                                              (1, 0, 16, 96, 320),
                                              (0, 136, 136, 48, 8)):
         narrow.append((x_src, x_col, k_in, y_col, n_out, off))
