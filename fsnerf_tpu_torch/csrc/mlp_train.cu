@@ -436,18 +436,6 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
   __syncthreads();
 }
 
-// pb[off : off + n] = the eight row groups' column sums, in order.
-__device__ __forceinline__ void store_colsums8(const float* colpart,
-                                               float* pb, int off, int n,
-                                               int width) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    float v = colpart[c];
-#pragma unroll
-    for (int g = 1; g < 8; ++g) v += colpart[g * width + c];
-    pb[off + c] = v;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -539,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  CotangentOut{other, s.LDH, nullptr, 0, nullptr, nullptr,
                               s.colpart},
                  ring);
-  store_colsums8(s.colpart, pb, off_conn, W, W);
+  store_colsums(s.colpart, pb, off_conn, W, W, 8);
   rows_to_global(other, s.LDH, a.dy, DYW, r0, dy_conn, W);
 
   // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
@@ -548,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  CotangentOut{hl, s.LDH, a.acts + (L - 1) * W, LA, s.dsig,
                               a.wpack + trunk_offset(a, L), s.colpart},
                  ring);
-  store_colsums8(s.colpart, pb, (L - 1) * W, W, W);
+  store_colsums(s.colpart, pb, (L - 1) * W, W, W, 8);
   rows_to_global(hl, s.LDH, a.dy, DYW, r0, (L - 1) * W, W);
 
   // trunk: d h_{i-1} = d h_i_b @ W_i^T (the h part at a skip layer)
@@ -559,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    CotangentOut{nxt, s.LDH, a.acts + (i - 1) * W, LA,
                                 nullptr, nullptr, s.colpart},
                    ring);
-    store_colsums8(s.colpart, pb, (i - 1) * W, W, W);
+    store_colsums(s.colpart, pb, (i - 1) * W, W, W, 8);
     rows_to_global(nxt, s.LDH, a.dy, DYW, r0, (i - 1) * W, W);
     bf16* t = cur;
     cur = nxt;

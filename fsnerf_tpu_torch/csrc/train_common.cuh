@@ -43,12 +43,15 @@ __device__ __forceinline__ void warp_colsums(float s0, float s1,
   }
 }
 
-// pb[off : off + n] = the four row groups' column sums, in order.
+// pb[off : off + n] = the row groups' column sums, in order.
 __device__ __forceinline__ void store_colsums(const float* colpart, float* pb,
-                                              int off, int n, int width) {
-  for (int c = threadIdx.x; c < n; c += kThreads)
-    pb[off + c] = ((colpart[c] + colpart[width + c]) + colpart[2 * width + c]) +
-                  colpart[3 * width + c];
+                                              int off, int n, int width,
+                                              int groups = 4) {
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    float v = colpart[c];
+    for (int g = 1; g < groups; ++g) v += colpart[g * width + c];
+    pb[off + c] = v;
+  }
 }
 
 // One weight matrix: X columns [x_col, x_col + k_in) of acts (x_src 0) or
@@ -236,8 +239,8 @@ __global__ void __launch_bounds__(kReduceThreads)
 // tiles over split_rows-row splits into `part`, then the fixed-order reduce
 // into dw [n_w] and db [n_b]. The tensor maps of acts, xs and dy are
 // encoded here, at each call (their addresses change from call to call);
-// one the driver refuses is a launch error (cudaErrorInvalidValue). Returns
-// the first launch error.
+// one that cannot be encoded is a launch error (cudaErrorInvalidValue).
+// Returns the first launch error.
 cudaError_t launch_dw(const bf16* acts, int ld_acts, const bf16* xs,
                       int ld_xs, const bf16* dy, int ld_dy, const int* tiles,
                       int n_tiles, const int* jobs, float* part, int n_w,

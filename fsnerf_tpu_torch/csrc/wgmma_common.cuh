@@ -298,8 +298,8 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, found through the runtime (so the
-// library links no -lcuda); null if the driver has none.
+// cuTensorMapEncodeTiled, found through the runtime (so the library links
+// no -lcuda); null if it is unavailable.
 EncodeTiledFn encode_tiled_fn() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
@@ -315,7 +315,7 @@ EncodeTiledFn encode_tiled_fn() {
 
 // A map of the row-major bf16 matrix [rows, cols] at ptr (row stride ld
 // elements) in boxes of box_rows x 64 columns, 128B-swizzled, reads out of
-// bounds filled with zeros. Returns false if the driver refuses it.
+// bounds filled with zeros. Returns false if it cannot be encoded.
 bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols,
                      int ld, int box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
