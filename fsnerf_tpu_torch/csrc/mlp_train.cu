@@ -298,29 +298,16 @@ __device__ __forceinline__ void cotangent_epilogue(const CotangentOut& o,
     ds[0] = o.dsig[row];
     ds[1] = o.dsig[row + 8];
   }
-  // all loads of the activations first (a store to C may alias them for
-  // the compiler), then every 8-column block, then the column sums'
-  // shuffles of all of them together, so that their latencies overlap
-  __nv_bfloat162 hv[kBwdPassCols / 8][2];
-#pragma unroll
-  for (int j = 0; j < kBwdPassCols / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      hv[j][h] = o.acts && n0 + 8 * j < N
-                     ? *reinterpret_cast<const __nv_bfloat162*>(
-                           o.C + (row + 8 * h) * o.ldc + c0 + 8 * j)
-                     : __floats2bfloat162_rn(1.f, 1.f);
-  float cs[kBwdPassCols / 4];
 #pragma unroll
   for (int j = 0; j < kBwdPassCols / 8; ++j) {
-    cs[2 * j] = cs[2 * j + 1] = 0.f;
-    if (n0 + 8 * j >= N) continue;         // the same for the whole warp
+    if (n0 + 8 * j >= N) break;            // the same for the whole warp
     const int col = c0 + 8 * j;
     float w0 = 0.f, w1 = 0.f;
     if (o.dsig) {
       w0 = __bfloat162float(o.w_sigma[col]);
       w1 = __bfloat162float(o.w_sigma[col + 1]);
     }
+    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
@@ -328,25 +315,25 @@ __device__ __forceinline__ void cotangent_epilogue(const CotangentOut& o,
         v0 += ds[h] * w0;
         v1 += ds[h] * w1;
       }
-      if (!(__bfloat162float(hv[j][h].x) > 0.f)) v0 = 0.f;
-      if (!(__bfloat162float(hv[j][h].y) > 0.f)) v1 = 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(o.C + (row + 8 * h) * o.ldc +
-                                         col) = __floats2bfloat162_rn(v0, v1);
-      cs[2 * j] += v0;
-      cs[2 * j + 1] += v1;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+          o.C + (row + 8 * h) * o.ldc + col);
+      if (o.acts) {
+        const __nv_bfloat162 hv = *p;
+        if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
+        if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
+      }
+      *p = __floats2bfloat162_rn(v0, v1);
+      s0 += v0;
+      s1 += v1;
     }
-  }
 #pragma unroll
-  for (int m = 4; m < 32; m <<= 1)
-#pragma unroll
-    for (int q = 0; q < kBwdPassCols / 4; ++q)
-      cs[q] += __shfl_xor_sync(0xffffffffu, cs[q], m);
-  if (lane < 4) {
-#pragma unroll
-    for (int j = 0; j < kBwdPassCols / 8; ++j) {
-      if (n0 + 8 * j >= N) continue;
-      o.colpart[warp * width + c0 + 8 * j] = cs[2 * j];
-      o.colpart[warp * width + c0 + 8 * j + 1] = cs[2 * j + 1];
+    for (int m = 4; m < 32; m <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+    }
+    if (lane < 4) {
+      o.colpart[warp * width + col] = s0;
+      o.colpart[warp * width + col + 1] = s1;
     }
   }
 }
