@@ -276,18 +276,25 @@ SIREN_BWD_PARTS = ("siren_bwd_rows_kernel", "dw_gemm_kernel",
                    "dw_reduce_kernel")
 
 
-def kernel_split_ms(fn, names, calls: int = 5) -> dict:
-    """Device ms per call of fn in each of the kernels `names` (each
-    launched once per call), the mean of the kernel events of a
-    torch.profiler trace over `calls` calls (after one untimed call); the
-    profiler may keep the events of only some of them. Fails if a named
-    kernel left no event."""
+def kernel_split_ms(fn, names, calls: int = 5):
+    """(device ms per call of fn in each of the kernels `names` (each
+    launched once per call), host ms per call): the device times are the
+    mean of the kernel events of a torch.profiler trace over `calls` calls
+    (after one untimed call; the profiler may keep the events of only some
+    of them), the host time that of `calls` untraced calls, from the first
+    call's start to the last one's return, before the card is waited for.
+    Fails if a named kernel left no event."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -309,10 +316,10 @@ def kernel_split_ms(fn, names, calls: int = 5) -> dict:
     missing = [name for name, d in durs.items() if not d]
     if missing:
         fail(f"the profiler saw no kernel events of {missing}")
-    return {name: sum(d) / len(d) for name, d in durs.items()}
+    return {name: sum(d) / len(d) for name, d in durs.items()}, host_ms
 
 
-def train_kernels(cfg, dev, card, bwd_parts=NERF_BWD_PARTS):
+def train_kernels(cfg, dev, card):
     """Phase 5: the train kernels vs their plain versions at full width,
     and the device time of each of the backward's launches."""
     from fsnerf_tpu_torch.core.models import make_model
@@ -377,8 +384,8 @@ def train_kernels(cfg, dev, card, bwd_parts=NERF_BWD_PARTS):
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: mt.mlp_train_bwd_reference(x, d, dout, params, acts),
         lambda: mt.mlp_train_bwd(x, d, dout, params, acts))
-    parts = kernel_split_ms(lambda: mt.mlp_train_bwd(x, d, dout, params, acts),
-                            bwd_parts)
+    parts, host_ms = kernel_split_ms(
+        lambda: mt.mlp_train_bwd(x, d, dout, params, acts), NERF_BWD_PARTS)
     print(f"train kernels at {n} rows on {card}: forward max abs err rgb "
           f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| "
           f"{sig_scale:.3e}); gradients worst {worst[0]} at {worst[1]:.3e} "
@@ -387,7 +394,8 @@ def train_kernels(cfg, dev, card, bwd_parts=NERF_BWD_PARTS):
           f"{fwd_plain_ms:.3f}), backward {bwd_ms:.3f} ms (plain "
           f"{bwd_plain_ms:.3f})")
     print("train backward's launches (profiler, saved activations): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; host {host_ms:.4f} ms per call")
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
                  plain_ms=fwd_plain_ms, **fwd_bound),
             dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
@@ -814,7 +822,7 @@ def siren_bwd_macs(L: int, W: int) -> int:
     return 2 * heads + dx + 3 * W + (L - 1) * W * W
 
 
-def siren_kernels(cfg, dev, card, bwd_parts=SIREN_BWD_PARTS):
+def siren_kernels(cfg, dev, card):
     """Phase 10: the SIREN train kernels vs their plain versions at full
     width, both backward modes, and the device time of each of the saved
     mode's backward launches. Returns the report's numbers of each."""
@@ -890,8 +898,9 @@ def siren_kernels(cfg, dev, card, bwd_parts=SIREN_BWD_PARTS):
         lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
     rec_ms = cuda_ms(lambda: ks.siren_mlp_bwd(xp, dp, dout, params, None),
                      10)
-    parts = kernel_split_ms(lambda: ks.siren_mlp_bwd(xp, dp, dout, params,
-                                                     acts), bwd_parts)
+    parts, host_ms = kernel_split_ms(
+        lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts),
+        SIREN_BWD_PARTS)
     weights = (params.wpack, params.bpack, params.alphas)
     fwd_bound = bound(2.0 * siren_macs(L, W) * n,
                       nbytes(xp, dp, *weights, out, acts))
@@ -915,7 +924,8 @@ def siren_kernels(cfg, dev, card, bwd_parts=SIREN_BWD_PARTS):
           f"{module_fwd_ms:.3f} ms, its autograd backward "
           f"{module_bwd_ms:.3f} ms")
     print("SIREN backward's launches (profiler, saved activations): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; host {host_ms:.4f} ms per call")
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
                  plain_ms=fwd_plain_ms, **fwd_bound),
             dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,

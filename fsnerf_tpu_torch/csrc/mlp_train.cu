@@ -101,9 +101,13 @@ constexpr int kBwdPassCols = 128;
 constexpr int kBwdStageBytes = kBwdPassCols * 128;
 constexpr int kBwdSlabBytes = kBwdStages * kBwdStageBytes + 1024;
 
-// Shared-memory carve-up common to the forward and the backward row kernel:
-// the forward stages weights in kSlabBytes and keeps 4 row groups of
-// column sums, the backward kBwdSlabBytes and 8.
+// Shared-memory carve-up common to the forward and the backward (bwd) row
+// kernel: the forward stages weights in kSlabBytes and keeps 4 row groups
+// of column sums, the backward kBwdSlabBytes and 8.
+__host__ __device__ constexpr int slab_bytes(bool bwd) {
+  return bwd ? kBwdSlabBytes : kSlabBytes;
+}
+
 struct Smem {
   bf16 *buf0, *buf1, *encx, *encd, *slabs;
   float *xin, *din, *sig, *rgb, *drgb, *dsig, *colpart;
@@ -111,7 +115,7 @@ struct Smem {
 };
 
 __device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
-                                      int slab_bytes = kSlabBytes) {
+                                      bool bwd) {
   Smem s;
   s.LDH = a.width + kPad;
   s.LDE = a.d_enc_pad + kPad;
@@ -122,7 +126,7 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
   s.encd = s.encx + kRows * s.LDE;
   s.slabs = s.encd + kRows * s.LDD;
   s.xin = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
-                                   slab_bytes);
+                                   slab_bytes(bwd));
   s.din = s.xin + 3 * kRows;
   s.sig = s.din + 3 * kRows;
   s.rgb = s.sig + kRows;
@@ -132,12 +136,11 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
   return s;
 }
 
-size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad,
-                  int slab_bytes = kSlabBytes, int col_groups = 4) {
+size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad, bool bwd) {
   return sizeof(bf16) * (size_t)kRows * (2 * width + d_enc_pad + d_dir_pad +
                                          4 * kPad) +
-         slab_bytes +
-         sizeof(float) * (14 * kRows + (size_t)col_groups * width);
+         slab_bytes(bwd) +
+         sizeof(float) * (14 * kRows + (size_t)(bwd ? 8 : 4) * width);
 }
 
 // Rows r0 .. r0+127 of x and d into shared memory (zeros past N), then
@@ -247,7 +250,7 @@ __device__ void heads_forward(const TrainArgs& a, const Smem& s, int r0,
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_fwd_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a);
+  const Smem s = carve(smem_raw, a, false);
   const int W = a.width, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * kRows;
   stage_and_encode(a, s, r0);
@@ -374,6 +377,9 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
   const int nk = (K + 63) / 64;
   const bf16* ap = A + (16 * warp + (lane & 15)) * lda + (lane >> 4) * 8;
   for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
+    // every warpgroup's wgmma of the last pass has read the ring before
+    // this pass's prologue writes to it
+    if (n0 > 0) __syncthreads();
     // stage kc: rows n0 .. n0 + 127 of B, K columns 64 kc .. 64 kc + 63;
     // the first pass's last stage also brings the activations, so they
     // land while the earlier stages run and are waited for with it
@@ -426,7 +432,7 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a, kBwdSlabBytes);
+  const Smem s = carve(smem_raw, a, true);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = a.width, Wh = W / 2, L = a.n_layers;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
@@ -582,7 +588,7 @@ extern "C" int fsnerf_mlp_train_fwd(
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
   a.out = static_cast<float*>(out);
   a.acts = static_cast<bf16*>(acts);
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad);
+  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, false);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -619,8 +625,7 @@ extern "C" int fsnerf_mlp_train_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, kBwdSlabBytes,
-                                 8);
+  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, true);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_train_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -326,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   FactorEpi epi{other, LDH, nullptr, nullptr, 0, colpart, W};
   gemm(Seg{hbuf, LDS, wt_r0f, Wh}, none, W, slabs, epi);
   __syncthreads();
-  store_colsums(colpart, pb, m.ob_f(), W, W);
+  store_colsums(colpart, pb, m.ob_f(), W, W, 4);
   rows_to_global(other, LDH, a.dy, DYW, r0, dy_f, W);
   __syncthreads();
   // back to dys_b in hbuf for the last trunk layer's product
@@ -342,7 +342,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   ff ? ff + (size_t)(L - 1) * W : nullptr, ldf, colpart, W};
   gemm(Seg{other, LDH, wt_f, W}, Seg{hbuf, LDS, wt_s0, Wh}, W, slabs, epi);
   __syncthreads();
-  store_colsums(colpart, pb, (L - 1) * W, W, W);
+  store_colsums(colpart, pb, (L - 1) * W, W, W, 4);
   rows_to_global(cur, LDH, a.dy, DYW, r0, (L - 1) * W, W);
 
   // trunk: dy_{i-1} = (dy_i_b t_i^T) * factor_{i-1}
@@ -352,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     ff ? ff + (size_t)(i - 1) * W : nullptr, ldf, colpart, W};
     gemm(Seg{cur, LDH, wt + (size_t)(i - 1) * W * W, W}, none, W, slabs, epi);
     __syncthreads();
-    store_colsums(colpart, pb, (i - 1) * W, W, W);
+    store_colsums(colpart, pb, (i - 1) * W, W, W, 4);
     rows_to_global(nxt, LDH, a.dy, DYW, r0, (i - 1) * W, W);
     bf16* t = cur;
     cur = nxt;

@@ -46,7 +46,7 @@ __device__ __forceinline__ void warp_colsums(float s0, float s1,
 // pb[off : off + n] = the row groups' column sums, in order.
 __device__ __forceinline__ void store_colsums(const float* colpart, float* pb,
                                               int off, int n, int width,
-                                              int groups = 4) {
+                                              int groups) {
   for (int c = threadIdx.x; c < n; c += kThreads) {
     float v = colpart[c];
     for (int g = 1; g < groups; ++g) v += colpart[g * width + c];

@@ -349,19 +349,11 @@ def resolve_query_stride(sampling_cfg, aabb) -> int:
 def grid_query_stride(sampling_cfg, aabb, grid: Optional[OccGrid]) -> int:
     """The query stride that `grid` admits: resolve_query_plan's stride when
     the grid's tables carry the plan's dilation (a live grid, as the
-    reference evaluates it); else the largest stride up to it at which
-    every sample of a group lies within the grid's dilation of the group's
-    queried sample, so no sample in an occupied cell is dropped. An
-    undilated table (conservative(grid)) admits stride 1 only:
-    auto_query_stride's dilation-0 rule keeps a sample in every occupied
-    cell, but drops the samples at a cell's edge whose group is queried
-    in the next cell."""
+    reference evaluates it), else 1. An undilated table (conservative(grid))
+    admits stride 1 only: auto_query_stride's dilation-0 rule keeps a sample
+    in every occupied cell, but drops the samples at a cell's edge whose
+    group is queried in the next cell."""
     stride, dilation = resolve_query_plan(sampling_cfg, aabb)
     if grid is None or grid.query_dilation == dilation:
         return stride
-    if grid.query_dilation == 0:
-        return 1
-    return auto_query_stride(aabb, sampling_cfg.grid_resolution,
-                             sampling_cfg.render_step_size,
-                             sampling_cfg.n_samples, max_stride=stride,
-                             dilation=grid.query_dilation)
+    return 1

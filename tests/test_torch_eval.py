@@ -133,8 +133,9 @@ def _rods_grid(cfg, seed=0):
 
 
 def test_grid_query_stride_follows_the_grid():
-    """A live grid is queried at the plan's stride; its undilated view at
-    stride 1; no grid (hierarchical) at the plan's."""
+    """A live grid is queried at the plan's stride; its undilated view, or
+    a grid at another dilation, at stride 1; no grid (hierarchical) at the
+    plan's."""
     cfg = Config().replace(sampling=dataclasses.replace(
         Config().sampling, **RODS_SAMPLING))
     assert og.resolve_query_plan(cfg.sampling, AABB) == (8, 2)
@@ -142,10 +143,8 @@ def test_grid_query_stride_follows_the_grid():
     assert og.grid_query_stride(cfg.sampling, AABB, live) == 8
     assert og.grid_query_stride(cfg.sampling, AABB, None) == 8
     assert og.grid_query_stride(cfg.sampling, AABB, og.conservative(live)) == 1
-    one = og.create(AABB, 64, 1, 1)
-    assert og.grid_query_stride(cfg.sampling, AABB, one) == \
-        og.auto_query_stride(AABB, 64, cfg.sampling.render_step_size, 256,
-                             max_stride=8, dilation=1) == 4
+    assert og.grid_query_stride(cfg.sampling, AABB,
+                                og.create(AABB, 64, 1, 1)) == 1
 
 
 @pytest.mark.parametrize("view", ["live", "conservative"])
