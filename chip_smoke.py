@@ -20,11 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
   5. train kernels vs their plain versions at full width (8x256, 1024 rays
      x K 192 = 196,608 rows, the cotangent of an MSE loss): rgb within
      1e-3, sigma within 1e-2 of max |sigma|, every weight and bias gradient
-     within 1e-2 of its max |plain gradient|, two kernel runs bitwise equal,
+     within 1e-2 of its max |plain gradient|, two kernel runs bitwise equal
+     (the forward's out and acts, the backward's gradients),
      saved-activations and recompute backwards bitwise equal; CUDA-event
-     times of both, kernel and plain, and the backward's three launches
-     (row pass, weight-gradient pass, reduce) from torch.profiler's kernel
-     events;
+     times of both, kernel and plain, the forward's host ms per call and
+     bound share, the recompute-mode backward's time, and the backward's
+     three launches (row pass, weight-gradient pass, reduce) from
+     torch.profiler's kernel events;
   6. the training slice: train() from seeded weights on an 8-view 128x128
      SphereScene with the default sampling, then the held-out views through
      the ray march on the trained grid, with the three kernels' launch
@@ -276,6 +278,20 @@ SIREN_BWD_PARTS = ("siren_bwd_rows_kernel", "dw_gemm_kernel",
                    "dw_reduce_kernel")
 
 
+def host_ms_per_call(fn, calls: int = 50) -> float:
+    """Host ms per call of fn: from the first of `calls` calls' start to the
+    last one's return, before the card is waited for (after one untimed
+    call and a wait)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host_ms
+
+
 def kernel_split_ms(fn, names, calls: int = 5):
     """(device ms per call of fn in each of the kernels `names` (each
     launched once per call), host ms per call): the device times are the
@@ -289,13 +305,7 @@ def kernel_split_ms(fn, names, calls: int = 5):
 
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3 / calls
-    torch.cuda.synchronize()
+    host_ms = host_ms_per_call(fn, calls)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -340,10 +350,13 @@ def train_kernels(cfg, dev, card):
     target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
                         torch.zeros((n, 1), device=dev)], dim=-1)
     out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    out2, acts2 = mt.mlp_train_fwd(x, d, params, save_acts=True)
     ref, _ = mt.mlp_train_fwd_reference(x, d, params)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail("train forward: kernel output is not finite")
+    if not (torch.equal(out, out2) and torch.equal(acts, acts2)):
+        fail("train forward: two kernel runs differ")
     rgb_err = float((out[:, :3] - ref[:, :3]).abs().max())
     sig_err = float((out[:, 3] - ref[:, 3]).abs().max())
     sig_scale = float(ref[:, 3].abs().max()) + 1e-9
@@ -376,6 +389,8 @@ def train_kernels(cfg, dev, card):
     fwd_ms, fwd_plain_ms = in_turns(
         lambda: mt.mlp_train_fwd_reference(x, d, params, True),
         lambda: mt.mlp_train_fwd(x, d, params, True))
+    fwd_host_ms = host_ms_per_call(
+        lambda: mt.mlp_train_fwd(x, d, params, True))
     weights = (params.wpack, params.bpack, params.enc)
     fwd_bound = bound(2.0 * mlp_macs(cfg) * n,
                       nbytes(x, d, *weights, out, acts))
@@ -384,6 +399,8 @@ def train_kernels(cfg, dev, card):
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: mt.mlp_train_bwd_reference(x, d, dout, params, acts),
         lambda: mt.mlp_train_bwd(x, d, dout, params, acts))
+    recompute_ms = cuda_ms(lambda: mt.mlp_train_bwd(x, d, dout, params, None),
+                           10)
     parts, host_ms = kernel_split_ms(
         lambda: mt.mlp_train_bwd(x, d, dout, params, acts), NERF_BWD_PARTS)
     print(f"train kernels at {n} rows on {card}: forward max abs err rgb "
@@ -391,8 +408,10 @@ def train_kernels(cfg, dev, card):
           f"{sig_scale:.3e}); gradients worst {worst[0]} at {worst[1]:.3e} "
           f"of its max, max abs err {grad_abs:.3e}; bitwise repeatable, "
           f"saved == recompute; forward {fwd_ms:.3f} ms (plain "
-          f"{fwd_plain_ms:.3f}), backward {bwd_ms:.3f} ms (plain "
-          f"{bwd_plain_ms:.3f})")
+          f"{fwd_plain_ms:.3f}; bound share "
+          f"{fwd_bound['bound_ms'] / fwd_ms:.3f}; host {fwd_host_ms:.4f} ms "
+          f"per call), backward {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}; "
+          f"recompute mode {recompute_ms:.3f})")
     print("train backward's launches (profiler, saved activations): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
           + f"; host {host_ms:.4f} ms per call")

@@ -12,47 +12,66 @@
 //
 // What bounds them on this card. A sample costs ~1.2 MFLOP forward and
 // ~2.5 MFLOP backward (the head recompute, the input-cotangent products and
-// the weight-gradient products) against ~10 KB of HBM traffic per sample
-// in the backward (acts read, the scratch operands written and read back):
-// at the main path's 196,608 rows the backward's ~2 GB of scratch traffic
-// (~0.6 ms at 3.35 TB/s) weighs as much as its operations. The forward and
-// the heads' recompute run mma.sync m16n8k16 (mlp_common.cuh::gemm); the
-// backward's input-cotangent products run wgmma.m64n128k16 with A from
-// registers and the weights streamed by cp.async into 128B-swizzled tiles
-// (cotangent_gemm), and its weight gradients wgmma fed by TMA
-// (train_common.cuh::dw_gemm_kernel).
+// the weight-gradient products). The forward's only large HBM traffic is
+// the saved activations (L * W bf16 a row: ~0.8 GB at the main path's
+// 196,608 rows, ~0.24 ms at 3.35 TB/s, about its ~0.24 ms of bf16 tensor
+// work), so it is bound by both; its weights (~1.2 MB at 8 x 256) are read
+// by every CTA from L2. The backward moves ~10 KB a sample (acts read, the
+// scratch operands written and read back): its ~2 GB of scratch traffic
+// (~0.6 ms) weighs as much as its operations.
 //
-// What the design does about the TPU kernels' sequential grid. The Pallas
-// backward keeps every weight-gradient block resident in VMEM across a
-// sequential grid and adds each row block into it. CUDA blocks run in no
-// order, and float atomics would make the gradients change from run to run.
-// So the backward is split:
+// The forward (mlp_train_fwd_kernel) is warp-specialized. A CTA of 128 rows
+// holds two consumer warpgroups of 64 rows each and a producer warpgroup
+// (which gives its registers to the consumers by setmaxnreg). One producer
+// thread streams every weight matrix as 64-row x W tiles by TMA, in the
+// order the consumers use them, through a ring of up to 4 stages guarded by
+// full / empty mbarriers (each stage is read by both consumers, so its
+// empty barrier takes two arrivals). Each consumer keeps its rows through
+// the whole MLP: it encodes them into 128B-swizzled K-major tiles (encx,
+// encd), runs each layer as wgmma.m64nWk16 with A its activation tile in
+// shared memory and B the ring's stage read N-major, and overwrites its
+// activation tile in place with the layer's epilogue (bias, ReLU, bf16)
+// once the layer's wgmma have retired. In saved mode one thread then
+// stores the tile to `acts` by TMA while the next layer runs. The sigma and
+// rgb heads (1 and 3 columns) are per-thread partial dot products on the
+// accumulators in registers, summed across each quad by shuffles. Nothing
+// but the ring is shared between the consumers, so no CTA-wide barrier runs
+// after set-up; a consumer's epilogue waits only on its own warpgroup's
+// named barrier.
+//
+// The backward is split, because CUDA blocks run in no order and float
+// atomics would make the gradients change from run to run, where the
+// Pallas backward keeps every weight-gradient block resident in VMEM
+// across a sequential grid:
 //   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA): encodes
-//      the inputs, takes the trunk activations from the forward's stream
-//      (saved mode) or recomputes them and writes that stream itself
-//      (recompute mode), recomputes the heads, and walks the layers back,
-//      each layer's activations prefetched by cp.async while the tensor
-//      cores run its cotangent product. It writes every GEMM operand a
-//      weight gradient needs to HBM as bf16 (the encodings, feat, branch
-//      activation and each layer's bf16 cotangent) and each CTA's column
-//      sums of the f32 cotangents (the bias-gradient partials).
+//      the inputs, takes the trunk activations from the forward's stream,
+//      recomputes the heads (mma.sync, mlp_common.cuh::gemm), and walks the
+//      layers back on wgmma.m64n128k16 with A (the cotangent tile) from
+//      registers and the weights streamed by cp.async into 128B-swizzled
+//      tiles (cotangent_gemm), each layer's activations prefetched for
+//      ReLU'. It writes every GEMM operand a weight gradient needs to HBM as
+//      bf16 (the encodings, feat, branch activation and each layer's bf16
+//      cotangent) and each CTA's column sums of the f32 cotangents (the
+//      bias-gradient partials).
 //   2. dw_gemm_kernel: dW = X^T dY for every weight matrix on wgmma fed by
 //      TMA, one CTA per (128 x 256 output tile, split of rows), the rows
 //      of its split in a fixed order; each split writes its own f32
 //      partial.
 //   3. dw_reduce_kernel: sums the partials of each gradient in a fixed
 //      order and rounds to bf16, as the TPU kernel's caller does.
+// In recompute mode (no saved activations) the backward first runs the
+// forward kernel into the same acts stream, then the same three launches.
 // Nothing is summed in an order that depends on scheduling, so two runs give
 // bitwise-equal gradients, and both backward modes give bitwise-equal
-// gradients (the activations they read are the same bits, and all other
-// work is the same code).
+// gradients by construction.
 //
 // Numerics, as the TPU kernels (mlp_train.py::_fwd_compute, _bwd_grads):
 // bf16 operands, f32 accumulation, bf16-rounded biases added in f32, trunk
-// activations ReLU then bf16, feat bf16 without activation, branch ReLU then
-// bf16, rgb an f32 sigmoid, sigma raw. Each cotangent is rounded to bf16
-// before it enters a product; ReLU' is read from the bf16 activation being
-// > 0; bias gradients are column sums of the f32 cotangents; at a skip layer
+// activations ReLU then bf16, the skip concat [h, enc] as two products into
+// one accumulator, feat bf16 without activation, branch ReLU then bf16,
+// rgb an f32 sigmoid, sigma raw. Each cotangent is rounded to bf16 before
+// it enters a product; ReLU' is read from the bf16 activation being > 0;
+// bias gradients are column sums of the f32 cotangents; at a skip layer
 // the cotangent flows back only through W_h (the encoding gets none).
 
 #include <cuda_bf16.h>
@@ -77,7 +96,7 @@ struct TrainArgs {
   bf16* dy;              // [N_pad, DYW]: dY_0..L-1 | conn | branch | sigma | rgb
   float* pbias;          // [N_pad / kRows, NB] bias-gradient partials
   int N, n_layers, skip_mask, width, n_freqs, n_freqs_views;
-  int d_enc_pad, d_dir_pad, recompute;
+  int d_enc_pad, d_dir_pad;
 };
 
 // Offset of trunk layer i's first matrix in wpack (the walk of
@@ -92,30 +111,26 @@ __host__ __device__ __forceinline__ size_t trunk_offset(const TrainArgs& a,
   return off;
 }
 
-// The weight staging of gemm() (mlp_common.cuh), and that of the backward's
-// wgmma GEMMs: a ring of kBwdStages tiles of kBwdPassCols weight rows x 64
-// K (128B-swizzled, 1024-byte aligned), which the slabs alias.
+// The backward row kernel's weight staging: a ring of kBwdStages tiles of
+// kBwdPassCols weight rows x 64 K (128B-swizzled, 1024-byte aligned) for
+// its wgmma GEMMs, which the slabs of gemm() (mlp_common.cuh, the heads'
+// recompute) alias.
 constexpr int kSlabBytes = 2 * kSlabRows * kSlabLd * sizeof(bf16);
 constexpr int kBwdStages = 3;
 constexpr int kBwdPassCols = 128;
 constexpr int kBwdStageBytes = kBwdPassCols * 128;
 constexpr int kBwdSlabBytes = kBwdStages * kBwdStageBytes + 1024;
+static_assert(kSlabBytes <= kBwdSlabBytes, "the slabs alias the ring");
 
-// Shared-memory carve-up common to the forward and the backward (bwd) row
-// kernel: the forward stages weights in kSlabBytes and keeps 4 row groups
-// of column sums, the backward kBwdSlabBytes and 8.
-__host__ __device__ constexpr int slab_bytes(bool bwd) {
-  return bwd ? kBwdSlabBytes : kSlabBytes;
-}
-
+// The backward row kernel's shared memory.
 struct Smem {
   bf16 *buf0, *buf1, *encx, *encd, *slabs;
-  float *xin, *din, *sig, *rgb, *drgb, *dsig, *colpart;
+  float *xin, *din, *rgb, *drgb, *dsig, *colpart;
   int LDH, LDE, LDD;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
-                                      bool bwd) {
+__device__ __forceinline__ Smem carve(unsigned char* raw,
+                                      const TrainArgs& a) {
   Smem s;
   s.LDH = a.width + kPad;
   s.LDE = a.d_enc_pad + kPad;
@@ -126,21 +141,19 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const TrainArgs& a,
   s.encd = s.encx + kRows * s.LDE;
   s.slabs = s.encd + kRows * s.LDD;
   s.xin = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
-                                   slab_bytes(bwd));
+                                   kBwdSlabBytes);
   s.din = s.xin + 3 * kRows;
-  s.sig = s.din + 3 * kRows;
-  s.rgb = s.sig + kRows;
+  s.rgb = s.din + 3 * kRows;
   s.drgb = s.rgb + 3 * kRows;
   s.dsig = s.drgb + 3 * kRows;
   s.colpart = s.dsig + kRows;              // [row groups][width]
   return s;
 }
 
-size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad, bool bwd) {
+size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad) {
   return sizeof(bf16) * (size_t)kRows * (2 * width + d_enc_pad + d_dir_pad +
                                          4 * kPad) +
-         slab_bytes(bwd) +
-         sizeof(float) * (14 * kRows + (size_t)(bwd ? 8 : 4) * width);
+         kBwdSlabBytes + sizeof(float) * (13 * kRows + (size_t)8 * width);
 }
 
 // Rows r0 .. r0+127 of x and d into shared memory (zeros past N), then
@@ -169,39 +182,6 @@ __device__ void stage_and_encode(const TrainArgs& a, const Smem& s, int r0) {
         encode_lane(s.din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
   }
   __syncthreads();
-}
-
-// The trunk forward on the encoded rows; streams each activation to `acts`
-// when given. Returns the buffer holding the last activation.
-__device__ bf16* trunk_forward(const TrainArgs& a, const Smem& s, int r0,
-                               bf16* acts) {
-  const int W = a.width, DE = a.d_enc_pad, LA = a.n_layers * W;
-  const bf16* w = a.wpack;
-  const float* b = a.bpack;
-  bf16* hin = nullptr;
-  bf16* hout = s.buf0;
-  const Seg none = {nullptr, 0, nullptr, 0};
-  for (int i = 0; i < a.n_layers; ++i) {
-    if (i == 0) {
-      gemm_layer(Seg{s.encx, s.LDE, w, DE}, none, b, W, true, hout, s.LDH,
-                 s.slabs);
-      w += DE * W;
-    } else if ((a.skip_mask >> i) & 1) {
-      gemm_layer(Seg{hin, s.LDH, w, W}, Seg{s.encx, s.LDE, w + W * W, DE}, b,
-                 W, true, hout, s.LDH, s.slabs);
-      w += W * W + DE * W;
-    } else {
-      gemm_layer(Seg{hin, s.LDH, w, W}, none, b, W, true, hout, s.LDH,
-                 s.slabs);
-      w += W * W;
-    }
-    b += W;
-    __syncthreads();
-    if (acts) rows_to_global(hout, s.LDH, acts, LA, r0, i * W, W);
-    hin = hout;
-    hout = (hout == s.buf0) ? s.buf1 : s.buf0;
-  }
-  return hin;
 }
 
 // feat = bf16(h_last @ w_conn + b_conn) into `other`; then
@@ -247,30 +227,427 @@ __device__ void heads_forward(const TrainArgs& a, const Smem& s, int r0,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    mlp_train_fwd_kernel(TrainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a, false);
-  const int W = a.width, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * kRows;
-  stage_and_encode(a, s, r0);
-  bf16* hl = trunk_forward(a, s, r0, a.acts);
-  // sigma head from h_last: a warp per row, lanes across k
-  const bf16* w_sigma = a.wpack + trunk_offset(a, a.n_layers);
-  const float b_sigma = a.bpack[a.n_layers * W];
-  for (int row = warp; row < kRows; row += kThreads / 32) {
-    const bf16* h = hl + row * s.LDH;
-    float v = 0.f;
-    for (int k = lane; k < W; k += 32)
-      v += __bfloat162float(h[k]) * __bfloat162float(w_sigma[k]);
-    v = warp_sum(v) + b_sigma;
-    if (lane == 0) s.sig[row] = v;
+// ---- the forward (mlp_train_fwd_kernel) -------------------------------
+//
+// Shared memory, from a 1024-byte boundary: the weight ring (n_stages
+// stages of W * 128 bytes: one 64-row x W weight tile as W / 64 boxes of
+// 64 x 64), then each consumer's activation tile (64 rows x W), its encx
+// tile and its encd tile, then the ring's full and empty mbarriers. Every
+// tile is K-major and 128B-swizzled in blocks of 64 rows x 64 columns
+// (kBlock bytes), the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B reads and
+// writes and wgmma's descriptors name.
+constexpr int kFwdConsumers = 2;                  // warpgroups of 64 rows
+// ... and a producer warpgroup, whose first thread issues the loads: a
+// whole warpgroup, so that setmaxnreg can give its registers to the
+// consumers (a lone ninth warp would cap every thread at 168 registers,
+// 3 warps x 32 x 168 of a sub-partition's 16,384, and spill the 128
+// accumulators of a 256-wide layer)
+constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
+constexpr int kFwdProducerRegs = 40;
+constexpr int kFwdConsumerRegs = 232;
+static_assert(128 * kFwdProducerRegs + 128 * kFwdConsumers * kFwdConsumerRegs
+                  <= 65536, "the register file");
+constexpr int kFwdMaxStages = 4;
+constexpr int kBlock = 64 * 64 * 2;              // a 64 x 64 bf16 block
+constexpr size_t kMaxSmem = 227 * 1024;          // a block's limit (H100)
+
+__host__ __device__ __forceinline__ int enc_blocks(int k) {
+  return (k + 63) / 64;
+}
+
+size_t fwd_smem_bytes(int width, int d_enc_pad, int d_dir_pad,
+                      int n_stages) {
+  return 1024 + (size_t)(n_stages + kFwdConsumers) * width * 128 +
+         (size_t)kFwdConsumers *
+             (enc_blocks(d_enc_pad) + enc_blocks(d_dir_pad)) * kBlock +
+         2 * n_stages * sizeof(uint64_t);
+}
+
+// Byte address of element (row, col) of a tile in that layout.
+__device__ __forceinline__ unsigned char* tile_at(unsigned char* tile,
+                                                  int row, int col) {
+  return tile + (col >> 6) * kBlock + row * 128 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// The encoded features of v (one row's 3 coordinates) into row `row` of
+// an encoding tile of n_blocks blocks, 16-byte chunks c0, c0 + 2, ...
+__device__ __forceinline__ void encode_row(unsigned char* tile,
+                                           const float* v, int row, int c0,
+                                           int n_blocks, int n_freqs,
+                                           const float* freq,
+                                           const float* mask) {
+  for (int c = c0; c < 8 * n_blocks; c += 2) {
+    uint32_t p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * c + 2 * e;
+      const __nv_bfloat162 b = __floats2bfloat162_rn(
+          encode_lane(v, col, n_freqs, freq, mask),
+          encode_lane(v, col + 1, n_freqs, freq, mask));
+      p[e] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(tile_at(tile, row, 8 * c)) =
+        make_uint4(p[0], p[1], p[2], p[3]);
   }
-  heads_forward(a, s, r0, hl, hl == s.buf0 ? s.buf1 : s.buf0, nullptr, 0);
-  for (int e = threadIdx.x; e < 4 * kRows; e += kThreads) {
-    const int row = e >> 2, c = e & 3;
-    if (r0 + row < a.N)
-      a.out[(size_t)r0 * 4 + e] = c < 3 ? s.rgb[3 * row + c] : s.sig[row];
+}
+
+// The producer: every weight tile of the MLP in the consumers' order, by
+// TMA into the ring. map_w views wpack as [rows, W] (the trunk matrices,
+// w_sigma, w_conn: ops/kernels/mlp_train.py::wpack_views), map_br the
+// branch's [w_branch_h; w_branch_d] as [W + DD, W / 2]. A stage always
+// loads 64 rows: past a K below 64 they are the next matrix's rows (or
+// zeros past the map), which the consumers' k16 steps never reach.
+template <int W, int NB>
+__device__ __forceinline__ void fwd_produce(const CUtensorMap* map_w,
+                                            const CUtensorMap* map_br,
+                                            const TrainArgs& a,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            int n_stages) {
+  int it = 0;
+  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
+    for (int kc = 0; kc < k; kc += 64, ++it) {
+      const int s = it % n_stages;
+      if (it >= n_stages) mbar_wait(&empty[s], (it / n_stages - 1) & 1);
+      unsigned char* st = ring + s * (W * 128);
+      mbar_arrive_expect_tx(&full[s], n_box * kBlock);
+      for (int q = 0; q < n_box; ++q)
+        tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
+    }
+  };
+  const int DE = a.d_enc_pad;
+  int row = DE;
+  feed(map_w, 0, DE, W / 64);                         // W_0
+  for (int i = 1; i < a.n_layers; ++i) {
+    feed(map_w, row, W, W / 64);                      // W_i (its h part)
+    row += W;
+    if ((a.skip_mask >> i) & 1) {
+      feed(map_w, row, DE, W / 64);                   // its encoding part
+      row += DE;
+    }
+  }
+  feed(map_w, row + 1, W, W / 64);                    // w_conn, past w_sigma
+  feed(map_br, 0, W, NB / 64);                        // w_branch_h
+  feed(map_br, W, a.d_dir_pad, NB / 64);              // w_branch_d
+}
+
+// One product segment of a consumer: acc (+)= A[64, :K] @ B[:K, N], A its
+// K-major tile at shared address a, B the ring's next ceil(K / 64)
+// stages (N-major, W / 64 or NB / 64 boxes of 64 columns). Only the k16
+// steps below K run. Each stage goes back to the producer (one arrival of
+// this warpgroup) once its wgmma have completed; returns with all of them
+// complete. `it` counts the stages this consumer has taken.
+template <int NACC>
+__device__ __forceinline__ void fwd_product(float (&acc)[NACC], uint32_t a,
+                                            int K, bool zero, uint32_t ring,
+                                            int stage_bytes, uint64_t* full,
+                                            uint64_t* empty, int n_stages,
+                                            int& it, bool lead) {
+  const int nk = (K + 63) / 64;
+  for (int kc = 0; kc < nk; ++kc, ++it) {
+    const int s = it % n_stages;
+    mbar_wait(&full[s], (it / n_stages) & 1);
+    const uint32_t b = ring + s * stage_bytes;
+    const int steps = min(4, (K - 64 * kc) / 16);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < steps)
+        wgmma_kn(acc, sw128_desc(a + kc * kBlock + 32 * kk, 16, 1024),
+                 sw128_desc(b + 2048 * kk, kBlock, 1024),
+                 zero && kc == 0 && kk == 0 ? 0 : 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();          // the stage before this one has been read
+    if (kc > 0 && lead) mbar_arrive(&empty[(it - 1) % n_stages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lead) mbar_arrive(&empty[(it - 1) % n_stages]);
+}
+
+// A layer's epilogue on this thread's accumulators (rows 16 warp + lane / 4
+// + 8 h of the warpgroup's 64, columns 8 j + 2 (lane % 4) + e):
+// tile = bf16(act(acc + bias)). With w_sigma (the last trunk layer), also
+// sig[h] += the row's bf16 activations . w_sigma over this thread's
+// columns. The bias (and w_sigma) of kChunk column blocks are loaded
+// before their stores, so that their latencies overlap; the bf16 pairs go
+// to the tile by stmatrix, four 8 x 8 blocks at a time.
+template <int NACC>
+__device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
+                                             const float* bias, bool relu,
+                                             unsigned char* tile,
+                                             const bf16* w_sigma,
+                                             float (&sig)[2]) {
+  constexpr int kChunk = 8;
+  const int lane = threadIdx.x & 31;
+  // stmatrix: lane l addresses row l % 8 of 8 x 8 block m = l / 8 of the
+  // four (column block j + m / 2, row half m % 2) that one x4 stores
+  const int m = lane >> 3;
+  const int srow = 16 * ((threadIdx.x >> 5) & 3) + 8 * (m & 1) + (lane & 7);
+#pragma unroll
+  for (int j0 = 0; j0 < NACC / 4; j0 += kChunk) {
+    float bv[kChunk][2], wv[kChunk][2];
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int col = 8 * (j0 + jj) + 2 * (lane & 3);
+      bv[jj][0] = bias[col];
+      bv[jj][1] = bias[col + 1];
+      wv[jj][0] = wv[jj][1] = 0.f;
+      if (w_sigma) {
+        wv[jj][0] = __bfloat162float(w_sigma[col]);
+        wv[jj][1] = __bfloat162float(w_sigma[col + 1]);
+      }
+    }
+    uint32_t packed[kChunk][2];
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h] + bv[jj][0];
+        float v1 = acc[4 * j + 2 * h + 1] + bv[jj][1];
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+        packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
+        if (w_sigma)
+          sig[h] += __low2float(p) * wv[jj][0] + __high2float(p) * wv[jj][1];
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; jj += 2)
+      stsm_x4(smem_u32(tile_at(tile, srow, 8 * (j0 + jj + (m >> 1)))),
+              packed[jj][0], packed[jj][1], packed[jj + 1][0],
+              packed[jj + 1][1]);
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A consumer warpgroup: its 64 rows from row0 through the whole MLP.
+template <int W, int NB>
+__device__ __forceinline__ void fwd_consume(const CUtensorMap* map_acts,
+                                            const TrainArgs& a,
+                                            unsigned char* ring,
+                                            unsigned char* act,
+                                            unsigned char* encx,
+                                            unsigned char* encd,
+                                            uint64_t* full, uint64_t* empty,
+                                            int n_stages, int wg) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const bool lead = t == 0;
+  const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad, Wh = W / 2;
+  const int row0 = blockIdx.x * kRows + 64 * wg;
+  const int bar = 1 + wg;                           // this warpgroup's barrier
+
+  {  // encode: thread t owns row t % 64 and every other 16-byte chunk
+    const int row = t & 63, g = row0 + row;
+    float xv[3], dv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      xv[k] = g < a.N ? a.x[(size_t)g * 3 + k] : 0.f;
+      dv[k] = g < a.N ? a.d[(size_t)g * 3 + k] : 0.f;
+    }
+    const float* freq_x = a.enc;
+    const float* mask_x = freq_x + a.n_freqs;
+    const float* freq_d = mask_x + a.n_freqs;
+    const float* mask_d = freq_d + a.n_freqs_views;
+    encode_row(encx, xv, row, t >> 6, enc_blocks(DE), a.n_freqs, freq_x,
+               mask_x);
+    encode_row(encd, dv, row, t >> 6, enc_blocks(DD), a.n_freqs_views,
+               freq_d, mask_d);
+  }
+  fence_proxy_async();
+  named_bar(bar, 128);
+
+  const uint32_t ring_a = smem_u32(ring), act_a = smem_u32(act);
+  const uint32_t encx_a = smem_u32(encx), encd_a = smem_u32(encd);
+  const int stage_bytes = W * 128;
+  const bf16* w_sigma = a.wpack + trunk_offset(a, L);
+  const float* b = a.bpack;
+  int it = 0;
+  float sig[2] = {0.f, 0.f};
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  {
+    float acc[W / 2];
+    for (int i = 0; i < L; ++i) {
+      if (i == 0) {
+        fwd_product(acc, encx_a, DE, true, ring_a, stage_bytes, full, empty,
+                    n_stages, it, lead);
+      } else {
+        fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
+                    n_stages, it, lead);
+        if ((a.skip_mask >> i) & 1)
+          fwd_product(acc, encx_a, DE, false, ring_a, stage_bytes, full,
+                      empty, n_stages, it, lead);
+      }
+      if (lead) bulk_wait_read<0>();    // the last store has read the tile
+      named_bar(bar, 128);
+      fwd_epilogue(acc, b + i * W, true, act,
+                   i == L - 1 ? w_sigma : nullptr, sig);
+      fence_proxy_async();
+      named_bar(bar, 128);
+      if (lead && a.acts) {
+        for (int q = 0; q < W / 64; ++q)
+          tma_store_2d(map_acts, act + q * kBlock, i * W + 64 * q, row0);
+        bulk_commit();
+      }
+    }
+    const float b_sigma = b[L * W];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = quad_sum(sig[h]) + b_sigma;
+      const int g = row0 + quad_row + 8 * h;
+      if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + 3] = v;
+    }
+    // feat = bf16(h_last @ w_conn + b_conn), over h_last
+    fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
+                n_stages, it, lead);
+    if (lead) bulk_wait_read<0>();
+    named_bar(bar, 128);
+    fwd_epilogue(acc, b + L * W + 1, false, act, nullptr, sig);
+    fence_proxy_async();
+    named_bar(bar, 128);
+  }
+  // br = bf16(relu(feat @ w_branch_h + encd @ w_branch_d + b_branch)), in
+  // registers; rgb = sigmoid(br @ w_rgb + b_rgb)
+  float acc[NB / 2];
+  fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
+              n_stages, it, lead);
+  fwd_product(acc, encd_a, DD, false, ring_a, stage_bytes, full, empty,
+              n_stages, it, lead);
+  const float* b_branch = b + L * W + 1 + W;
+  const bf16* w_rgb = w_sigma + W + W * W + W * Wh + DD * Wh;
+  float rgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < Wh / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float b0 = b_branch[col], b1 = b_branch[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(
+          fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
+          fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
+      const float v0 = __low2float(p), v1 = __high2float(p);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        rgb[h][c] += v0 * __bfloat162float(w_rgb[3 * col + c]) +
+                     v1 * __bfloat162float(w_rgb[3 * col + 3 + c]);
+    }
+  }
+  const float* b_rgb = b_branch + Wh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = quad_sum(rgb[h][c]) + b_rgb[c];
+      if ((lane & 3) == 0 && g < a.N)
+        a.out[(size_t)g * 4 + c] = 1.f / (1.f + expf(-v));
+    }
+  }
+  if (lead) bulk_wait<0>();             // the saved activations are written
+}
+
+// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
+// producer's. map_acts is read only when a.acts is set.
+template <int W>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    mlp_train_fwd_kernel(const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_br,
+                         const __grid_constant__ CUtensorMap map_acts,
+                         TrainArgs a, int n_stages) {
+  constexpr int NB = W / 2 < 64 ? 64 : W / 2;     // the branch product's N
+  extern __shared__ unsigned char fwd_smem_raw[];
+  // the ring from the next 1024-byte boundary, by pointer arithmetic on the
+  // shared array (an integer round trip would make every tile access a
+  // generic one, which the compiler cannot tell from the global loads)
+  unsigned char* ring =
+      fwd_smem_raw + ((1024 - (smem_u32(fwd_smem_raw) & 1023)) & 1023);
+  const int nbx = enc_blocks(a.d_enc_pad), nbd = enc_blocks(a.d_dir_pad);
+  unsigned char* act = ring + n_stages * W * 128;
+  unsigned char* encx = act + kFwdConsumers * W * 128;
+  unsigned char* encd = encx + kFwdConsumers * nbx * kBlock;
+  uint64_t* full = reinterpret_cast<uint64_t*>(encd + kFwdConsumers * nbd *
+                                                          kBlock);
+  uint64_t* empty = full + n_stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFwdConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {                       // the producer
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 128 * kFwdConsumers)
+      fwd_produce<W, NB>(&map_w, &map_br, a, ring, full, empty, n_stages);
+  } else {
+    setmaxnreg_inc<kFwdConsumerRegs>();
+    fwd_consume<W, NB>(&map_acts, a, ring, act + wg * W * 128,
+                       encx + wg * nbx * kBlock, encd + wg * nbd * kBlock,
+                       full, empty, n_stages, wg);
+  }
+}
+
+// The forward at width W on `st`: the tensor maps of wpack (trunk_rows x
+// W, then the branch's [W + DD, W / 2] right after it) and of acts, the
+// deepest ring that fits in shared memory.
+template <int W>
+cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
+                         cudaStream_t st) {
+  const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
+  const int n_blocks = (a.N + kRows - 1) / kRows;
+  CUtensorMap map_w, map_br, map_acts;
+  if (!encode_bf16_map(&map_w, a.wpack, trunk_rows, W, W, 64) ||
+      !encode_bf16_map(&map_br, a.wpack + (size_t)trunk_rows * W, W + DD,
+                       W / 2, W / 2, 64))
+    return cudaErrorInvalidValue;
+  if (a.acts == nullptr)
+    map_acts = map_w;
+  else if (!encode_bf16_map(&map_acts, a.acts, n_blocks * kRows, L * W,
+                            L * W, 64))
+    return cudaErrorInvalidValue;
+  int n_stages = kFwdMaxStages;
+  while (n_stages > 2 && fwd_smem_bytes(W, DE, DD, n_stages) > kMaxSmem)
+    --n_stages;
+  const size_t smem = fwd_smem_bytes(W, DE, DD, n_stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  mlp_train_fwd_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
+      map_w, map_br, map_acts, a, n_stages);
+  return cudaGetLastError();
+}
+
+// The forward into a.out and (when set) a.acts. The kernel takes W of 64,
+// 128 or 256 and encodings up to 128 wide; trunk_rows must be the rows of
+// wpack's [rows, W] view (the trunk, w_sigma and w_conn).
+cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
+  const int W = a.width;
+  if (a.d_enc_pad > 128 || a.d_dir_pad > 128 ||
+      (size_t)trunk_rows * W != trunk_offset(a, a.n_layers) + W + W * W)
+    return cudaErrorInvalidValue;
+  if (a.N == 0) return cudaGetLastError();
+  switch (W) {
+    case 64:
+      return launch_fwd_w<64>(a, trunk_rows, st);
+    case 128:
+      return launch_fwd_w<128>(a, trunk_rows, st);
+    case 256:
+      return launch_fwd_w<256>(a, trunk_rows, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -432,7 +809,7 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a, true);
+  const Smem s = carve(smem_raw, a);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = a.width, Wh = W / 2, L = a.n_layers;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
@@ -448,15 +825,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_and_encode(a, s, r0);
   rows_to_global(s.encx, s.LDE, a.xs, XW, r0, 0, DE);
   rows_to_global(s.encd, s.LDD, a.xs, XW, r0, DE, DD);
-  bf16* hl;
-  if (a.recompute) {
-    hl = trunk_forward(a, s, r0, a.acts);
-  } else {
-    rows_from_global(a.acts, LA, r0, (L - 1) * W, s.buf0, s.LDH, W);
-    __syncthreads();
-    hl = s.buf0;
-  }
-  bf16* other = hl == s.buf0 ? s.buf1 : s.buf0;
+  rows_from_global(a.acts, LA, r0, (L - 1) * W, s.buf0, s.LDH, W);
+  __syncthreads();
+  bf16* hl = s.buf0;
+  bf16* other = s.buf1;
   heads_forward(a, s, r0, hl, other, a.xs, XW);
 
   // rgb head: d rgb_pre = d rgb * r (1 - r); sigma: d sigma as it is
@@ -574,59 +946,59 @@ void fill_args(TrainArgs& a, const void* x, const void* d, const void* wpack,
 // Plain C entries for ctypes. Pointers are device pointers of contiguous
 // tensors validated by the Python wrapper (ops/kernels/mlp_train.py), which
 // also allocates every output and scratch buffer. Each launches on `stream`
-// and returns cudaGetLastError() (0 = launched).
+// and returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue
+// for a shape the kernels do not take.
 
-// out [n, 4]; acts [round_up(n, 128), n_layers * width] or null.
+// out [n, 4]; acts [round_up(n, 128), n_layers * width] or null; trunk_rows
+// the rows of wpack's [rows, width] view (mlp_train.py::wpack_views).
 extern "C" int fsnerf_mlp_train_fwd(
     const void* x, const void* d, const void* wpack, const void* bpack,
     const void* enc, void* out, void* acts, int n, int n_layers,
     int skip_mask, int width, int n_freqs, int n_freqs_views, int d_enc_pad,
-    int d_dir_pad, void* stream) {
+    int d_dir_pad, int trunk_rows, void* stream) {
   using namespace fsnerf;
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
   a.out = static_cast<float*>(out);
   a.acts = static_cast<bf16*>(acts);
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, false);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_blocks = (n + kRows - 1) / kRows;
-  if (n_blocks > 0)
-    mlp_train_fwd_kernel<<<n_blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_fwd(a, trunk_rows, static_cast<cudaStream_t>(stream)));
 }
 
 // dw [n_w], db [n_b]: bf16-rounded gradients in the wpack / bpack layouts.
-// acts is read (recompute = 0) or written (recompute = 1); xs, dy, pbias
-// and part are scratch of the shapes documented in TrainArgs and
+// acts is the forward's stream, or with fwd_out ([n, 4] scratch) the
+// buffer the forward kernel writes it into first (recompute mode); xs, dy,
+// pbias and part are scratch of the shapes documented in TrainArgs and
 // train_common.cuh::dw_gemm_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
 // 3] int32.
 extern "C" int fsnerf_mlp_train_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
-    const void* bpack, const void* enc, void* acts,
-    int recompute, void* xs, void* dy, void* pbias, const void* jobs,
-    const void* tiles, int n_tiles, void* part, int split_rows, void* dw,
-    void* db, int n, int n_layers, int skip_mask, int width, int n_freqs,
-    int n_freqs_views, int d_enc_pad, int d_dir_pad, void* stream) {
+    const void* bpack, const void* enc, void* acts, void* fwd_out, void* xs,
+    void* dy, void* pbias, const void* jobs, const void* tiles, int n_tiles,
+    void* part, int split_rows, void* dw, void* db, int n, int n_layers,
+    int skip_mask, int width, int n_freqs, int n_freqs_views, int d_enc_pad,
+    int d_dir_pad, int trunk_rows, void* stream) {
   using namespace fsnerf;
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
   a.acts = static_cast<bf16*>(acts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (fwd_out != nullptr) {
+    a.out = static_cast<float*>(fwd_out);
+    err = launch_fwd(a, trunk_rows, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   a.dout = static_cast<const float*>(dout);
   a.xs = static_cast<bf16*>(xs);
   a.dy = static_cast<bf16*>(dy);
   a.pbias = static_cast<float*>(pbias);
-  a.recompute = recompute;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad, true);
-  cudaError_t err = cudaFuncSetAttribute(
+  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad);
+  err = cudaFuncSetAttribute(
       mlp_train_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,8 +1,10 @@
-// Hopper building blocks of the train backward's tensor-core passes
+// Hopper building blocks of the train kernels' tensor-core passes
 // (mlp_train.cu, siren.cu, train_common.cuh): asynchronous warpgroup
 // matrix multiplies (wgmma) on 128-byte-swizzled shared-memory operands,
-// the Tensor Memory Accelerator's tile loads (TMA) with their mbarriers,
-// 16-byte cp.async copies, and the host's encoding of a 2-D tensor map.
+// the Tensor Memory Accelerator's tile loads and stores (TMA) with their
+// mbarriers and bulk groups, warpgroup-wide named barriers, register
+// moves between warpgroups (setmaxnreg), 16-byte cp.async copies, and the
+// host's encoding of a 2-D tensor map.
 //
 // Shared-memory operand layout (the one TMA's CU_TENSOR_MAP_SWIZZLE_128B
 // writes): a tile of rows of 64 bf16 (128 bytes), row r at byte 128 r, its
@@ -88,10 +90,73 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box of `map` at (col, row) from shared memory at src (laid out as
+// tma_load_2d writes it), committed with the next bulk_commit.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed bulk groups still read
+// their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's committed bulk groups are
+// incomplete (their writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Orders this thread's earlier generic-proxy accesses of shared memory
 // before later async-proxy ones (TMA writes, wgmma reads).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `count` threads (a multiple of 32) on hardware barrier id
+// (1-15; 0 is __syncthreads'): one warpgroup's, leaving the others running.
+__device__ __forceinline__ void named_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Moves registers between the warpgroups of a warp-specialized kernel:
+// every warp of the warpgroup executes it, and the per-thread counts of all
+// warpgroups after it must fit in what the launch allocated.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 b16 matrices to shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; each thread's r_i holds its two elements of
+// matrix i (row lane / 4, columns 2 (lane % 4) + {0, 1}: the accumulator
+// layout of one 8-column block).
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
+                                        uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // ---- cp.async ---------------------------------------------------------
@@ -153,9 +218,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (1ull << 62);
 }
 
-// d[64 x 64] (+)= A (shared, M-major) @ B (shared, N-major); both
-// 128B-swizzled, f32 accumulators in the m64n64 register layout.
-__device__ __forceinline__ void wgmma_mn(float (&d)[32], uint64_t da,
+// d[64 x N] (+)= A @ B, both operands 128B-swizzled in shared memory, f32
+// accumulators in the m64nN register layout (N = 64, 128, 256 for 32, 64,
+// 128 accumulators): B N-major (transposed by the descriptor), A M-major
+// (kTransA 1: the dW pass's X^T) or K-major (kTransA 0: an activation tile
+// [64 rows, K], the train forward's trunk). Use wgmma_mn / wgmma_kn.
+template <int kTransA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -164,7 +233,7 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[32], uint64_t da,
       "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31"
-      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -172,12 +241,11 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
 }
 
-// d[64 x 128] (+)= A (shared, M-major) @ B (shared, N-major); both
-// 128B-swizzled, f32 accumulators in the m64n128 register layout.
-__device__ __forceinline__ void wgmma_mn(float (&d)[64], uint64_t da,
+template <int kTransA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -189,7 +257,7 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -203,12 +271,11 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
 }
 
-// d[64 x 256] (+)= A (shared, M-major) @ B (shared, N-major); both
-// 128B-swizzled, f32 accumulators in the m64n256 register layout.
-__device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t da,
+template <int kTransA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -226,7 +293,7 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t da,
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -253,7 +320,21 @@ __device__ __forceinline__ void wgmma_mn(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
+}
+
+// d (+)= A (shared, M-major) @ B (shared, N-major).
+template <int N>
+__device__ __forceinline__ void wgmma_mn(float (&d)[N], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss<1>(d, da, db, accumulate);
+}
+
+// d (+)= A (shared, K-major) @ B (shared, N-major).
+template <int N>
+__device__ __forceinline__ void wgmma_kn(float (&d)[N], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss<0>(d, da, db, accumulate);
 }
 
 // d[64 x 128] (+)= A (registers, the ldmatrix fragments of this warp's 16

@@ -115,10 +115,10 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_nerf_density.restype = i
     lib.fsnerf_volrend.argtypes = [vp, i, vp, i] + [vp] * 5 + [i, i, vp]
     lib.fsnerf_volrend.restype = i
-    lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
+    lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 9 + [vp]
     lib.fsnerf_mlp_train_fwd.restype = i
     lib.fsnerf_mlp_train_bwd.argtypes = (
-        [vp] * 7 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 8 + [vp])
+        [vp] * 13 + [i, vp, i, vp, vp] + [i] * 9 + [vp])
     lib.fsnerf_mlp_train_bwd.restype = i
     lib.fsnerf_dw_pass.argtypes = [vp, i, vp, i, vp, i, i, vp, vp, i, vp, i,
                                    i, vp, vp]

@@ -7,8 +7,9 @@ sin, reference layout, FreeNeRF band masks), the NeRF MLP with bf16
 operands and f32 accumulation, out [N, 4] = rgb (f32 sigmoid), raw sigma;
 optionally the trunk activations [N, L*W] bf16 for the backward. Backward:
 the weight and bias gradients of the same MLP, rounded to bf16, from the
-saved activations or a recompute of the trunk (bitwise equal either way).
-The positions and directions get no gradient.
+saved activations or, without them, the forward kernel run again into the
+same stream first (bitwise equal either way). The positions and
+directions get no gradient.
 
 `mlp_train_fwd` / `mlp_train_bwd` launch csrc/mlp_train.cu for CUDA tensors
 and run `mlp_train_fwd_reference` / `mlp_train_bwd_reference` only for CPU
@@ -29,6 +30,10 @@ from .render import (_bf16, _round_up, enc_table, encode, heads_forward,
                      pack_weights, trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
+# the widths the forward kernel is built for, and its widest encoding
+# (csrc/mlp_train.cu launch_fwd)
+KERNEL_WIDTHS = (64, 128, 256)
+KERNEL_MAX_ENC = 128
 # weight-gradient output tile: input dims x output dims
 # (csrc/train_common.cuh kDwTileM, kDwTileN), rows per pipeline stage (kDwBk)
 DW_TILE_M, DW_TILE_N, DW_BK = 128, 256, 64
@@ -78,6 +83,28 @@ class TrainLayout:
     def n_b(self) -> int:
         return self.n_layers * self.width + 1 + self.width + \
             self.width // 2 + 3
+
+    def wpack_views(self):
+        """How the forward kernel's tensor maps view wpack (csrc/
+        mlp_train.cu launch_fwd_w): its first trunk_rows * W elements as a
+        [trunk_rows, W] matrix (each trunk matrix, w_sigma, w_conn), the
+        next (W + dd) * W/2 as a [W + dd, W/2] one (w_branch_h, w_branch_d).
+        Returns (trunk_rows, {matrix: (view, first row, rows)}), view
+        "trunk" or "branch"; ".enc" / ".dir" name the encoding part of a
+        skip layer or of the branch."""
+        W, de = self.width, self.de
+        rows, r = {}, 0
+        for i in range(self.n_layers):
+            rows[f"layers.{i}"] = ("trunk", r, de if i == 0 else W)
+            r += rows[f"layers.{i}"][2]
+            if i > 0 and (i - 1) in self.skip:
+                rows[f"layers.{i}.enc"] = ("trunk", r, de)
+                r += de
+        rows["sigma"] = ("trunk", r, 1)
+        rows["connection"] = ("trunk", r + 1, W)
+        rows["branch"] = ("branch", 0, W)
+        rows["branch.dir"] = ("branch", W, self.dd)
+        return r + 1 + W, rows
 
     @property
     def param_names(self) -> Tuple[str, ...]:
@@ -262,6 +289,16 @@ def bwd_operands_reference(x, d, dout, params: TrainParams, acts=None):
 
 
 def _check(name, x, d, params: TrainParams, extra=()):
+    """Validate a CUDA call: shapes, dtypes, one device, contiguity, and an
+    architecture the forward kernel is built for (the backward runs it in
+    recompute mode and reads its activations in saved mode)."""
+    lay = params.layout
+    if (lay.width not in KERNEL_WIDTHS or lay.de > KERNEL_MAX_ENC
+            or lay.dd > KERNEL_MAX_ENC):
+        raise ValueError(f"{name}: the train kernels take widths "
+                         f"{KERNEL_WIDTHS} and encodings up to "
+                         f"{KERNEL_MAX_ENC} wide, not width {lay.width} "
+                         f"with encodings {lay.de} / {lay.dd}")
     N = x.shape[0]
     for nm, a, shape in (("x", x, (N, 3)), ("d", d, (N, 3))) + tuple(extra):
         if tuple(a.shape) != shape or a.dtype != torch.float32:
@@ -304,7 +341,8 @@ def mlp_train_fwd(x, d, params: TrainParams, save_acts: bool = False):
         params.bpack.data_ptr(), params.enc.data_ptr(), out.data_ptr(),
         None if acts is None else acts.data_ptr(), N, lay.n_layers,
         lay.skip_mask, lay.width, lay.n_freqs, lay.n_freqs_views, lay.de,
-        lay.dd, torch.cuda.current_stream(x.device).cuda_stream)
+        lay.dd, lay.wpack_views()[0],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _launch_error(lib, err, "mlp_train_fwd")
     mlp_train_fwd.launches += 1
     return out, acts
@@ -415,7 +453,9 @@ dw_pass.launches = 0
 def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     """The train backward: csrc/mlp_train.cu for CUDA tensors,
     mlp_train_bwd_reference for CPU tensors; same arguments and returns.
-    acts None recomputes the trunk. Counts its launches in
+    acts None recomputes the trunk: on the card the forward kernel runs
+    first, into the acts stream the backward allocates (not counted in
+    `mlp_train_fwd.launches`). Counts its launches in
     `mlp_train_bwd.launches`."""
     if x.device.type == "cpu":
         return mlp_train_bwd_reference(x, d, dout, params, acts)
@@ -425,11 +465,12 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     N, W, Wh = x.shape[0], lay.width, lay.width // 2
     n_pad = _round_up(N, ROWS)
     _check("mlp_train_bwd", x, d, params, (("dout", dout, (N, 4)),))
-    recompute = acts is None
     dev = x.device
-    if recompute:
+    fwd_out = None
+    if acts is None:
         acts = torch.empty((n_pad, lay.n_layers * W), dtype=torch.bfloat16,
                            device=dev)
+        fwd_out = torch.empty((N, 4), dtype=torch.float32, device=dev)
     elif (tuple(acts.shape) != (n_pad, lay.n_layers * W)
           or acts.dtype != torch.bfloat16 or acts.device != dev
           or not acts.is_contiguous()):
@@ -452,11 +493,11 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     err = lib.fsnerf_mlp_train_bwd(
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.enc.data_ptr(), acts.data_ptr(),
-        int(recompute), xs.data_ptr(), dy.data_ptr(), pbias.data_ptr(),
-        jobs.data_ptr(), tiles.data_ptr(), tiles.shape[0], part.data_ptr(),
-        SPLIT_ROWS,
-        dw.data_ptr(), db.data_ptr(), N, lay.n_layers, lay.skip_mask, W,
-        lay.n_freqs, lay.n_freqs_views, lay.de, lay.dd,
+        None if fwd_out is None else fwd_out.data_ptr(), xs.data_ptr(),
+        dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(), tiles.data_ptr(),
+        tiles.shape[0], part.data_ptr(), SPLIT_ROWS, dw.data_ptr(),
+        db.data_ptr(), N, lay.n_layers, lay.skip_mask, W, lay.n_freqs,
+        lay.n_freqs_views, lay.de, lay.dd, lay.wpack_views()[0],
         torch.cuda.current_stream(dev).cuda_stream)
     _launch_error(lib, err, "mlp_train_bwd")
     mlp_train_bwd.launches += 1

@@ -7,8 +7,10 @@ within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
 for the three density activations and a row count that is not a multiple
 of the 128-row tile; two runs bitwise equal. Train forward/backward (mlp_train.cu): rgb within
 5e-3 and sigma within 2e-2 of max |sigma| (the fused-MLP tolerances of
-tests/test_pallas.py), every weight and bias gradient within 2e-2 of that
-tensor's max |plain gradient| (the kernels sum in another order, and each
+tests/test_pallas.py), out and acts bitwise repeatable and acts within one
+bf16 step (plus 1e-3 of the largest) of the plain version's, the widths
+the kernels are not built for refused, every weight and bias gradient
+within 2e-2 of that tensor's max |plain gradient| (the kernels sum in another order, and each
 cotangent is rounded to bf16 before its products, so a rounding flip can
 move a gradient by a bf16 step); gradients bitwise repeatable and bitwise
 equal between the saved-activations and recompute backwards. SIREN
@@ -179,6 +181,92 @@ def test_train_grads_bitwise_repeatable(cuda):
         runs.append(mt.mlp_train_bwd(x, d, dout, params, acts))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# FreeNeRF band masks mid-anneal, for the full (10 / 4 bands) and the small
+# (4 / 2) encodings
+_MASKS = {"full": ([1.0] * 6 + [0.5] + [0.0] * 3, [1.0, 1.0, 0.5, 0.0]),
+          "small": ([1.0, 1.0, 0.4, 0.0], [1.0, 0.5])}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 77, 128, 8192 + 72, 196_608])
+@pytest.mark.parametrize("arch", ["full", "small"])
+def test_train_forward_matches_plain(cuda, arch, n, masked):
+    """The forward alone (the warp-specialized wgmma trunk fed by TMA) at
+    NeRF 8x256 skip 4 and 4x64 skip 2: out against the plain version (rgb
+    5e-3, sigma 2e-2 of max |sigma|); out bitwise equal with and without
+    save_acts; out and acts bitwise repeatable; acts within bf16 rounding
+    of the plain version's, one bf16 step of each value (2^-7 of it) plus
+    1e-3 of the largest activation (the products sum in another order, so
+    a value near a rounding boundary or ReLU's kink can land a step off,
+    and later layers move by less than that)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    width, spec = (256, FULL) if arch == "full" else (64, SMALL)
+    pm, dm = ((torch.tensor(m) for m in _MASKS[arch]) if masked
+              else (None, None))
+    params = _train_params(11, width, spec, cuda, pm, dm)
+    x, d, _ = (a.to(cuda) for a in mlp_inputs(n, seed=6))
+    out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    out2, acts2 = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    out_only, none = mt.mlp_train_fwd(x, d, params)
+    ref, ref_acts = mt.mlp_train_fwd_reference(x, d, params, save_acts=True)
+    torch.cuda.synchronize()
+    assert none is None
+    assert acts.shape == (-(-n // mt.ROWS) * mt.ROWS, ref_acts.shape[1])
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, out2) and torch.equal(acts, acts2)
+    assert torch.equal(out, out_only)
+    assert (out[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert (out[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
+    got, want = acts[:n].float(), ref_acts.float()
+    excess = (got - want).abs() - (want.abs() * 2.0 ** -7
+                                   + 1e-3 * want.abs().max())
+    assert excess.max() <= 0, float(excess.max())
+
+
+def test_train_kernels_refuse_what_they_are_not_built_for(cuda):
+    """Widths other than 64, 128, 256 and encodings wider than 128 raise
+    before a launch, in the forward and in both backward modes."""
+    for width, spec in ((96, SMALL), (32, SMALL),
+                        (256, dict(FULL, n_freqs=24))):
+        params = _train_params(12, width, spec, cuda)
+        x, d, target = (a.to(cuda) for a in mlp_inputs(200, seed=7))
+        dout = mse_cotangent(
+            mt.mlp_train_fwd_reference(x, d, params)[0], target)
+        acts = torch.zeros((256, spec["n_layers"] * width),
+                           dtype=torch.bfloat16, device=cuda)
+        before = (mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches)
+        with pytest.raises(ValueError, match="train kernels take widths"):
+            mt.mlp_train_fwd(x, d, params, save_acts=True)
+        with pytest.raises(ValueError, match="train kernels take widths"):
+            mt.mlp_train_bwd(x, d, dout, params, None)
+        with pytest.raises(ValueError, match="train kernels take widths"):
+            mt.mlp_train_bwd(x, d, dout, params, acts)
+        assert (mt.mlp_train_fwd.launches,
+                mt.mlp_train_bwd.launches) == before
+
+
+@pytest.mark.parametrize("arch", ["full", "small"])
+def test_recompute_backward_is_forward_then_saved(cuda, arch):
+    """The recompute-mode backward runs the forward kernel into its own acts
+    stream, then the saved-mode passes: its gradients are bitwise those of
+    the forward followed by the saved-mode backward, and only the backward
+    wrapper counts a launch."""
+    width, spec = (256, FULL) if arch == "full" else (64, SMALL)
+    params = _train_params(13, width, spec, cuda)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(3000, seed=8))
+    dout = mse_cotangent(mt.mlp_train_fwd(x, d, params)[0], target)
+    f0, b0 = mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches
+    recomputed = mt.mlp_train_bwd(x, d, dout, params, None)
+    assert (mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches) == \
+        (f0, b0 + 1)
+    _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    saved = mt.mlp_train_bwd(x, d, dout, params, acts)
+    torch.cuda.synchronize()
+    for a, b in zip(recomputed, saved):
         assert torch.equal(a, b)
 
 

@@ -167,6 +167,52 @@ def test_packed_layout_round_trips():
                            .bfloat16().float()), i
 
 
+@pytest.mark.parametrize("arch", [
+    dict(n_layers=4, d_filter=64, skip=(2,), n_freqs=4, n_freqs_views=2),
+    dict(n_layers=8, d_filter=256, skip=(4,), n_freqs=10, n_freqs_views=4)])
+def test_wpack_views_match_the_packer(arch):
+    """The train forward's tensor maps view wpack as [trunk_rows, W] and
+    then [W + dd, W/2] (TrainLayout.wpack_views): each matrix's rows there
+    hold the module's weight transposed (bf16), its padded rows zero, the
+    sigma row sigma.weight; the row blocks tile each view, and wpack ends
+    with the rgb head right after the branch view."""
+    sd = state_dict_from_jax(nerf_params_np(14, **arch))
+    lay = mt.TrainLayout(arch["n_layers"], arch["skip"], arch["d_filter"],
+                         arch["n_freqs"], arch["n_freqs_views"])
+    p = mt.pack_train_params(sd, lay, kr.enc_table(lay.n_freqs,
+                                                   lay.n_freqs_views))
+    W, Wh = lay.width, lay.width // 2
+    trunk_rows, rows = lay.wpack_views()
+    flat = p.wpack.float()
+    end = trunk_rows * W + (W + lay.dd) * Wh
+    views = {"trunk": flat[:trunk_rows * W].reshape(trunk_rows, W),
+             "branch": flat[trunk_rows * W:end].reshape(W + lay.dd, Wh)}
+    want = {"sigma": sd["sigma.weight"],
+            "connection": sd["connection.weight"].t(),
+            "branch": sd["branch.weight"][:, :W].t(),
+            "branch.dir": sd["branch.weight"][:, W:].t()}
+    for i in range(lay.n_layers):
+        w = sd[f"layers.{i}.weight"]
+        want[f"layers.{i}"] = w[:, :W].t() if i else w.t()
+        if i and (i - 1) in lay.skip:
+            want[f"layers.{i}.enc"] = w[:, W:].t()
+    assert set(rows) == set(want)
+    spans = {"trunk": [], "branch": []}
+    for name, (view, row, n) in rows.items():
+        block, w = views[view][row:row + n], want[name].bfloat16().float()
+        assert block.shape[0] == n and n >= w.shape[0], name
+        assert torch.equal(block[:w.shape[0]], w), name
+        assert not block[w.shape[0]:].any(), name
+        spans[view].append((row, row + n))
+    for view, size in (("trunk", trunk_rows), ("branch", W + lay.dd)):
+        bounds = sorted(spans[view])
+        assert bounds[0][0] == 0 and bounds[-1][1] == size, view
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:])), view
+    assert torch.equal(flat[end:], sd["rgb.weight"].t().bfloat16().float()
+                       .reshape(-1))
+    assert flat.numel() == lay.n_w
+
+
 def test_weight_gradient_plan_covers_the_packed_layout():
     """The backward's weight-gradient jobs tile the packed gradient without
     gaps or overlaps and read inside the scratch rows' widths; the plan's
