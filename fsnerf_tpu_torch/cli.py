@@ -125,8 +125,9 @@ def make_render_model_fn(model, cfg, step=None, device=None):
 
 def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     """The fused ray-march renderer (ops/kernels/render.py) when the config
-    allows it (fused_render on; SiNeRF, or NeRF with view dirs and the skip
-    feeding a trunk layer; occgrid marches the compacted samples,
+    allows it (fused_render on; SiNeRF, or NeRF with view dirs, the skip
+    feeding a trunk layer and, on the card (device None or CUDA), a width
+    the NeRF march takes; occgrid marches the compacted samples,
     hierarchical its fine pass); None otherwise. `step` anneals the
     FreeNeRF masks."""
     if not (cfg.model.fused_render
@@ -142,7 +143,10 @@ def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     if cfg.encoder.no_dirs or (skip and max(skip) >= cfg.model.n_layers - 1):
         return None
     from .ops.kernels.render import make_fused_ray_renderer
-    from .train.step import make_masks
+    from .train.step import make_masks, nerf_kernels_take
+
+    if not nerf_kernels_take(cfg, "cuda" if device is None else device):
+        return None
 
     pos_mask, dir_mask = ((None, None) if step is None
                           else make_masks(cfg, step))
@@ -207,11 +211,12 @@ def rebuild_grid(model, cfg, aabb, device=None):
 
 def make_composite_fn(cfg, device=None):
     """The eval-time compositing of the model's outputs: the forward kernel
-    ops/kernels/volrend.py::volume_render_fused when resolve_fused_kernel
-    says so, else ops/volrend.py::volume_render."""
-    from .train.step import resolve_fused_kernel
+    ops/kernels/volrend.py::volume_render_fused when the fused kernels are
+    wanted (it reads no weights, so any architecture), else
+    ops/volrend.py::volume_render."""
+    from .train.step import fused_kernels_wanted
 
-    if resolve_fused_kernel(cfg, device):
+    if fused_kernels_wanted(cfg, device):
         from .ops.kernels.volrend import volume_render_fused
         return volume_render_fused
     from .ops.volrend import volume_render

@@ -27,13 +27,9 @@ import torch
 
 from ...core.encoding import encoded_dim
 from .render import (_bf16, _round_up, enc_table, encode, heads_forward,
-                     pack_weights, trunk_forward, unpack)
+                     kernel_arch_error, pack_weights, trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
-# the widths the forward kernel is built for, and its widest encoding
-# (csrc/mlp_train.cu launch_fwd)
-KERNEL_WIDTHS = (64, 128, 256)
-KERNEL_MAX_ENC = 128
 # weight-gradient output tile: input dims x output dims
 # (csrc/train_common.cuh kDwTileM, kDwTileN), rows per pipeline stage (kDwBk)
 DW_TILE_M, DW_TILE_N, DW_BK = 128, 256, 64
@@ -113,16 +109,29 @@ class TrainLayout:
             "sigma", "connection", "branch", "rgb"]
         return tuple(f"{m}.{k}" for m in mods for k in ("weight", "bias"))
 
+    def kernel_error(self) -> Optional[str]:
+        """Why the train kernels refuse this layout on the card, or None
+        (their plain versions take any width that is a multiple of 32)."""
+        return kernel_arch_error(self.width, self.de, self.dd,
+                                 "train kernels")
+
     @staticmethod
-    def from_config(cfg) -> "TrainLayout":
+    def from_config(cfg, device=None) -> "TrainLayout":
+        """The layout of cfg's NeRF for the train kernels on `device` (None:
+        the card); ValueError if they do not take it there."""
         skip = tuple(cfg.model.skip)
         if skip and max(skip) >= cfg.model.n_layers - 1:
             raise ValueError("the train kernels need the skip concat to "
                              "feed a trunk layer")
         if cfg.model.d_filter % 32:
             raise ValueError("width must be a multiple of 32")
-        return TrainLayout(cfg.model.n_layers, skip, cfg.model.d_filter,
-                           cfg.encoder.n_freqs, cfg.encoder.n_freqs_views)
+        lay = TrainLayout(cfg.model.n_layers, skip, cfg.model.d_filter,
+                          cfg.encoder.n_freqs, cfg.encoder.n_freqs_views)
+        err = lay.kernel_error()
+        if err is not None and (device is None
+                                or torch.device(device).type == "cuda"):
+            raise ValueError(err)
+        return lay
 
     def grads_from_packed(self, dw: torch.Tensor, db: torch.Tensor):
         """Packed gradients -> one tensor per parameter, in param_names
@@ -292,13 +301,9 @@ def _check(name, x, d, params: TrainParams, extra=()):
     """Validate a CUDA call: shapes, dtypes, one device, contiguity, and an
     architecture the forward kernel is built for (the backward runs it in
     recompute mode and reads its activations in saved mode)."""
-    lay = params.layout
-    if (lay.width not in KERNEL_WIDTHS or lay.de > KERNEL_MAX_ENC
-            or lay.dd > KERNEL_MAX_ENC):
-        raise ValueError(f"{name}: the train kernels take widths "
-                         f"{KERNEL_WIDTHS} and encodings up to "
-                         f"{KERNEL_MAX_ENC} wide, not width {lay.width} "
-                         f"with encodings {lay.de} / {lay.dd}")
+    err = params.layout.kernel_error()
+    if err is not None:
+        raise ValueError(f"{name}: {err}")
     N = x.shape[0]
     for nm, a, shape in (("x", x, (N, 3)), ("d", d, (N, 3))) + tuple(extra):
         if tuple(a.shape) != shape or a.dtype != torch.float32:
@@ -539,13 +544,16 @@ def _band_table(n_freqs: int, n_freqs_views: int, log_space: bool,
     return enc_table(n_freqs, n_freqs_views, log_space, device=device)
 
 
-def make_fused_train_model_fn(cfg, save_acts: Optional[bool] = None):
+def make_fused_train_model_fn(cfg, save_acts: Optional[bool] = None,
+                              device=None):
     """The trainable model_fn of the train step: apply_fn(model, x, dirs,
     pos_mask=None, dir_mask=None) -> [..., 4] whose gradient with respect
-    to the NeRF module's parameters runs through the train kernels.
+    to the NeRF module's parameters runs through the train kernels on
+    `device` (None: the card; TrainLayout.from_config says which
+    architectures they take).
 
     save_acts: None resolves from cfg.model.fused_save_acts."""
-    layout = TrainLayout.from_config(cfg)
+    layout = TrainLayout.from_config(cfg, device)
     if save_acts is None:
         save_acts = bool(cfg.model.fused_save_acts)
     log_space = cfg.encoder.log_space

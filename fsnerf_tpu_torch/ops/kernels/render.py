@@ -36,10 +36,26 @@ from .fastmath import sincos_fast
 _DENSITY_ACT = {"none": 0, "relu": 1, "trunc_exp": 2}
 # the kernel's GEMM tile: block_rows * chunk_s rows per chunk step
 KERNEL_ROWS = 128
+# the widths the train forward kernel is built for, and its widest
+# encoding (csrc/mlp_train.cu launch_fwd)
+KERNEL_WIDTHS = (64, 128, 256)
+KERNEL_MAX_ENC = 128
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
+                      what: str = "kernels") -> Optional[str]:
+    """Why the warp-specialized NeRF kernels (`what`) refuse a width and
+    padded encoding widths, or None if they take them."""
+    if (width in KERNEL_WIDTHS and d_enc_pad <= KERNEL_MAX_ENC
+            and d_dir_pad <= KERNEL_MAX_ENC):
+        return None
+    return (f"the {what} take widths {KERNEL_WIDTHS} and encodings up to "
+            f"{KERNEL_MAX_ENC} wide, not width {width} with encodings "
+            f"{d_enc_pad} / {d_dir_pad}")
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

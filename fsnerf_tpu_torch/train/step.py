@@ -74,22 +74,46 @@ def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
                             betas=(0.9, 0.999), eps=1e-8)
 
 
-def resolve_fused_kernel(cfg, device) -> bool:
+def fused_kernels_wanted(cfg, device) -> bool:
     """ModelConfig.fused_kernel with its auto mode (None) resolved: on for
-    CUDA devices. The train kernels exist for view directions and a width
-    that is a multiple of 32, with the plain NeRF (a raw sigma head and a
-    skip concat feeding a trunk layer) or SiNeRF (its ReLU sigma head is
-    built in); other configs resolve False."""
+    CUDA devices."""
     want = cfg.model.fused_kernel
     if want is None:
         want = torch.device(device).type == "cuda"
+    return bool(want)
+
+
+def nerf_kernels_take(cfg, device) -> bool:
+    """Whether the NeRF MLP kernels take cfg's architecture on `device`:
+    on the card the warp-specialized ones are built for the widths
+    ops/kernels/render.py::KERNEL_WIDTHS and encodings up to KERNEL_MAX_ENC
+    wide; on the CPU their plain versions take any width."""
+    if torch.device(device).type != "cuda":
+        return True
+    from ..core.encoding import encoded_dim
+    from ..ops.kernels.render import _round_up, kernel_arch_error
+
+    e = cfg.encoder
+    return kernel_arch_error(
+        cfg.model.d_filter, _round_up(encoded_dim(3, e.n_freqs), 16),
+        _round_up(encoded_dim(3, e.n_freqs_views), 16)) is None
+
+
+def resolve_fused_kernel(cfg, device) -> bool:
+    """fused_kernels_wanted, for an architecture the kernels take: the
+    train kernels exist for view directions and a width that is a multiple
+    of 32, with the plain NeRF (a raw sigma head, a skip concat feeding a
+    trunk layer, and on the card nerf_kernels_take's widths) or SiNeRF
+    (its ReLU sigma head is built in); other configs resolve False and run
+    the module."""
     skip = tuple(cfg.model.skip)
     ok_nerf = (cfg.model.model == "nerf"
                and cfg.model.density_activation == "none"
-               and (not skip or max(skip) < cfg.model.n_layers - 1))
+               and (not skip or max(skip) < cfg.model.n_layers - 1)
+               and nerf_kernels_take(cfg, device))
     ok = ((ok_nerf or cfg.model.model == "sinerf")
           and not cfg.encoder.no_dirs and cfg.model.d_filter % 32 == 0)
-    return bool(want and ok)
+    return fused_kernels_wanted(cfg, device) and ok
 
 
 def make_masks(cfg, step: int, device=None):
@@ -121,7 +145,7 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
         fused = make_fused_siren_model_fn(cfg)
     elif resolve_fused_kernel(cfg, device):
         from ..ops.kernels.mlp_train import make_fused_train_model_fn
-        fused = make_fused_train_model_fn(cfg)
+        fused = make_fused_train_model_fn(cfg, device=device)
     Ts = int(t_cfg.reg_ratio * t_cfg.Td)
     q_stride = og.resolve_query_stride(s_cfg, scene.aabb)
     # MLP-evaluated samples per ray of the hierarchical strategy

@@ -393,6 +393,60 @@ def test_resolve_fused_kernel_by_device():
             cfg.sampling, strategy="uniform")), SphereScene(1, 4), "cpu")
 
 
+def _arch(cfg, **change):
+    """cfg with its model's and encoder's fields replaced by `change`."""
+    enc = {k: v for k, v in change.items() if hasattr(cfg.encoder, k)}
+    mod = {k: v for k, v in change.items() if k not in enc}
+    return cfg.replace(model=dataclasses.replace(cfg.model, **mod),
+                       encoder=dataclasses.replace(cfg.encoder, **enc))
+
+
+@pytest.mark.parametrize("change", [dict(d_filter=96), dict(d_filter=192),
+                                    dict(n_freqs=21)])
+def test_routes_refuse_what_the_card_kernels_refuse(change):
+    """On the card the NeRF MLP routes (train, density, march) resolve off
+    for an architecture the warp-specialized kernels refuse, so such a
+    config trains and evaluates through the module; the compositing kernel
+    reads no weights and stays on; the CPU's plain versions take it."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels.volrend import volume_render_fused
+
+    _, base = _both()
+    cfg = _arch(base, **change)
+    assert not step.resolve_fused_kernel(cfg, "cuda")
+    assert not step.nerf_kernels_take(cfg, "cuda")
+    assert step.resolve_fused_kernel(_arch(cfg, fused_kernel=True), "cpu")
+    with pytest.raises(ValueError, match="train kernels take widths"):
+        mt.TrainLayout.from_config(cfg)
+    with pytest.raises(ValueError, match="train kernels take widths"):
+        mt.TrainLayout.from_config(cfg, "cuda")
+    assert mt.TrainLayout.from_config(cfg, "cpu").width == cfg.model.d_filter
+    model = make_model(cfg, torch.float32, torch.Generator().manual_seed(0))
+    assert cli.make_fused_render_fn(model.state_dict(), cfg,
+                                    device="cuda") is None
+    assert cli.make_fused_render_fn(model.state_dict(), cfg) is None
+    assert cli.make_fused_render_fn(model.state_dict(), cfg,
+                                    device="cpu") is not None
+    assert cli.make_composite_fn(cfg, "cuda") is volume_render_fused
+    x = torch.rand(5, 3)
+    sigma = step.make_density_fn(model, cfg, device="cuda")(x)
+    with torch.no_grad():
+        torch.testing.assert_close(sigma, model(x)[..., 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_routes_take_the_card_kernels_widths(width):
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+
+    _, base = _both()
+    cfg = _arch(base, d_filter=width)
+    assert step.resolve_fused_kernel(cfg, "cuda")
+    assert step.nerf_kernels_take(cfg, "cuda")
+    assert mt.TrainLayout.from_config(cfg).width == width
+    assert not step.resolve_fused_kernel(cfg, "cpu")
+
+
 def test_cli_trains_and_evaluates_small(capsys):
     """The training main path end to end at a tiny size on the CPU: train,
     then render held-out views through the ray march's plain version. The
