@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
      compaction to the eval K and the depth-coherence sort — in a normal
      case and in a case whose raised sigma bias saturates rays so blocks
      exit early: rgb and opacity within 7e-3, depth within 3e-2, equal
-     executed-step counts;
+     executed-step counts; the kernel's ptxas registers and spills, its
+     early-exit time and the wrapper's host ms per call;
   4. the render slice: render_path over 3 path poses at 128x128 through
      make_fused_render_fn, derive_eval_n_compact and render_frame, with the
      ray-march launch count read around that run;
@@ -84,7 +85,10 @@ Phases (any failure exits non-zero; nothing is caught):
      cells; relu and trunc_exp at 65,573 rows): sigma within 2e-2 of max
      |sigma|, two runs bitwise equal; CUDA-event times of the kernel, the
      plain version and the bf16 module's density (the route it replaces),
-     and of one all-cell and one quarter og.update through each route;
+     the kernel at one og.update launch's 262,144 rows with its bound
+     share, the wrapper's host ms per call and the kernel's ptxas
+     registers and spills, and one all-cell and one quarter og.update
+     through each route;
  15. the compositing kernel vs volume_render on the card at 16,384 rays x
      64 samples (a 128x128 view's coarse pass through the forward MLP, no
      mask) and x 192 (its occgrid lattice compacted to the validation K,
@@ -118,6 +122,7 @@ Exits non-zero without printing a result when CUDA is unavailable.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -290,6 +295,22 @@ def host_ms_per_call(fn, calls: int = 50) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3 / calls
     torch.cuda.synchronize()
     return host_ms
+
+
+def ptxas_of(log: str, kernel: str) -> str:
+    """ptxas's register and spill lines for each entry function whose
+    mangled name holds `kernel` (its width from the template argument),
+    from the build's -Xptxas -v log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            if kernel in line:
+                width = re.search(r"ILi(\d+)E", line)
+                cur = f"{kernel}<{width.group(1)}>" if width else kernel
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+    return "\n".join(f"  ptxas: {o}" for o in out) or "  ptxas: (no log)"
 
 
 def kernel_split_ms(fn, names, calls: int = 5):
@@ -1110,10 +1131,11 @@ def siren_hier_render_slice(cfg, dev, card):
           f"on {card} (first call included)")
 
 
-def density_kernel(cfg, dev, card):
+def density_kernel(cfg, dev, card, log):
     """Phase 14: the density kernel vs its plain version at full width, and
-    the grid refresh through it and through the bf16 module. Returns (the
-    report's numbers, the module's density ms on the same rows)."""
+    the grid refresh through it and through the bf16 module; ptxas's lines
+    for it from the build's `log`. Returns (the report's numbers, the
+    module's density ms on the same rows)."""
     from fsnerf_tpu_torch.core.encoding import freq_mask, positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops import occgrid as og
@@ -1168,6 +1190,12 @@ def density_kernel(cfg, dev, card):
         errs[name] = (err, err / scale)
     ms, plain_ms = in_turns(lambda: km.nerf_density_reference(encx, params),
                             lambda: km.nerf_density(encx, params))
+    chunk = encx[:og._EVAL_CHUNK]           # one og.update launch's rows
+    chunk_ms = cuda_ms(lambda: km.nerf_density(chunk, params), 20)
+    host_ms = host_ms_per_call(lambda: km.nerf_density(chunk, params))
+    chunk_bound = bound(2.0 * density_macs(cfg) * chunk.shape[0],
+                        nbytes(chunk, params.wpack, params.bpack)
+                        + 4 * chunk.shape[0])
     with torch.no_grad():
         module_ms = cuda_ms(lambda: model(x_all, pos_mask=pm), 3)
 
@@ -1204,7 +1232,11 @@ def density_kernel(cfg, dev, card):
           f"{card}: " + "; ".join(f"{k} err {v[0]:.3e} ({v[1]:.3e} of max)"
                                   for k, v in errs.items())
           + f"; bitwise repeatable; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, bf16 module density {module_ms:.3f} ms")
+          f"ms, bf16 module density {module_ms:.3f} ms; at {chunk.shape[0]} "
+          f"rows (one og.update launch) {chunk_ms:.3f} ms, bound share "
+          f"{chunk_bound['bound_ms'] / chunk_ms:.3f}, host {host_ms:.4f} ms "
+          f"per call")
+    print(ptxas_of(log, "nerf_density_kernel"))
     print(f"grid refresh on {card}: " + ", ".join(
         f"{r} {kind} {t:.3f} ms" for (r, kind), t in times.items())
           + f"; all-cell binaries of the two routes agree on {agree:.5f}")
@@ -1525,9 +1557,15 @@ def main():
     if hot["executed"] >= normal["executed"]:
         fail("a saturating sigma bias did not make blocks exit early")
     n_rays = split.hwf[0] * split.hwf[1]
+    march_host_ms = host_ms_per_call(
+        lambda: kr.ray_march(*padded, march_params, bR, cs,
+                             s.early_stop_eps), 20)
     print(f"ray march at {n_rays} rays x K {eval_k} on {card}: kernel "
           f"{n_rays / normal['ms'] * 1e3:.0f} rays/s, plain "
-          f"{n_rays / normal['plain_ms'] * 1e3:.0f} rays/s")
+          f"{n_rays / normal['plain_ms'] * 1e3:.0f} rays/s; early exit "
+          f"{hot['ms']:.3f} ms; host {march_host_ms:.4f} ms per call; "
+          f"bound share {march_bound['bound_ms'] / normal['ms']:.3f}")
+    print(ptxas_of(built.log, "nerf_march_kernel"))
 
     # -- 4. the slice -----------------------------------------------------
     scene = SphereScene(n_imgs=1, hw=128)
@@ -1587,7 +1625,8 @@ def main():
     siren_hier_render_slice(cfg, dev, card)
 
     # -- 14.-16. the few-shot path: the density and compositing kernels ----
-    density, density_module_ms, _ = density_kernel(cfg, dev, card)
+    density, density_module_ms, _ = density_kernel(cfg, dev, card,
+                                                   built.log)
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 

@@ -1,10 +1,11 @@
-// Building blocks shared by the MLP kernels of csrc/ (the ray marches of
-// render.cu, the forward MLP of mlp.cu, the train forward/backward of
-// mlp_train.cu and siren.cu): the 128-row tensor-core GEMM with weights
-// streamed through shared memory, its forward epilogue, the forward NeRF MLP
-// on encoded rows (and its trunk + sigma head alone, the density pass of
-// mlp.cu), copies of a tile's rows to and from device memory, and
-// the positional encoding of one feature.
+// Building blocks shared by the MLP kernels of csrc/ (the SIREN ray march
+// of render.cu, the forward MLP of mlp.cu, the train backward of
+// mlp_train.cu and the SIREN kernels of siren.cu; the warp-specialized
+// kernels of ws_trunk.cuh take its constants and encoding): the 128-row
+// tensor-core GEMM with weights streamed through shared memory, its
+// forward epilogue, the forward NeRF MLP on encoded rows (nerf_mlp_rows,
+// with its trunk + sigma head, nerf_trunk_sigma), copies of a tile's rows
+// to and from device memory, and the positional encoding of one feature.
 //
 // Every kernel that uses them runs kThreads threads per CTA over a tile of
 // kRows rows held in shared memory as bf16 (row stride padded by kPad so

@@ -20,24 +20,13 @@
 // scratch operands written and read back): its ~2 GB of scratch traffic
 // (~0.6 ms) weighs as much as its operations.
 //
-// The forward (mlp_train_fwd_kernel) is warp-specialized. A CTA of 128 rows
-// holds two consumer warpgroups of 64 rows each and a producer warpgroup
-// (which gives its registers to the consumers by setmaxnreg). One producer
-// thread streams every weight matrix as 64-row x W tiles by TMA, in the
-// order the consumers use them, through a ring of up to 4 stages guarded by
-// full / empty mbarriers (each stage is read by both consumers, so its
-// empty barrier takes two arrivals). Each consumer keeps its rows through
-// the whole MLP: it encodes them into 128B-swizzled K-major tiles (encx,
-// encd), runs each layer as wgmma.m64nWk16 with A its activation tile in
-// shared memory and B the ring's stage read N-major, and overwrites its
-// activation tile in place with the layer's epilogue (bias, ReLU, bf16)
-// once the layer's wgmma have retired. In saved mode one thread then
-// stores the tile to `acts` by TMA while the next layer runs. The sigma and
-// rgb heads (1 and 3 columns) are per-thread partial dot products on the
-// accumulators in registers, summed across each quad by shuffles. Nothing
-// but the ring is shared between the consumers, so no CTA-wide barrier runs
-// after set-up; a consumer's epilogue waits only on its own warpgroup's
-// named barrier.
+// The forward (mlp_train_fwd_kernel) is the warp-specialized MLP of
+// ws_trunk.cuh: a producer warpgroup streams the weights by TMA through an
+// mbarrier ring, two consumer warpgroups of 64 rows run each layer on
+// wgmma with their activation tiles in shared memory. Each consumer
+// encodes its own rows (encx, encd) and, in saved mode, one of its threads
+// stores each trunk layer's activation tile to `acts` by TMA while the
+// next layer runs.
 //
 // The backward is split, because CUDA blocks run in no order and float
 // atomics would make the gradients change from run to run, where the
@@ -79,6 +68,7 @@
 #include <stdint.h>
 
 #include "train_common.cuh"
+#include "ws_trunk.cuh"
 
 namespace fsnerf {
 namespace {
@@ -229,221 +219,18 @@ __device__ void heads_forward(const TrainArgs& a, const Smem& s, int r0,
 
 // ---- the forward (mlp_train_fwd_kernel) -------------------------------
 //
-// Shared memory, from a 1024-byte boundary: the weight ring (n_stages
-// stages of W * 128 bytes: one 64-row x W weight tile as W / 64 boxes of
-// 64 x 64), then each consumer's activation tile (64 rows x W), its encx
-// tile and its encd tile, then the ring's full and empty mbarriers. Every
-// tile is K-major and 128B-swizzled in blocks of 64 rows x 64 columns
-// (kBlock bytes), the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B reads and
-// writes and wgmma's descriptors name.
-constexpr int kFwdConsumers = 2;                  // warpgroups of 64 rows
-// ... and a producer warpgroup, whose first thread issues the loads: a
-// whole warpgroup, so that setmaxnreg can give its registers to the
-// consumers (a lone ninth warp would cap every thread at 168 registers,
-// 3 warps x 32 x 168 of a sub-partition's 16,384, and spill the 128
-// accumulators of a 256-wide layer)
-constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
-constexpr int kFwdProducerRegs = 40;
-constexpr int kFwdConsumerRegs = 232;
-static_assert(128 * kFwdProducerRegs + 128 * kFwdConsumers * kFwdConsumerRegs
-                  <= 65536, "the register file");
-constexpr int kFwdMaxStages = 4;
-constexpr int kBlock = 64 * 64 * 2;              // a 64 x 64 bf16 block
-constexpr size_t kMaxSmem = 227 * 1024;          // a block's limit (H100)
-
-__host__ __device__ __forceinline__ int enc_blocks(int k) {
-  return (k + 63) / 64;
-}
-
-size_t fwd_smem_bytes(int width, int d_enc_pad, int d_dir_pad,
-                      int n_stages) {
-  return 1024 + (size_t)(n_stages + kFwdConsumers) * width * 128 +
-         (size_t)kFwdConsumers *
-             (enc_blocks(d_enc_pad) + enc_blocks(d_dir_pad)) * kBlock +
-         2 * n_stages * sizeof(uint64_t);
-}
-
-// Byte address of element (row, col) of a tile in that layout.
-__device__ __forceinline__ unsigned char* tile_at(unsigned char* tile,
-                                                  int row, int col) {
-  return tile + (col >> 6) * kBlock + row * 128 +
-         ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
-
-// The encoded features of v (one row's 3 coordinates) into row `row` of
-// an encoding tile of n_blocks blocks, 16-byte chunks c0, c0 + 2, ...
-__device__ __forceinline__ void encode_row(unsigned char* tile,
-                                           const float* v, int row, int c0,
-                                           int n_blocks, int n_freqs,
-                                           const float* freq,
-                                           const float* mask) {
-  for (int c = c0; c < 8 * n_blocks; c += 2) {
-    uint32_t p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * c + 2 * e;
-      const __nv_bfloat162 b = __floats2bfloat162_rn(
-          encode_lane(v, col, n_freqs, freq, mask),
-          encode_lane(v, col + 1, n_freqs, freq, mask));
-      p[e] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-    *reinterpret_cast<uint4*>(tile_at(tile, row, 8 * c)) =
-        make_uint4(p[0], p[1], p[2], p[3]);
-  }
-}
-
-// The producer: every weight tile of the MLP in the consumers' order, by
-// TMA into the ring. map_w views wpack as [rows, W] (the trunk matrices,
-// w_sigma, w_conn: ops/kernels/mlp_train.py::wpack_views), map_br the
-// branch's [w_branch_h; w_branch_d] as [W + DD, W / 2]. A stage always
-// loads 64 rows: past a K below 64 they are the next matrix's rows (or
-// zeros past the map), which the consumers' k16 steps never reach.
-template <int W, int NB>
-__device__ __forceinline__ void fwd_produce(const CUtensorMap* map_w,
-                                            const CUtensorMap* map_br,
-                                            const TrainArgs& a,
-                                            unsigned char* ring,
-                                            uint64_t* full, uint64_t* empty,
-                                            int n_stages) {
-  int it = 0;
-  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
-    for (int kc = 0; kc < k; kc += 64, ++it) {
-      const int s = it % n_stages;
-      if (it >= n_stages) mbar_wait(&empty[s], (it / n_stages - 1) & 1);
-      unsigned char* st = ring + s * (W * 128);
-      mbar_arrive_expect_tx(&full[s], n_box * kBlock);
-      for (int q = 0; q < n_box; ++q)
-        tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
-    }
-  };
-  const int DE = a.d_enc_pad;
-  int row = DE;
-  feed(map_w, 0, DE, W / 64);                         // W_0
-  for (int i = 1; i < a.n_layers; ++i) {
-    feed(map_w, row, W, W / 64);                      // W_i (its h part)
-    row += W;
-    if ((a.skip_mask >> i) & 1) {
-      feed(map_w, row, DE, W / 64);                   // its encoding part
-      row += DE;
-    }
-  }
-  feed(map_w, row + 1, W, W / 64);                    // w_conn, past w_sigma
-  feed(map_br, 0, W, NB / 64);                        // w_branch_h
-  feed(map_br, W, a.d_dir_pad, NB / 64);              // w_branch_d
-}
-
-// One product segment of a consumer: acc (+)= A[64, :K] @ B[:K, N], A its
-// K-major tile at shared address a, B the ring's next ceil(K / 64)
-// stages (N-major, W / 64 or NB / 64 boxes of 64 columns). Only the k16
-// steps below K run. Each stage goes back to the producer (one arrival of
-// this warpgroup) once its wgmma have completed; returns with all of them
-// complete. `it` counts the stages this consumer has taken.
-template <int NACC>
-__device__ __forceinline__ void fwd_product(float (&acc)[NACC], uint32_t a,
-                                            int K, bool zero, uint32_t ring,
-                                            int stage_bytes, uint64_t* full,
-                                            uint64_t* empty, int n_stages,
-                                            int& it, bool lead) {
-  const int nk = (K + 63) / 64;
-  for (int kc = 0; kc < nk; ++kc, ++it) {
-    const int s = it % n_stages;
-    mbar_wait(&full[s], (it / n_stages) & 1);
-    const uint32_t b = ring + s * stage_bytes;
-    const int steps = min(4, (K - 64 * kc) / 16);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk < steps)
-        wgmma_kn(acc, sw128_desc(a + kc * kBlock + 32 * kk, 16, 1024),
-                 sw128_desc(b + 2048 * kk, kBlock, 1024),
-                 zero && kc == 0 && kk == 0 ? 0 : 1);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();          // the stage before this one has been read
-    if (kc > 0 && lead) mbar_arrive(&empty[(it - 1) % n_stages]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-  if (lead) mbar_arrive(&empty[(it - 1) % n_stages]);
-}
-
-// A layer's epilogue on this thread's accumulators (rows 16 warp + lane / 4
-// + 8 h of the warpgroup's 64, columns 8 j + 2 (lane % 4) + e):
-// tile = bf16(act(acc + bias)). With w_sigma (the last trunk layer), also
-// sig[h] += the row's bf16 activations . w_sigma over this thread's
-// columns. The bias (and w_sigma) of kChunk column blocks are loaded
-// before their stores, so that their latencies overlap; the bf16 pairs go
-// to the tile by stmatrix, four 8 x 8 blocks at a time.
-template <int NACC>
-__device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
-                                             const float* bias, bool relu,
-                                             unsigned char* tile,
-                                             const bf16* w_sigma,
-                                             float (&sig)[2]) {
-  constexpr int kChunk = 8;
-  const int lane = threadIdx.x & 31;
-  // stmatrix: lane l addresses row l % 8 of 8 x 8 block m = l / 8 of the
-  // four (column block j + m / 2, row half m % 2) that one x4 stores
-  const int m = lane >> 3;
-  const int srow = 16 * ((threadIdx.x >> 5) & 3) + 8 * (m & 1) + (lane & 7);
-#pragma unroll
-  for (int j0 = 0; j0 < NACC / 4; j0 += kChunk) {
-    float bv[kChunk][2], wv[kChunk][2];
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int col = 8 * (j0 + jj) + 2 * (lane & 3);
-      bv[jj][0] = bias[col];
-      bv[jj][1] = bias[col + 1];
-      wv[jj][0] = wv[jj][1] = 0.f;
-      if (w_sigma) {
-        wv[jj][0] = __bfloat162float(w_sigma[col]);
-        wv[jj][1] = __bfloat162float(w_sigma[col + 1]);
-      }
-    }
-    uint32_t packed[kChunk][2];
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int j = j0 + jj;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = acc[4 * j + 2 * h] + bv[jj][0];
-        float v1 = acc[4 * j + 2 * h + 1] + bv[jj][1];
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
-        packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
-        if (w_sigma)
-          sig[h] += __low2float(p) * wv[jj][0] + __high2float(p) * wv[jj][1];
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kChunk; jj += 2)
-      stsm_x4(smem_u32(tile_at(tile, srow, 8 * (j0 + jj + (m >> 1)))),
-              packed[jj][0], packed[jj][1], packed[jj + 1][0],
-              packed[jj + 1][1]);
-  }
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+// The warp-specialized forward of ws_trunk.cuh, encoding its rows itself
+// and, in saved mode, storing each trunk layer's activation tile to acts.
 
 // A consumer warpgroup: its 64 rows from row0 through the whole MLP.
 template <int W, int NB>
 __device__ __forceinline__ void fwd_consume(const CUtensorMap* map_acts,
-                                            const TrainArgs& a,
-                                            unsigned char* ring,
+                                            const TrainArgs& a, FwdRing& r,
                                             unsigned char* act,
                                             unsigned char* encx,
-                                            unsigned char* encd,
-                                            uint64_t* full, uint64_t* empty,
-                                            int n_stages, int wg) {
+                                            unsigned char* encd, int wg) {
   const int t = threadIdx.x & 127, lane = t & 31;
-  const bool lead = t == 0;
-  const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad, Wh = W / 2;
+  const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
   const int row0 = blockIdx.x * kRows + 64 * wg;
   const int bar = 1 + wg;                           // this warpgroup's barrier
 
@@ -467,93 +254,33 @@ __device__ __forceinline__ void fwd_consume(const CUtensorMap* map_acts,
   fence_proxy_async();
   named_bar(bar, 128);
 
-  const uint32_t ring_a = smem_u32(ring), act_a = smem_u32(act);
-  const uint32_t encx_a = smem_u32(encx), encd_a = smem_u32(encd);
-  const int stage_bytes = W * 128;
+  const FwdShape sh{L, a.skip_mask, DE, DD};
   const bf16* w_sigma = a.wpack + trunk_offset(a, L);
   const float* b = a.bpack;
-  int it = 0;
   float sig[2] = {0.f, 0.f};
+  float acc[W / 2];
+  fwd_trunk<W>(acc, r, act, smem_u32(encx), sh, b, w_sigma, sig, bar,
+               a.acts ? map_acts : nullptr, row0);
   const int quad_row = 16 * (t >> 5) + (lane >> 2);
-  {
-    float acc[W / 2];
-    for (int i = 0; i < L; ++i) {
-      if (i == 0) {
-        fwd_product(acc, encx_a, DE, true, ring_a, stage_bytes, full, empty,
-                    n_stages, it, lead);
-      } else {
-        fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
-                    n_stages, it, lead);
-        if ((a.skip_mask >> i) & 1)
-          fwd_product(acc, encx_a, DE, false, ring_a, stage_bytes, full,
-                      empty, n_stages, it, lead);
-      }
-      if (lead) bulk_wait_read<0>();    // the last store has read the tile
-      named_bar(bar, 128);
-      fwd_epilogue(acc, b + i * W, true, act,
-                   i == L - 1 ? w_sigma : nullptr, sig);
-      fence_proxy_async();
-      named_bar(bar, 128);
-      if (lead && a.acts) {
-        for (int q = 0; q < W / 64; ++q)
-          tma_store_2d(map_acts, act + q * kBlock, i * W + 64 * q, row0);
-        bulk_commit();
-      }
-    }
-    const float b_sigma = b[L * W];
+  const float b_sigma = b[L * W];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v = quad_sum(sig[h]) + b_sigma;
-      const int g = row0 + quad_row + 8 * h;
-      if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + 3] = v;
-    }
-    // feat = bf16(h_last @ w_conn + b_conn), over h_last
-    fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
-                n_stages, it, lead);
-    if (lead) bulk_wait_read<0>();
-    named_bar(bar, 128);
-    fwd_epilogue(acc, b + L * W + 1, false, act, nullptr, sig);
-    fence_proxy_async();
-    named_bar(bar, 128);
+  for (int h = 0; h < 2; ++h) {
+    const float v = quad_sum(sig[h]) + b_sigma;
+    const int g = row0 + quad_row + 8 * h;
+    if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + 3] = v;
   }
-  // br = bf16(relu(feat @ w_branch_h + encd @ w_branch_d + b_branch)), in
-  // registers; rgb = sigmoid(br @ w_rgb + b_rgb)
-  float acc[NB / 2];
-  fwd_product(acc, act_a, W, true, ring_a, stage_bytes, full, empty,
-              n_stages, it, lead);
-  fwd_product(acc, encd_a, DD, false, ring_a, stage_bytes, full, empty,
-              n_stages, it, lead);
-  const float* b_branch = b + L * W + 1 + W;
-  const bf16* w_rgb = w_sigma + W + W * W + W * Wh + DD * Wh;
-  float rgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int j = 0; j < Wh / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
-    const float b0 = b_branch[col], b1 = b_branch[col + 1];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat162 p = __floats2bfloat162_rn(
-          fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
-          fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
-      const float v0 = __low2float(p), v1 = __high2float(p);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        rgb[h][c] += v0 * __bfloat162float(w_rgb[3 * col + c]) +
-                     v1 * __bfloat162float(w_rgb[3 * col + 3 + c]);
-    }
-  }
-  const float* b_rgb = b_branch + Wh;
+  float rgb[2][3];
+  fwd_conn<W>(acc, r, act, b + L * W + 1, bar);
+  fwd_branch<W, NB>(r, act, smem_u32(encd), DD, w_sigma + W, b + L * W + 1,
+                    rgb);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int g = row0 + quad_row + 8 * h;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float v = quad_sum(rgb[h][c]) + b_rgb[c];
-      if ((lane & 3) == 0 && g < a.N)
-        a.out[(size_t)g * 4 + c] = 1.f / (1.f + expf(-v));
-    }
+    for (int c = 0; c < 3; ++c)
+      if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + c] = rgb[h][c];
   }
-  if (lead) bulk_wait<0>();             // the saved activations are written
+  if (r.lead) bulk_wait<0>();           // the saved activations are written
 }
 
 // grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
@@ -578,24 +305,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(encd + kFwdConsumers * nbd *
                                                           kBlock);
   uint64_t* empty = full + n_stages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < n_stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kFwdConsumers);
-    }
-    mbar_fence_init();
-  }
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0);
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == kFwdConsumers) {                       // the producer
     setmaxnreg_dec<kFwdProducerRegs>();
-    if (threadIdx.x == 128 * kFwdConsumers)
-      fwd_produce<W, NB>(&map_w, &map_br, a, ring, full, empty, n_stages);
+    if (threadIdx.x == 128 * kFwdConsumers) {
+      int it = 0;
+      produce_pass<W, NB>(&map_w, &map_br,
+                          FwdShape{a.n_layers, a.skip_mask, a.d_enc_pad,
+                                   a.d_dir_pad},
+                          true, ring, full, empty, n_stages, it, nullptr);
+    }
   } else {
     setmaxnreg_inc<kFwdConsumerRegs>();
-    fwd_consume<W, NB>(&map_acts, a, ring, act + wg * W * 128,
+    FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
+              (threadIdx.x & 127) == 0};
+    fwd_consume<W, NB>(&map_acts, a, r, act + wg * W * 128,
                        encx + wg * nbx * kBlock, encd + wg * nbd * kBlock,
-                       full, empty, n_stages, wg);
+                       wg);
   }
 }
 
@@ -608,18 +336,14 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
   const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
   const int n_blocks = (a.N + kRows - 1) / kRows;
   CUtensorMap map_w, map_br, map_acts;
-  if (!encode_bf16_map(&map_w, a.wpack, trunk_rows, W, W, 64) ||
-      !encode_bf16_map(&map_br, a.wpack + (size_t)trunk_rows * W, W + DD,
-                       W / 2, W / 2, 64))
+  if (!encode_weight_maps<W>(&map_w, &map_br, a.wpack, trunk_rows, DD))
     return cudaErrorInvalidValue;
   if (a.acts == nullptr)
     map_acts = map_w;
   else if (!encode_bf16_map(&map_acts, a.acts, n_blocks * kRows, L * W,
                             L * W, 64))
     return cudaErrorInvalidValue;
-  int n_stages = kFwdMaxStages;
-  while (n_stages > 2 && fwd_smem_bytes(W, DE, DD, n_stages) > kMaxSmem)
-    --n_stages;
+  const int n_stages = fwd_stages(W, DE, DD, 0);
   const size_t smem = fwd_smem_bytes(W, DE, DD, n_stages);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_train_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,

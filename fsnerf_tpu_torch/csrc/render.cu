@@ -1,10 +1,10 @@
 // Fused ray marches for Hopper (sm_90a): an MLP, exp/cumsum compositing and
-// an exact per-(ray block x sample chunk) early exit, in one kernel. One
-// shell (ray_march_kernel) runs either MLP:
-//   NerfMarch:  positional encoding + the NeRF MLP. Replaces
+// an exact per-(ray block x sample chunk) early exit, in one kernel each:
+//   nerf_march_kernel: positional encoding + the NeRF MLP on the
+//     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
-//   SirenMarch: the raw points and directions as bf16 (no encoding) + the
-//     SiNeRF MLP of siren_common.cuh. Replaces
+//   ray_march_kernel<SirenMarch>: the raw points and directions as bf16 (no
+//     encoding) + the SiNeRF MLP of siren_common.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call_siren (kernel 2).
 // Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/render.py::
 // ray_march_reference / siren_ray_march_reference, which follow the same
@@ -14,37 +14,34 @@
 // bf16 GEMMs (8x256 trunk and heads; the SIREN adds ~2,300 polynomial sines
 // on the FP32 pipe) against 52 bytes of per-sample input, so the kernels are
 // compute-bound by three orders of magnitude over HBM; every activation
-// stays in shared memory. What the design does about it: one CTA of 8 warps
-// owns a block of `block_rows` rays and loops over the sample chunks (the
-// TPU's sequential grid axis); per chunk step it stages block_rows*chunk_s
-// <= 128 rows into shared memory as bf16 (encoded for NeRF, raw for SIREN)
-// and runs every layer on the tensor cores (mma.sync m16n8k16 bf16, f32
-// accumulation), ping-ponging two [128 x width] bf16 activation buffers
-// (132 KB at width 256 with row padding; ~190-202 KB in all, above the 48
-// KB default, hence the dynamic shared-memory attribute). Weights (1.3 MB
-// bf16, L2-resident) stream through shared memory in double-buffered 64-row
-// slabs, the next slab fetched while the tensor cores consume the current
-// one. With one CTA of 8 warps per SM there is little to hide memory latency
-// behind, so each chunk's sample inputs (x, t, delta, mask; ~3 KB, read once
-// from HBM) are fetched by all threads in one batch of loads issued a chunk
-// ahead, and everything after reads them from shared memory.
-// A chunk is skipped — GEMMs and staging included — unless some ray of the
-// block is still below the transmittance cutoff (od < -log eps) AND some
-// sample of the chunk is valid, which is where the depth-coherence sort of
-// the caller pays. Measured, the NeRF march reaches ~160 TFLOP/s: with one
-// CTA per SM the synchronous MMAs and the loads, barriers and epilogues
-// around them barely overlap. Asynchronous wgmma fed by TMA is work for a
-// later change.
+// stays in shared memory. Both own a block of `block_rows` rays per CTA and
+// loop over the sample chunks (the TPU's sequential grid axis), a chunk
+// step being block_rows * chunk_s <= 128 rows. A chunk is skipped, GEMMs
+// and staging included, unless some ray of the block is still below the
+// transmittance cutoff (od < -log eps) AND some sample of the chunk is
+// valid, which is where the depth-coherence sort of the caller pays.
+//
+// The NeRF march (nerf_march_kernel, below) runs each chunk step on two
+// consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
+// producer warpgroup's TMA weight ring; see the notes above it. The SIREN
+// march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk step it
+// stages the rows into shared memory as bf16 and runs every layer on
+// mma.sync m16n8k16 (bf16, f32 accumulation), ping-ponging two [128 x
+// width] bf16 activation buffers, the weights (L2-resident) streaming
+// through shared memory in double-buffered 64-row slabs; each chunk's
+// sample inputs (x, t, delta, mask; ~3 KB, read once from HBM) are fetched
+// by all threads in one batch of loads issued a chunk ahead. Measured, that
+// shell reached ~160 TFLOP/s: with one CTA per SM the synchronous MMAs and
+// the loads, barriers and epilogues around them barely overlap.
 //
 // Numerics of the NeRF march, as the TPU kernel (render.py::_mlp_chunk):
 // bf16 operands, f32 accumulation, bias rounded to bf16 then added in f32,
-// ReLU, round to bf16. The encoding uses the polynomial sin of fastmath.cuh
-// (cos x = sin(x+pi/2)) in the reference layout [x, sin f0 x, cos f0 x,
-// ...], zero-padded. The GEMM, its epilogue and the encoding live in
-// mlp_common.cuh, shared with the train kernels of mlp_train.cu; the MLP
-// itself (nerf_mlp_rows) with the forward MLP of mlp.cu. The SIREN march's
-// numerics are siren_common.cuh's, shared with the train kernels of
-// siren.cu; sigma is the SiNeRF's ReLU head.
+// ReLU, round to bf16; sigma raw, ReLU or exp(clip(., -15, 15)). The
+// encoding uses the polynomial sin of fastmath.cuh (cos x = sin(x+pi/2)) in
+// the reference layout [x, sin f0 x, cos f0 x, ...], zero-padded, as the
+// train forward's. The SIREN march's numerics are siren_common.cuh's,
+// shared with the train kernels of siren.cu; sigma is the SiNeRF's ReLU
+// head. Both composite in the same f32 order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,11 +49,12 @@
 
 #include "mlp_common.cuh"
 #include "siren_common.cuh"
+#include "ws_trunk.cuh"
 
 namespace fsnerf {
 namespace {
 
-// The shell's inputs and outputs.
+// A march's inputs and outputs.
 struct Args {
   const float* x;       // [R, K, 3] sample points
   const float* dirs;    // [R, 3] per-ray directions
@@ -67,74 +65,6 @@ struct Args {
   int* steps;           // [R / block_rows] executed chunk steps per block
   int K, block_rows, chunk_s;
   float thresh;         // -log(early_stop_eps)
-};
-
-// The NeRF MLP of the march (kernel 1): encodes the rays' directions once
-// and each chunk's points, then runs nerf_mlp_rows. Shared memory: two
-// activation buffers, the two encodings, the weight slabs.
-struct NerfMarch {
-  struct Params {
-    Mlp mlp;
-    const float* enc;   // [2*F + 2*Fv]: freq_x, mask_x, freq_d, mask_d
-    int n_freqs, n_freqs_views;
-  };
-  Params p;
-  bf16 *buf0, *buf1, *encx, *encd, *slabs;
-  int LDE, LDD;
-
-  __host__ __device__ static size_t smem_bytes(const Params& p) {
-    return sizeof(bf16) *
-           ((size_t)kRows * (2 * p.mlp.width + p.mlp.d_enc_pad +
-                             p.mlp.d_dir_pad + 4 * kPad) +
-            2 * kSlabRows * kSlabLd);
-  }
-
-  __device__ NerfMarch(unsigned char* smem, const Params& params)
-      : p(params) {
-    const int LDH = p.mlp.width + kPad;
-    LDE = p.mlp.d_enc_pad + kPad;
-    LDD = p.mlp.d_dir_pad + kPad;
-    buf0 = reinterpret_cast<bf16*>(smem);
-    buf1 = buf0 + kRows * LDH;
-    encx = buf1 + kRows * LDH;
-    encd = encx + kRows * LDE;
-    slabs = encd + kRows * LDD;
-  }
-
-  // rows past nrows are never encoded: keep them zero; a ray's direction is
-  // the same for all its samples: encode it once
-  __device__ void begin(const float* dirs, int ray0, int nrows, int cs) {
-    const int tid = threadIdx.x, DD = p.mlp.d_dir_pad;
-    const float* freq_d = p.enc + 2 * p.n_freqs;
-    const float* mask_d = freq_d + p.n_freqs_views;
-    for (int e = tid; e < (kRows - nrows) * LDE; e += kThreads)
-      encx[nrows * LDE + e] = __float2bfloat16_rn(0.f);
-    for (int e = tid; e < (kRows - nrows) * LDD; e += kThreads)
-      encd[nrows * LDD + e] = __float2bfloat16_rn(0.f);
-    for (int e = tid; e < nrows * DD; e += kThreads) {
-      const int row = e / DD, col = e - row * DD;
-      const float* v = dirs + (size_t)(ray0 + row / cs) * 3;
-      encd[row * LDD + col] = __float2bfloat16_rn(
-          encode_lane(v, col, p.n_freqs_views, freq_d, mask_d));
-    }
-  }
-
-  // this chunk's points xs [nrows, 3] (shared) into the MLP's input
-  __device__ void stage(const float* xs, int nrows) {
-    const int DE = p.mlp.d_enc_pad;
-    const float* freq_x = p.enc;
-    const float* mask_x = freq_x + p.n_freqs;
-    for (int e = threadIdx.x; e < nrows * DE; e += kThreads) {
-      const int row = e / DE, col = e - row * DE;
-      encx[row * LDE + col] = __float2bfloat16_rn(
-          encode_lane(xs + 3 * row, col, p.n_freqs, freq_x, mask_x));
-    }
-  }
-
-  __device__ void run(int nrows, float* sig, float* rgb) {
-    nerf_mlp_rows(p.mlp, encx, LDE, encd, LDD, buf0, buf1, slabs, nrows, sig,
-                  rgb);
-  }
 };
 
 // The SiNeRF MLP of the march (kernel 2): the rays' directions and each
@@ -339,6 +269,269 @@ int launch_march(const Args& a, const typename March::Params& mp, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the NeRF march (nerf_march_kernel) --------------------------------
+//
+// The warp-specialized MLP of ws_trunk.cuh looped over the sample chunks of
+// one block of rays: a producer warpgroup streams the weights by TMA
+// through the mbarrier ring, two consumer warpgroups of 64 rows run the
+// MLP on wgmma. Row r of a chunk step is sample r % cs of ray r / cs;
+// consumer wg owns rows 64 wg .. 64 wg + 63. Per chunk:
+//   - the skip decision, over both consumers (256 threads) by two named
+//     barriers that OR a predicate (bar.red.or, which leaves the producer
+//     running): some ray of the block below the cutoff, some sample of
+//     the chunk valid;
+//   - each consumer encodes its rows' points into its encx tile (the rays'
+//     directions were encoded into encd once, before the first chunk) and
+//     runs the trunk, then the heads;
+//   - once the trunk no longer reads encx, the tile holds each row's
+//     compositing inputs [sigma, rgb, t, delta, mask] (32 bytes a row), and
+//     after a barrier of both consumers one thread per ray composites its
+//     chunk serially, in render.cu's f32 order, its sums in registers.
+// Every executed chunk streams the same weight sequence, so a skipped
+// chunk never reaches the producer: it runs ahead through the next
+// executed chunk's stages, and the consumers just do not consume. At the
+// end of the block the consumers wait for the stages it filled ahead
+// (no TMA load is in flight when the CTA exits), raise `done` and free one
+// more stage, which wakes the producer to read the flag and stop.
+struct NerfMarchArgs {
+  Args io;
+  const bf16* wpack;
+  const float* bpack;
+  const float* enc;     // [2*F + 2*Fv]: freq_x, mask_x, freq_d, mask_d
+  int n_layers, skip_mask, n_freqs, n_freqs_views, d_enc_pad, d_dir_pad;
+  int density_act;
+};
+
+constexpr int kMarchBar = 3;          // both consumers' named barrier
+constexpr int kMarchRowBytes = 32;    // a row's compositing inputs
+
+template <int W, int NB>
+__device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
+                                              FwdRing& r,
+                                              unsigned char* act,
+                                              unsigned char* encx0,
+                                              int encx_bytes,
+                                              unsigned char* encd,
+                                              volatile int* done, int wg) {
+  const Args& a = m.io;
+  const int t = threadIdx.x & 127, lane = t & 31, ct = threadIdx.x;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int ray0 = blockIdx.x * bR, n_chunks = a.K / cs;
+  const int DE = m.d_enc_pad, DD = m.d_dir_pad, L = m.n_layers;
+  const int bar = 1 + wg;
+  unsigned char* encx = encx0 + wg * encx_bytes;
+  const float* freq_x = m.enc;
+  const float* mask_x = freq_x + m.n_freqs;
+  const float* freq_d = mask_x + m.n_freqs;
+  const float* mask_d = freq_d + m.n_freqs_views;
+
+  // thread t owns row t % 64 of its warpgroup (and every other 16-byte
+  // chunk of its encodings); rows past the chunk step's run on zeros
+  const int row = t & 63, gr = 64 * wg + row;
+  const bool in = gr < nrows;
+  const size_t sample0 = (size_t)(ray0 + gr / cs) * a.K + gr % cs;
+  {
+    float dv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dv[k] = in ? a.dirs[(size_t)(ray0 + gr / cs) * 3 + k] : 0.f;
+    encode_row(encd, dv, row, t >> 6, enc_blocks(DD), m.n_freqs_views,
+               freq_d, mask_d);
+  }
+  // the row's point and mask of chunk c (zeros past the block's rows):
+  // fetched a chunk ahead, while the branch of the last executed chunk
+  // runs (few registers are live there)
+  float xn[3] = {0.f, 0.f, 0.f}, mn = 0.f;
+  auto fetch = [&](int c) {
+    if (in && c < n_chunks) {
+      const size_t gi = sample0 + (size_t)c * cs;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xn[k] = a.x[gi * 3 + k];
+      mn = a.mask[gi];
+    }
+  };
+  fetch(0);
+
+  const FwdShape sh{L, m.skip_mask, DE, DD};
+  const bf16* w_sigma =
+      m.wpack + (size_t)trunk_rows_of(L, m.skip_mask, W, DE) * W;
+  const float b_sigma = m.bpack[L * W];
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  // the compositing of ray ct (ct < bR), carried across chunks
+  float od = 0.f, rr0 = 0.f, rr1 = 0.f, rr2 = 0.f, opa = 0.f, dep = 0.f;
+  int executed = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float xv[3] = {xn[0], xn[1], xn[2]};
+    const float mv = mn;
+    // exact early exit: skip unless a ray is alive and a sample is valid.
+    // The first barrier also ends the last step's reads of the rows'
+    // compositing inputs, which this step's encoding overwrites.
+    const bool alive = named_bar_or(kMarchBar, 256, ct < bR && od < a.thresh);
+    const bool valid = named_bar_or(kMarchBar, 256, in && mv > 0.f);
+    if (!(alive && valid)) {
+      fetch(c + 1);
+      continue;
+    }
+    ++executed;
+
+    encode_row(encx, xv, row, t >> 6, enc_blocks(DE), m.n_freqs, freq_x,
+               mask_x);
+    fence_proxy_async();
+    named_bar(bar, 128);
+    float sig[2] = {0.f, 0.f};
+    float acc[W / 2];
+    fwd_trunk<W>(acc, r, act, smem_u32(encx), sh, m.bpack, w_sigma, sig,
+                 bar, nullptr, 0);
+    // the trunk's wgmma have retired in every warp: encx is free for each
+    // row's compositing inputs
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v =
+          density_activate(quad_sum(sig[h]) + b_sigma, m.density_act);
+      if ((lane & 3) == 0)
+        reinterpret_cast<float*>(encx + (quad_row + 8 * h) *
+                                            kMarchRowBytes)[0] = v;
+    }
+    fwd_conn<W>(acc, r, act, m.bpack + L * W + 1, bar);
+    float tv = 0.f, dv = 0.f;
+    if (t < 64 && in) {
+      const size_t gi = sample0 + (size_t)c * cs;
+      tv = a.t[gi];
+      dv = a.deltas[gi];
+    }
+    fetch(c + 1);
+    float rgb[2][3];
+    fwd_branch<W, NB>(r, act, smem_u32(encd), DD, w_sigma + W,
+                      m.bpack + L * W + 1, rgb);
+    if (t < 64) {
+      float* q = reinterpret_cast<float*>(encx + row * kMarchRowBytes);
+      q[4] = tv;
+      q[5] = dv;
+      q[6] = mv;
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* q = reinterpret_cast<float*>(
+            encx + (quad_row + 8 * h) * kMarchRowBytes);
+        q[1] = rgb[h][0];
+        q[2] = rgb[h][1];
+        q[3] = rgb[h][2];
+      }
+    }
+    named_bar(kMarchBar, 256);
+    // composite: per-ray serial scan over the chunk, od carried across
+    // chunks
+    if (ct < bR) {
+      const float acc0 = od;
+      float cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, op = 0.f, dp = 0.f;
+      for (int s = 0; s < cs; ++s) {
+        const int g = ct * cs + s;
+        const float* q = reinterpret_cast<const float*>(
+            encx0 + (g >> 6) * encx_bytes + (g & 63) * kMarchRowBytes);
+        const float odv = __fmul_rn(__fmul_rn(q[0], q[5]), q[6]);
+        cum = __fadd_rn(cum, odv);
+        const float trans = expf(-__fsub_rn(__fadd_rn(acc0, cum), odv));
+        const float wgt = __fmul_rn(trans, __fsub_rn(1.f, expf(-odv)));
+        r0 += wgt * q[1];
+        r1 += wgt * q[2];
+        r2 += wgt * q[3];
+        op += wgt;
+        dp += wgt * q[4];
+      }
+      rr0 += r0;
+      rr1 += r1;
+      rr2 += r2;
+      opa += op;
+      dep += dp;
+      od = acc0 + cum;
+    }
+  }
+  if (ct < bR) {
+    float* out = a.stats + (size_t)(ray0 + ct) * 8;
+    out[0] = rr0;
+    out[1] = rr1;
+    out[2] = rr2;
+    out[3] = opa;
+    out[4] = dep;
+    out[5] = expf(-od);
+    out[6] = 0.f;
+    out[7] = 0.f;
+  }
+  if (ct == 0) a.steps[blockIdx.x] = executed;
+  // release the producer: it has filled (or will fill) the next n_stages
+  // stages and then waits for stage r.it to be freed
+  if (r.lead) {
+    for (int k = r.it; k < r.it + r.n_stages; ++k)
+      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
+    *done = 1;
+    mbar_arrive(&r.empty[r.it % r.n_stages]);
+  }
+}
+
+// grid: one CTA per block of block_rows rays; block: kFwdConsumers
+// warpgroups + the producer's.
+template <int W>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    nerf_march_kernel(const __grid_constant__ CUtensorMap map_w,
+                      const __grid_constant__ CUtensorMap map_br,
+                      NerfMarchArgs m, int n_stages) {
+  constexpr int NB = W / 2 < 64 ? 64 : W / 2;     // the branch product's N
+  extern __shared__ unsigned char march_smem_raw[];
+  unsigned char* ring = march_smem_raw +
+                        ((1024 - (smem_u32(march_smem_raw) & 1023)) & 1023);
+  const int nbx = enc_blocks(m.d_enc_pad), nbd = enc_blocks(m.d_dir_pad);
+  unsigned char* act = ring + n_stages * W * 128;
+  unsigned char* encx = act + kFwdConsumers * W * 128;
+  unsigned char* encd = encx + kFwdConsumers * nbx * kBlock;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(encd + kFwdConsumers * nbd * kBlock);
+  uint64_t* empty = full + n_stages;
+  volatile int* done = reinterpret_cast<volatile int*>(empty + n_stages);
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {                       // the producer
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 128 * kFwdConsumers) {
+      const FwdShape sh{m.n_layers, m.skip_mask, m.d_enc_pad, m.d_dir_pad};
+      int it = 0;
+      while (produce_pass<W, NB>(&map_w, &map_br, sh, true, ring, full,
+                                 empty, n_stages, it, done)) {
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kFwdConsumerRegs>();
+  FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
+            (threadIdx.x & 127) == 0};
+  march_consume<W, NB>(m, r, act + wg * W * 128, encx, nbx * kBlock,
+                       encd + wg * nbd * kBlock, done, wg);
+}
+
+template <int W>
+int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
+                        cudaStream_t st) {
+  CUtensorMap map_w, map_br;
+  if (!encode_weight_maps<W>(&map_w, &map_br, m.wpack, trunk_rows,
+                             m.d_dir_pad))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t extra = 16;                         // the done flag
+  const int n_stages = fwd_stages(W, m.d_enc_pad, m.d_dir_pad, extra);
+  const size_t smem =
+      fwd_smem_bytes(W, m.d_enc_pad, m.d_dir_pad, n_stages) + extra;
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_march_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = n_rays / m.io.block_rows;
+  if (n_blocks > 0)
+    nerf_march_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
+        map_w, map_br, m, n_stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 void fill_args(Args& a, const void* x, const void* dirs, const void* t,
                const void* deltas, const void* mask, void* stats, void* steps,
                int K, int block_rows, int chunk_s, float thresh) {
@@ -358,33 +551,51 @@ void fill_args(Args& a, const void* x, const void* dirs, const void* t,
 }  // namespace
 }  // namespace fsnerf
 
-// Plain C entry for ctypes. Pointers are device pointers of contiguous
-// tensors validated by the Python wrapper; launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// Plain C entries for ctypes. Pointers are device pointers of contiguous
+// tensors validated by the Python wrapper; each launches on `stream` and
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
+// a shape the kernel does not take.
+
+// The NeRF march: width 64, 128 or 256, encodings up to 128 wide,
+// block_rows * chunk_s <= 128; trunk_rows the rows of wpack's [rows,
+// width] view (the trunk, w_sigma and w_conn: ops/kernels/mlp_train.py::
+// TrainLayout.wpack_views).
 extern "C" int fsnerf_ray_march(
     const void* x, const void* dirs, const void* t, const void* deltas,
     const void* mask, const void* wpack, const void* bpack, const void* enc,
     void* stats, void* steps, int n_rays, int K, int block_rows, int chunk_s,
     int n_layers, int skip_mask, int width, int n_freqs, int n_freqs_views,
-    int d_enc_pad, int d_dir_pad, int density_act, float thresh,
-    void* stream) {
+    int d_enc_pad, int d_dir_pad, int density_act, int trunk_rows,
+    float thresh, void* stream) {
   using namespace fsnerf;
-  Args a;
-  fill_args(a, x, dirs, t, deltas, mask, stats, steps, K, block_rows, chunk_s,
-            thresh);
-  NerfMarch::Params mp;
-  mp.mlp = Mlp{static_cast<const bf16*>(wpack),
-               static_cast<const float*>(bpack),
-               n_layers,
-               skip_mask,
-               width,
-               d_enc_pad,
-               d_dir_pad,
-               density_act};
-  mp.enc = static_cast<const float*>(enc);
-  mp.n_freqs = n_freqs;
-  mp.n_freqs_views = n_freqs_views;
-  return launch_march<NerfMarch>(a, mp, n_rays, stream);
+  NerfMarchArgs m;
+  fill_args(m.io, x, dirs, t, deltas, mask, stats, steps, K, block_rows,
+            chunk_s, thresh);
+  m.wpack = static_cast<const bf16*>(wpack);
+  m.bpack = static_cast<const float*>(bpack);
+  m.enc = static_cast<const float*>(enc);
+  m.n_layers = n_layers;
+  m.skip_mask = skip_mask;
+  m.n_freqs = n_freqs;
+  m.n_freqs_views = n_freqs_views;
+  m.d_enc_pad = d_enc_pad;
+  m.d_dir_pad = d_dir_pad;
+  m.density_act = density_act;
+  if (d_enc_pad > 128 || d_dir_pad > 128 || block_rows * chunk_s > kRows ||
+      trunk_rows !=
+          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 64:
+      return launch_nerf_march_w<64>(m, trunk_rows, n_rays, st);
+    case 128:
+      return launch_nerf_march_w<128>(m, trunk_rows, n_rays, st);
+    case 256:
+      return launch_nerf_march_w<256>(m, trunk_rows, n_rays, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The SIREN march: wpack / bpack / alphas as ops/kernels/siren.py packs

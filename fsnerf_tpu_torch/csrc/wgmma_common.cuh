@@ -133,6 +133,19 @@ __device__ __forceinline__ void named_bar(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// named_bar that also ORs a predicate over the `count` threads: true in
+// every one of them if it was true in any.
+__device__ __forceinline__ bool named_bar_or(int id, int count, bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(any)
+      : "r"(static_cast<uint32_t>(pred)), "r"(id), "r"(count)
+      : "memory");
+  return any != 0;
+}
+
 // Moves registers between the warpgroups of a warp-specialized kernel:
 // every warp of the warpgroup executes it, and the per-thread counts of all
 // warpgroups after it must fit in what the launch allocated.

@@ -33,7 +33,7 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("render.cu", "mlp.cu", "mlp_train.cu", "siren.cu",
            "volrend.cu")
 HEADERS = ("fastmath.cuh", "mlp_common.cuh", "siren_common.cuh",
-           "train_common.cuh", "wgmma_common.cuh")
+           "train_common.cuh", "wgmma_common.cuh", "ws_trunk.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,11 +107,11 @@ def load_library() -> ctypes.CDLL:
     use)."""
     lib = ctypes.CDLL(str(build().path))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
+    lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 13 + [f, vp]
     lib.fsnerf_ray_march.restype = i
     lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.fsnerf_nerf_mlp.restype = i
-    lib.fsnerf_nerf_density.argtypes = [vp] * 4 + [i] * 6 + [vp]
+    lib.fsnerf_nerf_density.argtypes = [vp] * 4 + [i] * 7 + [vp]
     lib.fsnerf_nerf_density.restype = i
     lib.fsnerf_volrend.argtypes = [vp, i, vp, i] + [vp] * 5 + [i, i, vp]
     lib.fsnerf_volrend.restype = i

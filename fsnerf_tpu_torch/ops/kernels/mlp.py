@@ -15,7 +15,8 @@ f32 sigmoid. Out [N, 4] float32 = rgb, sigma.
 
 The density pass (`nerf_density`, the occupancy grid refresh's workload)
 runs the trunk and the sigma head alone, with the same numerics, on the
-positional encodings only.
+positional encodings only; its kernel is the warp-specialized trunk of
+csrc/ws_trunk.cuh, built for the widths render.py::KERNEL_WIDTHS.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
 `nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
@@ -31,8 +32,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ...core.encoding import encoded_dim, positional_encoding
-from .render import (_DENSITY_ACT, _round_up, mlp_forward, pack_weights,
-                     sigma_head, trunk_forward, unpack)
+from .render import (_DENSITY_ACT, _round_up, kernel_arch_error,
+                     mlp_forward, pack_weights, sigma_head, trunk_forward,
+                     trunk_rows, unpack)
 
 @dataclass(frozen=True)
 class MlpParams:
@@ -219,15 +221,20 @@ def nerf_density_reference(encx, params: MlpParams,
 
 def nerf_density(encx, params: MlpParams,
                  density_activation: str = "none") -> torch.Tensor:
-    """The density pass: csrc/mlp.cu's nerf_density_kernel for CUDA tensors,
-    nerf_density_reference for CPU tensors; same arguments and return. Any
-    N. Counts its kernel launches in `nerf_density.launches`."""
+    """The density pass: csrc/mlp.cu's nerf_density_kernel for CUDA tensors
+    (widths render.py::KERNEL_WIDTHS, d_enc_pad up to KERNEL_MAX_ENC:
+    ValueError otherwise), nerf_density_reference for CPU tensors; same
+    arguments and return. Any N. Counts its kernel launches in
+    `nerf_density.launches`."""
     if encx.device.type == "cpu":
         return nerf_density_reference(encx, params, density_activation)
     if encx.device.type != "cuda":
         raise ValueError(f"nerf_density runs on cpu or cuda, not "
                          f"{encx.device}")
     _check(encx, None, params, density_activation)
+    err = kernel_arch_error(params.width, params.d_enc_pad)
+    if err is not None:
+        raise ValueError(f"nerf_density: {err}")
     for a in (encx, params.wpack, params.bpack):
         if a.device != encx.device or not a.is_contiguous():
             raise ValueError("nerf_density needs contiguous tensors on one "
@@ -241,6 +248,8 @@ def nerf_density(encx, params: MlpParams,
         encx.data_ptr(), params.wpack.data_ptr(), params.bpack.data_ptr(),
         out.data_ptr(), N, params.n_layers, params.skip_mask, params.width,
         params.d_enc_pad, _DENSITY_ACT[density_activation],
+        trunk_rows(params.n_layers, params.skip, params.width,
+                   params.d_enc_pad),
         torch.cuda.current_stream(encx.device).cuda_stream)
     if err:
         raise RuntimeError("nerf_density kernel launch failed: "

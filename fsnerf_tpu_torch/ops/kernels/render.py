@@ -12,7 +12,9 @@ in f32, activations rounded to bf16) and composite in exp/cumsum form with
 the optical depth carried across chunks. Outputs [R, 8] = rgb, opacity,
 depth, trans_final, 0, 0; the background is blended by the caller.
 
-`ray_march` launches csrc/render.cu for CUDA tensors and runs
+`ray_march` launches csrc/render.cu for CUDA tensors (the NeRF march on
+the warp-specialized MLP of csrc/ws_trunk.cuh, which takes the widths
+KERNEL_WIDTHS) and runs
 `ray_march_reference` only for CPU tensors. The two share one signature,
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
@@ -36,8 +38,9 @@ from .fastmath import sincos_fast
 _DENSITY_ACT = {"none": 0, "relu": 1, "trunc_exp": 2}
 # the kernel's GEMM tile: block_rows * chunk_s rows per chunk step
 KERNEL_ROWS = 128
-# the widths the train forward kernel is built for, and its widest
-# encoding (csrc/mlp_train.cu launch_fwd)
+# the widths the warp-specialized NeRF kernels (csrc/ws_trunk.cuh: the ray
+# march, the density pass, the train forward) are built for, and their
+# widest encoding
 KERNEL_WIDTHS = (64, 128, 256)
 KERNEL_MAX_ENC = 128
 
@@ -56,6 +59,15 @@ def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
     return (f"the {what} take widths {KERNEL_WIDTHS} and encodings up to "
             f"{KERNEL_MAX_ENC} wide, not width {width} with encodings "
             f"{d_enc_pad} / {d_dir_pad}")
+
+
+def trunk_rows(n_layers: int, skip: Tuple[int, ...], width: int,
+               d_enc_pad: int) -> int:
+    """Rows of wpack's [rows, width] view that the warp-specialized kernels'
+    tensor maps read (csrc/ws_trunk.cuh): the trunk matrices, w_sigma and
+    w_conn, in pack_weights' walk."""
+    return d_enc_pad + sum(width + (d_enc_pad if (i - 1) in skip else 0)
+                           for i in range(1, n_layers)) + 1 + width
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -369,18 +381,25 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
 
 def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
               block_rows: int, chunk_s: int, early_stop_eps: float = 1e-4):
-    """The ray march: csrc/render.cu for CUDA tensors, ray_march_reference
-    for CPU tensors. Same arguments and returns as ray_march_reference.
-    Counts its kernel launches in `ray_march.launches`."""
+    """The ray march: csrc/render.cu's nerf_march_kernel for CUDA tensors
+    (widths KERNEL_WIDTHS, encodings up to KERNEL_MAX_ENC wide: ValueError
+    otherwise), ray_march_reference for CPU tensors. Same arguments and
+    returns as ray_march_reference. Counts its kernel launches in
+    `ray_march.launches`."""
     if x.device.type == "cpu":
         return ray_march_reference(x, dirs, t, deltas, mask, params,
                                    block_rows, chunk_s, early_stop_eps)
+    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
+    if err is not None:
+        raise ValueError(f"ray_march: {err}")
     stats, steps = _launch_march(
         "ray_march", x, dirs, t, deltas, mask,
         (params.wpack, params.bpack, params.enc), block_rows, chunk_s,
         early_stop_eps, params.n_layers, params.skip_mask, params.width,
         params.n_freqs, params.n_freqs_views, params.d_enc_pad,
-        params.d_dir_pad, _DENSITY_ACT[params.density_activation])
+        params.d_dir_pad, _DENSITY_ACT[params.density_activation],
+        trunk_rows(params.n_layers, params.skip, params.width,
+                   params.d_enc_pad))
     ray_march.launches += 1
     return stats, steps
 

@@ -22,7 +22,10 @@ recompute's f32); each mode bitwise repeatable. SIREN ray march (render.cu):
 the ray march's tolerances and equal executed-step counts. Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
-runs bitwise equal. Compositing (volrend.cu): rgb, opacity, depth, weights
+runs bitwise equal, at each width the warp-specialized kernel takes (64,
+128, 256; the NeRF march the same, over the block x chunk shapes the
+renderer admits), and both refuse width 96, where a CLI run trains through
+the module instead. Compositing (volrend.cu): rgb, opacity, depth, weights
 and trans_final within rtol 1e-5 and atol 1e-6 (tests/test_pallas.py's
 volrend tolerance) of ops/volrend.py::volume_render, taken of |want| for
 the weights and trans_final and of the magnitude of the terms for the sums
@@ -115,6 +118,67 @@ def test_wrapper_counts_launches_and_validates(cuda):
     x_strided = padded[0].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
         kr.ray_march(x_strided, *padded[1:], params, bR, cs)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
+@pytest.mark.parametrize("K", [12, 48, 192])
+@pytest.mark.parametrize("block_rows,chunk_s", [(16, 8), (8, 8), (10, 4),
+                                                (16, 2), (16, 1)])
+def test_nerf_march_matches_plain_over_blocks_and_chunks(
+        cuda, width, sigma_bias, K, block_rows, chunk_s):
+    """The warp-specialized NeRF march at each width, over the block x
+    chunk shapes pad_for_march admits (chunk_s 8 becomes 4 at K 12), in a
+    normal and a saturating case: the ray-march tolerances, executed steps
+    equal to the plain version's, two runs bitwise equal."""
+    sd = state_dict_from_jax(nerf_params_np(21, d_filter=width, **FULL))
+    sd["sigma.bias"] = sd["sigma.bias"] + sigma_bias
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=K, R=45, K=K),
+                                      block_rows, chunk_s)
+    assert bR == block_rows and cs == (4 if K % chunk_s else chunk_s)
+    padded = tuple(p.to(cuda) for p in padded)
+    params = kr.prep_params(sd, **FULL, device=cuda)
+    steps = _check(padded, params, bR, cs)
+    again, steps_again = kr.ray_march(*padded, params, bR, cs)
+    got, _ = kr.ray_march(*padded, params, bR, cs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(steps, steps_again)
+    if sigma_bias:
+        assert int(steps.sum()) < steps.numel() * (K // cs)
+
+
+def test_kernels_refuse_widths_they_are_not_built_for(cuda):
+    """The NeRF march and the density pass take widths 64, 128 and 256."""
+    sd = state_dict_from_jax(nerf_params_np(22, d_filter=96, **SMALL))
+    params = kr.prep_params(sd, **SMALL, device=cuda)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=5, R=16, K=16))
+    with pytest.raises(ValueError, match="take widths"):
+        kr.ray_march(*(p.to(cuda) for p in padded), params, bR, cs)
+    encx, dparams = _density_case(22, 96, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths"):
+        km.nerf_density(encx, dparams)
+
+
+def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
+    """--d_filter 96: the MLP routes resolve to the module on the card (no
+    train, density or march kernel launches), and the run trains and
+    evaluates instead of raising."""
+    import json
+
+    from fsnerf_tpu_torch import cli
+
+    launches = (mt.mlp_train_fwd.launches, km.nerf_density.launches,
+                kr.ray_march.launches)
+    rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
+                   "--n_layers", "4", "--d_filter", "96", "--skip", "1",
+                   "--grid_resolution", "16", "--n_samples", "64",
+                   "--n_iters", "20", "--batch_size", "256", "--white_bkgd"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["steps"] == 20 and out["device"] != "cpu"
+    assert out["psnr"] == out["psnr"] and out["rays_per_sec"] > 0
+    assert (mt.mlp_train_fwd.launches, km.nerf_density.launches,
+            kr.ray_march.launches) == launches
 
 
 def _train_params(seed, width, arch, cuda, pos_mask=None, dir_mask=None):
@@ -576,6 +640,29 @@ def test_nerf_density_matches_plain(cuda, act, width, arch, n):
                                                 device=cuda)
     encx, params = _density_case(14, width, arch, n, cuda, pm)
     assert params.wpack.device.type == "cuda"
+    got = km.nerf_density(encx, params, act)
+    again = km.nerf_density(encx, params, act)
+    ref = km.nerf_density_reference(encx, params, act)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max() / (ref.abs().max() + 1e-9) < 2e-2
+    if act != "none":
+        assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 77, 128, 20_037, 262_144])
+@pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_nerf_density_matches_plain_at_each_width(cuda, width, act, n,
+                                                 masked):
+    """The warp-specialized density pass at each width of NeRF 8 layers,
+    skip (4,), n_freqs 10, with and without a FreeNeRF mask: within 2e-2
+    of max |sigma|, two runs bitwise equal."""
+    pm = (torch.tensor([1.0] * 5 + [0.4] + [0.0] * 4, device=cuda)
+          if masked else None)
+    encx, params = _density_case(16, width, FULL, n, cuda, pm)
     got = km.nerf_density(encx, params, act)
     again = km.nerf_density(encx, params, act)
     ref = km.nerf_density_reference(encx, params, act)
