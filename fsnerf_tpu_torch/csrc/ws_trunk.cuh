@@ -49,9 +49,12 @@ constexpr int kFwdConsumers = 2;                  // warpgroups of 64 rows
 // consumers (a lone ninth warp would cap every thread at 168 registers,
 // 3 warps x 32 x 168 of a sub-partition's 16,384, and spill the 128
 // accumulators of a 256-wide layer)
+// (the producer keeps setmaxnreg's least, 24, and the consumers take the
+// rest: 240 rather than 232 took the ray march's spills at width 256 from
+// 220 to 168 bytes and its time down 5%)
 constexpr int kFwdThreads = 128 * (kFwdConsumers + 1);
-constexpr int kFwdProducerRegs = 40;
-constexpr int kFwdConsumerRegs = 232;
+constexpr int kFwdProducerRegs = 24;
+constexpr int kFwdConsumerRegs = 240;
 static_assert(128 * kFwdProducerRegs + 128 * kFwdConsumers * kFwdConsumerRegs
                   <= 65536, "the register file");
 constexpr int kFwdMaxStages = 4;
