@@ -90,13 +90,11 @@ def nerf_kernels_take(cfg, device) -> bool:
     wide; on the CPU their plain versions take any width."""
     if torch.device(device).type != "cuda":
         return True
-    from ..core.encoding import encoded_dim
-    from ..ops.kernels.render import _round_up, kernel_arch_error
+    from ..ops.kernels.mlp_train import TrainLayout
 
-    e = cfg.encoder
-    return kernel_arch_error(
-        cfg.model.d_filter, _round_up(encoded_dim(3, e.n_freqs), 16),
-        _round_up(encoded_dim(3, e.n_freqs_views), 16)) is None
+    return TrainLayout(cfg.model.n_layers, tuple(cfg.model.skip),
+                       cfg.model.d_filter, cfg.encoder.n_freqs,
+                       cfg.encoder.n_freqs_views).kernel_error() is None
 
 
 def resolve_fused_kernel(cfg, device) -> bool:
