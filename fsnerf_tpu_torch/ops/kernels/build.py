@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class Built:
     path: Path
     seconds: float      # compile time; 0 when the library was already built
-    log: str            # nvcc/ptxas output (registers, shared memory, spills)
+    log: str            # nvcc/ptxas output (registers, shared memory, spills),
+                        # kept beside the library as <library>.log
 
 
 def _nvcc() -> str:
@@ -83,8 +84,10 @@ def _run_all(cmds) -> str:
 def build() -> Built:
     """Compile csrc/ unless the library for these sources exists."""
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return Built(out, 0.0, "")
+        return Built(out, 0.0,
+                     log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{s}.o" for s in SOURCES]
@@ -94,6 +97,7 @@ def build() -> Built:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
                         for s, o in zip(SOURCES, objs)])
         log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        log_path.write_text(log)
         os.replace(tmp, out)        # atomic: a reader never sees half a file
     finally:
         for f in (*objs, tmp):
