@@ -40,7 +40,9 @@ Phases (any failure exits non-zero; nothing is caught):
      make_fused_model_fn does): rgb within 5e-3, sigma within 2e-2 of max
      |sigma|, two runs bitwise equal; relu and trunc_exp sigma at 65,573
      rows; CUDA-event times of the kernel, the plain version and the bf16
-     NeRF module on the same points (the cuBLAS route);
+     NeRF module on the same points (the cuBLAS route), the kernel's time
+     and host ms per call at one validation chunk (393,216 rows) and
+     ptxas's registers and spills of the warp-specialized kernel;
   8. the hierarchical render slice: render_path over 3 path poses at
      128x128 (64 coarse + 128 fine), once with the fused fine pass (the
      forward MLP, the compositing kernel once per chunk's coarse pass and
@@ -62,8 +64,10 @@ Phases (any failure exits non-zero; nothing is caught):
      activations and recompute, each against its plain version), the two
      modes within 1e-2 of each other's max, two runs bitwise equal in each
      mode; CUDA-event times of the kernels, the plain versions and the bf16
-     SiNeRF module (forward, and its backward by autograd), and the saved
-     mode's three backward launches from torch.profiler;
+     SiNeRF module (forward, and its backward by autograd), the saved
+     mode's three backward launches from torch.profiler (its row pass the
+     warp-specialized one), the host ms per backward call, and ptxas's
+     registers and spills of both row passes;
  11. the SIREN ray march vs its plain version on the 16,384 rays of a
      128x128 held-out SphereScene view, a grid rebuilt from a seeded
      SiNeRF's densities, the eval K and the depth-coherence sort, in a
@@ -104,9 +108,10 @@ Phases (any failure exits non-zero; nothing is caught):
      steps and a checkpoint at step 1,000, then the held-out views through
      evaluate_split, launch counts read around that run: the train kernels
      once per step, the density kernel at every refresh (8 launches per
-     all-cell refresh, 2 per quarter), the compositing kernel in each
-     validation; the grid's occupancy exactly 1.0 at every logged step
-     through 700 and below 1.0 from 800; the loss must fall and the
+     all-cell refresh, 2 per quarter), the compositing kernel and the
+     forward MLP once per chunk of each validation; the grid's occupancy
+     exactly 1.0 at every logged step through 700 and below 1.0 from 800;
+     the loss must fall and the
      held-out PSNR rise at least 5 dB above the untrained weights'; then
      the run resumed from its step-1,000 checkpoint to 1,500 must land
      bitwise on the same weights and grid;
@@ -146,6 +151,7 @@ MIN_PSNR_GAIN_DB = 5.0
 # the forward MLP vs plain: tests/test_pallas.py's fused-MLP tolerances
 MLP_RGB_TOL = 5e-3
 MLP_SIGMA_TOL = 2e-2        # of max |sigma|
+VAL_CHUNK_ROWS = 2048 * 192  # one validation chunk: 2 x batch rays x K 192
 HIER_COARSE, HIER_FINE = 64, 128    # BASELINE.json config 2
 HIER_STEPS = 1500
 HIER_FUSED_PSNR_TOL_DB = 0.5
@@ -279,7 +285,7 @@ def in_turns(plain, kernel, plain_reps=3, kernel_reps=10):
 # csrc/siren.cu and their shared weight-gradient pass, train_common.cuh)
 NERF_BWD_PARTS = ("mlp_train_bwd_rows_kernel", "dw_gemm_kernel",
                   "dw_reduce_kernel")
-SIREN_BWD_PARTS = ("siren_bwd_rows_kernel", "dw_gemm_kernel",
+SIREN_BWD_PARTS = ("siren_bwd_rows_ws_kernel", "dw_gemm_kernel",
                    "dw_reduce_kernel")
 
 
@@ -591,9 +597,11 @@ def bound(flops: float, moved: int, peak: float = PEAK_BF16_FLOPS) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def mlp_kernel(cfg, dev, card):
-    """Phase 7: the forward MLP kernel vs its plain version at full width.
-    Returns (the report's numbers, the rows' module time in ms)."""
+def mlp_kernel(cfg, dev, card, log):
+    """Phase 7: the forward MLP kernel vs its plain version at full width,
+    its time at one validation chunk's rows, its host ms per call and
+    ptxas's lines for it. Returns (the report's numbers, the rows' module
+    time in ms)."""
     from fsnerf_tpu_torch import cli
     from fsnerf_tpu_torch.core.encoding import positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
@@ -651,16 +659,25 @@ def mlp_kernel(cfg, dev, card):
         acts.append(f"{act} rgb {a_rgb:.3e} sigma {a_sig:.3e} of max")
     ms, plain_ms = in_turns(lambda: km.nerf_mlp_reference(encx, encd, params),
                             lambda: km.nerf_mlp(encx, encd, params))
+    chunk = VAL_CHUNK_ROWS
+    chunk_ms = cuda_ms(lambda: km.nerf_mlp(encx[:chunk], encd[:chunk],
+                                           params), 20)
+    host_ms = host_ms_per_call(
+        lambda: km.nerf_mlp(encx[:chunk], encd[:chunk], params), 20)
     with torch.no_grad():
         module_ms = cuda_ms(lambda: model(x, d), 3)
+    moved = nbytes(encx, encd, params.wpack, params.bpack, out)
+    mlp_bound = bound(2.0 * mlp_macs(cfg) * n, moved)
     print(f"forward MLP at {n} rows on {card}: max abs err rgb "
           f"{rgb_err:.3e} sigma {sig_err:.3e} (max |sigma| {sig_scale:.3e}); "
           f"{'; '.join(acts)} at {small} rows; bitwise repeatable; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 NeRF module "
-          f"{module_ms:.3f} ms")
-    moved = nbytes(encx, encd, params.wpack, params.bpack, out)
+          f"{ms:.3f} ms (bound share {mlp_bound['bound_ms'] / ms:.3f}; "
+          f"{chunk_ms:.3f} ms at one validation chunk's {chunk} rows, host "
+          f"{host_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bf16 NeRF "
+          f"module {module_ms:.3f} ms")
+    print(ptxas_of(log, "nerf_mlp_kernel"))
     return dict(max_abs_err=max(rgb_err, sig_err), ms=ms, plain_ms=plain_ms,
-                **bound(2.0 * mlp_macs(cfg) * n, moved)), module_ms
+                **mlp_bound), module_ms
 
 
 def hier_config(cfg, **train):
@@ -862,10 +879,11 @@ def siren_bwd_macs(L: int, W: int) -> int:
     return 2 * heads + dx + 3 * W + (L - 1) * W * W
 
 
-def siren_kernels(cfg, dev, card):
+def siren_kernels(cfg, dev, card, log):
     """Phase 10: the SIREN train kernels vs their plain versions at full
-    width, both backward modes, and the device time of each of the saved
-    mode's backward launches. Returns the report's numbers of each."""
+    width, both backward modes, the device time of each of the saved
+    mode's backward launches and ptxas's lines for the two row passes.
+    Returns the report's numbers of each."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
@@ -966,6 +984,8 @@ def siren_kernels(cfg, dev, card):
     print("SIREN backward's launches (profiler, saved activations): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
           + f"; host {host_ms:.4f} ms per call")
+    print(ptxas_of(log, "siren_bwd_rows_ws_kernel"))
+    print(ptxas_of(log, "siren_bwd_rows_kernel"))
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
                  plain_ms=fwd_plain_ms, **fwd_bound),
             dict(max_abs_err=grad_abs, ms=bwd_ms, plain_ms=bwd_plain_ms,
@@ -1406,6 +1426,7 @@ def fewshot_slice(cfg, dev, card):
         ckpt = Checkpointer(os.path.join(tmp, "ckpt"))
         mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
         km.nerf_density.launches = kv.volume_render_fused.launches = 0
+        km.nerf_mlp.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = train(model, tcfg, pool, scene, logger=log, log_every=100,
@@ -1416,7 +1437,8 @@ def fewshot_slice(cfg, dev, card):
         launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
                     "mlp_train_bwd": mt.mlp_train_bwd.launches,
                     "nerf_density": km.nerf_density.launches,
-                    "volrend": kv.volume_render_fused.launches}
+                    "volrend": kv.volume_render_fused.launches,
+                    "nerf_mlp": km.nerf_mlp.launches}
         saved = ckpt.steps()
         # resume from the step-1,000 checkpoint and run to the end again
         os.remove(ckpt.path(FEWSHOT_STEPS))
@@ -1442,7 +1464,8 @@ def fewshot_slice(cfg, dev, card):
     want = {"mlp_train_fwd": steps, "mlp_train_bwd": steps,
             "nerf_density": refresh_launches(tcfg, state.grid.n_cells,
                                              steps),
-            "volrend": len(val_recs) * val_chunks}
+            "volrend": len(val_recs) * val_chunks,
+            "nerf_mlp": len(val_recs) * val_chunks}
     print(f"few-shot train slice on {card}: {steps} steps in {train_s:.3f} "
           f"s, {steps / train_s:.2f} steps/s (validations and the "
           f"checkpoint included); loss {losses[0]:.5f} at step "
@@ -1453,6 +1476,9 @@ def fewshot_slice(cfg, dev, card):
     print(f"few-shot held-out (3 views 128x128): PSNR {got['psnr']:.3f} SSIM "
           f"{got['ssim']:.4f} eval K {got['eval_k']} after training; "
           f"untrained PSNR {base['psnr']:.3f} SSIM {base['ssim']:.4f}")
+    if launches["nerf_mlp"] == 0:
+        fail("the few-shot validations never launched the forward MLP "
+             "kernel")
     if launches != want:
         fail(f"the few-shot slice launched {launches}, not {want}")
     if [r["step"] for r in val_recs] != list(range(
@@ -1610,7 +1636,7 @@ def main():
     train_launches = train_slice(cfg, dev, card)
 
     # -- 7. forward MLP kernel vs plain at full width -----------------------
-    mlp, mlp_module_ms = mlp_kernel(cfg, dev, card)
+    mlp, mlp_module_ms = mlp_kernel(cfg, dev, card, built.log)
 
     # -- 8. the hierarchical render slice -----------------------------------
     hier_render_slice(model, cfg, dev, card)
@@ -1619,7 +1645,8 @@ def main():
     hier_launches = hier_train_slice(cfg, dev, card)
 
     # -- 10.-13. SiNeRF: the SIREN kernels and their slices ------------------
-    siren_fwd, siren_bwd, siren_module_ms = siren_kernels(cfg, dev, card)
+    siren_fwd, siren_bwd, siren_module_ms = siren_kernels(cfg, dev, card,
+                                                          built.log)
     siren_rm, siren_march_module_ms = siren_march(cfg, dev, card)
     siren_launches = siren_train_slice(cfg, dev, card)
     siren_hier_render_slice(cfg, dev, card)
@@ -1670,7 +1697,9 @@ def main():
         "route": "cuda",
         "source": "fsnerf_tpu_torch/csrc/mlp.cu",
         "replaces": "fsnerf_tpu/ops/pallas/mlp.py:276",
-        "launches": hier_launches["nerf_mlp"],
+        # the hierarchical eval's coarse passes and the few-shot
+        # validations
+        "launches": hier_launches["nerf_mlp"] + fewshot_launches["nerf_mlp"],
         **mlp,
         "library_ms": None,
     }, {

@@ -5,10 +5,11 @@
 //
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
-// siren_fwd_kernel) and bwd_call (kernel 8; here siren_bwd_rows_kernel,
-// then dw_gemm_kernel and dw_reduce_kernel of train_common.cuh). Plain
-// PyTorch twins: fsnerf_tpu_torch/ops/kernels/siren.py::
-// siren_mlp_fwd_reference / siren_mlp_bwd_reference.
+// siren_fwd_kernel) and bwd_call (kernel 8; here a row pass,
+// siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 256, else
+// siren_bwd_rows_kernel, then dw_gemm_kernel and dw_reduce_kernel of
+// train_common.cuh). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/
+// siren.py::siren_mlp_fwd_reference / siren_mlp_bwd_reference.
 //
 // What bounds them on this card. A row of SiNeRF 8x256 costs ~1.18 MFLOP of
 // bf16 GEMMs forward and ~2.6 MFLOP backward (the head recompute, the
@@ -17,8 +18,8 @@
 // 8 KB per row (h_i and a_i cos(a_i y_i), bf16, 8 layers x 256) out and the
 // backward reads them back: at the main path's 196,608 rows that stream
 // (1.61 GB) bounds the forward by bytes, and the backward sits near the
-// balance of bytes and operations. The GEMMs run on the tensor cores
-// (mma.sync m16n8k16 bf16, f32 accumulation) through the GEMM core of
+// balance of bytes and operations. The forward's GEMMs run on the tensor
+// cores (mma.sync m16n8k16 bf16, f32 accumulation) through the GEMM core of
 // mlp_common.cuh; the sines run in the GEMM epilogues, so no f32
 // pre-activation ever leaves the SM in the forward.
 //
@@ -34,10 +35,15 @@
 // factors a_i cos(a_i y_i) in f32 to scratch, as the TPU kernel holds them
 // f32 (the two modes' gradients differ by that rounding, by design).
 //
-// Shared memory of the backward row pass at width 256: two [128 x 264] bf16
-// activation buffers (the heads' f32 cos factors borrow one of them as a
-// [128 x 128] f32 array), a [128 x 136] bf16 head buffer, the staged inputs
-// and the weight slabs: ~220 KB, one CTA per SM.
+// Two row passes. The main path's, saved mode at width 64, 128 or 256, is
+// siren_bwd_rows_ws_kernel (below): warp-specialized, every product on
+// wgmma fed by TMA, the heads' cotangents in registers. Recompute mode and
+// the other widths (multiples of 32) take siren_bwd_rows_kernel: one CTA of
+// 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
+// __syncthreads(); at width 256 two [128 x 264] bf16 activation buffers
+// (the heads' f32 cos factors borrow one as a [128 x 128] f32 array), a
+// [128 x 136] bf16 head buffer, the staged inputs and the weight slabs:
+// ~220 KB, one CTA per SM.
 //
 // Numerics, as the TPU kernels (siren.py::_bwd_grads_siren): each
 // cotangent is rounded to bf16 before it enters a product; the heads'
@@ -51,6 +57,7 @@
 
 #include "siren_common.cuh"
 #include "train_common.cuh"
+#include "ws_trunk.cuh"
 
 namespace fsnerf {
 namespace {
@@ -360,6 +367,625 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- the saved-mode backward row pass, warp-specialized --------------
+//
+// siren_bwd_rows_ws_kernel<W> (W = 64, 128, 256; saved mode): the same
+// outputs as siren_bwd_rows_kernel (xs, dy, pbias) on the warp-specialized
+// shape of ws_trunk.cuh. 384 threads: a producer warpgroup, one of whose
+// threads streams every weight tile by TMA through an mbarrier ring in the
+// order the consumers use them, and two consumer warpgroups of 64 rows that
+// run every product on wgmma (A a consumer's K-major 128B-swizzled tile in
+// shared memory, B the ring's stage read N-major: wpack's [in, out] rows
+// for the heads' forward, wtpack's [out, in] rows for the cotangent
+// products, so that each is the forward's operand form). Per consumer:
+//   - h_{L-1} is loaded by TMA into its W-wide tile T; x | d are copied to
+//     xs (zeros past N);
+//   - ys = h W_s0 + b_s0: the epilogue keeps s_s (bf16, into its Wh-wide
+//     tile S, then to xs by TMA) and cos(ys) (f32, over the accumulators);
+//     sigma_pre = s_s . w_s1 + b_s1 is a per-thread dot over its columns
+//     and two quad shuffles, so dsig (sigma_pre > 0 gate) and dys = (dsig_b
+//     w_s1) cos(ys) stay in registers, and dys_b overwrites s_s in S;
+//   - feat = bf16(h W_f + b_f) overwrites h in T (to xs by TMA);
+//   - yr = feat W_r0f + d W_r0d + b_r0: the view directions' term is a
+//     rank-3 update in the epilogue (d's columns past 3 meet zero rows of
+//     w_r0d); s_r goes to T's first Wh columns (to xs), rgb = sigmoid(s_r
+//     w_r1 + b_r1) from quad sums, drgb, and dyr = (drgb_b w_r1^T) cos(yr)
+//     to T's last Wh columns (to dy);
+//   - dfeat = dyr_b W_r0f^T, then dh = dfeat_b W_f^T + dys_b W_s0^T (two
+//     segments into one accumulator), then dh_{i-1} = dy_i_b W_i^T: each
+//     epilogue multiplies by the saved bf16 factor a_i cos(a_i y_i), read
+//     from acts into registers in the accumulator layout, and writes the
+//     bf16 cotangent over T in place once the product's wgmma have retired
+//     and T's last TMA store has read it; the tile then goes to dy by TMA.
+// Bias partials: each warp's column sums of the f32 cotangents over its 16
+// rows (shuffles; a reduce-scatter over the quads in the cotangent
+// products' epilogues) go to a shared array, which the warpgroup sums over
+// its 4 warps in order into its own row of the CTA's bias partials in
+// shared memory; the two consumers never wait for each other until the end,
+// where their rows are added in order into pbias[blockIdx], so the
+// backward stays bitwise repeatable. After set-up no __syncthreads() runs.
+// Shared memory at W = 256, L = 8: a 3-stage ring (96 KB; a 4th stage does
+// not fit beside the tiles and the partials), T (32 KB) and S (16 KB) per
+// consumer, the column sums and the bias partials (28 KB).
+constexpr int kBwdBoth = 3;          // both consumers' named barrier
+
+template <int W>
+size_t ws_bwd_smem_bytes(int n_stages, int n_bias) {
+  return 1024 + (size_t)(n_stages + kFwdConsumers) * W * 128 +
+         (size_t)kFwdConsumers * enc_blocks(W / 2) * kBlock +
+         (size_t)kFwdConsumers * (4 * (W + 4) + n_bias) * sizeof(float) +
+         (2 * n_stages + kFwdConsumers) * sizeof(uint64_t);
+}
+
+// The deepest ring up to kFwdMaxStages that fits beside the tiles and the
+// partials of n_bias bias columns, or 0 if a ring of 2 does not.
+template <int W>
+int ws_bwd_stages(int n_bias) {
+  int n = kFwdMaxStages;
+  while (n >= 2 && ws_bwd_smem_bytes<W>(n, n_bias) > kMaxSmem) --n;
+  return n < 2 ? 0 : n;
+}
+
+// The tensor maps: the heads' forward matrices in wpack (w_s0 [W, Wh], w_f
+// [W, W], w_r0f [W, Wh]), wtpack as [(L + 1) W, W] (t_1 .. t_{L-1}, w_f,
+// w_s0, w_r0f, each [out, in]), and acts, xs and dy.
+struct SirenBwdMaps {
+  CUtensorMap s0, f, r0, wt, acts, xs, dy;
+};
+
+// The producer: every weight tile in the consumers' order.
+template <int W>
+__device__ __forceinline__ void ws_bwd_produce(const SirenBwdMaps& mp,
+                                               int L, unsigned char* ring,
+                                               uint64_t* full,
+                                               uint64_t* empty,
+                                               int n_stages) {
+  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh;
+  int it = 0;
+  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
+    for (int kc = 0; kc < k; kc += 64, ++it) {
+      const int s = it % n_stages;
+      if (it >= n_stages) mbar_wait(&empty[s], (it / n_stages - 1) & 1);
+      unsigned char* st = ring + s * (W * 128);
+      mbar_arrive_expect_tx(&full[s], n_box * kBlock);
+      for (int q = 0; q < n_box; ++q)
+        tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
+    }
+  };
+  feed(&mp.s0, 0, W, NS / 64);                 // ys = h W_s0
+  feed(&mp.f, 0, W, W / 64);                   // feat = h W_f
+  feed(&mp.r0, 0, W, NS / 64);                 // yr = feat W_r0f
+  feed(&mp.wt, L * W + Wh, Wh, W / 64);        // dfeat = dyr W_r0f^T
+  feed(&mp.wt, (L - 1) * W, W, W / 64);        // dh = dfeat W_f^T
+  feed(&mp.wt, L * W, Wh, W / 64);             //    + dys W_s0^T
+  for (int i = L - 1; i >= 1; --i)
+    feed(&mp.wt, (i - 1) * W, W, W / 64);      // dh_{i-1} = dy_i W_i^T
+}
+
+// Columns [c0, c0 + n) of a consumer's tile to columns gcol.. of its 64
+// rows from row0 of a [*, ld] bf16 matrix: by TMA from the lead thread
+// when they are whole 64-column blocks, else by the warpgroup's 16-byte
+// copies (a 32-wide head at W = 64). Called by the whole warpgroup after
+// the barrier that ends the tile's writes.
+__device__ __forceinline__ void store_cols(const CUtensorMap* map,
+                                           unsigned char* tile, int c0,
+                                           int n, bf16* g, int ld, int gcol,
+                                           int row0, bool lead) {
+  if (n % 64 == 0 && c0 % 64 == 0) {
+    if (lead) {
+      for (int q = 0; q < n / 64; ++q)
+        tma_store_2d(map, tile + (c0 / 64 + q) * kBlock, gcol + 64 * q,
+                     row0);
+      bulk_commit();
+    }
+    return;
+  }
+  const int per_row = n / 8;
+  for (int e = threadIdx.x & 127; e < 64 * per_row; e += 128) {
+    const int row = e / per_row, c = e - row * per_row;
+    *reinterpret_cast<uint4*>(g + (size_t)(row0 + row) * ld + gcol + 8 * c) =
+        *reinterpret_cast<const uint4*>(tile_at(tile, row, c0 + 8 * c));
+  }
+}
+
+// This warp's column sums (its 16 rows) of the f32 values s0 / s1 at
+// columns col, col + 1 into its row of the column-sum array.
+__device__ __forceinline__ void warp_colsum(float s0, float s1, float* cp,
+                                            int col) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if ((threadIdx.x & 31) < 4) {
+    cp[col] = s0;
+    cp[col + 1] = s1;
+  }
+}
+
+// This warp's sum over its 16 rows of a per-row value held in every lane
+// of the row's quad (v[h]: rows lane / 4 + 8 h), into cp[col].
+__device__ __forceinline__ void warp_rowsum(const float (&v)[2], float* cp,
+                                            int col) {
+  float s = v[0] + v[1];
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) cp[col] = s;
+}
+
+// After the warpgroup's four warps wrote their rows (stride ld) of its
+// column-sum array cp: dst[c] = the rows' sums in order, c < n (dst: the
+// warpgroup's bias partials). `bar` is the warpgroup's named barrier.
+__device__ __forceinline__ void colsums_combine(const float* cp, int ld,
+                                                int n, float* dst, int bar) {
+  named_bar(bar, 128);
+  for (int c = threadIdx.x & 127; c < n; c += 128)
+    dst[c] = ((cp[c] + cp[ld + c]) + cp[2 * ld + c]) + cp[3 * ld + c];
+}
+
+// This warp's column sums (its 16 rows) of s[jj][e] (column 8 (j0 + jj) +
+// 2 (lane % 4) + e of this thread's two rows) into cp, by a reduce-scatter
+// over the quads (lane bits 4, 3, 2): afterwards lane l holds the sums of
+// block j0 + l / 4.
+__device__ __forceinline__ void warp_colsum8(const float (&s)[8][2],
+                                             float* cp, int j0) {
+  const int lane = threadIdx.x & 31;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float a[4][2], c[2][2], d[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      a[i][e] = (b4 ? s[i + 4][e] : s[i][e]) +
+                __shfl_xor_sync(0xffffffffu, b4 ? s[i][e] : s[i + 4][e], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      c[i][e] = (b3 ? a[i + 2][e] : a[i][e]) +
+                __shfl_xor_sync(0xffffffffu, b3 ? a[i][e] : a[i + 2][e], 8);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    d[e] = (b2 ? c[1][e] : c[0][e]) +
+           __shfl_xor_sync(0xffffffffu, b2 ? c[0][e] : c[1][e], 4);
+  const int col = 8 * (j0 + (lane >> 2)) + 2 * (lane & 3);
+  cp[col] = d[0];
+  cp[col + 1] = d[1];
+}
+
+// A cotangent product's epilogue over the accumulators (rows 16 warp +
+// lane / 4 + 8 h of the consumer's 64): v = acc (times the bf16 factor at
+// fac[row * ldf + col] when fac is set), the tile's columns = bf16(v) by
+// stmatrix, and this warp's column sums of the f32 v into cp (a
+// reduce-scatter per kChunk column blocks: 14 shuffles for 16 sums, where
+// a shuffle tree per column pair takes 48). The factors of kChunk column
+// blocks are loaded before their use.
+template <int NACC>
+__device__ __forceinline__ void cot_epilogue(const float (&acc)[NACC],
+                                             const bf16* fac, int ldf,
+                                             unsigned char* tile, float* cp) {
+  constexpr int kChunk = 8;
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const int srow = 16 * ((threadIdx.x >> 5) & 3) + 8 * (m & 1) + (lane & 7);
+  const int qrow = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j0 = 0; j0 < NACC / 4; j0 += kChunk) {
+    uint32_t f[kChunk][2];
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int col = 8 * (j0 + jj) + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f[jj][h] = fac ? *reinterpret_cast<const uint32_t*>(
+                             fac + (size_t)(qrow + 8 * h) * ldf + col)
+                       : 0u;
+    }
+    uint32_t packed[kChunk][2];
+    float sums[kChunk][2];
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (fac) {
+          const __nv_bfloat162 fv =
+              *reinterpret_cast<const __nv_bfloat162*>(&f[jj][h]);
+          v0 = __fmul_rn(v0, __low2float(fv));
+          v1 = __fmul_rn(v1, __high2float(fv));
+        }
+        s0 += v0;
+        s1 += v1;
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+        packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+      sums[jj][0] = s0;
+      sums[jj][1] = s1;
+    }
+    warp_colsum8(sums, cp, j0);
+#pragma unroll
+    for (int jj = 0; jj < kChunk; jj += 2)
+      stsm_x4(smem_u32(tile_at(tile, srow, 8 * (j0 + jj + (m >> 1)))),
+              packed[jj][0], packed[jj][1], packed[jj + 1][0],
+              packed[jj + 1][1]);
+  }
+}
+
+// A consumer warpgroup: its 64 rows from row0 through the whole row pass.
+template <int W>
+__device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
+                                               const SirenBwdMaps& mp,
+                                               FwdRing& r, unsigned char* T,
+                                               unsigned char* S,
+                                               float* colpart, float* pb,
+                                               uint64_t* loaded, int wg) {
+  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh, LDC = W + 4;
+  const Siren& m = a.m;
+  const int L = m.n_layers;
+  const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
+  const int row0 = blockIdx.x * kRows + 64 * wg;
+  const int bar = 1 + wg;
+  const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
+  const int xs_ss = 2 * kInPad, xs_feat = xs_ss + Wh, xs_sr = xs_feat + W;
+  const int dy_s = L * W, dy_f = dy_s + Wh, dy_r = dy_f + W;
+  const int dy_sig = dy_r + Wh;
+  // stmatrix: lane l addresses row l % 8 of 8 x 8 block m = l / 8 of the
+  // four (column block j + sm / 2, row half sm % 2) that one x4 stores
+  const int sm = lane >> 3;
+  const int srow = 16 * warp + 8 * (sm & 1) + (lane & 7);
+  const int qrow = 16 * warp + (lane >> 2);    // rows qrow + 8 h
+  // this warp's row of the column sums; pb: this consumer's bias partials
+  auto cp_row = [&]() { return colpart + warp * LDC; };
+  auto combine = [&](int n, float* dst) {
+    colsums_combine(colpart, LDC, n, dst, bar);
+  };
+  // T's last TMA store has read it and every warp's products have retired
+  auto tile_free = [&]() {
+    if (r.lead) bulk_wait_read<0>();
+    named_bar(bar, 128);
+  };
+  auto tile_written = [&]() {
+    fence_proxy_async();
+    named_bar(bar, 128);
+  };
+
+  if (r.lead) {
+    mbar_arrive_expect_tx(loaded, (W / 64) * kBlock);
+    for (int q = 0; q < W / 64; ++q)
+      tma_load_2d(T + q * kBlock, &mp.acts, loaded, (L - 1) * W + 64 * q,
+                  row0);
+  }
+  for (int e = t; e < 64 * 4; e += 128) {      // x | d to xs
+    const int row = e >> 2, c = e & 3, g = row0 + row;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g < a.N)
+      v = reinterpret_cast<const uint4*>(c < 2 ? a.x : a.d)[(size_t)g * 2 +
+                                                            (c & 1)];
+    *reinterpret_cast<uint4*>(a.xs + (size_t)g * XW + 8 * c) = v;
+  }
+  float dir[2][3], dout[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + qrow + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir[h][k] = g < a.N ? __bfloat162float(a.d[(size_t)g * kInPad + k])
+                          : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dout[h][c] = g < a.N ? a.dout[(size_t)g * 4 + c] : 0.f;
+  }
+  mbar_wait(loaded, 0);
+
+  // Each product's accumulators live in their own scope: an array left
+  // live across a later product would hold its registers through it.
+  // sigma head: ys = h W_s0 + b_s0; s_s into S, cos(ys) over the
+  // accumulators, this thread's sigma_pre partial dots
+  {
+    float acc_s[NS / 2];
+    fwd_product(acc_s, smem_u32(T), W, true, r);
+    const float* b_s0 = m.bpack + m.ob_s0();
+    const bf16* w_s1 = m.ws1();
+    float sp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < Wh / 8; j += 2) {
+      uint32_t packed[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * (lane & 3);
+        const float b0 = b_s0[col], b1 = b_s0[col + 1];
+        const float w0 = __bfloat162float(w_s1[col]);
+        const float w1 = __bfloat162float(w_s1[col + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& c0 = acc_s[4 * (j + jj) + 2 * h];
+          float& c1 = acc_s[4 * (j + jj) + 2 * h + 1];
+          const float y0 = __fadd_rn(c0, b0), y1 = __fadd_rn(c1, b1);
+          const __nv_bfloat162 p =
+              __floats2bfloat162_rn(sin_fast(y0), sin_fast(y1));
+          packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
+          sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
+          c0 = cos_fast(y0);
+          c1 = cos_fast(y1);
+        }
+      }
+      stsm_x4(smem_u32(tile_at(S, srow, 8 * (j + (sm >> 1)))), packed[0][0],
+              packed[0][1], packed[1][0], packed[1][1]);
+    }
+    tile_written();
+    store_cols(&mp.xs, S, 0, Wh, a.xs, XW, xs_ss, row0, r.lead);
+    float dsig[2], dsig_b[2];
+    const float b_s1 = m.bpack[m.ob_s1()];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = quad_sum(sp[h]) + b_s1;
+      dsig[h] = v > 0.f ? dout[h][3] : 0.f;    // 0 past N
+      dsig_b[h] = __bfloat162float(__float2bfloat16_rn(dsig[h]));
+    }
+    // dys = (dsig_b w_s1) cos(ys) over s_s in S, once its store has read
+    // it and every thread has copied it
+    tile_free();
+    float* cp = cp_row();
+#pragma unroll
+    for (int j = 0; j < Wh / 8; j += 2) {
+      uint32_t packed[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * (lane & 3);
+        const float w0 = __bfloat162float(w_s1[col]);
+        const float w1 = __bfloat162float(w_s1[col + 1]);
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 =
+              __fmul_rn(__fmul_rn(dsig_b[h], w0), acc_s[4 * (j + jj) + 2 * h]);
+          const float v1 = __fmul_rn(__fmul_rn(dsig_b[h], w1),
+                                     acc_s[4 * (j + jj) + 2 * h + 1]);
+          s0 += v0;
+          s1 += v1;
+          const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+          packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        warp_colsum(s0, s1, cp, col);
+      }
+      stsm_x4(smem_u32(tile_at(S, srow, 8 * (j + (sm >> 1)))), packed[0][0],
+              packed[0][1], packed[1][0], packed[1][1]);
+    }
+    warp_rowsum(dsig, cp, Wh);
+    if ((lane & 3) == 0) {                     // dsig_b as a dY operand
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(dsig_b[h], 0.f);
+        uint4* dst = reinterpret_cast<uint4*>(
+            a.dy + (size_t)(row0 + qrow + 8 * h) * DYW + dy_sig);
+        dst[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&p), 0u, 0u,
+                            0u);
+      }
+    }
+    tile_written();
+    store_cols(&mp.dy, S, 0, Wh, a.dy, DYW, dy_s, row0, r.lead);
+    combine(Wh + 1, pb + m.ob_s0());           // b_s0, then b_s1
+  }
+
+  {  // feat = bf16(h W_f + b_f) over h in T
+    float acc[W / 2], unused[2] = {0.f, 0.f};
+    fwd_product(acc, smem_u32(T), W, true, r);
+    named_bar(bar, 128);
+    fwd_epilogue(acc, m.bpack + m.ob_f(), false, T, nullptr, unused);
+  }
+  tile_written();
+  store_cols(&mp.xs, T, 0, W, a.xs, XW, xs_feat, row0, r.lead);
+
+  // rgb head: yr = feat W_r0f + d W_r0d + b_r0; s_r into T[:, :Wh],
+  // cos(yr) over the accumulators, rgb, drgb, dyr into T[:, Wh:]
+  {
+    float acc_s[NS / 2];
+    fwd_product(acc_s, smem_u32(T), W, true, r);
+    tile_free();
+    const float* b_r0 = m.bpack + m.ob_r0();
+    const bf16* w_r0d = m.wr0d();
+    const bf16* w_r1 = m.wr1();
+    float rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < Wh / 8; j += 2) {
+      uint32_t packed[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * (lane & 3);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float wd[3], wr[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            wd[k] = __bfloat162float(w_r0d[k * Wh + col + e]);
+            wr[k] = __bfloat162float(w_r1[3 * (col + e) + k]);
+          }
+          const float b = b_r0[col + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& c = acc_s[4 * (j + jj) + 2 * h + e];
+            const float dterm =
+                __fadd_rn(__fadd_rn(__fmul_rn(dir[h][0], wd[0]),
+                                    __fmul_rn(dir[h][1], wd[1])),
+                          __fmul_rn(dir[h][2], wd[2]));
+            const float y = __fadd_rn(__fadd_rn(c, dterm), b);
+            const bf16 sb = __float2bfloat16_rn(sin_fast(y));
+            const float sv = __bfloat162float(sb);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) rp[h][k] += sv * wr[k];
+            c = cos_fast(y);
+            const uint32_t bits = __bfloat16_as_ushort(sb);
+            packed[jj][h] = e == 0 ? bits : (packed[jj][h] | (bits << 16));
+          }
+        }
+      }
+      stsm_x4(smem_u32(tile_at(T, srow, 8 * (j + (sm >> 1)))), packed[0][0],
+              packed[0][1], packed[1][0], packed[1][1]);
+    }
+    tile_written();
+    store_cols(&mp.xs, T, 0, Wh, a.xs, XW, xs_sr, row0, r.lead);
+    const float* b_r1 = m.bpack + m.ob_r1();
+    float drgb[3][2], drgb_b[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = quad_sum(rp[h][c]) + b_r1[c];
+        const float rr = 1.f / (1.f + expf(-v));
+        drgb[c][h] = dout[h][c] * rr * (1.f - rr);     // 0 past N
+        drgb_b[h][c] = __bfloat162float(__float2bfloat16_rn(drgb[c][h]));
+      }
+    float* cp = cp_row();
+#pragma unroll
+    for (int j = 0; j < Wh / 8; j += 2) {
+      uint32_t packed[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * (lane & 3);
+        float s[2] = {0.f, 0.f}, v[2][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float w0 = __bfloat162float(w_r1[3 * (col + e)]);
+          const float w1 = __bfloat162float(w_r1[3 * (col + e) + 1]);
+          const float w2 = __bfloat162float(w_r1[3 * (col + e) + 2]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float p = __fadd_rn(
+                __fadd_rn(__fmul_rn(drgb_b[h][0], w0),
+                          __fmul_rn(drgb_b[h][1], w1)),
+                __fmul_rn(drgb_b[h][2], w2));
+            v[h][e] = __fmul_rn(p, acc_s[4 * (j + jj) + 2 * h + e]);
+            s[e] += v[h][e];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 p = __floats2bfloat162_rn(v[h][0], v[h][1]);
+          packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        warp_colsum(s[0], s[1], cp, col);
+      }
+      stsm_x4(smem_u32(tile_at(T, srow, Wh + 8 * (j + (sm >> 1)))),
+              packed[0][0], packed[0][1], packed[1][0], packed[1][1]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) warp_rowsum(drgb[c], cp, Wh + c);
+    if ((lane & 3) == 0) {                     // drgb_b as a dY operand
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p0 =
+            __floats2bfloat162_rn(drgb_b[h][0], drgb_b[h][1]);
+        const __nv_bfloat162 p1 = __floats2bfloat162_rn(drgb_b[h][2], 0.f);
+        uint4* dst = reinterpret_cast<uint4*>(
+            a.dy + (size_t)(row0 + qrow + 8 * h) * DYW + dy_sig + 8);
+        dst[0] = make_uint4(*reinterpret_cast<const uint32_t*>(&p0),
+                            *reinterpret_cast<const uint32_t*>(&p1), 0u, 0u);
+      }
+    }
+    tile_written();
+    store_cols(&mp.dy, T, Wh, Wh, a.dy, DYW, dy_r, row0, r.lead);
+    combine(Wh + 3, pb + m.ob_r0());           // b_r0, then b_r1
+  }
+
+  // dfeat = dyr_b W_r0f^T over T (feat has no activation)
+  float acc[W / 2];
+  const uint32_t t_a = smem_u32(T);
+  fwd_product(acc, t_a + (Wh / 64) * kBlock + (Wh % 64) * 2, Wh, true, r);
+  tile_free();
+  cot_epilogue(acc, nullptr, 0, T, cp_row());
+  tile_written();
+  store_cols(&mp.dy, T, 0, W, a.dy, DYW, dy_f, row0, r.lead);
+  combine(W, pb + m.ob_f());
+
+  // dy_{L-1} = (dfeat_b W_f^T + dys_b W_s0^T) * factor_{L-1}, then
+  // dy_{i-1} = (dy_i_b W_i^T) * factor_{i-1}
+  const bf16* fac = a.acts + (size_t)(row0)*a.lda + (size_t)L * W;
+  for (int i = L; i >= 1; --i) {
+    fwd_product(acc, t_a, W, true, r);
+    if (i == L) fwd_product(acc, smem_u32(S), Wh, false, r);
+    tile_free();
+    cot_epilogue(acc, fac + (size_t)(i - 1) * W, a.lda, T, cp_row());
+    tile_written();
+    store_cols(&mp.dy, T, 0, W, a.dy, DYW, (i - 1) * W, row0, r.lead);
+    combine(W, pb + (i - 1) * W);
+  }
+  if (r.lead) bulk_wait<0>();                 // every store has landed
+}
+
+// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
+// producer's.
+template <int W>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    siren_bwd_rows_ws_kernel(const __grid_constant__ SirenBwdMaps mp,
+                             SirenTrainArgs a, int n_stages) {
+  extern __shared__ unsigned char bwd_ws_smem_raw[];
+  unsigned char* ring = bwd_ws_smem_raw +
+                        ((1024 - (smem_u32(bwd_ws_smem_raw) & 1023)) & 1023);
+  const int L = a.m.n_layers, n_bias = L * W + W / 2 + 1 + W + W / 2 + 3;
+  unsigned char* T = ring + n_stages * W * 128;
+  unsigned char* S = T + kFwdConsumers * W * 128;
+  float* colpart = reinterpret_cast<float*>(
+      S + kFwdConsumers * enc_blocks(W / 2) * kBlock);
+  float* bias = colpart + kFwdConsumers * 4 * (W + 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias + kFwdConsumers *
+                                                          n_bias);
+  uint64_t* empty = full + n_stages;
+  uint64_t* loaded = empty + n_stages;
+  fwd_init_barriers(full, empty, n_stages, loaded, kFwdConsumers);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {                       // the producer
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 128 * kFwdConsumers)
+      ws_bwd_produce<W>(mp, a.m.n_layers, ring, full, empty, n_stages);
+    return;
+  }
+  setmaxnreg_inc<kFwdConsumerRegs>();
+  FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
+            (threadIdx.x & 127) == 0};
+  ws_bwd_consume<W>(a, mp, r, T + wg * W * 128,
+                    S + wg * enc_blocks(W / 2) * kBlock,
+                    colpart + wg * 4 * (W + 4), bias + wg * n_bias,
+                    &loaded[wg], wg);
+  // both consumers' bias partials, added in order
+  named_bar(kBwdBoth, 128 * kFwdConsumers);
+  float* pb = a.pbias + (size_t)blockIdx.x * n_bias;
+  for (int c = threadIdx.x; c < n_bias; c += 128 * kFwdConsumers)
+    pb[c] = bias[c] + bias[n_bias + c];
+}
+
+template <int W>
+cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
+                               cudaStream_t st) {
+  constexpr int Wh = W / 2;
+  const int L = a.m.n_layers, n_pad = n_blocks * kRows;
+  const bf16* w_s0 = a.m.wpack + (size_t)kInPad * W + (size_t)(L - 1) * W * W;
+  const bf16* w_f = w_s0 + (size_t)W * Wh + Wh;
+  const bf16* w_r0f = w_f + (size_t)W * W;
+  const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
+  SirenBwdMaps mp;
+  if (!encode_bf16_map(&mp.s0, w_s0, W, Wh, Wh, 64) ||
+      !encode_bf16_map(&mp.f, w_f, W, W, W, 64) ||
+      !encode_bf16_map(&mp.r0, w_r0f, W, Wh, Wh, 64) ||
+      !encode_bf16_map(&mp.wt, a.wtpack, (L + 1) * W, W, W, 64) ||
+      !encode_bf16_map(&mp.acts, a.acts, n_pad, a.lda, a.lda, 64) ||
+      !encode_bf16_map(&mp.xs, a.xs, n_pad, XW, XW, 64) ||
+      !encode_bf16_map(&mp.dy, a.dy, n_pad, DYW, DYW, 64))
+    return cudaErrorInvalidValue;
+  const int n_bias = L * W + Wh + 1 + W + Wh + 3;
+  const int n_stages = ws_bwd_stages<W>(n_bias);
+  const size_t smem = ws_bwd_smem_bytes<W>(n_stages, n_bias);
+  cudaError_t err = cudaFuncSetAttribute(
+      siren_bwd_rows_ws_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  siren_bwd_rows_ws_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
+      mp, a, n_stages);
+  return cudaGetLastError();
+}
+
 void fill_args(SirenTrainArgs& a, const void* x, const void* d,
                const void* wpack, const void* bpack, const void* alphas,
                int n, int n_layers, int width) {
@@ -432,19 +1058,34 @@ extern "C" int fsnerf_siren_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = bwd_smem_bytes(width);
-  cudaError_t err = cudaFuncSetAttribute(
-      siren_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  siren_bwd_rows_kernel<<<n_blocks, kThreads, smem, st>>>(a);
-  err = cudaGetLastError();
+  // the row pass: saved mode at width 64, 128 or 256 on the
+  // warp-specialized kernel, where its shared memory fits (a ring of 2
+  // stages or more beside the bias partials); recompute mode (f32 factors)
+  // and other widths on siren_bwd_rows_kernel
+  const int Wh = width / 2, L = n_layers;
+  const int n_b = L * width + Wh + 1 + width + Wh + 3;
+  const bool ws = !a.recompute && (width == 64    ? ws_bwd_stages<64>(n_b)
+                                   : width == 128 ? ws_bwd_stages<128>(n_b)
+                                   : width == 256 ? ws_bwd_stages<256>(n_b)
+                                                  : 0) > 0;
+  cudaError_t err;
+  if (ws) {
+    err = width == 64    ? launch_bwd_rows_ws<64>(a, n_blocks, st)
+          : width == 128 ? launch_bwd_rows_ws<128>(a, n_blocks, st)
+                         : launch_bwd_rows_ws<256>(a, n_blocks, st);
+  } else {
+    const size_t smem = bwd_smem_bytes(width);
+    err = cudaFuncSetAttribute(siren_bwd_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    siren_bwd_rows_kernel<<<n_blocks, kThreads, smem, st>>>(a);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int Wh = width / 2, L = n_layers;
   const int n_w = kInPad * width + (L - 1) * width * width + width * Wh + Wh +
                   width * width + width * Wh + kInPad * Wh + Wh * 3;
-  const int n_b = L * width + Wh + 1 + width + Wh + 3;
   return static_cast<int>(launch_dw(
       static_cast<const bf16*>(acts), lda, static_cast<const bf16*>(xs),
       2 * kInPad + 2 * width, static_cast<const bf16*>(dy),

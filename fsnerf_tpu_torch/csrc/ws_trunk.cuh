@@ -1,5 +1,6 @@
 // The warp-specialized NeRF MLP forward shared by the train forward
-// (mlp_train.cu, kernel mlp_train_fwd_kernel), the density pass (mlp.cu,
+// (mlp_train.cu, kernel mlp_train_fwd_kernel), the forward MLP on encoded
+// rows and the density pass (mlp.cu, nerf_mlp_kernel and
 // nerf_density_kernel) and the NeRF ray march (render.cu,
 // nerf_march_kernel).
 //

@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 13 + [f, vp]
     lib.fsnerf_ray_march.restype = i
-    lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 7 + [vp]
+    lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 8 + [vp]
     lib.fsnerf_nerf_mlp.restype = i
     lib.fsnerf_nerf_density.argtypes = [vp] * 4 + [i] * 7 + [vp]
     lib.fsnerf_nerf_density.restype = i

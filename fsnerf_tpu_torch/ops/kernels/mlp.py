@@ -15,8 +15,9 @@ f32 sigmoid. Out [N, 4] float32 = rgb, sigma.
 
 The density pass (`nerf_density`, the occupancy grid refresh's workload)
 runs the trunk and the sigma head alone, with the same numerics, on the
-positional encodings only; its kernel is the warp-specialized trunk of
-csrc/ws_trunk.cuh, built for the widths render.py::KERNEL_WIDTHS.
+positional encodings only. Both kernels are the warp-specialized MLP of
+csrc/ws_trunk.cuh, built for the widths render.py::KERNEL_WIDTHS and
+encodings up to render.py::KERNEL_MAX_ENC wide.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
 `nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
@@ -126,8 +127,10 @@ def nerf_mlp_reference(encx, encd, params: MlpParams,
 
 def nerf_mlp(encx, encd, params: MlpParams,
              density_activation: str = "none") -> torch.Tensor:
-    """The fused MLP: csrc/mlp.cu for CUDA tensors, nerf_mlp_reference for
-    CPU tensors; same arguments and return. Any N: the kernel predicates the
+    """The fused MLP: csrc/mlp.cu's nerf_mlp_kernel for CUDA tensors
+    (widths render.py::KERNEL_WIDTHS, d_enc_pad and d_dir_pad up to
+    KERNEL_MAX_ENC: ValueError otherwise), nerf_mlp_reference for CPU
+    tensors; same arguments and return. Any N: the kernel predicates the
     rows of its last 128-row tile. Counts its kernel launches in
     `nerf_mlp.launches`."""
     if encx.device.type == "cpu":
@@ -135,6 +138,9 @@ def nerf_mlp(encx, encd, params: MlpParams,
     if encx.device.type != "cuda":
         raise ValueError(f"nerf_mlp runs on cpu or cuda, not {encx.device}")
     _check(encx, encd, params, density_activation)
+    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
+    if err is not None:
+        raise ValueError(f"nerf_mlp: {err}")
     for a in (encx, encd, params.wpack, params.bpack):
         if a.device != encx.device or not a.is_contiguous():
             raise ValueError("nerf_mlp needs contiguous tensors on one "
@@ -149,6 +155,8 @@ def nerf_mlp(encx, encd, params: MlpParams,
         params.bpack.data_ptr(), out.data_ptr(), N, params.n_layers,
         params.skip_mask, params.width, params.d_enc_pad, params.d_dir_pad,
         _DENSITY_ACT[density_activation],
+        trunk_rows(params.n_layers, params.skip, params.width,
+                   params.d_enc_pad),
         torch.cuda.current_stream(encx.device).cuda_stream)
     if err:
         raise RuntimeError("nerf_mlp kernel launch failed: "

@@ -287,16 +287,12 @@ def siren_mlp_bwd_reference(x, d, dout, params: SirenParams, acts=None):
     h = hs[-1]
     dout = dout.to(torch.float32)
 
-    rgb = hd["rgb"]
-    drgb = dout[:, :3] * rgb * (1.0 - rgb)
-    drgb_b = _bf16(drgb)
-    dyr = (drgb_b @ u["wr1"].t()) * sincos_fast(hd["yr"], False, True)[1]
+    hc = head_cotangents(hd, dout, u)
+    drgb, drgb_b, dyr = hc["drgb"], hc["drgb_b"], hc["dyr"]
+    dsig, dsig_b, dys = hc["dsig"], hc["dsig_b"], hc["dys"]
     dyr_b = _bf16(dyr)
     dfeat = dyr_b @ u["wr0f"].t()
     dfeat_b = _bf16(dfeat)
-    dsig = torch.where(hd["sigma_pre"] > 0.0, dout[:, 3:4], 0.0)
-    dsig_b = _bf16(dsig)
-    dys = (dsig_b @ u["ws1"].t()) * sincos_fast(hd["ys"], False, True)[1]
     dys_b = _bf16(dys)
     heads_w = [h.t() @ dys_b, hd["s_s"].t() @ dsig_b, h.t() @ dfeat_b,
                hd["feat"].t() @ dyr_b, df.t() @ dyr_b, hd["s_r"].t() @ drgb_b]
@@ -315,6 +311,24 @@ def siren_mlp_bwd_reference(x, d, dout, params: SirenParams, acts=None):
     dw = torch.cat([g.reshape(-1) for g in g_trunk + heads_w])
     db = torch.cat(b_trunk + heads_b)
     return _bf16(dw), db
+
+
+def head_cotangents(hd, dout, u):
+    """The heads' cotangents from _heads' intermediates hd and the output
+    cotangent dout [N, 4], as the TPU kernels' _bwd_grads_siren: drgb =
+    dout_rgb r (1 - r), dyr = (bf16(drgb) w_r1^T) cos(yr); dsig = dout_sigma
+    where sigma_pre > 0, dys = (bf16(dsig) w_s1^T) cos(ys); f32 throughout,
+    cos the polynomial of fastmath.py. Returns a dict of drgb, drgb_b, dyr,
+    dsig, dsig_b, dys (the _b ones bf16-rounded)."""
+    rgb = hd["rgb"]
+    drgb = dout[:, :3] * rgb * (1.0 - rgb)
+    drgb_b = _bf16(drgb)
+    dyr = (drgb_b @ u["wr1"].t()) * sincos_fast(hd["yr"], False, True)[1]
+    dsig = torch.where(hd["sigma_pre"] > 0.0, dout[:, 3:4], 0.0)
+    dsig_b = _bf16(dsig)
+    dys = (dsig_b @ u["ws1"].t()) * sincos_fast(hd["ys"], False, True)[1]
+    return dict(drgb=drgb, drgb_b=drgb_b, dyr=dyr, dsig=dsig, dsig_b=dsig_b,
+                dys=dys)
 
 
 def _check_inputs(name, x, d, extra=()):
@@ -402,7 +416,17 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     """The SIREN backward: csrc/siren.cu for CUDA tensors,
     siren_mlp_bwd_reference for CPU tensors; same arguments and returns
     (params need wtpack). acts None recomputes the trunk. Counts its
-    launches in `siren_mlp_bwd.launches`."""
+    launches in `siren_mlp_bwd.launches`.
+
+    On the card the row pass has two routes, both hand-written kernels,
+    chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at widths 64,
+    128 and 256 (the main path's; at a depth whose bias partials fit in
+    its shared memory) runs the warp-specialized wgmma + TMA row pass
+    (siren_bwd_rows_ws_kernel); recompute mode, which holds its
+    factors in f32 by design and is not on the main path, and the other
+    widths (multiples of 32) run the mma.sync row pass
+    (siren_bwd_rows_kernel). The dW pass and the reduce are the same for
+    both."""
     if x.device.type == "cpu":
         return siren_mlp_bwd_reference(x, d, dout, params, acts)
     if x.device.type != "cuda":

@@ -11,11 +11,19 @@ NeRF 8x256 with seeded weights:
   march: kernel 1 (the NeRF ray march) at 16,384 rays x K 192 (block 16 x
     chunk 8; prefix masks with sorted valid counts, as after the
     depth-coherence sort), normal and with a saturating sigma bias (+5000:
-    blocks exit early), and its host time per call.
+    blocks exit early), and its host time per call;
+  mlp: kernel 3 (the forward MLP on encoded rows) at 1,048,576 rows (the
+    hierarchical eval's coarse pass, `chip_smoke.py` phase 7) and at
+    393,216 (one validation chunk: 2,048 rays x K 192), and its host time
+    per call;
+  siren: kernel 8 (the SiNeRF backward) at the main path's 196,608 rows,
+    saved mode whole and split into its three launches (row pass, dW pass,
+    reduce; from a torch.profiler trace), its host time per call, and
+    recompute mode.
 
     python -m fsnerf_tpu_torch.scripts.train_kernel_turns \\
         --trees build/parent,. [--blocks 3] [--rows 196608] \\
-        [--groups train,density,march]
+        [--groups train,density,march,mlp,siren]
 
 Each measurement is a process of its own that imports `fsnerf_tpu_torch`
 from one tree (its kernels built there), in the order A, B, B, A per
@@ -38,7 +46,11 @@ _KEYS = {"train": ("fwd_ms", "fwd_nosave_ms", "fwd_host_ms", "bwd_ms",
                    "bwd_recompute_ms"),
          "density": ("density_ms", "density_all_ms", "density_host_ms",
                      "refresh_all_ms", "refresh_quarter_ms"),
-         "march": ("march_ms", "march_exit_ms", "march_host_ms")}
+         "march": ("march_ms", "march_exit_ms", "march_host_ms"),
+         "mlp": ("mlp_ms", "mlp_chunk_ms", "mlp_host_ms"),
+         "siren": ("siren_bwd_ms", "siren_rows_ms", "siren_dw_ms",
+                   "siren_reduce_ms", "siren_bwd_host_ms",
+                   "siren_bwd_recompute_ms")}
 
 
 def _ms(fn, reps: int) -> float:
@@ -78,7 +90,8 @@ def measure(groups, rows: int, reps: int) -> dict:
     res = {}
     for group in groups:
         res.update({"train": measure_train, "density": measure_density,
-                    "march": measure_march}[group](rows, reps))
+                    "march": measure_march, "mlp": measure_mlp,
+                    "siren": measure_siren}[group](rows, reps))
     return res
 
 
@@ -227,6 +240,117 @@ def measure_march(rows: int, reps: int) -> dict:
     return res
 
 
+def measure_mlp(rows: int, reps: int) -> dict:
+    import torch
+
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.encoding import positional_encoding
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+
+    dev = torch.device("cuda")
+    cfg = Config()
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(5), dev)
+    params = km.prep_params(model.state_dict(), cfg.model.n_layers,
+                            cfg.model.skip, dev)
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    with torch.no_grad():
+        encx = km.pad_features(positional_encoding(x, cfg.encoder.n_freqs),
+                               params.d_enc_pad)
+        encd = km.pad_features(
+            positional_encoding(d, cfg.encoder.n_freqs_views),
+            params.d_dir_pad)
+    chunk = 2048 * 192
+    ex, ed = encx[:chunk], encd[:chunk]
+    got = km.nerf_mlp(ex, ed, params)
+    ref = km.nerf_mlp_reference(ex, ed, params)
+    return {"mlp_rgb_err": float((got[:, :3] - ref[:, :3]).abs().max()),
+            "mlp_sigma_err": float((got[:, 3] - ref[:, 3]).abs().max()),
+            "mlp_ms": _ms(lambda: km.nerf_mlp(encx, encd, params),
+                          max(reps // 5, 3)),
+            "mlp_chunk_ms": _ms(lambda: km.nerf_mlp(ex, ed, params), reps),
+            "mlp_host_ms": _host_ms(lambda: km.nerf_mlp(ex, ed, params),
+                                    reps)}
+
+
+def _split_ms(fn, names, calls: int) -> dict:
+    """Device ms per call of fn in each of the kernels whose name starts
+    with one of `names` (each launched once per call): the mean of the
+    kernel events of a torch.profiler trace over `calls` calls."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    durs = {name: [] for name in names}
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        for name in names:
+            if name in e["name"]:
+                durs[name].append(e["dur"] / 1e3)
+                break
+    return {name: sum(d) / len(d) if d else float("nan")
+            for name, d in durs.items()}
+
+
+def measure_siren(rows: int, reps: int) -> dict:
+    import dataclasses
+
+    import torch
+
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, model="sinerf"))
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(10), dev)
+    params = ks.prep_siren_params(model.state_dict(), cfg.model.n_layers,
+                                  with_transposed=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = ks.pad_inputs(torch.rand((rows, 3), generator=g, device=dev) * 3.0
+                      - 1.5)
+    d = ks.pad_inputs(torch.nn.functional.normalize(
+        torch.randn((rows, 3), generator=g, device=dev), dim=-1))
+    out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    target = torch.rand((rows, 4), generator=g, device=dev)
+    dout = (2.0 * (out - target) / out.numel()).contiguous()
+
+    def saved():
+        return ks.siren_mlp_bwd(x, d, dout, params, acts)
+
+    split = _split_ms(saved, ("siren_bwd_rows", "dw_gemm_kernel",
+                              "dw_reduce_kernel"), 5)
+    return {"siren_bwd_ms": _ms(saved, reps),
+            "siren_rows_ms": split["siren_bwd_rows"],
+            "siren_dw_ms": split["dw_gemm_kernel"],
+            "siren_reduce_ms": split["dw_reduce_kernel"],
+            "siren_bwd_host_ms": _host_ms(saved, reps),
+            "siren_bwd_recompute_ms": _ms(
+                lambda: ks.siren_mlp_bwd(x, d, dout, params, None),
+                max(reps // 5, 3))}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", default="build/parent,.",
@@ -237,7 +361,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--groups", default="train,density,march",
                     help="which kernels to time: any of train, density, "
-                         "march")
+                         "march, mlp, siren")
     ap.add_argument("--worker", action="store_true",
                     help="measure the tree on PYTHONPATH once (internal)")
     args = ap.parse_args(argv)

@@ -4,8 +4,9 @@ versions, on an NVIDIA card.
 Ray march (render.cu): rgb/opacity within 7e-3, depth within 3e-2, equal
 executed-step counts. Forward MLP (mlp.cu): rgb within 5e-3 and sigma
 within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
-for the three density activations and a row count that is not a multiple
-of the 128-row tile; two runs bitwise equal. Train forward/backward (mlp_train.cu): rgb within
+for the three density activations, row counts that are not a multiple of
+the 128-row tile and each width the warp-specialized kernel takes (64,
+128, 256; width 96 refused); two runs bitwise equal. Train forward/backward (mlp_train.cu): rgb within
 5e-3 and sigma within 2e-2 of max |sigma| (the fused-MLP tolerances of
 tests/test_pallas.py), out and acts bitwise repeatable and acts within one
 bf16 step (plus 1e-3 of the largest) of the plain version's, the widths
@@ -18,7 +19,9 @@ forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
 |sigma|; every gradient within 1e-2 of that tensor's max |plain gradient|
 in each backward mode, and the two modes within 1e-2 of each other's max
 (they differ by design: the saved mode's derivative factors are bf16, the
-recompute's f32); each mode bitwise repeatable. SIREN ray march (render.cu):
+recompute's f32); each mode bitwise repeatable; the saved mode's
+warp-specialized row pass at widths 64, 128 and 256, and width 96 on the
+mma.sync row pass. SIREN ray march (render.cu):
 the ray march's tolerances and equal executed-step counts. Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
@@ -161,14 +164,14 @@ def test_kernels_refuse_widths_they_are_not_built_for(cuda):
 
 def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     """--d_filter 96: the MLP routes resolve to the module on the card (no
-    train, density or march kernel launches), and the run trains and
-    evaluates instead of raising."""
+    train, density, march or forward-MLP kernel launches), and the run
+    trains and evaluates instead of raising."""
     import json
 
     from fsnerf_tpu_torch import cli
 
     launches = (mt.mlp_train_fwd.launches, km.nerf_density.launches,
-                kr.ray_march.launches)
+                kr.ray_march.launches, km.nerf_mlp.launches)
     rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
                    "--n_layers", "4", "--d_filter", "96", "--skip", "1",
                    "--grid_resolution", "16", "--n_samples", "64",
@@ -178,7 +181,7 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     assert out["steps"] == 20 and out["device"] != "cpu"
     assert out["psnr"] == out["psnr"] and out["rays_per_sec"] > 0
     assert (mt.mlp_train_fwd.launches, km.nerf_density.launches,
-            kr.ray_march.launches) == launches
+            kr.ray_march.launches, km.nerf_mlp.launches) == launches
 
 
 def _train_params(seed, width, arch, cuda, pos_mask=None, dir_mask=None):
@@ -497,6 +500,30 @@ def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
         km.nerf_mlp(encx.t().contiguous().t(), encd, params)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 77, 128, 20_037, 393_216])
+@pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
+    """The warp-specialized forward MLP at each width of NeRF 8 layers,
+    skip (4,), n_freqs 10/4 (a 32-wide direction encoding), with and
+    without FreeNeRF masks, up to one validation chunk (2,048 rays x 192
+    samples): rgb within 5e-3, sigma within 2e-2 of max |sigma|, two runs
+    bitwise equal."""
+    pm = dm = None
+    if masked:
+        pm = torch.tensor([1.0] * 5 + [0.4] + [0.0] * 4)
+        dm = torch.tensor([1.0, 1.0, 0.5, 0.0])
+    _check_mlp(*_mlp_case(17, width, FULL, n, cuda, pm, dm), act)
+
+
+def test_nerf_mlp_refuses_widths_it_is_not_built_for(cuda):
+    """nerf_mlp takes widths 64, 128 and 256, as the other NeRF kernels."""
+    encx, encd, params = _mlp_case(18, 96, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths"):
+        km.nerf_mlp(encx, encd, params)
+
+
 def _siren_params(seed, n_layers, width, cuda, sigma_bias=0.0):
     sd = state_dict_from_jax(sinerf_params_np(seed, n_layers, width))
     sd["sigma_layers.1.bias"] = sd["sigma_layers.1.bias"] + sigma_bias
@@ -582,6 +609,26 @@ def test_siren_wrappers_count_launches_and_validate(cuda):
         ks.siren_mlp_bwd(x, d.cpu(), dout, params, acts)
     with pytest.raises(ValueError):
         ks.siren_mlp_bwd(x, d, dout, params, acts[:128])
+
+
+@pytest.mark.parametrize("n", [77, 8_264, 2 * mt.SPLIT_ROWS + 1_000,
+                               196_608])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_siren_saved_backward_at_each_width(cuda, width, n):
+    """The warp-specialized row pass (saved mode) at each width it is built
+    for, SiNeRF 8 layers, up to the main path's 196,608 rows: every
+    gradient within 1e-2 of its max against the plain version, bitwise
+    repeatable, saved within 1e-2 of recompute (which runs the mma.sync
+    row pass)."""
+    _check_siren(_siren_params(25, 8, width, cuda),
+                 *_siren_inputs(n, 6, cuda))
+
+
+def test_siren_width_96_runs_the_mma_row_pass(cuda):
+    """Width 96, which the warp-specialized row pass is not built for:
+    both modes on siren_bwd_rows_kernel, held as at the other widths."""
+    _check_siren(_siren_params(26, 4, 96, cuda), *_siren_inputs(1_000, 7,
+                                                                 cuda))
 
 
 def _check_siren_march(padded, params, bR, cs, eps=1e-4):

@@ -28,6 +28,7 @@ from fsnerf_tpu.ops.pallas.mlp import make_fused_model_fn as jmake
 from fsnerf_tpu.ops.pallas.mlp import prep_params as jprep
 from fsnerf_tpu_torch.core.models import NeRF
 from fsnerf_tpu_torch.ops.kernels import mlp as km
+from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
 from torch_parity import SMALL, mlp_inputs, nerf_params_np, t
 
@@ -111,6 +112,54 @@ def test_packing_pads_as_the_pallas_kernel():
         w0 = p.wpack[:de * 64].reshape(de, 64).float()
         np.testing.assert_array_equal(
             w0.numpy(), np.asarray(jp["trunk_w"][0], np.float32))
+
+
+@pytest.mark.parametrize("arch", [
+    dict(n_layers=4, d_filter=64, skip=(2,), n_freqs=4, n_freqs_views=2),
+    dict(n_layers=8, d_filter=256, skip=(4,), n_freqs=10, n_freqs_views=4)])
+def test_kernel_views_match_the_packer(arch):
+    """The forward MLP kernel's tensor maps (csrc/mlp.cu launch_mlp_w)
+    view prep_params' wpack as [trunk_rows, W] (each trunk matrix, w_sigma,
+    w_conn) and then [W + d_dir_pad, W/2] (w_branch_h, w_branch_d): each
+    matrix's rows there hold the module's weight transposed (bf16), its
+    padded rows zero, and the rgb head follows the branch view; the
+    encodings' maps take [N, d_enc_pad] / [N, d_dir_pad] rows whose widths
+    the kernel admits (a multiple of 64 / of 16, both up to
+    KERNEL_MAX_ENC)."""
+    sd = state_dict_from_jax(nerf_params_np(15, **arch))
+    L, skip, W = arch["n_layers"], arch["skip"], arch["d_filter"]
+    p = km.prep_params(sd, L, skip)
+    de, dd, Wh = p.d_enc_pad, p.d_dir_pad, W // 2
+    assert de % 64 == 0 and dd % 16 == 0 and max(de, dd) <= kr.KERNEL_MAX_ENC
+    assert kr.kernel_arch_error(W, de, dd) is None
+    rows = kr.trunk_rows(L, skip, W, de)
+    flat = p.wpack.float()
+    trunk = flat[:rows * W].reshape(rows, W)
+    end = rows * W + (W + dd) * Wh
+    branch = flat[rows * W:end].reshape(W + dd, Wh)
+
+    def check(block, want):
+        want = want.bfloat16().float()
+        assert block.shape[0] >= want.shape[0]
+        assert torch.equal(block[:want.shape[0]], want)
+        assert not block[want.shape[0]:].any()
+
+    r = 0
+    for i in range(L):
+        w = sd[f"layers.{i}.weight"]
+        n = de if i == 0 else W
+        check(trunk[r:r + n], w.t() if i == 0 else w[:, :W].t())
+        r += n
+        if i and (i - 1) in skip:
+            check(trunk[r:r + de], w[:, W:].t())
+            r += de
+    check(trunk[r:r + 1], sd["sigma.weight"])
+    check(trunk[r + 1:], sd["connection.weight"].t())
+    assert r + 1 + W == rows
+    check(branch[:W], sd["branch.weight"][:, :W].t())
+    check(branch[W:], sd["branch.weight"][:, W:].t())
+    assert torch.equal(flat[end:], sd["rgb.weight"].t().bfloat16().float()
+                       .reshape(-1))
 
 
 def test_wrapper_dispatches_on_device():

@@ -41,6 +41,7 @@ from fsnerf_tpu_torch.data.synthetic import SphereScene
 from fsnerf_tpu_torch.ops import occgrid as og
 from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.ops.kernels import siren as ks
+from fsnerf_tpu_torch.ops.kernels.fastmath import sincos_fast
 from fsnerf_tpu_torch.render import renderer
 from fsnerf_tpu_torch.train import step
 from fsnerf_tpu_torch.utils.interop import (state_dict_from_jax,
@@ -219,6 +220,138 @@ def test_packed_layout_and_weight_gradient_plan():
         assert y_col + -(-n_out // 8) * 8 <= L * W + 2 * W + 16
     assert off == full.n_w and len(ks.dw_jobs(full)) == 8 + 6
     assert p.wtpack.numel() == (3 * 64 + 64 + 2 * 32) * 64
+
+
+@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256)])
+def test_bwd_views_match_the_packer(n_layers, width):
+    """The warp-specialized backward row pass's tensor maps (csrc/siren.cu
+    launch_bwd_rows_ws): w_s0, w_f and w_r0f as [in, out] blocks of wpack
+    and wtpack as one [(L + 1) W, W] matrix of [out, in] rows hold the
+    module's weights (bf16) where the producer streams them, at addresses
+    and row strides TMA takes (multiples of 16 bytes)."""
+    sd = state_dict_from_jax(sinerf_params_np(12, n_layers, width))
+    p = ks.prep_siren_params(sd, n_layers, with_transposed=True)
+    W, Wh, L, P = width, width // 2, n_layers, ks.D_IN_PAD
+    s0 = P * W + (L - 1) * W * W             # past t_0 .. t_{L-1}
+    f = s0 + W * Wh + Wh                     # past w_s0, w_s1
+    views = {"w_s0": ("wpack", s0, W, Wh), "w_f": ("wpack", f, W, W),
+             "w_r0f": ("wpack", f + W * W, W, Wh),
+             "wt": ("wtpack", 0, (L + 1) * W, W)}
+    packs = {"wpack": p.wpack.float(), "wtpack": p.wtpack.float()}
+    blocks = {}
+    for name, (pack, off, rows, cols) in views.items():
+        assert (2 * off) % 16 == 0 and (2 * cols) % 16 == 0, name
+        blocks[name] = packs[pack][off:off + rows * cols].reshape(rows, cols)
+    assert p.wtpack.numel() == (L + 1) * W * W
+
+    def w(name):
+        return sd[f"{name}.weight"].bfloat16().float()
+
+    assert torch.equal(blocks["w_s0"], w("sigma_layers.0.fc_layer").t())
+    assert torch.equal(blocks["w_f"], w("fc_feature").t())
+    assert torch.equal(blocks["w_r0f"],
+                       w("rgb_layers.0.fc_layer")[:, :W].t())
+    wt = blocks["wt"]
+    for i in range(1, L):                    # dh_{i-1} = dy_i W_i^T
+        assert torch.equal(wt[(i - 1) * W:i * W],
+                           w(f"first_layers.{i}.fc_layer")), i
+    # the heads' rows where the producer reads them: w_f^T at (L-1) W,
+    # w_s0^T at L W, w_r0f^T at L W + Wh
+    assert torch.equal(wt[(L - 1) * W:L * W], w("fc_feature"))
+    assert torch.equal(wt[L * W:L * W + Wh], w("sigma_layers.0.fc_layer"))
+    assert torch.equal(wt[L * W + Wh:],
+                       w("rgb_layers.0.fc_layer")[:, :W])
+
+
+def _quad_dot(v, w):
+    """Per row, the kernels' order of a dot over the columns: thread q of
+    the row's quad sums its columns 8 j + 2 q + e (j, then e) in float32,
+    then two shuffles add (q0 + q1) + (q2 + q3)."""
+    v, w = np.float32(v), np.float32(w)
+    parts = []
+    for q in range(4):
+        acc = np.zeros(v.shape[0], np.float32)
+        for j in range(v.shape[1] // 8):
+            c = 8 * j + 2 * q
+            acc = acc + (v[:, c] * w[c] + v[:, c + 1] * w[c + 1])
+        parts.append(acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _warp_colsums(v):
+    """The kernels' column sums of [N, C] float32 values over rows in CTA
+    tiles of 128: each warp's 16 rows by a shuffle tree (row pairs h, then
+    xor 4, 8, 16 over the quads), the 8 warps in order, then the tiles."""
+    v = np.float32(v)
+    n_pad = -(-v.shape[0] // 128) * 128
+    vp = np.zeros((n_pad, v.shape[1]), np.float32)
+    vp[:v.shape[0]] = v
+    t = vp.reshape(-1, 8, 2, 8, v.shape[1])     # tile, warp, h, quad, col
+    s = t[:, :, 0] + t[:, :, 1]                 # per thread: rows h = 0, 1
+    for _ in range(3):                          # xor 4, 8, 16: quad ^ 1, 2, 4
+        s = s[:, :, 0::2] + s[:, :, 1::2]
+    s = s[:, :, 0]
+    out = s[:, 0]
+    for g in range(1, 8):
+        out = out + s[:, g]
+    return out.sum(0, dtype=np.float32)
+
+
+def test_head_cotangents_in_the_kernels_order():
+    """The register-level head cotangents of the warp-specialized row
+    pass, in its order on the CPU: sigma_pre and the rgb logits as
+    per-thread dots and quad sums, dys = (dsig_b w_s1) cos(ys) and dyr =
+    (drgb_b w_r1^T) cos(yr) per element from the f32 cos factors, the bias
+    partials as per-warp shuffle trees; held against
+    siren_mlp_bwd_reference's intermediates (head_cotangents). sigma_pre
+    and rgb within 1e-6 (read: ~1e-7; another f32 order), the sigma gate
+    equal, dys bitwise, dyr within 1e-6 of its max (the reference's
+    3-term product sums in its own order), the partials within 1e-5 of
+    each column's sum of magnitudes."""
+    params = _packed(13)
+    x, d, target = mlp_inputs(300, seed=14)
+    xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
+    out, acts = ks.siren_mlp_fwd_reference(xp, dp, params, save_acts=True)
+    dout = mse_cotangent(out, target)
+    u = ks._unpacked(params)
+    W = params.layout.width
+    L = params.layout.n_layers
+    hd = ks._heads(acts[:, (L - 1) * W:L * W].float(), dp.float(), u)
+    hc = ks.head_cotangents(hd, dout, u)
+    f32 = np.float32
+
+    sp = _quad_dot(hd["s_s"].numpy(), u["ws1"][:, 0].numpy()) + \
+        f32(u["bs1"].numpy()[0])
+    want = hd["sigma_pre"][:, 0].numpy()
+    np.testing.assert_allclose(sp, want, atol=1e-6 * np.abs(want).max())
+    assert ((sp > 0) == (want > 0)).all()
+    dsig = np.where(sp > 0, dout[:, 3].numpy(), f32(0))
+    dsig_b = torch.tensor(dsig).bfloat16().float().numpy()
+    cos_s = sincos_fast(hd["ys"], False, True)[1].numpy()
+    dys = (dsig_b[:, None] * u["ws1"][:, 0].numpy()[None, :]) * cos_s
+    assert np.array_equal(dys, hc["dys"].numpy())
+
+    logits = np.stack([_quad_dot(hd["s_r"].numpy(), u["wr1"][:, c].numpy())
+                       for c in range(3)], 1) + u["br1"].numpy()
+    rgb = f32(1) / (f32(1) + np.exp(-logits))
+    np.testing.assert_allclose(rgb, hd["rgb"].numpy(), atol=1e-6)
+    drgb = (dout[:, :3].numpy() * rgb) * (f32(1) - rgb)
+    drgb_b = torch.tensor(drgb).bfloat16().float().numpy()
+    w1 = u["wr1"].numpy()
+    cos_r = sincos_fast(hd["yr"], False, True)[1].numpy()
+    p = (drgb_b[:, 0:1] * w1[:, 0] + drgb_b[:, 1:2] * w1[:, 1]) + \
+        drgb_b[:, 2:3] * w1[:, 2]
+    dyr = p * cos_r
+    ref = hc["dyr"].numpy()
+    np.testing.assert_allclose(dyr, ref, atol=1e-6 * np.abs(ref).max())
+
+    for got_v, ref_v in ((dys, hc["dys"]), (dyr, hc["dyr"]),
+                         (dsig[:, None], hc["dsig"]),
+                         (drgb, hc["drgb"])):
+        ref_v = ref_v.numpy()
+        scale = np.abs(ref_v).sum(0) + 1e-30
+        assert (np.abs(_warp_colsums(got_v) - ref_v.sum(0)) / scale
+                ).max() < 1e-5
 
 
 def test_wrappers_dispatch_on_device():
