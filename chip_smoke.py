@@ -63,26 +63,36 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-2 of its max |plain gradient| in each backward mode (saved
      activations and recompute, each against its plain version), the two
      modes within 1e-2 of each other's max, two runs bitwise equal in each
-     mode; CUDA-event times of the kernels, the plain versions and the bf16
-     SiNeRF module (forward, and its backward by autograd), the saved
-     mode's three backward launches from torch.profiler (its row pass the
-     warp-specialized one), the host ms per backward call, and ptxas's
-     registers and spills of both row passes;
+     mode; CUDA-event times of the kernels (the forward with and without
+     its acts stream), the plain versions and the bf16 SiNeRF module
+     (forward, and its backward by autograd), the forward's host ms per
+     call and bound share, the saved mode's three backward launches from
+     torch.profiler (its row pass the warp-specialized one), the host ms
+     per backward call, the forward's kernel name from torch.profiler with
+     and without acts (the warp-specialized siren_fwd_ws_kernel at width
+     256), and ptxas's registers and spills of both forwards and both row
+     passes;
  11. the SIREN ray march vs its plain version on the 16,384 rays of a
      128x128 held-out SphereScene view, a grid rebuilt from a seeded
      SiNeRF's densities, the eval K and the depth-coherence sort, in a
      normal and a saturating case (+5000 on the sigma head's bias): rgb and
      opacity within 7e-3, depth within 3e-2, equal executed-step counts,
-     fewer steps when saturated;
+     fewer steps when saturated; its kernel name from torch.profiler (the
+     warp-specialized siren_march_kernel at width 256), its early-exit
+     time, host ms per call and bound share, and ptxas's registers and
+     spills;
  12. the SiNeRF training slice: train() from seeded weights on the 8-view
      128x128 SphereScene (occgrid), then the held-out views through
      evaluate_split, launch counts read around that run: the SIREN train
      kernels must launch once per step and the SIREN ray march at least
      once; the loss must fall and the held-out PSNR rise at least 5 dB
-     above the untrained weights';
+     above the untrained weights'; then the eval again and five more
+     train steps under torch.profiler, which must show the
+     warp-specialized march, forward and backward row pass at width 256;
  13. the SiNeRF hierarchical render slice: render_path over 3 path poses
      (64 coarse + 128 fine): the SIREN forward kernel (coarse pass) and the
-     SIREN ray march (fine pass) must both launch;
+     SIREN ray march (fine pass) must both launch, and the render again
+     under torch.profiler must show both warp-specialized kernels;
  14. the density kernel vs its plain version at full width (NeRF 8x256
      with seeded weights and a mid-anneal FreeNeRF mask at all 2,097,152
      cell centres of a res-128 grid and one jittered quarter of 524,288
@@ -313,7 +323,10 @@ def ptxas_of(log: str, kernel: str) -> str:
             cur = None
             if kernel in line:
                 width = re.search(r"ILi(\d+)E", line)
-                cur = f"{kernel}<{width.group(1)}>" if width else kernel
+                save = re.search(r"ILi\d+ELb([01])E", line)
+                cur = (f"{kernel}<{width.group(1)}"
+                       + (f", {'true' if save.group(1) == '1' else 'false'}"
+                          if save else "") + ">") if width else kernel
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return "\n".join(f"  ptxas: {o}" for o in out) or "  ptxas: (no log)"
@@ -354,6 +367,34 @@ def kernel_split_ms(fn, names, calls: int = 5):
     if missing:
         fail(f"the profiler saw no kernel events of {missing}")
     return {name: sum(d) / len(d) for name, d in durs.items()}, host_ms
+
+
+def kernels_launched(fn) -> set:
+    """The names of the CUDA kernels fn launches, from a torch.profiler
+    trace of one call (the card is waited for inside)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def require_kernels(phase: str, fn, names, width: int) -> None:
+    """Fail unless one call of fn launches each kernel of `names` at
+    template width `width` (the route the main path must take; the
+    profiler's names demangled, kernel<256, ...>, or mangled,
+    kernelILi256E...); print them."""
+    seen = kernels_launched(fn)
+    found = {n: sorted(k for k in seen if f"{n}<{width}" in k
+                       or f"{n}ILi{width}E" in k) for n in names}
+    missing = [n for n, ks_ in found.items() if not ks_]
+    if missing:
+        fail(f"{phase}: the profiler saw no kernel named {missing} "
+             f"(saw {sorted(seen)})")
+    print(f"{phase}: kernels launched (profiler) "
+          + "; ".join(f"{k[:90]}" for v in found.values() for k in v))
 
 
 def train_kernels(cfg, dev, card):
@@ -951,6 +992,13 @@ def siren_kernels(cfg, dev, card, log):
     fwd_ms, fwd_plain_ms = in_turns(
         lambda: ks.siren_mlp_fwd_reference(xp, dp, params, True),
         lambda: ks.siren_mlp_fwd(xp, dp, params, True))
+    fwd_nosave_ms = cuda_ms(lambda: ks.siren_mlp_fwd(xp, dp, params), 10)
+    fwd_host_ms = host_ms_per_call(
+        lambda: ks.siren_mlp_fwd(xp, dp, params, True))
+    for save in (True, False):
+        require_kernels(f"phase 10, the SIREN forward (save_acts={save})",
+                        lambda: ks.siren_mlp_fwd(xp, dp, params, save),
+                        ("siren_fwd_ws_kernel",), W)
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: ks.siren_mlp_bwd_reference(xp, dp, dout, params, ref_acts),
         lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
@@ -976,7 +1024,10 @@ def siren_kernels(cfg, dev, card, log):
           "gradients worst " + ", ".join(
               f"{k} {v[0]} at {v[1]:.3e}" for k, v in worst.items())
           + f" of its max, max abs err {grad_abs:.3e}; bitwise repeatable "
-          f"in each mode; forward {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f}),"
+          f"in each mode; forward {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f};"
+          f" without acts {fwd_nosave_ms:.3f} ms; host {fwd_host_ms:.4f} ms "
+          f"per call; bound share "
+          f"{fwd_bound['bound_ms'] / fwd_ms:.3f}),"
           f" backward saved {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}), "
           f"recompute {rec_ms:.3f} ms; bf16 SiNeRF module forward "
           f"{module_fwd_ms:.3f} ms, its autograd backward "
@@ -984,6 +1035,8 @@ def siren_kernels(cfg, dev, card, log):
     print("SIREN backward's launches (profiler, saved activations): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
           + f"; host {host_ms:.4f} ms per call")
+    print(ptxas_of(log, "siren_fwd_ws_kernel"))
+    print(ptxas_of(log, "siren_fwd_kernel"))
     print(ptxas_of(log, "siren_bwd_rows_ws_kernel"))
     print(ptxas_of(log, "siren_bwd_rows_kernel"))
     return (dict(max_abs_err=max(rgb_err, sig_err), ms=fwd_ms,
@@ -993,10 +1046,12 @@ def siren_kernels(cfg, dev, card, log):
             {"siren_mlp_fwd": module_fwd_ms, "siren_mlp_bwd": module_bwd_ms})
 
 
-def siren_march(cfg, dev, card):
+def siren_march(cfg, dev, card, log):
     """Phase 11: the SIREN ray march vs its plain version on a held-out
-    128x128 view, normal and saturating. Returns (the report's numbers,
-    the bf16 SiNeRF module's time on the same points)."""
+    128x128 view, normal and saturating, its kernel's name from the
+    profiler, its host ms per call and ptxas's lines for it. Returns (the
+    report's numbers, the bf16 SiNeRF module's time on the same
+    points)."""
     from fsnerf_tpu_torch import cli
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import render as kr
@@ -1023,6 +1078,11 @@ def siren_march(cfg, dev, card):
                   ks.prep_siren_params(hot_sd, L, device=dev), bR, cs, eps)
     if hot["executed"] >= normal["executed"]:
         fail("a saturating sigma bias did not make SIREN blocks exit early")
+    require_kernels("phase 11, the SIREN march",
+                    lambda: kr.siren_ray_march(*padded, params, bR, cs, eps),
+                    ("siren_march_kernel",), W)
+    host_ms = host_ms_per_call(
+        lambda: kr.siren_ray_march(*padded, params, bR, cs, eps), 20)
     march_bound = bound(
         2.0 * siren_macs(L, W) * normal["executed"] * bR * cs,
         nbytes(*padded, params.wpack, params.bpack, params.alphas)
@@ -1035,7 +1095,10 @@ def siren_march(cfg, dev, card):
 
         module_ms = cuda_ms(module_march, 3)
     print(f"SIREN ray march at {x.shape[0]} rays x K {eval_k} on {card}: "
-          f"bf16 SiNeRF module + volume_render {module_ms:.3f} ms")
+          f"early exit {hot['ms']:.3f} ms; host {host_ms:.4f} ms per call; "
+          f"bound share {march_bound['bound_ms'] / normal['ms']:.3f}; bf16 "
+          f"SiNeRF module + volume_render {module_ms:.3f} ms")
+    print(ptxas_of(log, "siren_march_kernel"))
     return dict(max_abs_err=max(normal["max_abs_err"], hot["max_abs_err"]),
                 ms=normal["ms"], plain_ms=normal["plain_ms"],
                 **march_bound), module_ms
@@ -1083,6 +1146,19 @@ def siren_train_slice(cfg, dev, card):
     launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                 "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
                 "siren_ray_march": kr.siren_ray_march.launches}
+    W = tcfg.model.d_filter
+    require_kernels(
+        "phase 12, the held-out eval",
+        lambda: cli.evaluate_split(model, og.conservative(state.grid),
+                                   held, tcfg, device=dev),
+        ("siren_march_kernel",), W)
+    short = tcfg.replace(train=dataclasses.replace(tcfg.train, n_iters=5))
+    require_kernels(
+        "phase 12, five more train steps",
+        lambda: train(make_model(short, torch.bfloat16,
+                                 torch.Generator().manual_seed(1), dev),
+                      short, pool, scene, logger=ListLogger(), log_every=5),
+        ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel"), W)
     losses = [r["loss"] for r in log.records]
     print(f"SiNeRF train slice on {card}: {state.step} steps in "
           f"{train_s:.3f} s, {state.step / train_s:.2f} steps/s, "
@@ -1127,20 +1203,27 @@ def siren_hier_render_slice(cfg, dev, card):
     model = make_model(hcfg, torch.bfloat16,
                        torch.Generator().manual_seed(0), dev)
     scene = SphereScene(n_imgs=1, hw=128)
+
+    def render():
+        return render_path(
+            cli.make_render_model_fn(model, hcfg, device=dev),
+            scene.path_poses[:3], scene.hwf, scene.near, scene.far,
+            device=dev, strategy="hierarchical", n_samples=HIER_COARSE,
+            n_fine=HIER_FINE, white_bkgd=True,
+            fused_render_fn=cli.make_fused_render_fn(model.state_dict(),
+                                                     hcfg, device=dev))
+
     ks.siren_mlp_fwd.launches = kr.siren_ray_march.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames, _ = render_path(
-        cli.make_render_model_fn(model, hcfg, device=dev),
-        scene.path_poses[:3], scene.hwf, scene.near, scene.far, device=dev,
-        strategy="hierarchical", n_samples=HIER_COARSE, n_fine=HIER_FINE,
-        white_bkgd=True,
-        fused_render_fn=cli.make_fused_render_fn(model.state_dict(), hcfg,
-                                                 device=dev))
+    frames, _ = render()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                 "siren_ray_march": kr.siren_ray_march.launches}
+    W = hcfg.model.d_filter
+    require_kernels("phase 13, the SiNeRF hierarchical render", render,
+                    ("siren_fwd_ws_kernel", "siren_march_kernel"), W)
     if min(launches.values()) == 0:
         fail(f"the SiNeRF hierarchical render launched {launches}")
     if frames.shape != (3, 128, 128, 3) or not np.isfinite(frames).all():
@@ -1647,7 +1730,8 @@ def main():
     # -- 10.-13. SiNeRF: the SIREN kernels and their slices ------------------
     siren_fwd, siren_bwd, siren_module_ms = siren_kernels(cfg, dev, card,
                                                           built.log)
-    siren_rm, siren_march_module_ms = siren_march(cfg, dev, card)
+    siren_rm, siren_march_module_ms = siren_march(cfg, dev, card,
+                                                  built.log)
     siren_launches = siren_train_slice(cfg, dev, card)
     siren_hier_render_slice(cfg, dev, card)
 

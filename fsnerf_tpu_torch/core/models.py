@@ -150,6 +150,12 @@ class NeRF(nn.Module):
         return torch.cat([rgb, sigma], dim=-1)
 
 
+def _sine_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The sine layers' accumulation dtype: float32, or float64 for a
+    float64 module (the tests' arbiter)."""
+    return torch.promote_types(compute_dtype, torch.float32)
+
+
 class SirenLinear(nn.Module):
     """sin(w (x W^T + b)) around an nn.Linear `fc_layer` (the reference's
     SirenLinear). SIREN init: U(-s, s) for weight and bias, s = 1/fan_in
@@ -171,9 +177,11 @@ class SirenLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd, lin = self.compute_dtype, self.fc_layer
-        y = torch.matmul(x.to(cd).to(torch.float32),
-                         lin.weight.to(cd).to(torch.float32).t()) + lin.bias
+        acc = _sine_dtype(cd)
+        y = torch.matmul(x.to(cd).to(acc),
+                         lin.weight.to(cd).to(acc).t()) + lin.bias.to(acc)
         return torch.sin(self.w * y)
+
 
 
 class SiNeRF(nn.Module):
@@ -243,8 +251,9 @@ class SiNeRF(nn.Module):
         if dirs is None:
             return sigma
         feat = self._dense(self.fc_feature, h)
-        r = (torch.cat([feat.to(torch.float32), dirs.to(torch.float32)],
-                       dim=-1) if self.use_viewdirs else feat)
+        acc = _sine_dtype(self.compute_dtype)
+        r = (torch.cat([feat.to(acc), dirs.to(acc)], dim=-1)
+             if self.use_viewdirs else feat)
         rgb = torch.sigmoid(self._dense(self.rgb_layers[1],
                                         self.rgb_layers[0](r)))
         return torch.cat([rgb, sigma], dim=-1)

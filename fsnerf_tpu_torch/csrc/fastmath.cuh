@@ -46,4 +46,30 @@ __device__ __forceinline__ float cos_fast(float x) {
   return __fmul_rn(q.sign, p);
 }
 
+// sin_fast(x) and, with kCos, cos_fast(x) (into *c) from one range
+// reduction, the sign (-1)^k applied by flipping the sign bit from k's
+// parity: bitwise the two functions' results (k is an integer of magnitude
+// below 2^24 there, so k - 2 floor(k / 2) is its parity exactly, and the
+// product by +-1 is a sign flip), in fewer instructions (the SIREN
+// kernels' sine epilogues).
+template <bool kCos>
+__device__ __forceinline__ float sin_cos_fast(float x, float* c) {
+  const float k = rintf(__fmul_rn(x, 0.3183098861837907f));
+  float r = __fsub_rn(x, __fmul_rn(k, 3.140625f));
+  r = __fsub_rn(r, __fmul_rn(k, 9.67653589793e-4f));
+  const int flip = (__float2int_rn(k) & 1) << 31;
+  const float r2 = __fmul_rn(r, r);
+  if (kCos) {
+    float p = __fadd_rn(-1.388731625e-3f, __fmul_rn(r2, 2.443315711e-5f));
+    p = __fadd_rn(4.166664568e-2f, __fmul_rn(r2, p));
+    p = __fadd_rn(-0.5f, __fmul_rn(r2, p));
+    p = __fadd_rn(1.0f, __fmul_rn(r2, p));
+    *c = __int_as_float(__float_as_int(p) ^ flip);
+  }
+  const float p = __fadd_rn(9.99696825e-1f,
+      __fmul_rn(r2, __fadd_rn(-1.65673162e-1f,
+                              __fmul_rn(r2, 7.51440369e-3f))));
+  return __int_as_float(__float_as_int(__fmul_rn(r, p)) ^ flip);
+}
+
 }  // namespace fsnerf

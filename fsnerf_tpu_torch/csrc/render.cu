@@ -3,8 +3,9 @@
 //   nerf_march_kernel: positional encoding + the NeRF MLP on the
 //     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
-//   ray_march_kernel<SirenMarch>: the raw points and directions as bf16 (no
-//     encoding) + the SiNeRF MLP of siren_common.cuh. Replaces
+//   siren_march_kernel (widths 64, 128, 256; ray_march_kernel<SirenMarch>
+//     at the others): the raw points and directions as bf16 (no encoding)
+//     + the SiNeRF MLP of siren_common.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call_siren (kernel 2).
 // Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/render.py::
 // ray_march_reference / siren_ray_march_reference, which follow the same
@@ -24,7 +25,10 @@
 // The NeRF march (nerf_march_kernel, below) runs each chunk step on two
 // consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
 // producer warpgroup's TMA weight ring; see the notes above it. The SIREN
-// march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk step it
+// march at widths 64, 128 and 256 (siren_march_kernel) is the same shell
+// around the SIREN forward's warp-specialized MLP. At the other widths the
+// SIREN march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk
+// step it
 // stages the rows into shared memory as bf16 and runs every layer on
 // mma.sync m16n8k16 (bf16, f32 accumulation), ping-ponging two [128 x
 // width] bf16 activation buffers, the weights (L2-resident) streaming
@@ -532,6 +536,229 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the SIREN march (siren_march_kernel) ------------------------------
+//
+// nerf_march_kernel's shell (the skip decision on named barriers, the
+// producer never told of a skipped chunk and stopped by `done`, the serial
+// per-ray composite from each row's inputs in the input tile) around the
+// SIREN forward of siren_common.cuh: per executed chunk, each consumer
+// writes its rows' points as bf16 into its one-block input tile (columns 0
+// .. 2, zeros to 16), runs the sine trunk and the heads (siren_heads, the
+// rows' ray directions, kept in shared memory, for the rgb head's rank-3
+// term). Widths 64, 128, 256; the others keep ray_march_kernel<SirenMarch>.
+struct SirenMarchArgs {
+  Args io;
+  Siren m;
+};
+
+template <int W>
+__device__ __forceinline__ void siren_march_consume(const SirenMarchArgs& sa,
+                                                    FwdRing& r,
+                                                    unsigned char* act,
+                                                    unsigned char* xt0,
+                                                    float* dir_rows,
+                                                    volatile int* done,
+                                                    int wg) {
+  const Args& a = sa.io;
+  const int t = threadIdx.x & 127, lane = t & 31, ct = threadIdx.x;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int ray0 = blockIdx.x * bR, n_chunks = a.K / cs;
+  const int bar = 1 + wg;
+  unsigned char* xt = xt0 + wg * kBlock;
+
+  // thread t owns row t % 64 of its warpgroup's input tile (t < 64 its
+  // columns 0..7, the others 8..15); rows past the chunk step's run on
+  // zeros
+  const int row = t & 63, gr = 64 * wg + row;
+  const bool in = gr < nrows;
+  const size_t sample0 = (size_t)(ray0 + gr / cs) * a.K + gr % cs;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  // each row's bf16 direction, 4 floats a row (dir_rows: this
+  // warpgroup's 64), read by the heads after the barriers of the first
+  // executed chunk
+  if (t < 64) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir_rows[4 * row + k] =
+          in ? __bfloat162float(__float2bfloat16_rn(
+                   a.dirs[(size_t)(ray0 + gr / cs) * 3 + k]))
+             : 0.f;
+  }
+  const SharedDirs dirs{dir_rows + 4 * quad_row};
+  // the row's point and mask of chunk c (zeros past the block's rows),
+  // fetched a chunk ahead
+  float xn[3] = {0.f, 0.f, 0.f}, mn = 0.f;
+  auto fetch = [&](int c) {
+    if (in && c < n_chunks) {
+      const size_t gi = sample0 + (size_t)c * cs;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xn[k] = a.x[gi * 3 + k];
+      mn = a.mask[gi];
+    }
+  };
+  fetch(0);
+
+  const FwdShape sh{sa.m.n_layers, 0, kInPad, 0};
+  const SineActs<false> acts{sa.m.alphas, nullptr, 0, W};
+  float od = 0.f, rr0 = 0.f, rr1 = 0.f, rr2 = 0.f, opa = 0.f, dep = 0.f;
+  int executed = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float mv = mn;
+    // exact early exit, as nerf_march_kernel's
+    const bool alive = named_bar_or(kMarchBar, 256, ct < bR && od < a.thresh);
+    const bool valid = named_bar_or(kMarchBar, 256, in && mv > 0.f);
+    if (!(alive && valid)) {
+      fetch(c + 1);
+      continue;
+    }
+    ++executed;
+
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (t < 64) {
+      const __nv_bfloat162 p0 = __floats2bfloat162_rn(xn[0], xn[1]);
+      const __nv_bfloat162 p1 = __floats2bfloat162_rn(xn[2], 0.f);
+      v.x = *reinterpret_cast<const uint32_t*>(&p0);
+      v.y = *reinterpret_cast<const uint32_t*>(&p1);
+    }
+    *reinterpret_cast<uint4*>(tile_at(xt, row, 8 * (t >> 6))) = v;
+    fence_proxy_async();
+    named_bar(bar, 128);
+    float acc[W / 2], unused[2] = {0.f, 0.f};
+    fwd_trunk<W>(acc, r, act, smem_u32(xt), sh, sa.m.bpack, nullptr, unused,
+                 bar, nullptr, 0, acts);
+    // the trunk's wgmma have retired in every warp: xt is free for each
+    // row's compositing inputs
+    float tv = 0.f, dv = 0.f;
+    if (t < 64 && in) {
+      const size_t gi = sample0 + (size_t)c * cs;
+      tv = a.t[gi];
+      dv = a.deltas[gi];
+    }
+    fetch(c + 1);
+    float sigma[2], rgb[2][3];
+    siren_heads<W>(acc, r, act, sa.m, dirs, bar, sigma, rgb);
+    if (t < 64) {
+      float* q = reinterpret_cast<float*>(xt + row * kMarchRowBytes);
+      q[4] = tv;
+      q[5] = dv;
+      q[6] = mv;
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* q = reinterpret_cast<float*>(
+            xt + (quad_row + 8 * h) * kMarchRowBytes);
+        q[0] = sigma[h];
+        q[1] = rgb[h][0];
+        q[2] = rgb[h][1];
+        q[3] = rgb[h][2];
+      }
+    }
+    named_bar(kMarchBar, 256);
+    // composite: per-ray serial scan over the chunk, od carried across
+    // chunks, in render.cu's f32 order
+    if (ct < bR) {
+      const float acc0 = od;
+      float cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, op = 0.f, dp = 0.f;
+      for (int s = 0; s < cs; ++s) {
+        const int g = ct * cs + s;
+        const float* q = reinterpret_cast<const float*>(
+            xt0 + (g >> 6) * kBlock + (g & 63) * kMarchRowBytes);
+        const float odv = __fmul_rn(__fmul_rn(q[0], q[5]), q[6]);
+        cum = __fadd_rn(cum, odv);
+        const float trans = expf(-__fsub_rn(__fadd_rn(acc0, cum), odv));
+        const float wgt = __fmul_rn(trans, __fsub_rn(1.f, expf(-odv)));
+        r0 += wgt * q[1];
+        r1 += wgt * q[2];
+        r2 += wgt * q[3];
+        op += wgt;
+        dp += wgt * q[4];
+      }
+      rr0 += r0;
+      rr1 += r1;
+      rr2 += r2;
+      opa += op;
+      dep += dp;
+      od = acc0 + cum;
+    }
+  }
+  if (ct < bR) {
+    float* out = a.stats + (size_t)(ray0 + ct) * 8;
+    out[0] = rr0;
+    out[1] = rr1;
+    out[2] = rr2;
+    out[3] = opa;
+    out[4] = dep;
+    out[5] = expf(-od);
+    out[6] = 0.f;
+    out[7] = 0.f;
+  }
+  if (ct == 0) a.steps[blockIdx.x] = executed;
+  // release the producer, as nerf_march_kernel's consumers do
+  if (r.lead) {
+    for (int k = r.it; k < r.it + r.n_stages; ++k)
+      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
+    *done = 1;
+    mbar_arrive(&r.empty[r.it % r.n_stages]);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    siren_march_kernel(const __grid_constant__ SirenFwdMaps mp,
+                       SirenMarchArgs sa, int n_stages) {
+  extern __shared__ unsigned char siren_march_smem_raw[];
+  unsigned char* ring =
+      siren_march_smem_raw +
+      ((1024 - (smem_u32(siren_march_smem_raw) & 1023)) & 1023);
+  unsigned char* act = ring + n_stages * W * 128;
+  unsigned char* xt = act + kFwdConsumers * W * 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xt + kFwdConsumers * kBlock);
+  uint64_t* empty = full + n_stages;
+  volatile int* done = reinterpret_cast<volatile int*>(empty + n_stages);
+  float* dir_rows = reinterpret_cast<float*>(empty + n_stages + 2);
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {                       // the producer
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 128 * kFwdConsumers) {
+      int it = 0;
+      while (siren_produce_pass<W>(mp, sa.m.n_layers, ring, full, empty,
+                                   n_stages, it, done)) {
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kFwdConsumerRegs>();
+  FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
+            (threadIdx.x & 127) == 0};
+  siren_march_consume<W>(sa, r, act + wg * W * 128, xt,
+                         dir_rows + wg * 64 * 4, done, wg);
+}
+
+template <int W>
+int launch_siren_march_w(const SirenMarchArgs& sa, int n_rays,
+                         cudaStream_t st) {
+  SirenFwdMaps mp;
+  if (!encode_siren_fwd_maps(&mp, sa.m.wpack, sa.m.n_layers, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the done flag, then the rows' directions
+  const size_t extra = 16 + kRows * 4 * sizeof(float);
+  const int n_stages = fwd_stages(W, kInPad, 0, extra);
+  const size_t smem = fwd_smem_bytes(W, kInPad, 0, n_stages) + extra;
+  cudaError_t err = cudaFuncSetAttribute(
+      siren_march_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = n_rays / sa.io.block_rows;
+  if (n_blocks > 0)
+    siren_march_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(mp, sa,
+                                                               n_stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 void fill_args(Args& a, const void* x, const void* dirs, const void* t,
                const void* deltas, const void* mask, void* stats, void* steps,
                int K, int block_rows, int chunk_s, float thresh) {
@@ -607,14 +834,28 @@ extern "C" int fsnerf_siren_ray_march(
     int block_rows, int chunk_s, int n_layers, int width, float thresh,
     void* stream) {
   using namespace fsnerf;
-  Args a;
-  fill_args(a, x, dirs, t, deltas, mask, stats, steps, K, block_rows, chunk_s,
-            thresh);
+  SirenMarchArgs sa;
+  fill_args(sa.io, x, dirs, t, deltas, mask, stats, steps, K, block_rows,
+            chunk_s, thresh);
+  sa.m = Siren{static_cast<const bf16*>(wpack),
+               static_cast<const float*>(bpack),
+               static_cast<const float*>(alphas), n_layers, width};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_rows * chunk_s <= kRows) {
+    switch (width) {
+      case 64:
+        return launch_siren_march_w<64>(sa, n_rays, st);
+      case 128:
+        return launch_siren_march_w<128>(sa, n_rays, st);
+      case 256:
+        return launch_siren_march_w<256>(sa, n_rays, st);
+      default:
+        break;
+    }
+  }
   SirenMarch::Params mp;
-  mp.mlp = Siren{static_cast<const bf16*>(wpack),
-                 static_cast<const float*>(bpack),
-                 static_cast<const float*>(alphas), n_layers, width};
-  return launch_march<SirenMarch>(a, mp, n_rays, stream);
+  mp.mlp = sa.m;
+  return launch_march<SirenMarch>(sa.io, mp, n_rays, stream);
 }
 
 extern "C" const char* fsnerf_error_string(int err) {

@@ -5,7 +5,8 @@
 //
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
-// siren_fwd_kernel) and bwd_call (kernel 8; here a row pass,
+// siren_fwd_ws_kernel at widths 64 / 128 / 256, else siren_fwd_kernel)
+// and bwd_call (kernel 8; here a row pass,
 // siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 256, else
 // siren_bwd_rows_kernel, then dw_gemm_kernel and dw_reduce_kernel of
 // train_common.cuh). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/
@@ -19,9 +20,11 @@
 // backward reads them back: at the main path's 196,608 rows that stream
 // (1.61 GB) bounds the forward by bytes, and the backward sits near the
 // balance of bytes and operations. The forward's GEMMs run on the tensor
-// cores (mma.sync m16n8k16 bf16, f32 accumulation) through the GEMM core of
-// mlp_common.cuh; the sines run in the GEMM epilogues, so no f32
-// pre-activation ever leaves the SM in the forward.
+// cores, at widths 64, 128 and 256 as warp-specialized wgmma fed by TMA
+// (siren_fwd_ws_kernel, below: ws_trunk.cuh's trunk with a sine epilogue),
+// at other widths on mma.sync m16n8k16 through the GEMM core of
+// mlp_common.cuh (siren_fwd_kernel); the sines run in the GEMM epilogues,
+// so no f32 pre-activation ever leaves the SM in the forward.
 //
 // The backward, as the NeRF one (mlp_train.cu), runs in three launches so
 // that nothing is summed in an order that depends on scheduling: a
@@ -125,6 +128,141 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (r0 + row < a.N)
       a.out[(size_t)r0 * 4 + e] = c < 3 ? rgb[3 * row + c] : sig[row];
   }
+}
+
+// ---- the forward, warp-specialized ------------------------------------
+//
+// siren_fwd_ws_kernel<W> (W = 64, 128, 256): the forward of
+// siren_fwd_kernel on the warp-specialized shape of ws_trunk.cuh. 384
+// threads: a producer warpgroup, one of whose threads streams every weight
+// tile by TMA through an mbarrier ring (siren_produce_pass), and two
+// consumer warpgroups of 64 rows that run every product on wgmma. Per
+// consumer:
+//   - its 64 rows of x ([N, 16] bf16) are loaded by TMA into a one-block
+//     (64 x 64) K-major tile, TMA filling the columns past 16 and the rows
+//     past N with zeros; the rows' directions go to registers;
+//   - the trunk: each layer's epilogue adds the f32 bias, takes a_i's sine
+//     (SineAct) and overwrites the activation tile with h_i once the
+//     layer's wgmma have retired; in saved mode the tile goes to acts'
+//     columns i W by TMA while the next layer runs, and the factor
+//     bf16(a_i cos(a_i y_i)) goes from registers straight to columns (L +
+//     i) W (a factor tile of 32 KB a consumer does not fit beside a 4-stage
+//     ring at width 256);
+//   - the heads as the saved-mode backward's row pass computes them
+//     (siren_heads), then one float4 [rgb, sigma] store a row.
+// Shared memory at W = 256: a 4-stage ring (128 KB), the activation tiles
+// (2 x 32 KB), the input tiles (2 x 8 KB): 214 KB, one CTA per SM. The
+// acts stream (8 KB a row in saved mode) bounds it by bytes.
+
+template <int W, bool kSave>
+__device__ __forceinline__ void ws_fwd_consume(
+    const CUtensorMap* map_x, const CUtensorMap* map_acts,
+    const SirenTrainArgs& a, FwdRing& r, unsigned char* act,
+    unsigned char* xt, uint64_t* loaded, int wg) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int row0 = blockIdx.x * kRows + 64 * wg;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);  // rows quad_row + 8 h
+  const int bar = 1 + wg;
+  const int L = a.m.n_layers;
+  if (r.lead) {
+    mbar_arrive_expect_tx(loaded, kBlock);
+    tma_load_2d(xt, map_x, loaded, 0, row0);
+  }
+  RowDirs dir;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir.v[h][k] = g < a.N
+                        ? __bfloat162float(a.d[(size_t)g * kInPad + k])
+                        : 0.f;
+  }
+  mbar_wait(loaded, 0);
+  const SineActs<kSave> acts{
+      a.m.alphas,
+      kSave ? a.acts + (size_t)(row0 + quad_row) * a.lda + (size_t)L * W
+            : nullptr,
+      a.lda, W};
+  float acc[W / 2], unused[2] = {0.f, 0.f};
+  fwd_trunk<W>(acc, r, act, smem_u32(xt), FwdShape{L, 0, kInPad, 0},
+               a.m.bpack, nullptr, unused, bar, kSave ? map_acts : nullptr,
+               row0, acts);
+  float sigma[2], rgb[2][3];
+  siren_heads<W>(acc, r, act, a.m, dir, bar, sigma, rgb);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+    if ((lane & 3) == 0 && g < a.N)
+      reinterpret_cast<float4*>(a.out)[g] =
+          make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sigma[h]);
+  }
+  if (r.lead) bulk_wait<0>();           // the saved activations are written
+}
+
+// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
+// producer's. kSave: a.acts is set (map_acts is read only then).
+template <int W, bool kSave>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    siren_fwd_ws_kernel(const __grid_constant__ SirenFwdMaps mp,
+                        const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_acts,
+                        SirenTrainArgs a, int n_stages) {
+  extern __shared__ unsigned char fwd_ws_smem_raw[];
+  unsigned char* ring = fwd_ws_smem_raw +
+                        ((1024 - (smem_u32(fwd_ws_smem_raw) & 1023)) & 1023);
+  unsigned char* act = ring + n_stages * W * 128;
+  unsigned char* xt = act + kFwdConsumers * W * 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xt + kFwdConsumers * kBlock);
+  uint64_t* empty = full + n_stages;
+  uint64_t* loaded = empty + n_stages;           // each consumer's inputs
+  fwd_init_barriers(full, empty, n_stages, loaded, kFwdConsumers);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kFwdConsumers) {                       // the producer
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 128 * kFwdConsumers) {
+      int it = 0;
+      siren_produce_pass<W>(mp, a.m.n_layers, ring, full, empty, n_stages,
+                            it, nullptr);
+    }
+    return;
+  }
+  setmaxnreg_inc<kFwdConsumerRegs>();
+  FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
+            (threadIdx.x & 127) == 0};
+  ws_fwd_consume<W, kSave>(&map_x, &map_acts, a, r, act + wg * W * 128,
+                           xt + wg * kBlock, &loaded[wg], wg);
+}
+
+// The forward at width W on `st`: the weight maps, the maps of x and (in
+// saved mode) acts, the deepest ring that fits (4 stages at each width).
+template <int W>
+cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
+                          cudaStream_t st) {
+  const int L = a.m.n_layers;
+  SirenFwdMaps mp;
+  CUtensorMap map_x, map_acts;
+  if (!encode_siren_fwd_maps(&mp, a.m.wpack, L, W) ||
+      !encode_bf16_map(&map_x, a.x, a.N, kInPad, kInPad, 64))
+    return cudaErrorInvalidValue;
+  if (a.acts == nullptr)
+    map_acts = map_x;                              // unread
+  else if (!encode_bf16_map(&map_acts, a.acts, n_blocks * kRows, a.lda,
+                            a.lda, 64))
+    return cudaErrorInvalidValue;
+  const size_t extra = kFwdConsumers * sizeof(uint64_t);
+  const int n_stages = fwd_stages(W, kInPad, 0, extra);
+  const size_t smem = fwd_smem_bytes(W, kInPad, 0, n_stages) + extra;
+  const auto kernel = a.acts != nullptr ? siren_fwd_ws_kernel<W, true>
+                                        : siren_fwd_ws_kernel<W, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, kFwdThreads, smem, st>>>(mp, map_x, map_acts, a,
+                                              n_stages);
+  return cudaGetLastError();
 }
 
 // The backward layer epilogue: v = acc (times the factor of the tile's
@@ -773,7 +911,8 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
     float acc[W / 2], unused[2] = {0.f, 0.f};
     fwd_product(acc, smem_u32(T), W, true, r);
     named_bar(bar, 128);
-    fwd_epilogue(acc, m.bpack + m.ob_f(), false, T, nullptr, unused);
+    fwd_epilogue(acc, m.bpack + m.ob_f(), ReluAct{false}, T, nullptr,
+                 unused);
   }
   tile_written();
   store_cols(&mp.xs, T, 0, W, a.xs, XW, xs_feat, row0, r.lead);
@@ -961,14 +1100,9 @@ cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
                                cudaStream_t st) {
   constexpr int Wh = W / 2;
   const int L = a.m.n_layers, n_pad = n_blocks * kRows;
-  const bf16* w_s0 = a.m.wpack + (size_t)kInPad * W + (size_t)(L - 1) * W * W;
-  const bf16* w_f = w_s0 + (size_t)W * Wh + Wh;
-  const bf16* w_r0f = w_f + (size_t)W * W;
   const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
   SirenBwdMaps mp;
-  if (!encode_bf16_map(&mp.s0, w_s0, W, Wh, Wh, 64) ||
-      !encode_bf16_map(&mp.f, w_f, W, W, W, 64) ||
-      !encode_bf16_map(&mp.r0, w_r0f, W, Wh, Wh, 64) ||
+  if (!encode_siren_head_maps(&mp.s0, &mp.f, &mp.r0, a.m.wpack, L, W) ||
       !encode_bf16_map(&mp.wt, a.wtpack, (L + 1) * W, W, W, 64) ||
       !encode_bf16_map(&mp.acts, a.acts, n_pad, a.lda, a.lda, 64) ||
       !encode_bf16_map(&mp.xs, a.xs, n_pad, XW, XW, 64) ||
@@ -1018,15 +1152,27 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
   a.out = static_cast<float*>(out);
   a.acts = static_cast<bf16*>(acts);
   a.lda = 2 * n_layers * width;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_blocks = (n + kRows - 1) / kRows;
+  if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
+  // widths 64, 128 and 256 on the warp-specialized kernel, the other
+  // widths (multiples of 32) on siren_fwd_kernel
+  switch (width) {
+    case 64:
+      return static_cast<int>(launch_fwd_ws<64>(a, n_blocks, st));
+    case 128:
+      return static_cast<int>(launch_fwd_ws<128>(a, n_blocks, st));
+    case 256:
+      return static_cast<int>(launch_fwd_ws<256>(a, n_blocks, st));
+    default:
+      break;
+  }
   const size_t smem = fwd_smem_bytes(width);
   cudaError_t err = cudaFuncSetAttribute(
       siren_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_blocks = (n + kRows - 1) / kRows;
-  if (n_blocks > 0)
-    siren_fwd_kernel<<<n_blocks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  siren_fwd_kernel<<<n_blocks, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

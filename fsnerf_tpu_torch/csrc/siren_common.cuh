@@ -1,6 +1,12 @@
 // The SiNeRF (SIREN) MLP on a 128-row tile, shared by the SIREN ray march of
 // render.cu and the SIREN train kernels of siren.cu: the sine epilogue of
-// the GEMM core, the trunk and the forward heads.
+// the GEMM core, the trunk and the forward heads, in two shapes. The
+// mma.sync shape (SineEpi, siren_trunk, siren_mlp_rows: one CTA of 8
+// warps, each phase behind __syncthreads()) serves the widths that are not
+// 64, 128 or 256 and the backward's recompute mode; the warp-specialized
+// shape (SineAct, siren_produce_pass, siren_heads, at the end: ws_trunk.cuh's
+// producer, ring, products and epilogue with a sine activation) serves the
+// forward and the march at widths 64, 128 and 256.
 //
 // Numerics, as the TPU kernels (fsnerf_tpu/ops/pallas/siren.py::_fwd_siren,
 // _heads_siren): bf16 operands and f32 accumulation; the f32 bias is added
@@ -24,6 +30,7 @@
 #include <stdint.h>
 
 #include "mlp_common.cuh"
+#include "ws_trunk.cuh"
 
 namespace fsnerf {
 namespace {
@@ -216,6 +223,202 @@ __device__ void siren_mlp_rows(const Siren& m, const bf16* xin,
   __syncthreads();
   siren_rgb(m, hl, LDH, nrows, rgb);
   __syncthreads();
+}
+
+
+// ---- the warp-specialized shape (widths 64, 128, 256) ------------------
+//
+// ws_trunk.cuh's trunk with the sine activation, then the heads as the
+// saved-mode backward's row pass (siren.cu, ws_bwd_consume) computes them,
+// all on wgmma with A a consumer's tile in shared memory and B the ring's
+// stage. The producer streams t_0 (K 16: one stage, of which the consumers
+// run one k16 step; its rows past 16 are t_1's), t_1 .. t_{L-1}, then
+// w_s0, w_f and w_r0f. The first layer's A is a one-block (64 x 64) tile
+// holding the rows' bf16 coordinates in columns 0..15 (3 real).
+
+// The weight maps: the trunk [16 + (L - 1) W, W] (wpack's first rows) and
+// the heads' [in, out] blocks w_s0 [W, W/2], w_f [W, W], w_r0f [W, W/2].
+struct SirenFwdMaps {
+  CUtensorMap t, s0, f, r0;
+};
+
+// The heads' maps of wpack (the backward's row pass reads the same three).
+// False if one cannot be encoded.
+bool encode_siren_head_maps(CUtensorMap* s0, CUtensorMap* f,
+                            CUtensorMap* r0, const bf16* wpack, int L,
+                            int W) {
+  const int Wh = W / 2;
+  const bf16* w_s0 = wpack + (size_t)kInPad * W + (size_t)(L - 1) * W * W;
+  const bf16* w_f = w_s0 + (size_t)W * Wh + Wh;
+  const bf16* w_r0f = w_f + (size_t)W * W;
+  return encode_bf16_map(s0, w_s0, W, Wh, Wh, 64) &&
+         encode_bf16_map(f, w_f, W, W, W, 64) &&
+         encode_bf16_map(r0, w_r0f, W, Wh, Wh, 64);
+}
+
+bool encode_siren_fwd_maps(SirenFwdMaps* mp, const bf16* wpack, int L,
+                           int W) {
+  return encode_bf16_map(&mp->t, wpack, kInPad + (L - 1) * W, W, W, 64) &&
+         encode_siren_head_maps(&mp->s0, &mp->f, &mp->r0, wpack, L, W);
+}
+
+// The producer's pass over every weight tile of the forward, in the
+// consumers' order; `it` and `done` as feed_stages'.
+template <int W>
+__device__ __forceinline__ bool siren_produce_pass(
+    const SirenFwdMaps& mp, int L, unsigned char* ring, uint64_t* full,
+    uint64_t* empty, int n_stages, int& it, const volatile int* done) {
+  constexpr int NS = W / 2 < 64 ? 64 : W / 2;     // the heads' product N
+  auto feed = [&](const CUtensorMap* map, int k, int n_box) {
+    return feed_stages<W>(map, 0, k, n_box, ring, full, empty, n_stages, it,
+                          done);
+  };
+  return produce_pass<W, NS>(&mp.t, nullptr, FwdShape{L, 0, kInPad, 0},
+                             false, ring, full, empty, n_stages, it, done) &&
+         feed(&mp.s0, W, NS / 64) && feed(&mp.f, W, W / 64) &&
+         feed(&mp.r0, W, NS / 64);
+}
+
+// The sine layer's activation in fwd_epilogue, numerically SineEpi's: (v0,
+// v1) = acc + b (f32, the bias not rounded), arg = alpha v, the pair
+// sin_fast(arg); with kSave, bf16(alpha cos_fast(arg)) goes straight from
+// registers to fac[8 h ld + col] (the saved factor in device memory, at the
+// thread's first row). Saving is a template parameter: a runtime test
+// per pair cost the no-save launch ~0.37 ms of 1.40 at 196,608 rows.
+template <bool kSave>
+struct SineAct {
+  float alpha;
+  bf16* fac;
+  int ld;
+  __device__ __forceinline__ float2 operator()(float v0, float v1, int h,
+                                               int col) const {
+    const float a0 = __fmul_rn(alpha, v0), a1 = __fmul_rn(alpha, v1);
+    float c0, c1;
+    const float s0 = sin_cos_fast<kSave>(a0, &c0);
+    const float s1 = sin_cos_fast<kSave>(a1, &c1);
+    if (kSave)
+      *reinterpret_cast<__nv_bfloat162*>(fac + (size_t)(8 * h) * ld + col) =
+          __floats2bfloat162_rn(__fmul_rn(alpha, c0), __fmul_rn(alpha, c1));
+    return make_float2(s0, s1);
+  }
+};
+
+// The SIREN trunk's activation of layer i, for fwd_trunk: a_i's sine; with
+// kSave its factor to columns (L + i) W of acts (fac: this thread's first
+// row of acts, at column L W).
+template <bool kSave>
+struct SineActs {
+  const float* alphas;
+  bf16* fac;
+  int ld, width;
+  __device__ __forceinline__ SineAct<kSave> layer(int i) const {
+    return {alphas[i], kSave ? fac + (size_t)i * width : nullptr, ld};
+  }
+};
+
+// The rows' view directions for siren_heads: dirs(h, k) is coordinate k
+// of the bf16 direction of this thread's row h. RowDirs holds them in
+// registers; SharedDirs reads them from a shared array of 4 floats a row
+// (rows, at this thread's first row), which keeps them out of the
+// registers through the trunk.
+struct RowDirs {
+  float v[2][3];
+  __device__ __forceinline__ float operator()(int h, int k) const {
+    return v[h][k];
+  }
+};
+
+struct SharedDirs {
+  const float* rows;
+  __device__ __forceinline__ float operator()(int h, int k) const {
+    return rows[32 * h + k];
+  }
+};
+
+// The heads after the trunk (act holding h_{L-1}), for this thread's rows
+// 16 warp + lane / 4 + 8 h: sigma[h] = relu(s_s . w_s1 + b_s1) with s_s =
+// bf16(sin(h W_s0 + b_s0)) (per-thread dots over its columns and two quad
+// shuffles); feat = bf16(h W_f + b_f) over act; rgb[h] = sigmoid(s_r .
+// w_r1 + b_r1) with s_r = bf16(sin(feat W_r0f + d W_r0d + b_r0)), the
+// directions' term a rank-3 update from dirs (RowDirs or SharedDirs).
+// Every product accumulates into the trunk's acc (the heads' N-wide ones
+// into its first NS / 2): wgmma reads its accumulators, so in the march's
+// chunk loop a second array would stay live across the trunk (and spill).
+template <int W, class Dirs>
+__device__ __forceinline__ void siren_heads(float (&acc)[W / 2], FwdRing& r,
+                                            unsigned char* act,
+                                            const Siren& m,
+                                            const Dirs& dirs, int bar,
+                                            float (&sigma)[2],
+                                            float (&rgb)[2][3]) {
+  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh;
+  const int lane = threadIdx.x & 31;
+  float(&acc_s)[NS / 2] = *reinterpret_cast<float(*)[NS / 2]>(&acc);
+  {
+    fwd_product(acc_s, smem_u32(act), W, true, r);
+    const float* b_s0 = m.bpack + m.ob_s0();
+    const bf16* w_s1 = m.ws1();
+    float sp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < Wh / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      const float b0 = b_s0[col], b1 = b_s0[col + 1];
+      const float w0 = __bfloat162float(w_s1[col]);
+      const float w1 = __bfloat162float(w_s1[col + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(
+            sin_fast(__fadd_rn(acc_s[4 * j + 2 * h], b0)),
+            sin_fast(__fadd_rn(acc_s[4 * j + 2 * h + 1], b1)));
+        sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
+      }
+    }
+    const float b_s1 = m.bpack[m.ob_s1()];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sigma[h] = fmaxf(quad_sum(sp[h]) + b_s1, 0.f);
+  }
+  fwd_conn<W>(acc, r, act, m.bpack + m.ob_f(), bar);
+  fwd_product(acc_s, smem_u32(act), W, true, r);
+  const float* b_r0 = m.bpack + m.ob_r0();
+  const bf16* w_r0d = m.wr0d();
+  const bf16* w_r1 = m.wr1();
+  float dir[2][3], rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dir[h][k] = dirs(h, k);
+#pragma unroll
+  for (int j = 0; j < Wh / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane & 3) + e;
+      float wd[3], wr[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        wd[k] = __bfloat162float(w_r0d[k * Wh + col]);
+        wr[k] = __bfloat162float(w_r1[3 * col + k]);
+      }
+      const float b = b_r0[col];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float dterm = __fadd_rn(__fadd_rn(__fmul_rn(dir[h][0], wd[0]),
+                                                __fmul_rn(dir[h][1], wd[1])),
+                                      __fmul_rn(dir[h][2], wd[2]));
+        const float y = __fadd_rn(__fadd_rn(acc_s[4 * j + 2 * h + e], dterm),
+                                  b);
+        const float sv = __bfloat162float(__float2bfloat16_rn(sin_fast(y)));
+#pragma unroll
+        for (int k = 0; k < 3; ++k) rp[h][k] += sv * wr[k];
+      }
+    }
+  }
+  const float* b_r1 = m.bpack + m.ob_r1();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rgb[h][c] = 1.f / (1.f + expf(-(quad_sum(rp[h][c]) + b_r1[c])));
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
-// The warp-specialized NeRF MLP forward shared by the train forward
+// The warp-specialized MLP forward shared by the train forward
 // (mlp_train.cu, kernel mlp_train_fwd_kernel), the forward MLP on encoded
 // rows and the density pass (mlp.cu, nerf_mlp_kernel and
 // nerf_density_kernel) and the NeRF ray march (render.cu,
-// nerf_march_kernel).
+// nerf_march_kernel); with the sine epilogue of siren_common.cuh, also the
+// SIREN forward (siren.cu, siren_fwd_ws_kernel) and the SIREN ray march
+// (render.cu, siren_march_kernel).
 //
 // A CTA of 128 rows holds two consumer warpgroups of 64 rows each and a
 // producer warpgroup (which gives its registers to the consumers by
@@ -20,10 +22,12 @@
 // shared between the consumers, so a consumer's epilogue waits only on its
 // own warpgroup's named barrier.
 //
-// Numerics, as the TPU kernels: bf16 operands, f32 accumulation,
-// bf16-rounded biases added in f32, trunk activations ReLU then bf16, the
-// skip concat [h, enc] as two products into one accumulator, feat bf16
-// without activation, branch ReLU then bf16, rgb an f32 sigmoid.
+// Numerics of the NeRF, as the TPU kernels: bf16 operands, f32
+// accumulation, bf16-rounded biases added in f32, trunk activations ReLU
+// then bf16 (the activation is a policy of the epilogue; the SIREN's sine
+// layers take their own), the skip concat [h, enc] as two products into
+// one accumulator, feat bf16 without activation, branch ReLU then bf16,
+// rgb an f32 sigmoid.
 
 #pragma once
 
@@ -131,15 +135,38 @@ struct FwdShape {
   int n_layers, skip_mask, d_enc_pad, d_dir_pad;
 };
 
+// The producer's loads of k weight rows from row `row` of `map` (n_box
+// boxes of 64 columns each): one ring stage of 64 rows per 64 of k, by TMA.
+// `it` counts the stages fed. With `done`, the flag is read after each wait
+// for a free stage, and the feed stops (returning false) once it is raised.
+template <int W>
+__device__ __forceinline__ bool feed_stages(const CUtensorMap* map, int row,
+                                            int k, int n_box,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            int n_stages, int& it,
+                                            const volatile int* done) {
+  for (int kc = 0; kc < k; kc += 64, ++it) {
+    const int s = it % n_stages;
+    if (it >= n_stages) {
+      mbar_wait(&empty[s], (it / n_stages - 1) & 1);
+      if (done != nullptr && *done) return false;
+    }
+    unsigned char* st = ring + s * (W * 128);
+    mbar_arrive_expect_tx(&full[s], n_box * kBlock);
+    for (int q = 0; q < n_box; ++q)
+      tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
+  }
+  return true;
+}
+
 // The producer: one pass over the weight tiles in the consumers' order, by
 // TMA into the ring: the trunk, then with `heads` w_conn and the branch.
 // map_w views wpack as [rows, W] (the trunk matrices, w_sigma, w_conn:
 // ops/kernels/mlp_train.py::wpack_views), map_br the branch's [w_branch_h;
 // w_branch_d] as [W + DD, W / 2]. A stage always loads 64 rows: past a K
 // below 64 they are the next matrix's rows (or zeros past the map), which
-// the consumers' k16 steps never reach. `it` counts the stages fed. With
-// `done`, the flag is read after each wait for a free stage, and the pass
-// stops (returning false) once it is raised.
+// the consumers' k16 steps never reach. `it` and `done` as feed_stages'.
 template <int W, int NB>
 __device__ __forceinline__ bool produce_pass(const CUtensorMap* map_w,
                                              const CUtensorMap* map_br,
@@ -149,18 +176,8 @@ __device__ __forceinline__ bool produce_pass(const CUtensorMap* map_w,
                                              int n_stages, int& it,
                                              const volatile int* done) {
   auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
-    for (int kc = 0; kc < k; kc += 64, ++it) {
-      const int s = it % n_stages;
-      if (it >= n_stages) {
-        mbar_wait(&empty[s], (it / n_stages - 1) & 1);
-        if (done != nullptr && *done) return false;
-      }
-      unsigned char* st = ring + s * (W * 128);
-      mbar_arrive_expect_tx(&full[s], n_box * kBlock);
-      for (int q = 0; q < n_box; ++q)
-        tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
-    }
-    return true;
+    return feed_stages<W>(map, row, k, n_box, ring, full, empty, n_stages,
+                          it, done);
   };
   const int DE = sh.d_enc_pad;
   int row = DE;
@@ -222,16 +239,34 @@ __device__ __forceinline__ void fwd_product(float (&acc)[NACC], uint32_t a,
   if (r.lead) mbar_arrive(&r.empty[(r.it - 1) % r.n_stages]);
 }
 
+// The NeRF layers' activation in fwd_epilogue: ReLU, or none (feat).
+struct ReluAct {
+  bool on;
+  __device__ __forceinline__ float2 operator()(float v0, float v1, int,
+                                               int) const {
+    return on ? make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f))
+              : make_float2(v0, v1);
+  }
+};
+
+// The NeRF trunk's activation of every layer, for fwd_trunk.
+struct ReluActs {
+  __device__ __forceinline__ ReluAct layer(int) const { return {true}; }
+};
+
 // A layer's epilogue on this thread's accumulators (rows 16 warp + lane / 4
 // + 8 h of the warpgroup's 64, columns 8 j + 2 (lane % 4) + e):
-// tile = bf16(act(acc + bias)). With w_sigma (the last trunk layer), also
-// sig[h] += the row's bf16 activations . w_sigma over this thread's
-// columns. The bias (and w_sigma) of kChunk column blocks are loaded
-// before their stores, so that their latencies overlap; the bf16 pairs go
-// to the tile by stmatrix, four 8 x 8 blocks at a time.
-template <int NACC>
+// tile = bf16(act(acc + bias)), act(v0, v1, h, col) giving the activated
+// pair of row h's columns col, col + 1 (ReluAct, or the SIREN's sine of
+// siren_common.cuh). With w_sigma (the last trunk layer), also sig[h] +=
+// the row's bf16 activations . w_sigma over this thread's columns. The
+// bias (and w_sigma) of kChunk column blocks are loaded before their
+// stores, so that their latencies overlap; the bf16 pairs go to the tile
+// by stmatrix, four 8 x 8 blocks at a time.
+template <int NACC, class Act>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
-                                             const float* bias, bool relu,
+                                             const float* bias,
+                                             const Act& act,
                                              unsigned char* tile,
                                              const bf16* w_sigma,
                                              float (&sig)[2]) {
@@ -261,13 +296,10 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
       const int j = j0 + jj;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v0 = acc[4 * j + 2 * h] + bv[jj][0];
-        float v1 = acc[4 * j + 2 * h + 1] + bv[jj][1];
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+        const float2 v = act(acc[4 * j + 2 * h] + bv[jj][0],
+                             acc[4 * j + 2 * h + 1] + bv[jj][1], h,
+                             8 * j + 2 * (lane & 3));
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
         packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
         if (w_sigma)
           sig[h] += __low2float(p) * wv[jj][0] + __high2float(p) * wv[jj][1];
@@ -288,12 +320,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // The trunk over a consumer's 64 rows, its encodings in the tile at encx:
 // each layer's product into acc, its epilogue into the activation tile
-// act, which ends holding h_{L-1}; on the last layer sig[h] gets this
-// thread's partial sigma dots (w_sigma past the trunk in wpack). With
-// map_acts, one thread stores each layer's tile to acts (columns i W, rows
-// row0 ...) by TMA while the next layer runs. `bar` is the warpgroup's
-// named barrier.
-template <int W>
+// act, which ends holding h_{L-1}; layer i's activation is acts.layer(i)
+// (ReLU for the NeRF; the SIREN's sines). On the last layer sig[h] gets
+// this thread's partial sigma dots (w_sigma past the trunk in wpack; null
+// for none). With map_acts, one thread stores each layer's tile to acts
+// (columns i W, rows row0 ...) by TMA while the next layer runs. `bar` is
+// the warpgroup's named barrier.
+template <int W, class Acts = ReluActs>
 __device__ __forceinline__ void fwd_trunk(float (&acc)[W / 2], FwdRing& r,
                                           unsigned char* act, uint32_t encx,
                                           const FwdShape& sh,
@@ -301,7 +334,8 @@ __device__ __forceinline__ void fwd_trunk(float (&acc)[W / 2], FwdRing& r,
                                           const bf16* w_sigma,
                                           float (&sig)[2], int bar,
                                           const CUtensorMap* map_acts,
-                                          int row0) {
+                                          int row0,
+                                          const Acts& acts = Acts()) {
   const uint32_t act_a = smem_u32(act);
   const int L = sh.n_layers, DE = sh.d_enc_pad;
   for (int i = 0; i < L; ++i) {
@@ -313,8 +347,8 @@ __device__ __forceinline__ void fwd_trunk(float (&acc)[W / 2], FwdRing& r,
     }
     if (r.lead) bulk_wait_read<0>();    // the last store has read the tile
     named_bar(bar, 128);
-    fwd_epilogue(acc, b + i * W, true, act, i == L - 1 ? w_sigma : nullptr,
-                 sig);
+    fwd_epilogue(acc, b + i * W, acts.layer(i), act,
+                 i == L - 1 ? w_sigma : nullptr, sig);
     fence_proxy_async();
     named_bar(bar, 128);
     if (r.lead && map_acts != nullptr) {
@@ -335,7 +369,7 @@ __device__ __forceinline__ void fwd_conn(float (&acc)[W / 2], FwdRing& r,
   fwd_product(acc, smem_u32(act), W, true, r);
   if (r.lead) bulk_wait_read<0>();
   named_bar(bar, 128);
-  fwd_epilogue(acc, b_conn, false, act, nullptr, unused);
+  fwd_epilogue(acc, b_conn, ReluAct{false}, act, nullptr, unused);
   fence_proxy_async();
   named_bar(bar, 128);
 }

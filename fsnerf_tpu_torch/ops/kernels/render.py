@@ -541,7 +541,13 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
                     chunk_s: int, early_stop_eps: float = 1e-4):
     """The SIREN ray march: csrc/render.cu for CUDA tensors,
     siren_ray_march_reference for CPU tensors. Same arguments and returns.
-    Counts its kernel launches in `siren_ray_march.launches`."""
+    Counts its kernel launches in `siren_ray_march.launches`.
+
+    On the card both routes are hand-written kernels, chosen by width in
+    csrc/render.cu fsnerf_siren_ray_march: widths 64, 128 and 256 run the
+    warp-specialized march (siren_march_kernel, the SIREN forward's wgmma
+    trunk in the NeRF march's shell), the other widths (multiples of 32)
+    the mma.sync one (ray_march_kernel<SirenMarch>)."""
     if x.device.type == "cpu":
         return siren_ray_march_reference(x, dirs, t, deltas, mask, params,
                                          block_rows, chunk_s, early_stop_eps)

@@ -352,7 +352,13 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     """The SIREN forward: csrc/siren.cu for CUDA tensors,
     siren_mlp_fwd_reference for CPU tensors. On the card acts has
     round_up(N, 128) rows (the kernel's row tile). Counts its kernel
-    launches in `siren_mlp_fwd.launches`."""
+    launches in `siren_mlp_fwd.launches`.
+
+    On the card both routes are hand-written kernels, chosen by width in
+    csrc/siren.cu fsnerf_siren_fwd: widths 64, 128 and 256 run the
+    warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), the other
+    widths (multiples of 32) the mma.sync one (siren_fwd_kernel); both
+    write the same acts layout."""
     if x.device.type == "cpu":
         return siren_mlp_fwd_reference(x, d, params, save_acts)
     if x.device.type != "cuda":

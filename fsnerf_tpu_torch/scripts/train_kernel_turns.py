@@ -16,14 +16,19 @@ NeRF 8x256 with seeded weights:
     hierarchical eval's coarse pass, `chip_smoke.py` phase 7) and at
     393,216 (one validation chunk: 2,048 rays x K 192), and its host time
     per call;
-  siren: kernel 8 (the SiNeRF backward) at the main path's 196,608 rows,
-    saved mode whole and split into its three launches (row pass, dW pass,
+  siren: kernel 7 (the SiNeRF forward, with and without its saved
+    activations, and the wrapper's host time per call) and kernel 8 (the
+    SiNeRF backward) at the main path's 196,608 rows, kernel 8 in saved
+    mode whole and split into its three launches (row pass, dW pass,
     reduce; from a torch.profiler trace), its host time per call, and
-    recompute mode.
+    recompute mode;
+  siren_march: kernel 2 (the SIREN ray march) on kernel 1's inputs, SiNeRF
+    8x256, normal and with a saturating sigma bias, and its host time per
+    call.
 
     python -m fsnerf_tpu_torch.scripts.train_kernel_turns \\
         --trees build/parent,. [--blocks 3] [--rows 196608] \\
-        [--groups train,density,march,mlp,siren]
+        [--groups train,density,march,mlp,siren,siren_march]
 
 Each measurement is a process of its own that imports `fsnerf_tpu_torch`
 from one tree (its kernels built there), in the order A, B, B, A per
@@ -48,9 +53,12 @@ _KEYS = {"train": ("fwd_ms", "fwd_nosave_ms", "fwd_host_ms", "bwd_ms",
                      "refresh_all_ms", "refresh_quarter_ms"),
          "march": ("march_ms", "march_exit_ms", "march_host_ms"),
          "mlp": ("mlp_ms", "mlp_chunk_ms", "mlp_host_ms"),
-         "siren": ("siren_bwd_ms", "siren_rows_ms", "siren_dw_ms",
-                   "siren_reduce_ms", "siren_bwd_host_ms",
-                   "siren_bwd_recompute_ms")}
+         "siren": ("siren_fwd_ms", "siren_fwd_nosave_ms",
+                   "siren_fwd_host_ms", "siren_bwd_ms", "siren_rows_ms",
+                   "siren_dw_ms", "siren_reduce_ms", "siren_bwd_host_ms",
+                   "siren_bwd_recompute_ms"),
+         "siren_march": ("siren_march_ms", "siren_march_exit_ms",
+                         "siren_march_host_ms")}
 
 
 def _ms(fn, reps: int) -> float:
@@ -91,7 +99,8 @@ def measure(groups, rows: int, reps: int) -> dict:
     for group in groups:
         res.update({"train": measure_train, "density": measure_density,
                     "march": measure_march, "mlp": measure_mlp,
-                    "siren": measure_siren}[group](rows, reps))
+                    "siren": measure_siren,
+                    "siren_march": measure_siren_march}[group](rows, reps))
     return res
 
 
@@ -191,20 +200,14 @@ def measure_density(rows: int, reps: int) -> dict:
     return res
 
 
-def measure_march(rows: int, reps: int) -> dict:
+def _march_inputs(dev):
+    """16,384 rays x K 192 (block 16 x chunk 8): points in the scene box,
+    sorted t, prefix masks with sorted valid counts."""
     import math
 
     import torch
 
-    from fsnerf_tpu_torch.config import Config
-    from fsnerf_tpu_torch.core.models import make_model
-    from fsnerf_tpu_torch.ops.kernels import render as kr
-
-    dev = torch.device("cuda")
-    cfg = Config()
-    R, K, bR, cs = 16_384, 192, 16, 8
-    model = make_model(cfg, torch.bfloat16,
-                       torch.Generator().manual_seed(0), dev)
+    R, K = 16_384, 192
     g = torch.Generator(device=dev).manual_seed(8)
     x = torch.rand((R, K, 3), generator=g, device=dev) * 3.0 - 1.5
     dirs = torch.nn.functional.normalize(
@@ -216,28 +219,78 @@ def measure_march(rows: int, reps: int) -> dict:
                                        device=dev)).values
     mask = (torch.arange(K, device=dev)[None, :]
             < n_valid[:, None]).to(torch.float32)
+    return x, dirs, t, deltas, mask
+
+
+def _time_march(prefix, march, reference, inputs, params_of, reps):
+    """A march's numbers under the keys prefix_*: normal and with a
+    saturating sigma bias (+5000), errors against the plain version on 256
+    mid-length rays, executed steps, CUDA-event and host ms."""
+    bR, cs = 16, 8
+    R = inputs[0].shape[0]
+    res = {}
+    for key, bias in ((prefix, 0.0), (f"{prefix}_exit", 5000.0)):
+        params = params_of(bias)
+
+        def run():
+            return march(*inputs, params, bR, cs)
+
+        stats, steps = run()
+        sl = slice(R // 2, R // 2 + 256)      # mid-length rays
+        ref, _ = reference(*(a[sl] for a in inputs), params, bR, cs)
+        res[f"{key}_err"] = float((stats[sl, :5] - ref[:, :5]).abs().max())
+        res[f"{key}_steps"] = int(steps.sum())
+        res[f"{key}_ms"] = _ms(run, max(reps // 5, 3))
+        if key == prefix:
+            res[f"{prefix}_host_ms"] = _host_ms(run, max(reps // 5, 3))
+    return res
+
+
+def measure_march(rows: int, reps: int) -> dict:
+    import torch
+
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    dev = torch.device("cuda")
+    cfg = Config()
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
     sd = model.state_dict()
     arch = dict(n_layers=cfg.model.n_layers, skip=cfg.model.skip,
                 n_freqs=cfg.encoder.n_freqs,
                 n_freqs_views=cfg.encoder.n_freqs_views, device=dev)
-    res = {}
-    for key, bias in (("march", 0.0), ("march_exit", 5000.0)):
-        params = kr.prep_params(
-            dict(sd, **{"sigma.bias": sd["sigma.bias"] + bias}), **arch)
+    return _time_march(
+        "march", kr.ray_march, kr.ray_march_reference, _march_inputs(dev),
+        lambda bias: kr.prep_params(
+            dict(sd, **{"sigma.bias": sd["sigma.bias"] + bias}), **arch),
+        reps)
 
-        def march():
-            return kr.ray_march(x, dirs, t, deltas, mask, params, bR, cs)
 
-        stats, steps = march()
-        sl = slice(R // 2, R // 2 + 256)      # mid-length rays
-        ref, _ = kr.ray_march_reference(x[sl], dirs[sl], t[sl], deltas[sl],
-                                        mask[sl], params, bR, cs)
-        res[f"{key}_err"] = float((stats[sl, :5] - ref[:, :5]).abs().max())
-        res[f"{key}_steps"] = int(steps.sum())
-        res[f"{key}_ms"] = _ms(march, max(reps // 5, 3))
-        if key == "march":
-            res["march_host_ms"] = _host_ms(march, max(reps // 5, 3))
-    return res
+def measure_siren_march(rows: int, reps: int) -> dict:
+    import dataclasses
+
+    import torch
+
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    dev = torch.device("cuda")
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, model="sinerf"))
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    sd = model.state_dict()
+    key = "sigma_layers.1.bias"
+    return _time_march(
+        "siren_march", kr.siren_ray_march, kr.siren_ray_march_reference,
+        _march_inputs(dev),
+        lambda bias: ks.prep_siren_params(dict(sd, **{key: sd[key] + bias}),
+                                          cfg.model.n_layers, device=dev),
+        reps)
 
 
 def measure_mlp(rows: int, reps: int) -> dict:
@@ -341,7 +394,13 @@ def measure_siren(rows: int, reps: int) -> dict:
 
     split = _split_ms(saved, ("siren_bwd_rows", "dw_gemm_kernel",
                               "dw_reduce_kernel"), 5)
-    return {"siren_bwd_ms": _ms(saved, reps),
+    return {"siren_fwd_ms": _ms(lambda: ks.siren_mlp_fwd(x, d, params, True),
+                                reps),
+            "siren_fwd_nosave_ms": _ms(lambda: ks.siren_mlp_fwd(x, d, params),
+                                       reps),
+            "siren_fwd_host_ms": _host_ms(
+                lambda: ks.siren_mlp_fwd(x, d, params, True), reps),
+            "siren_bwd_ms": _ms(saved, reps),
             "siren_rows_ms": split["siren_bwd_rows"],
             "siren_dw_ms": split["dw_gemm_kernel"],
             "siren_reduce_ms": split["dw_reduce_kernel"],
@@ -361,7 +420,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--groups", default="train,density,march",
                     help="which kernels to time: any of train, density, "
-                         "march, mlp, siren")
+                         "march, mlp, siren, siren_march")
     ap.add_argument("--worker", action="store_true",
                     help="measure the tree on PYTHONPATH once (internal)")
     args = ap.parse_args(argv)

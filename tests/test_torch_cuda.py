@@ -20,9 +20,14 @@ forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
 in each backward mode, and the two modes within 1e-2 of each other's max
 (they differ by design: the saved mode's derivative factors are bf16, the
 recompute's f32); each mode bitwise repeatable; the saved mode's
-warp-specialized row pass at widths 64, 128 and 256, and width 96 on the
-mma.sync row pass. SIREN ray march (render.cu):
-the ray march's tolerances and equal executed-step counts. Density pass
+warp-specialized row pass at widths 64, 128 and 256 (fed the
+warp-specialized forward's acts), and width 96 on the mma.sync row pass.
+The warp-specialized SIREN forward at widths 64, 128 and 256 also holds
+its acts stream to the plain version's (h_i within 3e-2, factors within
+0.25, each on at most 2% of the elements), bitwise repeatable; width 96
+runs the mma.sync forward. SIREN ray march (render.cu): the ray march's
+tolerances and equal executed-step counts, bitwise repeatable, at widths
+64, 128 and 256 (the warp-specialized march) and 96 (the mma.sync one). Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
 runs bitwise equal, at each width the warp-specialized kernel takes (64,
@@ -631,6 +636,62 @@ def test_siren_width_96_runs_the_mma_row_pass(cuda):
                                                                  cuda))
 
 
+@pytest.mark.parametrize("n", [8_264, 196_608])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_siren_forward_at_each_width(cuda, width, n):
+    """The warp-specialized forward (widths 64, 128, 256), SiNeRF 8 layers,
+    at a ragged N and the main path's 196,608 rows: rgb within 5e-3 and
+    sigma within 2e-2 of max |sigma|; the acts stream's h_i within 3e-2 and
+    its factors within 0.25 of the plain version's, each on at most 2% of
+    the elements (a rounding flip of h_0 at a = 30 moves the later layers
+    by a few bf16 steps; the mma.sync kernel read 1.8e-2 on 0.9% and 0.125,
+    a bf16 step at |a cos| in [16, 32), on 0.6% at 196,608 rows of 8x256);
+    out and acts bitwise repeatable, out equal with and without acts; one
+    launch counted per call."""
+    L = 8
+    params = _siren_params(27, L, width, cuda)
+    x, d, _ = _siren_inputs(n, 8, cuda)
+    before = ks.siren_mlp_fwd.launches
+    out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    out2, acts2 = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    primal, _ = ks.siren_mlp_fwd(x, d, params)
+    ref, ref_acts = ks.siren_mlp_fwd_reference(x, d, params, save_acts=True)
+    torch.cuda.synchronize()
+    assert ks.siren_mlp_fwd.launches == before + 3
+    assert acts.shape == (-(-n // ks.ROWS) * ks.ROWS, 2 * L * width)
+    assert torch.equal(out, out2) and torch.equal(acts, acts2)
+    assert torch.equal(out, primal) and torch.isfinite(out).all()
+    assert (out[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert (out[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
+    got, want = acts[:n].float(), ref_acts.float()
+    for cols, tol in ((slice(0, L * width), 3e-2),
+                      (slice(L * width, None), 0.25)):
+        diff = (got[:, cols] - want[:, cols]).abs()
+        assert diff.max() <= tol, (cols, float(diff.max()))
+        assert (diff > 0).float().mean() <= 0.02, cols
+
+
+def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
+    """Width 96, which the warp-specialized forward and march are not built
+    for: both run their mma.sync kernels (siren_fwd_kernel,
+    ray_march_kernel<SirenMarch>), each launch counted, held to the same
+    tolerances; the wrappers never route to the module."""
+    params = _siren_params(26, 4, 96, cuda)
+    x, d, _ = _siren_inputs(1_000, 7, cuda)
+    f0, m0 = ks.siren_mlp_fwd.launches, kr.siren_ray_march.launches
+    out, _ = ks.siren_mlp_fwd(x, d, params)
+    ref, _ = ks.siren_mlp_fwd_reference(x, d, params)
+    torch.cuda.synchronize()
+    assert (out[:, :3] - ref[:, :3]).abs().max() < 5e-3
+    scale = ref[:, 3].abs().max() + 1e-9
+    assert (out[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=4, R=300, K=48))
+    _check_siren_march(tuple(p.to(cuda) for p in padded), params, bR, cs)
+    assert ks.siren_mlp_fwd.launches == f0 + 1
+    assert kr.siren_ray_march.launches == m0 + 2
+
+
 def _check_siren_march(padded, params, bR, cs, eps=1e-4):
     got, steps = kr.siren_ray_march(*padded, params, bR, cs, eps)
     again, _ = kr.siren_ray_march(*padded, params, bR, cs, eps)
@@ -653,6 +714,35 @@ def test_siren_march_matches_plain_at_full_width(cuda, sigma_bias):
                                bR, cs)
     if sigma_bias:
         assert int(steps.sum()) < steps.numel() * 48 // cs
+
+
+@pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_siren_march_at_each_width(cuda, width, sigma_bias):
+    """The warp-specialized march (widths 64, 128, 256), SiNeRF 8 layers,
+    300 rays (a ragged last block) x K 48: rgb/opacity within 7e-3, depth
+    within 3e-2, equal executed steps, bitwise repeatable; the saturating
+    bias makes blocks exit early."""
+    params = _siren_params(28, 8, width, cuda, sigma_bias)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=6, R=300, K=48))
+    steps = _check_siren_march(tuple(p.to(cuda) for p in padded), params,
+                               bR, cs)
+    if sigma_bias:
+        assert int(steps.sum()) < steps.numel() * 48 // cs
+
+
+@pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
+def test_siren_march_at_the_main_path_shape(cuda, sigma_bias):
+    """SiNeRF 8x256 at 16,384 rays x K 192, block 16 x chunk 8 (a 128x128
+    view at the eval K): as test_siren_march_at_each_width."""
+    params = _siren_params(29, 8, 256, cuda, sigma_bias)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=7, R=16_384,
+                                                    K=192))
+    assert (bR, cs) == (16, 8)
+    steps = _check_siren_march(tuple(p.to(cuda) for p in padded), params,
+                               bR, cs)
+    if sigma_bias:
+        assert int(steps.sum()) < steps.numel() * 192 // cs
 
 
 def test_siren_march_small_ragged_and_counted(cuda):

@@ -11,6 +11,7 @@ the largest difference read on the CPU. The CUDA kernels themselves are
 held against these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -72,12 +73,32 @@ def _jax_padded(a: torch.Tensor, rows: int):
     return jnp.asarray(out).astype(jnp.bfloat16)
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's CPU ops on one thread (restored after): the float32 GEMMs'
+    paths, and so their sums' order, depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_module_matches_flax(dtype):
-    """Full outputs, density-only calls and the Lambertian head. float32:
-    atol 1e-5 (read: 3.0e-7). bfloat16: atol 8e-3, two bf16 steps of a
-    value in [0.5, 1) (read: 3.9e-3 on rgb, where the two frameworks' bf16
-    sigmoid inputs differ by a rounding; 0 on sigma)."""
+    """Full outputs, density-only calls and the Lambertian head.
+
+    float32: the port and the flax module each within atol 1e-5 of the
+    port's module evaluated in float64 on the same weights and inputs (the
+    arbiter; read: 7.7e-7 and 7.9e-7), and of each other (read: 3.0e-7).
+    Float32 sum order moves these outputs by at most ~3e-6 (random 2-ulp
+    errors on every sum of the float64 evaluation), and rounding the first
+    layer's bias to bf16 by 1.7e-2, so 1e-5 holds float32 arithmetic and
+    catches a layer computed in another place or precision. torch runs on
+    one thread. bfloat16: atol 8e-3, two bf16 steps of a value in [0.5, 1)
+    (read: 3.9e-3 on rgb, where the two frameworks' bf16 sigmoid inputs
+    differ by a rounding; 0 on sigma)."""
     jd, td = ((jnp.float32, torch.float32) if dtype == "float32"
               else (jnp.bfloat16, torch.bfloat16))
     atol = 1e-5 if dtype == "float32" else 8e-3
@@ -89,14 +110,26 @@ def test_module_matches_flax(dtype):
         model = SiNeRF(64, ALPHAS, compute_dtype=td, use_viewdirs=viewdirs)
         model.load_state_dict(state_dict_from_jax(params))
         xj, dj = jnp.asarray(x.numpy()), jnp.asarray(d.numpy())
-        with torch.no_grad():
+        with torch.no_grad(), _one_thread():
             got = model(x, d).float().numpy()
             got_s = model(x).float().numpy()
-        np.testing.assert_allclose(
-            got, np.asarray(jm.apply(params, xj, dj), np.float32), atol=atol)
-        np.testing.assert_allclose(
-            got_s, np.asarray(jm.apply(params, xj), np.float32), atol=atol)
+        want = np.asarray(jm.apply(params, xj, dj), np.float32)
+        want_s = np.asarray(jm.apply(params, xj), np.float32)
+        np.testing.assert_allclose(got, want, atol=atol)
+        np.testing.assert_allclose(got_s, want_s, atol=atol)
         assert got_s.shape == (300, 1) and (got_s >= 0).all()
+        if dtype == "float32":
+            arbiter = SiNeRF(64, ALPHAS, compute_dtype=torch.float64,
+                             use_viewdirs=viewdirs)
+            arbiter.load_state_dict(state_dict_from_jax(params))
+            arbiter.double()
+            with torch.no_grad():
+                f64 = arbiter(x.double(), d.double()).numpy()
+                f64_s = arbiter(x.double()).numpy()
+            for name, a, b in (("port", got, f64), ("port", got_s, f64_s),
+                               ("flax", want, f64), ("flax", want_s, f64_s)):
+                np.testing.assert_allclose(
+                    a, b, atol=atol, err_msg=f"{name} vs float64")
 
 
 def test_state_dict_keys_and_init_scales():
@@ -295,6 +328,33 @@ def _warp_colsums(v):
     for g in range(1, 8):
         out = out + s[:, g]
     return out.sum(0, dtype=np.float32)
+
+
+@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256)])
+def test_fwd_views_match_the_packer(n_layers, width):
+    """The warp-specialized forward's and march's trunk map (csrc/
+    siren_common.cuh encode_siren_fwd_maps): wpack's first 16 + (L - 1) W
+    rows as one [rows, W] matrix hold t_0 (its 3 real rows, zeros to 16)
+    and t_1 .. t_{L-1} as [in, out] blocks where the producer streams them
+    (t_0 in a 64-row stage of which the consumers read 16 rows, t_i from row
+    16 + (i - 1) W); the view ends where w_s0, the first head map's block,
+    begins; its rows and the x map's [N, 16] rows are multiples of 16
+    bytes, as TMA takes them."""
+    sd = state_dict_from_jax(sinerf_params_np(13, n_layers, width))
+    p = ks.prep_siren_params(sd, n_layers)
+    W, L, P = width, n_layers, ks.D_IN_PAD
+    rows = P + (L - 1) * W
+    assert (2 * W) % 16 == 0 and (2 * P) % 16 == 0
+    assert rows >= 64                   # the first stage lies in the map
+    assert rows * W == P * W + (L - 1) * W * W   # w_s0 follows
+    t_view = p.wpack.float()[:rows * W].reshape(rows, W)
+
+    def w(i):
+        return sd[f"first_layers.{i}.fc_layer.weight"].bfloat16().float()
+
+    assert torch.equal(t_view[:3], w(0).t()) and not t_view[3:P].any()
+    for i in range(1, L):
+        assert torch.equal(t_view[P + (i - 1) * W:P + i * W], w(i).t()), i
 
 
 def test_head_cotangents_in_the_kernels_order():
