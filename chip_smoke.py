@@ -6,7 +6,12 @@ GPU.
 Phases (any failure exits non-zero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels of fsnerf_tpu_torch/csrc with nvcc (one process per
-     source, in parallel);
+     source, in parallel); then the SiNeRF main path's calls at width 256
+     under torch.profiler, before any long run (`siren_routes`): the SIREN
+     forward with and without acts, the SIREN march, five SiNeRF train
+     steps, a held-out eval and a hierarchical frame must launch the
+     warp-specialized SIREN forward, march and backward row pass (the
+     routes phases 10-13 take);
   3. ray-march kernel vs its plain PyTorch version at full width — NeRF
      8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
      SphereScene view, a res-128 grid rebuilt from the model's densities,
@@ -68,31 +73,24 @@ Phases (any failure exits non-zero; nothing is caught):
      (forward, and its backward by autograd), the forward's host ms per
      call and bound share, the saved mode's three backward launches from
      torch.profiler (its row pass the warp-specialized one), the host ms
-     per backward call, the forward's kernel name from torch.profiler with
-     and without acts (the warp-specialized siren_fwd_ws_kernel at width
-     256), and ptxas's registers and spills of both forwards and both row
-     passes;
+     per backward call, and ptxas's registers and spills of both forwards
+     and both row passes;
  11. the SIREN ray march vs its plain version on the 16,384 rays of a
      128x128 held-out SphereScene view, a grid rebuilt from a seeded
      SiNeRF's densities, the eval K and the depth-coherence sort, in a
      normal and a saturating case (+5000 on the sigma head's bias): rgb and
      opacity within 7e-3, depth within 3e-2, equal executed-step counts,
-     fewer steps when saturated; its kernel name from torch.profiler (the
-     warp-specialized siren_march_kernel at width 256), its early-exit
-     time, host ms per call and bound share, and ptxas's registers and
-     spills;
+     fewer steps when saturated; its early-exit time, host ms per call and
+     bound share, and ptxas's registers and spills of both marches;
  12. the SiNeRF training slice: train() from seeded weights on the 8-view
      128x128 SphereScene (occgrid), then the held-out views through
      evaluate_split, launch counts read around that run: the SIREN train
      kernels must launch once per step and the SIREN ray march at least
      once; the loss must fall and the held-out PSNR rise at least 5 dB
-     above the untrained weights'; then the eval again and five more
-     train steps under torch.profiler, which must show the
-     warp-specialized march, forward and backward row pass at width 256;
+     above the untrained weights';
  13. the SiNeRF hierarchical render slice: render_path over 3 path poses
      (64 coarse + 128 fine): the SIREN forward kernel (coarse pass) and the
-     SIREN ray march (fine pass) must both launch, and the render again
-     under torch.profiler must show both warp-specialized kernels;
+     SIREN ray march (fine pass) must both launch;
  14. the density kernel vs its plain version at full width (NeRF 8x256
      with seeded weights and a mid-anneal FreeNeRF mask at all 2,097,152
      cell centres of a res-128 grid and one jittered quarter of 524,288
@@ -332,20 +330,14 @@ def ptxas_of(log: str, kernel: str) -> str:
     return "\n".join(f"  ptxas: {o}" for o in out) or "  ptxas: (no log)"
 
 
-def kernel_split_ms(fn, names, calls: int = 5):
-    """(device ms per call of fn in each of the kernels `names` (each
-    launched once per call), host ms per call): the device times are the
-    mean of the kernel events of a torch.profiler trace over `calls` calls
-    (after one untimed call; the profiler may keep the events of only some
-    of them), the host time that of `calls` untraced calls, from the first
-    call's start to the last one's return, before the card is waited for.
-    Fails if a named kernel left no event."""
+def kernel_events(fn, calls: int = 1) -> list:
+    """The kernel events of a torch.profiler trace of `calls` calls of fn
+    (the card is waited for inside)."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    host_ms = host_ms_per_call(fn, calls)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -354,10 +346,22 @@ def kernel_split_ms(fn, names, calls: int = 5):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+            return [e for e in json.load(fh)["traceEvents"]
+                    if e.get("cat") == "kernel"]
+
+
+def kernel_split_ms(fn, names, calls: int = 5):
+    """(device ms per call of fn in each of the kernels `names` (each
+    launched once per call), host ms per call): the device times are the
+    mean of the kernel events of a torch.profiler trace over `calls` calls
+    (after one untimed call; the profiler may keep the events of only some
+    of them), the host time that of `calls` untraced calls, from the first
+    call's start to the last one's return, before the card is waited for.
+    Fails if a named kernel left no event."""
+    host_ms = host_ms_per_call(fn, calls)
     durs = {name: [] for name in names}
-    for e in events:
-        if e.get("cat") != "kernel" or "dur" not in e:
+    for e in kernel_events(fn, calls):
+        if "dur" not in e:
             continue
         for name in names:
             if name in e["name"]:
@@ -369,24 +373,12 @@ def kernel_split_ms(fn, names, calls: int = 5):
     return {name: sum(d) / len(d) for name, d in durs.items()}, host_ms
 
 
-def kernels_launched(fn) -> set:
-    """The names of the CUDA kernels fn launches, from a torch.profiler
-    trace of one call (the card is waited for inside)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
 def require_kernels(phase: str, fn, names, width: int) -> None:
     """Fail unless one call of fn launches each kernel of `names` at
     template width `width` (the route the main path must take; the
     profiler's names demangled, kernel<256, ...>, or mangled,
     kernelILi256E...); print them."""
-    seen = kernels_launched(fn)
+    seen = {e["name"] for e in kernel_events(fn)}
     found = {n: sorted(k for k in seen if f"{n}<{width}" in k
                        or f"{n}ILi{width}E" in k) for n in names}
     missing = [n for n, ks_ in found.items() if not ks_]
@@ -395,6 +387,86 @@ def require_kernels(phase: str, fn, names, width: int) -> None:
              f"(saw {sorted(seen)})")
     print(f"{phase}: kernels launched (profiler) "
           + "; ".join(f"{k[:90]}" for v in found.values() for k in v))
+
+
+def siren_routes(cfg, dev, card):
+    """Phase 2, after the build: the SiNeRF main path's calls at full width
+    under torch.profiler, each of which must launch the warp-specialized
+    kernels (the routes phases 10-13 then take): the SIREN forward with and
+    without its acts stream at 196,608 rows (siren_fwd_ws_kernel), the
+    SIREN march at 16,384 rays x K 192 (siren_march_kernel), five train
+    steps (siren_fwd_ws_kernel, siren_bwd_rows_ws_kernel), the held-out
+    eval of one view (siren_march_kernel) and one frame of the hierarchical
+    render (siren_fwd_ws_kernel, siren_march_kernel). They run before the
+    long slices: a trace taken after the process has traced once and then
+    trained can lose kernel records (one taken after phase 9 saw neither of
+    its two kernels on an H100 with torch 2.11)."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import DataConfig
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.render.renderer import render_path
+    from fsnerf_tpu_torch.train.loop import train
+
+    scfg = sinerf_config(cfg, n_iters=5).replace(
+        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True))
+    L, W = scfg.model.n_layers, scfg.model.d_filter
+    model = make_model(scfg, torch.bfloat16,
+                       torch.Generator().manual_seed(3), dev)
+    params = ks.prep_siren_params(model.state_dict(), L)
+    g = torch.Generator(device=dev).manual_seed(4)
+    xp = ks.pad_inputs(torch.rand((TRAIN_ROWS, 3), generator=g,
+                                  device=dev) * 3.0 - 1.5)
+    dp = ks.pad_inputs(torch.nn.functional.normalize(
+        torch.randn((TRAIN_ROWS, 3), generator=g, device=dev), dim=-1))
+    for save in (True, False):
+        require_kernels(f"the SIREN forward (save_acts={save})",
+                        lambda: ks.siren_mlp_fwd(xp, dp, params, save),
+                        ("siren_fwd_ws_kernel",), W)
+    R, K = 16_384, 192
+    x = torch.rand((R, K, 3), generator=g, device=dev) * 3.0 - 1.5
+    dirs = torch.nn.functional.normalize(
+        torch.randn((R, 3), generator=g, device=dev), dim=-1)
+    t = torch.sort(torch.rand((R, K), generator=g, device=dev) * 4.0 + 2.0,
+                   dim=-1).values
+    deltas = torch.full((R, K), 5e-3, device=dev)
+    mask = torch.ones((R, K), device=dev)
+    require_kernels("the SIREN march",
+                    lambda: kr.siren_ray_march(x, dirs, t, deltas, mask,
+                                               params, 16, 8),
+                    ("siren_march_kernel",), W)
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    state = None
+
+    def steps():
+        nonlocal state
+        state = train(model, scfg, pool, scene, logger=ListLogger(),
+                      log_every=5)
+
+    require_kernels("five SiNeRF train steps", steps,
+                    ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel"), W)
+    held = cli.split_of(scene.holdout(n=1, seed=101))
+    require_kernels("the SiNeRF held-out eval",
+                    lambda: cli.evaluate_split(
+                        model, og.conservative(state.grid), held, scfg,
+                        device=dev),
+                    ("siren_march_kernel",), W)
+    hcfg = sinerf_config(hier_config(cfg))
+    require_kernels(
+        "one frame of the SiNeRF hierarchical render",
+        lambda: render_path(
+            cli.make_render_model_fn(model, hcfg, device=dev),
+            scene.path_poses[:1], scene.hwf, scene.near, scene.far,
+            device=dev, strategy="hierarchical", n_samples=HIER_COARSE,
+            n_fine=HIER_FINE, white_bkgd=True,
+            fused_render_fn=cli.make_fused_render_fn(model.state_dict(),
+                                                     hcfg, device=dev)),
+        ("siren_fwd_ws_kernel", "siren_march_kernel"), W)
 
 
 def train_kernels(cfg, dev, card):
@@ -995,10 +1067,6 @@ def siren_kernels(cfg, dev, card, log):
     fwd_nosave_ms = cuda_ms(lambda: ks.siren_mlp_fwd(xp, dp, params), 10)
     fwd_host_ms = host_ms_per_call(
         lambda: ks.siren_mlp_fwd(xp, dp, params, True))
-    for save in (True, False):
-        require_kernels(f"phase 10, the SIREN forward (save_acts={save})",
-                        lambda: ks.siren_mlp_fwd(xp, dp, params, save),
-                        ("siren_fwd_ws_kernel",), W)
     bwd_ms, bwd_plain_ms = in_turns(
         lambda: ks.siren_mlp_bwd_reference(xp, dp, dout, params, ref_acts),
         lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
@@ -1078,9 +1146,6 @@ def siren_march(cfg, dev, card, log):
                   ks.prep_siren_params(hot_sd, L, device=dev), bR, cs, eps)
     if hot["executed"] >= normal["executed"]:
         fail("a saturating sigma bias did not make SIREN blocks exit early")
-    require_kernels("phase 11, the SIREN march",
-                    lambda: kr.siren_ray_march(*padded, params, bR, cs, eps),
-                    ("siren_march_kernel",), W)
     host_ms = host_ms_per_call(
         lambda: kr.siren_ray_march(*padded, params, bR, cs, eps), 20)
     march_bound = bound(
@@ -1099,6 +1164,7 @@ def siren_march(cfg, dev, card, log):
           f"bound share {march_bound['bound_ms'] / normal['ms']:.3f}; bf16 "
           f"SiNeRF module + volume_render {module_ms:.3f} ms")
     print(ptxas_of(log, "siren_march_kernel"))
+    print(ptxas_of(log, "ray_march_kernel"))
     return dict(max_abs_err=max(normal["max_abs_err"], hot["max_abs_err"]),
                 ms=normal["ms"], plain_ms=normal["plain_ms"],
                 **march_bound), module_ms
@@ -1146,19 +1212,6 @@ def siren_train_slice(cfg, dev, card):
     launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                 "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
                 "siren_ray_march": kr.siren_ray_march.launches}
-    W = tcfg.model.d_filter
-    require_kernels(
-        "phase 12, the held-out eval",
-        lambda: cli.evaluate_split(model, og.conservative(state.grid),
-                                   held, tcfg, device=dev),
-        ("siren_march_kernel",), W)
-    short = tcfg.replace(train=dataclasses.replace(tcfg.train, n_iters=5))
-    require_kernels(
-        "phase 12, five more train steps",
-        lambda: train(make_model(short, torch.bfloat16,
-                                 torch.Generator().manual_seed(1), dev),
-                      short, pool, scene, logger=ListLogger(), log_every=5),
-        ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel"), W)
     losses = [r["loss"] for r in log.records]
     print(f"SiNeRF train slice on {card}: {state.step} steps in "
           f"{train_s:.3f} s, {state.step / train_s:.2f} steps/s, "
@@ -1204,26 +1257,20 @@ def siren_hier_render_slice(cfg, dev, card):
                        torch.Generator().manual_seed(0), dev)
     scene = SphereScene(n_imgs=1, hw=128)
 
-    def render():
-        return render_path(
-            cli.make_render_model_fn(model, hcfg, device=dev),
-            scene.path_poses[:3], scene.hwf, scene.near, scene.far,
-            device=dev, strategy="hierarchical", n_samples=HIER_COARSE,
-            n_fine=HIER_FINE, white_bkgd=True,
-            fused_render_fn=cli.make_fused_render_fn(model.state_dict(),
-                                                     hcfg, device=dev))
-
     ks.siren_mlp_fwd.launches = kr.siren_ray_march.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames, _ = render()
+    frames, _ = render_path(
+        cli.make_render_model_fn(model, hcfg, device=dev),
+        scene.path_poses[:3], scene.hwf, scene.near, scene.far, device=dev,
+        strategy="hierarchical", n_samples=HIER_COARSE, n_fine=HIER_FINE,
+        white_bkgd=True,
+        fused_render_fn=cli.make_fused_render_fn(model.state_dict(), hcfg,
+                                                 device=dev))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                 "siren_ray_march": kr.siren_ray_march.launches}
-    W = hcfg.model.d_filter
-    require_kernels("phase 13, the SiNeRF hierarchical render", render,
-                    ("siren_fwd_ws_kernel", "siren_march_kernel"), W)
     if min(launches.values()) == 0:
         fail(f"the SiNeRF hierarchical render launched {launches}")
     if frames.shape != (3, 128, 128, 3) or not np.isfinite(frames).all():
@@ -1636,10 +1683,11 @@ def main():
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem")):
             print(f"  ptxas: {line.strip()}")
-
-    # -- 3. kernel vs plain at full width ---------------------------------
     dev = torch.device("cuda")
     cfg = Config()
+    siren_routes(cfg, dev, card)
+
+    # -- 3. kernel vs plain at full width ---------------------------------
     s = cfg.sampling
     model = make_model(cfg, torch.bfloat16, torch.Generator().manual_seed(0),
                        dev)

@@ -309,6 +309,72 @@ struct NerfMarchArgs {
 constexpr int kMarchBar = 3;          // both consumers' named barrier
 constexpr int kMarchRowBytes = 32;    // a row's compositing inputs
 
+// A ray's compositing, carried across its block's chunks.
+struct RayAcc {
+  float od = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, opa = 0.f, dep = 0.f;
+};
+
+// One chunk of ray ray_in_block (cs samples) composited serially in
+// render.cu's f32 order from the rows' [sigma, rgb, t, delta, mask] (row g
+// of the chunk step at rows0 + (g / 64) tile_bytes + (g % 64)
+// kMarchRowBytes: each consumer's tile), od carried in acc.
+__device__ __forceinline__ void composite_chunk(const unsigned char* rows0,
+                                                int tile_bytes,
+                                                int ray_in_block, int cs,
+                                                RayAcc& acc) {
+  const float acc0 = acc.od;
+  float cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, op = 0.f, dp = 0.f;
+  for (int s = 0; s < cs; ++s) {
+    const int g = ray_in_block * cs + s;
+    const float* q = reinterpret_cast<const float*>(
+        rows0 + (g >> 6) * tile_bytes + (g & 63) * kMarchRowBytes);
+    const float odv = __fmul_rn(__fmul_rn(q[0], q[5]), q[6]);
+    cum = __fadd_rn(cum, odv);
+    const float trans = expf(-__fsub_rn(__fadd_rn(acc0, cum), odv));
+    const float wgt = __fmul_rn(trans, __fsub_rn(1.f, expf(-odv)));
+    r0 += wgt * q[1];
+    r1 += wgt * q[2];
+    r2 += wgt * q[3];
+    op += wgt;
+    dp += wgt * q[4];
+  }
+  acc.r0 += r0;
+  acc.r1 += r1;
+  acc.r2 += r2;
+  acc.opa += op;
+  acc.dep += dp;
+  acc.od = acc0 + cum;
+}
+
+// The block's end, by both consumers: ray ct's stats and the executed
+// step count out; then the producer, which has filled (or will fill) the
+// next n_stages stages and waits for stage r.it to be freed, is released:
+// the lead waits for the stages fed ahead (no TMA load is in flight when
+// the CTA exits), raises `done` and frees one more stage.
+__device__ __forceinline__ void march_finish(const Args& a, int ct, int bR,
+                                             const RayAcc& acc,
+                                             int executed, FwdRing& r,
+                                             volatile int* done) {
+  if (ct < bR) {
+    float* out = a.stats + (size_t)(blockIdx.x * bR + ct) * 8;
+    out[0] = acc.r0;
+    out[1] = acc.r1;
+    out[2] = acc.r2;
+    out[3] = acc.opa;
+    out[4] = acc.dep;
+    out[5] = expf(-acc.od);
+    out[6] = 0.f;
+    out[7] = 0.f;
+  }
+  if (ct == 0) a.steps[blockIdx.x] = executed;
+  if (r.lead) {
+    for (int k = r.it; k < r.it + r.n_stages; ++k)
+      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
+    *done = 1;
+    mbar_arrive(&r.empty[r.it % r.n_stages]);
+  }
+}
+
 template <int W, int NB>
 __device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
                                               FwdRing& r,
@@ -361,8 +427,7 @@ __device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
       m.wpack + (size_t)trunk_rows_of(L, m.skip_mask, W, DE) * W;
   const float b_sigma = m.bpack[L * W];
   const int quad_row = 16 * (t >> 5) + (lane >> 2);
-  // the compositing of ray ct (ct < bR), carried across chunks
-  float od = 0.f, rr0 = 0.f, rr1 = 0.f, rr2 = 0.f, opa = 0.f, dep = 0.f;
+  RayAcc ray;              // the compositing of ray ct (ct < bR)
   int executed = 0;
   for (int c = 0; c < n_chunks; ++c) {
     const float xv[3] = {xn[0], xn[1], xn[2]};
@@ -370,7 +435,8 @@ __device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
     // exact early exit: skip unless a ray is alive and a sample is valid.
     // The first barrier also ends the last step's reads of the rows'
     // compositing inputs, which this step's encoding overwrites.
-    const bool alive = named_bar_or(kMarchBar, 256, ct < bR && od < a.thresh);
+    const bool alive =
+        named_bar_or(kMarchBar, 256, ct < bR && ray.od < a.thresh);
     const bool valid = named_bar_or(kMarchBar, 256, in && mv > 0.f);
     if (!(alive && valid)) {
       fetch(c + 1);
@@ -424,53 +490,9 @@ __device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
       }
     }
     named_bar(kMarchBar, 256);
-    // composite: per-ray serial scan over the chunk, od carried across
-    // chunks
-    if (ct < bR) {
-      const float acc0 = od;
-      float cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, op = 0.f, dp = 0.f;
-      for (int s = 0; s < cs; ++s) {
-        const int g = ct * cs + s;
-        const float* q = reinterpret_cast<const float*>(
-            encx0 + (g >> 6) * encx_bytes + (g & 63) * kMarchRowBytes);
-        const float odv = __fmul_rn(__fmul_rn(q[0], q[5]), q[6]);
-        cum = __fadd_rn(cum, odv);
-        const float trans = expf(-__fsub_rn(__fadd_rn(acc0, cum), odv));
-        const float wgt = __fmul_rn(trans, __fsub_rn(1.f, expf(-odv)));
-        r0 += wgt * q[1];
-        r1 += wgt * q[2];
-        r2 += wgt * q[3];
-        op += wgt;
-        dp += wgt * q[4];
-      }
-      rr0 += r0;
-      rr1 += r1;
-      rr2 += r2;
-      opa += op;
-      dep += dp;
-      od = acc0 + cum;
-    }
+    if (ct < bR) composite_chunk(encx0, encx_bytes, ct, cs, ray);
   }
-  if (ct < bR) {
-    float* out = a.stats + (size_t)(ray0 + ct) * 8;
-    out[0] = rr0;
-    out[1] = rr1;
-    out[2] = rr2;
-    out[3] = opa;
-    out[4] = dep;
-    out[5] = expf(-od);
-    out[6] = 0.f;
-    out[7] = 0.f;
-  }
-  if (ct == 0) a.steps[blockIdx.x] = executed;
-  // release the producer: it has filled (or will fill) the next n_stages
-  // stages and then waits for stage r.it to be freed
-  if (r.lead) {
-    for (int k = r.it; k < r.it + r.n_stages; ++k)
-      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
-    *done = 1;
-    mbar_arrive(&r.empty[r.it % r.n_stages]);
-  }
+  march_finish(a, ct, bR, ray, executed, r, done);
 }
 
 // grid: one CTA per block of block_rows rays; block: kFwdConsumers
@@ -599,13 +621,14 @@ __device__ __forceinline__ void siren_march_consume(const SirenMarchArgs& sa,
   fetch(0);
 
   const FwdShape sh{sa.m.n_layers, 0, kInPad, 0};
-  const SineActs<false> acts{sa.m.alphas, nullptr, 0, W};
-  float od = 0.f, rr0 = 0.f, rr1 = 0.f, rr2 = 0.f, opa = 0.f, dep = 0.f;
+  const SineActs<false> acts{sa.m.alphas, W};
+  RayAcc ray;              // the compositing of ray ct (ct < bR)
   int executed = 0;
   for (int c = 0; c < n_chunks; ++c) {
     const float mv = mn;
     // exact early exit, as nerf_march_kernel's
-    const bool alive = named_bar_or(kMarchBar, 256, ct < bR && od < a.thresh);
+    const bool alive =
+        named_bar_or(kMarchBar, 256, ct < bR && ray.od < a.thresh);
     const bool valid = named_bar_or(kMarchBar, 256, in && mv > 0.f);
     if (!(alive && valid)) {
       fetch(c + 1);
@@ -655,52 +678,9 @@ __device__ __forceinline__ void siren_march_consume(const SirenMarchArgs& sa,
       }
     }
     named_bar(kMarchBar, 256);
-    // composite: per-ray serial scan over the chunk, od carried across
-    // chunks, in render.cu's f32 order
-    if (ct < bR) {
-      const float acc0 = od;
-      float cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, op = 0.f, dp = 0.f;
-      for (int s = 0; s < cs; ++s) {
-        const int g = ct * cs + s;
-        const float* q = reinterpret_cast<const float*>(
-            xt0 + (g >> 6) * kBlock + (g & 63) * kMarchRowBytes);
-        const float odv = __fmul_rn(__fmul_rn(q[0], q[5]), q[6]);
-        cum = __fadd_rn(cum, odv);
-        const float trans = expf(-__fsub_rn(__fadd_rn(acc0, cum), odv));
-        const float wgt = __fmul_rn(trans, __fsub_rn(1.f, expf(-odv)));
-        r0 += wgt * q[1];
-        r1 += wgt * q[2];
-        r2 += wgt * q[3];
-        op += wgt;
-        dp += wgt * q[4];
-      }
-      rr0 += r0;
-      rr1 += r1;
-      rr2 += r2;
-      opa += op;
-      dep += dp;
-      od = acc0 + cum;
-    }
+    if (ct < bR) composite_chunk(xt0, kBlock, ct, cs, ray);
   }
-  if (ct < bR) {
-    float* out = a.stats + (size_t)(ray0 + ct) * 8;
-    out[0] = rr0;
-    out[1] = rr1;
-    out[2] = rr2;
-    out[3] = opa;
-    out[4] = dep;
-    out[5] = expf(-od);
-    out[6] = 0.f;
-    out[7] = 0.f;
-  }
-  if (ct == 0) a.steps[blockIdx.x] = executed;
-  // release the producer, as nerf_march_kernel's consumers do
-  if (r.lead) {
-    for (int k = r.it; k < r.it + r.n_stages; ++k)
-      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
-    *done = 1;
-    mbar_arrive(&r.empty[r.it % r.n_stages]);
-  }
+  march_finish(a, ct, bR, ray, executed, r, done);
 }
 
 template <int W>

@@ -145,20 +145,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     (SineAct) and overwrites the activation tile with h_i once the
 //     layer's wgmma have retired; in saved mode the tile goes to acts'
 //     columns i W by TMA while the next layer runs, and the factor
-//     bf16(a_i cos(a_i y_i)) goes from registers straight to columns (L +
-//     i) W (a factor tile of 32 KB a consumer does not fit beside a 4-stage
-//     ring at width 256);
+//     bf16(a_i cos(a_i y_i)) goes to columns (L + i) W 64 columns at a
+//     time through an 8 KB staging block by TMA (a factor tile of 32 KB a
+//     consumer does not fit beside a 4-stage ring at width 256; the block
+//     timed faster than 4-byte stores from registers in the accumulator
+//     layout, than the input tile as a second block with one barrier a
+//     chunk, and than a 3-stage ring: PERF.md);
 //   - the heads as the saved-mode backward's row pass computes them
 //     (siren_heads), then one float4 [rgb, sigma] store a row.
 // Shared memory at W = 256: a 4-stage ring (128 KB), the activation tiles
-// (2 x 32 KB), the input tiles (2 x 8 KB): 214 KB, one CTA per SM. The
-// acts stream (8 KB a row in saved mode) bounds it by bytes.
+// (2 x 32 KB), the input tiles (2 x 8 KB) and in saved mode the staging
+// blocks (2 x 8 KB): 225 KB, one CTA per SM. The acts stream (8 KB a row
+// in saved mode) bounds it by bytes.
 
 template <int W, bool kSave>
 __device__ __forceinline__ void ws_fwd_consume(
     const CUtensorMap* map_x, const CUtensorMap* map_acts,
     const SirenTrainArgs& a, FwdRing& r, unsigned char* act,
-    unsigned char* xt, uint64_t* loaded, int wg) {
+    unsigned char* xt, unsigned char* stage, uint64_t* loaded, int wg) {
   const int t = threadIdx.x & 127, lane = t & 31;
   const int row0 = blockIdx.x * kRows + 64 * wg;
   const int quad_row = 16 * (t >> 5) + (lane >> 2);  // rows quad_row + 8 h
@@ -179,11 +183,8 @@ __device__ __forceinline__ void ws_fwd_consume(
                         : 0.f;
   }
   mbar_wait(loaded, 0);
-  const SineActs<kSave> acts{
-      a.m.alphas,
-      kSave ? a.acts + (size_t)(row0 + quad_row) * a.lda + (size_t)L * W
-            : nullptr,
-      a.lda, W};
+  const SineActs<kSave> acts{a.m.alphas, W, stage, map_acts, L * W, row0,
+                             bar, r.lead};
   float acc[W / 2], unused[2] = {0.f, 0.f};
   fwd_trunk<W>(acc, r, act, smem_u32(xt), FwdShape{L, 0, kInPad, 0},
                a.m.bpack, nullptr, unused, bar, kSave ? map_acts : nullptr,
@@ -213,7 +214,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                         ((1024 - (smem_u32(fwd_ws_smem_raw) & 1023)) & 1023);
   unsigned char* act = ring + n_stages * W * 128;
   unsigned char* xt = act + kFwdConsumers * W * 128;
-  uint64_t* full = reinterpret_cast<uint64_t*>(xt + kFwdConsumers * kBlock);
+  unsigned char* stage = xt + kFwdConsumers * kBlock;  // saved factors
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      stage + (kSave ? kFwdConsumers * kBlock : 0));
   uint64_t* empty = full + n_stages;
   uint64_t* loaded = empty + n_stages;           // each consumer's inputs
   fwd_init_barriers(full, empty, n_stages, loaded, kFwdConsumers);
@@ -232,7 +235,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
             (threadIdx.x & 127) == 0};
   ws_fwd_consume<W, kSave>(&map_x, &map_acts, a, r, act + wg * W * 128,
-                           xt + wg * kBlock, &loaded[wg], wg);
+                           xt + wg * kBlock, stage + wg * kBlock,
+                           &loaded[wg], wg);
 }
 
 // The forward at width W on `st`: the weight maps, the maps of x and (in
@@ -251,7 +255,8 @@ cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
   else if (!encode_bf16_map(&map_acts, a.acts, n_blocks * kRows, a.lda,
                             a.lda, 64))
     return cudaErrorInvalidValue;
-  const size_t extra = kFwdConsumers * sizeof(uint64_t);
+  const size_t extra = kFwdConsumers * sizeof(uint64_t) +
+                       (a.acts != nullptr ? kFwdConsumers * kBlock : 0);
   const int n_stages = fwd_stages(W, kInPad, 0, extra);
   const size_t smem = fwd_smem_bytes(W, kInPad, 0, n_stages) + extra;
   const auto kernel = a.acts != nullptr ? siren_fwd_ws_kernel<W, true>

@@ -225,7 +225,6 @@ __device__ void siren_mlp_rows(const Siren& m, const bf16* xin,
   __syncthreads();
 }
 
-
 // ---- the warp-specialized shape (widths 64, 128, 256) ------------------
 //
 // ws_trunk.cuh's trunk with the sine activation, then the heads as the
@@ -281,38 +280,74 @@ __device__ __forceinline__ bool siren_produce_pass(
 
 // The sine layer's activation in fwd_epilogue, numerically SineEpi's: (v0,
 // v1) = acc + b (f32, the bias not rounded), arg = alpha v, the pair
-// sin_fast(arg); with kSave, bf16(alpha cos_fast(arg)) goes straight from
-// registers to fac[8 h ld + col] (the saved factor in device memory, at the
-// thread's first row). Saving is a template parameter: a runtime test
-// per pair cost the no-save launch ~0.37 ms of 1.40 at 196,608 rows.
+// sin_fast(arg). With kSave, also the factor bf16(alpha cos_fast(arg)): a
+// chunk's factors stay in registers, go by stmatrix into the consumer's
+// 64 x 64 staging block, and its lead thread stores the block by TMA to
+// acts (map, column gcol + the chunk's, rows from row0) once every warp
+// has written it (bar: the warpgroup's named barrier). Saving is a
+// template parameter, so the no-save launch carries none of the factor's
+// work.
 template <bool kSave>
 struct SineAct {
   float alpha;
-  bf16* fac;
-  int ld;
+  unsigned char* stage;
+  const CUtensorMap* map;
+  int gcol, row0, bar;
+  bool lead;
+  uint32_t fp[8][2];
   __device__ __forceinline__ float2 operator()(float v0, float v1, int h,
-                                               int col) const {
+                                               int jj) {
     const float a0 = __fmul_rn(alpha, v0), a1 = __fmul_rn(alpha, v1);
     float c0, c1;
     const float s0 = sin_cos_fast<kSave>(a0, &c0);
     const float s1 = sin_cos_fast<kSave>(a1, &c1);
-    if (kSave)
-      *reinterpret_cast<__nv_bfloat162*>(fac + (size_t)(8 * h) * ld + col) =
+    if (kSave) {
+      const __nv_bfloat162 f =
           __floats2bfloat162_rn(__fmul_rn(alpha, c0), __fmul_rn(alpha, c1));
+      fp[jj][h] = *reinterpret_cast<const uint32_t*>(&f);
+    }
     return make_float2(s0, s1);
+  }
+  __device__ __forceinline__ void chunk_end(int j0) {
+    if (!kSave) return;
+    const int lane = threadIdx.x & 31, m = lane >> 3;
+    const int srow = 16 * ((threadIdx.x >> 5) & 3) + 8 * (m & 1) + (lane & 7);
+    if (lead) bulk_wait_read<0>();     // the last chunk's store has read it
+    named_bar(bar, 128);
+#pragma unroll
+    for (int jj = 0; jj < 8; jj += 2)
+      stsm_x4(smem_u32(tile_at(stage, srow, 8 * (jj + (m >> 1)))),
+              fp[jj][0], fp[jj][1], fp[jj + 1][0], fp[jj + 1][1]);
+    fence_proxy_async();
+    named_bar(bar, 128);
+    if (lead) {
+      tma_store_2d(map, stage, gcol + 8 * j0, row0);
+      bulk_commit();
+    }
   }
 };
 
 // The SIREN trunk's activation of layer i, for fwd_trunk: a_i's sine; with
-// kSave its factor to columns (L + i) W of acts (fac: this thread's first
-// row of acts, at column L W).
+// kSave its factor to columns (L + i) W of acts (gcol0 = L W), the rest as
+// SineAct's.
 template <bool kSave>
 struct SineActs {
   const float* alphas;
-  bf16* fac;
-  int ld, width;
+  int width;
+  unsigned char* stage;
+  const CUtensorMap* map;
+  int gcol0, row0, bar;
+  bool lead;
   __device__ __forceinline__ SineAct<kSave> layer(int i) const {
-    return {alphas[i], kSave ? fac + (size_t)i * width : nullptr, ld};
+    SineAct<kSave> a;
+    a.alpha = alphas[i];
+    a.stage = stage;
+    a.map = map;
+    a.gcol = gcol0 + i * width;
+    a.row0 = row0;
+    a.bar = bar;
+    a.lead = lead;
+    return a;
   }
 };
 

@@ -243,10 +243,11 @@ __device__ __forceinline__ void fwd_product(float (&acc)[NACC], uint32_t a,
 struct ReluAct {
   bool on;
   __device__ __forceinline__ float2 operator()(float v0, float v1, int,
-                                               int) const {
+                                               int) {
     return on ? make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f))
               : make_float2(v0, v1);
   }
+  __device__ __forceinline__ void chunk_end(int) {}
 };
 
 // The NeRF trunk's activation of every layer, for fwd_trunk.
@@ -256,17 +257,18 @@ struct ReluActs {
 
 // A layer's epilogue on this thread's accumulators (rows 16 warp + lane / 4
 // + 8 h of the warpgroup's 64, columns 8 j + 2 (lane % 4) + e):
-// tile = bf16(act(acc + bias)), act(v0, v1, h, col) giving the activated
-// pair of row h's columns col, col + 1 (ReluAct, or the SIREN's sine of
-// siren_common.cuh). With w_sigma (the last trunk layer), also sig[h] +=
-// the row's bf16 activations . w_sigma over this thread's columns. The
+// tile = bf16(act(acc + bias)), act(v0, v1, h, jj) giving the activated
+// pair of this thread's two columns of row h in column block jj of the
+// chunk, act.chunk_end(j0) called after each chunk of kChunk column
+// blocks (ReluAct; the SIREN's sine of siren_common.cuh, which may stage a
+// chunk's factors there). With w_sigma (the last trunk layer), also sig[h]
+// += the row's bf16 activations . w_sigma over this thread's columns. The
 // bias (and w_sigma) of kChunk column blocks are loaded before their
 // stores, so that their latencies overlap; the bf16 pairs go to the tile
 // by stmatrix, four 8 x 8 blocks at a time.
 template <int NACC, class Act>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
-                                             const float* bias,
-                                             const Act& act,
+                                             const float* bias, Act act,
                                              unsigned char* tile,
                                              const bf16* w_sigma,
                                              float (&sig)[2]) {
@@ -297,8 +299,7 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float2 v = act(acc[4 * j + 2 * h] + bv[jj][0],
-                             acc[4 * j + 2 * h + 1] + bv[jj][1], h,
-                             8 * j + 2 * (lane & 3));
+                             acc[4 * j + 2 * h + 1] + bv[jj][1], h, jj);
         const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
         packed[jj][h] = *reinterpret_cast<const uint32_t*>(&p);
         if (w_sigma)
@@ -310,6 +311,7 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NACC],
       stsm_x4(smem_u32(tile_at(tile, srow, 8 * (j0 + jj + (m >> 1)))),
               packed[jj][0], packed[jj][1], packed[jj + 1][0],
               packed[jj + 1][1]);
+    act.chunk_end(j0);
   }
 }
 

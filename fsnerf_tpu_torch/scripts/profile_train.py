@@ -33,7 +33,7 @@ import torch
 from .lattice_gate import card_name
 
 _TRAIN_KERNELS = ("mlp_train_fwd_kernel", "mlp_train_bwd_rows_kernel",
-                  "siren_fwd_kernel", "siren_bwd_rows",  # both row passes
+                  "siren_fwd_", "siren_bwd_rows",  # both forwards, row passes
                   "dw_gemm_kernel", "dw_reduce_kernel")
 
 

@@ -17,7 +17,9 @@ NeRF 8x256 with seeded weights:
     393,216 (one validation chunk: 2,048 rays x K 192), and its host time
     per call;
   siren: kernel 7 (the SiNeRF forward, with and without its saved
-    activations, and the wrapper's host time per call) and kernel 8 (the
+    activations, and the wrapper's host time per call; its rgb and its
+    acts stream's h_i and factors against the plain version's, the largest
+    difference and the share of elements that differ) and kernel 8 (the
     SiNeRF backward) at the main path's 196,608 rows, kernel 8 in saved
     mode whole and split into its three launches (row pass, dW pass,
     reduce; from a torch.profiler trace), its host time per call, and
@@ -386,6 +388,15 @@ def measure_siren(rows: int, reps: int) -> dict:
     d = ks.pad_inputs(torch.nn.functional.normalize(
         torch.randn((rows, 3), generator=g, device=dev), dim=-1))
     out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    ref, ref_acts = ks.siren_mlp_fwd_reference(x, d, params, True)
+    LW = cfg.model.n_layers * cfg.model.d_filter
+    diff = (acts[:rows].float() - ref_acts.float()).abs()
+    errs = {"siren_fwd_rgb_err": float((out[:, :3] - ref[:, :3]).abs().max()),
+            "siren_acts_h_err": float(diff[:, :LW].max()),
+            "siren_acts_h_differ": float((diff[:, :LW] > 0).float().mean()),
+            "siren_acts_fac_err": float(diff[:, LW:].max()),
+            "siren_acts_fac_differ": float((diff[:, LW:] > 0).float().mean())}
+    del ref_acts, diff
     target = torch.rand((rows, 4), generator=g, device=dev)
     dout = (2.0 * (out - target) / out.numel()).contiguous()
 
@@ -394,7 +405,8 @@ def measure_siren(rows: int, reps: int) -> dict:
 
     split = _split_ms(saved, ("siren_bwd_rows", "dw_gemm_kernel",
                               "dw_reduce_kernel"), 5)
-    return {"siren_fwd_ms": _ms(lambda: ks.siren_mlp_fwd(x, d, params, True),
+    return {**errs,
+            "siren_fwd_ms": _ms(lambda: ks.siren_mlp_fwd(x, d, params, True),
                                 reps),
             "siren_fwd_nosave_ms": _ms(lambda: ks.siren_mlp_fwd(x, d, params),
                                        reps),

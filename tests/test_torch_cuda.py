@@ -642,12 +642,12 @@ def test_siren_forward_at_each_width(cuda, width, n):
     """The warp-specialized forward (widths 64, 128, 256), SiNeRF 8 layers,
     at a ragged N and the main path's 196,608 rows: rgb within 5e-3 and
     sigma within 2e-2 of max |sigma|; the acts stream's h_i within 3e-2 and
-    its factors within 0.25 of the plain version's, each on at most 2% of
-    the elements (a rounding flip of h_0 at a = 30 moves the later layers
-    by a few bf16 steps; the mma.sync kernel read 1.8e-2 on 0.9% and 0.125,
-    a bf16 step at |a cos| in [16, 32), on 0.6% at 196,608 rows of 8x256);
-    out and acts bitwise repeatable, out equal with and without acts; one
-    launch counted per call."""
+    its factors within 0.25 (two bf16 steps at |a cos| in [16, 32)) of the
+    plain version's, each on at most 2% of the elements (a rounding flip of
+    h_0 at a = 30 moves the later layers by a few bf16 steps, in the
+    mma.sync kernel as here: `scripts/train_kernel_turns.py --groups siren`
+    reads both); out and acts bitwise repeatable, out equal with and
+    without acts; one launch counted per call."""
     L = 8
     params = _siren_params(27, L, width, cuda)
     x, d, _ = _siren_inputs(n, 8, cuda)
