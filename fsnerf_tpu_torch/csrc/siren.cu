@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- the forward, warp-specialized ------------------------------------
 //
-// siren_fwd_ws_kernel<W> (W = 64, 128, 256): the forward of
+// siren_fwd_ws_kernel<W, kSave> (W = 64, 128, 256): the forward of
 // siren_fwd_kernel on the warp-specialized shape of ws_trunk.cuh. 384
 // threads: a producer warpgroup, one of whose threads streams every weight
 // tile by TMA through an mbarrier ring (siren_produce_pass), and two
