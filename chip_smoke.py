@@ -38,7 +38,16 @@ Phases (any failure exits non-zero; nothing is caught):
      the ray march on the trained grid, with the three kernels' launch
      counts read around that run; the loss must fall and the held-out PSNR
      must rise at least 5 dB above the untrained weights'; the trained
-     weights' eval K and ray-march skip fraction are printed;
+     weights' eval K and ray-march skip fraction are printed. Like every
+     training slice here, train() runs each step as a replay of the CUDA
+     graph of its kind (train/step.py::make_train_chunk); the rungs of the
+     compaction ladder, their graphs' capture seconds and the peak device
+     memory are printed;
+ 6b. the same slice from the same seeds by eager steps (train(...,
+     graphs=False)): the weights, Adam's moments, the grid (occs,
+     binaries, thre and the query tables), the generator's state and the
+     launch counts of the training must equal the graphed run's bitwise;
+     both runs' steps/s are printed;
   7. forward-MLP kernel vs its plain version at full width (8x256 seeded
      weights, the 1,048,576 coarse samples of a 128x128 held-out
      SphereScene view at 64 per ray, encoded and padded as
@@ -54,14 +63,14 @@ Phases (any failure exits non-zero; nothing is caught):
      the ray march must launch) and once without it (the forward MLP and
      the compositing kernel for both passes), launch counts read around
      each run;
-  9. the hierarchical training slice: train() from seeded weights on the
-     8-view 128x128 SphereScene with 64 + 128 samples, then the held-out
-     views through evaluate_split, launch counts read around that run: the
-     train kernels must launch twice per step (coarse and fine pass), the
-     forward MLP and the ray march at least once, the compositing kernel
-     once per chunk; the loss must fall, the held-out PSNR must rise at
-     least 5 dB above the untrained weights', and the eval without the
-     fused fine pass must land within 0.5 dB of it;
+  9. the hierarchical training slice: train() (graphed) from seeded
+     weights on the 8-view 128x128 SphereScene with 64 + 128 samples, then
+     the held-out views through evaluate_split, launch counts read around
+     that run: the train kernels must launch twice per step (coarse and
+     fine pass), the forward MLP and the ray march at least once, the
+     compositing kernel once per chunk; the loss must fall, the held-out
+     PSNR must rise at least 5 dB above the untrained weights', and the
+     eval without the fused fine pass must land within 0.5 dB of it;
  10. the SIREN train kernels vs their plain versions at full width
      (SiNeRF 8x256 with seeded weights, 196,608 rows, an MSE cotangent):
      rgb within 5e-3, sigma within 2e-2 of max |sigma|, every gradient
@@ -134,6 +143,7 @@ Exits non-zero without printing a result when CUDA is unavailable.
 """
 
 import json
+import logging
 import math
 import re
 import subprocess
@@ -571,42 +581,104 @@ class ListLogger:
         self.records.append({"step": step, **metrics})
 
 
-def train_slice(cfg, dev, card):
-    """Phase 6: train, then render the held-out views on the trained grid.
-    Returns the launch counts of the run."""
+class GraphRecords(logging.Handler):
+    """The CUDA-graph rungs train() logs as it retires their step
+    functions (train/loop.py: K, each kind's capture seconds)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.rungs = []
+
+    def emit(self, record):
+        if hasattr(record, "graphs"):
+            self.rungs.append(record.graphs)
+
+    def __enter__(self):
+        log = logging.getLogger("fsnerf_tpu_torch.train.loop")
+        log.setLevel(logging.INFO)
+        log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("fsnerf_tpu_torch.train.loop").removeHandler(self)
+
+    def summary(self) -> str:
+        caps = [sum(r["capture_s"].values()) for r in self.rungs]
+        return (f"{len(self.rungs)} rungs (K "
+                + ", ".join(str(r["n_compact"]) for r in self.rungs)
+                + f"), {sum(len(r['capture_s']) for r in self.rungs)} "
+                f"graphs captured in {sum(caps):.3f} s (per rung "
+                + ", ".join(f"{c:.3f}" for c in caps) + " s)")
+
+
+def train_slice_config(cfg):
     import dataclasses
 
-    from fsnerf_tpu_torch import cli
     from fsnerf_tpu_torch.config import DataConfig
+
+    return cfg.replace(
+        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True),
+        train=dataclasses.replace(cfg.train, n_iters=TRAIN_STEPS))
+
+
+def run_train_slice(tcfg, dev, graphs=None):
+    """train() of the occgrid slice from seeded weights on the 8-view
+    128x128 sphere: (model, state, logger, launch counts the training
+    added, seconds, graph rungs, peak device GB allocated and reserved:
+    the graphs' pools hold their memory between replays, which only the
+    reserved peak counts)."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
+    from fsnerf_tpu_torch.train.loop import train
+
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    model = make_model(tcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    log = ListLogger()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with GraphRecords() as rungs:
+        state = train(model, tcfg, pool, scene, logger=log, log_every=100,
+                      graphs=graphs)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    return (model, state, log, {k: after[k] - before[k] for k in after},
+            seconds, rungs, (torch.cuda.max_memory_allocated() / 2 ** 30,
+                             torch.cuda.max_memory_reserved() / 2 ** 30))
+
+
+def train_slice(cfg, dev, card):
+    """Phase 6: train (CUDA graphs), then render the held-out views on the
+    trained grid. Returns (the launch counts of the run, the graphed
+    training's state, launch counts and steps/s for phase 6b)."""
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.data.synthetic import SphereScene
     from fsnerf_tpu_torch.ops import occgrid as og
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
-    from fsnerf_tpu_torch.train.loop import train
 
-    tcfg = cfg.replace(
-        data=DataConfig(dataset="sphere", n_imgs=8, white_bkgd=True),
-        train=dataclasses.replace(cfg.train, n_iters=TRAIN_STEPS))
+    tcfg = train_slice_config(cfg)
     scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
     held = cli.split_of(scene.holdout(n=3, seed=101))
-    model = make_model(tcfg, torch.bfloat16,
-                       torch.Generator().manual_seed(0), dev)
+    untrained = make_model(tcfg, torch.bfloat16,
+                           torch.Generator().manual_seed(0), dev)
     base, _ = cli.evaluate_split(
-        model, og.conservative(cli.rebuild_grid(model, tcfg, scene.aabb,
-                                                dev)), held, tcfg, device=dev)
-    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
-    log = ListLogger()
+        untrained, og.conservative(cli.rebuild_grid(
+            untrained, tcfg, scene.aabb, dev)), held, tcfg, device=dev)
 
     kr.ray_march.launches = km.nerf_density.launches = 0
     mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = train(model, tcfg, pool, scene, logger=log, log_every=100)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    model, state, log, trained, train_s, rungs, peak_gb = run_train_slice(
+        tcfg, dev)
     eval_grid = og.conservative(state.grid)
     got, _ = cli.evaluate_split(model, eval_grid, held, tcfg, device=dev)
     torch.cuda.synchronize()
@@ -623,6 +695,8 @@ def train_slice(cfg, dev, card):
           f"{log.records[0]['step']} -> {losses[-1]:.5f}; final K "
           f"{log.records[-1]['n_compact']:.0f}, occupancy "
           f"{log.records[-1]['occupancy']:.4f}; launches {launches}")
+    print(f"train slice graphs: {rungs.summary()}; peak device memory "
+          f"{peak_gb[0]:.2f} GB allocated, {peak_gb[1]:.2f} GB reserved")
     print(f"held-out (3 views 128x128): PSNR {got['psnr']:.3f} SSIM "
           f"{got['ssim']:.4f} eval K {got['eval_k']} after training; "
           f"untrained PSNR {base['psnr']:.3f} SSIM {base['ssim']:.4f} "
@@ -648,7 +722,40 @@ def train_slice(cfg, dev, card):
                             device=dev)
     compare("trained", kr.ray_march, kr.ray_march_reference, padded, params,
             bR, cs, tcfg.sampling.early_stop_eps)
-    return launches
+    return launches, (state, trained, state.step / train_s)
+
+
+def graphed_vs_eager(cfg, dev, card, graphed):
+    """Phase 6b: the occgrid slice of phase 6 again from the same seeds,
+    trained by eager steps; the graphed run's weights, Adam moments, grid
+    (occs, binaries, thre, query tables), generator state and launch
+    counts must equal the eager run's bitwise."""
+    g_state, g_launches, g_rate = graphed
+    _, e_state, _, e_launches, e_s, _, e_peak = run_train_slice(
+        train_slice_config(cfg), dev, graphs=False)
+    diffs = {}
+    for (name, a), b in zip(g_state.model.named_parameters(),
+                            e_state.model.parameters()):
+        diffs[name] = not torch.equal(a, b)
+        sa, sb = g_state.optimizer.state[a], e_state.optimizer.state[b]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            diffs[f"{name}.{k}"] = not torch.equal(sa[k], sb[k])
+    for k in ("occs", "binaries", "thre", "occ_q", "od_q"):
+        diffs[f"grid.{k}"] = not torch.equal(getattr(g_state.grid, k),
+                                             getattr(e_state.grid, k))
+    diffs["generator"] = not torch.equal(g_state.generator.get_state(),
+                                         e_state.generator.get_state())
+    diffs["launches"] = g_launches != e_launches
+    differ = [k for k, v in diffs.items() if v]
+    print(f"graphed vs eager on {card}: {e_state.step} steps, graphed "
+          f"{g_rate:.2f} steps/s, eager {e_state.step / e_s:.2f} steps/s "
+          f"(peak device memory eager {e_peak[0]:.2f} GB allocated, "
+          f"{e_peak[1]:.2f} GB reserved); weights, Adam "
+          f"moments, grid, generator and launches "
+          + ("bitwise equal" if not differ else f"differ: {differ}")
+          + f"; launches {g_launches}")
+    if differ or g_state.step != e_state.step:
+        fail(f"the graphed training differs from the eager loop: {differ}")
 
 
 def density_macs(cfg) -> int:
@@ -1763,8 +1870,10 @@ def main():
     # -- 5. train kernels vs plain at full width ---------------------------
     fwd, bwd = train_kernels(cfg, dev, card)
 
-    # -- 6. the training slice ----------------------------------------------
-    train_launches = train_slice(cfg, dev, card)
+    # -- 6. the training slice (CUDA graphs), 6b. against the eager loop ----
+    train_launches, graphed = train_slice(cfg, dev, card)
+    graphed_vs_eager(cfg, dev, card, graphed)
+    del graphed
 
     # -- 7. forward MLP kernel vs plain at full width -----------------------
     mlp, mlp_module_ms = mlp_kernel(cfg, dev, card, built.log)

@@ -142,8 +142,9 @@ class TrainConfig:
     # (0 = only the final one), and continuing from the latest one
     ckpt_every: int = 0
     resume: bool = False
-    # hides XLA compile time in the JAX package; the port recompiles nothing
-    # when the compaction K changes, so it is carried but unread
+    # hides XLA compile time in the JAX package; the port captures a new
+    # K's CUDA graphs synchronously (train/loop.py), so it is carried but
+    # unread
     async_ladder: Optional[bool] = None
     # a train-PSNR collapse halts training (a non-finite loss always does)
     halt_on_divergence: bool = False

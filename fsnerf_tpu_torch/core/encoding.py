@@ -17,13 +17,14 @@ def linspace(start: float, stop: float, n: int, device=None):
     """float32 linspace by jnp.linspace's formula, start*(1-s) + stop*s with
     s = i/(n-1) and the endpoint exact. torch.linspace rounds differently;
     this gives the JAX package's log-spaced bands to the bit (XLA may still
-    move a linear band by an ulp for F >= 7)."""
+    move a linear band by an ulp for F >= 7). Built on the device with no
+    host-to-device copy, so a CUDA graph can capture it."""
     if n == 1:
-        return torch.tensor([start], dtype=torch.float32, device=device)
+        return torch.full((1,), start, dtype=torch.float32, device=device)
     s = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
     out = start * (1.0 - s) + stop * s
-    return torch.cat([out, torch.tensor([stop], dtype=torch.float32,
-                                        device=device)])
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
 
 
 def frequencies(n_freqs: int, log_space: bool = True,
@@ -61,7 +62,10 @@ def freq_mask(n_freqs: int, step, total_steps: int,
               device=None) -> torch.Tensor:
     """FreeNeRF linear frequency-annealing mask [F] in [0, 1]: at step t the
     first floor(t*F/T) bands are visible, the next one fractionally.
-    Identity (ones) when total_steps <= 0."""
+    Identity (ones) when total_steps <= 0. `step` is a Python int or a 0-d
+    tensor on `device` (the train step passes its device step counter, so
+    the mask costs no host-to-device copy and a CUDA graph can capture
+    it)."""
     if total_steps <= 0:
         return torch.ones(n_freqs, dtype=torch.float32, device=device)
     alpha = (torch.as_tensor(step, dtype=torch.float32, device=device)

@@ -214,26 +214,20 @@ def _cell_positions(flat_idx: torch.Tensor, ab: torch.Tensor, res: int,
     return lo + (ijk + u) / res * (hi - lo)
 
 
-def update(
-    grid: OccGrid,
-    density_fn: Callable[[torch.Tensor], torch.Tensor],
-    step: int,
-    render_step_size: float = 5e-3,
-    occ_thre: float = 1e-2,
-    ema_decay: float = 0.95,
-    warmup_steps: int = 256,
-    update_parts: int = 4,
-    update_interval: int = 16,
-    hold_steps: int = 0,
-    jitter: Optional[Sequence[torch.Tensor]] = None,
-) -> OccGrid:
-    """One grid refresh (nerfacc update_every_n_steps semantics).
+def refresh_plan(step: int, warmup_steps: int = 256, update_parts: int = 4,
+                 update_interval: int = 16, hold_steps: int = 0):
+    """(part, hold) of the refresh at `step`: part None refreshes every
+    cell (warmup), else the round-robin part (step // update_interval) %
+    update_parts; hold keeps every cell occupied (the culling hold)."""
+    part = (None if step < warmup_steps
+            else (step // update_interval) % update_parts)
+    return part, bool(hold_steps and step < hold_steps)
 
-    density_fn maps [N, 3] -> [N] raw sigma; occ_eval = sigma *
-    render_step_size. jitter: optional per-level [k, 3] cell jitter in
-    place of the JAX key (None = cell centres); k is every cell during
-    warmup, else the refreshed slice.
-    """
+
+def _refreshed(grid: OccGrid, density_fn, part: Optional[int], hold: bool,
+               render_step_size: float, occ_thre: float, ema_decay: float,
+               update_parts: int, jitter):
+    """The EMA values and threshold after one refresh (see update)."""
     res, L, n = grid.resolution, grid.levels, grid.n_cells
     dev = grid.occs.device
 
@@ -248,12 +242,11 @@ def update(
             (density_fn(xc) * render_step_size).to(torch.float32)
             for xc in torch.split(x, _EVAL_CHUNK)])
 
-    if step < warmup_steps:
+    if part is None:
         idx = torch.arange(n, dtype=torch.int64, device=dev)
         new = torch.stack([eval_level(lv, idx) for lv in range(L)])
         occs = torch.maximum(grid.occs * ema_decay, new)
     else:
-        part = (step // update_interval) % update_parts
         k = n // update_parts
         start = part * k
         idx = start + torch.arange(k, dtype=torch.int64, device=dev)
@@ -262,10 +255,58 @@ def update(
         occs[:, start:start + k] = torch.maximum(
             grid.occs[:, start:start + k] * ema_decay, new)
     thre = torch.clamp(occs.mean(), max=occ_thre)
-    if hold_steps and step < hold_steps:
+    if hold:
         # culling hold: every cell stays occupied while the EMA accumulates
         thre = torch.full_like(thre, -1.0)
+    return occs, thre
+
+
+def update(
+    grid: OccGrid,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    step: int,
+    render_step_size: float = 5e-3,
+    occ_thre: float = 1e-2,
+    ema_decay: float = 0.95,
+    warmup_steps: int = 256,
+    update_parts: int = 4,
+    update_interval: int = 16,
+    hold_steps: int = 0,
+    jitter: Optional[Sequence[torch.Tensor]] = None,
+) -> OccGrid:
+    """One grid refresh (nerfacc update_every_n_steps semantics), as a new
+    grid.
+
+    density_fn maps [N, 3] -> [N] raw sigma; occ_eval = sigma *
+    render_step_size. jitter: optional per-level [k, 3] cell jitter in
+    place of the JAX key (None = cell centres); k is every cell during
+    warmup, else the refreshed slice.
+    """
+    part, hold = refresh_plan(step, warmup_steps, update_parts,
+                              update_interval, hold_steps)
+    occs, thre = _refreshed(grid, density_fn, part, hold, render_step_size,
+                            occ_thre, ema_decay, update_parts, jitter)
     return with_occs(grid, occs, thre)
+
+
+def update_(
+    grid: OccGrid,
+    density_fn: Callable[[torch.Tensor], torch.Tensor],
+    part: Optional[int],
+    hold: bool,
+    render_step_size: float = 5e-3,
+    occ_thre: float = 1e-2,
+    ema_decay: float = 0.95,
+    update_parts: int = 4,
+    jitter: Optional[Sequence[torch.Tensor]] = None,
+) -> OccGrid:
+    """update() in place, for the refresh refresh_plan names (part, hold):
+    the new EMA values, query tables, binaries and threshold are written
+    into the grid's own tensors (set_occs_), bitwise what update() returns.
+    A CUDA graph that captured a step reads the tables it refreshed."""
+    occs, thre = _refreshed(grid, density_fn, part, hold, render_step_size,
+                            occ_thre, ema_decay, update_parts, jitter)
+    return set_occs_(grid, occs, thre)
 
 
 def with_occs(grid: OccGrid, occs: torch.Tensor, thre) -> OccGrid:
@@ -279,6 +320,21 @@ def with_occs(grid: OccGrid, occs: torch.Tensor, thre) -> OccGrid:
                                      grid.query_dilation)
     return grid.replace(occs=occs, occ_q=occ_q, od_q=od_q,
                         binaries=occs > thre, thre=thre)
+
+
+def set_occs_(grid: OccGrid, occs: torch.Tensor,
+              thre: torch.Tensor) -> OccGrid:
+    """with_occs() in place: the EMA values, the query tables rebuilt from
+    them, the binaries and the threshold are copied into the grid's
+    existing tensors (occs and thre on the grid's device). Returns grid."""
+    occ_q, od_q = _build_query_table(occs, grid.resolution,
+                                     grid.query_dilation)
+    grid.occs.copy_(occs)
+    grid.occ_q.copy_(occ_q)
+    grid.od_q.copy_(od_q)
+    torch.gt(occs, thre, out=grid.binaries)
+    grid.thre.copy_(thre)
+    return grid
 
 
 def conservative(grid: OccGrid) -> OccGrid:

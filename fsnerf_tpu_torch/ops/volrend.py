@@ -45,7 +45,10 @@ def composite(
     rgb = torch.einsum("rs,rsc->rc", weights, rgbs)
     opacity = torch.sum(weights, dim=-1)
     depth = torch.sum(weights * t_vals, dim=-1)
-    bkgd = torch.as_tensor(bkgd, dtype=rgb.dtype, device=rgb.device)
+    if not isinstance(bkgd, (int, float)):
+        # a Python number stays a scalar operand: a host-to-device copy of
+        # it could not be captured into a CUDA graph
+        bkgd = torch.as_tensor(bkgd, dtype=rgb.dtype, device=rgb.device)
     return rgb + trans_final[:, None] * bkgd, opacity, depth
 
 

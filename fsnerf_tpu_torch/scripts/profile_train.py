@@ -1,21 +1,33 @@
-"""Where a training step's time goes on the card: trains `--warmup` steps of
-the default config (or of hierarchical sampling, 64 + 128 samples; or of
-SiNeRF) on a procedural scene (so the grid and the compaction K reach their
-steady state), then profiles `--steps` more with torch.profiler.
+"""Where a training step's time goes on the card, graphed and eager: trains
+to step `--warmup` of the default config (or of hierarchical sampling,
+64 + 128 samples; or of SiNeRF) on a procedural scene with train() (so the
+grid and the compaction K reach their steady state), then runs the window
+of `--steps` steps from there again and again from one saved state: by
+CUDA-graph replays (make_train_chunk, train()'s path on the card) and by
+eager steps (the loop the replays are bitwise equal to), in turns, eager,
+graphed, graphed, eager for each of `--pairs` pairs.
 
     python -m fsnerf_tpu_torch.scripts.profile_train [--dataset lattice] \
-        [--hw 800] [--warmup 1000] [--steps 30] [--out DIR] \
+        [--hw 800] [--warmup 1070] [--steps 64] [--pairs 2] [--out DIR] \
         [--strategy occgrid|hierarchical] [--model nerf|sinerf]
 
-Prints the wall time per step of `--steps` steps without the profiler and
-with it (the profiler's host-side tracing slows dispatch), the device's
-busy time per step (the union of kernel and copy intervals in the trace)
-and its idle share against the unprofiled wall time, the train kernels' and
-the other kernels' device time per step, the grid-refresh steps inside the
-profiled window (all cells before `warmup_steps`, one of `update_parts`
-parts after) with the time of one refresh of each kind (CUDA events; none
-under hierarchical, which never refreshes the grid), and writes the Chrome
-trace to <out>/train_trace.json.gz.
+Each run restores the saved state in place (weights, Adam's moments, the
+grid, the generator, both step counters), so every run does the same work
+(its last loss is printed and must agree bitwise across runs), and times
+the window twice: without the profiler (the wall time per step, and the
+host's ms per step to enqueue it, before the synchronize) and under
+torch.profiler (the device's busy time per step, the union of kernel and
+copy intervals in the trace, its idle share against the unprofiled wall,
+kernels and graph launches per step, the train kernels' and the other
+device work's ms per step). Before the turns the graphed window runs twice
+untimed, so every step kind in it has had its eager warm-up and its
+capture. Also prints the grid-refresh steps inside the window (all cells
+before `warmup_steps`, one of `update_parts` parts after), the capture
+seconds of each graph and the peak device memory (allocated, and reserved,
+which counts the graphs' pools), then times one all-cell
+and one part refresh with CUDA events (none under hierarchical, which
+never refreshes the grid), and writes the last graphed run's Chrome trace
+to <out>/train_trace.json.gz.
 """
 
 from __future__ import annotations
@@ -23,7 +35,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gzip
-import itertools
 import json
 import os
 import time
@@ -49,13 +60,67 @@ def busy_us(events) -> float:
     return total
 
 
+class Snapshot:
+    """A training state's tensors, restored in place (a captured graph
+    keeps reading the same storage)."""
+
+    def __init__(self, state):
+        self.state = state
+        self.step = state.step
+        self.tensors = [(t, t.detach().clone()) for t in self._tensors()]
+        self.generator = state.generator.get_state()
+
+    def _tensors(self):
+        s = self.state
+        out = [p.data for p in s.model.parameters()] + [s.step_t]
+        for st in s.optimizer.state.values():
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        g = s.grid
+        return out + [g.occs, g.occ_q, g.od_q, g.binaries, g.thre]
+
+    def restore(self):
+        with torch.no_grad():
+            for live, saved in self.tensors:
+                live.copy_(saved)
+        self.state.generator.set_state(self.generator)
+        self.state.step = self.step
+
+
+def trace_numbers(trace: dict, n: int) -> dict:
+    """Device busy and kernel ms per step, kernels and graph launches per
+    step, from an exported Chrome trace of n steps."""
+    ev = trace["traceEvents"]
+    dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                             "gpu_memset") and "dur" in e]
+    per_kernel = {}
+    for e in dev:
+        per_kernel[e["name"]] = per_kernel.get(e["name"], 0.0) + e["dur"]
+    ours = {k: v / 1e3 / n for k, v in per_kernel.items()
+            if any(t in k for t in _TRAIN_KERNELS)}
+    others = sorted(((v / 1e3 / n, k) for k, v in per_kernel.items()
+                     if not any(t in k for t in _TRAIN_KERNELS)),
+                    reverse=True)
+    return {
+        "device_busy_ms_per_step": busy_us(dev) / 1e3 / n,
+        "train_kernels_ms_per_step": sum(ours.values()),
+        "other_device_ms_per_step": sum(v for v, _ in others),
+        "kernels_per_step": sum(1 for e in dev
+                                if e.get("cat") == "kernel") / n,
+        "graph_launches_per_step": sum(
+            1 for e in ev if e.get("cat") == "cuda_runtime"
+            and e.get("name", "").startswith("cudaGraphLaunch")) / n,
+        "_ours": ours, "_others": others,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataset", choices=["sphere", "lattice"],
                     default="lattice")
     ap.add_argument("--hw", type=int, default=800)
-    ap.add_argument("--warmup", type=int, default=1000)
-    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--warmup", type=int, default=1070)
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--strategy", choices=["occgrid", "hierarchical"],
                     default="occgrid")
@@ -71,10 +136,12 @@ def main(argv=None):
     from ..core.models import make_model
     from ..data.pool import pool_from_images
     from ..train.loop import CompactionController, train
-    from ..train.step import (GeneratorDraws, make_train_step,
-                              maybe_update_grid, resolve_update_interval)
+    from ..train.step import (ALL_CELLS, GeneratorDraws, StepKind,
+                              make_train_chunk, make_train_step,
+                              refresh_grid)
 
     dev = torch.device("cuda")
+    card = card_name()
     cfg = Config(data=DataConfig(dataset=args.dataset, n_imgs=8,
                                  white_bkgd=True),
                  model=ModelConfig(model=args.model))
@@ -89,91 +156,122 @@ def main(argv=None):
                        dev)
     pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
     state = train(model, cfg, pool, scene, log_every=100)
-    # the ladder's K for the warmed-up grid's valid-sample count
-    _, m = make_train_step(model, cfg, state.optimizer, pool, scene)(state)
-    k = CompactionController(cfg).target(float(m["n_valid_mean"]))
-    step_cfg = cfg.replace(sampling=dataclasses.replace(cfg.sampling,
-                                                        n_compact=k))
-    step = make_train_step(model, step_cfg, state.optimizer, pool, scene)
-    for _ in range(5):
-        state, m = step(state)
+    # the window runs at the K the ladder holds after the warmup
+    ladder = CompactionController(cfg)
+    ladder.load_state_dict(state.ladder)
+    step_cfg = ladder.apply(cfg)
+    step_fn = make_train_step(model, step_cfg, state.optimizer, pool, scene)
+    n = args.steps
+    chunks = {mode: make_train_chunk(step_fn, n, graphs=mode == "graphed")
+              for mode in ("eager", "graphed")}
+    first = state.step
+    kinds = [step_fn.kind(k) for k in range(first, first + n)]
+    snap = Snapshot(state)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):               # warm every kind up, then capture it
+        snap.restore()
+        chunks["graphed"](state)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30,
+               torch.cuda.max_memory_reserved() / 2 ** 30)
 
-    def timed_steps():
-        nonlocal state, m
+    def timed(mode):
+        snap.restore()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            state, m = step(state)
+        _, m = chunks[mode](state)
+        host = time.perf_counter() - t0
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / args.steps
+        wall = time.perf_counter() - t0
+        return wall * 1e3 / n, host * 1e3 / n, float(m["loss"])
 
-    def refresh_ms(at_step):
+    def profiled(mode):
+        snap.restore()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chunks[mode](state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        path = os.path.join(args.out, "train_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+        os.remove(path)
+        return wall * 1e3 / n, trace
+
+    os.makedirs(args.out, exist_ok=True)
+    order = ["eager", "graphed", "graphed", "eager"] * args.pairs
+    runs, losses, last_trace = [], set(), None
+    for i, mode in enumerate(order):
+        wall, host, loss = timed(mode)
+        prof_wall, trace = profiled(mode)
+        nums = trace_numbers(trace, n)
+        if mode == "graphed":
+            last_trace = trace
+        losses.add(loss)
+        runs.append({"run": i, "mode": mode, "wall_ms_per_step": wall,
+                     "host_ms_per_step": host,
+                     "profiled_wall_ms_per_step": prof_wall,
+                     "device_idle_share": 1.0 - nums[
+                         "device_busy_ms_per_step"] / wall,
+                     **{k: v for k, v in nums.items()
+                        if not k.startswith("_")}})
+        print(json.dumps(runs[-1]))
+    with gzip.open(os.path.join(args.out, "train_trace.json.gz"),
+                   "wt") as fh:
+        json.dump(last_trace, fh)
+
+    s_cfg = cfg.sampling
+
+    def refresh_ms(kind):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         draws = GeneratorDraws(state.generator)
-        maybe_update_grid(model, cfg, state.grid, at_step, draws, dev)
+        refresh_grid(model, cfg, state, kind, draws, dev)
         torch.cuda.synchronize()
         a.record()
-        maybe_update_grid(model, cfg, state.grid, at_step, draws, dev)
+        refresh_grid(model, cfg, state, kind, draws, dev)
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b)
 
-    wall_ms = timed_steps()
-    s_cfg, first = cfg.sampling, state.step
-    window = range(first, first + args.steps)
-    refreshes = [] if hier else [
-        (k, "all" if k < s_cfg.warmup_steps else "part")
-        for k in window if k % resolve_update_interval(s_cfg, k) == 0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled_ms = timed_steps()
-    os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "train_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as fh:
-        trace = json.load(fh)
-    with gzip.open(path + ".gz", "wt") as fh:
-        json.dump(trace, fh)
-    os.remove(path)
-    dev_events = [e for e in trace["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                  and "dur" in e]
-    per_kernel = {}
-    for e in dev_events:
-        per_kernel[e["name"]] = per_kernel.get(e["name"], 0.0) + e["dur"]
-    n = args.steps
-    busy = busy_us(dev_events) / 1e3 / n
-    ours = {k: v / 1e3 / n for k, v in per_kernel.items()
-            if any(t in k for t in _TRAIN_KERNELS)}
-    others = sorted(((v / 1e3 / n, k) for k, v in per_kernel.items()
-                     if not any(t in k for t in _TRAIN_KERNELS)),
-                    reverse=True)
-    launches = sum(1 for e in dev_events if e.get("cat") == "kernel") / n
     print(json.dumps({
-        "card": card_name(), "dataset": args.dataset, "hw": args.hw,
+        "card": card, "dataset": args.dataset, "hw": args.hw,
         "strategy": args.strategy, "model": args.model,
-        "warmup_steps": args.warmup, "profiled_steps": n,
+        "profiled_steps_from": first, "profiled_steps": n,
         "n_compact": step_cfg.sampling.n_compact,
-        "n_valid_mean": float(m["n_valid_mean"]),
-        "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": profiled_ms,
-        "device_busy_ms_per_step": busy,
-        "device_idle_share": 1.0 - busy / wall_ms,
-        "train_kernels_ms_per_step": sum(ours.values()),
-        "device_kernels_per_step": launches,
-        "profiled_steps_from": first,
-        "refreshes_in_window": refreshes,
-        "refresh_all_cells_ms": None if hier else refresh_ms(0),
-        "refresh_one_part_ms": None if hier else refresh_ms(next(
-            k for k in itertools.count(s_cfg.warmup_steps)
-            if k % resolve_update_interval(s_cfg, k) == 0))}))
-    for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
+        "refreshes_in_window": [
+            (first + i, "all" if k.refresh == ALL_CELLS else
+             f"part {k.refresh}") for i, k in enumerate(kinds)
+            if k.refresh is not None],
+        "capture_s": {str(k): g.capture_s
+                      for k, g in step_fn.graphs.items()},
+        "peak_memory_gb_allocated": peak_gb[0],
+        "peak_memory_gb_reserved": peak_gb[1],
+        "runs_bitwise_equal_loss": len(losses) == 1,
+        "refresh_all_cells_ms": None if hier else refresh_ms(
+            StepKind(ALL_CELLS)),
+        "refresh_one_part_ms": None if hier else refresh_ms(
+            StepKind(0))}))
+    for mode in ("eager", "graphed"):
+        rs = [r for r in runs if r["mode"] == mode]
+        print(f"{mode} on {card}: wall ms/step "
+              + " / ".join(f"{r['wall_ms_per_step']:.3f}" for r in rs)
+              + ", device busy "
+              + " / ".join(f"{r['device_busy_ms_per_step']:.3f}" for r in rs)
+              + ", idle share "
+              + " / ".join(f"{r['device_idle_share']:.3f}" for r in rs)
+              + ", host ms/step "
+              + " / ".join(f"{r['host_ms_per_step']:.3f}" for r in rs))
+    nums = trace_numbers(last_trace, n)
+    for k, v in sorted(nums["_ours"].items(), key=lambda kv: -kv[1]):
         print(f"  {v:8.4f} ms/step  {k[:110]}")
     print("  other device work, top 15:")
-    for v, k in others[:15]:
+    for v, k in nums["_others"][:15]:
         print(f"  {v:8.4f} ms/step  {k[:110]}")
-    print(f"  other device work in all (the above included): "
-          f"{len(others)} kernel names, "
-          f"{sum(v for v, _ in others):.4f} ms/step")
+    if len(losses) != 1:
+        raise SystemExit(f"the runs of one window disagree: {losses}")
 
 
 if __name__ == "__main__":

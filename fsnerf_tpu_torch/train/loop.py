@@ -1,11 +1,15 @@
 """Training driver (port of fsnerf_tpu/train/loop.py): the adaptive
-compaction ladder, the divergence guard, a JSON-lines metrics sink and the
-loop itself, with its in-loop validation and checkpoint hooks.
+compaction ladder, the divergence guard, a JSON-lines metrics sink, the
+loop itself with its in-loop validation and checkpoint hooks, and the
+headless `train_scanned`.
 
-The loop runs one step per Python iteration; the device queue stays full
-because a step never waits on it. Metrics cross to the host only at the
-ladder's boundaries (every `chunk` steps, where the JAX package ends a
-lax.scan chunk), at log steps and at validations.
+The loop dispatches chunks of steps between the callback boundaries, as
+the JAX loop dispatches lax.scan chunks (train/step.py::make_train_chunk):
+on the card each step is one replay of the CUDA graph of its kind, since
+per-step host dispatch (the autograd, optimizer and kernel-launch work of
+an eager step) would otherwise dominate the wall clock. Metrics cross to
+the host only at chunk ends, where the ladder observes, and at log steps
+and validations.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Callable, Optional
 
 from ..core.schedules import make_schedule
 from .state import TrainState
-from .step import init_state, make_optimizer, make_train_step
+from .step import (init_state, make_optimizer, make_train_chunk,
+                   make_train_step)
 
 _log = logging.getLogger(__name__)
 
@@ -161,7 +166,8 @@ def chunk_length(log_every: int) -> int:
 def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
           logger: Optional[MetricsLogger] = None,
           log_every: int = 100, checkpointer=None,
-          val_fn: Optional[Callable] = None) -> TrainState:
+          val_fn: Optional[Callable] = None,
+          graphs: Optional[bool] = None) -> TrainState:
     """Run steps until cfg.train.n_iters.
 
     Args: model, the NeRF module on the pool's device; pool: RayPool;
@@ -169,7 +175,10 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
     `model`); checkpointer: utils/checkpoint.py::Checkpointer, saved every
     cfg.train.ckpt_every steps and at the end; val_fn(state, step) -> dict,
     run every cfg.train.val_rate steps when cfg.train.val is set, its
-    metrics logged with a "val_" prefix. Returns the final TrainState."""
+    metrics logged with a "val_" prefix; graphs: make_train_chunk's (None:
+    CUDA graphs on the card, eager steps on the CPU; False: eager steps on
+    the card, the reference the graphs are bitwise equal to). Returns the
+    final TrainState."""
     if state is None:
         state = init_state(model, cfg, make_optimizer(cfg, model),
                            scene.aabb, pool.device)
@@ -196,13 +205,20 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
     start = state.step
     t0 = time.perf_counter()
     while state.step < n_iters:
-        state, metrics = step_fn(state)
+        # a chunk ends on the next common boundary (a run resumed off the
+        # lattice realigns with a short one) or at n_iters
+        n = min(chunk - state.step % chunk, n_iters - state.step)
+        state, metrics = make_train_chunk(step_fn, n, graphs)(state)
         k = state.step
-        # the ladder observes the last step of each chunk, as the JAX
-        # loop observes each lax.scan chunk's last step
-        if compactor.enabled and (k % chunk == 0 or k == n_iters):
-            if compactor.observe(float(metrics["n_valid_mean"])):
-                step_fn = build(compactor.apply(cfg))
+        # the ladder observes each chunk's last step, as the JAX loop
+        # observes each lax.scan chunk's; a new K is a new step function
+        # whose graphs are captured as its kinds come (the JAX recompile).
+        # A capture is synchronous, so TrainConfig.async_ladder stays unread
+        if compactor.enabled and compactor.observe(
+                float(metrics["n_valid_mean"])):
+            _log_graphs(step_fn, k)
+            step_fn.release()
+            step_fn = build(compactor.apply(cfg))
         if k % log_every == 0 or k == n_iters:
             m = {name: float(v) for name, v in metrics.items()}
             dt = time.perf_counter() - t0
@@ -223,7 +239,60 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
         if ckpt_on and k % t_cfg.ckpt_every == 0:
             state.ladder = compactor.state_dict()
             checkpointer.save(state, k)
+    _log_graphs(step_fn, state.step)
+    step_fn.release()
     state.ladder = compactor.state_dict()
     if checkpointer:
         checkpointer.save(state, state.step)
+    return state
+
+
+def _log_graphs(step_fn, k: int) -> None:
+    """Log the CUDA graphs of a retiring step function: its K, its kinds
+    and their capture seconds (the port's counterpart of the JAX loop's
+    compile time), in the record's `graphs` attribute too."""
+    if not step_fn.graphs:
+        return
+    rung = {"step": k, "n_compact": step_fn.cfg.sampling.n_compact,
+            "capture_s": {str(kind): g.capture_s
+                          for kind, g in step_fn.graphs.items()}}
+    _log.info("step %d: %d CUDA graphs at K %s captured in %.3f s", k,
+              len(rung["capture_s"]), rung["n_compact"],
+              sum(rung["capture_s"].values()), extra={"graphs": rung})
+
+
+def train_scanned(model, cfg, pool, scene,
+                  state: Optional[TrainState] = None, chunk: int = 100,
+                  on_chunk: Optional[Callable] = None,
+                  graphs: Optional[bool] = None) -> TrainState:
+    """Headless training (port of fsnerf_tpu/train/loop.py::
+    train_scanned): n_iters // chunk chunks of `chunk` steps
+    (make_train_chunk; on the card one graph replay per step), with no
+    logs, validation or checkpoints; on_chunk(c, state, metrics) after
+    chunk c. Adaptive compaction runs at the chunk boundaries: each
+    chunk's last-step n_valid_mean feeds the controller, and a K change
+    swaps in a step function at the new K, whose graphs are captured anew.
+    The first chunk runs at cfg's K ceiling, as the JAX one does."""
+    if state is None:
+        state = init_state(model, cfg, make_optimizer(cfg, model),
+                           scene.aabb, pool.device)
+
+    def build(c):
+        return make_train_step(state.model, c, state.optimizer, pool, scene)
+
+    compactor = CompactionController(cfg)
+    step_fn = build(cfg)
+    run = make_train_chunk(step_fn, chunk, graphs)
+    for c in range(cfg.train.n_iters // chunk):
+        state, metrics = run(state)
+        if on_chunk:
+            on_chunk(c, state, metrics)
+        if compactor.enabled and compactor.observe(
+                float(metrics["n_valid_mean"])):
+            _log_graphs(step_fn, state.step)
+            step_fn.release()
+            step_fn = build(compactor.apply(cfg))
+            run = make_train_chunk(step_fn, chunk, graphs)
+    _log_graphs(step_fn, state.step)
+    step_fn.release()
     return state

@@ -8,19 +8,34 @@ the module) -> volume integration -> MSE
 (+ regularizers) -> gradients -> Adam -> under occgrid, every
 update_interval steps the occupancy-grid EMA refresh with the updated
 weights (a NeRF's densities through the density kernel of
-ops/kernels/mlp.py where the fused kernels are on). Nothing in a step waits
-on the device: its metrics stay there as tensors.
+ops/kernels/mlp.py where the fused kernels are on), written into the
+grid's own tensors. Nothing in a step waits on the device: its metrics
+stay there as tensors.
+
+Step kinds. What the JAX step decides on the device (its lax.cond on the
+refresh, jnp.where on the weight regularizer) the port decides on the host
+from the step count by the same rules (`step_kind`): the refresh (none, all
+cells, or part p), its culling hold, and the weight regularizer. Each kind
+is one fixed sequence of kernels, so on the card `make_train_chunk` runs a
+step by replaying the CUDA graph captured for its kind (`StepGraph`): the
+host does one graph launch per step, with no autograd, optimizer or launch
+work, and a replay is bitwise the eager step. Everything a step reads from
+its step count on the device (the FreeNeRF masks, the card's lr) comes from
+the state's device counter `step_t`.
 
 Randomness. The JAX step splits its key into batch, render and grid keys,
 and the hierarchical renderer splits the render key into the coarse
 jitter's and the PDF draws'. The port's step takes the same draws from one
-source (`GeneratorDraws`): by default the state's generator, or draws
+source (`GeneratorDraws`): by default the state's generator (registered
+with each graph, so a replay draws what the eager step draws), or draws
 handed in (the tests hand it the JAX step's own).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +43,7 @@ from ..core.encoding import freq_mask
 from ..core.losses import mse, occlusion_reg, psnr_from_mse, weight_reg
 from ..core.schedules import make_schedule
 from ..ops import occgrid as og
+from ..ops.kernels import add_launches, launch_counts
 from ..render.renderer import render_rays_hierarchical, render_rays_occgrid
 from .state import TrainState
 
@@ -69,9 +85,22 @@ class GeneratorDraws:
 
 def make_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Adam:
     """Adam (betas 0.9 / 0.999, eps 1e-8 outside the sqrt, as optax.adam
-    with eps_root 0); the step sets the schedule's LR before each update."""
-    return torch.optim.Adam(model.parameters(), lr=make_schedule(cfg)(0),
-                            betas=(0.9, 0.999), eps=1e-8)
+    with eps_root 0); the step sets the schedule's LR before each update.
+
+    For a model on the card: capturable Adam with its lr a 0-d float32
+    tensor there, which the step fills from the device schedule, so eager
+    and graphed steps run the same update (its bias corrections are
+    float32 on the device, as optax's are; torch's host form takes them in
+    double). On the CPU torch refuses capturable: the lr is a host float."""
+    lr = make_schedule(cfg)(0)
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        return torch.optim.Adam(
+            model.parameters(), betas=(0.9, 0.999), eps=1e-8,
+            lr=torch.tensor(lr, dtype=torch.float32, device=device),
+            capturable=True)
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
 
 
 def fused_kernels_wanted(cfg, device) -> bool:
@@ -114,8 +143,9 @@ def resolve_fused_kernel(cfg, device) -> bool:
     return fused_kernels_wanted(cfg, device) and ok
 
 
-def make_masks(cfg, step: int, device=None):
-    """FreeNeRF annealed frequency masks at `step` (None, None = off)."""
+def make_masks(cfg, step, device=None):
+    """FreeNeRF annealed frequency masks at `step`, a Python int or the
+    device step counter (None, None = off)."""
     T = cfg.encoder.freq_reg_end
     if T <= 0:
         return None, None
@@ -124,11 +154,12 @@ def make_masks(cfg, step: int, device=None):
 
 
 def make_loss_fn(model, cfg, scene, device) -> Callable:
-    """loss_fn(batch, grid, render_u, step) -> (loss, (main_mse,
-    samples_per_ray, n_valid_mean)), with the fused train kernels when
-    resolve_fused_kernel says so, the FreeNeRF masks and the occlusion /
-    weight regularizers (beta gates the occlusion term and does not scale
-    it, as in the reference).
+    """loss_fn(batch, grid, render_u, step_t, weight_reg_on) -> (loss,
+    (main_mse, samples_per_ray, n_valid_mean)), with the fused train kernels
+    when resolve_fused_kernel says so, the FreeNeRF masks at the device step
+    step_t and the occlusion / weight regularizers (beta gates the occlusion
+    term and does not scale it, as in the reference; the weight term is on
+    where the step kind says, step < reg_ratio * Td).
 
     occgrid: render_u is the [R, 1] phase jitter or None. hierarchical:
     render_u is (u_coarse [R, n_samples], u_fine [R, n_fine]) or None; the
@@ -144,15 +175,14 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
     elif resolve_fused_kernel(cfg, device):
         from ..ops.kernels.mlp_train import make_fused_train_model_fn
         fused = make_fused_train_model_fn(cfg, device=device)
-    Ts = int(t_cfg.reg_ratio * t_cfg.Td)
     q_stride = og.resolve_query_stride(s_cfg, scene.aabb)
     # MLP-evaluated samples per ray of the hierarchical strategy
     n_hier = torch.tensor(float(s_cfg.n_samples + s_cfg.n_fine),
                           device=device)
 
-    def loss_fn(batch, grid, render_u, step):
+    def loss_fn(batch, grid, render_u, step_t, weight_reg_on):
         rays_o, rays_d, rgb_gt = batch
-        pos_mask, dir_mask = make_masks(cfg, step, device)
+        pos_mask, dir_mask = make_masks(cfg, step_t, device)
 
         def model_fn(x, d=None):
             if fused is not None and d is not None:
@@ -183,7 +213,7 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
             loss = loss + occlusion_reg(out["sigmas"], out["t_vals"],
                                         out["mask"], t_cfg.occ_a,
                                         t_cfg.occ_b, t_cfg.occ_func)
-        if t_cfg.ao is not None and step < Ts:
+        if weight_reg_on:
             loss = loss + t_cfg.ao * weight_reg(model.named_parameters(),
                                                 t_cfg.reg)
         return loss, (main_mse, spr, nv)
@@ -235,70 +265,244 @@ def make_density_fn(model, cfg, pos_mask=None, device=None) -> Callable:
     return density_fn
 
 
-def maybe_update_grid(model, cfg, grid: og.OccGrid, step: int, draws,
-                      device=None) -> og.OccGrid:
-    """The occupancy-grid EMA refresh when `step` is on the interval: the
-    densities of make_density_fn at the step's FreeNeRF mask, at jittered
-    cell positions, all cells during warmup and a round-robin part after;
-    every cell stays occupied through the culling hold."""
-    s = cfg.sampling
+ALL_CELLS = -1         # StepKind.refresh of a refresh of every cell
+
+
+@dataclass(frozen=True)
+class StepKind:
+    """What one step runs besides its update: `refresh`, the grid refresh
+    after it (None: none; ALL_CELLS; else the part refreshed), `hold`, that
+    refresh's culling hold, and `weight_reg`, the weight regularizer's
+    term in the loss."""
+
+    refresh: Optional[int] = None
+    hold: bool = False
+    weight_reg: bool = False
+
+
+def grid_hold_steps(cfg) -> int:
+    """SamplingConfig.grid_hold_steps with its auto mode (< 0) resolved:
+    the culling hold lasts the FreeNeRF anneal."""
+    hold = cfg.sampling.grid_hold_steps
+    return (cfg.encoder.freq_reg_end or 0) if hold < 0 else hold
+
+
+def step_kind(cfg, step: int) -> StepKind:
+    """The kind of step `step`, by the JAX step's rules: the weight
+    regularizer while step < reg_ratio * Td (make_loss_fn); under occgrid
+    a refresh when step is on resolve_update_interval's interval, of every
+    cell before warmup_steps and of part (step // interval) %
+    update_parts after, held while step < grid_hold_steps
+    (fsnerf_tpu.train.step.maybe_update_grid, fsnerf_tpu.ops.occgrid.
+    update)."""
+    s, t = cfg.sampling, cfg.train
+    wreg = t.ao is not None and step < int(t.reg_ratio * t.Td)
     if s.strategy != "occgrid":
-        return grid
+        return StepKind(weight_reg=wreg)
     interval = resolve_update_interval(s, step)
     if step % interval:
-        return grid
-    pos_mask, _ = make_masks(cfg, step, device)
-    hold = s.grid_hold_steps
-    if hold < 0:                  # auto: hold culling through the anneal
-        hold = cfg.encoder.freq_reg_end or 0
-    k_cells = (grid.n_cells if step < s.warmup_steps
-               else grid.n_cells // s.update_parts)
-    jitter = draws.grid_jitter(grid, k_cells)
+        return StepKind(weight_reg=wreg)
+    part, hold = og.refresh_plan(step, s.warmup_steps, s.update_parts,
+                                 interval, grid_hold_steps(cfg))
+    return StepKind(ALL_CELLS if part is None else part, hold, wreg)
+
+
+def refresh_grid(model, cfg, state: TrainState, kind: StepKind, draws,
+                 device=None) -> None:
+    """The occupancy-grid EMA refresh `kind` names, in place
+    (og.update_): the densities of make_density_fn at the FreeNeRF mask of
+    the device step, at jittered cell positions, all cells or one part,
+    every cell occupied while held. A no-op for a kind without one."""
+    if kind.refresh is None:
+        return
+    s, grid = cfg.sampling, state.grid
+    part = None if kind.refresh == ALL_CELLS else kind.refresh
+    pos_mask, _ = make_masks(cfg, state.step_t, device)
+    jitter = draws.grid_jitter(grid, grid.n_cells if part is None
+                               else grid.n_cells // s.update_parts)
     with torch.no_grad():
-        return og.update(
-            grid, make_density_fn(model, cfg, pos_mask, device), step,
-            render_step_size=s.render_step_size, occ_thre=s.occ_thre,
-            ema_decay=s.ema_decay, warmup_steps=s.warmup_steps,
-            update_parts=s.update_parts, update_interval=interval,
-            hold_steps=hold, jitter=jitter)
+        og.update_(grid, make_density_fn(model, cfg, pos_mask, device),
+                   part, kind.hold, render_step_size=s.render_step_size,
+                   occ_thre=s.occ_thre, ema_decay=s.ema_decay,
+                   update_parts=s.update_parts, jitter=jitter)
 
 
-def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, pool,
-                    scene) -> Callable[..., Tuple[TrainState, dict]]:
+class StepGraph:
+    """One train step of one kind captured into a CUDA graph with a memory
+    pool of its own. The state's generator is registered with it, so a
+    replay draws what the eager step would and advances the generator as
+    far. The kernel wrappers count during the capture, which launches
+    nothing: the counts it added are taken back and added at each replay.
+
+    Every tensor the step reads or writes outside its pool must keep its
+    storage: the parameters, Adam's moments, the grid, the pool, the step
+    counter, and the tables the wrappers cache (which the eager warm-up
+    step made). The warp-specialized kernels' tensor maps are encoded once,
+    at the capture, with those pointers."""
+
+    def __init__(self, train_step: "TrainStep", state: TrainState,
+                 kind: StepKind, stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.metrics = train_step.run(state, kind)
+        self.capture_s = time.perf_counter() - t0
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        add_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        """Run the step once more; its metrics tensors are overwritten."""
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.metrics
+
+
+class TrainStep:
     """step(state, pool=None, draws=None) -> (state, metrics): one
-    optimizer update in place. metrics (loss, psnr, occupancy,
-    samples_per_ray, n_valid_mean) are 0-d tensors on the device."""
-    device = pool.device
-    loss_fn = make_loss_fn(model, cfg, scene, device)
-    schedule = make_schedule(cfg)
-    default_pool = pool
+    optimizer update in place, eagerly. metrics (loss, psnr, occupancy,
+    samples_per_ray, n_valid_mean) are 0-d tensors on the device.
 
-    def train_step(state: TrainState, pool=None, draws=None):
-        pool = default_pool if pool is None else pool
+    On the card `replay(state)` runs the step from the CUDA graph of its
+    kind (make_train_chunk's path); `graphs` holds them, `release` frees
+    them (a new ladder rung is a new TrainStep, as the JAX loop compiles a
+    new program)."""
+
+    def __init__(self, model, cfg, optimizer: torch.optim.Optimizer, pool,
+                 scene):
+        self.model, self.cfg, self.optimizer = model, cfg, optimizer
+        self.pool = pool
+        self.device = pool.device
+        self.loss_fn = make_loss_fn(model, cfg, scene, self.device)
+        self.schedule = make_schedule(cfg)
+        self.graphs: Dict[StepKind, StepGraph] = {}
+        self._warm = set()              # kinds run once eagerly
+        self._stream = None             # the capture stream
+
+    @property
+    def graphed(self) -> bool:
+        """Whether `replay` can run here (a CUDA training device)."""
+        return self.device.type == "cuda"
+
+    def kind(self, step: int) -> StepKind:
+        return step_kind(self.cfg, step)
+
+    def run(self, state: TrainState, kind: StepKind, pool=None,
+            draws=None) -> Dict[str, torch.Tensor]:
+        """The device work of one step of `kind`: draws, loss, gradients,
+        Adam, the refresh; it advances state.step_t, not state.step."""
+        cfg = self.cfg
+        pool = self.pool if pool is None else pool
         draws = GeneratorDraws(state.generator) if draws is None else draws
         batch = pool.gather(draws.batch_indices(pool, cfg.train.batch_size))
-        render_u = render_draws(cfg, draws, cfg.train.batch_size, device)
-        optimizer.zero_grad(set_to_none=True)
-        loss, (main_mse, spr, nv) = loss_fn(batch, state.grid, render_u,
-                                            state.step)
+        render_u = render_draws(cfg, draws, cfg.train.batch_size,
+                                self.device)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, (main_mse, spr, nv) = self.loss_fn(
+            batch, state.grid, render_u, state.step_t, kind.weight_reg)
         loss.backward()
-        lr = schedule(state.step)          # optax reads the pre-update count
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        state.grid = maybe_update_grid(model, cfg, state.grid, state.step,
-                                       draws, device)
-        state.step += 1
-        metrics = {
+        # optax reads the pre-update count
+        lr_t = None
+        for group in self.optimizer.param_groups:
+            if isinstance(group["lr"], torch.Tensor):     # the card's Adam
+                if lr_t is None:
+                    lr_t = self.schedule(state.step_t)
+                group["lr"].copy_(lr_t)
+            else:
+                group["lr"] = self.schedule(state.step)
+        self.optimizer.step()
+        refresh_grid(self.model, cfg, state, kind, draws, self.device)
+        state.step_t += 1
+        return {
             "loss": loss.detach(),
             "psnr": psnr_from_mse(main_mse.detach()),
             "occupancy": og.occupancy_fraction(state.grid),
             "samples_per_ray": spr,
             "n_valid_mean": nv,
         }
+
+    def __call__(self, state: TrainState, pool=None,
+                 draws=None) -> Tuple[TrainState, dict]:
+        metrics = self.run(state, self.kind(state.step), pool, draws)
+        state.step += 1
         return state, metrics
 
-    return train_step
+    def replay(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """One step from the CUDA graph of its kind; returns the graph's
+        metrics tensors (overwritten by its next replay). A kind's first
+        step here runs eagerly on the capture stream, the warm-up: Adam's
+        moments, the wrappers' cached tables and the libraries' workspaces
+        come to exist outside any graph's pool. Its second is captured,
+        then replayed; a capture that fails raises."""
+        kind = self.kind(state.step)
+        graph = self.graphs.get(kind)
+        if graph is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            if kind not in self._warm:
+                self._warm.add(kind)
+                current = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(current)
+                with torch.cuda.stream(self._stream):
+                    metrics = self.run(state, kind)
+                current.wait_stream(self._stream)
+                state.step += 1
+                return metrics
+            graph = self.graphs[kind] = StepGraph(self, state, kind,
+                                                  self._stream)
+        metrics = graph.replay()
+        state.step += 1
+        return metrics
+
+    def release(self) -> None:
+        """Free the graphs (and their pools, once nothing holds their
+        tensors)."""
+        self.graphs.clear()
+        self._warm.clear()
+
+
+def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, pool,
+                    scene) -> TrainStep:
+    """The train step of `cfg` (a TrainStep, called as step(state,
+    pool=None, draws=None) -> (state, metrics))."""
+    return TrainStep(model, cfg, optimizer, pool, scene)
+
+
+def make_train_chunk(train_step: TrainStep, n: int,
+                     graphs: Optional[bool] = None) -> Callable:
+    """chunk(state, pool=None, draws=None) -> (state, metrics): `n` steps
+    of train_step and the last step's metrics (the JAX chunk's x[-1]); the
+    port of fsnerf_tpu/train/step.py::make_train_chunk, whose lax.scan is
+    one dispatch for n updates.
+
+    graphs None: on the card each step replays the CUDA graph of its kind
+    (TrainStep.replay; the metrics are copied out of the graph), on the CPU
+    the steps run eagerly, as there are no graphs. graphs False runs the
+    eager steps on the card too, the loop the replays are bitwise equal to;
+    graphs True on the CPU raises. A graphed chunk draws from the state's
+    generator with the step's own pool: pool and draws are for eager
+    chunks."""
+    use_graphs = train_step.graphed if graphs is None else bool(graphs)
+    if use_graphs and not train_step.graphed:
+        raise ValueError("CUDA graphs need a CUDA training device, not "
+                         f"{train_step.device}")
+
+    def chunk(state: TrainState, pool=None, draws=None):
+        if not use_graphs:
+            for _ in range(n):
+                state, metrics = train_step(state, pool, draws)
+            return state, metrics
+        if pool is not None or draws is not None:
+            raise ValueError("a graphed chunk draws from the state's "
+                             "generator and reads the step's own pool")
+        for _ in range(n):
+            metrics = train_step.replay(state)
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+    return chunk
 
 
 def init_state(model, cfg, optimizer, aabb, device=None) -> TrainState:

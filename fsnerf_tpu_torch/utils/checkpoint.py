@@ -9,6 +9,11 @@ are not stored: `restore` rebuilds them from the EMA values with the plan
 of the template grid (og.create's, from resolve_query_plan), so a
 checkpoint cannot carry a stale or differently packed table.
 
+`restore` writes into the template's own tensors (the grid's, the device
+step counter, the card's lr) before any CUDA graph is captured around
+them; `save` reads the generator as it stands, which a graph's replays
+advance as far as the eager steps would.
+
 Files: <directory>/ckpt_<step>.pt, written whole and then renamed into
 place; the newest `max_to_keep` are kept.
 """
@@ -79,13 +84,20 @@ class Checkpointer:
         blob = torch.load(self.path(step), map_location="cpu",
                           weights_only=True)
         template.model.load_state_dict(blob["model"])
-        template.optimizer.load_state_dict(blob["optimizer"])
+        opt = template.optimizer
+        lrs = [g["lr"] for g in opt.param_groups]
+        opt.load_state_dict(blob["optimizer"])
+        for group, lr in zip(opt.param_groups, lrs):
+            if isinstance(lr, torch.Tensor):
+                # the card's capturable Adam keeps its own lr tensor
+                lr.copy_(group["lr"])
+                group["lr"] = lr
         dev = template.grid.occs.device
         saved = blob["grid"]
-        grid = og.with_occs(template.grid, saved["occs"].to(dev),
-                            saved["thre"].to(dev))
-        template.grid = grid.replace(binaries=saved["binaries"].to(dev))
+        og.set_occs_(template.grid, saved["occs"].to(dev),
+                     saved["thre"].to(dev))
+        template.grid.binaries.copy_(saved["binaries"])
         template.generator.set_state(blob["generator"])
-        template.step = int(blob["step"])
+        template.set_step(blob["step"])
         template.ladder = blob["ladder"]
         return template

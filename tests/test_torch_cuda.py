@@ -41,6 +41,15 @@ over the samples (torch_parity.composite_excess: the kernel adds them in
 another order, and raw sigmas let a depth cancel far below its terms); two
 runs bitwise equal.
 
+Graphed training (train/step.py::make_train_chunk): train() from CUDA-graph
+replays against the same run by eager steps, bitwise (weights, Adam's
+moments, every grid tensor, the generator, the logged metrics and the
+kernels' launch counts), for the NeRF occgrid path, SiNeRF, the
+hierarchical path, a width the kernels refuse, the few-shot recipe with
+its validations and a resume from a checkpoint, and train_scanned; a
+ladder change that captures a new rung's graphs, and a capture that fails
+raising.
+
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor fsnerf_tpu, so on the card's machine (which has no
 jax) it runs without the JAX conftest:
@@ -871,3 +880,228 @@ def test_volrend_wrapper_counts_launches_and_validates(cuda):
         kv.volume_render_fused(sig, rgb, tv, dl, mask.float())
     with pytest.raises(ValueError):
         kv.volume_render_fused(sig, rgb, tv.cpu(), dl, mask)
+
+
+# -- graphed training: CUDA-graph replays against the eager step loop ----
+
+def _graph_cfg(model="nerf", strategy="occgrid", width=64, samples=None,
+               **train):
+    """A small config that reaches every step kind within ~300 steps:
+    warmup (all-cell refreshes) to step 64, then the four parts every 8
+    steps, every 16 from step 192; the ladder under 64 samples (`samples`
+    changes SamplingConfig fields)."""
+    import dataclasses
+
+    from fsnerf_tpu_torch.config import (Config, DataConfig, EncoderConfig,
+                                         ModelConfig, SamplingConfig,
+                                         TrainConfig)
+
+    sampling = dict(n_samples=128, n_compact=64, grid_resolution=32,
+                    render_step_size=0.02, warmup_steps=64,
+                    update_interval=8, update_interval_late=16,
+                    update_interval_late_start=192)
+    if strategy == "hierarchical":
+        sampling = dict(strategy="hierarchical", n_samples=32, n_fine=64)
+    sampling.update(samples or {})
+    cfg = Config(encoder=EncoderConfig(n_freqs=6, n_freqs_views=3),
+                 model=ModelConfig(model=model, n_layers=4, d_filter=width,
+                                   skip=(2,)),
+                 data=DataConfig(dataset="sphere", n_imgs=4,
+                                 white_bkgd=True),
+                 sampling=SamplingConfig(**sampling),
+                 train=TrainConfig(n_iters=300, batch_size=256, lro=5e-3))
+    return cfg.replace(train=dataclasses.replace(cfg.train, **train))
+
+
+class _Records:
+    def __init__(self):
+        self.records = []
+
+    def log(self, k, metrics):
+        self.records.append({"step": k, **{
+            n: v for n, v in metrics.items() if n != "rays_per_sec"}})
+
+
+def _train_run(cfg, cuda, graphs, scene=None, state=None, model=None,
+               **kw):
+    """train() from seeded weights; (state, logged records, the launch
+    counts the run added)."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
+    from fsnerf_tpu_torch.train.loop import train
+
+    scene = scene or SphereScene(n_imgs=cfg.data.n_imgs, hw=48,
+                                 white_bkgd=True)
+    if model is None:
+        model = make_model(cfg, torch.bfloat16,
+                           torch.Generator().manual_seed(0), cuda)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=cuda)
+    log = _Records()
+    before = launch_counts()
+    state = train(model, cfg, pool, scene, state=state, logger=log,
+                  log_every=20, graphs=graphs, **kw)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return state, log.records, {k: after[k] - before[k] for k in after}
+
+
+def _assert_bitwise(a, b):
+    """Weights, Adam's moments and counts, every grid tensor, the
+    generator and both step counters equal."""
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(pa, pb)
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[k], sb[k]), k
+    for k in ("occs", "occ_q", "od_q", "binaries", "thre"):
+        assert torch.equal(getattr(a.grid, k), getattr(b.grid, k)), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert a.step == b.step == int(a.step_t) == int(b.step_t)
+
+
+def _graph_log(caplog):
+    """The rungs the loop logged as it released their graphs."""
+    return [r.graphs for r in caplog.records if hasattr(r, "graphs")]
+
+
+@pytest.mark.parametrize("case", ["occgrid", "sinerf", "hierarchical",
+                                  "width96"])
+def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
+    """300 steps of train() from CUDA-graph replays against the same run
+    by eager steps, bitwise: the NeRF occgrid path through the warmup's
+    all-cell refreshes and the four parts at both intervals, SiNeRF
+    (its refresh on the module), the hierarchical path (its sorts and
+    scatters), and a width the kernels refuse (the module route, cuBLAS
+    in the graphs). The logged metrics and the kernels' launch counts are
+    the eager run's too."""
+    import logging
+
+    cfg = {"occgrid": _graph_cfg(), "sinerf": _graph_cfg("sinerf"),
+           "hierarchical": _graph_cfg(strategy="hierarchical"),
+           "width96": _graph_cfg(width=96)}[case]
+    caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
+    g, g_logs, g_launches = _train_run(cfg, cuda, graphs=None)
+    rungs = _graph_log(caplog)
+    e, e_logs, e_launches = _train_run(cfg, cuda, graphs=False)
+    _assert_bitwise(g, e)
+    assert g_logs == e_logs
+    assert g_launches == e_launches
+    assert rungs and not _graph_log(caplog)[len(rungs):]
+    if case == "width96":
+        assert not any(g_launches[k] for k in (
+            "mlp_train_fwd", "nerf_density", "siren_mlp_fwd"))
+    elif case == "sinerf":
+        assert g_launches["siren_mlp_fwd"] == g_launches[
+            "siren_mlp_bwd"] == 300
+    else:
+        n = 600 if case == "hierarchical" else 300
+        assert g_launches["mlp_train_fwd"] == g_launches[
+            "mlp_train_bwd"] == n
+
+
+def test_graphed_ladder_change_recaptures(cuda, caplog):
+    """A K change of the compaction ladder retires the step function and
+    its graphs (logged) and captures the new rung's: more than one rung,
+    each with its own K, and the run bitwise the eager one."""
+    import logging
+
+    cfg = _graph_cfg(samples=dict(n_compact=128))
+    caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
+    g, g_logs, _ = _train_run(cfg, cuda, graphs=None)
+    rungs = _graph_log(caplog)
+    ks = [r["n_compact"] for r in rungs]
+    assert len(rungs) >= 2 and all(a != b for a, b in zip(ks, ks[1:])), ks
+    assert [r["n_compact"] for r in g_logs][-1] == ks[-1]
+    e, _, _ = _train_run(cfg, cuda, graphs=False)
+    _assert_bitwise(g, e)
+
+
+def test_graphed_fewshot_recipe_and_resume(cuda, tmp_path):
+    """The few-shot recipe graphed (FreeNeRF anneal with the culling hold,
+    the weight term's gate at step 150, the occlusion term, validation
+    every 100, a checkpoint every 150) against the eager run, bitwise,
+    validations included; then the run resumed from its step-150
+    checkpoint, graphed, lands bitwise on the unbroken run."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import LatticeScene
+    from fsnerf_tpu_torch.train.step import init_state, make_optimizer
+    from fsnerf_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = _graph_cfg(occ_a=0.003, occ_b=2.0, occ_func="exp", beta=1.0,
+                     ao=1e-6, Td=300, val=True, val_rate=100,
+                     ckpt_every=150)
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  freq_reg_end=100),
+                      data=dataclasses.replace(cfg.data, dataset="lattice",
+                                               n_imgs=3))
+    scene = LatticeScene(n_imgs=3, hw=48, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=1, seed=5))
+    runs = {}
+    for name, graphs in (("graphed", None), ("eager", False)):
+        model = make_model(cfg, torch.bfloat16,
+                           torch.Generator().manual_seed(0), cuda)
+        ckpt = Checkpointer(str(tmp_path / name))
+        runs[name] = _train_run(
+            cfg, cuda, graphs, scene=scene, model=model, checkpointer=ckpt,
+            val_fn=cli.make_val_fn(model, cfg, held, cuda)) + (ckpt,)
+    (g, g_logs, g_launches, ckpt), (e, e_logs, e_launches, _) = (
+        runs["graphed"], runs["eager"])
+    _assert_bitwise(g, e)
+    assert g_logs == e_logs and g_launches == e_launches
+    assert [r["step"] for r in g_logs if "val_psnr" in r] == [100, 200, 300]
+    assert ckpt.steps() == [150, 300]
+
+    import os
+    os.remove(ckpt.path(300))
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), cuda)
+    state = ckpt.restore(init_state(model, cfg, make_optimizer(cfg, model),
+                                    scene.aabb, cuda))
+    assert state.step == int(state.step_t) == 150
+    r, _, _ = _train_run(cfg, cuda, None, scene=scene, model=model,
+                         state=state, checkpointer=ckpt,
+                         val_fn=cli.make_val_fn(model, cfg, held, cuda))
+    _assert_bitwise(r, g)
+
+
+def test_graphed_train_scanned_is_the_eager_one(cuda):
+    """train_scanned: 5 chunks of 60 steps graphed against eager, bitwise,
+    its on_chunk metrics equal."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.train.loop import train_scanned
+
+    cfg = _graph_cfg()
+    scene = SphereScene(n_imgs=4, hw=48, white_bkgd=True)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=cuda)
+    out = {}
+    for graphs in (None, False):
+        model = make_model(cfg, torch.bfloat16,
+                           torch.Generator().manual_seed(0), cuda)
+        seen = []
+        state = train_scanned(model, cfg, pool, scene, chunk=60,
+                              graphs=graphs, on_chunk=lambda c, s, m:
+                              seen.append({k: float(v)
+                                           for k, v in m.items()}))
+        torch.cuda.synchronize()
+        out[graphs] = (state, seen)
+    _assert_bitwise(out[None][0], out[False][0])
+    assert out[None][1] == out[False][1] and len(out[None][1]) == 5
+
+
+def test_graphed_capture_failure_raises(cuda, monkeypatch):
+    """A step that waits on the host cannot be captured: train() raises
+    on the card instead of running the eager loop."""
+    from fsnerf_tpu_torch.ops import occgrid as og
+
+    real = og.occupancy_fraction
+    monkeypatch.setattr(og, "occupancy_fraction",
+                        lambda grid: real(grid) + 0.0 * real(grid).item())
+    with pytest.raises(RuntimeError):
+        _train_run(_graph_cfg(n_iters=40), cuda, graphs=None)
