@@ -26,8 +26,10 @@ before `warmup_steps`, one of `update_parts` parts after), the capture
 seconds of each graph and the peak device memory (allocated, and reserved,
 which counts the graphs' pools), then times one all-cell
 and one part refresh with CUDA events (none under hierarchical, which
-never refreshes the grid), and writes the last graphed run's Chrome trace
-to <out>/train_trace.json.gz.
+never refreshes the grid), lists the device records (kernels, copies,
+memsets, by name) whose count per step differs between the last graphed
+and the last eager run, and writes the last graphed run's Chrome trace to
+<out>/train_trace.json.gz.
 """
 
 from __future__ import annotations
@@ -84,6 +86,17 @@ class Snapshot:
                 live.copy_(saved)
         self.state.generator.set_state(self.generator)
         self.state.step = self.step
+
+
+def record_counts(trace: dict, n: int) -> dict:
+    """Device records per step by (category, name) in a Chrome trace of n
+    steps."""
+    out = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            key = (e["cat"], e["name"][:100])
+            out[key] = out.get(key, 0.0) + 1.0 / n
+    return out
 
 
 def trace_numbers(trace: dict, n: int) -> dict:
@@ -203,13 +216,12 @@ def main(argv=None):
 
     os.makedirs(args.out, exist_ok=True)
     order = ["eager", "graphed", "graphed", "eager"] * args.pairs
-    runs, losses, last_trace = [], set(), None
+    runs, losses, last_trace = [], set(), {}
     for i, mode in enumerate(order):
         wall, host, loss = timed(mode)
         prof_wall, trace = profiled(mode)
         nums = trace_numbers(trace, n)
-        if mode == "graphed":
-            last_trace = trace
+        last_trace[mode] = trace
         losses.add(loss)
         runs.append({"run": i, "mode": mode, "wall_ms_per_step": wall,
                      "host_ms_per_step": host,
@@ -221,7 +233,7 @@ def main(argv=None):
         print(json.dumps(runs[-1]))
     with gzip.open(os.path.join(args.out, "train_trace.json.gz"),
                    "wt") as fh:
-        json.dump(last_trace, fh)
+        json.dump(last_trace["graphed"], fh)
 
     s_cfg = cfg.sampling
 
@@ -264,7 +276,13 @@ def main(argv=None):
               + " / ".join(f"{r['device_idle_share']:.3f}" for r in rs)
               + ", host ms/step "
               + " / ".join(f"{r['host_ms_per_step']:.3f}" for r in rs))
-    nums = trace_numbers(last_trace, n)
+    counts = {mode: record_counts(t, n) for mode, t in last_trace.items()}
+    print("device records per step that differ, graphed - eager:")
+    for key in sorted(set(counts["eager"]) | set(counts["graphed"])):
+        d = counts["graphed"].get(key, 0.0) - counts["eager"].get(key, 0.0)
+        if abs(d) > 1e-9:
+            print(f"  {d:+8.4f}  {key[0]}  {key[1]}")
+    nums = trace_numbers(last_trace["graphed"], n)
     for k, v in sorted(nums["_ours"].items(), key=lambda kv: -kv[1]):
         print(f"  {v:8.4f} ms/step  {k[:110]}")
     print("  other device work, top 15:")
