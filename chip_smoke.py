@@ -132,7 +132,31 @@ Phases (any failure exits non-zero; nothing is caught):
      held-out PSNR rise at least 5 dB above the untrained weights'; then
      the run resumed from its step-1,000 checkpoint to 1,500 must land
      bitwise on the same weights and grid;
- 17. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+ 17. the Blender-format data slice: 40 lattice views (render_lattice_image)
+     on the upper hemisphere at radius 4.03, 800x800, camera_angle_x
+     0.6911112, written as transforms_train.json and RGBA PNGs (alpha
+     where a ray hits) by the port's PNG writer and decoded by its decoder
+     (timed); then the command line's flow (fsnerf_tpu_torch.cli.main,
+     --dataset synthetic --n_imgs 8 --white_bkgd, the default 8x256
+     config, 1,500 steps): the untrained weights' val PSNR (--render_only,
+     no checkpoint), the training run (splits 8 / 6 / 6, val PSNR at least
+     5 dB above the untrained, final_metrics.json with the val and test
+     metrics and lpips null, kernels 5 and 6 once per step, kernel 4 at
+     every refresh and kernel 1 launched, counts read around the run, the
+     orbit's frames on disk) and --render_only from its checkpoint, which
+     must write the same frames byte for byte; decode s, steps/s, eval s
+     per view and path frames/s printed. The orbit is cut from 90 frames
+     to 30 here only (short_paths), as tests/test_cli.py cuts it;
+ 18. the LLFF-format data slice: 20 forward-facing lattice views at
+     504x378 (fern's images_8 size) with a poses_bounds.npy, factor 8;
+     the same flow with --dataset llff (NDC rays, 4 grid levels: 32
+     density launches per all-cell refresh), the spiral cut from 120
+     frames to 40; then 200 steps graphed and eager from the same seeds,
+     bitwise equal (weights, Adam, all 4 levels of the grid, the
+     generator, the launches), and on the trained weights kernel 1 on a
+     val view's NDC samples and kernel 4 on each level's cell centres
+     against their plain versions (phase 3's and 14's tolerances);
+ 19. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
      larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
@@ -142,12 +166,14 @@ Phases (any failure exits non-zero; nothing is caught):
 Exits non-zero without printing a result when CUDA is unavailable.
 """
 
+import contextlib
 import json
 import logging
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -177,6 +203,17 @@ SIREN_STEPS = 1500
 # the few-shot slice: kernel 4 refreshes its grid, kernel 9 composites
 # its validation renders
 FEWSHOT_STEPS, FEWSHOT_ANNEAL, FEWSHOT_CKPT, FEWSHOT_VAL = 1500, 750, 1000, 500
+# the data slices: a Blender-format scene (800x800 RGBA, the published
+# camera_angle_x) and an LLFF-format one (fern's images_8 size), both
+# synthesized from the lattice, run through the command line
+BLENDER_HW, BLENDER_VIEWS, BLENDER_STEPS = 800, 40, 1500
+CAMERA_ANGLE_X = 0.6911112
+LLFF_W, LLFF_H, LLFF_FOCAL, LLFF_VIEWS = 504, 378, 407.0, 20
+LLFF_STEPS, LLFF_GRAPH_STEPS = 1500, 200
+# the camera paths cut to a third here only (the 90-frame orbit at 800²
+# took 42 s and the 120-frame spiral 15 s per render on the card, and each
+# slice renders its path twice)
+BLENDER_PATH_FRAMES, LLFF_PATH_FRAMES = 30, 40
 # the density kernel vs plain: the ceiling of tests/test_pallas.py::
 # test_fused_density_matches_model
 DENSITY_SIGMA_TOL = 2e-2    # of max |sigma|
@@ -244,10 +281,11 @@ def compare(name, march, reference, padded, params, bR, cs, eps):
 
 def march_inputs(cfg, grid, split, dev):
     """The ray march's padded inputs for the first view of `split`, as the
-    render path builds them: lattice, grid mask, compaction to the eval K,
-    depth-coherence sort. Returns (padded, block rows, chunk, eval K)."""
+    render path builds them: its rays (NDC for an NDC split), lattice, grid
+    mask, compaction to the eval K, depth-coherence sort. Returns (padded,
+    block rows, chunk, eval K)."""
     from fsnerf_tpu_torch import cli
-    from fsnerf_tpu_torch.data.rays import get_rays
+    from fsnerf_tpu_torch.data.rays import get_rays, to_ndc
     from fsnerf_tpu_torch.ops import occgrid as og
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.sampling import (compact_samples_uniform,
@@ -259,6 +297,8 @@ def march_inputs(cfg, grid, split, dev):
     q_stride = og.grid_query_stride(s, split.aabb, grid)
     pose = torch.as_tensor(split.poses[0], dtype=torch.float32, device=dev)
     ro, rd = (a.reshape(-1, 3) for a in get_rays(pose, split.hwf))
+    if split.ndc:
+        ro, rd = to_ndc(ro, rd, split.hwf, 1.0)
     with torch.no_grad():
         t_mid, deltas, mask, n_valid = _masked_lattice(
             ro, rd, grid, s.n_samples, None, s.render_step_size,
@@ -725,6 +765,25 @@ def train_slice(cfg, dev, card):
     return launches, (state, trained, state.step / train_s)
 
 
+def state_diffs(a, b) -> list:
+    """The names of what differs between two TrainStates, bitwise: each
+    weight and its Adam moments and count, every grid tensor (all
+    levels), the generator's state."""
+    diffs = {}
+    for (name, pa), pb in zip(a.model.named_parameters(),
+                              b.model.parameters()):
+        diffs[name] = not torch.equal(pa, pb)
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            diffs[f"{name}.{k}"] = not torch.equal(sa[k], sb[k])
+    for k in ("occs", "binaries", "thre", "occ_q", "od_q"):
+        diffs[f"grid.{k}"] = not torch.equal(getattr(a.grid, k),
+                                             getattr(b.grid, k))
+    diffs["generator"] = not torch.equal(a.generator.get_state(),
+                                         b.generator.get_state())
+    return [k for k, v in diffs.items() if v]
+
+
 def graphed_vs_eager(cfg, dev, card, graphed):
     """Phase 6b: the occgrid slice of phase 6 again from the same seeds,
     trained by eager steps; the graphed run's weights, Adam moments, grid
@@ -733,20 +792,9 @@ def graphed_vs_eager(cfg, dev, card, graphed):
     g_state, g_launches, g_rate = graphed
     _, e_state, _, e_launches, e_s, _, e_peak = run_train_slice(
         train_slice_config(cfg), dev, graphs=False)
-    diffs = {}
-    for (name, a), b in zip(g_state.model.named_parameters(),
-                            e_state.model.parameters()):
-        diffs[name] = not torch.equal(a, b)
-        sa, sb = g_state.optimizer.state[a], e_state.optimizer.state[b]
-        for k in ("exp_avg", "exp_avg_sq", "step"):
-            diffs[f"{name}.{k}"] = not torch.equal(sa[k], sb[k])
-    for k in ("occs", "binaries", "thre", "occ_q", "od_q"):
-        diffs[f"grid.{k}"] = not torch.equal(getattr(g_state.grid, k),
-                                             getattr(e_state.grid, k))
-    diffs["generator"] = not torch.equal(g_state.generator.get_state(),
-                                         e_state.generator.get_state())
-    diffs["launches"] = g_launches != e_launches
-    differ = [k for k, v in diffs.items() if v]
+    differ = state_diffs(g_state, e_state)
+    if g_launches != e_launches:
+        differ.append("launches")
     print(f"graphed vs eager on {card}: {e_state.step} steps, graphed "
           f"{g_rate:.2f} steps/s, eager {e_state.step / e_s:.2f} steps/s "
           f"(peak device memory eager {e_peak[0]:.2f} GB allocated, "
@@ -1760,6 +1808,344 @@ def fewshot_slice(cfg, dev, card):
     return launches
 
 
+def run_cli(argv):
+    """fsnerf_tpu_torch.cli.main(argv), the command line's own entry
+    point; its JSON line, which is echoed."""
+    import io
+
+    from fsnerf_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"cli.main({argv}) returned {rc}")
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"  cli: {line}")
+    return json.loads(line)
+
+
+def lattice_views(poses, hwf):
+    """The lattice's rgb [N, H, W, 3] on black and hit mask [N, H, W] seen
+    from `poses` (render_lattice_image, the port's numpy ray tracer, one
+    view per thread)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fsnerf_tpu_torch.data.synthetic import (make_lattice_boxes,
+                                                 render_lattice_image)
+
+    boxes = make_lattice_boxes(7)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        out = list(ex.map(lambda pose: render_lattice_image(
+            pose, hwf, boxes, white_bkgd=False), poses))
+    return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]))
+
+
+def write_blender_scene(root: str) -> str:
+    """BLENDER_VIEWS lattice views on the upper hemisphere at radius
+    4.0311289 as a Blender scene (transforms_train.json, RGBA PNGs written
+    by the port's writer, alpha where a ray hits); returns its name."""
+    import os
+
+    from fsnerf_tpu_torch.data.poses import pose_from_spherical
+    from fsnerf_tpu_torch.native import write_png
+    from fsnerf_tpu_torch.render.renderer import to8b
+
+    scene_dir = os.path.join(root, "synthetic", "lattice")
+    os.makedirs(os.path.join(scene_dir, "train"))
+    rng = np.random.default_rng(0)
+    n = BLENDER_VIEWS
+    thetas = rng.uniform(20.0, 80.0, n)
+    phis = np.linspace(0.0, 360.0, n, endpoint=False) + rng.uniform(
+        0.0, 360.0 / n, n)
+    poses = [pose_from_spherical(4.0311289, t, p)
+             for t, p in zip(thetas, phis)]
+    hw = BLENDER_HW
+    focal = 0.5 * hw / np.tan(0.5 * CAMERA_ANGLE_X)
+    rgb, depth = lattice_views(poses, (hw, hw, focal))
+    frames = []
+    for i, pose in enumerate(poses):
+        alpha = np.where(depth[i] > 0, 255, 0).astype(np.uint8)
+        write_png(os.path.join(scene_dir, "train", f"r_{i}.png"),
+                  np.concatenate([to8b(rgb[i]), alpha[..., None]], -1))
+        frames.append({"file_path": f"train/r_{i}",
+                       "transform_matrix": pose.tolist()})
+    with open(os.path.join(scene_dir, "transforms_train.json"), "w") as fh:
+        json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, fh)
+    return "lattice"
+
+
+def write_llff_scene(root: str) -> str:
+    """LLFF_VIEWS forward-facing lattice views (cameras on a plane 4.5
+    above it, looking down, tilted up to ~3 degrees) as an LLFF scene:
+    poses_bounds.npy in the LLFF column order with each view's hit-depth
+    bounds and the full-size hwf column, images_8/ PNGs; returns its
+    name."""
+    import os
+
+    from fsnerf_tpu_torch.native import write_png
+    from fsnerf_tpu_torch.render.renderer import to8b
+
+    scene_dir = os.path.join(root, "llff", "lattice")
+    os.makedirs(os.path.join(scene_dir, "images_8"))
+    rng = np.random.default_rng(1)
+    poses = []
+    for _ in range(LLFF_VIEWS):
+        w = 0.05 * rng.normal(size=3)
+        th = np.linalg.norm(w)
+        k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]],
+                      [-w[1], w[0], 0]]) / th
+        rot = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot
+        pose[:3, 3] = [*rng.uniform(-0.4, 0.4, 2), 4.5]
+        poses.append(pose)
+    hwf = (LLFF_H, LLFF_W, LLFF_FOCAL)
+    rgb, depth = lattice_views(poses, hwf)
+    rows = []
+    for i, pose in enumerate(poses):
+        write_png(os.path.join(scene_dir, "images_8", f"im_{i:03d}.png"),
+                  to8b(rgb[i]))
+        c2w = np.zeros((3, 5), np.float32)
+        # LLFF [down, right, back] columns of the NeRF [right, up, back]
+        c2w[:, 0], c2w[:, 1] = -pose[:3, 1], pose[:3, 0]
+        c2w[:, 2], c2w[:, 3] = pose[:3, 2], pose[:3, 3]
+        c2w[:, 4] = [LLFF_H * 8, LLFF_W * 8, LLFF_FOCAL * 8]
+        hit = depth[i][depth[i] > 0]
+        rows.append(np.concatenate([c2w.ravel(), [hit.min(), hit.max()]]))
+    np.save(os.path.join(scene_dir, "poses_bounds.npy"), np.stack(rows))
+    return "lattice"
+
+
+@contextlib.contextmanager
+def short_paths():
+    """The loaders' camera paths cut to BLENDER_PATH_FRAMES and
+    LLFF_PATH_FRAMES frames while the data slices run."""
+    from fsnerf_tpu_torch.data import blender, llff
+
+    orbit, spiral = blender.spherical_path, llff.spiral_path
+    blender.spherical_path = lambda radius, theta, frames: orbit(
+        radius, theta, BLENDER_PATH_FRAMES)
+    llff.spiral_path = lambda poses, bounds, **kw: spiral(
+        poses, bounds, n_views=LLFF_PATH_FRAMES, **kw)
+    try:
+        yield
+    finally:
+        blender.spherical_path, llff.spiral_path = orbit, spiral
+
+
+def frames_of(video_dir: str) -> dict:
+    import os
+
+    return {n: open(os.path.join(video_dir, n), "rb").read()
+            for n in sorted(os.listdir(video_dir))}
+
+
+def data_slice(name, flags, out_dir, want_views, want_frames, card):
+    """The command line's whole flow on a synthesized scene: the untrained
+    weights' val PSNR (render only, no output directory), then training,
+    val and test evaluation, final_metrics.json, the checkpoint and the
+    camera path's frames, the launch counts of kernels 5, 6, 4 and 1 read
+    around that run, and --render_only from the checkpoint, which must
+    write the same frames. Returns (the training run's JSON line, its
+    launch counts, the untrained val PSNR)."""
+    import os
+
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    base = run_cli(flags + ["--render_only"])
+    kr.ray_march.launches = km.nerf_density.launches = 0
+    mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+    got = run_cli(flags + ["--out_dir", out_dir])
+    torch.cuda.synchronize()
+    launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
+                "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                "nerf_density": km.nerf_density.launches,
+                "ray_march": kr.ray_march.launches}
+    with open(os.path.join(out_dir, "final_metrics.json")) as fh:
+        final = json.load(fh)
+    frames = frames_of(os.path.join(out_dir, "video"))
+    again = run_cli(flags + ["--out_dir", out_dir, "--render_only"])
+    same = frames_of(os.path.join(out_dir, "video")) == frames
+    steps = got["steps"]
+    print(f"{name} slice on {card}: views {got['views']}; data (decode, "
+          f"split, pool) {got['data_seconds']:.3f} s; {steps} steps in "
+          f"{got['train_seconds']:.3f} s, "
+          f"{steps / got['train_seconds']:.2f} steps/s; val PSNR "
+          f"{got['psnr']:.3f} SSIM {got['ssim']:.4f} (untrained "
+          f"{base['psnr']:.3f}), test PSNR {got['test_psnr']:.3f} SSIM "
+          f"{got['test_ssim']:.4f}; eval {got['eval_seconds_per_view']:.3f} "
+          f"s per view; path {got['path_frames']} frames at "
+          f"{got['path_frames_per_sec']:.3f} frames/s; launches {launches}; "
+          f"render-only from step {again['restored_step']}: frames "
+          + ("byte-equal" if same else "DIFFER"))
+    if got["views"] != want_views:
+        fail(f"{name}: splits {got['views']}, not {want_views}")
+    if not all(k in final for k in ("psnr", "ssim", "test_psnr",
+                                    "test_ssim")) or \
+            final["lpips"] is not None:
+        fail(f"{name}: final_metrics.json holds {final}")
+    if min(launches.values()) == 0 or launches["mlp_train_fwd"] != steps \
+            or launches["mlp_train_bwd"] != steps:
+        fail(f"{name}: the run launched {launches} in {steps} steps")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"{name}: val PSNR {got['psnr']:.3f} is not {MIN_PSNR_GAIN_DB} "
+             f"dB above the untrained {base['psnr']:.3f}")
+    n = want_frames
+    if got["path_frames"] != n or sorted(frames) != sorted(
+            [f"rgb_{i:04d}.png" for i in range(n)]
+            + [f"depth_{i:04d}.png" for i in range(n)]):
+        fail(f"{name}: the path's frames on disk are {sorted(frames)[:4]}..."
+             f" ({len(frames)} files), not {n} rgb and depth frames")
+    if not same or again["restored_step"] != steps or \
+            again["psnr"] != got["psnr"]:
+        fail(f"{name}: --render_only from the checkpoint did not reproduce "
+             f"the run's metrics and frames")
+    return got, launches, base["psnr"]
+
+
+def blender_slice(card, root):
+    """Phase 17: the Blender-format slice through the command line."""
+    import os
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.native import decode_images
+
+    t0 = time.perf_counter()
+    scene = write_blender_scene(root)
+    synth_s = time.perf_counter() - t0
+    files = [os.path.join(root, "synthetic", scene, "train", f"r_{i}.png")
+             for i in range(BLENDER_VIEWS)]
+    t0 = time.perf_counter()
+    imgs = decode_images(files)
+    decode_s = time.perf_counter() - t0
+    print(f"blender scene: {BLENDER_VIEWS} views {BLENDER_HW}x{BLENDER_HW} "
+          f"RGBA synthesized and written in {synth_s:.3f} s; decoded to "
+          f"{list(imgs.shape)} float32 in {decode_s:.3f} s "
+          f"({BLENDER_VIEWS / decode_s:.2f} images/s)")
+    del imgs
+    flags = ["--dataset", "synthetic", "--scene", scene, "--data_root", root,
+             "--n_imgs", "8", "--white_bkgd", "--n_iters",
+             str(BLENDER_STEPS)]
+    n_held = int(0.15 * BLENDER_VIEWS)
+    got, launches, _ = data_slice(
+        "blender", flags, os.path.join(root, "out_blender"),
+        {"train": 8, "val": n_held, "test": n_held}, BLENDER_PATH_FRAMES,
+        card)
+    bcfg = cli.config_from_args(cli.parse_args(flags))
+    want = refresh_launches(bcfg, bcfg.sampling.grid_resolution ** 3,
+                            got["steps"])
+    if launches["nerf_density"] != want:
+        fail(f"blender: the density kernel launched "
+             f"{launches['nerf_density']} times, not {want}")
+    return launches, decode_s
+
+
+def llff_slice(dev, card, root):
+    """Phase 18: the LLFF-format slice through the command line (NDC rays,
+    4 grid levels), then LLFF_GRAPH_STEPS steps graphed and eager from the
+    same seeds, and kernels 1 and 4 against their plain versions on NDC
+    samples of the 4-level grid."""
+    import dataclasses
+    import os
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.encoding import positional_encoding
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    scene = write_llff_scene(root)
+    print(f"llff scene: {LLFF_VIEWS} views {LLFF_W}x{LLFF_H} synthesized "
+          f"and written in {time.perf_counter() - t0:.3f} s")
+    flags = ["--dataset", "llff", "--scene", scene, "--data_root", root,
+             "--n_imgs", "8", "--n_iters", str(LLFF_STEPS)]
+    n_held = int(0.15 * LLFF_VIEWS)
+    got, launches, _ = data_slice(
+        "llff", flags, os.path.join(root, "out_llff"),
+        {"train": 8, "val": n_held, "test": n_held}, LLFF_PATH_FRAMES, card)
+    lcfg = cli.config_from_args(cli.parse_args(flags))
+    s = lcfg.sampling
+    per_refresh = -(-s.grid_resolution ** 3 // og._EVAL_CHUNK) * \
+        s.grid_levels
+    want = refresh_launches(lcfg, s.grid_resolution ** 3, got["steps"])
+    if s.grid_levels != 4 or per_refresh != 32 or \
+            launches["nerf_density"] != want:
+        fail(f"llff: {s.grid_levels} levels, {per_refresh} density "
+             f"launches per all-cell refresh, {launches['nerf_density']} "
+             f"in all, not {want}")
+
+    # graphed and eager from the same seeds, bitwise
+    gcfg = lcfg.replace(train=dataclasses.replace(
+        lcfg.train, n_iters=LLFF_GRAPH_STEPS))
+    runs = {}
+    for graphs in (None, False):
+        _, (train_split, val_split, _), model, pool = cli.build_everything(
+            gcfg, device=dev)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train(model, gcfg, pool, train_split, graphs=graphs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+        runs[graphs] = (state, {k: after[k] - before[k] for k in after},
+                        seconds)
+    (g_state, g_launches, g_s), (e_state, e_launches, e_s) = \
+        runs[None], runs[False]
+    differ = state_diffs(g_state, e_state)
+    if g_launches != e_launches:
+        differ.append("launches")
+    print(f"llff graphed vs eager on {card}: {LLFF_GRAPH_STEPS} steps, "
+          f"graphed {LLFF_GRAPH_STEPS / g_s:.2f} steps/s, eager "
+          f"{LLFF_GRAPH_STEPS / e_s:.2f} steps/s (first calls included); "
+          f"density launches {g_launches['nerf_density']} "
+          f"({per_refresh} per all-cell refresh of the "
+          f"{s.grid_levels} levels); weights, Adam moments, grid, "
+          f"generator and launches "
+          + ("bitwise equal" if not differ else f"differ: {differ}"))
+    if differ or g_launches["nerf_density"] != refresh_launches(
+            gcfg, s.grid_resolution ** 3, LLFF_GRAPH_STEPS):
+        fail(f"llff: the graphed training differs from the eager loop: "
+             f"{differ}, launches {g_launches} / {e_launches}")
+
+    # kernels 1 and 4 on NDC inputs of the 4-level grid, trained weights
+    model, grid = g_state.model, g_state.grid
+    padded, bR, cs, _ = march_inputs(gcfg, grid, val_split, dev)
+    m, e = gcfg.model, gcfg.encoder
+    params = kr.prep_params(
+        model.state_dict(), n_layers=m.n_layers, skip=m.skip,
+        n_freqs=e.n_freqs, n_freqs_views=e.n_freqs_views, device=dev)
+    compare("llff ndc", kr.ray_march, kr.ray_march_reference, padded,
+            params, bR, cs, s.early_stop_eps)
+    dparams = km.prep_params(model.state_dict(), m.n_layers, m.skip)
+    idx = torch.arange(grid.n_cells, device=dev)
+    errs = []
+    for lv in range(grid.levels):
+        x = og._cell_positions(idx, og.level_aabb(grid.base_aabb, lv),
+                               grid.resolution)[::7]
+        encx = km.pad_features(positional_encoding(
+            x, e.n_freqs, e.log_space), dparams.d_enc_pad)
+        got_s = km.nerf_density(encx, dparams)
+        ref_s = km.nerf_density_reference(encx, dparams)
+        torch.cuda.synchronize()
+        errs.append(float((got_s - ref_s).abs().max()
+                          / (ref_s.abs().max() + 1e-9)))
+    print(f"llff density kernel vs plain on each level's cell centres "
+          f"(every 7th): sigma err "
+          + ", ".join(f"{e:.3e}" for e in errs) + " of max |sigma|; aabb "
+          f"{[round(float(v), 4) for v in grid.base_aabb]}")
+    if max(errs) > DENSITY_SIGMA_TOL:
+        fail(f"llff: density kernel vs plain {errs}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -1898,7 +2284,12 @@ def main():
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
-    # -- 17. report ---------------------------------------------------------
+    # -- 17.-18. the data slices: Blender and LLFF through the CLI ----------
+    with tempfile.TemporaryDirectory() as root, short_paths():
+        blender_slice(card, root)
+        llff_slice(dev, card, root)
+
+    # -- 19. report ---------------------------------------------------------
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
                      **siren_module_ms, nerf_density=density_module_ms)

@@ -1,20 +1,29 @@
-"""Command line of the port (the train and eval paths of
-fsnerf_tpu/cli.py, both sampling strategies).
+"""Command line of the port (the flow of fsnerf_tpu/cli.py, both sampling
+strategies).
 
-Train (the default): builds `--n_imgs` views of a procedural scene, a
-device-resident ray pool and a seeded NeRF (or SiNeRF), trains it for
+Train (the default): builds the scene's train/val/test splits by seeded
+K-means over camera positions (data/splitter.py: test 15%, then val 15%,
+then `--n_imgs` training views) for `--dataset synthetic` (a Blender scene
+under `--data_root`/synthetic/`--scene`), `llff` (`--data_root`/llff/
+`--scene`, NDC rays and a 4-level occupancy grid) or the procedural
+`sphere` and `lattice` scenes (`--hw` square views), a device-resident ray
+pool of the training views and a seeded NeRF (or SiNeRF); trains it for
 `--n_iters` steps (train/loop.py; the MLP through the fused train kernels
-on a CUDA device), then renders held-out views of the scene and prints
-PSNR/SSIM and the training rates as one JSON line. occgrid renders them
-through the fused ray-march kernel on the trained grid, as the reference
-does, at the query stride that grid admits; hierarchical runs the coarse pass through the fused forward MLP
+on a CUDA device); renders the val and test views and prints PSNR/SSIM, the
+test split's as test_psnr/test_ssim, and the run's rates as one JSON line.
+occgrid renders them through the fused ray-march kernel on the trained
+grid, as the reference does, at the query stride that grid admits;
+hierarchical runs the coarse pass through the fused forward MLP
 (ops/kernels/mlp.py) and the fine pass through the ray march over the
 sorted coarse-and-fine union (`--no_fused_render`: through the forward MLP
-too).
+too). With `--out_dir`, the run then writes final_metrics.json, its
+checkpoint, and renders the scene's camera path (the Blender orbit, the
+LLFF spiral) to video/rgb_*.png and video/depth_*.png (depth through
+`plasma`).
 
 `--model sinerf` trains and renders SiNeRF the same ways: the MLP through
-the SIREN train kernels, occgrid held-out views through the SIREN ray
-march, the hierarchical coarse pass through the SIREN forward kernel.
+the SIREN train kernels, occgrid views through the SIREN ray march, the
+hierarchical coarse pass through the SIREN forward kernel.
 
 Few-shot training: `--freq_reg_end T` anneals the FreeNeRF frequency
 masks over T steps, with the occupancy grid's culling hold through the
@@ -22,33 +31,35 @@ anneal (`--grid_hold_steps`, -1 = auto); `--beta` turns on the occlusion
 regularizer (`--a`, `--b`, `--func`) and `--ao` the weight regularizer
 (`--reg`, `--reg_ratio`, `--Td`). The grid refresh of a NeRF runs the
 density kernel (ops/kernels/mlp.py::nerf_density) at the step's masks.
-`--val` renders the first held-out view every `--val_rate` steps at the
-live masks (the fused forward MLP, then the compositing kernel
+`--val` renders the first val view every `--val_rate` steps at the live
+masks (the fused forward MLP, then the compositing kernel
 ops/kernels/volrend.py) and logs its PSNR/SSIM. With `--out_dir`, the run
 writes metrics.jsonl and full-state checkpoints under <out_dir>/ckpt
 (every `--ckpt_every` steps and at the end; `--resume` continues from the
 latest).
 
-Render only (`--render_only`): loads reference-keyed weights
-(`--import_torch_ckpt nn.pt`, or a seeded init when none are given),
-rebuilds the occupancy grid (occgrid) with one full refresh from the
-model's densities and renders held-out views the same way.
+Render only (`--render_only`): restores the latest checkpoint under
+`--out_dir`, or else loads reference-keyed weights (`--import_torch_ckpt
+nn.pt`, or a seeded init when none are given) and rebuilds the occupancy
+grid (occgrid) with one full refresh from the model's densities; then
+renders the val and test views and, with `--out_dir`, the camera path the
+same way.
 
 The kernels run on the card: the device is `cuda` unless `--device cpu`
 asks for the CPU, where the kernels' plain versions run.
 
-Run:  python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
-          --white_bkgd [--n_iters 8000] [--hw 800]
+Run:  python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
+          --data_root ../datasets --n_imgs 8 --white_bkgd --out_dir out/lego
+      python -m fsnerf_tpu_torch.cli --dataset llff --scene fern \
+          --data_root ../datasets --out_dir out/fern
       python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
           --white_bkgd --strategy hierarchical --n_samples 64 --n_fine 128
       python -m fsnerf_tpu_torch.cli --dataset sphere --model sinerf \
           --white_bkgd --hw 800 --n_iters 8000
       python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 3 \
           --white_bkgd --freq_reg_end 7200 --val --out_dir out/fewshot
-      python -m fsnerf_tpu_torch.cli --dataset sphere --render_only \
-          [--import_torch_ckpt nn.pt]
-
-LLFF, video and rendering from a saved checkpoint are not ported yet.
+      python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
+          --data_root ../datasets --out_dir out/lego --render_only
 """
 
 from __future__ import annotations
@@ -59,31 +70,19 @@ import json
 import os
 import sys
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .config import (Config, DataConfig, EncoderConfig, ModelConfig,
                      SamplingConfig, TrainConfig)
+from .data.splitter import Split
 from .ops import occgrid as og
 from .train.loop import COMPACT_STEP, compaction_target
 
-HELD_OUT_VIEWS = 2
-
-
-@dataclass
-class Split:
-    """One split's images and metadata (fsnerf_tpu/data/splitter.py)."""
-
-    imgs: np.ndarray          # [N, H, W, 3]
-    poses: np.ndarray         # [N, 4, 4]
-    hwf: tuple
-    near: float
-    far: float
-    ndc: bool
-    aabb: np.ndarray
-    white_bkgd: bool
+# rays per render chunk of the val/test and path renders (the occgrid
+# renderer's ceiling)
+EVAL_CHUNK = 16384
 
 
 def make_render_model_fn(model, cfg, step=None, device=None):
@@ -263,8 +262,8 @@ def make_val_fn(model, cfg, split: Split, device=None):
     return val_fn
 
 
-def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
-                   device=None):
+def evaluate_split(model, grid, split: Split, cfg,
+                   chunksize: int = EVAL_CHUNK, device=None):
     """Metrics over a split (fsnerf_tpu/cli.py::evaluate_split).
 
     Returns (metrics dict with the eval K, uint8 [N, H, W, 3] frames)."""
@@ -304,8 +303,8 @@ def evaluate_split(model, grid, split: Split, cfg, chunksize: int = 16384,
 
 def build_split(dataset: str, n_views: int, hw: int, white_bkgd: bool,
                 seed: int) -> Split:
-    """Views of a procedural scene (the K-means splitter of the JAX package
-    is not ported; these views come from their own seed)."""
+    """`n_views` views of a procedural scene drawn from their own seed (no
+    K-means split): held-out views for the kernels' checks."""
     return split_of(scene_class(dataset)(n_imgs=n_views, hw=hw,
                                          white_bkgd=white_bkgd, seed=seed))
 
@@ -321,17 +320,116 @@ def split_of(scene) -> Split:
                  False, np.asarray(scene.aabb), scene.white_bkgd)
 
 
+def make_splitter(cfg, hw: int = 64):
+    """The scene's Splitter, split (fsnerf_tpu/cli.py::build_everything);
+    `hw` sizes the procedural scenes."""
+    from .data.splitter import Splitter
+
+    d = cfg.data
+    splitter = Splitter(
+        d.dataset, d.scene, n_training_views=d.n_imgs,
+        val_ratio=d.val_ratio, test_ratio=d.test_ratio,
+        data_root=d.data_root, white_bkgd=d.white_bkgd, factor=d.factor,
+        bd_factor=d.bd_factor, recenter=not d.no_recenter,
+        seed=cfg.train.seed, downsample=d.downsample, hw=hw)
+    splitter.split()
+    return splitter
+
+
+def build_everything(cfg, hw: int = 64, device=None):
+    """(splitter, (train, val, test) Splits, seeded model, ray pool of the
+    train split: NDC rays for LLFF), as fsnerf_tpu/cli.py::build_everything
+    builds them."""
+    from .core.models import make_model
+    from .data.pool import pool_from_images
+
+    splitter = make_splitter(cfg, hw)
+    splits = splitter.get_splits()
+    train_split = splits[0]
+    dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
+    model = make_model(cfg, dtype,
+                       torch.Generator().manual_seed(cfg.train.seed), device)
+    pool = pool_from_images(train_split.imgs, train_split.poses,
+                            train_split.hwf, ndc=train_split.ndc,
+                            device=device)
+    return splitter, splits, model, pool
+
+
+def save_video(rgb8: np.ndarray, dep8: np.ndarray, out_dir: str):
+    """Write the uint8 [T, C, H, W] rgb and depth streams as
+    rgb_{i:04d}.png and depth_{i:04d}.png frames (the JAX package's
+    fallback without an mp4 writer); returns the names written."""
+    from .native import write_png
+
+    os.makedirs(out_dir, exist_ok=True)
+    names = []
+    for i in range(rgb8.shape[0]):
+        for kind, stream in (("rgb", rgb8), ("depth", dep8)):
+            name = f"{kind}_{i:04d}.png"
+            write_png(os.path.join(out_dir, name),
+                      np.transpose(stream[i], (1, 2, 0)))
+            names.append(name)
+    return names
+
+
+def render_camera_path(model, cfg, grid, splitter, train_split: Split,
+                       device=None):
+    """The scene's camera path (splitter.path_poses) rendered as the JAX
+    CLI renders it: the train split's camera and bounds, the eval K from
+    derive_eval_n_compact on the train split, the fused ray march
+    (make_fused_render_fn) where it applies, frames quantized on the
+    device. Returns the uint8 [T, C, H, W] rgb and depth streams of
+    render/renderer.py::render_video."""
+    from .render.renderer import render_path, render_video
+
+    s = cfg.sampling
+    frames, d_frames = render_path(
+        make_render_model_fn(model, cfg, device=device), splitter.path_poses,
+        train_split.hwf, train_split.near, train_split.far, device=device,
+        compact_transfer=True, strategy=s.strategy, grid=grid,
+        n_samples=s.n_samples, n_fine=s.n_fine,
+        render_step_size=s.render_step_size, ndc=train_split.ndc,
+        white_bkgd=train_split.white_bkgd, chunksize=EVAL_CHUNK,
+        n_compact=derive_eval_n_compact(grid, train_split, cfg, device),
+        early_stop_eps=s.early_stop_eps,
+        query_stride=og.grid_query_stride(s, train_split.aabb, grid),
+        fused_render_fn=make_fused_render_fn(model.state_dict(), cfg,
+                                             device=device),
+        composite_fn=make_composite_fn(cfg, device))
+    return render_video(frames, d_frames)
+
+
 def parse_args(argv=None):
     d_enc, d_mod, d_smp = EncoderConfig(), ModelConfig(), SamplingConfig()
     d_trn, d_dat = TrainConfig(), DataConfig()
     p = argparse.ArgumentParser(
-        description="Train a NeRF or SiNeRF on a procedural scene and "
-                    "render its held-out views, or render them from given "
+        description="Train a NeRF or SiNeRF on a scene's K-means training "
+                    "views and render its val and test views and camera "
+                    "path, or render them from a checkpoint or given "
                     "weights (PyTorch + CUDA port).", allow_abbrev=False)
-    p.add_argument("--dataset", choices=["sphere", "lattice"],
-                   default="sphere")
+    p.add_argument("--dataset",
+                   choices=["synthetic", "llff", "sphere", "lattice"],
+                   default=d_dat.dataset,
+                   help="a Blender scene, an LLFF scene (NDC rays, 4 grid "
+                        "levels) or a procedural scene")
+    p.add_argument("--scene", default=d_dat.scene,
+                   help="scene directory under <data_root>/synthetic or "
+                        "<data_root>/llff")
+    p.add_argument("--data_root", default=d_dat.data_root)
+    p.add_argument("--factor", type=int, default=d_dat.factor,
+                   help="LLFF: read images_<factor>/, focal / factor")
+    p.add_argument("--bd_factor", type=float, default=d_dat.bd_factor,
+                   help="LLFF: scale the scene so the nearest bound sits at "
+                        "1 / bd_factor")
+    p.add_argument("--no_recenter", action="store_true",
+                   help="LLFF: keep the poses' own frame")
+    p.add_argument("--downsample", type=int, default=d_dat.downsample,
+                   help="Blender: box-filter the images by this factor")
+    p.add_argument("--val_ratio", type=float, default=d_dat.val_ratio)
+    p.add_argument("--test_ratio", type=float, default=d_dat.test_ratio)
     p.add_argument("--render_only", action="store_true",
-                   help="skip training: render from --import_torch_ckpt "
+                   help="skip training: render from the latest checkpoint "
+                        "under --out_dir, else from --import_torch_ckpt "
                         "weights (or the seeded init)")
     p.add_argument("--import_torch_ckpt", default=None,
                    help="reference nn.pt state dict (default: seeded init)")
@@ -339,13 +437,15 @@ def parse_args(argv=None):
                    help="cuda (the default) or cpu, where the kernels' "
                         "plain versions run")
     p.add_argument("--seed", type=int, default=d_trn.seed)
-    p.add_argument("--hw", type=int, default=64, help="image side")
+    p.add_argument("--hw", type=int, default=64,
+                   help="image side of the procedural scenes")
     p.add_argument("--n_imgs", type=int, default=d_dat.n_imgs,
                    help="training views")
     p.add_argument("--white_bkgd", action="store_true")
     p.add_argument("--out_dir", default="",
-                   help="write metrics.jsonl and the checkpoints (ckpt/) "
-                        "of the training run here")
+                   help="write metrics.jsonl, the checkpoints (ckpt/), "
+                        "final_metrics.json and the camera path's frames "
+                        "(video/) here")
     p.add_argument("--model", choices=["nerf", "sinerf"],
                    default=d_mod.model)
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
@@ -419,6 +519,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def grid_levels(dataset: str) -> int:
+    """The occupancy grid's levels for a dataset: 4 for LLFF (its NDC scene
+    reaches far past the base AABB), else 1 (fsnerf_tpu/config.py)."""
+    return 4 if dataset == "llff" else 1
+
+
 def config_from_args(args) -> Config:
     cfg = Config()
     skip = tuple(int(s) for s in args.skip.split(",") if s.strip())
@@ -432,10 +538,16 @@ def config_from_args(args) -> Config:
             skip=skip, density_activation=args.density_activation,
             fused_kernel=args.fused_kernel,
             fused_render=not args.no_fused_render),
-        data=DataConfig(dataset=args.dataset, n_imgs=args.n_imgs,
-                        white_bkgd=args.white_bkgd),
+        data=DataConfig(dataset=args.dataset, scene=args.scene,
+                        n_imgs=args.n_imgs, white_bkgd=args.white_bkgd,
+                        factor=args.factor, bd_factor=args.bd_factor,
+                        no_recenter=args.no_recenter,
+                        data_root=args.data_root, val_ratio=args.val_ratio,
+                        test_ratio=args.test_ratio,
+                        downsample=args.downsample),
         sampling=dataclasses.replace(
             cfg.sampling, strategy=args.strategy, n_samples=args.n_samples,
+            grid_levels=grid_levels(args.dataset),
             n_fine=args.n_fine, n_compact=args.n_compact,
             grid_resolution=args.grid_resolution,
             render_step_size=args.render_step_size,
@@ -450,53 +562,84 @@ def config_from_args(args) -> Config:
             ckpt_every=args.ckpt_every, resume=args.resume))
 
 
-def run_training(model, cfg, hw: int, device, out_dir: str = ""):
-    """Train on cfg.data.n_imgs views of the procedural scene, validating
-    on the first held-out view when cfg.train.val is set. With an out_dir:
-    metrics.jsonl there, and checkpoints under <out_dir>/ckpt every
-    cfg.train.ckpt_every steps and at the end, the run continuing from the
-    latest one when cfg.train.resume is set.
+def run_training(model, cfg, pool, train_split: Split, val_split: Split,
+                 device, out_dir: str = ""):
+    """Train on the train split's ray pool, validating on the first val
+    view when cfg.train.val is set. With an out_dir: metrics.jsonl there,
+    and checkpoints under <out_dir>/ckpt every cfg.train.ckpt_every steps
+    and at the end, the run continuing from the latest one when
+    cfg.train.resume is set.
 
-    Returns (final TrainState, the held-out split, dict of training
-    numbers)."""
-    from .data.pool import pool_from_images
+    Returns (final TrainState, dict of training numbers)."""
     from .train.loop import MetricsLogger, train
     from .train.step import init_state, make_optimizer
     from .utils.checkpoint import Checkpointer
 
-    scene = scene_class(cfg.data.dataset)(
-        n_imgs=cfg.data.n_imgs, hw=hw, white_bkgd=cfg.data.white_bkgd,
-        seed=cfg.train.seed)
-    held_out = split_of(scene.holdout(n=HELD_OUT_VIEWS,
-                                      seed=cfg.train.seed + 1))
-    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf,
-                            device=device)
     ckpt = Checkpointer(os.path.join(out_dir, "ckpt")) if out_dir else None
     state = None
     if cfg.train.resume and ckpt is not None:
         state = ckpt.restore(init_state(model, cfg,
                                         make_optimizer(cfg, model),
-                                        scene.aabb, device))
+                                        train_split.aabb, device))
     start = 0 if state is None else state.step
-    val_fn = make_val_fn(model, cfg, held_out, device) if cfg.train.val \
+    val_fn = make_val_fn(model, cfg, val_split, device) if cfg.train.val \
         else None
     logger = MetricsLogger(out_dir or None)
     t0 = time.perf_counter()
-    state = train(model, cfg, pool, scene, state=state, logger=logger,
+    state = train(model, cfg, pool, train_split, state=state, logger=logger,
                   checkpointer=ckpt, val_fn=val_fn)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     logger.close()
-    return state, held_out, {
+    return state, {
         "steps": state.step, "resumed_from": start,
         "train_seconds": seconds,
         "rays_per_sec": (state.step - start) * cfg.train.batch_size
         / seconds}
 
 
+def restored_grid(model, cfg, train_split: Split, out_dir: str, device):
+    """The grid to render from without training, after loading the model's
+    weights: the latest checkpoint's under <out_dir>/ckpt (its weights
+    loaded into `model`), or else one rebuilt from the model's densities
+    (occgrid; None for hierarchical). Returns (grid, the checkpoint's step
+    or None)."""
+    from .train.step import init_state, make_optimizer
+    from .utils.checkpoint import Checkpointer
+
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    if out_dir and os.path.isdir(ckpt_dir):
+        ckpt = Checkpointer(ckpt_dir)
+        if ckpt.latest_step() is not None:
+            state = ckpt.restore(init_state(model, cfg,
+                                            make_optimizer(cfg, model),
+                                            train_split.aabb, device))
+            grid = state.grid if cfg.sampling.strategy == "occgrid" else None
+            return grid, state.step
+    grid = (rebuild_grid(model, cfg, train_split.aabb, device)
+            if cfg.sampling.strategy == "occgrid" else None)
+    return grid, None
+
+
+def evaluate_val_test(model, grid, val_split: Split, test_split: Split, cfg,
+                      device):
+    """evaluate_split on the val split, and on the test split when it has
+    views, its metrics under test_ keys (fsnerf_tpu/cli.py::main)."""
+    metrics, _ = evaluate_split(model, grid, val_split, cfg, device=device)
+    if len(test_split.imgs) > 0:
+        t_metrics, _ = evaluate_split(model, grid, test_split, cfg,
+                                      device=device)
+        metrics.update({f"test_{k}": v for k, v in t_metrics.items()})
+    return metrics
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv=None) -> int:
-    from .core.models import make_model
     from .utils.interop import load_state_dict_file
 
     args = parse_args(argv)
@@ -512,23 +655,44 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs stay f32
     cfg = config_from_args(args)
-    dtype = torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
-    model = make_model(cfg, dtype,
-                       torch.Generator().manual_seed(args.seed), device)
+    t0 = time.perf_counter()
+    splitter, (train_split, val_split, test_split), model, pool = \
+        build_everything(cfg, args.hw, device)
+    _sync(device)
+    numbers = {"views": {"train": len(train_split.imgs),
+                         "val": len(val_split.imgs),
+                         "test": len(test_split.imgs)},
+               "data_seconds": time.perf_counter() - t0}
     if args.import_torch_ckpt:
         model.load_state_dict(load_state_dict_file(args.import_torch_ckpt))
     if args.render_only:
-        split = build_split(args.dataset, HELD_OUT_VIEWS, args.hw,
-                            args.white_bkgd, args.seed + 1)
-        grid = (rebuild_grid(model, cfg, split.aabb, device)
-                if cfg.sampling.strategy == "occgrid" else None)
-        metrics, _ = evaluate_split(model, grid, split, cfg, device=device)
+        grid, restored = restored_grid(model, cfg, train_split, args.out_dir,
+                                       device)
+        numbers["restored_step"] = restored
     else:
-        state, held_out, numbers = run_training(model, cfg, args.hw, device,
-                                                args.out_dir)
-        metrics, _ = evaluate_split(model, state.grid, held_out, cfg,
-                                    device=device)
-        metrics.update(numbers)
+        state, trained = run_training(model, cfg, pool, train_split,
+                                      val_split, device, args.out_dir)
+        grid = state.grid
+        numbers.update(trained)
+    t0 = time.perf_counter()
+    metrics = evaluate_val_test(model, grid, val_split, test_split, cfg,
+                                device)
+    _sync(device)
+    n_eval = len(val_split.imgs) + len(test_split.imgs)
+    numbers["eval_seconds_per_view"] = (time.perf_counter() - t0) / n_eval
+    if args.out_dir:
+        if not args.render_only:
+            with open(os.path.join(args.out_dir, "final_metrics.json"),
+                      "w") as fh:
+                json.dump(metrics, fh)
+        t0 = time.perf_counter()
+        rgb8, dep8 = render_camera_path(model, cfg, grid, splitter,
+                                        train_split, device)
+        seconds = time.perf_counter() - t0
+        save_video(rgb8, dep8, os.path.join(args.out_dir, "video"))
+        numbers.update(path_frames=len(rgb8),
+                       path_frames_per_sec=len(rgb8) / seconds)
+    metrics.update(numbers)
     metrics["device"] = (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")
     print(json.dumps(metrics))

@@ -1,5 +1,5 @@
-"""Ray, frame and path rendering (port of fsnerf_tpu/render/renderer.py,
-without the video export).
+"""Ray, frame and path rendering and the path's video frames (port of
+fsnerf_tpu/render/renderer.py).
 
 occgrid: stages over dense [R, S] tensors: uniform sample lattice ->
 occupancy mask -> approximate (grid-EMA) transmittance early termination ->
@@ -319,9 +319,9 @@ def render_frame(
     fused_render_fn: Optional[Callable] = None,
     composite_fn: Callable = volume_render,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render a full H x W frame from one pose [4, 4] (on the pose's device)
-    in chunks of `chunksize` rays (at most 16384 under occgrid); the last
-    chunk is padded with rays of direction (0, 0, -1).
+    """Render a full H x W frame from one pose [4, 4] or [3, 4] (on the
+    pose's device) in chunks of `chunksize` rays (at most 16384 under
+    occgrid); the last chunk is padded with rays of direction (0, 0, -1).
 
     Returns img [H, W, 3] and depth [H, W] clamped to [near, far]."""
     H, W, _ = hwf
@@ -366,11 +366,15 @@ def render_path(
     near: float,
     far: float,
     device=None,
+    compact_transfer: bool = False,
     **frame_kwargs,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Render a sequence of poses [F, 4, 4] with one chunk renderer.
+    """Render a sequence of poses [F, 4, 4] or [F, 3, 4] with one chunk
+    renderer.
 
-    Returns frames [F, H, W, 3] and depths [F, H, W] as float32 numpy."""
+    Returns frames [F, H, W, 3] and depths [F, H, W] as float32 numpy, or,
+    with `compact_transfer`, quantized on the device before they are copied
+    to the host: rgb to uint8 (to8b's truncation), depth to float16."""
     renderer_kwargs = {k: v for k, v in frame_kwargs.items()
                        if k in ("strategy", "grid", "n_samples", "n_fine",
                                 "render_step_size", "white_bkgd", "n_compact",
@@ -384,6 +388,24 @@ def render_path(
         rgb, depth = render_frame(model_fn, pose, hwf, near, far,
                                   chunk_renderer=chunk_renderer,
                                   **frame_kwargs)
+        if compact_transfer:
+            rgb = (255.0 * torch.clamp(rgb, 0.0, 1.0)).to(torch.uint8)
+            depth = depth.to(torch.float16)
         frames.append(rgb.cpu().numpy())
         d_frames.append(depth.cpu().numpy())
     return np.stack(frames, 0), np.stack(d_frames, 0)
+
+
+def render_video(frames: np.ndarray, d_frames: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The path's video streams as uint8 [T, C, H, W]: rgb (to8b unless
+    already uint8) and depth normalized over the whole clip and mapped
+    through `plasma` (render/colormap.py, matplotlib's arithmetic)."""
+    from .colormap import to_rgb
+
+    d_rgb = to_rgb(d_frames.flatten(), float(np.amin(d_frames)),
+                   float(np.amax(d_frames)))
+    d_rgb = np.reshape(d_rgb, list(d_frames.shape[:3]) + [-1])
+    rgb8 = frames if frames.dtype == np.uint8 else to8b(frames)
+    return (np.transpose(rgb8, (0, 3, 1, 2)),
+            np.transpose(to8b(d_rgb), (0, 3, 1, 2)))

@@ -50,6 +50,11 @@ its validations and a resume from a checkpoint, and train_scanned; a
 ladder change that captures a new rung's graphs, and a capture that fails
 raising.
 
+The data slice: the image decoder built with g++ on the card's machine
+reading the PNG writer's files exactly; kernels 1 and 4 on an LLFF scene's
+NDC samples and a 4-level grid against their plain versions (the
+tolerances above); 40 graphed LLFF steps bitwise equal to the eager ones.
+
 Every test here is marked `cuda` and skips without a card. This file
 imports neither jax nor fsnerf_tpu, so on the card's machine (which has no
 jax) it runs without the JAX conftest:
@@ -882,6 +887,148 @@ def test_volrend_wrapper_counts_launches_and_validates(cuda):
         kv.volume_render_fused(sig, rgb, tv.cpu(), dl, mask)
 
 
+# -- the data slice: the decoder, NDC inputs of a 4-level grid, LLFF --------
+
+def _llff_scene(root, n=10, H=36, W=48, focal=40.0):
+    """An LLFF scene under root/llff/ramp written by the port's PNG writer:
+    `n` forward-facing views of colour ramps with small offsets, the LLFF
+    column order in poses_bounds.npy. Returns the images (uint8)."""
+    import os
+
+    import numpy as np
+
+    from fsnerf_tpu_torch.native import write_png
+
+    scene_dir = os.path.join(root, "llff", "ramp")
+    os.makedirs(os.path.join(scene_dir, "images_8"))
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:H, 0:W]
+    rows, imgs = [], []
+    for i in range(n):
+        img = np.stack([xx * 255 // W, yy * 255 // H,
+                        np.full_like(xx, 60 + 10 * i)], -1).astype(np.uint8)
+        write_png(os.path.join(scene_dir, "images_8", f"im_{i:03d}.png"),
+                  img)
+        imgs.append(img)
+        c2w = np.zeros((3, 5), np.float32)
+        c2w[:, 0], c2w[:, 1], c2w[:, 2] = [0, -1, 0], [1, 0, 0], [0, 0, 1]
+        c2w[:, 3] = 0.1 * rng.normal(size=3)
+        c2w[:, 4] = [H * 8, W * 8, focal * 8]
+        rows.append(np.concatenate([c2w.ravel(), [2.0 + 0.1 * i, 8.0]]))
+    np.save(os.path.join(scene_dir, "poses_bounds.npy"), np.stack(rows))
+    return np.stack(imgs)
+
+
+def _llff_cfg(root, n_iters=40):
+    """The command line's config of a small LLFF run on _llff_scene (4 grid
+    levels, NDC)."""
+    from fsnerf_tpu_torch import cli
+
+    return cli.config_from_args(cli.parse_args([
+        "--dataset", "llff", "--scene", "ramp", "--data_root", str(root),
+        "--n_imgs", "4", "--n_layers", "4", "--d_filter", "64", "--skip",
+        "2", "--n_freqs", "6", "--n_freqs_views", "3", "--grid_resolution",
+        "32", "--n_samples", "128", "--n_compact", "64", "--batch_size",
+        "256", "--n_iters", str(n_iters), "--render_step_size", "0.005"]))
+
+
+def test_decoder_builds_and_reads_port_written_pngs(cuda, tmp_path):
+    """The decoder compiles with g++ on this machine and reads the PNG
+    writer's RGB and RGBA files exactly (each value times 1/255)."""
+    import numpy as np
+
+    from fsnerf_tpu_torch import native
+
+    assert native.build().exists()
+    rng = np.random.default_rng(0)
+    for c in (3, 4):
+        imgs = rng.integers(0, 256, (3, 17, 23, c), dtype=np.uint8)
+        paths = [str(tmp_path / f"im{c}_{i}.png") for i in range(3)]
+        for p, img in zip(paths, imgs):
+            native.write_png(p, img)
+        got = native.decode_images(paths)
+        want = imgs.astype(np.float32) * (np.float32(1) / np.float32(255))
+        assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def test_march_and_density_match_plain_on_ndc_samples(cuda, tmp_path):
+    """Kernels 1 and 4 on an LLFF scene's NDC rays and a 4-level grid
+    rebuilt from a seeded model: the ray march within the ray-march
+    tolerances with equal executed steps, the density pass on every
+    level's cell centres within 2e-2 of max |sigma|."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.data.rays import get_rays, to_ndc
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.sampling import (compact_samples_uniform,
+                                               sample_points)
+    from fsnerf_tpu_torch.render.renderer import _masked_lattice
+
+    _llff_scene(tmp_path)
+    cfg = _llff_cfg(tmp_path)
+    _, (train, val, _), model, _ = cli.build_everything(cfg, device=cuda)
+    assert train.ndc and cfg.sampling.grid_levels == 4
+    grid = cli.rebuild_grid(model, cfg, train.aabb, cuda)
+    assert grid.levels == 4
+    s, m, e = cfg.sampling, cfg.model, cfg.encoder
+    pose = torch.as_tensor(val.poses[0], dtype=torch.float32, device=cuda)
+    ro, rd = (a.reshape(-1, 3) for a in get_rays(pose, val.hwf))
+    ro, rd = to_ndc(ro, rd, val.hwf, 1.0)
+    with torch.no_grad():
+        t_mid, deltas, mask, n_valid = _masked_lattice(
+            ro, rd, grid, s.n_samples, None, s.render_step_size,
+            s.early_stop_eps, og.grid_query_stride(s, train.aabb, grid))
+        t_k, d_k, m_k = compact_samples_uniform(t_mid, deltas[:, 0], mask,
+                                                s.n_compact)
+        perm = torch.sort(n_valid, stable=True).indices
+        x = sample_points(ro, rd, t_k)
+        padded, bR, cs = kr.pad_for_march(x[perm], rd[perm], t_k[perm],
+                                          d_k[perm], m_k[perm])
+    assert float(n_valid.mean()) > 0
+    params = kr.prep_params(model.state_dict(), n_layers=m.n_layers,
+                            skip=m.skip, n_freqs=e.n_freqs,
+                            n_freqs_views=e.n_freqs_views, device=cuda)
+    _check(padded, params, bR, cs, s.early_stop_eps)
+
+    dparams = km.prep_params(model.state_dict(), m.n_layers, m.skip)
+    idx = torch.arange(grid.n_cells, device=cuda)
+    for lv in range(grid.levels):
+        xc = og._cell_positions(idx, og.level_aabb(grid.base_aabb, lv),
+                                grid.resolution)
+        encx = km.pad_features(positional_encoding(xc, e.n_freqs, True),
+                               dparams.d_enc_pad)
+        got = km.nerf_density(encx, dparams)
+        ref = km.nerf_density_reference(encx, dparams)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max() / (ref.abs().max() + 1e-9) < 2e-2, lv
+
+
+def test_graphed_llff_training_is_the_eager_loop(cuda, tmp_path):
+    """40 LLFF steps (NDC rays, 4 grid levels, all-cell refreshes of every
+    level) from CUDA-graph replays against the eager steps, bitwise, with
+    the density kernel launched 4 x 1 launches per all-cell refresh at
+    res 32."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
+    from fsnerf_tpu_torch.train.loop import train
+
+    _llff_scene(tmp_path)
+    cfg = _llff_cfg(tmp_path)
+    out = {}
+    for graphs in (None, False):
+        _, (split, _, _), model, pool = cli.build_everything(cfg,
+                                                             device=cuda)
+        before = launch_counts()
+        state = train(model, cfg, pool, split, graphs=graphs)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        out[graphs] = (state, {k: after[k] - before[k] for k in after})
+    _assert_bitwise(out[None][0], out[False][0])
+    assert out[None][1] == out[False][1]
+    refreshes = len(range(0, 40, cfg.sampling.update_interval))
+    assert out[None][1]["nerf_density"] == 4 * refreshes
+    assert out[None][1]["mlp_train_fwd"] == 40
+
+
 # -- graphed training: CUDA-graph replays against the eager step loop ----
 
 def _graph_cfg(model="nerf", strategy="occgrid", width=64, samples=None,
@@ -1097,7 +1244,10 @@ def test_graphed_train_scanned_is_the_eager_one(cuda):
 
 def test_graphed_capture_failure_raises(cuda, monkeypatch):
     """A step that waits on the host cannot be captured: train() raises
-    on the card instead of running the eager loop."""
+    on the card instead of running the eager loop. Keep it the file's last
+    test: the failed capture leaves torch's default CUDA generator in its
+    capture state, so a later default-initialized CUDA module raises
+    ("Offset increment outside graph capture")."""
     from fsnerf_tpu_torch.ops import occgrid as og
 
     real = og.occupancy_fraction
