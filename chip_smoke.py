@@ -138,9 +138,11 @@ Phases (any failure exits non-zero; nothing is caught):
      where a ray hits) by the port's PNG writer and decoded by its decoder
      (timed); then the command line's flow (fsnerf_tpu_torch.cli.main,
      --dataset synthetic --n_imgs 8 --white_bkgd, the default 8x256
-     config, 1,500 steps): the untrained weights' val PSNR (--render_only,
-     no checkpoint), the training run (splits 8 / 6 / 6, val PSNR at least
-     5 dB above the untrained, final_metrics.json with the val and test
+     config, 1,500 steps): the untrained weights' val PSNR (--render_only
+     --debug, no checkpoint), the training run into its run directory
+     (<out_dir>/nerf/synthetic/<scene>/n_imgs_8; splits 8 / 6 / 6, val
+     PSNR at least 5 dB above the untrained, final_metrics.json with the
+     val and test
      metrics and lpips null, kernels 5 and 6 once per step, kernel 4 at
      every refresh and kernel 1 launched, counts read around the run, the
      orbit's frames on disk) and --render_only from its checkpoint, which
@@ -156,7 +158,25 @@ Phases (any failure exits non-zero; nothing is caught):
      generator, the launches), and on the trained weights kernel 1 on a
      val view's NDC samples and kernel 4 on each level's cell centres
      against their plain versions (phase 3's and 14's tolerances);
- 19. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+ 20. the data-parallel layer (parallel/) at the training slice's full
+     width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
+     the 8-view 128x128 sphere):
+     a. two ranks on cuda:0 over gloo (spawned processes, a FileStore in a
+        temp dir), eager steps: 20 parallel steps against 20 single-GPU
+        eager steps from the same seeds (the same draws), the loss and the
+        weights within 1e-2 (of max |weight|), the two ranks' weights
+        bitwise equal after every step; then an all-cell and a part
+        refresh sharded through kernel 4 and one 128x128 view tiled
+        through kernel 1, each bitwise the single-GPU result; steps/s and
+        the gloo all-reduce's ms per step;
+     b. one rank over NCCL, graphed: 200 steps of train(..., mesh=)
+        against the same 200 steps of the single-GPU graphed loop: the
+        weights, Adam moments, grid, generator and launch counts bitwise
+        equal;
+     c. LPIPS with seeded random weights (an npz written here) on two
+        128x128 frames on the card against the same on the CPU, within
+        1e-4 relative, TF32 off;
+ 21. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
      larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
@@ -661,12 +681,12 @@ def train_slice_config(cfg):
         train=dataclasses.replace(cfg.train, n_iters=TRAIN_STEPS))
 
 
-def run_train_slice(tcfg, dev, graphs=None):
+def run_train_slice(tcfg, dev, graphs=None, mesh=None):
     """train() of the occgrid slice from seeded weights on the 8-view
-    128x128 sphere: (model, state, logger, launch counts the training
-    added, seconds, graph rungs, peak device GB allocated and reserved:
-    the graphs' pools hold their memory between replays, which only the
-    reserved peak counts)."""
+    128x128 sphere (over `mesh` when given): (model, state, logger, launch
+    counts the training added, seconds, graph rungs, peak device GB
+    allocated and reserved: the graphs' pools hold their memory between
+    replays, which only the reserved peak counts)."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.data.pool import pool_from_images
     from fsnerf_tpu_torch.data.synthetic import SphereScene
@@ -684,7 +704,7 @@ def run_train_slice(tcfg, dev, graphs=None):
     t0 = time.perf_counter()
     with GraphRecords() as rungs:
         state = train(model, tcfg, pool, scene, logger=log, log_every=100,
-                      graphs=graphs)
+                      graphs=graphs, mesh=mesh)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     after = launch_counts()
@@ -1944,19 +1964,22 @@ def frames_of(video_dir: str) -> dict:
 
 def data_slice(name, flags, out_dir, want_views, want_frames, card):
     """The command line's whole flow on a synthesized scene: the untrained
-    weights' val PSNR (render only, no output directory), then training,
-    val and test evaluation, final_metrics.json, the checkpoint and the
-    camera path's frames, the launch counts of kernels 5, 6, 4 and 1 read
-    around that run, and --render_only from the checkpoint, which must
-    write the same frames. Returns (the training run's JSON line, its
-    launch counts, the untrained val PSNR)."""
+    weights' val PSNR (render only, --debug: no run directory), then
+    training, val and test evaluation, final_metrics.json, the checkpoint
+    and the camera path's frames in the run directory under out_dir, the
+    launch counts of kernels 5, 6, 4 and 1 read around that run, and
+    --render_only from the checkpoint, which must write the same frames.
+    Returns (the training run's JSON line, its launch counts, the
+    untrained val PSNR)."""
     import os
 
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
-    base = run_cli(flags + ["--render_only"])
+    from fsnerf_tpu_torch import cli
+
+    base = run_cli(flags + ["--render_only", "--debug"])
     kr.ray_march.launches = km.nerf_density.launches = 0
     mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
     got = run_cli(flags + ["--out_dir", out_dir])
@@ -1965,11 +1988,12 @@ def data_slice(name, flags, out_dir, want_views, want_frames, card):
                 "mlp_train_bwd": mt.mlp_train_bwd.launches,
                 "nerf_density": km.nerf_density.launches,
                 "ray_march": kr.ray_march.launches}
-    with open(os.path.join(out_dir, "final_metrics.json")) as fh:
+    run = cli.run_dir(cli.config_from_args(flags + ["--out_dir", out_dir]))
+    with open(os.path.join(run, "final_metrics.json")) as fh:
         final = json.load(fh)
-    frames = frames_of(os.path.join(out_dir, "video"))
+    frames = frames_of(os.path.join(run, "video"))
     again = run_cli(flags + ["--out_dir", out_dir, "--render_only"])
-    same = frames_of(os.path.join(out_dir, "video")) == frames
+    same = frames_of(os.path.join(run, "video")) == frames
     steps = got["steps"]
     print(f"{name} slice on {card}: views {got['views']}; data (decode, "
           f"split, pool) {got['data_seconds']:.3f} s; {steps} steps in "
@@ -2035,7 +2059,7 @@ def blender_slice(card, root):
         "blender", flags, os.path.join(root, "out_blender"),
         {"train": 8, "val": n_held, "test": n_held}, BLENDER_PATH_FRAMES,
         card)
-    bcfg = cli.config_from_args(cli.parse_args(flags))
+    bcfg = cli.config_from_args(flags)
     want = refresh_launches(bcfg, bcfg.sampling.grid_resolution ** 3,
                             got["steps"])
     if launches["nerf_density"] != want:
@@ -2070,7 +2094,7 @@ def llff_slice(dev, card, root):
     got, launches, _ = data_slice(
         "llff", flags, os.path.join(root, "out_llff"),
         {"train": 8, "val": n_held, "test": n_held}, LLFF_PATH_FRAMES, card)
-    lcfg = cli.config_from_args(cli.parse_args(flags))
+    lcfg = cli.config_from_args(flags)
     s = lcfg.sampling
     per_refresh = -(-s.grid_resolution ** 3 // og._EVAL_CHUNK) * \
         s.grid_levels
@@ -2144,6 +2168,329 @@ def llff_slice(dev, card, root):
     if max(errs) > DENSITY_SIGMA_TOL:
         fail(f"llff: density kernel vs plain {errs}")
     return launches
+
+
+# -- 20. the data-parallel layer ------------------------------------------
+
+PAR_STEPS = 20              # 20a: two gloo ranks on one card, eager
+PAR_TOL = 1e-2              # of max |single-GPU weight|, and on the loss
+NCCL_STEPS = 200            # 20b: one NCCL rank, graphed
+LPIPS_RTOL = 1e-4           # 20c: the card against the CPU
+
+
+def weights_digest(model) -> str:
+    """sha256 of the model's parameters' bytes (bitwise comparison across
+    processes)."""
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def par_setup(cfg, dev):
+    """The slice of phase 20a: (config, scene, model, optimizer, state,
+    pool) from seeded weights on the 8-view 128x128 sphere, PAR_STEPS
+    steps."""
+    import dataclasses
+
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.train.step import init_state, make_optimizer
+
+    tcfg = train_slice_config(cfg)
+    tcfg = tcfg.replace(train=dataclasses.replace(tcfg.train,
+                                                  n_iters=PAR_STEPS))
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    model = make_model(tcfg, torch.bfloat16,
+                       torch.Generator().manual_seed(0), dev)
+    opt = make_optimizer(tcfg, model)
+    state = init_state(model, tcfg, opt, scene.aabb, dev)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    return tcfg, scene, model, opt, state, pool
+
+
+def par_refresh_jitter(grid, dev):
+    """Seeded jitter of an all-cell and a part (1 of 4) refresh."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    return {part: [torch.rand((grid.n_cells // (1 if part is None else 4),
+                               3), generator=g, device=dev)]
+            for part in (None, 1)}
+
+
+def par_refresh(model, cfg, grid, jitter, mesh):
+    """An all-cell refresh, then part 1, of `grid` through the density
+    kernel (make_density_fn), sharded over mesh (None: replicated)."""
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.train.step import make_density_fn
+
+    s = cfg.sampling
+    out = {}
+    with torch.no_grad():
+        for part in (None, 1):
+            og.update_(grid, make_density_fn(model, cfg, device=grid.occs
+                                             .device), part, False,
+                       render_step_size=s.render_step_size,
+                       occ_thre=s.occ_thre, ema_decay=s.ema_decay,
+                       jitter=jitter[part], shard=mesh)
+            out[part] = (grid.occs.clone(), grid.thre.clone())
+    return out
+
+
+def par_view(model, cfg, grid, mesh, dev):
+    """One 128x128 held-out view through the fused ray march (kernel 1),
+    rendered tiled over mesh (None: one GPU)."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.render.renderer import render_frame
+
+    s = cfg.sampling
+    held = cli.split_of(SphereScene(n_imgs=8, hw=128,
+                                    white_bkgd=True).holdout(n=1, seed=101))
+    img, depth = render_frame(
+        None, torch.as_tensor(held.poses[0], device=dev), held.hwf,
+        held.near, held.far, grid=grid, n_samples=s.n_samples,
+        render_step_size=s.render_step_size, white_bkgd=True,
+        n_compact=cli.derive_eval_n_compact(grid, held, cfg, dev),
+        early_stop_eps=s.early_stop_eps,
+        query_stride=og.grid_query_stride(s, held.aabb, grid),
+        fused_render_fn=cli.make_fused_render_fn(model.state_dict(), cfg,
+                                                 device=dev), mesh=mesh)
+    return img, depth
+
+
+def gloo_rank(rank: int, workdir: str):
+    """Phase 20a's rank (a spawned process): PAR_STEPS parallel steps on
+    cuda:0 over gloo, the weights' digest after each, then the sharded
+    refreshes and the tiled view, and the gloo all-reduce of the flattened
+    gradient timed; writes <workdir>/rank<r>.pt."""
+    import os
+
+    import torch.distributed as dist
+
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.ops.kernels import build, launch_counts
+    from fsnerf_tpu_torch.parallel import distributed_init, make_mesh
+    from fsnerf_tpu_torch.parallel.train_parallel import \
+        make_parallel_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.load_library()
+    distributed_init("gloo", store=dist.FileStore(
+        os.path.join(workdir, "store"), 2), rank=rank, world_size=2)
+    mesh = make_mesh(2, device=dev)
+    tcfg, scene, model, opt, state, pool = par_setup(Config(), dev)
+    step = make_parallel_train_step(model, tcfg, opt, pool, scene, mesh)
+    if step.graphed:
+        fail("a gloo step must run eagerly")
+    before = launch_counts()
+    digests, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+        digests.append(weights_digest(model))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    mesh.all_mean_(flat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mesh.all_mean_(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 100.0
+    grid = state.grid
+    trained_grid = (grid.occs.cpu(), grid.thre.cpu())
+    refreshed = par_refresh(model, tcfg, grid, par_refresh_jitter(grid, dev),
+                            mesh)
+    img, depth = par_view(model, tcfg, grid, mesh, dev)
+    after = launch_counts()
+    torch.save({"digests": digests, "losses": losses, "seconds": seconds,
+                "allreduce_ms": allreduce_ms, "n_floats": flat.numel(),
+                "weights": {n: p.detach().cpu() for n, p in
+                            model.named_parameters()},
+                "grid": trained_grid,
+                "refreshed": {k: tuple(t.cpu() for t in v)
+                              for k, v in refreshed.items()},
+                "view": (img.cpu(), depth.cpu()),
+                "launches": {k: after[k] - before[k] for k in after}},
+               os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def gloo_two_ranks(cfg, dev, card):
+    """Phase 20a: two ranks on cuda:0 over gloo (spawned, a FileStore in a
+    temp dir), PAR_STEPS eager steps against as many single-GPU eager
+    steps from the same seeds (the same draws): the loss at each step and
+    the final weights within PAR_TOL of the single-GPU run's, the two
+    ranks' weights bitwise equal after every step; then an all-cell and a
+    part refresh sharded through kernel 4 and a 128x128 view tiled
+    through kernel 1, each bitwise the single-GPU result."""
+    import multiprocessing
+    import os
+
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.train.step import make_train_step
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=gloo_rank, args=(r, work))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0, 0]:
+            fail(f"20a: the gloo ranks exited with {codes}")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    a, b = ranks
+    if a["digests"] != b["digests"]:
+        first = next(i for i, (x, y) in enumerate(zip(a["digests"],
+                                                      b["digests"]))
+                     if x != y)
+        fail(f"20a: the ranks' weights differ from step {first + 1}")
+    tcfg, scene, model, opt, state, pool = par_setup(cfg, dev)
+    step = make_train_step(model, tcfg, opt, pool, scene)
+    losses = []
+    for _ in range(PAR_STEPS):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], losses))
+    w_err = max(float((a["weights"][n] - p.detach().cpu()).abs().max())
+                / float(p.detach().abs().max())
+                for n, p in model.named_parameters())
+    # the refreshes and the view on one GPU, with rank 0's weights and grid
+    model.load_state_dict({n: w.to(dev) for n, w in a["weights"].items()})
+    og.set_occs_(state.grid, a["grid"][0].to(dev), a["grid"][1].to(dev))
+    refreshed = par_refresh(model, tcfg, state.grid,
+                            par_refresh_jitter(state.grid, dev), None)
+    img, depth = par_view(model, tcfg, state.grid, None, dev)
+    refresh_same = all(torch.equal(a["refreshed"][k][i],
+                                   refreshed[k][i].cpu())
+                       for k in (None, 1) for i in (0, 1))
+    view_same = (torch.equal(a["view"][0], img.cpu())
+                 and torch.equal(a["view"][1], depth.cpu()))
+    need = ("mlp_train_fwd", "mlp_train_bwd", "nerf_density", "ray_march")
+    print(f"20a. two gloo ranks on {card}: {PAR_STEPS} eager steps at "
+          f"{PAR_STEPS / a['seconds']:.2f} steps/s per rank ("
+          f"{2 * PAR_STEPS * (tcfg.train.batch_size // 2) / a['seconds']:.0f}"
+          f" rays/s both), the gloo all-reduce of {a['n_floats']} gradient "
+          f"floats {a['allreduce_ms']:.3f} ms per step; ranks' weights "
+          f"bitwise equal after each of {len(a['digests'])} steps; vs "
+          f"single-GPU: loss rel err {loss_err:.3e}, weights "
+          f"{w_err:.3e} of max; sharded refresh (all cells, part 1) "
+          + ("bitwise" if refresh_same else "DIFFERS")
+          + "; tiled 128x128 view " + ("bitwise" if view_same else "DIFFERS")
+          + f"; rank launches {dict((k, a['launches'][k]) for k in need)}; "
+          f"{wall:.1f} s with the spawn")
+    if loss_err > PAR_TOL or w_err > PAR_TOL:
+        fail(f"20a: the parallel steps left the single-GPU ones: loss "
+             f"{loss_err}, weights {w_err}")
+    if not refresh_same or not view_same:
+        fail("20a: the sharded refresh or the tiled view is not the "
+             "single-GPU one")
+    for r in ranks:
+        if min(r["launches"][k] for k in need) == 0:
+            fail(f"20a: a rank did not launch {need}: {r['launches']}")
+
+
+def nccl_one_rank(cfg, dev, card):
+    """Phase 20b: train(..., mesh=) over a one-rank NCCL group, graphed,
+    NCCL_STEPS steps against the single-GPU graphed loop from the same
+    seeds: weights, Adam moments, grid, generator and launch counts
+    bitwise equal."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from fsnerf_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device=dev)
+        tcfg = train_slice_config(cfg)
+        tcfg = tcfg.replace(train=dataclasses.replace(tcfg.train,
+                                                      n_iters=NCCL_STEPS))
+        runs = {}
+        for name, m in (("single", None), ("nccl", mesh)):
+            _, state, _, launches, seconds, rungs, _ = run_train_slice(
+                tcfg, dev, mesh=m)
+            runs[name] = (state, launches, seconds, rungs)
+    finally:
+        dist.destroy_process_group()
+    (s1, l1, t1, r1), (s2, l2, t2, r2) = runs["single"], runs["nccl"]
+    graphed = bool(r2.rungs)        # a rung is logged once it has graphs
+    differ = state_diffs(s1, s2)
+    if l1 != l2:
+        differ.append("launches")
+    print(f"20b. one NCCL rank on {card}: train(mesh=) "
+          + ("graphed" if graphed else "eager")
+          + f", {NCCL_STEPS} steps at {NCCL_STEPS / t2:.2f} steps/s "
+          f"({r2.summary()}) against the single-GPU graphed loop at "
+          f"{NCCL_STEPS / t1:.2f} steps/s ({r1.summary()}); weights, Adam "
+          f"moments, grid, generator and launches "
+          + ("bitwise equal" if not differ else f"differ: {differ}")
+          + f"; launches {dict((k, v) for k, v in l2.items() if v)}")
+    if differ or not graphed:
+        fail(f"20b: the one-rank NCCL run is not the single-GPU graphed "
+             f"loop: {differ}, graphed {graphed}")
+
+
+def lpips_card(card):
+    """Phase 20c: LPIPS with seeded random VGG16 and head weights (an npz
+    written here) on two 128x128 frames on the card against the same on
+    the CPU, within LPIPS_RTOL; TF32 off."""
+    import os
+
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.eval.lpips import _VGG_CFG, load_lpips
+
+    rng = np.random.default_rng(0)
+    w, cin, i = {}, 3, 0
+    for c in _VGG_CFG:
+        if c == "M":
+            continue
+        w[f"conv{i}_kernel"] = (rng.standard_normal((3, 3, cin, c))
+                                * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        w[f"conv{i}_bias"] = (0.01 * rng.standard_normal(c)).astype(
+            np.float32)
+        cin, i = c, i + 1
+    for j, c in enumerate((64, 128, 256, 512, 512)):
+        w[f"lin{j}"] = rng.uniform(0.0, 1.0, c).astype(np.float32)
+    scene = SphereScene(n_imgs=2, hw=128, white_bkgd=True)
+    a = torch.as_tensor(scene.imgs[0], dtype=torch.float32)
+    b = torch.as_tensor(scene.imgs[1], dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lpips.npz")
+        np.savez(path, **w)
+        on_card = load_lpips(path, device="cuda")
+        on_cpu = load_lpips(path, device="cpu")
+    got = float(on_card(a.cuda(), b.cuda()))
+    want = float(on_cpu(a, b))
+    ms = cuda_ms(lambda: on_card(a.cuda(), b.cuda()), 5)
+    err = abs(got - want) / abs(want)
+    print(f"20c. LPIPS (seeded weights) of two 128x128 frames on {card}: "
+          f"{got:.6f} vs {want:.6f} on the CPU, rel err {err:.3e}; "
+          f"{ms:.3f} ms per pair")
+    if not err <= LPIPS_RTOL:
+        fail(f"20c: LPIPS on the card {got} vs the CPU {want}")
 
 
 def main():
@@ -2289,7 +2636,12 @@ def main():
         blender_slice(card, root)
         llff_slice(dev, card, root)
 
-    # -- 19. report ---------------------------------------------------------
+    # -- 20. the data-parallel layer and LPIPS ------------------------------
+    gloo_two_ranks(cfg, dev, card)
+    nccl_one_rank(cfg, dev, card)
+    lpips_card(card)
+
+    # -- 21. report ---------------------------------------------------------
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
                      **siren_module_ms, nerf_density=density_module_ms)

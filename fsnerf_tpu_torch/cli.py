@@ -1,5 +1,12 @@
 """Command line of the port (the flow of fsnerf_tpu/cli.py, both sampling
-strategies).
+strategies; the flags of fsnerf_tpu/config.py, config.py::config_parser).
+
+Run directory. A run writes under <out_dir>/<model>/<dataset>/<scene>/
+n_imgs_<n> (`--out_dir`, default ../out/): config.yaml (the run's whole
+config, which `--config FILE` reads back; flags given beside it override
+it), metrics.jsonl (and wandb with `--use_wandb`), the checkpoints under
+ckpt/, final_metrics.json and the camera path's frames under video/.
+`--debug` writes nothing.
 
 Train (the default): builds the scene's train/val/test splits by seeded
 K-means over camera positions (data/splitter.py: test 15%, then val 15%,
@@ -9,17 +16,16 @@ under `--data_root`/synthetic/`--scene`), `llff` (`--data_root`/llff/
 `sphere` and `lattice` scenes (`--hw` square views), a device-resident ray
 pool of the training views and a seeded NeRF (or SiNeRF); trains it for
 `--n_iters` steps (train/loop.py; the MLP through the fused train kernels
-on a CUDA device); renders the val and test views and prints PSNR/SSIM, the
-test split's as test_psnr/test_ssim, and the run's rates as one JSON line.
-occgrid renders them through the fused ray-march kernel on the trained
-grid, as the reference does, at the query stride that grid admits;
-hierarchical runs the coarse pass through the fused forward MLP
-(ops/kernels/mlp.py) and the fine pass through the ray march over the
-sorted coarse-and-fine union (`--no_fused_render`: through the forward MLP
-too). With `--out_dir`, the run then writes final_metrics.json, its
-checkpoint, and renders the scene's camera path (the Blender orbit, the
-LLFF spiral) to video/rgb_*.png and video/depth_*.png (depth through
-`plasma`).
+on a CUDA device); renders the val and test views and prints PSNR, SSIM
+and LPIPS (None without its weights, eval/lpips.py), the test split's as
+test_*, and the run's rates as one JSON line. occgrid renders them through
+the fused ray-march kernel on the trained grid, as the reference does, at
+the query stride that grid admits; hierarchical runs the coarse pass
+through the fused forward MLP (ops/kernels/mlp.py) and the fine pass
+through the ray march over the sorted coarse-and-fine union
+(`--no_fused_render`: through the forward MLP too). The run then renders
+the scene's camera path (the Blender orbit, the LLFF spiral) to
+video/rgb_*.png and video/depth_*.png (depth through `plasma`).
 
 `--model sinerf` trains and renders SiNeRF the same ways: the MLP through
 the SIREN train kernels, occgrid views through the SIREN ray march, the
@@ -33,39 +39,47 @@ regularizer (`--a`, `--b`, `--func`) and `--ao` the weight regularizer
 density kernel (ops/kernels/mlp.py::nerf_density) at the step's masks.
 `--val` renders the first val view every `--val_rate` steps at the live
 masks (the fused forward MLP, then the compositing kernel
-ops/kernels/volrend.py) and logs its PSNR/SSIM. With `--out_dir`, the run
-writes metrics.jsonl and full-state checkpoints under <out_dir>/ckpt
-(every `--ckpt_every` steps and at the end; `--resume` continues from the
-latest).
+ops/kernels/volrend.py) and logs its PSNR/SSIM. Checkpoints are written
+every `--ckpt_every` steps and at the end; `--resume` continues from the
+latest (both refused with `--debug`).
 
-Render only (`--render_only`): restores the latest checkpoint under
-`--out_dir`, or else loads reference-keyed weights (`--import_torch_ckpt
+Render only (`--render_only`): restores the run directory's latest
+checkpoint, or else loads reference-keyed weights (`--import_torch_ckpt
 nn.pt`, or a seeded init when none are given) and rebuilds the occupancy
 grid (occgrid) with one full refresh from the model's densities; then
-renders the val and test views and, with `--out_dir`, the camera path the
-same way.
+renders the val and test views and the camera path the same way.
+
+Data-parallel (`--distributed`, one process per GPU under torchrun): the
+process joins the group (parallel/mesh.py) before any CUDA call and takes
+cuda:LOCAL_RANK; with more than one rank every step's rays are sharded
+over the ranks (parallel/train_parallel.py), the val, test and path
+frames are rendered tiled, and only rank 0 writes and prints.
 
 The kernels run on the card: the device is `cuda` unless `--device cpu`
-asks for the CPU, where the kernels' plain versions run.
+asks for the CPU, where the kernels' plain versions run. `--export_render`
+(the JAX package's serving artifact) is not ported and is refused.
 
 Run:  python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
-          --data_root ../datasets --n_imgs 8 --white_bkgd --out_dir out/lego
+          --data_root ../datasets --n_imgs 8 --white_bkgd --out_dir out
       python -m fsnerf_tpu_torch.cli --dataset llff --scene fern \
-          --data_root ../datasets --out_dir out/fern
+          --data_root ../datasets --out_dir out
       python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 8 \
           --white_bkgd --strategy hierarchical --n_samples 64 --n_fine 128
       python -m fsnerf_tpu_torch.cli --dataset sphere --model sinerf \
-          --white_bkgd --hw 800 --n_iters 8000
+          --white_bkgd --hw 800 --n_iters 8000 --debug
       python -m fsnerf_tpu_torch.cli --dataset lattice --n_imgs 3 \
-          --white_bkgd --freq_reg_end 7200 --val --out_dir out/fewshot
+          --white_bkgd --freq_reg_end 7200 --val --out_dir out
       python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
-          --data_root ../datasets --out_dir out/lego --render_only
+          --data_root ../datasets --out_dir out --render_only
+      python -m fsnerf_tpu_torch.cli --config out/nerf/synthetic/lego/\
+n_imgs_8/config.yaml --n_iters 200
+      torchrun --nproc_per_node 4 -m fsnerf_tpu_torch.cli --distributed \
+          --dataset synthetic --scene lego --data_root ../datasets
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -73,9 +87,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .config import (Config, DataConfig, EncoderConfig, ModelConfig,
-                     SamplingConfig, TrainConfig)
+from .config import config_from_args, config_parser
 from .data.splitter import Split
 from .ops import occgrid as og
 from .train.loop import COMPACT_STEP, compaction_target
@@ -222,12 +236,13 @@ def make_composite_fn(cfg, device=None):
     return volume_render
 
 
-def render_val_view(model, cfg, grid, split: Split, step: int, device=None):
+def render_val_view(model, cfg, grid, split: Split, step: int, device=None,
+                    mesh=None):
     """The first view of `split` as the in-loop validation renders it
     (fsnerf_tpu/cli.py::_val_chunk): the eval model_fn at the FreeNeRF
     masks of `step`, make_composite_fn's compositing, the live grid at the
-    configured n_compact, chunks of 2 * batch_size rays, no ray march.
-    Returns the image [H, W, 3]."""
+    configured n_compact, chunks of 2 * batch_size rays, no ray march;
+    tiled over `mesh` when given. Returns the image [H, W, 3]."""
     from .render.renderer import render_frame
 
     s = cfg.sampling
@@ -241,20 +256,22 @@ def render_val_view(model, cfg, grid, split: Split, step: int, device=None):
         white_bkgd=split.white_bkgd, chunksize=2 * cfg.train.batch_size,
         n_compact=s.n_compact, early_stop_eps=s.early_stop_eps,
         query_stride=og.grid_query_stride(s, split.aabb, grid),
-        composite_fn=make_composite_fn(cfg, device))
+        composite_fn=make_composite_fn(cfg, device), mesh=mesh)
     return img
 
 
-def make_val_fn(model, cfg, split: Split, device=None):
+def make_val_fn(model, cfg, split: Split, device=None, mesh=None):
     """The train loop's val_fn(state, step) -> {"psnr", "ssim"} of
     render_val_view on the live grid against the view's image (port of
-    the val_fn of fsnerf_tpu/cli.py::main); {} for an empty split."""
+    the val_fn of fsnerf_tpu/cli.py::main); {} for an empty split. With a
+    mesh every rank calls it (the render is tiled)."""
     from .eval.metrics import psnr, ssim
 
     def val_fn(state, step):
         if len(split.poses) == 0:
             return {}
-        img = render_val_view(model, cfg, state.grid, split, step, device)
+        img = render_val_view(model, cfg, state.grid, split, step, device,
+                              mesh)
         gt = torch.as_tensor(split.imgs[0], dtype=torch.float32,
                              device=img.device)
         return {"psnr": float(psnr(img, gt)), "ssim": float(ssim(img, gt))}
@@ -263,10 +280,13 @@ def make_val_fn(model, cfg, split: Split, device=None):
 
 
 def evaluate_split(model, grid, split: Split, cfg,
-                   chunksize: int = EVAL_CHUNK, device=None):
-    """Metrics over a split (fsnerf_tpu/cli.py::evaluate_split).
+                   chunksize: int = EVAL_CHUNK, device=None, mesh=None):
+    """Metrics over a split (fsnerf_tpu/cli.py::evaluate_split): PSNR,
+    SSIM and LPIPS (None without its weights, eval/lpips.py), the frames
+    rendered tiled over `mesh` when given.
 
     Returns (metrics dict with the eval K, uint8 [N, H, W, 3] frames)."""
+    from .eval.lpips import load_lpips
     from .eval.metrics import evaluate_frames
     from .render.renderer import make_chunk_renderer, render_frame
 
@@ -282,7 +302,7 @@ def evaluate_split(model, grid, split: Split, cfg,
         query_stride=q_stride,
         fused_render_fn=make_fused_render_fn(model.state_dict(), cfg,
                                              device=device),
-        composite_fn=make_composite_fn(cfg, device))
+        composite_fn=make_composite_fn(cfg, device), mesh=mesh)
     preds = []
     for pose in split.poses:
         img, _ = render_frame(
@@ -295,7 +315,7 @@ def evaluate_split(model, grid, split: Split, cfg,
     preds = torch.stack(preds)
     metrics = evaluate_frames(
         preds, torch.as_tensor(split.imgs, dtype=torch.float32,
-                               device=device))
+                               device=device), load_lpips(device=device))
     metrics["eval_k"] = eval_k
     frames = torch.clamp(preds * 255, 0, 255).to(torch.uint8)
     return metrics, frames.cpu().numpy()
@@ -373,13 +393,13 @@ def save_video(rgb8: np.ndarray, dep8: np.ndarray, out_dir: str):
 
 
 def render_camera_path(model, cfg, grid, splitter, train_split: Split,
-                       device=None):
+                       device=None, mesh=None):
     """The scene's camera path (splitter.path_poses) rendered as the JAX
     CLI renders it: the train split's camera and bounds, the eval K from
     derive_eval_n_compact on the train split, the fused ray march
     (make_fused_render_fn) where it applies, frames quantized on the
-    device. Returns the uint8 [T, C, H, W] rgb and depth streams of
-    render/renderer.py::render_video."""
+    device, tiled over `mesh` when given. Returns the uint8 [T, C, H, W]
+    rgb and depth streams of render/renderer.py::render_video."""
     from .render.renderer import render_path, render_video
 
     s = cfg.sampling
@@ -395,204 +415,63 @@ def render_camera_path(model, cfg, grid, splitter, train_split: Split,
         query_stride=og.grid_query_stride(s, train_split.aabb, grid),
         fused_render_fn=make_fused_render_fn(model.state_dict(), cfg,
                                              device=device),
-        composite_fn=make_composite_fn(cfg, device))
+        composite_fn=make_composite_fn(cfg, device), mesh=mesh)
     return render_video(frames, d_frames)
 
 
-def parse_args(argv=None):
-    d_enc, d_mod, d_smp = EncoderConfig(), ModelConfig(), SamplingConfig()
-    d_trn, d_dat = TrainConfig(), DataConfig()
-    p = argparse.ArgumentParser(
-        description="Train a NeRF or SiNeRF on a scene's K-means training "
-                    "views and render its val and test views and camera "
-                    "path, or render them from a checkpoint or given "
-                    "weights (PyTorch + CUDA port).", allow_abbrev=False)
-    p.add_argument("--dataset",
-                   choices=["synthetic", "llff", "sphere", "lattice"],
-                   default=d_dat.dataset,
-                   help="a Blender scene, an LLFF scene (NDC rays, 4 grid "
-                        "levels) or a procedural scene")
-    p.add_argument("--scene", default=d_dat.scene,
-                   help="scene directory under <data_root>/synthetic or "
-                        "<data_root>/llff")
-    p.add_argument("--data_root", default=d_dat.data_root)
-    p.add_argument("--factor", type=int, default=d_dat.factor,
-                   help="LLFF: read images_<factor>/, focal / factor")
-    p.add_argument("--bd_factor", type=float, default=d_dat.bd_factor,
-                   help="LLFF: scale the scene so the nearest bound sits at "
-                        "1 / bd_factor")
-    p.add_argument("--no_recenter", action="store_true",
-                   help="LLFF: keep the poses' own frame")
-    p.add_argument("--downsample", type=int, default=d_dat.downsample,
-                   help="Blender: box-filter the images by this factor")
-    p.add_argument("--val_ratio", type=float, default=d_dat.val_ratio)
-    p.add_argument("--test_ratio", type=float, default=d_dat.test_ratio)
-    p.add_argument("--render_only", action="store_true",
-                   help="skip training: render from the latest checkpoint "
-                        "under --out_dir, else from --import_torch_ckpt "
-                        "weights (or the seeded init)")
-    p.add_argument("--import_torch_ckpt", default=None,
-                   help="reference nn.pt state dict (default: seeded init)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (the default) or cpu, where the kernels' "
-                        "plain versions run")
-    p.add_argument("--seed", type=int, default=d_trn.seed)
-    p.add_argument("--hw", type=int, default=64,
-                   help="image side of the procedural scenes")
-    p.add_argument("--n_imgs", type=int, default=d_dat.n_imgs,
-                   help="training views")
-    p.add_argument("--white_bkgd", action="store_true")
-    p.add_argument("--out_dir", default="",
-                   help="write metrics.jsonl, the checkpoints (ckpt/), "
-                        "final_metrics.json and the camera path's frames "
-                        "(video/) here")
-    p.add_argument("--model", choices=["nerf", "sinerf"],
-                   default=d_mod.model)
-    p.add_argument("--dtype", choices=["bfloat16", "float32"],
-                   default=d_trn.dtype, help="the module's compute dtype")
-    p.add_argument("--n_layers", type=int, default=d_mod.n_layers)
-    p.add_argument("--d_filter", type=int, default=d_mod.d_filter)
-    p.add_argument("--skip", default=",".join(map(str, d_mod.skip)))
-    p.add_argument("--density_activation", default=d_mod.density_activation,
-                   choices=["none", "relu", "trunc_exp"])
-    p.add_argument("--fused_kernel", action="store_true", default=None,
-                   help="train and render through the fused MLP kernels' "
-                        "plain versions on the CPU too (default: on for "
-                        "CUDA devices only)")
-    p.add_argument("--no_fused_render", action="store_true",
-                   help="render without the fused ray-march kernel")
-    p.add_argument("--n_freqs", type=int, default=d_enc.n_freqs)
-    p.add_argument("--n_freqs_views", type=int, default=d_enc.n_freqs_views)
-    p.add_argument("--strategy", choices=["occgrid", "hierarchical"],
-                   default=d_smp.strategy)
-    p.add_argument("--n_samples", type=int, default=d_smp.n_samples,
-                   help="occgrid lattice samples, or hierarchical coarse "
-                        "samples")
-    p.add_argument("--n_fine", type=int, default=d_smp.n_fine,
-                   help="hierarchical inverse-CDF samples")
-    p.add_argument("--n_compact", type=int, default=d_smp.n_compact)
-    p.add_argument("--grid_resolution", type=int,
-                   default=d_smp.grid_resolution)
-    p.add_argument("--render_step_size", type=float,
-                   default=d_smp.render_step_size)
-    p.add_argument("--early_stop_eps", type=float,
-                   default=d_smp.early_stop_eps)
-    p.add_argument("--n_iters", type=int, default=d_trn.n_iters)
-    p.add_argument("--batch_size", type=int, default=d_trn.batch_size)
-    p.add_argument("--lro", type=float, default=d_trn.lro)
-    g = p.add_argument_group("few-shot regularization")
-    g.add_argument("--freq_reg_end", type=int, default=d_enc.freq_reg_end,
-                   help="FreeNeRF: steps over which the frequency masks "
-                        "anneal (0 = off)")
-    g.add_argument("--grid_hold_steps", type=int,
-                   default=d_smp.grid_hold_steps,
-                   help="keep every grid cell occupied until this step; "
-                        "-1 = auto (freq_reg_end when annealing)")
-    g.add_argument("--ao", type=float, default=d_trn.ao,
-                   help="weight regularizer's alpha (off when not given)")
-    g.add_argument("--reg_ratio", type=float, default=d_trn.reg_ratio,
-                   help="the weight regularizer runs while step < "
-                        "reg_ratio * Td")
-    g.add_argument("--reg", choices=["l1", "l2"], default=d_trn.reg)
-    g.add_argument("--Td", type=int, default=d_trn.Td)
-    g.add_argument("--a", type=float, default=d_trn.occ_a,
-                   help="occlusion regularizer's amplitude")
-    g.add_argument("--b", type=float, default=d_trn.occ_b,
-                   help="occlusion regularizer's decay")
-    g.add_argument("--func", choices=["linear", "exp"],
-                   default=d_trn.occ_func,
-                   help="occlusion regularizer's weighting")
-    g.add_argument("--beta", type=float, default=d_trn.beta,
-                   help="turns the occlusion regularizer on (it gates the "
-                        "term and does not scale it)")
-    g = p.add_argument_group("validation and checkpoints")
-    g.add_argument("--val", action="store_true",
-                   help="render the first held-out view every --val_rate "
-                        "steps and log its PSNR/SSIM")
-    g.add_argument("--val_rate", type=int, default=d_trn.val_rate)
-    g.add_argument("--ckpt_every", type=int, default=d_trn.ckpt_every,
-                   help="checkpoint every this many steps under --out_dir "
-                        "(0 = only at the end)")
-    g.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint under "
-                        "--out_dir")
-    return p.parse_args(argv)
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line's namespace (config.py::config_parser: the JAX
+    package's flags, and the port's --hw and --device)."""
+    return config_parser().parse_args(argv)
 
 
-def grid_levels(dataset: str) -> int:
-    """The occupancy grid's levels for a dataset: 4 for LLFF (its NDC scene
-    reaches far past the base AABB), else 1 (fsnerf_tpu/config.py)."""
-    return 4 if dataset == "llff" else 1
-
-
-def config_from_args(args) -> Config:
-    cfg = Config()
-    skip = tuple(int(s) for s in args.skip.split(",") if s.strip())
-    return cfg.replace(
-        encoder=dataclasses.replace(cfg.encoder, n_freqs=args.n_freqs,
-                                    n_freqs_views=args.n_freqs_views,
-                                    freq_reg_end=args.freq_reg_end),
-        model=dataclasses.replace(
-            cfg.model, model=args.model, n_layers=args.n_layers,
-            d_filter=args.d_filter,
-            skip=skip, density_activation=args.density_activation,
-            fused_kernel=args.fused_kernel,
-            fused_render=not args.no_fused_render),
-        data=DataConfig(dataset=args.dataset, scene=args.scene,
-                        n_imgs=args.n_imgs, white_bkgd=args.white_bkgd,
-                        factor=args.factor, bd_factor=args.bd_factor,
-                        no_recenter=args.no_recenter,
-                        data_root=args.data_root, val_ratio=args.val_ratio,
-                        test_ratio=args.test_ratio,
-                        downsample=args.downsample),
-        sampling=dataclasses.replace(
-            cfg.sampling, strategy=args.strategy, n_samples=args.n_samples,
-            grid_levels=grid_levels(args.dataset),
-            n_fine=args.n_fine, n_compact=args.n_compact,
-            grid_resolution=args.grid_resolution,
-            render_step_size=args.render_step_size,
-            early_stop_eps=args.early_stop_eps,
-            grid_hold_steps=args.grid_hold_steps),
-        train=dataclasses.replace(
-            cfg.train, n_iters=args.n_iters, batch_size=args.batch_size,
-            lro=args.lro, seed=args.seed, dtype=args.dtype, ao=args.ao,
-            reg_ratio=args.reg_ratio, reg=args.reg, Td=args.Td,
-            occ_a=args.a, occ_b=args.b, occ_func=args.func, beta=args.beta,
-            val=args.val, val_rate=args.val_rate,
-            ckpt_every=args.ckpt_every, resume=args.resume))
+def run_dir(cfg) -> str:
+    """The run's directory, <out_dir>/<model>/<dataset>/<scene>/
+    n_imgs_<n> (fsnerf_tpu/cli.py::main)."""
+    return os.path.normpath(os.path.join(
+        cfg.log.out_dir, cfg.model.model, cfg.data.dataset, cfg.data.scene,
+        f"n_imgs_{cfg.data.n_imgs}"))
 
 
 def run_training(model, cfg, pool, train_split: Split, val_split: Split,
-                 device, out_dir: str = ""):
+                 device, out_dir: str = "", mesh=None):
     """Train on the train split's ray pool, validating on the first val
-    view when cfg.train.val is set. With an out_dir: metrics.jsonl there,
-    and checkpoints under <out_dir>/ckpt every cfg.train.ckpt_every steps
-    and at the end, the run continuing from the latest one when
-    cfg.train.resume is set.
+    view when cfg.train.val is set. With an out_dir: metrics.jsonl there
+    (and wandb with cfg.log.use_wandb), and checkpoints under <out_dir>/ckpt
+    every cfg.train.ckpt_every steps and at the end, the run continuing
+    from the latest one when cfg.train.resume is set. With a mesh every
+    rank trains (parallel/train_parallel.py) and only rank 0 writes.
 
-    Returns (final TrainState, dict of training numbers)."""
+    Returns (final TrainState, its MetricsLogger, still open for the run's
+    summary and videos, dict of training numbers)."""
     from .train.loop import MetricsLogger, train
     from .train.step import init_state, make_optimizer
     from .utils.checkpoint import Checkpointer
 
-    ckpt = Checkpointer(os.path.join(out_dir, "ckpt")) if out_dir else None
+    writer = mesh is None or mesh.rank == 0
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    ckpt = Checkpointer(ckpt_dir) if out_dir and writer else None
     state = None
-    if cfg.train.resume and ckpt is not None:
-        state = ckpt.restore(init_state(model, cfg,
-                                        make_optimizer(cfg, model),
-                                        train_split.aabb, device))
+    if cfg.train.resume and out_dir and os.path.isdir(ckpt_dir):
+        # every rank restores the same file
+        state = Checkpointer(ckpt_dir).restore(init_state(
+            model, cfg, make_optimizer(cfg, model), train_split.aabb,
+            device))
     start = 0 if state is None else state.step
-    val_fn = make_val_fn(model, cfg, val_split, device) if cfg.train.val \
-        else None
-    logger = MetricsLogger(out_dir or None)
+    val_fn = make_val_fn(model, cfg, val_split, device, mesh) \
+        if cfg.train.val else None
+    run_name = (f"{cfg.model.model}_{cfg.data.dataset}_img{cfg.data.n_imgs}"
+                f"_layer{cfg.model.n_layers}")
+    logger = MetricsLogger((out_dir or None) if writer else None,
+                           use_wandb=cfg.log.use_wandb and writer,
+                           run_name=run_name)
     t0 = time.perf_counter()
     state = train(model, cfg, pool, train_split, state=state, logger=logger,
-                  checkpointer=ckpt, val_fn=val_fn)
+                  checkpointer=ckpt, val_fn=val_fn, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    logger.close()
-    return state, {
+    return state, logger, {
         "steps": state.step, "resumed_from": start,
         "train_seconds": seconds,
         "rays_per_sec": (state.step - start) * cfg.train.batch_size
@@ -623,13 +502,14 @@ def restored_grid(model, cfg, train_split: Split, out_dir: str, device):
 
 
 def evaluate_val_test(model, grid, val_split: Split, test_split: Split, cfg,
-                      device):
+                      device, mesh=None):
     """evaluate_split on the val split, and on the test split when it has
     views, its metrics under test_ keys (fsnerf_tpu/cli.py::main)."""
-    metrics, _ = evaluate_split(model, grid, val_split, cfg, device=device)
+    metrics, _ = evaluate_split(model, grid, val_split, cfg, device=device,
+                                mesh=mesh)
     if len(test_split.imgs) > 0:
         t_metrics, _ = evaluate_split(model, grid, test_split, cfg,
-                                      device=device)
+                                      device=device, mesh=mesh)
         metrics.update({f"test_{k}": v for k, v in t_metrics.items()})
     return metrics
 
@@ -639,22 +519,42 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _refuse(message: str) -> int:
+    print(f"fsnerf_tpu_torch.cli: {message}", file=sys.stderr)
+    return 2
+
+
 def main(argv=None) -> int:
     from .utils.interop import load_state_dict_file
 
     args = parse_args(argv)
+    cfg = config_from_args(argv)
     device = torch.device(args.device)
+    if cfg.log.export_render:
+        return _refuse("--export_render: the serving artifact is not ported "
+                       "yet")
+    if (cfg.train.resume or cfg.train.ckpt_every) and cfg.log.debug:
+        return _refuse("--resume and --ckpt_every need the run directory, "
+                       "which --debug does not write")
+    if cfg.parallel.distributed:
+        # before any CUDA call: NCCL binds this process to its GPU
+        from .parallel.mesh import distributed_init, local_rank
+        distributed_init("gloo" if device.type == "cpu" else None)
+        if device.type == "cuda":
+            device = torch.device("cuda", local_rank())
     if device.type == "cuda" and not torch.cuda.is_available():
-        print("fsnerf_tpu_torch.cli: no CUDA device is available; pass "
-              "--device cpu to run the kernels' plain versions on the CPU",
-              file=sys.stderr)
-        return 2
-    if (args.resume or args.ckpt_every) and not args.out_dir:
-        print("fsnerf_tpu_torch.cli: --resume and --ckpt_every need "
-              "--out_dir, where the checkpoints live", file=sys.stderr)
-        return 2
+        return _refuse("no CUDA device is available; pass --device cpu to "
+                       "run the kernels' plain versions on the CPU")
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.parallel.n_devices, device=device)
+    writer = mesh is None or mesh.rank == 0
+    out_dir = "" if cfg.log.debug else run_dir(cfg)
+    if out_dir and writer:
+        os.makedirs(out_dir, exist_ok=True)
+        cfg.save_yaml(os.path.join(out_dir, "config.yaml"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs stay f32
-    cfg = config_from_args(args)
     t0 = time.perf_counter()
     splitter, (train_split, val_split, test_split), model, pool = \
         build_everything(cfg, args.hw, device)
@@ -663,38 +563,48 @@ def main(argv=None) -> int:
                          "val": len(val_split.imgs),
                          "test": len(test_split.imgs)},
                "data_seconds": time.perf_counter() - t0}
-    if args.import_torch_ckpt:
-        model.load_state_dict(load_state_dict_file(args.import_torch_ckpt))
-    if args.render_only:
-        grid, restored = restored_grid(model, cfg, train_split, args.out_dir,
+    if cfg.train.import_torch_ckpt:
+        model.load_state_dict(load_state_dict_file(cfg.train.import_torch_ckpt))
+    logger = None
+    if cfg.log.render_only:
+        grid, restored = restored_grid(model, cfg, train_split, out_dir,
                                        device)
         numbers["restored_step"] = restored
     else:
-        state, trained = run_training(model, cfg, pool, train_split,
-                                      val_split, device, args.out_dir)
+        state, logger, trained = run_training(
+            model, cfg, pool, train_split, val_split, device, out_dir, mesh)
         grid = state.grid
         numbers.update(trained)
     t0 = time.perf_counter()
     metrics = evaluate_val_test(model, grid, val_split, test_split, cfg,
-                                device)
+                                device, mesh)
     _sync(device)
     n_eval = len(val_split.imgs) + len(test_split.imgs)
     numbers["eval_seconds_per_view"] = (time.perf_counter() - t0) / n_eval
-    if args.out_dir:
-        if not args.render_only:
-            with open(os.path.join(args.out_dir, "final_metrics.json"),
-                      "w") as fh:
-                json.dump(metrics, fh)
-        t0 = time.perf_counter()
-        rgb8, dep8 = render_camera_path(model, cfg, grid, splitter,
-                                        train_split, device)
-        seconds = time.perf_counter() - t0
-        save_video(rgb8, dep8, os.path.join(args.out_dir, "video"))
-        numbers.update(path_frames=len(rgb8),
-                       path_frames_per_sec=len(rgb8) / seconds)
+    if out_dir and writer and not cfg.log.render_only:
+        with open(os.path.join(out_dir, "final_metrics.json"), "w") as fh:
+            json.dump(metrics, fh)
+    if logger:
+        logger.log_summary(metrics)
+    t0 = time.perf_counter()
+    rgb8, dep8 = render_camera_path(model, cfg, grid, splitter, train_split,
+                                    device, mesh)
+    seconds = time.perf_counter() - t0
+    numbers.update(path_frames=len(rgb8),
+                   path_frames_per_sec=len(rgb8) / seconds)
+    if out_dir and writer:
+        save_video(rgb8, dep8, os.path.join(out_dir, "video"))
+    if logger:
+        logger.log_video("rgb_video", rgb8)
+        logger.log_video("depth_video", dep8)
+        logger.close()
+    if not writer:
+        return 0
     metrics.update(numbers)
     metrics["device"] = (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")
+    if mesh is not None:
+        metrics["ranks"] = mesh.world
     print(json.dumps(metrics))
     return 0
 

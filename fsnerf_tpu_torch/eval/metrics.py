@@ -1,4 +1,5 @@
-"""Image quality metrics (port of fsnerf_tpu/eval/metrics.py, without LPIPS).
+"""Image quality metrics (port of fsnerf_tpu/eval/metrics.py; LPIPS in
+lpips.py).
 
 PSNR: -10 log10(MSE) with the MSE taken jointly over all frames.
 SSIM: skimage.metrics.structural_similarity with gaussian_weights=True,
@@ -73,10 +74,16 @@ def ssim(img0: torch.Tensor, img1: torch.Tensor,
     return per_channel.mean()
 
 
-def evaluate_frames(pred: torch.Tensor, target: torch.Tensor) -> dict:
-    """dict(psnr, ssim, lpips=None) over [F, H, W, 3] stacks (LPIPS is not
-    ported: its network weights are not part of the repository)."""
+def evaluate_frames(pred: torch.Tensor, target: torch.Tensor,
+                    lpips_fn=None) -> dict:
+    """dict(psnr, ssim, lpips) over [F, H, W, 3] stacks; lpips is the mean
+    of lpips_fn(pred[i], target[i]) (eval/lpips.py::load_lpips), None
+    without one."""
     p = psnr(pred, target)
     s = torch.stack([ssim(pred[i], target[i])
                      for i in range(pred.shape[0])]).mean()
-    return {"psnr": float(p), "ssim": float(s), "lpips": None}
+    lp = None
+    if lpips_fn is not None:
+        lp = float(torch.stack([lpips_fn(pred[i], target[i])
+                                for i in range(pred.shape[0])]).mean())
+    return {"psnr": float(p), "ssim": float(s), "lpips": lp}

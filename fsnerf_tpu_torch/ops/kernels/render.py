@@ -449,14 +449,20 @@ def pick_chunk_s(k: int, want: int = 8) -> int:
     return 1
 
 
+def march_block_rows(n_rays: int, block_rows: int = 16) -> int:
+    """The ray block of a march over n_rays: min(block_rows, max(8,
+    n_rays)), as the TPU renderer picks it."""
+    return min(block_rows, max(8, n_rays))
+
+
 def pad_for_march(x, dirs, t, deltas, mask, block_rows: int = 16,
                   chunk_s: int = 8):
     """Pad rays to the block size (padded rays carry mask 0) and pick the
-    chunk: bR = min(block_rows, max(8, R)), cs = pick_chunk_s(K), as the
-    TPU renderer does. Returns ((x, dirs, t, deltas, mask) padded, bR, cs)."""
+    chunk: bR = march_block_rows(R), cs = pick_chunk_s(K), as the TPU
+    renderer does. Returns ((x, dirs, t, deltas, mask) padded, bR, cs)."""
     R, K, _ = x.shape
     cs = pick_chunk_s(K, chunk_s)
-    bR = min(block_rows, max(8, R))
+    bR = march_block_rows(R, block_rows)
     pad = _round_up(max(R, bR), bR) - R
 
     def p(a):
@@ -510,6 +516,7 @@ def _renderer(march, params, early_stop_eps: float, block_rows: int,
         return {"rgb": rgb, "opacity": stats[:, 3], "depth": stats[:, 4],
                 "trans_final": trans_final}
 
+    render_fn.block_rows = block_rows
     return render_fn
 
 

@@ -226,21 +226,28 @@ def refresh_plan(step: int, warmup_steps: int = 256, update_parts: int = 4,
 
 def _refreshed(grid: OccGrid, density_fn, part: Optional[int], hold: bool,
                render_step_size: float, occ_thre: float, ema_decay: float,
-               update_parts: int, jitter):
+               update_parts: int, jitter, shard=None):
     """The EMA values and threshold after one refresh (see update)."""
     res, L, n = grid.resolution, grid.levels, grid.n_cells
     dev = grid.occs.device
 
-    def eval_level(lv: int, flat_idx: torch.Tensor) -> torch.Tensor:
-        ab = level_aabb(grid.base_aabb, lv)
-        u = None if jitter is None else jitter[lv]
-        x = _cell_positions(flat_idx, ab, res, u)
+    def evaluate(x: torch.Tensor) -> torch.Tensor:
         # row-independent, so evaluating in chunks bounds the transient
         # activations of a full-resolution refresh without changing a bit;
         # the product stays in the density's dtype, as in the reference
         return torch.cat([
             (density_fn(xc) * render_step_size).to(torch.float32)
             for xc in torch.split(x, _EVAL_CHUNK)])
+
+    def eval_level(lv: int, flat_idx: torch.Tensor) -> torch.Tensor:
+        ab = level_aabb(grid.base_aabb, lv)
+        u = None if jitter is None else jitter[lv]
+        x = _cell_positions(flat_idx, ab, res, u)
+        if shard is not None and x.shape[0] % shard.world == 0:
+            # the cells and their jitter are the same on every rank; each
+            # evaluates its contiguous share and the shares are gathered
+            return shard.all_gather(evaluate(x[shard.rows(x.shape[0])]))
+        return evaluate(x)
 
     if part is None:
         idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -299,13 +306,23 @@ def update_(
     ema_decay: float = 0.95,
     update_parts: int = 4,
     jitter: Optional[Sequence[torch.Tensor]] = None,
+    shard=None,
 ) -> OccGrid:
     """update() in place, for the refresh refresh_plan names (part, hold):
     the new EMA values, query tables, binaries and threshold are written
     into the grid's own tensors (set_occs_), bitwise what update() returns.
-    A CUDA graph that captured a step reads the tables it refreshed."""
+    A CUDA graph that captured a step reads the tables it refreshed.
+
+    shard: a data-parallel group (parallel/mesh.py::Mesh; the JAX update's
+    shard_axes). The cells and jitter are the same on every rank; each
+    rank evaluates a contiguous 1/world of each level's refreshed cells and
+    the values are gathered, so the grid stays replicated at a world-th of
+    the density work per rank. Per-row densities are independent of the
+    rows beside them, so this is the replicated refresh's result. Where
+    the refreshed cells do not split evenly, every rank evaluates them
+    all, as the JAX package does."""
     occs, thre = _refreshed(grid, density_fn, part, hold, render_step_size,
-                            occ_thre, ema_decay, update_parts, jitter)
+                            occ_thre, ema_decay, update_parts, jitter, shard)
     return set_occs_(grid, occs, thre)
 
 

@@ -266,6 +266,54 @@ def _render_rays_dispatch(model_fn, rays_o, rays_d, white_bkgd, *, strategy,
     return fine
 
 
+def render_rays_tiled(render_fn: Callable, rays_o: torch.Tensor,
+                      rays_d: torch.Tensor, mesh):
+    """Rays rendered rank by rank (port of fsnerf_tpu/parallel/
+    train_parallel.py::render_rays_tiled): the rays are padded to a
+    multiple of the group's size with rays of direction (0, 0, -1), as
+    render_frame pads a frame, this rank renders its rows through
+    render_fn(rays_o, rays_d) -> a tuple of per-ray tensors, and every
+    rank's rows are gathered. mesh: parallel/mesh.py::Mesh."""
+    R = rays_o.shape[0]
+    pad = -R % mesh.world
+    if pad:
+        rays_o = torch.cat([rays_o, rays_o.new_zeros((pad, 3))])
+        rays_d = torch.cat([rays_d, rays_d.new_tensor([[0.0, 0.0, -1.0]])
+                            .expand(pad, 3)])
+    rows = mesh.rows(R + pad)
+    out = render_fn(rays_o[rows], rays_d[rows])
+    return tuple(mesh.all_gather(v)[:R] for v in out)
+
+
+def tile_march(render_fn: Callable, mesh) -> Callable:
+    """The fused ray-march renderer `render_fn` (ops/kernels/render.py)
+    marched rank by rank: its inputs, already sorted, are padded with
+    masked-out rays to a multiple of the group's size times the march's
+    ray block, each rank marches its rows and the outputs are gathered.
+    The block is the one the single-GPU march takes for these rays
+    (pad_for_march's rule) and each rank's share is a whole number of
+    blocks, so every block holds the rays, and the padding, it holds on
+    one GPU: the per-block early exit decides alike and the gathered
+    result is the single-GPU march's."""
+    from ..ops.kernels.render import march_block_rows
+
+    def tiled(x, dirs, t, deltas, mask, bkgd=0.0):
+        R = x.shape[0]
+        step = mesh.world * march_block_rows(R, render_fn.block_rows)
+        pad = -R % step
+
+        def p(a):
+            return (torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+                    if pad else a)
+
+        rows = mesh.rows(R + pad)
+        out = render_fn(*(p(a)[rows] for a in (x, dirs, t, deltas, mask)),
+                        bkgd)
+        return {k: mesh.all_gather(v)[:R] for k, v in out.items()}
+
+    return tiled
+
+
 def make_chunk_renderer(
     model_fn: Optional[Callable],
     *,
@@ -282,8 +330,19 @@ def make_chunk_renderer(
     query_stride: int = 1,
     fused_render_fn: Optional[Callable] = None,
     composite_fn: Callable = volume_render,
+    mesh=None,
 ) -> Callable:
-    """(rays_o, rays_d) -> (rgb, depth) chunk renderer of one strategy."""
+    """(rays_o, rays_d) -> (rgb, depth) chunk renderer of one strategy.
+
+    mesh: a data-parallel group (parallel/mesh.py::Mesh) that renders each
+    chunk tiled. With the fused ray march every rank computes the chunk's
+    samples and their depth-coherence sort, and the march, the kernel that
+    takes the time, is split over the ranks at its block boundaries
+    (tile_march), so the chunk is bitwise the single-GPU one; otherwise
+    the chunk's rays are split (render_rays_tiled)."""
+    if mesh is not None and fused_render_fn is not None:
+        fused_render_fn = tile_march(fused_render_fn, mesh)
+
     @torch.no_grad()
     def render(rays_o, rays_d):
         out = _render_rays_dispatch(
@@ -294,6 +353,10 @@ def make_chunk_renderer(
             fused_render_fn=fused_render_fn, composite_fn=composite_fn)
         return out["rgb"], out["depth"]
 
+    if mesh is not None and fused_render_fn is None:
+        return torch.no_grad()(
+            lambda rays_o, rays_d: render_rays_tiled(render, rays_o, rays_d,
+                                                     mesh))
     return render
 
 
@@ -318,10 +381,13 @@ def render_frame(
     chunk_renderer: Optional[Callable] = None,
     fused_render_fn: Optional[Callable] = None,
     composite_fn: Callable = volume_render,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a full H x W frame from one pose [4, 4] or [3, 4] (on the
     pose's device) in chunks of `chunksize` rays (at most 16384 under
     occgrid); the last chunk is padded with rays of direction (0, 0, -1).
+    mesh: each chunk rendered tiled over a data-parallel group
+    (make_chunk_renderer), in the single-GPU chunks.
 
     Returns img [H, W, 3] and depth [H, W] clamped to [near, far]."""
     H, W, _ = hwf
@@ -347,7 +413,8 @@ def render_frame(
         n_fine=n_fine, render_step_size=render_step_size,
         white_bkgd=white_bkgd, near=near, far=far, n_compact=n_compact,
         early_stop_eps=early_stop_eps, query_stride=query_stride,
-        fused_render_fn=fused_render_fn, composite_fn=composite_fn)
+        fused_render_fn=fused_render_fn, composite_fn=composite_fn,
+        mesh=mesh)
     imgs, depths = [], []
     for c in range(n_chunks):
         sl = slice(c * chunksize, (c + 1) * chunksize)
@@ -370,7 +437,7 @@ def render_path(
     **frame_kwargs,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Render a sequence of poses [F, 4, 4] or [F, 3, 4] with one chunk
-    renderer.
+    renderer (tiled over frame_kwargs' mesh, if any).
 
     Returns frames [F, H, W, 3] and depths [F, H, W] as float32 numpy, or,
     with `compact_transfer`, quantized on the device before they are copied
@@ -379,7 +446,7 @@ def render_path(
                        if k in ("strategy", "grid", "n_samples", "n_fine",
                                 "render_step_size", "white_bkgd", "n_compact",
                                 "early_stop_eps", "query_stride",
-                                "fused_render_fn", "composite_fn")}
+                                "fused_render_fn", "composite_fn", "mesh")}
     chunk_renderer = make_chunk_renderer(model_fn, near=near, far=far,
                                          **renderer_kwargs)
     frames, d_frames = [], []

@@ -136,24 +136,53 @@ class DivergenceGuard:
 
 class MetricsLogger:
     """JSON-lines metrics sink (`<out_dir>/metrics.jsonl`; none without an
-    out_dir)."""
+    out_dir) and, with use_wandb, wandb too where it is installed (the
+    reference logs to wandb only)."""
 
-    def __init__(self, out_dir: Optional[str]):
+    def __init__(self, out_dir: Optional[str], use_wandb: bool = False,
+                 run_name: str = "run"):
         self.fh = None
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             self.fh = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+        self.wandb = None
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError:
+                _log.warning("--use_wandb: wandb is not installed; logging "
+                             "to metrics.jsonl only")
+            else:
+                wandb.init(project="fsnerf-tpu", name=run_name)
+                self.wandb = wandb
 
     def log(self, step: int, metrics: dict):
+        rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         if self.fh:
-            rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
             self.fh.write(json.dumps(rec) + "\n")
             self.fh.flush()
+        if self.wandb:
+            self.wandb.log(rec, step=step)
+
+    def log_summary(self, metrics: dict):
+        """The run's final metrics (wandb only)."""
+        if self.wandb:
+            self.wandb.log({k: v for k, v in metrics.items()
+                            if v is not None})
+
+    def log_video(self, name: str, frames_tchw, fps: int = 30):
+        """A rendered uint8 [T, C, H, W] video (wandb only)."""
+        if self.wandb:
+            self.wandb.log({name: self.wandb.Video(frames_tchw, fps=fps,
+                                                   format="mp4")})
 
     def close(self):
         if self.fh:
             self.fh.close()
             self.fh = None
+        if self.wandb:
+            self.wandb.finish()
+            self.wandb = None
 
 
 def chunk_length(log_every: int) -> int:
@@ -167,7 +196,7 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
           logger: Optional[MetricsLogger] = None,
           log_every: int = 100, checkpointer=None,
           val_fn: Optional[Callable] = None,
-          graphs: Optional[bool] = None) -> TrainState:
+          graphs: Optional[bool] = None, mesh=None) -> TrainState:
     """Run steps until cfg.train.n_iters.
 
     Args: model, the NeRF module on the pool's device; pool: RayPool;
@@ -177,11 +206,24 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
     run every cfg.train.val_rate steps when cfg.train.val is set, its
     metrics logged with a "val_" prefix; graphs: make_train_chunk's (None:
     CUDA graphs on the card, eager steps on the CPU; False: eager steps on
-    the card, the reference the graphs are bitwise equal to). Returns the
-    final TrainState."""
+    the card, the reference the graphs are bitwise equal to).
+
+    mesh: a data-parallel group (parallel/mesh.py::Mesh): the state is
+    replicated from rank 0 and each step is the parallel step
+    (parallel/train_parallel.py; graphed under NCCL on the card, eager
+    under gloo). Every rank runs the loop and val_fn (its render is
+    tiled); only rank 0 logs and checkpoints (the other ranks' logger
+    and checkpointer are ignored). The chunk boundaries count
+    cfg.train.ckpt_every on every rank alike. Returns the final
+    TrainState."""
     if state is None:
         state = init_state(model, cfg, make_optimizer(cfg, model),
                            scene.aabb, pool.device)
+    if mesh is not None:
+        from ..parallel.mesh import replicate
+        replicate(state, mesh)
+        if mesh.rank != 0:
+            logger = checkpointer = None
     compactor = CompactionController(cfg)
     if state.ladder:
         compactor.load_state_dict(state.ladder)
@@ -191,14 +233,20 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
     val_on = bool(t_cfg.val and val_fn)
     ckpt_on = bool(checkpointer and t_cfg.ckpt_every)
     # the ladder observes at a common divisor of every callback boundary,
-    # as the JAX loop sizes its lax.scan chunks
+    # as the JAX loop sizes its lax.scan chunks; the ranks of a mesh
+    # observe at the same steps whichever of them checkpoints
     bounds = [max(1, log_every)]
     bounds += [max(1, t_cfg.val_rate)] if val_on else []
-    bounds += [max(1, t_cfg.ckpt_every)] if ckpt_on else []
+    if ckpt_on or (mesh is not None and t_cfg.ckpt_every):
+        bounds.append(max(1, t_cfg.ckpt_every))
     chunk = chunk_length(math.gcd(*bounds))
     n_iters = t_cfg.n_iters
 
     def build(c):
+        if mesh is not None:
+            from ..parallel.train_parallel import make_parallel_train_step
+            return make_parallel_train_step(state.model, c, state.optimizer,
+                                            pool, scene, mesh)
         return make_train_step(state.model, c, state.optimizer, pool, scene)
 
     step_fn = build(compactor.apply(cfg))

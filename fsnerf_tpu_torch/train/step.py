@@ -308,11 +308,13 @@ def step_kind(cfg, step: int) -> StepKind:
 
 
 def refresh_grid(model, cfg, state: TrainState, kind: StepKind, draws,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
     """The occupancy-grid EMA refresh `kind` names, in place
     (og.update_): the densities of make_density_fn at the FreeNeRF mask of
     the device step, at jittered cell positions, all cells or one part,
-    every cell occupied while held. A no-op for a kind without one."""
+    every cell occupied while held. A no-op for a kind without one. With a
+    `mesh` (parallel/mesh.py) the cells' densities are evaluated rank by
+    rank and gathered (og.update_'s shard)."""
     if kind.refresh is None:
         return
     s, grid = cfg.sampling, state.grid
@@ -324,7 +326,31 @@ def refresh_grid(model, cfg, state: TrainState, kind: StepKind, draws,
         og.update_(grid, make_density_fn(model, cfg, pos_mask, device),
                    part, kind.hold, render_step_size=s.render_step_size,
                    occ_thre=s.occ_thre, ema_decay=s.ema_decay,
-                   update_parts=s.update_parts, jitter=jitter)
+                   update_parts=s.update_parts, jitter=jitter, shard=mesh)
+
+
+def _end_failed_capture(generator: torch.Generator,
+                        stream: torch.cuda.Stream,
+                        current: torch.cuda.Stream) -> None:
+    """Make the process usable again after a capture failed.
+
+    When a capture fails, torch.cuda.graph's exit raises from capture_end
+    before it takes the generators out of their capture state, and before
+    it restores the current stream: torch's default CUDA generator and the
+    state's would then refuse every draw outside a graph ("Offset
+    increment outside graph capture"). A capture that succeeds ends that
+    state, so one of a trivial op is made with the state's generator
+    registered (the default one always is), on the stream the failed
+    capture used, and the current stream is set back. A capture never
+    advances a generator's offset (replays do), so the state's generator
+    then draws what it would have drawn with no capture attempted."""
+    torch.cuda.set_stream(current)
+    repair = torch.cuda.CUDAGraph()
+    repair.register_generator_state(generator)
+    scratch = torch.zeros(1, device=stream.device)
+    with torch.cuda.graph(repair, stream=stream):
+        scratch.add_(1)
+    torch.cuda.set_stream(current)
 
 
 class StepGraph:
@@ -345,9 +371,16 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(state.generator)
         before = launch_counts()
+        current = torch.cuda.current_stream(stream.device)
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.metrics = train_step.run(state, kind)
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.metrics = train_step.run(state, kind)
+        except RuntimeError:
+            _end_failed_capture(state.generator, stream, current)
+            add_launches({k: before[k] - n
+                          for k, n in launch_counts().items()})
+            raise
         self.capture_s = time.perf_counter() - t0
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
@@ -381,6 +414,7 @@ class TrainStep:
         self.graphs: Dict[StepKind, StepGraph] = {}
         self._warm = set()              # kinds run once eagerly
         self._stream = None             # the capture stream
+        self.mesh = None                # the data-parallel group, if any
 
     @property
     def graphed(self) -> bool:
@@ -390,6 +424,17 @@ class TrainStep:
     def kind(self, step: int) -> StepKind:
         return step_kind(self.cfg, step)
 
+    def draw(self, draws, pool):
+        """The step's (batch, render draws)."""
+        n = self.cfg.train.batch_size
+        batch = pool.gather(draws.batch_indices(pool, n))
+        return batch, render_draws(self.cfg, draws, n, self.device)
+
+    def reduce(self, loss, main_mse, spr, nv):
+        """The step's gradients and metrics as the update reads them (the
+        parallel step averages them over the ranks)."""
+        return loss, main_mse, spr, nv
+
     def run(self, state: TrainState, kind: StepKind, pool=None,
             draws=None) -> Dict[str, torch.Tensor]:
         """The device work of one step of `kind`: draws, loss, gradients,
@@ -397,13 +442,13 @@ class TrainStep:
         cfg = self.cfg
         pool = self.pool if pool is None else pool
         draws = GeneratorDraws(state.generator) if draws is None else draws
-        batch = pool.gather(draws.batch_indices(pool, cfg.train.batch_size))
-        render_u = render_draws(cfg, draws, cfg.train.batch_size,
-                                self.device)
+        batch, render_u = self.draw(draws, pool)
         self.optimizer.zero_grad(set_to_none=True)
         loss, (main_mse, spr, nv) = self.loss_fn(
             batch, state.grid, render_u, state.step_t, kind.weight_reg)
         loss.backward()
+        loss, main_mse, spr, nv = self.reduce(loss.detach(),
+                                              main_mse.detach(), spr, nv)
         # optax reads the pre-update count
         lr_t = None
         for group in self.optimizer.param_groups:
@@ -414,11 +459,12 @@ class TrainStep:
             else:
                 group["lr"] = self.schedule(state.step)
         self.optimizer.step()
-        refresh_grid(self.model, cfg, state, kind, draws, self.device)
+        refresh_grid(self.model, cfg, state, kind, draws, self.device,
+                     self.mesh)
         state.step_t += 1
         return {
-            "loss": loss.detach(),
-            "psnr": psnr_from_mse(main_mse.detach()),
+            "loss": loss,
+            "psnr": psnr_from_mse(main_mse),
             "occupancy": og.occupancy_fraction(state.grid),
             "samples_per_ray": spr,
             "n_valid_mean": nv,

@@ -241,15 +241,17 @@ def _frames(video_dir):
 
 def _run_cli_flow(flags, out_dir, capsys):
     """main over `flags`, then --render_only from its checkpoint: the JSON
-    lines, final_metrics.json and the frames of both runs."""
+    lines, final_metrics.json and the frames of both runs, and the run
+    directory under out_dir that holds them."""
+    run = cli.run_dir(cli.config_from_args(flags + ["--out_dir", out_dir]))
     assert cli.main(flags + ["--out_dir", out_dir]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    with open(os.path.join(out_dir, "final_metrics.json")) as fh:
+    with open(os.path.join(run, "final_metrics.json")) as fh:
         final = json.load(fh)
-    frames = _frames(os.path.join(out_dir, "video"))
+    frames = _frames(os.path.join(run, "video"))
     assert cli.main(flags + ["--out_dir", out_dir, "--render_only"]) == 0
     again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    return line, final, frames, again
+    return line, final, frames, again, run
 
 
 def _check_flow(line, final, frames, again, out_dir, n_frames):
@@ -280,14 +282,14 @@ def test_cli_blender_flow_end_to_end(blender_root, tmp_path, monkeypatch,
                         lambda radius, theta, frames: orbit(radius, theta, 3))
     flags = ["--dataset", "synthetic", "--scene", "clilego", "--data_root",
              blender_root, "--n_imgs", "4", "--white_bkgd"] + SMALL_FLAGS
-    sp = cli.make_splitter(cli.config_from_args(cli.parse_args(flags)))
+    sp = cli.make_splitter(cli.config_from_args(flags))
     jsp = JSplitter("synthetic", "clilego", n_training_views=4,
                     data_root=blender_root, white_bkgd=True, seed=42)
     jsp.split()
     for k in ("train_ids", "val_ids", "test_ids"):
         np.testing.assert_array_equal(getattr(sp, k), getattr(jsp, k))
-    out_dir = str(tmp_path / "out")
-    line, final, frames, again = _run_cli_flow(flags, out_dir, capsys)
+    line, final, frames, again, out_dir = _run_cli_flow(
+        flags, str(tmp_path / "out"), capsys)
     assert line["views"] == {"train": 4, "val": 1, "test": 1}
     _check_flow(line, final, frames, again, out_dir, 3)
     rgb = np.asarray(Image.open(os.path.join(out_dir, "video",
@@ -302,7 +304,7 @@ def test_cli_llff_flow_end_to_end(llff_root, tmp_path, capsys):
     flags = ["--dataset", "llff", "--scene", "tinyfern", "--data_root",
              llff_root, "--n_imgs", "3", "--render_step_size", "0.05"] \
         + SMALL_FLAGS
-    cfg = cli.config_from_args(cli.parse_args(flags))
+    cfg = cli.config_from_args(flags)
     assert cfg.sampling.grid_levels == 4
     sp = cli.make_splitter(cfg)
     jsp = JSplitter("llff", "tinyfern", n_training_views=3,
@@ -310,8 +312,8 @@ def test_cli_llff_flow_end_to_end(llff_root, tmp_path, capsys):
     jsp.split()
     for k in ("train_ids", "val_ids", "test_ids"):
         np.testing.assert_array_equal(getattr(sp, k), getattr(jsp, k))
-    out_dir = str(tmp_path / "out")
-    line, final, frames, again = _run_cli_flow(flags, out_dir, capsys)
+    line, final, frames, again, out_dir = _run_cli_flow(
+        flags, str(tmp_path / "out"), capsys)
     assert line["views"] == {"train": 3, "val": 2, "test": 2}
     _check_flow(line, final, frames, again, out_dir, 120)
     from fsnerf_tpu_torch.utils.checkpoint import Checkpointer

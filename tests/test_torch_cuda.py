@@ -194,7 +194,8 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
                    "--n_layers", "4", "--d_filter", "96", "--skip", "1",
                    "--grid_resolution", "16", "--n_samples", "64",
-                   "--n_iters", "20", "--batch_size", "256", "--white_bkgd"])
+                   "--n_iters", "20", "--batch_size", "256", "--white_bkgd",
+                   "--debug"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["steps"] == 20 and out["device"] != "cpu"
@@ -924,12 +925,12 @@ def _llff_cfg(root, n_iters=40):
     levels, NDC)."""
     from fsnerf_tpu_torch import cli
 
-    return cli.config_from_args(cli.parse_args([
+    return cli.config_from_args([
         "--dataset", "llff", "--scene", "ramp", "--data_root", str(root),
         "--n_imgs", "4", "--n_layers", "4", "--d_filter", "64", "--skip",
         "2", "--n_freqs", "6", "--n_freqs_views", "3", "--grid_resolution",
         "32", "--n_samples", "128", "--n_compact", "64", "--batch_size",
-        "256", "--n_iters", str(n_iters), "--render_step_size", "0.005"]))
+        "256", "--n_iters", str(n_iters), "--render_step_size", "0.005"])
 
 
 def test_decoder_builds_and_reads_port_written_pngs(cuda, tmp_path):
@@ -1165,6 +1166,65 @@ def test_graphed_ladder_change_recaptures(cuda, caplog):
     _assert_bitwise(g, e)
 
 
+def test_graphed_capture_failure_raises(cuda, monkeypatch):
+    """A step that waits on the host cannot be captured: train() raises
+    on the card instead of running the eager loop."""
+    from fsnerf_tpu_torch.ops import occgrid as og
+
+    real = og.occupancy_fraction
+    monkeypatch.setattr(og, "occupancy_fraction",
+                        lambda grid: real(grid) + 0.0 * real(grid).item())
+    with pytest.raises(RuntimeError):
+        _train_run(_graph_cfg(n_iters=40), cuda, graphs=None)
+
+
+def test_failed_capture_leaves_cuda_usable(cuda, monkeypatch):
+    """After a failed capture (StepGraph ends the capture state of torch's
+    default CUDA generator and of the state's) the process goes on: a
+    default-initialized CUDA module builds, torch.rand draws on the card,
+    the state's generator draws what it would have drawn had no capture
+    been tried, the launch counts are those before the capture, and a
+    later capture replays."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
+    from fsnerf_tpu_torch.train.step import (init_state, make_optimizer,
+                                             make_train_step)
+
+    cfg = _graph_cfg(n_iters=40)
+    scene = SphereScene(n_imgs=cfg.data.n_imgs, hw=48, white_bkgd=True)
+    model = make_model(cfg, torch.bfloat16, torch.Generator().manual_seed(0),
+                       cuda)
+    state = init_state(model, cfg, make_optimizer(cfg, model), scene.aabb,
+                       cuda)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=cuda)
+    step = make_train_step(model, cfg, state.optimizer, pool, scene)
+    real = og.occupancy_fraction
+    monkeypatch.setattr(og, "occupancy_fraction",
+                        lambda grid: real(grid) + 0.0 * real(grid).item())
+    for _ in range(2):                      # steps 0 (an all-cell
+        step.replay(state)                  # refresh) and 1 (none): the
+    ref = torch.Generator(device=cuda)      # kinds' eager warm-ups
+    ref.set_state(state.generator.get_state())
+    before = launch_counts()
+    with pytest.raises(RuntimeError):
+        step.replay(state)                  # step 2: none's capture
+    assert launch_counts() == before and state.step == 2
+    monkeypatch.setattr(og, "occupancy_fraction", real)
+    torch.nn.Linear(8, 8, device=cuda)
+    assert torch.rand(4, device=cuda).shape == (4,)
+    assert torch.equal(torch.rand(64, device=cuda, generator=state.generator),
+                       torch.rand(64, device=cuda, generator=ref))
+    step.release()
+    for _ in range(2):                      # steps 2, 3: warm-up, capture
+        metrics = step.replay(state)
+    torch.cuda.synchronize()
+    assert list(step.graphs) == [step.kind(3)]
+    assert torch.isfinite(metrics["loss"])
+
+
 def test_graphed_fewshot_recipe_and_resume(cuda, tmp_path):
     """The few-shot recipe graphed (FreeNeRF anneal with the culling hold,
     the weight term's gate at step 150, the occlusion term, validation
@@ -1240,18 +1300,3 @@ def test_graphed_train_scanned_is_the_eager_one(cuda):
         out[graphs] = (state, seen)
     _assert_bitwise(out[None][0], out[False][0])
     assert out[None][1] == out[False][1] and len(out[None][1]) == 5
-
-
-def test_graphed_capture_failure_raises(cuda, monkeypatch):
-    """A step that waits on the host cannot be captured: train() raises
-    on the card instead of running the eager loop. Keep it the file's last
-    test: the failed capture leaves torch's default CUDA generator in its
-    capture state, so a later default-initialized CUDA module raises
-    ("Offset increment outside graph capture")."""
-    from fsnerf_tpu_torch.ops import occgrid as og
-
-    real = og.occupancy_fraction
-    monkeypatch.setattr(og, "occupancy_fraction",
-                        lambda grid: real(grid) + 0.0 * real(grid).item())
-    with pytest.raises(RuntimeError):
-        _train_run(_graph_cfg(n_iters=40), cuda, graphs=None)

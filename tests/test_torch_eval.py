@@ -77,7 +77,7 @@ def test_render_only_main_runs_small(capsys):
                    "cpu", "--hw", "12", "--n_layers", "3",
                    "--d_filter", "32", "--skip", "1", "--n_freqs", "3",
                    "--n_freqs_views", "2", "--grid_resolution", "8",
-                   "--n_samples", "32", "--n_compact", "32"])
+                   "--n_samples", "32", "--n_compact", "32", "--debug"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["psnr"]) and 0.0 < out["ssim"] <= 1.0
@@ -206,7 +206,7 @@ def test_cli_evaluates_on_the_live_grid(monkeypatch, capsys):
                    "--n_imgs", "2", "--n_layers", "2", "--d_filter", "32",
                    "--skip", "0", "--n_freqs", "2", "--n_freqs_views", "2",
                    "--grid_resolution", "64", "--n_samples", "256",
-                   "--n_iters", "2", "--batch_size", "16"])
+                   "--n_iters", "2", "--batch_size", "16", "--debug"])
     assert rc == 0
     capsys.readouterr()
     stride, dilation = og.resolve_query_plan(seen["cfg"].sampling,

@@ -394,21 +394,22 @@ def test_cli_fewshot_flags_small(tmp_path, capsys):
     assert cli.main(flags + ["--n_iters", "12"]) == 0
     first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert first["steps"] == 12 and first["resumed_from"] == 0
-    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == [
+    run = cli.run_dir(cli.config_from_args(flags))
+    assert sorted(os.listdir(os.path.join(run, "ckpt"))) == [
         "ckpt_00000006.pt", "ckpt_00000012.pt"]
     assert cli.main(flags + ["--n_iters", "16", "--resume"]) == 0
     second = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert second["steps"] == 16 and second["resumed_from"] == 12
     assert np.isfinite(second["psnr"])
     recs = [json.loads(line) for line in
-            open(os.path.join(out, "metrics.jsonl")).read().splitlines()]
+            open(os.path.join(run, "metrics.jsonl")).read().splitlines()]
     val_steps = [r["step"] for r in recs if "val_psnr" in r]
     assert val_steps == [4, 8, 12, 16]
     assert all(np.isfinite(r["val_psnr"]) for r in recs if "val_psnr" in r)
-    args = cli.parse_args(flags)
-    cfg = cli.config_from_args(args)
+    cfg = cli.config_from_args(flags)
     assert (cfg.encoder.freq_reg_end, cfg.train.occ_a, cfg.train.occ_b,
             cfg.train.occ_func, cfg.train.beta, cfg.train.ao, cfg.train.reg,
             cfg.train.Td, cfg.train.val_rate, cfg.train.ckpt_every) == (
         8, 0.01, 2.0, "exp", 1.0, 1e-6, "l2", 100, 4, 6)
-    assert cli.main(["--device", "cpu", "--resume"]) == 2   # no --out_dir
+    # --debug writes no run directory to hold the checkpoints
+    assert cli.main(["--device", "cpu", "--resume", "--debug"]) == 2

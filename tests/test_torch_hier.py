@@ -366,7 +366,7 @@ def test_cli_hierarchical_runs_small(capsys, extra):
                    "--skip", "1", "--n_freqs", "3", "--n_freqs_views", "2",
                    "--strategy", "hierarchical", "--n_samples", "16",
                    "--n_fine", "32", "--n_iters", "8", "--batch_size", "32",
-                   "--fused_kernel", "--white_bkgd", *extra])
+                   "--fused_kernel", "--white_bkgd", "--debug", *extra])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu"

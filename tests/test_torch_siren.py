@@ -589,7 +589,7 @@ def test_cli_sinerf_runs_small(capsys, extra):
     rc = cli.main(["--dataset", "sphere", "--device", "cpu", "--hw", "12",
                    "--n_imgs", "3", "--model", "sinerf", "--n_layers", "3",
                    "--d_filter", "32", "--batch_size", "32",
-                   "--fused_kernel", "--white_bkgd", *extra])
+                   "--fused_kernel", "--white_bkgd", "--debug", *extra])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["device"] == "cpu" and np.isfinite(out["psnr"])

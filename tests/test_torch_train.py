@@ -458,7 +458,7 @@ def test_cli_trains_and_evaluates_small(capsys):
                    "--grid_resolution", "8", "--n_samples", "32",
                    "--n_compact", "32", "--render_step_size", "0.2",
                    "--n_iters", "150", "--batch_size", "32", "--fused_kernel",
-                   "--white_bkgd"])
+                   "--white_bkgd", "--debug"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["steps"] == 150 and out["device"] == "cpu"
