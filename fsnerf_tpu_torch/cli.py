@@ -6,7 +6,8 @@ n_imgs_<n> (`--out_dir`, default ../out/): config.yaml (the run's whole
 config, which `--config FILE` reads back; flags given beside it override
 it), metrics.jsonl (and wandb with `--use_wandb`), the checkpoints under
 ckpt/, final_metrics.json and the camera path's frames under video/.
-`--debug` writes nothing.
+`--debug` writes nothing (the JAX CLI renders the path all the same;
+the port renders it only where it goes).
 
 Train (the default): builds the scene's train/val/test splits by seeded
 K-means over camera positions (data/splitter.py: test 15%, then val 15%,
@@ -25,7 +26,8 @@ through the fused forward MLP (ops/kernels/mlp.py) and the fine pass
 through the ray march over the sorted coarse-and-fine union
 (`--no_fused_render`: through the forward MLP too). The run then renders
 the scene's camera path (the Blender orbit, the LLFF spiral) to
-video/rgb_*.png and video/depth_*.png (depth through `plasma`).
+video/rgb_*.png and video/depth_*.png (depth through `plasma`) and, with
+`--use_wandb`, to wandb; a `--debug` run without wandb renders no path.
 
 `--model sinerf` trains and renders SiNeRF the same ways: the MLP through
 the SIREN train kernels, occgrid views through the SIREN ray march, the
@@ -586,17 +588,21 @@ def main(argv=None) -> int:
             json.dump(metrics, fh)
     if logger:
         logger.log_summary(metrics)
-    t0 = time.perf_counter()
-    rgb8, dep8 = render_camera_path(model, cfg, grid, splitter, train_split,
-                                    device, mesh)
-    seconds = time.perf_counter() - t0
-    numbers.update(path_frames=len(rgb8),
-                   path_frames_per_sec=len(rgb8) / seconds)
-    if out_dir and writer:
-        save_video(rgb8, dep8, os.path.join(out_dir, "video"))
+    if out_dir or cfg.log.use_wandb:
+        # the camera path, where it goes: the run directory or wandb (the
+        # same on every rank, whose tiled render needs them all)
+        t0 = time.perf_counter()
+        rgb8, dep8 = render_camera_path(model, cfg, grid, splitter,
+                                        train_split, device, mesh)
+        seconds = time.perf_counter() - t0
+        numbers.update(path_frames=len(rgb8),
+                       path_frames_per_sec=len(rgb8) / seconds)
+        if out_dir and writer:
+            save_video(rgb8, dep8, os.path.join(out_dir, "video"))
+        if logger:
+            logger.log_video("rgb_video", rgb8)
+            logger.log_video("depth_video", dep8)
     if logger:
-        logger.log_video("rgb_video", rgb8)
-        logger.log_video("depth_video", dep8)
         logger.close()
     if not writer:
         return 0

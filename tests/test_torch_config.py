@@ -216,7 +216,8 @@ def test_cli_run_directory(tmp_path, capsys):
     checkpoint and the path's frames under <out_dir>/<model>/<dataset>/
     <scene>/n_imgs_<n>; --render_only restores from there (the same
     step); --config of that config.yaml is the run's config; --debug and
-    --export_render write nothing."""
+    --export_render write nothing (--debug renders no path: nothing would
+    receive it)."""
     out = tmp_path / "runs"
     assert cli.main(TINY + ["--out_dir", str(out)]) == 0
     first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -239,7 +240,7 @@ def test_cli_run_directory(tmp_path, capsys):
     quiet = tmp_path / "quiet"
     assert cli.main(TINY + ["--out_dir", str(quiet), "--debug"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert np.isfinite(line["psnr"]) and line["path_frames"] > 0
+    assert np.isfinite(line["psnr"]) and "path_frames" not in line
     assert not quiet.exists()
     assert cli.main(TINY + ["--out_dir", str(quiet), "--export_render",
                             str(tmp_path / "art")]) == 2
