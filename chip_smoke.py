@@ -145,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught):
      val and test
      metrics and lpips null, kernels 5 and 6 once per step, kernel 4 at
      every refresh and kernel 1 launched, counts read around the run, the
-     orbit's frames on disk) and --render_only from its checkpoint, which
+     orbit's frames on disk, and --export_render's serving artifact, which
+     phase 21c replays) and --render_only from its checkpoint, which
      must write the same frames byte for byte; decode s, steps/s, eval s
      per view and path frames/s printed. The orbit is cut from 90 frames
      to 30 here only (short_paths), as tests/test_cli.py cuts it;
@@ -176,7 +177,31 @@ Phases (any failure exits non-zero; nothing is caught):
      c. LPIPS with seeded random weights (an npz written here) on two
         128x128 frames on the card against the same on the CPU, within
         1e-4 relative, TF32 off;
- 21. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+ 21. the serving artifact (fsnerf_tpu_torch/utils/export.py), launch
+     counts set to 0 before each replay and read after it:
+     a. NeRF 8x256 with phase 3's seeded weights and res-128 grid:
+        cli.serving_renderer (the eval model_fn, kernel 3 through its op,
+        the plain compositing, chunks of 2,048 rays, the path's K) on 4
+        path poses of the 128x128 sphere exported with torch.export on the
+        card, saved and loaded; render_frame_exported of each pose must
+        equal render_frame through the live renderer bitwise, kernel 3
+        launching once per chunk of the replay, and compact_transfer give
+        to8b of the f32 frame; export and load seconds, the artifact's MB
+        and frames/s of both routes printed;
+     b. the same for a seeded SiNeRF 8x256 on a grid rebuilt from its
+        densities (kernel 7 without acts through its op);
+     then a fresh process importing torch and the port's op library only
+     (no model, config, checkpoint or renderer module) loads both
+     artifacts and replays a chunk of each, bitwise this process's replay
+     with one launch each;
+     c. phase 17's --export_render artifact renders the first test view
+        (kernel 3 once per chunk): bitwise the view through
+        cli.serving_renderer rebuilt from the run's checkpoint, and within
+        phase 9's 0.5 dB in PSNR of the CLI's own render of that view (the
+        eval route: kernel 1 on the checkpoint's weights and grid) at the
+        artifact's K, the largest differences and the pixels beyond
+        kernel 1's tolerances (rgb 7e-3, depth 3e-2) printed;
+ 22. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
      larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
@@ -1962,15 +1987,16 @@ def frames_of(video_dir: str) -> dict:
             for n in sorted(os.listdir(video_dir))}
 
 
-def data_slice(name, flags, out_dir, want_views, want_frames, card):
+def data_slice(name, flags, out_dir, want_views, want_frames, card,
+               train_flags=()):
     """The command line's whole flow on a synthesized scene: the untrained
     weights' val PSNR (render only, --debug: no run directory), then
     training, val and test evaluation, final_metrics.json, the checkpoint
     and the camera path's frames in the run directory under out_dir, the
     launch counts of kernels 5, 6, 4 and 1 read around that run, and
     --render_only from the checkpoint, which must write the same frames.
-    Returns (the training run's JSON line, its launch counts, the
-    untrained val PSNR)."""
+    `train_flags` go to the training run only. Returns (the training run's
+    JSON line, its launch counts, the untrained val PSNR)."""
     import os
 
     from fsnerf_tpu_torch.ops.kernels import mlp as km
@@ -1982,7 +2008,7 @@ def data_slice(name, flags, out_dir, want_views, want_frames, card):
     base = run_cli(flags + ["--render_only", "--debug"])
     kr.ray_march.launches = km.nerf_density.launches = 0
     mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
-    got = run_cli(flags + ["--out_dir", out_dir])
+    got = run_cli(flags + ["--out_dir", out_dir] + list(train_flags))
     torch.cuda.synchronize()
     launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
                 "mlp_train_bwd": mt.mlp_train_bwd.launches,
@@ -2032,7 +2058,10 @@ def data_slice(name, flags, out_dir, want_views, want_frames, card):
 
 
 def blender_slice(card, root):
-    """Phase 17: the Blender-format slice through the command line."""
+    """Phase 17: the Blender-format slice through the command line, its
+    training run with --export_render. Returns (its launches, the decode
+    seconds, the arguments of phase 21c: the flags, the out_dir, the
+    artifact's directory and the CLI's export seconds)."""
     import os
 
     from fsnerf_tpu_torch import cli
@@ -2055,17 +2084,21 @@ def blender_slice(card, root):
              "--n_imgs", "8", "--white_bkgd", "--n_iters",
              str(BLENDER_STEPS)]
     n_held = int(0.15 * BLENDER_VIEWS)
+    out_dir = os.path.join(root, "out_blender")
+    art = os.path.join(root, "blender_artifact")
     got, launches, _ = data_slice(
-        "blender", flags, os.path.join(root, "out_blender"),
+        "blender", flags, out_dir,
         {"train": 8, "val": n_held, "test": n_held}, BLENDER_PATH_FRAMES,
-        card)
+        card, ["--export_render", art])
+    if got.get("export_render") != art:
+        fail(f"blender: the CLI did not export to {art}: {got}")
     bcfg = cli.config_from_args(flags)
     want = refresh_launches(bcfg, bcfg.sampling.grid_resolution ** 3,
                             got["steps"])
     if launches["nerf_density"] != want:
         fail(f"blender: the density kernel launched "
              f"{launches['nerf_density']} times, not {want}")
-    return launches, decode_s
+    return launches, decode_s, (flags, out_dir, art, got["export_seconds"])
 
 
 def llff_slice(dev, card, root):
@@ -2493,6 +2526,307 @@ def lpips_card(card):
         fail(f"20c: LPIPS on the card {got} vs the CPU {want}")
 
 
+# -- 21. the serving artifact ----------------------------------------------
+
+EXPORT_CHUNK = 2048         # the CLI's export chunk: min(16384, 2 x batch)
+EXPORT_FRAMES = 4           # 128x128 path frames timed through each route
+# the artifact's frame (kernel 3, plain compositing) against the CLI's
+# render of the same view (kernel 1): phase 9's HIER_FUSED_PSNR_TOL_DB
+# between these two routes; kernel 1's max-abs tolerances against its
+# plain version (RGB_OPACITY_TOL, DEPTH_TOL) need not hold between them on
+# every pixel of a view: kernel 1 encodes with the polynomial sine, kernel
+# 3's caller with torch's, and each rounds the features to bf16
+
+# the fresh process: torch and the port's op library only; it replays the
+# first chunk of each artifact and reports its launches and the port's
+# modules it imported
+REPLAY_PROCESS = r"""
+import sys
+import torch
+from fsnerf_tpu_torch.ops.kernels import register_ops
+register_ops()
+from fsnerf_tpu_torch.ops.kernels import mlp, siren
+out = {}
+for art, rays in zip(sys.argv[1::2], sys.argv[2::2]):
+    before = (mlp.nerf_mlp.launches, siren.siren_mlp_fwd.launches)
+    program = torch.export.load(art + "/renderer.pt2").module()
+    r = torch.load(rays)
+    with torch.no_grad():
+        rgb, depth = program(r["o"].cuda(), r["d"].cuda())
+    torch.cuda.synchronize()
+    out[art] = {"rgb": rgb.cpu(), "depth": depth.cpu(), "launches": (
+        mlp.nerf_mlp.launches - before[0],
+        siren.siren_mlp_fwd.launches - before[1])}
+out["modules"] = sorted(m for m in sys.modules
+                        if m.startswith("fsnerf_tpu_torch"))
+torch.save(out, sys.argv[1] + "/replay.pt")
+"""
+
+
+def artifact_mb(art: str) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(art, f))
+               for f in ("renderer.pt2", "meta.json")) / 2 ** 20
+
+
+def export_slice(label, model, cfg, grid, wrapper, dev, card, workdir):
+    """Phase 21a / 21b: the serving renderer of `model` (cli.serving_renderer
+    on 4 path poses of the 128x128 sphere: the eval model_fn through the
+    kernel's op, the plain compositing, chunks of 2,048 rays) exported on
+    the card, saved and loaded; a frame replayed through
+    render_frame_exported must equal render_frame through the live renderer
+    bitwise, `wrapper`'s launches growing by the frame's chunk count;
+    compact_transfer gives to8b of the f32 frame. Returns (the artifact's
+    directory, the chunk-0 rays and the live outputs for the fresh
+    process, the launches of the replays)."""
+    import os
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.data.rays import get_rays
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.render.renderer import render_frame, to8b
+    from fsnerf_tpu_torch.utils import export
+
+    scene = SphereScene(n_imgs=1, hw=128)
+    poses = scene.path_poses[:EXPORT_FRAMES]
+    split = cli.Split(np.zeros((len(poses), 128, 128, 3), np.float32),
+                      poses, scene.hwf, scene.near, scene.far, False,
+                      scene.aabb, True)
+    live, chunk = cli.serving_renderer(model, cfg, grid, split, dev)
+    if chunk != EXPORT_CHUNK:
+        fail(f"21{label}: the serving chunk is {chunk}, not {EXPORT_CHUNK}")
+    art = os.path.join(workdir, cfg.model.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export.export_render_artifact(
+        live, chunk, art, hwf=scene.hwf, near=scene.near, far=scene.far,
+        extra_meta={"model": cfg.model.model,
+                    "strategy": cfg.sampling.strategy, "step": 0})
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, meta = export.load_render_artifact(art)
+    load_s = time.perf_counter() - t0
+    if meta["platforms"] != ["cuda"]:
+        fail(f"21{label}: meta.json names {meta['platforms']}")
+    on_dev = [torch.as_tensor(np.asarray(p, np.float32), device=dev)
+              for p in poses]
+
+    def live_frames():
+        out = [render_frame(None, p, scene.hwf, scene.near, scene.far,
+                            chunksize=chunk, chunk_renderer=live)
+               for p in on_dev]
+        return [(a.cpu().numpy(), b.cpu().numpy()) for a, b in out]
+
+    def replay_frames():
+        return [export.render_frame_exported((fn, meta), p) for p in poses]
+
+    want = live_frames()
+    t0 = time.perf_counter()
+    live_frames()
+    live_fps = len(poses) / (time.perf_counter() - t0)
+    n_chunks = -(-scene.hwf[0] * scene.hwf[1] // chunk)
+    wrapper.launches = 0
+    first = export.render_frame_exported((fn, meta), poses[0])
+    if wrapper.launches != n_chunks:
+        fail(f"21{label}: the replayed frame launched {wrapper.__name__} "
+             f"{wrapper.launches} times, not once per chunk ({n_chunks})")
+    got = replay_frames()
+    t0 = time.perf_counter()
+    replay_frames()
+    fps = len(poses) / (time.perf_counter() - t0)
+    rgb8, depth16 = export.render_frame_exported((fn, meta), poses[0],
+                                                 compact_transfer=True)
+    launches = wrapper.launches
+    for i, ((a, b), (c, d)) in enumerate(zip([first] + got,
+                                            [want[0]] + want)):
+        if not (np.array_equal(a, c) and np.array_equal(b, d)):
+            fail(f"21{label}: replayed frame {i} differs from the live "
+                 f"renderer's: rgb {np.abs(a - c).max()}, depth "
+                 f"{np.abs(b - d).max()}")
+    if not np.array_equal(rgb8, to8b(first[0])) or not np.allclose(
+            depth16.astype(np.float32), first[1], rtol=2e-3):
+        fail(f"21{label}: compact_transfer is not to8b of the f32 frame")
+    if not np.isfinite(first[0]).all() or first[0].shape != (128, 128, 3):
+        fail(f"21{label}: bad frame {first[0].shape}")
+    print(f"21{label}. {cfg.model.model} artifact ({cfg.model.n_layers}x"
+          f"{cfg.model.d_filter}, res-{grid.resolution} grid, chunk "
+          f"{chunk}, {meta['device_name']}) on {card}: export "
+          f"{export_s:.3f} s, load {load_s:.3f} s, {artifact_mb(art):.3f} "
+          f"MB; replay == live bitwise over {1 + 2 * len(poses)} frames "
+          f"128x128, {wrapper.__name__} launches {launches} ({n_chunks} "
+          f"per frame); render_frame_exported {fps:.3f} frames/s vs live "
+          f"render_frame {live_fps:.3f} frames/s; compact_transfer == to8b")
+    ro, rd = get_rays(on_dev[0], scene.hwf)
+    rays = {"o": ro.reshape(-1, 3)[:chunk].cpu(),
+            "d": rd.reshape(-1, 3)[:chunk].cpu()}
+    with torch.no_grad():
+        ref = fn(rays["o"].to(dev), rays["d"].to(dev))
+    return art, rays, [r.cpu() for r in ref], launches
+
+
+def fresh_replay(jobs, card):
+    """Phase 21, the fresh process: REPLAY_PROCESS loads each artifact and
+    replays its first chunk; each must equal this process's replay
+    bitwise with one launch of its kernel, and the process must have
+    imported no model, config, checkpoint or renderer code of the port."""
+    import os
+
+    arts = []
+    for art, rays, _, _ in jobs:
+        torch.save(rays, os.path.join(art, "rays.pt"))
+        arts += [art, os.path.join(art, "rays.pt")]
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", REPLAY_PROCESS, *arts],
+                   check=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    out = torch.load(os.path.join(jobs[0][0], "replay.pt"))
+    banned = [m for m in out["modules"] if any(m.startswith(
+        f"fsnerf_tpu_torch.{p}") for p in ("core.models", "config", "cli",
+                                           "utils", "render", "train"))]
+    if banned:
+        fail(f"21: the replaying process imported {banned}")
+    for (art, _, ref, _), want in zip(jobs, ((1, 0), (0, 1))):
+        got = out[art]
+        if not (torch.equal(got["rgb"], ref[0])
+                and torch.equal(got["depth"], ref[1])):
+            fail(f"21: the fresh process's replay of {art} differs")
+        if tuple(got["launches"]) != want:
+            fail(f"21: the fresh process launched (nerf_mlp, siren_mlp_fwd)"
+                 f" {got['launches']} for {art}, not {want}")
+    print(f"21. a fresh process (torch and fsnerf_tpu_torch.ops.kernels "
+          f"only: {len(out['modules'])} modules of the port, no model, "
+          f"config, checkpoint or renderer) loaded both artifacts and "
+          f"replayed a chunk of each bitwise, one launch each, in "
+          f"{seconds:.3f} s with its start on {card}")
+
+
+def blender_artifact(dev, card, flags, out_dir, art, exported_s):
+    """Phase 21c: the Blender slice's --export_render artifact (phase 17's
+    training run wrote it) renders the first test view. It must equal,
+    bitwise, the same view through cli.serving_renderer rebuilt from the
+    run's checkpoint (what the CLI exported: the checkpoint's weights and
+    grid, the path's K and query stride, kernel 3); and it is held against
+    the CLI's own render of that view (evaluate_split's route: the fused
+    ray march, kernel 1) at the same K by PSNR, within the 0.5 dB phase 9
+    allows between the kernel-1 and kernel-3 routes, with the largest
+    differences and the pixels beyond kernel 1's tolerances (rgb 7e-3,
+    depth 3e-2) printed. Returns the artifact's launches of kernel 3."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.eval.metrics import psnr
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.render.renderer import (make_chunk_renderer,
+                                                  render_frame)
+    from fsnerf_tpu_torch.utils import export
+
+    bcfg = cli.config_from_args(flags + ["--out_dir", out_dir])
+    train_split, _, test_split = cli.make_splitter(bcfg).get_splits()
+    dtype = (torch.bfloat16 if bcfg.train.dtype == "bfloat16"
+             else torch.float32)
+    model = make_model(bcfg, dtype,
+                       torch.Generator().manual_seed(bcfg.train.seed), dev)
+    grid, step = cli.restored_grid(model, bcfg, train_split,
+                                   cli.run_dir(bcfg), dev)
+    t0 = time.perf_counter()
+    fn, meta = export.load_render_artifact(art)
+    load_s = time.perf_counter() - t0
+    if (meta["step"], meta["model"], meta["chunksize"]) != (
+            step, "nerf", EXPORT_CHUNK):
+        fail(f"21c: the artifact's meta.json holds {meta}")
+    pose = test_split.poses[0]
+    pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
+    km.nerf_mlp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = export.render_frame_exported((fn, meta), pose)
+    replay_s = time.perf_counter() - t0
+    launches = km.nerf_mlp.launches
+    H, W, _ = test_split.hwf
+    if launches != -(-H * W // EXPORT_CHUNK):
+        fail(f"21c: the test view launched kernel 3 {launches} times")
+    live, chunk = cli.serving_renderer(model, bcfg, grid, train_split, dev)
+    want = render_frame(None, pose_t, test_split.hwf, test_split.near,
+                        test_split.far, chunksize=chunk,
+                        chunk_renderer=live)
+    if not (np.array_equal(rgb, want[0].cpu().numpy())
+            and np.array_equal(depth, want[1].cpu().numpy())):
+        fail("21c: the CLI's artifact differs from its serving renderer "
+             "rebuilt from the checkpoint")
+    s = bcfg.sampling
+    cli_renderer = make_chunk_renderer(
+        cli.make_render_model_fn(model, bcfg, device=dev),
+        strategy=s.strategy, grid=grid, n_samples=s.n_samples,
+        render_step_size=s.render_step_size,
+        white_bkgd=test_split.white_bkgd, near=test_split.near,
+        far=test_split.far,
+        n_compact=cli.derive_eval_n_compact(grid, train_split, bcfg, dev),
+        early_stop_eps=s.early_stop_eps,
+        query_stride=og.grid_query_stride(s, test_split.aabb, grid),
+        fused_render_fn=cli.make_fused_render_fn(model.state_dict(), bcfg,
+                                                 device=dev),
+        composite_fn=cli.make_composite_fn(bcfg, dev))
+    kr.ray_march.launches = 0
+    ref_rgb, ref_depth = render_frame(
+        None, pose_t, test_split.hwf, test_split.near, test_split.far,
+        chunksize=cli.EVAL_CHUNK, chunk_renderer=cli_renderer)
+    if kr.ray_march.launches == 0:
+        fail("21c: the CLI's render of the test view did not launch "
+             "kernel 1")
+    rgb_diff = np.abs(rgb - ref_rgb.cpu().numpy()).max(axis=-1)
+    depth_diff = np.abs(depth - ref_depth.cpu().numpy())
+    gt = torch.as_tensor(test_split.imgs[0])
+    p_art = float(psnr(torch.as_tensor(rgb), gt))
+    p_cli = float(psnr(ref_rgb.cpu(), gt))
+    print(f"21c. blender --export_render artifact ({meta['hwf'][0]}x"
+          f"{meta['hwf'][1]}, step {step}) on {card}: exported by the CLI "
+          f"in {exported_s:.3f} s, {artifact_mb(art):.3f} MB, loaded in "
+          f"{load_s:.3f} s; test view 0 replayed in {replay_s:.3f} s "
+          f"({launches} kernel-3 launches), bitwise the serving renderer "
+          f"rebuilt from the checkpoint; PSNR {p_art:.4f} vs the CLI's own "
+          f"render (kernel 1) {p_cli:.4f}; max abs diff rgb "
+          f"{rgb_diff.max():.3e} (99.99th percentile "
+          f"{np.quantile(rgb_diff, 0.9999):.3e}; "
+          f"{int((rgb_diff > RGB_OPACITY_TOL).sum())} of {rgb_diff.size} "
+          f"pixels beyond {RGB_OPACITY_TOL}), depth {depth_diff.max():.3e} "
+          f"({int((depth_diff > DEPTH_TOL).sum())} beyond {DEPTH_TOL})")
+    if abs(p_art - p_cli) > HIER_FUSED_PSNR_TOL_DB:
+        fail(f"21c: the artifact's test view PSNR {p_art} is off the CLI's "
+             f"{p_cli}")
+    return launches
+
+
+def serving_artifact(model, grid, cfg, dev, card, blender):
+    """Phase 21: the serving artifact (utils/export.py) of NeRF and SiNeRF
+    at full width, a fresh process replaying both, and the Blender slice's
+    --export_render artifact. Returns the launches of kernels 3 and 7 in
+    the replays."""
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    t0 = time.perf_counter()
+    scfg = sinerf_config(cfg)
+    smodel = make_model(scfg, torch.bfloat16,
+                        torch.Generator().manual_seed(0), dev)
+    sgrid = cli.rebuild_grid(smodel, scfg, SphereScene(n_imgs=1,
+                                                       hw=128).aabb, dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        nerf = export_slice("a", model, cfg, grid, km.nerf_mlp, dev, card,
+                            workdir)
+        siren = export_slice("b", smodel, scfg, sgrid, ks.siren_mlp_fwd,
+                             dev, card, workdir)
+        fresh_replay([nerf, siren], card)
+    blender_launches = blender_artifact(dev, card, *blender)
+    print(f"21. serving artifact phase: {time.perf_counter() - t0:.1f} s")
+    return {"nerf_mlp": nerf[3] + blender_launches,
+            "siren_mlp_fwd": siren[3]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -2631,17 +2965,22 @@ def main():
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
-    # -- 17.-18. the data slices: Blender and LLFF through the CLI ----------
-    with tempfile.TemporaryDirectory() as root, short_paths():
-        blender_slice(card, root)
-        llff_slice(dev, card, root)
+    with tempfile.TemporaryDirectory() as root:
+        # -- 17.-18. the data slices: Blender and LLFF through the CLI ------
+        with short_paths():
+            _, _, blender = blender_slice(card, root)
+            llff_slice(dev, card, root)
 
-    # -- 20. the data-parallel layer and LPIPS ------------------------------
-    gloo_two_ranks(cfg, dev, card)
-    nccl_one_rank(cfg, dev, card)
-    lpips_card(card)
+        # -- 20. the data-parallel layer and LPIPS --------------------------
+        gloo_two_ranks(cfg, dev, card)
+        nccl_one_rank(cfg, dev, card)
+        lpips_card(card)
 
-    # -- 21. report ---------------------------------------------------------
+        # -- 21. the serving artifact ---------------------------------------
+        export_launches = serving_artifact(model, grid, cfg, dev, card,
+                                           blender)
+
+    # -- 22. report ---------------------------------------------------------
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
                      **siren_module_ms, nerf_density=density_module_ms)
@@ -2681,9 +3020,10 @@ def main():
         "route": "cuda",
         "source": "fsnerf_tpu_torch/csrc/mlp.cu",
         "replaces": "fsnerf_tpu/ops/pallas/mlp.py:276",
-        # the hierarchical eval's coarse passes and the few-shot
-        # validations
-        "launches": hier_launches["nerf_mlp"] + fewshot_launches["nerf_mlp"],
+        # the hierarchical eval's coarse passes, the few-shot validations
+        # and the serving artifact's replays
+        "launches": hier_launches["nerf_mlp"] + fewshot_launches["nerf_mlp"]
+        + export_launches["nerf_mlp"],
         **mlp,
         "library_ms": None,
     }, {
@@ -2699,7 +3039,9 @@ def main():
         "route": "cuda",
         "source": "fsnerf_tpu_torch/csrc/siren.cu",
         "replaces": "fsnerf_tpu/ops/pallas/siren.py:325",
-        "launches": siren_launches["siren_mlp_fwd"],
+        # the SiNeRF slice and the serving artifact's replays
+        "launches": siren_launches["siren_mlp_fwd"]
+        + export_launches["siren_mlp_fwd"],
         **siren_fwd,
         "library_ms": None,
     }, {

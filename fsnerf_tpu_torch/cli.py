@@ -57,9 +57,22 @@ cuda:LOCAL_RANK; with more than one rank every step's rays are sharded
 over the ranks (parallel/train_parallel.py), the val, test and path
 frames are rendered tiled, and only rank 0 writes and prints.
 
+Serving artifact (`--export_render DIR`, with or without --debug; rank 0
+only under --distributed): after the camera path, the trained chunk
+renderer of the camera path (its K and grid query stride, chunks of
+min(16384, 2 * batch_size) rays, the eval model_fn: on the card the
+forward MLP or SIREN forward kernel as a registered op, the plain
+compositing) is exported with torch.export to DIR/renderer.pt2 and
+DIR/meta.json (utils/export.py); `load_render_artifact(DIR)` and
+`render_frame_exported` replay it.
+
+Unless --debug, the train, val and test cameras are plotted to
+camera_poses.html in the run directory (plotly; camera_poses.png through
+matplotlib where plotly is not installed; skipped with a warning where
+neither is).
+
 The kernels run on the card: the device is `cuda` unless `--device cpu`
-asks for the CPU, where the kernels' plain versions run. `--export_render`
-(the JAX package's serving artifact) is not ported and is refused.
+asks for the CPU, where the kernels' plain versions run.
 
 Run:  python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
           --data_root ../datasets --n_imgs 8 --white_bkgd --out_dir out
@@ -77,12 +90,16 @@ Run:  python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
 n_imgs_8/config.yaml --n_iters 200
       torchrun --nproc_per_node 4 -m fsnerf_tpu_torch.cli --distributed \
           --dataset synthetic --scene lego --data_root ../datasets
+      python -m fsnerf_tpu_torch.cli --dataset synthetic --scene lego \
+          --data_root ../datasets --out_dir out --render_only \
+          --export_render out/lego_artifact
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
 import time
@@ -99,6 +116,8 @@ from .train.loop import COMPACT_STEP, compaction_target
 # rays per render chunk of the val/test and path renders (the occgrid
 # renderer's ceiling)
 EVAL_CHUNK = 16384
+
+_log = logging.getLogger(__name__)
 
 
 def make_render_model_fn(model, cfg, step=None, device=None):
@@ -421,6 +440,62 @@ def render_camera_path(model, cfg, grid, splitter, train_split: Split,
     return render_video(frames, d_frames)
 
 
+def plot_cameras(splits, out_dir: str):
+    """The train, val and test cameras to <out_dir>/camera_poses.html
+    (fsnerf_tpu/cli.py: plotly; camera_poses.png where only matplotlib is
+    installed). Returns the plotter, or None when the plot was skipped
+    (neither library: a warning)."""
+    from .utils.camera3dplotter import Camera3DPlotter
+
+    try:
+        plotter = Camera3DPlotter()
+        for split, name in zip(splits, ("train", "val", "test")):
+            plotter.set_poses(split.poses, name)
+        plotter.save_html(os.path.join(out_dir, "camera_poses.html"))
+    except Exception as e:
+        _log.warning("camera plot skipped: %s", e)
+        return None
+    return plotter
+
+
+def serving_renderer(model, cfg, grid, train_split: Split, device=None):
+    """The chunk renderer of the serving artifact and its chunk size
+    (fsnerf_tpu/cli.py's --export_render): the camera path's (its K from
+    derive_eval_n_compact on the train split, the grid's query stride),
+    make_render_model_fn's model_fn, no fused ray march, the plain
+    compositing; chunks of min(16384, 2 * batch_size) rays."""
+    from .render.renderer import make_chunk_renderer
+
+    s = cfg.sampling
+    chunk_renderer = make_chunk_renderer(
+        make_render_model_fn(model, cfg, device=device), strategy=s.strategy,
+        grid=grid, n_samples=s.n_samples, n_fine=s.n_fine,
+        render_step_size=s.render_step_size,
+        white_bkgd=train_split.white_bkgd, near=train_split.near,
+        far=train_split.far, early_stop_eps=s.early_stop_eps,
+        n_compact=derive_eval_n_compact(grid, train_split, cfg, device),
+        query_stride=og.grid_query_stride(s, train_split.aabb, grid))
+    return chunk_renderer, min(EVAL_CHUNK, 2 * cfg.train.batch_size)
+
+
+def export_renderer(model, cfg, grid, train_split: Split, step: int,
+                    device=None) -> str:
+    """serving_renderer exported on `device` to cfg.log.export_render
+    (utils/export.py), with the model, strategy and step in its meta.json.
+    Returns the artifact's directory."""
+    from .utils.export import export_render_artifact
+
+    chunk_renderer, chunksize = serving_renderer(model, cfg, grid,
+                                                 train_split, device)
+    return export_render_artifact(
+        chunk_renderer, chunksize, cfg.log.export_render,
+        hwf=train_split.hwf, near=train_split.near, far=train_split.far,
+        ndc=train_split.ndc,
+        extra_meta={"model": cfg.model.model,
+                    "strategy": cfg.sampling.strategy, "step": int(step)},
+        device=device)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line's namespace (config.py::config_parser: the JAX
     package's flags, and the port's --hw and --device)."""
@@ -532,9 +607,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = config_from_args(argv)
     device = torch.device(args.device)
-    if cfg.log.export_render:
-        return _refuse("--export_render: the serving artifact is not ported "
-                       "yet")
     if (cfg.train.resume or cfg.train.ckpt_every) and cfg.log.debug:
         return _refuse("--resume and --ckpt_every need the run directory, "
                        "which --debug does not write")
@@ -565,6 +637,8 @@ def main(argv=None) -> int:
                          "val": len(val_split.imgs),
                          "test": len(test_split.imgs)},
                "data_seconds": time.perf_counter() - t0}
+    plotter = (plot_cameras((train_split, val_split, test_split), out_dir)
+               if out_dir and writer else None)
     if cfg.train.import_torch_ckpt:
         model.load_state_dict(load_state_dict_file(cfg.train.import_torch_ckpt))
     logger = None
@@ -572,11 +646,14 @@ def main(argv=None) -> int:
         grid, restored = restored_grid(model, cfg, train_split, out_dir,
                                        device)
         numbers["restored_step"] = restored
+        step = restored or 0
     else:
         state, logger, trained = run_training(
             model, cfg, pool, train_split, val_split, device, out_dir, mesh)
-        grid = state.grid
+        grid, step = state.grid, state.step
         numbers.update(trained)
+        if plotter and logger.wandb:    # the reference uploads the figure
+            plotter.upload_plot()
     t0 = time.perf_counter()
     metrics = evaluate_val_test(model, grid, val_split, test_split, cfg,
                                 device, mesh)
@@ -602,6 +679,12 @@ def main(argv=None) -> int:
         if logger:
             logger.log_video("rgb_video", rgb8)
             logger.log_video("depth_video", dep8)
+    if cfg.log.export_render and writer:
+        t0 = time.perf_counter()
+        path = export_renderer(model, cfg, grid, train_split, step, device)
+        numbers.update(export_render=path,
+                       export_seconds=time.perf_counter() - t0)
+        _log.info("exported the serving artifact to %s", path)
     if logger:
         logger.close()
     if not writer:

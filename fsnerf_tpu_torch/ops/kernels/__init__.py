@@ -27,6 +27,13 @@ def counted() -> Dict[str, object]:
     return {fn.__name__: fn for fn in fns}
 
 
+def register_ops() -> None:
+    """Register the kernels' torch ops (fsnerf_torch::nerf_mlp,
+    fsnerf_torch::siren_mlp_fwd): importing their modules does it. A
+    process must do this before it loads a program that calls them."""
+    from . import mlp, siren  # noqa: F401
+
+
 def launch_counts() -> Dict[str, int]:
     """Every wrapper's launch count."""
     return {name: fn.launches for name, fn in counted().items()}

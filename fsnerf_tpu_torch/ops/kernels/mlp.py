@@ -21,6 +21,9 @@ encodings up to render.py::KERNEL_MAX_ENC wide.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
 `nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
+`nerf_mlp` does so as the registered op fsnerf_torch::nerf_mlp (a CPU
+kernel, a CUDA kernel and a fake for tracing), which a torch.export
+program keeps as a call (utils/export.py).
 Weights travel packed in the ray march's walk order (render.py::
 pack_weights), packed on the state dict's own device.
 """
@@ -132,31 +135,60 @@ def nerf_mlp(encx, encd, params: MlpParams,
     KERNEL_MAX_ENC: ValueError otherwise), nerf_mlp_reference for CPU
     tensors; same arguments and return. Any N: the kernel predicates the
     rows of its last 128-row tile. Counts its kernel launches in
-    `nerf_mlp.launches`."""
-    if encx.device.type == "cpu":
-        return nerf_mlp_reference(encx, encd, params, density_activation)
-    if encx.device.type != "cuda":
+    `nerf_mlp.launches`.
+
+    Both run as the registered op `torch.ops.fsnerf_torch.nerf_mlp`, so a
+    program that torch.export traces through this call keeps the call (the
+    serving artifact, utils/export.py)."""
+    if encx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nerf_mlp runs on cpu or cuda, not {encx.device}")
-    _check(encx, encd, params, density_activation)
-    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
-    if err is not None:
-        raise ValueError(f"nerf_mlp: {err}")
-    for a in (encx, encd, params.wpack, params.bpack):
-        if a.device != encx.device or not a.is_contiguous():
-            raise ValueError("nerf_mlp needs contiguous tensors on one "
-                             "device")
+    return torch.ops.fsnerf_torch.nerf_mlp(
+        encx, encd, params.wpack, params.bpack, params.n_layers,
+        params.skip_mask, params.width, params.d_enc_pad, params.d_dir_pad,
+        density_activation)
+
+
+nerf_mlp.launches = 0
+
+
+def _op_params(wpack, bpack, n_layers: int, skip_mask: int, width: int,
+               d_enc_pad: int, d_dir_pad: int) -> MlpParams:
+    """MlpParams from the op's arguments (d_enc and d_dir, which neither
+    the kernel nor the plain version reads, set to the padded widths)."""
+    skip = tuple(i - 1 for i in range(1, n_layers) if skip_mask >> i & 1)
+    return MlpParams(wpack, bpack, n_layers, skip, width, d_enc_pad,
+                     d_dir_pad, d_enc_pad, d_dir_pad)
+
+
+@torch.library.custom_op("fsnerf_torch::nerf_mlp", mutates_args=(),
+                         device_types="cpu")
+def _nerf_mlp_op(encx: torch.Tensor, encd: torch.Tensor,
+                 wpack: torch.Tensor, bpack: torch.Tensor, n_layers: int,
+                 skip_mask: int, width: int, d_enc_pad: int, d_dir_pad: int,
+                 density_activation: str) -> torch.Tensor:
+    """CPU tensors: the plain version."""
+    return nerf_mlp_reference(
+        encx, encd, _op_params(wpack, bpack, n_layers, skip_mask, width,
+                               d_enc_pad, d_dir_pad), density_activation)
+
+
+@_nerf_mlp_op.register_kernel("cuda")
+def _nerf_mlp_cuda(encx, encd, wpack, bpack, n_layers, skip_mask, width,
+                   d_enc_pad, d_dir_pad, density_activation):
+    """CUDA tensors: one launch of nerf_mlp_kernel."""
+    params = _op_params(wpack, bpack, n_layers, skip_mask, width, d_enc_pad,
+                        d_dir_pad)
+    _check_cuda(encx, encd, params, density_activation)
     from .build import load_library
 
     lib = load_library()
     N = encx.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=encx.device)
     err = lib.fsnerf_nerf_mlp(
-        encx.data_ptr(), encd.data_ptr(), params.wpack.data_ptr(),
-        params.bpack.data_ptr(), out.data_ptr(), N, params.n_layers,
-        params.skip_mask, params.width, params.d_enc_pad, params.d_dir_pad,
+        encx.data_ptr(), encd.data_ptr(), wpack.data_ptr(), bpack.data_ptr(),
+        out.data_ptr(), N, n_layers, skip_mask, width, d_enc_pad, d_dir_pad,
         _DENSITY_ACT[density_activation],
-        trunk_rows(params.n_layers, params.skip, params.width,
-                   params.d_enc_pad),
+        trunk_rows(n_layers, params.skip, width, d_enc_pad),
         torch.cuda.current_stream(encx.device).cuda_stream)
     if err:
         raise RuntimeError("nerf_mlp kernel launch failed: "
@@ -165,7 +197,31 @@ def nerf_mlp(encx, encd, params: MlpParams,
     return out
 
 
-nerf_mlp.launches = 0
+@_nerf_mlp_op.register_fake
+def _nerf_mlp_fake(encx, encd, wpack, bpack, n_layers, skip_mask, width,
+                   d_enc_pad, d_dir_pad, density_activation):
+    """The output's shape, after the checks the launch makes: a width the
+    kernel refuses fails when a program is traced, not when it runs."""
+    params = _op_params(wpack, bpack, n_layers, skip_mask, width, d_enc_pad,
+                        d_dir_pad)
+    if encx.device.type == "cuda":
+        _check_cuda(encx, encd, params, density_activation)
+    else:
+        _check(encx, encd, params, density_activation)
+    return encx.new_empty((encx.shape[0], 4), dtype=torch.float32)
+
+
+def _check_cuda(encx, encd, params: MlpParams, density_activation: str):
+    """The kernel's checks: shapes and dtypes, a width and encodings it is
+    built for, contiguous tensors on one device."""
+    _check(encx, encd, params, density_activation)
+    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
+    if err is not None:
+        raise ValueError(f"nerf_mlp: {err}")
+    for a in (encx, encd, params.wpack, params.bpack):
+        if a.device != encx.device or not a.is_contiguous():
+            raise ValueError("nerf_mlp needs contiguous tensors on one "
+                             "device")
 
 
 def make_fused_model_fn(

@@ -25,9 +25,11 @@ and directions get no gradient.
 
 `siren_mlp_fwd` / `siren_mlp_bwd` launch csrc/siren.cu for CUDA tensors and
 run `siren_mlp_fwd_reference` / `siren_mlp_bwd_reference` only for CPU
-tensors. Inputs are the padded bf16 coordinates of `pad_inputs`; weights
-travel packed by `prep_siren_params` in the kernels' walk order, and
-gradients come back in the same packed layout.
+tensors; the forward without acts does so as the registered op
+fsnerf_torch::siren_mlp_fwd, which a torch.export program keeps as a call
+(utils/export.py). Inputs are the padded bf16 coordinates of
+`pad_inputs`; weights travel packed by `prep_siren_params` in the
+kernels' walk order, and gradients come back in the same packed layout.
 """
 
 from __future__ import annotations
@@ -358,26 +360,46 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     csrc/siren.cu fsnerf_siren_fwd: widths 64, 128 and 256 run the
     warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), the other
     widths (multiples of 32) the mma.sync one (siren_fwd_kernel); both
-    write the same acts layout."""
+    write the same acts layout.
+
+    Without acts the call runs as the registered op
+    `torch.ops.fsnerf_torch.siren_mlp_fwd`, so a program that torch.export
+    traces through it keeps the call (the serving artifact,
+    utils/export.py); with acts (the train step's forward) it launches
+    directly."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"siren_mlp_fwd runs on cpu or cuda, not {x.device}")
+    if not save_acts:
+        lay = params.layout
+        return torch.ops.fsnerf_torch.siren_mlp_fwd(
+            x, d, params.wpack, params.bpack, params.alphas, lay.n_layers,
+            lay.width), None
     if x.device.type == "cpu":
         return siren_mlp_fwd_reference(x, d, params, save_acts)
-    if x.device.type != "cuda":
-        raise ValueError(f"siren_mlp_fwd runs on cpu or cuda, not {x.device}")
+    return _siren_fwd_launch(x, d, params.wpack, params.bpack,
+                             params.alphas, params.layout, save_acts)
+
+
+siren_mlp_fwd.launches = 0
+
+
+def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
+                      save_acts: bool):
+    """One launch of csrc/siren.cu's forward on CUDA tensors: (out, acts
+    or None)."""
     _check_inputs("siren_mlp_fwd", x, d)
-    _check_device("siren_mlp_fwd", [x, d, params.wpack, params.bpack,
-                                    params.alphas])
+    _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
     from .build import load_library
 
     lib = load_library()
-    lay = params.layout
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     acts = (torch.empty((_round_up(N, ROWS), 2 * lay.n_layers * lay.width),
                         dtype=torch.bfloat16, device=x.device)
             if save_acts else None)
     err = lib.fsnerf_siren_fwd(
-        x.data_ptr(), d.data_ptr(), params.wpack.data_ptr(),
-        params.bpack.data_ptr(), params.alphas.data_ptr(), out.data_ptr(),
+        x.data_ptr(), d.data_ptr(), wpack.data_ptr(), bpack.data_ptr(),
+        alphas.data_ptr(), out.data_ptr(),
         None if acts is None else acts.data_ptr(), N, lay.n_layers,
         lay.width, torch.cuda.current_stream(x.device).cuda_stream)
     _launch_error(lib, err, "siren_mlp_fwd")
@@ -385,7 +407,39 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     return out, acts
 
 
-siren_mlp_fwd.launches = 0
+@torch.library.custom_op("fsnerf_torch::siren_mlp_fwd", mutates_args=(),
+                         device_types="cpu")
+def _siren_fwd_op(x: torch.Tensor, d: torch.Tensor, wpack: torch.Tensor,
+                  bpack: torch.Tensor, alphas: torch.Tensor, n_layers: int,
+                  width: int) -> torch.Tensor:
+    """CPU tensors: the plain version without acts."""
+    if alphas.shape != (n_layers,):
+        raise ValueError(f"siren_mlp_fwd: {tuple(alphas.shape)} alphas for "
+                         f"{n_layers} layers")
+    lay = SirenLayout(n_layers, width, tuple(alphas.tolist()))
+    return siren_mlp_fwd_reference(
+        x, d, SirenParams(wpack, bpack, None, alphas, lay))[0]
+
+
+@_siren_fwd_op.register_kernel("cuda")
+def _siren_fwd_cuda(x, d, wpack, bpack, alphas, n_layers, width):
+    """CUDA tensors: one launch of the forward without acts."""
+    lay = SirenLayout(n_layers, width, ())
+    return _siren_fwd_launch(x, d, wpack, bpack, alphas, lay, False)[0]
+
+
+@_siren_fwd_op.register_fake
+def _siren_fwd_fake(x, d, wpack, bpack, alphas, n_layers, width):
+    """The output's shape, after the launch's checks."""
+    _check_inputs("siren_mlp_fwd", x, d)
+    if x.device.type == "cuda":
+        _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
+    lay = SirenLayout(n_layers, width, ())
+    if width % 32 or wpack.numel() != lay.n_w or bpack.numel() != lay.n_b \
+            or alphas.shape != (n_layers,):
+        raise ValueError(f"siren_mlp_fwd: weights do not match a SiNeRF of "
+                         f"{n_layers} layers of width {width}")
+    return x.new_empty((x.shape[0], 4), dtype=torch.float32)
 
 
 def dw_jobs(lay: SirenLayout):

@@ -26,11 +26,16 @@ NeRF 8x256 with seeded weights:
     recompute mode;
   siren_march: kernel 2 (the SIREN ray march) on kernel 1's inputs, SiNeRF
     8x256, normal and with a saturating sigma bias, and its host time per
-    call.
+    call;
+  eval: seconds per 800x800 validation view (`cli.render_val_view`:
+    seeded weights, a res-128 grid rebuilt from them, chunks of 2,048 rays,
+    the eval model_fn) for NeRF 8x256 (kernel 3 once per chunk, 313
+    launches) and SiNeRF 8x256 (kernel 7 without acts, 313 launches), and
+    the host time per call of both wrappers at one chunk's 393,216 rows.
 
     python -m fsnerf_tpu_torch.scripts.train_kernel_turns \\
         --trees build/parent,. [--blocks 3] [--rows 196608] \\
-        [--groups train,density,march,mlp,siren,siren_march]
+        [--groups train,density,march,mlp,siren,siren_march,eval]
 
 Each measurement is a process of its own that imports `fsnerf_tpu_torch`
 from one tree (its kernels built there), in the order A, B, B, A per
@@ -60,7 +65,9 @@ _KEYS = {"train": ("fwd_ms", "fwd_nosave_ms", "fwd_host_ms", "bwd_ms",
                    "siren_dw_ms", "siren_reduce_ms", "siren_bwd_host_ms",
                    "siren_bwd_recompute_ms"),
          "siren_march": ("siren_march_ms", "siren_march_exit_ms",
-                         "siren_march_host_ms")}
+                         "siren_march_host_ms"),
+         "eval": ("val_view_s", "siren_val_view_s", "mlp_chunk_host_ms",
+                  "siren_nosave_host_ms")}
 
 
 def _ms(fn, reps: int) -> float:
@@ -102,7 +109,8 @@ def measure(groups, rows: int, reps: int) -> dict:
         res.update({"train": measure_train, "density": measure_density,
                     "march": measure_march, "mlp": measure_mlp,
                     "siren": measure_siren,
-                    "siren_march": measure_siren_march}[group](rows, reps))
+                    "siren_march": measure_siren_march,
+                    "eval": measure_eval}[group](rows, reps))
     return res
 
 
@@ -333,6 +341,60 @@ def measure_mlp(rows: int, reps: int) -> dict:
                                     reps)}
 
 
+def measure_eval(rows: int, reps: int) -> dict:
+    """Seconds per 800x800 validation view through each model's eval
+    model_fn, and the two forward wrappers' host ms per call."""
+    import dataclasses
+
+    import torch
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    dev = torch.device("cuda")
+    split = cli.build_split("sphere", 1, 800, True, seed=1)
+    res = {}
+    for name in ("nerf", "sinerf"):
+        cfg = Config()
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, model=name))
+        model = make_model(cfg, torch.bfloat16,
+                           torch.Generator().manual_seed(5), dev)
+        grid = cli.rebuild_grid(model, cfg, split.aabb, dev)
+
+        def view():
+            return cli.render_val_view(model, cfg, grid, split, 0, dev)
+
+        view()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            view()
+        torch.cuda.synchronize()
+        key = "val_view_s" if name == "nerf" else "siren_val_view_s"
+        res[key] = (time.perf_counter() - t0) / 3
+    model = make_model(Config(), torch.bfloat16,
+                       torch.Generator().manual_seed(5), dev)
+    params = km.prep_params(model.state_dict(), 8, (4,), dev)
+    n = 2048 * 192
+    ex = torch.zeros((n, params.d_enc_pad), dtype=torch.bfloat16, device=dev)
+    ed = torch.zeros((n, params.d_dir_pad), dtype=torch.bfloat16, device=dev)
+    res["mlp_chunk_host_ms"] = _host_ms(lambda: km.nerf_mlp(ex, ed, params),
+                                        reps)
+    scfg = Config()
+    scfg = scfg.replace(model=dataclasses.replace(scfg.model,
+                                                  model="sinerf"))
+    smodel = make_model(scfg, torch.bfloat16,
+                        torch.Generator().manual_seed(5), dev)
+    sparams = ks.prep_siren_params(smodel.state_dict(), 8, device=dev)
+    x = torch.zeros((n, ks.D_IN_PAD), dtype=torch.bfloat16, device=dev)
+    res["siren_nosave_host_ms"] = _host_ms(
+        lambda: ks.siren_mlp_fwd(x, x, sparams), reps)
+    return res
+
+
 def _split_ms(fn, names, calls: int) -> dict:
     """Device ms per call of fn in each of the kernels whose name starts
     with one of `names` (each launched once per call): the mean of the
@@ -432,7 +494,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--groups", default="train,density,march",
                     help="which kernels to time: any of train, density, "
-                         "march, mlp, siren, siren_march")
+                         "march, mlp, siren, siren_march, eval")
     ap.add_argument("--worker", action="store_true",
                     help="measure the tree on PYTHONPATH once (internal)")
     args = ap.parse_args(argv)

@@ -211,22 +211,38 @@ TINY = ["--dataset", "sphere", "--device", "cpu", "--hw", "8", "--n_imgs",
         "0.3", "--n_iters", "4", "--batch_size", "16", "--fused_kernel"]
 
 
+def _camera_plot():
+    """The camera plot's file in a run directory: plotly's HTML, else
+    matplotlib's PNG, else none (fsnerf_tpu/cli.py skips it)."""
+    import importlib.util
+
+    for module, name in (("plotly", "camera_poses.html"),
+                         ("matplotlib", "camera_poses.png")):
+        if importlib.util.find_spec(module) is not None:
+            return [name]
+    return []
+
+
 def test_cli_run_directory(tmp_path, capsys):
     """cli.main writes config.yaml, metrics.jsonl, final_metrics.json, the
-    checkpoint and the path's frames under <out_dir>/<model>/<dataset>/
-    <scene>/n_imgs_<n>; --render_only restores from there (the same
-    step); --config of that config.yaml is the run's config; --debug and
-    --export_render write nothing (--debug renders no path: nothing would
-    receive it)."""
+    checkpoint, the camera plot and the path's frames under <out_dir>/
+    <model>/<dataset>/<scene>/n_imgs_<n>; --render_only restores from
+    there (the same step); --config of that config.yaml is the run's
+    config; --debug writes nothing (it renders no path: nothing would
+    receive it) but the serving artifact of --export_render (renderer.pt2
+    and meta.json), which renders a finite frame of the run's size."""
+    from fsnerf_tpu_torch.data.poses import pose_from_spherical
+    from fsnerf_tpu_torch.utils.export import render_frame_exported
+
     out = tmp_path / "runs"
     assert cli.main(TINY + ["--out_dir", str(out)]) == 0
     first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     run = out / "nerf" / "sphere" / "lego" / "n_imgs_2"
     assert cli.run_dir(tconfig.config_from_args(
         TINY + ["--out_dir", str(out)])) == os.path.normpath(run)
-    assert sorted(os.listdir(run)) == ["ckpt", "config.yaml",
-                                       "final_metrics.json", "metrics.jsonl",
-                                       "video"]
+    assert sorted(os.listdir(run)) == sorted(
+        ["ckpt", "config.yaml", "final_metrics.json", "metrics.jsonl",
+         "video"] + _camera_plot())
     saved = tconfig.Config.load_yaml(str(run / "config.yaml"))
     assert saved == tconfig.config_from_args(TINY + ["--out_dir", str(out)])
     assert dataclasses.asdict(tconfig.config_from_args(
@@ -242,8 +258,15 @@ def test_cli_run_directory(tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(line["psnr"]) and "path_frames" not in line
     assert not quiet.exists()
-    assert cli.main(TINY + ["--out_dir", str(quiet), "--export_render",
-                            str(tmp_path / "art")]) == 2
-    assert "not ported" in capsys.readouterr().err
-    assert not quiet.exists() and not (tmp_path / "art").exists()
+    art = tmp_path / "art"
+    assert cli.main(TINY + ["--out_dir", str(quiet), "--debug",
+                            "--export_render", str(art)]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["export_render"] == str(art)
+    assert not quiet.exists()
+    assert sorted(os.listdir(art)) == ["meta.json", "renderer.pt2"]
+    rgb, depth = render_frame_exported(str(art),
+                                       pose_from_spherical(4.0, 30.0, 45.0))
+    assert rgb.shape == (8, 8, 3) and depth.shape == (8, 8)
+    assert np.isfinite(rgb).all() and np.isfinite(depth).all()
     assert cli.main(TINY + ["--debug", "--resume"]) == 2

@@ -1300,3 +1300,69 @@ def test_graphed_train_scanned_is_the_eager_one(cuda):
         out[graphs] = (state, seen)
     _assert_bitwise(out[None][0], out[False][0])
     assert out[None][1] == out[False][1] and len(out[None][1]) == 5
+
+
+@pytest.mark.parametrize("model", ["nerf", "sinerf"])
+def test_export_roundtrip_on_the_card(cuda, tmp_path, model):
+    """The serving artifact (utils/export.py) exported on the card, saved
+    and loaded: the saved graph calls the kernel's op, the program
+    reproduces the live chunk renderer bitwise, and render_frame_exported
+    reproduces render_frame bitwise, with one launch of the forward MLP
+    (NeRF) or the SIREN forward (SiNeRF) per chunk replayed; a width the
+    NeRF kernel refuses fails at export."""
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.render.renderer import (make_chunk_renderer,
+                                                  render_frame)
+    from fsnerf_tpu_torch.utils import export
+    from torch_parity import AABB, shell_rays, sphere_density_torch
+
+    if model == "nerf":
+        sd = state_dict_from_jax(nerf_params_np(3, d_filter=64, **SMALL))
+        sd["sigma.bias"] = sd["sigma.bias"] + 10.0
+        model_fn = km.make_fused_model_fn(sd, **SMALL, device=cuda)
+        wrapper, op = km.nerf_mlp, "fsnerf_torch.nerf_mlp.default"
+    else:
+        sd = state_dict_from_jax(sinerf_params_np(3))
+        model_fn = ks.make_siren_forward_fn(sd, 4, device=cuda)
+        wrapper, op = ks.siren_mlp_fwd, "fsnerf_torch.siren_mlp_fwd.default"
+    grid = og.update(og.create(AABB, resolution=16, levels=1, device=cuda),
+                     sphere_density_torch, 0)
+    kw = dict(grid=grid, n_samples=32, render_step_size=0.1,
+              white_bkgd=True, n_compact=16, near=2.0, far=6.0)
+    live = make_chunk_renderer(model_fn, **kw)
+    hwf, chunk = (24, 20, 30.0), 128
+    path = export.export_render_artifact(live, chunk, str(tmp_path / "a"),
+                                         hwf=hwf, near=2.0, far=6.0)
+    calls = {str(n.target) for m in torch.export.load(
+        str(tmp_path / "a" / "renderer.pt2")).graph_module.modules()
+        if isinstance(m, torch.fx.GraphModule)
+        for n in m.graph.nodes if n.op == "call_function"}
+    assert op in calls
+    fn, meta = export.load_render_artifact(path)
+    assert meta["platforms"] == ["cuda"]
+    assert meta["device_name"] == torch.cuda.get_device_name(cuda)
+    ro, rd = (torch.from_numpy(a).to(cuda) for a in shell_rays(chunk, 5))
+    want = live(ro, rd)
+    before = wrapper.launches
+    got = fn(ro, rd)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    pose = torch.tensor([[1.0, 0.0, 0.0, 0.0], [0.0, 0.6, -0.8, -3.2],
+                         [0.0, 0.8, 0.6, 2.4], [0.0, 0.0, 0.0, 1.0]])
+    before = wrapper.launches
+    rgb, depth = export.render_frame_exported((fn, meta), pose.numpy())
+    n_chunks = -(-hwf[0] * hwf[1] // chunk)
+    assert wrapper.launches == before + n_chunks
+    rgb_ref, depth_ref = render_frame(None, pose.to(cuda), hwf, 2.0, 6.0,
+                                      chunksize=chunk, chunk_renderer=live)
+    assert (rgb == rgb_ref.cpu().numpy()).all()
+    assert (depth == depth_ref.cpu().numpy()).all()
+    if model == "nerf":
+        sd96 = state_dict_from_jax(nerf_params_np(3, d_filter=96, **SMALL))
+        wide = make_chunk_renderer(
+            km.make_fused_model_fn(sd96, **SMALL, device=cuda), **kw)
+        with pytest.raises(Exception, match="take widths"):
+            export.export_render_artifact(wide, chunk, str(tmp_path / "b"),
+                                          hwf=hwf, near=2.0, far=6.0)
