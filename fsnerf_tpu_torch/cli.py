@@ -534,6 +534,17 @@ def run_training(model, cfg, pool, train_split: Split, val_split: Split,
         state = Checkpointer(ckpt_dir).restore(init_state(
             model, cfg, make_optimizer(cfg, model), train_split.aabb,
             device))
+    if cfg.train.import_torch_ckpt and state is not None:
+        _log.warning("--import_torch_ckpt ignored: --resume found a "
+                     "checkpoint, which takes precedence")
+    elif cfg.train.import_torch_ckpt and cfg.sampling.strategy == "occgrid":
+        # the imported weights' grid (fsnerf_tpu/cli.py's import path): one
+        # full refresh of their densities, written into the fresh state's
+        # grid in place, which the step graphs read
+        state = init_state(model, cfg, make_optimizer(cfg, model),
+                           train_split.aabb, device)
+        fresh = rebuild_grid(model, cfg, train_split.aabb, device)
+        og.set_occs_(state.grid, fresh.occs, fresh.thre)
     start = 0 if state is None else state.step
     val_fn = make_val_fn(model, cfg, val_split, device, mesh) \
         if cfg.train.val else None

@@ -270,3 +270,97 @@ def test_cli_run_directory(tmp_path, capsys):
     assert rgb.shape == (8, 8, 3) and depth.shape == (8, 8)
     assert np.isfinite(rgb).all() and np.isfinite(depth).all()
     assert cli.main(TINY + ["--debug", "--resume"]) == 2
+
+
+def test_import_torch_ckpt_starts_from_the_refreshed_grid(tmp_path,
+                                                          monkeypatch):
+    """--import_torch_ckpt with an occgrid config and no checkpoint to
+    resume: the state training starts from holds one full refresh of the
+    imported densities at step 0 (cell centres), as fsnerf_tpu/cli.py's
+    import path replaces its fresh state's grid. Held against that path's
+    og.update of the same nn.pt (model.apply in float32; the port's CPU
+    run takes the module without --fused_kernel): EMA values, binaries,
+    threshold and queries bitwise, as
+    tests/test_torch_ops.py::test_occgrid_create_update_query_bitwise holds
+    a refresh, when the JAX update is handed the port module's densities;
+    and against the JAX module's densities within float32 rounding."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from fsnerf_tpu.core.models import make_model as jmake_model
+    from fsnerf_tpu.ops import occgrid as jog
+    from fsnerf_tpu.train import step as jstep
+    from fsnerf_tpu_torch.core.models import NeRF
+    from fsnerf_tpu_torch.train import loop, step
+    from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
+    from test_torch_ops import _assert_grid_equal, _query_points
+    from torch_parity import nerf_params_np
+
+    params = nerf_params_np(31, n_layers=2, d_filter=32, skip=(0,),
+                            n_freqs=2, n_freqs_views=2)
+    nn_pt = tmp_path / "nn.pt"
+    torch.save(state_dict_from_jax(params), nn_pt)
+    seen = {}
+    real_train = loop.train
+
+    def spy(model, cfg, pool, scene, state=None, **kw):
+        if state is None:       # what train() builds for itself
+            state = step.init_state(model, cfg,
+                                    step.make_optimizer(cfg, model),
+                                    scene.aabb, pool.device)
+        g = state.grid
+        seen["grid"] = g.replace(occs=g.occs.clone(), occ_q=g.occ_q.clone(),
+                                 od_q=g.od_q.clone(),
+                                 binaries=g.binaries.clone(),
+                                 thre=g.thre.clone())
+        seen["aabb"] = np.asarray(scene.aabb, np.float32)
+        return real_train(model, cfg, pool, scene, state=state, **kw)
+
+    monkeypatch.setattr(loop, "train", spy)
+    argv = [a for a in TINY if a != "--fused_kernel"]
+    argv += ["--n_iters", "1", "--dtype", "float32", "--debug",
+             "--import_torch_ckpt", str(nn_pt)]
+    assert cli.main(argv) == 0
+    tg = seen["grid"]
+
+    jargv = [a for i, a in enumerate(argv)
+             if a not in ("--hw", "--device")
+             and argv[i - 1] not in ("--hw", "--device")]
+    jcfg = jconfig.config_from_args(jargv)
+    jmodel = jmake_model(jcfg)
+    js = jstep.init_state(jmodel, jcfg, jstep.make_optimizer(jcfg),
+                          seen["aabb"], jax.random.key(jcfg.train.seed))
+    s = jcfg.sampling
+
+    def jax_refresh(density_fn):
+        return jog.update(js.grid, density_fn, None, jnp.int32(0),
+                          render_step_size=s.render_step_size,
+                          occ_thre=s.occ_thre, ema_decay=s.ema_decay)
+
+    # the refresh itself, bitwise: the JAX update driven by the imported
+    # weights' densities as the port's module computes them
+    model = NeRF(n_layers=2, d_filter=32, skip=(0,), n_freqs=2,
+                 n_freqs_views=2)
+    model.load_state_dict(torch.load(nn_pt, weights_only=True))
+
+    def port_sigma(x):
+        with torch.no_grad():
+            return model(torch.from_numpy(np.asarray(x)))[..., 0].numpy()
+
+    def port_density(x):        # the refresh traces it (lax.cond)
+        return jax.pure_callback(
+            port_sigma, jax.ShapeDtypeStruct(x.shape[:1], jnp.float32), x)
+
+    jgrid = jax_refresh(port_density)
+    assert 0.0 < float(jnp.mean(jgrid.binaries)) < 1.0     # some cells cut
+    _assert_grid_equal(tg, jgrid, _query_points())
+    # the densities: against the JAX module's (model.apply in float32),
+    # within float32 rounding (XLA's and torch's CPU matmuls sum in another
+    # order; largest read: 1.35e-5 relative, 2.2e-8 absolute)
+    jgrid = jax_refresh(lambda x: jmodel.apply(params, x)[..., 0])
+    np.testing.assert_array_equal(tg.binaries.numpy(),
+                                  np.asarray(jgrid.binaries))
+    np.testing.assert_allclose(tg.occs.numpy(), np.asarray(jgrid.occs),
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(tg.thre.item(), float(jgrid.thre), rtol=1e-5)
