@@ -31,12 +31,17 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import jpeg
+
 SOURCE = Path(__file__).resolve().with_name("loader.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 LIBS = ("-lpthread",)
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# images inflated and unfiltered together (bounds the host memory held)
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# images read and decoded together (bounds the host memory held)
 BATCH = 64
 _lib: Optional[ctypes.CDLL] = None
 
@@ -74,6 +79,12 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int]
+        lib.fsnerf_jpeg_decode.restype = ctypes.c_int
+        lib.fsnerf_jpeg_decode.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -90,14 +101,19 @@ class _Png:
     data: bytes           # the concatenated IDAT chunks (deflated)
     palette: Optional[np.ndarray] = None    # [P, 3] uint8
     trns: Optional[bytes] = None
+    interlaced: bool = False                  # Adam7
 
     @property
     def samples(self) -> int:
         return {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[self.color]
 
+    def rowbytes_of(self, w: int) -> int:
+        """Bytes of a row of `w` pixels, without its filter byte."""
+        return (w * self.samples * self.depth + 7) // 8
+
     @property
     def rowbytes(self) -> int:
-        return (self.width * self.samples * self.depth + 7) // 8
+        return self.rowbytes_of(self.width)
 
     @property
     def bpp(self) -> int:
@@ -109,16 +125,12 @@ class _Png:
         return 4 if self.color in (4, 6) or self.trns is not None else 3
 
 
-def _read_png(path: str) -> _Png:
-    with open(path, "rb") as fh:
-        raw = fh.read()
-    if raw[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            f"{path}: JPEG decoding needs jpeglib.h (libjpeg), which the "
-            f"port's decoder does not use; convert the images to PNG")
+def _read_png(path: str, raw: bytes) -> _Png:
+    """The header and chunks of the PNG file `path`, whose bytes are
+    `raw`."""
     if raw[:8] != PNG_SIGNATURE:
         raise IOError(f"{path} is not a PNG file")
-    pos, idat, fields = 8, [], {}
+    pos, idat, fields, early_trns = 8, [], {}, False
     while pos + 12 <= len(raw):
         (n,) = struct.unpack(">I", raw[pos:pos + 4])
         kind, body = raw[pos + 4:pos + 8], raw[pos + 8:pos + 8 + n]
@@ -130,6 +142,7 @@ def _read_png(path: str) -> _Png:
             idat.append(body)
         elif kind in (b"IHDR", b"PLTE", b"tRNS"):
             fields[kind] = body
+            early_trns |= kind == b"tRNS" and b"PLTE" not in fields
         elif kind == b"IEND":
             break
         pos += 12 + n
@@ -137,8 +150,8 @@ def _read_png(path: str) -> _Png:
         raise IOError(f"{path}: no IHDR or IDAT chunk")
     w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB",
                                                         fields[b"IHDR"])
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNGs are not read")
+    if interlace not in (0, 1):
+        raise IOError(f"{path}: unknown interlace method {interlace}")
     if color not in (0, 2, 3, 4, 6) or depth not in (1, 2, 4, 8, 16):
         raise IOError(f"{path}: bad color type {color} / depth {depth}")
     palette = None
@@ -146,14 +159,22 @@ def _read_png(path: str) -> _Png:
         if b"PLTE" not in fields:
             raise IOError(f"{path}: palette image without PLTE")
         palette = np.frombuffer(fields[b"PLTE"], np.uint8).reshape(-1, 3)
-    return _Png(path, w, h, depth, color, b"".join(idat), palette,
-                fields.get(b"tRNS"))
+    trns = fields.get(b"tRNS")
+    # png_handle_tRNS: a chunk of the wrong length for the color type, or
+    # a palette's before its PLTE, is invalid (a warning) and ignored
+    if trns is not None and not (
+            len(trns) == 2 if color == 0 else len(trns) == 6 if color == 2
+            else color == 3 and 0 < len(trns) <= len(palette)
+            and not early_trns):
+        trns = None
+    return _Png(path, w, h, depth, color, b"".join(idat), palette, trns,
+                bool(interlace))
 
 
-def _samples(png: _Png, rows: np.ndarray) -> np.ndarray:
-    """The unfiltered rows [H, rowbytes] as samples [H, W, samples] at the
-    file's bit depth (uint16 for 16-bit files)."""
-    h, w, s = png.height, png.width, png.samples
+def _samples(png: _Png, rows: np.ndarray, w: int) -> np.ndarray:
+    """Unfiltered rows [h, rowbytes] of `w` pixels as samples [h, w,
+    samples] at the file's bit depth (uint16 for 16-bit files)."""
+    h, s = rows.shape[0], png.samples
     if png.depth == 16:
         return rows.view(">u2").reshape(h, w, s).astype(np.uint16)
     if png.depth == 8:
@@ -163,10 +184,9 @@ def _samples(png: _Png, rows: np.ndarray) -> np.ndarray:
     return vals.reshape(h, -1)[:, :w, None]
 
 
-def _to_8bit(png: _Png, rows: np.ndarray) -> np.ndarray:
-    """uint8 [H, W, 3 or 4] pixels of an image's unfiltered rows, converted
-    as the libpng decoder converts them."""
-    px = _samples(png, rows)
+def _to_8bit(png: _Png, px: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3 or 4] pixels of an image's samples [H, W, samples],
+    converted as the libpng decoder converts them."""
     alpha = None
     if png.trns is not None and png.color in (0, 2):
         key = np.frombuffer(png.trns, ">u2")[:png.samples]
@@ -191,35 +211,109 @@ def _to_8bit(png: _Png, rows: np.ndarray) -> np.ndarray:
     return px
 
 
-def probe_image(path: str):
-    """(h, w, c) of an image file: c is 3, or 4 with an alpha channel."""
-    png = _read_png(path)
-    return png.height, png.width, png.channels
-
-
-def _unfilter(pngs: List[_Png], n_threads: int) -> List[np.ndarray]:
-    """Inflate each image's data and undo its row filters (loader.cpp, one
-    image per thread); [H, rowbytes] uint8 per image. All images share H,
-    rowbytes and bytes per pixel."""
-    p0 = pngs[0]
-    src = [np.frombuffer(zlib.decompress(p.data), np.uint8) for p in pngs]
-    for p, a in zip(pngs, src):
-        if a.size < p.height * (p.rowbytes + 1):
-            raise IOError(f"{p.path}: truncated image data")
-    dst = [np.empty((p0.height, p0.rowbytes), np.uint8) for _ in pngs]
-    ptrs = ctypes.c_void_p * len(pngs)
+def _unfilter(src: List[np.ndarray], h: int, rowbytes: int, bpp: int,
+              n_threads: int, paths: List[str]) -> List[np.ndarray]:
+    """Undo the row filters of images that share h, rowbytes and bytes per
+    pixel (loader.cpp, one image per thread): src[i] holds h rows of one
+    filter byte and rowbytes bytes; returns [h, rowbytes] uint8 each."""
+    for p, a in zip(paths, src):
+        if a.size < h * (rowbytes + 1):
+            raise IOError(f"{p}: truncated image data")
+    dst = [np.empty((h, rowbytes), np.uint8) for _ in src]
+    ptrs = ctypes.c_void_p * len(src)
     rc = get_lib().fsnerf_unfilter(
-        len(pngs), ptrs(*[a.ctypes.data for a in src]),
-        ptrs(*[a.ctypes.data for a in dst]), p0.height, p0.rowbytes,
-        p0.bpp, n_threads)
+        len(src), ptrs(*[a.ctypes.data for a in src]),
+        ptrs(*[a.ctypes.data for a in dst]), h, rowbytes, bpp, n_threads)
     if rc:
-        raise IOError(f"{pngs[rc - 1].path}: unknown PNG row filter")
+        raise IOError(f"{paths[rc - 1]}: unknown PNG row filter")
     return dst
+
+
+def _adam7_samples(png: _Png, data: np.ndarray,
+                   n_threads: int) -> np.ndarray:
+    """Samples [H, W, samples] of an Adam7-interlaced image from its
+    inflated data: seven passes, each a sub-image of its own width, row
+    bytes and filter bytes (none where the image is too small for it),
+    unfiltered and scattered to its pixels."""
+    px = np.empty((png.height, png.width, png.samples),
+                  np.uint16 if png.depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw = (png.width - x0 + dx - 1) // dx
+        ph = (png.height - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        rb = png.rowbytes_of(pw)
+        (rows,) = _unfilter([data[pos:pos + ph * (rb + 1)]], ph, rb, png.bpp,
+                            n_threads, [png.path])
+        pos += ph * (rb + 1)
+        px[y0::dy, x0::dx] = _samples(png, rows, pw)
+    return px
+
+
+def _decode_pngs(pngs: List[_Png], dst: List[np.ndarray],
+                 n_threads: int) -> None:
+    """Decode `pngs` into the float32 [H, W, C] arrays `dst`."""
+    inv255 = np.float32(1.0) / np.float32(255.0)
+    data = [np.frombuffer(zlib.decompress(p.data), np.uint8) for p in pngs]
+    px = [None] * len(pngs)
+    groups = {}
+    for i, p in enumerate(pngs):
+        if p.interlaced:
+            px[i] = _adam7_samples(p, data[i], n_threads)
+        else:
+            groups.setdefault((p.rowbytes, p.bpp), []).append(i)
+    for (rowbytes, bpp), idx in groups.items():
+        rows = _unfilter([data[i] for i in idx], pngs[idx[0]].height,
+                         rowbytes, bpp, n_threads,
+                         [pngs[i].path for i in idx])
+        for i, r in zip(idx, rows):
+            px[i] = _samples(pngs[i], r, pngs[i].width)
+    for p, x, out in zip(pngs, px, dst):
+        c = out.shape[-1]
+        x = _to_8bit(p, x)[..., :c]
+        np.multiply(x, inv255, out=out[..., :x.shape[-1]], dtype=np.float32)
+        if x.shape[-1] < c:
+            out[..., 3] = 1.0
+
+
+def _is_png(path: str, raw: bytes) -> bool:
+    """Whether fsnerf_tpu/native's decode_any reads `path` as a PNG (True)
+    or a JPEG (False): by the suffix, else by the magic bytes."""
+    lower = path.lower()
+    if lower.endswith(".png"):
+        return True
+    if lower.endswith((".jpg", ".jpeg")):
+        return False
+    if len(raw) >= 4 and raw[:2] == b"\x89P":
+        return True
+    if len(raw) >= 4 and raw[:2] == b"\xff\xd8":
+        return False
+    raise IOError(f"{path} is neither a PNG nor a JPEG file")
+
+
+def _read(path: str):
+    """A _Png or a jpeg.Jpeg of the image file `path`."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    if _is_png(path, raw):
+        return _read_png(path, raw)
+    return jpeg.read_jpeg(path, raw)
+
+
+def probe_image(path: str):
+    """(h, w, c) of an image file: c is 3, or 4 with an alpha channel (a
+    JPEG is always 3)."""
+    img = _read(path)
+    if isinstance(img, _Png):
+        return img.height, img.width, img.channels
+    return img.height, img.width, 3
 
 
 def decode_images(paths: List[str], n_threads: int = 0,
                   channels: Optional[int] = None) -> np.ndarray:
-    """Decode `paths` to [N, H, W, C] float32 in [0, 1].
+    """Decode `paths`, PNG and JPEG files in any mix, to [N, H, W, C]
+    float32 in [0, 1].
 
     All images must share H x W; `channels` defaults to the first image's
     channel count (3 or 4), and the others are converted to it (an alpha
@@ -231,24 +325,21 @@ def decode_images(paths: List[str], n_threads: int = 0,
     if channels is not None:
         c = channels
     out = np.empty((len(paths), h, w, c), np.float32)
-    inv255 = np.float32(1.0) / np.float32(255.0)
     for b0 in range(0, len(paths), BATCH):
-        pngs = [_read_png(p) for p in paths[b0:b0 + BATCH]]
-        groups = {}
-        for i, p in enumerate(pngs):
-            if (p.height, p.width) != (h, w):
-                raise IOError(f"failed decoding {p.path} (size/format "
+        imgs = [_read(p) for p in paths[b0:b0 + BATCH]]
+        for img in imgs:
+            if (img.height, img.width) != (h, w):
+                raise IOError(f"failed decoding {img.path} (size/format "
                               f"mismatch with {paths[0]}: {h}x{w})")
-            groups.setdefault((p.rowbytes, p.bpp), []).append(i)
-        for idx in groups.values():
-            rows = _unfilter([pngs[i] for i in idx], n_threads)
-            for i, r in zip(idx, rows):
-                px = _to_8bit(pngs[i], r)[..., :c]
-                dst = out[b0 + i]
-                np.multiply(px, inv255, out=dst[..., :px.shape[-1]],
-                            dtype=np.float32)
-                if px.shape[-1] < c:
-                    dst[..., 3] = 1.0
+        pngs = [i for i, img in enumerate(imgs) if isinstance(img, _Png)]
+        jpegs = [i for i, img in enumerate(imgs)
+                 if not isinstance(img, _Png)]
+        if pngs:
+            _decode_pngs([imgs[i] for i in pngs],
+                         [out[b0 + i] for i in pngs], n_threads)
+        if jpegs:
+            jpeg.decode_into([imgs[i] for i in jpegs],
+                             [out[b0 + i] for i in jpegs], n_threads)
     return out
 
 

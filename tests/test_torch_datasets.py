@@ -205,24 +205,37 @@ def test_decoder_converts_formats_as_the_jax_loader(tmp_path):
 
 
 def test_decoder_refuses_what_it_cannot_read(tmp_path):
+    """Images of different sizes in one call raise; a JPEG and an
+    Adam7-interlaced PNG decode as the JAX decoder decodes them
+    (tests/test_torch_jpeg.py covers both formats in full)."""
+    from fsnerf_tpu.native import decode_images as jdecode
+
     a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
     Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(a)
     Image.fromarray(np.zeros((5, 4, 3), np.uint8)).save(b)
     with pytest.raises(IOError, match="mismatch"):
         native.decode_images([a, b])
+    rgb = np.random.default_rng(4).integers(0, 256, (4, 5, 3), np.uint8)
     jpg = str(tmp_path / "c.jpg")
-    Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(jpg)
-    with pytest.raises(NotImplementedError, match="jpeglib.h"):
-        native.decode_images([jpg])
-    # the IHDR of a written PNG marked Adam7-interlaced, its CRC redone
-    raw = bytearray(native.encode_png(np.zeros((4, 5, 3), np.uint8)))
-    raw[28] = 1
-    raw[29:33] = zlib.crc32(bytes(raw[12:29])).to_bytes(4, "big")
+    Image.fromarray(rgb).save(jpg)
+    np.testing.assert_array_equal(native.decode_images([jpg]),
+                                  jdecode([jpg]))
+    # an Adam7-interlaced PNG: a written PNG's IHDR marked interlaced, its
+    # image data the seven passes' rows (filter 0)
+    raw = native.encode_png(rgb)
+    ihdr = bytearray(raw[16:29])
+    ihdr[12] = 1
+    passes = [rgb[y0::dy, x0::dx] for x0, y0, dx, dy in native.ADAM7]
+    rows = b"".join(b"\x00" + r.tobytes() for p in passes if p.size
+                    for r in p)
     interlaced = tmp_path / "d.png"
-    interlaced.write_bytes(bytes(raw))
+    interlaced.write_bytes(
+        raw[:8] + native._chunk(b"IHDR", bytes(ihdr))
+        + native._chunk(b"IDAT", zlib.compress(rows))
+        + native._chunk(b"IEND", b""))
     assert Image.open(interlaced).info.get("interlace") == 1
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        native.decode_images([str(interlaced)])
+    np.testing.assert_array_equal(native.decode_images([str(interlaced)]),
+                                  jdecode([str(interlaced)]))
 
 
 @pytest.mark.parametrize("channels", [3, 4])
