@@ -201,7 +201,21 @@ Phases (any failure exits non-zero; nothing is caught):
         eval route: kernel 1 on the checkpoint's weights and grid) at the
         artifact's K, the largest differences and the pixels beyond
         kernel 1's tolerances (rgb 7e-3, depth 3e-2) printed;
- 22. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
+ 22. JPEG on the card's machine, which has no libjpeg (the port's
+     decoder, fsnerf_tpu_torch/native):
+     a. tests/data/jpeg/'s fixtures (progressive, 4:2:0 with restarts,
+        gray, 4:2:2, 4:4:0, RGB; widths and heights no MCU divides) decoded
+        bitwise to the pixels libjpeg-turbo gives (pixels.npz);
+     b. phase 18's lattice scene with its images_8/ written as JPEG by PIL
+        (quality 95, 4:2:0; PIL's JPEG codec must be present): the views
+        against PIL's decode of them, then the CLI's LLFF flow with
+        --debug (splits, LLFF_STEPS steps, val and test): the splits, val
+        PSNR at least 5 dB above the untrained weights', kernels 5 and 6
+        once per step, kernel 4 at every refresh and kernel 1 launched;
+        the val PSNR printed beside phase 18's PNG run;
+     c. 20 views at 4032x3024 (4:2:0, quality 95) decoded as images/s and
+        megapixels/s, beside PIL's decode of the same files;
+ 23. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
      larger of its bytes over 3.35 TB/s and its FLOP over 989 TFLOP/s in
@@ -1921,18 +1935,19 @@ def write_blender_scene(root: str) -> str:
     return "lattice"
 
 
-def write_llff_scene(root: str) -> str:
+def write_llff_scene(root: str, name: str = "lattice", jpeg=False) -> str:
     """LLFF_VIEWS forward-facing lattice views (cameras on a plane 4.5
     above it, looking down, tilted up to ~3 degrees) as an LLFF scene:
     poses_bounds.npy in the LLFF column order with each view's hit-depth
-    bounds and the full-size hwf column, images_8/ PNGs; returns its
-    name."""
+    bounds and the full-size hwf column, images_8/ PNGs (the port's
+    writer) or, with `jpeg`, JPEGs (PIL, quality 95, 4:2:0); returns
+    `name`, the scene's directory under root/llff."""
     import os
 
     from fsnerf_tpu_torch.native import write_png
     from fsnerf_tpu_torch.render.renderer import to8b
 
-    scene_dir = os.path.join(root, "llff", "lattice")
+    scene_dir = os.path.join(root, "llff", name)
     os.makedirs(os.path.join(scene_dir, "images_8"))
     rng = np.random.default_rng(1)
     poses = []
@@ -1950,8 +1965,13 @@ def write_llff_scene(root: str) -> str:
     rgb, depth = lattice_views(poses, hwf)
     rows = []
     for i, pose in enumerate(poses):
-        write_png(os.path.join(scene_dir, "images_8", f"im_{i:03d}.png"),
-                  to8b(rgb[i]))
+        path = os.path.join(scene_dir, "images_8", f"im_{i:03d}")
+        if jpeg:
+            from PIL import Image
+            Image.fromarray(to8b(rgb[i])).save(path + ".jpg", quality=95,
+                                               subsampling=2)
+        else:
+            write_png(path + ".png", to8b(rgb[i]))
         c2w = np.zeros((3, 5), np.float32)
         # LLFF [down, right, back] columns of the NeRF [right, up, back]
         c2w[:, 0], c2w[:, 1] = -pose[:3, 1], pose[:3, 0]
@@ -1960,7 +1980,7 @@ def write_llff_scene(root: str) -> str:
         hit = depth[i][depth[i] > 0]
         rows.append(np.concatenate([c2w.ravel(), [hit.min(), hit.max()]]))
     np.save(os.path.join(scene_dir, "poses_bounds.npy"), np.stack(rows))
-    return "lattice"
+    return name
 
 
 @contextlib.contextmanager
@@ -2105,7 +2125,8 @@ def llff_slice(dev, card, root):
     """Phase 18: the LLFF-format slice through the command line (NDC rays,
     4 grid levels), then LLFF_GRAPH_STEPS steps graphed and eager from the
     same seeds, and kernels 1 and 4 against their plain versions on NDC
-    samples of the 4-level grid."""
+    samples of the 4-level grid. Returns (the CLI run's launches, its val
+    PSNR)."""
     import dataclasses
     import os
 
@@ -2200,7 +2221,7 @@ def llff_slice(dev, card, root):
           f"{[round(float(v), 4) for v in grid.base_aabb]}")
     if max(errs) > DENSITY_SIGMA_TOL:
         fail(f"llff: density kernel vs plain {errs}")
-    return launches
+    return launches, got["psnr"]
 
 
 # -- 20. the data-parallel layer ------------------------------------------
@@ -2827,6 +2848,179 @@ def serving_artifact(model, grid, cfg, dev, card, blender):
             "siren_mlp_fwd": siren[3]}
 
 
+# -- 22. JPEG: the decoder on the card's machine -------------------------
+
+JPEG_BIG_VIEWS, JPEG_BIG_W, JPEG_BIG_H = 20, 4032, 3024  # a full-size LLFF set
+
+
+def jpeg_fixtures():
+    """22a: tests/data/jpeg/'s JPEGs (tests/make_jpeg_fixtures.py) through
+    the port's decoder, each bitwise the pixels libjpeg-turbo gives
+    (pixels.npz) times 1/255."""
+    import os
+
+    from fsnerf_tpu_torch.native import decode_images
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg")
+    with np.load(os.path.join(root, "pixels.npz")) as npz:
+        want = {n: npz[n] for n in npz.files}
+    inv255 = np.float32(1) / np.float32(255)
+    bad = [n for n, px in want.items()
+           if not np.array_equal(decode_images([os.path.join(root, n)])[0],
+                                 np.multiply(px, inv255, dtype=np.float32))]
+    print(f"22a. JPEG fixtures: {len(want) - len(bad)} of {len(want)} "
+          f"decoded bitwise to libjpeg-turbo's pixels ({sorted(want)})")
+    if bad or len(want) < 5:
+        fail(f"22a: the decoder's pixels differ from libjpeg-turbo's on "
+             f"{bad}")
+
+
+def pil_differences(paths, imgs) -> dict:
+    """The port's decode `imgs` (float32) of JPEG `paths` against PIL's
+    decode of the same files: values that differ, and the largest
+    difference in 8-bit steps."""
+    from PIL import Image
+
+    n_diff, worst = 0, 0
+    for path, img in zip(paths, imgs):
+        with Image.open(path) as im:
+            ref = np.asarray(im.convert("RGB"), np.int16)
+        d = np.abs(np.round(img * 255).astype(np.int16) - ref)
+        n_diff += int((d > 0).sum())
+        worst = max(worst, int(d.max()))
+    return {"values_differing": n_diff, "max_step": worst}
+
+
+def jpeg_llff_slice(card, root, png_psnr):
+    """22b: the CLI's LLFF flow (--debug: splits, training, val and test)
+    on phase 18's lattice scene with its images_8/ written as JPEG, the
+    launches of kernels 5, 6, 4 and 1 read around the training run and
+    checked as phase 18 checks them; the views decoded against PIL's
+    decode of the same files."""
+    import os
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.native import decode_images
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    t0 = time.perf_counter()
+    scene = write_llff_scene(root, "lattice_jpeg", jpeg=True)
+    img_dir = os.path.join(root, "llff", scene, "images_8")
+    files = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imgs = decode_images(files)
+    decode_s = time.perf_counter() - t0
+    vs_pil = pil_differences(files, imgs)
+    flags = ["--dataset", "llff", "--scene", scene, "--data_root", root,
+             "--n_imgs", "8", "--n_iters", str(LLFF_STEPS), "--debug"]
+    base = run_cli(flags + ["--render_only"])
+    kr.ray_march.launches = km.nerf_density.launches = 0
+    mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+    got = run_cli(flags)
+    torch.cuda.synchronize()
+    launches = {"mlp_train_fwd": mt.mlp_train_fwd.launches,
+                "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                "nerf_density": km.nerf_density.launches,
+                "ray_march": kr.ray_march.launches}
+    steps = got["steps"]
+    lcfg = cli.config_from_args(flags)
+    n_held = int(0.15 * LLFF_VIEWS)
+    print(f"22b. llff scene as JPEG (quality 95, 4:2:0) on {card}: "
+          f"{LLFF_VIEWS} views {LLFF_W}x{LLFF_H} synthesized and written in "
+          f"{synth_s:.3f} s, decoded in {decode_s:.3f} s; against PIL's "
+          f"decode {vs_pil}; views {got['views']}; {steps} steps at "
+          f"{steps / got['train_seconds']:.2f} steps/s; val PSNR "
+          f"{got['psnr']:.3f} (untrained {base['psnr']:.3f}; phase 18's "
+          f"PNG scene {png_psnr:.3f}), test PSNR {got['test_psnr']:.3f}; "
+          f"launches {launches}")
+    if got["views"] != {"train": 8, "val": n_held, "test": n_held}:
+        fail(f"22b: splits {got['views']}")
+    if got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+        fail(f"22b: val PSNR {got['psnr']:.3f} is not {MIN_PSNR_GAIN_DB} "
+             f"dB above the untrained {base['psnr']:.3f}")
+    want = refresh_launches(lcfg, lcfg.sampling.grid_resolution ** 3, steps)
+    if min(launches.values()) == 0 or launches["mlp_train_fwd"] != steps \
+            or launches["mlp_train_bwd"] != steps \
+            or launches["nerf_density"] != want:
+        fail(f"22b: the run launched {launches} in {steps} steps "
+             f"({want} density launches expected)")
+
+
+def jpeg_decode_rate(card, root):
+    """22c: JPEG_BIG_VIEWS views at JPEG_BIG_W x JPEG_BIG_H (4:2:0, quality
+    95, written by PIL) decoded by the port to float32, as images/s and
+    megapixels/s, beside PIL's decode of the same files to uint8 (a
+    yardstick, not a target) and the values where the two differ."""
+    import os
+
+    from PIL import Image
+
+    from fsnerf_tpu_torch.native import decode_images
+
+    h, w = JPEG_BIG_H, JPEG_BIG_W
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([128 + 100 * np.sin(xx / 83.0) * np.cos(yy / 61.0),
+                     128 + 90 * np.cos((xx + yy) / 47.0),
+                     (xx / 16 + yy / 12) % 256], -1)
+    base = (base + rng.normal(0, 8, base.shape)).clip(0, 255).astype(
+        np.uint8)
+    del yy, xx
+    big = os.path.join(root, "jpeg_big")
+    os.makedirs(big)
+    files = []
+    t0 = time.perf_counter()
+    for i in range(JPEG_BIG_VIEWS):
+        files.append(os.path.join(big, f"im_{i:03d}.jpg"))
+        Image.fromarray(np.roll(base, 97 * i, axis=1)).save(
+            files[-1], quality=95, subsampling=2)
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    t0 = time.perf_counter()
+    imgs = decode_images(files)
+    port_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for f in files:
+        with Image.open(f) as im:
+            np.asarray(im.convert("RGB"))
+    pil_s = time.perf_counter() - t0
+    vs_pil = pil_differences(files, imgs)
+    mpix = JPEG_BIG_VIEWS * h * w / 1e6
+    print(f"22c. JPEG decode of {JPEG_BIG_VIEWS} views {w}x{h} (4:2:0, "
+          f"quality 95, {mb:.1f} MB, written by PIL in {write_s:.3f} s) on "
+          f"the host of {card} ({os.cpu_count()} cores): the port "
+          f"{port_s:.3f} s to float32, {JPEG_BIG_VIEWS / port_s:.3f} "
+          f"images/s, {mpix / port_s:.1f} megapixels/s; PIL {pil_s:.3f} s "
+          f"to uint8, {JPEG_BIG_VIEWS / pil_s:.3f} images/s, "
+          f"{mpix / pil_s:.1f} megapixels/s; against PIL's pixels {vs_pil}")
+    if imgs.shape != (JPEG_BIG_VIEWS, h, w, 3):
+        fail(f"22c: decoded {imgs.shape}")
+
+
+def jpeg_phase(card, root, png_psnr):
+    """Phase 22: the decoder's JPEG path on the card's machine (which has
+    no libjpeg): the fixtures, the LLFF flow over JPEG views and the
+    decode rate of a full-size LLFF set."""
+    import PIL
+    import PIL.features
+
+    t0 = time.perf_counter()
+    jpeg_fixtures()
+    print(f"22. PIL {PIL.__version__}: JPEG codec "
+          f"{PIL.features.check('jpg')} (libjpeg "
+          f"{PIL.features.version('jpg')}, libjpeg-turbo "
+          f"{PIL.features.check_feature('libjpeg_turbo')})")
+    if not PIL.features.check("jpg"):
+        fail("22: PIL has no JPEG codec here to write the JPEG scenes")
+    jpeg_llff_slice(card, root, png_psnr)
+    jpeg_decode_rate(card, root)
+    print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -2969,7 +3163,7 @@ def main():
         # -- 17.-18. the data slices: Blender and LLFF through the CLI ------
         with short_paths():
             _, _, blender = blender_slice(card, root)
-            llff_slice(dev, card, root)
+            _, llff_png_psnr = llff_slice(dev, card, root)
 
         # -- 20. the data-parallel layer and LPIPS --------------------------
         gloo_two_ranks(cfg, dev, card)
@@ -2980,7 +3174,10 @@ def main():
         export_launches = serving_artifact(model, grid, cfg, dev, card,
                                            blender)
 
-    # -- 22. report ---------------------------------------------------------
+        # -- 22. JPEG: the fixtures, the LLFF flow, the decode rate ---------
+        jpeg_phase(card, root, llff_png_psnr)
+
+    # -- 23. report ---------------------------------------------------------
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
                      **siren_module_ms, nerf_density=density_module_ms)

@@ -1,17 +1,29 @@
 """The port's image decoder and a PNG writer.
 
-`decode_images` reads PNG files to [N, H, W, C] float32 in [0, 1] (each
-8-bit value times 1/255 in float32), the pixels fsnerf_tpu/native's
-libpng decoder gives: 16-bit channels stripped to their high byte, a
-palette expanded to RGB, gray to RGB, and a tRNS chunk to an alpha channel.
-It is the only image reader of the port (data/blender.py::load_images).
-The chunks are parsed and the image data inflated with Python's zlib;
-the five PNG row filters are undone by loader.cpp, one image per thread,
-which needs no library headers (libpng and libjpeg are not required). The
-library builds with g++ at first use into fsnerf_tpu_torch/build/, under a
-name that carries a hash of the source and the flags, so an edited source
-rebuilds; a build that fails raises with the compiler's output. JPEG files
-and interlaced PNGs raise.
+`decode_images` reads PNG and JPEG files, in any mix, to [N, H, W, C]
+float32 in [0, 1] (each 8-bit value times 1/255 in float32): the pixels
+fsnerf_tpu/native's libpng / libjpeg decoder gives. A file is a PNG or a
+JPEG by its suffix, else by its magic bytes, as that decoder's decode_any
+decides.
+
+PNG: 16-bit channels stripped to their high byte, a palette expanded to
+RGB, gray to RGB, and a valid tRNS chunk to an alpha channel; an
+Adam7-interlaced file is decoded pass by pass. The chunks are parsed and
+the image data inflated with Python's zlib; the five row filters are undone
+by loader.cpp, one image per thread.
+
+JPEG (native/jpeg.py): the markers are parsed in Python, and loader.cpp
+decodes each image on its own thread as libjpeg-turbo 2.1.5 decodes it
+with that decoder's settings (RGB output, the islow IDCT, fancy
+upsampling); the kinds of JPEG it refuses raise NotImplementedError naming
+why.
+
+It is the only image reader of the port (data/blender.py, data/llff.py)
+and needs no image library: loader.cpp includes no library headers, and
+neither libpng nor libjpeg is linked. The library builds with g++ at first
+use into fsnerf_tpu_torch/build/, under a name that carries a hash of the
+source and the flags, so an edited source rebuilds; a build that fails
+raises with the compiler's output.
 
 `write_png` writes 8-bit RGB or RGBA PNGs (filter 0 on every row), for the
 path renders' frames and for synthesized scenes.
@@ -53,7 +65,7 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """The unfilter library, compiled with g++ when it is not built yet;
+    """The decoder's library (loader.cpp), compiled with g++ when it is not built yet;
     RuntimeError with the compiler's output when the build fails."""
     path = library_path()
     if path.exists():

@@ -18,7 +18,12 @@ sampling factors; restart intervals; 8- and 16-bit quantization tables;
 one component (gray, output as RGB) or three (YCbCr, or RGB when an Adobe
 marker says transform 0 or the component IDs are 'R', 'G', 'B' without a
 JFIF marker). A file cut short decodes as libjpeg decodes it: the missing
-data reads as zero bits, then as empty blocks.
+data reads as zero bits, then as empty blocks. Corrupt data follows
+libjpeg-turbo's C code (restart resynchronization, garbage codes, the IDCT
+wrapping overflowing values; its SIMD IDCT, which libjpeg-turbo runs where
+the CPU has it, computes those in 16-bit lanes and differs), except that a stray marker inside
+entropy-coded data ends the scan where libjpeg may resynchronize past it,
+so such a file can be refused where libjpeg reads it.
 
 Refused, by name: arithmetic coding (SOF9-11), lossless (SOF3),
 hierarchical (SOF5-7, SOF13-15), 12-bit samples, components other than 1
@@ -62,8 +67,9 @@ SOF_NAMES = {
     0xCE: "hierarchical arithmetic-coded (SOF14)",
     0xCF: "hierarchical arithmetic-coded (SOF15)"}
 
-# jstdhuff.c: the tables libjpeg-turbo assumes for slots 0 and 1 that no
-# DHT defined by the first scan (Motion-JPEG files omit them)
+# jstdhuff.c: the tables libjpeg-turbo's sequential decoder assumes for
+# slots 0 and 1 that no DHT defined by the first scan (Motion-JPEG files
+# omit them)
 _STD_DC_BITS = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
                 (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0))
 _STD_DC_VALS = tuple(range(12))
@@ -143,8 +149,8 @@ class _Markers:
         return buf[i + 1], i + 2
 
 
-def _frame(path, seg, marker):
-    """(precision, height, width, [(id, h, v, tq)]) of an SOF segment
+def _frame(path, seg):
+    """(height, width, [(id, h, v, tq)]) of an 8-bit SOF segment
     (jdmarker.c::get_sof, jdinput.c::initial_setup)."""
     if len(seg) < 6:
         raise IOError(f"{path}: bad SOF marker length")
@@ -166,7 +172,7 @@ def _frame(path, seg, marker):
         if not (1 <= hs <= MAX_SAMP and 1 <= vs <= MAX_SAMP):
             raise IOError(f"{path}: bad sampling factors {hs}x{vs}")
         comps.append((cid, hs, vs, tq))
-    return prec, h, w, comps
+    return h, w, comps
 
 
 def read_jpeg(path: str, raw: bytes) -> Jpeg:
@@ -193,16 +199,19 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             continue
         if marker == 0xD8:
             raise IOError(f"{path}: duplicate SOI marker")
+        skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDC)
         if pos + 2 > len(raw):
             raise IOError(f"{path}: JPEG header cut short")
         (length,) = struct.unpack(">H", buf[pos:pos + 2])
+        if pos + length > len(raw) and skipped:
+            break      # libjpeg skips into its fake EOIs: the file ends
         if length < 2 or pos + length > len(raw):
             raise IOError(f"{path}: JPEG header cut short")
         seg, pos = buf[pos + 2:pos + length], pos + length
         if marker in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise IOError(f"{path}: duplicate SOF marker")
-            frame = _frame(path, seg, marker)
+            frame = _frame(path, seg)
             progressive = marker == 0xC2
         elif marker in SOF_NAMES:
             raise NotImplementedError(
@@ -242,25 +251,26 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             if len(seg) != 2:
                 raise IOError(f"{path}: bad DRI marker length")
             (restart,) = struct.unpack(">H", seg)
-        elif marker == 0xE0:                                  # APP0
-            jfif = jfif or (len(seg) >= 14 and seg[:5] == b"JFIF\x00")
-        elif marker == 0xEE:                                  # APP14
-            if len(seg) >= 12 and seg[:5] == b"Adobe":
+        elif skipped:           # APPn, COM, DAC, DNL; the color space is
+            if scans:           # guessed from APP0 / APP14 before a scan
+                continue
+            if marker == 0xE0 and len(seg) >= 14 and seg[:5] == b"JFIF\x00":
+                jfif = True
+            elif marker == 0xEE and len(seg) >= 12 and seg[:5] == b"Adobe":
                 adobe, transform = True, seg[11]
-        elif 0xE1 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDC):
-            pass                       # other APPn, COM, DAC, DNL: skipped
         elif marker == 0xDA:                                  # SOS
             if frame is None:
                 raise IOError(f"{path}: SOS before SOF")
-            comps = frame[3]
+            comps = frame[2]
             if not scans:
                 if len(comps) not in (1, 3):
                     raise NotImplementedError(
                         f"{path}: {len(comps)}-component JPEG (CMYK / "
                         f"YCCK or other); libjpeg gives RGB only for 1 or "
                         f"3 components")
-                # jstdhuff.c: default tables for undefined slots 0 and 1
-                for t in (0, 1):
+                # jdhuff.c (sequential files only): jstdhuff.c's tables
+                # for slots 0 and 1 that no DHT defined
+                for t in (0, 1) if not progressive else ():
                     slots.setdefault((0, t), (_STD_DC_BITS[t],
                                               _STD_DC_VALS))
                     slots.setdefault((1, t), (_STD_AC_BITS[t],
@@ -323,7 +333,7 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             raise IOError(f"{path}: unsupported JPEG marker {marker:#04x}")
     if frame is None or not scans:
         raise IOError(f"{path}: no image in the JPEG file")
-    _, h, w, comps = frame
+    h, w, comps = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     for _, hs, vs, _ in comps:
@@ -354,8 +364,8 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
     qt = np.zeros((len(comps), 64), np.int16)     # 0: a component no scan
     for ci, table in latched.items():             # carried (gray output)
         qt[ci] = table.view(np.int16)             # ISLOW_MULT_TYPE is short
-    return Jpeg(path, w, h, np.frombuffer(buf, np.uint8), desc, qt,
-                np.stack(tables))
+    huff = np.stack(tables) if tables else np.zeros((1, 16 + 256), np.int32)
+    return Jpeg(path, w, h, np.frombuffer(buf, np.uint8), desc, qt, huff)
 
 
 def _smoothing(latched, coef_bits, n_comps) -> bool:

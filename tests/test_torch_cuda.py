@@ -51,7 +51,8 @@ ladder change that captures a new rung's graphs, and a capture that fails
 raising.
 
 The data slice: the image decoder built with g++ on the card's machine
-reading the PNG writer's files exactly; kernels 1 and 4 on an LLFF scene's
+reading the PNG writer's files exactly and tests/data/jpeg/'s JPEGs to the
+pixels libjpeg-turbo gives; kernels 1 and 4 on an LLFF scene's
 NDC samples and a 4-level grid against their plain versions (the
 tolerances above); 40 graphed LLFF steps bitwise equal to the eager ones.
 
@@ -950,6 +951,29 @@ def test_decoder_builds_and_reads_port_written_pngs(cuda, tmp_path):
         got = native.decode_images(paths)
         want = imgs.astype(np.float32) * (np.float32(1) / np.float32(255))
         assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def test_decoder_reads_the_jpeg_fixtures_bitwise(cuda):
+    """The decoder, built on this machine (which has no libjpeg), reads
+    tests/data/jpeg/'s JPEGs (progressive, 4:2:0 with restarts, gray,
+    4:2:2, 4:4:0, RGB; widths and heights no MCU divides) to exactly the
+    pixels libjpeg-turbo gives (pixels.npz) times 1/255, in one call."""
+    import os
+
+    import numpy as np
+
+    from fsnerf_tpu_torch import native
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jpeg")
+    with np.load(os.path.join(root, "pixels.npz")) as npz:
+        want = {n: npz[n] for n in npz.files}
+    assert len(want) >= 5
+    for name, px in want.items():
+        got = native.decode_images([os.path.join(root, name)])[0]
+        assert got.dtype == np.float32 and np.array_equal(
+            got, np.multiply(px, np.float32(1) / np.float32(255),
+                             dtype=np.float32)), name
 
 
 def test_march_and_density_match_plain_on_ndc_samples(cuda, tmp_path):

@@ -11,6 +11,7 @@ upsampling and color conversion, and libpng's conversions.
 """
 
 import io
+import os
 import struct
 import zlib
 
@@ -198,6 +199,39 @@ def test_jpeg_cut_short_matches_jax_decoder(tmp_path, case):
     _assert_same_as_jax(str(path))
 
 
+def test_corrupt_jpegs_the_jax_decoder_refuses_raise(tmp_path):
+    """60 files with 1-3 entropy-coded bytes overwritten at random (seeded):
+    every file the JAX decoder fails on raises IOError in the port. Those
+    both decode are not compared here: libjpeg-turbo's SIMD IDCT treats
+    the overflowing coefficients of corrupt data otherwise than its C
+    IDCT, which the port mirrors (tests/jpeg_fuzz.py compares them with
+    JSIMD_FORCENONE=1: equal on every file both read)."""
+    rng = np.random.default_rng(12)
+    refused = 0
+    for n in range(60):
+        buf = io.BytesIO()
+        prog = bool(n % 2)
+        Image.fromarray(_image(*rng.integers(8, 40, 2), seed=n)).save(
+            buf, "JPEG", quality=int(rng.integers(30, 96)),
+            subsampling=n % 3, progressive=prog,
+            restart_marker_blocks=int(rng.integers(0, 3)))
+        raw = bytearray(buf.getvalue())
+        sos = raw.find(b"\xff\xda") if prog else raw.rfind(b"\xff\xda")
+        for _ in range(int(rng.integers(1, 4))):
+            raw[int(rng.integers(sos + 14, len(raw) - 2))] = int(
+                rng.integers(0, 256))
+        path = str(tmp_path / f"c{n}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(bytes(raw))
+        try:
+            jdecode([path])
+        except IOError:
+            refused += 1
+            with pytest.raises(IOError):
+                native.decode_images([path])
+    assert refused > 0
+
+
 def _rewritten(raw, marker, offset, value):
     b = bytearray(raw)
     b[raw.index(bytes([0xFF, marker])) + offset] = value
@@ -242,6 +276,24 @@ def test_jpeg_refusals_name_their_reason(tmp_path, kind, match, jax_reads):
             jdecode([path])
     with pytest.raises(NotImplementedError, match=match):
         native.decode_images([path])
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jpeg")
+FIXTURE_NAMES = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".jpg"))
+
+
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_jpeg_fixtures_hold_the_jax_decoders_pixels(name):
+    """tests/data/jpeg/ (tests/make_jpeg_fixtures.py), which the card's
+    machine decodes without libjpeg: both decoders give the stored uint8
+    pixels times 1/255."""
+    path = os.path.join(FIXTURES, name)
+    with np.load(os.path.join(FIXTURES, "pixels.npz")) as npz:
+        want = np.multiply(npz[name], np.float32(1) / np.float32(255),
+                           dtype=np.float32)
+    np.testing.assert_array_equal(jdecode([path])[0], want)
+    np.testing.assert_array_equal(native.decode_images([path])[0], want)
 
 
 def test_files_dispatch_by_suffix_then_magic(tmp_path):
