@@ -12,6 +12,13 @@ Phases (any failure exits non-zero; nothing is caught):
      steps, a held-out eval and a hierarchical frame must launch the
      warp-specialized SIREN forward, march and backward row pass (the
      routes phases 10-13 take);
+ 2b. the same at NeRF 8 x 192 and 8 x 200 (packed at 256: a module's width
+     up to 256 is laid out at the next of the kernels' widths 64, 128, 192,
+     256 with zero units, ops/kernels/render.py::kernel_width): 20 train
+     steps of the occgrid slice and a held-out view must launch
+     mlp_train_fwd_kernel, nerf_density_kernel and nerf_march_kernel at
+     the packed width and kernel 6's row and dW passes, and call no NeRF
+     module (a forward hook counts its calls);
   3. ray-march kernel vs its plain PyTorch version at full width — NeRF
      8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
      SphereScene view, a res-128 grid rebuilt from the model's densities,
@@ -159,6 +166,30 @@ Phases (any failure exits non-zero; nothing is caught):
      generator, the launches), and on the trained weights kernel 1 on a
      val view's NDC samples and kernel 4 on each level's cell centres
      against their plain versions (phase 3's and 14's tolerances);
+ 19. the kernels at every width up to 256:
+     a. NeRF 8 layers, skip 4, seeded weights, at widths 40, 96, 192 and
+        200 (n_freqs 10/4) and 256 with n_freqs 21 (a 129-wide encoding):
+        kernel 1 on phase 3's march inputs (its tolerances, equal executed
+        steps), kernel 3 at one validation chunk's 393,216 rows and kernel
+        4 at one og.update launch's 262,144 (phase 7's and 14's
+        tolerances), kernels 5 and 6 at 196,608 rows (phase 5's, saved ==
+        recompute bitwise), launch counts from 0; each kernel's CUDA-event
+        time beside its plain version's and its bound at the module's own
+        width (the padded work is the kernel's cost);
+     b. SiNeRF 8 layers at 40, 100, 192: kernels 7, 8 (both modes) and 2
+        against their plain versions (phase 10's and 11's tolerances); at
+        320 the mma.sync forward and march held the same way and the
+        backward refused by name (ValueError: its shared memory); at 512
+        the forward and the march refused by name, and a NeRF and a
+        SiNeRF of 512 resolve to the module with the printed line;
+        ptxas's registers and spills of every width-192 instance;
+     c. the occgrid training slice (1,500 graphed steps, held-out views) at
+        8 x 192 and 8 x 200 through the kernels (counts from 0: kernels 5
+        and 6 once per step, kernel 4 at every refresh, kernel 1 in the
+        eval; no NeRF module call), then the same run through the module
+        (fused_kernel and fused_render off, the route these widths took
+        before the kernels took them): steps/s and held-out PSNR side by
+        side, each at least 5 dB above the untrained weights';
  20. the data-parallel layer (parallel/) at the training slice's full
      width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
      the 8-view 128x128 sphere):
@@ -482,20 +513,23 @@ def kernel_split_ms(fn, names, calls: int = 5):
     return {name: sum(d) / len(d) for name, d in durs.items()}, host_ms
 
 
-def require_kernels(phase: str, fn, names, width: int) -> None:
+def require_kernels(phase: str, fn, names, width: int, plain=()) -> set:
     """Fail unless one call of fn launches each kernel of `names` at
     template width `width` (the route the main path must take; the
     profiler's names demangled, kernel<256, ...>, or mangled,
-    kernelILi256E...); print them."""
+    kernelILi256E...) and each of `plain` (no template argument); print
+    them. Returns the names of every kernel the profiler saw."""
     seen = {e["name"] for e in kernel_events(fn)}
     found = {n: sorted(k for k in seen if f"{n}<{width}" in k
                        or f"{n}ILi{width}E" in k) for n in names}
+    found.update({n: sorted(k for k in seen if n in k) for n in plain})
     missing = [n for n, ks_ in found.items() if not ks_]
     if missing:
         fail(f"{phase}: the profiler saw no kernel named {missing} "
              f"(saw {sorted(seen)})")
     print(f"{phase}: kernels launched (profiler) "
           + "; ".join(f"{k[:90]}" for v in found.values() for k in v))
+    return seen
 
 
 def siren_routes(cfg, dev, card):
@@ -3021,6 +3055,457 @@ def jpeg_phase(card, root, png_psnr):
     print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
 
 
+# -- 19. the kernels at every width up to 256 ------------------------------
+#
+# A module's width up to 256 is packed at the next of the kernels' widths
+# 64, 128, 192, 256 (ops/kernels/render.py::kernel_width) with zero units.
+# NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200 (8 layers, skip 4,
+# n_freqs 10/4) and at 256 with n_freqs 21 (a 129-wide encoding); SiNeRF:
+# kernels 2, 7, 8 at 40, 100, 192 (8 layers), and above 256 the mma.sync
+# forward and march at 320, every kernel refusing 512 by name (and the
+# backward 320).
+WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
+              (256, {"n_freqs": 21}))
+WIDTH_SIREN = (40, 100, 192, 320)
+WIDTH_TRAIN = (192, 200)              # 19c: training runs at 8 x W
+WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
+
+
+def width_cfg(cfg, width, **encoder):
+    """cfg at another width (and encoder fields)."""
+    import dataclasses
+
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, d_filter=width),
+        encoder=dataclasses.replace(cfg.encoder, **encoder))
+
+
+class ModuleCalls:
+    """Counts the forward calls of every NeRF / SiNeRF module while open:
+    0 means no module GEMM ran on the MLP."""
+
+    def __enter__(self):
+        from fsnerf_tpu_torch.core.models import NeRF, SiNeRF
+
+        self.calls = 0
+
+        def hook(module, args):
+            if isinstance(module, (NeRF, SiNeRF)):
+                self.calls += 1
+
+        self.handle = \
+            torch.nn.modules.module.register_module_forward_pre_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def width_routes(cfg, dev, card):
+    """Phase 2b, after the build (as siren_routes, for the profiler): at 8 x
+    192 and 8 x 200 (padded to 256), WIDTH_ROUTE_STEPS train steps of the
+    occgrid slice and the held-out eval of one view must launch kernels 5,
+    6, 4 and 1 at the packed width (mlp_train_fwd_kernel<W>, the row pass
+    and dW pass of mlp_train_bwd, nerf_density_kernel<W>,
+    nerf_march_kernel<W>) and call no NeRF module."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.pool import pool_from_images
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.train import step
+    from fsnerf_tpu_torch.train.loop import train
+
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
+    held = cli.split_of(scene.holdout(n=1, seed=101))
+    for W in WIDTH_TRAIN:
+        wcfg = train_slice_config(width_cfg(cfg, W))
+        wcfg = wcfg.replace(train=dataclasses.replace(
+            wcfg.train, n_iters=WIDTH_ROUTE_STEPS))
+        if not step.resolve_fused_kernel(wcfg, dev):
+            fail(f"width {W}: the kernels' route did not resolve on the card")
+        model = make_model(wcfg, torch.bfloat16,
+                           torch.Generator().manual_seed(5), dev)
+        state = None
+
+        def run():
+            nonlocal state
+            state = train(model, wcfg, pool, scene, logger=ListLogger(),
+                          log_every=WIDTH_ROUTE_STEPS)
+            cli.evaluate_split(model, og.conservative(state.grid), held,
+                               wcfg, device=dev)
+
+        with ModuleCalls() as calls:
+            seen = require_kernels(
+                f"2b. {WIDTH_ROUTE_STEPS} train steps and a held-out view at "
+                f"8 x {W}", run, ("mlp_train_fwd_kernel",
+                                  "nerf_density_kernel",
+                                  "nerf_march_kernel"),
+                kr.kernel_width(W), plain=NERF_BWD_PARTS)
+        gemms = sorted(k for k in seen if re.search(
+            r"gemm|xmma|nvjet|cutlass", k) and "dw_gemm_kernel" not in k)
+        print(f"2b. width {W}: NeRF module calls {calls.calls}; other GEMM "
+              f"kernels seen {len(gemms)} {[k[:60] for k in gemms]}")
+        if calls.calls:
+            fail(f"width {W}: the run called the NeRF module "
+                 f"{calls.calls} times")
+
+
+def nerf_width_case(cfg, dev, march_in):
+    """19a: kernels 1 and 3-6 of a NeRF of cfg's architecture (seeded
+    weights) against their plain versions at the main path's shapes, each
+    launch counted from 0. Returns (width packed, {kernel: (ms, plain ms,
+    bound dict, max err)})."""
+    from fsnerf_tpu_torch.core.encoding import positional_encoding
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    L, skip = cfg.model.n_layers, cfg.model.skip
+    nf, nfv = cfg.encoder.n_freqs, cfg.encoder.n_freqs_views
+    W = cfg.model.d_filter
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(7), dev)
+    sd = model.state_dict()
+    out = {}
+    kr.ray_march.launches = km.nerf_mlp.launches = 0
+    km.nerf_density.launches = mt.mlp_train_fwd.launches = 0
+    mt.mlp_train_bwd.launches = 0
+
+    # kernel 1 on phase 3's padded march inputs
+    padded, bR, cs = march_in
+    rp = kr.prep_params(sd, L, skip, nf, nfv, device=dev)
+    r = compare(f"19a. width {W} (packed {rp.width}), n_freqs {nf}: march",
+                kr.ray_march, kr.ray_march_reference, padded, rp, bR, cs,
+                cfg.sampling.early_stop_eps)
+    out["ray_march"] = (r["ms"], r["plain_ms"], bound(
+        2.0 * mlp_macs(cfg) * r["executed"] * bR * cs,
+        nbytes(*padded, rp.wpack, rp.bpack, rp.enc)
+        + padded[0].shape[0] * (8 + 1 / bR) * 4), r["max_abs_err"])
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = VAL_CHUNK_ROWS
+    x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    # kernels 3 and 4: one validation chunk, one og.update launch's rows
+    p = km.prep_params(sd, L, skip, dev)
+    ex = km.pad_features(positional_encoding(x, nf, True), p.d_enc_pad)
+    ed = km.pad_features(positional_encoding(d, nfv, True), p.d_dir_pad)
+    got, ref = km.nerf_mlp(ex, ed, p), km.nerf_mlp_reference(ex, ed, p)
+    rgb_err = float((got[:, :3] - ref[:, :3]).abs().max())
+    sig = float((got[:, 3] - ref[:, 3]).abs().max()) / (
+        float(ref[:, 3].abs().max()) + 1e-9)
+    if not torch.isfinite(got).all() or rgb_err > MLP_RGB_TOL or \
+            sig > MLP_SIGMA_TOL:
+        fail(f"19a. width {W}: nerf_mlp vs plain rgb {rgb_err:.3e}, sigma "
+             f"{sig:.3e} of max")
+    ms, plain_ms = in_turns(lambda: km.nerf_mlp_reference(ex, ed, p),
+                            lambda: km.nerf_mlp(ex, ed, p))
+    out["nerf_mlp"] = (ms, plain_ms, bound(2.0 * mlp_macs(cfg) * n, nbytes(
+        ex, ed, p.wpack, p.bpack, got)), max(rgb_err, sig))
+    nd = 262_144
+    exd = ex[:nd].contiguous()
+    got = km.nerf_density(exd, p)
+    ref = km.nerf_density_reference(exd, p)
+    sig = float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+    if not torch.isfinite(got).all() or sig > DENSITY_SIGMA_TOL:
+        fail(f"19a. width {W}: nerf_density vs plain sigma {sig:.3e} of max")
+    ms, plain_ms = in_turns(lambda: km.nerf_density_reference(exd, p),
+                            lambda: km.nerf_density(exd, p))
+    out["nerf_density"] = (ms, plain_ms, bound(
+        2.0 * density_macs(cfg) * nd, nbytes(exd, p.wpack, p.bpack, got)),
+        sig)
+
+    # kernels 5 and 6 at the train step's rows
+    n = TRAIN_ROWS
+    xt, dt = x[:n].contiguous(), d[:n].contiguous()
+    target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
+                        torch.zeros((n, 1), device=dev)], dim=-1)
+    lay = mt.TrainLayout.from_config(cfg)
+    tp = mt.pack_train_params(sd, lay, kr.enc_table(nf, nfv, device=dev))
+    fo, acts = mt.mlp_train_fwd(xt, dt, tp, save_acts=True)
+    fr, racts = mt.mlp_train_fwd_reference(xt, dt, tp, save_acts=True)
+    rgb_err = float((fo[:, :3] - fr[:, :3]).abs().max())
+    sig = float((fo[:, 3] - fr[:, 3]).abs().max()) / (
+        float(fr[:, 3].abs().max()) + 1e-9)
+    if not torch.isfinite(fo).all() or rgb_err > TRAIN_RGB_TOL or \
+            sig > TRAIN_SIGMA_TOL:
+        fail(f"19a. width {W}: train forward vs plain rgb {rgb_err:.3e}, "
+             f"sigma {sig:.3e} of max")
+    ms, plain_ms = in_turns(
+        lambda: mt.mlp_train_fwd_reference(xt, dt, tp, True),
+        lambda: mt.mlp_train_fwd(xt, dt, tp, True))
+    weights = (tp.wpack, tp.bpack, tp.enc)
+    out["mlp_train_fwd"] = (ms, plain_ms, bound(
+        2.0 * mlp_macs(cfg) * n, nbytes(xt, dt, *weights, fo, acts)),
+        max(rgb_err, sig))
+    dout = (2.0 * (fr - target) / fr.numel()).contiguous()
+    saved = mt.mlp_train_bwd(xt, dt, dout, tp, acts)
+    rec = mt.mlp_train_bwd(xt, dt, dout, tp, None)
+    plain = mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts)
+    if not all(torch.equal(a, b) for a, b in zip(saved, rec)):
+        fail(f"19a. width {W}: saved-acts and recompute gradients differ")
+    worst = max((float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30),
+                 name) for name, a, b in zip(
+        lay.param_names, lay.grads_from_packed(*saved),
+        lay.grads_from_packed(*plain)))
+    if worst[0] > GRAD_TOL:
+        fail(f"19a. width {W}: train backward vs plain: {worst[1]} off by "
+             f"{worst[0]:.3e} of its max")
+    ms, plain_ms = in_turns(
+        lambda: mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts),
+        lambda: mt.mlp_train_bwd(xt, dt, dout, tp, acts))
+    out["mlp_train_bwd"] = (ms, plain_ms, bound(
+        2.0 * bwd_macs(cfg) * n, nbytes(xt, dt, dout, acts, *weights,
+                                        *saved)), worst[0])
+    torch.cuda.synchronize()
+    launches = {"ray_march": kr.ray_march.launches,
+                "nerf_mlp": km.nerf_mlp.launches,
+                "nerf_density": km.nerf_density.launches,
+                "mlp_train_fwd": mt.mlp_train_fwd.launches,
+                "mlp_train_bwd": mt.mlp_train_bwd.launches}
+    if min(launches.values()) == 0:
+        fail(f"19a. width {W}: a kernel never launched: {launches}")
+    return rp.width, out, launches
+
+
+def siren_width_case(cfg, dev, march_in):
+    """19b: kernels 7, 8 (saved and recompute) and 2 of a SiNeRF of cfg's
+    width against their plain versions (196,608 rows; phase 3's march
+    inputs), each launch counted from 0; above SIREN_MAX_WIDTH's limits
+    a ValueError naming the limit and no launch."""
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    L, W = cfg.model.n_layers, cfg.model.d_filter
+    model = make_model(cfg, torch.bfloat16,
+                       torch.Generator().manual_seed(9), dev)
+    params = ks.prep_siren_params(model.state_dict(), L,
+                                  with_transposed=True)
+    K = params.layout.width
+    g = torch.Generator(device=dev).manual_seed(10)
+    n = TRAIN_ROWS
+    x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
+                        torch.zeros((n, 1), device=dev)], dim=-1)
+    xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
+    padded, bR, cs = march_in
+    ks.siren_mlp_fwd.launches = ks.siren_mlp_bwd.launches = 0
+    kr.siren_ray_march.launches = 0
+    out, refused = {}, []
+
+    def refuses(name, fn):
+        try:
+            fn()
+        except ValueError as e:
+            if "takes widths up to" not in str(e):
+                raise
+            refused.append(name)
+            return True
+        return False
+
+    fo = acts = None
+    if not refuses("siren_mlp_fwd",
+                   lambda: ks.siren_mlp_fwd(xp, dp, params, True)):
+        fo, acts = ks.siren_mlp_fwd(xp, dp, params, True)
+        fr, racts = ks.siren_mlp_fwd_reference(xp, dp, params, True)
+        rgb_err = float((fo[:, :3] - fr[:, :3]).abs().max())
+        sig = float((fo[:, 3] - fr[:, 3]).abs().max()) / (
+            float(fr[:, 3].abs().max()) + 1e-9)
+        if not torch.isfinite(fo).all() or rgb_err > MLP_RGB_TOL or \
+                sig > MLP_SIGMA_TOL:
+            fail(f"19b. SiNeRF width {W}: forward vs plain rgb "
+                 f"{rgb_err:.3e}, sigma {sig:.3e} of max")
+        ms, plain_ms = in_turns(
+            lambda: ks.siren_mlp_fwd_reference(xp, dp, params, True),
+            lambda: ks.siren_mlp_fwd(xp, dp, params, True))
+        out["siren_mlp_fwd"] = (ms, plain_ms, bound(
+            2.0 * siren_macs(L, W) * n, nbytes(xp, dp, params.wpack,
+                                               params.bpack, fo, acts)),
+            max(rgb_err, sig))
+        dout = (2.0 * (fr - target) / fr.numel()).contiguous()
+        if not refuses("siren_mlp_bwd", lambda: ks.siren_mlp_bwd(
+                xp, dp, dout, params, acts)):
+            lay = params.layout
+            for mode, a, ra in (("saved", acts, racts),
+                                ("recompute", None, None)):
+                gk = ks.siren_mlp_bwd(xp, dp, dout, params, a)
+                gp = ks.siren_mlp_bwd_reference(xp, dp, dout, params, ra)
+                worst = max((float((u - v).abs().max())
+                             / (float(v.abs().max()) + 1e-30), name)
+                            for name, u, v in zip(
+                                lay.param_names, lay.grads_from_packed(*gk),
+                                lay.grads_from_packed(*gp)))
+                if worst[0] > GRAD_TOL:
+                    fail(f"19b. SiNeRF width {W}: backward ({mode}) vs "
+                         f"plain: {worst[1]} off by {worst[0]:.3e}")
+                if mode == "saved":
+                    saved = gk
+                    ms, plain_ms = in_turns(
+                        lambda: ks.siren_mlp_bwd_reference(
+                            xp, dp, dout, params, racts),
+                        lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
+                    out["siren_mlp_bwd"] = (ms, plain_ms, bound(
+                        2.0 * siren_bwd_macs(L, W) * n,
+                        nbytes(xp, dp, dout, acts, params.wpack,
+                               params.bpack, params.wtpack, *saved)),
+                        worst[0])
+    if not refuses("siren_ray_march", lambda: kr.siren_ray_march(
+            *padded, params, bR, cs)):
+        r = compare(f"19b. SiNeRF width {W} (packed {K}): march",
+                    kr.siren_ray_march, kr.siren_ray_march_reference, padded,
+                    params, bR, cs, cfg.sampling.early_stop_eps)
+        out["siren_ray_march"] = (r["ms"], r["plain_ms"], bound(
+            2.0 * siren_macs(L, W) * r["executed"] * bR * cs,
+            nbytes(*padded, params.wpack, params.bpack)
+            + padded[0].shape[0] * (8 + 1 / bR) * 4), r["max_abs_err"])
+    torch.cuda.synchronize()
+    launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
+                "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
+                "siren_ray_march": kr.siren_ray_march.launches}
+    for name in out:
+        if launches[name] == 0:
+            fail(f"19b. SiNeRF width {W}: {name} never launched")
+    for name in refused:
+        if launches[name]:
+            fail(f"19b. SiNeRF width {W}: {name} refused yet launched")
+    return K, out, launches, refused
+
+
+def width_line(out) -> str:
+    return "; ".join(
+        f"{k} {v[0]:.3f} ms (plain {v[1]:.3f}, bound {v[2]['bound_ms']:.3f} "
+        f"by {v[2]['bound_by']}, share {v[2]['bound_ms'] / v[0]:.3f}, err "
+        f"{v[3]:.2e})" for k, v in out.items())
+
+
+def width_kernels(cfg, dev, card, log, march_in):
+    """Phase 19a-b: the kernels at widths that are not their own, and width
+    192 in each (ptxas lines of every 192 instance)."""
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.train import step
+
+    for W, enc in WIDTH_NERF:
+        wcfg = width_cfg(cfg, W, **enc)
+        K, out, launches = nerf_width_case(wcfg, dev, march_in)
+        print(f"19a. NeRF 8 x {W} (packed {K}), n_freqs "
+              f"{wcfg.encoder.n_freqs}/{wcfg.encoder.n_freqs_views} on "
+              f"{card}: {width_line(out)}; launches {launches}")
+    for W in WIDTH_SIREN:
+        scfg = sinerf_config(width_cfg(cfg, W))
+        K, out, launches, refused = siren_width_case(scfg, dev, march_in)
+        print(f"19b. SiNeRF 8 x {W} (packed {K}) on {card}: "
+              f"{width_line(out)}; launches {launches}; refused by name "
+              f"{refused}")
+        want = [] if K <= ks.SIREN_MAX_WIDTH["backward"] else \
+            ["siren_mlp_bwd"]
+        if refused != want:
+            fail(f"19b. SiNeRF width {W}: refused {refused}, not {want}")
+    # 512: every SIREN kernel refuses by name; the run takes the printed
+    # module route
+    scfg = sinerf_config(width_cfg(cfg, 512))
+    K, out, launches, refused = siren_width_case(scfg, dev, march_in)
+    if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
+        fail(f"19b. SiNeRF width 512: ran {list(out)}, refused {refused}")
+    line = step.report_module_route(scfg, dev)
+    nerf512 = width_cfg(cfg, 512)
+    line_nerf = step.report_module_route(nerf512, dev)
+    if line is None or step.resolve_fused_kernel(scfg, dev) or \
+            line_nerf is None or step.resolve_fused_kernel(nerf512, dev):
+        fail("width 512 did not take the printed module route")
+    print(f"19b. width 512: SIREN forward and march refused by name, the "
+          f"backward never reached; the route prints: {line}; NeRF: "
+          f"{line_nerf}")
+    print("19b. the width-192 instances:\n" + "\n".join(
+        line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
+                          "nerf_density_kernel", "mlp_train_fwd_kernel",
+                          "siren_fwd_ws_kernel", "siren_march_kernel",
+                          "siren_bwd_rows_ws_kernel")
+        for line in ptxas_of(log, name).splitlines() if "<192" in line))
+
+
+def width_train_slices(cfg, dev, card):
+    """Phase 19c: the occgrid training slice (1,500 graphed steps, the
+    8-view 128x128 sphere, then the held-out views) at 8 x 192 and 8 x
+    200 (packed at 256) through the kernels, launch counts set to 0 before
+    and read after, no NeRF module call; then the same run through the
+    module (cfg.model.fused_kernel and fused_render off: the route the
+    parent took at these widths): steps/s and held-out PSNR side by
+    side."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import mlp as km
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    for W in WIDTH_TRAIN:
+        kcfg = train_slice_config(width_cfg(cfg, W))
+        mcfg = kcfg.replace(model=dataclasses.replace(
+            kcfg.model, fused_kernel=False, fused_render=False))
+        untrained = make_model(kcfg, torch.bfloat16,
+                               torch.Generator().manual_seed(0), dev)
+        base, _ = cli.evaluate_split(
+            untrained, og.conservative(cli.rebuild_grid(
+                untrained, kcfg, scene.aabb, dev)), held, kcfg, device=dev)
+        res = {}
+        for route, tcfg in (("kernels", kcfg), ("module", mcfg)):
+            kr.ray_march.launches = km.nerf_density.launches = 0
+            mt.mlp_train_fwd.launches = mt.mlp_train_bwd.launches = 0
+            with ModuleCalls() as calls:
+                model, state, log, _, train_s, rungs, _ = run_train_slice(
+                    tcfg, dev)
+                got, _ = cli.evaluate_split(model, og.conservative(
+                    state.grid), held, tcfg, device=dev)
+                torch.cuda.synchronize()
+            launches = {"ray_march": kr.ray_march.launches,
+                        "mlp_train_fwd": mt.mlp_train_fwd.launches,
+                        "mlp_train_bwd": mt.mlp_train_bwd.launches,
+                        "nerf_density": km.nerf_density.launches}
+            losses = [r["loss"] for r in log.records]
+            res[route] = (state.step / train_s, got["psnr"], launches,
+                          calls.calls)
+            print(f"19c. 8 x {W} through the {route} on {card}: "
+                  f"{state.step} steps in {train_s:.3f} s, "
+                  f"{state.step / train_s:.2f} steps/s; loss "
+                  f"{losses[0]:.5f} -> {losses[-1]:.5f}; held-out PSNR "
+                  f"{got['psnr']:.3f} SSIM {got['ssim']:.4f} (untrained "
+                  f"{base['psnr']:.3f}); launches {launches}; NeRF module "
+                  f"calls {calls.calls}; {rungs.summary()}")
+            if not losses[-1] < losses[0] or \
+                    got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+                fail(f"19c. 8 x {W} ({route}): did not train")
+        k_launch, m_launch = res["kernels"][2], res["module"][2]
+        want_density = refresh_launches(kcfg, state.grid.n_cells,
+                                        TRAIN_STEPS)
+        if (k_launch["mlp_train_fwd"] != TRAIN_STEPS
+                or k_launch["mlp_train_bwd"] != TRAIN_STEPS
+                or k_launch["nerf_density"] != want_density
+                or k_launch["ray_march"] == 0 or res["kernels"][3]):
+            fail(f"19c. 8 x {W}: the kernels' route launched {k_launch} "
+                 f"and called the module {res['kernels'][3]} times")
+        if any(m_launch.values()) or not res["module"][3]:
+            fail(f"19c. 8 x {W}: the module route launched {m_launch}")
+        print(f"19c. 8 x {W} on {card}: kernels {res['kernels'][0]:.2f} "
+              f"steps/s, PSNR {res['kernels'][1]:.3f}; module "
+              f"{res['module'][0]:.2f} steps/s, PSNR "
+              f"{res['module'][1]:.3f}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -3054,6 +3539,7 @@ def main():
     dev = torch.device("cuda")
     cfg = Config()
     siren_routes(cfg, dev, card)
+    width_routes(cfg, dev, card)
 
     # -- 3. kernel vs plain at full width ---------------------------------
     s = cfg.sampling
@@ -3158,6 +3644,10 @@ def main():
                                                    built.log)
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
+
+    # -- 19. the kernels at every width up to 256 --------------------------
+    width_kernels(cfg, dev, card, built.log, (padded, bR, cs))
+    width_train_slices(cfg, dev, card)
 
     with tempfile.TemporaryDirectory() as root:
         # -- 17.-18. the data slices: Blender and LLFF through the CLI ------

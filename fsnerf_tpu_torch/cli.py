@@ -159,14 +159,17 @@ def make_render_model_fn(model, cfg, step=None, device=None):
 
 def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     """The fused ray-march renderer (ops/kernels/render.py) when the config
-    allows it (fused_render on; SiNeRF, or NeRF with view dirs, the skip
-    feeding a trunk layer and, on the card (device None or CUDA), a width
-    the NeRF march takes; occgrid marches the compacted samples,
-    hierarchical its fine pass); None otherwise. `step` anneals the
-    FreeNeRF masks."""
+    allows it (fused_render on; SiNeRF, or NeRF with view dirs and the skip
+    feeding a trunk layer; on the card (device None or CUDA) an
+    architecture the kernels take, train/step.py::kernels_take; occgrid
+    marches the compacted samples, hierarchical its fine pass); None
+    otherwise. `step` anneals the FreeNeRF masks."""
+    from .train.step import kernels_take, make_masks
+
     if not (cfg.model.fused_render
             and cfg.model.model in ("nerf", "sinerf")
-            and cfg.sampling.strategy in ("occgrid", "hierarchical")):
+            and cfg.sampling.strategy in ("occgrid", "hierarchical")
+            and kernels_take(cfg, "cuda" if device is None else device)):
         return None
     if cfg.model.model == "sinerf":
         from .ops.kernels.render import make_fused_siren_ray_renderer
@@ -177,10 +180,6 @@ def make_fused_render_fn(state_dict, cfg, step=None, device=None):
     if cfg.encoder.no_dirs or (skip and max(skip) >= cfg.model.n_layers - 1):
         return None
     from .ops.kernels.render import make_fused_ray_renderer
-    from .train.step import make_masks, nerf_kernels_take
-
-    if not nerf_kernels_take(cfg, "cuda" if device is None else device):
-        return None
 
     pos_mask, dir_mask = ((None, None) if step is None
                           else make_masks(cfg, step))

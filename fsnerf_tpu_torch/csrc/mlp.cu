@@ -57,7 +57,7 @@ __device__ __forceinline__ void mlp_rows(const CUtensorMap* map_w,
                                          const CUtensorMap* map_d,
                                          const MlpArgs& a, int n_stages,
                                          unsigned char* smem_raw) {
-  constexpr int NB = W / 2 < 64 ? 64 : W / 2;     // the branch product's N
+  constexpr int NB = head_n(W);                   // the branch product's N
   unsigned char* ring =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int nbx = enc_blocks(a.d_enc_pad), nbd = enc_blocks(a.d_dir_pad);
@@ -187,6 +187,7 @@ cudaError_t launch_mlp_w(const MlpArgs& a, const bf16* encx,
   if (!kHeads) map_br = map_d = map_w;             // unread
   const size_t extra = kFwdConsumers * sizeof(uint64_t);
   const int n_stages = fwd_stages(W, a.d_enc_pad, a.d_dir_pad, extra);
+  if (n_stages == 0) return cudaErrorInvalidValue;
   const size_t smem =
       fwd_smem_bytes(W, a.d_enc_pad, a.d_dir_pad, n_stages) + extra;
   cudaError_t err = cudaFuncSetAttribute(
@@ -213,6 +214,9 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
     case 128:
       return static_cast<int>(
           launch_mlp_w<128, kHeads>(a, x, d, trunk_rows, st));
+    case 192:
+      return static_cast<int>(
+          launch_mlp_w<192, kHeads>(a, x, d, trunk_rows, st));
     case 256:
       return static_cast<int>(
           launch_mlp_w<256, kHeads>(a, x, d, trunk_rows, st));
@@ -230,8 +234,9 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
 // The forward MLP (ops/kernels/mlp.py::nerf_mlp): out [n_rows, 4]. Takes
-// width 64, 128 or 256, d_enc_pad a multiple of 64 and d_dir_pad of 16,
-// both up to 128; trunk_rows must be the rows of wpack's [rows, width] view
+// width 64, 128, 192 or 256, d_enc_pad a multiple of 64 and d_dir_pad of
+// 16, both up to kMaxEnc (256) and at width 256 together up to 6 blocks of
+// 64 (render.py::kernel_arch_error); trunk_rows must be the rows of wpack's [rows, width] view
 // (the trunk, w_sigma and w_conn: mlp_train.py::TrainLayout.wpack_views),
 // the branch's [width + d_dir_pad, width / 2] view following it.
 extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
@@ -250,8 +255,8 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
                   d_enc_pad,
                   d_dir_pad,
                   density_act};
-  if (d_enc_pad % 64 || d_enc_pad > 128 || d_dir_pad % 16 ||
-      d_dir_pad > 128 ||
+  if (d_enc_pad % 64 || d_enc_pad > kMaxEnc || d_dir_pad % 16 ||
+      d_dir_pad > kMaxEnc ||
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -260,8 +265,8 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
 
 // The density pass (ops/kernels/mlp.py::nerf_density): the same packed
 // weights, walked only through the sigma head; out [n_rows]. Takes width
-// 64, 128 or 256 and d_enc_pad a multiple of 64 up to 128; trunk_rows as
-// fsnerf_nerf_mlp's.
+// 64, 128, 192 or 256 and d_enc_pad a multiple of 64 up to kMaxEnc;
+// trunk_rows as fsnerf_nerf_mlp's.
 extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
                                    const void* bpack, void* out, int n_rows,
                                    int n_layers, int skip_mask, int width,
@@ -277,7 +282,7 @@ extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
                   d_enc_pad,
                   0,
                   density_act};
-  if (d_enc_pad % 64 || d_enc_pad > 128 ||
+  if (d_enc_pad % 64 || d_enc_pad > kMaxEnc ||
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);

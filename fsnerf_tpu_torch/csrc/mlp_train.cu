@@ -112,48 +112,53 @@ constexpr int kBwdStageBytes = kBwdPassCols * 128;
 constexpr int kBwdSlabBytes = kBwdStages * kBwdStageBytes + 1024;
 static_assert(kSlabBytes <= kBwdSlabBytes, "the slabs alias the ring");
 
-// The backward row kernel's shared memory.
+// The backward row kernel's shared memory. The points' encoding goes
+// straight to xs (no product of this kernel reads it), so only the
+// directions' is staged: at width 256 the kernel fits with encd up to 128
+// wide (231,936 bytes) whatever the points' encoding.
 struct Smem {
-  bf16 *buf0, *buf1, *encx, *encd, *slabs;
-  float *xin, *din, *rgb, *drgb, *dsig, *colpart;
-  int LDH, LDE, LDD;
+  bf16 *buf0, *buf1, *encd, *slabs;
+  float *rgb, *drgb, *dsig, *colpart;
+  int LDH, LDD;
 };
 
 __device__ __forceinline__ Smem carve(unsigned char* raw,
                                       const TrainArgs& a) {
   Smem s;
   s.LDH = a.width + kPad;
-  s.LDE = a.d_enc_pad + kPad;
   s.LDD = a.d_dir_pad + kPad;
   s.buf0 = reinterpret_cast<bf16*>(raw);
   s.buf1 = s.buf0 + kRows * s.LDH;
-  s.encx = s.buf1 + kRows * s.LDH;
-  s.encd = s.encx + kRows * s.LDE;
+  s.encd = s.buf1 + kRows * s.LDH;
   s.slabs = s.encd + kRows * s.LDD;
-  s.xin = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
+  s.rgb = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
                                    kBwdSlabBytes);
-  s.din = s.xin + 3 * kRows;
-  s.rgb = s.din + 3 * kRows;
   s.drgb = s.rgb + 3 * kRows;
   s.dsig = s.drgb + 3 * kRows;
   s.colpart = s.dsig + kRows;              // [row groups][width]
   return s;
 }
 
-size_t smem_bytes(int width, int d_enc_pad, int d_dir_pad) {
-  return sizeof(bf16) * (size_t)kRows * (2 * width + d_enc_pad + d_dir_pad +
-                                         4 * kPad) +
-         kBwdSlabBytes + sizeof(float) * (13 * kRows + (size_t)8 * width);
+// (ops/kernels/mlp_train.py::bwd_rows_smem_bytes mirrors it)
+size_t smem_bytes(int width, int d_dir_pad) {
+  return sizeof(bf16) * (size_t)kRows * (2 * width + d_dir_pad + 3 * kPad) +
+         kBwdSlabBytes + sizeof(float) * (7 * kRows + (size_t)8 * width);
 }
 
-// Rows r0 .. r0+127 of x and d into shared memory (zeros past N), then
-// their encodings as bf16.
-__device__ void stage_and_encode(const TrainArgs& a, const Smem& s, int r0) {
+// The encodings of rows r0 .. r0+127 of x and d (zero inputs past N) as
+// bf16: encx straight to xs' columns [0, DE), encd into shared memory for
+// the branch's product and then to xs' columns [DE, DE + DD). The rows'
+// points and directions are staged first in the weight ring, which nothing
+// uses until the heads' products.
+__device__ void encode_rows(const TrainArgs& a, const Smem& s, int r0,
+                            int XW) {
   const int tid = threadIdx.x;
+  float* xin = reinterpret_cast<float*>(s.slabs);
+  float* din = xin + 3 * kRows;
   for (int e = tid; e < 3 * kRows; e += kThreads) {
     const bool in = r0 + e / 3 < a.N;
-    s.xin[e] = in ? a.x[(size_t)r0 * 3 + e] : 0.f;
-    s.din[e] = in ? a.d[(size_t)r0 * 3 + e] : 0.f;
+    xin[e] = in ? a.x[(size_t)r0 * 3 + e] : 0.f;
+    din[e] = in ? a.d[(size_t)r0 * 3 + e] : 0.f;
   }
   __syncthreads();
   const float* freq_x = a.enc;
@@ -163,15 +168,16 @@ __device__ void stage_and_encode(const TrainArgs& a, const Smem& s, int r0) {
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
   for (int e = tid; e < kRows * DE; e += kThreads) {
     const int row = e / DE, col = e - row * DE;
-    s.encx[row * s.LDE + col] = __float2bfloat16_rn(
-        encode_lane(s.xin + 3 * row, col, a.n_freqs, freq_x, mask_x));
+    a.xs[(size_t)(r0 + row) * XW + col] = __float2bfloat16_rn(
+        encode_lane(xin + 3 * row, col, a.n_freqs, freq_x, mask_x));
   }
   for (int e = tid; e < kRows * DD; e += kThreads) {
     const int row = e / DD, col = e - row * DD;
     s.encd[row * s.LDD + col] = __float2bfloat16_rn(
-        encode_lane(s.din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
+        encode_lane(din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
   }
   __syncthreads();
+  rows_to_global(s.encd, s.LDD, a.xs, XW, r0, DE, DD);
 }
 
 // feat = bf16(h_last @ w_conn + b_conn) into `other`; then
@@ -291,7 +297,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                          const __grid_constant__ CUtensorMap map_br,
                          const __grid_constant__ CUtensorMap map_acts,
                          TrainArgs a, int n_stages) {
-  constexpr int NB = W / 2 < 64 ? 64 : W / 2;     // the branch product's N
+  constexpr int NB = head_n(W);                   // the branch product's N
   extern __shared__ unsigned char fwd_smem_raw[];
   // the ring from the next 1024-byte boundary, by pointer arithmetic on the
   // shared array (an integer round trip would make every tile access a
@@ -344,6 +350,7 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
                             L * W, 64))
     return cudaErrorInvalidValue;
   const int n_stages = fwd_stages(W, DE, DD, 0);
+  if (n_stages == 0) return cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes(W, DE, DD, n_stages);
   cudaError_t err = cudaFuncSetAttribute(
       mlp_train_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -355,11 +362,12 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
 }
 
 // The forward into a.out and (when set) a.acts. The kernel takes W of 64,
-// 128 or 256 and encodings up to 128 wide; trunk_rows must be the rows of
-// wpack's [rows, W] view (the trunk, w_sigma and w_conn).
+// 128, 192 or 256 and encodings up to kMaxEnc wide (at W = 256 up to 6
+// blocks of 64 together); trunk_rows must be the rows of wpack's [rows, W]
+// view (the trunk, w_sigma and w_conn).
 cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
   const int W = a.width;
-  if (a.d_enc_pad > 128 || a.d_dir_pad > 128 ||
+  if (a.d_enc_pad > kMaxEnc || a.d_dir_pad > kMaxEnc ||
       (size_t)trunk_rows * W != trunk_offset(a, a.n_layers) + W + W * W)
     return cudaErrorInvalidValue;
   if (a.N == 0) return cudaGetLastError();
@@ -368,6 +376,8 @@ cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
       return launch_fwd_w<64>(a, trunk_rows, st);
     case 128:
       return launch_fwd_w<128>(a, trunk_rows, st);
+    case 192:
+      return launch_fwd_w<192>(a, trunk_rows, st);
     case 256:
       return launch_fwd_w<256>(a, trunk_rows, st);
     default:
@@ -546,9 +556,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r0 = blockIdx.x * kRows;
   float* pb = a.pbias + (size_t)blockIdx.x * NB;
 
-  stage_and_encode(a, s, r0);
-  rows_to_global(s.encx, s.LDE, a.xs, XW, r0, 0, DE);
-  rows_to_global(s.encd, s.LDD, a.xs, XW, r0, DE, DD);
+  encode_rows(a, s, r0, XW);
   rows_from_global(a.acts, LA, r0, (L - 1) * W, s.buf0, s.LDH, W);
   __syncthreads();
   bf16* hl = s.buf0;
@@ -721,7 +729,7 @@ extern "C" int fsnerf_mlp_train_bwd(
   a.pbias = static_cast<float*>(pbias);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(width, d_enc_pad, d_dir_pad);
+  const size_t smem = smem_bytes(width, d_dir_pad);
   err = cudaFuncSetAttribute(
       mlp_train_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -3,8 +3,8 @@
 //   nerf_march_kernel: positional encoding + the NeRF MLP on the
 //     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
-//   siren_march_kernel (widths 64, 128, 256; ray_march_kernel<SirenMarch>
-//     at the others): the raw points and directions as bf16 (no encoding)
+//   siren_march_kernel (widths 64, 128, 192, 256; ray_march_kernel<
+//     SirenMarch> at 288 and 320): the raw points and directions as bf16 (no encoding)
 //     + the SiNeRF MLP of siren_common.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call_siren (kernel 2).
 // Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/render.py::
@@ -25,8 +25,8 @@
 // The NeRF march (nerf_march_kernel, below) runs each chunk step on two
 // consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
 // producer warpgroup's TMA weight ring; see the notes above it. The SIREN
-// march at widths 64, 128 and 256 (siren_march_kernel) is the same shell
-// around the SIREN forward's warp-specialized MLP. At the other widths the
+// march at widths 64, 128, 192 and 256 (siren_march_kernel) is the same
+// shell around the SIREN forward's warp-specialized MLP. Above 256 the
 // SIREN march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk
 // step it
 // stages the rows into shared memory as bf16 and runs every layer on
@@ -502,7 +502,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     nerf_march_kernel(const __grid_constant__ CUtensorMap map_w,
                       const __grid_constant__ CUtensorMap map_br,
                       NerfMarchArgs m, int n_stages) {
-  constexpr int NB = W / 2 < 64 ? 64 : W / 2;     // the branch product's N
+  constexpr int NB = head_n(W);                   // the branch product's N
   extern __shared__ unsigned char march_smem_raw[];
   unsigned char* ring = march_smem_raw +
                         ((1024 - (smem_u32(march_smem_raw) & 1023)) & 1023);
@@ -545,6 +545,7 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t extra = 16;                         // the done flag
   const int n_stages = fwd_stages(W, m.d_enc_pad, m.d_dir_pad, extra);
+  if (n_stages == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       fwd_smem_bytes(W, m.d_enc_pad, m.d_dir_pad, n_stages) + extra;
   cudaError_t err = cudaFuncSetAttribute(
@@ -567,7 +568,8 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
 // writes its rows' points as bf16 into its one-block input tile (columns 0
 // .. 2, zeros to 16), runs the sine trunk and the heads (siren_heads, the
 // rows' ray directions, kept in shared memory, for the rgb head's rank-3
-// term). Widths 64, 128, 256; the others keep ray_march_kernel<SirenMarch>.
+// term). Widths 64, 128, 192, 256; wider ones keep ray_march_kernel<
+// SirenMarch> (up to 320: its two activation buffers' shared memory).
 struct SirenMarchArgs {
   Args io;
   Siren m;
@@ -763,8 +765,9 @@ void fill_args(Args& a, const void* x, const void* dirs, const void* t,
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
 // a shape the kernel does not take.
 
-// The NeRF march: width 64, 128 or 256, encodings up to 128 wide,
-// block_rows * chunk_s <= 128; trunk_rows the rows of wpack's [rows,
+// The NeRF march: width 64, 128, 192 or 256, encodings up to kMaxEnc (256)
+// wide (at width 256 up to 6 blocks of 64 together), block_rows * chunk_s
+// <= 128; trunk_rows the rows of wpack's [rows,
 // width] view (the trunk, w_sigma and w_conn: ops/kernels/mlp_train.py::
 // TrainLayout.wpack_views).
 extern "C" int fsnerf_ray_march(
@@ -788,7 +791,8 @@ extern "C" int fsnerf_ray_march(
   m.d_enc_pad = d_enc_pad;
   m.d_dir_pad = d_dir_pad;
   m.density_act = density_act;
-  if (d_enc_pad > 128 || d_dir_pad > 128 || block_rows * chunk_s > kRows ||
+  if (d_enc_pad > kMaxEnc || d_dir_pad > kMaxEnc ||
+      block_rows * chunk_s > kRows ||
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -798,6 +802,8 @@ extern "C" int fsnerf_ray_march(
       return launch_nerf_march_w<64>(m, trunk_rows, n_rays, st);
     case 128:
       return launch_nerf_march_w<128>(m, trunk_rows, n_rays, st);
+    case 192:
+      return launch_nerf_march_w<192>(m, trunk_rows, n_rays, st);
     case 256:
       return launch_nerf_march_w<256>(m, trunk_rows, n_rays, st);
     default:
@@ -827,6 +833,8 @@ extern "C" int fsnerf_siren_ray_march(
         return launch_siren_march_w<64>(sa, n_rays, st);
       case 128:
         return launch_siren_march_w<128>(sa, n_rays, st);
+      case 192:
+        return launch_siren_march_w<192>(sa, n_rays, st);
       case 256:
         return launch_siren_march_w<256>(sa, n_rays, st);
       default:

@@ -5,9 +5,11 @@
 //
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
-// siren_fwd_ws_kernel at widths 64 / 128 / 256, else siren_fwd_kernel)
+// siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256, else
+// siren_fwd_kernel)
 // and bwd_call (kernel 8; here a row pass,
-// siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 256, else
+// siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 192 / 256,
+// else
 // siren_bwd_rows_kernel, then dw_gemm_kernel and dw_reduce_kernel of
 // train_common.cuh). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/
 // siren.py::siren_mlp_fwd_reference / siren_mlp_bwd_reference.
@@ -20,9 +22,10 @@
 // backward reads them back: at the main path's 196,608 rows that stream
 // (1.61 GB) bounds the forward by bytes, and the backward sits near the
 // balance of bytes and operations. The forward's GEMMs run on the tensor
-// cores, at widths 64, 128 and 256 as warp-specialized wgmma fed by TMA
+// cores, at widths 64, 128, 192 and 256 as warp-specialized wgmma fed by
+// TMA
 // (siren_fwd_ws_kernel, below: ws_trunk.cuh's trunk with a sine epilogue),
-// at other widths on mma.sync m16n8k16 through the GEMM core of
+// above 256 (up to 320) on mma.sync m16n8k16 through the GEMM core of
 // mlp_common.cuh (siren_fwd_kernel); the sines run in the GEMM epilogues,
 // so no f32 pre-activation ever leaves the SM in the forward.
 //
@@ -38,10 +41,11 @@
 // factors a_i cos(a_i y_i) in f32 to scratch, as the TPU kernel holds them
 // f32 (the two modes' gradients differ by that rounding, by design).
 //
-// Two row passes. The main path's, saved mode at width 64, 128 or 256, is
-// siren_bwd_rows_ws_kernel (below): warp-specialized, every product on
-// wgmma fed by TMA, the heads' cotangents in registers. Recompute mode and
-// the other widths (multiples of 32) take siren_bwd_rows_kernel: one CTA of
+// Two row passes. The main path's, saved mode at width 64, 128, 192 or
+// 256, is siren_bwd_rows_ws_kernel (below): warp-specialized, every
+// product on wgmma fed by TMA, the heads' cotangents in registers.
+// Recompute mode takes siren_bwd_rows_kernel (which fits in shared memory
+// up to width 256, so no width above it trains on the card): one CTA of
 // 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
 // __syncthreads(); at width 256 two [128 x 264] bf16 activation buffers
 // (the heads' f32 cos factors borrow one as a [128 x 128] f32 array), a
@@ -132,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- the forward, warp-specialized ------------------------------------
 //
-// siren_fwd_ws_kernel<W, kSave> (W = 64, 128, 256): the forward of
+// siren_fwd_ws_kernel<W, kSave> (W = 64, 128, 192, 256): the forward of
 // siren_fwd_kernel on the warp-specialized shape of ws_trunk.cuh. 384
 // threads: a producer warpgroup, one of whose threads streams every weight
 // tile by TMA through an mbarrier ring (siren_produce_pass), and two
@@ -512,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- the saved-mode backward row pass, warp-specialized --------------
 //
-// siren_bwd_rows_ws_kernel<W> (W = 64, 128, 256; saved mode): the same
+// siren_bwd_rows_ws_kernel<W> (W = 64, 128, 192, 256; saved mode): the same
 // outputs as siren_bwd_rows_kernel (xs, dy, pbias) on the warp-specialized
 // shape of ws_trunk.cuh. 384 threads: a producer warpgroup, one of whose
 // threads streams every weight tile by TMA through an mbarrier ring in the
@@ -533,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     rank-3 update in the epilogue (d's columns past 3 meet zero rows of
 //     w_r0d); s_r goes to T's first Wh columns (to xs), rgb = sigmoid(s_r
 //     w_r1 + b_r1) from quad sums, drgb, and dyr = (drgb_b w_r1^T) cos(yr)
-//     to T's last Wh columns (to dy);
+//     to T's last Wh columns (at W = 192 over s_r: kDyr) (to dy);
 //   - dfeat = dyr_b W_r0f^T, then dh = dfeat_b W_f^T + dys_b W_s0^T (two
 //     segments into one accumulator), then dh_{i-1} = dy_i_b W_i^T: each
 //     epilogue multiplies by the saved bf16 factor a_i cos(a_i y_i), read
@@ -583,7 +587,7 @@ __device__ __forceinline__ void ws_bwd_produce(const SirenBwdMaps& mp,
                                                uint64_t* full,
                                                uint64_t* empty,
                                                int n_stages) {
-  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh;
+  constexpr int Wh = W / 2, NS = head_n(W);
   int it = 0;
   auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
     for (int kc = 0; kc < k; kc += 64, ++it) {
@@ -764,7 +768,12 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
                                                unsigned char* S,
                                                float* colpart, float* pb,
                                                uint64_t* loaded, int wg) {
-  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh, LDC = W + 4;
+  constexpr int Wh = W / 2, NS = head_n(W), LDC = W + 4;
+  // dyr's first column in T: past s_r where that is a block's start or
+  // inside block 0; at W = 192 over s_r, once its copy to xs has read it
+  // (dfeat's A, 96 columns from column 96, would cross a block inside a
+  // 64-K stage, which fwd_product's descriptors do not step over)
+  constexpr int kDyr = (Wh % 64 == 0 || Wh < 64) ? Wh : 0;
   const Siren& m = a.m;
   const int L = m.n_layers;
   const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
@@ -981,6 +990,7 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
         drgb[c][h] = dout[h][c] * rr * (1.f - rr);     // 0 past N
         drgb_b[h][c] = __bfloat162float(__float2bfloat16_rn(drgb[c][h]));
       }
+    if (kDyr == 0) tile_free();
     float* cp = cp_row();
 #pragma unroll
     for (int j = 0; j < Wh / 8; j += 2) {
@@ -1011,7 +1021,7 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
         }
         warp_colsum(s[0], s[1], cp, col);
       }
-      stsm_x4(smem_u32(tile_at(T, srow, Wh + 8 * (j + (sm >> 1)))),
+      stsm_x4(smem_u32(tile_at(T, srow, kDyr + 8 * (j + (sm >> 1)))),
               packed[0][0], packed[0][1], packed[1][0], packed[1][1]);
     }
 #pragma unroll
@@ -1029,14 +1039,15 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
       }
     }
     tile_written();
-    store_cols(&mp.dy, T, Wh, Wh, a.dy, DYW, dy_r, row0, r.lead);
+    store_cols(&mp.dy, T, kDyr, Wh, a.dy, DYW, dy_r, row0, r.lead);
     combine(Wh + 3, pb + m.ob_r0());           // b_r0, then b_r1
   }
 
   // dfeat = dyr_b W_r0f^T over T (feat has no activation)
   float acc[W / 2];
   const uint32_t t_a = smem_u32(T);
-  fwd_product(acc, t_a + (Wh / 64) * kBlock + (Wh % 64) * 2, Wh, true, r);
+  fwd_product(acc, t_a + (kDyr / 64) * kBlock + (kDyr % 64) * 2, Wh, true,
+              r);
   tile_free();
   cot_epilogue(acc, nullptr, 0, T, cp_row());
   tile_written();
@@ -1160,13 +1171,15 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  // widths 64, 128 and 256 on the warp-specialized kernel, the other
-  // widths (multiples of 32) on siren_fwd_kernel
+  // widths 64, 128, 192 and 256 on the warp-specialized kernel, wider
+  // ones (multiples of 32 up to 320) on siren_fwd_kernel
   switch (width) {
     case 64:
       return static_cast<int>(launch_fwd_ws<64>(a, n_blocks, st));
     case 128:
       return static_cast<int>(launch_fwd_ws<128>(a, n_blocks, st));
+    case 192:
+      return static_cast<int>(launch_fwd_ws<192>(a, n_blocks, st));
     case 256:
       return static_cast<int>(launch_fwd_ws<256>(a, n_blocks, st));
     default:
@@ -1209,7 +1222,7 @@ extern "C" int fsnerf_siren_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  // the row pass: saved mode at width 64, 128 or 256 on the
+  // the row pass: saved mode at width 64, 128, 192 or 256 on the
   // warp-specialized kernel, where its shared memory fits (a ring of 2
   // stages or more beside the bias partials); recompute mode (f32 factors)
   // and other widths on siren_bwd_rows_kernel
@@ -1217,12 +1230,14 @@ extern "C" int fsnerf_siren_bwd(
   const int n_b = L * width + Wh + 1 + width + Wh + 3;
   const bool ws = !a.recompute && (width == 64    ? ws_bwd_stages<64>(n_b)
                                    : width == 128 ? ws_bwd_stages<128>(n_b)
+                                   : width == 192 ? ws_bwd_stages<192>(n_b)
                                    : width == 256 ? ws_bwd_stages<256>(n_b)
                                                   : 0) > 0;
   cudaError_t err;
   if (ws) {
     err = width == 64    ? launch_bwd_rows_ws<64>(a, n_blocks, st)
           : width == 128 ? launch_bwd_rows_ws<128>(a, n_blocks, st)
+          : width == 192 ? launch_bwd_rows_ws<192>(a, n_blocks, st)
                          : launch_bwd_rows_ws<256>(a, n_blocks, st);
   } else {
     const size_t smem = bwd_smem_bytes(width);

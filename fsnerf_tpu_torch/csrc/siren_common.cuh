@@ -2,11 +2,12 @@
 // render.cu and the SIREN train kernels of siren.cu: the sine epilogue of
 // the GEMM core, the trunk and the forward heads, in two shapes. The
 // mma.sync shape (SineEpi, siren_trunk, siren_mlp_rows: one CTA of 8
-// warps, each phase behind __syncthreads()) serves the widths that are not
-// 64, 128 or 256 and the backward's recompute mode; the warp-specialized
-// shape (SineAct, siren_produce_pass, siren_heads, at the end: ws_trunk.cuh's
-// producer, ring, products and epilogue with a sine activation) serves the
-// forward and the march at widths 64, 128 and 256.
+// warps, each phase behind __syncthreads()) serves the widths above 256
+// (288 and 320: its buffers' shared memory) and the backward's recompute
+// mode; the warp-specialized shape (SineAct, siren_produce_pass,
+// siren_heads, at the end: ws_trunk.cuh's producer, ring, products and
+// epilogue with a sine activation) serves the forward and the march at
+// widths 64, 128, 192 and 256.
 //
 // Numerics, as the TPU kernels (fsnerf_tpu/ops/pallas/siren.py::_fwd_siren,
 // _heads_siren): bf16 operands and f32 accumulation; the f32 bias is added
@@ -225,7 +226,7 @@ __device__ void siren_mlp_rows(const Siren& m, const bf16* xin,
   __syncthreads();
 }
 
-// ---- the warp-specialized shape (widths 64, 128, 256) ------------------
+// ---- the warp-specialized shape (widths 64, 128, 192, 256) -------------
 //
 // ws_trunk.cuh's trunk with the sine activation, then the heads as the
 // saved-mode backward's row pass (siren.cu, ws_bwd_consume) computes them,
@@ -267,7 +268,7 @@ template <int W>
 __device__ __forceinline__ bool siren_produce_pass(
     const SirenFwdMaps& mp, int L, unsigned char* ring, uint64_t* full,
     uint64_t* empty, int n_stages, int& it, const volatile int* done) {
-  constexpr int NS = W / 2 < 64 ? 64 : W / 2;     // the heads' product N
+  constexpr int NS = head_n(W);                   // the heads' product N
   auto feed = [&](const CUtensorMap* map, int k, int n_box) {
     return feed_stages<W>(map, 0, k, n_box, ring, full, empty, n_stages, it,
                           done);
@@ -386,7 +387,7 @@ __device__ __forceinline__ void siren_heads(float (&acc)[W / 2], FwdRing& r,
                                             const Dirs& dirs, int bar,
                                             float (&sigma)[2],
                                             float (&rgb)[2][3]) {
-  constexpr int Wh = W / 2, NS = Wh < 64 ? 64 : Wh;
+  constexpr int Wh = W / 2, NS = head_n(W);
   const int lane = threadIdx.x & 31;
   float(&acc_s)[NS / 2] = *reinterpret_cast<float(*)[NS / 2]>(&acc);
   {

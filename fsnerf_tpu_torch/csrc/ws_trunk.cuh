@@ -66,8 +66,18 @@ constexpr int kFwdMaxStages = 4;
 constexpr int kBlock = 64 * 64 * 2;              // a 64 x 64 bf16 block
 constexpr size_t kMaxSmem = 227 * 1024;          // a block's limit (H100)
 
+// The widest encoding (columns, after padding) the shells take: 4 blocks.
+constexpr int kMaxEnc = 256;
+
 __host__ __device__ __forceinline__ int enc_blocks(int k) {
   return (k + 63) / 64;
+}
+
+// The N of a head product W / 2 wide (the NeRF branch, the SIREN heads):
+// whole 64-column boxes, the columns past W / 2 TMA's zero fill, which no
+// epilogue reads (64 at W = 64, 128 at W = 192).
+__host__ __device__ constexpr int head_n(int W) {
+  return (W / 2 + 63) / 64 * 64;
 }
 
 // Rows of the trunk matrices in wpack's [rows, W] view (the walk of
@@ -92,13 +102,15 @@ size_t fwd_smem_bytes(int width, int d_enc_pad, int d_dir_pad,
 }
 
 // The deepest ring up to kFwdMaxStages whose kernel fits in shared memory
-// with `extra` bytes past the barriers.
+// with `extra` bytes past the barriers, or 0 if a ring of 2 does not (at W
+// = 256 encodings of more than 6 blocks together:
+// ops/kernels/render.py::kernel_arch_error refuses them by name).
 int fwd_stages(int width, int d_enc_pad, int d_dir_pad, size_t extra) {
   int n = kFwdMaxStages;
-  while (n > 2 && fwd_smem_bytes(width, d_enc_pad, d_dir_pad, n) + extra >
-                      kMaxSmem)
+  while (n >= 2 && fwd_smem_bytes(width, d_enc_pad, d_dir_pad, n) + extra >
+                       kMaxSmem)
     --n;
-  return n;
+  return n < 2 ? 0 : n;
 }
 
 // Byte address of element (row, col) of a tile in that layout.

@@ -14,7 +14,10 @@ directions get no gradient.
 `mlp_train_fwd` / `mlp_train_bwd` launch csrc/mlp_train.cu for CUDA tensors
 and run `mlp_train_fwd_reference` / `mlp_train_bwd_reference` only for CPU
 tensors. Weights travel packed in the ray march's walk order
-(render.py::pack_weights); gradients come back in the same packed layout.
+(render.py::pack_weights) at the packed width (render.py::kernel_width);
+gradients come back in the same packed layout, their padded entries
+exactly 0, and TrainLayout.grads_from_packed cuts them to the module's
+shapes.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 from ...core.encoding import encoded_dim
 from .render import (_bf16, _round_up, enc_table, encode, heads_forward,
-                     kernel_arch_error, pack_weights, trunk_forward, unpack)
+                     kernel_arch_error, kernel_width, pack_weights,
+                     trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 # weight-gradient output tile: input dims x output dims
@@ -36,15 +40,26 @@ DW_TILE_M, DW_TILE_N, DW_BK = 128, 256, 64
 SPLIT_ROWS = 8192       # rows per weight-gradient split, a multiple of DW_BK
 
 
+def bwd_rows_smem_bytes(width: int, d_dir_pad: int) -> int:
+    """Shared memory of kernel 6's row pass (csrc/mlp_train.cu
+    smem_bytes): two activation buffers and the direction encoding (rows
+    padded by 8), the weight ring, the heads' and the column sums' floats."""
+    return (2 * ROWS * (2 * width + d_dir_pad + 24) + 3 * 128 * 128 + 1024
+            + 4 * (7 * ROWS + 8 * width))
+
+
 @dataclass(frozen=True)
 class TrainLayout:
-    """The NeRF architecture the train kernels are built for."""
+    """The NeRF architecture the train kernels are built for: `width` the
+    packed width (render.py::kernel_width of the module's), model_width the
+    module's (None: width)."""
 
     n_layers: int
     skip: Tuple[int, ...]
     width: int
     n_freqs: int
     n_freqs_views: int
+    model_width: Optional[int] = None
 
     @property
     def d_enc(self) -> int:
@@ -111,22 +126,29 @@ class TrainLayout:
 
     def kernel_error(self) -> Optional[str]:
         """Why the train kernels refuse this layout on the card, or None
-        (their plain versions take any width that is a multiple of 32)."""
+        (their plain versions take any width)."""
         return kernel_arch_error(self.width, self.de, self.dd,
                                  "train kernels")
 
     @staticmethod
+    def of_module(n_layers: int, skip: Tuple[int, ...], width: int,
+                  n_freqs: int, n_freqs_views: int) -> "TrainLayout":
+        """The layout of a NeRF module `width` wide, at the packed width."""
+        return TrainLayout(n_layers, tuple(skip), kernel_width(width),
+                           n_freqs, n_freqs_views, width)
+
+    @staticmethod
     def from_config(cfg, device=None) -> "TrainLayout":
         """The layout of cfg's NeRF for the train kernels on `device` (None:
-        the card); ValueError if they do not take it there."""
+        the card), at the packed width; ValueError if they do not take it
+        there."""
         skip = tuple(cfg.model.skip)
         if skip and max(skip) >= cfg.model.n_layers - 1:
             raise ValueError("the train kernels need the skip concat to "
                              "feed a trunk layer")
-        if cfg.model.d_filter % 32:
-            raise ValueError("width must be a multiple of 32")
-        lay = TrainLayout(cfg.model.n_layers, skip, cfg.model.d_filter,
-                          cfg.encoder.n_freqs, cfg.encoder.n_freqs_views)
+        lay = TrainLayout.of_module(cfg.model.n_layers, skip,
+                                    cfg.model.d_filter, cfg.encoder.n_freqs,
+                                    cfg.encoder.n_freqs_views)
         err = lay.kernel_error()
         if err is not None and (device is None
                                 or torch.device(device).type == "cuda"):
@@ -135,22 +157,26 @@ class TrainLayout:
 
     def grads_from_packed(self, dw: torch.Tensor, db: torch.Tensor):
         """Packed gradients -> one tensor per parameter, in param_names
-        order and the module's [out, in] orientation."""
+        order, the module's [out, in] orientation and its width (the padded
+        units' entries cut away)."""
         trunk, b_trunk, hd = unpack(dw, db, self.n_layers, self.skip,
                                     self.width, self.de, self.dd)
+        W = self.model_width or self.width
+        Wh, de = W // 2, self.d_enc
         out = []
         for i, ws in enumerate(trunk):
             if i == 0:
-                g = ws[0][:self.d_enc].t()
+                g = ws[0][:de, :W].t()
             elif len(ws) == 2:
-                g = torch.cat([ws[0].t(), ws[1][:self.d_enc].t()], dim=1)
+                g = torch.cat([ws[0][:W, :W].t(), ws[1][:de, :W].t()], dim=1)
             else:
-                g = ws[0].t()
-            out += [g, b_trunk[i]]
-        out += [hd["sigma"].t(), hd["b_sigma"], hd["conn"].t(), hd["b_conn"],
-                torch.cat([hd["branch_h"].t(),
-                           hd["branch_d"][:self.d_dir].t()], dim=1),
-                hd["b_branch"], hd["rgb"].t(), hd["b_rgb"]]
+                g = ws[0][:W, :W].t()
+            out += [g, b_trunk[i][:W]]
+        out += [hd["sigma"][:W].t(), hd["b_sigma"], hd["conn"][:W, :W].t(),
+                hd["b_conn"][:W],
+                torch.cat([hd["branch_h"][:W, :Wh].t(),
+                           hd["branch_d"][:self.d_dir, :Wh].t()], dim=1),
+                hd["b_branch"][:Wh], hd["rgb"][:Wh].t(), hd["b_rgb"]]
         return [g.contiguous() for g in out]
 
 
@@ -173,7 +199,7 @@ def pack_train_params(state_dict: Dict[str, torch.Tensor],
     with torch.no_grad():
         sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
         wpack, bpack = pack_weights(sd, layout.n_layers, layout.skip,
-                                    layout.de, layout.dd)
+                                    layout.de, layout.dd, layout.width)
     return TrainParams(wpack, bpack, enc, layout)
 
 

@@ -13,11 +13,18 @@ the optical depth carried across chunks. Outputs [R, 8] = rgb, opacity,
 depth, trans_final, 0, 0; the background is blended by the caller.
 
 `ray_march` launches csrc/render.cu for CUDA tensors (the NeRF march on
-the warp-specialized MLP of csrc/ws_trunk.cuh, which takes the widths
-KERNEL_WIDTHS) and runs
+the warp-specialized MLP of csrc/ws_trunk.cuh, which is built for the
+widths KERNEL_WIDTHS) and runs
 `ray_march_reference` only for CPU tensors. The two share one signature,
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
+
+Every packer lays the weights out at `kernel_width(W)`: a module's width W
+up to 256 pads to the next of KERNEL_WIDTHS with zero columns (and zero
+biases), the next matrix reading them through zero rows, so the padded
+units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and the real
+outputs gain only exact zero products; the plain versions run the padded
+pack as the kernels do.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
@@ -38,27 +45,57 @@ from .fastmath import sincos_fast
 _DENSITY_ACT = {"none": 0, "relu": 1, "trunc_exp": 2}
 # the kernel's GEMM tile: block_rows * chunk_s rows per chunk step
 KERNEL_ROWS = 128
-# the widths the warp-specialized NeRF kernels (csrc/ws_trunk.cuh: the ray
-# march, the density pass, the train forward) are built for, and their
-# widest encoding
-KERNEL_WIDTHS = (64, 128, 256)
-KERNEL_MAX_ENC = 128
+# the widths the warp-specialized kernels (csrc/ws_trunk.cuh: the NeRF ray
+# march, forward MLP, density pass and train forward, the SIREN forward,
+# march and saved-mode backward) are built for, and their widest encoding
+KERNEL_WIDTHS = (64, 128, 192, 256)
+KERNEL_MAX_ENC = 256
+# ... at width 256, the widest direction encoding: a 2-stage ring beside
+# 6 encoding blocks fills a shell's shared memory (shell_smem_bytes), and
+# kernel 6's row pass stages the direction encoding (mlp_train.py::
+# bwd_rows_smem_bytes)
+KERNEL_MAX_DIR_AT_256 = 128
+SMEM_LIMIT = 227 * 1024          # an H100 block's shared memory, bytes
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def kernel_width(width: int) -> int:
+    """The width the packers lay a module of `width` out at: the smallest
+    of KERNEL_WIDTHS that holds it, else (above 256) the next multiple of 32
+    (the mma.sync SIREN kernels' step; the NeRF kernels refuse it)."""
+    for w in KERNEL_WIDTHS:
+        if width <= w:
+            return w
+    return _round_up(width, 32)
+
+
+def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
+                     n_stages: int = 2) -> int:
+    """Shared memory of a warp-specialized NeRF shell with a ring of
+    n_stages (csrc/ws_trunk.cuh fwd_smem_bytes, plus the largest shell's
+    16 extra bytes)."""
+    blocks = -(-d_enc_pad // 64) + -(-d_dir_pad // 64)
+    return (1024 + (n_stages + 2) * width * 128 + 2 * blocks * 64 * 64 * 2
+            + 2 * n_stages * 8 + 16)
+
+
 def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
                       what: str = "kernels") -> Optional[str]:
-    """Why the warp-specialized NeRF kernels (`what`) refuse a width and
-    padded encoding widths, or None if they take them."""
+    """Why the warp-specialized NeRF kernels (`what`) refuse a packed
+    width (kernel_width's) and padded encoding widths, or None if they take
+    them."""
+    max_dir = KERNEL_MAX_DIR_AT_256 if width == 256 else KERNEL_MAX_ENC
     if (width in KERNEL_WIDTHS and d_enc_pad <= KERNEL_MAX_ENC
-            and d_dir_pad <= KERNEL_MAX_ENC):
+            and d_dir_pad <= max_dir):
         return None
-    return (f"the {what} take widths {KERNEL_WIDTHS} and encodings up to "
-            f"{KERNEL_MAX_ENC} wide, not width {width} with encodings "
-            f"{d_enc_pad} / {d_dir_pad}")
+    return (f"the {what} take widths up to {KERNEL_WIDTHS[-1]} (laid out "
+            f"at {KERNEL_WIDTHS}) and encodings up to {KERNEL_MAX_ENC} wide "
+            f"(at width 256 a direction encoding up to "
+            f"{KERNEL_MAX_DIR_AT_256}: shared memory), not width {width} "
+            f"with encodings {d_enc_pad} / {d_dir_pad}")
 
 
 def trunk_rows(n_layers: int, skip: Tuple[int, ...], width: int,
@@ -93,12 +130,13 @@ class RayMarchParams:
     enc: torch.Tensor
     n_layers: int
     skip: Tuple[int, ...]
-    width: int
+    width: int              # the packed (kernel) width
     n_freqs: int
     n_freqs_views: int
     d_enc_pad: int
     d_dir_pad: int
     density_activation: str = "none"
+    model_width: Optional[int] = None      # the module's (None: width)
 
     @property
     def skip_mask(self) -> int:
@@ -111,32 +149,45 @@ class RayMarchParams:
                        bpack=self.bpack.to(device), enc=self.enc.to(device))
 
 
-def pack_weights(sd: Dict[str, torch.Tensor], n_layers: int,
-                 skip: Tuple[int, ...], d_enc_pad: int, d_dir_pad: int):
-    """(wpack bf16, bpack float32 holding bf16-rounded values) of a
-    reference-keyed NeRF state dict in the walk order of RayMarchParams, on
-    the state dict's device."""
-    W = sd["layers.0.weight"].shape[0]
+def padded(m: torch.Tensor, *shape: int) -> torch.Tensor:
+    """m zero-padded at the end of each dimension to `shape`."""
+    pads = []
+    for size, want in zip(reversed(m.shape), reversed(shape)):
+        pads += [0, want - size]
+    return torch.nn.functional.pad(m, pads)
 
-    def rows_padded(w_t: torch.Tensor, rows: int) -> torch.Tensor:
-        return torch.nn.functional.pad(w_t, (0, 0, 0, rows - w_t.shape[0]))
+
+def pack_weights(sd: Dict[str, torch.Tensor], n_layers: int,
+                 skip: Tuple[int, ...], d_enc_pad: int, d_dir_pad: int,
+                 width: Optional[int] = None):
+    """(wpack bf16, bpack float32 holding bf16-rounded values) of a
+    reference-keyed NeRF state dict in the walk order of RayMarchParams at
+    `width` (default kernel_width of the module's), on the state dict's
+    device: the trunk's, the connection's and the branch's units past the
+    module's are zero columns with zero biases, read by zero rows."""
+    W = sd["layers.0.weight"].shape[0]
+    K = kernel_width(W) if width is None else width
+    Kh = K // 2
 
     mats, biases = [], []
     for i in range(n_layers):
         w = sd[f"layers.{i}.weight"]                      # [W, in]
         if i == 0:
-            mats.append(rows_padded(w.t(), d_enc_pad))
+            mats.append(padded(w.t(), d_enc_pad, K))
         elif (i - 1) in skip:
-            mats += [w[:, :W].t(), rows_padded(w[:, W:].t(), d_enc_pad)]
+            mats += [padded(w[:, :W].t(), K, K),
+                     padded(w[:, W:].t(), d_enc_pad, K)]
         else:
-            mats.append(w.t())
-        biases.append(sd[f"layers.{i}.bias"])
+            mats.append(padded(w.t(), K, K))
+        biases.append(padded(sd[f"layers.{i}.bias"], K))
     wb = sd["branch.weight"]
-    mats += [sd["sigma.weight"].reshape(-1), sd["connection.weight"].t(),
-             wb[:, :W].t(), rows_padded(wb[:, W:].t(), d_dir_pad),
-             sd["rgb.weight"].t()]
-    biases += [sd["sigma.bias"], sd["connection.bias"], sd["branch.bias"],
-               sd["rgb.bias"]]
+    mats += [padded(sd["sigma.weight"].reshape(-1), K),
+             padded(sd["connection.weight"].t(), K, K),
+             padded(wb[:, :W].t(), K, Kh),
+             padded(wb[:, W:].t(), d_dir_pad, Kh),
+             padded(sd["rgb.weight"].t(), Kh, 3)]
+    biases += [sd["sigma.bias"], padded(sd["connection.bias"], K),
+               padded(sd["branch.bias"], Kh), sd["rgb.bias"]]
     wpack = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
     bpack = _bf16(torch.cat([b.reshape(-1) for b in biases]))
     return wpack.contiguous(), bpack.contiguous()
@@ -185,14 +236,12 @@ def prep_params(
     if sd["layers.0.weight"].shape[1] != d_enc or \
             sd["branch.weight"].shape[1] != W + d_dir:
         raise ValueError("state dict does not match n_freqs/n_freqs_views")
-    if W % 32:
-        raise ValueError(f"width {W} must be a multiple of 32")
     de, dd = _round_up(d_enc, 16), _round_up(d_dir, 16)
     wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
     enc = enc_table(n_freqs, n_freqs_views, log_space, pos_mask, dir_mask)
-    return RayMarchParams(wpack, bpack, enc, n_layers, skip, W, n_freqs,
-                          n_freqs_views, de, dd,
-                          density_activation).to(device)
+    return RayMarchParams(wpack, bpack, enc, n_layers, skip, kernel_width(W),
+                          n_freqs, n_freqs_views, de, dd,
+                          density_activation, W).to(device)
 
 
 def unpack(wflat: torch.Tensor, bflat: torch.Tensor, n_layers: int,
@@ -382,8 +431,8 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
 def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
               block_rows: int, chunk_s: int, early_stop_eps: float = 1e-4):
     """The ray march: csrc/render.cu's nerf_march_kernel for CUDA tensors
-    (widths KERNEL_WIDTHS, encodings up to KERNEL_MAX_ENC wide: ValueError
-    otherwise), ray_march_reference for CPU tensors. Same arguments and
+    (packed widths KERNEL_WIDTHS, encodings as kernel_arch_error takes them:
+    ValueError otherwise), ray_march_reference for CPU tensors. Same arguments and
     returns as ray_march_reference. Counts its kernel launches in
     `ray_march.launches`."""
     if x.device.type == "cpu":
@@ -550,15 +599,21 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
     siren_ray_march_reference for CPU tensors. Same arguments and returns.
     Counts its kernel launches in `siren_ray_march.launches`.
 
-    On the card both routes are hand-written kernels, chosen by width in
-    csrc/render.cu fsnerf_siren_ray_march: widths 64, 128 and 256 run the
-    warp-specialized march (siren_march_kernel, the SIREN forward's wgmma
-    trunk in the NeRF march's shell), the other widths (multiples of 32)
-    the mma.sync one (ray_march_kernel<SirenMarch>)."""
+    On the card both routes are hand-written kernels, chosen by the packed
+    width in csrc/render.cu fsnerf_siren_ray_march: widths 64, 128, 192 and
+    256 run the warp-specialized march (siren_march_kernel, the SIREN
+    forward's wgmma trunk in the NeRF march's shell), 288 and 320 the
+    mma.sync one (ray_march_kernel<SirenMarch>); a wider one raises
+    ValueError (siren.py::SIREN_MAX_WIDTH)."""
     if x.device.type == "cpu":
         return siren_ray_march_reference(x, dirs, t, deltas, mask, params,
                                          block_rows, chunk_s, early_stop_eps)
+    from .siren import siren_kernel_error
+
     lay = params.layout
+    err = siren_kernel_error(lay.width, "march")
+    if err is not None:
+        raise ValueError(f"siren_ray_march: {err}")
     stats, steps = _launch_march(
         "siren_ray_march", x, dirs, t, deltas, mask,
         (params.wpack, params.bpack, params.alphas), block_rows, chunk_s,

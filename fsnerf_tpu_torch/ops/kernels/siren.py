@@ -29,7 +29,14 @@ tensors; the forward without acts does so as the registered op
 fsnerf_torch::siren_mlp_fwd, which a torch.export program keeps as a call
 (utils/export.py). Inputs are the padded bf16 coordinates of
 `pad_inputs`; weights travel packed by `prep_siren_params` in the
-kernels' walk order, and gradients come back in the same packed layout.
+kernels' walk order at the packed width (render.py::kernel_width: zero
+units with zero biases, whose sines are exactly 0), and gradients come back
+in the same packed layout.
+
+On the card the warp-specialized kernels take the packed widths 64, 128,
+192 and 256; above 256 the mma.sync kernels' shared memory bounds them
+(SIREN_MAX_WIDTH): the forward and the march fit up to 320, the backward's
+row pass up to 256, so no SiNeRF wider than 256 trains on the kernels.
 """
 
 from __future__ import annotations
@@ -42,10 +49,37 @@ import torch
 
 from .fastmath import sincos_fast
 from .mlp_train import SPLIT_ROWS, _launch_error, dw_plan
-from .render import _bf16, _round_up
+from .render import SMEM_LIMIT, _bf16, _round_up, kernel_width, padded
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 D_IN_PAD = 16           # raw coordinates / directions, zero-padded columns
+# the widest packed width of each SIREN kernel on the card: past 256 the
+# mma.sync kernels hold two [128, W + 8] bf16 activation buffers beside
+# the weight slabs (csrc/siren.cu fwd_smem_bytes, bwd_smem_bytes; render.cu
+# SirenMarch), which fill SMEM_LIMIT (mma_smem_bytes)
+SIREN_MAX_WIDTH = {"forward": 320, "march": 320, "backward": 256}
+
+
+def mma_smem_bytes(width: int, kernel: str) -> int:
+    """Shared memory of the mma.sync SIREN `kernel` at a packed width."""
+    slabs, rows = 2 * 64 * 136, ROWS * (2 * (width + 8) + 2 * (D_IN_PAD + 8))
+    if kernel == "forward":
+        return 2 * (rows + slabs) + 4 * 4 * ROWS
+    if kernel == "march":
+        return 2 * (rows + slabs) + 4 * 16 * ROWS
+    return (2 * (rows + ROWS * (width // 2 + 8) + slabs)
+            + 4 * (8 * ROWS + 4 * width))
+
+
+def siren_kernel_error(width: int, kernel: str = "backward") -> Optional[str]:
+    """Why the SIREN `kernel` refuses a packed width on the card, or None.
+    "backward" is the train kernels' limit (the backward and its forward)."""
+    top = SIREN_MAX_WIDTH[kernel]
+    if width <= top:
+        return None
+    return (f"the SIREN {kernel} kernel takes widths up to {top} (its "
+            f"mma.sync shape's shared memory: {mma_smem_bytes(width, kernel)}"
+            f" bytes of {SMEM_LIMIT} at width {width})")
 
 
 def siren_alphas(n_layers: int) -> Tuple[float, ...]:
@@ -55,11 +89,14 @@ def siren_alphas(n_layers: int) -> Tuple[float, ...]:
 
 @dataclass(frozen=True)
 class SirenLayout:
-    """The SiNeRF architecture the kernels are built for."""
+    """The SiNeRF architecture the kernels are built for: `width` the
+    packed width (render.py::kernel_width of the module's), model_width the
+    module's (None: width)."""
 
     n_layers: int
     width: int
     alphas: Tuple[float, ...]
+    model_width: Optional[int] = None
 
     @property
     def n_w(self) -> int:
@@ -88,25 +125,28 @@ class SirenLayout:
 
     @staticmethod
     def from_config(cfg) -> "SirenLayout":
-        if cfg.model.d_filter % 32:
-            raise ValueError("width must be a multiple of 32")
         if cfg.encoder.no_dirs:
             raise ValueError("the SiNeRF train kernels take view directions")
-        return SirenLayout(cfg.model.n_layers, cfg.model.d_filter,
-                           siren_alphas(cfg.model.n_layers))
+        W = cfg.model.d_filter
+        return SirenLayout(cfg.model.n_layers, kernel_width(W),
+                           siren_alphas(cfg.model.n_layers), W)
 
     def grads_from_packed(self, dw: torch.Tensor, db: torch.Tensor):
         """Packed gradients -> one tensor per parameter, in param_names
-        order and the module's [out, in] orientation."""
+        order, the module's [out, in] orientation and its width (the padded
+        units' entries cut away)."""
         u = unpack(dw, db, self)
+        W = self.model_width or self.width
+        Wh = W // 2
         out = []
         for i in range(self.n_layers):
-            g = u["t"][i][:3] if i == 0 else u["t"][i]
-            out += [g.t(), u["b"][i]]
-        out += [u["ws0"].t(), u["bs0"], u["ws1"].t(), u["bs1"],
-                u["wf"].t(), u["bf"],
-                torch.cat([u["wr0f"].t(), u["wr0d"][:3].t()], dim=1),
-                u["br0"], u["wr1"].t(), u["br1"]]
+            g = u["t"][i][:3, :W] if i == 0 else u["t"][i][:W, :W]
+            out += [g.t(), u["b"][i][:W]]
+        out += [u["ws0"][:W, :Wh].t(), u["bs0"][:Wh], u["ws1"][:Wh].t(),
+                u["bs1"], u["wf"][:W, :W].t(), u["bf"][:W],
+                torch.cat([u["wr0f"][:W, :Wh].t(), u["wr0d"][:3, :Wh].t()],
+                          dim=1),
+                u["br0"][:Wh], u["wr1"][:Wh].t(), u["br1"]]
         return [g.contiguous() for g in out]
 
 
@@ -135,38 +175,44 @@ def prep_siren_params(state_dict: Dict[str, torch.Tensor],
                       with_transposed: bool = False,
                       device=None) -> SirenParams:
     """Pack a reference-keyed SiNeRF state dict (core/models.py) on
-    `device` (default: the state dict's)."""
+    `device` (default: the state dict's) at the packed width
+    (render.py::kernel_width of the module's): the units past the module's
+    are zero columns with zero biases, read by zero rows."""
     with torch.no_grad():
         sd = {k: v.detach().to(device=device, dtype=torch.float32)
               for k, v in state_dict.items()}
         W = sd["first_layers.0.fc_layer.weight"].shape[0]
-        if W % 32:
-            raise ValueError(f"width {W} must be a multiple of 32")
+        K = kernel_width(W)
+        Kh = K // 2
         alphas = tuple(float(a) for a in (alphas or siren_alphas(n_layers)))
         if len(alphas) != n_layers:
             raise ValueError(f"{len(alphas)} alphas for {n_layers} layers")
-        lay = SirenLayout(n_layers, W, alphas)
+        lay = SirenLayout(n_layers, K, alphas, W)
 
         def w(name):
             return sd[f"{name}.weight"]
 
-        def rows_padded(m):
-            return torch.nn.functional.pad(m, (0, 0, 0, D_IN_PAD - m.shape[0]))
-
         t = [w(f"first_layers.{i}.fc_layer") for i in range(n_layers)]
         wr0 = w("rgb_layers.0.fc_layer")
-        mats = [rows_padded(t[0].t())] + [ti.t() for ti in t[1:]]
-        mats += [w("sigma_layers.0.fc_layer").t(),
-                 w("sigma_layers.1").reshape(-1), w("fc_feature").t(),
-                 wr0[:, :W].t(), rows_padded(wr0[:, W:].t()),
-                 w("rgb_layers.1").t()]
+        mats = [padded(t[0].t(), D_IN_PAD, K)]
+        mats += [padded(ti.t(), K, K) for ti in t[1:]]
+        mats += [padded(w("sigma_layers.0.fc_layer").t(), K, Kh),
+                 padded(w("sigma_layers.1").reshape(-1), Kh),
+                 padded(w("fc_feature").t(), K, K),
+                 padded(wr0[:, :W].t(), K, Kh),
+                 padded(wr0[:, W:].t(), D_IN_PAD, Kh),
+                 padded(w("rgb_layers.1").t(), Kh, 3)]
         wpack = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
-        bpack = torch.cat([sd[f"{m}.bias"].reshape(-1) for m in lay.modules])
+        sizes = [K] * n_layers + [Kh, 1, K, Kh, 3]
+        bpack = torch.cat([padded(sd[f"{m}.bias"].reshape(-1), n)
+                           for m, n in zip(lay.modules, sizes)])
         wtpack = None
         if with_transposed:
-            wtpack = torch.cat([m.reshape(-1) for m in t[1:] + [
-                w("fc_feature"), w("sigma_layers.0.fc_layer"), wr0[:, :W]]]
-            ).to(torch.bfloat16).contiguous()
+            wtpack = torch.cat([m.reshape(-1) for m in [
+                padded(ti, K, K) for ti in t[1:]] + [
+                padded(w("fc_feature"), K, K),
+                padded(w("sigma_layers.0.fc_layer"), Kh, K),
+                padded(wr0[:, :W], Kh, K)]]).to(torch.bfloat16).contiguous()
     if wpack.numel() != lay.n_w or bpack.numel() != lay.n_b:
         raise ValueError("state dict does not match a SiNeRF of "
                          f"{n_layers} layers")
@@ -356,11 +402,11 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     round_up(N, 128) rows (the kernel's row tile). Counts its kernel
     launches in `siren_mlp_fwd.launches`.
 
-    On the card both routes are hand-written kernels, chosen by width in
-    csrc/siren.cu fsnerf_siren_fwd: widths 64, 128 and 256 run the
-    warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), the other
-    widths (multiples of 32) the mma.sync one (siren_fwd_kernel); both
-    write the same acts layout.
+    On the card both routes are hand-written kernels, chosen by the packed
+    width in csrc/siren.cu fsnerf_siren_fwd: widths 64, 128, 192 and 256
+    run the warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel),
+    288 and 320 the mma.sync one (siren_fwd_kernel), a wider one raises
+    ValueError (SIREN_MAX_WIDTH); both write the same acts layout.
 
     Without acts the call runs as the registered op
     `torch.ops.fsnerf_torch.siren_mlp_fwd`, so a program that torch.export
@@ -387,8 +433,7 @@ def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
                       save_acts: bool):
     """One launch of csrc/siren.cu's forward on CUDA tensors: (out, acts
     or None)."""
-    _check_inputs("siren_mlp_fwd", x, d)
-    _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
+    _check_cuda_fwd(x, d, wpack, bpack, alphas, lay.width)
     from .build import load_library
 
     lib = load_library()
@@ -405,6 +450,16 @@ def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
     _launch_error(lib, err, "siren_mlp_fwd")
     siren_mlp_fwd.launches += 1
     return out, acts
+
+
+def _check_cuda_fwd(x, d, wpack, bpack, alphas, width: int):
+    """The forward launch's checks: inputs, one device, a packed width its
+    kernels take."""
+    _check_inputs("siren_mlp_fwd", x, d)
+    _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
+    err = siren_kernel_error(width, "forward")
+    if err is not None:
+        raise ValueError(f"siren_mlp_fwd: {err}")
 
 
 @torch.library.custom_op("fsnerf_torch::siren_mlp_fwd", mutates_args=(),
@@ -433,9 +488,9 @@ def _siren_fwd_fake(x, d, wpack, bpack, alphas, n_layers, width):
     """The output's shape, after the launch's checks."""
     _check_inputs("siren_mlp_fwd", x, d)
     if x.device.type == "cuda":
-        _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
+        _check_cuda_fwd(x, d, wpack, bpack, alphas, width)
     lay = SirenLayout(n_layers, width, ())
-    if width % 32 or wpack.numel() != lay.n_w or bpack.numel() != lay.n_b \
+    if wpack.numel() != lay.n_w or bpack.numel() != lay.n_b \
             or alphas.shape != (n_layers,):
         raise ValueError(f"siren_mlp_fwd: weights do not match a SiNeRF of "
                          f"{n_layers} layers of width {width}")
@@ -479,14 +534,14 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     launches in `siren_mlp_bwd.launches`.
 
     On the card the row pass has two routes, both hand-written kernels,
-    chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at widths 64,
-    128 and 256 (the main path's; at a depth whose bias partials fit in
-    its shared memory) runs the warp-specialized wgmma + TMA row pass
-    (siren_bwd_rows_ws_kernel); recompute mode, which holds its
-    factors in f32 by design and is not on the main path, and the other
-    widths (multiples of 32) run the mma.sync row pass
-    (siren_bwd_rows_kernel). The dW pass and the reduce are the same for
-    both."""
+    chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at the packed
+    widths 64, 128, 192 and 256 (the main path's; at a depth whose bias
+    partials fit in its shared memory) runs the warp-specialized wgmma +
+    TMA row pass (siren_bwd_rows_ws_kernel); recompute mode, which holds
+    its factors in f32 by design and is not on the main path, runs the
+    mma.sync row pass (siren_bwd_rows_kernel). The dW pass and the reduce
+    are the same for both. A packed width above 256 raises ValueError
+    (SIREN_MAX_WIDTH: the mma.sync row pass's shared memory)."""
     if x.device.type == "cpu":
         return siren_mlp_bwd_reference(x, d, dout, params, acts)
     if x.device.type != "cuda":
@@ -500,6 +555,9 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     if params.wtpack is None:
         raise ValueError("siren_mlp_bwd needs params packed "
                          "with_transposed=True")
+    err = siren_kernel_error(W, "backward")
+    if err is not None:
+        raise ValueError(f"siren_mlp_bwd: {err}")
     _check_device("siren_mlp_bwd", [x, d, dout, params.wpack, params.bpack,
                                     params.wtpack, params.alphas])
     recompute = acts is None

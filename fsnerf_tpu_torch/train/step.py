@@ -33,6 +33,7 @@ handed in (the tests hand it the JAX step's own).
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -112,35 +113,71 @@ def fused_kernels_wanted(cfg, device) -> bool:
     return bool(want)
 
 
-def nerf_kernels_take(cfg, device) -> bool:
-    """Whether the NeRF MLP kernels take cfg's architecture on `device`:
-    on the card the warp-specialized ones are built for the widths
-    ops/kernels/render.py::KERNEL_WIDTHS and encodings up to KERNEL_MAX_ENC
-    wide; on the CPU their plain versions take any width."""
+def kernels_refusal(cfg, device) -> Optional[str]:
+    """Why the card's kernels refuse cfg's architecture on `device`, or
+    None. They take every width up to 256 (packed at ops/kernels/render.py::
+    kernel_width) and encodings up to 256 wide, save at width 256 a
+    direction encoding over 128 (render.py::kernel_arch_error); a NeRF or
+    SiNeRF wider than 256 is refused (the NeRF trunk's accumulators, the
+    SIREN backward's shared memory: siren.py::SIREN_MAX_WIDTH). On the CPU
+    their plain versions take any architecture."""
     if torch.device(device).type != "cuda":
-        return True
+        return None
+    from ..ops.kernels.render import kernel_width
+
+    if cfg.model.model == "sinerf":
+        from ..ops.kernels.siren import siren_kernel_error
+
+        return siren_kernel_error(kernel_width(cfg.model.d_filter))
     from ..ops.kernels.mlp_train import TrainLayout
 
-    return TrainLayout(cfg.model.n_layers, tuple(cfg.model.skip),
-                       cfg.model.d_filter, cfg.encoder.n_freqs,
-                       cfg.encoder.n_freqs_views).kernel_error() is None
+    return TrainLayout.of_module(cfg.model.n_layers, cfg.model.skip,
+                                 cfg.model.d_filter, cfg.encoder.n_freqs,
+                                 cfg.encoder.n_freqs_views).kernel_error()
 
 
-def resolve_fused_kernel(cfg, device) -> bool:
-    """fused_kernels_wanted, for an architecture the kernels take: the
-    train kernels exist for view directions and a width that is a multiple
-    of 32, with the plain NeRF (a raw sigma head, a skip concat feeding a
-    trunk layer, and on the card nerf_kernels_take's widths) or SiNeRF
-    (its ReLU sigma head is built in); other configs resolve False and run
-    the module."""
+def kernels_take(cfg, device) -> bool:
+    """Whether the MLP kernels take cfg's architecture on `device`
+    (kernels_refusal gives no reason)."""
+    return kernels_refusal(cfg, device) is None
+
+
+def fused_architecture(cfg) -> bool:
+    """The JAX package's rule (fsnerf_tpu/train/step.py::
+    resolve_fused_kernel): fused train kernels exist for view directions
+    with the plain NeRF (a raw sigma head, a skip concat feeding a trunk
+    layer) or SiNeRF (its ReLU sigma head is built in), at any width."""
     skip = tuple(cfg.model.skip)
     ok_nerf = (cfg.model.model == "nerf"
                and cfg.model.density_activation == "none"
-               and (not skip or max(skip) < cfg.model.n_layers - 1)
-               and nerf_kernels_take(cfg, device))
-    ok = ((ok_nerf or cfg.model.model == "sinerf")
-          and not cfg.encoder.no_dirs and cfg.model.d_filter % 32 == 0)
-    return fused_kernels_wanted(cfg, device) and ok
+               and (not skip or max(skip) < cfg.model.n_layers - 1))
+    return ((ok_nerf or cfg.model.model == "sinerf")
+            and not cfg.encoder.no_dirs)
+
+
+def resolve_fused_kernel(cfg, device) -> bool:
+    """fused_kernels_wanted, for an architecture with fused kernels
+    (fused_architecture) that the kernels on `device` take (kernels_take);
+    other configs resolve False and run the module."""
+    return (fused_kernels_wanted(cfg, device) and fused_architecture(cfg)
+            and kernels_take(cfg, device))
+
+
+def report_module_route(cfg, device) -> Optional[str]:
+    """Print (to stderr) and return the one line that says a run on
+    `device` takes the module route where the JAX package would run its
+    kernels: fused kernels wanted for an architecture that has them, which
+    the card's kernels refuse (kernels_refusal). None otherwise."""
+    if not (fused_kernels_wanted(cfg, device) and fused_architecture(cfg)):
+        return None
+    why = kernels_refusal(cfg, device)
+    if why is None:
+        return None
+    line = (f"fsnerf_tpu_torch: {cfg.model.model} width "
+            f"{cfg.model.d_filter} trains and renders through the module on "
+            f"{torch.device(device)}: {why}")
+    print(line, file=sys.stderr, flush=True)
+    return line
 
 
 def make_masks(cfg, step, device=None):
@@ -169,6 +206,7 @@ def make_loss_fn(model, cfg, scene, device) -> Callable:
     if s_cfg.strategy not in ("occgrid", "hierarchical"):
         raise ValueError(f"unknown sampling strategy {s_cfg.strategy!r}")
     fused = None
+    report_module_route(cfg, device)
     if resolve_fused_kernel(cfg, device) and cfg.model.model == "sinerf":
         from ..ops.kernels.siren import make_fused_siren_model_fn
         fused = make_fused_siren_model_fn(cfg)

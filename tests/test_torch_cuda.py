@@ -5,14 +5,16 @@ Ray march (render.cu): rgb/opacity within 7e-3, depth within 3e-2, equal
 executed-step counts. Forward MLP (mlp.cu): rgb within 5e-3 and sigma
 within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
 for the three density activations, row counts that are not a multiple of
-the 128-row tile and each width the warp-specialized kernel takes (64,
-128, 256; width 96 refused); two runs bitwise equal. Train forward/backward (mlp_train.cu): rgb within
-5e-3 and sigma within 2e-2 of max |sigma| (the fused-MLP tolerances of
-tests/test_pallas.py), out and acts bitwise repeatable and acts within one
-bf16 step (plus 1e-3 of the largest) of the plain version's, the widths
-the kernels are not built for refused, every weight and bias gradient
-within 2e-2 of that tensor's max |plain gradient| (the kernels sum in another order, and each
-cotangent is rounded to bf16 before its products, so a rounding flip can
+the 128-row tile and each width the warp-specialized kernel is built for
+(64, 128, 192, 256; every width up to 256 is packed at the next of them
+with zero units, 320 refused by name); two runs bitwise equal. Train
+forward/backward (mlp_train.cu): rgb within 5e-3 and sigma within 2e-2 of
+max |sigma| (the fused-MLP tolerances of tests/test_pallas.py), out and
+acts bitwise repeatable and acts within one bf16 step (plus 1e-3 of the
+largest) of the plain version's, widths above 256 and at 256 a direction
+encoding over 128 refused, every weight and bias gradient within 2e-2 of
+that tensor's max |plain gradient| (the kernels sum in another order, and
+each cotangent is rounded to bf16 before its products, so a rounding flip can
 move a gradient by a bf16 step); gradients bitwise repeatable and bitwise
 equal between the saved-activations and recompute backwards. SIREN
 forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
@@ -20,22 +22,27 @@ forward/backward (siren.cu): rgb within 5e-3 and sigma within 2e-2 of max
 in each backward mode, and the two modes within 1e-2 of each other's max
 (they differ by design: the saved mode's derivative factors are bf16, the
 recompute's f32); each mode bitwise repeatable; the saved mode's
-warp-specialized row pass at widths 64, 128 and 256 (fed the
-warp-specialized forward's acts), and width 96 on the mma.sync row pass.
-The warp-specialized SIREN forward at widths 64, 128 and 256 also holds
+warp-specialized row pass at widths 64, 128, 192 and 256 (fed the
+warp-specialized forward's acts), recompute mode on the mma.sync row pass,
+which refuses widths above 256 by name (its shared memory). The
+warp-specialized SIREN forward at widths 64, 128, 192 and 256 also holds
 its acts stream to the plain version's (h_i within 3e-2, factors within
-0.25, each on at most 2% of the elements), bitwise repeatable; width 96
-runs the mma.sync forward. SIREN ray march (render.cu): the ray march's
-tolerances and equal executed-step counts, bitwise repeatable, at widths
-64, 128 and 256 (the warp-specialized march) and 96 (the mma.sync one). Density pass
+0.25, each on at most 2% of the elements), bitwise repeatable; width 320
+runs the mma.sync forward, 512 is refused by name. SIREN ray march
+(render.cu): the ray march's tolerances and equal executed-step counts,
+bitwise repeatable, at widths 64, 128, 192 and 256 (the warp-specialized
+march) and 320 (the mma.sync one). Kernels 1-8 at widths that are not
+their own (NeRF 40, 96, 200; SiNeRF 40, 100) and with encodings up to
+256 wide, the packed gradients' padded entries exactly 0. Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
-runs bitwise equal, at each width the warp-specialized kernel takes (64,
-128, 256; the NeRF march the same, over the block x chunk shapes the
-renderer admits), and both refuse width 96, where a CLI run trains through
-the module instead. Compositing (volrend.cu): rgb, opacity, depth, weights
-and trans_final within rtol 1e-5 and atol 1e-6 (tests/test_pallas.py's
-volrend tolerance) of ops/volrend.py::volume_render, taken of |want| for
+runs bitwise equal, at each width the warp-specialized kernel is built for
+(64, 128, 192, 256; the NeRF march the same, over the block x chunk shapes
+the renderer admits), and both refuse width 320, where a CLI run trains
+through the module instead and prints so. Compositing (volrend.cu): rgb,
+opacity, depth, weights and trans_final within rtol 1e-5 and atol 1e-6
+(tests/test_pallas.py's volrend tolerance) of ops/volrend.py::
+volume_render, taken of |want| for
 the weights and trans_final and of the magnitude of the terms for the sums
 over the samples (torch_parity.composite_excess: the kernel adds them in
 another order, and raw sigmas let a depth cancel far below its terms); two
@@ -143,7 +150,7 @@ def test_wrapper_counts_launches_and_validates(cuda):
         kr.ray_march(x_strided, *padded[1:], params, bR, cs)
 
 
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 @pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
 @pytest.mark.parametrize("K", [12, 48, 192])
 @pytest.mark.parametrize("block_rows,chunk_s", [(16, 8), (8, 8), (10, 4),
@@ -171,21 +178,27 @@ def test_nerf_march_matches_plain_over_blocks_and_chunks(
 
 
 def test_kernels_refuse_widths_they_are_not_built_for(cuda):
-    """The NeRF march and the density pass take widths 64, 128 and 256."""
-    sd = state_dict_from_jax(nerf_params_np(22, d_filter=96, **SMALL))
+    """The NeRF march and the density pass take every width up to 256
+    (packed at 64, 128, 192 or 256) and refuse 320 by name, launching
+    nothing."""
+    sd = state_dict_from_jax(nerf_params_np(22, d_filter=320, **SMALL))
     params = kr.prep_params(sd, **SMALL, device=cuda)
+    assert params.width == 320
     padded, bR, cs = kr.pad_for_march(*march_inputs(seed=5, R=16, K=16))
-    with pytest.raises(ValueError, match="take widths"):
+    before = (kr.ray_march.launches, km.nerf_density.launches)
+    with pytest.raises(ValueError, match="take widths up to 256"):
         kr.ray_march(*(p.to(cuda) for p in padded), params, bR, cs)
-    encx, dparams = _density_case(22, 96, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths"):
+    encx, dparams = _density_case(22, 320, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 256"):
         km.nerf_density(encx, dparams)
+    assert (kr.ray_march.launches, km.nerf_density.launches) == before
 
 
 def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
-    """--d_filter 96: the MLP routes resolve to the module on the card (no
-    train, density, march or forward-MLP kernel launches), and the run
-    trains and evaluates instead of raising."""
+    """--d_filter 320: the MLP routes resolve to the module on the card (no
+    train, density, march or forward-MLP kernel launches), the run prints
+    the one line that says so, and it trains and evaluates instead of
+    raising."""
     import json
 
     from fsnerf_tpu_torch import cli
@@ -193,14 +206,17 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     launches = (mt.mlp_train_fwd.launches, km.nerf_density.launches,
                 kr.ray_march.launches, km.nerf_mlp.launches)
     rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
-                   "--n_layers", "4", "--d_filter", "96", "--skip", "1",
+                   "--n_layers", "4", "--d_filter", "320", "--skip", "1",
                    "--grid_resolution", "16", "--n_samples", "64",
                    "--n_iters", "20", "--batch_size", "256", "--white_bkgd",
                    "--debug"])
     assert rc == 0
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    captured = capsys.readouterr()
+    out = json.loads(captured.out.strip().splitlines()[-1])
     assert out["steps"] == 20 and out["device"] != "cpu"
     assert out["psnr"] == out["psnr"] and out["rays_per_sec"] > 0
+    assert "nerf width 320 trains and renders through the module" in \
+        captured.err
     assert (mt.mlp_train_fwd.launches, km.nerf_density.launches,
             kr.ray_march.launches, km.nerf_mlp.launches) == launches
 
@@ -208,8 +224,8 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
 def _train_params(seed, width, arch, cuda, pos_mask=None, dir_mask=None):
     sd = {k: v.to(cuda) for k, v in state_dict_from_jax(
         nerf_params_np(seed, d_filter=width, **arch)).items()}
-    lay = mt.TrainLayout(arch["n_layers"], arch["skip"], width,
-                         arch["n_freqs"], arch["n_freqs_views"])
+    lay = mt.TrainLayout.of_module(arch["n_layers"], arch["skip"], width,
+                                   arch["n_freqs"], arch["n_freqs_views"])
     enc = kr.enc_table(lay.n_freqs, lay.n_freqs_views, True, pos_mask,
                        dir_mask, cuda)
     return mt.pack_train_params(sd, lay, enc)
@@ -316,22 +332,23 @@ def test_train_forward_matches_plain(cuda, arch, n, masked):
 
 
 def test_train_kernels_refuse_what_they_are_not_built_for(cuda):
-    """Widths other than 64, 128, 256 and encodings wider than 128 raise
-    before a launch, in the forward and in both backward modes."""
-    for width, spec in ((96, SMALL), (32, SMALL),
-                        (256, dict(FULL, n_freqs=24))):
+    """Widths above 256, and at width 256 a direction encoding wider than
+    128 (21 bands: 144), raise by name before a launch, in the forward and
+    in both backward modes."""
+    for width, spec in ((320, SMALL), (512, SMALL),
+                        (256, dict(FULL, n_freqs_views=21))):
         params = _train_params(12, width, spec, cuda)
         x, d, target = (a.to(cuda) for a in mlp_inputs(200, seed=7))
         dout = mse_cotangent(
             mt.mlp_train_fwd_reference(x, d, params)[0], target)
-        acts = torch.zeros((256, spec["n_layers"] * width),
+        acts = torch.zeros((256, spec["n_layers"] * params.layout.width),
                            dtype=torch.bfloat16, device=cuda)
         before = (mt.mlp_train_fwd.launches, mt.mlp_train_bwd.launches)
-        with pytest.raises(ValueError, match="train kernels take widths"):
+        with pytest.raises(ValueError, match="train kernels take widths up"):
             mt.mlp_train_fwd(x, d, params, save_acts=True)
-        with pytest.raises(ValueError, match="train kernels take widths"):
+        with pytest.raises(ValueError, match="train kernels take widths up"):
             mt.mlp_train_bwd(x, d, dout, params, None)
-        with pytest.raises(ValueError, match="train kernels take widths"):
+        with pytest.raises(ValueError, match="train kernels take widths up"):
             mt.mlp_train_bwd(x, d, dout, params, acts)
         assert (mt.mlp_train_fwd.launches,
                 mt.mlp_train_bwd.launches) == before
@@ -524,7 +541,7 @@ def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 393_216])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
     """The warp-specialized forward MLP at each width of NeRF 8 layers,
     skip (4,), n_freqs 10/4 (a 32-wide direction encoding), with and
@@ -539,9 +556,10 @@ def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
 
 
 def test_nerf_mlp_refuses_widths_it_is_not_built_for(cuda):
-    """nerf_mlp takes widths 64, 128 and 256, as the other NeRF kernels."""
-    encx, encd, params = _mlp_case(18, 96, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths"):
+    """nerf_mlp takes every width up to 256, as the other NeRF kernels,
+    and refuses 320 by name."""
+    encx, encd, params = _mlp_case(18, 320, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 256"):
         km.nerf_mlp(encx, encd, params)
 
 
@@ -634,7 +652,7 @@ def test_siren_wrappers_count_launches_and_validate(cuda):
 
 @pytest.mark.parametrize("n", [77, 8_264, 2 * mt.SPLIT_ROWS + 1_000,
                                196_608])
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 def test_siren_saved_backward_at_each_width(cuda, width, n):
     """The warp-specialized row pass (saved mode) at each width it is built
     for, SiNeRF 8 layers, up to the main path's 196,608 rows: every
@@ -646,16 +664,30 @@ def test_siren_saved_backward_at_each_width(cuda, width, n):
 
 
 def test_siren_width_96_runs_the_mma_row_pass(cuda):
-    """Width 96, which the warp-specialized row pass is not built for:
-    both modes on siren_bwd_rows_kernel, held as at the other widths."""
-    _check_siren(_siren_params(26, 4, 96, cuda), *_siren_inputs(1_000, 7,
-                                                                 cuda))
+    """Width 96, packed at 128: saved mode on the warp-specialized row
+    pass, recompute mode on the mma.sync one (siren_bwd_rows_kernel), held
+    as at the other widths. Above 256 the mma.sync row pass does not fit
+    in shared memory: width 320 raises by name in both modes, launching
+    nothing."""
+    params = _siren_params(26, 4, 96, cuda)
+    assert params.layout.width == 128
+    _check_siren(params, *_siren_inputs(1_000, 7, cuda))
+    wide = _siren_params(26, 4, 320, cuda)
+    x, d, target = _siren_inputs(300, 7, cuda)
+    out, acts = ks.siren_mlp_fwd(x, d, wide, save_acts=True)
+    dout = mse_cotangent(out, target)
+    before = ks.siren_mlp_bwd.launches
+    for a in (acts, None):
+        with pytest.raises(ValueError, match="takes widths up to 256"):
+            ks.siren_mlp_bwd(x, d, dout, wide, a)
+    assert ks.siren_mlp_bwd.launches == before
 
 
 @pytest.mark.parametrize("n", [8_264, 196_608])
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 def test_siren_forward_at_each_width(cuda, width, n):
-    """The warp-specialized forward (widths 64, 128, 256), SiNeRF 8 layers,
+    """The warp-specialized forward (widths 64, 128, 192, 256), SiNeRF 8
+    layers,
     at a ragged N and the main path's 196,608 rows: rgb within 5e-3 and
     sigma within 2e-2 of max |sigma|; the acts stream's h_i within 3e-2 and
     its factors within 0.25 (two bf16 steps at |a cos| in [16, 32)) of the
@@ -689,11 +721,13 @@ def test_siren_forward_at_each_width(cuda, width, n):
 
 
 def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
-    """Width 96, which the warp-specialized forward and march are not built
-    for: both run their mma.sync kernels (siren_fwd_kernel,
+    """Width 96 packs at 128 for the warp-specialized forward and march;
+    width 320, above them, runs their mma.sync kernels (siren_fwd_kernel,
     ray_march_kernel<SirenMarch>), each launch counted, held to the same
-    tolerances; the wrappers never route to the module."""
-    params = _siren_params(26, 4, 96, cuda)
+    tolerances; the wrappers never route to the module. Width 512 does not
+    fit their shared memory and raises by name, launching nothing."""
+    assert _siren_params(26, 4, 96, cuda).layout.width == 128
+    params = _siren_params(26, 4, 320, cuda)
     x, d, _ = _siren_inputs(1_000, 7, cuda)
     f0, m0 = ks.siren_mlp_fwd.launches, kr.siren_ray_march.launches
     out, _ = ks.siren_mlp_fwd(x, d, params)
@@ -703,9 +737,17 @@ def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
     scale = ref[:, 3].abs().max() + 1e-9
     assert (out[:, 3] - ref[:, 3]).abs().max() / scale < 2e-2
     padded, bR, cs = kr.pad_for_march(*march_inputs(seed=4, R=300, K=48))
-    _check_siren_march(tuple(p.to(cuda) for p in padded), params, bR, cs)
+    padded = tuple(p.to(cuda) for p in padded)
+    _check_siren_march(padded, params, bR, cs)
     assert ks.siren_mlp_fwd.launches == f0 + 1
     assert kr.siren_ray_march.launches == m0 + 2
+    wide = _siren_params(26, 4, 512, cuda)
+    with pytest.raises(ValueError, match="takes widths up to 320"):
+        ks.siren_mlp_fwd(x, d, wide)
+    with pytest.raises(ValueError, match="takes widths up to 320"):
+        kr.siren_ray_march(*padded, wide, bR, cs)
+    assert (ks.siren_mlp_fwd.launches,
+            kr.siren_ray_march.launches) == (f0 + 1, m0 + 2)
 
 
 def _check_siren_march(padded, params, bR, cs, eps=1e-4):
@@ -733,10 +775,10 @@ def test_siren_march_matches_plain_at_full_width(cuda, sigma_bias):
 
 
 @pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 def test_siren_march_at_each_width(cuda, width, sigma_bias):
-    """The warp-specialized march (widths 64, 128, 256), SiNeRF 8 layers,
-    300 rays (a ragged last block) x K 48: rgb/opacity within 7e-3, depth
+    """The warp-specialized march (widths 64, 128, 192, 256), SiNeRF 8
+    layers, 300 rays (a ragged last block) x K 48: rgb/opacity within 7e-3, depth
     within 3e-2, equal executed steps, bitwise repeatable; the saturating
     bias makes blocks exit early."""
     params = _siren_params(28, 8, width, cuda, sigma_bias)
@@ -783,6 +825,61 @@ def _density_case(seed, width, arch, n, cuda, pos_mask=None):
     return km.pad_features(ex, params.d_enc_pad), params
 
 
+def _band_mask(n_bands, cuda):
+    """Bands past 20 masked off: at 2^27 and above the polynomial sine of
+    the encodings (fastmath.py's, the TPU kernels') no longer holds |sin|
+    <= 1, so an encoding of 42 bands is finite only so."""
+    return torch.tensor([1.0] * min(n_bands, 20)
+                        + [0.0] * max(n_bands - 20, 0), device=cuda)
+
+
+@pytest.mark.parametrize("width,spec", [
+    (40, SMALL), (96, SMALL), (200, FULL), (256, dict(FULL, n_freqs=21)),
+    (192, dict(SMALL, n_freqs=42, n_freqs_views=42)),
+    (256, dict(SMALL, n_freqs=42, n_freqs_views=20))])
+def test_nerf_kernels_at_padded_widths(cuda, width, spec):
+    """Kernels 1 and 3-6 at widths that are not their own (packed at the
+    next of 64, 128, 192, 256 with zero units) and with encodings up to
+    256 wide, against their plain versions at the tolerances above; the
+    packed weight and bias gradients exactly 0 in every padded entry."""
+    pm, dm = _band_mask(spec["n_freqs"], cuda), \
+        _band_mask(spec["n_freqs_views"], cuda)
+    encx, encd, params = _mlp_case(31, width, spec, 3000, cuda, pm.cpu(),
+                                   dm.cpu())
+    assert params.width == kr.kernel_width(width)
+    _check_mlp(encx, encd, params, "none")
+    dens, dparams = _density_case(31, width, spec, 3000, cuda, pm)
+    got, ref = km.nerf_density(dens, dparams), \
+        km.nerf_density_reference(dens, dparams)
+    assert (got - ref).abs().max() / (ref.abs().max() + 1e-9) < 2e-2
+    tparams = _train_params(31, width, spec, cuda, pm, dm)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(3000, seed=3))
+    dw, db = _check_train(tparams, x, d, target)
+    lay = tparams.layout
+    ones = {k: torch.ones_like(v) for k, v in state_dict_from_jax(
+        nerf_params_np(31, d_filter=width, **spec)).items()}
+    wpad, bpad = kr.pack_weights(ones, lay.n_layers, lay.skip, lay.de,
+                                 lay.dd, lay.width)
+    assert (dw.cpu()[wpad.float() == 0] == 0).all()
+    assert (db.cpu()[bpad == 0] == 0).all()
+    sd = state_dict_from_jax(nerf_params_np(31, d_filter=width, **spec))
+    mparams = kr.prep_params(sd, **spec, pos_mask=pm.cpu(),
+                             dir_mask=dm.cpu(), device=cuda)
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=8, R=300, K=48))
+    _check(tuple(p.to(cuda) for p in padded), mparams, bR, cs)
+
+
+@pytest.mark.parametrize("width", [40, 100])
+def test_siren_kernels_at_padded_widths(cuda, width):
+    """Kernels 7, 8 (both modes) and 2 at widths that are not their own,
+    packed at 64 and 128: the tolerances above."""
+    params = _siren_params(32, 4, width, cuda)
+    assert params.layout.width == kr.kernel_width(width)
+    _check_siren(params, *_siren_inputs(3000, 9, cuda))
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=9, R=300, K=48))
+    _check_siren_march(tuple(p.to(cuda) for p in padded), params, bR, cs)
+
+
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
 @pytest.mark.parametrize("width,arch,n", [(256, FULL, 20_037),
                                          (64, SMALL, 77)])
@@ -807,7 +904,7 @@ def test_nerf_density_matches_plain(cuda, act, width, arch, n):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 262_144])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256])
 def test_nerf_density_matches_plain_at_each_width(cuda, width, act, n,
                                                  masked):
     """The warp-specialized density pass at each width of NeRF 8 layers,
@@ -1139,20 +1236,22 @@ def _graph_log(caplog):
 
 
 @pytest.mark.parametrize("case", ["occgrid", "sinerf", "hierarchical",
-                                  "width96"])
+                                  "width96", "width320"])
 def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     """300 steps of train() from CUDA-graph replays against the same run
     by eager steps, bitwise: the NeRF occgrid path through the warmup's
     all-cell refreshes and the four parts at both intervals, SiNeRF
     (its refresh on the module), the hierarchical path (its sorts and
-    scatters), and a width the kernels refuse (the module route, cuBLAS
-    in the graphs). The logged metrics and the kernels' launch counts are
-    the eager run's too."""
+    scatters), width 96 (the kernels at the packed width 128) and a width
+    the kernels refuse (320: the module route, cuBLAS in the graphs). The
+    logged metrics and the kernels' launch counts are the eager run's
+    too."""
     import logging
 
     cfg = {"occgrid": _graph_cfg(), "sinerf": _graph_cfg("sinerf"),
            "hierarchical": _graph_cfg(strategy="hierarchical"),
-           "width96": _graph_cfg(width=96)}[case]
+           "width96": _graph_cfg(width=96),
+           "width320": _graph_cfg(width=320)}[case]
     caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
     g, g_logs, g_launches = _train_run(cfg, cuda, graphs=None)
     rungs = _graph_log(caplog)
@@ -1161,7 +1260,7 @@ def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     assert g_logs == e_logs
     assert g_launches == e_launches
     assert rungs and not _graph_log(caplog)[len(rungs):]
-    if case == "width96":
+    if case == "width320":
         assert not any(g_launches[k] for k in (
             "mlp_train_fwd", "nerf_density", "siren_mlp_fwd"))
     elif case == "sinerf":
@@ -1384,9 +1483,10 @@ def test_export_roundtrip_on_the_card(cuda, tmp_path, model):
     assert (rgb == rgb_ref.cpu().numpy()).all()
     assert (depth == depth_ref.cpu().numpy()).all()
     if model == "nerf":
-        sd96 = state_dict_from_jax(nerf_params_np(3, d_filter=96, **SMALL))
+        sd320 = state_dict_from_jax(nerf_params_np(3, d_filter=320,
+                                                   **SMALL))
         wide = make_chunk_renderer(
-            km.make_fused_model_fn(sd96, **SMALL, device=cuda), **kw)
-        with pytest.raises(Exception, match="take widths"):
+            km.make_fused_model_fn(sd320, **SMALL, device=cuda), **kw)
+        with pytest.raises(Exception, match="take widths up to 256"):
             export.export_render_artifact(wide, chunk, str(tmp_path / "b"),
                                           hwf=hwf, near=2.0, far=6.0)

@@ -556,18 +556,21 @@ def test_train_step_matches_jax(jax_interpret_siren):
 
 
 def test_resolve_fused_kernel_and_weight_reg():
-    """SiNeRF takes the SIREN train kernels (view directions and a width
-    that is a multiple of 32); the weight regularizer selects the same
-    matrices as the JAX one (rtol 1e-5)."""
+    """SiNeRF takes the SIREN train kernels (view directions and, on the
+    card, a width up to 256, padded to the kernels' widths); the weight
+    regularizer selects the same matrices as the JAX one (rtol 1e-5)."""
     assert step.resolve_fused_kernel(CFG, "cpu")
     auto = CFG.replace(model=dataclasses.replace(CFG.model,
                                                  fused_kernel=None))
     assert step.resolve_fused_kernel(auto, "cuda")
     assert not step.resolve_fused_kernel(auto, "cpu")
-    for change in (dict(model=dataclasses.replace(CFG.model, d_filter=48)),
+    for change in (dict(model=dataclasses.replace(CFG.model, d_filter=320)),
                    dict(encoder=dataclasses.replace(CFG.encoder,
                                                     no_dirs=True))):
         assert not step.resolve_fused_kernel(CFG.replace(**change), "cuda")
+    assert step.resolve_fused_kernel(
+        CFG.replace(model=dataclasses.replace(CFG.model, d_filter=48)),
+        "cuda")
     params = sinerf_params_np(5)
     model = _model(5)
     for norm in ("l1", "l2"):

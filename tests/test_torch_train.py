@@ -385,9 +385,12 @@ def test_resolve_fused_kernel_by_device():
     on = cfg.replace(model=dataclasses.replace(cfg.model, fused_kernel=True))
     assert step.resolve_fused_kernel(on, "cpu")
     for change in (dict(density_activation="relu"), dict(skip=(7,)),
-                   dict(d_filter=48)):
+                   dict(d_filter=320)):
         off = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert not step.resolve_fused_kernel(off, "cuda")
+    # any width up to 256 (padded to the kernels' widths) takes them
+    odd = cfg.replace(model=dataclasses.replace(cfg.model, d_filter=48))
+    assert step.resolve_fused_kernel(odd, "cuda")
     with pytest.raises(ValueError):
         step.make_loss_fn(None, cfg.replace(sampling=dataclasses.replace(
             cfg.sampling, strategy="uniform")), SphereScene(1, 4), "cpu")
@@ -401,27 +404,32 @@ def _arch(cfg, **change):
                        encoder=dataclasses.replace(cfg.encoder, **enc))
 
 
-@pytest.mark.parametrize("change", [dict(d_filter=96), dict(d_filter=192),
-                                    dict(n_freqs=21)])
-def test_routes_refuse_what_the_card_kernels_refuse(change):
+@pytest.mark.parametrize("change", [dict(d_filter=320), dict(d_filter=512),
+                                    dict(n_freqs_views=21)])
+def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
     """On the card the NeRF MLP routes (train, density, march) resolve off
-    for an architecture the warp-specialized kernels refuse, so such a
-    config trains and evaluates through the module; the compositing kernel
+    only for what the kernels refuse by name: a width above 256, or at
+    width 256 a direction encoding wider than 128 (21 bands: 144 columns).
+    Such a config trains and evaluates through the module, and building
+    its step prints the one line that says so; the compositing kernel
     reads no weights and stays on; the CPU's plain versions take it."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.kernels.volrend import volume_render_fused
 
     _, base = _both()
     cfg = _arch(base, **change)
     assert not step.resolve_fused_kernel(cfg, "cuda")
-    assert not step.nerf_kernels_take(cfg, "cuda")
+    assert not step.kernels_take(cfg, "cuda")
     assert step.resolve_fused_kernel(_arch(cfg, fused_kernel=True), "cpu")
-    with pytest.raises(ValueError, match="train kernels take widths"):
+    with pytest.raises(ValueError, match="train kernels take widths up to"):
         mt.TrainLayout.from_config(cfg)
-    with pytest.raises(ValueError, match="train kernels take widths"):
+    with pytest.raises(ValueError, match="train kernels take widths up to"):
         mt.TrainLayout.from_config(cfg, "cuda")
-    assert mt.TrainLayout.from_config(cfg, "cpu").width == cfg.model.d_filter
+    lay = mt.TrainLayout.from_config(cfg, "cpu")
+    assert lay.model_width == cfg.model.d_filter
+    assert lay.width == kr.kernel_width(cfg.model.d_filter)
     model = make_model(cfg, torch.float32, torch.Generator().manual_seed(0))
     assert cli.make_fused_render_fn(model.state_dict(), cfg,
                                     device="cuda") is None
@@ -433,18 +441,71 @@ def test_routes_refuse_what_the_card_kernels_refuse(change):
     sigma = step.make_density_fn(model, cfg, device="cuda")(x)
     with torch.no_grad():
         torch.testing.assert_close(sigma, model(x)[..., 0], rtol=0, atol=0)
+    capsys.readouterr()
+    line = step.report_module_route(cfg, "cuda")
+    err = capsys.readouterr().err
+    assert line is not None and line in err and "through the module" in line
+    assert f"width {cfg.model.d_filter}" in line
+    assert step.report_module_route(cfg, "cpu") is None
 
 
-@pytest.mark.parametrize("width", [64, 128, 256])
-def test_routes_take_the_card_kernels_widths(width):
+@pytest.mark.parametrize("width", [32, 40, 64, 96, 128, 192, 200, 256])
+def test_routes_take_the_card_kernels_widths(width, capsys):
+    """Every NeRF width up to 256 resolves to the kernels on the card,
+    packed at the next of render.py::KERNEL_WIDTHS, and prints nothing."""
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
 
     _, base = _both()
     cfg = _arch(base, d_filter=width)
     assert step.resolve_fused_kernel(cfg, "cuda")
-    assert step.nerf_kernels_take(cfg, "cuda")
-    assert mt.TrainLayout.from_config(cfg).width == width
+    assert step.kernels_take(cfg, "cuda")
+    lay = mt.TrainLayout.from_config(cfg)
+    assert (lay.width, lay.model_width) == (kr.kernel_width(width), width)
+    assert lay.width in kr.KERNEL_WIDTHS
     assert not step.resolve_fused_kernel(cfg, "cpu")
+    capsys.readouterr()
+    assert step.report_module_route(cfg, "cuda") is None
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("change", [
+    dict(n_freqs=21), dict(n_freqs=42, n_freqs_views=20),
+    dict(d_filter=192, n_freqs=42, n_freqs_views=42),
+    dict(d_filter=40, n_freqs=42, n_freqs_views=42)])
+def test_routes_take_encodings_up_to_256_wide(change):
+    """Position and direction encodings up to 256 wide (42 bands) resolve
+    to the kernels on the card, at width 256 with a direction encoding up
+    to 128 wide (20 bands)."""
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+
+    _, base = _both()
+    cfg = _arch(base, **change)
+    assert step.resolve_fused_kernel(cfg, "cuda")
+    lay = mt.TrainLayout.from_config(cfg, "cuda")
+    assert max(lay.de, lay.dd) <= 256
+
+
+@pytest.mark.parametrize("width,takes", [(40, True), (100, True),
+                                         (192, True), (256, True),
+                                         (320, False), (512, False)])
+def test_sinerf_routes_by_width(width, takes, capsys):
+    """A SiNeRF up to 256 wide resolves to the SIREN kernels on the card
+    (packed at the next kernel width); above 256 the backward's shared
+    memory refuses it, and the module route is printed."""
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    _, base = _both(model=dict(model="sinerf", n_layers=4, d_filter=width))
+    assert step.resolve_fused_kernel(base, "cuda") == takes
+    if not takes:
+        assert cli.make_fused_render_fn({}, base, device="cuda") is None
+    capsys.readouterr()
+    line = step.report_module_route(base, "cuda")
+    assert (line is None) == takes
+    if not takes:
+        assert "SIREN backward kernel takes widths up to 256" in line
+        assert line in capsys.readouterr().err
+    assert ks.SirenLayout.from_config(base).model_width == width
 
 
 def test_cli_trains_and_evaluates_small(capsys):
