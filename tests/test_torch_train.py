@@ -486,9 +486,9 @@ def test_routes_take_encodings_up_to_256_wide(change):
     assert max(lay.de, lay.dd) <= 256
 
 
-@pytest.mark.parametrize("width,takes", [(40, True), (100, True),
-                                         (192, True), (256, True),
-                                         (320, False), (512, False)])
+@pytest.mark.parametrize("width,takes", [
+    (32, True), (40, True), (96, True), (100, True), (192, True),
+    (200, True), (256, True), (320, False), (512, False)])
 def test_sinerf_routes_by_width(width, takes, capsys):
     """A SiNeRF up to 256 wide resolves to the SIREN kernels on the card
     (packed at the next kernel width); above 256 the backward's shared
