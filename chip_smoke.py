@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; nothing is caught):
      steps, a held-out eval and a hierarchical frame must launch the
      warp-specialized SIREN forward, march and backward row pass (the
      routes phases 10-13 take);
- 2b. the same at NeRF 8 x 192 and 8 x 200 (packed at 256: a module's width
-     up to 256 is laid out at the next of the kernels' widths 64, 128, 192,
-     256 with zero units, ops/kernels/render.py::kernel_width): 20 train
+ 2b. the same at NeRF 8 x 192, 8 x 200 (packed at 256: a NeRF module's
+     width up to 512 is laid out at the next of the kernels' widths 64,
+     128, 192, 256, 384, 512 with zero units, ops/kernels/render.py::
+     nerf_kernel_width) and 8 x 512 (the column-split kernels): 20 train
      steps of the occgrid slice and a held-out view must launch
      mlp_train_fwd_kernel, nerf_density_kernel and nerf_march_kernel at
      the packed width and kernel 6's row and dW passes, and call no NeRF
@@ -166,30 +167,36 @@ Phases (any failure exits non-zero; nothing is caught):
      generator, the launches), and on the trained weights kernel 1 on a
      val view's NDC samples and kernel 4 on each level's cell centres
      against their plain versions (phase 3's and 14's tolerances);
- 19. the kernels at every width up to 256:
-     a. NeRF 8 layers, skip 4, seeded weights, at widths 40, 96, 192 and
-        200 (n_freqs 10/4) and 256 with n_freqs 21 (a 129-wide encoding):
+ 19. the kernels at every width up to 512:
+     a. NeRF 8 layers, skip 4, seeded weights, at widths 40, 96, 192,
+        200, 300 (packed 384) and 512 (n_freqs 10/4) and 256 and 512 with
+        n_freqs 21 (a 129-wide encoding):
         kernel 1 on phase 3's march inputs (its tolerances, equal executed
         steps), kernel 3 at one validation chunk's 393,216 rows and kernel
         4 at one og.update launch's 262,144 (phase 7's and 14's
         tolerances), kernels 5 and 6 at 196,608 rows (phase 5's, saved ==
         recompute bitwise), launch counts from 0; each kernel's CUDA-event
         time beside its plain version's and its bound at the module's own
-        width (the padded work is the kernel's cost);
+        width (the padded work is the kernel's cost), at 300 and 512 also
+        the bf16 module's time on the same rows; ptxas's registers and
+        spills of every 384 and 512 instance and of kernel 6's 64-row row
+        pass;
      b. SiNeRF 8 layers at 40, 100, 192: kernels 7, 8 (both modes) and 2
         against their plain versions (phase 10's and 11's tolerances); at
         320 the mma.sync forward and march held the same way and the
         backward refused by name (ValueError: its shared memory); at 512
-        the forward and the march refused by name, and a NeRF and a
-        SiNeRF of 512 resolve to the module with the printed line;
-        ptxas's registers and spills of every width-192 instance;
+        the forward and the march refused by name, and a SiNeRF of 512
+        and a NeRF of 600 resolve to the module with the printed line, a
+        NeRF of 512 to the kernels; ptxas's registers and spills of every
+        width-192 instance;
      c. the occgrid training slice (1,500 graphed steps, held-out views) at
-        8 x 192 and 8 x 200 through the kernels (counts from 0: kernels 5
-        and 6 once per step, kernel 4 at every refresh, kernel 1 in the
-        eval; no NeRF module call), then the same run through the module
-        (fused_kernel and fused_render off, the route these widths took
-        before the kernels took them): steps/s and held-out PSNR side by
-        side, each at least 5 dB above the untrained weights';
+        8 x 192, 8 x 200 and 8 x 512 through the kernels (counts from 0:
+        kernels 5 and 6 once per step, kernel 4 at every refresh, kernel 1
+        in the eval; no NeRF module call), then the same run through the
+        module (fused_kernel and fused_render off, the route these widths
+        took before the kernels took them): steps/s and held-out PSNR side
+        by side, each at least 5 dB above the untrained weights', at 512
+        the two within 1 dB;
  20. the data-parallel layer (parallel/) at the training slice's full
      width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
      the 8-view 128x128 sphere):
@@ -1183,15 +1190,16 @@ def hier_train_slice(cfg, dev, card):
     return launches
 
 
-def module_routes(cfg, dev, march_padded):
+def module_routes(cfg, dev, march_padded, model=None):
     """Phase 14: the bf16 NeRF module (cuBLAS GEMMs) on each kernel's rows:
     the ray march's points + volume_render, and the train kernels' 196,608
     rows forward and backward. Returns ms by kernel name."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.volrend import volume_render
 
-    model = make_model(cfg, torch.bfloat16,
-                       torch.Generator().manual_seed(3), dev)
+    if model is None:
+        model = make_model(cfg, torch.bfloat16,
+                           torch.Generator().manual_seed(3), dev)
     x, dirs, t, deltas, mask = march_padded
     with torch.no_grad():
         def march():
@@ -3055,20 +3063,26 @@ def jpeg_phase(card, root, png_psnr):
     print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 19. the kernels at every width up to 256 ------------------------------
+# -- 19. the kernels at every width up to 512 ------------------------------
 #
-# A module's width up to 256 is packed at the next of the kernels' widths
-# 64, 128, 192, 256 (ops/kernels/render.py::kernel_width) with zero units.
-# NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200 (8 layers, skip 4,
-# n_freqs 10/4) and at 256 with n_freqs 21 (a 129-wide encoding); SiNeRF:
-# kernels 2, 7, 8 at 40, 100, 192 (8 layers), and above 256 the mma.sync
-# forward and march at 320, every kernel refusing 512 by name (and the
-# backward 320).
+# A NeRF module's width up to 512 is packed at the next of the kernels'
+# widths 64, 128, 192, 256, 384, 512 (ops/kernels/render.py::
+# nerf_kernel_width; 384 and 512 on the column-split trunk) with zero
+# units, a SiNeRF's up to 256 at the next of 64 ... 256 (kernel_width).
+# NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512 (8 layers,
+# skip 4, n_freqs 10/4) and at 256 and 512 with n_freqs 21 (a 129-wide
+# encoding); SiNeRF: kernels 2, 7, 8 at 40, 100, 192 (8 layers), and above
+# 256 the mma.sync forward and march at 320, every kernel refusing 512 by
+# name (and the backward 320).
 WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
-              (256, {"n_freqs": 21}))
+              (256, {"n_freqs": 21}), (300, {}), (512, {}),
+              (512, {"n_freqs": 21}))
 WIDTH_SIREN = (40, 100, 192, 320)
-WIDTH_TRAIN = (192, 200)              # 19c: training runs at 8 x W
+WIDTH_TRAIN = (192, 200, 512)         # 19c: training runs at 8 x W
 WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
+# 19c at 8 x 512: the held-out PSNR of the kernels' run against the
+# module's (the same function, bf16 rounded in other places)
+WIDE_PSNR_TOL_DB = 1.0
 
 
 def width_cfg(cfg, width, **encoder):
@@ -3103,10 +3117,10 @@ class ModuleCalls:
 
 def width_routes(cfg, dev, card):
     """Phase 2b, after the build (as siren_routes, for the profiler): at 8 x
-    192 and 8 x 200 (padded to 256), WIDTH_ROUTE_STEPS train steps of the
-    occgrid slice and the held-out eval of one view must launch kernels 5,
-    6, 4 and 1 at the packed width (mlp_train_fwd_kernel<W>, the row pass
-    and dW pass of mlp_train_bwd, nerf_density_kernel<W>,
+    192, 8 x 200 (padded to 256) and 8 x 512, WIDTH_ROUTE_STEPS train steps
+    of the occgrid slice and the held-out eval of one view must launch
+    kernels 5, 6, 4 and 1 at the packed width (mlp_train_fwd_kernel<W>,
+    the row pass and dW pass of mlp_train_bwd, nerf_density_kernel<W>,
     nerf_march_kernel<W>) and call no NeRF module."""
     import dataclasses
 
@@ -3145,7 +3159,7 @@ def width_routes(cfg, dev, card):
                 f"8 x {W}", run, ("mlp_train_fwd_kernel",
                                   "nerf_density_kernel",
                                   "nerf_march_kernel"),
-                kr.kernel_width(W), plain=NERF_BWD_PARTS)
+                kr.nerf_kernel_width(W), plain=NERF_BWD_PARTS)
         gemms = sorted(k for k in seen if re.search(
             r"gemm|xmma|nvjet|cutlass", k) and "dw_gemm_kernel" not in k)
         print(f"2b. width {W}: NeRF module calls {calls.calls}; other GEMM "
@@ -3155,11 +3169,12 @@ def width_routes(cfg, dev, card):
                  f"{calls.calls} times")
 
 
-def nerf_width_case(cfg, dev, march_in):
+def nerf_width_case(cfg, dev, march_in, module=False):
     """19a: kernels 1 and 3-6 of a NeRF of cfg's architecture (seeded
     weights) against their plain versions at the main path's shapes, each
     launch counted from 0. Returns (width packed, {kernel: (ms, plain ms,
-    bound dict, max err)})."""
+    bound dict, max err)}, launches, {kernel: the bf16 module's ms on the
+    same rows} with `module`, else {})."""
     from fsnerf_tpu_torch.core.encoding import positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp as km
@@ -3272,7 +3287,15 @@ def nerf_width_case(cfg, dev, march_in):
                 "mlp_train_bwd": mt.mlp_train_bwd.launches}
     if min(launches.values()) == 0:
         fail(f"19a. width {W}: a kernel never launched: {launches}")
-    return rp.width, out, launches
+    module_ms = {}
+    if module:
+        # the nearest cuBLAS route: the bf16 module on each kernel's rows
+        # (the march's: every sample of phase 3's inputs, as module_routes)
+        module_ms = module_routes(cfg, dev, padded, model)
+        with torch.no_grad():
+            module_ms["nerf_mlp"] = cuda_ms(lambda: model(x, d), 3)
+            module_ms["nerf_density"] = cuda_ms(lambda: model(x[:nd]), 3)
+    return rp.width, out, launches, module_ms
 
 
 def siren_width_case(cfg, dev, march_in):
@@ -3381,11 +3404,13 @@ def siren_width_case(cfg, dev, march_in):
     return K, out, launches, refused
 
 
-def width_line(out) -> str:
+def width_line(out, module_ms=None) -> str:
     return "; ".join(
-        f"{k} {v[0]:.3f} ms (plain {v[1]:.3f}, bound {v[2]['bound_ms']:.3f} "
-        f"by {v[2]['bound_by']}, share {v[2]['bound_ms'] / v[0]:.3f}, err "
-        f"{v[3]:.2e})" for k, v in out.items())
+        f"{k} {v[0]:.3f} ms (plain {v[1]:.3f}, "
+        + (f"bf16 module {module_ms[k]:.3f}, " if module_ms else "")
+        + f"bound {v[2]['bound_ms']:.3f} by {v[2]['bound_by']}, share "
+        f"{v[2]['bound_ms'] / v[0]:.3f}, err {v[3]:.2e})"
+        for k, v in out.items())
 
 
 def width_kernels(cfg, dev, card, log, march_in):
@@ -3394,12 +3419,27 @@ def width_kernels(cfg, dev, card, log, march_in):
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.train import step
 
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
     for W, enc in WIDTH_NERF:
         wcfg = width_cfg(cfg, W, **enc)
-        K, out, launches = nerf_width_case(wcfg, dev, march_in)
+        split = kr.nerf_kernel_width(W) in kr.SPLIT_WIDTHS
+        K, out, launches, module_ms = nerf_width_case(wcfg, dev, march_in,
+                                                      module=split)
         print(f"19a. NeRF 8 x {W} (packed {K}), n_freqs "
               f"{wcfg.encoder.n_freqs}/{wcfg.encoder.n_freqs_views} on "
-              f"{card}: {width_line(out)}; launches {launches}")
+              f"{card}: {width_line(out, module_ms)}; launches {launches}")
+    print("19a. the width-384 and 512 instances and kernel 6's 64-row row "
+          "pass:\n" + "\n".join(
+              line for name, widths in (
+                  ("nerf_march_kernel", kr.SPLIT_WIDTHS),
+                  ("nerf_mlp_kernel", kr.SPLIT_WIDTHS),
+                  ("nerf_density_kernel", kr.SPLIT_WIDTHS),
+                  ("mlp_train_fwd_kernel", kr.SPLIT_WIDTHS),
+                  ("mlp_train_bwd_rows_kernel", (64,)))
+              for line in ptxas_of(log, name).splitlines()
+              if any(f"{name}<{w}>" in line for w in widths)
+              and ("Used" in line or "spill stores" in line)))
     for W in WIDTH_SIREN:
         scfg = sinerf_config(width_cfg(cfg, W))
         K, out, launches, refused = siren_width_case(scfg, dev, march_in)
@@ -3411,20 +3451,24 @@ def width_kernels(cfg, dev, card, log, march_in):
         if refused != want:
             fail(f"19b. SiNeRF width {W}: refused {refused}, not {want}")
     # 512: every SIREN kernel refuses by name; the run takes the printed
-    # module route
+    # module route. A NeRF of 512 resolves to the kernels, one of 600 to
+    # the printed module route.
     scfg = sinerf_config(width_cfg(cfg, 512))
     K, out, launches, refused = siren_width_case(scfg, dev, march_in)
     if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
         fail(f"19b. SiNeRF width 512: ran {list(out)}, refused {refused}")
     line = step.report_module_route(scfg, dev)
-    nerf512 = width_cfg(cfg, 512)
-    line_nerf = step.report_module_route(nerf512, dev)
+    nerf512, nerf600 = width_cfg(cfg, 512), width_cfg(cfg, 600)
+    line_512 = step.report_module_route(nerf512, dev)
+    line_nerf = step.report_module_route(nerf600, dev)
     if line is None or step.resolve_fused_kernel(scfg, dev) or \
-            line_nerf is None or step.resolve_fused_kernel(nerf512, dev):
-        fail("width 512 did not take the printed module route")
+            line_nerf is None or step.resolve_fused_kernel(nerf600, dev):
+        fail("SiNeRF 512 or NeRF 600 did not take the printed module route")
+    if line_512 is not None or not step.resolve_fused_kernel(nerf512, dev):
+        fail(f"NeRF 512 did not resolve to the kernels: {line_512}")
     print(f"19b. width 512: SIREN forward and march refused by name, the "
-          f"backward never reached; the route prints: {line}; NeRF: "
-          f"{line_nerf}")
+          f"backward never reached; the route prints: {line}; NeRF 512 "
+          f"resolves to the kernels; NeRF 600: {line_nerf}")
     print("19b. the width-192 instances:\n" + "\n".join(
         line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
                           "nerf_density_kernel", "mlp_train_fwd_kernel",
@@ -3435,12 +3479,13 @@ def width_kernels(cfg, dev, card, log, march_in):
 
 def width_train_slices(cfg, dev, card):
     """Phase 19c: the occgrid training slice (1,500 graphed steps, the
-    8-view 128x128 sphere, then the held-out views) at 8 x 192 and 8 x
-    200 (packed at 256) through the kernels, launch counts set to 0 before
-    and read after, no NeRF module call; then the same run through the
-    module (cfg.model.fused_kernel and fused_render off: the route the
-    parent took at these widths): steps/s and held-out PSNR side by
-    side."""
+    8-view 128x128 sphere, then the held-out views) at 8 x 192, 8 x 200
+    (packed at 256) and 8 x 512 (the column-split kernels) through the
+    kernels, launch counts set to 0 before and read after, no NeRF module
+    call; then the same run through the module (cfg.model.fused_kernel and
+    fused_render off: the route these widths took before the kernels took
+    them): steps/s and held-out PSNR side by side, at 512 within
+    WIDE_PSNR_TOL_DB."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3489,6 +3534,11 @@ def width_train_slices(cfg, dev, card):
             if not losses[-1] < losses[0] or \
                     got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
                 fail(f"19c. 8 x {W} ({route}): did not train")
+        if kr.nerf_kernel_width(W) in kr.SPLIT_WIDTHS and abs(
+                res["kernels"][1] - res["module"][1]) > WIDE_PSNR_TOL_DB:
+            fail(f"19c. 8 x {W}: held-out PSNR {res['kernels'][1]:.3f} "
+                 f"through the kernels, {res['module'][1]:.3f} through the "
+                 f"module")
         k_launch, m_launch = res["kernels"][2], res["module"][2]
         want_density = refresh_launches(kcfg, state.grid.n_cells,
                                         TRAIN_STEPS)
@@ -3645,7 +3695,7 @@ def main():
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
-    # -- 19. the kernels at every width up to 256 --------------------------
+    # -- 19. the kernels at every width up to 512 --------------------------
     width_kernels(cfg, dev, card, built.log, (padded, bR, cs))
     width_train_slices(cfg, dev, card)
 

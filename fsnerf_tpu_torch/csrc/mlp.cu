@@ -29,6 +29,11 @@
 // sin/cos and the FreeNeRF band mask applied by the caller), unlike the
 // ray march and the train forward, which encode inside with a polynomial
 // sin; sigma raw, ReLU or exp(clip(., -15, 15)).
+//
+// At the packed widths 384 and 512 (~4.6 MFLOP a row at 8 x 512) both
+// kernels run ws_trunk.cuh's column-split trunk instead (mlp_rows_split):
+// one consumer warpgroup of 64 rows per CTA, every layer as two column
+// halves, the same numerics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,16 +137,101 @@ __device__ __forceinline__ void mlp_rows(const CUtensorMap* map_w,
   }
 }
 
+// mlp_rows at a split width (FwdTraits<W>::kSplit): one CTA's 64 rows on
+// one consumer warpgroup, the column-split trunk, connection and branch.
+template <int W, bool kHeads>
+__device__ __forceinline__ void mlp_rows_split(const CUtensorMap* map_w,
+                                               const CUtensorMap* map_br,
+                                               const CUtensorMap* map_x,
+                                               const CUtensorMap* map_d,
+                                               const MlpArgs& a,
+                                               int n_stages,
+                                               unsigned char* smem_raw) {
+  using T = FwdTraits<W>;
+  constexpr int NB = head_n(W);
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nbx = enc_blocks(a.d_enc_pad), nbd = enc_blocks(a.d_dir_pad);
+  unsigned char* act = ring + n_stages * T::kStageBytes;
+  unsigned char* encx = act + T::kActBytes;
+  unsigned char* encd = encx + nbx * kBlock;
+  uint64_t* full = reinterpret_cast<uint64_t*>(encd + nbd * kBlock);
+  uint64_t* empty = full + n_stages;
+  uint64_t* loaded = empty + n_stages;
+  fwd_init_barriers(full, empty, n_stages, loaded, 1, 1);
+  __syncthreads();
+  const FwdShape sh{a.n_layers, a.skip_mask, a.d_enc_pad, a.d_dir_pad};
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      produce_pass_split<W, NB>(map_w, map_br, sh, kHeads, ring, full,
+                                empty, n_stages, it, nullptr);
+    }
+    return;
+  }
+  const int t = threadIdx.x, lane = t & 31;
+  const int row0 = blockIdx.x * T::kCtaRows;
+  const int bar = 1;
+  SplitActs<W> tiles(act);
+  FwdRing r{smem_u32(ring), T::kStageBytes, full, empty, n_stages, 0,
+            t == 0};
+  if (r.lead) {
+    mbar_arrive_expect_tx(loaded, (nbx + nbd) * kBlock);
+    for (int q = 0; q < nbx; ++q)
+      tma_load_2d(encx + q * kBlock, map_x, loaded, 64 * q, row0);
+    for (int q = 0; q < nbd; ++q)
+      tma_load_2d(encd + q * kBlock, map_d, loaded, 64 * q, row0);
+  }
+  mbar_wait(loaded, 0);
+  const int L = a.n_layers;
+  const bf16* w_sigma =
+      a.wpack + (size_t)trunk_rows_of(L, a.skip_mask, W, a.d_enc_pad) * W;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  float sig[2] = {0.f, 0.f};
+  {
+    float acc[W / 4];
+    fwd_trunk_split<W>(acc, r, tiles, smem_u32(encx), sh, a.bpack, w_sigma,
+                       sig, bar, nullptr, row0);
+    const float b_sigma = a.bpack[L * W];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sig[h] = density_activate(quad_sum(sig[h]) + b_sigma, a.density_act);
+    if (!kHeads) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = row0 + quad_row + 8 * h;
+        if ((lane & 3) == 0 && g < a.N) a.out[g] = sig[h];
+      }
+      return;
+    }
+    fwd_conn_split<W>(acc, r, tiles, a.bpack + L * W + 1, bar);
+  }
+  float rgb[2][3];
+  fwd_branch_split<W, NB>(r, tiles, smem_u32(encd), a.d_dir_pad,
+                          w_sigma + W, a.bpack + L * W + 1, rgb);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+    if ((lane & 3) == 0 && g < a.N)
+      reinterpret_cast<float4*>(a.out)[g] =
+          make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sig[h]);
+  }
+}
+
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
     nerf_mlp_kernel(const __grid_constant__ CUtensorMap map_w,
                     const __grid_constant__ CUtensorMap map_br,
                     const __grid_constant__ CUtensorMap map_x,
                     const __grid_constant__ CUtensorMap map_d, MlpArgs a,
                     int n_stages) {
   extern __shared__ unsigned char mlp_smem_raw[];
-  mlp_rows<W, true>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
-                    mlp_smem_raw);
+  if constexpr (FwdTraits<W>::kSplit)
+    mlp_rows_split<W, true>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
+                            mlp_smem_raw);
+  else
+    mlp_rows<W, true>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
+                      mlp_smem_raw);
 }
 
 // The density pass: trunk and sigma head only (no connection, branch or rgb
@@ -159,15 +249,19 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 // out[N]. Numerics: the trunk's and sigma head's of ws_trunk.cuh; sigma
 // raw, ReLU or exp(clip(., -15, 15)).
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
     nerf_density_kernel(const __grid_constant__ CUtensorMap map_w,
                         const __grid_constant__ CUtensorMap map_br,
                         const __grid_constant__ CUtensorMap map_x,
                         const __grid_constant__ CUtensorMap map_d,
                         MlpArgs a, int n_stages) {
   extern __shared__ unsigned char density_smem_raw[];
-  mlp_rows<W, false>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
-                     density_smem_raw);
+  if constexpr (FwdTraits<W>::kSplit)
+    mlp_rows_split<W, false>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
+                             density_smem_raw);
+  else
+    mlp_rows<W, false>(&map_w, &map_br, &map_x, &map_d, a, n_stages,
+                       density_smem_raw);
 }
 
 // nerf_mlp_kernel<W> (kHeads) or nerf_density_kernel<W> on `st`: the
@@ -185,7 +279,8 @@ cudaError_t launch_mlp_w(const MlpArgs& a, const bf16* encx,
        !encode_bf16_map(&map_d, encd, a.N, a.d_dir_pad, a.d_dir_pad, 64)))
     return cudaErrorInvalidValue;
   if (!kHeads) map_br = map_d = map_w;             // unread
-  const size_t extra = kFwdConsumers * sizeof(uint64_t);
+  using T = FwdTraits<W>;
+  const size_t extra = T::kConsumers * sizeof(uint64_t);
   const int n_stages = fwd_stages(W, a.d_enc_pad, a.d_dir_pad, extra);
   if (n_stages == 0) return cudaErrorInvalidValue;
   const size_t smem =
@@ -194,7 +289,7 @@ cudaError_t launch_mlp_w(const MlpArgs& a, const bf16* encx,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<(a.N + kRows - 1) / kRows, kFwdThreads, smem, st>>>(
+  kernel<<<(a.N + T::kCtaRows - 1) / T::kCtaRows, T::kThreads, smem, st>>>(
       map_w, map_br, map_x, map_d, a, n_stages);
   return cudaGetLastError();
 }
@@ -220,6 +315,12 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
     case 256:
       return static_cast<int>(
           launch_mlp_w<256, kHeads>(a, x, d, trunk_rows, st));
+    case 384:
+      return static_cast<int>(
+          launch_mlp_w<384, kHeads>(a, x, d, trunk_rows, st));
+    case 512:
+      return static_cast<int>(
+          launch_mlp_w<512, kHeads>(a, x, d, trunk_rows, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -234,9 +335,9 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
 // The forward MLP (ops/kernels/mlp.py::nerf_mlp): out [n_rows, 4]. Takes
-// width 64, 128, 192 or 256, d_enc_pad a multiple of 64 and d_dir_pad of
-// 16, both up to kMaxEnc (256) and at width 256 together up to 6 blocks of
-// 64 (render.py::kernel_arch_error); trunk_rows must be the rows of wpack's [rows, width] view
+// width 64, 128, 192, 256, 384 or 512, d_enc_pad a multiple of 64 and
+// d_dir_pad of 16, both up to kMaxEnc (256) and at width 256 together up
+// to 6 blocks of 64 (render.py::kernel_arch_error); trunk_rows must be the rows of wpack's [rows, width] view
 // (the trunk, w_sigma and w_conn: mlp_train.py::TrainLayout.wpack_views),
 // the branch's [width + d_dir_pad, width / 2] view following it.
 extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
@@ -265,7 +366,8 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
 
 // The density pass (ops/kernels/mlp.py::nerf_density): the same packed
 // weights, walked only through the sigma head; out [n_rows]. Takes width
-// 64, 128, 192 or 256 and d_enc_pad a multiple of 64 up to kMaxEnc;
+// 64, 128, 192, 256, 384 or 512 and d_enc_pad a multiple of 64 up to
+// kMaxEnc;
 // trunk_rows as fsnerf_nerf_mlp's.
 extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
                                    const void* bpack, void* out, int n_rows,

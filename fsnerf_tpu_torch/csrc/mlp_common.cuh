@@ -8,7 +8,9 @@
 //
 // Every kernel that uses them runs kThreads threads per CTA over a tile of
 // kRows rows held in shared memory as bf16 (row stride padded by kPad so
-// ldmatrix rows hit distinct banks).
+// ldmatrix rows hit distinct banks); the NeRF backward's row pass at the
+// packed widths 384 and 512 runs them on 64 rows and 128 threads (their
+// template parameter R: 2 R threads over R rows).
 
 #pragma once
 
@@ -29,8 +31,11 @@ constexpr int kPassCols = 128;         // GEMM output columns per pass
 constexpr int kSlabRows = 64;          // weight rows staged per slab
 constexpr int kPad = 8;                // +16 B per shared row: no bank conflicts
 constexpr int kSlabLd = kPassCols + kPad;
-// 16-byte pieces of one weight slab that each thread moves
-constexpr int kSlabPieces = kSlabRows * kPassCols / 8 / kThreads;
+// 16-byte pieces of one weight slab that each of T threads moves
+template <int T>
+__host__ __device__ constexpr int slab_pieces() {
+  return kSlabRows * kPassCols / 8 / T;
+}
 constexpr float kHalfPi = 1.57079632679489661923f;
 
 // One GEMM operand pair: A [kRows, K] in shared memory (row stride lda),
@@ -50,13 +55,15 @@ __device__ __forceinline__ void slab_of(int si, int ns0, const Seg& s0,
   rows = min(kSlabRows, sg.K - k0);
 }
 
-// This thread's share of the weight slab B[k0 : k0+rows, n0 : n0+ncols].
-__device__ __forceinline__ void slab_load(uint4 (&r)[kSlabPieces],
+// This thread's share (of T threads) of the weight slab B[k0 : k0+rows,
+// n0 : n0+ncols].
+template <int T>
+__device__ __forceinline__ void slab_load(uint4 (&r)[slab_pieces<T>()],
                                           const Seg& sg, int N, int k0,
                                           int rows, int n0, int ncols) {
 #pragma unroll
-  for (int q = 0; q < kSlabPieces; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
+  for (int q = 0; q < slab_pieces<T>(); ++q) {
+    const int idx = threadIdx.x + q * T;
     const int row = idx >> 4, c8 = (idx & 15) * 8;
     if (row < rows && c8 < ncols)
       r[q] = *reinterpret_cast<const uint4*>(sg.B + (size_t)(k0 + row) * N +
@@ -64,11 +71,12 @@ __device__ __forceinline__ void slab_load(uint4 (&r)[kSlabPieces],
   }
 }
 
-__device__ __forceinline__ void slab_store(const uint4 (&r)[kSlabPieces],
-                                           bf16* dst, int rows, int ncols) {
+template <int T>
+__device__ __forceinline__ void slab_store(
+    const uint4 (&r)[slab_pieces<T>()], bf16* dst, int rows, int ncols) {
 #pragma unroll
-  for (int q = 0; q < kSlabPieces; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
+  for (int q = 0; q < slab_pieces<T>(); ++q) {
+    const int idx = threadIdx.x + q * T;
     const int row = idx >> 4, c8 = (idx & 15) * 8;
     if (row < rows && c8 < ncols)
       *reinterpret_cast<uint4*>(dst + row * kSlabLd + c8) = r[q];
@@ -104,20 +112,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc[kRows, :N] = s0.A @ s0.B (+ s1.A @ s1.B), handed to `epi` one 8-column
-// tile at a time. Warps tile 4 x 2 over (rows, 128-column pass): 32 x 64
-// outputs per warp per pass, as 2 x 8 mma.sync m16n8k16 tiles. The weights
+// acc[R, :N] = s0.A @ s0.B (+ s1.A @ s1.B), handed to `epi` one 8-column
+// tile at a time, by 2 R threads. Warps tile R / 32 x 2 over (rows,
+// 128-column pass): 32 x 64 outputs per warp per pass, as 2 x 8 mma.sync
+// m16n8k16 tiles. The weights
 // stream through shared memory in 64-row slabs, double-buffered: slab i+1
 // is fetched into registers while the tensor cores consume slab i.
 //
 // epi(row, col, c) gets this lane's accumulators of one m16n8 tile pair:
 // c[i][2h + e] is output (row + 16 i + 8 h, col + e). Every lane of a warp
 // calls it for the same tiles, so it may use warp shuffles.
-template <class Epi>
+template <int R = kRows, class Epi>
 __device__ void gemm(const Seg& s0, const Seg& s1, int N, bf16* slabs,
                      Epi& epi) {
+  constexpr int T = 2 * R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 32, wcol = (warp >> 2) * 64;
+  const int row0 = (warp % (R / 32)) * 32, wcol = (warp / (R / 32)) * 64;
   const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // ldmatrix addressing
   const int ns0 = (s0.K + kSlabRows - 1) / kSlabRows;
   const int ns = ns0 + (s1.K + kSlabRows - 1) / kSlabRows;
@@ -130,12 +140,12 @@ __device__ void gemm(const Seg& s0, const Seg& s1, int N, bf16* slabs,
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    uint4 r[kSlabPieces];
+    uint4 r[slab_pieces<T>()];
     Seg sg;
     int k0, rows;
     slab_of(0, ns0, s0, s1, sg, k0, rows);
-    slab_load(r, sg, N, k0, rows, n0, ncols);
-    slab_store(r, slabs, rows, ncols);
+    slab_load<T>(r, sg, N, k0, rows, n0, ncols);
+    slab_store<T>(r, slabs, rows, ncols);
     __syncthreads();
     for (int si = 0; si < ns; ++si) {
       Seg cur;
@@ -144,7 +154,7 @@ __device__ void gemm(const Seg& s0, const Seg& s1, int N, bf16* slabs,
       const bool more = si + 1 < ns;
       if (more) {
         slab_of(si + 1, ns0, s0, s1, sg, k0, rows);
-        slab_load(r, sg, N, k0, rows, n0, ncols);
+        slab_load<T>(r, sg, N, k0, rows, n0, ncols);
       }
       const bf16* bs = slabs + (si & 1) * kSlabRows * kSlabLd;
 #pragma unroll
@@ -171,8 +181,8 @@ __device__ void gemm(const Seg& s0, const Seg& s1, int N, bf16* slabs,
         }
       }
       if (more)
-        slab_store(r, slabs + ((si + 1) & 1) * kSlabRows * kSlabLd, rows,
-                   ncols);
+        slab_store<T>(r, slabs + ((si + 1) & 1) * kSlabRows * kSlabLd, rows,
+                      ncols);
       __syncthreads();
     }
     const int qr = lane >> 2, qc = 2 * (lane & 3);
@@ -216,14 +226,15 @@ struct BiasActEpi {
   }
 };
 
-// C[kRows, :N] = bf16(act(s0.A @ s0.B (+ s1.A @ s1.B) + bias)), C in shared
+// C[R, :N] = bf16(act(s0.A @ s0.B (+ s1.A @ s1.B) + bias)), C in shared
 // memory (row stride ldc).
+template <int R = kRows>
 __device__ __forceinline__ void gemm_layer(const Seg& s0, const Seg& s1,
                                            const float* bias, int N,
                                            bool relu, bf16* C, int ldc,
                                            bf16* slabs) {
   BiasActEpi epi{bias, relu, C, ldc};
-  gemm(s0, s1, N, slabs, epi);
+  gemm<R>(s0, s1, N, slabs, epi);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -232,24 +243,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dst[r0 + row, col0 : col0 + ncols] = src[row, :ncols] for the CTA's 128
-// rows, in 16-byte pieces (ncols, ld and col0 multiples of 8).
+// dst[r0 + row, col0 : col0 + ncols] = src[row, :ncols] for the CTA's R
+// rows (2 R threads), in 16-byte pieces (ncols, ld and col0 multiples of
+// 8).
+template <int R = kRows>
 __device__ __forceinline__ void rows_to_global(const bf16* src, int lds,
                                                bf16* dst, int ld, int r0,
                                                int col0, int ncols) {
   const int per_row = ncols / 8;
-  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
+  for (int e = threadIdx.x; e < R * per_row; e += 2 * R) {
     const int row = e / per_row, c8 = (e - row * per_row) * 8;
     *reinterpret_cast<uint4*>(dst + (size_t)(r0 + row) * ld + col0 + c8) =
         *reinterpret_cast<const uint4*>(src + row * lds + c8);
   }
 }
 
+template <int R = kRows>
 __device__ __forceinline__ void rows_from_global(const bf16* src, int ld,
                                                  int r0, int col0, bf16* dst,
                                                  int ldd, int ncols) {
   const int per_row = ncols / 8;
-  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
+  for (int e = threadIdx.x; e < R * per_row; e += 2 * R) {
     const int row = e / per_row, c8 = (e - row * per_row) * 8;
     *reinterpret_cast<uint4*>(dst + row * ldd + c8) =
         *reinterpret_cast<const uint4*>(src + (size_t)(r0 + row) * ld +

@@ -26,13 +26,18 @@
 // wgmma with their activation tiles in shared memory. Each consumer
 // encodes its own rows (encx, encd) and, in saved mode, one of its threads
 // stores each trunk layer's activation tile to `acts` by TMA while the
-// next layer runs.
+// next layer runs. At the packed widths 384 and 512 it runs ws_trunk.cuh's
+// column-split trunk (one consumer of 64 rows, each layer as two column
+// halves, each half's tile stored to acts' [rows, L * W] layout by TMA).
+// A row there costs ~4.6 MFLOP forward at 8 x 512 (~1.19 at 8 x 256).
 //
 // The backward is split, because CUDA blocks run in no order and float
 // atomics would make the gradients change from run to run, where the
 // Pallas backward keeps every weight-gradient block resident in VMEM
 // across a sequential grid:
-//   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA): encodes
+//   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA; 64 at
+//      the packed widths 384 and 512, one warpgroup, so that its two
+//      activation buffers fit in shared memory): encodes
 //      the inputs, takes the trunk activations from the forward's stream,
 //      recomputes the heads (mma.sync, mlp_common.cuh::gemm), and walks the
 //      layers back on wgmma.m64n128k16 with A (the cotangent tile) from
@@ -84,7 +89,8 @@ struct TrainArgs {
   const float* dout;     // [N, 4] output cotangent
   bf16* xs;              // [N_pad, XW]: encx | encd | feat | br
   bf16* dy;              // [N_pad, DYW]: dY_0..L-1 | conn | branch | sigma | rgb
-  float* pbias;          // [N_pad / kRows, NB] bias-gradient partials
+  float* pbias;          // [N_pad / R, NB] bias-gradient partials (R:
+                         // the row pass's rows per CTA, bwd_rows)
   int N, n_layers, skip_mask, width, n_freqs, n_freqs_views;
   int d_enc_pad, d_dir_pad;
 };
@@ -112,50 +118,63 @@ constexpr int kBwdStageBytes = kBwdPassCols * 128;
 constexpr int kBwdSlabBytes = kBwdStages * kBwdStageBytes + 1024;
 static_assert(kSlabBytes <= kBwdSlabBytes, "the slabs alias the ring");
 
-// The backward row kernel's shared memory. The points' encoding goes
-// straight to xs (no product of this kernel reads it), so only the
-// directions' is staged: at width 256 the kernel fits with encd up to 128
-// wide (231,936 bytes) whatever the points' encoding.
+// The backward row kernel's shared memory over its R rows (128; 64 at the
+// packed widths 384 and 512, where two 128-row activation buffers would
+// not fit). The points' encoding goes straight to xs (no product of this
+// kernel reads it), so only the directions' is staged: at width 256 the
+// 128-row kernel fits with encd up to 128 wide (231,936 bytes), at 512 the
+// 64-row one with encd up to 256 (227,072 bytes), whatever the points'
+// encoding.
 struct Smem {
   bf16 *buf0, *buf1, *encd, *slabs;
   float *rgb, *drgb, *dsig, *colpart;
   int LDH, LDD;
 };
 
+template <int R>
 __device__ __forceinline__ Smem carve(unsigned char* raw,
                                       const TrainArgs& a) {
   Smem s;
   s.LDH = a.width + kPad;
   s.LDD = a.d_dir_pad + kPad;
   s.buf0 = reinterpret_cast<bf16*>(raw);
-  s.buf1 = s.buf0 + kRows * s.LDH;
-  s.encd = s.buf1 + kRows * s.LDH;
-  s.slabs = s.encd + kRows * s.LDD;
+  s.buf1 = s.buf0 + R * s.LDH;
+  s.encd = s.buf1 + R * s.LDH;
+  s.slabs = s.encd + R * s.LDD;
   s.rgb = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.slabs) +
                                    kBwdSlabBytes);
-  s.drgb = s.rgb + 3 * kRows;
-  s.dsig = s.drgb + 3 * kRows;
-  s.colpart = s.dsig + kRows;              // [row groups][width]
+  s.drgb = s.rgb + 3 * R;
+  s.dsig = s.drgb + 3 * R;
+  s.colpart = s.dsig + R;                  // [row groups][width]
   return s;
 }
 
-// (ops/kernels/mlp_train.py::bwd_rows_smem_bytes mirrors it)
-size_t smem_bytes(int width, int d_dir_pad) {
-  return sizeof(bf16) * (size_t)kRows * (2 * width + d_dir_pad + 3 * kPad) +
-         kBwdSlabBytes + sizeof(float) * (7 * kRows + (size_t)8 * width);
+// The row pass's rows per CTA at a packed width.
+__host__ __device__ constexpr int bwd_rows(int width) {
+  return width > kWholeMaxWidth ? 64 : kRows;
 }
 
-// The encodings of rows r0 .. r0+127 of x and d (zero inputs past N) as
-// bf16: encx straight to xs' columns [0, DE), encd into shared memory for
-// the branch's product and then to xs' columns [DE, DE + DD). The rows'
+// (ops/kernels/mlp_train.py::bwd_rows_smem_bytes mirrors it): R rows, one
+// row group of column sums per warp of the 2 R threads
+size_t smem_bytes(int width, int d_dir_pad) {
+  const size_t R = bwd_rows(width);
+  return sizeof(bf16) * R * (2 * width + d_dir_pad + 3 * kPad) +
+         kBwdSlabBytes + sizeof(float) * (7 * R + R / 16 * width);
+}
+
+// The encodings of the CTA's R rows from r0 of x and d (zero inputs past
+// N) as bf16: encx straight to xs' columns [0, DE), encd into shared memory
+// for the branch's product and then to xs' columns [DE, DE + DD). The rows'
 // points and directions are staged first in the weight ring, which nothing
 // uses until the heads' products.
+template <int R>
 __device__ void encode_rows(const TrainArgs& a, const Smem& s, int r0,
                             int XW) {
+  constexpr int T = 2 * R;
   const int tid = threadIdx.x;
   float* xin = reinterpret_cast<float*>(s.slabs);
-  float* din = xin + 3 * kRows;
-  for (int e = tid; e < 3 * kRows; e += kThreads) {
+  float* din = xin + 3 * R;
+  for (int e = tid; e < 3 * R; e += T) {
     const bool in = r0 + e / 3 < a.N;
     xin[e] = in ? a.x[(size_t)r0 * 3 + e] : 0.f;
     din[e] = in ? a.d[(size_t)r0 * 3 + e] : 0.f;
@@ -166,24 +185,25 @@ __device__ void encode_rows(const TrainArgs& a, const Smem& s, int r0,
   const float* freq_d = mask_x + a.n_freqs;
   const float* mask_d = freq_d + a.n_freqs_views;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
-  for (int e = tid; e < kRows * DE; e += kThreads) {
+  for (int e = tid; e < R * DE; e += T) {
     const int row = e / DE, col = e - row * DE;
     a.xs[(size_t)(r0 + row) * XW + col] = __float2bfloat16_rn(
         encode_lane(xin + 3 * row, col, a.n_freqs, freq_x, mask_x));
   }
-  for (int e = tid; e < kRows * DD; e += kThreads) {
+  for (int e = tid; e < R * DD; e += T) {
     const int row = e / DD, col = e - row * DD;
     s.encd[row * s.LDD + col] = __float2bfloat16_rn(
         encode_lane(din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
   }
   __syncthreads();
-  rows_to_global(s.encd, s.LDD, a.xs, XW, r0, DE, DD);
+  rows_to_global<R>(s.encd, s.LDD, a.xs, XW, r0, DE, DD);
 }
 
 // feat = bf16(h_last @ w_conn + b_conn) into `other`; then
 // br = bf16(relu(feat @ w_branch_h + encd @ w_branch_d + b_branch)) into
 // hl (h_last is dead by then); then rgb = sigmoid(br @ w_rgb + b_rgb) into
 // s.rgb. With `xs`, feat and br also go to HBM for the weight gradients.
+template <int R>
 __device__ void heads_forward(const TrainArgs& a, const Smem& s, int r0,
                               bf16* hl, bf16* other, bf16* xs, int XW) {
   const int W = a.width, Wh = W / 2, DE = a.d_enc_pad, DD = a.d_dir_pad;
@@ -191,18 +211,19 @@ __device__ void heads_forward(const TrainArgs& a, const Smem& s, int r0,
   const Seg none = {nullptr, 0, nullptr, 0};
   const bf16* w = a.wpack + trunk_offset(a, a.n_layers) + W;   // past w_sigma
   const float* b = a.bpack + a.n_layers * W + 1;               // past b_sigma
-  gemm_layer(Seg{hl, s.LDH, w, W}, none, b, W, false, other, s.LDH, s.slabs);
+  gemm_layer<R>(Seg{hl, s.LDH, w, W}, none, b, W, false, other, s.LDH,
+                s.slabs);
   w += W * W;
   b += W;
   __syncthreads();
-  if (xs) rows_to_global(other, s.LDH, xs, XW, r0, DE + DD, W);
-  gemm_layer(Seg{other, s.LDH, w, W}, Seg{s.encd, s.LDD, w + W * Wh, DD}, b,
-             Wh, true, hl, s.LDH, s.slabs);
+  if (xs) rows_to_global<R>(other, s.LDH, xs, XW, r0, DE + DD, W);
+  gemm_layer<R>(Seg{other, s.LDH, w, W}, Seg{s.encd, s.LDD, w + W * Wh, DD},
+                b, Wh, true, hl, s.LDH, s.slabs);
   w += W * Wh + DD * Wh;
   b += Wh;
   __syncthreads();
-  if (xs) rows_to_global(hl, s.LDH, xs, XW, r0, DE + DD + W, Wh);
-  for (int row = warp; row < kRows; row += kThreads / 32) {
+  if (xs) rows_to_global<R>(hl, s.LDH, xs, XW, r0, DE + DD + W, Wh);
+  for (int row = warp; row < R; row += R / 16) {
     const bf16* h = hl + row * s.LDH;
     float v0 = 0.f, v1 = 0.f, v2 = 0.f;
     for (int k = lane; k < Wh; k += 32) {
@@ -289,16 +310,117 @@ __device__ __forceinline__ void fwd_consume(const CUtensorMap* map_acts,
   if (r.lead) bulk_wait<0>();           // the saved activations are written
 }
 
-// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
-// producer's. map_acts is read only when a.acts is set.
+// fwd_consume at a split width (FwdTraits<W>::kSplit): the CTA's one
+// consumer warpgroup, its 64 rows from row0 through the column-split
+// trunk, connection and branch, each trunk layer's two halves stored to
+// acts by TMA.
+template <int W, int NB>
+__device__ __forceinline__ void fwd_consume_split(const CUtensorMap* map_acts,
+                                                  const TrainArgs& a,
+                                                  FwdRing& r,
+                                                  SplitActs<W>& tiles,
+                                                  unsigned char* encx,
+                                                  unsigned char* encd) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
+  const int row0 = blockIdx.x * FwdTraits<W>::kCtaRows;
+  const int bar = 1;
+  {  // encode: thread t owns row t % 64 and every other 16-byte chunk
+    const int row = t & 63, g = row0 + row;
+    float xv[3], dv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      xv[k] = g < a.N ? a.x[(size_t)g * 3 + k] : 0.f;
+      dv[k] = g < a.N ? a.d[(size_t)g * 3 + k] : 0.f;
+    }
+    const float* freq_x = a.enc;
+    const float* mask_x = freq_x + a.n_freqs;
+    const float* freq_d = mask_x + a.n_freqs;
+    const float* mask_d = freq_d + a.n_freqs_views;
+    encode_row(encx, xv, row, t >> 6, enc_blocks(DE), a.n_freqs, freq_x,
+               mask_x);
+    encode_row(encd, dv, row, t >> 6, enc_blocks(DD), a.n_freqs_views,
+               freq_d, mask_d);
+  }
+  fence_proxy_async();
+  named_bar(bar, 128);
+
+  const FwdShape sh{L, a.skip_mask, DE, DD};
+  const bf16* w_sigma = a.wpack + trunk_offset(a, L);
+  const float* b = a.bpack;
+  float sig[2] = {0.f, 0.f};
+  float acc[W / 4];
+  fwd_trunk_split<W>(acc, r, tiles, smem_u32(encx), sh, b, w_sigma, sig, bar,
+                     a.acts ? map_acts : nullptr, row0);
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  const float b_sigma = b[L * W];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float v = quad_sum(sig[h]) + b_sigma;
+    const int g = row0 + quad_row + 8 * h;
+    if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + 3] = v;
+  }
+  float rgb[2][3];
+  fwd_conn_split<W>(acc, r, tiles, b + L * W + 1, bar);
+  fwd_branch_split<W, NB>(r, tiles, smem_u32(encd), DD, w_sigma + W,
+                          b + L * W + 1, rgb);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + c] = rgb[h][c];
+  }
+  if (r.lead) bulk_wait<0>();           // the saved activations are written
+}
+
+// The split kernel's body: the ring of W / 2-wide stages, the three
+// activation tiles, one consumer's encodings, the barriers.
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    mlp_train_fwd_kernel(const __grid_constant__ CUtensorMap map_w,
-                         const __grid_constant__ CUtensorMap map_br,
-                         const __grid_constant__ CUtensorMap map_acts,
-                         TrainArgs a, int n_stages) {
+__device__ __forceinline__ void fwd_split_body(const CUtensorMap* map_w,
+                                               const CUtensorMap* map_br,
+                                               const CUtensorMap* map_acts,
+                                               const TrainArgs& a,
+                                               int n_stages,
+                                               unsigned char* smem_raw) {
+  using T = FwdTraits<W>;
+  constexpr int NB = head_n(W);
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nbx = enc_blocks(a.d_enc_pad);
+  unsigned char* act = ring + n_stages * T::kStageBytes;
+  unsigned char* encx = act + T::kActBytes;
+  unsigned char* encd = encx + nbx * kBlock;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      encd + enc_blocks(a.d_dir_pad) * kBlock);
+  uint64_t* empty = full + n_stages;
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0, 1);
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      produce_pass_split<W, NB>(
+          map_w, map_br,
+          FwdShape{a.n_layers, a.skip_mask, a.d_enc_pad, a.d_dir_pad}, true,
+          ring, full, empty, n_stages, it, nullptr);
+    }
+    return;
+  }
+  SplitActs<W> tiles(act);
+  FwdRing r{smem_u32(ring), T::kStageBytes, full, empty, n_stages, 0,
+            threadIdx.x == 0};
+  fwd_consume_split<W, NB>(map_acts, a, r, tiles, encx, encd);
+}
+
+// The kernel's body at a width of whole-row consumers (up to 256).
+template <int W>
+__device__ __forceinline__ void fwd_whole_body(const CUtensorMap* map_w,
+                                               const CUtensorMap* map_br,
+                                               const CUtensorMap* map_acts,
+                                               const TrainArgs& a,
+                                               int n_stages,
+                                               unsigned char* fwd_smem_raw) {
   constexpr int NB = head_n(W);                   // the branch product's N
-  extern __shared__ unsigned char fwd_smem_raw[];
   // the ring from the next 1024-byte boundary, by pointer arithmetic on the
   // shared array (an integer round trip would make every tile access a
   // generic one, which the compiler cannot tell from the global loads)
@@ -318,7 +440,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     setmaxnreg_dec<kFwdProducerRegs>();
     if (threadIdx.x == 128 * kFwdConsumers) {
       int it = 0;
-      produce_pass<W, NB>(&map_w, &map_br,
+      produce_pass<W, NB>(map_w, map_br,
                           FwdShape{a.n_layers, a.skip_mask, a.d_enc_pad,
                                    a.d_dir_pad},
                           true, ring, full, empty, n_stages, it, nullptr);
@@ -327,18 +449,38 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     setmaxnreg_inc<kFwdConsumerRegs>();
     FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
               (threadIdx.x & 127) == 0};
-    fwd_consume<W, NB>(&map_acts, a, r, act + wg * W * 128,
+    fwd_consume<W, NB>(map_acts, a, r, act + wg * W * 128,
                        encx + wg * nbx * kBlock, encd + wg * nbd * kBlock,
                        wg);
   }
 }
 
+// grid: one CTA per 128 rows (64 at a split width); block: the consumer
+// warpgroups + the producer's. map_acts is read only when a.acts is set.
+template <int W>
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
+    mlp_train_fwd_kernel(const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_br,
+                         const __grid_constant__ CUtensorMap map_acts,
+                         TrainArgs a, int n_stages) {
+  extern __shared__ unsigned char fwd_smem_raw[];
+  if constexpr (FwdTraits<W>::kSplit)
+    fwd_split_body<W>(&map_w, &map_br, &map_acts, a, n_stages,
+                      fwd_smem_raw);
+  else
+    fwd_whole_body<W>(&map_w, &map_br, &map_acts, a, n_stages,
+                      fwd_smem_raw);
+}
+
 // The forward at width W on `st`: the tensor maps of wpack (trunk_rows x
 // W, then the branch's [W + DD, W / 2] right after it) and of acts, the
-// deepest ring that fits in shared memory.
+// deepest ring that fits in shared memory. Every row up to round_up(N,
+// 128) is computed (rows past N on zero inputs), as the backward's passes
+// read them.
 template <int W>
 cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
                          cudaStream_t st) {
+  using T = FwdTraits<W>;
   const int L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
   const int n_blocks = (a.N + kRows - 1) / kRows;
   CUtensorMap map_w, map_br, map_acts;
@@ -356,15 +498,16 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
       mlp_train_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  mlp_train_fwd_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
-      map_w, map_br, map_acts, a, n_stages);
+  mlp_train_fwd_kernel<W>
+      <<<n_blocks * (kRows / T::kCtaRows), T::kThreads, smem, st>>>(
+          map_w, map_br, map_acts, a, n_stages);
   return cudaGetLastError();
 }
 
 // The forward into a.out and (when set) a.acts. The kernel takes W of 64,
-// 128, 192 or 256 and encodings up to kMaxEnc wide (at W = 256 up to 6
-// blocks of 64 together); trunk_rows must be the rows of wpack's [rows, W]
-// view (the trunk, w_sigma and w_conn).
+// 128, 192, 256, 384 or 512 and encodings up to kMaxEnc wide (at W = 256
+// up to 6 blocks of 64 together); trunk_rows must be the rows of wpack's
+// [rows, W] view (the trunk, w_sigma and w_conn).
 cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
   const int W = a.width;
   if (a.d_enc_pad > kMaxEnc || a.d_dir_pad > kMaxEnc ||
@@ -380,6 +523,10 @@ cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
       return launch_fwd_w<192>(a, trunk_rows, st);
     case 256:
       return launch_fwd_w<256>(a, trunk_rows, st);
+    case 384:
+      return launch_fwd_w<384>(a, trunk_rows, st);
+    case 512:
+      return launch_fwd_w<512>(a, trunk_rows, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -472,7 +619,7 @@ __device__ __forceinline__ void cotangent_stage(float (&acc)[64],
 }
 
 // An input-cotangent product of the backward on the tensor cores:
-// C[kRows, :N] = epilogue(A[kRows, :K] @ B^T), A the bf16 cotangent tile in
+// C[R, :N] = epilogue(A[R, :K] @ B^T), A the bf16 cotangent tile in
 // shared memory (row stride lda), B [N, K] a weight matrix of wpack read
 // K-major (its [in, out] rows, row stride ldb = K). Each warpgroup owns 64
 // rows and runs wgmma.m64n128k16 per 128 output columns, its A fragments
@@ -481,9 +628,11 @@ __device__ __forceinline__ void cotangent_stage(float (&acc)[64],
 // C's rows of this layer's activations are copied into C by cp.async
 // while the product runs, for the epilogue's ReLU'. Ends with a barrier;
 // then colpart holds the column sums of every output column.
+template <int R>
 __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
                                int N, int r0, int width,
                                const CotangentOut& o, unsigned char* ring) {
+  constexpr int T = 2 * R;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nk = (K + 63) / 64;
   const bf16* ap = A + (16 * warp + (lane & 15)) * lda + (lane >> 4) * 8;
@@ -496,7 +645,7 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
     // land while the earlier stages run and are waited for with it
     auto load = [&](int kc) {
       unsigned char* tile = ring + (kc % kBwdStages) * kBwdStageBytes;
-      for (int q = tid; q < kBwdPassCols * 8; q += kThreads) {
+      for (int q = tid; q < kBwdPassCols * 8; q += T) {
         const int n = q >> 3, c = q & 7, k = kc * 64 + c * 8;
         const bool ok = n0 + n < N && k < K;
         cp_async_16(tile + n * 128 + (((c ^ n) & 7) << 4),
@@ -504,7 +653,7 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
       }
       if (o.acts && n0 == 0 && kc == nk - 1) {
         const int per_row = N / 8;
-        for (int e = tid; e < kRows * per_row; e += kThreads) {
+        for (int e = tid; e < R * per_row; e += T) {
           const int row = e / per_row, c8 = (e - row * per_row) * 8;
           cp_async_16(o.C + row * o.ldc + c8,
                       o.acts + (size_t)(r0 + row) * o.acts_ld + c8, true);
@@ -540,10 +689,15 @@ __device__ void cotangent_gemm(const bf16* A, int lda, int K, const bf16* B,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// grid: one CTA per R rows (bwd_rows(width): 128, or 64 at the packed
+// widths 384 and 512, where a 128-row CTA's activation buffers exceed the
+// 227 KB of a block); block: 2 R threads, one warpgroup per 64 rows.
+template <int R>
+__global__ void __launch_bounds__(2 * R, 1)
     mlp_train_bwd_rows_kernel(TrainArgs a) {
+  constexpr int T = 2 * R;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem s = carve(smem_raw, a);
+  const Smem s = carve<R>(smem_raw, a);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = a.width, Wh = W / 2, L = a.n_layers;
   const int DE = a.d_enc_pad, DD = a.d_dir_pad;
@@ -553,18 +707,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int off_branch = off_conn + W, off_rgb = off_branch + Wh;
   const int dy_conn = L * W, dy_branch = dy_conn + W;
   const int dy_sigma = dy_branch + Wh, dy_rgb = dy_sigma + 8;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blockIdx.x * R;
   float* pb = a.pbias + (size_t)blockIdx.x * NB;
 
-  encode_rows(a, s, r0, XW);
-  rows_from_global(a.acts, LA, r0, (L - 1) * W, s.buf0, s.LDH, W);
+  encode_rows<R>(a, s, r0, XW);
+  rows_from_global<R>(a.acts, LA, r0, (L - 1) * W, s.buf0, s.LDH, W);
   __syncthreads();
   bf16* hl = s.buf0;
   bf16* other = s.buf1;
-  heads_forward(a, s, r0, hl, other, a.xs, XW);
+  heads_forward<R>(a, s, r0, hl, other, a.xs, XW);
 
   // rgb head: d rgb_pre = d rgb * r (1 - r); sigma: d sigma as it is
-  if (tid < kRows) {
+  if (tid < R) {
     const int g = r0 + tid;
     for (int c = 0; c < 3; ++c) {
       const float r = s.rgb[3 * tid + c];
@@ -576,13 +730,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (warp < 4) {            // b_rgb (3) and b_sigma (1): one warp each
     float v = 0.f;
-    for (int row = lane; row < kRows; row += 32)
+    for (int row = lane; row < R; row += 32)
       v += warp < 3 ? s.drgb[3 * row + warp] : s.dsig[row];
     v = warp_sum(v);
     if (lane == 0) pb[warp < 3 ? off_rgb + warp : off_sigma] = v;
   }
   __syncthreads();
-  if (tid < kRows) {         // bf16 cotangents of the two narrow heads
+  if (tid < R) {             // bf16 cotangents of the two narrow heads
     bf16* dr = a.dy + (size_t)(r0 + tid) * DYW;
     for (int c = 0; c < 8; ++c) {
       const float v = c < 3 ? s.drgb[3 * tid + c] : 0.f;
@@ -598,12 +752,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // rows in order, in place over br
   const bf16* w_rgb = a.wpack + trunk_offset(a, L) + W + W * W + W * Wh +
                       DD * Wh;
-  for (int j = tid; j < Wh; j += kThreads) {
+  for (int j = tid; j < Wh; j += T) {
     const float w0 = __bfloat162float(w_rgb[3 * j]);
     const float w1 = __bfloat162float(w_rgb[3 * j + 1]);
     const float w2 = __bfloat162float(w_rgb[3 * j + 2]);
     float colsum = 0.f;
-    for (int row = 0; row < kRows; ++row) {
+    for (int row = 0; row < R; ++row) {
       const float* dr = s.drgb + 3 * row;
       float v = dr[0] * w0 + dr[1] * w1 + dr[2] * w2;
       bf16* p = hl + row * s.LDH + j;
@@ -614,38 +768,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     pb[off_branch + j] = colsum;
   }
   __syncthreads();
-  rows_to_global(hl, s.LDH, a.dy, DYW, r0, dy_branch, Wh);
+  rows_to_global<R>(hl, s.LDH, a.dy, DYW, r0, dy_branch, Wh);
 
   // conn: d feat = d br_b @ w_branch_h^T (feat has no activation)
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(s.slabs) + 1023) & ~uintptr_t(1023));
   const bf16* w_conn = a.wpack + trunk_offset(a, L) + W;
-  cotangent_gemm(hl, s.LDH, Wh, w_conn + (size_t)W * W, W, r0, W,
-                 CotangentOut{other, s.LDH, nullptr, 0, nullptr, nullptr,
-                              s.colpart},
-                 ring);
-  store_colsums(s.colpart, pb, off_conn, W, W, 8);
-  rows_to_global(other, s.LDH, a.dy, DYW, r0, dy_conn, W);
+  cotangent_gemm<R>(hl, s.LDH, Wh, w_conn + (size_t)W * W, W, r0, W,
+                    CotangentOut{other, s.LDH, nullptr, 0, nullptr, nullptr,
+                                 s.colpart},
+                    ring);
+  store_colsums<T>(s.colpart, pb, off_conn, W, W, T / 32);
+  rows_to_global<R>(other, s.LDH, a.dy, DYW, r0, dy_conn, W);
 
   // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
   // masked by h_{L-1} > 0, which is prefetched into the output buffer
-  cotangent_gemm(other, s.LDH, W, w_conn, W, r0, W,
-                 CotangentOut{hl, s.LDH, a.acts + (L - 1) * W, LA, s.dsig,
-                              a.wpack + trunk_offset(a, L), s.colpart},
-                 ring);
-  store_colsums(s.colpart, pb, (L - 1) * W, W, W, 8);
-  rows_to_global(hl, s.LDH, a.dy, DYW, r0, (L - 1) * W, W);
+  cotangent_gemm<R>(other, s.LDH, W, w_conn, W, r0, W,
+                    CotangentOut{hl, s.LDH, a.acts + (L - 1) * W, LA, s.dsig,
+                                 a.wpack + trunk_offset(a, L), s.colpart},
+                    ring);
+  store_colsums<T>(s.colpart, pb, (L - 1) * W, W, W, T / 32);
+  rows_to_global<R>(hl, s.LDH, a.dy, DYW, r0, (L - 1) * W, W);
 
   // trunk: d h_{i-1} = d h_i_b @ W_i^T (the h part at a skip layer)
   bf16* cur = hl;
   bf16* nxt = other;
   for (int i = L - 1; i >= 1; --i) {
-    cotangent_gemm(cur, s.LDH, W, a.wpack + trunk_offset(a, i), W, r0, W,
-                   CotangentOut{nxt, s.LDH, a.acts + (i - 1) * W, LA,
-                                nullptr, nullptr, s.colpart},
-                   ring);
-    store_colsums(s.colpart, pb, (i - 1) * W, W, W, 8);
-    rows_to_global(nxt, s.LDH, a.dy, DYW, r0, (i - 1) * W, W);
+    cotangent_gemm<R>(cur, s.LDH, W, a.wpack + trunk_offset(a, i), W, r0,
+                      W,
+                      CotangentOut{nxt, s.LDH, a.acts + (i - 1) * W, LA,
+                                   nullptr, nullptr, s.colpart},
+                      ring);
+    store_colsums<T>(s.colpart, pb, (i - 1) * W, W, W, T / 32);
+    rows_to_global<R>(nxt, s.LDH, a.dy, DYW, r0, (i - 1) * W, W);
     bf16* t = cur;
     cur = nxt;
     nxt = t;
@@ -727,14 +882,18 @@ extern "C" int fsnerf_mlp_train_bwd(
   a.xs = static_cast<bf16*>(xs);
   a.dy = static_cast<bf16*>(dy);
   a.pbias = static_cast<float*>(pbias);
-  const int n_blocks = (n + kRows - 1) / kRows;
+  // every row up to round_up(n, 128), in CTAs of R rows
+  const int R = bwd_rows(width);
+  const int n_blocks = (n + kRows - 1) / kRows * (kRows / R);
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = smem_bytes(width, d_dir_pad);
-  err = cudaFuncSetAttribute(
-      mlp_train_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const auto rows_kernel = R == kRows ? mlp_train_bwd_rows_kernel<kRows>
+                                      : mlp_train_bwd_rows_kernel<64>;
+  err = cudaFuncSetAttribute(rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_train_bwd_rows_kernel<<<n_blocks, kThreads, smem, st>>>(a);
+  rows_kernel<<<n_blocks, 2 * R, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -749,7 +908,7 @@ extern "C" int fsnerf_mlp_train_bwd(
       static_cast<const int*>(tiles), n_tiles, static_cast<const int*>(jobs),
       static_cast<float*>(part), n_w, split_rows,
       static_cast<const float*>(pbias), n_blocks, n_b, 1,
-      static_cast<float*>(dw), static_cast<float*>(db), st));
+      static_cast<float*>(dw), static_cast<float*>(db), st, R));
 }
 
 // The weight-gradient pass alone (the backward's last two launches) over

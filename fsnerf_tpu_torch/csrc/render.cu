@@ -24,7 +24,10 @@
 //
 // The NeRF march (nerf_march_kernel, below) runs each chunk step on two
 // consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
-// producer warpgroup's TMA weight ring; see the notes above it. The SIREN
+// producer warpgroup's TMA weight ring; see the notes above it. At the
+// packed widths 384 and 512 one consumer runs the step's two 64-row halves
+// in turn on the column-split trunk (march_consume_split), with the same
+// skip decision per block x chunk step. The SIREN
 // march at widths 64, 128, 192 and 256 (siren_march_kernel) is the same
 // shell around the SIREN forward's warp-specialized MLP. Above 256 the
 // SIREN march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk
@@ -495,17 +498,16 @@ __device__ __forceinline__ void march_consume(const NerfMarchArgs& m,
   march_finish(a, ct, bR, ray, executed, r, done);
 }
 
-// grid: one CTA per block of block_rows rays; block: kFwdConsumers
-// warpgroups + the producer's.
+// The kernel's body at a width of whole-row consumers (up to 256).
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    nerf_march_kernel(const __grid_constant__ CUtensorMap map_w,
-                      const __grid_constant__ CUtensorMap map_br,
-                      NerfMarchArgs m, int n_stages) {
+__device__ __forceinline__ void nerf_march_whole(const CUtensorMap* map_w,
+                                                 const CUtensorMap* map_br,
+                                                 const NerfMarchArgs& m,
+                                                 int n_stages,
+                                                 unsigned char* smem_raw) {
   constexpr int NB = head_n(W);                   // the branch product's N
-  extern __shared__ unsigned char march_smem_raw[];
-  unsigned char* ring = march_smem_raw +
-                        ((1024 - (smem_u32(march_smem_raw) & 1023)) & 1023);
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int nbx = enc_blocks(m.d_enc_pad), nbd = enc_blocks(m.d_dir_pad);
   unsigned char* act = ring + n_stages * W * 128;
   unsigned char* encx = act + kFwdConsumers * W * 128;
@@ -523,7 +525,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     if (threadIdx.x == 128 * kFwdConsumers) {
       const FwdShape sh{m.n_layers, m.skip_mask, m.d_enc_pad, m.d_dir_pad};
       int it = 0;
-      while (produce_pass<W, NB>(&map_w, &map_br, sh, true, ring, full,
+      while (produce_pass<W, NB>(map_w, map_br, sh, true, ring, full,
                                  empty, n_stages, it, done)) {
       }
     }
@@ -534,6 +536,183 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
             (threadIdx.x & 127) == 0};
   march_consume<W, NB>(m, r, act + wg * W * 128, encx, nbx * kBlock,
                        encd + wg * nbd * kBlock, done, wg);
+}
+
+// The march at a split width (FwdTraits<W>::kSplit: 384, 512): one
+// consumer warpgroup of 64 rows, which runs each executed chunk step (up
+// to 128 rows) as halves of 64 rows one after the other, each through the
+// whole column-split MLP of ws_trunk.cuh. The skip decision stays the
+// block x chunk step's, over all its rays and samples, so the early exit's
+// blocking (and the plain version's) is the same as at every other width.
+// Half h holds rows 64 h .. 64 h + 63 of the step: whole rays when chunk_s
+// divides 64 (the entry refuses other chunks of more than 64 rows), which
+// are composited right after the half's branch, from the rows' inputs in
+// encx as march_consume's. encd holds one half's rows, so the directions
+// are encoded again for each half.
+template <int W, int NB>
+__device__ __forceinline__ void march_consume_split(const NerfMarchArgs& m,
+                                                    FwdRing& r,
+                                                    SplitActs<W>& tiles,
+                                                    unsigned char* encx,
+                                                    unsigned char* encd,
+                                                    volatile int* done) {
+  const Args& a = m.io;
+  const int t = threadIdx.x, lane = t & 31, ct = t;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int ray0 = blockIdx.x * bR, n_chunks = a.K / cs;
+  const int n_halves = (nrows + 63) / 64;
+  const int DE = m.d_enc_pad, DD = m.d_dir_pad, L = m.n_layers;
+  const int bar = 1;                                // the consumer's barrier
+  const float* freq_x = m.enc;
+  const float* mask_x = freq_x + m.n_freqs;
+  const float* freq_d = mask_x + m.n_freqs;
+  const float* mask_d = freq_d + m.n_freqs_views;
+
+  // thread t owns row t % 64 of each half (and every other 16-byte chunk of
+  // its encodings); rows past the chunk step's run on zeros. Unlike
+  // march_consume, nothing is fetched a chunk ahead: beside the 128
+  // accumulators of a half-width layer, registers held across the MLP
+  // spill. A row's mask, point and direction are read where they are
+  // used.
+  const int row = t & 63;
+  const bool in0 = row < nrows, in1 = 64 + row < nrows;
+  auto sample = [&](int gr, int c) {
+    return (size_t)(ray0 + gr / cs) * a.K + gr % cs + (size_t)c * cs;
+  };
+
+  const FwdShape sh{L, m.skip_mask, DE, DD};
+  const bf16* w_sigma =
+      m.wpack + (size_t)trunk_rows_of(L, m.skip_mask, W, DE) * W;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  RayAcc ray;              // the compositing of ray ct (ct < bR)
+  int executed = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    // exact early exit over the whole chunk step, as march_consume's. The
+    // first barrier also ends the last half's compositing reads of encx.
+    const bool live0 = in0 && a.mask[sample(row, c)] > 0.f;
+    const bool live1 = in1 && a.mask[sample(64 + row, c)] > 0.f;
+    const bool alive =
+        named_bar_or(kMarchBar, 128, ct < bR && ray.od < a.thresh);
+    const bool valid = named_bar_or(kMarchBar, 128, live0 || live1);
+    if (!(alive && valid)) continue;
+    ++executed;
+
+    for (int h = 0; h < n_halves; ++h) {
+      const int gr = 64 * h + row;
+      const bool in = h == 0 ? in0 : in1;
+      // the last half's compositing has read encx
+      if (h > 0) named_bar(bar, 128);
+      {
+        float xv[3], dv[3];
+        const size_t gi = sample(gr, c);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          xv[k] = in ? a.x[gi * 3 + k] : 0.f;
+          dv[k] = in ? a.dirs[(size_t)(ray0 + gr / cs) * 3 + k] : 0.f;
+        }
+        encode_row(encx, xv, row, t >> 6, enc_blocks(DE), m.n_freqs,
+                   freq_x, mask_x);
+        encode_row(encd, dv, row, t >> 6, enc_blocks(DD), m.n_freqs_views,
+                   freq_d, mask_d);
+      }
+      fence_proxy_async();
+      named_bar(bar, 128);
+      float sig[2] = {0.f, 0.f};
+      float acc[W / 4];
+      zero_acc(acc);
+      fwd_trunk_split<W>(acc, r, tiles, smem_u32(encx), sh, m.bpack, w_sigma,
+                         sig, bar, nullptr, 0);
+      // the trunk's wgmma have retired in every warp: encx is free for
+      // each row's compositing inputs
+      const float b_sigma = m.bpack[L * W];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float v =
+            density_activate(quad_sum(sig[k]) + b_sigma, m.density_act);
+        if ((lane & 3) == 0)
+          reinterpret_cast<float*>(encx + (quad_row + 8 * k) *
+                                              kMarchRowBytes)[0] = v;
+      }
+      fwd_conn_split<W>(acc, r, tiles, m.bpack + L * W + 1, bar);
+      float rgb[2][3];
+      fwd_branch_split<W, NB>(r, tiles, smem_u32(encd), DD, w_sigma + W,
+                              m.bpack + L * W + 1, rgb);
+      if (t < 64) {
+        float* q = reinterpret_cast<float*>(encx + row * kMarchRowBytes);
+        const size_t gi = sample(gr, c);
+        q[4] = in ? a.t[gi] : 0.f;
+        q[5] = in ? a.deltas[gi] : 0.f;
+        q[6] = in ? a.mask[gi] : 0.f;
+      }
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float* q = reinterpret_cast<float*>(
+              encx + (quad_row + 8 * k) * kMarchRowBytes);
+          q[1] = rgb[k][0];
+          q[2] = rgb[k][1];
+          q[3] = rgb[k][2];
+        }
+      }
+      named_bar(bar, 128);
+      // ray ct's rows start at row ct * cs of the step: in half h
+      if (ct < bR && ct * cs / 64 == h)
+        composite_chunk(encx, 0, ct - 64 * h / cs, cs, ray);
+    }
+  }
+  march_finish(a, ct, bR, ray, executed, r, done);
+}
+
+// The split kernel's body: the ring of W / 2-wide stages, the three
+// activation tiles, the consumer's encodings, the barriers, the done flag.
+template <int W>
+__device__ __forceinline__ void nerf_march_split(const CUtensorMap* map_w,
+                                                 const CUtensorMap* map_br,
+                                                 const NerfMarchArgs& m,
+                                                 int n_stages,
+                                                 unsigned char* smem_raw) {
+  using T = FwdTraits<W>;
+  constexpr int NB = head_n(W);
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* act = ring + n_stages * T::kStageBytes;
+  unsigned char* encx = act + T::kActBytes;
+  unsigned char* encd = encx + enc_blocks(m.d_enc_pad) * kBlock;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      encd + enc_blocks(m.d_dir_pad) * kBlock);
+  uint64_t* empty = full + n_stages;
+  volatile int* done = reinterpret_cast<volatile int*>(empty + n_stages);
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0, 1);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      const FwdShape sh{m.n_layers, m.skip_mask, m.d_enc_pad, m.d_dir_pad};
+      int it = 0;
+      while (produce_pass_split<W, NB>(map_w, map_br, sh, true, ring, full,
+                                       empty, n_stages, it, done)) {
+      }
+    }
+    return;
+  }
+  SplitActs<W> tiles(act);
+  FwdRing r{smem_u32(ring), T::kStageBytes, full, empty, n_stages, 0,
+            threadIdx.x == 0};
+  march_consume_split<W, NB>(m, r, tiles, encx, encd, done);
+}
+
+// grid: one CTA per block of block_rows rays; block: the consumer
+// warpgroups + the producer's (FwdTraits<W>).
+template <int W>
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
+    nerf_march_kernel(const __grid_constant__ CUtensorMap map_w,
+                      const __grid_constant__ CUtensorMap map_br,
+                      NerfMarchArgs m, int n_stages) {
+  extern __shared__ unsigned char march_smem_raw[];
+  if constexpr (FwdTraits<W>::kSplit)
+    nerf_march_split<W>(&map_w, &map_br, m, n_stages, march_smem_raw);
+  else
+    nerf_march_whole<W>(&map_w, &map_br, m, n_stages, march_smem_raw);
 }
 
 template <int W>
@@ -554,7 +733,7 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = n_rays / m.io.block_rows;
   if (n_blocks > 0)
-    nerf_march_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
+    nerf_march_kernel<W><<<n_blocks, FwdTraits<W>::kThreads, smem, st>>>(
         map_w, map_br, m, n_stages);
   return static_cast<int>(cudaGetLastError());
 }
@@ -765,9 +944,10 @@ void fill_args(Args& a, const void* x, const void* dirs, const void* t,
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
 // a shape the kernel does not take.
 
-// The NeRF march: width 64, 128, 192 or 256, encodings up to kMaxEnc (256)
-// wide (at width 256 up to 6 blocks of 64 together), block_rows * chunk_s
-// <= 128; trunk_rows the rows of wpack's [rows,
+// The NeRF march: width 64, 128, 192, 256, 384 or 512, encodings up to
+// kMaxEnc (256) wide (at width 256 up to 6 blocks of 64 together),
+// block_rows * chunk_s <= 128 (at 384 and 512 chunk_s dividing 64 when the
+// step has more than 64 rows); trunk_rows the rows of wpack's [rows,
 // width] view (the trunk, w_sigma and w_conn: ops/kernels/mlp_train.py::
 // TrainLayout.wpack_views).
 extern "C" int fsnerf_ray_march(
@@ -793,6 +973,8 @@ extern "C" int fsnerf_ray_march(
   m.density_act = density_act;
   if (d_enc_pad > kMaxEnc || d_dir_pad > kMaxEnc ||
       block_rows * chunk_s > kRows ||
+      (width > kWholeMaxWidth && block_rows * chunk_s > 64 &&
+       64 % chunk_s != 0) ||
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -806,6 +988,10 @@ extern "C" int fsnerf_ray_march(
       return launch_nerf_march_w<192>(m, trunk_rows, n_rays, st);
     case 256:
       return launch_nerf_march_w<256>(m, trunk_rows, n_rays, st);
+    case 384:
+      return launch_nerf_march_w<384>(m, trunk_rows, n_rays, st);
+    case 512:
+      return launch_nerf_march_w<512>(m, trunk_rows, n_rays, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,11 +43,12 @@ __device__ __forceinline__ void warp_colsums(float s0, float s1,
   }
 }
 
-// pb[off : off + n] = the row groups' column sums, in order.
+// pb[off : off + n] = the row groups' column sums, in order (T threads).
+template <int T = kThreads>
 __device__ __forceinline__ void store_colsums(const float* colpart, float* pb,
                                               int off, int n, int width,
                                               int groups) {
-  for (int c = threadIdx.x; c < n; c += kThreads) {
+  for (int c = threadIdx.x; c < n; c += T) {
     float v = colpart[c];
     for (int g = 1; g < groups; ++g) v += colpart[g * width + c];
     pb[off + c] = v;
@@ -135,9 +136,11 @@ __device__ __forceinline__ void dw_consume(unsigned char* ring,
 }
 
 // blockIdx.x: an output tile (tiles[3t] = job, tm, tn: input dims from 128
-// tm, output dims from 256 tn; the two halves of a job's 256 input dims
-// are neighbours, so the second read of a dY block hits L2); blockIdx.y: a
-// split of split_rows rows (a multiple of kDwBk; n_rows one of kRows).
+// tm, output dims from 256 tn, so any width's jobs tile it: a [512, 512]
+// gradient is 4 x 2 tiles; the two halves of a job's 256 input dims are
+// neighbours, so the second read of a dY block hits L2);
+// blockIdx.y: a split of split_rows rows (a multiple of kDwBk; n_rows one
+// of kRows).
 // Each split writes its own f32 partial of every gradient.
 __global__ void __launch_bounds__(kDwThreads, 1)
     dw_gemm_kernel(const __grid_constant__ CUtensorMap map_acts,
@@ -235,9 +238,9 @@ __global__ void __launch_bounds__(kReduceThreads)
     db[e] = round_db ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// The two weight-gradient launches after a row pass of n_blocks CTAs: dW
-// tiles over split_rows-row splits into `part`, then the fixed-order reduce
-// into dw [n_w] and db [n_b]. The tensor maps of acts, xs and dy are
+// The two weight-gradient launches after a row pass of n_blocks CTAs of
+// block_rows rows: dW tiles over split_rows-row splits into `part`, then
+// the fixed-order reduce into dw [n_w] and db [n_b]. The tensor maps of acts, xs and dy are
 // encoded here, at each call (their addresses change from call to call);
 // one that cannot be encoded is a launch error (cudaErrorInvalidValue).
 // Returns the first launch error.
@@ -246,8 +249,8 @@ cudaError_t launch_dw(const bf16* acts, int ld_acts, const bf16* xs,
                       int n_tiles, const int* jobs, float* part, int n_w,
                       int split_rows, const float* pbias, int n_blocks,
                       int n_b, int round_db, float* dw, float* db,
-                      cudaStream_t st) {
-  const int n_rows = n_blocks * kRows;
+                      cudaStream_t st, int block_rows = kRows) {
+  const int n_rows = n_blocks * block_rows;
   const int n_splits = (n_rows + split_rows - 1) / split_rows;
   CUtensorMap map_acts, map_xs, map_dy;
   if (split_rows % kDwBk != 0 ||

@@ -22,6 +22,12 @@
 // shared between the consumers, so a consumer's epilogue waits only on its
 // own warpgroup's named barrier.
 //
+// At the packed widths 384 and 512 a 64 x W f32 accumulator (W / 2
+// registers a thread) no longer fits beside the epilogue, so the NeRF shells
+// run the column-split trunk at the end of this file instead: one consumer
+// warpgroup of 64 rows per CTA, each layer's output computed as two column
+// halves of W / 2 into one W / 2 accumulator (FwdTraits).
+//
 // Numerics of the NeRF, as the TPU kernels: bf16 operands, f32
 // accumulation, bf16-rounded biases added in f32, trunk activations ReLU
 // then bf16 (the activation is a policy of the epilogue; the SIREN's sine
@@ -93,8 +99,33 @@ __host__ __device__ __forceinline__ int trunk_rows_of(int n_layers,
   return rows;
 }
 
+// The widest width whose consumers keep whole 64 x W accumulators; the
+// packed widths above it (384, 512) take the column-split trunk.
+constexpr int kWholeMaxWidth = 256;
+
+// A warp-specialized shell's shape at width W: up to kWholeMaxWidth two
+// consumer warpgroups of 64 whole-width rows (the producer's registers
+// moved to them by setmaxnreg); above it one consumer warpgroup whose
+// layers run as two column halves, ring stages of 64 K-rows x W / 2 and
+// three activation tiles of 64 rows x W / 2 (fwd_trunk_split). With 256
+// threads a thread may keep 255 registers, so the split shells move none.
+template <int W>
+struct FwdTraits {
+  static constexpr bool kSplit = W > kWholeMaxWidth;
+  static constexpr int kConsumers = kSplit ? 1 : kFwdConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kCtaRows = 64 * kConsumers;
+  static constexpr int kStageBytes = (kSplit ? W / 2 : W) * 128;
+  static constexpr int kActBytes =
+      kSplit ? 3 * (W / 2) * 128 : kConsumers * W * 128;
+};
+
 size_t fwd_smem_bytes(int width, int d_enc_pad, int d_dir_pad,
                       int n_stages) {
+  if (width > kWholeMaxWidth)      // FwdTraits<width>, kSplit
+    return 1024 + (size_t)(n_stages + 3) * (width / 2) * 128 +
+           (size_t)(enc_blocks(d_enc_pad) + enc_blocks(d_dir_pad)) * kBlock +
+           2 * n_stages * sizeof(uint64_t);
   return 1024 + (size_t)(n_stages + kFwdConsumers) * width * 128 +
          (size_t)kFwdConsumers *
              (enc_blocks(d_enc_pad) + enc_blocks(d_dir_pad)) * kBlock +
@@ -148,26 +179,28 @@ struct FwdShape {
 };
 
 // The producer's loads of k weight rows from row `row` of `map` (n_box
-// boxes of 64 columns each): one ring stage of 64 rows per 64 of k, by TMA.
-// `it` counts the stages fed. With `done`, the flag is read after each wait
-// for a free stage, and the feed stops (returning false) once it is raised.
-template <int W>
+// boxes of 64 columns each, from column col0): one ring stage (SC * 128
+// bytes) of 64 rows per 64 of k, by TMA. `it` counts the stages fed. With
+// `done`, the flag is read after each wait for a free stage, and the feed
+// stops (returning false) once it is raised.
+template <int SC>
 __device__ __forceinline__ bool feed_stages(const CUtensorMap* map, int row,
                                             int k, int n_box,
                                             unsigned char* ring,
                                             uint64_t* full, uint64_t* empty,
                                             int n_stages, int& it,
-                                            const volatile int* done) {
+                                            const volatile int* done,
+                                            int col0 = 0) {
   for (int kc = 0; kc < k; kc += 64, ++it) {
     const int s = it % n_stages;
     if (it >= n_stages) {
       mbar_wait(&empty[s], (it / n_stages - 1) & 1);
       if (done != nullptr && *done) return false;
     }
-    unsigned char* st = ring + s * (W * 128);
+    unsigned char* st = ring + s * (SC * 128);
     mbar_arrive_expect_tx(&full[s], n_box * kBlock);
     for (int q = 0; q < n_box; ++q)
-      tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
+      tma_load_2d(st + q * kBlock, map, &full[s], col0 + 64 * q, row + kc);
   }
   return true;
 }
@@ -393,16 +426,32 @@ __device__ __forceinline__ void fwd_conn(float (&acc)[W / 2], FwdRing& r,
 // = sigmoid(br @ w_rgb + b_rgb) of rows 16 warp + lane / 4 + 8 h, in every
 // lane of the quad. w_conn and b_conn point past w_sigma and b_sigma.
 template <int W, int NB>
+__device__ __forceinline__ void branch_rgb(const float (&bacc)[NB / 2],
+                                           int DD, const bf16* w_conn,
+                                           const float* b_conn,
+                                           float (&rgb)[2][3]);
+
+template <int W, int NB>
 __device__ __forceinline__ void fwd_branch(FwdRing& r, unsigned char* act,
                                            uint32_t encd, int DD,
                                            const bf16* w_conn,
                                            const float* b_conn,
                                            float (&rgb)[2][3]) {
-  constexpr int Wh = W / 2;
-  const int lane = threadIdx.x & 31;
   float bacc[NB / 2];
   fwd_product(bacc, smem_u32(act), W, true, r);
   fwd_product(bacc, encd, DD, false, r);
+  branch_rgb<W, NB>(bacc, DD, w_conn, b_conn, rgb);
+}
+
+// The branch's epilogue and the rgb head on the branch product bacc (no
+// bias yet), as fwd_branch's.
+template <int W, int NB>
+__device__ __forceinline__ void branch_rgb(const float (&bacc)[NB / 2],
+                                           int DD, const bf16* w_conn,
+                                           const float* b_conn,
+                                           float (&rgb)[2][3]) {
+  constexpr int Wh = W / 2;
+  const int lane = threadIdx.x & 31;
   const float* b_branch = b_conn + W;
   const bf16* w_rgb = w_conn + W * W + W * Wh + DD * Wh;
 #pragma unroll
@@ -441,18 +490,20 @@ __device__ __forceinline__ float density_activate(float s, int act) {
 }
 
 // The kernels' set-up: the ring's barriers (full: one arrival with the
-// stage's bytes; empty: one arrival per consumer) and `extra` more
-// barriers of one arrival, initialised by thread 0 and made visible to
-// TMA; the caller then syncs the CTA.
+// stage's bytes; empty: one arrival per consumer, `consumers` of them) and
+// `extra` more barriers of one arrival, initialised by thread 0 and made
+// visible to TMA; the caller then syncs the CTA.
 __device__ __forceinline__ void fwd_init_barriers(uint64_t* full,
                                                   uint64_t* empty,
                                                   int n_stages,
                                                   uint64_t* extra,
-                                                  int n_extra) {
+                                                  int n_extra,
+                                                  int consumers =
+                                                      kFwdConsumers) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kFwdConsumers);
+      mbar_init(&empty[s], consumers);
     }
     for (int e = 0; e < n_extra; ++e) mbar_init(&extra[e], 1);
     mbar_fence_init();
@@ -469,6 +520,183 @@ bool encode_weight_maps(CUtensorMap* map_w, CUtensorMap* map_br,
   return map_br == nullptr ||
          encode_bf16_map(map_br, wpack + (size_t)trunk_rows * W, W + DD,
                          W / 2, W / 2, 64);
+}
+
+// ---- the column-split trunk (packed widths 384 and 512) ---------------
+//
+// One consumer warpgroup of 64 rows. Each layer (and the connection) runs
+// as two output column halves of Wh = W / 2, one after the other, into the
+// same Wh accumulator (wgmma m64n192 / m64n256: 96 / 128 registers a
+// thread, as at W = 192 / 256). A layer reads both halves of its input for
+// each output half, so three half-width tiles rotate (SplitActs): the
+// first output half goes to the free tile, the second over the input's
+// first half once both halves' products have retired; the input's second
+// half is then free. The producer feeds each layer half by half
+// (produce_pass_split: per output half, the K tiles of that half's columns
+// in the consumer's order), each stage 64 K-rows x Wh, read by the one
+// consumer (its empty barriers take one arrival). The sigma head's partial
+// dots add up over both halves of the last layer in the same two
+// registers; the skip layer's products W_h (both input halves) and W_e go
+// into each output half; the branch (N = head_n(W) = Wh) stays one
+// product over both halves of feat and the direction encoding.
+
+// The three activation tiles (64 rows x Wh, K-major, 128B-swizzled) and
+// which hold the current input's halves (in0, in1) and which is free.
+template <int W>
+struct SplitActs {
+  static constexpr int kBytes = (W / 2) * 128;
+  unsigned char* base;
+  int in0, in1, spare;
+
+  __device__ __forceinline__ explicit SplitActs(unsigned char* b)
+      : base(b), in0(1), in1(2), spare(0) {}
+  __device__ __forceinline__ unsigned char* tile(int i) const {
+    return base + i * kBytes;
+  }
+  // where output half n of the running layer goes
+  __device__ __forceinline__ unsigned char* out(int n) const {
+    return tile(n == 0 ? spare : in0);
+  }
+  // after the layer: its output (spare, in0) is the next input
+  __device__ __forceinline__ void advance() {
+    const int f = in1;
+    in1 = in0;
+    in0 = spare;
+    spare = f;
+  }
+};
+
+// The producer's pass at a split width: each layer, w_conn and (with
+// `heads`) the branch, in the consumer's order (produce_pass's walk, each
+// trunk matrix fed once per output half from that half's columns).
+template <int W, int NB>
+__device__ __forceinline__ bool produce_pass_split(
+    const CUtensorMap* map_w, const CUtensorMap* map_br, const FwdShape& sh,
+    bool heads, unsigned char* ring, uint64_t* full, uint64_t* empty,
+    int n_stages, int& it, const volatile int* done) {
+  constexpr int Wh = W / 2;
+  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box,
+                  int col0) {
+    return feed_stages<Wh>(map, row, k, n_box, ring, full, empty, n_stages,
+                           it, done, col0);
+  };
+  const int DE = sh.d_enc_pad;
+  for (int n = 0; n < 2; ++n)                            // W_0
+    if (!feed(map_w, 0, DE, Wh / 64, n * Wh)) return false;
+  int row = DE;
+  for (int i = 1; i < sh.n_layers; ++i) {
+    const bool skip = (sh.skip_mask >> i) & 1;
+    for (int n = 0; n < 2; ++n) {
+      if (!feed(map_w, row, W, Wh / 64, n * Wh)) return false;  // W_i (h)
+      if (skip && !feed(map_w, row + W, DE, Wh / 64, n * Wh))  // its enc
+        return false;
+    }
+    row += W + (skip ? DE : 0);
+  }
+  if (!heads) return true;
+  for (int n = 0; n < 2; ++n)                            // w_conn
+    if (!feed(map_w, row + 1, W, Wh / 64, n * Wh)) return false;
+  return feed(map_br, 0, W, NB / 64, 0) &&               // w_branch_h
+         feed(map_br, W, sh.d_dir_pad, NB / 64, 0);      // w_branch_d
+}
+
+// One output half's epilogue of a split layer into t.out(n): the
+// warpgroup waits for the last acts store to have read its tile and for
+// every warp's products, writes, and (with map_acts) one thread stores the
+// half to acts (columns gcol ..., rows row0 ...) by TMA.
+template <int W>
+__device__ __forceinline__ void split_epilogue(
+    const float (&acc)[W / 4], const SplitActs<W>& t, int n,
+    const float* bias, bool relu, const bf16* w_sigma, float (&sig)[2],
+    int bar, bool lead, const CUtensorMap* map_acts, int gcol, int row0) {
+  unsigned char* out = t.out(n);
+  if (lead) bulk_wait_read<0>();
+  named_bar(bar, 128);
+  fwd_epilogue(acc, bias, ReluAct{relu}, out, w_sigma, sig);
+  fence_proxy_async();
+  named_bar(bar, 128);
+  if (lead && map_acts != nullptr) {
+    for (int q = 0; q < W / 128; ++q)
+      tma_store_2d(map_acts, out + q * kBlock, gcol + 64 * q, row0);
+    bulk_commit();
+  }
+}
+
+// The product of one output half over the input's two halves.
+template <int W>
+__device__ __forceinline__ void split_product(float (&acc)[W / 4],
+                                              const SplitActs<W>& t,
+                                              FwdRing& r) {
+  fwd_product(acc, smem_u32(t.tile(t.in0)), W / 2, true, r);
+  fwd_product(acc, smem_u32(t.tile(t.in1)), W / 2, false, r);
+}
+
+// fwd_trunk at a split width: the NeRF trunk (ReLU) over the consumer's 64
+// rows, its encodings at encx; ends with h_{L-1} in (t.in0, t.in1). sig,
+// map_acts, row0 and bar as fwd_trunk's.
+template <int W>
+__device__ __forceinline__ void fwd_trunk_split(
+    float (&acc)[W / 4], FwdRing& r, SplitActs<W>& t, uint32_t encx,
+    const FwdShape& sh, const float* b, const bf16* w_sigma,
+    float (&sig)[2], int bar, const CUtensorMap* map_acts, int row0) {
+  constexpr int Wh = W / 2;
+  const int L = sh.n_layers, DE = sh.d_enc_pad;
+  for (int i = 0; i < L; ++i) {
+    for (int n = 0; n < 2; ++n) {
+      if (i == 0) {
+        fwd_product(acc, encx, DE, true, r);
+      } else {
+        split_product<W>(acc, t, r);
+        if ((sh.skip_mask >> i) & 1) fwd_product(acc, encx, DE, false, r);
+      }
+      split_epilogue<W>(acc, t, n, b + i * W + n * Wh, true,
+                        i == L - 1 ? w_sigma + n * Wh : nullptr, sig, bar,
+                        r.lead, map_acts, i * W + n * Wh, row0);
+    }
+    t.advance();
+  }
+}
+
+// fwd_conn at a split width: feat = bf16(h_{L-1} @ w_conn + b_conn), in
+// (t.in0, t.in1) after it.
+template <int W>
+__device__ __forceinline__ void fwd_conn_split(float (&acc)[W / 4],
+                                               FwdRing& r, SplitActs<W>& t,
+                                               const float* b_conn,
+                                               int bar) {
+  float unused[2] = {0.f, 0.f};
+  for (int n = 0; n < 2; ++n) {
+    split_product<W>(acc, t, r);
+    split_epilogue<W>(acc, t, n, b_conn + n * (W / 2), false, nullptr,
+                      unused, bar, r.lead, nullptr, 0, 0);
+  }
+  t.advance();
+}
+
+// An accumulator set to 0 before its first product: the wgmma operands
+// read and write it ("+f"), so one left undefined in a loop body is live
+// across the iterations. In the split march the trunk's and the branch's
+// (128 registers each at W = 512) would then be live together and spill.
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// fwd_branch at a split width (feat in t.in0, t.in1).
+template <int W, int NB>
+__device__ __forceinline__ void fwd_branch_split(FwdRing& r,
+                                                 const SplitActs<W>& t,
+                                                 uint32_t encd, int DD,
+                                                 const bf16* w_conn,
+                                                 const float* b_conn,
+                                                 float (&rgb)[2][3]) {
+  float bacc[NB / 2];
+  zero_acc(bacc);
+  fwd_product(bacc, smem_u32(t.tile(t.in0)), W / 2, true, r);
+  fwd_product(bacc, smem_u32(t.tile(t.in1)), W / 2, false, r);
+  fwd_product(bacc, encd, DD, false, r);
+  branch_rgb<W, NB>(bacc, DD, w_conn, b_conn, rgb);
 }
 
 }  // namespace

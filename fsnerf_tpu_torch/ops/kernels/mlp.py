@@ -16,9 +16,10 @@ f32 sigmoid. Out [N, 4] float32 = rgb, sigma.
 The density pass (`nerf_density`, the occupancy grid refresh's workload)
 runs the trunk and the sigma head alone, with the same numerics, on the
 positional encodings only. Both kernels are the warp-specialized MLP of
-csrc/ws_trunk.cuh, built for the widths render.py::KERNEL_WIDTHS (a
-module's width up to 256 is packed at the next of them, render.py::
-kernel_width) and encodings as render.py::kernel_arch_error takes them.
+csrc/ws_trunk.cuh, built for the widths render.py::NERF_KERNEL_WIDTHS (a
+module's width up to 512 is packed at the next of them, render.py::
+nerf_kernel_width; 384 and 512 run the column-split trunk) and encodings
+as render.py::kernel_arch_error takes them.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
 `nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
@@ -38,14 +39,14 @@ import torch
 
 from ...core.encoding import encoded_dim, positional_encoding
 from .render import (_DENSITY_ACT, _round_up, kernel_arch_error,
-                     kernel_width, mlp_forward, pack_weights, sigma_head,
-                     trunk_forward, trunk_rows, unpack)
+                     mlp_forward, nerf_kernel_width, pack_weights,
+                     sigma_head, trunk_forward, trunk_rows, unpack)
 
 @dataclass(frozen=True)
 class MlpParams:
     """NeRF weights packed for nerf_mlp: wpack (bf16) and bpack (float32
     holding bf16-rounded values) as render.py::pack_weights, at the packed
-    width `width` (render.py::kernel_width of the module's), with the
+    width `width` (render.py::nerf_kernel_width of the module's), with the
     encoding rows zero-padded to d_enc_pad / d_dir_pad."""
 
     wpack: torch.Tensor
@@ -86,8 +87,8 @@ def prep_params(state_dict: Dict[str, torch.Tensor], n_layers: int = 8,
     d_dir = sd["branch.weight"].shape[1] - W
     de, dd = _round_up(d_enc, 64), _round_up(d_dir, 32)
     wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
-    return MlpParams(wpack, bpack, n_layers, skip, kernel_width(W), d_enc,
-                     d_dir, de, dd, W).to(device)
+    return MlpParams(wpack, bpack, n_layers, skip, nerf_kernel_width(W),
+                     d_enc, d_dir, de, dd, W).to(device)
 
 
 def pad_features(feat: torch.Tensor, d_pad: int) -> torch.Tensor:
@@ -132,10 +133,11 @@ def nerf_mlp_reference(encx, encd, params: MlpParams,
 def nerf_mlp(encx, encd, params: MlpParams,
              density_activation: str = "none") -> torch.Tensor:
     """The fused MLP: csrc/mlp.cu's nerf_mlp_kernel for CUDA tensors
-    (packed widths render.py::KERNEL_WIDTHS, d_enc_pad and d_dir_pad as
-    kernel_arch_error takes them: ValueError otherwise), nerf_mlp_reference for CPU
-    tensors; same arguments and return. Any N: the kernel predicates the
-    rows of its last 128-row tile. Counts its kernel launches in
+    (packed widths render.py::NERF_KERNEL_WIDTHS, d_enc_pad and d_dir_pad
+    as kernel_arch_error takes them: ValueError otherwise),
+    nerf_mlp_reference for CPU tensors; same arguments and return. Any N:
+    the kernel predicates the rows of its last 128-row (64-row at 384 and
+    512) tile. Counts its kernel launches in
     `nerf_mlp.launches`.
 
     Both run as the registered op `torch.ops.fsnerf_torch.nerf_mlp`, so a
@@ -287,8 +289,9 @@ def nerf_density_reference(encx, params: MlpParams,
 def nerf_density(encx, params: MlpParams,
                  density_activation: str = "none") -> torch.Tensor:
     """The density pass: csrc/mlp.cu's nerf_density_kernel for CUDA tensors
-    (packed widths render.py::KERNEL_WIDTHS, d_enc_pad up to
-    KERNEL_MAX_ENC: ValueError otherwise), nerf_density_reference for CPU tensors; same
+    (packed widths render.py::NERF_KERNEL_WIDTHS, d_enc_pad up to
+    KERNEL_MAX_ENC: ValueError otherwise), nerf_density_reference for CPU
+    tensors; same
     arguments and return. Any N. Counts its kernel launches in
     `nerf_density.launches`."""
     if encx.device.type == "cpu":

@@ -14,10 +14,12 @@ directions get no gradient.
 `mlp_train_fwd` / `mlp_train_bwd` launch csrc/mlp_train.cu for CUDA tensors
 and run `mlp_train_fwd_reference` / `mlp_train_bwd_reference` only for CPU
 tensors. Weights travel packed in the ray march's walk order
-(render.py::pack_weights) at the packed width (render.py::kernel_width);
+(render.py::pack_weights) at the packed width (render.py::nerf_kernel_width);
 gradients come back in the same packed layout, their padded entries
 exactly 0, and TrainLayout.grads_from_packed cuts them to the module's
-shapes.
+shapes. At the packed widths 384 and 512 the forward runs the column-split
+trunk of csrc/ws_trunk.cuh and the backward's row pass 64-row CTAs
+(bwd_rows); both write and read the same layouts as at the other widths.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...core.encoding import encoded_dim
-from .render import (_bf16, _round_up, enc_table, encode, heads_forward,
-                     kernel_arch_error, kernel_width, pack_weights,
-                     trunk_forward, unpack)
+from .render import (KERNEL_WIDTHS, _bf16, _round_up, enc_table, encode,
+                     heads_forward, kernel_arch_error, nerf_kernel_width,
+                     pack_weights, trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 # weight-gradient output tile: input dims x output dims
@@ -40,19 +42,30 @@ DW_TILE_M, DW_TILE_N, DW_BK = 128, 256, 64
 SPLIT_ROWS = 8192       # rows per weight-gradient split, a multiple of DW_BK
 
 
-def bwd_rows_smem_bytes(width: int, d_dir_pad: int) -> int:
-    """Shared memory of kernel 6's row pass (csrc/mlp_train.cu
-    smem_bytes): two activation buffers and the direction encoding (rows
-    padded by 8), the weight ring, the heads' and the column sums' floats."""
-    return (2 * ROWS * (2 * width + d_dir_pad + 24) + 3 * 128 * 128 + 1024
-            + 4 * (7 * ROWS + 8 * width))
+def bwd_rows(width: int) -> int:
+    """Kernel 6's row pass's rows per CTA at a packed width (csrc/
+    mlp_train.cu bwd_rows): ROWS, or 64 at the split widths, where two
+    128-row activation buffers would not fit in shared memory."""
+    return ROWS if width <= KERNEL_WIDTHS[-1] else 64
+
+
+def bwd_rows_smem_bytes(width: int, d_dir_pad: int,
+                        rows: Optional[int] = None) -> int:
+    """Shared memory of kernel 6's row pass over `rows` rows a CTA
+    (default bwd_rows(width); csrc/mlp_train.cu smem_bytes): two activation
+    buffers and the direction encoding (rows padded by 8), the weight ring,
+    the heads' floats and one row of column sums per warp of 2 rows
+    threads."""
+    R = bwd_rows(width) if rows is None else rows
+    return (2 * R * (2 * width + d_dir_pad + 24) + 3 * 128 * 128 + 1024
+            + 4 * (7 * R + R // 16 * width))
 
 
 @dataclass(frozen=True)
 class TrainLayout:
     """The NeRF architecture the train kernels are built for: `width` the
-    packed width (render.py::kernel_width of the module's), model_width the
-    module's (None: width)."""
+    packed width (render.py::nerf_kernel_width of the module's),
+    model_width the module's (None: width)."""
 
     n_layers: int
     skip: Tuple[int, ...]
@@ -134,7 +147,7 @@ class TrainLayout:
     def of_module(n_layers: int, skip: Tuple[int, ...], width: int,
                   n_freqs: int, n_freqs_views: int) -> "TrainLayout":
         """The layout of a NeRF module `width` wide, at the packed width."""
-        return TrainLayout(n_layers, tuple(skip), kernel_width(width),
+        return TrainLayout(n_layers, tuple(skip), nerf_kernel_width(width),
                            n_freqs, n_freqs_views, width)
 
     @staticmethod
@@ -514,8 +527,8 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
                      device=dev)
     dy = torch.empty((n_pad, lay.n_layers * W + W + Wh + 16),
                      dtype=torch.bfloat16, device=dev)
-    pbias = torch.empty((n_pad // ROWS, lay.n_b), dtype=torch.float32,
-                        device=dev)
+    pbias = torch.empty((n_pad // bwd_rows(W), lay.n_b),
+                        dtype=torch.float32, device=dev)
     jobs, tiles = dw_plan(tuple(dw_jobs(lay)), str(dev))
     part = torch.empty((-(-n_pad // SPLIT_ROWS), lay.n_w),
                        dtype=torch.float32, device=dev)

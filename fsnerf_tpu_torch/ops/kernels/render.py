@@ -14,17 +14,25 @@ depth, trans_final, 0, 0; the background is blended by the caller.
 
 `ray_march` launches csrc/render.cu for CUDA tensors (the NeRF march on
 the warp-specialized MLP of csrc/ws_trunk.cuh, which is built for the
-widths KERNEL_WIDTHS) and runs
+widths NERF_KERNEL_WIDTHS) and runs
 `ray_march_reference` only for CPU tensors. The two share one signature,
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
 
-Every packer lays the weights out at `kernel_width(W)`: a module's width W
-up to 256 pads to the next of KERNEL_WIDTHS with zero columns (and zero
-biases), the next matrix reading them through zero rows, so the padded
-units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and the real
-outputs gain only exact zero products; the plain versions run the padded
-pack as the kernels do.
+Every packer lays the weights out at the packed width: a NeRF module's
+width W up to 512 pads to the next of NERF_KERNEL_WIDTHS
+(`nerf_kernel_width`), a SiNeRF's up to 256 to the next of KERNEL_WIDTHS
+(`kernel_width`), with zero columns (and zero biases), the next matrix
+reading them through zero rows, so the padded units' activations are
+exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and the real outputs gain only exact
+zero products; the plain versions run the padded pack as the kernels do.
+
+The early exit's blocking is the same at every width: at the packed widths
+384 and 512 the kernel runs each block x chunk step (up to 128 rows) as two
+64-row halves on one consumer warpgroup, but decides the skip once per
+step, over all its rays and samples, as the other widths and the TPU
+kernel do; so ray_march_reference's block x chunk loop is the kernel's at
+every width.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
@@ -47,7 +55,8 @@ _DENSITY_ACT = {"none": 0, "relu": 1, "trunc_exp": 2}
 KERNEL_ROWS = 128
 # the widths the warp-specialized kernels (csrc/ws_trunk.cuh: the NeRF ray
 # march, forward MLP, density pass and train forward, the SIREN forward,
-# march and saved-mode backward) are built for, and their widest encoding
+# march and saved-mode backward) are built for with whole-row consumers,
+# and their widest encoding
 KERNEL_WIDTHS = (64, 128, 192, 256)
 KERNEL_MAX_ENC = 256
 # ... at width 256, the widest direction encoding: a 2-stage ring beside
@@ -55,6 +64,16 @@ KERNEL_MAX_ENC = 256
 # kernel 6's row pass stages the direction encoding (mlp_train.py::
 # bwd_rows_smem_bytes)
 KERNEL_MAX_DIR_AT_256 = 128
+# the NeRF kernels' widths: KERNEL_WIDTHS and, on the column-split trunk
+# (one 64-row consumer, each layer as two column halves; kernel 6's row
+# pass on 64-row CTAs), 384 and 512. There both encodings reach
+# KERNEL_MAX_ENC: the shells fit a 2-stage ring beside 8 encoding blocks
+# at 512 (shell_smem_bytes(512, 256, 256) = 230,448 bytes), the 64-row
+# pass a 256-wide direction encoding (bwd_rows_smem_bytes(512, 256) =
+# 227,072). Above 512 the input and output activation tiles of one 64-row
+# warpgroup (192 KB at 768) leave no room for the weight ring.
+SPLIT_WIDTHS = (384, 512)
+NERF_KERNEL_WIDTHS = KERNEL_WIDTHS + SPLIT_WIDTHS
 SMEM_LIMIT = 227 * 1024          # an H100 block's shared memory, bytes
 
 
@@ -63,10 +82,20 @@ def _round_up(x: int, m: int) -> int:
 
 
 def kernel_width(width: int) -> int:
-    """The width the packers lay a module of `width` out at: the smallest
-    of KERNEL_WIDTHS that holds it, else (above 256) the next multiple of 32
-    (the mma.sync SIREN kernels' step; the NeRF kernels refuse it)."""
+    """The width the SiNeRF packers lay a module of `width` out at: the
+    smallest of KERNEL_WIDTHS that holds it, else (above 256) the next
+    multiple of 32 (the mma.sync SIREN kernels' step)."""
     for w in KERNEL_WIDTHS:
+        if width <= w:
+            return w
+    return _round_up(width, 32)
+
+
+def nerf_kernel_width(width: int) -> int:
+    """The width the NeRF packers lay a module of `width` out at: the
+    smallest of NERF_KERNEL_WIDTHS that holds it, else (above 512, where
+    the kernels refuse it) the next multiple of 32."""
+    for w in NERF_KERNEL_WIDTHS:
         if width <= w:
             return w
     return _round_up(width, 32)
@@ -76,8 +105,13 @@ def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
                      n_stages: int = 2) -> int:
     """Shared memory of a warp-specialized NeRF shell with a ring of
     n_stages (csrc/ws_trunk.cuh fwd_smem_bytes, plus the largest shell's
-    16 extra bytes)."""
+    16 extra bytes): two consumers' tiles of 64 x width, or above 256 the
+    column-split trunk's one consumer, stages of 64 x width / 2 and three
+    activation tiles of 64 x width / 2."""
     blocks = -(-d_enc_pad // 64) + -(-d_dir_pad // 64)
+    if width > KERNEL_WIDTHS[-1]:
+        return (1024 + (n_stages + 3) * width // 2 * 128
+                + blocks * 64 * 64 * 2 + 2 * n_stages * 8 + 16)
     return (1024 + (n_stages + 2) * width * 128 + 2 * blocks * 64 * 64 * 2
             + 2 * n_stages * 8 + 16)
 
@@ -85,17 +119,36 @@ def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
 def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
                       what: str = "kernels") -> Optional[str]:
     """Why the warp-specialized NeRF kernels (`what`) refuse a packed
-    width (kernel_width's) and padded encoding widths, or None if they take
-    them."""
+    width (nerf_kernel_width's) and padded encoding widths, or None if they
+    take them."""
     max_dir = KERNEL_MAX_DIR_AT_256 if width == 256 else KERNEL_MAX_ENC
-    if (width in KERNEL_WIDTHS and d_enc_pad <= KERNEL_MAX_ENC
+    if (width in NERF_KERNEL_WIDTHS and d_enc_pad <= KERNEL_MAX_ENC
             and d_dir_pad <= max_dir):
         return None
-    return (f"the {what} take widths up to {KERNEL_WIDTHS[-1]} (laid out "
-            f"at {KERNEL_WIDTHS}) and encodings up to {KERNEL_MAX_ENC} wide "
-            f"(at width 256 a direction encoding up to "
-            f"{KERNEL_MAX_DIR_AT_256}: shared memory), not width {width} "
-            f"with encodings {d_enc_pad} / {d_dir_pad}")
+    return (f"the {what} take widths up to {NERF_KERNEL_WIDTHS[-1]} (laid "
+            f"out at {NERF_KERNEL_WIDTHS}; above "
+            f"{NERF_KERNEL_WIDTHS[-1]} one 64-row warpgroup's activation "
+            f"tiles leave no shared memory for the weight ring) and "
+            f"encodings up to {KERNEL_MAX_ENC} wide (at width 256 a "
+            f"direction encoding up to {KERNEL_MAX_DIR_AT_256}: shared "
+            f"memory), not width {width} with encodings {d_enc_pad} / "
+            f"{d_dir_pad}")
+
+
+def march_chunk_error(width: int, block_rows: int,
+                      chunk_s: int) -> Optional[str]:
+    """Why the NeRF march refuses a blocking at a packed width, or None:
+    at most KERNEL_ROWS rows a chunk step, and at the split widths (run as
+    64-row halves, each holding whole rays) a chunk_s that divides 64 when
+    the step has more than 64 rows."""
+    if block_rows * chunk_s > KERNEL_ROWS:
+        return f"block_rows * chunk_s must be <= {KERNEL_ROWS}"
+    if (width in SPLIT_WIDTHS and block_rows * chunk_s > 64
+            and 64 % chunk_s):
+        return (f"at width {width} a chunk step of more than 64 rows runs "
+                f"as 64-row halves of whole rays: chunk_s must divide 64, "
+                f"not {chunk_s}")
+    return None
 
 
 def trunk_rows(n_layers: int, skip: Tuple[int, ...], width: int,
@@ -162,11 +215,11 @@ def pack_weights(sd: Dict[str, torch.Tensor], n_layers: int,
                  width: Optional[int] = None):
     """(wpack bf16, bpack float32 holding bf16-rounded values) of a
     reference-keyed NeRF state dict in the walk order of RayMarchParams at
-    `width` (default kernel_width of the module's), on the state dict's
+    `width` (default nerf_kernel_width of the module's), on the state dict's
     device: the trunk's, the connection's and the branch's units past the
     module's are zero columns with zero biases, read by zero rows."""
     W = sd["layers.0.weight"].shape[0]
-    K = kernel_width(W) if width is None else width
+    K = nerf_kernel_width(W) if width is None else width
     Kh = K // 2
 
     mats, biases = [], []
@@ -220,7 +273,7 @@ def prep_params(
     device=None,
 ) -> RayMarchParams:
     """Pack a reference-keyed NeRF state dict (core/models.py) for
-    ray_march."""
+    ray_march, at nerf_kernel_width of its width."""
     skip = tuple(skip)
     if skip and max(skip) >= n_layers - 1:
         raise ValueError(
@@ -239,9 +292,9 @@ def prep_params(
     de, dd = _round_up(d_enc, 16), _round_up(d_dir, 16)
     wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
     enc = enc_table(n_freqs, n_freqs_views, log_space, pos_mask, dir_mask)
-    return RayMarchParams(wpack, bpack, enc, n_layers, skip, kernel_width(W),
-                          n_freqs, n_freqs_views, de, dd,
-                          density_activation, W).to(device)
+    return RayMarchParams(wpack, bpack, enc, n_layers, skip,
+                          nerf_kernel_width(W), n_freqs, n_freqs_views, de,
+                          dd, density_activation, W).to(device)
 
 
 def unpack(wflat: torch.Tensor, bflat: torch.Tensor, n_layers: int,
@@ -405,7 +458,9 @@ def _march(x, dirs, t, deltas, mask, block_rows: int, chunk_s: int,
 def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
                         block_rows: int, chunk_s: int,
                         early_stop_eps: float = 1e-4):
-    """Plain PyTorch version of the ray-march kernel.
+    """Plain PyTorch version of the ray-march kernel, with its blocking at
+    every packed width (one skip decision per block x chunk step; the
+    kernel's 64-row halves at 384 and 512 change no result).
 
     Args:
       x [R, K, 3], dirs [R, 3], t/deltas/mask [R, K] float32, R a multiple
@@ -431,14 +486,17 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
 def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
               block_rows: int, chunk_s: int, early_stop_eps: float = 1e-4):
     """The ray march: csrc/render.cu's nerf_march_kernel for CUDA tensors
-    (packed widths KERNEL_WIDTHS, encodings as kernel_arch_error takes them:
-    ValueError otherwise), ray_march_reference for CPU tensors. Same arguments and
-    returns as ray_march_reference. Counts its kernel launches in
+    (packed widths NERF_KERNEL_WIDTHS, encodings as kernel_arch_error and
+    blockings as march_chunk_error take them: ValueError otherwise),
+    ray_march_reference for CPU tensors. Same arguments and returns as
+    ray_march_reference. Counts its kernel launches in
     `ray_march.launches`."""
     if x.device.type == "cpu":
         return ray_march_reference(x, dirs, t, deltas, mask, params,
                                    block_rows, chunk_s, early_stop_eps)
-    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
+    err = (kernel_arch_error(params.width, params.d_enc_pad,
+                             params.d_dir_pad)
+           or march_chunk_error(params.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"ray_march: {err}")
     stats, steps = _launch_march(

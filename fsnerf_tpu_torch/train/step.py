@@ -115,12 +115,14 @@ def fused_kernels_wanted(cfg, device) -> bool:
 
 def kernels_refusal(cfg, device) -> Optional[str]:
     """Why the card's kernels refuse cfg's architecture on `device`, or
-    None. They take every width up to 256 (packed at ops/kernels/render.py::
-    kernel_width) and encodings up to 256 wide, save at width 256 a
-    direction encoding over 128 (render.py::kernel_arch_error); a NeRF or
-    SiNeRF wider than 256 is refused (the NeRF trunk's accumulators, the
-    SIREN backward's shared memory: siren.py::SIREN_MAX_WIDTH). On the CPU
-    their plain versions take any architecture."""
+    None. The NeRF kernels take every width up to 512 (packed at
+    ops/kernels/render.py::nerf_kernel_width: 384 and 512 on the
+    column-split trunk) and encodings up to 256 wide, save at width 256 a
+    direction encoding over 128 (render.py::kernel_arch_error); the SIREN
+    kernels every width up to 256 (render.py::kernel_width). A wider NeRF
+    (one 64-row warpgroup's activation tiles fill shared memory) or SiNeRF
+    (the SIREN backward's shared memory: siren.py::SIREN_MAX_WIDTH) is
+    refused. On the CPU their plain versions take any architecture."""
     if torch.device(device).type != "cuda":
         return None
     from ..ops.kernels.render import kernel_width

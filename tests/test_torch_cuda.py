@@ -6,12 +6,13 @@ executed-step counts. Forward MLP (mlp.cu): rgb within 5e-3 and sigma
 within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
 for the three density activations, row counts that are not a multiple of
 the 128-row tile and each width the warp-specialized kernel is built for
-(64, 128, 192, 256; every width up to 256 is packed at the next of them
-with zero units, 320 refused by name); two runs bitwise equal. Train
+(64, 128, 192, 256, and 384 and 512 on the column-split trunk; every
+width up to 512 is packed at the next of them with zero units, 600
+refused by name); two runs bitwise equal. Train
 forward/backward (mlp_train.cu): rgb within 5e-3 and sigma within 2e-2 of
 max |sigma| (the fused-MLP tolerances of tests/test_pallas.py), out and
 acts bitwise repeatable and acts within one bf16 step (plus 1e-3 of the
-largest) of the plain version's, widths above 256 and at 256 a direction
+largest) of the plain version's, widths above 512 and at 256 a direction
 encoding over 128 refused, every weight and bias gradient within 2e-2 of
 that tensor's max |plain gradient| (the kernels sum in another order, and
 each cotangent is rounded to bf16 before its products, so a rounding flip can
@@ -32,14 +33,16 @@ runs the mma.sync forward, 512 is refused by name. SIREN ray march
 (render.cu): the ray march's tolerances and equal executed-step counts,
 bitwise repeatable, at widths 64, 128, 192 and 256 (the warp-specialized
 march) and 320 (the mma.sync one). Kernels 1-8 at widths that are not
-their own (NeRF 40, 96, 200; SiNeRF 40, 100) and with encodings up to
-256 wide, the packed gradients' padded entries exactly 0. Density pass
+their own (NeRF 40, 96, 200, 300, 400, 512; SiNeRF 40, 100) and with
+encodings up to 256 wide, the packed gradients' padded entries exactly 0;
+the NeRF train kernels' gradients bitwise repeatable at 512 too. Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
 runs bitwise equal, at each width the warp-specialized kernel is built for
-(64, 128, 192, 256; the NeRF march the same, over the block x chunk shapes
-the renderer admits), and both refuse width 320, where a CLI run trains
-through the module instead and prints so. Compositing (volrend.cu): rgb,
+(64, 128, 192, 256, 384, 512; the NeRF march the same, over the block x
+chunk shapes the renderer admits), and both refuse width 600, where a CLI
+run trains through the module instead and prints so. Compositing
+(volrend.cu): rgb,
 opacity, depth, weights and trans_final within rtol 1e-5 and atol 1e-6
 (tests/test_pallas.py's volrend tolerance) of ops/volrend.py::
 volume_render, taken of |want| for
@@ -52,7 +55,8 @@ Graphed training (train/step.py::make_train_chunk): train() from CUDA-graph
 replays against the same run by eager steps, bitwise (weights, Adam's
 moments, every grid tensor, the generator, the logged metrics and the
 kernels' launch counts), for the NeRF occgrid path, SiNeRF, the
-hierarchical path, a width the kernels refuse, the few-shot recipe with
+hierarchical path, width 320 (the column-split kernels at 384), a width
+the kernels refuse, the few-shot recipe with
 its validations and a resume from a checkpoint, and train_scanned; a
 ladder change that captures a new rung's graphs, and a capture that fails
 raising.
@@ -150,7 +154,7 @@ def test_wrapper_counts_launches_and_validates(cuda):
         kr.ray_march(x_strided, *padded[1:], params, bR, cs)
 
 
-@pytest.mark.parametrize("width", [64, 128, 192, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
 @pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
 @pytest.mark.parametrize("K", [12, 48, 192])
 @pytest.mark.parametrize("block_rows,chunk_s", [(16, 8), (8, 8), (10, 4),
@@ -178,24 +182,30 @@ def test_nerf_march_matches_plain_over_blocks_and_chunks(
 
 
 def test_kernels_refuse_widths_they_are_not_built_for(cuda):
-    """The NeRF march and the density pass take every width up to 256
-    (packed at 64, 128, 192 or 256) and refuse 320 by name, launching
-    nothing."""
-    sd = state_dict_from_jax(nerf_params_np(22, d_filter=320, **SMALL))
+    """The NeRF march and the density pass take every width up to 512
+    (packed at 64, 128, 192, 256, 384 or 512) and refuse 600 by name,
+    launching nothing; at 512 the march refuses a chunk of 6 samples in a
+    step of more than 64 rows (its halves hold whole rays)."""
+    sd = state_dict_from_jax(nerf_params_np(22, d_filter=600, **SMALL))
     params = kr.prep_params(sd, **SMALL, device=cuda)
-    assert params.width == 320
+    assert params.width == 608
     padded, bR, cs = kr.pad_for_march(*march_inputs(seed=5, R=16, K=16))
     before = (kr.ray_march.launches, km.nerf_density.launches)
-    with pytest.raises(ValueError, match="take widths up to 256"):
+    with pytest.raises(ValueError, match="take widths up to 512"):
         kr.ray_march(*(p.to(cuda) for p in padded), params, bR, cs)
-    encx, dparams = _density_case(22, 320, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths up to 256"):
+    encx, dparams = _density_case(22, 600, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 512"):
         km.nerf_density(encx, dparams)
+    wide = kr.prep_params(state_dict_from_jax(
+        nerf_params_np(22, d_filter=512, **SMALL)), **SMALL, device=cuda)
+    padded, _, _ = kr.pad_for_march(*march_inputs(seed=5, R=16, K=12))
+    with pytest.raises(ValueError, match="chunk_s must divide 64"):
+        kr.ray_march(*(p.to(cuda) for p in padded), wide, 16, 6)
     assert (kr.ray_march.launches, km.nerf_density.launches) == before
 
 
 def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
-    """--d_filter 320: the MLP routes resolve to the module on the card (no
+    """--d_filter 600: the MLP routes resolve to the module on the card (no
     train, density, march or forward-MLP kernel launches), the run prints
     the one line that says so, and it trains and evaluates instead of
     raising."""
@@ -206,7 +216,7 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     launches = (mt.mlp_train_fwd.launches, km.nerf_density.launches,
                 kr.ray_march.launches, km.nerf_mlp.launches)
     rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
-                   "--n_layers", "4", "--d_filter", "320", "--skip", "1",
+                   "--n_layers", "4", "--d_filter", "600", "--skip", "1",
                    "--grid_resolution", "16", "--n_samples", "64",
                    "--n_iters", "20", "--batch_size", "256", "--white_bkgd",
                    "--debug"])
@@ -215,7 +225,7 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     out = json.loads(captured.out.strip().splitlines()[-1])
     assert out["steps"] == 20 and out["device"] != "cpu"
     assert out["psnr"] == out["psnr"] and out["rays_per_sec"] > 0
-    assert "nerf width 320 trains and renders through the module" in \
+    assert "nerf width 600 trains and renders through the module" in \
         captured.err
     assert (mt.mlp_train_fwd.launches, km.nerf_density.launches,
             kr.ray_march.launches, km.nerf_mlp.launches) == launches
@@ -275,6 +285,22 @@ def test_train_kernels_small_ragged_masked(cuda):
     _check_train(params, x, d, target)
 
 
+def test_split_train_grads_bitwise_repeatable(cuda):
+    """At 512 (the column-split forward, the 64-row row pass, twice the
+    bias partials): two runs bitwise equal, saved == recompute."""
+    params = _train_params(8, 512, FULL, cuda)
+    x, d, target = (a.to(cuda) for a in mlp_inputs(20_000, seed=3))
+    dout = mse_cotangent(mt.mlp_train_fwd(x, d, params)[0], target)
+    runs = []
+    for _ in range(2):
+        _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+        runs.append(mt.mlp_train_bwd(x, d, dout, params, acts))
+    runs.append(mt.mlp_train_bwd(x, d, dout, params, None))
+    torch.cuda.synchronize()
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_train_grads_bitwise_repeatable(cuda):
     params = _train_params(8, 256, FULL, cuda)
     x, d, target = (a.to(cuda) for a in mlp_inputs(20_000, seed=3))
@@ -332,10 +358,10 @@ def test_train_forward_matches_plain(cuda, arch, n, masked):
 
 
 def test_train_kernels_refuse_what_they_are_not_built_for(cuda):
-    """Widths above 256, and at width 256 a direction encoding wider than
+    """Widths above 512, and at width 256 a direction encoding wider than
     128 (21 bands: 144), raise by name before a launch, in the forward and
     in both backward modes."""
-    for width, spec in ((320, SMALL), (512, SMALL),
+    for width, spec in ((520, SMALL), (600, SMALL),
                         (256, dict(FULL, n_freqs_views=21))):
         params = _train_params(12, width, spec, cuda)
         x, d, target = (a.to(cuda) for a in mlp_inputs(200, seed=7))
@@ -541,7 +567,7 @@ def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 393_216])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 192, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
 def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
     """The warp-specialized forward MLP at each width of NeRF 8 layers,
     skip (4,), n_freqs 10/4 (a 32-wide direction encoding), with and
@@ -556,10 +582,10 @@ def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
 
 
 def test_nerf_mlp_refuses_widths_it_is_not_built_for(cuda):
-    """nerf_mlp takes every width up to 256, as the other NeRF kernels,
-    and refuses 320 by name."""
-    encx, encd, params = _mlp_case(18, 320, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths up to 256"):
+    """nerf_mlp takes every width up to 512, as the other NeRF kernels,
+    and refuses 600 by name."""
+    encx, encd, params = _mlp_case(18, 600, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 512"):
         km.nerf_mlp(encx, encd, params)
 
 
@@ -836,17 +862,19 @@ def _band_mask(n_bands, cuda):
 @pytest.mark.parametrize("width,spec", [
     (40, SMALL), (96, SMALL), (200, FULL), (256, dict(FULL, n_freqs=21)),
     (192, dict(SMALL, n_freqs=42, n_freqs_views=42)),
-    (256, dict(SMALL, n_freqs=42, n_freqs_views=20))])
+    (256, dict(SMALL, n_freqs=42, n_freqs_views=20)), (300, FULL),
+    (512, FULL), (512, dict(FULL, n_freqs=21)),
+    (400, dict(SMALL, n_freqs=42, n_freqs_views=42))])
 def test_nerf_kernels_at_padded_widths(cuda, width, spec):
     """Kernels 1 and 3-6 at widths that are not their own (packed at the
-    next of 64, 128, 192, 256 with zero units) and with encodings up to
-    256 wide, against their plain versions at the tolerances above; the
-    packed weight and bias gradients exactly 0 in every padded entry."""
+    next of 64, 128, 192, 256, 384, 512 with zero units) and with encodings
+    up to 256 wide, against their plain versions at the tolerances above;
+    the packed weight and bias gradients exactly 0 in every padded entry."""
     pm, dm = _band_mask(spec["n_freqs"], cuda), \
         _band_mask(spec["n_freqs_views"], cuda)
     encx, encd, params = _mlp_case(31, width, spec, 3000, cuda, pm.cpu(),
                                    dm.cpu())
-    assert params.width == kr.kernel_width(width)
+    assert params.width == kr.nerf_kernel_width(width)
     _check_mlp(encx, encd, params, "none")
     dens, dparams = _density_case(31, width, spec, 3000, cuda, pm)
     got, ref = km.nerf_density(dens, dparams), \
@@ -904,7 +932,7 @@ def test_nerf_density_matches_plain(cuda, act, width, arch, n):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 262_144])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 192, 256])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
 def test_nerf_density_matches_plain_at_each_width(cuda, width, act, n,
                                                  masked):
     """The warp-specialized density pass at each width of NeRF 8 layers,
@@ -1236,22 +1264,23 @@ def _graph_log(caplog):
 
 
 @pytest.mark.parametrize("case", ["occgrid", "sinerf", "hierarchical",
-                                  "width96", "width320"])
+                                  "width96", "width320", "width600"])
 def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     """300 steps of train() from CUDA-graph replays against the same run
     by eager steps, bitwise: the NeRF occgrid path through the warmup's
     all-cell refreshes and the four parts at both intervals, SiNeRF
     (its refresh on the module), the hierarchical path (its sorts and
     scatters), width 96 (the kernels at the packed width 128) and a width
-    the kernels refuse (320: the module route, cuBLAS in the graphs). The
-    logged metrics and the kernels' launch counts are the eager run's
-    too."""
+    the kernels at the split width 384 (320) and a width the kernels
+    refuse (600: the module route, cuBLAS in the graphs). The logged
+    metrics and the kernels' launch counts are the eager run's too."""
     import logging
 
     cfg = {"occgrid": _graph_cfg(), "sinerf": _graph_cfg("sinerf"),
            "hierarchical": _graph_cfg(strategy="hierarchical"),
            "width96": _graph_cfg(width=96),
-           "width320": _graph_cfg(width=320)}[case]
+           "width320": _graph_cfg(width=320),
+           "width600": _graph_cfg(width=600)}[case]
     caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
     g, g_logs, g_launches = _train_run(cfg, cuda, graphs=None)
     rungs = _graph_log(caplog)
@@ -1260,7 +1289,7 @@ def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     assert g_logs == e_logs
     assert g_launches == e_launches
     assert rungs and not _graph_log(caplog)[len(rungs):]
-    if case == "width320":
+    if case == "width600":
         assert not any(g_launches[k] for k in (
             "mlp_train_fwd", "nerf_density", "siren_mlp_fwd"))
     elif case == "sinerf":
@@ -1483,10 +1512,10 @@ def test_export_roundtrip_on_the_card(cuda, tmp_path, model):
     assert (rgb == rgb_ref.cpu().numpy()).all()
     assert (depth == depth_ref.cpu().numpy()).all()
     if model == "nerf":
-        sd320 = state_dict_from_jax(nerf_params_np(3, d_filter=320,
+        sd600 = state_dict_from_jax(nerf_params_np(3, d_filter=600,
                                                    **SMALL))
         wide = make_chunk_renderer(
-            km.make_fused_model_fn(sd320, **SMALL, device=cuda), **kw)
-        with pytest.raises(Exception, match="take widths up to 256"):
+            km.make_fused_model_fn(sd600, **SMALL, device=cuda), **kw)
+        with pytest.raises(Exception, match="take widths up to 512"):
             export.export_render_artifact(wide, chunk, str(tmp_path / "b"),
                                           hwf=hwf, near=2.0, far=6.0)

@@ -385,12 +385,14 @@ def test_resolve_fused_kernel_by_device():
     on = cfg.replace(model=dataclasses.replace(cfg.model, fused_kernel=True))
     assert step.resolve_fused_kernel(on, "cpu")
     for change in (dict(density_activation="relu"), dict(skip=(7,)),
-                   dict(d_filter=320)):
+                   dict(d_filter=520)):
         off = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert not step.resolve_fused_kernel(off, "cuda")
-    # any width up to 256 (padded to the kernels' widths) takes them
-    odd = cfg.replace(model=dataclasses.replace(cfg.model, d_filter=48))
-    assert step.resolve_fused_kernel(odd, "cuda")
+    # any width up to 512 (padded to the kernels' widths) takes them
+    for width in (48, 320):
+        odd = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    d_filter=width))
+        assert step.resolve_fused_kernel(odd, "cuda")
     with pytest.raises(ValueError):
         step.make_loss_fn(None, cfg.replace(sampling=dataclasses.replace(
             cfg.sampling, strategy="uniform")), SphereScene(1, 4), "cpu")
@@ -404,11 +406,11 @@ def _arch(cfg, **change):
                        encoder=dataclasses.replace(cfg.encoder, **enc))
 
 
-@pytest.mark.parametrize("change", [dict(d_filter=320), dict(d_filter=512),
+@pytest.mark.parametrize("change", [dict(d_filter=520), dict(d_filter=600),
                                     dict(n_freqs_views=21)])
 def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
     """On the card the NeRF MLP routes (train, density, march) resolve off
-    only for what the kernels refuse by name: a width above 256, or at
+    only for what the kernels refuse by name: a width above 512, or at
     width 256 a direction encoding wider than 128 (21 bands: 144 columns).
     Such a config trains and evaluates through the module, and building
     its step prints the one line that says so; the compositing kernel
@@ -429,7 +431,7 @@ def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
         mt.TrainLayout.from_config(cfg, "cuda")
     lay = mt.TrainLayout.from_config(cfg, "cpu")
     assert lay.model_width == cfg.model.d_filter
-    assert lay.width == kr.kernel_width(cfg.model.d_filter)
+    assert lay.width == kr.nerf_kernel_width(cfg.model.d_filter)
     model = make_model(cfg, torch.float32, torch.Generator().manual_seed(0))
     assert cli.make_fused_render_fn(model.state_dict(), cfg,
                                     device="cuda") is None

@@ -1,10 +1,12 @@
-"""The kernels' packers at widths that are not the kernels' own: a NeRF or
-SiNeRF of width W up to 256 is packed at render.py::kernel_width(W) (the
-next of 64, 128, 192, 256) with zero units, and the plain versions run that
+"""The kernels' packers at widths that are not the kernels' own: a NeRF
+of width W up to 512 is packed at render.py::nerf_kernel_width(W) (the next
+of 64, 128, 192, 256, 384, 512; 384 and 512 run the column-split trunk on
+the card), a SiNeRF up to 256 at render.py::kernel_width(W) (the next of
+64, 128, 192, 256), with zero units, and the plain versions run that
 padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
 kernels take any width (interpret mode, as tests/test_pallas.py runs them
 on the CPU), with NeRF 4 layers, skip (2,), n_freqs 4/2 and SiNeRF 4
-layers, 128 seeded rows. The file takes ~50 s alone, most of it the JAX
+layers, 128 seeded rows. The file takes ~80 s alone, most of it the JAX
 side's interpret-mode traces.
 
 Tolerances, the same as at the kernels' own widths: the forward MLP and
@@ -31,7 +33,7 @@ from fsnerf_tpu.config import EncoderConfig as JEncoderConfig
 from fsnerf_tpu.config import ModelConfig as JModelConfig
 from fsnerf_tpu.core.encoding import positional_encoding as jencode
 from fsnerf_tpu.ops.pallas import siren as jsiren
-from fsnerf_tpu.ops.pallas.mlp import fused_nerf_mlp
+from fsnerf_tpu.ops.pallas.mlp import fused_density, fused_nerf_mlp
 from fsnerf_tpu.ops.pallas.mlp import prep_params as jprep
 from fsnerf_tpu.ops.pallas.mlp_train import make_fused_train_model_fn as jtrain
 from fsnerf_tpu.ops.pallas.render import make_fused_ray_renderer as jmarch
@@ -44,6 +46,7 @@ from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
 from fsnerf_tpu_torch.ops.kernels import render as kr
 from fsnerf_tpu_torch.ops.kernels import siren as ks
 from fsnerf_tpu_torch.render import renderer
+from fsnerf_tpu_torch.train import step
 from fsnerf_tpu_torch.utils.interop import state_dict_from_jax
 from test_torch_render import FUSED, KW, _close, _grids
 from torch_parity import (mlp_inputs, mse_cotangent, nerf_params_np,
@@ -65,7 +68,8 @@ def _close_out(got, want):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("width,packed", [(40, 64), (96, 128), (200, 256)])
+@pytest.mark.parametrize("width,packed", [(40, 64), (96, 128), (200, 256),
+                                          (300, 384), (512, 512)])
 def test_forward_mlp_padded_matches_pallas(width, packed):
     """Kernel 3's plain version on the padded pack against the JAX fused
     forward MLP at the module's own width, 128 rows (one JAX block)."""
@@ -90,7 +94,7 @@ def _train_cfg(width):
         encoder=EncoderConfig(n_freqs=4, n_freqs_views=2))
 
 
-@pytest.mark.parametrize("width", [40, 96])
+@pytest.mark.parametrize("width", [40, 96, 300, 512])
 def test_train_mlp_padded_matches_pallas(width):
     """Kernels 5 and 6's plain versions on the padded pack through the
     autograd Function against the JAX custom VJP at the module's width: the
@@ -131,17 +135,18 @@ def _padded_masks(pack_fn, sd):
     return w.float() == 0, b == 0
 
 
-@pytest.mark.parametrize("width", [40, 96])
+@pytest.mark.parametrize("width", [40, 96, 300, 512])
 def test_nerf_padded_gradients_are_exactly_zero(width):
     """Kernel 6's plain version in both modes: every padded entry of the
     packed dW and db is 0, the saved trunk activations' padded columns too,
-    and the real entries are not all 0."""
+    and the real entries are not all 0 (at 512, the packed width itself,
+    only the encodings' rows are padded)."""
     lay = mt.TrainLayout.of_module(4, (2,), width, 4, 2)
     sd = state_dict_from_jax(nerf_params_np(5, d_filter=width))
     params = mt.pack_train_params(sd, lay, kr.enc_table(4, 2))
     wpad, bpad = _padded_masks(lambda s: kr.pack_weights(
         s, 4, (2,), lay.de, lay.dd, lay.width), sd)
-    assert wpad.any() and bpad.any()
+    assert wpad.any() and (bpad.any() or lay.width == width)
     x, d, target = mlp_inputs(150, seed=6)
     out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
     W = lay.width
@@ -168,6 +173,56 @@ def test_ray_march_padded_matches_pallas():
     got = renderer.render_rays_occgrid(None, t(ro), t(rd), tg,
                                        fused_render_fn=tf, **KW)
     _close(got, ref)
+
+
+@pytest.mark.parametrize("width,packed", [(300, 384), (512, 512)])
+def test_density_pass_padded_matches_pallas(width, packed):
+    """Kernel 4's plain version on the padded pack against the JAX density
+    pass (interpret mode) at the module's width: sigma within 2e-2 of max
+    |sigma|, 128 rows (one JAX block)."""
+    params = nerf_params_np(11, d_filter=width)
+    x, _, _ = mlp_inputs(128, seed=12)
+    ex = np.asarray(jencode(jnp.asarray(x.numpy()), 4, True))
+    want = np.asarray(fused_density(jprep(params, **ARCH), jnp.asarray(ex),
+                                    block_rows=128, interpret=True))
+    p = km.prep_params(state_dict_from_jax(params), **ARCH)
+    assert (p.width, p.model_width) == (packed, width)
+    got = km.nerf_density(km.pad_features(t(ex), p.d_enc_pad), p).numpy()
+    scale = np.abs(want).max() + 1e-9
+    np.testing.assert_allclose(got / scale, want / scale, atol=2e-2)
+
+
+@pytest.mark.parametrize("width,sigma_bias", [(300, 0.0), (512, 0.0),
+                                              (512, 30.0)])
+def test_ray_march_split_widths_match_pallas(width, sigma_bias):
+    """The ray march's plain version at the packed widths 384 (width 300)
+    and 512 through render_rays_occgrid against the interpret-mode Pallas
+    march at the module's width, at the march's blocking (16 rays x chunks
+    of 8 samples: the card kernel runs each such 128-row step as two 64-row
+    halves but decides the skip per step, so the blocking is the one at
+    every width). With a raised sigma bias most blocks exit early, and the
+    plain version's exits agree with the TPU kernel's: rgb / opacity within
+    7e-3, depth within 3e-2. The split widths refuse a chunk_s that does
+    not divide 64 only when a step has more than 64 rows."""
+    params = nerf_params_np(13, d_filter=width)
+    params["params"]["sigma"]["bias"] = (params["params"]["sigma"]["bias"]
+                                         + np.float32(sigma_bias))
+    jg, tg = _grids()
+    ro, rd = shell_rays(32, seed=3)
+    jf = jmarch(params, **FUSED, interpret=True)
+    ref = jrend.render_rays_occgrid(None, jnp.asarray(ro), jnp.asarray(rd),
+                                    jg, fused_render_fn=jf, **KW)
+    sd = state_dict_from_jax(params)
+    tf = kr.make_fused_ray_renderer(sd, **FUSED)
+    got = renderer.render_rays_occgrid(None, t(ro), t(rd), tg,
+                                       fused_render_fn=tf, **KW)
+    _close(got, ref)
+    rp = kr.prep_params(sd, **{k: FUSED[k] for k in (
+        "n_layers", "skip", "n_freqs", "n_freqs_views")})
+    assert rp.width == (384 if width == 300 else 512)
+    assert kr.march_chunk_error(rp.width, 16, 8) is None
+    assert kr.march_chunk_error(rp.width, 16, 6) is not None
+    assert kr.march_chunk_error(rp.width, 8, 6) is None
 
 
 @pytest.mark.parametrize("width,packed", [(40, 64), (100, 128)])
@@ -217,20 +272,35 @@ def test_siren_padded_matches_pallas(width, packed):
 def test_stated_limits_fit_the_kernels_shared_memory():
     """What kernel_arch_error and SIREN_MAX_WIDTH take fits the kernels'
     shared memory (227 KB a block), and the next step past each limit
-    does not: at every kernel width the shells (a ring of 2 stages) and
-    kernel 6's row pass with encodings at their limits; at width 256 a
-    direction encoding of 144; the mma.sync SIREN kernels at their widest
-    width and 32 past it."""
+    does not: at every NeRF kernel width the shells (a ring of 2 stages)
+    and kernel 6's row pass (64-row CTAs at 384 and 512, where a 128-row
+    one does not fit) with encodings at their limits; at width 256 a
+    direction encoding of 144; above 512 a 64-row warpgroup's input and
+    output tiles and a 2-stage ring; the mma.sync SIREN kernels at their
+    widest width and 32 past it. NeRF 300 packs at 384 and 512 at 512, on
+    the kernels; SiNeRF 257 and 300 still at 288 and 320."""
     lim = kr.SMEM_LIMIT
-    for W in kr.KERNEL_WIDTHS:
+    for W in kr.NERF_KERNEL_WIDTHS:
         dd = kr.KERNEL_MAX_DIR_AT_256 if W == 256 else kr.KERNEL_MAX_ENC
         assert kr.kernel_arch_error(W, kr.KERNEL_MAX_ENC, dd) is None
         assert kr.shell_smem_bytes(W, kr.KERNEL_MAX_ENC, dd) <= lim
         assert mt.bwd_rows_smem_bytes(W, dd) <= lim
+    for W in kr.SPLIT_WIDTHS:
+        assert mt.bwd_rows(W) == 64
+        assert mt.bwd_rows_smem_bytes(W, 32, rows=128) > lim
+    assert kr.shell_smem_bytes(768, 64, 32) > lim
+    assert [kr.nerf_kernel_width(w) for w in (257, 300, 384, 385, 512)] == \
+        [384, 384, 384, 512, 512]
+    assert kr.kernel_arch_error(kr.nerf_kernel_width(520), 64, 32) is not None
     assert kr.kernel_arch_error(256, 64, 144) is not None
     assert kr.shell_smem_bytes(256, 256, 144) > lim
     assert mt.bwd_rows_smem_bytes(256, 144) > lim
     assert kr.kernel_arch_error(320, 64, 32) is not None
+    cfg = _train_cfg(520)
+    line = step.report_module_route(cfg, "cuda")
+    assert line is not None and "width 520 trains and renders through " \
+        "the module" in line and "shared memory" in line
+    assert not step.resolve_fused_kernel(cfg, "cuda")
     for kernel, top in ks.SIREN_MAX_WIDTH.items():
         assert ks.mma_smem_bytes(top, kernel) <= lim
         assert ks.mma_smem_bytes(top + 32, kernel) > lim
@@ -255,3 +325,35 @@ def test_cli_trains_at_width_40_through_the_plain_versions(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["steps"] == 10 and out["device"] == "cpu"
     assert np.isfinite(out["psnr"]) and 0.0 < out["ssim"] <= 1.0
+
+
+@pytest.mark.parametrize("model,width,takes", [
+    ("nerf", 300, True), ("nerf", 512, True), ("nerf", 600, False),
+    ("sinerf", 300, False)])
+def test_wide_routes_on_the_card(model, width, takes, capsys):
+    """The routes on a cuda device, decided without a card: NeRF 300 (packed
+    384) and 512 resolve to the kernels and print nothing; NeRF 600 and
+    SiNeRF 300 take the module route and print its one line, naming the
+    width and the shared-memory reason; on the CPU nothing is printed."""
+    if model == "nerf":
+        cfg = _train_cfg(width)
+    else:
+        cfg = Config().replace(model=ModelConfig(
+            model="sinerf", n_layers=4, d_filter=width, fused_kernel=True))
+    assert step.kernels_take(cfg, "cuda") == takes
+    assert step.resolve_fused_kernel(cfg, "cuda") == takes
+    capsys.readouterr()
+    line = step.report_module_route(cfg, "cuda")
+    err = capsys.readouterr().err
+    assert (line is None) == takes
+    if takes:
+        assert err == ""
+        lay = mt.TrainLayout.from_config(cfg, "cuda")
+        assert (lay.width, lay.model_width) == (kr.nerf_kernel_width(width),
+                                                width)
+        assert lay.width in kr.SPLIT_WIDTHS
+    else:
+        assert line in err and f"{model} width {width} trains and renders " \
+            "through the module" in line and "shared memory" in line
+    assert step.kernels_refusal(cfg, "cpu") is None
+    assert step.report_module_route(cfg, "cpu") is None
