@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing is caught):
      steps of the occgrid slice and a held-out view must launch
      mlp_train_fwd_kernel, nerf_density_kernel and nerf_march_kernel at
      the packed width and kernel 6's row and dW passes, and call no NeRF
-     module (a forward hook counts its calls);
+     module (a forward hook counts its calls); then SiNeRF 8 x 512 (the
+     column-split SIREN kernels): its 20 steps and held-out view must
+     launch siren_fwd_ws_kernel, siren_bwd_rows_ws_kernel and
+     siren_march_kernel at 512 and call the module only for the grid
+     refresh's densities (there is no SIREN density kernel);
   3. ray-march kernel vs its plain PyTorch version at full width — NeRF
      8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
      SphereScene view, a res-128 grid rebuilt from the model's densities,
@@ -181,14 +185,22 @@ Phases (any failure exits non-zero; nothing is caught):
         the bf16 module's time on the same rows; ptxas's registers and
         spills of every 384 and 512 instance and of kernel 6's 64-row row
         pass;
-     b. SiNeRF 8 layers at 40, 100, 192: kernels 7, 8 (both modes) and 2
-        against their plain versions (phase 10's and 11's tolerances); at
-        320 the mma.sync forward and march held the same way and the
-        backward refused by name (ValueError: its shared memory); at 512
-        the forward and the march refused by name, and a SiNeRF of 512
-        and a NeRF of 600 resolve to the module with the printed line, a
-        NeRF of 512 to the kernels; ptxas's registers and spills of every
-        width-192 instance;
+     b. SiNeRF 8 layers at 40, 100, 192, 300 (packed 384) and 512: kernels
+        7, 8 (both modes) and 2 against their plain versions at 196,608
+        rows and phase 3's march inputs (phase 10's and 11's tolerances),
+        each kernel bitwise repeatable (at 384 and 512 recompute mode
+        bitwise equal to saved mode), its CUDA-event time in each of its
+        modes (kernel 7 with and without acts, kernel 8 saved and
+        recompute) beside its plain version's, its bound and the bf16
+        SiNeRF module's time on the same rows; at 320 packed at 320 (no
+        packer's width) the mma.sync forward and march held and timed the
+        same way and the backward refused by name; the SIREN kernels' ring
+        stages at each width as the C launchers pick them, which must
+        equal siren.py::siren_stages; a SiNeRF and a NeRF of 600 resolve to
+        the module with the printed line (every SIREN kernel refusing it
+        by name), a SiNeRF and a NeRF of 512 to the kernels; ptxas's
+        registers and spills of every width-192 instance and of every
+        SIREN instance at 384 and 512 (which must spill nothing);
      c. the occgrid training slice (1,500 graphed steps, held-out views) at
         8 x 192, 8 x 200 and 8 x 512 through the kernels (counts from 0:
         kernels 5 and 6 once per step, kernel 4 at every refresh, kernel 1
@@ -196,7 +208,9 @@ Phases (any failure exits non-zero; nothing is caught):
         module (fused_kernel and fused_render off, the route these widths
         took before the kernels took them): steps/s and held-out PSNR side
         by side, each at least 5 dB above the untrained weights', at 512
-        the two within 1 dB;
+        the two within 1 dB; then the same for SiNeRF 8 x 512 at 600 steps
+        (kernels 7 and 8 once per step, kernel 2 in the eval, no SiNeRF
+        module call but the grid refresh's, on the kernels' route);
  20. the data-parallel layer (parallel/) at the training slice's full
      width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
      the 8-view 128x128 sphere):
@@ -712,13 +726,27 @@ def train_kernels(cfg, dev, card):
 
 
 class ListLogger:
-    """The train loop's logger, kept in memory."""
+    """The train loop's logger, kept in memory, each record stamped with
+    the host clock (`t`) when the loop logs it: after it has read the
+    step's metrics back, so after the card finished that step."""
 
     def __init__(self):
         self.records = []
 
     def log(self, step, metrics):
-        self.records.append({"step": step, **metrics})
+        self.records.append({"step": step, "t": time.perf_counter(),
+                             **metrics})
+
+    def steady_steps_per_s(self, after: int = 100) -> float:
+        """Steps/s from the first logged step at or past `after` to the
+        last: the run without its first steps, which pay the one-time
+        costs (the process's first launch of each kernel, the first graph
+        captures) that depend on what ran before it in the process."""
+        recs = [r for r in self.records if "loss" in r and r["step"] >= after]
+        if len(recs) < 2:
+            fail(f"no two train records past step {after}")
+        return (recs[-1]["step"] - recs[0]["step"]) / (
+            recs[-1]["t"] - recs[0]["t"])
 
 
 class GraphRecords(logging.Handler):
@@ -3065,20 +3093,23 @@ def jpeg_phase(card, root, png_psnr):
 
 # -- 19. the kernels at every width up to 512 ------------------------------
 #
-# A NeRF module's width up to 512 is packed at the next of the kernels'
-# widths 64, 128, 192, 256, 384, 512 (ops/kernels/render.py::
-# nerf_kernel_width; 384 and 512 on the column-split trunk) with zero
-# units, a SiNeRF's up to 256 at the next of 64 ... 256 (kernel_width).
+# A NeRF or SiNeRF module's width up to 512 is packed at the next of the
+# kernels' widths 64, 128, 192, 256, 384, 512 (ops/kernels/render.py::
+# kernel_width; 384 and 512 on the column-split trunk) with zero units.
 # NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512 (8 layers,
 # skip 4, n_freqs 10/4) and at 256 and 512 with n_freqs 21 (a 129-wide
-# encoding); SiNeRF: kernels 2, 7, 8 at 40, 100, 192 (8 layers), and above
-# 256 the mma.sync forward and march at 320, every kernel refusing 512 by
-# name (and the backward 320).
+# encoding); SiNeRF: kernels 2, 7, 8 at 40, 100, 192, 300, 512 (8
+# layers), the mma.sync forward and march at 320 packed at 320, every
+# kernel refusing 600 (packed 608) by name.
 WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
               (256, {"n_freqs": 21}), (300, {}), (512, {}),
               (512, {"n_freqs": 21}))
-WIDTH_SIREN = (40, 100, 192, 320)
+WIDTH_SIREN = (40, 100, 192, 300, 512)
 WIDTH_TRAIN = (192, 200, 512)         # 19c: training runs at 8 x W
+WIDTH_SIREN_TRAIN = (512,)            # 19c: SiNeRF training at 8 x W
+# ... for this many steps: the module route at 8 x 512 trains at ~14.5
+# steps/s, so TRAIN_STEPS of it would take ~100 s of the script's time
+WIDE_SIREN_STEPS = 600
 WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
 # 19c at 8 x 512: the held-out PSNR of the kernels' run against the
 # module's (the same function, bf16 rounded in other places)
@@ -3096,20 +3127,29 @@ def width_cfg(cfg, width, **encoder):
 
 class ModuleCalls:
     """Counts the forward calls of every NeRF / SiNeRF module while open:
-    0 means no module GEMM ran on the MLP."""
+    0 means no module GEMM ran on the MLP. `density_calls` counts those
+    given no view directions (the grid refresh's densities), `calls` the
+    others."""
 
     def __enter__(self):
         from fsnerf_tpu_torch.core.models import NeRF, SiNeRF
 
-        self.calls = 0
+        self.calls = self.density_calls = 0
 
         def hook(module, args):
             if isinstance(module, (NeRF, SiNeRF)):
-                self.calls += 1
+                if len(args) > 1 and args[1] is not None:
+                    self.calls += 1
+                else:
+                    self.density_calls += 1
 
         self.handle = \
             torch.nn.modules.module.register_module_forward_pre_hook(hook)
         return self
+
+    @property
+    def total(self) -> int:
+        return self.calls + self.density_calls
 
     def __exit__(self, *exc):
         self.handle.remove()
@@ -3121,7 +3161,10 @@ def width_routes(cfg, dev, card):
     of the occgrid slice and the held-out eval of one view must launch
     kernels 5, 6, 4 and 1 at the packed width (mlp_train_fwd_kernel<W>,
     the row pass and dW pass of mlp_train_bwd, nerf_density_kernel<W>,
-    nerf_march_kernel<W>) and call no NeRF module."""
+    nerf_march_kernel<W>) and call no NeRF module; at SiNeRF 8 x 512
+    kernels 7, 8 and 2 (siren_fwd_ws_kernel<512>, siren_bwd_rows_ws_kernel
+    <512> and the dW pass, siren_march_kernel<512>), the SiNeRF module
+    called only for the grid refresh's densities."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3162,11 +3205,38 @@ def width_routes(cfg, dev, card):
                 kr.nerf_kernel_width(W), plain=NERF_BWD_PARTS)
         gemms = sorted(k for k in seen if re.search(
             r"gemm|xmma|nvjet|cutlass", k) and "dw_gemm_kernel" not in k)
-        print(f"2b. width {W}: NeRF module calls {calls.calls}; other GEMM "
+        print(f"2b. width {W}: NeRF module calls {calls.total}; other GEMM "
               f"kernels seen {len(gemms)} {[k[:60] for k in gemms]}")
-        if calls.calls:
+        if calls.total:
             fail(f"width {W}: the run called the NeRF module "
-                 f"{calls.calls} times")
+                 f"{calls.total} times")
+    # SiNeRF 8 x 512 on the column-split SIREN kernels
+    scfg = sinerf_config(train_slice_config(width_cfg(cfg, 512)),
+                         n_iters=WIDTH_ROUTE_STEPS)
+    if not step.resolve_fused_kernel(scfg, dev):
+        fail("SiNeRF 512: the kernels' route did not resolve on the card")
+    model = make_model(scfg, torch.bfloat16,
+                       torch.Generator().manual_seed(6), dev)
+    state = None
+
+    def run_siren():
+        nonlocal state
+        state = train(model, scfg, pool, scene, logger=ListLogger(),
+                      log_every=WIDTH_ROUTE_STEPS)
+        cli.evaluate_split(model, og.conservative(state.grid), held, scfg,
+                           device=dev)
+
+    with ModuleCalls() as calls:
+        require_kernels(
+            f"2b. {WIDTH_ROUTE_STEPS} SiNeRF train steps and a held-out "
+            "view at 8 x 512", run_siren,
+            ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel",
+             "siren_march_kernel"), 512, plain=SIREN_BWD_PARTS[1:])
+    print(f"2b. SiNeRF 512: module calls {calls.calls} on the MLP, "
+          f"{calls.density_calls} for the grid refresh's densities")
+    if calls.calls:
+        fail(f"SiNeRF 512: the run called the SiNeRF module {calls.calls} "
+             "times on the MLP")
 
 
 def nerf_width_case(cfg, dev, march_in, module=False):
@@ -3298,20 +3368,31 @@ def nerf_width_case(cfg, dev, march_in, module=False):
     return rp.width, out, launches, module_ms
 
 
-def siren_width_case(cfg, dev, march_in):
+def siren_width_case(cfg, dev, march_in, module=False, packed=None):
     """19b: kernels 7, 8 (saved and recompute) and 2 of a SiNeRF of cfg's
     width against their plain versions (196,608 rows; phase 3's march
-    inputs), each launch counted from 0; above SIREN_MAX_WIDTH's limits
-    a ValueError naming the limit and no launch."""
+    inputs), each bitwise repeatable and each launch counted from 0, and
+    each timed in both of its modes (kernel 7 with and without acts,
+    kernel 8 saved and recompute); a kernel that refuses the packed width
+    a ValueError naming its limit and no launch. `packed`: pack at this
+    width instead of kernel_width's (320 reaches the mma.sync forward and
+    march). Returns (width packed, {kernel or "kernel (mode)": (ms, plain
+    ms, bound dict, max err)}, launches, refused, {the same keys: the bf16
+    SiNeRF module's ms on the same rows} with `module`, else {})."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.ops.volrend import volume_render
 
     L, W = cfg.model.n_layers, cfg.model.d_filter
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(9), dev)
-    params = ks.prep_siren_params(model.state_dict(), L,
-                                  with_transposed=True)
+    if packed is None:
+        params = ks.prep_siren_params(model.state_dict(), L,
+                                      with_transposed=True)
+    else:
+        params = ks._prep_siren_params(model.state_dict(), L, None, True,
+                                       None, packed)
     K = params.layout.width
     g = torch.Generator(device=dev).manual_seed(10)
     n = TRAIN_ROWS
@@ -3330,7 +3411,7 @@ def siren_width_case(cfg, dev, march_in):
         try:
             fn()
         except ValueError as e:
-            if "takes widths up to" not in str(e):
+            if "widths up to" not in str(e):
                 raise
             refused.append(name)
             return True
@@ -3340,14 +3421,20 @@ def siren_width_case(cfg, dev, march_in):
     if not refuses("siren_mlp_fwd",
                    lambda: ks.siren_mlp_fwd(xp, dp, params, True)):
         fo, acts = ks.siren_mlp_fwd(xp, dp, params, True)
+        fo2, acts2 = ks.siren_mlp_fwd(xp, dp, params, True)
         fr, racts = ks.siren_mlp_fwd_reference(xp, dp, params, True)
         rgb_err = float((fo[:, :3] - fr[:, :3]).abs().max())
         sig = float((fo[:, 3] - fr[:, 3]).abs().max()) / (
             float(fr[:, 3].abs().max()) + 1e-9)
+        primal, _ = ks.siren_mlp_fwd(xp, dp, params)
         if not torch.isfinite(fo).all() or rgb_err > MLP_RGB_TOL or \
                 sig > MLP_SIGMA_TOL:
             fail(f"19b. SiNeRF width {W}: forward vs plain rgb "
                  f"{rgb_err:.3e}, sigma {sig:.3e} of max")
+        if not (torch.equal(fo, fo2) and torch.equal(acts, acts2)
+                and torch.equal(primal, fo)):
+            fail(f"19b. SiNeRF width {W}: two forward runs differ (or the "
+                 "forward without acts from the one with)")
         ms, plain_ms = in_turns(
             lambda: ks.siren_mlp_fwd_reference(xp, dp, params, True),
             lambda: ks.siren_mlp_fwd(xp, dp, params, True))
@@ -3355,14 +3442,26 @@ def siren_width_case(cfg, dev, march_in):
             2.0 * siren_macs(L, W) * n, nbytes(xp, dp, params.wpack,
                                                params.bpack, fo, acts)),
             max(rgb_err, sig))
+        ms, plain_ms = in_turns(
+            lambda: ks.siren_mlp_fwd_reference(xp, dp, params),
+            lambda: ks.siren_mlp_fwd(xp, dp, params))
+        out["siren_mlp_fwd (no acts)"] = (ms, plain_ms, bound(
+            2.0 * siren_macs(L, W) * n, nbytes(xp, dp, params.wpack,
+                                               params.bpack, fo)),
+            max(rgb_err, sig))
         dout = (2.0 * (fr - target) / fr.numel()).contiguous()
         if not refuses("siren_mlp_bwd", lambda: ks.siren_mlp_bwd(
                 xp, dp, dout, params, acts)):
             lay = params.layout
+            grads = {}
             for mode, a, ra in (("saved", acts, racts),
                                 ("recompute", None, None)):
                 gk = ks.siren_mlp_bwd(xp, dp, dout, params, a)
+                gk2 = ks.siren_mlp_bwd(xp, dp, dout, params, a)
                 gp = ks.siren_mlp_bwd_reference(xp, dp, dout, params, ra)
+                if not all(torch.equal(u, v) for u, v in zip(gk, gk2)):
+                    fail(f"19b. SiNeRF width {W}: two backward ({mode}) "
+                         "runs differ")
                 worst = max((float((u - v).abs().max())
                              / (float(v.abs().max()) + 1e-30), name)
                             for name, u, v in zip(
@@ -3371,22 +3470,40 @@ def siren_width_case(cfg, dev, march_in):
                 if worst[0] > GRAD_TOL:
                     fail(f"19b. SiNeRF width {W}: backward ({mode}) vs "
                          f"plain: {worst[1]} off by {worst[0]:.3e}")
+                grads[mode] = gk
+                ms, plain_ms = in_turns(
+                    lambda: ks.siren_mlp_bwd_reference(xp, dp, dout, params,
+                                                       ra),
+                    lambda: ks.siren_mlp_bwd(xp, dp, dout, params, a))
                 if mode == "saved":
-                    saved = gk
-                    ms, plain_ms = in_turns(
-                        lambda: ks.siren_mlp_bwd_reference(
-                            xp, dp, dout, params, racts),
-                        lambda: ks.siren_mlp_bwd(xp, dp, dout, params, acts))
                     out["siren_mlp_bwd"] = (ms, plain_ms, bound(
                         2.0 * siren_bwd_macs(L, W) * n,
                         nbytes(xp, dp, dout, acts, params.wpack,
-                               params.bpack, params.wtpack, *saved)),
+                               params.bpack, params.wtpack, *gk)),
                         worst[0])
+                else:
+                    # from the inputs alone: the trunk's forward again
+                    out["siren_mlp_bwd (recompute)"] = (ms, plain_ms, bound(
+                        2.0 * (siren_bwd_macs(L, W) + 3 * W
+                               + (L - 1) * W * W) * n,
+                        nbytes(xp, dp, dout, params.wpack, params.bpack,
+                               params.wtpack, *gk)), worst[0])
+            if K in kr.SPLIT_WIDTHS and not all(torch.equal(u, v) for u, v in
+                                                zip(grads["saved"],
+                                                    grads["recompute"])):
+                fail(f"19b. SiNeRF width {W}: recompute mode differs from "
+                     "saved mode at a split width")
     if not refuses("siren_ray_march", lambda: kr.siren_ray_march(
             *padded, params, bR, cs)):
         r = compare(f"19b. SiNeRF width {W} (packed {K}): march",
                     kr.siren_ray_march, kr.siren_ray_march_reference, padded,
                     params, bR, cs, cfg.sampling.early_stop_eps)
+        again, _ = kr.siren_ray_march(*padded, params, bR, cs,
+                                      cfg.sampling.early_stop_eps)
+        first, _ = kr.siren_ray_march(*padded, params, bR, cs,
+                                      cfg.sampling.early_stop_eps)
+        if not torch.equal(first, again):
+            fail(f"19b. SiNeRF width {W}: two march runs differ")
         out["siren_ray_march"] = (r["ms"], r["plain_ms"], bound(
             2.0 * siren_macs(L, W) * r["executed"] * bR * cs,
             nbytes(*padded, params.wpack, params.bpack)
@@ -3395,13 +3512,34 @@ def siren_width_case(cfg, dev, march_in):
     launches = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                 "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
                 "siren_ray_march": kr.siren_ray_march.launches}
-    for name in out:
+    for name in {k.split(" ")[0] for k in out}:
         if launches[name] == 0:
             fail(f"19b. SiNeRF width {W}: {name} never launched")
     for name in refused:
         if launches[name]:
             fail(f"19b. SiNeRF width {W}: {name} refused yet launched")
-    return K, out, launches, refused
+    module_ms = {}
+    if module:
+        # the nearest cuBLAS route: the bf16 SiNeRF module on each kernel's
+        # rows (the march's: every sample of phase 3's inputs, with
+        # volume_render)
+        xm, dirs, t, deltas, mask = padded
+        m_params = list(model.parameters())
+        with torch.no_grad():
+            def module_march():
+                o = model(xm, dirs[:, None, :].expand(xm.shape)).float()
+                volume_render(o[..., 3], o[..., :3], t, deltas, mask > 0)
+
+            module_ms["siren_ray_march"] = cuda_ms(module_march, 3)
+            module_ms["siren_mlp_fwd"] = cuda_ms(lambda: model(x, d), 3)
+        m_out = model(x, d).float()
+        module_ms["siren_mlp_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            m_out, m_params, torch.full_like(m_out, 1.0 / m_out.numel()),
+            retain_graph=True), 3)
+        del m_out
+        for k in out:
+            module_ms[k] = module_ms[k.split(" ")[0]]
+    return K, out, launches, refused, module_ms
 
 
 def width_line(out, module_ms=None) -> str:
@@ -3415,7 +3553,9 @@ def width_line(out, module_ms=None) -> str:
 
 def width_kernels(cfg, dev, card, log, march_in):
     """Phase 19a-b: the kernels at widths that are not their own, and width
-    192 in each (ptxas lines of every 192 instance)."""
+    192 in each (ptxas lines of every 192 instance). Returns the 19b
+    numbers of the SIREN kernels at 512 ({kernel: (ms, plain ms, bound
+    dict, max err)}, the report's column-split instances)."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.train import step
 
@@ -3440,41 +3580,83 @@ def width_kernels(cfg, dev, card, log, march_in):
               for line in ptxas_of(log, name).splitlines()
               if any(f"{name}<{w}>" in line for w in widths)
               and ("Used" in line or "spill stores" in line)))
+    stages = {k: [(ks.siren_stages(W, k), ks.launcher_stages(W, k))
+                  for W in kr.NERF_KERNEL_WIDTHS]
+              for k in ("forward", "march", "backward")}
+    print("19b. the SIREN kernels' ring stages (the C launchers', "
+          "siren.py::siren_stages mirroring them): " + "; ".join(
+              f"{k} " + ", ".join(f"{W}: {c}" for W, (_, c) in zip(
+                  kr.NERF_KERNEL_WIDTHS, v)) for k, v in stages.items()))
+    if any(p != c for v in stages.values() for p, c in v):
+        fail(f"19b. siren.py::siren_stages differs from the launchers' "
+             f"rings (Python, C): {stages}")
+    wide = {}
     for W in WIDTH_SIREN:
         scfg = sinerf_config(width_cfg(cfg, W))
-        K, out, launches, refused = siren_width_case(scfg, dev, march_in)
+        K, out, launches, refused, module_ms = siren_width_case(
+            scfg, dev, march_in, module=True)
         print(f"19b. SiNeRF 8 x {W} (packed {K}) on {card}: "
-              f"{width_line(out)}; launches {launches}; refused by name "
-              f"{refused}")
-        want = [] if K <= ks.SIREN_MAX_WIDTH["backward"] else \
-            ["siren_mlp_bwd"]
-        if refused != want:
-            fail(f"19b. SiNeRF width {W}: refused {refused}, not {want}")
-    # 512: every SIREN kernel refuses by name; the run takes the printed
-    # module route. A NeRF of 512 resolves to the kernels, one of 600 to
-    # the printed module route.
-    scfg = sinerf_config(width_cfg(cfg, 512))
-    K, out, launches, refused = siren_width_case(scfg, dev, march_in)
+              f"{width_line(out, module_ms)}; launches {launches}; "
+              f"bitwise repeatable")
+        if refused or {k.split(" ")[0] for k in out} != set(launches):
+            fail(f"19b. SiNeRF width {W}: refused {refused}, ran "
+                 f"{list(out)}")
+        if K == kr.SPLIT_WIDTHS[-1]:
+            wide = out
+    # 320 packed at 320: the mma.sync forward and march (siren_fwd_kernel,
+    # ray_march_kernel<SirenMarch>), which kernel_width no longer packs at,
+    # held the same way; the backward refuses by name (the mma.sync row
+    # pass's shared memory)
+    scfg = sinerf_config(width_cfg(cfg, 320))
+    K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in,
+                                                    packed=320)
+    print(f"19b. SiNeRF 8 x 320 (packed {K}, the mma.sync forward and "
+          f"march) on {card}: {width_line(out)}; launches {launches}; "
+          f"refused by name {refused}; bitwise repeatable")
+    if refused != ["siren_mlp_bwd"] or \
+            {k.split(" ")[0] for k in out} != {"siren_mlp_fwd",
+                                              "siren_ray_march"}:
+        fail(f"19b. SiNeRF 320 packed at 320: refused {refused}, ran "
+             f"{list(out)}")
+    # 600 (packed 608): every SIREN kernel refuses by name; the run takes
+    # the printed module route, as a NeRF of 600 does. SiNeRF and NeRF 512
+    # resolve to the kernels.
+    scfg = sinerf_config(width_cfg(cfg, 600))
+    K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in)
     if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
-        fail(f"19b. SiNeRF width 512: ran {list(out)}, refused {refused}")
+        fail(f"19b. SiNeRF width 600: ran {list(out)}, refused {refused}")
     line = step.report_module_route(scfg, dev)
-    nerf512, nerf600 = width_cfg(cfg, 512), width_cfg(cfg, 600)
-    line_512 = step.report_module_route(nerf512, dev)
+    nerf600 = width_cfg(cfg, 600)
     line_nerf = step.report_module_route(nerf600, dev)
     if line is None or step.resolve_fused_kernel(scfg, dev) or \
             line_nerf is None or step.resolve_fused_kernel(nerf600, dev):
-        fail("SiNeRF 512 or NeRF 600 did not take the printed module route")
-    if line_512 is not None or not step.resolve_fused_kernel(nerf512, dev):
-        fail(f"NeRF 512 did not resolve to the kernels: {line_512}")
-    print(f"19b. width 512: SIREN forward and march refused by name, the "
-          f"backward never reached; the route prints: {line}; NeRF 512 "
-          f"resolves to the kernels; NeRF 600: {line_nerf}")
+        fail("SiNeRF 600 or NeRF 600 did not take the printed module route")
+    for name, c512 in (("SiNeRF", sinerf_config(width_cfg(cfg, 512))),
+                       ("NeRF", width_cfg(cfg, 512))):
+        line_512 = step.report_module_route(c512, dev)
+        if line_512 is not None or not step.resolve_fused_kernel(c512, dev):
+            fail(f"{name} 512 did not resolve to the kernels: {line_512}")
+    print(f"19b. width 600 (packed {K}): SIREN forward and march refused by "
+          f"name, the backward never reached; the route prints: {line}; "
+          f"NeRF 600: {line_nerf}; SiNeRF and NeRF 512 resolve to the "
+          "kernels")
     print("19b. the width-192 instances:\n" + "\n".join(
         line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
                           "nerf_density_kernel", "mlp_train_fwd_kernel",
                           "siren_fwd_ws_kernel", "siren_march_kernel",
                           "siren_bwd_rows_ws_kernel")
         for line in ptxas_of(log, name).splitlines() if "<192" in line))
+    split = [line for name in ("siren_fwd_ws_kernel", "siren_march_kernel",
+                               "siren_bwd_rows_ws_kernel")
+             for line in ptxas_of(log, name).splitlines()
+             if any(f"{name}<{w}" in line for w in kr.SPLIT_WIDTHS)]
+    print("19b. the SIREN instances at 384 and 512:\n" + "\n".join(split))
+    spills = [line for line in split if re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if len(split) != 2 * 2 * 4 or spills:
+        fail(f"19b. the SIREN instances at 384 and 512: {len(split)} ptxas "
+             f"lines, spilling: {spills}")
+    return wide
 
 
 def width_train_slices(cfg, dev, card):
@@ -3523,14 +3705,14 @@ def width_train_slices(cfg, dev, card):
                         "nerf_density": km.nerf_density.launches}
             losses = [r["loss"] for r in log.records]
             res[route] = (state.step / train_s, got["psnr"], launches,
-                          calls.calls)
+                          calls.total)
             print(f"19c. 8 x {W} through the {route} on {card}: "
                   f"{state.step} steps in {train_s:.3f} s, "
                   f"{state.step / train_s:.2f} steps/s; loss "
                   f"{losses[0]:.5f} -> {losses[-1]:.5f}; held-out PSNR "
                   f"{got['psnr']:.3f} SSIM {got['ssim']:.4f} (untrained "
                   f"{base['psnr']:.3f}); launches {launches}; NeRF module "
-                  f"calls {calls.calls}; {rungs.summary()}")
+                  f"calls {calls.total}; {rungs.summary()}")
             if not losses[-1] < losses[0] or \
                     got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
                 fail(f"19c. 8 x {W} ({route}): did not train")
@@ -3554,6 +3736,92 @@ def width_train_slices(cfg, dev, card):
               f"steps/s, PSNR {res['kernels'][1]:.3f}; module "
               f"{res['module'][0]:.2f} steps/s, PSNR "
               f"{res['module'][1]:.3f}")
+
+
+def siren_width_train_slices(cfg, dev, card):
+    """Phase 19c for SiNeRF: the occgrid training slice (WIDE_SIREN_STEPS
+    graphed steps, the 8-view 128x128 sphere, then the held-out views) at
+    8 x W for W in WIDTH_SIREN_TRAIN (512: the column-split SIREN kernels)
+    through the kernels, launch counts set to 0 before and read after
+    (kernels 7 and 8 once per step, kernel 2 in the eval), the SiNeRF
+    module called only for the grid refresh's densities; then the same run
+    through the module (fused_kernel and fused_render off: the route a
+    SiNeRF this wide took before the kernels took it): steps/s and
+    held-out PSNR side by side, within WIDE_PSNR_TOL_DB. Returns the launch
+    counts of the kernels' run at the last width."""
+    import dataclasses
+
+    from fsnerf_tpu_torch import cli
+    from fsnerf_tpu_torch.core.models import make_model
+    from fsnerf_tpu_torch.data.synthetic import SphereScene
+    from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
+    held = cli.split_of(scene.holdout(n=3, seed=101))
+    launches = {}
+    for W in WIDTH_SIREN_TRAIN:
+        kcfg = sinerf_config(train_slice_config(width_cfg(cfg, W)),
+                             n_iters=WIDE_SIREN_STEPS)
+        mcfg = kcfg.replace(model=dataclasses.replace(
+            kcfg.model, fused_kernel=False, fused_render=False))
+        untrained = make_model(kcfg, torch.bfloat16,
+                               torch.Generator().manual_seed(0), dev)
+        base, _ = cli.evaluate_split(
+            untrained, og.conservative(cli.rebuild_grid(
+                untrained, kcfg, scene.aabb, dev)), held, kcfg, device=dev)
+        res = {}
+        for route, tcfg in (("kernels", kcfg), ("module", mcfg)):
+            kr.siren_ray_march.launches = 0
+            ks.siren_mlp_fwd.launches = ks.siren_mlp_bwd.launches = 0
+            with ModuleCalls() as calls:
+                model, state, log, _, train_s, rungs, _ = run_train_slice(
+                    tcfg, dev)
+                got, _ = cli.evaluate_split(model, og.conservative(
+                    state.grid), held, tcfg, device=dev)
+                torch.cuda.synchronize()
+            counts = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
+                      "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
+                      "siren_ray_march": kr.siren_ray_march.launches}
+            losses = [r["loss"] for r in log.records]
+            steady = log.steady_steps_per_s()
+            res[route] = (state.step / train_s, got["psnr"], counts,
+                          calls.calls, state.step, steady)
+            print(f"19c. SiNeRF 8 x {W} through the {route} on {card}: "
+                  f"{state.step} steps in {train_s:.3f} s, "
+                  f"{state.step / train_s:.2f} steps/s ({steady:.2f} from "
+                  f"step 100 on); loss "
+                  f"{losses[0]:.5f} -> {losses[-1]:.5f}; held-out PSNR "
+                  f"{got['psnr']:.3f} SSIM {got['ssim']:.4f} (untrained "
+                  f"{base['psnr']:.3f}); launches {counts}; SiNeRF module "
+                  f"calls {calls.calls} on the MLP, {calls.density_calls} "
+                  f"for the grid refresh; {rungs.summary()}")
+            if not losses[-1] < losses[0] or \
+                    got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
+                fail(f"19c. SiNeRF 8 x {W} ({route}): did not train")
+        k_launch, m_launch = res["kernels"][2], res["module"][2]
+        steps = res["kernels"][4]
+        if (k_launch["siren_mlp_fwd"] != steps
+                or k_launch["siren_mlp_bwd"] != steps
+                or k_launch["siren_ray_march"] == 0 or res["kernels"][3]):
+            fail(f"19c. SiNeRF 8 x {W}: the kernels' route launched "
+                 f"{k_launch} over {steps} steps and called the module "
+                 f"{res['kernels'][3]} times on the MLP")
+        if any(m_launch.values()) or not res["module"][3]:
+            fail(f"19c. SiNeRF 8 x {W}: the module route launched "
+                 f"{m_launch}")
+        if abs(res["kernels"][1] - res["module"][1]) > WIDE_PSNR_TOL_DB:
+            fail(f"19c. SiNeRF 8 x {W}: held-out PSNR "
+                 f"{res['kernels'][1]:.3f} through the kernels, "
+                 f"{res['module'][1]:.3f} through the module")
+        print(f"19c. SiNeRF 8 x {W} on {card}: kernels "
+              f"{res['kernels'][0]:.2f} steps/s ({res['kernels'][5]:.2f} "
+              f"from step 100 on), PSNR {res['kernels'][1]:.3f}; module "
+              f"{res['module'][0]:.2f} steps/s ({res['module'][5]:.2f}), "
+              f"PSNR {res['module'][1]:.3f}")
+        launches = k_launch
+    return launches
 
 
 def main():
@@ -3696,8 +3964,9 @@ def main():
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
     # -- 19. the kernels at every width up to 512 --------------------------
-    width_kernels(cfg, dev, card, built.log, (padded, bR, cs))
+    siren_wide = width_kernels(cfg, dev, card, built.log, (padded, bR, cs))
     width_train_slices(cfg, dev, card)
+    siren_wide_launches = siren_width_train_slices(cfg, dev, card)
 
     with tempfile.TemporaryDirectory() as root:
         # -- 17.-18. the data slices: Blender and LLFF through the CLI ------
@@ -3805,7 +4074,26 @@ def main():
         "launches": fewshot_launches["volrend"],
         **volrend,
         "library_ms": None,
-    }]}))
+    }] + [{
+        # the column-split instances at 512 (phase 19b's numbers; launches
+        # from phase 19c's SiNeRF 8 x 512 slice)
+        "name": f"{name}@512",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": siren_wide_launches[name],
+        "max_abs_err": siren_wide[name][3],
+        "ms": siren_wide[name][0],
+        "plain_ms": siren_wide[name][1],
+        **siren_wide[name][2],
+        "library_ms": None,
+    } for name, source, replaces in (
+        ("siren_ray_march", "fsnerf_tpu_torch/csrc/render.cu",
+         "fsnerf_tpu/ops/pallas/render.py:238"),
+        ("siren_mlp_fwd", "fsnerf_tpu_torch/csrc/siren.cu",
+         "fsnerf_tpu/ops/pallas/siren.py:325"),
+        ("siren_mlp_bwd", "fsnerf_tpu_torch/csrc/siren.cu",
+         "fsnerf_tpu/ops/pallas/siren.py:355"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

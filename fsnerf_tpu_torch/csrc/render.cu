@@ -3,9 +3,10 @@
 //   nerf_march_kernel: positional encoding + the NeRF MLP on the
 //     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
-//   siren_march_kernel (widths 64, 128, 192, 256; ray_march_kernel<
-//     SirenMarch> at 288 and 320): the raw points and directions as bf16 (no encoding)
-//     + the SiNeRF MLP of siren_common.cuh. Replaces
+//   siren_march_kernel (widths 64, 128, 192, 256, 384, 512;
+//     ray_march_kernel<SirenMarch> at 288 and 320): the raw points and
+//     directions as bf16 (no encoding) + the SiNeRF MLP of
+//     siren_common.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call_siren (kernel 2).
 // Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/render.py::
 // ray_march_reference / siren_ray_march_reference, which follow the same
@@ -27,11 +28,12 @@
 // producer warpgroup's TMA weight ring; see the notes above it. At the
 // packed widths 384 and 512 one consumer runs the step's two 64-row halves
 // in turn on the column-split trunk (march_consume_split), with the same
-// skip decision per block x chunk step. The SIREN
-// march at widths 64, 128, 192 and 256 (siren_march_kernel) is the same
-// shell around the SIREN forward's warp-specialized MLP. Above 256 the
-// SIREN march's shell (ray_march_kernel) is one CTA of 8 warps: per chunk
-// step it
+// skip decision per block x chunk step. The SIREN march at widths 64, 128,
+// 192 and 256 (siren_march_kernel) is the same shell around the SIREN
+// forward's warp-specialized MLP, and at 384 and 512 the split shell
+// around its column-split MLP (siren_march_consume_split). At 288 and 320,
+// which no packer lays out any more, the SIREN march's shell
+// (ray_march_kernel) is one CTA of 8 warps: per chunk step it
 // stages the rows into shared memory as bf16 and runs every layer on
 // mma.sync m16n8k16 (bf16, f32 accumulation), ping-ponging two [128 x
 // width] bf16 activation buffers, the weights (L2-resident) streaming
@@ -747,8 +749,9 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
 // writes its rows' points as bf16 into its one-block input tile (columns 0
 // .. 2, zeros to 16), runs the sine trunk and the heads (siren_heads, the
 // rows' ray directions, kept in shared memory, for the rgb head's rank-3
-// term). Widths 64, 128, 192, 256; wider ones keep ray_march_kernel<
-// SirenMarch> (up to 320: its two activation buffers' shared memory).
+// term). Widths 64, 128, 192, 256, and 384, 512 on the column-split trunk
+// (siren_march_consume_split); 288 and 320 keep ray_march_kernel<
+// SirenMarch> (its two activation buffers' shared memory).
 struct SirenMarchArgs {
   Args io;
   Siren m;
@@ -864,11 +867,152 @@ __device__ __forceinline__ void siren_march_consume(const SirenMarchArgs& sa,
   march_finish(a, ct, bR, ray, executed, r, done);
 }
 
+// The SIREN march at a split width (384, 512), as march_consume_split:
+// one consumer warpgroup runs each executed chunk step (up to 128 rows) as
+// halves of 64 rows, each through the column-split sine trunk and
+// siren_heads_split, with one skip decision per block x chunk step; each
+// half's rows' points are written into the input tile xt, which then holds
+// their compositing inputs, composited right after the half (whole rays:
+// the entry refuses a chunk_s that does not divide 64 when a step has more
+// than 64 rows). dir_rows holds the step's 128 rows' bf16 directions.
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    siren_march_kernel(const __grid_constant__ SirenFwdMaps mp,
-                       SirenMarchArgs sa, int n_stages) {
-  extern __shared__ unsigned char siren_march_smem_raw[];
+__device__ __forceinline__ void siren_march_consume_split(
+    const SirenMarchArgs& sa, FwdRing& r, SplitActs<W>& tiles,
+    unsigned char* xt, float* dir_rows, volatile int* done) {
+  const Args& a = sa.io;
+  const int t = threadIdx.x, lane = t & 31, ct = t;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int ray0 = blockIdx.x * bR, n_chunks = a.K / cs;
+  const int n_halves = (nrows + 63) / 64;
+  const int bar = 1;                                // the consumer's barrier
+
+  // thread t owns row t % 64 of each half (t < 64 its columns 0..7, the
+  // others 8..15); rows past the chunk step's run on zeros. As in
+  // march_consume_split, nothing is fetched a chunk ahead.
+  const int row = t & 63;
+  const bool in0 = row < nrows, in1 = 64 + row < nrows;
+  auto sample = [&](int gr, int c) {
+    return (size_t)(ray0 + gr / cs) * a.K + gr % cs + (size_t)c * cs;
+  };
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    dir_rows[4 * t + k] =
+        t < nrows ? __bfloat162float(__float2bfloat16_rn(
+                        a.dirs[(size_t)(ray0 + t / cs) * 3 + k]))
+                  : 0.f;
+
+  const FwdShape sh{sa.m.n_layers, 0, kInPad, 0};
+  const SineActs<false> acts{sa.m.alphas, W};
+  RayAcc ray;              // the compositing of ray ct (ct < bR)
+  int executed = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    // exact early exit over the whole chunk step, as march_consume's. The
+    // first barrier also ends the last half's compositing reads of xt.
+    const bool live0 = in0 && a.mask[sample(row, c)] > 0.f;
+    const bool live1 = in1 && a.mask[sample(64 + row, c)] > 0.f;
+    const bool alive =
+        named_bar_or(kMarchBar, 128, ct < bR && ray.od < a.thresh);
+    const bool valid = named_bar_or(kMarchBar, 128, live0 || live1);
+    if (!(alive && valid)) continue;
+    ++executed;
+
+    for (int h = 0; h < n_halves; ++h) {
+      const int gr = 64 * h + row;
+      const bool in = h == 0 ? in0 : in1;
+      // the last half's compositing has read xt
+      if (h > 0) named_bar(bar, 128);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < 64 && in) {
+        const size_t gi = sample(gr, c);
+        const __nv_bfloat162 p0 =
+            __floats2bfloat162_rn(a.x[gi * 3], a.x[gi * 3 + 1]);
+        const __nv_bfloat162 p1 = __floats2bfloat162_rn(a.x[gi * 3 + 2], 0.f);
+        v.x = *reinterpret_cast<const uint32_t*>(&p0);
+        v.y = *reinterpret_cast<const uint32_t*>(&p1);
+      }
+      *reinterpret_cast<uint4*>(tile_at(xt, row, 8 * (t >> 6))) = v;
+      fence_proxy_async();
+      named_bar(bar, 128);
+      float acc[W / 4], unused[2] = {0.f, 0.f};
+      zero_acc(acc);
+      fwd_trunk_split<W>(acc, r, tiles, smem_u32(xt), sh, sa.m.bpack, nullptr,
+                         unused, bar, nullptr, 0, acts);
+      float sigma[2], rgb[2][3];
+      siren_heads_split<W>(acc, r, tiles, sa.m,
+                           SharedDirs{dir_rows + 4 * (64 * h + quad_row)},
+                           bar, sigma, rgb);
+      // the trunk's wgmma have retired in every warp: xt is free for each
+      // row's compositing inputs
+      if (t < 64) {
+        float* q = reinterpret_cast<float*>(xt + row * kMarchRowBytes);
+        const size_t gi = sample(gr, c);
+        q[4] = in ? a.t[gi] : 0.f;
+        q[5] = in ? a.deltas[gi] : 0.f;
+        q[6] = in ? a.mask[gi] : 0.f;
+      }
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float* q = reinterpret_cast<float*>(
+              xt + (quad_row + 8 * k) * kMarchRowBytes);
+          q[0] = sigma[k];
+          q[1] = rgb[k][0];
+          q[2] = rgb[k][1];
+          q[3] = rgb[k][2];
+        }
+      }
+      named_bar(bar, 128);
+      // ray ct's rows start at row ct * cs of the step: in half h
+      if (ct < bR && ct * cs / 64 == h)
+        composite_chunk(xt, 0, ct - 64 * h / cs, cs, ray);
+    }
+  }
+  march_finish(a, ct, bR, ray, executed, r, done);
+}
+
+// The split kernel's body: the ring of W / 2-wide stages, the three
+// activation tiles, the input tile, the barriers, the done flag and the
+// rows' directions.
+template <int W>
+__device__ __forceinline__ void siren_march_split(const SirenFwdMaps& mp,
+                                                  const SirenMarchArgs& sa,
+                                                  int n_stages,
+                                                  unsigned char* smem_raw) {
+  using T = FwdTraits<W>;
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* act = ring + n_stages * T::kStageBytes;
+  unsigned char* xt = act + T::kActBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xt + kBlock);
+  uint64_t* empty = full + n_stages;
+  volatile int* done = reinterpret_cast<volatile int*>(empty + n_stages);
+  float* dir_rows = reinterpret_cast<float*>(empty + n_stages + 2);
+  fwd_init_barriers(full, empty, n_stages, nullptr, 0, 1);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      while (siren_produce_pass_split<W>(mp, sa.m.n_layers, ring, full,
+                                         empty, n_stages, it, done)) {
+      }
+    }
+    return;
+  }
+  SplitActs<W> tiles(act);
+  FwdRing r{smem_u32(ring), T::kStageBytes, full, empty, n_stages, 0,
+            threadIdx.x == 0};
+  siren_march_consume_split<W>(sa, r, tiles, xt, dir_rows, done);
+}
+
+// The kernel's body at a width of whole-row consumers (up to 256).
+template <int W>
+__device__ __forceinline__ void siren_march_whole(const SirenFwdMaps& mp,
+                                                  const SirenMarchArgs& sa,
+                                                  int n_stages,
+                                                  unsigned char*
+                                                      siren_march_smem_raw) {
   unsigned char* ring =
       siren_march_smem_raw +
       ((1024 - (smem_u32(siren_march_smem_raw) & 1023)) & 1023);
@@ -899,15 +1043,34 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                          dir_rows + wg * 64 * 4, done, wg);
 }
 
+// grid: one CTA per block of block_rows rays; block: the consumer
+// warpgroups + the producer's (FwdTraits<W>).
+template <int W>
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
+    siren_march_kernel(const __grid_constant__ SirenFwdMaps mp,
+                       SirenMarchArgs sa, int n_stages) {
+  extern __shared__ unsigned char siren_march_smem_raw[];
+  if constexpr (FwdTraits<W>::kSplit)
+    siren_march_split<W>(mp, sa, n_stages, siren_march_smem_raw);
+  else
+    siren_march_whole<W>(mp, sa, n_stages, siren_march_smem_raw);
+}
+
+// The SIREN march's shared memory past ws_trunk.cuh's fwd_smem_bytes: the
+// done flag, then the rows' directions (ops/kernels/siren.py::
+// siren_smem_bytes mirrors the sizes, fsnerf_siren_march_stages reports the
+// ring).
+constexpr size_t kSirenMarchExtra = 16 + kRows * 4 * sizeof(float);
+
 template <int W>
 int launch_siren_march_w(const SirenMarchArgs& sa, int n_rays,
                          cudaStream_t st) {
   SirenFwdMaps mp;
   if (!encode_siren_fwd_maps(&mp, sa.m.wpack, sa.m.n_layers, W))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the done flag, then the rows' directions
-  const size_t extra = 16 + kRows * 4 * sizeof(float);
+  const size_t extra = kSirenMarchExtra;
   const int n_stages = fwd_stages(W, kInPad, 0, extra);
+  if (n_stages == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem_bytes(W, kInPad, 0, n_stages) + extra;
   cudaError_t err = cudaFuncSetAttribute(
       siren_march_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -915,8 +1078,8 @@ int launch_siren_march_w(const SirenMarchArgs& sa, int n_rays,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = n_rays / sa.io.block_rows;
   if (n_blocks > 0)
-    siren_march_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(mp, sa,
-                                                               n_stages);
+    siren_march_kernel<W><<<n_blocks, FwdTraits<W>::kThreads, smem, st>>>(
+        mp, sa, n_stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1023,6 +1186,13 @@ extern "C" int fsnerf_siren_ray_march(
         return launch_siren_march_w<192>(sa, n_rays, st);
       case 256:
         return launch_siren_march_w<256>(sa, n_rays, st);
+      case 384:
+      case 512:
+        // run as 64-row halves of whole rays
+        if (block_rows * chunk_s > 64 && 64 % chunk_s != 0)
+          return static_cast<int>(cudaErrorInvalidValue);
+        return width == 384 ? launch_siren_march_w<384>(sa, n_rays, st)
+                            : launch_siren_march_w<512>(sa, n_rays, st);
       default:
         break;
     }
@@ -1030,6 +1200,23 @@ extern "C" int fsnerf_siren_ray_march(
   SirenMarch::Params mp;
   mp.mlp = sa.m;
   return launch_march<SirenMarch>(sa.io, mp, n_rays, stream);
+}
+
+// The ring of stages siren_march_kernel launches with at a packed width
+// (its launcher's arithmetic), or 0 where that width has no such instance.
+extern "C" int fsnerf_siren_march_stages(int width) {
+  using namespace fsnerf;
+  switch (width) {
+    case 64:
+    case 128:
+    case 192:
+    case 256:
+    case 384:
+    case 512:
+      return fwd_stages(width, kInPad, 0, kSirenMarchExtra);
+    default:
+      return 0;
+  }
 }
 
 extern "C" const char* fsnerf_error_string(int err) {

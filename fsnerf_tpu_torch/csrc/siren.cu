@@ -5,11 +5,10 @@
 //
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
-// siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256, else
-// siren_fwd_kernel)
-// and bwd_call (kernel 8; here a row pass,
-// siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 192 / 256,
-// else
+// siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256 and on the
+// column-split trunk at 384 / 512, else siren_fwd_kernel) and bwd_call
+// (kernel 8; here a row pass, siren_bwd_rows_ws_kernel in saved mode at
+// widths 64 / 128 / 192 / 256 and on 64-row CTAs at 384 / 512, else
 // siren_bwd_rows_kernel, then dw_gemm_kernel and dw_reduce_kernel of
 // train_common.cuh). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/
 // siren.py::siren_mlp_fwd_reference / siren_mlp_bwd_reference.
@@ -22,12 +21,12 @@
 // backward reads them back: at the main path's 196,608 rows that stream
 // (1.61 GB) bounds the forward by bytes, and the backward sits near the
 // balance of bytes and operations. The forward's GEMMs run on the tensor
-// cores, at widths 64, 128, 192 and 256 as warp-specialized wgmma fed by
-// TMA
-// (siren_fwd_ws_kernel, below: ws_trunk.cuh's trunk with a sine epilogue),
-// above 256 (up to 320) on mma.sync m16n8k16 through the GEMM core of
-// mlp_common.cuh (siren_fwd_kernel); the sines run in the GEMM epilogues,
-// so no f32 pre-activation ever leaves the SM in the forward.
+// cores, at widths 64, 128, 192, 256, 384 and 512 as warp-specialized wgmma
+// fed by TMA (siren_fwd_ws_kernel, below: ws_trunk.cuh's trunk, at 384 and
+// 512 its column-split shape, with a sine epilogue), at 288 and 320 (which
+// no packer lays out any more) on mma.sync m16n8k16 through the GEMM core
+// of mlp_common.cuh (siren_fwd_kernel); the sines run in the GEMM
+// epilogues, so no f32 pre-activation ever leaves the SM in the forward.
 //
 // The backward, as the NeRF one (mlp_train.cu), runs in three launches so
 // that nothing is summed in an order that depends on scheduling: a
@@ -41,12 +40,14 @@
 // factors a_i cos(a_i y_i) in f32 to scratch, as the TPU kernel holds them
 // f32 (the two modes' gradients differ by that rounding, by design).
 //
-// Two row passes. The main path's, saved mode at width 64, 128, 192 or
-// 256, is siren_bwd_rows_ws_kernel (below): warp-specialized, every
+// Two row passes. The main path's, saved mode at width 64, 128, 192, 256,
+// 384 or 512, is siren_bwd_rows_ws_kernel (below): warp-specialized, every
 // product on wgmma fed by TMA, the heads' cotangents in registers.
-// Recompute mode takes siren_bwd_rows_kernel (which fits in shared memory
-// up to width 256, so no width above it trains on the card): one CTA of
-// 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
+// Recompute mode up to width 256 takes siren_bwd_rows_kernel (which fits
+// in shared memory up to there); at 384 and 512 it runs the forward kernel
+// into an acts stream first and then the saved mode's passes, so there its
+// factors are bf16 and its gradients the saved mode's. siren_bwd_rows_kernel
+// is one CTA of 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
 // __syncthreads(); at width 256 two [128 x 264] bf16 activation buffers
 // (the heads' f32 cos factors borrow one as a [128 x 128] f32 array), a
 // [128 x 136] bf16 head buffer, the staged inputs and the weight slabs:
@@ -136,7 +137,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- the forward, warp-specialized ------------------------------------
 //
-// siren_fwd_ws_kernel<W, kSave> (W = 64, 128, 192, 256): the forward of
+// siren_fwd_ws_kernel<W, kSave> (W = 64, 128, 192, 256; 384 and 512 as
+// ws_fwd_consume_split, after it): the forward of
 // siren_fwd_kernel on the warp-specialized shape of ws_trunk.cuh. 384
 // threads: a producer warpgroup, one of whose threads streams every weight
 // tile by TMA through an mbarrier ring (siren_produce_pass), and two
@@ -205,15 +207,94 @@ __device__ __forceinline__ void ws_fwd_consume(
   if (r.lead) bulk_wait<0>();           // the saved activations are written
 }
 
-// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
-// producer's. kSave: a.acts is set (map_acts is read only then).
+// ws_fwd_consume at a split width (FwdTraits<W>::kSplit: 384, 512): the
+// CTA's one consumer warpgroup, its 64 rows from row0 through the
+// column-split sine trunk (each output half's factors staged and stored to
+// that half's columns) and siren_heads_split.
 template <int W, bool kSave>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    siren_fwd_ws_kernel(const __grid_constant__ SirenFwdMaps mp,
-                        const __grid_constant__ CUtensorMap map_x,
-                        const __grid_constant__ CUtensorMap map_acts,
-                        SirenTrainArgs a, int n_stages) {
-  extern __shared__ unsigned char fwd_ws_smem_raw[];
+__device__ __forceinline__ void ws_fwd_consume_split(
+    const CUtensorMap* map_x, const CUtensorMap* map_acts,
+    const SirenTrainArgs& a, FwdRing& r, SplitActs<W>& tiles,
+    unsigned char* xt, unsigned char* stage, uint64_t* loaded) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int row0 = blockIdx.x * FwdTraits<W>::kCtaRows;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);  // rows quad_row + 8 h
+  const int bar = 1;
+  const int L = a.m.n_layers;
+  if (r.lead) {
+    mbar_arrive_expect_tx(loaded, kBlock);
+    tma_load_2d(xt, map_x, loaded, 0, row0);
+  }
+  RowDirs dir;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir.v[h][k] = g < a.N
+                        ? __bfloat162float(a.d[(size_t)g * kInPad + k])
+                        : 0.f;
+  }
+  mbar_wait(loaded, 0);
+  const SineActs<kSave> acts{a.m.alphas, W, stage, map_acts, L * W, row0,
+                             bar, r.lead};
+  float acc[W / 4], unused[2] = {0.f, 0.f};
+  fwd_trunk_split<W>(acc, r, tiles, smem_u32(xt), FwdShape{L, 0, kInPad, 0},
+                     a.m.bpack, nullptr, unused, bar,
+                     kSave ? map_acts : nullptr, row0, acts);
+  float sigma[2], rgb[2][3];
+  siren_heads_split<W>(acc, r, tiles, a.m, dir, bar, sigma, rgb);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = row0 + quad_row + 8 * h;
+    if ((lane & 3) == 0 && g < a.N)
+      reinterpret_cast<float4*>(a.out)[g] =
+          make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sigma[h]);
+  }
+  if (r.lead) bulk_wait<0>();           // the saved activations are written
+}
+
+// The split kernel's body: the ring of W / 2-wide stages, the three
+// activation tiles, the input tile, (saved mode) the staging block, the
+// barriers; 256 threads, the producer's first thread feeding the ring.
+template <int W, bool kSave>
+__device__ __forceinline__ void fwd_ws_split_body(
+    const SirenFwdMaps& mp, const CUtensorMap* map_x,
+    const CUtensorMap* map_acts, const SirenTrainArgs& a, int n_stages,
+    unsigned char* smem_raw) {
+  using T = FwdTraits<W>;
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* act = ring + n_stages * T::kStageBytes;
+  unsigned char* xt = act + T::kActBytes;
+  unsigned char* stage = xt + kBlock;              // saved factors
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stage + (kSave ? kBlock : 0));
+  uint64_t* empty = full + n_stages;
+  uint64_t* loaded = empty + n_stages;
+  fwd_init_barriers(full, empty, n_stages, loaded, 1, 1);
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      siren_produce_pass_split<W>(mp, a.m.n_layers, ring, full, empty,
+                                  n_stages, it, nullptr);
+    }
+    return;
+  }
+  SplitActs<W> tiles(act);
+  FwdRing r{smem_u32(ring), T::kStageBytes, full, empty, n_stages, 0,
+            threadIdx.x == 0};
+  ws_fwd_consume_split<W, kSave>(map_x, map_acts, a, r, tiles, xt, stage,
+                                 loaded);
+}
+
+// The kernel's body at a width of whole-row consumers (up to 256).
+template <int W, bool kSave>
+__device__ __forceinline__ void fwd_ws_whole_body(
+    const SirenFwdMaps& mp, const CUtensorMap* map_x,
+    const CUtensorMap* map_acts, const SirenTrainArgs& a, int n_stages,
+    unsigned char* fwd_ws_smem_raw) {
   unsigned char* ring = fwd_ws_smem_raw +
                         ((1024 - (smem_u32(fwd_ws_smem_raw) & 1023)) & 1023);
   unsigned char* act = ring + n_stages * W * 128;
@@ -238,16 +319,45 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   setmaxnreg_inc<kFwdConsumerRegs>();
   FwdRing r{smem_u32(ring), W * 128, full, empty, n_stages, 0,
             (threadIdx.x & 127) == 0};
-  ws_fwd_consume<W, kSave>(&map_x, &map_acts, a, r, act + wg * W * 128,
+  ws_fwd_consume<W, kSave>(map_x, map_acts, a, r, act + wg * W * 128,
                            xt + wg * kBlock, stage + wg * kBlock,
                            &loaded[wg], wg);
 }
 
+// grid: one CTA per 128 rows (64 at a split width); block: the consumer
+// warpgroups + the producer's (FwdTraits<W>). kSave: a.acts is set
+// (map_acts is read only then).
+template <int W, bool kSave>
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
+    siren_fwd_ws_kernel(const __grid_constant__ SirenFwdMaps mp,
+                        const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_acts,
+                        SirenTrainArgs a, int n_stages) {
+  extern __shared__ unsigned char fwd_ws_smem_raw[];
+  if constexpr (FwdTraits<W>::kSplit)
+    fwd_ws_split_body<W, kSave>(mp, &map_x, &map_acts, a, n_stages,
+                                fwd_ws_smem_raw);
+  else
+    fwd_ws_whole_body<W, kSave>(mp, &map_x, &map_acts, a, n_stages,
+                                fwd_ws_smem_raw);
+}
+
+// The forward's shared memory past ws_trunk.cuh's fwd_smem_bytes: each
+// consumer's input barrier and (saved mode) staging block.
+template <int W>
+size_t fwd_ws_extra(bool save) {
+  using T = FwdTraits<W>;
+  return T::kConsumers * sizeof(uint64_t) + (save ? T::kConsumers * kBlock : 0);
+}
+
 // The forward at width W on `st`: the weight maps, the maps of x and (in
-// saved mode) acts, the deepest ring that fits (4 stages at each width).
+// saved mode) acts, the deepest ring that fits (4 stages at each width up
+// to 256 and at 384, 3 at 512; ops/kernels/siren.py::siren_smem_bytes
+// mirrors the sizes, fsnerf_siren_stages reports the ring).
 template <int W>
 cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
                           cudaStream_t st) {
+  using T = FwdTraits<W>;
   const int L = a.m.n_layers;
   SirenFwdMaps mp;
   CUtensorMap map_x, map_acts;
@@ -259,9 +369,9 @@ cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
   else if (!encode_bf16_map(&map_acts, a.acts, n_blocks * kRows, a.lda,
                             a.lda, 64))
     return cudaErrorInvalidValue;
-  const size_t extra = kFwdConsumers * sizeof(uint64_t) +
-                       (a.acts != nullptr ? kFwdConsumers * kBlock : 0);
+  const size_t extra = fwd_ws_extra<W>(a.acts != nullptr);
   const int n_stages = fwd_stages(W, kInPad, 0, extra);
+  if (n_stages == 0) return cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes(W, kInPad, 0, n_stages) + extra;
   const auto kernel = a.acts != nullptr ? siren_fwd_ws_kernel<W, true>
                                         : siren_fwd_ws_kernel<W, false>;
@@ -269,8 +379,8 @@ cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<n_blocks, kFwdThreads, smem, st>>>(mp, map_x, map_acts, a,
-                                              n_stages);
+  kernel<<<n_blocks * (kRows / T::kCtaRows), T::kThreads, smem, st>>>(
+      mp, map_x, map_acts, a, n_stages);
   return cudaGetLastError();
 }
 
@@ -516,7 +626,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- the saved-mode backward row pass, warp-specialized --------------
 //
-// siren_bwd_rows_ws_kernel<W> (W = 64, 128, 192, 256; saved mode): the same
+// siren_bwd_rows_ws_kernel<W> (W = 64, 128, 192, 256; saved mode; 384 and
+// 512 on 64-row CTAs, below): the same
 // outputs as siren_bwd_rows_kernel (xs, dy, pbias) on the warp-specialized
 // shape of ws_trunk.cuh. 384 threads: a producer warpgroup, one of whose
 // threads streams every weight tile by TMA through an mbarrier ring in the
@@ -556,8 +667,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 // consumer, the column sums and the bias partials (28 KB).
 constexpr int kBwdBoth = 3;          // both consumers' named barrier
 
+//
+// At the packed widths 384 and 512 (FwdTraits<W>::kSplit) the same pass
+// runs on CTAs of 64 rows: 256 threads, the producer and one consumer
+// warpgroup (no setmaxnreg), every product with N = W split into two
+// output column halves of W / 2 into one W / 2 accumulator (128 registers
+// a thread at 512, as at W = 256), the ring's stages 64 K-rows x W / 2.
+// Its tiles are SplitActs' three half-width tiles, which rotate as the
+// forward's: h_{L-1} arrives in two of them; feat's halves go to the free
+// one and over h's first half; s_r to the free one and dyr over feat's
+// first half; dfeat's halves (K = W / 2, from dyr) to the other two; then
+// each cotangent product dh_{i-1} = dy_i W_i^T (and dh's two segments)
+// reads both input halves per output half, the first half's output going
+// to the free tile, the second over the input's first half once both
+// halves' products have retired. S holds s_s, then dys, as above. With one
+// consumer a CTA's bias partials need no sum across warpgroups: each
+// combine writes its columns straight to the CTA's row of pbias, which has
+// n_pad / 64 rows (the reduce walks them in order). Shared memory at 512:
+// a 2-stage ring (64 KB), the three tiles (96 KB), S (32 KB) and the
+// column sums (8 KB); at 384 a 4-stage ring.
+
 template <int W>
 size_t ws_bwd_smem_bytes(int n_stages, int n_bias) {
+  if (FwdTraits<W>::kSplit)
+    return 1024 + (size_t)(n_stages + 3) * (W / 2) * 128 +
+           (size_t)enc_blocks(W / 2) * kBlock + 4 * (W + 4) * sizeof(float) +
+           (2 * n_stages + 1) * sizeof(uint64_t);
   return 1024 + (size_t)(n_stages + kFwdConsumers) * W * 128 +
          (size_t)kFwdConsumers * enc_blocks(W / 2) * kBlock +
          (size_t)kFwdConsumers * (4 * (W + 4) + n_bias) * sizeof(float) +
@@ -573,6 +708,9 @@ int ws_bwd_stages(int n_bias) {
   return n < 2 ? 0 : n;
 }
 
+// The bias columns of an L-layer SIREN at packed width W (bpack's length).
+int siren_n_bias(int L, int W) { return L * W + W / 2 + 1 + W + W / 2 + 3; }
+
 // The tensor maps: the heads' forward matrices in wpack (w_s0 [W, Wh], w_f
 // [W, W], w_r0f [W, Wh]), wtpack as [(L + 1) W, W] (t_1 .. t_{L-1}, w_f,
 // w_s0, w_r0f, each [out, in]), and acts, xs and dy.
@@ -580,7 +718,8 @@ struct SirenBwdMaps {
   CUtensorMap s0, f, r0, wt, acts, xs, dy;
 };
 
-// The producer: every weight tile in the consumers' order.
+// The producer: every weight tile in the consumers' order (at a split
+// width each N = W product half by half, from that half's columns).
 template <int W>
 __device__ __forceinline__ void ws_bwd_produce(const SirenBwdMaps& mp,
                                                int L, unsigned char* ring,
@@ -588,17 +727,35 @@ __device__ __forceinline__ void ws_bwd_produce(const SirenBwdMaps& mp,
                                                uint64_t* empty,
                                                int n_stages) {
   constexpr int Wh = W / 2, NS = head_n(W);
+  constexpr int SC = FwdTraits<W>::kSplit ? Wh : W;   // a stage's columns
   int it = 0;
-  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box) {
+  auto feed = [&](const CUtensorMap* map, int row, int k, int n_box,
+                  int col0 = 0) {
     for (int kc = 0; kc < k; kc += 64, ++it) {
       const int s = it % n_stages;
       if (it >= n_stages) mbar_wait(&empty[s], (it / n_stages - 1) & 1);
-      unsigned char* st = ring + s * (W * 128);
+      unsigned char* st = ring + s * (SC * 128);
       mbar_arrive_expect_tx(&full[s], n_box * kBlock);
       for (int q = 0; q < n_box; ++q)
-        tma_load_2d(st + q * kBlock, map, &full[s], 64 * q, row + kc);
+        tma_load_2d(st + q * kBlock, map, &full[s], col0 + 64 * q, row + kc);
     }
   };
+  if constexpr (FwdTraits<W>::kSplit) {
+    feed(&mp.s0, 0, W, NS / 64);               // ys = h W_s0 (N = Wh)
+    for (int n = 0; n < 2; ++n)                // feat = h W_f
+      feed(&mp.f, 0, W, Wh / 64, n * Wh);
+    feed(&mp.r0, 0, W, NS / 64);               // yr = feat W_r0f
+    for (int n = 0; n < 2; ++n)                // dfeat = dyr W_r0f^T
+      feed(&mp.wt, L * W + Wh, Wh, Wh / 64, n * Wh);
+    for (int n = 0; n < 2; ++n) {              // dh = dfeat W_f^T
+      feed(&mp.wt, (L - 1) * W, W, Wh / 64, n * Wh);
+      feed(&mp.wt, L * W, Wh, Wh / 64, n * Wh);  //    + dys W_s0^T
+    }
+    for (int i = L - 1; i >= 1; --i)
+      for (int n = 0; n < 2; ++n)              // dh_{i-1} = dy_i W_i^T
+        feed(&mp.wt, (i - 1) * W, W, Wh / 64, n * Wh);
+    return;
+  }
   feed(&mp.s0, 0, W, NS / 64);                 // ys = h W_s0
   feed(&mp.f, 0, W, W / 64);                   // feat = h W_f
   feed(&mp.r0, 0, W, NS / 64);                 // yr = feat W_r0f
@@ -761,6 +918,9 @@ __device__ __forceinline__ void cot_epilogue(const float (&acc)[NACC],
 }
 
 // A consumer warpgroup: its 64 rows from row0 through the whole row pass.
+// T: its W-wide tile, or at a split width the three half tiles' base; pb:
+// its bias partials (shared memory, or at a split width the CTA's row of
+// pbias).
 template <int W>
 __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
                                                const SirenBwdMaps& mp,
@@ -768,6 +928,7 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
                                                unsigned char* S,
                                                float* colpart, float* pb,
                                                uint64_t* loaded, int wg) {
+  constexpr bool kSplit = FwdTraits<W>::kSplit;
   constexpr int Wh = W / 2, NS = head_n(W), LDC = W + 4;
   // dyr's first column in T: past s_r where that is a block's start or
   // inside block 0; at W = 192 over s_r, once its copy to xs has read it
@@ -777,9 +938,10 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
   const Siren& m = a.m;
   const int L = m.n_layers;
   const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
-  const int row0 = blockIdx.x * kRows + 64 * wg;
+  const int row0 = blockIdx.x * FwdTraits<W>::kCtaRows + 64 * wg;
   const int bar = 1 + wg;
   const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
+  SplitActs<W> tl(T);         // the half tiles (a split width only)
   const int xs_ss = 2 * kInPad, xs_feat = xs_ss + Wh, xs_sr = xs_feat + W;
   const int dy_s = L * W, dy_f = dy_s + Wh, dy_r = dy_f + W;
   const int dy_sig = dy_r + Wh;
@@ -803,10 +965,13 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
     named_bar(bar, 128);
   };
 
-  if (r.lead) {
+  if (r.lead) {              // h_{L-1}; at a split width into (in0, in1)
+    unsigned char* h = kSplit ? tl.tile(tl.in0) : T;
+    static_assert(!kSplit || SplitActs<W>::kBytes == (W / 128) * kBlock,
+                  "in1 follows in0");
     mbar_arrive_expect_tx(loaded, (W / 64) * kBlock);
     for (int q = 0; q < W / 64; ++q)
-      tma_load_2d(T + q * kBlock, &mp.acts, loaded, (L - 1) * W + 64 * q,
+      tma_load_2d(h + q * kBlock, &mp.acts, loaded, (L - 1) * W + 64 * q,
                   row0);
   }
   for (int e = t; e < 64 * 4; e += 128) {      // x | d to xs
@@ -817,18 +982,32 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
                                                             (c & 1)];
     *reinterpret_cast<uint4*>(a.xs + (size_t)g * XW + 8 * c) = v;
   }
+  // the rows' directions and output cotangents: at a split width loaded
+  // where the rgb head uses them (held from here, beside its W / 4
+  // accumulators, they spill at 384), sigma's read where it is used
   float dir[2][3], dout[2][4];
+  auto load_rows = [&]() {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int g = row0 + qrow + 8 * h;
+    for (int h = 0; h < 2; ++h) {
+      const int g = row0 + qrow + 8 * h;
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-      dir[h][k] = g < a.N ? __bfloat162float(a.d[(size_t)g * kInPad + k])
-                          : 0.f;
+      for (int k = 0; k < 3; ++k)
+        dir[h][k] = g < a.N ? __bfloat162float(a.d[(size_t)g * kInPad + k])
+                            : 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      dout[h][c] = g < a.N ? a.dout[(size_t)g * 4 + c] : 0.f;
-  }
+      for (int c = 0; c < 4; ++c)
+        dout[h][c] = g < a.N ? a.dout[(size_t)g * 4 + c] : 0.f;
+    }
+  };
+  auto dout_sigma = [&](int h) {
+    if constexpr (kSplit) {
+      const int g = row0 + qrow + 8 * h;
+      return g < a.N ? a.dout[(size_t)g * 4 + 3] : 0.f;
+    } else {
+      return dout[h][3];
+    }
+  };
+  if constexpr (!kSplit) load_rows();
   mbar_wait(loaded, 0);
 
   // Each product's accumulators live in their own scope: an array left
@@ -837,7 +1016,10 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
   // accumulators, this thread's sigma_pre partial dots
   {
     float acc_s[NS / 2];
-    fwd_product(acc_s, smem_u32(T), W, true, r);
+    if constexpr (kSplit)
+      split_product<W>(acc_s, tl, r);
+    else
+      fwd_product(acc_s, smem_u32(T), W, true, r);
     const float* b_s0 = m.bpack + m.ob_s0();
     const bf16* w_s1 = m.ws1();
     float sp[2] = {0.f, 0.f};
@@ -873,7 +1055,7 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float v = quad_sum(sp[h]) + b_s1;
-      dsig[h] = v > 0.f ? dout[h][3] : 0.f;    // 0 past N
+      dsig[h] = v > 0.f ? dout_sigma(h) : 0.f;  // 0 past N
       dsig_b[h] = __bfloat162float(__float2bfloat16_rn(dsig[h]));
     }
     // dys = (dsig_b w_s1) cos(ys) over s_s in S, once its store has read
@@ -921,22 +1103,41 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
     combine(Wh + 1, pb + m.ob_s0());           // b_s0, then b_s1
   }
 
-  {  // feat = bf16(h W_f + b_f) over h in T
-    float acc[W / 2], unused[2] = {0.f, 0.f};
-    fwd_product(acc, smem_u32(T), W, true, r);
-    named_bar(bar, 128);
-    fwd_epilogue(acc, m.bpack + m.ob_f(), ReluAct{false}, T, nullptr,
-                 unused);
+  if constexpr (kSplit) {  // feat's halves, each to xs; (in0, in1) after
+    float acc[W / 4], unused[2] = {0.f, 0.f};
+    for (int n = 0; n < 2; ++n) {
+      split_product<W>(acc, tl, r);
+      split_epilogue<W>(acc, tl, n, m.bpack + m.ob_f() + n * Wh,
+                        ReluAct{false}, nullptr, unused, bar, r.lead, &mp.xs,
+                        xs_feat + n * Wh, row0);
+    }
+    tl.advance();
+  } else {  // feat = bf16(h W_f + b_f) over h in T
+    {
+      float acc[W / 2], unused[2] = {0.f, 0.f};
+      fwd_product(acc, smem_u32(T), W, true, r);
+      named_bar(bar, 128);
+      fwd_epilogue(acc, m.bpack + m.ob_f(), ReluAct{false}, T, nullptr,
+                   unused);
+    }
+    tile_written();
+    store_cols(&mp.xs, T, 0, W, a.xs, XW, xs_feat, row0, r.lead);
   }
-  tile_written();
-  store_cols(&mp.xs, T, 0, W, a.xs, XW, xs_feat, row0, r.lead);
 
-  // rgb head: yr = feat W_r0f + d W_r0d + b_r0; s_r into T[:, :Wh],
-  // cos(yr) over the accumulators, rgb, drgb, dyr into T[:, Wh:]
+  // rgb head: yr = feat W_r0f + d W_r0d + b_r0; s_r into T[:, :Wh] (at a
+  // split width the free tile), cos(yr) over the accumulators, rgb, drgb,
+  // dyr into T[:, Wh:] (over feat's first half)
+  unsigned char* const sr_tile = kSplit ? tl.tile(tl.spare) : T;
+  unsigned char* const dyr_tile = kSplit ? tl.tile(tl.in0) : T;
+  constexpr int kDyrCol = kSplit ? 0 : kDyr;
   {
     float acc_s[NS / 2];
-    fwd_product(acc_s, smem_u32(T), W, true, r);
+    if constexpr (kSplit)
+      split_product<W>(acc_s, tl, r);
+    else
+      fwd_product(acc_s, smem_u32(T), W, true, r);
     tile_free();
+    if constexpr (kSplit) load_rows();
     const float* b_r0 = m.bpack + m.ob_r0();
     const bf16* w_r0d = m.wr0d();
     const bf16* w_r1 = m.wr1();
@@ -974,11 +1175,11 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
           }
         }
       }
-      stsm_x4(smem_u32(tile_at(T, srow, 8 * (j + (sm >> 1)))), packed[0][0],
-              packed[0][1], packed[1][0], packed[1][1]);
+      stsm_x4(smem_u32(tile_at(sr_tile, srow, 8 * (j + (sm >> 1)))),
+              packed[0][0], packed[0][1], packed[1][0], packed[1][1]);
     }
     tile_written();
-    store_cols(&mp.xs, T, 0, Wh, a.xs, XW, xs_sr, row0, r.lead);
+    store_cols(&mp.xs, sr_tile, 0, Wh, a.xs, XW, xs_sr, row0, r.lead);
     const float* b_r1 = m.bpack + m.ob_r1();
     float drgb[3][2], drgb_b[2][3];
 #pragma unroll
@@ -990,7 +1191,7 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
         drgb[c][h] = dout[h][c] * rr * (1.f - rr);     // 0 past N
         drgb_b[h][c] = __bfloat162float(__float2bfloat16_rn(drgb[c][h]));
       }
-    if (kDyr == 0) tile_free();
+    if (!kSplit && kDyr == 0) tile_free();
     float* cp = cp_row();
 #pragma unroll
     for (int j = 0; j < Wh / 8; j += 2) {
@@ -1021,7 +1222,8 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
         }
         warp_colsum(s[0], s[1], cp, col);
       }
-      stsm_x4(smem_u32(tile_at(T, srow, kDyr + 8 * (j + (sm >> 1)))),
+      stsm_x4(smem_u32(tile_at(dyr_tile, srow,
+                               kDyrCol + 8 * (j + (sm >> 1)))),
               packed[0][0], packed[0][1], packed[1][0], packed[1][1]);
     }
 #pragma unroll
@@ -1039,46 +1241,110 @@ __device__ __forceinline__ void ws_bwd_consume(const SirenTrainArgs& a,
       }
     }
     tile_written();
-    store_cols(&mp.dy, T, kDyr, Wh, a.dy, DYW, dy_r, row0, r.lead);
+    store_cols(&mp.dy, dyr_tile, kDyrCol, Wh, a.dy, DYW, dy_r, row0,
+               r.lead);
     combine(Wh + 3, pb + m.ob_r0());           // b_r0, then b_r1
   }
-
-  // dfeat = dyr_b W_r0f^T over T (feat has no activation)
-  float acc[W / 2];
-  const uint32_t t_a = smem_u32(T);
-  fwd_product(acc, t_a + (kDyr / 64) * kBlock + (kDyr % 64) * 2, Wh, true,
-              r);
-  tile_free();
-  cot_epilogue(acc, nullptr, 0, T, cp_row());
-  tile_written();
-  store_cols(&mp.dy, T, 0, W, a.dy, DYW, dy_f, row0, r.lead);
-  combine(W, pb + m.ob_f());
-
-  // dy_{L-1} = (dfeat_b W_f^T + dys_b W_s0^T) * factor_{L-1}, then
-  // dy_{i-1} = (dy_i_b W_i^T) * factor_{i-1}
-  const bf16* fac = a.acts + (size_t)(row0)*a.lda + (size_t)L * W;
-  for (int i = L; i >= 1; --i) {
-    fwd_product(acc, t_a, W, true, r);
-    if (i == L) fwd_product(acc, smem_u32(S), Wh, false, r);
+  if constexpr (kSplit) {
+    // dfeat = dyr_b W_r0f^T: its halves over feat's second half (in1) and
+    // s_r (spare), which then hold the products' input
+    float acc[W / 4];
+    for (int n = 0; n < 2; ++n) {
+      unsigned char* out = tl.tile(n == 0 ? tl.in1 : tl.spare);
+      fwd_product(acc, smem_u32(dyr_tile), Wh, true, r);
+      tile_free();
+      cot_epilogue(acc, nullptr, 0, out, cp_row() + n * Wh);
+      tile_written();
+      store_cols(&mp.dy, out, 0, Wh, a.dy, DYW, dy_f + n * Wh, row0,
+                 r.lead);
+    }
+    combine(W, pb + m.ob_f());
+    const int free_tile = tl.in0;              // dyr's
+    tl.in0 = tl.in1;
+    tl.in1 = tl.spare;
+    tl.spare = free_tile;
+    // dy_{L-1} = (dfeat_b W_f^T + dys_b W_s0^T) * factor_{L-1}, then
+    // dy_{i-1} = (dy_i_b W_i^T) * factor_{i-1}, each half by half
+    const bf16* fac = a.acts + (size_t)(row0)*a.lda + (size_t)L * W;
+    for (int i = L; i >= 1; --i) {
+      for (int n = 0; n < 2; ++n) {
+        split_product<W>(acc, tl, r);
+        if (i == L) fwd_product(acc, smem_u32(S), Wh, false, r);
+        tile_free();
+        cot_epilogue(acc, fac + (size_t)(i - 1) * W + n * Wh, a.lda,
+                     tl.out(n), cp_row() + n * Wh);
+        tile_written();
+        store_cols(&mp.dy, tl.out(n), 0, Wh, a.dy, DYW,
+                   (i - 1) * W + n * Wh, row0, r.lead);
+      }
+      combine(W, pb + (i - 1) * W);
+      tl.advance();
+    }
+  } else {
+    // dfeat = dyr_b W_r0f^T over T (feat has no activation)
+    float acc[W / 2];
+    const uint32_t t_a = smem_u32(T);
+    fwd_product(acc, t_a + (kDyr / 64) * kBlock + (kDyr % 64) * 2, Wh, true,
+                r);
     tile_free();
-    cot_epilogue(acc, fac + (size_t)(i - 1) * W, a.lda, T, cp_row());
+    cot_epilogue(acc, nullptr, 0, T, cp_row());
     tile_written();
-    store_cols(&mp.dy, T, 0, W, a.dy, DYW, (i - 1) * W, row0, r.lead);
-    combine(W, pb + (i - 1) * W);
+    store_cols(&mp.dy, T, 0, W, a.dy, DYW, dy_f, row0, r.lead);
+    combine(W, pb + m.ob_f());
+
+    // dy_{L-1} = (dfeat_b W_f^T + dys_b W_s0^T) * factor_{L-1}, then
+    // dy_{i-1} = (dy_i_b W_i^T) * factor_{i-1}
+    const bf16* fac = a.acts + (size_t)(row0)*a.lda + (size_t)L * W;
+    for (int i = L; i >= 1; --i) {
+      fwd_product(acc, t_a, W, true, r);
+      if (i == L) fwd_product(acc, smem_u32(S), Wh, false, r);
+      tile_free();
+      cot_epilogue(acc, fac + (size_t)(i - 1) * W, a.lda, T, cp_row());
+      tile_written();
+      store_cols(&mp.dy, T, 0, W, a.dy, DYW, (i - 1) * W, row0, r.lead);
+      combine(W, pb + (i - 1) * W);
+    }
   }
   if (r.lead) bulk_wait<0>();                 // every store has landed
 }
 
-// grid: one CTA per 128 rows; block: kFwdConsumers warpgroups + the
-// producer's.
+// The split kernel's body: the ring of W / 2-wide stages, the three half
+// tiles, S, the column sums, the barriers; the consumer's bias partials go
+// to pbias[blockIdx] (n_bias columns).
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-    siren_bwd_rows_ws_kernel(const __grid_constant__ SirenBwdMaps mp,
-                             SirenTrainArgs a, int n_stages) {
-  extern __shared__ unsigned char bwd_ws_smem_raw[];
-  unsigned char* ring = bwd_ws_smem_raw +
-                        ((1024 - (smem_u32(bwd_ws_smem_raw) & 1023)) & 1023);
-  const int L = a.m.n_layers, n_bias = L * W + W / 2 + 1 + W + W / 2 + 3;
+__device__ __forceinline__ void bwd_rows_split_body(const SirenBwdMaps& mp,
+                                                    const SirenTrainArgs& a,
+                                                    int n_stages, int n_bias,
+                                                    unsigned char* ring) {
+  constexpr int Wh = W / 2;
+  unsigned char* tiles = ring + n_stages * Wh * 128;
+  unsigned char* S = tiles + 3 * Wh * 128;
+  float* colpart =
+      reinterpret_cast<float*>(S + enc_blocks(Wh) * kBlock);
+  uint64_t* full = reinterpret_cast<uint64_t*>(colpart + 4 * (W + 4));
+  uint64_t* empty = full + n_stages;
+  uint64_t* loaded = empty + n_stages;
+  fwd_init_barriers(full, empty, n_stages, loaded, 1, 1);
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128)
+      ws_bwd_produce<W>(mp, a.m.n_layers, ring, full, empty, n_stages);
+    return;
+  }
+  FwdRing r{smem_u32(ring), Wh * 128, full, empty, n_stages, 0,
+            threadIdx.x == 0};
+  ws_bwd_consume<W>(a, mp, r, tiles, S, colpart,
+                    a.pbias + (size_t)blockIdx.x * n_bias, loaded, 0);
+}
+
+// The kernel's body at a width of whole-row consumers (up to 256): the
+// ring, each consumer's T, S, column sums and bias partials, the barriers;
+// the two consumers' partials added in order into pbias[blockIdx].
+template <int W>
+__device__ __forceinline__ void bwd_rows_whole_body(const SirenBwdMaps& mp,
+                                                    const SirenTrainArgs& a,
+                                                    int n_stages, int n_bias,
+                                                    unsigned char* ring) {
   unsigned char* T = ring + n_stages * W * 128;
   unsigned char* S = T + kFwdConsumers * W * 128;
   float* colpart = reinterpret_cast<float*>(
@@ -1111,10 +1377,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     pb[c] = bias[c] + bias[n_bias + c];
 }
 
+// grid: one CTA per 128 rows (64 at a split width); block: the consumer
+// warpgroups + the producer's (FwdTraits<W>).
+template <int W>
+__global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
+    siren_bwd_rows_ws_kernel(const __grid_constant__ SirenBwdMaps mp,
+                             SirenTrainArgs a, int n_stages) {
+  extern __shared__ unsigned char bwd_ws_smem_raw[];
+  unsigned char* ring = bwd_ws_smem_raw +
+                        ((1024 - (smem_u32(bwd_ws_smem_raw) & 1023)) & 1023);
+  const int L = a.m.n_layers, n_bias = L * W + W / 2 + 1 + W + W / 2 + 3;
+  if constexpr (FwdTraits<W>::kSplit)
+    bwd_rows_split_body<W>(mp, a, n_stages, n_bias, ring);
+  else
+    bwd_rows_whole_body<W>(mp, a, n_stages, n_bias, ring);
+}
+
 template <int W>
 cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
                                cudaStream_t st) {
-  constexpr int Wh = W / 2;
   const int L = a.m.n_layers, n_pad = n_blocks * kRows;
   const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
   SirenBwdMaps mp;
@@ -1124,16 +1405,27 @@ cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
       !encode_bf16_map(&mp.xs, a.xs, n_pad, XW, XW, 64) ||
       !encode_bf16_map(&mp.dy, a.dy, n_pad, DYW, DYW, 64))
     return cudaErrorInvalidValue;
-  const int n_bias = L * W + Wh + 1 + W + Wh + 3;
+  const int n_bias = siren_n_bias(L, W);
   const int n_stages = ws_bwd_stages<W>(n_bias);
+  if (n_stages == 0) return cudaErrorInvalidValue;
   const size_t smem = ws_bwd_smem_bytes<W>(n_stages, n_bias);
   cudaError_t err = cudaFuncSetAttribute(
       siren_bwd_rows_ws_kernel<W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  siren_bwd_rows_ws_kernel<W><<<n_blocks, kFwdThreads, smem, st>>>(
-      mp, a, n_stages);
+  using T = FwdTraits<W>;
+  siren_bwd_rows_ws_kernel<W>
+      <<<n_blocks * (kRows / T::kCtaRows), T::kThreads, smem, st>>>(mp, a,
+                                                                    n_stages);
   return cudaGetLastError();
+}
+
+// The ring launch_fwd_ws (kernel 0: saved mode, 1: without acts) or
+// launch_bwd_rows_ws (2) runs at width W with L layers.
+template <int W>
+int ws_stages(int kernel, int L) {
+  if (kernel == 2) return ws_bwd_stages<W>(siren_n_bias(L, W));
+  return fwd_stages(W, kInPad, 0, fwd_ws_extra<W>(kernel == 0));
 }
 
 void fill_args(SirenTrainArgs& a, const void* x, const void* d,
@@ -1171,8 +1463,9 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  // widths 64, 128, 192 and 256 on the warp-specialized kernel, wider
-  // ones (multiples of 32 up to 320) on siren_fwd_kernel
+  // widths 64, 128, 192 and 256 on the warp-specialized kernel, 384 and
+  // 512 on its column-split shape, others (multiples of 32 up to 320) on
+  // siren_fwd_kernel
   switch (width) {
     case 64:
       return static_cast<int>(launch_fwd_ws<64>(a, n_blocks, st));
@@ -1182,6 +1475,10 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
       return static_cast<int>(launch_fwd_ws<192>(a, n_blocks, st));
     case 256:
       return static_cast<int>(launch_fwd_ws<256>(a, n_blocks, st));
+    case 384:
+      return static_cast<int>(launch_fwd_ws<384>(a, n_blocks, st));
+    case 512:
+      return static_cast<int>(launch_fwd_ws<512>(a, n_blocks, st));
     default:
       break;
   }
@@ -1195,18 +1492,22 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
 }
 
 // dw [n_w] (bf16-rounded) and db [n_b] (f32) in the wpack / bpack layouts.
-// Saved mode (cfs null): acts is the forward's [n_pad, lda = 2 L W] stream.
-// Recompute mode (cfs given): acts [n_pad, lda = L W] bf16 and cfs [n_pad,
-// L W] f32 are scratch the row pass writes. xs, dy, pbias and part are
-// scratch of the shapes documented in SirenTrainArgs and
-// train_common.cuh::dw_gemm_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
-// 3] int32 (ops/kernels/siren.py::dw_jobs).
+// Saved mode (cfs and fwd_out null): acts is the forward's [n_pad, lda = 2
+// L W] stream. Recompute mode up to width 256 (cfs given): acts [n_pad, lda
+// = L W] bf16 and cfs [n_pad, L W] f32 are scratch the row pass writes.
+// Recompute mode at 384 and 512 (fwd_out given, [n, 4] f32 scratch): the
+// forward kernel first writes acts [n_pad, lda = 2 L W] (its bf16
+// factors), then the saved mode's passes run. xs, dy, pbias ([n_pad / R,
+// n_b]: R = 128, or 64 at 384 and 512) and part are scratch of the shapes
+// documented in SirenTrainArgs and train_common.cuh::dw_gemm_kernel; jobs
+// [n_jobs, 6] and tiles [n_tiles, 3] int32 (ops/kernels/siren.py::dw_jobs).
 extern "C" int fsnerf_siren_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
     const void* bpack, const void* wtpack, const void* alphas, void* acts,
-    int lda, void* cfs, void* xs, void* dy, void* pbias, const void* jobs,
-    const void* tiles, int n_tiles, void* part, int split_rows, void* dw,
-    void* db, int n, int n_layers, int width, void* stream) {
+    int lda, void* cfs, void* fwd_out, void* xs, void* dy, void* pbias,
+    const void* jobs, const void* tiles, int n_tiles, void* part,
+    int split_rows, void* dw, void* db, int n, int n_layers, int width,
+    void* stream) {
   using namespace fsnerf;
   SirenTrainArgs a;
   fill_args(a, x, d, wpack, bpack, alphas, n, n_layers, width);
@@ -1222,23 +1523,38 @@ extern "C" int fsnerf_siren_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  // the row pass: saved mode at width 64, 128, 192 or 256 on the
-  // warp-specialized kernel, where its shared memory fits (a ring of 2
-  // stages or more beside the bias partials); recompute mode (f32 factors)
-  // and other widths on siren_bwd_rows_kernel
+  const bool split = width == 384 || width == 512;
+  cudaError_t err;
+  if (fwd_out != nullptr) {      // recompute mode at 384 / 512
+    if (!split || a.recompute || lda != 2 * n_layers * width)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.out = static_cast<float*>(fwd_out);
+    err = width == 384 ? launch_fwd_ws<384>(a, n_blocks, st)
+                       : launch_fwd_ws<512>(a, n_blocks, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // the row pass: saved mode at width 64, 128, 192, 256, 384 or 512 on the
+  // warp-specialized kernel (384, 512: its 64-row split shape), where its
+  // shared memory fits (up to 256 a ring of 2 stages or more beside the
+  // bias partials); recompute mode (f32 factors) up to 256 and other
+  // widths on siren_bwd_rows_kernel
   const int Wh = width / 2, L = n_layers;
-  const int n_b = L * width + Wh + 1 + width + Wh + 3;
+  const int n_b = siren_n_bias(L, width);
   const bool ws = !a.recompute && (width == 64    ? ws_bwd_stages<64>(n_b)
                                    : width == 128 ? ws_bwd_stages<128>(n_b)
                                    : width == 192 ? ws_bwd_stages<192>(n_b)
                                    : width == 256 ? ws_bwd_stages<256>(n_b)
+                                   : width == 384 ? ws_bwd_stages<384>(n_b)
+                                   : width == 512 ? ws_bwd_stages<512>(n_b)
                                                   : 0) > 0;
-  cudaError_t err;
+  if (split && !ws) return static_cast<int>(cudaErrorInvalidValue);
   if (ws) {
     err = width == 64    ? launch_bwd_rows_ws<64>(a, n_blocks, st)
           : width == 128 ? launch_bwd_rows_ws<128>(a, n_blocks, st)
           : width == 192 ? launch_bwd_rows_ws<192>(a, n_blocks, st)
-                         : launch_bwd_rows_ws<256>(a, n_blocks, st);
+          : width == 256 ? launch_bwd_rows_ws<256>(a, n_blocks, st)
+          : width == 384 ? launch_bwd_rows_ws<384>(a, n_blocks, st)
+                         : launch_bwd_rows_ws<512>(a, n_blocks, st);
   } else {
     const size_t smem = bwd_smem_bytes(width);
     err = cudaFuncSetAttribute(siren_bwd_rows_kernel,
@@ -1257,6 +1573,31 @@ extern "C" int fsnerf_siren_bwd(
       2 * kInPad + 2 * width, static_cast<const bf16*>(dy),
       L * width + 2 * width + 16, static_cast<const int*>(tiles), n_tiles,
       static_cast<const int*>(jobs), static_cast<float*>(part), n_w,
-      split_rows, static_cast<const float*>(pbias), n_blocks, n_b, 0,
-      static_cast<float*>(dw), static_cast<float*>(db), st));
+      split_rows, static_cast<const float*>(pbias),
+      split ? 2 * n_blocks : n_blocks, n_b, 0, static_cast<float*>(dw),
+      static_cast<float*>(db), st, split ? 64 : kRows));
+}
+
+// The ring of stages the warp-specialized forward (kernel 0: saved mode, 1:
+// without acts) or saved-mode row pass (2) launches with at a packed width
+// and n_layers (the launchers' own arithmetic), or 0 where that width has
+// no warp-specialized instance or a ring of 2 does not fit.
+extern "C" int fsnerf_siren_stages(int width, int kernel, int n_layers) {
+  using namespace fsnerf;
+  switch (width) {
+    case 64:
+      return ws_stages<64>(kernel, n_layers);
+    case 128:
+      return ws_stages<128>(kernel, n_layers);
+    case 192:
+      return ws_stages<192>(kernel, n_layers);
+    case 256:
+      return ws_stages<256>(kernel, n_layers);
+    case 384:
+      return ws_stages<384>(kernel, n_layers);
+    case 512:
+      return ws_stages<512>(kernel, n_layers);
+    default:
+      return 0;
+  }
 }

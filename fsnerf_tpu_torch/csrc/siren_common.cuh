@@ -2,12 +2,14 @@
 // render.cu and the SIREN train kernels of siren.cu: the sine epilogue of
 // the GEMM core, the trunk and the forward heads, in two shapes. The
 // mma.sync shape (SineEpi, siren_trunk, siren_mlp_rows: one CTA of 8
-// warps, each phase behind __syncthreads()) serves the widths above 256
-// (288 and 320: its buffers' shared memory) and the backward's recompute
-// mode; the warp-specialized shape (SineAct, siren_produce_pass,
-// siren_heads, at the end: ws_trunk.cuh's producer, ring, products and
-// epilogue with a sine activation) serves the forward and the march at
-// widths 64, 128, 192 and 256.
+// warps, each phase behind __syncthreads()) serves the backward's
+// recompute mode up to width 256 and the forward and the march at 288 and
+// 320 (its buffers' shared memory), which no packer lays out any more; the
+// warp-specialized shape (SineAct, siren_produce_pass, siren_heads, at the
+// end: ws_trunk.cuh's producer, ring, products and epilogue with a sine
+// activation) serves the forward and the march at widths 64, 128, 192 and
+// 256, and on the column-split trunk (siren_produce_pass_split,
+// siren_heads_split) at 384 and 512.
 //
 // Numerics, as the TPU kernels (fsnerf_tpu/ops/pallas/siren.py::_fwd_siren,
 // _heads_siren): bf16 operands and f32 accumulation; the f32 bias is added
@@ -226,7 +228,7 @@ __device__ void siren_mlp_rows(const Siren& m, const bf16* xin,
   __syncthreads();
 }
 
-// ---- the warp-specialized shape (widths 64, 128, 192, 256) -------------
+// ---- the warp-specialized shape (widths 64 ... 256, 384, 512) ----------
 //
 // ws_trunk.cuh's trunk with the sine activation, then the heads as the
 // saved-mode backward's row pass (siren.cu, ws_bwd_consume) computes them,
@@ -279,6 +281,27 @@ __device__ __forceinline__ bool siren_produce_pass(
          feed(&mp.r0, W, NS / 64);
 }
 
+// siren_produce_pass at a split width (384, 512): the trunk through
+// produce_pass_split (t_0's K 16 read from one stage, as above), then the
+// heads in siren_heads_split's order, each stage 64 K-rows x W / 2: w_s0
+// (N = head_n(W) = W / 2, K = W over both input halves), w_f as two output
+// halves, w_r0f (N = W / 2).
+template <int W>
+__device__ __forceinline__ bool siren_produce_pass_split(
+    const SirenFwdMaps& mp, int L, unsigned char* ring, uint64_t* full,
+    uint64_t* empty, int n_stages, int& it, const volatile int* done) {
+  constexpr int Wh = W / 2;
+  auto feed = [&](const CUtensorMap* map, int col0) {
+    return feed_stages<Wh>(map, 0, W, Wh / 64, ring, full, empty, n_stages,
+                           it, done, col0);
+  };
+  return produce_pass_split<W, Wh>(&mp.t, nullptr,
+                                   FwdShape{L, 0, kInPad, 0}, false, ring,
+                                   full, empty, n_stages, it, done) &&
+         feed(&mp.s0, 0) && feed(&mp.f, 0) && feed(&mp.f, Wh) &&
+         feed(&mp.r0, 0);
+}
+
 // The sine layer's activation in fwd_epilogue, numerically SineEpi's: (v0,
 // v1) = acc + b (f32, the bias not rounded), arg = alpha v, the pair
 // sin_fast(arg). With kSave, also the factor bf16(alpha cos_fast(arg)): a
@@ -328,23 +351,25 @@ struct SineAct {
   }
 };
 
-// The SIREN trunk's activation of layer i, for fwd_trunk: a_i's sine; with
-// kSave its factor to columns (L + i) W of acts (gcol0 = L W), the rest as
-// SineAct's.
+// The SIREN trunk's activation of layer i, for fwd_trunk and
+// fwd_trunk_split: a_i's sine; with kSave its factor to columns (L + i) W
+// + col of acts (gcol0 = L W; col the output half's first column in a
+// split layer), the rest as SineAct's. No sigma head rides on the trunk.
 template <bool kSave>
 struct SineActs {
+  static constexpr bool kSigma = false;
   const float* alphas;
   int width;
   unsigned char* stage;
   const CUtensorMap* map;
   int gcol0, row0, bar;
   bool lead;
-  __device__ __forceinline__ SineAct<kSave> layer(int i) const {
+  __device__ __forceinline__ SineAct<kSave> layer(int i, int col = 0) const {
     SineAct<kSave> a;
     a.alpha = alphas[i];
     a.stage = stage;
     a.map = map;
-    a.gcol = gcol0 + i * width;
+    a.gcol = gcol0 + i * width + col;
     a.row0 = row0;
     a.bar = bar;
     a.lead = lead;
@@ -371,51 +396,48 @@ struct SharedDirs {
   }
 };
 
-// The heads after the trunk (act holding h_{L-1}), for this thread's rows
-// 16 warp + lane / 4 + 8 h: sigma[h] = relu(s_s . w_s1 + b_s1) with s_s =
-// bf16(sin(h W_s0 + b_s0)) (per-thread dots over its columns and two quad
-// shuffles); feat = bf16(h W_f + b_f) over act; rgb[h] = sigmoid(s_r .
-// w_r1 + b_r1) with s_r = bf16(sin(feat W_r0f + d W_r0d + b_r0)), the
-// directions' term a rank-3 update from dirs (RowDirs or SharedDirs).
-// Every product accumulates into the trunk's acc (the heads' N-wide ones
-// into its first NS / 2): wgmma reads its accumulators, so in the march's
-// chunk loop a second array would stay live across the trunk (and spill).
-template <int W, class Dirs>
-__device__ __forceinline__ void siren_heads(float (&acc)[W / 2], FwdRing& r,
-                                            unsigned char* act,
-                                            const Siren& m,
-                                            const Dirs& dirs, int bar,
-                                            float (&sigma)[2],
-                                            float (&rgb)[2][3]) {
-  constexpr int Wh = W / 2, NS = head_n(W);
+// The sigma head's epilogue on acc_s = h W_s0 (no bias yet), for this
+// thread's rows 16 warp + lane / 4 + 8 h: sigma[h] = relu(s_s . w_s1 +
+// b_s1) with s_s = bf16(sin(acc_s + b_s0)), per-thread dots over its
+// columns and two quad shuffles.
+template <int Wh, int NACC>
+__device__ __forceinline__ void siren_sigma_out(const float (&acc_s)[NACC],
+                                                const Siren& m,
+                                                float (&sigma)[2]) {
   const int lane = threadIdx.x & 31;
-  float(&acc_s)[NS / 2] = *reinterpret_cast<float(*)[NS / 2]>(&acc);
-  {
-    fwd_product(acc_s, smem_u32(act), W, true, r);
-    const float* b_s0 = m.bpack + m.ob_s0();
-    const bf16* w_s1 = m.ws1();
-    float sp[2] = {0.f, 0.f};
+  const float* b_s0 = m.bpack + m.ob_s0();
+  const bf16* w_s1 = m.ws1();
+  float sp[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < Wh / 8; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      const float b0 = b_s0[col], b1 = b_s0[col + 1];
-      const float w0 = __bfloat162float(w_s1[col]);
-      const float w1 = __bfloat162float(w_s1[col + 1]);
+  for (int j = 0; j < Wh / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float b0 = b_s0[col], b1 = b_s0[col + 1];
+    const float w0 = __bfloat162float(w_s1[col]);
+    const float w1 = __bfloat162float(w_s1[col + 1]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const __nv_bfloat162 p = __floats2bfloat162_rn(
-            sin_fast(__fadd_rn(acc_s[4 * j + 2 * h], b0)),
-            sin_fast(__fadd_rn(acc_s[4 * j + 2 * h + 1], b1)));
-        sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
-      }
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(
+          sin_fast(__fadd_rn(acc_s[4 * j + 2 * h], b0)),
+          sin_fast(__fadd_rn(acc_s[4 * j + 2 * h + 1], b1)));
+      sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
     }
-    const float b_s1 = m.bpack[m.ob_s1()];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      sigma[h] = fmaxf(quad_sum(sp[h]) + b_s1, 0.f);
   }
-  fwd_conn<W>(acc, r, act, m.bpack + m.ob_f(), bar);
-  fwd_product(acc_s, smem_u32(act), W, true, r);
+  const float b_s1 = m.bpack[m.ob_s1()];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    sigma[h] = fmaxf(quad_sum(sp[h]) + b_s1, 0.f);
+}
+
+// The rgb head's epilogue on acc_s = feat W_r0f (no bias yet): rgb[h] =
+// sigmoid(s_r . w_r1 + b_r1) with s_r = bf16(sin(acc_s + d W_r0d +
+// b_r0)), the directions' term a rank-3 update from dirs (RowDirs or
+// SharedDirs).
+template <int Wh, int NACC, class Dirs>
+__device__ __forceinline__ void siren_rgb_out(const float (&acc_s)[NACC],
+                                              const Siren& m,
+                                              const Dirs& dirs,
+                                              float (&rgb)[2][3]) {
+  const int lane = threadIdx.x & 31;
   const float* b_r0 = m.bpack + m.ob_r0();
   const bf16* w_r0d = m.wr0d();
   const bf16* w_r1 = m.wr1();
@@ -455,6 +477,49 @@ __device__ __forceinline__ void siren_heads(float (&acc)[W / 2], FwdRing& r,
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       rgb[h][c] = 1.f / (1.f + expf(-(quad_sum(rp[h][c]) + b_r1[c])));
+}
+
+// The heads after the trunk (act holding h_{L-1}), for this thread's rows
+// 16 warp + lane / 4 + 8 h: sigma (siren_sigma_out) from h W_s0; feat =
+// bf16(h W_f + b_f) over act; rgb (siren_rgb_out) from feat W_r0f.
+// Every product accumulates into the trunk's acc (the heads' N-wide ones
+// into its first NS / 2): wgmma reads its accumulators, so in the march's
+// chunk loop a second array would stay live across the trunk (and spill).
+template <int W, class Dirs>
+__device__ __forceinline__ void siren_heads(float (&acc)[W / 2], FwdRing& r,
+                                            unsigned char* act,
+                                            const Siren& m,
+                                            const Dirs& dirs, int bar,
+                                            float (&sigma)[2],
+                                            float (&rgb)[2][3]) {
+  constexpr int Wh = W / 2, NS = head_n(W);
+  float(&acc_s)[NS / 2] = *reinterpret_cast<float(*)[NS / 2]>(&acc);
+  fwd_product(acc_s, smem_u32(act), W, true, r);
+  siren_sigma_out<Wh>(acc_s, m, sigma);
+  fwd_conn<W>(acc, r, act, m.bpack + m.ob_f(), bar);
+  fwd_product(acc_s, smem_u32(act), W, true, r);
+  siren_rgb_out<Wh>(acc_s, m, dirs, rgb);
+}
+
+// siren_heads at a split width (h_{L-1} in t.in0, t.in1): the heads' N =
+// head_n(W) = W / 2 products are exactly the split trunk's accumulator, a
+// product over both input halves each; feat through fwd_conn_split, in
+// (t.in0, t.in1) after it.
+template <int W, class Dirs>
+__device__ __forceinline__ void siren_heads_split(float (&acc)[W / 4],
+                                                  FwdRing& r,
+                                                  SplitActs<W>& t,
+                                                  const Siren& m,
+                                                  const Dirs& dirs, int bar,
+                                                  float (&sigma)[2],
+                                                  float (&rgb)[2][3]) {
+  constexpr int Wh = W / 2;
+  static_assert(head_n(W) == Wh, "the heads' N is one split half");
+  split_product<W>(acc, t, r);
+  siren_sigma_out<Wh>(acc, m, sigma);
+  fwd_conn_split<W>(acc, r, t, m.bpack + m.ob_f(), bar);
+  split_product<W>(acc, t, r);
+  siren_rgb_out<Wh>(acc, m, dirs, rgb);
 }
 
 }  // namespace

@@ -23,10 +23,10 @@
 // own warpgroup's named barrier.
 //
 // At the packed widths 384 and 512 a 64 x W f32 accumulator (W / 2
-// registers a thread) no longer fits beside the epilogue, so the NeRF shells
-// run the column-split trunk at the end of this file instead: one consumer
-// warpgroup of 64 rows per CTA, each layer's output computed as two column
-// halves of W / 2 into one W / 2 accumulator (FwdTraits).
+// registers a thread) no longer fits beside the epilogue, so the NeRF and
+// SIREN shells run the column-split trunk at the end of this file instead:
+// one consumer warpgroup of 64 rows per CTA, each layer's output computed
+// as two column halves of W / 2 into one W / 2 accumulator (FwdTraits).
 //
 // Numerics of the NeRF, as the TPU kernels: bf16 operands, f32
 // accumulation, bf16-rounded biases added in f32, trunk activations ReLU
@@ -295,9 +295,14 @@ struct ReluAct {
   __device__ __forceinline__ void chunk_end(int) {}
 };
 
-// The NeRF trunk's activation of every layer, for fwd_trunk.
+// The NeRF trunk's activation of every layer, for fwd_trunk (col: the
+// output half's first column in a split layer, fwd_trunk_split). kSigma:
+// the last layer's epilogue also takes the sigma head's partial dots.
 struct ReluActs {
-  __device__ __forceinline__ ReluAct layer(int) const { return {true}; }
+  static constexpr bool kSigma = true;
+  __device__ __forceinline__ ReluAct layer(int, int = 0) const {
+    return {true};
+  }
 };
 
 // A layer's epilogue on this thread's accumulators (rows 16 warp + lane / 4
@@ -524,10 +529,13 @@ bool encode_weight_maps(CUtensorMap* map_w, CUtensorMap* map_br,
 
 // ---- the column-split trunk (packed widths 384 and 512) ---------------
 //
-// One consumer warpgroup of 64 rows. Each layer (and the connection) runs
-// as two output column halves of Wh = W / 2, one after the other, into the
-// same Wh accumulator (wgmma m64n192 / m64n256: 96 / 128 registers a
-// thread, as at W = 192 / 256). A layer reads both halves of its input for
+// One consumer warpgroup of 64 rows (the NeRF shells; with the sine
+// epilogue of siren_common.cuh also the SIREN forward and march; the
+// SIREN backward's row pass of siren.cu splits its products the same
+// way). Each layer (and the connection) runs as two output column halves
+// of Wh = W / 2, one after the other, into the same Wh accumulator
+// (wgmma m64n192 / m64n256: 96 / 128 registers a thread, as at W = 192 /
+// 256). A layer reads both halves of its input for
 // each output half, so three half-width tiles rotate (SplitActs): the
 // first output half goes to the free tile, the second over the input's
 // first half once both halves' products have retired; the input's second
@@ -600,19 +608,20 @@ __device__ __forceinline__ bool produce_pass_split(
          feed(map_br, W, sh.d_dir_pad, NB / 64, 0);      // w_branch_d
 }
 
-// One output half's epilogue of a split layer into t.out(n): the
-// warpgroup waits for the last acts store to have read its tile and for
-// every warp's products, writes, and (with map_acts) one thread stores the
-// half to acts (columns gcol ..., rows row0 ...) by TMA.
-template <int W>
+// One output half's epilogue of a split layer into t.out(n), with the
+// activation act (fwd_epilogue's policy): the warpgroup waits for the last
+// acts store to have read its tile and for every warp's products, writes,
+// and (with map_acts) one thread stores the half to acts (columns gcol
+// ..., rows row0 ...) by TMA.
+template <int W, class Act>
 __device__ __forceinline__ void split_epilogue(
     const float (&acc)[W / 4], const SplitActs<W>& t, int n,
-    const float* bias, bool relu, const bf16* w_sigma, float (&sig)[2],
+    const float* bias, Act act, const bf16* w_sigma, float (&sig)[2],
     int bar, bool lead, const CUtensorMap* map_acts, int gcol, int row0) {
   unsigned char* out = t.out(n);
   if (lead) bulk_wait_read<0>();
   named_bar(bar, 128);
-  fwd_epilogue(acc, bias, ReluAct{relu}, out, w_sigma, sig);
+  fwd_epilogue(acc, bias, act, out, w_sigma, sig);
   fence_proxy_async();
   named_bar(bar, 128);
   if (lead && map_acts != nullptr) {
@@ -631,14 +640,18 @@ __device__ __forceinline__ void split_product(float (&acc)[W / 4],
   fwd_product(acc, smem_u32(t.tile(t.in1)), W / 2, false, r);
 }
 
-// fwd_trunk at a split width: the NeRF trunk (ReLU) over the consumer's 64
-// rows, its encodings at encx; ends with h_{L-1} in (t.in0, t.in1). sig,
-// map_acts, row0 and bar as fwd_trunk's.
-template <int W>
+// fwd_trunk at a split width: the trunk over the consumer's 64 rows, its
+// encodings (or the SIREN's raw inputs) at encx; ends with h_{L-1} in
+// (t.in0, t.in1). Output half n of layer i takes acts.layer(i, n W / 2)
+// (ReLU for the NeRF; the SIREN's sines, whose saved factors go to that
+// half's columns). sig (with Acts::kSigma), map_acts, row0 and bar as
+// fwd_trunk's.
+template <int W, class Acts = ReluActs>
 __device__ __forceinline__ void fwd_trunk_split(
     float (&acc)[W / 4], FwdRing& r, SplitActs<W>& t, uint32_t encx,
     const FwdShape& sh, const float* b, const bf16* w_sigma,
-    float (&sig)[2], int bar, const CUtensorMap* map_acts, int row0) {
+    float (&sig)[2], int bar, const CUtensorMap* map_acts, int row0,
+    const Acts& acts = Acts()) {
   constexpr int Wh = W / 2;
   const int L = sh.n_layers, DE = sh.d_enc_pad;
   for (int i = 0; i < L; ++i) {
@@ -649,9 +662,10 @@ __device__ __forceinline__ void fwd_trunk_split(
         split_product<W>(acc, t, r);
         if ((sh.skip_mask >> i) & 1) fwd_product(acc, encx, DE, false, r);
       }
-      split_epilogue<W>(acc, t, n, b + i * W + n * Wh, true,
-                        i == L - 1 ? w_sigma + n * Wh : nullptr, sig, bar,
-                        r.lead, map_acts, i * W + n * Wh, row0);
+      split_epilogue<W>(acc, t, n, b + i * W + n * Wh, acts.layer(i, n * Wh),
+                        Acts::kSigma && i == L - 1 ? w_sigma + n * Wh
+                                                   : nullptr,
+                        sig, bar, r.lead, map_acts, i * W + n * Wh, row0);
     }
     t.advance();
   }
@@ -667,8 +681,8 @@ __device__ __forceinline__ void fwd_conn_split(float (&acc)[W / 4],
   float unused[2] = {0.f, 0.f};
   for (int n = 0; n < 2; ++n) {
     split_product<W>(acc, t, r);
-    split_epilogue<W>(acc, t, n, b_conn + n * (W / 2), false, nullptr,
-                      unused, bar, r.lead, nullptr, 0, 0);
+    split_epilogue<W>(acc, t, n, b_conn + n * (W / 2), ReluAct{false},
+                      nullptr, unused, bar, r.lead, nullptr, 0, 0);
   }
   t.advance();
 }

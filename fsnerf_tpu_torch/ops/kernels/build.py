@@ -132,8 +132,12 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_siren_fwd.argtypes = [vp] * 7 + [i] * 3 + [vp]
     lib.fsnerf_siren_fwd.restype = i
     lib.fsnerf_siren_bwd.argtypes = (
-        [vp] * 8 + [i] + [vp] * 6 + [i, vp, i, vp, vp] + [i] * 3 + [vp])
+        [vp] * 8 + [i] + [vp] * 7 + [i, vp, i, vp, vp] + [i] * 3 + [vp])
     lib.fsnerf_siren_bwd.restype = i
+    lib.fsnerf_siren_stages.argtypes = [i, i, i]
+    lib.fsnerf_siren_stages.restype = i
+    lib.fsnerf_siren_march_stages.argtypes = [i]
+    lib.fsnerf_siren_march_stages.restype = i
     lib.fsnerf_error_string.argtypes = [i]
     lib.fsnerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,13 +19,13 @@ widths NERF_KERNEL_WIDTHS) and runs
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
 
-Every packer lays the weights out at the packed width: a NeRF module's
-width W up to 512 pads to the next of NERF_KERNEL_WIDTHS
-(`nerf_kernel_width`), a SiNeRF's up to 256 to the next of KERNEL_WIDTHS
-(`kernel_width`), with zero columns (and zero biases), the next matrix
-reading them through zero rows, so the padded units' activations are
-exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and the real outputs gain only exact
-zero products; the plain versions run the padded pack as the kernels do.
+Every packer lays the weights out at the packed width: a NeRF or SiNeRF
+module's width W up to 512 pads to the next of NERF_KERNEL_WIDTHS
+(`kernel_width`, also named `nerf_kernel_width`), with zero columns (and
+zero biases), the next matrix reading them through zero rows, so the
+padded units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and
+the real outputs gain only exact zero products; the plain versions run the
+padded pack as the kernels do.
 
 The early exit's blocking is the same at every width: at the packed widths
 384 and 512 the kernel runs each block x chunk step (up to 128 rows) as two
@@ -36,7 +36,8 @@ every width.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
-(bf16, no encoding) in place of the encoding and the NeRF MLP.
+(bf16, no encoding) in place of the encoding and the NeRF MLP; at 384 and
+512 it runs the same 64-row halves with the same per-step skip decision.
 """
 
 from __future__ import annotations
@@ -64,9 +65,10 @@ KERNEL_MAX_ENC = 256
 # kernel 6's row pass stages the direction encoding (mlp_train.py::
 # bwd_rows_smem_bytes)
 KERNEL_MAX_DIR_AT_256 = 128
-# the NeRF kernels' widths: KERNEL_WIDTHS and, on the column-split trunk
-# (one 64-row consumer, each layer as two column halves; kernel 6's row
-# pass on 64-row CTAs), 384 and 512. There both encodings reach
+# the widths every packer lays out (kernel_width) and the NeRF and SIREN
+# kernels take: KERNEL_WIDTHS and, on the column-split trunk (one 64-row
+# consumer, each layer as two column halves; the backward row passes of
+# kernels 6 and 8 on 64-row CTAs), 384 and 512. There both encodings reach
 # KERNEL_MAX_ENC: the shells fit a 2-stage ring beside 8 encoding blocks
 # at 512 (shell_smem_bytes(512, 256, 256) = 230,448 bytes), the 64-row
 # pass a 256-wide direction encoding (bwd_rows_smem_bytes(512, 256) =
@@ -82,23 +84,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def kernel_width(width: int) -> int:
-    """The width the SiNeRF packers lay a module of `width` out at: the
-    smallest of KERNEL_WIDTHS that holds it, else (above 256) the next
-    multiple of 32 (the mma.sync SIREN kernels' step)."""
-    for w in KERNEL_WIDTHS:
-        if width <= w:
-            return w
-    return _round_up(width, 32)
-
-
-def nerf_kernel_width(width: int) -> int:
-    """The width the NeRF packers lay a module of `width` out at: the
-    smallest of NERF_KERNEL_WIDTHS that holds it, else (above 512, where
-    the kernels refuse it) the next multiple of 32."""
+    """The width the NeRF and SiNeRF packers lay a module of `width` out
+    at: the smallest of NERF_KERNEL_WIDTHS that holds it, else (above 512,
+    where the kernels refuse it) the next multiple of 32."""
     for w in NERF_KERNEL_WIDTHS:
         if width <= w:
             return w
     return _round_up(width, 32)
+
+
+nerf_kernel_width = kernel_width       # the NeRF packers' name for it
 
 
 def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
@@ -137,10 +132,10 @@ def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
 
 def march_chunk_error(width: int, block_rows: int,
                       chunk_s: int) -> Optional[str]:
-    """Why the NeRF march refuses a blocking at a packed width, or None:
-    at most KERNEL_ROWS rows a chunk step, and at the split widths (run as
-    64-row halves, each holding whole rays) a chunk_s that divides 64 when
-    the step has more than 64 rows."""
+    """Why the NeRF or SIREN march refuses a blocking at a packed width,
+    or None: at most KERNEL_ROWS rows a chunk step, and at the split widths
+    (run as 64-row halves, each holding whole rays) a chunk_s that divides
+    64 when the step has more than 64 rows."""
     if block_rows * chunk_s > KERNEL_ROWS:
         return f"block_rows * chunk_s must be <= {KERNEL_ROWS}"
     if (width in SPLIT_WIDTHS and block_rows * chunk_s > 64
@@ -660,16 +655,19 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
     On the card both routes are hand-written kernels, chosen by the packed
     width in csrc/render.cu fsnerf_siren_ray_march: widths 64, 128, 192 and
     256 run the warp-specialized march (siren_march_kernel, the SIREN
-    forward's wgmma trunk in the NeRF march's shell), 288 and 320 the
-    mma.sync one (ray_march_kernel<SirenMarch>); a wider one raises
-    ValueError (siren.py::SIREN_MAX_WIDTH)."""
+    forward's wgmma trunk in the NeRF march's shell), 384 and 512 the same
+    kernel on the column-split trunk (blockings as march_chunk_error takes
+    them), 288 and 320 (no packer's width) the mma.sync one
+    (ray_march_kernel<SirenMarch>); another width raises ValueError
+    (siren.py::siren_kernel_error)."""
     if x.device.type == "cpu":
         return siren_ray_march_reference(x, dirs, t, deltas, mask, params,
                                          block_rows, chunk_s, early_stop_eps)
     from .siren import siren_kernel_error
 
     lay = params.layout
-    err = siren_kernel_error(lay.width, "march")
+    err = (siren_kernel_error(lay.width, "march")
+           or march_chunk_error(lay.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"siren_ray_march: {err}")
     stats, steps = _launch_march(

@@ -17,7 +17,9 @@ Two backward modes, as the TPU kernels:
   ([N, 2 L W] bf16: h_i at columns i W, the factor at (L + i) W); the
   backward reads them and recomputes only the heads.
 * recompute (acts None): the backward runs the trunk again and holds the
-  factors a_i cos(a_i y_i) in float32.
+  factors a_i cos(a_i y_i) in float32 (on the card at the packed widths 384
+  and 512 it runs the forward kernel into an acts stream first, so there
+  its factors are bf16 and its gradients the saved mode's).
 The two modes' gradients differ by that bf16 rounding; each mode alone is
 bitwise repeatable on the card. Weight gradients come back rounded to bf16,
 bias gradients in float32 (the TPU kernels' operand dtypes). The positions
@@ -33,10 +35,14 @@ kernels' walk order at the packed width (render.py::kernel_width: zero
 units with zero biases, whose sines are exactly 0), and gradients come back
 in the same packed layout.
 
-On the card the warp-specialized kernels take the packed widths 64, 128,
-192 and 256; above 256 the mma.sync kernels' shared memory bounds them
-(SIREN_MAX_WIDTH): the forward and the march fit up to 320, the backward's
-row pass up to 256, so no SiNeRF wider than 256 trains on the kernels.
+On the card the warp-specialized kernels take every packed width:
+64, 128, 192 and 256 with two 64-row consumers of whole rows, 384 and 512
+on csrc/ws_trunk.cuh's column-split trunk (one 64-row consumer, each
+product as two output column halves; the backward's row pass on 64-row
+CTAs), so a SiNeRF of any width up to 512 trains and renders on them
+(SIREN_MAX_WIDTH). The mma.sync forward and march still take 288 and 320,
+which no packer lays out (the card checks reach them through
+_prep_siren_params).
 """
 
 from __future__ import annotations
@@ -48,16 +54,23 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .fastmath import sincos_fast
-from .mlp_train import SPLIT_ROWS, _launch_error, dw_plan
-from .render import SMEM_LIMIT, _bf16, _round_up, kernel_width, padded
+from .mlp_train import SPLIT_ROWS, _launch_error, bwd_rows, dw_plan
+from .render import (SMEM_LIMIT, SPLIT_WIDTHS, _bf16, _round_up,
+                     kernel_width, padded)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 D_IN_PAD = 16           # raw coordinates / directions, zero-padded columns
-# the widest packed width of each SIREN kernel on the card: past 256 the
-# mma.sync kernels hold two [128, W + 8] bf16 activation buffers beside
-# the weight slabs (csrc/siren.cu fwd_smem_bytes, bwd_smem_bytes; render.cu
-# SirenMarch), which fill SMEM_LIMIT (mma_smem_bytes)
-SIREN_MAX_WIDTH = {"forward": 320, "march": 320, "backward": 256}
+# the widest packed width of the SIREN kernels on the card: the column-split
+# shapes at 384 and 512 (siren_smem_bytes, a ring of 2 stages or more at
+# 512); past 512 no kernel is built (a column half's accumulator is already
+# W / 4 = 128 registers a thread at 512)
+SIREN_MAX_WIDTH = SPLIT_WIDTHS[-1]
+# the widest width of the mma.sync SIREN kernels (the forward and the march
+# at 288 and 320, the recompute mode's row pass up to 256): past it they
+# hold two [128, W + 8] bf16 activation buffers beside the weight slabs
+# (csrc/siren.cu fwd_smem_bytes, bwd_smem_bytes; render.cu SirenMarch),
+# which fill SMEM_LIMIT (mma_smem_bytes)
+SIREN_MMA_MAX_WIDTH = {"forward": 320, "march": 320, "backward": 256}
 
 
 def mma_smem_bytes(width: int, kernel: str) -> int:
@@ -71,15 +84,82 @@ def mma_smem_bytes(width: int, kernel: str) -> int:
             + 4 * (8 * ROWS + 4 * width))
 
 
+def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
+                     n_layers: int = 8, rows: Optional[int] = None) -> int:
+    """Shared memory of the warp-specialized SIREN `kernel` ("forward" in
+    saved mode, "march", or "backward": the saved mode's row pass) at a
+    packed width with a ring of n_stages (csrc/ws_trunk.cuh fwd_smem_bytes
+    with the extras of csrc/siren.cu launch_fwd_ws and csrc/render.cu
+    launch_siren_march_w; csrc/siren.cu ws_bwd_smem_bytes). rows: a CTA's
+    rows, 128 (two consumers of 64 whole-width rows, stages of 64 x width)
+    or 64 (one consumer on the column-split trunk: stages of 64 x width / 2
+    and three half tiles); default 64 at SPLIT_WIDTHS, else 128. The
+    128-row backward also holds each consumer's bias partials (n_layers
+    deep); the 64-row one writes them straight to device memory."""
+    R = rows or (64 if width in SPLIT_WIDTHS else ROWS)
+    blk, bar, Wh = 64 * 64 * 2, 8, width // 2
+    if kernel == "backward":
+        s_tile = -(-Wh // 64) * blk            # s_s, then dys
+        if R == 64:
+            return (1024 + (n_stages + 3) * Wh * 128 + s_tile
+                    + 4 * 4 * (width + 4) + (2 * n_stages + 1) * bar)
+        n_b = SirenLayout(n_layers, width, ()).n_b
+        return (1024 + (n_stages + 2) * width * 128 + 2 * s_tile
+                + 2 * 4 * (4 * (width + 4) + n_b) + (2 * n_stages + 2) * bar)
+    consumers = 1 if R == 64 else 2
+    tiles = 3 * Wh * 128 if R == 64 else 2 * width * 128
+    stage = Wh * 128 if R == 64 else width * 128
+    base = (1024 + n_stages * stage + tiles + consumers * blk
+            + 2 * n_stages * bar)
+    if kernel == "forward":          # each consumer's input barrier, its
+        return base + consumers * (bar + blk)      # factors' staging block
+    return base + 16 + ROWS * 4 * 4  # the done flag, the rows' directions
+
+
+def siren_stages(width: int, kernel: str, n_layers: int = 8) -> int:
+    """The ring the warp-specialized SIREN `kernel` runs at a packed width:
+    the deepest up to 4 stages that fits in SMEM_LIMIT (siren_smem_bytes),
+    or 0 if 2 do not."""
+    for n in (4, 3, 2):
+        if siren_smem_bytes(width, kernel, n, n_layers) <= SMEM_LIMIT:
+            return n
+    return 0
+
+
+def launcher_stages(width: int, kernel: str, n_layers: int = 8) -> int:
+    """The ring the C launcher of the warp-specialized SIREN `kernel` runs
+    at a packed width, from its own arithmetic (csrc/siren.cu
+    fsnerf_siren_stages, csrc/render.cu fsnerf_siren_march_stages), or 0:
+    the number siren_stages mirrors. Builds the kernel library."""
+    from .build import load_library
+
+    lib = load_library()
+    if kernel == "march":
+        return lib.fsnerf_siren_march_stages(width)
+    return lib.fsnerf_siren_stages(
+        width, {"forward": 0, "backward": 2}[kernel], n_layers)
+
+
 def siren_kernel_error(width: int, kernel: str = "backward") -> Optional[str]:
     """Why the SIREN `kernel` refuses a packed width on the card, or None.
-    "backward" is the train kernels' limit (the backward and its forward)."""
-    top = SIREN_MAX_WIDTH[kernel]
-    if width <= top:
+    "backward" is the train kernels' limit (the backward and its forward).
+    They take every width render.py::kernel_width packs at up to 512 (and
+    the mma.sync kernels' widths up to SIREN_MMA_MAX_WIDTH)."""
+    mma = SIREN_MMA_MAX_WIDTH[kernel]
+    if width <= mma or width in SPLIT_WIDTHS:
         return None
-    return (f"the SIREN {kernel} kernel takes widths up to {top} (its "
-            f"mma.sync shape's shared memory: {mma_smem_bytes(width, kernel)}"
-            f" bytes of {SMEM_LIMIT} at width {width})")
+    if width > SIREN_MAX_WIDTH:
+        return (f"the SIREN {kernel} kernel takes widths up to "
+                f"{SIREN_MAX_WIDTH} (packed at 64, 128, 192, 256, "
+                f"384, 512), not {width}: its column-split trunk is built "
+                f"for 384 and 512 (a column half's accumulator is W / 4 "
+                f"registers a thread), and from width 768 its half tiles "
+                f"and a 2-stage ring exceed shared memory "
+                f"({siren_smem_bytes(768, kernel, rows=64)} bytes of "
+                f"{SMEM_LIMIT})")
+    return (f"the SIREN {kernel} kernel takes the packed widths up to {mma} "
+            f"and {SPLIT_WIDTHS}, not {width} (its mma.sync shape's shared "
+            f"memory: {mma_smem_bytes(width, kernel)} bytes of {SMEM_LIMIT})")
 
 
 def siren_alphas(n_layers: int) -> Tuple[float, ...]:
@@ -175,14 +255,26 @@ def prep_siren_params(state_dict: Dict[str, torch.Tensor],
                       with_transposed: bool = False,
                       device=None) -> SirenParams:
     """Pack a reference-keyed SiNeRF state dict (core/models.py) on
-    `device` (default: the state dict's) at the packed width
-    (render.py::kernel_width of the module's): the units past the module's
-    are zero columns with zero biases, read by zero rows."""
+    `device` (default: the state dict's) at render.py::kernel_width of the
+    module's width: the units past the module's are zero columns with zero
+    biases, read by zero rows."""
+    W = state_dict["first_layers.0.fc_layer.weight"].shape[0]
+    return _prep_siren_params(state_dict, n_layers, alphas, with_transposed,
+                              device, kernel_width(W))
+
+
+def _prep_siren_params(state_dict, n_layers, alphas, with_transposed,
+                       device, width: int) -> SirenParams:
+    """prep_siren_params at the packed width `width` (at least the
+    module's): the card checks pack at 288 or 320 with it to reach the
+    mma.sync forward and march, which kernel_width no longer packs at."""
     with torch.no_grad():
         sd = {k: v.detach().to(device=device, dtype=torch.float32)
               for k, v in state_dict.items()}
         W = sd["first_layers.0.fc_layer.weight"].shape[0]
-        K = kernel_width(W)
+        K = width
+        if K < W or K % 2:
+            raise ValueError(f"cannot pack a SiNeRF of width {W} at {K}")
         Kh = K // 2
         alphas = tuple(float(a) for a in (alphas or siren_alphas(n_layers)))
         if len(alphas) != n_layers:
@@ -404,9 +496,11 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
 
     On the card both routes are hand-written kernels, chosen by the packed
     width in csrc/siren.cu fsnerf_siren_fwd: widths 64, 128, 192 and 256
-    run the warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel),
-    288 and 320 the mma.sync one (siren_fwd_kernel), a wider one raises
-    ValueError (SIREN_MAX_WIDTH); both write the same acts layout.
+    run the warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), 384
+    and 512 the same kernel on the column-split trunk (64-row CTAs), 288 and
+    320 (no packer's width) the mma.sync one (siren_fwd_kernel); another
+    width raises ValueError (siren_kernel_error); all write the same acts
+    layout.
 
     Without acts the call runs as the registered op
     `torch.ops.fsnerf_torch.siren_mlp_fwd`, so a program that torch.export
@@ -537,11 +631,16 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at the packed
     widths 64, 128, 192 and 256 (the main path's; at a depth whose bias
     partials fit in its shared memory) runs the warp-specialized wgmma +
-    TMA row pass (siren_bwd_rows_ws_kernel); recompute mode, which holds
-    its factors in f32 by design and is not on the main path, runs the
-    mma.sync row pass (siren_bwd_rows_kernel). The dW pass and the reduce
-    are the same for both. A packed width above 256 raises ValueError
-    (SIREN_MAX_WIDTH: the mma.sync row pass's shared memory)."""
+    TMA row pass (siren_bwd_rows_ws_kernel), at 384 and 512 the same
+    kernel on 64-row CTAs, each cotangent product split by output columns;
+    recompute mode, which is not on the main path, holds its factors in f32
+    by design up to 256 and runs the mma.sync row pass
+    (siren_bwd_rows_kernel); at 384 and 512, where that pass does not fit,
+    it runs the forward kernel into an acts stream it allocates (not
+    counted in `siren_mlp_fwd.launches`) and then the saved mode's row
+    pass, so there its factors are bf16 and its gradients equal the saved
+    mode's. The dW pass and the reduce are the same for both. Another
+    packed width raises ValueError (siren_kernel_error)."""
     if x.device.type == "cpu":
         return siren_mlp_bwd_reference(x, d, dout, params, acts)
     if x.device.type != "cuda":
@@ -561,13 +660,18 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     _check_device("siren_mlp_bwd", [x, d, dout, params.wpack, params.bpack,
                                     params.wtpack, params.alphas])
     recompute = acts is None
+    split = W in SPLIT_WIDTHS        # recompute: the forward, then saved
     dev = x.device
-    lda = L * W if recompute else 2 * L * W
+    lda = L * W if recompute and not split else 2 * L * W
+    cfs = fwd_out = None
     if recompute:
         acts = torch.empty((n_pad, lda), dtype=torch.bfloat16, device=dev)
-        cfs = torch.empty((n_pad, L * W), dtype=torch.float32, device=dev)
+        if split:
+            fwd_out = torch.empty((N, 4), dtype=torch.float32, device=dev)
+        else:
+            cfs = torch.empty((n_pad, L * W), dtype=torch.float32,
+                              device=dev)
     else:
-        cfs = None
         if (tuple(acts.shape) != (n_pad, lda)
                 or acts.dtype != torch.bfloat16 or acts.device != dev
                 or not acts.is_contiguous()):
@@ -580,7 +684,7 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
                      device=dev)
     dy = torch.empty((n_pad, L * W + 2 * W + 16), dtype=torch.bfloat16,
                      device=dev)
-    pbias = torch.empty((n_pad // ROWS, lay.n_b), dtype=torch.float32,
+    pbias = torch.empty((n_pad // bwd_rows(W), lay.n_b), dtype=torch.float32,
                         device=dev)
     jobs, tiles = dw_plan(tuple(dw_jobs(lay)), str(dev))
     part = torch.empty((-(-n_pad // SPLIT_ROWS), lay.n_w),
@@ -591,7 +695,8 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.wtpack.data_ptr(),
         params.alphas.data_ptr(), acts.data_ptr(), lda,
-        None if cfs is None else cfs.data_ptr(), xs.data_ptr(),
+        None if cfs is None else cfs.data_ptr(),
+        None if fwd_out is None else fwd_out.data_ptr(), xs.data_ptr(),
         dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(), tiles.data_ptr(),
         tiles.shape[0], part.data_ptr(), SPLIT_ROWS, dw.data_ptr(),
         db.data_ptr(), N, L, W, torch.cuda.current_stream(dev).cuda_stream)

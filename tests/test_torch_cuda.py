@@ -25,17 +25,23 @@ in each backward mode, and the two modes within 1e-2 of each other's max
 recompute's f32); each mode bitwise repeatable; the saved mode's
 warp-specialized row pass at widths 64, 128, 192 and 256 (fed the
 warp-specialized forward's acts), recompute mode on the mma.sync row pass,
-which refuses widths above 256 by name (its shared memory). The
-warp-specialized SIREN forward at widths 64, 128, 192 and 256 also holds
-its acts stream to the plain version's (h_i within 3e-2, factors within
-0.25, each on at most 2% of the elements), bitwise repeatable; width 320
-runs the mma.sync forward, 512 is refused by name. SIREN ray march
-(render.cu): the ray march's tolerances and equal executed-step counts,
-bitwise repeatable, at widths 64, 128, 192 and 256 (the warp-specialized
-march) and 320 (the mma.sync one). Kernels 1-8 at widths that are not
-their own (NeRF 40, 96, 200, 300, 400, 512; SiNeRF 40, 100) and with
-encodings up to 256 wide, the packed gradients' padded entries exactly 0;
-the NeRF train kernels' gradients bitwise repeatable at 512 too. Density pass
+which refuses a packed width above 256 other than 384 and 512 by name (its
+shared memory). The warp-specialized SIREN forward at widths 64, 128, 192
+and 256 also holds its acts stream to the plain version's (h_i within
+3e-2, factors within 0.25, each on at most 2% of the elements), bitwise
+repeatable; a pack at 320 runs the mma.sync forward, 600 (packed 608) is
+refused by name. SIREN ray march (render.cu): the ray march's tolerances
+and equal executed-step counts, bitwise repeatable, at widths 64, 128, 192
+and 256 (the warp-specialized march) and a pack at 320 (the mma.sync one).
+Kernels 7, 8 and 2 at the column-split widths (SiNeRF 300, packed 384, and
+512): the tolerances above, recompute mode bitwise equal to saved mode
+(there it runs the forward kernel, then the saved passes), the acts stream
+as at the other widths (at 8 layers x 512 on at most 4% of the elements),
+the march over blockings of 64 and 128 rows a step. Kernels 1-8 at widths
+that are not their own (NeRF 40, 96, 200, 300, 400, 512; SiNeRF 40, 100,
+300) and with encodings up to 256 wide, the packed gradients' padded
+entries exactly 0; the NeRF train kernels' gradients bitwise repeatable at
+512 too. Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
 runs bitwise equal, at each width the warp-specialized kernel is built for
@@ -589,11 +595,14 @@ def test_nerf_mlp_refuses_widths_it_is_not_built_for(cuda):
         km.nerf_mlp(encx, encd, params)
 
 
-def _siren_params(seed, n_layers, width, cuda, sigma_bias=0.0):
+def _siren_params(seed, n_layers, width, cuda, sigma_bias=0.0,
+                  packed=None):
+    """A seeded SiNeRF of `width` packed at `packed` (default
+    render.py::kernel_width's)."""
     sd = state_dict_from_jax(sinerf_params_np(seed, n_layers, width))
     sd["sigma_layers.1.bias"] = sd["sigma_layers.1.bias"] + sigma_bias
-    return ks.prep_siren_params(sd, n_layers, with_transposed=True,
-                                device=cuda)
+    return ks._prep_siren_params(sd, n_layers, None, True, cuda,
+                                 packed or kr.kernel_width(width))
 
 
 def _siren_inputs(n, seed, cuda):
@@ -693,18 +702,19 @@ def test_siren_width_96_runs_the_mma_row_pass(cuda):
     """Width 96, packed at 128: saved mode on the warp-specialized row
     pass, recompute mode on the mma.sync one (siren_bwd_rows_kernel), held
     as at the other widths. Above 256 the mma.sync row pass does not fit
-    in shared memory: width 320 raises by name in both modes, launching
-    nothing."""
+    in shared memory: a pack at 320 (no packer's width: kernel_width packs
+    300 at 384) raises by name in both modes, launching nothing."""
     params = _siren_params(26, 4, 96, cuda)
     assert params.layout.width == 128
     _check_siren(params, *_siren_inputs(1_000, 7, cuda))
-    wide = _siren_params(26, 4, 320, cuda)
+    wide = _siren_params(26, 4, 320, cuda, packed=320)
     x, d, target = _siren_inputs(300, 7, cuda)
     out, acts = ks.siren_mlp_fwd(x, d, wide, save_acts=True)
     dout = mse_cotangent(out, target)
     before = ks.siren_mlp_bwd.launches
     for a in (acts, None):
-        with pytest.raises(ValueError, match="takes widths up to 256"):
+        with pytest.raises(ValueError,
+                           match="takes the packed widths up to 256"):
             ks.siren_mlp_bwd(x, d, dout, wide, a)
     assert ks.siren_mlp_bwd.launches == before
 
@@ -747,13 +757,14 @@ def test_siren_forward_at_each_width(cuda, width, n):
 
 
 def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
-    """Width 96 packs at 128 for the warp-specialized forward and march;
-    width 320, above them, runs their mma.sync kernels (siren_fwd_kernel,
+    """Width 96 packs at 128 for the warp-specialized forward and march; a
+    pack at 320 (no packer's width since the column-split kernels take 384)
+    runs their mma.sync kernels (siren_fwd_kernel,
     ray_march_kernel<SirenMarch>), each launch counted, held to the same
-    tolerances; the wrappers never route to the module. Width 512 does not
-    fit their shared memory and raises by name, launching nothing."""
+    tolerances; the wrappers never route to the module. Width 600 (packed
+    608) has no kernel and raises by name, launching nothing."""
     assert _siren_params(26, 4, 96, cuda).layout.width == 128
-    params = _siren_params(26, 4, 320, cuda)
+    params = _siren_params(26, 4, 320, cuda, packed=320)
     x, d, _ = _siren_inputs(1_000, 7, cuda)
     f0, m0 = ks.siren_mlp_fwd.launches, kr.siren_ray_march.launches
     out, _ = ks.siren_mlp_fwd(x, d, params)
@@ -767,10 +778,11 @@ def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
     _check_siren_march(padded, params, bR, cs)
     assert ks.siren_mlp_fwd.launches == f0 + 1
     assert kr.siren_ray_march.launches == m0 + 2
-    wide = _siren_params(26, 4, 512, cuda)
-    with pytest.raises(ValueError, match="takes widths up to 320"):
+    wide = _siren_params(26, 4, 600, cuda)
+    assert wide.layout.width == 608
+    with pytest.raises(ValueError, match="takes widths up to 512"):
         ks.siren_mlp_fwd(x, d, wide)
-    with pytest.raises(ValueError, match="takes widths up to 320"):
+    with pytest.raises(ValueError, match="takes widths up to 512"):
         kr.siren_ray_march(*padded, wide, bR, cs)
     assert (ks.siren_mlp_fwd.launches,
             kr.siren_ray_march.launches) == (f0 + 1, m0 + 2)
@@ -900,12 +912,81 @@ def test_nerf_kernels_at_padded_widths(cuda, width, spec):
 @pytest.mark.parametrize("width", [40, 100])
 def test_siren_kernels_at_padded_widths(cuda, width):
     """Kernels 7, 8 (both modes) and 2 at widths that are not their own,
-    packed at 64 and 128: the tolerances above."""
+    packed at 64 and 128: the tolerances above (300, packed at 384:
+    test_siren_kernels_at_split_widths)."""
     params = _siren_params(32, 4, width, cuda)
     assert params.layout.width == kr.kernel_width(width)
     _check_siren(params, *_siren_inputs(3000, 9, cuda))
     padded, bR, cs = kr.pad_for_march(*march_inputs(seed=9, R=300, K=48))
     _check_siren_march(tuple(p.to(cuda) for p in padded), params, bR, cs)
+
+
+@pytest.mark.parametrize("width,n_layers,n", [
+    (300, 4, 3_000), (300, 8, 8_264), (512, 4, 3_000), (512, 8, 8_264),
+    (512, 8, 196_608)])
+def test_siren_kernels_at_split_widths(cuda, width, n_layers, n):
+    """Kernels 7, 8 (both modes) and 2 at the column-split widths (SiNeRF
+    300 packs at 384, 512 at 512), up to the main path's 196,608 rows:
+    _check_siren's tolerances, bitwise repeatable; recompute mode bitwise
+    equal to saved mode (it runs the forward kernel, then the saved
+    passes); the packed gradients' padded entries exactly 0; the acts
+    stream's h_i within 3e-2 and factors within 0.25 of the plain
+    version's, on at most 2% of the elements at 4 layers (4% at 8: a flip
+    of h_0 at a = 30 reaches more units at 512); the march (300 rays x K
+    48) at blockings of 128 rows a step (two 64-row halves), 64 rows and
+    16 x 4, normal and saturating, refusing a chunk_s that does not divide
+    64 in a step of more than 64 rows."""
+    params = _siren_params(33, n_layers, width, cuda)
+    K = params.layout.width
+    assert K == kr.kernel_width(width) and K in kr.SPLIT_WIDTHS
+    x, d, target = _siren_inputs(n, 10, cuda)
+    _check_siren(params, x, d, target)
+    out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
+    ref, ref_acts = ks.siren_mlp_fwd_reference(x, d, params, save_acts=True)
+    f0 = ks.siren_mlp_fwd.launches
+    saved = ks.siren_mlp_bwd(x, d, mse_cotangent(ref, target), params, acts)
+    rec = ks.siren_mlp_bwd(x, d, mse_cotangent(ref, target), params, None)
+    torch.cuda.synchronize()
+    assert ks.siren_mlp_fwd.launches == f0
+    assert all(torch.equal(a, b) for a, b in zip(saved, rec))
+    L = n_layers
+    got, want = acts[:n].float(), ref_acts.float()
+    for cols, tol in ((slice(0, L * K), 3e-2), (slice(L * K, None), 0.25)):
+        diff = (got[:, cols] - want[:, cols]).abs()
+        assert diff.max() <= tol, (cols, float(diff.max()))
+        assert (diff > 0).float().mean() <= (0.02 if L == 4 else 0.04), cols
+    ones = {k: torch.ones_like(v) for k, v in state_dict_from_jax(
+        sinerf_params_np(33, n_layers, width)).items()}
+    mask = ks.prep_siren_params(ones, n_layers)
+    wpad, bpad = mask.wpack.float() == 0, mask.bpack == 0
+    assert wpad.any()
+    assert (saved[0].cpu()[wpad] == 0).all()
+    assert (saved[1].cpu()[bpad] == 0).all()
+    padded, bR, cs = kr.pad_for_march(*march_inputs(seed=11, R=300, K=48))
+    padded = tuple(p.to(cuda) for p in padded)
+    assert (bR, cs) == (16, 8)
+    for blocking in ((16, 8), (8, 8), (16, 4)):
+        _check_siren_march(padded, params, *blocking)
+    hot = _siren_params(33, n_layers, width, cuda, 5000.0)
+    steps = _check_siren_march(padded, hot, bR, cs)
+    assert int(steps.sum()) < steps.numel() * 48 // cs
+    before = kr.siren_ray_march.launches
+    with pytest.raises(ValueError, match="chunk_s must divide 64"):
+        kr.siren_ray_march(*padded, params, 16, 6)
+    assert kr.siren_ray_march.launches == before
+
+
+@pytest.mark.parametrize("n_layers", [4, 8])
+def test_siren_stages_are_the_launchers(cuda, n_layers):
+    """siren.py::siren_stages, the Python mirror of the SIREN kernels'
+    shared memory, picks the ring each C launcher picks, at every packed
+    width; no warp-specialized instance at 320."""
+    for kernel in ("forward", "march", "backward"):
+        assert [ks.launcher_stages(W, kernel, n_layers)
+                for W in kr.NERF_KERNEL_WIDTHS] == \
+            [ks.siren_stages(W, kernel, n_layers)
+             for W in kr.NERF_KERNEL_WIDTHS], kernel
+        assert ks.launcher_stages(320, kernel, n_layers) == 0
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])

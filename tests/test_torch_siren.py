@@ -255,16 +255,22 @@ def test_packed_layout_and_weight_gradient_plan():
     assert p.wtpack.numel() == (3 * 64 + 64 + 2 * 32) * 64
 
 
-@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256)])
+@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256), (4, 384),
+                                            (4, 512)])
 def test_bwd_views_match_the_packer(n_layers, width):
     """The warp-specialized backward row pass's tensor maps (csrc/siren.cu
     launch_bwd_rows_ws): w_s0, w_f and w_r0f as [in, out] blocks of wpack
     and wtpack as one [(L + 1) W, W] matrix of [out, in] rows hold the
     module's weights (bf16) where the producer streams them, at addresses
-    and row strides TMA takes (multiples of 16 bytes)."""
+    and row strides TMA takes (multiples of 16 bytes). At the column-split
+    widths 384 and 512 the producer reads each N = W matrix as two column
+    halves of W / 2, whole 64-column boxes from column W / 2."""
     sd = state_dict_from_jax(sinerf_params_np(12, n_layers, width))
     p = ks.prep_siren_params(sd, n_layers, with_transposed=True)
     W, Wh, L, P = width, width // 2, n_layers, ks.D_IN_PAD
+    assert p.layout.width == W
+    if W in kr.SPLIT_WIDTHS:
+        assert Wh % 64 == 0 and (2 * Wh) % 16 == 0
     s0 = P * W + (L - 1) * W * W             # past t_0 .. t_{L-1}
     f = s0 + W * Wh + Wh                     # past w_s0, w_s1
     views = {"w_s0": ("wpack", s0, W, Wh), "w_f": ("wpack", f, W, W),
@@ -330,7 +336,8 @@ def _warp_colsums(v):
     return out.sum(0, dtype=np.float32)
 
 
-@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256)])
+@pytest.mark.parametrize("n_layers,width", [(4, 64), (8, 256), (4, 384),
+                                            (4, 512)])
 def test_fwd_views_match_the_packer(n_layers, width):
     """The warp-specialized forward's and march's trunk map (csrc/
     siren_common.cuh encode_siren_fwd_maps): wpack's first 16 + (L - 1) W
@@ -339,7 +346,8 @@ def test_fwd_views_match_the_packer(n_layers, width):
     (t_0 in a 64-row stage of which the consumers read 16 rows, t_i from row
     16 + (i - 1) W); the view ends where w_s0, the first head map's block,
     begins; its rows and the x map's [N, 16] rows are multiples of 16
-    bytes, as TMA takes them."""
+    bytes, as TMA takes them (at 384 and 512 read as two column halves of
+    W / 2, whole 64-column boxes)."""
     sd = state_dict_from_jax(sinerf_params_np(13, n_layers, width))
     p = ks.prep_siren_params(sd, n_layers)
     W, L, P = width, n_layers, ks.D_IN_PAD
@@ -557,20 +565,21 @@ def test_train_step_matches_jax(jax_interpret_siren):
 
 def test_resolve_fused_kernel_and_weight_reg():
     """SiNeRF takes the SIREN train kernels (view directions and, on the
-    card, a width up to 256, padded to the kernels' widths); the weight
+    card, a width up to 512, padded to the kernels' widths); the weight
     regularizer selects the same matrices as the JAX one (rtol 1e-5)."""
     assert step.resolve_fused_kernel(CFG, "cpu")
     auto = CFG.replace(model=dataclasses.replace(CFG.model,
                                                  fused_kernel=None))
     assert step.resolve_fused_kernel(auto, "cuda")
     assert not step.resolve_fused_kernel(auto, "cpu")
-    for change in (dict(model=dataclasses.replace(CFG.model, d_filter=320)),
+    for change in (dict(model=dataclasses.replace(CFG.model, d_filter=600)),
                    dict(encoder=dataclasses.replace(CFG.encoder,
                                                     no_dirs=True))):
         assert not step.resolve_fused_kernel(CFG.replace(**change), "cuda")
-    assert step.resolve_fused_kernel(
-        CFG.replace(model=dataclasses.replace(CFG.model, d_filter=48)),
-        "cuda")
+    for width in (48, 320):
+        assert step.resolve_fused_kernel(
+            CFG.replace(model=dataclasses.replace(CFG.model, d_filter=width)),
+            "cuda")
     params = sinerf_params_np(5)
     model = _model(5)
     for norm in ("l1", "l2"):

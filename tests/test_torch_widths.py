@@ -1,9 +1,8 @@
 """The kernels' packers at widths that are not the kernels' own: a NeRF
-of width W up to 512 is packed at render.py::nerf_kernel_width(W) (the next
-of 64, 128, 192, 256, 384, 512; 384 and 512 run the column-split trunk on
-the card), a SiNeRF up to 256 at render.py::kernel_width(W) (the next of
-64, 128, 192, 256), with zero units, and the plain versions run that
-padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
+or SiNeRF of width W up to 512 is packed at render.py::kernel_width(W)
+(also named nerf_kernel_width: the next of 64, 128, 192, 256, 384, 512;
+384 and 512 run the column-split trunk on the card), with zero units, and
+the plain versions run that padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
 kernels take any width (interpret mode, as tests/test_pallas.py runs them
 on the CPU), with NeRF 4 layers, skip (2,), n_freqs 4/2 and SiNeRF 4
 layers, 128 seeded rows. The file takes ~80 s alone, most of it the JAX
@@ -17,8 +16,10 @@ packed weight and bias gradients is exactly 0 (zero units: ReLU(0) = 0,
 sin(a 0) = 0, and the next matrix reads them through zero rows).
 
 Also: the limits the kernels state (render.py::kernel_arch_error,
-siren.py::SIREN_MAX_WIDTH) against the shared-memory sizes of their CUDA
-sources, and one CLI run at --d_filter 40 through the plain versions.
+siren.py::SIREN_MAX_WIDTH and SIREN_MMA_MAX_WIDTH) against the
+shared-memory sizes of their CUDA sources, the routes of NeRF and SiNeRF
+300 / 512 / 600 on a cuda device, and one CLI run at --d_filter 40 through
+the plain versions.
 """
 
 import json
@@ -37,6 +38,8 @@ from fsnerf_tpu.ops.pallas.mlp import fused_density, fused_nerf_mlp
 from fsnerf_tpu.ops.pallas.mlp import prep_params as jprep
 from fsnerf_tpu.ops.pallas.mlp_train import make_fused_train_model_fn as jtrain
 from fsnerf_tpu.ops.pallas.render import make_fused_ray_renderer as jmarch
+from fsnerf_tpu.ops.pallas.render import \
+    make_fused_siren_ray_renderer as jsmarch
 from fsnerf_tpu.render import renderer as jrend
 from fsnerf_tpu_torch import cli
 from fsnerf_tpu_torch.config import Config, EncoderConfig, ModelConfig
@@ -225,7 +228,8 @@ def test_ray_march_split_widths_match_pallas(width, sigma_bias):
     assert kr.march_chunk_error(rp.width, 8, 6) is None
 
 
-@pytest.mark.parametrize("width,packed", [(40, 64), (100, 128)])
+@pytest.mark.parametrize("width,packed", [(40, 64), (100, 128), (300, 384),
+                                          (512, 512)])
 def test_siren_padded_matches_pallas(width, packed):
     """Kernels 7 and 8's plain versions on the padded pack through the
     autograd Function, in both backward modes, against the JAX SIREN
@@ -233,7 +237,8 @@ def test_siren_padded_matches_pallas(width, packed):
     JAX blocks): the forward (rgb 5e-3, sigma 2e-2 of max) and each
     parameter's gradient (2e-2 of its max; the port's two modes differ by
     design within 1e-2, tests/test_torch_siren.py); the padded gradient
-    entries exactly 0 in both modes."""
+    entries and the saved activations' padded columns exactly 0 in both
+    modes. 300 and 512 pack at the column-split widths 384 and 512."""
     params = sinerf_params_np(8, width=width)
     sd = state_dict_from_jax(params)
     packed_p = ks.prep_siren_params(sd, 4, with_transposed=True)
@@ -263,10 +268,43 @@ def test_siren_padded_matches_pallas(width, packed):
         ks.prep_siren_params(s, 4)), sd)
     xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
     got, acts = ks.siren_mlp_fwd_reference(xp, dp, packed_p, save_acts=True)
+    for i in range(4):                          # h_i: sin(a 0) = 0
+        assert (acts[:, i * packed + width:(i + 1) * packed] == 0).all()
     dout = mse_cotangent(got, target)
     for a in (acts, None):
         dw, db = ks.siren_mlp_bwd(xp, dp, dout, packed_p, a)
         assert (dw[wpad] == 0).all() and (db[bpad] == 0).all()
+
+
+@pytest.mark.parametrize("width,sigma_bias", [(300, 0.0), (512, 0.0),
+                                              (512, 30.0)])
+def test_siren_ray_march_split_widths_match_pallas(width, sigma_bias):
+    """Kernel 2's plain version at the packed widths 384 (width 300) and
+    512 through render_rays_occgrid against the interpret-mode Pallas SIREN
+    march at the module's width, at the march's blocking (16 rays x chunks
+    of 8 samples: the card kernel runs each such 128-row step as two 64-row
+    halves but decides the skip per step). With a raised sigma bias most
+    blocks exit early, and the plain version's exits agree with the TPU
+    kernel's: rgb / opacity within 7e-3, depth within 3e-2, n_valid
+    exact."""
+    params = sinerf_params_np(14, 4, width)
+    params["params"]["sigma_1"]["bias"] = (params["params"]["sigma_1"]["bias"]
+                                           + np.float32(sigma_bias))
+    jg, tg = _grids()
+    ro, rd = shell_rays(32, seed=4)
+    jf = jsmarch(params, n_layers=4, early_stop_eps=1e-4, block_rows=16,
+                 chunk_s=8, interpret=True)
+    ref = jrend.render_rays_occgrid(None, jnp.asarray(ro), jnp.asarray(rd),
+                                    jg, fused_render_fn=jf, **KW)
+    sd = state_dict_from_jax(params)
+    tf = kr.make_fused_siren_ray_renderer(sd, 4)
+    got = renderer.render_rays_occgrid(None, t(ro), t(rd), tg,
+                                       fused_render_fn=tf, **KW)
+    _close(got, ref)
+    np.testing.assert_array_equal(got["n_valid"].numpy(),
+                                  np.asarray(ref["n_valid"]))
+    assert ks.prep_siren_params(sd, 4).layout.width == kr.kernel_width(width)
+    assert kr.kernel_width(width) in kr.SPLIT_WIDTHS
 
 
 def test_stated_limits_fit_the_kernels_shared_memory():
@@ -277,8 +315,12 @@ def test_stated_limits_fit_the_kernels_shared_memory():
     one does not fit) with encodings at their limits; at width 256 a
     direction encoding of 144; above 512 a 64-row warpgroup's input and
     output tiles and a 2-stage ring; the mma.sync SIREN kernels at their
-    widest width and 32 past it. NeRF 300 packs at 384 and 512 at 512, on
-    the kernels; SiNeRF 257 and 300 still at 288 and 320."""
+    widest width and 32 past it; the warp-specialized SIREN forward, march
+    and saved-mode row pass (siren.py::siren_smem_bytes) at every packed
+    width with a ring of 2 stages or more (at 384 and 512 the column-split
+    shapes; a 128-row row pass does not fit there), refusing 608 (SiNeRF
+    600) and past 768 out of shared memory. NeRF and SiNeRF 257 and 300
+    pack at 384, 512 at 512, on the kernels."""
     lim = kr.SMEM_LIMIT
     for W in kr.NERF_KERNEL_WIDTHS:
         dd = kr.KERNEL_MAX_DIR_AT_256 if W == 256 else kr.KERNEL_MAX_ENC
@@ -301,14 +343,30 @@ def test_stated_limits_fit_the_kernels_shared_memory():
     assert line is not None and "width 520 trains and renders through " \
         "the module" in line and "shared memory" in line
     assert not step.resolve_fused_kernel(cfg, "cuda")
-    for kernel, top in ks.SIREN_MAX_WIDTH.items():
+    for kernel, top in ks.SIREN_MMA_MAX_WIDTH.items():
         assert ks.mma_smem_bytes(top, kernel) <= lim
         assert ks.mma_smem_bytes(top + 32, kernel) > lim
         assert ks.siren_kernel_error(top, kernel) is None
         assert ks.siren_kernel_error(top + 32, kernel) is not None
+    assert ks.SIREN_MAX_WIDTH == kr.SPLIT_WIDTHS[-1]
+    for kernel in ("forward", "march", "backward"):
+        for W in kr.NERF_KERNEL_WIDTHS:
+            assert ks.siren_kernel_error(W, kernel) is None
+            assert ks.siren_smem_bytes(W, kernel) <= lim
+            assert ks.siren_stages(W, kernel) >= 2
+        assert ks.siren_smem_bytes(768, kernel, rows=64) > lim
+        assert "shared memory" in ks.siren_kernel_error(
+            kr.kernel_width(600), kernel)
+    for W in kr.SPLIT_WIDTHS:
+        assert ks.siren_smem_bytes(W, "backward", rows=128) > lim
+    assert [ks.siren_stages(W, "backward") for W in kr.NERF_KERNEL_WIDTHS] \
+        == [4, 4, 4, 3, 4, 2]
+    assert [ks.siren_stages(W, "forward") for W in kr.NERF_KERNEL_WIDTHS] \
+        == [4, 4, 4, 4, 4, 3]
     assert [kr.kernel_width(w) for w in (1, 40, 64, 65, 129, 192, 193, 256,
-                                         257, 300, 512)] == \
-        [64, 64, 64, 128, 192, 192, 256, 256, 288, 320, 512]
+                                         257, 300, 512, 600)] == \
+        [64, 64, 64, 128, 192, 192, 256, 256, 384, 384, 512, 608]
+    assert kr.nerf_kernel_width is kr.kernel_width
 
 
 def test_cli_trains_at_width_40_through_the_plain_versions(capsys):
@@ -329,11 +387,11 @@ def test_cli_trains_at_width_40_through_the_plain_versions(capsys):
 
 @pytest.mark.parametrize("model,width,takes", [
     ("nerf", 300, True), ("nerf", 512, True), ("nerf", 600, False),
-    ("sinerf", 300, False)])
+    ("sinerf", 300, True), ("sinerf", 512, True), ("sinerf", 600, False)])
 def test_wide_routes_on_the_card(model, width, takes, capsys):
-    """The routes on a cuda device, decided without a card: NeRF 300 (packed
-    384) and 512 resolve to the kernels and print nothing; NeRF 600 and
-    SiNeRF 300 take the module route and print its one line, naming the
+    """The routes on a cuda device, decided without a card: NeRF and SiNeRF
+    300 (packed 384) and 512 resolve to the kernels and print nothing; NeRF
+    and SiNeRF 600 take the module route and print its one line, naming the
     width and the shared-memory reason; on the CPU nothing is printed."""
     if model == "nerf":
         cfg = _train_cfg(width)
@@ -348,8 +406,9 @@ def test_wide_routes_on_the_card(model, width, takes, capsys):
     assert (line is None) == takes
     if takes:
         assert err == ""
-        lay = mt.TrainLayout.from_config(cfg, "cuda")
-        assert (lay.width, lay.model_width) == (kr.nerf_kernel_width(width),
+        lay = (mt.TrainLayout.from_config(cfg, "cuda") if model == "nerf"
+               else ks.SirenLayout.from_config(cfg))
+        assert (lay.width, lay.model_width) == (kr.kernel_width(width),
                                                 width)
         assert lay.width in kr.SPLIT_WIDTHS
     else:
