@@ -3091,29 +3091,49 @@ def jpeg_phase(card, root, png_psnr):
     print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 19. the kernels at every width up to 512 ------------------------------
+# -- 19. the kernels at every width up to 1024 -----------------------------
 #
-# A NeRF or SiNeRF module's width up to 512 is packed at the next of the
-# kernels' widths 64, 128, 192, 256, 384, 512 (ops/kernels/render.py::
-# kernel_width; 384 and 512 on the column-split trunk) with zero units.
-# NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512 (8 layers,
-# skip 4, n_freqs 10/4) and at 256 and 512 with n_freqs 21 (a 129-wide
-# encoding); SiNeRF: kernels 2, 7, 8 at 40, 100, 192, 300, 512 (8
-# layers), the mma.sync forward and march at 320 packed at 320, every
-# kernel refusing 600 (packed 608) by name.
+# A NeRF module's width up to 1024 (a SiNeRF's up to 512) is packed at the
+# next of the kernels' widths 64, 128, 192, 256, 384, 512, 768, 1024
+# (ops/kernels/render.py::kernel_width; 384 and 512 on the column-split
+# trunk, 768 and 1024 on the NeRF kernels' streamed trunk) with zero
+# units. NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512,
+# 700, 1024 (8 layers, skip 4, n_freqs 10/4) and at 256 and 512 with
+# n_freqs 21 (a 129-wide encoding); SiNeRF: kernels 2, 7, 8 at 40, 100,
+# 192, 300, 512 (8 layers), the mma.sync forward and march at 320 packed at
+# 320, every SIREN kernel refusing 600 (packed 768) by name.
 WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
               (256, {"n_freqs": 21}), (300, {}), (512, {}),
-              (512, {"n_freqs": 21}))
+              (512, {"n_freqs": 21}), (700, {}), (1024, {}))
 WIDTH_SIREN = (40, 100, 192, 300, 512)
-WIDTH_TRAIN = (192, 200, 512)         # 19c: training runs at 8 x W
+# 19c: training runs at 8 x W, each for this many graphed steps (8 x 1024
+# through the module trains at ~22 steps/s: TRAIN_STEPS of it would take
+# ~70 s of the script's time; the earlier widths cut to 600 to make room)
+WIDTH_TRAIN = {192: 600, 200: 600, 512: 600, 1024: 600}
+WIDTH_ROUTES = (192, 200, 512, 700, 1024)   # 2b: the routes traced
 WIDTH_SIREN_TRAIN = (512,)            # 19c: SiNeRF training at 8 x W
 # ... for this many steps: the module route at 8 x 512 trains at ~14.5
 # steps/s, so TRAIN_STEPS of it would take ~100 s of the script's time
 WIDE_SIREN_STEPS = 600
 WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
-# 19c at 8 x 512: the held-out PSNR of the kernels' run against the
+# 19c from 384 up: the held-out PSNR of the kernels' run against the
 # module's (the same function, bf16 rounded in other places)
 WIDE_PSNR_TOL_DB = 1.0
+
+
+def nerf_route_kernels(width: int):
+    """(names launched with the packed width as template argument, names
+    without one) of the NeRF training and eval kernels at a packed width:
+    at the streamed widths one instance each (<name>_stream) serves 768
+    and 1024."""
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    names = ("mlp_train_fwd_kernel", "nerf_density_kernel",
+             "nerf_march_kernel")
+    if width in kr.STREAM_WIDTHS:
+        return (), tuple(f"{n}_stream" for n in names) + (
+            "mlp_train_bwd_rows_kernel_stream",) + NERF_BWD_PARTS[1:]
+    return names, NERF_BWD_PARTS
 
 
 def width_cfg(cfg, width, **encoder):
@@ -3157,14 +3177,18 @@ class ModuleCalls:
 
 def width_routes(cfg, dev, card):
     """Phase 2b, after the build (as siren_routes, for the profiler): at 8 x
-    192, 8 x 200 (padded to 256) and 8 x 512, WIDTH_ROUTE_STEPS train steps
-    of the occgrid slice and the held-out eval of one view must launch
-    kernels 5, 6, 4 and 1 at the packed width (mlp_train_fwd_kernel<W>,
-    the row pass and dW pass of mlp_train_bwd, nerf_density_kernel<W>,
-    nerf_march_kernel<W>) and call no NeRF module; at SiNeRF 8 x 512
-    kernels 7, 8 and 2 (siren_fwd_ws_kernel<512>, siren_bwd_rows_ws_kernel
-    <512> and the dW pass, siren_march_kernel<512>), the SiNeRF module
-    called only for the grid refresh's densities."""
+    W for W in WIDTH_ROUTES (200 padded to 256, 700 to 768),
+    WIDTH_ROUTE_STEPS train steps of the occgrid slice and the held-out
+    eval of one view must launch kernels 5, 6, 4 and 1 at the packed width
+    (mlp_train_fwd_kernel<W>, the row pass and dW pass of mlp_train_bwd,
+    nerf_density_kernel<W>, nerf_march_kernel<W>; at 768 and 1024 the
+    streamed instances, nerf_route_kernels) and call no NeRF module; from
+    512 up also a hierarchical held-out eval of the view (kernel 3 on the
+    coarse samples, kernel 1 on the fine), its launches counted with the
+    run's. At SiNeRF 8 x 512 kernels 7, 8 and 2 (siren_fwd_ws_kernel<512>,
+    siren_bwd_rows_ws_kernel<512> and the dW pass, siren_march_kernel<512>),
+    the SiNeRF module called only for the grid refresh's densities.
+    Returns {packed width: the launch counts of its run} from 512 up."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3172,6 +3196,7 @@ def width_routes(cfg, dev, card):
     from fsnerf_tpu_torch.data.pool import pool_from_images
     from fsnerf_tpu_torch.data.synthetic import SphereScene
     from fsnerf_tpu_torch.ops import occgrid as og
+    from fsnerf_tpu_torch.ops.kernels import launch_counts
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.train import step
     from fsnerf_tpu_torch.train.loop import train
@@ -3179,7 +3204,9 @@ def width_routes(cfg, dev, card):
     scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
     pool = pool_from_images(scene.imgs, scene.poses, scene.hwf, device=dev)
     held = cli.split_of(scene.holdout(n=1, seed=101))
-    for W in WIDTH_TRAIN:
+    wide = {}
+    for W in WIDTH_ROUTES:
+        K = kr.nerf_kernel_width(W)
         wcfg = train_slice_config(width_cfg(cfg, W))
         wcfg = wcfg.replace(train=dataclasses.replace(
             wcfg.train, n_iters=WIDTH_ROUTE_STEPS))
@@ -3195,14 +3222,24 @@ def width_routes(cfg, dev, card):
                           log_every=WIDTH_ROUTE_STEPS)
             cli.evaluate_split(model, og.conservative(state.grid), held,
                                wcfg, device=dev)
+            if K >= 512:
+                cli.evaluate_split(model, None, held, hier_config(wcfg),
+                                   device=dev)
 
+        names, plain = nerf_route_kernels(K)
+        if K >= 512:                  # the hierarchical eval's kernel 3
+            if K in kr.STREAM_WIDTHS:
+                plain += ("nerf_mlp_kernel_stream",)
+            else:
+                names += ("nerf_mlp_kernel",)
+        before = launch_counts()
         with ModuleCalls() as calls:
             seen = require_kernels(
                 f"2b. {WIDTH_ROUTE_STEPS} train steps and a held-out view at "
-                f"8 x {W}", run, ("mlp_train_fwd_kernel",
-                                  "nerf_density_kernel",
-                                  "nerf_march_kernel"),
-                kr.nerf_kernel_width(W), plain=NERF_BWD_PARTS)
+                f"8 x {W} (packed {K})", run, names, K, plain=plain)
+        after = launch_counts()
+        if K >= 512:
+            wide[K] = {k: after[k] - before[k] for k in after}
         gemms = sorted(k for k in seen if re.search(
             r"gemm|xmma|nvjet|cutlass", k) and "dw_gemm_kernel" not in k)
         print(f"2b. width {W}: NeRF module calls {calls.total}; other GEMM "
@@ -3237,14 +3274,16 @@ def width_routes(cfg, dev, card):
     if calls.calls:
         fail(f"SiNeRF 512: the run called the SiNeRF module {calls.calls} "
              "times on the MLP")
+    return wide
 
 
 def nerf_width_case(cfg, dev, march_in, module=False):
     """19a: kernels 1 and 3-6 of a NeRF of cfg's architecture (seeded
     weights) against their plain versions at the main path's shapes, each
-    launch counted from 0. Returns (width packed, {kernel: (ms, plain ms,
-    bound dict, max err)}, launches, {kernel: the bf16 module's ms on the
-    same rows} with `module`, else {})."""
+    bitwise repeatable (kernel 6 in both modes, recompute bitwise saved),
+    each launch counted from 0. Returns (width packed, {kernel: (ms, plain
+    ms, bound dict, max err)}, launches, {kernel: the bf16 module's ms on
+    the same rows} with `module`, else {})."""
     from fsnerf_tpu_torch.core.encoding import positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp as km
@@ -3268,6 +3307,10 @@ def nerf_width_case(cfg, dev, march_in, module=False):
     r = compare(f"19a. width {W} (packed {rp.width}), n_freqs {nf}: march",
                 kr.ray_march, kr.ray_march_reference, padded, rp, bR, cs,
                 cfg.sampling.early_stop_eps)
+    runs = [kr.ray_march(*padded, rp, bR, cs, cfg.sampling.early_stop_eps)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"19a. width {W}: two march runs differ")
     out["ray_march"] = (r["ms"], r["plain_ms"], bound(
         2.0 * mlp_macs(cfg) * r["executed"] * bR * cs,
         nbytes(*padded, rp.wpack, rp.bpack, rp.enc)
@@ -3290,6 +3333,8 @@ def nerf_width_case(cfg, dev, march_in, module=False):
             sig > MLP_SIGMA_TOL:
         fail(f"19a. width {W}: nerf_mlp vs plain rgb {rgb_err:.3e}, sigma "
              f"{sig:.3e} of max")
+    if not torch.equal(got, km.nerf_mlp(ex, ed, p)):
+        fail(f"19a. width {W}: two nerf_mlp runs differ")
     ms, plain_ms = in_turns(lambda: km.nerf_mlp_reference(ex, ed, p),
                             lambda: km.nerf_mlp(ex, ed, p))
     out["nerf_mlp"] = (ms, plain_ms, bound(2.0 * mlp_macs(cfg) * n, nbytes(
@@ -3301,6 +3346,8 @@ def nerf_width_case(cfg, dev, march_in, module=False):
     sig = float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
     if not torch.isfinite(got).all() or sig > DENSITY_SIGMA_TOL:
         fail(f"19a. width {W}: nerf_density vs plain sigma {sig:.3e} of max")
+    if not torch.equal(got, km.nerf_density(exd, p)):
+        fail(f"19a. width {W}: two nerf_density runs differ")
     ms, plain_ms = in_turns(lambda: km.nerf_density_reference(exd, p),
                             lambda: km.nerf_density(exd, p))
     out["nerf_density"] = (ms, plain_ms, bound(
@@ -3323,6 +3370,10 @@ def nerf_width_case(cfg, dev, march_in, module=False):
             sig > TRAIN_SIGMA_TOL:
         fail(f"19a. width {W}: train forward vs plain rgb {rgb_err:.3e}, "
              f"sigma {sig:.3e} of max")
+    again = mt.mlp_train_fwd(xt, dt, tp, save_acts=True)
+    if not (torch.equal(fo, again[0]) and torch.equal(acts, again[1])):
+        fail(f"19a. width {W}: two train forward runs differ")
+    del again
     ms, plain_ms = in_turns(
         lambda: mt.mlp_train_fwd_reference(xt, dt, tp, True),
         lambda: mt.mlp_train_fwd(xt, dt, tp, True))
@@ -3336,6 +3387,9 @@ def nerf_width_case(cfg, dev, march_in, module=False):
     plain = mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts)
     if not all(torch.equal(a, b) for a, b in zip(saved, rec)):
         fail(f"19a. width {W}: saved-acts and recompute gradients differ")
+    if not all(torch.equal(a, b) for a, b in zip(
+            saved, mt.mlp_train_bwd(xt, dt, dout, tp, acts))):
+        fail(f"19a. width {W}: two train backward runs differ")
     worst = max((float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30),
                  name) for name, a, b in zip(
         lay.param_names, lay.grads_from_packed(*saved),
@@ -3553,22 +3607,26 @@ def width_line(out, module_ms=None) -> str:
 
 def width_kernels(cfg, dev, card, log, march_in):
     """Phase 19a-b: the kernels at widths that are not their own, and width
-    192 in each (ptxas lines of every 192 instance). Returns the 19b
-    numbers of the SIREN kernels at 512 ({kernel: (ms, plain ms, bound
-    dict, max err)}, the report's column-split instances)."""
+    192 in each (ptxas lines of every 192 instance). Returns (the 19a
+    numbers of the NeRF kernels at the packed widths 512, 768 and 1024, by
+    packed width: {kernel: (ms, plain ms, bound dict, max err)}, the 19b
+    numbers of the SIREN kernels at 512: the report's wide instances)."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.train import step
 
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
+    nerf_wide = {}
     for W, enc in WIDTH_NERF:
         wcfg = width_cfg(cfg, W, **enc)
-        split = kr.nerf_kernel_width(W) in kr.SPLIT_WIDTHS
-        K, out, launches, module_ms = nerf_width_case(wcfg, dev, march_in,
-                                                      module=split)
+        K, out, launches, module_ms = nerf_width_case(
+            wcfg, dev, march_in, module=kr.nerf_kernel_width(W) > 256)
         print(f"19a. NeRF 8 x {W} (packed {K}), n_freqs "
               f"{wcfg.encoder.n_freqs}/{wcfg.encoder.n_freqs_views} on "
-              f"{card}: {width_line(out, module_ms)}; launches {launches}")
+              f"{card}: {width_line(out, module_ms)}; launches {launches}; "
+              f"bitwise repeatable, recompute bitwise saved")
+        if K >= 512 and not enc:
+            nerf_wide.setdefault(K, out)
     print("19a. the width-384 and 512 instances and kernel 6's 64-row row "
           "pass:\n" + "\n".join(
               line for name, widths in (
@@ -3580,13 +3638,21 @@ def width_kernels(cfg, dev, card, log, march_in):
               for line in ptxas_of(log, name).splitlines()
               if any(f"{name}<{w}>" in line for w in widths)
               and ("Used" in line or "spill stores" in line)))
+    print("19a. the streamed instances (768 and 1024):\n" + "\n".join(
+        line for name in ("nerf_march_kernel_stream", "nerf_mlp_kernel_stream",
+                          "nerf_density_kernel_stream",
+                          "mlp_train_fwd_kernel_stream",
+                          "mlp_train_bwd_rows_kernel_stream")
+        for line in ptxas_of(log, name).splitlines()
+        if "Used" in line or "spill stores" in line))
+    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS
     stages = {k: [(ks.siren_stages(W, k), ks.launcher_stages(W, k))
-                  for W in kr.NERF_KERNEL_WIDTHS]
+                  for W in siren_widths]
               for k in ("forward", "march", "backward")}
     print("19b. the SIREN kernels' ring stages (the C launchers', "
           "siren.py::siren_stages mirroring them): " + "; ".join(
               f"{k} " + ", ".join(f"{W}: {c}" for W, (_, c) in zip(
-                  kr.NERF_KERNEL_WIDTHS, v)) for k, v in stages.items()))
+                  siren_widths, v)) for k, v in stages.items()))
     if any(p != c for v in stages.values() for p, c in v):
         fail(f"19b. siren.py::siren_stages differs from the launchers' "
              f"rings (Python, C): {stages}")
@@ -3618,28 +3684,30 @@ def width_kernels(cfg, dev, card, log, march_in):
                                               "siren_ray_march"}:
         fail(f"19b. SiNeRF 320 packed at 320: refused {refused}, ran "
              f"{list(out)}")
-    # 600 (packed 608): every SIREN kernel refuses by name; the run takes
-    # the printed module route, as a NeRF of 600 does. SiNeRF and NeRF 512
-    # resolve to the kernels.
+    # SiNeRF 600 (packed 768): every SIREN kernel refuses by name; the run
+    # takes the printed module route, as a NeRF of 1100 (packed 1120) does.
+    # SiNeRF 512 and NeRF 512, 600 and 1024 resolve to the kernels.
     scfg = sinerf_config(width_cfg(cfg, 600))
     K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in)
     if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
         fail(f"19b. SiNeRF width 600: ran {list(out)}, refused {refused}")
     line = step.report_module_route(scfg, dev)
-    nerf600 = width_cfg(cfg, 600)
-    line_nerf = step.report_module_route(nerf600, dev)
+    nerf1100 = width_cfg(cfg, 1100)
+    line_nerf = step.report_module_route(nerf1100, dev)
     if line is None or step.resolve_fused_kernel(scfg, dev) or \
-            line_nerf is None or step.resolve_fused_kernel(nerf600, dev):
-        fail("SiNeRF 600 or NeRF 600 did not take the printed module route")
-    for name, c512 in (("SiNeRF", sinerf_config(width_cfg(cfg, 512))),
-                       ("NeRF", width_cfg(cfg, 512))):
-        line_512 = step.report_module_route(c512, dev)
-        if line_512 is not None or not step.resolve_fused_kernel(c512, dev):
-            fail(f"{name} 512 did not resolve to the kernels: {line_512}")
-    print(f"19b. width 600 (packed {K}): SIREN forward and march refused by "
-          f"name, the backward never reached; the route prints: {line}; "
-          f"NeRF 600: {line_nerf}; SiNeRF and NeRF 512 resolve to the "
-          "kernels")
+            line_nerf is None or step.resolve_fused_kernel(nerf1100, dev):
+        fail("SiNeRF 600 or NeRF 1100 did not take the printed module route")
+    for name, ccfg in (("SiNeRF 512", sinerf_config(width_cfg(cfg, 512))),
+                       ("NeRF 512", width_cfg(cfg, 512)),
+                       ("NeRF 600", width_cfg(cfg, 600)),
+                       ("NeRF 1024", width_cfg(cfg, 1024))):
+        line_k = step.report_module_route(ccfg, dev)
+        if line_k is not None or not step.resolve_fused_kernel(ccfg, dev):
+            fail(f"{name} did not resolve to the kernels: {line_k}")
+    print(f"19b. SiNeRF 600 (packed {K}): SIREN forward and march refused "
+          f"by name, the backward never reached; the route prints: {line}; "
+          f"NeRF 1100: {line_nerf}; SiNeRF 512 and NeRF 512, 600 and 1024 "
+          "resolve to the kernels")
     print("19b. the width-192 instances:\n" + "\n".join(
         line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
                           "nerf_density_kernel", "mlp_train_fwd_kernel",
@@ -3656,18 +3724,19 @@ def width_kernels(cfg, dev, card, log, march_in):
     if len(split) != 2 * 2 * 4 or spills:
         fail(f"19b. the SIREN instances at 384 and 512: {len(split)} ptxas "
              f"lines, spilling: {spills}")
-    return wide
+    return nerf_wide, wide
 
 
 def width_train_slices(cfg, dev, card):
-    """Phase 19c: the occgrid training slice (1,500 graphed steps, the
-    8-view 128x128 sphere, then the held-out views) at 8 x 192, 8 x 200
-    (packed at 256) and 8 x 512 (the column-split kernels) through the
-    kernels, launch counts set to 0 before and read after, no NeRF module
-    call; then the same run through the module (cfg.model.fused_kernel and
-    fused_render off: the route these widths took before the kernels took
-    them): steps/s and held-out PSNR side by side, at 512 within
-    WIDE_PSNR_TOL_DB."""
+    """Phase 19c: the occgrid training slice (WIDTH_TRAIN's graphed steps,
+    the 8-view 128x128 sphere, then the held-out views) at 8 x 192, 8 x 200
+    (packed at 256), 8 x 512 (the column-split kernels) and 8 x 1024 (the
+    streamed kernels) through the kernels, launch counts set to 0 before
+    and read after, no NeRF module call; then the same run through the
+    module (cfg.model.fused_kernel and fused_render off: the route these
+    widths took before the kernels took them): steps/s over the whole run
+    and from step 100 on and held-out PSNR side by side, at 512 and 1024
+    within WIDE_PSNR_TOL_DB."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3680,8 +3749,10 @@ def width_train_slices(cfg, dev, card):
 
     scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
     held = cli.split_of(scene.holdout(n=3, seed=101))
-    for W in WIDTH_TRAIN:
+    for W, steps in WIDTH_TRAIN.items():
         kcfg = train_slice_config(width_cfg(cfg, W))
+        kcfg = kcfg.replace(train=dataclasses.replace(kcfg.train,
+                                                      n_iters=steps))
         mcfg = kcfg.replace(model=dataclasses.replace(
             kcfg.model, fused_kernel=False, fused_render=False))
         untrained = make_model(kcfg, torch.bfloat16,
@@ -3705,10 +3776,11 @@ def width_train_slices(cfg, dev, card):
                         "nerf_density": km.nerf_density.launches}
             losses = [r["loss"] for r in log.records]
             res[route] = (state.step / train_s, got["psnr"], launches,
-                          calls.total)
+                          calls.total, log.steady_steps_per_s(100))
             print(f"19c. 8 x {W} through the {route} on {card}: "
                   f"{state.step} steps in {train_s:.3f} s, "
-                  f"{state.step / train_s:.2f} steps/s; loss "
+                  f"{state.step / train_s:.2f} steps/s "
+                  f"({res[route][4]:.2f} from step 100 on); loss "
                   f"{losses[0]:.5f} -> {losses[-1]:.5f}; held-out PSNR "
                   f"{got['psnr']:.3f} SSIM {got['ssim']:.4f} (untrained "
                   f"{base['psnr']:.3f}); launches {launches}; NeRF module "
@@ -3716,16 +3788,15 @@ def width_train_slices(cfg, dev, card):
             if not losses[-1] < losses[0] or \
                     got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
                 fail(f"19c. 8 x {W} ({route}): did not train")
-        if kr.nerf_kernel_width(W) in kr.SPLIT_WIDTHS and abs(
+        if kr.nerf_kernel_width(W) > 256 and abs(
                 res["kernels"][1] - res["module"][1]) > WIDE_PSNR_TOL_DB:
             fail(f"19c. 8 x {W}: held-out PSNR {res['kernels'][1]:.3f} "
                  f"through the kernels, {res['module'][1]:.3f} through the "
                  f"module")
         k_launch, m_launch = res["kernels"][2], res["module"][2]
-        want_density = refresh_launches(kcfg, state.grid.n_cells,
-                                        TRAIN_STEPS)
-        if (k_launch["mlp_train_fwd"] != TRAIN_STEPS
-                or k_launch["mlp_train_bwd"] != TRAIN_STEPS
+        want_density = refresh_launches(kcfg, state.grid.n_cells, steps)
+        if (k_launch["mlp_train_fwd"] != steps
+                or k_launch["mlp_train_bwd"] != steps
                 or k_launch["nerf_density"] != want_density
                 or k_launch["ray_march"] == 0 or res["kernels"][3]):
             fail(f"19c. 8 x {W}: the kernels' route launched {k_launch} "
@@ -3733,8 +3804,9 @@ def width_train_slices(cfg, dev, card):
         if any(m_launch.values()) or not res["module"][3]:
             fail(f"19c. 8 x {W}: the module route launched {m_launch}")
         print(f"19c. 8 x {W} on {card}: kernels {res['kernels'][0]:.2f} "
-              f"steps/s, PSNR {res['kernels'][1]:.3f}; module "
-              f"{res['module'][0]:.2f} steps/s, PSNR "
+              f"steps/s ({res['kernels'][4]:.2f} from step 100), PSNR "
+              f"{res['kernels'][1]:.3f}; module {res['module'][0]:.2f} "
+              f"steps/s ({res['module'][4]:.2f} from step 100), PSNR "
               f"{res['module'][1]:.3f}")
 
 
@@ -3857,7 +3929,7 @@ def main():
     dev = torch.device("cuda")
     cfg = Config()
     siren_routes(cfg, dev, card)
-    width_routes(cfg, dev, card)
+    wide_launches = width_routes(cfg, dev, card)
 
     # -- 3. kernel vs plain at full width ---------------------------------
     s = cfg.sampling
@@ -3963,8 +4035,9 @@ def main():
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
-    # -- 19. the kernels at every width up to 512 --------------------------
-    siren_wide = width_kernels(cfg, dev, card, built.log, (padded, bR, cs))
+    # -- 19. the kernels at every width up to 1024 -------------------------
+    nerf_wide, siren_wide = width_kernels(cfg, dev, card, built.log,
+                                          (padded, bR, cs))
     width_train_slices(cfg, dev, card)
     siren_wide_launches = siren_width_train_slices(cfg, dev, card)
 
@@ -4093,7 +4166,32 @@ def main():
         ("siren_mlp_fwd", "fsnerf_tpu_torch/csrc/siren.cu",
          "fsnerf_tpu/ops/pallas/siren.py:325"),
         ("siren_mlp_bwd", "fsnerf_tpu_torch/csrc/siren.cu",
-         "fsnerf_tpu/ops/pallas/siren.py:355"))]}))
+         "fsnerf_tpu/ops/pallas/siren.py:355"))] + [{
+        # the NeRF kernels at the packed widths 512 (column-split), 768 and
+        # 1024 (streamed): phase 19a's numbers (NeRF 512, 700, 1024);
+        # launches from phase 2b's run at that width (20 train steps, the
+        # held-out view's occgrid and hierarchical evals)
+        "name": f"{name}@{K}",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": wide_launches[K][name],
+        "max_abs_err": nerf_wide[K][name][3],
+        "ms": nerf_wide[K][name][0],
+        "plain_ms": nerf_wide[K][name][1],
+        **nerf_wide[K][name][2],
+        "library_ms": None,
+    } for K in sorted(nerf_wide) for name, source, replaces in (
+        ("ray_march", "fsnerf_tpu_torch/csrc/render.cu",
+         "fsnerf_tpu/ops/pallas/render.py:189"),
+        ("nerf_mlp", "fsnerf_tpu_torch/csrc/mlp.cu",
+         "fsnerf_tpu/ops/pallas/mlp.py:276"),
+        ("nerf_density", "fsnerf_tpu_torch/csrc/mlp.cu",
+         "fsnerf_tpu/ops/pallas/mlp.py:428"),
+        ("mlp_train_fwd", "fsnerf_tpu_torch/csrc/mlp_train.cu",
+         "fsnerf_tpu/ops/pallas/mlp_train.py:560"),
+        ("mlp_train_bwd", "fsnerf_tpu_torch/csrc/mlp_train.cu",
+         "fsnerf_tpu/ops/pallas/mlp_train.py:595"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,7 +33,11 @@
 // At the packed widths 384 and 512 (~4.6 MFLOP a row at 8 x 512) both
 // kernels run ws_trunk.cuh's column-split trunk instead (mlp_rows_split):
 // one consumer warpgroup of 64 rows per CTA, every layer as two column
-// halves, the same numerics.
+// halves, the same numerics. At 768 and 1024 (~18 MFLOP a row at 8 x
+// 1024) they run its streamed trunk (mlp_rows_stream, the kernels
+// nerf_mlp_kernel_stream and nerf_density_kernel_stream: persistent CTAs
+// of 64 rows, each layer's output through device memory and back from L2
+// in 64-column tiles), the same numerics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -264,6 +268,145 @@ __global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
                        density_smem_raw);
 }
 
+// mlp_rows at a streamed width W (768, 1024): persistent CTAs, each tile
+// of 64 rows loading its encodings by TMA (`loaded`, one phase a tile)
+// and running ws_trunk.cuh's streamed trunk, connection and branch, every
+// layer's output through the CTA's scratch slot.
+template <bool kHeads>
+__device__ __forceinline__ void mlp_rows_stream(
+    const CUtensorMap* map_w, const CUtensorMap* map_br,
+    const CUtensorMap* map_x, const CUtensorMap* map_d,
+    const CUtensorMap* map_slab, const MlpArgs& a, int W, int n_stages,
+    unsigned char* smem_raw) {
+  const int DE = a.d_enc_pad, DD = kHeads ? a.d_dir_pad : 0;
+  const StreamTiles s = stream_carve(smem_raw, n_stages, DE, DD);
+  uint64_t* loaded = s.extra;
+  fwd_init_barriers(s.full, s.empty, n_stages, s.afull, kStreamAStages + 1,
+                    1);
+  __syncthreads();
+  const int L = a.n_layers, n_tiles = (a.N + 63) / 64;
+  const FwdShape sh{L, a.skip_mask, DE, DD};
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        produce_pass_stream(map_w, map_br, W, sh, kHeads, s.ring, s.full,
+                            s.empty, n_stages, it, nullptr);
+    }
+    return;
+  }
+  const int t = threadIdx.x, lane = t & 31, bar = 1;
+  const int nbx = enc_blocks(DE), nbd = enc_blocks(DD);
+  FwdRing r{smem_u32(s.ring), kStreamStageBytes, s.full, s.empty, n_stages,
+            0, t == 0};
+  ARing ar{smem_u32(s.a), s.a, s.afull, 0};
+  const bf16* w_sigma =
+      a.wpack + (size_t)trunk_rows_of(L, a.skip_mask, W, DE) * W;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  int phase = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * 64;
+    // every warp's products of the last tile have read encx and encd
+    named_bar(bar, 128);
+    if (r.lead) {
+      mbar_arrive_expect_tx(loaded, (nbx + nbd) * kBlock);
+      for (int q = 0; q < nbx; ++q)
+        tma_load_2d(s.encx + q * kBlock, map_x, loaded, 64 * q, row0);
+      for (int q = 0; q < nbd; ++q)
+        tma_load_2d(s.encd + q * kBlock, map_d, loaded, 64 * q, row0);
+    }
+    mbar_wait(loaded, phase);
+    phase ^= 1;
+    const StreamBufs io{nullptr, map_slab, 0, (int)blockIdx.x * 64, W, L};
+    float sig[2] = {0.f, 0.f};
+    {
+      float acc[kStreamCols / 2];
+      zero_acc(acc);
+      stream_trunk(acc, r, ar, s, sh, W, a.bpack, w_sigma, sig, bar, io);
+      const float b_sigma = a.bpack[L * W];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sig[h] = density_activate(quad_sum(sig[h]) + b_sigma, a.density_act);
+      if (!kHeads) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int g = row0 + quad_row + 8 * h;
+          if ((lane & 3) == 0 && g < a.N) a.out[g] = sig[h];
+        }
+        continue;
+      }
+      stream_conn(acc, r, ar, s, W, a.bpack + L * W + 1, bar, io);
+    }
+    float rgb[2][3];
+    stream_branch(r, ar, s, io.at(L), W, DD, w_sigma + W,
+                  a.bpack + L * W + 1, rgb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = row0 + quad_row + 8 * h;
+      if ((lane & 3) == 0 && g < a.N)
+        reinterpret_cast<float4*>(a.out)[g] =
+            make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sig[h]);
+    }
+  }
+}
+
+// grid: min(64-row tiles, the scratch's slots) persistent CTAs; block: one
+// consumer warpgroup + the producer's; W = 768 or 1024.
+__global__ void __launch_bounds__(256, 1)
+    nerf_mlp_kernel_stream(const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_br,
+                           const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_d,
+                           const __grid_constant__ CUtensorMap map_slab,
+                           MlpArgs a, int W, int n_stages) {
+  extern __shared__ unsigned char mlp_stream_smem_raw[];
+  mlp_rows_stream<true>(&map_w, &map_br, &map_x, &map_d, &map_slab, a, W,
+                        n_stages, mlp_stream_smem_raw);
+}
+
+__global__ void __launch_bounds__(256, 1)
+    nerf_density_kernel_stream(const __grid_constant__ CUtensorMap map_w,
+                               const __grid_constant__ CUtensorMap map_br,
+                               const __grid_constant__ CUtensorMap map_x,
+                               const __grid_constant__ CUtensorMap map_d,
+                               const __grid_constant__ CUtensorMap map_slab,
+                               MlpArgs a, int W, int n_stages) {
+  extern __shared__ unsigned char density_stream_smem_raw[];
+  mlp_rows_stream<false>(&map_w, &map_br, &map_x, &map_d, &map_slab, a, W,
+                         n_stages, density_stream_smem_raw);
+}
+
+// nerf_mlp_kernel_stream (kHeads) or nerf_density_kernel_stream at W (768,
+// 1024) on `st`, slab the [slab_ctas * 64, 2 W] bf16 scratch.
+template <bool kHeads>
+cudaError_t launch_mlp_stream(const MlpArgs& a, int W, const bf16* encx,
+                              const bf16* encd, const bf16* slab,
+                              int slab_ctas, int trunk_rows,
+                              cudaStream_t st) {
+  const auto kernel =
+      kHeads ? nerf_mlp_kernel_stream : nerf_density_kernel_stream;
+  const int DD = kHeads ? a.d_dir_pad : 0;
+  CUtensorMap map_w, map_br, map_x, map_d, map_slab;
+  if (!encode_stream_maps(&map_w, kHeads ? &map_br : nullptr, &map_slab,
+                          a.wpack, trunk_rows, W, DD, slab, slab_ctas) ||
+      !encode_bf16_map(&map_x, encx, a.N, a.d_enc_pad, a.d_enc_pad, 64) ||
+      (kHeads &&
+       !encode_bf16_map(&map_d, encd, a.N, a.d_dir_pad, a.d_dir_pad, 64)))
+    return cudaErrorInvalidValue;
+  if (!kHeads) map_br = map_d = map_w;             // unread
+  const size_t extra = sizeof(uint64_t);           // `loaded`
+  const int n_stages = stream_stages(a.d_enc_pad, DD, extra);
+  if (n_stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = stream_smem_bytes(a.d_enc_pad, DD, n_stages) + extra;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<min((a.N + 63) / 64, slab_ctas), 256, smem, st>>>(
+      map_w, map_br, map_x, map_d, map_slab, a, W, n_stages);
+  return cudaGetLastError();
+}
+
 // nerf_mlp_kernel<W> (kHeads) or nerf_density_kernel<W> on `st`: the
 // weight maps (the branch's only with the heads), the encodings' maps and
 // the deepest ring that fits.
@@ -297,7 +440,8 @@ cudaError_t launch_mlp_w(const MlpArgs& a, const bf16* encx,
 // Both entries' width dispatch, after their checks.
 template <bool kHeads>
 int launch_mlp(const MlpArgs& a, int width, const void* encx,
-               const void* encd, int trunk_rows, void* stream) {
+               const void* encd, const void* slab, int slab_ctas,
+               int trunk_rows, void* stream) {
   if (a.N == 0) return static_cast<int>(cudaGetLastError());
   const bf16* x = static_cast<const bf16*>(encx);
   const bf16* d = static_cast<const bf16*>(encd);
@@ -321,6 +465,11 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
     case 512:
       return static_cast<int>(
           launch_mlp_w<512, kHeads>(a, x, d, trunk_rows, st));
+    case 768:
+    case 1024:
+      return static_cast<int>(launch_mlp_stream<kHeads>(
+          a, width, x, d, static_cast<const bf16*>(slab), slab_ctas,
+          trunk_rows, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -335,17 +484,20 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
 // The forward MLP (ops/kernels/mlp.py::nerf_mlp): out [n_rows, 4]. Takes
-// width 64, 128, 192, 256, 384 or 512, d_enc_pad a multiple of 64 and
-// d_dir_pad of 16, both up to kMaxEnc (256) and at width 256 together up
-// to 6 blocks of 64 (render.py::kernel_arch_error); trunk_rows must be the rows of wpack's [rows, width] view
-// (the trunk, w_sigma and w_conn: mlp_train.py::TrainLayout.wpack_views),
-// the branch's [width + d_dir_pad, width / 2] view following it.
+// width 64, 128, 192, 256, 384, 512, 768 or 1024 (the last two with slab,
+// [slab_ctas * 64, 2 width] bf16 scratch; null elsewhere), d_enc_pad a
+// multiple of 64 and d_dir_pad of 16, both up to kMaxEnc (256) and at
+// width 256 together up to 6 blocks of 64 (render.py::kernel_arch_error);
+// trunk_rows must be the rows of wpack's [rows, width] view (the trunk,
+// w_sigma and w_conn: mlp_train.py::TrainLayout.wpack_views), the
+// branch's [width + d_dir_pad, width / 2] view following it.
 extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
                                const void* wpack, const void* bpack,
-                               void* out, int n_rows, int n_layers,
-                               int skip_mask, int width, int d_enc_pad,
-                               int d_dir_pad, int density_act,
-                               int trunk_rows, void* stream) {
+                               void* out, void* slab, int slab_ctas,
+                               int n_rows, int n_layers, int skip_mask,
+                               int width, int d_enc_pad, int d_dir_pad,
+                               int density_act, int trunk_rows,
+                               void* stream) {
   using namespace fsnerf;
   const MlpArgs a{static_cast<const bf16*>(wpack),
                   static_cast<const float*>(bpack),
@@ -361,19 +513,20 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mlp<true>(a, width, encx, encd, trunk_rows, stream);
+  return launch_mlp<true>(a, width, encx, encd, slab, slab_ctas, trunk_rows,
+                          stream);
 }
 
 // The density pass (ops/kernels/mlp.py::nerf_density): the same packed
-// weights, walked only through the sigma head; out [n_rows]. Takes width
-// 64, 128, 192, 256, 384 or 512 and d_enc_pad a multiple of 64 up to
-// kMaxEnc;
-// trunk_rows as fsnerf_nerf_mlp's.
+// weights, walked only through the sigma head; out [n_rows]. Takes the
+// widths and slab of fsnerf_nerf_mlp and d_enc_pad a multiple of 64 up to
+// kMaxEnc; trunk_rows as fsnerf_nerf_mlp's.
 extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
-                                   const void* bpack, void* out, int n_rows,
-                                   int n_layers, int skip_mask, int width,
-                                   int d_enc_pad, int density_act,
-                                   int trunk_rows, void* stream) {
+                                   const void* bpack, void* out, void* slab,
+                                   int slab_ctas, int n_rows, int n_layers,
+                                   int skip_mask, int width, int d_enc_pad,
+                                   int density_act, int trunk_rows,
+                                   void* stream) {
   using namespace fsnerf;
   const MlpArgs a{static_cast<const bf16*>(wpack),
                   static_cast<const float*>(bpack),
@@ -388,5 +541,6 @@ extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
       trunk_rows !=
           trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mlp<false>(a, width, encx, nullptr, trunk_rows, stream);
+  return launch_mlp<false>(a, width, encx, nullptr, slab, slab_ctas,
+                           trunk_rows, stream);
 }

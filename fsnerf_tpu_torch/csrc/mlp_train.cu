@@ -29,7 +29,10 @@
 // next layer runs. At the packed widths 384 and 512 it runs ws_trunk.cuh's
 // column-split trunk (one consumer of 64 rows, each layer as two column
 // halves, each half's tile stored to acts' [rows, L * W] layout by TMA).
-// A row there costs ~4.6 MFLOP forward at 8 x 512 (~1.19 at 8 x 256).
+// A row there costs ~4.6 MFLOP forward at 8 x 512 (~1.19 at 8 x 256). At
+// 768 and 1024 (~18 MFLOP a row at 8 x 1024) mlp_train_fwd_kernel_stream
+// runs its streamed trunk: each layer's 256-column chunks stored to acts
+// (or a scratch) and read back from L2 as the next layer's operand.
 //
 // The backward is split, because CUDA blocks run in no order and float
 // atomics would make the gradients change from run to run, where the
@@ -37,7 +40,9 @@
 // across a sequential grid:
 //   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA; 64 at
 //      the packed widths 384 and 512, one warpgroup, so that its two
-//      activation buffers fit in shared memory): encodes
+//      activation buffers fit in shared memory; at 768 and 1024
+//      mlp_train_bwd_rows_kernel_stream, which holds no activation buffer
+//      and streams every product's operands from device memory): encodes
 //      the inputs, takes the trunk activations from the forward's stream,
 //      recomputes the heads (mma.sync, mlp_common.cuh::gemm), and walks the
 //      layers back on wgmma.m64n128k16 with A (the cotangent tile) from
@@ -504,16 +509,151 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
   return cudaGetLastError();
 }
 
+// ---- the forward at the streamed widths 768 and 1024 ------------------
+//
+// ws_trunk.cuh's streamed trunk: one consumer warpgroup of 64 rows, the
+// CTAs persistent over the row tiles up to round_up(N, 128), each tile's
+// rows encoded into encx / encd by the consumer, every layer's output
+// stored by TMA (the trunk's to acts in saved mode, else to the CTA's
+// scratch slot; feat always to the scratch) and read back as the next
+// product's A operand. One instance serves both widths.
+__device__ __forceinline__ void fwd_stream_body(const CUtensorMap* map_w,
+                                                const CUtensorMap* map_br,
+                                                const CUtensorMap* map_acts,
+                                                const CUtensorMap* map_slab,
+                                                const TrainArgs& a,
+                                                int n_stages,
+                                                unsigned char* smem_raw) {
+  const int W = a.width, L = a.n_layers, DE = a.d_enc_pad, DD = a.d_dir_pad;
+  const StreamTiles s = stream_carve(smem_raw, n_stages, DE, DD);
+  fwd_init_barriers(s.full, s.empty, n_stages, s.afull, kStreamAStages, 1);
+  __syncthreads();
+  const FwdShape sh{L, a.skip_mask, DE, DD};
+  const int n_tiles = (a.N + kRows - 1) / kRows * (kRows / 64);
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        produce_pass_stream(map_w, map_br, W, sh, true, s.ring, s.full,
+                            s.empty, n_stages, it, nullptr);
+    }
+    return;
+  }
+  const int t = threadIdx.x, lane = t & 31, bar = 1;
+  FwdRing r{smem_u32(s.ring), kStreamStageBytes, s.full, s.empty, n_stages,
+            0, t == 0};
+  ARing ar{smem_u32(s.a), s.a, s.afull, 0};
+  const bf16* w_sigma = a.wpack + trunk_offset(a, L);
+  const float* b = a.bpack;
+  const float* freq_x = a.enc;
+  const float* mask_x = freq_x + a.n_freqs;
+  const float* freq_d = mask_x + a.n_freqs;
+  const float* mask_d = freq_d + a.n_freqs_views;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * 64;
+    // every warp's products of the last tile have read encx and encd
+    named_bar(bar, 128);
+    {  // encode: thread t owns row t % 64 and every other 16-byte chunk
+      const int row = t & 63, g = row0 + row;
+      float xv[3], dv[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        xv[k] = g < a.N ? a.x[(size_t)g * 3 + k] : 0.f;
+        dv[k] = g < a.N ? a.d[(size_t)g * 3 + k] : 0.f;
+      }
+      encode_row(s.encx, xv, row, t >> 6, enc_blocks(DE), a.n_freqs, freq_x,
+                 mask_x);
+      encode_row(s.encd, dv, row, t >> 6, enc_blocks(DD), a.n_freqs_views,
+                 freq_d, mask_d);
+    }
+    fence_proxy_async();
+    named_bar(bar, 128);
+    const StreamBufs io{a.acts ? map_acts : nullptr, map_slab, row0,
+                        (int)blockIdx.x * 64, W, L};
+    float sig[2] = {0.f, 0.f};
+    {
+      float acc[kStreamCols / 2];
+      zero_acc(acc);
+      stream_trunk(acc, r, ar, s, sh, W, b, w_sigma, sig, bar, io);
+      const float b_sigma = b[L * W];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = quad_sum(sig[h]) + b_sigma;
+        const int g = row0 + quad_row + 8 * h;
+        if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + 3] = v;
+      }
+      stream_conn(acc, r, ar, s, W, b + L * W + 1, bar, io);
+    }
+    float rgb[2][3];
+    stream_branch(r, ar, s, io.at(L), W, DD, w_sigma + W, b + L * W + 1,
+                  rgb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if ((lane & 3) == 0 && g < a.N) a.out[(size_t)g * 4 + c] = rgb[h][c];
+    }
+  }
+}
+
+// grid: min(row tiles, the scratch's slots) persistent CTAs; block: one
+// consumer warpgroup + the producer's. map_acts is read only when a.acts
+// is set.
+__global__ void __launch_bounds__(256, 1)
+    mlp_train_fwd_kernel_stream(const __grid_constant__ CUtensorMap map_w,
+                                const __grid_constant__ CUtensorMap map_br,
+                                const __grid_constant__ CUtensorMap map_acts,
+                                const __grid_constant__ CUtensorMap map_slab,
+                                TrainArgs a, int n_stages) {
+  extern __shared__ unsigned char fwd_stream_smem_raw[];
+  fwd_stream_body(&map_w, &map_br, &map_acts, &map_slab, a, n_stages,
+                  fwd_stream_smem_raw);
+}
+
+// The streamed forward on `st`, slab the [slab_ctas * 64, 2 W] bf16
+// scratch.
+cudaError_t launch_fwd_stream(const TrainArgs& a, int trunk_rows,
+                              const bf16* slab, int slab_ctas,
+                              cudaStream_t st) {
+  const int W = a.width, L = a.n_layers;
+  const int n_rows = (a.N + kRows - 1) / kRows * kRows;
+  CUtensorMap map_w, map_br, map_acts, map_slab;
+  if (!encode_stream_maps(&map_w, &map_br, &map_slab, a.wpack, trunk_rows,
+                          W, a.d_dir_pad, slab, slab_ctas))
+    return cudaErrorInvalidValue;
+  if (a.acts == nullptr)
+    map_acts = map_slab;
+  else if (!encode_bf16_map(&map_acts, a.acts, n_rows, L * W, L * W, 64))
+    return cudaErrorInvalidValue;
+  const int n_stages = stream_stages(a.d_enc_pad, a.d_dir_pad, 0);
+  if (n_stages == 0) return cudaErrorInvalidValue;
+  const size_t smem = stream_smem_bytes(a.d_enc_pad, a.d_dir_pad, n_stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_train_fwd_kernel_stream,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  mlp_train_fwd_kernel_stream<<<min(n_rows / 64, slab_ctas), 256, smem,
+                                st>>>(map_w, map_br, map_acts, map_slab, a,
+                                      n_stages);
+  return cudaGetLastError();
+}
+
 // The forward into a.out and (when set) a.acts. The kernel takes W of 64,
-// 128, 192, 256, 384 or 512 and encodings up to kMaxEnc wide (at W = 256
-// up to 6 blocks of 64 together); trunk_rows must be the rows of wpack's
+// 128, 192, 256, 384, 512, 768 or 1024 (the last two with slab, [slab_ctas
+// * 64, 2 W] bf16 scratch) and encodings up to kMaxEnc wide (at W = 256 up
+// to 6 blocks of 64 together); trunk_rows must be the rows of wpack's
 // [rows, W] view (the trunk, w_sigma and w_conn).
-cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, cudaStream_t st) {
+cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, const bf16* slab,
+                       int slab_ctas, cudaStream_t st) {
   const int W = a.width;
   if (a.d_enc_pad > kMaxEnc || a.d_dir_pad > kMaxEnc ||
       (size_t)trunk_rows * W != trunk_offset(a, a.n_layers) + W + W * W)
     return cudaErrorInvalidValue;
   if (a.N == 0) return cudaGetLastError();
+  if (stream_width(W))
+    return launch_fwd_stream(a, trunk_rows, slab, slab_ctas, st);
   switch (W) {
     case 64:
       return launch_fwd_w<64>(a, trunk_rows, st);
@@ -807,6 +947,441 @@ __global__ void __launch_bounds__(2 * R, 1)
   }
 }
 
+// ---- the row pass at the streamed widths 768 and 1024 ------------------
+//
+// mlp_train_bwd_rows_kernel's walk on 64-row CTAs (one warpgroup) with no
+// activation buffer a whole layer wide: every product streams its A
+// operand from device memory in 64 x 64 K tiles beside the weight tiles,
+// both by cp.async through a ring of kStreamRowStages stages, and writes
+// its output 128 columns at a time (through a 64 x 128 tile in shared
+// memory) to where the weight-gradient pass reads it anyway: feat and br
+// to xs (A: the saved h_{L-1}, then feat and encd from xs), each layer's
+// bf16 cotangent to dy (A: the cotangent of the layer above, from dy),
+// ReLU' from the saved activations, each chunk's column sums to the bias
+// partials. The heads' forward products read their weights [K, N] N-major
+// (wgmma's transposed B), the cotangent products [N, K] K-major, as the
+// other widths' row pass. Per row and layer 2 W^2 FLOP against ~4 W bytes
+// of operands through L2, as the streamed forward's.
+constexpr int kStreamRowStages = 3;
+constexpr int kStreamRowLda = 64 + kPad;          // the A tile's row stride
+constexpr int kStreamRowLdc = kBwdPassCols + kPad;
+constexpr int kStreamRowStageBytes =
+    kBwdStageBytes + 64 * kStreamRowLda * (int)sizeof(bf16);
+static_assert(kStreamRowStageBytes % 1024 == 0, "stages stay 1024-aligned");
+
+// (ops/kernels/mlp_train.py::bwd_rows_smem_bytes mirrors it): the ring,
+// the output tile, the rgb head's floats and four warps' column sums of
+// one chunk; whatever the width and encodings.
+size_t stream_rows_smem_bytes() {
+  return 1024 + (size_t)kStreamRowStages * kStreamRowStageBytes +
+         sizeof(bf16) * 64 * kStreamRowLdc +
+         sizeof(float) * (7 * 64 + 4 * kBwdPassCols);
+}
+
+// One operand pair of a streamed row-pass product: A the 64 rows from r0
+// of a bf16 matrix in device memory (row stride lda, from its column at
+// A), B a weight matrix of wpack ([N, K] K-contiguous, or [K, N]
+// N-contiguous with kTransB; row stride ldb), K deep.
+struct RowSeg {
+  const bf16* A;
+  int lda;
+  const bf16* B;
+  int ldb, K;
+};
+
+// KS k16 steps: this warp's A fragments by ldmatrix from the stage's A
+// tile at ap, then the warpgroup's wgmma on the B tile at shared address b
+// (K-major: k16 step kk at b + 32 kk; N-major: 16 K-rows at b + 2048 kk,
+// the two 64-column blocks 8 KB apart); returns when they have completed.
+template <int KS, bool kTransB>
+__device__ __forceinline__ void stream_rows_stage(float (&acc)[64],
+                                                  const bf16* ap,
+                                                  uint32_t b) {
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], ap + 16 * kk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs<kTransB ? 1 : 0>(
+        acc, a[kk],
+        kTransB ? sw128_desc(b + 2048 * kk, kBlock, 1024)
+                : sw128_desc(b + 32 * kk, 16, 1024),
+        1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) fence_regs(a[kk]);
+}
+
+// acc = the sum over segs[0 .. nseg) of A[64, :K] @ B[:K, n0 : n0 + 128)
+// (columns past N: 0), by the CTA's one warpgroup: each stage one 64 x 64
+// A tile and one 128 x 64 B tile (128B-swizzled), by cp.async, kStreamRow-
+// Stages - 1 stages ahead. With mask, rows r0 .. of mask's columns n0 ..
+// n0 + 127 (row stride mask_ld) land in C with the first stage, for the
+// epilogue's ReLU'. Ends past a barrier, the ring free.
+template <bool kTransB>
+__device__ void stream_rows_gemm(float (&acc)[64], const RowSeg* segs,
+                                 int nseg, int n0, int N, int r0,
+                                 unsigned char* ring, const bf16* mask,
+                                 int mask_ld, bf16* C) {
+  constexpr int T = 128;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk0 = (segs[0].K + 63) / 64;
+  const int ns = nk0 + (nseg > 1 ? (segs[1].K + 63) / 64 : 0);
+  auto seg_of = [&](int st, int& k0) -> const RowSeg& {
+    k0 = (st < nk0 ? st : st - nk0) * 64;
+    return st < nk0 ? segs[0] : segs[1];
+  };
+  auto load = [&](int st) {
+    unsigned char* stage = ring + (st % kStreamRowStages) *
+                                      kStreamRowStageBytes;
+    int k0;
+    const RowSeg& sg = seg_of(st, k0);
+    for (int q = tid; q < kBwdPassCols * 8; q += T) {
+      if (!kTransB) {       // row n of B ([N, K]): 64 K in 8 chunks
+        const int n = q >> 3, c = q & 7, k = k0 + 8 * c;
+        const bool ok = n0 + n < N && k < sg.K;
+        cp_async_16(stage + n * 128 + (((c ^ n) & 7) << 4),
+                    ok ? sg.B + (size_t)(n0 + n) * sg.ldb + k : sg.B, ok);
+      } else {              // row k of B ([K, N]): 2 blocks of 64 N
+        const int kr = q >> 4, j = (q >> 3) & 1, c = q & 7;
+        const int n = n0 + 64 * j + 8 * c, k = k0 + kr;
+        const bool ok = n < N && k < sg.K;
+        cp_async_16(stage + j * kBlock + kr * 128 + (((c ^ kr) & 7) << 4),
+                    ok ? sg.B + (size_t)k * sg.ldb + n : sg.B, ok);
+      }
+    }
+    bf16* at = reinterpret_cast<bf16*>(stage + kBwdStageBytes);
+    for (int q = tid; q < 64 * 8; q += T) {
+      const int row = q >> 3, c = q & 7, k = k0 + 8 * c;
+      const bool ok = k < sg.K;
+      cp_async_16(at + row * kStreamRowLda + 8 * c,
+                  ok ? sg.A + (size_t)(r0 + row) * sg.lda + k : sg.A, ok);
+    }
+    if (mask != nullptr && st == 0)
+      for (int e = tid; e < 64 * (kBwdPassCols / 8); e += T) {
+        const int row = e / (kBwdPassCols / 8), c8 = e % (kBwdPassCols / 8);
+        cp_async_16(C + row * kStreamRowLdc + 8 * c8,
+                    mask + (size_t)(r0 + row) * mask_ld + n0 + 8 * c8,
+                    true);
+      }
+  };
+#pragma unroll
+  for (int st = 0; st < kStreamRowStages - 1; ++st) {
+    if (st < ns) load(st);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kc = 0; kc < ns; ++kc) {
+    cp_async_wait<kStreamRowStages - 2>();     // stage kc landed
+    fence_proxy_async();                       // ... visible to wgmma
+    __syncthreads();                           // for every thread's copies
+    if (kc + kStreamRowStages - 1 < ns) load(kc + kStreamRowStages - 1);
+    cp_async_commit();
+    unsigned char* stage = ring + (kc % kStreamRowStages) *
+                                      kStreamRowStageBytes;
+    const uint32_t tile = smem_u32(stage);
+    const bf16* ap = reinterpret_cast<const bf16*>(stage + kBwdStageBytes) +
+                     (16 * warp + (lane & 15)) * kStreamRowLda +
+                     (lane >> 4) * 8;
+    int k0;
+    const RowSeg& sg = seg_of(kc, k0);
+    if (k0 + 64 <= sg.K) {
+      stream_rows_stage<4, kTransB>(acc, ap, tile);
+    } else {                                   // a last tile of 16 .. 48 K
+      for (int kk = 0; k0 + 16 * kk < sg.K; ++kk)
+        stream_rows_stage<1, kTransB>(acc, ap + 16 * kk,
+                                      tile + (kTransB ? 2048 : 32) * kk);
+    }
+  }
+  fence_regs(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A chunk's epilogue into C [64, 128) for output columns n0 ...: the
+// heads' forward (bias, optional ReLU, bf16), or with colpart a cotangent
+// (+ dsig[row] * w_sigma[col] with dsig; 0 where the activation
+// prefetched into C is not > 0 with masked; bf16), each warp's column sums
+// of the f32 values over its 16 rows into colpart[warp][col - n0].
+struct RowChunkOut {
+  const float* bias;
+  bool relu, masked;
+  const float* dsig;
+  const bf16* w_sigma;
+  float* colpart;
+};
+
+__device__ __forceinline__ void stream_rows_epilogue(const RowChunkOut& o,
+                                                     const float (&acc)[64],
+                                                     int n0, bf16* C) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane >> 2);
+  float ds[2] = {0.f, 0.f};
+  if (o.dsig) {
+    ds[0] = o.dsig[row];
+    ds[1] = o.dsig[row + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < kBwdPassCols / 8; ++j) {
+    const int lc = 8 * j + 2 * (lane & 3), col = n0 + lc;
+    float c0 = 0.f, c1 = 0.f;
+    if (o.bias) {
+      c0 = o.bias[col];
+      c1 = o.bias[col + 1];
+    } else if (o.dsig) {
+      c0 = __bfloat162float(o.w_sigma[col]);
+      c1 = __bfloat162float(o.w_sigma[col + 1]);
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (o.bias) {
+        v0 += c0;
+        v1 += c1;
+      } else if (o.dsig) {
+        v0 += ds[h] * c0;
+        v1 += ds[h] * c1;
+      }
+      if (o.relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      __nv_bfloat162* p =
+          reinterpret_cast<__nv_bfloat162*>(C + (row + 8 * h) * kStreamRowLdc + lc);
+      if (o.masked) {
+        const __nv_bfloat162 hv = *p;
+        if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
+        if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
+      }
+      *p = __floats2bfloat162_rn(v0, v1);
+      s0 += v0;
+      s1 += v1;
+    }
+    if (o.colpart) {
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+      }
+      if (lane < 4) {
+        o.colpart[warp * kBwdPassCols + lc] = s0;
+        o.colpart[warp * kBwdPassCols + lc + 1] = s1;
+      }
+    }
+  }
+}
+
+// One product of the row pass, chunk by chunk: out[r0 .., dst_col + n] =
+// the epilogue of (segs @ B) for n < N, through C; with o.colpart, each
+// chunk's column sums (the four warps' in order) to pb[pb_off + n].
+template <bool kTransB>
+__device__ void stream_rows_product(const RowSeg* segs, int nseg, int N,
+                                    int r0, unsigned char* ring, bf16* C,
+                                    const bf16* mask, int mask_ld,
+                                    RowChunkOut o, bf16* out, int out_ld,
+                                    int dst_col, float* pb, int pb_off) {
+  for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
+    float acc[64];
+    stream_rows_gemm<kTransB>(acc, segs, nseg, n0, N, r0, ring, mask,
+                              mask_ld, C);
+    stream_rows_epilogue(o, acc, n0, C);
+    __syncthreads();
+    if (o.colpart)
+      store_colsums<128>(o.colpart, pb, pb_off + n0, kBwdPassCols,
+                         kBwdPassCols, 4);
+    rows_to_global<64>(C, kStreamRowLdc, out, out_ld, r0, dst_col + n0,
+                       kBwdPassCols);
+    __syncthreads();
+  }
+}
+
+// grid: one CTA per 64 rows up to round_up(N, 128); block: 128 threads.
+__global__ void __launch_bounds__(128, 1)
+    mlp_train_bwd_rows_kernel_stream(TrainArgs a) {
+  constexpr int R = 64, T = 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* C = reinterpret_cast<bf16*>(ring + kStreamRowStages *
+                                               kStreamRowStageBytes);
+  float* rgb = reinterpret_cast<float*>(C + R * kStreamRowLdc);
+  float* drgb = rgb + 3 * R;
+  float* dsig = drgb + 3 * R;
+  float* colpart = dsig + R;                       // [4][kBwdPassCols]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int W = a.width, Wh = W / 2, L = a.n_layers;
+  const int DE = a.d_enc_pad, DD = a.d_dir_pad;
+  const int XW = DE + DD + W + Wh, DYW = L * W + W + Wh + 16, LA = L * W;
+  const int NB = L * W + 1 + W + Wh + 3;
+  const int off_sigma = L * W, off_conn = L * W + 1;
+  const int off_branch = off_conn + W, off_rgb = off_branch + Wh;
+  const int dy_conn = L * W, dy_branch = dy_conn + W;
+  const int dy_sigma = dy_branch + Wh, dy_rgb = dy_sigma + 8;
+  const int x_feat = DE + DD, x_br = x_feat + W;
+  const int r0 = blockIdx.x * R;
+  float* pb = a.pbias + (size_t)blockIdx.x * NB;
+
+  {  // the encodings straight to xs (the points and directions staged in
+     // the ring, which no product uses yet)
+    float* xin = reinterpret_cast<float*>(ring);
+    float* din = xin + 3 * R;
+    for (int e = tid; e < 3 * R; e += T) {
+      const bool in = r0 + e / 3 < a.N;
+      xin[e] = in ? a.x[(size_t)r0 * 3 + e] : 0.f;
+      din[e] = in ? a.d[(size_t)r0 * 3 + e] : 0.f;
+    }
+    for (int e = tid; e < 3 * R; e += T) rgb[e] = 0.f;
+    __syncthreads();
+    const float* freq_x = a.enc;
+    const float* mask_x = freq_x + a.n_freqs;
+    const float* freq_d = mask_x + a.n_freqs;
+    const float* mask_d = freq_d + a.n_freqs_views;
+    for (int e = tid; e < R * DE; e += T) {
+      const int row = e / DE, col = e - row * DE;
+      a.xs[(size_t)(r0 + row) * XW + col] = __float2bfloat16_rn(
+          encode_lane(xin + 3 * row, col, a.n_freqs, freq_x, mask_x));
+    }
+    for (int e = tid; e < R * DD; e += T) {
+      const int row = e / DD, col = e - row * DD;
+      a.xs[(size_t)(r0 + row) * XW + DE + col] = __float2bfloat16_rn(
+          encode_lane(din + 3 * row, col, a.n_freqs_views, freq_d, mask_d));
+    }
+    __syncthreads();
+  }
+
+  // feat = bf16(h_{L-1} @ w_conn + b_conn) to xs
+  const bf16* w_conn = a.wpack + trunk_offset(a, L) + W;
+  const bf16* w_bh = w_conn + (size_t)W * W;       // [W, Wh]
+  const bf16* w_bd = w_bh + (size_t)W * Wh;        // [DD, Wh]
+  const bf16* w_rgb = w_bd + DD * Wh;              // [Wh, 3]
+  const float* b_conn = a.bpack + L * W + 1;
+  {
+    const RowSeg seg[1] = {{a.acts + (L - 1) * W, LA, w_conn, W, W}};
+    stream_rows_product<true>(seg, 1, W, r0, ring, C, nullptr, 0,
+                              RowChunkOut{b_conn, false, false, nullptr,
+                                          nullptr, nullptr},
+                              a.xs, XW, x_feat, nullptr, 0);
+  }
+  // br = bf16(relu(feat @ w_branch_h + encd @ w_branch_d + b_branch)) to
+  // xs, each chunk's rgb partial dots summed per row in order
+  for (int n0 = 0; n0 < Wh; n0 += kBwdPassCols) {
+    const RowSeg segs[2] = {{a.xs + x_feat, XW, w_bh, Wh, W},
+                            {a.xs + DE, XW, w_bd, Wh, DD}};
+    float acc[64];
+    stream_rows_gemm<true>(acc, segs, 2, n0, Wh, r0, ring, nullptr, 0, C);
+    stream_rows_epilogue(RowChunkOut{b_conn + W, true, false, nullptr,
+                                     nullptr, nullptr},
+                         acc, n0, C);
+    __syncthreads();
+    for (int row = warp; row < R; row += T / 32) {
+      const bf16* h = C + row * kStreamRowLdc;
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+      for (int k = lane; k < kBwdPassCols; k += 32) {
+        const float hv = __bfloat162float(h[k]);
+        const bf16* w = w_rgb + 3 * (n0 + k);
+        v0 += hv * __bfloat162float(w[0]);
+        v1 += hv * __bfloat162float(w[1]);
+        v2 += hv * __bfloat162float(w[2]);
+      }
+      v0 = warp_sum(v0);
+      v1 = warp_sum(v1);
+      v2 = warp_sum(v2);
+      if (lane == 0) {
+        rgb[3 * row] += v0;
+        rgb[3 * row + 1] += v1;
+        rgb[3 * row + 2] += v2;
+      }
+    }
+    rows_to_global<R>(C, kStreamRowLdc, a.xs, XW, r0, x_br + n0,
+                      kBwdPassCols);
+    __syncthreads();
+  }
+
+  // rgb head: d rgb_pre = d rgb * r (1 - r); sigma: d sigma as it is
+  const float* b_rgb = b_conn + W + Wh;
+  if (tid < R) {
+    const int g = r0 + tid;
+    for (int c = 0; c < 3; ++c) {
+      const float r = 1.f / (1.f + expf(-(rgb[3 * tid + c] + b_rgb[c])));
+      const float dv = g < a.N ? a.dout[(size_t)g * 4 + c] : 0.f;
+      drgb[3 * tid + c] = dv * r * (1.f - r);
+    }
+    dsig[tid] = g < a.N ? a.dout[(size_t)g * 4 + 3] : 0.f;
+  }
+  __syncthreads();
+  if (warp < 4) {            // b_rgb (3) and b_sigma (1): one warp each
+    float v = 0.f;
+    for (int row = lane; row < R; row += 32)
+      v += warp < 3 ? drgb[3 * row + warp] : dsig[row];
+    v = warp_sum(v);
+    if (lane == 0) pb[warp < 3 ? off_rgb + warp : off_sigma] = v;
+  }
+  __syncthreads();
+  if (tid < R) {             // bf16 cotangents of the two narrow heads
+    bf16* dr = a.dy + (size_t)(r0 + tid) * DYW;
+    for (int c = 0; c < 8; ++c) {
+      const float v = c < 3 ? drgb[3 * tid + c] : 0.f;
+      const bf16 vb = __float2bfloat16_rn(v);
+      dr[dy_rgb + c] = vb;
+      if (c < 3) drgb[3 * tid + c] = __bfloat162float(vb);
+      dr[dy_sigma + c] = __float2bfloat16_rn(c == 0 ? dsig[tid] : 0.f);
+    }
+    dsig[tid] = __bfloat162float(__float2bfloat16_rn(dsig[tid]));
+  }
+  __syncthreads();
+  // branch: d br = (d rgb_b @ w_rgb^T) * (br > 0), one column per thread,
+  // rows in order, br read back from xs
+  for (int j = tid; j < Wh; j += T) {
+    const float w0 = __bfloat162float(w_rgb[3 * j]);
+    const float w1 = __bfloat162float(w_rgb[3 * j + 1]);
+    const float w2 = __bfloat162float(w_rgb[3 * j + 2]);
+    float colsum = 0.f;
+    for (int row = 0; row < R; ++row) {
+      const float* dr = drgb + 3 * row;
+      float v = dr[0] * w0 + dr[1] * w1 + dr[2] * w2;
+      const size_t g = r0 + row;
+      if (!(__bfloat162float(a.xs[g * XW + x_br + j]) > 0.f)) v = 0.f;
+      colsum += v;
+      a.dy[g * DYW + dy_branch + j] = __float2bfloat16_rn(v);
+    }
+    pb[off_branch + j] = colsum;
+  }
+  __syncthreads();
+
+  // conn: d feat = d br_b @ w_branch_h^T (feat has no activation)
+  {
+    const RowSeg seg[1] = {{a.dy + dy_branch, DYW, w_bh, Wh, Wh}};
+    stream_rows_product<false>(seg, 1, W, r0, ring, C, nullptr, 0,
+                               RowChunkOut{nullptr, false, false, nullptr,
+                                           nullptr, colpart},
+                               a.dy, DYW, dy_conn, pb, off_conn);
+  }
+  // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
+  // masked by h_{L-1} > 0
+  {
+    const RowSeg seg[1] = {{a.dy + dy_conn, DYW, w_conn, W, W}};
+    stream_rows_product<false>(
+        seg, 1, W, r0, ring, C, a.acts + (L - 1) * W, LA,
+        RowChunkOut{nullptr, false, true, dsig, a.wpack + trunk_offset(a, L),
+                    colpart},
+        a.dy, DYW, (L - 1) * W, pb, (L - 1) * W);
+  }
+  // trunk: d h_{i-1} = d h_i_b @ W_i^T (the h part at a skip layer)
+  for (int i = L - 1; i >= 1; --i) {
+    const RowSeg seg[1] = {{a.dy + i * W, DYW, a.wpack + trunk_offset(a, i),
+                            W, W}};
+    stream_rows_product<false>(seg, 1, W, r0, ring, C, a.acts + (i - 1) * W,
+                               LA,
+                               RowChunkOut{nullptr, false, true, nullptr,
+                                           nullptr, colpart},
+                               a.dy, DYW, (i - 1) * W, pb, (i - 1) * W);
+  }
+}
+
 void fill_args(TrainArgs& a, const void* x, const void* d, const void* wpack,
                const void* bpack, const void* enc, int n, int n_layers,
                int skip_mask, int width, int n_freqs, int n_freqs_views,
@@ -837,35 +1412,40 @@ void fill_args(TrainArgs& a, const void* x, const void* d, const void* wpack,
 // for a shape the kernels do not take.
 
 // out [n, 4]; acts [round_up(n, 128), n_layers * width] or null; trunk_rows
-// the rows of wpack's [rows, width] view (mlp_train.py::wpack_views).
+// the rows of wpack's [rows, width] view (mlp_train.py::wpack_views); at
+// the streamed widths 768 and 1024 slab [slab_ctas * 64, 2 width] bf16
+// scratch (null elsewhere).
 extern "C" int fsnerf_mlp_train_fwd(
     const void* x, const void* d, const void* wpack, const void* bpack,
-    const void* enc, void* out, void* acts, int n, int n_layers,
-    int skip_mask, int width, int n_freqs, int n_freqs_views, int d_enc_pad,
-    int d_dir_pad, int trunk_rows, void* stream) {
+    const void* enc, void* out, void* acts, void* slab, int slab_ctas, int n,
+    int n_layers, int skip_mask, int width, int n_freqs, int n_freqs_views,
+    int d_enc_pad, int d_dir_pad, int trunk_rows, void* stream) {
   using namespace fsnerf;
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
   a.out = static_cast<float*>(out);
   a.acts = static_cast<bf16*>(acts);
-  return static_cast<int>(
-      launch_fwd(a, trunk_rows, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_fwd(a, trunk_rows,
+                                     static_cast<const bf16*>(slab),
+                                     slab_ctas,
+                                     static_cast<cudaStream_t>(stream)));
 }
 
 // dw [n_w], db [n_b]: bf16-rounded gradients in the wpack / bpack layouts.
 // acts is the forward's stream, or with fwd_out ([n, 4] scratch) the
-// buffer the forward kernel writes it into first (recompute mode); xs, dy,
-// pbias and part are scratch of the shapes documented in TrainArgs and
-// train_common.cuh::dw_gemm_kernel; jobs [n_jobs, 6] and tiles [n_tiles,
-// 3] int32.
+// buffer the forward kernel writes it into first (recompute mode; at 768
+// and 1024 with the forward's slab); xs, dy, pbias and part are scratch of
+// the shapes documented in TrainArgs and train_common.cuh::dw_gemm_kernel;
+// jobs [n_jobs, 6] and tiles [n_tiles, 3] int32.
 extern "C" int fsnerf_mlp_train_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
-    const void* bpack, const void* enc, void* acts, void* fwd_out, void* xs,
-    void* dy, void* pbias, const void* jobs, const void* tiles, int n_tiles,
-    void* part, int split_rows, void* dw, void* db, int n, int n_layers,
-    int skip_mask, int width, int n_freqs, int n_freqs_views, int d_enc_pad,
-    int d_dir_pad, int trunk_rows, void* stream) {
+    const void* bpack, const void* enc, void* acts, void* fwd_out,
+    void* slab, int slab_ctas, void* xs, void* dy, void* pbias,
+    const void* jobs, const void* tiles, int n_tiles, void* part,
+    int split_rows, void* dw, void* db, int n, int n_layers, int skip_mask,
+    int width, int n_freqs, int n_freqs_views, int d_enc_pad, int d_dir_pad,
+    int trunk_rows, void* stream) {
   using namespace fsnerf;
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
@@ -875,7 +1455,8 @@ extern "C" int fsnerf_mlp_train_bwd(
   cudaError_t err;
   if (fwd_out != nullptr) {
     a.out = static_cast<float*>(fwd_out);
-    err = launch_fwd(a, trunk_rows, st);
+    err = launch_fwd(a, trunk_rows, static_cast<const bf16*>(slab),
+                     slab_ctas, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   a.dout = static_cast<const float*>(dout);
@@ -886,9 +1467,12 @@ extern "C" int fsnerf_mlp_train_bwd(
   const int R = bwd_rows(width);
   const int n_blocks = (n + kRows - 1) / kRows * (kRows / R);
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(width, d_dir_pad);
-  const auto rows_kernel = R == kRows ? mlp_train_bwd_rows_kernel<kRows>
-                                      : mlp_train_bwd_rows_kernel<64>;
+  const bool streamed = stream_width(width);
+  const size_t smem =
+      streamed ? stream_rows_smem_bytes() : smem_bytes(width, d_dir_pad);
+  const auto rows_kernel = streamed       ? mlp_train_bwd_rows_kernel_stream
+                           : R == kRows ? mlp_train_bwd_rows_kernel<kRows>
+                                        : mlp_train_bwd_rows_kernel<64>;
   err = cudaFuncSetAttribute(rows_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -27,8 +27,9 @@
 // consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
 // producer warpgroup's TMA weight ring; see the notes above it. At the
 // packed widths 384 and 512 one consumer runs the step's two 64-row halves
-// in turn on the column-split trunk (march_consume_split), with the same
-// skip decision per block x chunk step. The SIREN march at widths 64, 128,
+// in turn on the column-split trunk (march_consume_split), at 768 and 1024
+// on the streamed trunk (nerf_march_kernel_stream), with the same skip
+// decision per block x chunk step. The SIREN march at widths 64, 128,
 // 192 and 256 (siren_march_kernel) is the same shell around the SIREN
 // forward's warp-specialized MLP, and at 384 and 512 the split shell
 // around its column-split MLP (siren_march_consume_split). At 288 and 320,
@@ -740,6 +741,196 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The march at a streamed width (768, 1024): nerf_march_kernel_stream, one
+// consumer warpgroup of 64 rows and the producer's, the CTAs persistent
+// over the ray blocks (block blockIdx.x, then every gridDim.x-th). Each
+// executed block x chunk step runs as march_consume_split's 64-row halves
+// of whole rays, each half through ws_trunk.cuh's streamed trunk,
+// connection and branch (every layer's output through the CTA's scratch
+// slot and back from L2), with the same skip decision per step, so the
+// early exit's blocking (and the plain version's) is every other width's.
+// The producer runs ahead through the next executed half's weight stages
+// as at the other widths; after the last block the consumer releases it
+// as march_finish does.
+__device__ __forceinline__ void march_consume_stream(
+    const NerfMarchArgs& m, int W, int n_blocks, FwdRing& r, ARing& ar,
+    const StreamTiles& s, const CUtensorMap* map_slab, volatile int* done) {
+  const Args& a = m.io;
+  const int t = threadIdx.x, lane = t & 31, ct = t;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int n_chunks = a.K / cs, n_halves = (nrows + 63) / 64;
+  const int DE = m.d_enc_pad, DD = m.d_dir_pad, L = m.n_layers;
+  const int bar = 1;                                // the consumer's barrier
+  const float* freq_x = m.enc;
+  const float* mask_x = freq_x + m.n_freqs;
+  const float* freq_d = mask_x + m.n_freqs;
+  const float* mask_d = freq_d + m.n_freqs_views;
+  const int row = t & 63;
+  const bool in0 = row < nrows, in1 = 64 + row < nrows;
+  const FwdShape sh{L, m.skip_mask, DE, DD};
+  const bf16* w_sigma =
+      m.wpack + (size_t)trunk_rows_of(L, m.skip_mask, W, DE) * W;
+  const StreamBufs io{nullptr, map_slab, 0, (int)blockIdx.x * 64, W, L};
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  for (int blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+    const int ray0 = blk * bR;
+    auto sample = [&](int gr, int c) {
+      return (size_t)(ray0 + gr / cs) * a.K + gr % cs + (size_t)c * cs;
+    };
+    RayAcc ray;              // the compositing of ray ct (ct < bR)
+    int executed = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      // exact early exit over the whole chunk step; the first barrier also
+      // ends the last half's compositing reads of encx
+      const bool live0 = in0 && a.mask[sample(row, c)] > 0.f;
+      const bool live1 = in1 && a.mask[sample(64 + row, c)] > 0.f;
+      const bool alive =
+          named_bar_or(kMarchBar, 128, ct < bR && ray.od < a.thresh);
+      const bool valid = named_bar_or(kMarchBar, 128, live0 || live1);
+      if (!(alive && valid)) continue;
+      ++executed;
+      for (int h = 0; h < n_halves; ++h) {
+        const int gr = 64 * h + row;
+        const bool in = h == 0 ? in0 : in1;
+        // the last half's compositing has read encx
+        if (h > 0) named_bar(bar, 128);
+        {
+          float xv[3], dv[3];
+          const size_t gi = sample(gr, c);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            xv[k] = in ? a.x[gi * 3 + k] : 0.f;
+            dv[k] = in ? a.dirs[(size_t)(ray0 + gr / cs) * 3 + k] : 0.f;
+          }
+          encode_row(s.encx, xv, row, t >> 6, enc_blocks(DE), m.n_freqs,
+                     freq_x, mask_x);
+          encode_row(s.encd, dv, row, t >> 6, enc_blocks(DD),
+                     m.n_freqs_views, freq_d, mask_d);
+        }
+        fence_proxy_async();
+        named_bar(bar, 128);
+        {
+          float sig[2] = {0.f, 0.f};
+          float acc[kStreamCols / 2];
+          zero_acc(acc);
+          stream_trunk(acc, r, ar, s, sh, W, m.bpack, w_sigma, sig, bar, io);
+          // the trunk's wgmma have retired in every warp: encx is free for
+          // each row's compositing inputs
+          const float b_sigma = m.bpack[L * W];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float v =
+                density_activate(quad_sum(sig[k]) + b_sigma, m.density_act);
+            if ((lane & 3) == 0)
+              reinterpret_cast<float*>(s.encx + (quad_row + 8 * k) *
+                                                    kMarchRowBytes)[0] = v;
+          }
+          stream_conn(acc, r, ar, s, W, m.bpack + L * W + 1, bar, io);
+        }
+        float rgb[2][3];
+        stream_branch(r, ar, s, io.at(L), W, DD, w_sigma + W,
+                      m.bpack + L * W + 1, rgb);
+        if (t < 64) {
+          float* q = reinterpret_cast<float*>(s.encx + row * kMarchRowBytes);
+          const size_t gi = sample(gr, c);
+          q[4] = in ? a.t[gi] : 0.f;
+          q[5] = in ? a.deltas[gi] : 0.f;
+          q[6] = in ? a.mask[gi] : 0.f;
+        }
+        if ((lane & 3) == 0) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float* q = reinterpret_cast<float*>(
+                s.encx + (quad_row + 8 * k) * kMarchRowBytes);
+            q[1] = rgb[k][0];
+            q[2] = rgb[k][1];
+            q[3] = rgb[k][2];
+          }
+        }
+        named_bar(bar, 128);
+        // ray ct's rows start at row ct * cs of the step: in half h
+        if (ct < bR && ct * cs / 64 == h)
+          composite_chunk(s.encx, 0, ct - 64 * h / cs, cs, ray);
+      }
+    }
+    if (ct < bR) {
+      float* out = a.stats + (size_t)(ray0 + ct) * 8;
+      out[0] = ray.r0;
+      out[1] = ray.r1;
+      out[2] = ray.r2;
+      out[3] = ray.opa;
+      out[4] = ray.dep;
+      out[5] = expf(-ray.od);
+      out[6] = 0.f;
+      out[7] = 0.f;
+    }
+    if (ct == 0) a.steps[blk] = executed;
+  }
+  if (r.lead) {              // release the producer, as march_finish
+    for (int k = r.it; k < r.it + r.n_stages; ++k)
+      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
+    *done = 1;
+    mbar_arrive(&r.empty[r.it % r.n_stages]);
+  }
+}
+
+// grid: min(n_blocks, the scratch's slots) persistent CTAs over the
+// n_blocks ray blocks; block: one consumer warpgroup + the producer's; W =
+// 768 or 1024.
+__global__ void __launch_bounds__(256, 1)
+    nerf_march_kernel_stream(const __grid_constant__ CUtensorMap map_w,
+                             const __grid_constant__ CUtensorMap map_br,
+                             const __grid_constant__ CUtensorMap map_slab,
+                             NerfMarchArgs m, int W, int n_blocks,
+                             int n_stages) {
+  extern __shared__ unsigned char march_stream_smem_raw[];
+  const StreamTiles s =
+      stream_carve(march_stream_smem_raw, n_stages, m.d_enc_pad, m.d_dir_pad);
+  volatile int* done = reinterpret_cast<volatile int*>(s.extra);
+  fwd_init_barriers(s.full, s.empty, n_stages, s.afull, kStreamAStages, 1);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      const FwdShape sh{m.n_layers, m.skip_mask, m.d_enc_pad, m.d_dir_pad};
+      int it = 0;
+      while (produce_pass_stream(&map_w, &map_br, W, sh, true, s.ring, s.full,
+                                 s.empty, n_stages, it, done)) {
+      }
+    }
+    return;
+  }
+  FwdRing r{smem_u32(s.ring), kStreamStageBytes, s.full, s.empty, n_stages,
+            0, threadIdx.x == 0};
+  ARing ar{smem_u32(s.a), s.a, s.afull, 0};
+  march_consume_stream(m, W, n_blocks, r, ar, s, &map_slab, done);
+}
+
+// nerf_march_kernel_stream at W (768, 1024) on `st`, slab the [slab_ctas *
+// 64, 2 W] bf16 scratch.
+int launch_nerf_march_stream(const NerfMarchArgs& m, int W, int trunk_rows,
+                             int n_rays, const bf16* slab, int slab_ctas,
+                             cudaStream_t st) {
+  CUtensorMap map_w, map_br, map_slab;
+  if (!encode_stream_maps(&map_w, &map_br, &map_slab, m.wpack, trunk_rows, W,
+                          m.d_dir_pad, slab, slab_ctas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t extra = 16;                         // the done flag
+  const int n_stages = stream_stages(m.d_enc_pad, m.d_dir_pad, extra);
+  if (n_stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      stream_smem_bytes(m.d_enc_pad, m.d_dir_pad, n_stages) + extra;
+  cudaError_t err = cudaFuncSetAttribute(
+      nerf_march_kernel_stream, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = n_rays / m.io.block_rows;
+  if (n_blocks > 0)
+    nerf_march_kernel_stream<<<min(n_blocks, slab_ctas), 256, smem, st>>>(
+        map_w, map_br, map_slab, m, W, n_blocks, n_stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- the SIREN march (siren_march_kernel) ------------------------------
 //
 // nerf_march_kernel's shell (the skip decision on named barriers, the
@@ -1107,19 +1298,20 @@ void fill_args(Args& a, const void* x, const void* dirs, const void* t,
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
 // a shape the kernel does not take.
 
-// The NeRF march: width 64, 128, 192, 256, 384 or 512, encodings up to
-// kMaxEnc (256) wide (at width 256 up to 6 blocks of 64 together),
-// block_rows * chunk_s <= 128 (at 384 and 512 chunk_s dividing 64 when the
-// step has more than 64 rows); trunk_rows the rows of wpack's [rows,
-// width] view (the trunk, w_sigma and w_conn: ops/kernels/mlp_train.py::
-// TrainLayout.wpack_views).
+// The NeRF march: width 64, 128, 192, 256, 384, 512, 768 or 1024 (the
+// last two with slab, [slab_ctas * 64, 2 width] bf16 scratch; null
+// elsewhere), encodings up to kMaxEnc (256) wide (at width 256 up to 6
+// blocks of 64 together), block_rows * chunk_s <= 128 (above 256 chunk_s
+// dividing 64 when the step has more than 64 rows); trunk_rows the rows of
+// wpack's [rows, width] view (the trunk, w_sigma and w_conn:
+// ops/kernels/mlp_train.py::TrainLayout.wpack_views).
 extern "C" int fsnerf_ray_march(
     const void* x, const void* dirs, const void* t, const void* deltas,
     const void* mask, const void* wpack, const void* bpack, const void* enc,
-    void* stats, void* steps, int n_rays, int K, int block_rows, int chunk_s,
-    int n_layers, int skip_mask, int width, int n_freqs, int n_freqs_views,
-    int d_enc_pad, int d_dir_pad, int density_act, int trunk_rows,
-    float thresh, void* stream) {
+    void* stats, void* steps, void* slab, int slab_ctas, int n_rays, int K,
+    int block_rows, int chunk_s, int n_layers, int skip_mask, int width,
+    int n_freqs, int n_freqs_views, int d_enc_pad, int d_dir_pad,
+    int density_act, int trunk_rows, float thresh, void* stream) {
   using namespace fsnerf;
   NerfMarchArgs m;
   fill_args(m.io, x, dirs, t, deltas, mask, stats, steps, K, block_rows,
@@ -1155,6 +1347,11 @@ extern "C" int fsnerf_ray_march(
       return launch_nerf_march_w<384>(m, trunk_rows, n_rays, st);
     case 512:
       return launch_nerf_march_w<512>(m, trunk_rows, n_rays, st);
+    case 768:
+    case 1024:
+      return launch_nerf_march_stream(m, width, trunk_rows, n_rays,
+                                      static_cast<const bf16*>(slab),
+                                      slab_ctas, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

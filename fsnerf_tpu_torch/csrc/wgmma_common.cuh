@@ -127,6 +127,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Orders this thread's completed bulk stores to device memory (TMA, async
+// proxy) before the async-proxy loads it issues after: a layer's output
+// read back as the next layer's operand (ws_trunk.cuh's streamed trunk).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // A barrier of `count` threads (a multiple of 32) on hardware barrier id
 // (1-15; 0 is __syncthreads'): one warpgroup's, leaving the others running.
 __device__ __forceinline__ void named_bar(int id, int count) {
@@ -392,7 +399,8 @@ __device__ __forceinline__ void wgmma_kn(float (&d)[N], uint64_t da,
 }
 
 // d[64 x 128] (+)= A (registers, the ldmatrix fragments of this warp's 16
-// rows) @ B (shared, K-major, 128B-swizzled).
+// rows) @ B (shared, 128B-swizzled: K-major, or N-major with kTransB 1).
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int accumulate) {
@@ -406,7 +414,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -421,7 +429,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
+        "r"(accumulate), "n"(kTransB));
 }
 
 // ---- host: tensor maps --------------------------------------------------

@@ -24,9 +24,13 @@
 //
 // At the packed widths 384 and 512 a 64 x W f32 accumulator (W / 2
 // registers a thread) no longer fits beside the epilogue, so the NeRF and
-// SIREN shells run the column-split trunk at the end of this file instead:
-// one consumer warpgroup of 64 rows per CTA, each layer's output computed
-// as two column halves of W / 2 into one W / 2 accumulator (FwdTraits).
+// SIREN shells run the column-split trunk below instead: one consumer
+// warpgroup of 64 rows per CTA, each layer's output computed as two column
+// halves of W / 2 into one W / 2 accumulator (FwdTraits). At 768 and 1024
+// not even one layer's 64-row input and output tiles fit beside a weight
+// ring, and the NeRF shells run the streamed trunk at the end of this
+// file: each layer's output goes to device memory and comes back from L2
+// as the next layer's operand.
 //
 // Numerics of the NeRF, as the TPU kernels: bf16 operands, f32
 // accumulation, bf16-rounded biases added in f32, trunk activations ReLU
@@ -711,6 +715,369 @@ __device__ __forceinline__ void fwd_branch_split(FwdRing& r,
   fwd_product(bacc, smem_u32(t.tile(t.in1)), W / 2, false, r);
   fwd_product(bacc, encd, DD, false, r);
   branch_rgb<W, NB>(bacc, DD, w_conn, b_conn, rgb);
+}
+
+// ---- the streamed trunk (packed widths 768 and 1024) -------------------
+//
+// One consumer warpgroup of 64 rows per CTA and a producer warpgroup, the
+// CTAs persistent over the row tiles (the march's ray blocks), one
+// instance for both widths (W and its loop counts at run time). Each layer
+// (and the connection) runs as W / kStreamCols output column chunks, one
+// after the other, into one m64n256 accumulator (128 registers a thread,
+// the whole-width consumer's at W = 256), so fwd_epilogue applies; each
+// chunk's bf16 tile is stored by TMA to the layer's output in device
+// memory (StreamBufs: the CTA's 64 rows of a [ctas * 64, 2 W] scratch,
+// layer j in columns (j % 2) W, or in saved mode each trunk layer straight
+// to the acts stream). The next layer's A operand comes back from there in
+// 64-column K tiles by TMA, through a ring of kStreamAStages tiles that the
+// consumer's lead thread keeps kStreamAStages - 1 tiles ahead (every chunk
+// rereads the same K tiles, so the lead runs ahead across chunks), issuing
+// a layer's first loads only once its input's stores have completed
+// (cp.async.bulk.wait_group 0, then a proxy fence). The weights come
+// through the producer's ring as at every width, in stages of 64 K-rows x
+// kStreamCols columns (produce_pass_stream), read by the one consumer. The
+// first layer's and the skip layer's encoding products read encx in shared
+// memory, the branch's direction product encd; the sigma head's partial
+// dots add up over the last layer's chunks in two registers, as in
+// fwd_trunk_split; the branch (N = W / 2) runs as W / 256 chunks of
+// kStreamBranchCols columns whose epilogues add up the rgb head's partial
+// dots. Per row and layer 2 W^2 FLOP against 4 W bytes through L2 (W / 2
+// FLOP a byte: 384 at 768, 512 at 1024, past the H100's bf16 ridge of
+// ~295 FLOP a byte of HBM), so sending the activations out and back keeps
+// the layers compute-bound. The bf16 values read back are the ones the
+// in-register path rounds, so the numerics are the other widths'.
+
+constexpr int kStreamCols = 256;        // a trunk / connection chunk
+constexpr int kStreamBranchCols = 128;  // a branch chunk
+constexpr int kStreamAStages = 4;       // the A ring's 64 x 64 tiles
+constexpr int kStreamStageBytes = kStreamCols * 128;
+
+__host__ __device__ constexpr bool stream_width(int W) {
+  return W == 768 || W == 1024;
+}
+
+// (ops/kernels/render.py::shell_smem_bytes mirrors it): the weight ring,
+// the A ring, the output chunk's tile, encx and encd, the ring's and the A
+// ring's barriers.
+size_t stream_smem_bytes(int d_enc_pad, int d_dir_pad, int n_stages) {
+  return 1024 + (size_t)n_stages * kStreamStageBytes +
+         (size_t)(kStreamAStages + kStreamCols / 64 + enc_blocks(d_enc_pad) +
+                  enc_blocks(d_dir_pad)) *
+             kBlock +
+         (2 * n_stages + kStreamAStages) * sizeof(uint64_t);
+}
+
+// The deepest weight ring up to kFwdMaxStages that fits with `extra` bytes
+// past the barriers, or 0 if a ring of 2 does not.
+int stream_stages(int d_enc_pad, int d_dir_pad, size_t extra) {
+  int n = kFwdMaxStages;
+  while (n >= 2 &&
+         stream_smem_bytes(d_enc_pad, d_dir_pad, n) + extra > kMaxSmem)
+    --n;
+  return n < 2 ? 0 : n;
+}
+
+// A streamed shell's shared memory, from a 1024-byte boundary.
+struct StreamTiles {
+  unsigned char *ring, *a, *out, *encx, *encd;
+  uint64_t *full, *empty, *afull, *extra;
+};
+
+__device__ __forceinline__ StreamTiles stream_carve(unsigned char* raw,
+                                                    int n_stages, int de,
+                                                    int dd) {
+  StreamTiles s;
+  s.ring = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  s.a = s.ring + n_stages * kStreamStageBytes;
+  s.out = s.a + kStreamAStages * kBlock;
+  s.encx = s.out + kStreamCols * 128;
+  s.encd = s.encx + enc_blocks(de) * kBlock;
+  s.full = reinterpret_cast<uint64_t*>(s.encd + enc_blocks(dd) * kBlock);
+  s.empty = s.full + n_stages;
+  s.afull = s.empty + n_stages;
+  s.extra = s.afull + kStreamAStages;
+  return s;
+}
+
+// The producer's pass at a streamed width W: per layer and output chunk,
+// the K tiles of that chunk's columns (the h part, then at a skip layer
+// the encoding part), then w_conn's chunks and (with `heads`) the branch's
+// chunks (w_branch_h, then w_branch_d), in the consumer's order. `it` and
+// `done` as feed_stages'.
+__device__ __forceinline__ bool produce_pass_stream(
+    const CUtensorMap* map_w, const CUtensorMap* map_br, int W,
+    const FwdShape& sh, bool heads, unsigned char* ring, uint64_t* full,
+    uint64_t* empty, int n_stages, int& it, const volatile int* done) {
+  auto feed = [&](const CUtensorMap* map, int row, int k, int cols,
+                  int col0) {
+    return feed_stages<kStreamCols>(map, row, k, cols / 64, ring, full,
+                                    empty, n_stages, it, done, col0);
+  };
+  const int DE = sh.d_enc_pad, nc = W / kStreamCols;
+  for (int c = 0; c < nc; ++c)                           // W_0
+    if (!feed(map_w, 0, DE, kStreamCols, c * kStreamCols)) return false;
+  int row = DE;
+  for (int i = 1; i < sh.n_layers; ++i) {
+    const bool skip = (sh.skip_mask >> i) & 1;
+    for (int c = 0; c < nc; ++c) {
+      if (!feed(map_w, row, W, kStreamCols, c * kStreamCols))  // W_i (h)
+        return false;
+      if (skip && !feed(map_w, row + W, DE, kStreamCols, c * kStreamCols))
+        return false;                                    // its encoding part
+    }
+    row += W + (skip ? DE : 0);
+  }
+  if (!heads) return true;
+  for (int c = 0; c < nc; ++c)                           // w_conn
+    if (!feed(map_w, row + 1, W, kStreamCols, c * kStreamCols)) return false;
+  for (int c = 0; c < W / 2 / kStreamBranchCols; ++c) {  // the branch
+    const int col0 = c * kStreamBranchCols;
+    if (!feed(map_br, 0, W, kStreamBranchCols, col0) ||
+        !feed(map_br, W, sh.d_dir_pad, kStreamBranchCols, col0))
+      return false;
+  }
+  return true;
+}
+
+// Where a layer's output lives in device memory: a tensor map and the
+// column and row of the CTA's first element.
+struct StreamAt {
+  const CUtensorMap* map;
+  int col, row;
+};
+
+// The outputs of a pass over one row tile: layer j (the trunk's 0 .. L - 1,
+// then feat as L) in the CTA's scratch rows slab_row .. + 63, columns (j %
+// 2) W; with acts (saved mode), the trunk's layers in the acts stream's
+// rows acts_row .., columns j W instead.
+struct StreamBufs {
+  const CUtensorMap* acts;
+  const CUtensorMap* slab;
+  int acts_row, slab_row, W, L;
+
+  __device__ __forceinline__ StreamAt at(int j) const {
+    if (acts != nullptr && j < L) return {acts, j * W, acts_row};
+    return {slab, (j & 1) * W, slab_row};
+  }
+};
+
+// The consumer's A ring: shared address and pointer of tile 0, the
+// barriers, and the tiles it has taken.
+struct ARing {
+  uint32_t base;
+  unsigned char* tiles;
+  uint64_t* full;
+  int it;
+};
+
+// One product's streamed operand: the K tiles of src (nk of them), read
+// again by each of its chunks; `first` is the A ring's count at its first
+// tile.
+struct AStream {
+  StreamAt src;
+  int nk, total, first;
+};
+
+// The lead's load of tile q of the operand's sequence (chunk q / nk, K
+// tile q % nk) into its A ring slot.
+__device__ __forceinline__ void a_issue(const ARing& ar, const AStream& st,
+                                        int q) {
+  const int slot = (st.first + q) % kStreamAStages;
+  mbar_arrive_expect_tx(&ar.full[slot], kBlock);
+  tma_load_2d(ar.tiles + slot * kBlock, st.src.map, &ar.full[slot],
+              st.src.col + 64 * (q % st.nk), st.src.row);
+}
+
+// Starts a product whose A is src[64, :K] (K 0: none) over n_chunks
+// output chunks: the lead fills the A ring's first tiles. The caller has
+// flushed src's stores (stream_flush).
+__device__ __forceinline__ AStream stream_begin(const ARing& ar,
+                                                const StreamAt& src, int K,
+                                                int n_chunks, bool lead) {
+  const AStream st{src, K / 64, n_chunks * (K / 64), ar.it};
+  if (lead)
+    for (int q = 0; q < min(kStreamAStages - 1, st.total); ++q)
+      a_issue(ar, st, q);
+  return st;
+}
+
+// One output chunk: acc = A[64, :K] @ B (the ring's next nk stages; A
+// tiles from the A ring, which the lead refills kStreamAStages - 1 ahead
+// as each tile's wgmma retire), then with DE acc += enc[64, :DE] @ B_enc
+// (fwd_product, from shared memory; alone when there is no streamed A).
+// Each weight stage goes back to the producer once its wgmma have
+// completed; returns with all of them complete.
+template <int NACC>
+__device__ __forceinline__ void stream_chunk(float (&acc)[NACC], FwdRing& r,
+                                             ARing& ar, const AStream& st,
+                                             uint32_t enc, int DE) {
+  for (int kc = 0; kc < st.nk; ++kc, ++ar.it, ++r.it) {
+    const int s = r.it % r.n_stages, as = ar.it % kStreamAStages;
+    mbar_wait(&r.full[s], (r.it / r.n_stages) & 1);
+    mbar_wait(&ar.full[as], (ar.it / kStreamAStages) & 1);
+    const uint32_t a = ar.base + as * kBlock;
+    const uint32_t b = r.base + s * r.stage_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_kn(acc, sw128_desc(a + 32 * kk, 16, 1024),
+               sw128_desc(b + 2048 * kk, kBlock, 1024),
+               kc == 0 && kk == 0 ? 0 : 1);
+    wgmma_commit();
+    wgmma_wait<1>();          // the tiles before this one have been read
+    if (r.lead) {
+      if (kc > 0) mbar_arrive(&r.empty[(r.it - 1) % r.n_stages]);
+      const int q = ar.it - st.first + kStreamAStages - 1;
+      if (q < st.total) a_issue(ar, st, q);
+    }
+  }
+  if (st.nk > 0) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (r.lead) mbar_arrive(&r.empty[(r.it - 1) % r.n_stages]);
+  }
+  if (DE > 0) fwd_product(acc, enc, DE, st.nk == 0, r);
+}
+
+// A trunk or connection chunk's epilogue: the warpgroup waits for the last
+// store to have read the output tile, writes bf16(act(acc + bias)) there
+// (with w_sigma, sig += this thread's partial sigma dots), and the lead
+// stores it by TMA to dst's columns col ...
+__device__ __forceinline__ void stream_store_chunk(
+    const float (&acc)[kStreamCols / 2], unsigned char* out,
+    const float* bias, bool relu, const bf16* w_sigma, float (&sig)[2],
+    int bar, bool lead, const StreamAt& dst, int col) {
+  if (lead) bulk_wait_read<0>();
+  named_bar(bar, 128);
+  fwd_epilogue(acc, bias, ReluAct{relu}, out, w_sigma, sig);
+  fence_proxy_async();
+  named_bar(bar, 128);
+  if (lead) {
+    for (int q = 0; q < kStreamCols / 64; ++q)
+      tma_store_2d(dst.map, out + q * kBlock, col + 64 * q, dst.row);
+    bulk_commit();
+  }
+}
+
+// The lead waits for its stores to be complete in device memory, for the
+// next product's loads of them.
+__device__ __forceinline__ void stream_flush(bool lead) {
+  if (lead) {
+    bulk_wait<0>();
+    fence_proxy_async_global();
+  }
+}
+
+// The trunk over the CTA's 64 rows at width W, its encodings at s.encx:
+// layer i's output to io.at(i); on the last layer sig[h] gets this
+// thread's partial sigma dots (w_sigma past the trunk in wpack).
+__device__ __forceinline__ void stream_trunk(float (&acc)[kStreamCols / 2],
+                                             FwdRing& r, ARing& ar,
+                                             const StreamTiles& s,
+                                             const FwdShape& sh, int W,
+                                             const float* b,
+                                             const bf16* w_sigma,
+                                             float (&sig)[2], int bar,
+                                             const StreamBufs& io) {
+  const int L = sh.n_layers, DE = sh.d_enc_pad, nc = W / kStreamCols;
+  const uint32_t encx = smem_u32(s.encx);
+  for (int i = 0; i < L; ++i) {
+    const bool enc = i == 0 || ((sh.skip_mask >> i) & 1);
+    const AStream st =
+        stream_begin(ar, i == 0 ? io.at(0) : io.at(i - 1), i == 0 ? 0 : W,
+                     nc, r.lead);
+    const StreamAt dst = io.at(i);
+    for (int c = 0; c < nc; ++c) {
+      stream_chunk(acc, r, ar, st, encx, enc ? DE : 0);
+      stream_store_chunk(acc, s.out, b + i * W + c * kStreamCols, true,
+                         i == L - 1 ? w_sigma + c * kStreamCols : nullptr,
+                         sig, bar, r.lead, dst, dst.col + c * kStreamCols);
+    }
+    stream_flush(r.lead);
+  }
+}
+
+// The connection: feat = bf16(h_{L-1} @ w_conn + b_conn) to io.at(L).
+// b_conn points past b_sigma.
+__device__ __forceinline__ void stream_conn(float (&acc)[kStreamCols / 2],
+                                            FwdRing& r, ARing& ar,
+                                            const StreamTiles& s, int W,
+                                            const float* b_conn, int bar,
+                                            const StreamBufs& io) {
+  float unused[2] = {0.f, 0.f};
+  const int nc = W / kStreamCols;
+  const AStream st = stream_begin(ar, io.at(io.L - 1), W, nc, r.lead);
+  const StreamAt dst = io.at(io.L);
+  for (int c = 0; c < nc; ++c) {
+    stream_chunk(acc, r, ar, st, 0, 0);
+    stream_store_chunk(acc, s.out, b_conn + c * kStreamCols, false, nullptr,
+                       unused, bar, r.lead, dst, dst.col + c * kStreamCols);
+  }
+  stream_flush(r.lead);
+}
+
+// The branch over feat (at `feat`) and encd: br = bf16(relu(feat @
+// w_branch_h + encd @ w_branch_d + b_branch)) chunk by chunk in registers,
+// each chunk's rgb partial dots summed into rgb; then rgb[h][c] =
+// sigmoid(rgb + b_rgb) of rows 16 warp + lane / 4 + 8 h, in every lane of
+// the quad. w_conn and b_conn point past w_sigma and b_sigma.
+__device__ __forceinline__ void stream_branch(FwdRing& r, ARing& ar,
+                                              const StreamTiles& s,
+                                              const StreamAt& feat, int W,
+                                              int DD, const bf16* w_conn,
+                                              const float* b_conn,
+                                              float (&rgb)[2][3]) {
+  constexpr int NC = kStreamBranchCols;
+  const int lane = threadIdx.x & 31, Wh = W / 2, nb = Wh / NC;
+  const float* b_branch = b_conn + W;
+  const bf16* w_rgb = w_conn + (size_t)W * W + (size_t)W * Wh + DD * Wh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[h][c] = 0.f;
+  float bacc[NC / 2];
+  zero_acc(bacc);
+  const AStream st = stream_begin(ar, feat, W, nb, r.lead);
+  for (int n = 0; n < nb; ++n) {
+    stream_chunk(bacc, r, ar, st, smem_u32(s.encd), DD);
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int col = n * NC + 8 * j + 2 * (lane & 3);
+      const float b0 = b_branch[col], b1 = b_branch[col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(
+            fmaxf(bacc[4 * j + 2 * h] + b0, 0.f),
+            fmaxf(bacc[4 * j + 2 * h + 1] + b1, 0.f));
+        const float v0 = __low2float(p), v1 = __high2float(p);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          rgb[h][c] += v0 * __bfloat162float(w_rgb[3 * col + c]) +
+                       v1 * __bfloat162float(w_rgb[3 * col + 3 + c]);
+      }
+    }
+  }
+  const float* b_rgb = b_branch + Wh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rgb[h][c] = 1.f / (1.f + expf(-(quad_sum(rgb[h][c]) + b_rgb[c])));
+}
+
+// The weight maps of wpack at a streamed width: [trunk_rows, W] and the
+// branch's [W + DD, W / 2] after it (null map_br: none); the scratch
+// [ctas * 64, 2 W]. False if one cannot be encoded.
+bool encode_stream_maps(CUtensorMap* map_w, CUtensorMap* map_br,
+                        CUtensorMap* map_slab, const bf16* wpack,
+                        int trunk_rows, int W, int DD, const bf16* slab,
+                        int slab_ctas) {
+  return encode_bf16_map(map_w, wpack, trunk_rows, W, W, 64) &&
+         (map_br == nullptr ||
+          encode_bf16_map(map_br, wpack + (size_t)trunk_rows * W, W + DD,
+                          W / 2, W / 2, 64)) &&
+         slab != nullptr && slab_ctas > 0 &&
+         encode_bf16_map(map_slab, slab, slab_ctas * 64, 2 * W, 2 * W, 64);
 }
 
 }  // namespace

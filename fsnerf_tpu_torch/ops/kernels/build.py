@@ -111,18 +111,18 @@ def load_library() -> ctypes.CDLL:
     use)."""
     lib = ctypes.CDLL(str(build().path))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fsnerf_ray_march.argtypes = [vp] * 10 + [i] * 13 + [f, vp]
+    lib.fsnerf_ray_march.argtypes = [vp] * 11 + [i] * 14 + [f, vp]
     lib.fsnerf_ray_march.restype = i
-    lib.fsnerf_nerf_mlp.argtypes = [vp] * 5 + [i] * 8 + [vp]
+    lib.fsnerf_nerf_mlp.argtypes = [vp] * 6 + [i] * 9 + [vp]
     lib.fsnerf_nerf_mlp.restype = i
-    lib.fsnerf_nerf_density.argtypes = [vp] * 4 + [i] * 7 + [vp]
+    lib.fsnerf_nerf_density.argtypes = [vp] * 5 + [i] * 8 + [vp]
     lib.fsnerf_nerf_density.restype = i
     lib.fsnerf_volrend.argtypes = [vp, i, vp, i] + [vp] * 5 + [i, i, vp]
     lib.fsnerf_volrend.restype = i
-    lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 7 + [i] * 9 + [vp]
+    lib.fsnerf_mlp_train_fwd.argtypes = [vp] * 8 + [i] * 10 + [vp]
     lib.fsnerf_mlp_train_fwd.restype = i
     lib.fsnerf_mlp_train_bwd.argtypes = (
-        [vp] * 13 + [i, vp, i, vp, vp] + [i] * 9 + [vp])
+        [vp] * 9 + [i] + [vp] * 5 + [i, vp, i, vp, vp] + [i] * 9 + [vp])
     lib.fsnerf_mlp_train_bwd.restype = i
     lib.fsnerf_dw_pass.argtypes = [vp, i, vp, i, vp, i, i, vp, vp, i, vp, i,
                                    i, vp, vp]

@@ -17,8 +17,9 @@ The density pass (`nerf_density`, the occupancy grid refresh's workload)
 runs the trunk and the sigma head alone, with the same numerics, on the
 positional encodings only. Both kernels are the warp-specialized MLP of
 csrc/ws_trunk.cuh, built for the widths render.py::NERF_KERNEL_WIDTHS (a
-module's width up to 512 is packed at the next of them, render.py::
-nerf_kernel_width; 384 and 512 run the column-split trunk) and encodings
+module's width up to 1024 is packed at the next of them, render.py::
+nerf_kernel_width; 384 and 512 run the column-split trunk, 768 and 1024
+the streamed trunk, with a scratch the wrappers allocate) and encodings
 as render.py::kernel_arch_error takes them.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
@@ -38,9 +39,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ...core.encoding import encoded_dim, positional_encoding
-from .render import (_DENSITY_ACT, _round_up, kernel_arch_error,
+from .render import (_DENSITY_ACT, _ptr, _round_up, kernel_arch_error,
                      mlp_forward, nerf_kernel_width, pack_weights,
-                     sigma_head, trunk_forward, trunk_rows, unpack)
+                     sigma_head, stream_scratch, trunk_forward, trunk_rows,
+                     unpack)
 
 @dataclass(frozen=True)
 class MlpParams:
@@ -136,9 +138,8 @@ def nerf_mlp(encx, encd, params: MlpParams,
     (packed widths render.py::NERF_KERNEL_WIDTHS, d_enc_pad and d_dir_pad
     as kernel_arch_error takes them: ValueError otherwise),
     nerf_mlp_reference for CPU tensors; same arguments and return. Any N:
-    the kernel predicates the rows of its last 128-row (64-row at 384 and
-    512) tile. Counts its kernel launches in
-    `nerf_mlp.launches`.
+    the kernel predicates the rows of its last 128-row (64-row from 384
+    up) tile. Counts its kernel launches in `nerf_mlp.launches`.
 
     Both run as the registered op `torch.ops.fsnerf_torch.nerf_mlp`, so a
     program that torch.export traces through this call keeps the call (the
@@ -187,9 +188,11 @@ def _nerf_mlp_cuda(encx, encd, wpack, bpack, n_layers, skip_mask, width,
     lib = load_library()
     N = encx.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=encx.device)
+    slab, ctas = stream_scratch(width, encx.device)
     err = lib.fsnerf_nerf_mlp(
         encx.data_ptr(), encd.data_ptr(), wpack.data_ptr(), bpack.data_ptr(),
-        out.data_ptr(), N, n_layers, skip_mask, width, d_enc_pad, d_dir_pad,
+        out.data_ptr(), _ptr(slab), ctas, N, n_layers, skip_mask, width,
+        d_enc_pad, d_dir_pad,
         _DENSITY_ACT[density_activation],
         trunk_rows(n_layers, params.skip, width, d_enc_pad),
         torch.cuda.current_stream(encx.device).cuda_stream)
@@ -312,9 +315,11 @@ def nerf_density(encx, params: MlpParams,
     lib = load_library()
     N = encx.shape[0]
     out = torch.empty(N, dtype=torch.float32, device=encx.device)
+    slab, ctas = stream_scratch(params.width, encx.device)
     err = lib.fsnerf_nerf_density(
         encx.data_ptr(), params.wpack.data_ptr(), params.bpack.data_ptr(),
-        out.data_ptr(), N, params.n_layers, params.skip_mask, params.width,
+        out.data_ptr(), _ptr(slab), ctas, N, params.n_layers,
+        params.skip_mask, params.width,
         params.d_enc_pad, _DENSITY_ACT[density_activation],
         trunk_rows(params.n_layers, params.skip, params.width,
                    params.d_enc_pad),

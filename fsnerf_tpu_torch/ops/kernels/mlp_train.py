@@ -19,7 +19,11 @@ gradients come back in the same packed layout, their padded entries
 exactly 0, and TrainLayout.grads_from_packed cuts them to the module's
 shapes. At the packed widths 384 and 512 the forward runs the column-split
 trunk of csrc/ws_trunk.cuh and the backward's row pass 64-row CTAs
-(bwd_rows); both write and read the same layouts as at the other widths.
+(bwd_rows); at 768 and 1024 the forward runs the streamed trunk (each
+layer's output stored to acts, or to a scratch the wrapper allocates, and
+read back as the next layer's operand) and the row pass streams its
+operands from device memory on 64-row CTAs. All write and read the same
+layouts as at the other widths.
 """
 
 from __future__ import annotations
@@ -31,9 +35,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...core.encoding import encoded_dim
-from .render import (KERNEL_WIDTHS, _bf16, _round_up, enc_table, encode,
-                     heads_forward, kernel_arch_error, nerf_kernel_width,
-                     pack_weights, trunk_forward, unpack)
+from .render import (KERNEL_WIDTHS, STREAM_WIDTHS, _bf16, _ptr, _round_up,
+                     enc_table, encode, heads_forward, kernel_arch_error,
+                     nerf_kernel_width, pack_weights, stream_scratch,
+                     trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 # weight-gradient output tile: input dims x output dims
@@ -44,8 +49,8 @@ SPLIT_ROWS = 8192       # rows per weight-gradient split, a multiple of DW_BK
 
 def bwd_rows(width: int) -> int:
     """Kernel 6's row pass's rows per CTA at a packed width (csrc/
-    mlp_train.cu bwd_rows): ROWS, or 64 at the split widths, where two
-    128-row activation buffers would not fit in shared memory."""
+    mlp_train.cu bwd_rows): ROWS, or 64 from 384 up, where two 128-row
+    activation buffers would not fit in shared memory."""
     return ROWS if width <= KERNEL_WIDTHS[-1] else 64
 
 
@@ -55,7 +60,14 @@ def bwd_rows_smem_bytes(width: int, d_dir_pad: int,
     (default bwd_rows(width); csrc/mlp_train.cu smem_bytes): two activation
     buffers and the direction encoding (rows padded by 8), the weight ring,
     the heads' floats and one row of column sums per warp of 2 rows
-    threads."""
+    threads. At STREAM_WIDTHS (and rows None) the streamed row pass's
+    (csrc/mlp_train.cu stream_rows_smem_bytes): three stages of a 128 x 64
+    weight tile and a 64 x 64 operand tile (rows padded by 8), one 64 x 128
+    output tile (padded by 8), the heads' floats and four warps' column
+    sums of a 128-column chunk, whatever the width and encodings."""
+    if width in STREAM_WIDTHS and rows is None:
+        return (1024 + 3 * (128 * 128 + 64 * 72 * 2) + 64 * 136 * 2
+                + 4 * (7 * 64 + 4 * 128))
     R = bwd_rows(width) if rows is None else rows
     return (2 * R * (2 * width + d_dir_pad + 24) + 3 * 128 * 128 + 1024
             + 4 * (7 * R + R // 16 * width))
@@ -380,10 +392,11 @@ def mlp_train_fwd(x, d, params: TrainParams, save_acts: bool = False):
     acts = (torch.empty((_round_up(N, ROWS), lay.n_layers * lay.width),
                         dtype=torch.bfloat16, device=x.device)
             if save_acts else None)
+    slab, ctas = stream_scratch(lay.width, x.device)
     err = lib.fsnerf_mlp_train_fwd(
         x.data_ptr(), d.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.enc.data_ptr(), out.data_ptr(),
-        None if acts is None else acts.data_ptr(), N, lay.n_layers,
+        _ptr(acts), _ptr(slab), ctas, N, lay.n_layers,
         lay.skip_mask, lay.width, lay.n_freqs, lay.n_freqs_views, lay.de,
         lay.dd, lay.wpack_views()[0],
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -510,8 +523,9 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     n_pad = _round_up(N, ROWS)
     _check("mlp_train_bwd", x, d, params, (("dout", dout, (N, 4)),))
     dev = x.device
-    fwd_out = None
+    fwd_out, slab, ctas = None, None, 0
     if acts is None:
+        slab, ctas = stream_scratch(W, dev)
         acts = torch.empty((n_pad, lay.n_layers * W), dtype=torch.bfloat16,
                            device=dev)
         fwd_out = torch.empty((N, 4), dtype=torch.float32, device=dev)
@@ -537,7 +551,7 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
     err = lib.fsnerf_mlp_train_bwd(
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.enc.data_ptr(), acts.data_ptr(),
-        None if fwd_out is None else fwd_out.data_ptr(), xs.data_ptr(),
+        _ptr(fwd_out), _ptr(slab), ctas, xs.data_ptr(),
         dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(), tiles.data_ptr(),
         tiles.shape[0], part.data_ptr(), SPLIT_ROWS, dw.data_ptr(),
         db.data_ptr(), N, lay.n_layers, lay.skip_mask, W, lay.n_freqs,

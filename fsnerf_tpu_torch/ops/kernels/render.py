@@ -20,19 +20,23 @@ one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
 
 Every packer lays the weights out at the packed width: a NeRF or SiNeRF
-module's width W up to 512 pads to the next of NERF_KERNEL_WIDTHS
+module's width W up to 1024 pads to the next of NERF_KERNEL_WIDTHS
 (`kernel_width`, also named `nerf_kernel_width`), with zero columns (and
 zero biases), the next matrix reading them through zero rows, so the
 padded units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and
 the real outputs gain only exact zero products; the plain versions run the
-padded pack as the kernels do.
+padded pack as the kernels do. The NeRF kernels take every packed width;
+the SIREN kernels stop at 512 (siren.py::siren_kernel_error).
 
-The early exit's blocking is the same at every width: at the packed widths
-384 and 512 the kernel runs each block x chunk step (up to 128 rows) as two
-64-row halves on one consumer warpgroup, but decides the skip once per
+The early exit's blocking is the same at every width: from the packed
+width 384 up the kernel runs each block x chunk step (up to 128 rows) as
+two 64-row halves on one consumer warpgroup, but decides the skip once per
 step, over all its rays and samples, as the other widths and the TPU
 kernel do; so ray_march_reference's block x chunk loop is the kernel's at
-every width.
+every width. At 768 and 1024 each layer's output goes through a scratch in
+device memory and back (the streamed trunk); its bf16 values are the ones
+the other widths keep in shared memory, so the plain version needs no
+change there either.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
@@ -75,8 +79,21 @@ KERNEL_MAX_DIR_AT_256 = 128
 # 227,072). Above 512 the input and output activation tiles of one 64-row
 # warpgroup (192 KB at 768) leave no room for the weight ring.
 SPLIT_WIDTHS = (384, 512)
-NERF_KERNEL_WIDTHS = KERNEL_WIDTHS + SPLIT_WIDTHS
+# ... and the NeRF kernels alone (kernels 1 and 3-6), on the streamed trunk
+# (csrc/ws_trunk.cuh: one 64-row consumer, each layer in 256-column chunks
+# stored to device memory and read back from L2 as the next layer's
+# operand; kernel 6's row pass streams its operands too): 768 and 1024.
+# Their shared memory does not grow with the width: with both encodings
+# 256 wide a 3-stage ring fits (shell_smem_bytes(1024, 256, 256, 3) =
+# 230,496 bytes), the row pass takes 99,072 whatever the encodings. Above
+# 1024 no instance is built: the scratch each persistent CTA streams its
+# layers through (64 rows x 2 W bf16) is meant to stay in the 50 MB L2
+# cache beside the layer's weights being read (at 1024 34.6 MB on 132 SMs
+# beside 2 MB), which it stops doing as W grows (at 1536 52 MB alone).
+STREAM_WIDTHS = (768, 1024)
+NERF_KERNEL_WIDTHS = KERNEL_WIDTHS + SPLIT_WIDTHS + STREAM_WIDTHS
 SMEM_LIMIT = 227 * 1024          # an H100 block's shared memory, bytes
+STREAM_ROWS = 64                 # a streamed CTA's rows (its scratch slot)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,7 +102,7 @@ def _round_up(x: int, m: int) -> int:
 
 def kernel_width(width: int) -> int:
     """The width the NeRF and SiNeRF packers lay a module of `width` out
-    at: the smallest of NERF_KERNEL_WIDTHS that holds it, else (above 512,
+    at: the smallest of NERF_KERNEL_WIDTHS that holds it, else (above 1024,
     where the kernels refuse it) the next multiple of 32."""
     for w in NERF_KERNEL_WIDTHS:
         if width <= w:
@@ -102,8 +119,14 @@ def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
     n_stages (csrc/ws_trunk.cuh fwd_smem_bytes, plus the largest shell's
     16 extra bytes): two consumers' tiles of 64 x width, or above 256 the
     column-split trunk's one consumer, stages of 64 x width / 2 and three
-    activation tiles of 64 x width / 2."""
+    activation tiles of 64 x width / 2, or at STREAM_WIDTHS the streamed
+    trunk's (ws_trunk.cuh stream_smem_bytes): stages of 64 x 256, the A
+    ring's four 64 x 64 tiles and one 64 x 256 output tile, whatever the
+    width."""
     blocks = -(-d_enc_pad // 64) + -(-d_dir_pad // 64)
+    if width in STREAM_WIDTHS:
+        return (1024 + n_stages * 256 * 128 + (4 + 4 + blocks) * 64 * 64 * 2
+                + (2 * n_stages + 4) * 8 + 16)
     if width > KERNEL_WIDTHS[-1]:
         return (1024 + (n_stages + 3) * width // 2 * 128
                 + blocks * 64 * 64 * 2 + 2 * n_stages * 8 + 16)
@@ -122,23 +145,23 @@ def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
         return None
     return (f"the {what} take widths up to {NERF_KERNEL_WIDTHS[-1]} (laid "
             f"out at {NERF_KERNEL_WIDTHS}; above "
-            f"{NERF_KERNEL_WIDTHS[-1]} one 64-row warpgroup's activation "
-            f"tiles leave no shared memory for the weight ring) and "
-            f"encodings up to {KERNEL_MAX_ENC} wide (at width 256 a "
-            f"direction encoding up to {KERNEL_MAX_DIR_AT_256}: shared "
-            f"memory), not width {width} with encodings {d_enc_pad} / "
-            f"{d_dir_pad}")
+            f"{NERF_KERNEL_WIDTHS[-1]} no instance is built: the "
+            f"streamed trunk's scratch is sized to stay in the 50 MB L2 "
+            f"cache) and encodings up to "
+            f"{KERNEL_MAX_ENC} wide (at width 256 a direction encoding up "
+            f"to {KERNEL_MAX_DIR_AT_256}: shared memory), not width "
+            f"{width} with encodings {d_enc_pad} / {d_dir_pad}")
 
 
 def march_chunk_error(width: int, block_rows: int,
                       chunk_s: int) -> Optional[str]:
     """Why the NeRF or SIREN march refuses a blocking at a packed width,
-    or None: at most KERNEL_ROWS rows a chunk step, and at the split widths
-    (run as 64-row halves, each holding whole rays) a chunk_s that divides
-    64 when the step has more than 64 rows."""
+    or None: at most KERNEL_ROWS rows a chunk step, and at the split and
+    streamed widths (run as 64-row halves, each holding whole rays) a
+    chunk_s that divides 64 when the step has more than 64 rows."""
     if block_rows * chunk_s > KERNEL_ROWS:
         return f"block_rows * chunk_s must be <= {KERNEL_ROWS}"
-    if (width in SPLIT_WIDTHS and block_rows * chunk_s > 64
+    if (width > KERNEL_WIDTHS[-1] and block_rows * chunk_s > 64
             and 64 % chunk_s):
         return (f"at width {width} a chunk step of more than 64 rows runs "
                 f"as 64-row halves of whole rays: chunk_s must divide 64, "
@@ -153,6 +176,23 @@ def trunk_rows(n_layers: int, skip: Tuple[int, ...], width: int,
     w_conn, in pack_weights' walk."""
     return d_enc_pad + sum(width + (d_enc_pad if (i - 1) in skip else 0)
                            for i in range(1, n_layers)) + 1 + width
+
+
+def stream_scratch(width: int, device):
+    """(scratch, ctas) for a kernel launch at a packed width: at
+    STREAM_WIDTHS the streamed trunk's [ctas * STREAM_ROWS, 2 width] bf16
+    scratch, one slot per persistent CTA, ctas the card's SM count; else
+    (None, 0)."""
+    if width not in STREAM_WIDTHS:
+        return None, 0
+    ctas = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.empty((ctas * STREAM_ROWS, 2 * width), dtype=torch.bfloat16,
+                       device=device), ctas
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's device pointer for ctypes, None for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -455,7 +495,7 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
                         early_stop_eps: float = 1e-4):
     """Plain PyTorch version of the ray-march kernel, with its blocking at
     every packed width (one skip decision per block x chunk step; the
-    kernel's 64-row halves at 384 and 512 change no result).
+    kernel's 64-row halves from 384 up change no result).
 
     Args:
       x [R, K, 3], dirs [R, 3], t/deltas/mask [R, K] float32, R a multiple
@@ -494,6 +534,7 @@ def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
            or march_chunk_error(params.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"ray_march: {err}")
+    slab, ctas = stream_scratch(params.width, x.device)
     stats, steps = _launch_march(
         "ray_march", x, dirs, t, deltas, mask,
         (params.wpack, params.bpack, params.enc), block_rows, chunk_s,
@@ -501,17 +542,17 @@ def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
         params.n_freqs, params.n_freqs_views, params.d_enc_pad,
         params.d_dir_pad, _DENSITY_ACT[params.density_activation],
         trunk_rows(params.n_layers, params.skip, params.width,
-                   params.d_enc_pad))
+                   params.d_enc_pad), scratch=(_ptr(slab), ctas))
     ray_march.launches += 1
     return stats, steps
 
 
 def _launch_march(name, x, dirs, t, deltas, mask, weights, block_rows,
-                  chunk_s, early_stop_eps, *arch):
+                  chunk_s, early_stop_eps, *arch, scratch=()):
     """Check the inputs and launch the C entry fsnerf_<name> of
     csrc/render.cu on CUDA tensors: (x, dirs, t, deltas, mask, *weights,
-    stats, steps, R, K, block_rows, chunk_s, *arch, thresh, stream).
-    Returns (stats [R, 8], steps [R / block_rows])."""
+    stats, steps, *scratch, R, K, block_rows, chunk_s, *arch, thresh,
+    stream). Returns (stats [R, 8], steps [R / block_rows])."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     _check(x, dirs, t, deltas, mask, block_rows, chunk_s)
@@ -532,7 +573,7 @@ def _launch_march(name, x, dirs, t, deltas, mask, weights, block_rows,
     thresh = -math.log(max(float(early_stop_eps), 1e-30))
     err = getattr(lib, f"fsnerf_{name}")(
         *(a.data_ptr() for a in tensors), stats.data_ptr(), steps.data_ptr(),
-        R, K, block_rows, chunk_s, *arch, thresh,
+        *scratch, R, K, block_rows, chunk_s, *arch, thresh,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "

@@ -115,13 +115,14 @@ def fused_kernels_wanted(cfg, device) -> bool:
 
 def kernels_refusal(cfg, device) -> Optional[str]:
     """Why the card's kernels refuse cfg's architecture on `device`, or
-    None. The NeRF and SIREN kernels take every width up to 512 (packed at
-    ops/kernels/render.py::kernel_width: 384 and 512 on the column-split
-    trunk), the NeRF ones encodings up to 256 wide, save at width 256 a
-    direction encoding over 128 (render.py::kernel_arch_error). A wider
-    NeRF or SiNeRF has no kernel (render.py::kernel_arch_error,
-    siren.py::siren_kernel_error) and is refused. On the CPU their plain
-    versions take any architecture."""
+    None. The NeRF kernels take every width up to 1024 and the SIREN
+    kernels every width up to 512 (packed at ops/kernels/render.py::
+    kernel_width: 384 and 512 on the column-split trunk, 768 and 1024 on
+    the NeRF kernels' streamed trunk), the NeRF ones encodings up to 256
+    wide, save at width 256 a direction encoding over 128 (render.py::
+    kernel_arch_error). A wider NeRF or SiNeRF has no kernel
+    (render.py::kernel_arch_error, siren.py::siren_kernel_error) and is
+    refused. On the CPU their plain versions take any architecture."""
     if torch.device(device).type != "cuda":
         return None
     from ..ops.kernels.render import kernel_width

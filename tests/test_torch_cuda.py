@@ -6,14 +6,14 @@ executed-step counts. Forward MLP (mlp.cu): rgb within 5e-3 and sigma
 within 2e-2 of max |sigma| (tests/test_pallas.py's fused-MLP tolerances),
 for the three density activations, row counts that are not a multiple of
 the 128-row tile and each width the warp-specialized kernel is built for
-(64, 128, 192, 256, and 384 and 512 on the column-split trunk; every
-width up to 512 is packed at the next of them with zero units, 600
-refused by name); two runs bitwise equal. Train
+(64, 128, 192, 256, 384 and 512 on the column-split trunk, 768 and 1024
+on the streamed trunk; every width up to 1024 is packed at the next of
+them with zero units, 1100 refused by name); two runs bitwise equal. Train
 forward/backward (mlp_train.cu): rgb within 5e-3 and sigma within 2e-2 of
 max |sigma| (the fused-MLP tolerances of tests/test_pallas.py), out and
 acts bitwise repeatable and acts within one bf16 step (plus 1e-3 of the
-largest) of the plain version's, widths above 512 and at 256 a direction
-encoding over 128 refused, every weight and bias gradient within 2e-2 of
+largest) of the plain version's, widths above 1024 and at 256 a
+direction encoding over 128 refused, every weight and bias gradient within 2e-2 of
 that tensor's max |plain gradient| (the kernels sum in another order, and
 each cotangent is rounded to bf16 before its products, so a rounding flip can
 move a gradient by a bf16 step); gradients bitwise repeatable and bitwise
@@ -29,7 +29,7 @@ which refuses a packed width above 256 other than 384 and 512 by name (its
 shared memory). The warp-specialized SIREN forward at widths 64, 128, 192
 and 256 also holds its acts stream to the plain version's (h_i within
 3e-2, factors within 0.25, each on at most 2% of the elements), bitwise
-repeatable; a pack at 320 runs the mma.sync forward, 600 (packed 608) is
+repeatable; a pack at 320 runs the mma.sync forward, 600 (packed 768) is
 refused by name. SIREN ray march (render.cu): the ray march's tolerances
 and equal executed-step counts, bitwise repeatable, at widths 64, 128, 192
 and 256 (the warp-specialized march) and a pack at 320 (the mma.sync one).
@@ -38,16 +38,16 @@ Kernels 7, 8 and 2 at the column-split widths (SiNeRF 300, packed 384, and
 (there it runs the forward kernel, then the saved passes), the acts stream
 as at the other widths (at 8 layers x 512 on at most 4% of the elements),
 the march over blockings of 64 and 128 rows a step. Kernels 1-8 at widths
-that are not their own (NeRF 40, 96, 200, 300, 400, 512; SiNeRF 40, 100,
-300) and with encodings up to 256 wide, the packed gradients' padded
-entries exactly 0; the NeRF train kernels' gradients bitwise repeatable at
-512 too. Density pass
+that are not their own (NeRF 40, 96, 200, 300, 400, 512, 700, 1000, 1024;
+SiNeRF 40, 100, 300) and with encodings up to 256 wide, the packed
+gradients' padded entries exactly 0; the NeRF train kernels' gradients
+bitwise repeatable at 512, 768 and 1024 too (recompute bitwise saved). Density pass
 (mlp.cu's nerf_density_kernel): sigma within 2e-2 of max |sigma| (the
 ceiling of tests/test_pallas.py::test_fused_density_matches_model), two
 runs bitwise equal, at each width the warp-specialized kernel is built for
-(64, 128, 192, 256, 384, 512; the NeRF march the same, over the block x
-chunk shapes the renderer admits), and both refuse width 600, where a CLI
-run trains through the module instead and prints so. Compositing
+(64, 128, 192, 256, 384, 512, 768, 1024; the NeRF march the same, over
+the block x chunk shapes the renderer admits), and both refuse width 1100,
+where a CLI run trains through the module instead and prints so. Compositing
 (volrend.cu): rgb,
 opacity, depth, weights and trans_final within rtol 1e-5 and atol 1e-6
 (tests/test_pallas.py's volrend tolerance) of ops/volrend.py::
@@ -61,8 +61,9 @@ Graphed training (train/step.py::make_train_chunk): train() from CUDA-graph
 replays against the same run by eager steps, bitwise (weights, Adam's
 moments, every grid tensor, the generator, the logged metrics and the
 kernels' launch counts), for the NeRF occgrid path, SiNeRF, the
-hierarchical path, width 320 (the column-split kernels at 384), a width
-the kernels refuse, the few-shot recipe with
+hierarchical path, width 320 (the column-split kernels at 384), width 600
+(the streamed kernels at 768), a width the kernels refuse, the few-shot
+recipe with
 its validations and a resume from a checkpoint, and train_scanned; a
 ladder change that captures a new rung's graphs, and a capture that fails
 raising.
@@ -160,7 +161,7 @@ def test_wrapper_counts_launches_and_validates(cuda):
         kr.ray_march(x_strided, *padded[1:], params, bR, cs)
 
 
-@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512, 768, 1024])
 @pytest.mark.parametrize("sigma_bias", [0.0, 5000.0])
 @pytest.mark.parametrize("K", [12, 48, 192])
 @pytest.mark.parametrize("block_rows,chunk_s", [(16, 8), (8, 8), (10, 4),
@@ -188,30 +189,33 @@ def test_nerf_march_matches_plain_over_blocks_and_chunks(
 
 
 def test_kernels_refuse_widths_they_are_not_built_for(cuda):
-    """The NeRF march and the density pass take every width up to 512
-    (packed at 64, 128, 192, 256, 384 or 512) and refuse 600 by name,
-    launching nothing; at 512 the march refuses a chunk of 6 samples in a
-    step of more than 64 rows (its halves hold whole rays)."""
-    sd = state_dict_from_jax(nerf_params_np(22, d_filter=600, **SMALL))
+    """The NeRF march and the density pass take every width up to 1024
+    (packed at 64, 128, 192, 256, 384, 512, 768 or 1024) and refuse 1100
+    (packed 1120) by name, launching nothing; at 512 and 1024 the march
+    refuses a chunk of 6 samples in a step of more than 64 rows (its halves
+    hold whole rays)."""
+    sd = state_dict_from_jax(nerf_params_np(22, d_filter=1100, **SMALL))
     params = kr.prep_params(sd, **SMALL, device=cuda)
-    assert params.width == 608
+    assert params.width == 1120
     padded, bR, cs = kr.pad_for_march(*march_inputs(seed=5, R=16, K=16))
     before = (kr.ray_march.launches, km.nerf_density.launches)
-    with pytest.raises(ValueError, match="take widths up to 512"):
+    with pytest.raises(ValueError, match="take widths up to 1024"):
         kr.ray_march(*(p.to(cuda) for p in padded), params, bR, cs)
-    encx, dparams = _density_case(22, 600, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths up to 512"):
+    encx, dparams = _density_case(22, 1100, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 1024"):
         km.nerf_density(encx, dparams)
-    wide = kr.prep_params(state_dict_from_jax(
-        nerf_params_np(22, d_filter=512, **SMALL)), **SMALL, device=cuda)
     padded, _, _ = kr.pad_for_march(*march_inputs(seed=5, R=16, K=12))
-    with pytest.raises(ValueError, match="chunk_s must divide 64"):
-        kr.ray_march(*(p.to(cuda) for p in padded), wide, 16, 6)
+    for width in (512, 1024):
+        wide = kr.prep_params(state_dict_from_jax(
+            nerf_params_np(22, d_filter=width, **SMALL)), **SMALL,
+            device=cuda)
+        with pytest.raises(ValueError, match="chunk_s must divide 64"):
+            kr.ray_march(*(p.to(cuda) for p in padded), wide, 16, 6)
     assert (kr.ray_march.launches, km.nerf_density.launches) == before
 
 
 def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
-    """--d_filter 600: the MLP routes resolve to the module on the card (no
+    """--d_filter 1100: the MLP routes resolve to the module on the card (no
     train, density, march or forward-MLP kernel launches), the run prints
     the one line that says so, and it trains and evaluates instead of
     raising."""
@@ -222,7 +226,7 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     launches = (mt.mlp_train_fwd.launches, km.nerf_density.launches,
                 kr.ray_march.launches, km.nerf_mlp.launches)
     rc = cli.main(["--dataset", "sphere", "--hw", "32", "--n_imgs", "3",
-                   "--n_layers", "4", "--d_filter", "600", "--skip", "1",
+                   "--n_layers", "4", "--d_filter", "1100", "--skip", "1",
                    "--grid_resolution", "16", "--n_samples", "64",
                    "--n_iters", "20", "--batch_size", "256", "--white_bkgd",
                    "--debug"])
@@ -231,7 +235,7 @@ def test_cli_trains_at_a_width_the_kernels_refuse(cuda, capsys):
     out = json.loads(captured.out.strip().splitlines()[-1])
     assert out["steps"] == 20 and out["device"] != "cpu"
     assert out["psnr"] == out["psnr"] and out["rays_per_sec"] > 0
-    assert "nerf width 600 trains and renders through the module" in \
+    assert "nerf width 1100 trains and renders through the module" in \
         captured.err
     assert (mt.mlp_train_fwd.launches, km.nerf_density.launches,
             kr.ray_march.launches, km.nerf_mlp.launches) == launches
@@ -291,20 +295,37 @@ def test_train_kernels_small_ragged_masked(cuda):
     _check_train(params, x, d, target)
 
 
-def test_split_train_grads_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("width", [512, 700, 1024])
+def test_split_train_grads_bitwise_repeatable(cuda, width):
     """At 512 (the column-split forward, the 64-row row pass, twice the
-    bias partials): two runs bitwise equal, saved == recompute."""
-    params = _train_params(8, 512, FULL, cuda)
+    bias partials), 768 (width 700) and 1024 (the streamed forward and row
+    pass), NeRF 8 layers at 20,000 rows: two runs of each backward mode
+    bitwise equal, saved == recompute; the acts stream bitwise repeatable,
+    its padded columns 0 and every column within one bf16 step (plus 1e-3
+    of the largest) of the plain version's."""
+    params = _train_params(8, width, FULL, cuda)
+    W = params.layout.width
+    assert W == kr.nerf_kernel_width(width)
     x, d, target = (a.to(cuda) for a in mlp_inputs(20_000, seed=3))
     dout = mse_cotangent(mt.mlp_train_fwd(x, d, params)[0], target)
-    runs = []
+    runs, streams = [], []
     for _ in range(2):
-        _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+        out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+        streams.append((out, acts))
         runs.append(mt.mlp_train_bwd(x, d, dout, params, acts))
     runs.append(mt.mlp_train_bwd(x, d, dout, params, None))
+    _, ref_acts = mt.mlp_train_fwd_reference(x, d, params, save_acts=True)
     torch.cuda.synchronize()
     for a, b, c in zip(*runs):
         assert torch.equal(a, b) and torch.equal(a, c)
+    assert all(torch.equal(a, b) for a, b in zip(*streams))
+    acts = streams[0][1]
+    for i in range(8):
+        assert (acts[:, i * W + width:(i + 1) * W] == 0).all()
+    got, want = acts[:20_000].float(), ref_acts.float()
+    excess = (got - want).abs() - (want.abs() * 2.0 ** -7
+                                   + 1e-3 * want.abs().max())
+    assert excess.max() <= 0, float(excess.max())
 
 
 def test_train_grads_bitwise_repeatable(cuda):
@@ -364,10 +385,10 @@ def test_train_forward_matches_plain(cuda, arch, n, masked):
 
 
 def test_train_kernels_refuse_what_they_are_not_built_for(cuda):
-    """Widths above 512, and at width 256 a direction encoding wider than
+    """Widths above 1024, and at width 256 a direction encoding wider than
     128 (21 bands: 144), raise by name before a launch, in the forward and
     in both backward modes."""
-    for width, spec in ((520, SMALL), (600, SMALL),
+    for width, spec in ((1025, SMALL), (1100, SMALL),
                         (256, dict(FULL, n_freqs_views=21))):
         params = _train_params(12, width, spec, cuda)
         x, d, target = (a.to(cuda) for a in mlp_inputs(200, seed=7))
@@ -573,7 +594,7 @@ def test_nerf_mlp_wrapper_counts_launches_and_validates(cuda):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 393_216])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512, 768, 1024])
 def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
     """The warp-specialized forward MLP at each width of NeRF 8 layers,
     skip (4,), n_freqs 10/4 (a 32-wide direction encoding), with and
@@ -588,10 +609,10 @@ def test_nerf_mlp_matches_plain_at_each_width(cuda, width, act, n, masked):
 
 
 def test_nerf_mlp_refuses_widths_it_is_not_built_for(cuda):
-    """nerf_mlp takes every width up to 512, as the other NeRF kernels,
-    and refuses 600 by name."""
-    encx, encd, params = _mlp_case(18, 600, SMALL, 300, cuda)
-    with pytest.raises(ValueError, match="take widths up to 512"):
+    """nerf_mlp takes every width up to 1024, as the other NeRF kernels,
+    and refuses 1100 by name."""
+    encx, encd, params = _mlp_case(18, 1100, SMALL, 300, cuda)
+    with pytest.raises(ValueError, match="take widths up to 1024"):
         km.nerf_mlp(encx, encd, params)
 
 
@@ -762,7 +783,9 @@ def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
     runs their mma.sync kernels (siren_fwd_kernel,
     ray_march_kernel<SirenMarch>), each launch counted, held to the same
     tolerances; the wrappers never route to the module. Width 600 (packed
-    608) has no kernel and raises by name, launching nothing."""
+    768, where only the NeRF kernels run) has no SIREN kernel and raises by
+    name in the forward, both backward modes and the march, launching
+    nothing."""
     assert _siren_params(26, 4, 96, cuda).layout.width == 128
     params = _siren_params(26, 4, 320, cuda, packed=320)
     x, d, _ = _siren_inputs(1_000, 7, cuda)
@@ -779,13 +802,19 @@ def test_siren_width_96_runs_the_mma_forward_and_march(cuda):
     assert ks.siren_mlp_fwd.launches == f0 + 1
     assert kr.siren_ray_march.launches == m0 + 2
     wide = _siren_params(26, 4, 600, cuda)
-    assert wide.layout.width == 608
+    assert wide.layout.width == 768
+    b0 = ks.siren_mlp_bwd.launches
     with pytest.raises(ValueError, match="takes widths up to 512"):
         ks.siren_mlp_fwd(x, d, wide)
+    dout = torch.zeros((x.shape[0], 4), device=cuda)
+    for acts in (None, torch.zeros((1_024, 4 * 768), dtype=torch.bfloat16,
+                                   device=cuda)):
+        with pytest.raises(ValueError, match="takes widths up to 512"):
+            ks.siren_mlp_bwd(x, d, dout, wide, acts)
     with pytest.raises(ValueError, match="takes widths up to 512"):
         kr.siren_ray_march(*padded, wide, bR, cs)
-    assert (ks.siren_mlp_fwd.launches,
-            kr.siren_ray_march.launches) == (f0 + 1, m0 + 2)
+    assert (ks.siren_mlp_fwd.launches, ks.siren_mlp_bwd.launches,
+            kr.siren_ray_march.launches) == (f0 + 1, b0, m0 + 2)
 
 
 def _check_siren_march(padded, params, bR, cs, eps=1e-4):
@@ -876,12 +905,14 @@ def _band_mask(n_bands, cuda):
     (192, dict(SMALL, n_freqs=42, n_freqs_views=42)),
     (256, dict(SMALL, n_freqs=42, n_freqs_views=20)), (300, FULL),
     (512, FULL), (512, dict(FULL, n_freqs=21)),
-    (400, dict(SMALL, n_freqs=42, n_freqs_views=42))])
+    (400, dict(SMALL, n_freqs=42, n_freqs_views=42)), (700, FULL),
+    (1024, FULL), (1000, dict(SMALL, n_freqs=42, n_freqs_views=42))])
 def test_nerf_kernels_at_padded_widths(cuda, width, spec):
     """Kernels 1 and 3-6 at widths that are not their own (packed at the
-    next of 64, 128, 192, 256, 384, 512 with zero units) and with encodings
-    up to 256 wide, against their plain versions at the tolerances above;
-    the packed weight and bias gradients exactly 0 in every padded entry."""
+    next of 64, 128, 192, 256, 384, 512, 768, 1024 with zero units) and with
+    encodings up to 256 wide, against their plain versions at the
+    tolerances above; the packed weight and bias gradients exactly 0 in
+    every padded entry."""
     pm, dm = _band_mask(spec["n_freqs"], cuda), \
         _band_mask(spec["n_freqs_views"], cuda)
     encx, encd, params = _mlp_case(31, width, spec, 3000, cuda, pm.cpu(),
@@ -1013,7 +1044,7 @@ def test_nerf_density_matches_plain(cuda, act, width, arch, n):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [1, 77, 128, 20_037, 262_144])
 @pytest.mark.parametrize("act", ["none", "relu", "trunc_exp"])
-@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512])
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512, 768, 1024])
 def test_nerf_density_matches_plain_at_each_width(cuda, width, act, n,
                                                  masked):
     """The warp-specialized density pass at each width of NeRF 8 layers,
@@ -1345,23 +1376,26 @@ def _graph_log(caplog):
 
 
 @pytest.mark.parametrize("case", ["occgrid", "sinerf", "hierarchical",
-                                  "width96", "width320", "width600"])
+                                  "width96", "width320", "width600",
+                                  "width1100"])
 def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     """300 steps of train() from CUDA-graph replays against the same run
     by eager steps, bitwise: the NeRF occgrid path through the warmup's
     all-cell refreshes and the four parts at both intervals, SiNeRF
     (its refresh on the module), the hierarchical path (its sorts and
-    scatters), width 96 (the kernels at the packed width 128) and a width
-    the kernels at the split width 384 (320) and a width the kernels
-    refuse (600: the module route, cuBLAS in the graphs). The logged
-    metrics and the kernels' launch counts are the eager run's too."""
+    scatters), width 96 (the kernels at the packed width 128), the kernels
+    at the split width 384 (320) and the streamed width 768 (600: their
+    scratch allocated inside the captures) and a width the kernels refuse
+    (1100: the module route, cuBLAS in the graphs). The logged metrics and
+    the kernels' launch counts are the eager run's too."""
     import logging
 
     cfg = {"occgrid": _graph_cfg(), "sinerf": _graph_cfg("sinerf"),
            "hierarchical": _graph_cfg(strategy="hierarchical"),
            "width96": _graph_cfg(width=96),
            "width320": _graph_cfg(width=320),
-           "width600": _graph_cfg(width=600)}[case]
+           "width600": _graph_cfg(width=600),
+           "width1100": _graph_cfg(width=1100)}[case]
     caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
     g, g_logs, g_launches = _train_run(cfg, cuda, graphs=None)
     rungs = _graph_log(caplog)
@@ -1370,7 +1404,7 @@ def test_graphed_training_is_the_eager_loop(cuda, case, caplog):
     assert g_logs == e_logs
     assert g_launches == e_launches
     assert rungs and not _graph_log(caplog)[len(rungs):]
-    if case == "width600":
+    if case == "width1100":
         assert not any(g_launches[k] for k in (
             "mlp_train_fwd", "nerf_density", "siren_mlp_fwd"))
     elif case == "sinerf":
@@ -1535,22 +1569,25 @@ def test_graphed_train_scanned_is_the_eager_one(cuda):
     assert out[None][1] == out[False][1] and len(out[None][1]) == 5
 
 
-@pytest.mark.parametrize("model", ["nerf", "sinerf"])
+@pytest.mark.parametrize("model", ["nerf", "sinerf", "nerf700"])
 def test_export_roundtrip_on_the_card(cuda, tmp_path, model):
     """The serving artifact (utils/export.py) exported on the card, saved
     and loaded: the saved graph calls the kernel's op, the program
     reproduces the live chunk renderer bitwise, and render_frame_exported
     reproduces render_frame bitwise, with one launch of the forward MLP
-    (NeRF) or the SIREN forward (SiNeRF) per chunk replayed; a width the
-    NeRF kernel refuses fails at export."""
+    (NeRF; at width 700 its streamed instance at 768, through the op's
+    fake when traced and its CUDA kernel when replayed) or the SIREN
+    forward (SiNeRF) per chunk replayed; a width the NeRF kernel refuses
+    fails at export."""
     from fsnerf_tpu_torch.ops import occgrid as og
     from fsnerf_tpu_torch.render.renderer import (make_chunk_renderer,
                                                   render_frame)
     from fsnerf_tpu_torch.utils import export
     from torch_parity import AABB, shell_rays, sphere_density_torch
 
-    if model == "nerf":
-        sd = state_dict_from_jax(nerf_params_np(3, d_filter=64, **SMALL))
+    if model != "sinerf":
+        width = 700 if model == "nerf700" else 64
+        sd = state_dict_from_jax(nerf_params_np(3, d_filter=width, **SMALL))
         sd["sigma.bias"] = sd["sigma.bias"] + 10.0
         model_fn = km.make_fused_model_fn(sd, **SMALL, device=cuda)
         wrapper, op = km.nerf_mlp, "fsnerf_torch.nerf_mlp.default"
@@ -1593,10 +1630,10 @@ def test_export_roundtrip_on_the_card(cuda, tmp_path, model):
     assert (rgb == rgb_ref.cpu().numpy()).all()
     assert (depth == depth_ref.cpu().numpy()).all()
     if model == "nerf":
-        sd600 = state_dict_from_jax(nerf_params_np(3, d_filter=600,
-                                                   **SMALL))
+        sd1100 = state_dict_from_jax(nerf_params_np(3, d_filter=1100,
+                                                    **SMALL))
         wide = make_chunk_renderer(
-            km.make_fused_model_fn(sd600, **SMALL, device=cuda), **kw)
-        with pytest.raises(Exception, match="take widths up to 512"):
+            km.make_fused_model_fn(sd1100, **SMALL, device=cuda), **kw)
+        with pytest.raises(Exception, match="take widths up to 1024"):
             export.export_render_artifact(wide, chunk, str(tmp_path / "b"),
                                           hwf=hwf, near=2.0, far=6.0)

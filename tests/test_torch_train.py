@@ -385,11 +385,11 @@ def test_resolve_fused_kernel_by_device():
     on = cfg.replace(model=dataclasses.replace(cfg.model, fused_kernel=True))
     assert step.resolve_fused_kernel(on, "cpu")
     for change in (dict(density_activation="relu"), dict(skip=(7,)),
-                   dict(d_filter=520)):
+                   dict(d_filter=1040)):
         off = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert not step.resolve_fused_kernel(off, "cuda")
-    # any width up to 512 (padded to the kernels' widths) takes them
-    for width in (48, 320):
+    # any width up to 1024 (padded to the kernels' widths) takes them
+    for width in (48, 320, 520, 1000):
         odd = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     d_filter=width))
         assert step.resolve_fused_kernel(odd, "cuda")
@@ -406,11 +406,12 @@ def _arch(cfg, **change):
                        encoder=dataclasses.replace(cfg.encoder, **enc))
 
 
-@pytest.mark.parametrize("change", [dict(d_filter=520), dict(d_filter=600),
+@pytest.mark.parametrize("change", [dict(d_filter=1025),
+                                    dict(d_filter=1100),
                                     dict(n_freqs_views=21)])
 def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
     """On the card the NeRF MLP routes (train, density, march) resolve off
-    only for what the kernels refuse by name: a width above 512, or at
+    only for what the kernels refuse by name: a width above 1024, or at
     width 256 a direction encoding wider than 128 (21 bands: 144 columns).
     Such a config trains and evaluates through the module, and building
     its step prints the one line that says so; the compositing kernel

@@ -1,8 +1,9 @@
 """The kernels' packers at widths that are not the kernels' own: a NeRF
-or SiNeRF of width W up to 512 is packed at render.py::kernel_width(W)
-(also named nerf_kernel_width: the next of 64, 128, 192, 256, 384, 512;
-384 and 512 run the column-split trunk on the card), with zero units, and
-the plain versions run that padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
+or SiNeRF of width W up to 1024 is packed at render.py::kernel_width(W)
+(also named nerf_kernel_width: the next of 64, 128, 192, 256, 384, 512,
+768, 1024; 384 and 512 run the column-split trunk on the card, 768 and
+1024 the NeRF kernels' streamed trunk), with zero units, and the plain
+versions run that padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
 kernels take any width (interpret mode, as tests/test_pallas.py runs them
 on the CPU), with NeRF 4 layers, skip (2,), n_freqs 4/2 and SiNeRF 4
 layers, 128 seeded rows. The file takes ~80 s alone, most of it the JAX
@@ -17,9 +18,9 @@ sin(a 0) = 0, and the next matrix reads them through zero rows).
 
 Also: the limits the kernels state (render.py::kernel_arch_error,
 siren.py::SIREN_MAX_WIDTH and SIREN_MMA_MAX_WIDTH) against the
-shared-memory sizes of their CUDA sources, the routes of NeRF and SiNeRF
-300 / 512 / 600 on a cuda device, and one CLI run at --d_filter 40 through
-the plain versions.
+shared-memory sizes of their CUDA sources, the routes of NeRF 300 / 512 /
+600 / 1024 / 1100 and SiNeRF 300 / 512 / 600 on a cuda device, and one CLI
+run at --d_filter 40 through the plain versions.
 """
 
 import json
@@ -72,7 +73,8 @@ def _close_out(got, want):
 
 
 @pytest.mark.parametrize("width,packed", [(40, 64), (96, 128), (200, 256),
-                                          (300, 384), (512, 512)])
+                                          (300, 384), (512, 512), (700, 768),
+                                          (1024, 1024)])
 def test_forward_mlp_padded_matches_pallas(width, packed):
     """Kernel 3's plain version on the padded pack against the JAX fused
     forward MLP at the module's own width, 128 rows (one JAX block)."""
@@ -97,7 +99,7 @@ def _train_cfg(width):
         encoder=EncoderConfig(n_freqs=4, n_freqs_views=2))
 
 
-@pytest.mark.parametrize("width", [40, 96, 300, 512])
+@pytest.mark.parametrize("width", [40, 96, 300, 512, 700, 1024])
 def test_train_mlp_padded_matches_pallas(width):
     """Kernels 5 and 6's plain versions on the padded pack through the
     autograd Function against the JAX custom VJP at the module's width: the
@@ -138,7 +140,7 @@ def _padded_masks(pack_fn, sd):
     return w.float() == 0, b == 0
 
 
-@pytest.mark.parametrize("width", [40, 96, 300, 512])
+@pytest.mark.parametrize("width", [40, 96, 300, 512, 700])
 def test_nerf_padded_gradients_are_exactly_zero(width):
     """Kernel 6's plain version in both modes: every padded entry of the
     packed dW and db is 0, the saved trunk activations' padded columns too,
@@ -178,7 +180,8 @@ def test_ray_march_padded_matches_pallas():
     _close(got, ref)
 
 
-@pytest.mark.parametrize("width,packed", [(300, 384), (512, 512)])
+@pytest.mark.parametrize("width,packed", [(300, 384), (512, 512),
+                                          (700, 768), (1024, 1024)])
 def test_density_pass_padded_matches_pallas(width, packed):
     """Kernel 4's plain version on the padded pack against the JAX density
     pass (interpret mode) at the module's width: sigma within 2e-2 of max
@@ -196,17 +199,19 @@ def test_density_pass_padded_matches_pallas(width, packed):
 
 
 @pytest.mark.parametrize("width,sigma_bias", [(300, 0.0), (512, 0.0),
-                                              (512, 30.0)])
+                                              (512, 30.0), (700, 0.0),
+                                              (1024, 0.0)])
 def test_ray_march_split_widths_match_pallas(width, sigma_bias):
-    """The ray march's plain version at the packed widths 384 (width 300)
-    and 512 through render_rays_occgrid against the interpret-mode Pallas
-    march at the module's width, at the march's blocking (16 rays x chunks
-    of 8 samples: the card kernel runs each such 128-row step as two 64-row
-    halves but decides the skip per step, so the blocking is the one at
-    every width). With a raised sigma bias most blocks exit early, and the
-    plain version's exits agree with the TPU kernel's: rgb / opacity within
-    7e-3, depth within 3e-2. The split widths refuse a chunk_s that does
-    not divide 64 only when a step has more than 64 rows."""
+    """The ray march's plain version at the packed widths 384 (width 300),
+    512, 768 (width 700) and 1024 through render_rays_occgrid against the
+    interpret-mode Pallas march at the module's width, at the march's
+    blocking (16 rays x chunks of 8 samples: the card kernel runs each such
+    128-row step as two 64-row halves but decides the skip per step, so the
+    blocking is the one at every width). With a raised sigma bias most
+    blocks exit early, and the plain version's exits agree with the TPU
+    kernel's: rgb / opacity within 7e-3, depth within 3e-2. The split and
+    streamed widths refuse a chunk_s that does not divide 64 only when a
+    step has more than 64 rows."""
     params = nerf_params_np(13, d_filter=width)
     params["params"]["sigma"]["bias"] = (params["params"]["sigma"]["bias"]
                                          + np.float32(sigma_bias))
@@ -222,7 +227,7 @@ def test_ray_march_split_widths_match_pallas(width, sigma_bias):
     _close(got, ref)
     rp = kr.prep_params(sd, **{k: FUSED[k] for k in (
         "n_layers", "skip", "n_freqs", "n_freqs_views")})
-    assert rp.width == (384 if width == 300 else 512)
+    assert rp.width == kr.kernel_width(width) and rp.width > 256
     assert kr.march_chunk_error(rp.width, 16, 8) is None
     assert kr.march_chunk_error(rp.width, 16, 6) is not None
     assert kr.march_chunk_error(rp.width, 8, 6) is None
@@ -311,37 +316,51 @@ def test_stated_limits_fit_the_kernels_shared_memory():
     """What kernel_arch_error and SIREN_MAX_WIDTH take fits the kernels'
     shared memory (227 KB a block), and the next step past each limit
     does not: at every NeRF kernel width the shells (a ring of 2 stages)
-    and kernel 6's row pass (64-row CTAs at 384 and 512, where a 128-row
-    one does not fit) with encodings at their limits; at width 256 a
-    direction encoding of 144; above 512 a 64-row warpgroup's input and
-    output tiles and a 2-stage ring; the mma.sync SIREN kernels at their
-    widest width and 32 past it; the warp-specialized SIREN forward, march
-    and saved-mode row pass (siren.py::siren_smem_bytes) at every packed
-    width with a ring of 2 stages or more (at 384 and 512 the column-split
-    shapes; a 128-row row pass does not fit there), refusing 608 (SiNeRF
-    600) and past 768 out of shared memory. NeRF and SiNeRF 257 and 300
-    pack at 384, 512 at 512, on the kernels."""
+    and kernel 6's row pass (64-row CTAs from 384 up, where a 128-row one
+    does not fit) with encodings at their limits; at width 256 a
+    direction encoding of 144; at 768 and 1024 the streamed shells (the
+    same bytes at both widths, a 3-stage ring with both encodings 256 wide
+    and not a 4-stage one) and the streamed row pass, where the 64-row
+    pass's two activation buffers would not fit; the mma.sync SIREN kernels
+    at their widest width and 32 past it; the warp-specialized SIREN
+    forward, march and saved-mode row pass (siren.py::siren_smem_bytes) at
+    every packed width up to 512 with a ring of 2 stages or more (at 384
+    and 512 the column-split shapes; a 128-row row pass does not fit
+    there), refusing 768 (SiNeRF 600) and 1024 out of shared memory. NeRF
+    and SiNeRF 257 and 300 pack at 384, 512 at 512; NeRF 513 packs at 768,
+    769 at 1024, both on the kernels, and 1025 at 1056, refused."""
     lim = kr.SMEM_LIMIT
     for W in kr.NERF_KERNEL_WIDTHS:
         dd = kr.KERNEL_MAX_DIR_AT_256 if W == 256 else kr.KERNEL_MAX_ENC
         assert kr.kernel_arch_error(W, kr.KERNEL_MAX_ENC, dd) is None
         assert kr.shell_smem_bytes(W, kr.KERNEL_MAX_ENC, dd) <= lim
         assert mt.bwd_rows_smem_bytes(W, dd) <= lim
-    for W in kr.SPLIT_WIDTHS:
+    for W in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS:
         assert mt.bwd_rows(W) == 64
         assert mt.bwd_rows_smem_bytes(W, 32, rows=128) > lim
-    assert kr.shell_smem_bytes(768, 64, 32) > lim
-    assert [kr.nerf_kernel_width(w) for w in (257, 300, 384, 385, 512)] == \
-        [384, 384, 384, 512, 512]
-    assert kr.kernel_arch_error(kr.nerf_kernel_width(520), 64, 32) is not None
+    for W in kr.STREAM_WIDTHS:
+        enc = kr.KERNEL_MAX_ENC
+        assert kr.shell_smem_bytes(W, enc, enc, 3) <= lim < \
+            kr.shell_smem_bytes(W, enc, enc, 4)
+        assert kr.shell_smem_bytes(W, 64, 32, 4) <= lim
+        assert kr.shell_smem_bytes(W, enc, enc, 3) == \
+            kr.shell_smem_bytes(1024, enc, enc, 3)
+        assert mt.bwd_rows_smem_bytes(W, 32, rows=64) > lim
+        assert mt.bwd_rows_smem_bytes(W, enc) == \
+            mt.bwd_rows_smem_bytes(1024, 16)
+    assert [kr.nerf_kernel_width(w) for w in (257, 300, 384, 385, 512, 513,
+                                              700, 768, 769, 1024, 1025)] \
+        == [384, 384, 384, 512, 512, 768, 768, 768, 1024, 1024, 1056]
+    assert kr.kernel_arch_error(kr.nerf_kernel_width(1025), 64, 32) \
+        is not None
     assert kr.kernel_arch_error(256, 64, 144) is not None
     assert kr.shell_smem_bytes(256, 256, 144) > lim
     assert mt.bwd_rows_smem_bytes(256, 144) > lim
     assert kr.kernel_arch_error(320, 64, 32) is not None
-    cfg = _train_cfg(520)
+    cfg = _train_cfg(1056)
     line = step.report_module_route(cfg, "cuda")
-    assert line is not None and "width 520 trains and renders through " \
-        "the module" in line and "shared memory" in line
+    assert line is not None and "width 1056 trains and renders through " \
+        "the module" in line and "L2 cache" in line
     assert not step.resolve_fused_kernel(cfg, "cuda")
     for kernel, top in ks.SIREN_MMA_MAX_WIDTH.items():
         assert ks.mma_smem_bytes(top, kernel) <= lim
@@ -349,23 +368,27 @@ def test_stated_limits_fit_the_kernels_shared_memory():
         assert ks.siren_kernel_error(top, kernel) is None
         assert ks.siren_kernel_error(top + 32, kernel) is not None
     assert ks.SIREN_MAX_WIDTH == kr.SPLIT_WIDTHS[-1]
+    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS
     for kernel in ("forward", "march", "backward"):
-        for W in kr.NERF_KERNEL_WIDTHS:
+        for W in siren_widths:
             assert ks.siren_kernel_error(W, kernel) is None
             assert ks.siren_smem_bytes(W, kernel) <= lim
             assert ks.siren_stages(W, kernel) >= 2
         assert ks.siren_smem_bytes(768, kernel, rows=64) > lim
-        assert "shared memory" in ks.siren_kernel_error(
-            kr.kernel_width(600), kernel)
+        for W in (600, 1024):
+            assert kr.kernel_width(W) in kr.STREAM_WIDTHS
+            assert "shared memory" in ks.siren_kernel_error(
+                kr.kernel_width(W), kernel)
     for W in kr.SPLIT_WIDTHS:
         assert ks.siren_smem_bytes(W, "backward", rows=128) > lim
-    assert [ks.siren_stages(W, "backward") for W in kr.NERF_KERNEL_WIDTHS] \
+    assert [ks.siren_stages(W, "backward") for W in siren_widths] \
         == [4, 4, 4, 3, 4, 2]
-    assert [ks.siren_stages(W, "forward") for W in kr.NERF_KERNEL_WIDTHS] \
+    assert [ks.siren_stages(W, "forward") for W in siren_widths] \
         == [4, 4, 4, 4, 4, 3]
     assert [kr.kernel_width(w) for w in (1, 40, 64, 65, 129, 192, 193, 256,
-                                         257, 300, 512, 600)] == \
-        [64, 64, 64, 128, 192, 192, 256, 256, 384, 384, 512, 608]
+                                         257, 300, 512, 600, 1024, 1100)] \
+        == [64, 64, 64, 128, 192, 192, 256, 256, 384, 384, 512, 768, 1024,
+            1120]
     assert kr.nerf_kernel_width is kr.kernel_width
 
 
@@ -386,13 +409,16 @@ def test_cli_trains_at_width_40_through_the_plain_versions(capsys):
 
 
 @pytest.mark.parametrize("model,width,takes", [
-    ("nerf", 300, True), ("nerf", 512, True), ("nerf", 600, False),
-    ("sinerf", 300, True), ("sinerf", 512, True), ("sinerf", 600, False)])
+    ("nerf", 300, True), ("nerf", 512, True), ("nerf", 600, True),
+    ("nerf", 1024, True), ("nerf", 1100, False), ("sinerf", 300, True),
+    ("sinerf", 512, True), ("sinerf", 600, False)])
 def test_wide_routes_on_the_card(model, width, takes, capsys):
-    """The routes on a cuda device, decided without a card: NeRF and SiNeRF
-    300 (packed 384) and 512 resolve to the kernels and print nothing; NeRF
-    and SiNeRF 600 take the module route and print its one line, naming the
-    width and the shared-memory reason; on the CPU nothing is printed."""
+    """The routes on a cuda device, decided without a card: NeRF 300
+    (packed 384), 512, 600 (packed 768) and 1024 and SiNeRF 300 and 512
+    resolve to the kernels and print nothing; NeRF 1100 (packed 1120) and
+    SiNeRF 600 (packed 768) take the module route and print its one line,
+    naming the width and the reason (the NeRF's L2 cache, the SIREN's
+    shared memory); on the CPU nothing is printed."""
     if model == "nerf":
         cfg = _train_cfg(width)
     else:
@@ -410,9 +436,10 @@ def test_wide_routes_on_the_card(model, width, takes, capsys):
                else ks.SirenLayout.from_config(cfg))
         assert (lay.width, lay.model_width) == (kr.kernel_width(width),
                                                 width)
-        assert lay.width in kr.SPLIT_WIDTHS
+        assert lay.width in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
     else:
+        reason = "L2 cache" if model == "nerf" else "shared memory"
         assert line in err and f"{model} width {width} trains and renders " \
-            "through the module" in line and "shared memory" in line
+            "through the module" in line and reason in line
     assert step.kernels_refusal(cfg, "cpu") is None
     assert step.report_module_route(cfg, "cpu") is None
