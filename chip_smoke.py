@@ -20,9 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      mlp_train_fwd_kernel, nerf_density_kernel and nerf_march_kernel at
      the packed width and kernel 6's row and dW passes, and call no NeRF
      module (a forward hook counts its calls); then SiNeRF 8 x 512 (the
-     column-split SIREN kernels): its 20 steps and held-out view must
-     launch siren_fwd_ws_kernel, siren_bwd_rows_ws_kernel and
-     siren_march_kernel at 512 and call the module only for the grid
+     column-split SIREN kernels) and 8 x 1024 (the streamed ones): its 20
+     steps and held-out view must launch siren_fwd_ws_kernel,
+     siren_bwd_rows_ws_kernel and siren_march_kernel at 512 (at 1024
+     their _stream instances) and call the module only for the grid
      refresh's densities (there is no SIREN density kernel);
   3. ray-march kernel vs its plain PyTorch version at full width — NeRF
      8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
@@ -171,24 +172,25 @@ Phases (any failure exits non-zero; nothing is caught):
      generator, the launches), and on the trained weights kernel 1 on a
      val view's NDC samples and kernel 4 on each level's cell centres
      against their plain versions (phase 3's and 14's tolerances);
- 19. the kernels at every width up to 512:
+ 19. the kernels at every width up to 1024:
      a. NeRF 8 layers, skip 4, seeded weights, at widths 40, 96, 192,
-        200, 300 (packed 384) and 512 (n_freqs 10/4) and 256 and 512 with
-        n_freqs 21 (a 129-wide encoding):
+        200, 300 (packed 384), 512, 700 (packed 768) and 1024 (n_freqs
+        10/4) and 256 and 512 with n_freqs 21 (a 129-wide encoding):
         kernel 1 on phase 3's march inputs (its tolerances, equal executed
         steps), kernel 3 at one validation chunk's 393,216 rows and kernel
         4 at one og.update launch's 262,144 (phase 7's and 14's
         tolerances), kernels 5 and 6 at 196,608 rows (phase 5's, saved ==
         recompute bitwise), launch counts from 0; each kernel's CUDA-event
         time beside its plain version's and its bound at the module's own
-        width (the padded work is the kernel's cost), at 300 and 512 also
-        the bf16 module's time on the same rows; ptxas's registers and
+        width (the padded work is the kernel's cost) and the bf16 module's
+        time on the same rows; ptxas's registers and
         spills of every 384 and 512 instance and of kernel 6's 64-row row
         pass;
-     b. SiNeRF 8 layers at 40, 100, 192, 300 (packed 384) and 512: kernels
+     b. SiNeRF 8 layers at 40, 100, 192, 300 (packed 384), 512, 700
+        (packed 768) and 1024: kernels
         7, 8 (both modes) and 2 against their plain versions at 196,608
         rows and phase 3's march inputs (phase 10's and 11's tolerances),
-        each kernel bitwise repeatable (at 384 and 512 recompute mode
+        each kernel bitwise repeatable (from 384 up recompute mode
         bitwise equal to saved mode), its CUDA-event time in each of its
         modes (kernel 7 with and without acts, kernel 8 saved and
         recompute) beside its plain version's, its bound and the bf16
@@ -196,21 +198,24 @@ Phases (any failure exits non-zero; nothing is caught):
         packer's width) the mma.sync forward and march held and timed the
         same way and the backward refused by name; the SIREN kernels' ring
         stages at each width as the C launchers pick them, which must
-        equal siren.py::siren_stages; a SiNeRF and a NeRF of 600 resolve to
-        the module with the printed line (every SIREN kernel refusing it
-        by name), a SiNeRF and a NeRF of 512 to the kernels; ptxas's
-        registers and spills of every width-192 instance and of every
-        SIREN instance at 384 and 512 (which must spill nothing);
-     c. the occgrid training slice (1,500 graphed steps, held-out views) at
-        8 x 192, 8 x 200 and 8 x 512 through the kernels (counts from 0:
+        equal siren.py::siren_stages; a SiNeRF and a NeRF of 1100 resolve
+        to the module with the printed line (every SIREN kernel refusing it
+        by name), a SiNeRF and a NeRF of 512, 600 and 1024 to the kernels;
+        ptxas's registers and spills of every width-192 instance and of
+        every SIREN instance at 384 and 512 and of the streamed ones (which
+        must spill nothing);
+     c. the occgrid training slice (300 graphed steps, held-out views) at
+        8 x 192, 8 x 200, 8 x 512 and 8 x 1024 through the kernels
+        (counts from 0:
         kernels 5 and 6 once per step, kernel 4 at every refresh, kernel 1
         in the eval; no NeRF module call), then the same run through the
         module (fused_kernel and fused_render off, the route these widths
         took before the kernels took them): steps/s and held-out PSNR side
-        by side, each at least 5 dB above the untrained weights', at 512
-        the two within 1 dB; then the same for SiNeRF 8 x 512 at 600 steps
-        (kernels 7 and 8 once per step, kernel 2 in the eval, no SiNeRF
-        module call but the grid refresh's, on the kernels' route);
+        by side, each at least 5 dB above the untrained weights', from 512
+        up the two within 1 dB; then the same for SiNeRF 8 x 512 and 8 x
+        1024 at 200 steps each (kernels 7 and 8 once per step, kernel 2 in
+        the eval, no SiNeRF module call but the grid refresh's, on the
+        kernels' route);
  20. the data-parallel layer (parallel/) at the training slice's full
      width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
      the 8-view 128x128 sphere):
@@ -482,10 +487,11 @@ def ptxas_of(log: str, kernel: str) -> str:
             cur = None
             if kernel in line:
                 width = re.search(r"ILi(\d+)E", line)
-                save = re.search(r"ILi\d+ELb([01])E", line)
-                cur = (f"{kernel}<{width.group(1)}"
-                       + (f", {'true' if save.group(1) == '1' else 'false'}"
-                          if save else "") + ">") if width else kernel
+                save = re.search(r"I(?:Li\d+E)?Lb([01])E", line)
+                args = ([width.group(1)] if width else []) + (
+                    ["true" if save.group(1) == "1" else "false"]
+                    if save else [])
+                cur = f"{kernel}<{', '.join(args)}>" if args else kernel
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return "\n".join(f"  ptxas: {o}" for o in out) or "  ptxas: (no log)"
@@ -3100,21 +3106,24 @@ def jpeg_phase(card, root, png_psnr):
 # units. NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512,
 # 700, 1024 (8 layers, skip 4, n_freqs 10/4) and at 256 and 512 with
 # n_freqs 21 (a 129-wide encoding); SiNeRF: kernels 2, 7, 8 at 40, 100,
-# 192, 300, 512 (8 layers), the mma.sync forward and march at 320 packed at
-# 320, every SIREN kernel refusing 600 (packed 768) by name.
+# 192, 300, 512, 700, 1024 (8 layers), the mma.sync forward and march at
+# 320 packed at 320, every SIREN kernel refusing 1100 (packed 1120) by
+# name.
 WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
               (256, {"n_freqs": 21}), (300, {}), (512, {}),
               (512, {"n_freqs": 21}), (700, {}), (1024, {}))
-WIDTH_SIREN = (40, 100, 192, 300, 512)
+WIDTH_SIREN = (40, 100, 192, 300, 512, 700, 1024)
 # 19c: training runs at 8 x W, each for this many graphed steps (8 x 1024
 # through the module trains at ~22 steps/s: TRAIN_STEPS of it would take
-# ~70 s of the script's time; the earlier widths cut to 600 to make room)
-WIDTH_TRAIN = {192: 600, 200: 600, 512: 600, 1024: 600}
+# ~70 s of the script's time; every width cut to 600 steps to make room,
+# then to 300 for the SiNeRF 8 x 1024 slice)
+WIDTH_TRAIN = {192: 300, 200: 300, 512: 300, 1024: 300}
 WIDTH_ROUTES = (192, 200, 512, 700, 1024)   # 2b: the routes traced
-WIDTH_SIREN_TRAIN = (512,)            # 19c: SiNeRF training at 8 x W
-# ... for this many steps: the module route at 8 x 512 trains at ~14.5
-# steps/s, so TRAIN_STEPS of it would take ~100 s of the script's time
-WIDE_SIREN_STEPS = 600
+# 19c: SiNeRF training at 8 x W for this many graphed steps: the module
+# route trains at ~10 steps/s at 8 x 512 and ~3.3 at 8 x 1024, so
+# TRAIN_STEPS of either would take 150-450 s of the script's time (512 cut
+# from 600 to 200 steps to make room for 1024)
+WIDTH_SIREN_TRAIN = {512: 200, 1024: 200}
 WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
 # 19c from 384 up: the held-out PSNR of the kernels' run against the
 # module's (the same function, bf16 rounded in other places)
@@ -3186,9 +3195,11 @@ def width_routes(cfg, dev, card):
     512 up also a hierarchical held-out eval of the view (kernel 3 on the
     coarse samples, kernel 1 on the fine), its launches counted with the
     run's. At SiNeRF 8 x 512 kernels 7, 8 and 2 (siren_fwd_ws_kernel<512>,
-    siren_bwd_rows_ws_kernel<512> and the dW pass, siren_march_kernel<512>),
-    the SiNeRF module called only for the grid refresh's densities.
-    Returns {packed width: the launch counts of its run} from 512 up."""
+    siren_bwd_rows_ws_kernel<512> and the dW pass, siren_march_kernel<512>)
+    and at 8 x 1024 their streamed instances (siren_fwd_kernel_stream,
+    siren_bwd_rows_kernel_stream, siren_march_kernel_stream), the SiNeRF
+    module called only for the grid refresh's densities. Returns {packed
+    width: the launch counts of its NeRF run} from 512 up."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3247,33 +3258,42 @@ def width_routes(cfg, dev, card):
         if calls.total:
             fail(f"width {W}: the run called the NeRF module "
                  f"{calls.total} times")
-    # SiNeRF 8 x 512 on the column-split SIREN kernels
-    scfg = sinerf_config(train_slice_config(width_cfg(cfg, 512)),
-                         n_iters=WIDTH_ROUTE_STEPS)
-    if not step.resolve_fused_kernel(scfg, dev):
-        fail("SiNeRF 512: the kernels' route did not resolve on the card")
-    model = make_model(scfg, torch.bfloat16,
-                       torch.Generator().manual_seed(6), dev)
-    state = None
+    # SiNeRF 8 x 512 on the column-split SIREN kernels, 8 x 1024 on the
+    # streamed ones
+    for W in (512, 1024):
+        scfg = sinerf_config(train_slice_config(width_cfg(cfg, W)),
+                             n_iters=WIDTH_ROUTE_STEPS)
+        if not step.resolve_fused_kernel(scfg, dev):
+            fail(f"SiNeRF {W}: the kernels' route did not resolve on the "
+                 "card")
+        model = make_model(scfg, torch.bfloat16,
+                           torch.Generator().manual_seed(6), dev)
+        state = None
 
-    def run_siren():
-        nonlocal state
-        state = train(model, scfg, pool, scene, logger=ListLogger(),
-                      log_every=WIDTH_ROUTE_STEPS)
-        cli.evaluate_split(model, og.conservative(state.grid), held, scfg,
-                           device=dev)
+        def run_siren():
+            nonlocal state
+            state = train(model, scfg, pool, scene, logger=ListLogger(),
+                          log_every=WIDTH_ROUTE_STEPS)
+            cli.evaluate_split(model, og.conservative(state.grid), held,
+                               scfg, device=dev)
 
-    with ModuleCalls() as calls:
-        require_kernels(
-            f"2b. {WIDTH_ROUTE_STEPS} SiNeRF train steps and a held-out "
-            "view at 8 x 512", run_siren,
-            ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel",
-             "siren_march_kernel"), 512, plain=SIREN_BWD_PARTS[1:])
-    print(f"2b. SiNeRF 512: module calls {calls.calls} on the MLP, "
-          f"{calls.density_calls} for the grid refresh's densities")
-    if calls.calls:
-        fail(f"SiNeRF 512: the run called the SiNeRF module {calls.calls} "
-             "times on the MLP")
+        names = ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel",
+                 "siren_march_kernel")
+        if W in kr.STREAM_WIDTHS:
+            names, plain = (), tuple(f"{n.replace('_ws', '')}_stream"
+                                     for n in names)
+        else:
+            plain = ()
+        with ModuleCalls() as calls:
+            require_kernels(
+                f"2b. {WIDTH_ROUTE_STEPS} SiNeRF train steps and a held-out "
+                f"view at 8 x {W}", run_siren, names, W,
+                plain=plain + SIREN_BWD_PARTS[1:])
+        print(f"2b. SiNeRF {W}: module calls {calls.calls} on the MLP, "
+              f"{calls.density_calls} for the grid refresh's densities")
+        if calls.calls:
+            fail(f"SiNeRF {W}: the run called the SiNeRF module "
+                 f"{calls.calls} times on the MLP")
     return wide
 
 
@@ -3542,11 +3562,11 @@ def siren_width_case(cfg, dev, march_in, module=False, packed=None):
                                + (L - 1) * W * W) * n,
                         nbytes(xp, dp, dout, params.wpack, params.bpack,
                                params.wtpack, *gk)), worst[0])
-            if K in kr.SPLIT_WIDTHS and not all(torch.equal(u, v) for u, v in
-                                                zip(grads["saved"],
-                                                    grads["recompute"])):
+            if K in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS and not all(
+                    torch.equal(u, v) for u, v in zip(grads["saved"],
+                                                      grads["recompute"])):
                 fail(f"19b. SiNeRF width {W}: recompute mode differs from "
-                     "saved mode at a split width")
+                     "saved mode at a split or streamed width")
     if not refuses("siren_ray_march", lambda: kr.siren_ray_march(
             *padded, params, bR, cs)):
         r = compare(f"19b. SiNeRF width {W} (packed {K}): march",
@@ -3576,12 +3596,19 @@ def siren_width_case(cfg, dev, march_in, module=False, packed=None):
     if module:
         # the nearest cuBLAS route: the bf16 SiNeRF module on each kernel's
         # rows (the march's: every sample of phase 3's inputs, with
-        # volume_render)
+        # volume_render; from 1024 up in W // 512 pieces of rays, as its
+        # f32 activations of every sample at once outgrow the card beside
+        # this phase's tensors), once the acts streams (6.4 GB each at
+        # 1024) are freed
+        fo = fo2 = acts = acts2 = racts = primal = fr = None
+        torch.cuda.empty_cache()
         xm, dirs, t, deltas, mask = padded
         m_params = list(model.parameters())
+        pieces = torch.arange(xm.shape[0], device=dev).chunk(max(1, W // 512))
         with torch.no_grad():
             def module_march():
-                o = model(xm, dirs[:, None, :].expand(xm.shape)).float()
+                o = torch.cat([model(xm[p], dirs[p, None, :].expand(
+                    xm[p].shape)).float() for p in pieces])
                 volume_render(o[..., 3], o[..., :3], t, deltas, mask > 0)
 
             module_ms["siren_ray_march"] = cuda_ms(module_march, 3)
@@ -3610,7 +3637,8 @@ def width_kernels(cfg, dev, card, log, march_in):
     192 in each (ptxas lines of every 192 instance). Returns (the 19a
     numbers of the NeRF kernels at the packed widths 512, 768 and 1024, by
     packed width: {kernel: (ms, plain ms, bound dict, max err)}, the 19b
-    numbers of the SIREN kernels at 512: the report's wide instances)."""
+    numbers of the SIREN kernels at the packed widths 512 and 1024 the
+    same way: the report's wide instances)."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.train import step
 
@@ -3620,7 +3648,7 @@ def width_kernels(cfg, dev, card, log, march_in):
     for W, enc in WIDTH_NERF:
         wcfg = width_cfg(cfg, W, **enc)
         K, out, launches, module_ms = nerf_width_case(
-            wcfg, dev, march_in, module=kr.nerf_kernel_width(W) > 256)
+            wcfg, dev, march_in, module=True)
         print(f"19a. NeRF 8 x {W} (packed {K}), n_freqs "
               f"{wcfg.encoder.n_freqs}/{wcfg.encoder.n_freqs_views} on "
               f"{card}: {width_line(out, module_ms)}; launches {launches}; "
@@ -3645,7 +3673,7 @@ def width_kernels(cfg, dev, card, log, march_in):
                           "mlp_train_bwd_rows_kernel_stream")
         for line in ptxas_of(log, name).splitlines()
         if "Used" in line or "spill stores" in line))
-    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS
+    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
     stages = {k: [(ks.siren_stages(W, k), ks.launcher_stages(W, k))
                   for W in siren_widths]
               for k in ("forward", "march", "backward")}
@@ -3667,8 +3695,8 @@ def width_kernels(cfg, dev, card, log, march_in):
         if refused or {k.split(" ")[0] for k in out} != set(launches):
             fail(f"19b. SiNeRF width {W}: refused {refused}, ran "
                  f"{list(out)}")
-        if K == kr.SPLIT_WIDTHS[-1]:
-            wide = out
+        if K in (kr.SPLIT_WIDTHS[-1], kr.STREAM_WIDTHS[-1]):
+            wide[K] = out
     # 320 packed at 320: the mma.sync forward and march (siren_fwd_kernel,
     # ray_march_kernel<SirenMarch>), which kernel_width no longer packs at,
     # held the same way; the backward refuses by name (the mma.sync row
@@ -3684,29 +3712,29 @@ def width_kernels(cfg, dev, card, log, march_in):
                                               "siren_ray_march"}:
         fail(f"19b. SiNeRF 320 packed at 320: refused {refused}, ran "
              f"{list(out)}")
-    # SiNeRF 600 (packed 768): every SIREN kernel refuses by name; the run
-    # takes the printed module route, as a NeRF of 1100 (packed 1120) does.
-    # SiNeRF 512 and NeRF 512, 600 and 1024 resolve to the kernels.
-    scfg = sinerf_config(width_cfg(cfg, 600))
+    # SiNeRF 1100 (packed 1120): every SIREN kernel refuses by name; the run
+    # takes the printed module route, as a NeRF of 1100 does. SiNeRF and
+    # NeRF 512, 600 and 1024 resolve to the kernels.
+    scfg = sinerf_config(width_cfg(cfg, 1100))
     K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in)
     if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
-        fail(f"19b. SiNeRF width 600: ran {list(out)}, refused {refused}")
+        fail(f"19b. SiNeRF width 1100: ran {list(out)}, refused {refused}")
     line = step.report_module_route(scfg, dev)
     nerf1100 = width_cfg(cfg, 1100)
     line_nerf = step.report_module_route(nerf1100, dev)
     if line is None or step.resolve_fused_kernel(scfg, dev) or \
             line_nerf is None or step.resolve_fused_kernel(nerf1100, dev):
-        fail("SiNeRF 600 or NeRF 1100 did not take the printed module route")
-    for name, ccfg in (("SiNeRF 512", sinerf_config(width_cfg(cfg, 512))),
-                       ("NeRF 512", width_cfg(cfg, 512)),
-                       ("NeRF 600", width_cfg(cfg, 600)),
-                       ("NeRF 1024", width_cfg(cfg, 1024))):
-        line_k = step.report_module_route(ccfg, dev)
-        if line_k is not None or not step.resolve_fused_kernel(ccfg, dev):
-            fail(f"{name} did not resolve to the kernels: {line_k}")
-    print(f"19b. SiNeRF 600 (packed {K}): SIREN forward and march refused "
+        fail("SiNeRF or NeRF 1100 did not take the printed module route")
+    for W in (512, 600, 1024):
+        for name, ccfg in ((f"SiNeRF {W}", sinerf_config(width_cfg(cfg, W))),
+                           (f"NeRF {W}", width_cfg(cfg, W))):
+            line_k = step.report_module_route(ccfg, dev)
+            if line_k is not None or not step.resolve_fused_kernel(ccfg,
+                                                                    dev):
+                fail(f"{name} did not resolve to the kernels: {line_k}")
+    print(f"19b. SiNeRF 1100 (packed {K}): SIREN forward and march refused "
           f"by name, the backward never reached; the route prints: {line}; "
-          f"NeRF 1100: {line_nerf}; SiNeRF 512 and NeRF 512, 600 and 1024 "
+          f"NeRF 1100: {line_nerf}; SiNeRF and NeRF 512, 600 and 1024 "
           "resolve to the kernels")
     print("19b. the width-192 instances:\n" + "\n".join(
         line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
@@ -3723,6 +3751,18 @@ def width_kernels(cfg, dev, card, log, march_in):
         r"[1-9]\d* bytes spill (stores|loads)", line)]
     if len(split) != 2 * 2 * 4 or spills:
         fail(f"19b. the SIREN instances at 384 and 512: {len(split)} ptxas "
+             f"lines, spilling: {spills}")
+    streamed = [line for name in ("siren_fwd_kernel_stream",
+                                  "siren_march_kernel_stream",
+                                  "siren_bwd_rows_kernel_stream")
+                for line in ptxas_of(log, name).splitlines()
+                if "Used" in line or "spill stores" in line]
+    print("19b. the streamed SIREN instances (768 and 1024):\n"
+          + "\n".join(streamed))
+    spills = [line for line in streamed if re.search(
+        r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if len(streamed) != 2 * 4 or spills:
+        fail(f"19b. the streamed SIREN instances: {len(streamed)} ptxas "
              f"lines, spilling: {spills}")
     return nerf_wide, wide
 
@@ -3811,16 +3851,16 @@ def width_train_slices(cfg, dev, card):
 
 
 def siren_width_train_slices(cfg, dev, card):
-    """Phase 19c for SiNeRF: the occgrid training slice (WIDE_SIREN_STEPS
+    """Phase 19c for SiNeRF: the occgrid training slice (WIDTH_SIREN_TRAIN's
     graphed steps, the 8-view 128x128 sphere, then the held-out views) at
-    8 x W for W in WIDTH_SIREN_TRAIN (512: the column-split SIREN kernels)
-    through the kernels, launch counts set to 0 before and read after
-    (kernels 7 and 8 once per step, kernel 2 in the eval), the SiNeRF
-    module called only for the grid refresh's densities; then the same run
-    through the module (fused_kernel and fused_render off: the route a
-    SiNeRF this wide took before the kernels took it): steps/s and
-    held-out PSNR side by side, within WIDE_PSNR_TOL_DB. Returns the launch
-    counts of the kernels' run at the last width."""
+    8 x W for W in WIDTH_SIREN_TRAIN (512: the column-split SIREN kernels,
+    1024: the streamed ones) through the kernels, launch counts set to 0
+    before and read after (kernels 7 and 8 once per step, kernel 2 in the
+    eval), the SiNeRF module called only for the grid refresh's densities;
+    then the same run through the module (fused_kernel and fused_render
+    off: the route a SiNeRF this wide took before the kernels took it):
+    steps/s and held-out PSNR side by side, within WIDE_PSNR_TOL_DB.
+    Returns {packed width: the launch counts of the kernels' run}."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3833,9 +3873,9 @@ def siren_width_train_slices(cfg, dev, card):
     scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
     held = cli.split_of(scene.holdout(n=3, seed=101))
     launches = {}
-    for W in WIDTH_SIREN_TRAIN:
+    for W, n_steps in WIDTH_SIREN_TRAIN.items():
         kcfg = sinerf_config(train_slice_config(width_cfg(cfg, W)),
-                             n_iters=WIDE_SIREN_STEPS)
+                             n_iters=n_steps)
         mcfg = kcfg.replace(model=dataclasses.replace(
             kcfg.model, fused_kernel=False, fused_render=False))
         untrained = make_model(kcfg, torch.bfloat16,
@@ -3892,7 +3932,7 @@ def siren_width_train_slices(cfg, dev, card):
               f"from step 100 on), PSNR {res['kernels'][1]:.3f}; module "
               f"{res['module'][0]:.2f} steps/s ({res['module'][5]:.2f}), "
               f"PSNR {res['module'][1]:.3f}")
-        launches = k_launch
+        launches[kr.kernel_width(W)] = k_launch
     return launches
 
 
@@ -4148,19 +4188,20 @@ def main():
         **volrend,
         "library_ms": None,
     }] + [{
-        # the column-split instances at 512 (phase 19b's numbers; launches
-        # from phase 19c's SiNeRF 8 x 512 slice)
-        "name": f"{name}@512",
+        # the column-split instances at 512 and the streamed ones at 1024
+        # (phase 19b's numbers; launches from phase 19c's SiNeRF 8 x 512 /
+        # 8 x 1024 slice)
+        "name": f"{name}@{K}",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": siren_wide_launches[name],
-        "max_abs_err": siren_wide[name][3],
-        "ms": siren_wide[name][0],
-        "plain_ms": siren_wide[name][1],
-        **siren_wide[name][2],
+        "launches": siren_wide_launches[K][name],
+        "max_abs_err": siren_wide[K][name][3],
+        "ms": siren_wide[K][name][0],
+        "plain_ms": siren_wide[K][name][1],
+        **siren_wide[K][name][2],
         "library_ms": None,
-    } for name, source, replaces in (
+    } for K in sorted(siren_wide) for name, source, replaces in (
         ("siren_ray_march", "fsnerf_tpu_torch/csrc/render.cu",
          "fsnerf_tpu/ops/pallas/render.py:238"),
         ("siren_mlp_fwd", "fsnerf_tpu_torch/csrc/siren.cu",

@@ -4,6 +4,7 @@
 //     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
 //   siren_march_kernel (widths 64, 128, 192, 256, 384, 512;
+//     siren_march_kernel_stream at 768 and 1024;
 //     ray_march_kernel<SirenMarch> at 288 and 320): the raw points and
 //     directions as bf16 (no encoding) + the SiNeRF MLP of
 //     siren_common.cuh. Replaces
@@ -31,11 +32,12 @@
 // on the streamed trunk (nerf_march_kernel_stream), with the same skip
 // decision per block x chunk step. The SIREN march at widths 64, 128,
 // 192 and 256 (siren_march_kernel) is the same shell around the SIREN
-// forward's warp-specialized MLP, and at 384 and 512 the split shell
-// around its column-split MLP (siren_march_consume_split). At 288 and 320,
-// which no packer lays out any more, the SIREN march's shell
-// (ray_march_kernel) is one CTA of 8 warps: per chunk step it
-// stages the rows into shared memory as bf16 and runs every layer on
+// forward's warp-specialized MLP, at 384 and 512 the split shell around
+// its column-split MLP (siren_march_consume_split), and at 768 and 1024 the
+// streamed shell around its streamed MLP (siren_march_kernel_stream). At
+// 288 and 320, which no packer lays out any more, the SIREN march's shell
+// (ray_march_kernel) is one CTA of 8 warps: per chunk step it stages the
+// rows into shared memory as bf16 and runs every layer on
 // mma.sync m16n8k16 (bf16, f32 accumulation), ping-ponging two [128 x
 // width] bf16 activation buffers, the weights (L2-resident) streaming
 // through shared memory in double-buffered 64-row slabs; each chunk's
@@ -941,8 +943,9 @@ int launch_nerf_march_stream(const NerfMarchArgs& m, int W, int trunk_rows,
 // .. 2, zeros to 16), runs the sine trunk and the heads (siren_heads, the
 // rows' ray directions, kept in shared memory, for the rgb head's rank-3
 // term). Widths 64, 128, 192, 256, and 384, 512 on the column-split trunk
-// (siren_march_consume_split); 288 and 320 keep ray_march_kernel<
-// SirenMarch> (its two activation buffers' shared memory).
+// (siren_march_consume_split), 768 and 1024 on the streamed one (below);
+// 288 and 320 keep ray_march_kernel<SirenMarch> (its two activation
+// buffers' shared memory).
 struct SirenMarchArgs {
   Args io;
   Siren m;
@@ -1274,6 +1277,200 @@ int launch_siren_march_w(const SirenMarchArgs& sa, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The SIREN march at a streamed width (768, 1024): siren_march_kernel_stream,
+// nerf_march_kernel_stream's shell (persistent CTAs of one 64-row consumer
+// and a producer, every executed block x chunk step as 64-row halves of
+// whole rays with one skip decision per step, the producer released as
+// march_finish does) around the SIREN forward of siren_fwd_kernel_stream:
+// per half, the rows' points as bf16 into encx (columns 0 .. 2, zeros to
+// 16), the sine trunk streamed through the CTA's scratch slot, then
+// siren_heads_stream with the rows' bf16 directions from dir_rows (the
+// block's, written at its start); encx then holds each row's compositing
+// inputs, composited right after the half.
+__device__ __forceinline__ void siren_march_consume_stream(
+    const SirenMarchArgs& sa, int n_blocks, FwdRing& r, ARing& ar,
+    const StreamTiles& s, const CUtensorMap* map_slab, float* dir_rows,
+    volatile int* done) {
+  const Args& a = sa.io;
+  const int t = threadIdx.x, lane = t & 31, ct = t;
+  const int bR = a.block_rows, cs = a.chunk_s, nrows = bR * cs;
+  const int n_chunks = a.K / cs, n_halves = (nrows + 63) / 64;
+  const int W = sa.m.width, L = sa.m.n_layers;
+  const int bar = 1;                                // the consumer's barrier
+  const int row = t & 63;
+  const bool in0 = row < nrows, in1 = 64 + row < nrows;
+  const FwdShape sh{L, 0, kInPad, 0};
+  const SineActs<false> acts{sa.m.alphas, W};
+  const StreamBufs io{nullptr, map_slab, 0, (int)blockIdx.x * 64, W, L};
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);
+  for (int blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+    const int ray0 = blk * bR;
+    auto sample = [&](int gr, int c) {
+      return (size_t)(ray0 + gr / cs) * a.K + gr % cs + (size_t)c * cs;
+    };
+    // the block's rows' directions (the last block's heads have read
+    // theirs: its last half ended on a barrier); read after the step's
+    // barriers
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir_rows[4 * t + k] =
+          t < nrows ? __bfloat162float(__float2bfloat16_rn(
+                          a.dirs[(size_t)(ray0 + t / cs) * 3 + k]))
+                    : 0.f;
+    RayAcc ray;              // the compositing of ray ct (ct < bR)
+    int executed = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      // exact early exit over the whole chunk step; the first barrier also
+      // ends the last half's compositing reads of encx
+      const bool live0 = in0 && a.mask[sample(row, c)] > 0.f;
+      const bool live1 = in1 && a.mask[sample(64 + row, c)] > 0.f;
+      const bool alive =
+          named_bar_or(kMarchBar, 128, ct < bR && ray.od < a.thresh);
+      const bool valid = named_bar_or(kMarchBar, 128, live0 || live1);
+      if (!(alive && valid)) continue;
+      ++executed;
+      for (int h = 0; h < n_halves; ++h) {
+        const int gr = 64 * h + row;
+        const bool in = h == 0 ? in0 : in1;
+        // the last half's compositing has read encx
+        if (h > 0) named_bar(bar, 128);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (t < 64 && in) {
+          const size_t gi = sample(gr, c);
+          const __nv_bfloat162 p0 =
+              __floats2bfloat162_rn(a.x[gi * 3], a.x[gi * 3 + 1]);
+          const __nv_bfloat162 p1 =
+              __floats2bfloat162_rn(a.x[gi * 3 + 2], 0.f);
+          v.x = *reinterpret_cast<const uint32_t*>(&p0);
+          v.y = *reinterpret_cast<const uint32_t*>(&p1);
+        }
+        *reinterpret_cast<uint4*>(tile_at(s.encx, row, 8 * (t >> 6))) = v;
+        fence_proxy_async();
+        named_bar(bar, 128);
+        float sigma[2], rgb[2][3];
+        {
+          float acc[kStreamCols / 2], unused[2] = {0.f, 0.f};
+          zero_acc(acc);
+          stream_trunk(acc, r, ar, s, sh, W, sa.m.bpack, nullptr, unused,
+                       bar, io, acts);
+          siren_heads_stream(acc, r, ar, s, sa.m,
+                             SharedDirs{dir_rows + 4 * (64 * h + quad_row)},
+                             bar, io, sigma, rgb);
+        }
+        // the trunk's wgmma have retired in every warp: encx is free for
+        // each row's compositing inputs
+        if (t < 64) {
+          float* q = reinterpret_cast<float*>(s.encx + row * kMarchRowBytes);
+          const size_t gi = sample(gr, c);
+          q[4] = in ? a.t[gi] : 0.f;
+          q[5] = in ? a.deltas[gi] : 0.f;
+          q[6] = in ? a.mask[gi] : 0.f;
+        }
+        if ((lane & 3) == 0) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float* q = reinterpret_cast<float*>(
+                s.encx + (quad_row + 8 * k) * kMarchRowBytes);
+            q[0] = sigma[k];
+            q[1] = rgb[k][0];
+            q[2] = rgb[k][1];
+            q[3] = rgb[k][2];
+          }
+        }
+        named_bar(bar, 128);
+        // ray ct's rows start at row ct * cs of the step: in half h
+        if (ct < bR && ct * cs / 64 == h)
+          composite_chunk(s.encx, 0, ct - 64 * h / cs, cs, ray);
+      }
+    }
+    if (ct < bR) {
+      float* out = a.stats + (size_t)(ray0 + ct) * 8;
+      out[0] = ray.r0;
+      out[1] = ray.r1;
+      out[2] = ray.r2;
+      out[3] = ray.opa;
+      out[4] = ray.dep;
+      out[5] = expf(-ray.od);
+      out[6] = 0.f;
+      out[7] = 0.f;
+    }
+    if (ct == 0) a.steps[blk] = executed;
+  }
+  if (r.lead) {              // release the producer, as march_finish
+    for (int k = r.it; k < r.it + r.n_stages; ++k)
+      mbar_wait(&r.full[k % r.n_stages], (k / r.n_stages) & 1);
+    *done = 1;
+    mbar_arrive(&r.empty[r.it % r.n_stages]);
+  }
+}
+
+// grid: min(n_blocks, the scratch's slots) persistent CTAs over the
+// n_blocks ray blocks; block: one consumer warpgroup + the producer's;
+// shared memory stream_carve's with no encd, then the done flag and the
+// rows' directions (kSirenMarchExtra).
+__global__ void __launch_bounds__(256, 1)
+    siren_march_kernel_stream(const __grid_constant__ SirenFwdMaps mp,
+                              const __grid_constant__ CUtensorMap map_slab,
+                              SirenMarchArgs sa, int n_blocks,
+                              int n_stages) {
+  extern __shared__ unsigned char siren_stream_smem_raw[];
+  const StreamTiles s =
+      stream_carve(siren_stream_smem_raw, n_stages, kInPad, 0);
+  volatile int* done = reinterpret_cast<volatile int*>(s.extra);
+  float* dir_rows = reinterpret_cast<float*>(s.extra + 2);
+  fwd_init_barriers(s.full, s.empty, n_stages, s.afull, kStreamAStages, 1);
+  if (threadIdx.x == 0) *done = 0;
+  __syncthreads();
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      while (siren_produce_pass_stream(mp, sa.m.n_layers, sa.m.width,
+                                       s.ring, s.full, s.empty, n_stages, it,
+                                       done)) {
+      }
+    }
+    return;
+  }
+  FwdRing r{smem_u32(s.ring), kStreamStageBytes, s.full, s.empty, n_stages,
+            0, threadIdx.x == 0};
+  ARing ar{smem_u32(s.a), s.a, s.afull, 0};
+  siren_march_consume_stream(sa, n_blocks, r, ar, s, &map_slab, dir_rows,
+                             done);
+}
+
+// The streamed SIREN march's ring (ops/kernels/siren.py::siren_smem_bytes
+// mirrors it).
+int siren_march_stream_stages() {
+  return stream_stages(kInPad, 0, kSirenMarchExtra);
+}
+
+// siren_march_kernel_stream at sa.m.width (768, 1024) on `st`, slab the
+// [slab_ctas * 64, 2 W] bf16 scratch.
+int launch_siren_march_stream(const SirenMarchArgs& sa, int n_rays,
+                              const bf16* slab, int slab_ctas,
+                              cudaStream_t st) {
+  const int W = sa.m.width;
+  SirenFwdMaps mp;
+  CUtensorMap map_slab;
+  if (slab == nullptr || slab_ctas <= 0 ||
+      !encode_siren_fwd_maps(&mp, sa.m.wpack, sa.m.n_layers, W) ||
+      !encode_bf16_map(&map_slab, slab, slab_ctas * 64, 2 * W, 2 * W, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_stages = siren_march_stream_stages();
+  if (n_stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      stream_smem_bytes(kInPad, 0, n_stages) + kSirenMarchExtra;
+  cudaError_t err = cudaFuncSetAttribute(
+      siren_march_kernel_stream, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = n_rays / sa.io.block_rows;
+  if (n_blocks > 0)
+    siren_march_kernel_stream<<<min(n_blocks, slab_ctas), 256, smem, st>>>(
+        mp, map_slab, sa, n_blocks, n_stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 void fill_args(Args& a, const void* x, const void* dirs, const void* t,
                const void* deltas, const void* mask, void* stats, void* steps,
                int K, int block_rows, int chunk_s, float thresh) {
@@ -1358,13 +1555,13 @@ extern "C" int fsnerf_ray_march(
 }
 
 // The SIREN march: wpack / bpack / alphas as ops/kernels/siren.py packs
-// them; the rest as fsnerf_ray_march.
+// them; the rest (slab at 768 and 1024) as fsnerf_ray_march.
 extern "C" int fsnerf_siren_ray_march(
     const void* x, const void* dirs, const void* t, const void* deltas,
     const void* mask, const void* wpack, const void* bpack,
-    const void* alphas, void* stats, void* steps, int n_rays, int K,
-    int block_rows, int chunk_s, int n_layers, int width, float thresh,
-    void* stream) {
+    const void* alphas, void* stats, void* steps, void* slab, int slab_ctas,
+    int n_rays, int K, int block_rows, int chunk_s, int n_layers, int width,
+    float thresh, void* stream) {
   using namespace fsnerf;
   SirenMarchArgs sa;
   fill_args(sa.io, x, dirs, t, deltas, mask, stats, steps, K, block_rows,
@@ -1385,9 +1582,15 @@ extern "C" int fsnerf_siren_ray_march(
         return launch_siren_march_w<256>(sa, n_rays, st);
       case 384:
       case 512:
+      case 768:
+      case 1024:
         // run as 64-row halves of whole rays
         if (block_rows * chunk_s > 64 && 64 % chunk_s != 0)
           return static_cast<int>(cudaErrorInvalidValue);
+        if (stream_width(width))
+          return launch_siren_march_stream(sa, n_rays,
+                                           static_cast<const bf16*>(slab),
+                                           slab_ctas, st);
         return width == 384 ? launch_siren_march_w<384>(sa, n_rays, st)
                             : launch_siren_march_w<512>(sa, n_rays, st);
       default:
@@ -1411,6 +1614,9 @@ extern "C" int fsnerf_siren_march_stages(int width) {
     case 384:
     case 512:
       return fwd_stages(width, kInPad, 0, kSirenMarchExtra);
+    case 768:
+    case 1024:
+      return siren_march_stream_stages();
     default:
       return 0;
   }

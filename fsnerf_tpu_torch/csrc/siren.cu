@@ -6,11 +6,13 @@
 // Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
 // custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
 // siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256 and on the
-// column-split trunk at 384 / 512, else siren_fwd_kernel) and bwd_call
-// (kernel 8; here a row pass, siren_bwd_rows_ws_kernel in saved mode at
-// widths 64 / 128 / 192 / 256 and on 64-row CTAs at 384 / 512, else
-// siren_bwd_rows_kernel, then dw_gemm_kernel and dw_reduce_kernel of
-// train_common.cuh). Plain PyTorch twins: fsnerf_tpu_torch/ops/kernels/
+// column-split trunk at 384 / 512, siren_fwd_kernel_stream on the streamed
+// trunk at 768 / 1024, else siren_fwd_kernel) and bwd_call (kernel 8; here
+// a row pass, siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 /
+// 192 / 256 and on 64-row CTAs at 384 / 512, siren_bwd_rows_kernel_stream
+// at 768 / 1024, else siren_bwd_rows_kernel, then dw_gemm_kernel and
+// dw_reduce_kernel of train_common.cuh). Plain PyTorch twins:
+// fsnerf_tpu_torch/ops/kernels/
 // siren.py::siren_mlp_fwd_reference / siren_mlp_bwd_reference.
 //
 // What bounds them on this card. A row of SiNeRF 8x256 costs ~1.18 MFLOP of
@@ -40,13 +42,15 @@
 // factors a_i cos(a_i y_i) in f32 to scratch, as the TPU kernel holds them
 // f32 (the two modes' gradients differ by that rounding, by design).
 //
-// Two row passes. The main path's, saved mode at width 64, 128, 192, 256,
-// 384 or 512, is siren_bwd_rows_ws_kernel (below): warp-specialized, every
-// product on wgmma fed by TMA, the heads' cotangents in registers.
-// Recompute mode up to width 256 takes siren_bwd_rows_kernel (which fits
-// in shared memory up to there); at 384 and 512 it runs the forward kernel
-// into an acts stream first and then the saved mode's passes, so there its
-// factors are bf16 and its gradients the saved mode's. siren_bwd_rows_kernel
+// Three row passes. The main path's, saved mode at width 64, 128, 192,
+// 256, 384 or 512, is siren_bwd_rows_ws_kernel (below): warp-specialized,
+// every product on wgmma fed by TMA, the heads' cotangents in registers;
+// at 768 and 1024 siren_bwd_rows_kernel_stream (kernel 6's streamed shape,
+// every operand through L2). Recompute mode up to width 256 takes
+// siren_bwd_rows_kernel (which fits in shared memory up to there); from
+// 384 up it runs the forward kernel into an acts stream first and then the
+// saved mode's passes, so there its factors are bf16 and its gradients the
+// saved mode's. siren_bwd_rows_kernel
 // is one CTA of 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
 // __syncthreads(); at width 256 two [128 x 264] bf16 activation buffers
 // (the heads' f32 cos factors borrow one as a [128 x 128] f32 array), a
@@ -381,6 +385,158 @@ cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
   if (err != cudaSuccess) return err;
   kernel<<<n_blocks * (kRows / T::kCtaRows), T::kThreads, smem, st>>>(
       mp, map_x, map_acts, a, n_stages);
+  return cudaGetLastError();
+}
+
+// ---- the forward at the streamed widths 768 and 1024 ------------------
+//
+// siren_fwd_kernel_stream<kSave>: ws_trunk.cuh's streamed trunk with the
+// sine epilogue and siren_common.cuh's streamed heads, on persistent CTAs
+// of one 64-row consumer warpgroup and a producer warpgroup (the NeRF
+// train forward's shell, mlp_train.cu fwd_stream_body), W at run time.
+// Per row tile: its rows of x are loaded by TMA into encx (one 64 x 64
+// block, TMA's zero fill past 16 columns and past N); each trunk layer's
+// 256-column chunks go to device memory, in saved mode h_i straight to the
+// acts stream's columns i W, and its bf16 factors a_i cos(a_i y_i) through
+// one 8 KB staging block (64 columns at a time, as the other widths') to
+// columns (L + i) W: the block keeps the 4-stage weight ring, which a
+// whole 64 x 256 factor tile would cut to 3; without acts (and for feat
+// in either mode) the CTA's slot of render.py::stream_scratch's [SMs x
+// 64, 2 W] scratch holds the layers. Then the heads (siren_heads_stream),
+// the rows' directions in registers, and one float4 [rgb, sigma] store a
+// row. Per row and layer 2 W^2 FLOP against 4 W bytes through L2, so the
+// layers stay compute-bound; in saved mode the acts stream (4 L W bytes a
+// row, 64 KB at 8 x 1024) goes to HBM.
+
+template <bool kSave>
+__device__ __forceinline__ void fwd_stream_consume(
+    const CUtensorMap* map_x, const CUtensorMap* map_acts,
+    const CUtensorMap* map_slab, const SirenTrainArgs& a, FwdRing& r,
+    ARing& ar, const StreamTiles& s, uint64_t* loaded) {
+  const int W = a.m.width, L = a.m.n_layers;
+  const int t = threadIdx.x, lane = t & 31, bar = 1;
+  const int quad_row = 16 * (t >> 5) + (lane >> 2);  // rows quad_row + 8 h
+  const int n_tiles = (a.N + kRows - 1) / kRows * (kRows / 64);
+  int k = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
+    const int row0 = tile * 64;
+    // every warp's products of the last tile have read encx
+    named_bar(bar, 128);
+    if (r.lead) {
+      mbar_arrive_expect_tx(loaded, kBlock);
+      tma_load_2d(s.encx, map_x, loaded, 0, row0);
+    }
+    const StreamBufs io{kSave ? map_acts : nullptr, map_slab, row0,
+                        (int)blockIdx.x * 64, W, L};
+    const SineActs<kSave> acts{a.m.alphas, W,   s.encd, map_acts,
+                               L * W,      row0, bar,    r.lead};
+    mbar_wait(loaded, k & 1);
+    float sigma[2], rgb[2][3];
+    {
+      float acc[kStreamCols / 2], unused[2] = {0.f, 0.f};
+      zero_acc(acc);
+      stream_trunk(acc, r, ar, s, FwdShape{L, 0, kInPad, 0}, W, a.m.bpack,
+                   nullptr, unused, bar, io, acts);
+      RowDirs dir;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = row0 + quad_row + 8 * h;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          dir.v[h][c] = g < a.N
+                            ? __bfloat162float(a.d[(size_t)g * kInPad + c])
+                            : 0.f;
+      }
+      siren_heads_stream(acc, r, ar, s, a.m, dir, bar, io, sigma, rgb);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = row0 + quad_row + 8 * h;
+      if ((lane & 3) == 0 && g < a.N)
+        reinterpret_cast<float4*>(a.out)[g] =
+            make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sigma[h]);
+    }
+  }
+  if (r.lead) bulk_wait<0>();           // the saved activations are written
+}
+
+// grid: min(row tiles, the scratch's slots) persistent CTAs; block: one
+// consumer warpgroup + the producer's. Shared memory: stream_carve's, its
+// encd block (in saved mode) the factors' staging block, its first extra
+// barrier the row tile's input load. map_acts is read only with kSave.
+template <bool kSave>
+__global__ void __launch_bounds__(256, 1)
+    siren_fwd_kernel_stream(const __grid_constant__ SirenFwdMaps mp,
+                            const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_acts,
+                            const __grid_constant__ CUtensorMap map_slab,
+                            SirenTrainArgs a, int n_stages) {
+  extern __shared__ unsigned char fwd_stream_smem_raw[];
+  const StreamTiles s =
+      stream_carve(fwd_stream_smem_raw, n_stages, kInPad, kSave ? 64 : 0);
+  fwd_init_barriers(s.full, s.empty, n_stages, s.afull, kStreamAStages + 1,
+                    1);
+  __syncthreads();
+  const int W = a.m.width, L = a.m.n_layers;
+  const int n_tiles = (a.N + kRows - 1) / kRows * (kRows / 64);
+  if (threadIdx.x >= 128) {                        // the producer
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        siren_produce_pass_stream(mp, L, W, s.ring, s.full, s.empty,
+                                  n_stages, it, nullptr);
+    }
+    return;
+  }
+  FwdRing r{smem_u32(s.ring), kStreamStageBytes, s.full, s.empty, n_stages,
+            0, threadIdx.x == 0};
+  ARing ar{smem_u32(s.a), s.a, s.afull, 0};
+  fwd_stream_consume<kSave>(&map_x, &map_acts, &map_slab, a, r, ar, s,
+                            s.extra);
+}
+
+// The streamed forward's extra shared memory past its barriers: the row
+// tile's input barrier.
+constexpr size_t kFwdStreamExtra = 16;
+
+// The ring the streamed forward runs (saved mode or not): the deepest up
+// to 4 stages that fits (ops/kernels/siren.py::siren_smem_bytes mirrors
+// it).
+int fwd_stream_stages(bool save) {
+  return stream_stages(kInPad, save ? 64 : 0, kFwdStreamExtra);
+}
+
+// The streamed forward on `st`, slab the [slab_ctas * 64, 2 W] bf16
+// scratch. Every row up to round_up(N, 128) is computed (rows past N on
+// zero inputs), as the backward's passes read them.
+cudaError_t launch_fwd_stream(const SirenTrainArgs& a, const bf16* slab,
+                              int slab_ctas, cudaStream_t st) {
+  const int W = a.m.width, L = a.m.n_layers;
+  const int n_rows = (a.N + kRows - 1) / kRows * kRows;
+  const bool save = a.acts != nullptr;
+  SirenFwdMaps mp;
+  CUtensorMap map_x, map_acts, map_slab;
+  if (slab == nullptr || slab_ctas <= 0 ||
+      !encode_siren_fwd_maps(&mp, a.m.wpack, L, W) ||
+      !encode_bf16_map(&map_x, a.x, a.N, kInPad, kInPad, 64) ||
+      !encode_bf16_map(&map_slab, slab, slab_ctas * 64, 2 * W, 2 * W, 64))
+    return cudaErrorInvalidValue;
+  if (!save)
+    map_acts = map_slab;                           // unread
+  else if (!encode_bf16_map(&map_acts, a.acts, n_rows, a.lda, a.lda, 64))
+    return cudaErrorInvalidValue;
+  const int n_stages = fwd_stream_stages(save);
+  if (n_stages == 0) return cudaErrorInvalidValue;
+  const size_t smem =
+      stream_smem_bytes(kInPad, save ? 64 : 0, n_stages) + kFwdStreamExtra;
+  const auto kernel = save ? siren_fwd_kernel_stream<true>
+                           : siren_fwd_kernel_stream<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<min(n_rows / 64, slab_ctas), 256, smem, st>>>(
+      mp, map_x, map_acts, map_slab, a, n_stages);
   return cudaGetLastError();
 }
 
@@ -1420,6 +1576,342 @@ cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
   return cudaGetLastError();
 }
 
+// ---- the saved-mode row pass at the streamed widths 768 and 1024 -------
+//
+// siren_bwd_rows_kernel_stream: the outputs of siren_bwd_rows_ws_kernel
+// (xs, dy, pbias) on kernel 6's streamed shape (mlp_train.cu
+// mlp_train_bwd_rows_kernel_stream): 64-row CTAs of one warpgroup, every
+// product streaming its A operand and its weights by cp.async through
+// train_common.cuh's ring (stream_rows_gemm), 128 output columns at a time
+// through the tile C to where the weight-gradient pass reads them, each
+// chunk's column sums of the f32 values to the bias partials (the four
+// warps' in order, pbias[blockIdx] of n_pad / 64 rows). In walk order:
+//   - x | d to xs; the rows' directions and output cotangents to
+//     registers (rows 16 warp + lane / 4 + 8 h, the accumulator's);
+//   - ys = h_{L-1} W_s0 + b_s0 (h from the acts stream), chunk by chunk:
+//     s_s to xs and this thread's sigma partial dots; then sigma_pre, dsig
+//     (the sigma_pre > 0 gate) and dsig_b, and the same chunks again for
+//     dys = (dsig_b w_s1) cos(ys) to dy: a second product, where the other
+//     widths keep cos(ys) in registers (here Wh / 2 = 256 of them a thread
+//     at 1024);
+//   - feat = bf16(h W_f + b_f) to xs (stream_rows_product);
+//   - yr = feat W_r0f + d W_r0d + b_r0 (feat back from xs, the directions'
+//     term the rank-3 update of the other widths): s_r to xs and the rgb
+//     partial dots; drgb and drgb_b; the chunks again for dyr = (drgb_b
+//     w_r1^T) cos(yr) to dy;
+//   - dfeat = dyr_b W_r0f^T to dy, then dy_{L-1} = (dfeat_b W_f^T + dys_b
+//     W_s0^T) * factor_{L-1} and dy_{i-1} = (dy_i_b W_i^T) * factor_{i-1}
+//     to dy, each chunk's bf16 factors a_i cos(a_i y_i) prefetched from
+//     the acts stream into C with the product's first stage (where kernel
+//     6 prefetches the activations for ReLU').
+// The heads' forward products read their weights [K, N] N-major (wgmma's
+// transposed B), the cotangent products [N, K] K-major, from wpack alone.
+// Per row 2 (L - 1) W^2 + 5.5 W^2 MACs (the two heads' products run twice)
+// against ~4 W bytes of operands a product through L2. Shared memory:
+// stream_rows_smem_bytes (the NeRF pass's head floats unused), 2 CTAs an
+// SM.
+
+// grid: one CTA per 64 rows up to round_up(N, 128); block: 128 threads.
+__global__ void __launch_bounds__(128, 1)
+    siren_bwd_rows_kernel_stream(SirenTrainArgs a) {
+  constexpr int R = 64, T = 128, NC = kBwdPassCols;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* C = reinterpret_cast<bf16*>(ring + kStreamRowStages *
+                                               kStreamRowStageBytes);
+  // four warps' column sums of a chunk, where kernel 6's layout has them
+  // (past its heads' floats: stream_rows_smem_bytes)
+  float* colpart = reinterpret_cast<float*>(C + R * kStreamRowLdc) + 7 * R;
+  const Siren& m = a.m;
+  const int W = m.width, Wh = W / 2, L = m.n_layers;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int qrow = 16 * (tid >> 5) + (lane >> 2);   // rows qrow + 8 h
+  const int XW = 2 * kInPad + 2 * W, DYW = L * W + 2 * W + 16;
+  const int xs_ss = 2 * kInPad, xs_feat = xs_ss + Wh, xs_sr = xs_feat + W;
+  const int dy_s = L * W, dy_f = dy_s + Wh, dy_r = dy_f + W;
+  const int dy_sig = dy_r + Wh;
+  const int r0 = blockIdx.x * R;
+  float* pb = a.pbias + (size_t)blockIdx.x * (L * W + Wh + 1 + W + Wh + 3);
+  float* cp = colpart + (tid >> 5) * NC;      // this warp's column sums
+  // C's rows out to columns col.. of out (and with pb_off >= 0 the
+  // chunk's column sums to pb[pb_off ..]), once every warp has written
+  auto chunk_out = [&](bf16* out, int ld, int col, int pb_off) {
+    __syncthreads();
+    if (pb_off >= 0) store_colsums<T>(colpart, pb, pb_off, NC, NC, 4);
+    rows_to_global<R>(C, kStreamRowLdc, out, ld, r0, col, NC);
+    __syncthreads();
+  };
+  auto c_at = [&](int h, int lc) {
+    return reinterpret_cast<__nv_bfloat162*>(C + (qrow + 8 * h) *
+                                                     kStreamRowLdc + lc);
+  };
+
+  for (int e = tid; e < R * 4; e += T) {        // x | d to xs
+    const int row = e >> 2, c = e & 3, g = r0 + row;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g < a.N)
+      v = reinterpret_cast<const uint4*>(c < 2 ? a.x : a.d)[(size_t)g * 2 +
+                                                            (c & 1)];
+    *reinterpret_cast<uint4*>(a.xs + (size_t)g * XW + 8 * c) = v;
+  }
+  float dir[2][3], dout[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = r0 + qrow + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dir[h][k] =
+          g < a.N ? __bfloat162float(a.d[(size_t)g * kInPad + k]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dout[h][c] = g < a.N ? a.dout[(size_t)g * 4 + c] : 0.f;
+  }
+
+  // sigma head: ys = h W_s0 + b_s0 (the forward pass, then dys)
+  const RowSeg ys_seg[1] = {{a.acts + (L - 1) * W, a.lda, m.ws0(), Wh, W}};
+  const float* b_s0 = m.bpack + m.ob_s0();
+  const bf16* w_s1 = m.ws1();
+  float dsig[2], dsig_b[2];
+  {
+    float sp[2] = {0.f, 0.f};
+    for (int n0 = 0; n0 < Wh; n0 += NC) {
+      float acc[64];
+      stream_rows_gemm<true>(acc, ys_seg, 1, n0, Wh, r0, ring, nullptr, 0,
+                             C);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int lc = 8 * j + 2 * (lane & 3), col = n0 + lc;
+        const float b0 = b_s0[col], b1 = b_s0[col + 1];
+        const float w0 = __bfloat162float(w_s1[col]);
+        const float w1 = __bfloat162float(w_s1[col + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+          const float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+          const __nv_bfloat162 p =
+              __floats2bfloat162_rn(sin_fast(y0), sin_fast(y1));
+          sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
+          *c_at(h, lc) = p;
+        }
+      }
+      chunk_out(a.xs, XW, xs_ss + n0, -1);
+    }
+    const float b_s1 = m.bpack[m.ob_s1()];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = quad_sum(sp[h]) + b_s1;
+      dsig[h] = v > 0.f ? dout[h][3] : 0.f;    // 0 past N
+      dsig_b[h] = __bfloat162float(__float2bfloat16_rn(dsig[h]));
+    }
+  }
+  warp_rowsum(dsig, cp, 0);
+  if ((lane & 3) == 0) {                       // dsig_b as a dY operand
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(dsig_b[h], 0.f);
+      *reinterpret_cast<uint4*>(a.dy + (size_t)(r0 + qrow + 8 * h) * DYW +
+                                dy_sig) =
+          make_uint4(*reinterpret_cast<const uint32_t*>(&p), 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();
+  store_colsums<T>(colpart, pb, m.ob_s1(), 1, NC, 4);     // b_s1
+  __syncthreads();
+  for (int n0 = 0; n0 < Wh; n0 += NC) {        // dys = (dsig_b w_s1) cos(ys)
+    float acc[64];
+    stream_rows_gemm<true>(acc, ys_seg, 1, n0, Wh, r0, ring, nullptr, 0, C);
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3), col = n0 + lc;
+      const float b0 = b_s0[col], b1 = b_s0[col + 1];
+      const float w0 = __bfloat162float(w_s1[col]);
+      const float w1 = __bfloat162float(w_s1[col + 1]);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 =
+            __fmul_rn(__fmul_rn(dsig_b[h], w0),
+                      cos_fast(__fadd_rn(acc[4 * j + 2 * h], b0)));
+        const float v1 =
+            __fmul_rn(__fmul_rn(dsig_b[h], w1),
+                      cos_fast(__fadd_rn(acc[4 * j + 2 * h + 1], b1)));
+        s0 += v0;
+        s1 += v1;
+        *c_at(h, lc) = __floats2bfloat162_rn(v0, v1);
+      }
+      warp_colsum(s0, s1, cp, lc);
+    }
+    chunk_out(a.dy, DYW, dy_s + n0, m.ob_s0() + n0);
+  }
+
+  // feat = bf16(h W_f + b_f) to xs
+  {
+    const RowSeg seg[1] = {{a.acts + (L - 1) * W, a.lda, m.wf(), W, W}};
+    stream_rows_product<true>(seg, 1, W, r0, ring, C, nullptr, 0,
+                              RowChunkOut{m.bpack + m.ob_f(), false, false,
+                                          nullptr, nullptr, nullptr},
+                              a.xs, XW, xs_feat, nullptr, 0);
+  }
+
+  // rgb head: yr = feat W_r0f + d W_r0d + b_r0 (the forward pass, then dyr)
+  const RowSeg yr_seg[1] = {{a.xs + xs_feat, XW, m.wr0f(), Wh, W}};
+  const float* b_r0 = m.bpack + m.ob_r0();
+  const bf16* w_r0d = m.wr0d();
+  const bf16* w_r1 = m.wr1();
+  // yr of element e (column col) of this thread's row h, from acc
+  auto yr_of = [&](float v, int h, int col) {
+    const float dterm = __fadd_rn(
+        __fadd_rn(__fmul_rn(dir[h][0], __bfloat162float(w_r0d[col])),
+                  __fmul_rn(dir[h][1], __bfloat162float(w_r0d[Wh + col]))),
+        __fmul_rn(dir[h][2], __bfloat162float(w_r0d[2 * Wh + col])));
+    return __fadd_rn(__fadd_rn(v, dterm), b_r0[col]);
+  };
+  float drgb_b[2][3];
+  {
+    float rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+    for (int n0 = 0; n0 < Wh; n0 += NC) {
+      float acc[64];
+      stream_rows_gemm<true>(acc, yr_seg, 1, n0, Wh, r0, ring, nullptr, 0,
+                             C);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int lc = 8 * j + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float sv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + lc + e;
+            sv[e] = __bfloat162float(__float2bfloat16_rn(
+                sin_fast(yr_of(acc[4 * j + 2 * h + e], h, col))));
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              rp[h][k] += sv[e] * __bfloat162float(w_r1[3 * col + k]);
+          }
+          *c_at(h, lc) = __floats2bfloat162_rn(sv[0], sv[1]);
+        }
+      }
+      chunk_out(a.xs, XW, xs_sr + n0, -1);
+    }
+    const float* b_r1 = m.bpack + m.ob_r1();
+    float drgb[3][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = quad_sum(rp[h][c]) + b_r1[c];
+        const float rr = 1.f / (1.f + expf(-v));
+        drgb[c][h] = dout[h][c] * rr * (1.f - rr);     // 0 past N
+        drgb_b[h][c] = __bfloat162float(__float2bfloat16_rn(drgb[c][h]));
+      }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) warp_rowsum(drgb[c], cp, c);
+  }
+  if ((lane & 3) == 0) {                       // drgb_b as a dY operand
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p0 =
+          __floats2bfloat162_rn(drgb_b[h][0], drgb_b[h][1]);
+      const __nv_bfloat162 p1 = __floats2bfloat162_rn(drgb_b[h][2], 0.f);
+      *reinterpret_cast<uint4*>(a.dy + (size_t)(r0 + qrow + 8 * h) * DYW +
+                                dy_sig + 8) =
+          make_uint4(*reinterpret_cast<const uint32_t*>(&p0),
+                     *reinterpret_cast<const uint32_t*>(&p1), 0u, 0u);
+    }
+  }
+  __syncthreads();
+  store_colsums<T>(colpart, pb, m.ob_r1(), 3, NC, 4);     // b_r1
+  __syncthreads();
+  for (int n0 = 0; n0 < Wh; n0 += NC) {   // dyr = (drgb_b w_r1^T) cos(yr)
+    float acc[64];
+    stream_rows_gemm<true>(acc, yr_seg, 1, n0, Wh, r0, ring, nullptr, 0, C);
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int lc = 8 * j + 2 * (lane & 3);
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + lc + e;
+          const float p = __fadd_rn(
+              __fadd_rn(
+                  __fmul_rn(drgb_b[h][0], __bfloat162float(w_r1[3 * col])),
+                  __fmul_rn(drgb_b[h][1],
+                            __bfloat162float(w_r1[3 * col + 1]))),
+              __fmul_rn(drgb_b[h][2], __bfloat162float(w_r1[3 * col + 2])));
+          v[e] = __fmul_rn(p, cos_fast(yr_of(acc[4 * j + 2 * h + e], h,
+                                             col)));
+          s[e] += v[e];
+        }
+        *c_at(h, lc) = __floats2bfloat162_rn(v[0], v[1]);
+      }
+      warp_colsum(s[0], s[1], cp, lc);
+    }
+    chunk_out(a.dy, DYW, dy_r + n0, m.ob_r0() + n0);
+  }
+
+  // dfeat = dyr_b W_r0f^T (feat has no activation)
+  {
+    const RowSeg seg[1] = {{a.dy + dy_r, DYW, m.wr0f(), Wh, Wh}};
+    stream_rows_product<false>(seg, 1, W, r0, ring, C, nullptr, 0,
+                               RowChunkOut{nullptr, false, false, nullptr,
+                                           nullptr, colpart},
+                               a.dy, DYW, dy_f, pb, m.ob_f());
+  }
+  // dy_{L-1} = (dfeat_b W_f^T + dys_b W_s0^T) * factor_{L-1}, then dy_{i-1}
+  // = (dy_i_b W_i^T) * factor_{i-1}, the factors prefetched into C
+  for (int i = L; i >= 1; --i) {
+    const RowSeg segs[2] = {
+        i == L ? RowSeg{a.dy + dy_f, DYW, m.wf(), W, W}
+               : RowSeg{a.dy + i * W, DYW, m.t(i), W, W},
+        {a.dy + dy_s, DYW, m.ws0(), Wh, Wh}};
+    const bf16* fac = a.acts + (size_t)(L + i - 1) * W;
+    for (int n0 = 0; n0 < W; n0 += NC) {
+      float acc[64];
+      stream_rows_gemm<false>(acc, segs, i == L ? 2 : 1, n0, W, r0, ring,
+                              fac, a.lda, C);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int lc = 8 * j + 2 * (lane & 3);
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 f = *c_at(h, lc);
+          const float v0 = __fmul_rn(acc[4 * j + 2 * h], __low2float(f));
+          const float v1 =
+              __fmul_rn(acc[4 * j + 2 * h + 1], __high2float(f));
+          s0 += v0;
+          s1 += v1;
+          *c_at(h, lc) = __floats2bfloat162_rn(v0, v1);
+        }
+        warp_colsum(s0, s1, cp, lc);
+      }
+      chunk_out(a.dy, DYW, (i - 1) * W + n0, (i - 1) * W + n0);
+    }
+  }
+}
+
+// The streamed row pass's ring (ops/kernels/siren.py::siren_stages
+// mirrors it), or 0 if it does not fit.
+int stream_rows_stages() {
+  return stream_rows_smem_bytes() <= kMaxSmem ? kStreamRowStages : 0;
+}
+
+cudaError_t launch_bwd_rows_stream(const SirenTrainArgs& a, int n_blocks,
+                                   cudaStream_t st) {
+  const size_t smem = stream_rows_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      siren_bwd_rows_kernel_stream,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  siren_bwd_rows_kernel_stream<<<n_blocks * (kRows / 64), 128, smem, st>>>(
+      a);
+  return cudaGetLastError();
+}
+
 // The ring launch_fwd_ws (kernel 0: saved mode, 1: without acts) or
 // launch_bwd_rows_ws (2) runs at width W with L layers.
 template <int W>
@@ -1448,12 +1940,14 @@ void fill_args(SirenTrainArgs& a, const void* x, const void* d,
 // allocates every output and scratch buffer. Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched).
 
-// out [n, 4]; acts [round_up(n, 128), 2 n_layers width] or null.
+// out [n, 4]; acts [round_up(n, 128), 2 n_layers width] or null; at the
+// streamed widths 768 and 1024 slab [slab_ctas * 64, 2 width] bf16
+// scratch (null elsewhere).
 extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
                                 const void* wpack, const void* bpack,
                                 const void* alphas, void* out, void* acts,
-                                int n, int n_layers, int width,
-                                void* stream) {
+                                void* slab, int slab_ctas, int n,
+                                int n_layers, int width, void* stream) {
   using namespace fsnerf;
   SirenTrainArgs a;
   fill_args(a, x, d, wpack, bpack, alphas, n, n_layers, width);
@@ -1464,8 +1958,11 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
   // widths 64, 128, 192 and 256 on the warp-specialized kernel, 384 and
-  // 512 on its column-split shape, others (multiples of 32 up to 320) on
-  // siren_fwd_kernel
+  // 512 on its column-split shape, 768 and 1024 on the streamed one,
+  // others (multiples of 32 up to 320) on siren_fwd_kernel
+  if (stream_width(width))
+    return static_cast<int>(launch_fwd_stream(
+        a, static_cast<const bf16*>(slab), slab_ctas, st));
   switch (width) {
     case 64:
       return static_cast<int>(launch_fwd_ws<64>(a, n_blocks, st));
@@ -1495,19 +1992,20 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
 // Saved mode (cfs and fwd_out null): acts is the forward's [n_pad, lda = 2
 // L W] stream. Recompute mode up to width 256 (cfs given): acts [n_pad, lda
 // = L W] bf16 and cfs [n_pad, L W] f32 are scratch the row pass writes.
-// Recompute mode at 384 and 512 (fwd_out given, [n, 4] f32 scratch): the
+// Recompute mode from 384 up (fwd_out given, [n, 4] f32 scratch): the
 // forward kernel first writes acts [n_pad, lda = 2 L W] (its bf16
-// factors), then the saved mode's passes run. xs, dy, pbias ([n_pad / R,
-// n_b]: R = 128, or 64 at 384 and 512) and part are scratch of the shapes
+// factors; at 768 and 1024 through slab, [slab_ctas * 64, 2 W] bf16
+// scratch), then the saved mode's passes run. xs, dy, pbias ([n_pad / R,
+// n_b]: R = 128, or 64 from 384 up) and part are scratch of the shapes
 // documented in SirenTrainArgs and train_common.cuh::dw_gemm_kernel; jobs
 // [n_jobs, 6] and tiles [n_tiles, 3] int32 (ops/kernels/siren.py::dw_jobs).
 extern "C" int fsnerf_siren_bwd(
     const void* x, const void* d, const void* dout, const void* wpack,
     const void* bpack, const void* wtpack, const void* alphas, void* acts,
-    int lda, void* cfs, void* fwd_out, void* xs, void* dy, void* pbias,
-    const void* jobs, const void* tiles, int n_tiles, void* part,
-    int split_rows, void* dw, void* db, int n, int n_layers, int width,
-    void* stream) {
+    int lda, void* cfs, void* fwd_out, void* slab, int slab_ctas, void* xs,
+    void* dy, void* pbias, const void* jobs, const void* tiles, int n_tiles,
+    void* part, int split_rows, void* dw, void* db, int n, int n_layers,
+    int width, void* stream) {
   using namespace fsnerf;
   SirenTrainArgs a;
   fill_args(a, x, d, wpack, bpack, alphas, n, n_layers, width);
@@ -1523,21 +2021,25 @@ extern "C" int fsnerf_siren_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
+  const bool streamed = stream_width(width);
   const bool split = width == 384 || width == 512;
+  const bool rows64 = split || streamed;        // 64-row row-pass CTAs
   cudaError_t err;
-  if (fwd_out != nullptr) {      // recompute mode at 384 / 512
-    if (!split || a.recompute || lda != 2 * n_layers * width)
+  if (fwd_out != nullptr) {      // recompute mode from 384 up
+    if (!rows64 || a.recompute || lda != 2 * n_layers * width)
       return static_cast<int>(cudaErrorInvalidValue);
     a.out = static_cast<float*>(fwd_out);
-    err = width == 384 ? launch_fwd_ws<384>(a, n_blocks, st)
-                       : launch_fwd_ws<512>(a, n_blocks, st);
+    err = streamed ? launch_fwd_stream(a, static_cast<const bf16*>(slab),
+                                       slab_ctas, st)
+          : width == 384 ? launch_fwd_ws<384>(a, n_blocks, st)
+                         : launch_fwd_ws<512>(a, n_blocks, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // the row pass: saved mode at width 64, 128, 192, 256, 384 or 512 on the
   // warp-specialized kernel (384, 512: its 64-row split shape), where its
   // shared memory fits (up to 256 a ring of 2 stages or more beside the
-  // bias partials); recompute mode (f32 factors) up to 256 and other
-  // widths on siren_bwd_rows_kernel
+  // bias partials), at 768 and 1024 on the streamed one; recompute mode
+  // (f32 factors) up to 256 and other widths on siren_bwd_rows_kernel
   const int Wh = width / 2, L = n_layers;
   const int n_b = siren_n_bias(L, width);
   const bool ws = !a.recompute && (width == 64    ? ws_bwd_stages<64>(n_b)
@@ -1547,8 +2049,11 @@ extern "C" int fsnerf_siren_bwd(
                                    : width == 384 ? ws_bwd_stages<384>(n_b)
                                    : width == 512 ? ws_bwd_stages<512>(n_b)
                                                   : 0) > 0;
-  if (split && !ws) return static_cast<int>(cudaErrorInvalidValue);
-  if (ws) {
+  if ((split && !ws) || (streamed && a.recompute))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (streamed) {
+    err = launch_bwd_rows_stream(a, n_blocks, st);
+  } else if (ws) {
     err = width == 64    ? launch_bwd_rows_ws<64>(a, n_blocks, st)
           : width == 128 ? launch_bwd_rows_ws<128>(a, n_blocks, st)
           : width == 192 ? launch_bwd_rows_ws<192>(a, n_blocks, st)
@@ -1574,16 +2079,20 @@ extern "C" int fsnerf_siren_bwd(
       L * width + 2 * width + 16, static_cast<const int*>(tiles), n_tiles,
       static_cast<const int*>(jobs), static_cast<float*>(part), n_w,
       split_rows, static_cast<const float*>(pbias),
-      split ? 2 * n_blocks : n_blocks, n_b, 0, static_cast<float*>(dw),
-      static_cast<float*>(db), st, split ? 64 : kRows));
+      rows64 ? 2 * n_blocks : n_blocks, n_b, 0, static_cast<float*>(dw),
+      static_cast<float*>(db), st, rows64 ? 64 : kRows));
 }
 
 // The ring of stages the warp-specialized forward (kernel 0: saved mode, 1:
 // without acts) or saved-mode row pass (2) launches with at a packed width
-// and n_layers (the launchers' own arithmetic), or 0 where that width has
-// no warp-specialized instance or a ring of 2 does not fit.
+// and n_layers (the launchers' own arithmetic; at 768 and 1024 the
+// streamed forward's weight ring and the streamed row pass's cp.async
+// ring), or 0 where that width has no warp-specialized instance or a ring
+// of 2 does not fit.
 extern "C" int fsnerf_siren_stages(int width, int kernel, int n_layers) {
   using namespace fsnerf;
+  if (stream_width(width))
+    return kernel == 2 ? stream_rows_stages() : fwd_stream_stages(kernel == 0);
   switch (width) {
     case 64:
       return ws_stages<64>(kernel, n_layers);

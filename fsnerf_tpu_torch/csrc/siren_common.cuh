@@ -8,8 +8,9 @@
 // warp-specialized shape (SineAct, siren_produce_pass, siren_heads, at the
 // end: ws_trunk.cuh's producer, ring, products and epilogue with a sine
 // activation) serves the forward and the march at widths 64, 128, 192 and
-// 256, and on the column-split trunk (siren_produce_pass_split,
-// siren_heads_split) at 384 and 512.
+// 256, on the column-split trunk (siren_produce_pass_split,
+// siren_heads_split) at 384 and 512, and on the streamed trunk
+// (siren_produce_pass_stream, siren_heads_stream) at 768 and 1024.
 //
 // Numerics, as the TPU kernels (fsnerf_tpu/ops/pallas/siren.py::_fwd_siren,
 // _heads_siren): bf16 operands and f32 accumulation; the f32 bias is added
@@ -400,17 +401,18 @@ struct SharedDirs {
 // thread's rows 16 warp + lane / 4 + 8 h: sigma[h] = relu(s_s . w_s1 +
 // b_s1) with s_s = bf16(sin(acc_s + b_s0)), per-thread dots over its
 // columns and two quad shuffles.
-template <int Wh, int NACC>
-__device__ __forceinline__ void siren_sigma_out(const float (&acc_s)[NACC],
-                                                const Siren& m,
-                                                float (&sigma)[2]) {
+// ... its partial dots over NJ column blocks from column c0 (acc_s's
+// first NJ blocks: a chunk of the streamed heads), added to sp[h].
+template <int NJ, int NACC>
+__device__ __forceinline__ void siren_sigma_part(const float (&acc_s)[NACC],
+                                                 const Siren& m, int c0,
+                                                 float (&sp)[2]) {
   const int lane = threadIdx.x & 31;
   const float* b_s0 = m.bpack + m.ob_s0();
   const bf16* w_s1 = m.ws1();
-  float sp[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < Wh / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
+  for (int j = 0; j < NJ; ++j) {
+    const int col = c0 + 8 * j + 2 * (lane & 3);
     const float b0 = b_s0[col], b1 = b_s0[col + 1];
     const float w0 = __bfloat162float(w_s1[col]);
     const float w1 = __bfloat162float(w_s1[col + 1]);
@@ -422,39 +424,56 @@ __device__ __forceinline__ void siren_sigma_out(const float (&acc_s)[NACC],
       sp[h] += __low2float(p) * w0 + __high2float(p) * w1;
     }
   }
+}
+
+// sigma[h] = relu(quad sum of the partial dots sp[h] + b_s1).
+__device__ __forceinline__ void siren_sigma_end(const float (&sp)[2],
+                                                const Siren& m,
+                                                float (&sigma)[2]) {
   const float b_s1 = m.bpack[m.ob_s1()];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     sigma[h] = fmaxf(quad_sum(sp[h]) + b_s1, 0.f);
 }
 
+template <int Wh, int NACC>
+__device__ __forceinline__ void siren_sigma_out(const float (&acc_s)[NACC],
+                                                const Siren& m,
+                                                float (&sigma)[2]) {
+  float sp[2] = {0.f, 0.f};
+  siren_sigma_part<Wh / 8>(acc_s, m, 0, sp);
+  siren_sigma_end(sp, m, sigma);
+}
+
 // The rgb head's epilogue on acc_s = feat W_r0f (no bias yet): rgb[h] =
 // sigmoid(s_r . w_r1 + b_r1) with s_r = bf16(sin(acc_s + d W_r0d +
 // b_r0)), the directions' term a rank-3 update from dirs (RowDirs or
 // SharedDirs).
-template <int Wh, int NACC, class Dirs>
-__device__ __forceinline__ void siren_rgb_out(const float (&acc_s)[NACC],
-                                              const Siren& m,
-                                              const Dirs& dirs,
-                                              float (&rgb)[2][3]) {
+// ... its partial dots over NJ column blocks from column c0 (a chunk of
+// the streamed heads; wh the heads' width W / 2), added to rp[h].
+template <int NJ, int NACC, class Dirs>
+__device__ __forceinline__ void siren_rgb_part(const float (&acc_s)[NACC],
+                                               const Siren& m, int wh,
+                                               int c0, const Dirs& dirs,
+                                               float (&rp)[2][3]) {
   const int lane = threadIdx.x & 31;
   const float* b_r0 = m.bpack + m.ob_r0();
   const bf16* w_r0d = m.wr0d();
   const bf16* w_r1 = m.wr1();
-  float dir[2][3], rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  float dir[2][3];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int k = 0; k < 3; ++k) dir[h][k] = dirs(h, k);
 #pragma unroll
-  for (int j = 0; j < Wh / 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = 8 * j + 2 * (lane & 3) + e;
+      const int col = c0 + 8 * j + 2 * (lane & 3) + e;
       float wd[3], wr[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        wd[k] = __bfloat162float(w_r0d[k * Wh + col]);
+        wd[k] = __bfloat162float(w_r0d[k * wh + col]);
         wr[k] = __bfloat162float(w_r1[3 * col + k]);
       }
       const float b = b_r0[col];
@@ -471,12 +490,28 @@ __device__ __forceinline__ void siren_rgb_out(const float (&acc_s)[NACC],
       }
     }
   }
+}
+
+// rgb[h][c] = sigmoid(quad sum of the partial dots rp[h][c] + b_r1[c]).
+__device__ __forceinline__ void siren_rgb_end(const float (&rp)[2][3],
+                                              const Siren& m,
+                                              float (&rgb)[2][3]) {
   const float* b_r1 = m.bpack + m.ob_r1();
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       rgb[h][c] = 1.f / (1.f + expf(-(quad_sum(rp[h][c]) + b_r1[c])));
+}
+
+template <int Wh, int NACC, class Dirs>
+__device__ __forceinline__ void siren_rgb_out(const float (&acc_s)[NACC],
+                                              const Siren& m,
+                                              const Dirs& dirs,
+                                              float (&rgb)[2][3]) {
+  float rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  siren_rgb_part<Wh / 8>(acc_s, m, Wh, 0, dirs, rp);
+  siren_rgb_end(rp, m, rgb);
 }
 
 // The heads after the trunk (act holding h_{L-1}), for this thread's rows
@@ -520,6 +555,71 @@ __device__ __forceinline__ void siren_heads_split(float (&acc)[W / 4],
   fwd_conn_split<W>(acc, r, t, m.bpack + m.ob_f(), bar);
   split_product<W>(acc, t, r);
   siren_rgb_out<Wh>(acc, m, dirs, rgb);
+}
+
+// ---- the streamed shape (widths 768 and 1024) --------------------------
+//
+// ws_trunk.cuh's streamed trunk with the sine activation (one 64-row
+// consumer, each layer in 256-column chunks through device memory and back
+// from L2), then the heads as streamed chunks of kStreamBranchCols = 128
+// columns of one m64n128 accumulator (the trunk's first 64 registers, as
+// siren_heads'): s_s = sin(h W_s0 + b_s0) over W / 256 chunks, its sigma
+// partial dots summed in registers; feat = bf16(h W_f + b_f) through
+// stream_conn into the CTA's scratch slot; s_r = sin(feat W_r0f + dirs
+// W_r0d + b_r0) over W / 256 chunks, the directions' term the rank-3
+// update of the other widths (siren_rgb_part), its rgb partial dots summed,
+// then the sigmoid. The numerics are every other width's.
+
+// The producer's pass at a streamed width: the trunk through
+// produce_pass_stream (t_0's K 16 read from one stage, as above), then the
+// heads in siren_heads_stream's order, each stage 64 K-rows of one chunk's
+// columns: w_s0's 128-column chunks, w_f's 256-column chunks, w_r0f's
+// 128-column chunks.
+__device__ __forceinline__ bool siren_produce_pass_stream(
+    const SirenFwdMaps& mp, int L, int W, unsigned char* ring,
+    uint64_t* full, uint64_t* empty, int n_stages, int& it,
+    const volatile int* done) {
+  auto feed = [&](const CUtensorMap* map, int cols, int n) {
+    for (int c = 0; c < n; ++c)
+      if (!feed_stages<kStreamCols>(map, 0, W, cols / 64, ring, full, empty,
+                                    n_stages, it, done, c * cols))
+        return false;
+    return true;
+  };
+  const int nh = W / 2 / kStreamBranchCols;
+  return produce_pass_stream(&mp.t, nullptr, W, FwdShape{L, 0, kInPad, 0},
+                             false, ring, full, empty, n_stages, it, done) &&
+         feed(&mp.s0, kStreamBranchCols, nh) &&
+         feed(&mp.f, kStreamCols, W / kStreamCols) &&
+         feed(&mp.r0, kStreamBranchCols, nh);
+}
+
+// The heads after stream_trunk (h_{L-1} at io.at(L - 1), flushed), for this
+// thread's rows 16 warp + lane / 4 + 8 h: sigma[h] and rgb[h][c]; feat
+// goes to io.at(L). acc is the trunk's accumulator.
+template <class Dirs>
+__device__ __forceinline__ void siren_heads_stream(
+    float (&acc)[kStreamCols / 2], FwdRing& r, ARing& ar,
+    const StreamTiles& s, const Siren& m, const Dirs& dirs, int bar,
+    const StreamBufs& io, float (&sigma)[2], float (&rgb)[2][3]) {
+  constexpr int NC = kStreamBranchCols;
+  const int W = m.width, Wh = W / 2, nh = Wh / NC;
+  float(&acc_h)[NC / 2] = *reinterpret_cast<float(*)[NC / 2]>(&acc);
+  float sp[2] = {0.f, 0.f};
+  const AStream hs = stream_begin(ar, io.at(io.L - 1), W, nh, r.lead);
+  for (int n = 0; n < nh; ++n) {
+    stream_chunk(acc_h, r, ar, hs, 0, 0);
+    siren_sigma_part<NC / 8>(acc_h, m, n * NC, sp);
+  }
+  siren_sigma_end(sp, m, sigma);
+  stream_conn(acc, r, ar, s, W, m.bpack + m.ob_f(), bar, io);
+  float rp[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  const AStream fs = stream_begin(ar, io.at(io.L), W, nh, r.lead);
+  for (int n = 0; n < nh; ++n) {
+    stream_chunk(acc_h, r, ar, fs, 0, 0);
+    siren_rgb_part<NC / 8>(acc_h, m, Wh, n * NC, dirs, rp);
+  }
+  siren_rgb_end(rp, m, rgb);
 }
 
 }  // namespace

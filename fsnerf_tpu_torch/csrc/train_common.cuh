@@ -21,6 +21,7 @@
 
 #include "mlp_common.cuh"
 #include "wgmma_common.cuh"
+#include "ws_trunk.cuh"
 
 namespace fsnerf {
 namespace {
@@ -272,6 +273,261 @@ cudaError_t launch_dw(const bf16* acts, int ld_acts, const bf16* xs,
   dw_reduce_kernel<<<w_blocks + b_blocks, kReduceThreads, 0, st>>>(
       part, n_splits, n_w, pbias, n_blocks, n_b, round_db, w_blocks, dw, db);
   return cudaGetLastError();
+}
+
+
+// ---- the streamed row passes' products (packed widths 768 and 1024) ----
+//
+// The row passes of the train backwards (mlp_train.cu
+// mlp_train_bwd_rows_kernel_stream, siren.cu siren_bwd_rows_kernel_stream)
+// on 64-row CTAs of one warpgroup, with no activation buffer a whole layer
+// wide: each product streams its A operand (64 rows of a bf16 matrix in
+// device memory) in 64 x 64 K tiles beside 128-column weight tiles of 64
+// K, both by cp.async through a ring of kStreamRowStages stages, into one
+// m64n128 accumulator per 128 output columns, whose epilogue writes
+// through a 64 x 128 tile C in shared memory to device memory.
+
+// The row kernels' weight staging: tiles of kBwdPassCols weight rows x 64
+// K, 128B-swizzled and 1024-byte aligned (kBwdStages of them in the ring
+// of mlp_train.cu's unstreamed row pass).
+constexpr int kBwdStages = 3;
+constexpr int kBwdPassCols = 128;
+constexpr int kBwdStageBytes = kBwdPassCols * 128;
+constexpr int kStreamRowStages = 3;
+constexpr int kStreamRowLda = 64 + kPad;          // the A tile's row stride
+constexpr int kStreamRowLdc = kBwdPassCols + kPad;
+constexpr int kStreamRowStageBytes =
+    kBwdStageBytes + 64 * kStreamRowLda * (int)sizeof(bf16);
+static_assert(kStreamRowStageBytes % 1024 == 0, "stages stay 1024-aligned");
+
+// (ops/kernels/mlp_train.py::bwd_rows_smem_bytes mirrors it): the ring,
+// the output tile, the rgb head's floats and four warps' column sums of
+// one chunk; whatever the width and encodings.
+size_t stream_rows_smem_bytes() {
+  return 1024 + (size_t)kStreamRowStages * kStreamRowStageBytes +
+         sizeof(bf16) * 64 * kStreamRowLdc +
+         sizeof(float) * (7 * 64 + 4 * kBwdPassCols);
+}
+
+// One operand pair of a streamed row-pass product: A the 64 rows from r0
+// of a bf16 matrix in device memory (row stride lda, from its column at
+// A), B a weight matrix of wpack ([N, K] K-contiguous, or [K, N]
+// N-contiguous with kTransB; row stride ldb), K deep.
+struct RowSeg {
+  const bf16* A;
+  int lda;
+  const bf16* B;
+  int ldb, K;
+};
+
+// KS k16 steps: this warp's A fragments by ldmatrix from the stage's A
+// tile at ap, then the warpgroup's wgmma on the B tile at shared address b
+// (K-major: k16 step kk at b + 32 kk; N-major: 16 K-rows at b + 2048 kk,
+// the two 64-column blocks 8 KB apart); returns when they have completed.
+template <int KS, bool kTransB>
+__device__ __forceinline__ void stream_rows_stage(float (&acc)[64],
+                                                  const bf16* ap,
+                                                  uint32_t b) {
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], ap + 16 * kk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs<kTransB ? 1 : 0>(
+        acc, a[kk],
+        kTransB ? sw128_desc(b + 2048 * kk, kBlock, 1024)
+                : sw128_desc(b + 32 * kk, 16, 1024),
+        1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) fence_regs(a[kk]);
+}
+
+// acc = the sum over segs[0 .. nseg) of A[64, :K] @ B[:K, n0 : n0 + 128)
+// (columns past N: 0), by the CTA's one warpgroup: each stage one 64 x 64
+// A tile and one 128 x 64 B tile (128B-swizzled), by cp.async, kStreamRow-
+// Stages - 1 stages ahead. With mask, rows r0 .. of mask's columns n0 ..
+// n0 + 127 (row stride mask_ld) land in C with the first stage, for the
+// epilogue's ReLU'. Ends past a barrier, the ring free.
+template <bool kTransB>
+__device__ void stream_rows_gemm(float (&acc)[64], const RowSeg* segs,
+                                 int nseg, int n0, int N, int r0,
+                                 unsigned char* ring, const bf16* mask,
+                                 int mask_ld, bf16* C) {
+  constexpr int T = 128;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk0 = (segs[0].K + 63) / 64;
+  const int ns = nk0 + (nseg > 1 ? (segs[1].K + 63) / 64 : 0);
+  auto seg_of = [&](int st, int& k0) -> const RowSeg& {
+    k0 = (st < nk0 ? st : st - nk0) * 64;
+    return st < nk0 ? segs[0] : segs[1];
+  };
+  auto load = [&](int st) {
+    unsigned char* stage = ring + (st % kStreamRowStages) *
+                                      kStreamRowStageBytes;
+    int k0;
+    const RowSeg& sg = seg_of(st, k0);
+    for (int q = tid; q < kBwdPassCols * 8; q += T) {
+      if (!kTransB) {       // row n of B ([N, K]): 64 K in 8 chunks
+        const int n = q >> 3, c = q & 7, k = k0 + 8 * c;
+        const bool ok = n0 + n < N && k < sg.K;
+        cp_async_16(stage + n * 128 + (((c ^ n) & 7) << 4),
+                    ok ? sg.B + (size_t)(n0 + n) * sg.ldb + k : sg.B, ok);
+      } else {              // row k of B ([K, N]): 2 blocks of 64 N
+        const int kr = q >> 4, j = (q >> 3) & 1, c = q & 7;
+        const int n = n0 + 64 * j + 8 * c, k = k0 + kr;
+        const bool ok = n < N && k < sg.K;
+        cp_async_16(stage + j * kBlock + kr * 128 + (((c ^ kr) & 7) << 4),
+                    ok ? sg.B + (size_t)k * sg.ldb + n : sg.B, ok);
+      }
+    }
+    bf16* at = reinterpret_cast<bf16*>(stage + kBwdStageBytes);
+    for (int q = tid; q < 64 * 8; q += T) {
+      const int row = q >> 3, c = q & 7, k = k0 + 8 * c;
+      const bool ok = k < sg.K;
+      cp_async_16(at + row * kStreamRowLda + 8 * c,
+                  ok ? sg.A + (size_t)(r0 + row) * sg.lda + k : sg.A, ok);
+    }
+    if (mask != nullptr && st == 0)
+      for (int e = tid; e < 64 * (kBwdPassCols / 8); e += T) {
+        const int row = e / (kBwdPassCols / 8), c8 = e % (kBwdPassCols / 8);
+        cp_async_16(C + row * kStreamRowLdc + 8 * c8,
+                    mask + (size_t)(r0 + row) * mask_ld + n0 + 8 * c8,
+                    true);
+      }
+  };
+#pragma unroll
+  for (int st = 0; st < kStreamRowStages - 1; ++st) {
+    if (st < ns) load(st);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kc = 0; kc < ns; ++kc) {
+    cp_async_wait<kStreamRowStages - 2>();     // stage kc landed
+    fence_proxy_async();                       // ... visible to wgmma
+    __syncthreads();                           // for every thread's copies
+    if (kc + kStreamRowStages - 1 < ns) load(kc + kStreamRowStages - 1);
+    cp_async_commit();
+    unsigned char* stage = ring + (kc % kStreamRowStages) *
+                                      kStreamRowStageBytes;
+    const uint32_t tile = smem_u32(stage);
+    const bf16* ap = reinterpret_cast<const bf16*>(stage + kBwdStageBytes) +
+                     (16 * warp + (lane & 15)) * kStreamRowLda +
+                     (lane >> 4) * 8;
+    int k0;
+    const RowSeg& sg = seg_of(kc, k0);
+    if (k0 + 64 <= sg.K) {
+      stream_rows_stage<4, kTransB>(acc, ap, tile);
+    } else {                                   // a last tile of 16 .. 48 K
+      for (int kk = 0; k0 + 16 * kk < sg.K; ++kk)
+        stream_rows_stage<1, kTransB>(acc, ap + 16 * kk,
+                                      tile + (kTransB ? 2048 : 32) * kk);
+    }
+  }
+  fence_regs(acc);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A chunk's epilogue into C [64, 128) for output columns n0 ...: the
+// heads' forward (bias, optional ReLU, bf16), or with colpart a cotangent
+// (+ dsig[row] * w_sigma[col] with dsig; 0 where the activation
+// prefetched into C is not > 0 with masked; bf16), each warp's column sums
+// of the f32 values over its 16 rows into colpart[warp][col - n0].
+struct RowChunkOut {
+  const float* bias;
+  bool relu, masked;
+  const float* dsig;
+  const bf16* w_sigma;
+  float* colpart;
+};
+
+__device__ __forceinline__ void stream_rows_epilogue(const RowChunkOut& o,
+                                                     const float (&acc)[64],
+                                                     int n0, bf16* C) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane >> 2);
+  float ds[2] = {0.f, 0.f};
+  if (o.dsig) {
+    ds[0] = o.dsig[row];
+    ds[1] = o.dsig[row + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < kBwdPassCols / 8; ++j) {
+    const int lc = 8 * j + 2 * (lane & 3), col = n0 + lc;
+    float c0 = 0.f, c1 = 0.f;
+    if (o.bias) {
+      c0 = o.bias[col];
+      c1 = o.bias[col + 1];
+    } else if (o.dsig) {
+      c0 = __bfloat162float(o.w_sigma[col]);
+      c1 = __bfloat162float(o.w_sigma[col + 1]);
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (o.bias) {
+        v0 += c0;
+        v1 += c1;
+      } else if (o.dsig) {
+        v0 += ds[h] * c0;
+        v1 += ds[h] * c1;
+      }
+      if (o.relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      __nv_bfloat162* p =
+          reinterpret_cast<__nv_bfloat162*>(C + (row + 8 * h) * kStreamRowLdc + lc);
+      if (o.masked) {
+        const __nv_bfloat162 hv = *p;
+        if (!(__bfloat162float(hv.x) > 0.f)) v0 = 0.f;
+        if (!(__bfloat162float(hv.y) > 0.f)) v1 = 0.f;
+      }
+      *p = __floats2bfloat162_rn(v0, v1);
+      s0 += v0;
+      s1 += v1;
+    }
+    if (o.colpart) {
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+      }
+      if (lane < 4) {
+        o.colpart[warp * kBwdPassCols + lc] = s0;
+        o.colpart[warp * kBwdPassCols + lc + 1] = s1;
+      }
+    }
+  }
+}
+
+// One product of the row pass, chunk by chunk: out[r0 .., dst_col + n] =
+// the epilogue of (segs @ B) for n < N, through C; with o.colpart, each
+// chunk's column sums (the four warps' in order) to pb[pb_off + n].
+template <bool kTransB>
+__device__ void stream_rows_product(const RowSeg* segs, int nseg, int N,
+                                    int r0, unsigned char* ring, bf16* C,
+                                    const bf16* mask, int mask_ld,
+                                    RowChunkOut o, bf16* out, int out_ld,
+                                    int dst_col, float* pb, int pb_off) {
+  for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
+    float acc[64];
+    stream_rows_gemm<kTransB>(acc, segs, nseg, n0, N, r0, ring, mask,
+                              mask_ld, C);
+    stream_rows_epilogue(o, acc, n0, C);
+    __syncthreads();
+    if (o.colpart)
+      store_colsums<128>(o.colpart, pb, pb_off + n0, kBwdPassCols,
+                         kBwdPassCols, 4);
+    rows_to_global<64>(C, kStreamRowLdc, out, out_ld, r0, dst_col + n0,
+                       kBwdPassCols);
+    __syncthreads();
+  }
 }
 
 }  // namespace

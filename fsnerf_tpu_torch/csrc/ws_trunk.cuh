@@ -28,9 +28,9 @@
 // warpgroup of 64 rows per CTA, each layer's output computed as two column
 // halves of W / 2 into one W / 2 accumulator (FwdTraits). At 768 and 1024
 // not even one layer's 64-row input and output tiles fit beside a weight
-// ring, and the NeRF shells run the streamed trunk at the end of this
-// file: each layer's output goes to device memory and comes back from L2
-// as the next layer's operand.
+// ring, and the NeRF and SIREN shells run the streamed trunk at the end of
+// this file: each layer's output goes to device memory and comes back from
+// L2 as the next layer's operand.
 //
 // Numerics of the NeRF, as the TPU kernels: bf16 operands, f32
 // accumulation, bf16-rounded biases added in f32, trunk activations ReLU
@@ -721,7 +721,9 @@ __device__ __forceinline__ void fwd_branch_split(FwdRing& r,
 //
 // One consumer warpgroup of 64 rows per CTA and a producer warpgroup, the
 // CTAs persistent over the row tiles (the march's ray blocks), one
-// instance for both widths (W and its loop counts at run time). Each layer
+// instance for both widths (W and its loop counts at run time); the NeRF
+// shells' and, with the sine epilogue and siren_common.cuh's streamed
+// heads, the SIREN forward's and march's. Each layer
 // (and the connection) runs as W / kStreamCols output column chunks, one
 // after the other, into one m64n256 accumulator (128 registers a thread,
 // the whole-width consumer's at W = 256), so fwd_epilogue applies; each
@@ -941,15 +943,18 @@ __device__ __forceinline__ void stream_chunk(float (&acc)[NACC], FwdRing& r,
 
 // A trunk or connection chunk's epilogue: the warpgroup waits for the last
 // store to have read the output tile, writes bf16(act(acc + bias)) there
-// (with w_sigma, sig += this thread's partial sigma dots), and the lead
-// stores it by TMA to dst's columns col ...
+// (fwd_epilogue's activation policy: ReluAct, or the SIREN's SineAct,
+// which stores its saved factors itself; with w_sigma, sig += this
+// thread's partial sigma dots), and the lead stores it by TMA to dst's
+// columns col ...
+template <class Act>
 __device__ __forceinline__ void stream_store_chunk(
     const float (&acc)[kStreamCols / 2], unsigned char* out,
-    const float* bias, bool relu, const bf16* w_sigma, float (&sig)[2],
+    const float* bias, Act act, const bf16* w_sigma, float (&sig)[2],
     int bar, bool lead, const StreamAt& dst, int col) {
   if (lead) bulk_wait_read<0>();
   named_bar(bar, 128);
-  fwd_epilogue(acc, bias, ReluAct{relu}, out, w_sigma, sig);
+  fwd_epilogue(acc, bias, act, out, w_sigma, sig);
   fence_proxy_async();
   named_bar(bar, 128);
   if (lead) {
@@ -968,9 +973,13 @@ __device__ __forceinline__ void stream_flush(bool lead) {
   }
 }
 
-// The trunk over the CTA's 64 rows at width W, its encodings at s.encx:
-// layer i's output to io.at(i); on the last layer sig[h] gets this
-// thread's partial sigma dots (w_sigma past the trunk in wpack).
+// The trunk over the CTA's 64 rows at width W, its encodings (or the
+// SIREN's raw inputs) at s.encx: layer i's output to io.at(i), chunk c
+// with the activation acts.layer(i, c kStreamCols) (ReLU for the NeRF; the
+// SIREN's sines, whose saved factors go to that chunk's columns); on the
+// last layer (with Acts::kSigma) sig[h] gets this thread's partial sigma
+// dots (w_sigma past the trunk in wpack).
+template <class Acts = ReluActs>
 __device__ __forceinline__ void stream_trunk(float (&acc)[kStreamCols / 2],
                                              FwdRing& r, ARing& ar,
                                              const StreamTiles& s,
@@ -978,7 +987,8 @@ __device__ __forceinline__ void stream_trunk(float (&acc)[kStreamCols / 2],
                                              const float* b,
                                              const bf16* w_sigma,
                                              float (&sig)[2], int bar,
-                                             const StreamBufs& io) {
+                                             const StreamBufs& io,
+                                             const Acts& acts = Acts()) {
   const int L = sh.n_layers, DE = sh.d_enc_pad, nc = W / kStreamCols;
   const uint32_t encx = smem_u32(s.encx);
   for (int i = 0; i < L; ++i) {
@@ -989,8 +999,11 @@ __device__ __forceinline__ void stream_trunk(float (&acc)[kStreamCols / 2],
     const StreamAt dst = io.at(i);
     for (int c = 0; c < nc; ++c) {
       stream_chunk(acc, r, ar, st, encx, enc ? DE : 0);
-      stream_store_chunk(acc, s.out, b + i * W + c * kStreamCols, true,
-                         i == L - 1 ? w_sigma + c * kStreamCols : nullptr,
+      stream_store_chunk(acc, s.out, b + i * W + c * kStreamCols,
+                         acts.layer(i, c * kStreamCols),
+                         Acts::kSigma && i == L - 1
+                             ? w_sigma + c * kStreamCols
+                             : nullptr,
                          sig, bar, r.lead, dst, dst.col + c * kStreamCols);
     }
     stream_flush(r.lead);
@@ -1010,8 +1023,9 @@ __device__ __forceinline__ void stream_conn(float (&acc)[kStreamCols / 2],
   const StreamAt dst = io.at(io.L);
   for (int c = 0; c < nc; ++c) {
     stream_chunk(acc, r, ar, st, 0, 0);
-    stream_store_chunk(acc, s.out, b_conn + c * kStreamCols, false, nullptr,
-                       unused, bar, r.lead, dst, dst.col + c * kStreamCols);
+    stream_store_chunk(acc, s.out, b_conn + c * kStreamCols, ReluAct{false},
+                       nullptr, unused, bar, r.lead, dst,
+                       dst.col + c * kStreamCols);
   }
   stream_flush(r.lead);
 }

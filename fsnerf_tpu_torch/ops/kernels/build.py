@@ -127,12 +127,13 @@ def load_library() -> ctypes.CDLL:
     lib.fsnerf_dw_pass.argtypes = [vp, i, vp, i, vp, i, i, vp, vp, i, vp, i,
                                    i, vp, vp]
     lib.fsnerf_dw_pass.restype = i
-    lib.fsnerf_siren_ray_march.argtypes = [vp] * 10 + [i] * 6 + [f, vp]
+    lib.fsnerf_siren_ray_march.argtypes = [vp] * 11 + [i] * 7 + [f, vp]
     lib.fsnerf_siren_ray_march.restype = i
-    lib.fsnerf_siren_fwd.argtypes = [vp] * 7 + [i] * 3 + [vp]
+    lib.fsnerf_siren_fwd.argtypes = [vp] * 8 + [i] * 4 + [vp]
     lib.fsnerf_siren_fwd.restype = i
     lib.fsnerf_siren_bwd.argtypes = (
-        [vp] * 8 + [i] + [vp] * 7 + [i, vp, i, vp, vp] + [i] * 3 + [vp])
+        [vp] * 8 + [i] + [vp] * 3 + [i] + [vp] * 5 + [i, vp, i, vp, vp]
+        + [i] * 3 + [vp])
     lib.fsnerf_siren_bwd.restype = i
     lib.fsnerf_siren_stages.argtypes = [i, i, i]
     lib.fsnerf_siren_stages.restype = i

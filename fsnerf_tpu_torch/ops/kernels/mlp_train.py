@@ -507,12 +507,15 @@ def dw_pass(acts, xs, dy, jobs, split_rows: int = SPLIT_ROWS):
 dw_pass.launches = 0
 
 
-def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
+def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None,
+                  operands: Optional[dict] = None):
     """The train backward: csrc/mlp_train.cu for CUDA tensors,
     mlp_train_bwd_reference for CPU tensors; same arguments and returns.
     acts None recomputes the trunk: on the card the forward kernel runs
     first, into the acts stream the backward allocates (not counted in
-    `mlp_train_fwd.launches`). Counts its launches in
+    `mlp_train_fwd.launches`). On the card a dict `operands` receives the
+    row pass's xs and dy scratch (bwd_operands_reference's layouts, n_pad
+    rows; scripts/grad_arbiter.py reads them). Counts its launches in
     `mlp_train_bwd.launches`."""
     if x.device.type == "cpu":
         return mlp_train_bwd_reference(x, d, dout, params, acts)
@@ -559,6 +562,8 @@ def mlp_train_bwd(x, d, dout, params: TrainParams, acts=None):
         torch.cuda.current_stream(dev).cuda_stream)
     _launch_error(lib, err, "mlp_train_bwd")
     mlp_train_bwd.launches += 1
+    if operands is not None:
+        operands.update(xs=xs, dy=dy)
     return dw, db
 
 

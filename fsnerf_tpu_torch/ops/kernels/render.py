@@ -25,8 +25,8 @@ module's width W up to 1024 pads to the next of NERF_KERNEL_WIDTHS
 zero biases), the next matrix reading them through zero rows, so the
 padded units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and
 the real outputs gain only exact zero products; the plain versions run the
-padded pack as the kernels do. The NeRF kernels take every packed width;
-the SIREN kernels stop at 512 (siren.py::siren_kernel_error).
+padded pack as the kernels do. The NeRF and SIREN kernels take every
+packed width (siren.py::siren_kernel_error for the SIREN's).
 
 The early exit's blocking is the same at every width: from the packed
 width 384 up the kernel runs each block x chunk step (up to 128 rows) as
@@ -40,8 +40,9 @@ change there either.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
-(bf16, no encoding) in place of the encoding and the NeRF MLP; at 384 and
-512 it runs the same 64-row halves with the same per-step skip decision.
+(bf16, no encoding) in place of the encoding and the NeRF MLP; from 384
+up it runs the same 64-row halves with the same per-step skip decision,
+and at 768 and 1024 through the same streamed trunk.
 """
 
 from __future__ import annotations
@@ -79,10 +80,11 @@ KERNEL_MAX_DIR_AT_256 = 128
 # 227,072). Above 512 the input and output activation tiles of one 64-row
 # warpgroup (192 KB at 768) leave no room for the weight ring.
 SPLIT_WIDTHS = (384, 512)
-# ... and the NeRF kernels alone (kernels 1 and 3-6), on the streamed trunk
-# (csrc/ws_trunk.cuh: one 64-row consumer, each layer in 256-column chunks
-# stored to device memory and read back from L2 as the next layer's
-# operand; kernel 6's row pass streams its operands too): 768 and 1024.
+# ... and on the streamed trunk (csrc/ws_trunk.cuh: one 64-row consumer,
+# each layer in 256-column chunks stored to device memory and read back
+# from L2 as the next layer's operand; the row passes of kernels 6 and 8
+# stream their operands too) the NeRF kernels 1 and 3-6 and the SIREN
+# kernels 2, 7 and 8: 768 and 1024.
 # Their shared memory does not grow with the width: with both encodings
 # 256 wide a 3-stage ring fits (shell_smem_bytes(1024, 256, 256, 3) =
 # 230,496 bytes), the row pass takes 99,072 whatever the encodings. Above
@@ -693,14 +695,16 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
     siren_ray_march_reference for CPU tensors. Same arguments and returns.
     Counts its kernel launches in `siren_ray_march.launches`.
 
-    On the card both routes are hand-written kernels, chosen by the packed
+    On the card every route is a hand-written kernel, chosen by the packed
     width in csrc/render.cu fsnerf_siren_ray_march: widths 64, 128, 192 and
     256 run the warp-specialized march (siren_march_kernel, the SIREN
     forward's wgmma trunk in the NeRF march's shell), 384 and 512 the same
-    kernel on the column-split trunk (blockings as march_chunk_error takes
-    them), 288 and 320 (no packer's width) the mma.sync one
-    (ray_march_kernel<SirenMarch>); another width raises ValueError
-    (siren.py::siren_kernel_error)."""
+    kernel on the column-split trunk, 768 and 1024 its streamed instance
+    (siren_march_kernel_stream: persistent CTAs over the ray blocks, each
+    layer through their slots of stream_scratch's scratch; blockings as
+    march_chunk_error takes them from 384 up), 288 and 320 (no packer's
+    width) the mma.sync one (ray_march_kernel<SirenMarch>); another width
+    raises ValueError (siren.py::siren_kernel_error)."""
     if x.device.type == "cpu":
         return siren_ray_march_reference(x, dirs, t, deltas, mask, params,
                                          block_rows, chunk_s, early_stop_eps)
@@ -711,10 +715,11 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
            or march_chunk_error(lay.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"siren_ray_march: {err}")
+    slab, ctas = stream_scratch(lay.width, x.device)
     stats, steps = _launch_march(
         "siren_ray_march", x, dirs, t, deltas, mask,
         (params.wpack, params.bpack, params.alphas), block_rows, chunk_s,
-        early_stop_eps, lay.n_layers, lay.width)
+        early_stop_eps, lay.n_layers, lay.width, scratch=(_ptr(slab), ctas))
     siren_ray_march.launches += 1
     return stats, steps
 

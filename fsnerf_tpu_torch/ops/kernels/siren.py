@@ -17,8 +17,8 @@ Two backward modes, as the TPU kernels:
   ([N, 2 L W] bf16: h_i at columns i W, the factor at (L + i) W); the
   backward reads them and recomputes only the heads.
 * recompute (acts None): the backward runs the trunk again and holds the
-  factors a_i cos(a_i y_i) in float32 (on the card at the packed widths 384
-  and 512 it runs the forward kernel into an acts stream first, so there
+  factors a_i cos(a_i y_i) in float32 (on the card from the packed width
+  384 up it runs the forward kernel into an acts stream first, so there
   its factors are bf16 and its gradients the saved mode's).
 The two modes' gradients differ by that bf16 rounding; each mode alone is
 bitwise repeatable on the card. Weight gradients come back rounded to bf16,
@@ -39,8 +39,13 @@ On the card the warp-specialized kernels take every packed width:
 64, 128, 192 and 256 with two 64-row consumers of whole rows, 384 and 512
 on csrc/ws_trunk.cuh's column-split trunk (one 64-row consumer, each
 product as two output column halves; the backward's row pass on 64-row
-CTAs), so a SiNeRF of any width up to 512 trains and renders on them
-(SIREN_MAX_WIDTH). The mma.sync forward and march still take 288 and 320,
+CTAs), 768 and 1024 on its streamed trunk (persistent CTAs of one 64-row
+consumer, each layer in 256-column chunks through device memory and back
+from L2, the heads in 128-column chunks; the backward's row pass on kernel
+6's streamed shape, every operand through L2), so a SiNeRF of any width up
+to 1024 trains and renders on them (SIREN_MAX_WIDTH). Above 1024 no
+instance is built, for the NeRF kernels' L2 reason (render.py
+STREAM_WIDTHS). The mma.sync forward and march still take 288 and 320,
 which no packer lays out (the card checks reach them through
 _prep_siren_params).
 """
@@ -55,16 +60,16 @@ import torch
 
 from .fastmath import sincos_fast
 from .mlp_train import SPLIT_ROWS, _launch_error, bwd_rows, dw_plan
-from .render import (SMEM_LIMIT, SPLIT_WIDTHS, _bf16, _round_up,
-                     kernel_width, padded)
+from .mlp_train import bwd_rows_smem_bytes
+from .render import (SMEM_LIMIT, SPLIT_WIDTHS, STREAM_WIDTHS, _bf16, _ptr,
+                     _round_up, kernel_width, padded, stream_scratch)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 D_IN_PAD = 16           # raw coordinates / directions, zero-padded columns
-# the widest packed width of the SIREN kernels on the card: the column-split
-# shapes at 384 and 512 (siren_smem_bytes, a ring of 2 stages or more at
-# 512); past 512 no kernel is built (a column half's accumulator is already
-# W / 4 = 128 registers a thread at 512)
-SIREN_MAX_WIDTH = SPLIT_WIDTHS[-1]
+# the widest packed width of the SIREN kernels on the card: the streamed
+# shapes at 768 and 1024 (render.py STREAM_WIDTHS: past 1024 the scratch the
+# persistent CTAs stream their layers through would outgrow the L2 cache)
+SIREN_MAX_WIDTH = STREAM_WIDTHS[-1]
 # the widest width of the mma.sync SIREN kernels (the forward and the march
 # at 288 and 320, the recompute mode's row pass up to 256): past it they
 # hold two [128, W + 8] bf16 activation buffers beside the weight slabs
@@ -95,9 +100,25 @@ def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
     or 64 (one consumer on the column-split trunk: stages of 64 x width / 2
     and three half tiles); default 64 at SPLIT_WIDTHS, else 128. The
     128-row backward also holds each consumer's bias partials (n_layers
-    deep); the 64-row one writes them straight to device memory."""
-    R = rows or (64 if width in SPLIT_WIDTHS else ROWS)
+    deep); the 64-row one writes them straight to device memory. At
+    STREAM_WIDTHS (and rows None) the streamed shapes', whatever the width:
+    the forward's and the march's (csrc/ws_trunk.cuh stream_smem_bytes:
+    stages of 64 x 256, the A ring's four 64 x 64 tiles, one 64 x 256
+    output tile, the input tile; the forward's factor staging block and
+    input barrier, the march's done flag and rows' directions), the
+    backward's kernel 6's streamed row pass's (n_stages cp.async stages;
+    mlp_train.py::bwd_rows_smem_bytes)."""
     blk, bar, Wh = 64 * 64 * 2, 8, width // 2
+    if width in STREAM_WIDTHS and rows is None:
+        if kernel == "backward":
+            return (bwd_rows_smem_bytes(width, 0)
+                    + (n_stages - 3) * (128 * 128 + 64 * 72 * 2))
+        base = (1024 + n_stages * 256 * 128 + (4 + 4 + 1) * blk
+                + (2 * n_stages + 4) * bar)
+        if kernel == "forward":
+            return base + blk + 16
+        return base + 16 + ROWS * 4 * 4
+    R = rows or (64 if width in SPLIT_WIDTHS else ROWS)
     if kernel == "backward":
         s_tile = -(-Wh // 64) * blk            # s_s, then dys
         if R == 64:
@@ -119,7 +140,10 @@ def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
 def siren_stages(width: int, kernel: str, n_layers: int = 8) -> int:
     """The ring the warp-specialized SIREN `kernel` runs at a packed width:
     the deepest up to 4 stages that fits in SMEM_LIMIT (siren_smem_bytes),
-    or 0 if 2 do not."""
+    or 0 if 2 do not; at STREAM_WIDTHS the backward's row pass runs kernel
+    6's fixed ring of 3 cp.async stages (0 if it did not fit)."""
+    if width in STREAM_WIDTHS and kernel == "backward":
+        return 3 if siren_smem_bytes(width, kernel, 3) <= SMEM_LIMIT else 0
     for n in (4, 3, 2):
         if siren_smem_bytes(width, kernel, n, n_layers) <= SMEM_LIMIT:
             return n
@@ -143,23 +167,21 @@ def launcher_stages(width: int, kernel: str, n_layers: int = 8) -> int:
 def siren_kernel_error(width: int, kernel: str = "backward") -> Optional[str]:
     """Why the SIREN `kernel` refuses a packed width on the card, or None.
     "backward" is the train kernels' limit (the backward and its forward).
-    They take every width render.py::kernel_width packs at up to 512 (and
+    They take every width render.py::kernel_width packs at up to 1024 (and
     the mma.sync kernels' widths up to SIREN_MMA_MAX_WIDTH)."""
     mma = SIREN_MMA_MAX_WIDTH[kernel]
-    if width <= mma or width in SPLIT_WIDTHS:
+    if width <= mma or width in SPLIT_WIDTHS + STREAM_WIDTHS:
         return None
     if width > SIREN_MAX_WIDTH:
         return (f"the SIREN {kernel} kernel takes widths up to "
-                f"{SIREN_MAX_WIDTH} (packed at 64, 128, 192, 256, "
-                f"384, 512), not {width}: its column-split trunk is built "
-                f"for 384 and 512 (a column half's accumulator is W / 4 "
-                f"registers a thread), and from width 768 its half tiles "
-                f"and a 2-stage ring exceed shared memory "
-                f"({siren_smem_bytes(768, kernel, rows=64)} bytes of "
-                f"{SMEM_LIMIT})")
+                f"{SIREN_MAX_WIDTH} (packed at 64, 128, 192, 256, 384, "
+                f"512, 768, 1024), not {width}: above {SIREN_MAX_WIDTH} no "
+                f"instance is built (the streamed trunk's scratch is sized "
+                f"to stay in the 50 MB L2 cache)")
     return (f"the SIREN {kernel} kernel takes the packed widths up to {mma} "
-            f"and {SPLIT_WIDTHS}, not {width} (its mma.sync shape's shared "
-            f"memory: {mma_smem_bytes(width, kernel)} bytes of {SMEM_LIMIT})")
+            f"and {SPLIT_WIDTHS + STREAM_WIDTHS}, not {width} (its mma.sync "
+            f"shape's shared memory: {mma_smem_bytes(width, kernel)} bytes "
+            f"of {SMEM_LIMIT})")
 
 
 def siren_alphas(n_layers: int) -> Tuple[float, ...]:
@@ -494,12 +516,15 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     round_up(N, 128) rows (the kernel's row tile). Counts its kernel
     launches in `siren_mlp_fwd.launches`.
 
-    On the card both routes are hand-written kernels, chosen by the packed
+    On the card every route is a hand-written kernel, chosen by the packed
     width in csrc/siren.cu fsnerf_siren_fwd: widths 64, 128, 192 and 256
     run the warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), 384
-    and 512 the same kernel on the column-split trunk (64-row CTAs), 288 and
-    320 (no packer's width) the mma.sync one (siren_fwd_kernel); another
-    width raises ValueError (siren_kernel_error); all write the same acts
+    and 512 the same kernel on the column-split trunk (64-row CTAs), 768
+    and 1024 its streamed instance (siren_fwd_kernel_stream: persistent
+    64-row CTAs, each layer through their slots of render.py::
+    stream_scratch's scratch, allocated per call), 288 and 320 (no
+    packer's width) the mma.sync one (siren_fwd_kernel); another width
+    raises ValueError (siren_kernel_error); all write the same acts
     layout.
 
     Without acts the call runs as the registered op
@@ -536,11 +561,12 @@ def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
     acts = (torch.empty((_round_up(N, ROWS), 2 * lay.n_layers * lay.width),
                         dtype=torch.bfloat16, device=x.device)
             if save_acts else None)
+    slab, ctas = stream_scratch(lay.width, x.device)
     err = lib.fsnerf_siren_fwd(
         x.data_ptr(), d.data_ptr(), wpack.data_ptr(), bpack.data_ptr(),
-        alphas.data_ptr(), out.data_ptr(),
-        None if acts is None else acts.data_ptr(), N, lay.n_layers,
-        lay.width, torch.cuda.current_stream(x.device).cuda_stream)
+        alphas.data_ptr(), out.data_ptr(), _ptr(acts), _ptr(slab), ctas, N,
+        lay.n_layers, lay.width,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _launch_error(lib, err, "siren_mlp_fwd")
     siren_mlp_fwd.launches += 1
     return out, acts
@@ -621,26 +647,31 @@ def dw_jobs(lay: SirenLayout):
     return jobs
 
 
-def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
+def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None,
+                  operands: Optional[dict] = None):
     """The SIREN backward: csrc/siren.cu for CUDA tensors,
     siren_mlp_bwd_reference for CPU tensors; same arguments and returns
-    (params need wtpack). acts None recomputes the trunk. Counts its
+    (params need wtpack). acts None recomputes the trunk. On the card a
+    dict `operands` receives the row pass's xs and dy scratch (layouts of
+    dw_jobs, n_pad rows; scripts/grad_arbiter.py reads them). Counts its
     launches in `siren_mlp_bwd.launches`.
 
-    On the card the row pass has two routes, both hand-written kernels,
-    chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at the packed
-    widths 64, 128, 192 and 256 (the main path's; at a depth whose bias
-    partials fit in its shared memory) runs the warp-specialized wgmma +
-    TMA row pass (siren_bwd_rows_ws_kernel), at 384 and 512 the same
-    kernel on 64-row CTAs, each cotangent product split by output columns;
-    recompute mode, which is not on the main path, holds its factors in f32
-    by design up to 256 and runs the mma.sync row pass
-    (siren_bwd_rows_kernel); at 384 and 512, where that pass does not fit,
-    it runs the forward kernel into an acts stream it allocates (not
-    counted in `siren_mlp_fwd.launches`) and then the saved mode's row
-    pass, so there its factors are bf16 and its gradients equal the saved
-    mode's. The dW pass and the reduce are the same for both. Another
-    packed width raises ValueError (siren_kernel_error)."""
+    On the card the row pass has three routes, each a hand-written
+    kernel, chosen in csrc/siren.cu fsnerf_siren_bwd: saved mode at the
+    packed widths 64, 128, 192 and 256 (the main path's; at a depth whose
+    bias partials fit in its shared memory) runs the warp-specialized
+    wgmma + TMA row pass (siren_bwd_rows_ws_kernel), at 384 and 512 the
+    same kernel on 64-row CTAs, each cotangent product split by output
+    columns, at 768 and 1024 the streamed row pass
+    (siren_bwd_rows_kernel_stream, kernel 6's streamed shape on 64-row
+    CTAs); recompute mode, which is not on the main path, holds its factors
+    in f32 by design up to 256 and runs the mma.sync row pass
+    (siren_bwd_rows_kernel); from 384 up, where that pass does not fit, it
+    runs the forward kernel into an acts stream it allocates (not counted
+    in `siren_mlp_fwd.launches`) and then the saved mode's row pass, so
+    there its factors are bf16 and its gradients equal the saved mode's.
+    The dW pass and the reduce are the same for both. Another packed width
+    raises ValueError (siren_kernel_error)."""
     if x.device.type == "cpu":
         return siren_mlp_bwd_reference(x, d, dout, params, acts)
     if x.device.type != "cuda":
@@ -660,14 +691,17 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     _check_device("siren_mlp_bwd", [x, d, dout, params.wpack, params.bpack,
                                     params.wtpack, params.alphas])
     recompute = acts is None
-    split = W in SPLIT_WIDTHS        # recompute: the forward, then saved
+    # from 384 up recompute mode runs the forward kernel, then saved mode
+    wide = W in SPLIT_WIDTHS + STREAM_WIDTHS
     dev = x.device
-    lda = L * W if recompute and not split else 2 * L * W
-    cfs = fwd_out = None
+    lda = L * W if recompute and not wide else 2 * L * W
+    cfs = fwd_out = slab = None
+    ctas = 0
     if recompute:
         acts = torch.empty((n_pad, lda), dtype=torch.bfloat16, device=dev)
-        if split:
+        if wide:
             fwd_out = torch.empty((N, 4), dtype=torch.float32, device=dev)
+            slab, ctas = stream_scratch(W, dev)
         else:
             cfs = torch.empty((n_pad, L * W), dtype=torch.float32,
                               device=dev)
@@ -694,14 +728,15 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None):
     err = lib.fsnerf_siren_bwd(
         x.data_ptr(), d.data_ptr(), dout.data_ptr(), params.wpack.data_ptr(),
         params.bpack.data_ptr(), params.wtpack.data_ptr(),
-        params.alphas.data_ptr(), acts.data_ptr(), lda,
-        None if cfs is None else cfs.data_ptr(),
-        None if fwd_out is None else fwd_out.data_ptr(), xs.data_ptr(),
+        params.alphas.data_ptr(), acts.data_ptr(), lda, _ptr(cfs),
+        _ptr(fwd_out), _ptr(slab), ctas, xs.data_ptr(),
         dy.data_ptr(), pbias.data_ptr(), jobs.data_ptr(), tiles.data_ptr(),
         tiles.shape[0], part.data_ptr(), SPLIT_ROWS, dw.data_ptr(),
         db.data_ptr(), N, L, W, torch.cuda.current_stream(dev).cuda_stream)
     _launch_error(lib, err, "siren_mlp_bwd")
     siren_mlp_bwd.launches += 1
+    if operands is not None:
+        operands.update(xs=xs, dy=dy)
     return dw, db
 
 

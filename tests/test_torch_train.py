@@ -491,12 +491,13 @@ def test_routes_take_encodings_up_to_256_wide(change):
 
 @pytest.mark.parametrize("width,takes", [
     (32, True), (40, True), (96, True), (100, True), (192, True),
-    (200, True), (256, True), (320, True), (512, True), (600, False)])
+    (200, True), (256, True), (320, True), (512, True), (600, True),
+    (1024, True), (1100, False)])
 def test_sinerf_routes_by_width(width, takes, capsys):
-    """A SiNeRF up to 512 wide resolves to the SIREN kernels on the card
+    """A SiNeRF up to 1024 wide resolves to the SIREN kernels on the card
     (packed at the next kernel width: 384 and 512 on the column-split
-    trunk); above 512 the kernels refuse it by name, and the module route
-    is printed."""
+    trunk, 768 and 1024 on the streamed one); above 1024 the kernels refuse
+    it by name, and the module route is printed."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
     _, base = _both(model=dict(model="sinerf", n_layers=4, d_filter=width))
@@ -507,7 +508,7 @@ def test_sinerf_routes_by_width(width, takes, capsys):
     line = step.report_module_route(base, "cuda")
     assert (line is None) == takes
     if not takes:
-        assert "SIREN backward kernel takes widths up to 512" in line
+        assert "SIREN backward kernel takes widths up to 1024" in line
         assert line in capsys.readouterr().err
     assert ks.SirenLayout.from_config(base).model_width == width
 

@@ -2,8 +2,8 @@
 or SiNeRF of width W up to 1024 is packed at render.py::kernel_width(W)
 (also named nerf_kernel_width: the next of 64, 128, 192, 256, 384, 512,
 768, 1024; 384 and 512 run the column-split trunk on the card, 768 and
-1024 the NeRF kernels' streamed trunk), with zero units, and the plain
-versions run that padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
+1024 the streamed trunk), with zero units, and the plain versions run
+that padded pack as the kernels do. Held here against fsnerf_tpu, whose Pallas
 kernels take any width (interpret mode, as tests/test_pallas.py runs them
 on the CPU), with NeRF 4 layers, skip (2,), n_freqs 4/2 and SiNeRF 4
 layers, 128 seeded rows. The file takes ~80 s alone, most of it the JAX
@@ -18,9 +18,9 @@ sin(a 0) = 0, and the next matrix reads them through zero rows).
 
 Also: the limits the kernels state (render.py::kernel_arch_error,
 siren.py::SIREN_MAX_WIDTH and SIREN_MMA_MAX_WIDTH) against the
-shared-memory sizes of their CUDA sources, the routes of NeRF 300 / 512 /
-600 / 1024 / 1100 and SiNeRF 300 / 512 / 600 on a cuda device, and one CLI
-run at --d_filter 40 through the plain versions.
+shared-memory sizes of their CUDA sources, the routes of NeRF and SiNeRF
+300 / 512 / 600 / 1024 / 1100 on a cuda device, and one CLI run at
+--d_filter 40 through the plain versions.
 """
 
 import json
@@ -234,7 +234,7 @@ def test_ray_march_split_widths_match_pallas(width, sigma_bias):
 
 
 @pytest.mark.parametrize("width,packed", [(40, 64), (100, 128), (300, 384),
-                                          (512, 512)])
+                                          (512, 512), (700, 768)])
 def test_siren_padded_matches_pallas(width, packed):
     """Kernels 7 and 8's plain versions on the padded pack through the
     autograd Function, in both backward modes, against the JAX SIREN
@@ -243,7 +243,8 @@ def test_siren_padded_matches_pallas(width, packed):
     parameter's gradient (2e-2 of its max; the port's two modes differ by
     design within 1e-2, tests/test_torch_siren.py); the padded gradient
     entries and the saved activations' padded columns exactly 0 in both
-    modes. 300 and 512 pack at the column-split widths 384 and 512."""
+    modes. 300 and 512 pack at the column-split widths 384 and 512, 700 at
+    the streamed width 768."""
     params = sinerf_params_np(8, width=width)
     sd = state_dict_from_jax(params)
     packed_p = ks.prep_siren_params(sd, 4, with_transposed=True)
@@ -282,13 +283,13 @@ def test_siren_padded_matches_pallas(width, packed):
 
 
 @pytest.mark.parametrize("width,sigma_bias", [(300, 0.0), (512, 0.0),
-                                              (512, 30.0)])
+                                              (512, 30.0), (1024, 0.0)])
 def test_siren_ray_march_split_widths_match_pallas(width, sigma_bias):
-    """Kernel 2's plain version at the packed widths 384 (width 300) and
-    512 through render_rays_occgrid against the interpret-mode Pallas SIREN
-    march at the module's width, at the march's blocking (16 rays x chunks
-    of 8 samples: the card kernel runs each such 128-row step as two 64-row
-    halves but decides the skip per step). With a raised sigma bias most
+    """Kernel 2's plain version at the packed widths 384 (width 300), 512
+    and 1024 (the streamed width) through render_rays_occgrid against the
+    interpret-mode Pallas SIREN march at the module's width, at the march's
+    blocking (16 rays x chunks of 8 samples: the card kernel runs each such
+    128-row step as two 64-row halves but decides the skip per step). With a raised sigma bias most
     blocks exit early, and the plain version's exits agree with the TPU
     kernel's: rgb / opacity within 7e-3, depth within 3e-2, n_valid
     exact."""
@@ -309,7 +310,7 @@ def test_siren_ray_march_split_widths_match_pallas(width, sigma_bias):
     np.testing.assert_array_equal(got["n_valid"].numpy(),
                                   np.asarray(ref["n_valid"]))
     assert ks.prep_siren_params(sd, 4).layout.width == kr.kernel_width(width)
-    assert kr.kernel_width(width) in kr.SPLIT_WIDTHS
+    assert kr.kernel_width(width) in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
 
 
 def test_stated_limits_fit_the_kernels_shared_memory():
@@ -324,11 +325,13 @@ def test_stated_limits_fit_the_kernels_shared_memory():
     pass's two activation buffers would not fit; the mma.sync SIREN kernels
     at their widest width and 32 past it; the warp-specialized SIREN
     forward, march and saved-mode row pass (siren.py::siren_smem_bytes) at
-    every packed width up to 512 with a ring of 2 stages or more (at 384
-    and 512 the column-split shapes; a 128-row row pass does not fit
-    there), refusing 768 (SiNeRF 600) and 1024 out of shared memory. NeRF
-    and SiNeRF 257 and 300 pack at 384, 512 at 512; NeRF 513 packs at 768,
-    769 at 1024, both on the kernels, and 1025 at 1056, refused."""
+    every packed width up to 1024 with a ring of 2 stages or more (at 384
+    and 512 the column-split shapes, a 128-row row pass not fitting there;
+    at 768 and 1024 the streamed ones, where the column-split shape would
+    not fit), SiNeRF 600 packing at 768 and 1024 at 1024, 1025 refused for
+    the L2 cache. NeRF and SiNeRF 257 and 300 pack at 384, 512 at 512;
+    NeRF 513 packs at 768, 769 at 1024, both on the kernels, and 1025 at
+    1056, refused."""
     lim = kr.SMEM_LIMIT
     for W in kr.NERF_KERNEL_WIDTHS:
         dd = kr.KERNEL_MAX_DIR_AT_256 if W == 256 else kr.KERNEL_MAX_ENC
@@ -367,8 +370,8 @@ def test_stated_limits_fit_the_kernels_shared_memory():
         assert ks.mma_smem_bytes(top + 32, kernel) > lim
         assert ks.siren_kernel_error(top, kernel) is None
         assert ks.siren_kernel_error(top + 32, kernel) is not None
-    assert ks.SIREN_MAX_WIDTH == kr.SPLIT_WIDTHS[-1]
-    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS
+    assert ks.SIREN_MAX_WIDTH == kr.STREAM_WIDTHS[-1]
+    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
     for kernel in ("forward", "march", "backward"):
         for W in siren_widths:
             assert ks.siren_kernel_error(W, kernel) is None
@@ -377,14 +380,17 @@ def test_stated_limits_fit_the_kernels_shared_memory():
         assert ks.siren_smem_bytes(768, kernel, rows=64) > lim
         for W in (600, 1024):
             assert kr.kernel_width(W) in kr.STREAM_WIDTHS
-            assert "shared memory" in ks.siren_kernel_error(
-                kr.kernel_width(W), kernel)
+        assert "L2 cache" in ks.siren_kernel_error(kr.kernel_width(1025),
+                                                    kernel)
     for W in kr.SPLIT_WIDTHS:
         assert ks.siren_smem_bytes(W, "backward", rows=128) > lim
+    assert ks.siren_smem_bytes(1024, "backward", 3) == \
+        mt.bwd_rows_smem_bytes(1024, 16)
     assert [ks.siren_stages(W, "backward") for W in siren_widths] \
-        == [4, 4, 4, 3, 4, 2]
+        == [4, 4, 4, 3, 4, 2, 3, 3]
     assert [ks.siren_stages(W, "forward") for W in siren_widths] \
-        == [4, 4, 4, 4, 4, 3]
+        == [4, 4, 4, 4, 4, 3, 4, 4]
+    assert [ks.siren_stages(W, "march") for W in kr.STREAM_WIDTHS] == [4, 4]
     assert [kr.kernel_width(w) for w in (1, 40, 64, 65, 129, 192, 193, 256,
                                          257, 300, 512, 600, 1024, 1100)] \
         == [64, 64, 64, 128, 192, 192, 256, 256, 384, 384, 512, 768, 1024,
@@ -411,14 +417,14 @@ def test_cli_trains_at_width_40_through_the_plain_versions(capsys):
 @pytest.mark.parametrize("model,width,takes", [
     ("nerf", 300, True), ("nerf", 512, True), ("nerf", 600, True),
     ("nerf", 1024, True), ("nerf", 1100, False), ("sinerf", 300, True),
-    ("sinerf", 512, True), ("sinerf", 600, False)])
+    ("sinerf", 512, True), ("sinerf", 600, True), ("sinerf", 1024, True),
+    ("sinerf", 1100, False)])
 def test_wide_routes_on_the_card(model, width, takes, capsys):
-    """The routes on a cuda device, decided without a card: NeRF 300
-    (packed 384), 512, 600 (packed 768) and 1024 and SiNeRF 300 and 512
-    resolve to the kernels and print nothing; NeRF 1100 (packed 1120) and
-    SiNeRF 600 (packed 768) take the module route and print its one line,
-    naming the width and the reason (the NeRF's L2 cache, the SIREN's
-    shared memory); on the CPU nothing is printed."""
+    """The routes on a cuda device, decided without a card: NeRF and
+    SiNeRF 300 (packed 384), 512, 600 (packed 768) and 1024 resolve to the
+    kernels and print nothing; NeRF and SiNeRF 1100 (packed 1120) take the
+    module route and print its one line, naming the width and the reason
+    (the streamed trunk's L2 cache); on the CPU nothing is printed."""
     if model == "nerf":
         cfg = _train_cfg(width)
     else:
@@ -438,8 +444,7 @@ def test_wide_routes_on_the_card(model, width, takes, capsys):
                                                 width)
         assert lay.width in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
     else:
-        reason = "L2 cache" if model == "nerf" else "shared memory"
         assert line in err and f"{model} width {width} trains and renders " \
-            "through the module" in line and reason in line
+            "through the module" in line and "L2 cache" in line
     assert step.kernels_refusal(cfg, "cpu") is None
     assert step.report_module_route(cfg, "cpu") is None
