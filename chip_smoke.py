@@ -13,18 +13,19 @@ Phases (any failure exits non-zero; nothing is caught):
      warp-specialized SIREN forward, march and backward row pass (the
      routes phases 10-13 take);
  2b. the same at NeRF 8 x 192, 8 x 200 (packed at 256: a NeRF module's
-     width up to 512 is laid out at the next of the kernels' widths 64,
-     128, 192, 256, 384, 512 with zero units, ops/kernels/render.py::
-     nerf_kernel_width) and 8 x 512 (the column-split kernels): 20 train
-     steps of the occgrid slice and a held-out view must launch
+     width is laid out at the next of the kernels' widths 64, 128, 192,
+     256, 384, 512 or a multiple of 256 from 768 up with zero units,
+     ops/kernels/render.py::nerf_kernel_width), 8 x 512 (the column-split
+     kernels), 8 x 700, 8 x 1024 and 8 x 2048 (the streamed ones): 20
+     train steps of the occgrid slice and a held-out view must launch
      mlp_train_fwd_kernel, nerf_density_kernel and nerf_march_kernel at
-     the packed width and kernel 6's row and dW passes, and call no NeRF
-     module (a forward hook counts its calls); then SiNeRF 8 x 512 (the
-     column-split SIREN kernels) and 8 x 1024 (the streamed ones): its 20
-     steps and held-out view must launch siren_fwd_ws_kernel,
-     siren_bwd_rows_ws_kernel and siren_march_kernel at 512 (at 1024
-     their _stream instances) and call the module only for the grid
-     refresh's densities (there is no SIREN density kernel);
+     the packed width (from 768 up their _stream instances) and kernel 6's
+     row and dW passes, and call no NeRF module (a forward hook counts its
+     calls); then SiNeRF 8 x 512 (the column-split SIREN kernels) and 8 x
+     1024 (the streamed ones): its 20 steps and held-out view must launch
+     siren_fwd_ws_kernel, siren_bwd_rows_ws_kernel and siren_march_kernel
+     at 512 (at 1024 their _stream instances) and call the module only for
+     the grid refresh's densities (there is no SIREN density kernel);
   3. ray-march kernel vs its plain PyTorch version at full width — NeRF
      8x256 with seeded weights, the 16,384 rays of a 128x128 held-out
      SphereScene view, a res-128 grid rebuilt from the model's densities,
@@ -172,50 +173,58 @@ Phases (any failure exits non-zero; nothing is caught):
      generator, the launches), and on the trained weights kernel 1 on a
      val view's NDC samples and kernel 4 on each level's cell centres
      against their plain versions (phase 3's and 14's tolerances);
- 19. the kernels at every width up to 1024:
+ 19. the kernels at every width up to W_max (a module's width packed at
+     64, 128, 192, 256, 384, 512 or a multiple of 256 from 768 up; W_max
+     the widest whose packed weights int32 offsets address: 15,872 for
+     the NeRF below, 15,360 for the 8-layer SiNeRF):
      a. NeRF 8 layers, skip 4, seeded weights, at widths 40, 96, 192,
-        200, 300 (packed 384), 512, 700 (packed 768) and 1024 (n_freqs
-        10/4) and 256 and 512 with n_freqs 21 (a 129-wide encoding):
+        200, 300 (packed 384), 512, 700 (packed 768), 1024, 1100 (packed
+        1280), 2048 and W_max (n_freqs 10/4), 256 and 512 with n_freqs 21
+        (a 129-wide encoding) and 256 with n_freqs_views 21 (packed 384):
         kernel 1 on phase 3's march inputs (its tolerances, equal executed
         steps), kernel 3 at one validation chunk's 393,216 rows and kernel
         4 at one og.update launch's 262,144 (phase 7's and 14's
         tolerances), kernels 5 and 6 at 196,608 rows (phase 5's, saved ==
-        recompute bitwise), launch counts from 0; each kernel's CUDA-event
+        recompute bitwise), launch counts from 0 (at W_max, whose tensors
+        at those rows outgrow the card, one ray block per SM, WMAX_ROWS
+        rows and the plain versions on the first ray block and on
+        WMAX_PLAIN_ROWS); each kernel's CUDA-event
         time beside its plain version's and its bound at the module's own
         width (the padded work is the kernel's cost) and the bf16 module's
-        time on the same rows; ptxas's registers and
-        spills of every 384 and 512 instance and of kernel 6's 64-row row
-        pass;
+        time on the same rows (above 256 timed in fewer calls:
+        WIDE_KERNEL_REPS); ptxas's registers and spills of every 384 and
+        512 instance, of kernel 6's 64-row row pass and of the streamed
+        instances;
      b. SiNeRF 8 layers at 40, 100, 192, 300 (packed 384), 512, 700
-        (packed 768) and 1024: kernels
+        (packed 768), 1024, 1100 (packed 1280), 2048 and W_max: kernels
         7, 8 (both modes) and 2 against their plain versions at 196,608
-        rows and phase 3's march inputs (phase 10's and 11's tolerances),
-        each kernel bitwise repeatable (from 384 up recompute mode
-        bitwise equal to saved mode), its CUDA-event time in each of its
-        modes (kernel 7 with and without acts, kernel 8 saved and
-        recompute) beside its plain version's, its bound and the bf16
+        rows and phase 3's march inputs (phase 10's and 11's tolerances;
+        at W_max as 19a), each kernel bitwise repeatable (from 384 up
+        recompute mode bitwise equal to saved mode), its CUDA-event time in
+        each of its modes (kernel 7 with and without acts, kernel 8 saved
+        and recompute) beside its plain version's, its bound and the bf16
         SiNeRF module's time on the same rows; at 320 packed at 320 (no
         packer's width) the mma.sync forward and march held and timed the
         same way and the backward refused by name; the SIREN kernels' ring
         stages at each width as the C launchers pick them, which must
-        equal siren.py::siren_stages; a SiNeRF and a NeRF of 1100 resolve
-        to the module with the printed line (every SIREN kernel refusing it
-        by name), a SiNeRF and a NeRF of 512, 600 and 1024 to the kernels;
-        ptxas's registers and spills of every width-192 instance and of
-        every SIREN instance at 384 and 512 and of the streamed ones (which
-        must spill nothing);
-     c. the occgrid training slice (300 graphed steps, held-out views) at
-        8 x 192, 8 x 200, 8 x 512 and 8 x 1024 through the kernels
-        (counts from 0:
-        kernels 5 and 6 once per step, kernel 4 at every refresh, kernel 1
-        in the eval; no NeRF module call), then the same run through the
-        module (fused_kernel and fused_render off, the route these widths
-        took before the kernels took them): steps/s and held-out PSNR side
-        by side, each at least 5 dB above the untrained weights', from 512
-        up the two within 1 dB; then the same for SiNeRF 8 x 512 and 8 x
-        1024 at 200 steps each (kernels 7 and 8 once per step, kernel 2 in
-        the eval, no SiNeRF module call but the grid refresh's, on the
-        kernels' route);
+        equal siren.py::siren_stages; a SiNeRF and a NeRF one unit past
+        W_max resolve to the module with the printed line, a SiNeRF and a
+        NeRF of 512, 600, 1024, 1100 and 2048 to the kernels; ptxas's
+        registers and spills of every width-192 instance and of every SIREN
+        instance at 384 and 512 and of the streamed ones (which must spill
+        nothing);
+     c. the occgrid training slice (200 graphed steps, 150 at 8 x 2048;
+        held-out views) at
+        8 x 192, 8 x 200, 8 x 512, 8 x 1024 and 8 x 2048 through the
+        kernels (counts from 0: kernels 5 and 6 once per step, kernel 4 at
+        every refresh, kernel 1 in the eval; no NeRF module call), then the
+        same run through the module (fused_kernel and fused_render off, the
+        route these widths took before the kernels took them): steps/s and
+        held-out PSNR side by side, each at least 5 dB above the untrained
+        weights', from 512 up the two within 1 dB (0.5 dB above 1024); then
+        the same for SiNeRF 8 x 512 and 8 x 1536 (150 and 120 steps)
+        (kernels 7 and 8 once per step, kernel 2 in the eval, no SiNeRF
+        module call but the grid refresh's, on the kernels' route);
  20. the data-parallel layer (parallel/) at the training slice's full
      width (NeRF 8x256 skip 4, 1,024 rays a step globally, grid res 128,
      the 8-view 128x128 sphere):
@@ -283,6 +292,7 @@ Exits non-zero without printing a result when CUDA is unavailable.
 """
 
 import contextlib
+import gc
 import json
 import logging
 import math
@@ -350,7 +360,9 @@ def fail(msg: str):
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn on the current stream, after one
     untimed call (a first cuBLAS call at new shapes also loads and picks
-    its kernels)."""
+    its kernels); reps 0: one call, no untimed one (a call of seconds)."""
+    if reps == 0:
+        return once_ms(fn)
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -362,11 +374,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, march, reference, padded, params, bR, cs, eps):
+def compare(name, march, reference, padded, params, bR, cs, eps,
+            quick=0, plain_rays=None):
     """A ray-march kernel vs its plain version on the same inputs; returns
-    the numbers for the report."""
-    got, steps = march(*padded, params, bR, cs, eps)
-    ref, steps_ref = reference(*padded, params, bR, cs, eps)
+    the numbers for the report and the kernel's outputs ("first"). With
+    `quick` calls the plain version is timed by its comparison call alone
+    and the kernel over that many. With `plain_rays` the plain version
+    marches the first plain_rays rays alone, held against those rays of
+    the kernel's launch."""
+    first = march(*padded, params, bR, cs, eps)
+    got, steps = first
+    total = steps.numel() * (padded[0].shape[1] // cs)
+    executed = int(steps.sum())
+    sub = padded
+    if plain_rays is not None:
+        sub = tuple(a[:plain_rays].contiguous() for a in padded)
+        got, steps = got[:plain_rays], steps[:plain_rays // bR]
+    plain_once = {}
+
+    def plain_call():
+        plain_once["out"] = reference(*sub, params, bR, cs, eps)
+
+    plain_once_ms = once_ms(plain_call)
+    ref, steps_ref = plain_once.pop("out")
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output is not finite")
@@ -376,18 +406,19 @@ def compare(name, march, reference, padded, params, bR, cs, eps):
     if not torch.equal(steps, steps_ref):
         fail(f"{name}: executed steps {int(steps.sum())} (kernel) != "
              f"{int(steps_ref.sum())} (plain)")
-    total = steps.numel() * (padded[0].shape[1] // cs)
-    executed = int(steps.sum())
 
     def kernel():
         march(*padded, params, bR, cs, eps)
 
     def plain():
-        reference(*padded, params, bR, cs, eps)
+        reference(*sub, params, bR, cs, eps)
 
-    ms, plain_ms = in_turns(plain, kernel)
+    if quick:
+        ms, plain_ms = cuda_ms(kernel, quick), plain_once_ms
+    else:
+        ms, plain_ms = in_turns(plain, kernel)
     out = dict(max_abs_err=float(err[:5].max()), ms=ms, plain_ms=plain_ms,
-               executed=executed, total=total)
+               executed=executed, total=total, first=first)
     print(f"{name}: max abs err rgb/opacity {float(err[:4].max()):.3e} "
           f"depth {float(err[4]):.3e}; steps {executed}/{total} "
           f"(skip fraction {1 - executed / total:.4f}); kernel "
@@ -447,12 +478,27 @@ def graphed(fn, calls: int):
     return graph.replay
 
 
-def in_turns(plain, kernel, plain_reps=3, kernel_reps=10):
+def in_turns(plain, kernel, plain_reps=3, kernel_reps=10, quick=0):
     """CUDA-event ms of plain and kernel, timed plain, kernel, kernel,
-    plain."""
+    plain; with `quick` calls (phase 19 from the streamed widths up, where
+    one plain call takes seconds) the kernel over that many calls after an
+    untimed one and the plain version in one call."""
+    if quick:
+        return cuda_ms(kernel, quick), once_ms(plain)
     p1, k1, k2, p2 = (cuda_ms(plain, plain_reps), cuda_ms(kernel, kernel_reps),
                       cuda_ms(kernel, kernel_reps), cuda_ms(plain, plain_reps))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def once_ms(fn) -> float:
+    """CUDA-event milliseconds of one call of fn."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 # the launches of each train backward, in order (csrc/mlp_train.cu,
@@ -1224,10 +1270,12 @@ def hier_train_slice(cfg, dev, card):
     return launches
 
 
-def module_routes(cfg, dev, march_padded, model=None):
+def module_routes(cfg, dev, march_padded, model=None, rows=TRAIN_ROWS,
+                  reps=3):
     """Phase 14: the bf16 NeRF module (cuBLAS GEMMs) on each kernel's rows:
     the ray march's points + volume_render, and the train kernels' 196,608
-    rows forward and backward. Returns ms by kernel name."""
+    rows (`rows`) forward and backward, each over `reps` calls. Returns ms
+    by kernel name."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.volrend import volume_render
 
@@ -1240,17 +1288,17 @@ def module_routes(cfg, dev, march_padded, model=None):
             out = model(x, dirs[:, None, :].expand(x.shape)).float()
             volume_render(out[..., 3], out[..., :3], t, deltas, mask > 0)
 
-        march_ms = cuda_ms(march, 3)
+        march_ms = cuda_ms(march, reps)
     g = torch.Generator(device=dev).manual_seed(4)
-    xs = torch.rand((TRAIN_ROWS, 3), generator=g, device=dev) * 3.0 - 1.5
+    xs = torch.rand((rows, 3), generator=g, device=dev) * 3.0 - 1.5
     ds = torch.nn.functional.normalize(
-        torch.randn((TRAIN_ROWS, 3), generator=g, device=dev), dim=-1)
-    fwd_ms = cuda_ms(lambda: model(xs, ds), 3)
+        torch.randn((rows, 3), generator=g, device=dev), dim=-1)
+    fwd_ms = cuda_ms(lambda: model(xs, ds), reps)
     out = model(xs, ds).float()
     dout = torch.full_like(out, 1.0 / out.numel())
     params = list(model.parameters())
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, params, dout,
-                                                 retain_graph=True), 3)
+                                                 retain_graph=True), reps)
     return {"ray_march": march_ms, "mlp_train_fwd": fwd_ms,
             "mlp_train_bwd": bwd_ms}
 
@@ -3097,49 +3145,88 @@ def jpeg_phase(card, root, png_psnr):
     print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
 
 
-# -- 19. the kernels at every width up to 1024 -----------------------------
+# -- 19. the kernels at every width up to W_max -----------------------------
 #
-# A NeRF module's width up to 1024 (a SiNeRF's up to 512) is packed at the
-# next of the kernels' widths 64, 128, 192, 256, 384, 512, 768, 1024
-# (ops/kernels/render.py::kernel_width; 384 and 512 on the column-split
-# trunk, 768 and 1024 on the NeRF kernels' streamed trunk) with zero
-# units. NeRF: kernels 1 and 3-6 at widths 40, 96, 192, 200, 300, 512,
-# 700, 1024 (8 layers, skip 4, n_freqs 10/4) and at 256 and 512 with
-# n_freqs 21 (a 129-wide encoding); SiNeRF: kernels 2, 7, 8 at 40, 100,
-# 192, 300, 512, 700, 1024 (8 layers), the mma.sync forward and march at
-# 320 packed at 320, every SIREN kernel refusing 1100 (packed 1120) by
-# name.
+# A NeRF or SiNeRF module's width is packed at the next of the kernels'
+# widths 64, 128, 192, 256, 384, 512 or, above 512, the next multiple of
+# 256 from 768 up (ops/kernels/render.py::kernel_width; 384 and 512 on the
+# column-split trunk, 768 and up on the streamed trunk, one instance for
+# every streamed width; a NeRF of 193-256 units whose direction encoding
+# is wider than 128 at 384) with zero units, up to W_max, the widest whose
+# packed weights int32 offsets address (render.py::MAX_PACKED_WEIGHTS:
+# 15,872 for this NeRF, 15,360 for the 8-layer SiNeRF). NeRF: kernels 1
+# and 3-6 at widths 40, 96, 192, 200, 300, 512, 700, 1024, 1100 (packed
+# 1280), 2048 and W_max (8 layers, skip 4, n_freqs 10/4), at 256 and 512
+# with n_freqs 21 (a 129-wide encoding) and at 256 with n_freqs_views 21
+# (packed 384); SiNeRF: kernels 2, 7, 8 at 40, 100, 192, 300, 512, 700,
+# 1024, 1100, 2048 and W_max (8 layers), the mma.sync forward and march at
+# 320 packed at 320; past W_max the printed module route.
 WIDTH_NERF = ((40, {}), (96, {}), (192, {}), (200, {}),
-              (256, {"n_freqs": 21}), (300, {}), (512, {}),
-              (512, {"n_freqs": 21}), (700, {}), (1024, {}))
-WIDTH_SIREN = (40, 100, 192, 300, 512, 700, 1024)
+              (256, {"n_freqs": 21}), (256, {"n_freqs_views": 21}),
+              (300, {}), (512, {}), (512, {"n_freqs": 21}), (700, {}),
+              (1024, {}), (1100, {}), (2048, {}))
+WIDTH_SIREN = (40, 100, 192, 300, 512, 700, 1024, 1100, 2048)
+# At W_max the main path's rows do not fit the card (kernel 6's saved
+# activations and cotangents at 196,608 rows of 8 x 15,872 take ~100 GB):
+# kernels 3-8 there run WMAX_ROWS rows (their rows times a row's elements
+# still pass 2^31 in the acts stream and the cotangents, so a 32-bit row
+# offset would show), the marches one ray block per SM of the card (phase
+# 3's first rays: each persistent CTA takes one block), the plain marches
+# the first block of that launch,
+# the plain versions WMAX_PLAIN_ROWS rows (seconds a call).
+WMAX_ROWS = 16_384
+WMAX_PLAIN_ROWS = 2_048
+# Above width 256 a plain call takes 0.02-13 s: each kernel is timed over
+# WIDE_KERNEL_REPS calls (at W_max one), its plain version in one, the
+# bf16 module over MODULE_REPS_WIDE (in_turns(quick=...)), at W_max in one
+# call without an untimed one (the SiNeRF module's march there takes ~30 s).
+WIDE_KERNEL_REPS = 3
+MODULE_REPS_WIDE = 1
+# the report's wide instances (phase 19's numbers, their launches from
+# phase 2b's runs at those widths)
+NERF_REPORT_WIDTHS = (512, 768, 1024, 2048)
+SIREN_REPORT_WIDTHS = (512, 1024)
 # 19c: training runs at 8 x W, each for this many graphed steps (8 x 1024
 # through the module trains at ~22 steps/s: TRAIN_STEPS of it would take
 # ~70 s of the script's time; every width cut to 600 steps to make room,
-# then to 300 for the SiNeRF 8 x 1024 slice)
-WIDTH_TRAIN = {192: 300, 200: 300, 512: 300, 1024: 300}
-WIDTH_ROUTES = (192, 200, 512, 700, 1024)   # 2b: the routes traced
+# then to 300, then to 200 for the 8 x 2048 slice (at 150: 5.3-5.8 steps/s
+# on either route): at 150 the 8 x 192 slice's held-out PSNR rose 4.8 dB,
+# under MIN_PSNR_GAIN_DB)
+WIDTH_TRAIN = {192: 200, 200: 200, 512: 200, 1024: 200, 2048: 150}
+WIDTH_ROUTES = (192, 200, 512, 700, 1024, 2048)   # 2b: the routes traced
 # 19c: SiNeRF training at 8 x W for this many graphed steps: the module
-# route trains at ~10 steps/s at 8 x 512 and ~3.3 at 8 x 1024, so
-# TRAIN_STEPS of either would take 150-450 s of the script's time (512 cut
-# from 600 to 200 steps to make room for 1024)
-WIDTH_SIREN_TRAIN = {512: 200, 1024: 200}
+# route trains at ~10 steps/s at 8 x 512, ~3.3 at 8 x 1024 and ~1.4 at 8 x
+# 1536, so TRAIN_STEPS of any would take 150-1,000 s of the script's time
+# (512 cut from 600 to 200 steps to make room for 1024, then to 150 for
+# 1536, whose slice takes the place of 1024's: the streamed SIREN kernels
+# at 1024 still train in phase 2b and run in 19b; 2048's module route,
+# ~0.8 steps/s, does not fit)
+WIDTH_SIREN_TRAIN = {512: 150, 1536: 120}
 WIDTH_ROUTE_STEPS = 20                # 2b: steps traced for the route
 # 19c from 384 up: the held-out PSNR of the kernels' run against the
-# module's (the same function, bf16 rounded in other places)
+# module's (the same function, bf16 rounded in other places); above 1024
+# within WIDEST_PSNR_TOL_DB
 WIDE_PSNR_TOL_DB = 1.0
+WIDEST_PSNR_TOL_DB = 0.5
+# Above 1024 a gradient off by more than GRAD_TOL of its max from the plain
+# version's is decided by scripts/grad_arbiter.py's float64 arbiter (the
+# tensor cores' f32 sums over K = W flip bf16 roundings of the backward's
+# intermediates ~linearly in K): the kernel's worst error against it must
+# stay within ARBITER_FACTOR of the plain version's (from the kernel's
+# saved activations), the factor ROADMAP Queue 3 states.
+ARBITER_FACTOR = 3.0
 
 
 def nerf_route_kernels(width: int):
     """(names launched with the packed width as template argument, names
     without one) of the NeRF training and eval kernels at a packed width:
-    at the streamed widths one instance each (<name>_stream) serves 768
-    and 1024."""
+    at the streamed widths one instance each (<name>_stream) serves them
+    all."""
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
     names = ("mlp_train_fwd_kernel", "nerf_density_kernel",
              "nerf_march_kernel")
-    if width in kr.STREAM_WIDTHS:
+    if kr.stream_width(width):
         return (), tuple(f"{n}_stream" for n in names) + (
             "mlp_train_bwd_rows_kernel_stream",) + NERF_BWD_PARTS[1:]
     return names, NERF_BWD_PARTS
@@ -3198,8 +3285,9 @@ def width_routes(cfg, dev, card):
     siren_bwd_rows_ws_kernel<512> and the dW pass, siren_march_kernel<512>)
     and at 8 x 1024 their streamed instances (siren_fwd_kernel_stream,
     siren_bwd_rows_kernel_stream, siren_march_kernel_stream), the SiNeRF
-    module called only for the grid refresh's densities. Returns {packed
-    width: the launch counts of its NeRF run} from 512 up."""
+    module called only for the grid refresh's densities. Returns ({packed
+    width: the launch counts of its NeRF run} from 512 up, {SiNeRF width:
+    the launch counts of its run})."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3239,7 +3327,7 @@ def width_routes(cfg, dev, card):
 
         names, plain = nerf_route_kernels(K)
         if K >= 512:                  # the hierarchical eval's kernel 3
-            if K in kr.STREAM_WIDTHS:
+            if kr.stream_width(K):
                 plain += ("nerf_mlp_kernel_stream",)
             else:
                 names += ("nerf_mlp_kernel",)
@@ -3260,7 +3348,8 @@ def width_routes(cfg, dev, card):
                  f"{calls.total} times")
     # SiNeRF 8 x 512 on the column-split SIREN kernels, 8 x 1024 on the
     # streamed ones
-    for W in (512, 1024):
+    siren_wide = {}
+    for W in SIREN_REPORT_WIDTHS:
         scfg = sinerf_config(train_slice_config(width_cfg(cfg, W)),
                              n_iters=WIDTH_ROUTE_STEPS)
         if not step.resolve_fused_kernel(scfg, dev):
@@ -3279,33 +3368,74 @@ def width_routes(cfg, dev, card):
 
         names = ("siren_fwd_ws_kernel", "siren_bwd_rows_ws_kernel",
                  "siren_march_kernel")
-        if W in kr.STREAM_WIDTHS:
+        if kr.stream_width(W):
             names, plain = (), tuple(f"{n.replace('_ws', '')}_stream"
                                      for n in names)
         else:
             plain = ()
+        before = launch_counts()
         with ModuleCalls() as calls:
             require_kernels(
                 f"2b. {WIDTH_ROUTE_STEPS} SiNeRF train steps and a held-out "
                 f"view at 8 x {W}", run_siren, names, W,
                 plain=plain + SIREN_BWD_PARTS[1:])
+        after = launch_counts()
+        siren_wide[W] = {k: after[k] - before[k] for k in after}
         print(f"2b. SiNeRF {W}: module calls {calls.calls} on the MLP, "
               f"{calls.density_calls} for the grid refresh's densities")
         if calls.calls:
             fail(f"SiNeRF {W}: the run called the SiNeRF module "
                  f"{calls.calls} times on the MLP")
-    return wide
+    return wide, siren_wide
 
 
-def nerf_width_case(cfg, dev, march_in, module=False):
+def wide_shapes(width: int, wmax: bool) -> dict:
+    """The rows phase 19 runs a width's kernels on: the main path's
+    (phase 3's march inputs, one validation chunk for kernel 3, one
+    og.update launch for kernel 4, TRAIN_ROWS for kernels 5-8), the plain
+    versions on the same rows; at W_max (`wmax`) one ray block per SM
+    (`ray_blocks`: phase 3's first rays, the plain marches on the first
+    block), WMAX_ROWS rows for kernels 3-8 and WMAX_PLAIN_ROWS of them for
+    the plain versions. `quick`: the kernel calls of in_turns(quick=...)
+    (above 256 WIDE_KERNEL_REPS, at W_max one; 0: in turns);
+    `module_reps`: the bf16 module's calls (MODULE_REPS_WIDE above 256,
+    else 3; at W_max 0: one call, cuda_ms)."""
+    quick = WIDE_KERNEL_REPS if width > 256 else 0
+    if wmax:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return dict(ray_blocks=sms, mlp=WMAX_ROWS, density=WMAX_ROWS,
+                    train=WMAX_ROWS, plain=WMAX_PLAIN_ROWS, quick=1,
+                    module_reps=0)
+    return dict(ray_blocks=None, mlp=VAL_CHUNK_ROWS, density=262_144,
+                train=TRAIN_ROWS, plain=None, quick=quick,
+                module_reps=MODULE_REPS_WIDE if quick else 3)
+
+
+def seeded_model(cfg, seed: int, dev, on_card: bool = False):
+    """cfg's bf16 model with weights from `seed`: drawn on the host (the
+    same weights on every device), or with `on_card` on the card's own
+    generator (W_max's ~2^31 weights take ~25 s to draw on the host)."""
+    from fsnerf_tpu_torch.core.models import make_model
+
+    if not on_card:
+        return make_model(cfg, torch.bfloat16,
+                          torch.Generator().manual_seed(seed), dev)
+    with torch.device(dev):
+        return make_model(cfg, torch.bfloat16,
+                          torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def nerf_width_case(cfg, dev, march_in, module=False, wmax=False):
     """19a: kernels 1 and 3-6 of a NeRF of cfg's architecture (seeded
     weights) against their plain versions at the main path's shapes, each
     bitwise repeatable (kernel 6 in both modes, recompute bitwise saved),
-    each launch counted from 0. Returns (width packed, {kernel: (ms, plain
-    ms, bound dict, max err)}, launches, {kernel: the bf16 module's ms on
-    the same rows} with `module`, else {})."""
+    each launch counted from 0; at W_max (`wmax`) on wide_shapes' rows,
+    the forward kernels' plain comparison on the first rows of the same
+    launch, kernel 6's on a launch of those rows. Returns (width packed,
+    {kernel: (ms, plain ms, bound dict, max err)}, launches, {kernel: the
+    bf16 module's ms on the same rows} with `module`, else {}, the shapes
+    run)."""
     from fsnerf_tpu_torch.core.encoding import positional_encoding
-    from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
@@ -3313,41 +3443,65 @@ def nerf_width_case(cfg, dev, march_in, module=False):
     L, skip = cfg.model.n_layers, cfg.model.skip
     nf, nfv = cfg.encoder.n_freqs, cfg.encoder.n_freqs_views
     W = cfg.model.d_filter
-    model = make_model(cfg, torch.bfloat16,
-                       torch.Generator().manual_seed(7), dev)
+    shapes = wide_shapes(W, wmax)
+    quick = shapes["quick"]
+    model = seeded_model(cfg, 7, dev, wmax)
     sd = model.state_dict()
     out = {}
     kr.ray_march.launches = km.nerf_mlp.launches = 0
     km.nerf_density.launches = mt.mlp_train_fwd.launches = 0
     mt.mlp_train_bwd.launches = 0
 
-    # kernel 1 on phase 3's padded march inputs
+    # kernel 1 on phase 3's padded march inputs (at W_max one ray block per
+    # SM)
     padded, bR, cs = march_in
+    plain_rays = None
+    if shapes["ray_blocks"] is not None:
+        padded = tuple(a[:shapes["ray_blocks"] * bR].contiguous()
+                       for a in padded)
+        plain_rays = bR
     rp = kr.prep_params(sd, L, skip, nf, nfv, device=dev)
-    r = compare(f"19a. width {W} (packed {rp.width}), n_freqs {nf}: march",
-                kr.ray_march, kr.ray_march_reference, padded, rp, bR, cs,
-                cfg.sampling.early_stop_eps)
-    runs = [kr.ray_march(*padded, rp, bR, cs, cfg.sampling.early_stop_eps)
-            for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+    r = compare(f"19a. width {W} (packed {rp.width}), n_freqs {nf}/{nfv}: "
+                f"march", kr.ray_march, kr.ray_march_reference, padded, rp,
+                bR, cs, cfg.sampling.early_stop_eps, quick=quick,
+                plain_rays=plain_rays)
+    again = kr.ray_march(*padded, rp, bR, cs, cfg.sampling.early_stop_eps)
+    if not all(torch.equal(a, b) for a, b in zip(r.pop("first"), again)):
         fail(f"19a. width {W}: two march runs differ")
     out["ray_march"] = (r["ms"], r["plain_ms"], bound(
         2.0 * mlp_macs(cfg) * r["executed"] * bR * cs,
         nbytes(*padded, rp.wpack, rp.bpack, rp.enc)
         + padded[0].shape[0] * (8 + 1 / bR) * 4), r["max_abs_err"])
+    packed = rp.width
+    del rp, again
 
     g = torch.Generator(device=dev).manual_seed(8)
-    n = VAL_CHUNK_ROWS
+    n = shapes["mlp"]
     x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
     d = torch.nn.functional.normalize(
         torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    module_ms = {}
+    if module:
+        # the nearest cuBLAS route: the bf16 module on each kernel's rows
+        # (the march's: every sample of the march inputs, as module_routes)
+        reps = shapes["module_reps"]
+        module_ms = module_routes(cfg, dev, padded, model,
+                                  shapes["train"], reps)
+        with torch.no_grad():
+            module_ms["nerf_mlp"] = cuda_ms(lambda: model(x, d), reps)
+            module_ms["nerf_density"] = cuda_ms(
+                lambda: model(x[:shapes["density"]]), reps)
+        torch.cuda.empty_cache()
     # kernels 3 and 4: one validation chunk, one og.update launch's rows
     p = km.prep_params(sd, L, skip, dev)
     ex = km.pad_features(positional_encoding(x, nf, True), p.d_enc_pad)
     ed = km.pad_features(positional_encoding(d, nfv, True), p.d_dir_pad)
-    got, ref = km.nerf_mlp(ex, ed, p), km.nerf_mlp_reference(ex, ed, p)
-    rgb_err = float((got[:, :3] - ref[:, :3]).abs().max())
-    sig = float((got[:, 3] - ref[:, 3]).abs().max()) / (
+    npl = shapes["plain"] or n
+    got = km.nerf_mlp(ex, ed, p)
+    ref = km.nerf_mlp_reference(ex[:npl].contiguous(), ed[:npl].contiguous(),
+                                p)
+    rgb_err = float((got[:npl, :3] - ref[:, :3]).abs().max())
+    sig = float((got[:npl, 3] - ref[:, 3]).abs().max()) / (
         float(ref[:, 3].abs().max()) + 1e-9)
     if not torch.isfinite(got).all() or rgb_err > MLP_RGB_TOL or \
             sig > MLP_SIGMA_TOL:
@@ -3355,36 +3509,42 @@ def nerf_width_case(cfg, dev, march_in, module=False):
              f"{sig:.3e} of max")
     if not torch.equal(got, km.nerf_mlp(ex, ed, p)):
         fail(f"19a. width {W}: two nerf_mlp runs differ")
-    ms, plain_ms = in_turns(lambda: km.nerf_mlp_reference(ex, ed, p),
-                            lambda: km.nerf_mlp(ex, ed, p))
+    ms, plain_ms = in_turns(
+        lambda: km.nerf_mlp_reference(ex[:npl], ed[:npl], p),
+        lambda: km.nerf_mlp(ex, ed, p), quick=quick)
     out["nerf_mlp"] = (ms, plain_ms, bound(2.0 * mlp_macs(cfg) * n, nbytes(
         ex, ed, p.wpack, p.bpack, got)), max(rgb_err, sig))
-    nd = 262_144
+    nd = shapes["density"]
     exd = ex[:nd].contiguous()
     got = km.nerf_density(exd, p)
-    ref = km.nerf_density_reference(exd, p)
-    sig = float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+    ref = km.nerf_density_reference(exd[:npl].contiguous(), p)
+    sig = float((got[:npl] - ref).abs().max()) / (
+        float(ref.abs().max()) + 1e-9)
     if not torch.isfinite(got).all() or sig > DENSITY_SIGMA_TOL:
         fail(f"19a. width {W}: nerf_density vs plain sigma {sig:.3e} of max")
     if not torch.equal(got, km.nerf_density(exd, p)):
         fail(f"19a. width {W}: two nerf_density runs differ")
-    ms, plain_ms = in_turns(lambda: km.nerf_density_reference(exd, p),
-                            lambda: km.nerf_density(exd, p))
+    ms, plain_ms = in_turns(lambda: km.nerf_density_reference(exd[:npl], p),
+                            lambda: km.nerf_density(exd, p), quick=quick)
     out["nerf_density"] = (ms, plain_ms, bound(
         2.0 * density_macs(cfg) * nd, nbytes(exd, p.wpack, p.bpack, got)),
         sig)
+    del p, ex, ed, exd, got, ref
 
     # kernels 5 and 6 at the train step's rows
-    n = TRAIN_ROWS
+    n = shapes["train"]
     xt, dt = x[:n].contiguous(), d[:n].contiguous()
     target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
                         torch.zeros((n, 1), device=dev)], dim=-1)
     lay = mt.TrainLayout.from_config(cfg)
     tp = mt.pack_train_params(sd, lay, kr.enc_table(nf, nfv, device=dev))
+    del model, sd
+    torch.cuda.empty_cache()
     fo, acts = mt.mlp_train_fwd(xt, dt, tp, save_acts=True)
-    fr, racts = mt.mlp_train_fwd_reference(xt, dt, tp, save_acts=True)
-    rgb_err = float((fo[:, :3] - fr[:, :3]).abs().max())
-    sig = float((fo[:, 3] - fr[:, 3]).abs().max()) / (
+    xp, dp = xt[:npl].contiguous(), dt[:npl].contiguous()
+    fr, racts = mt.mlp_train_fwd_reference(xp, dp, tp, save_acts=True)
+    rgb_err = float((fo[:npl, :3] - fr[:, :3]).abs().max())
+    sig = float((fo[:npl, 3] - fr[:, 3]).abs().max()) / (
         float(fr[:, 3].abs().max()) + 1e-9)
     if not torch.isfinite(fo).all() or rgb_err > TRAIN_RGB_TOL or \
             sig > TRAIN_SIGMA_TOL:
@@ -3395,34 +3555,58 @@ def nerf_width_case(cfg, dev, march_in, module=False):
         fail(f"19a. width {W}: two train forward runs differ")
     del again
     ms, plain_ms = in_turns(
-        lambda: mt.mlp_train_fwd_reference(xt, dt, tp, True),
-        lambda: mt.mlp_train_fwd(xt, dt, tp, True))
+        lambda: mt.mlp_train_fwd_reference(xp, dp, tp, True),
+        lambda: mt.mlp_train_fwd(xt, dt, tp, True), quick=quick)
     weights = (tp.wpack, tp.bpack, tp.enc)
     out["mlp_train_fwd"] = (ms, plain_ms, bound(
         2.0 * mlp_macs(cfg) * n, nbytes(xt, dt, *weights, fo, acts)),
         max(rgb_err, sig))
-    dout = (2.0 * (fr - target) / fr.numel()).contiguous()
+    # the MSE cotangent of the kernel's rows (the plain version's where it
+    # has them all)
+    dout = (2.0 * ((fr if npl == n else fo) - target) / fo.numel()
+            ).contiguous()
     saved = mt.mlp_train_bwd(xt, dt, dout, tp, acts)
-    rec = mt.mlp_train_bwd(xt, dt, dout, tp, None)
-    plain = mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts)
-    if not all(torch.equal(a, b) for a, b in zip(saved, rec)):
-        fail(f"19a. width {W}: saved-acts and recompute gradients differ")
     if not all(torch.equal(a, b) for a, b in zip(
             saved, mt.mlp_train_bwd(xt, dt, dout, tp, acts))):
         fail(f"19a. width {W}: two train backward runs differ")
+    if not all(torch.equal(a, b) for a, b in zip(
+            saved, mt.mlp_train_bwd(xt, dt, dout, tp, None))):
+        fail(f"19a. width {W}: saved-acts and recompute gradients differ")
+    bwd_bound = bound(2.0 * bwd_macs(cfg) * n, nbytes(
+        xt, dt, dout, acts, *weights, *saved))
+    del saved
+    if npl < n:                      # the plain comparison's own launch
+        ms = cuda_ms(lambda: mt.mlp_train_bwd(xt, dt, dout, tp, acts),
+                     quick)
+        del acts
+        fo, acts = mt.mlp_train_fwd(xp, dp, tp, save_acts=True)
+        dout = (2.0 * (fr - target[:npl]) / fr.numel()).contiguous()
+        xt, dt = xp, dp
+    grads = mt.mlp_train_bwd(xt, dt, dout, tp, acts)
+    plain = mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts)
     worst = max((float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30),
                  name) for name, a, b in zip(
-        lay.param_names, lay.grads_from_packed(*saved),
+        lay.param_names, lay.grads_from_packed(*grads),
         lay.grads_from_packed(*plain)))
-    if worst[0] > GRAD_TOL:
-        fail(f"19a. width {W}: train backward vs plain: {worst[1]} off by "
-             f"{worst[0]:.3e} of its max")
-    ms, plain_ms = in_turns(
-        lambda: mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts),
-        lambda: mt.mlp_train_bwd(xt, dt, dout, tp, acts))
-    out["mlp_train_bwd"] = (ms, plain_ms, bound(
-        2.0 * bwd_macs(cfg) * n, nbytes(xt, dt, dout, acts, *weights,
-                                        *saved)), worst[0])
+    del plain
+    from fsnerf_tpu_torch.scripts.grad_arbiter import nerf_arbiter
+
+    rows = xt.shape[0]
+    verdict = gradient_verdict(
+        f"19a. width {W}: train backward vs plain", W, worst, nerf_arbiter,
+        lay, grads, lambda: mt.mlp_train_bwd_reference(
+            xt, dt, dout, tp, acts[:rows]), xt, dt, dout, tp, acts[:rows])
+    del grads
+    if npl < n:
+        plain_ms = once_ms(lambda: mt.mlp_train_bwd_reference(
+            xt, dt, dout, tp, racts))
+    else:
+        ms, plain_ms = in_turns(
+            lambda: mt.mlp_train_bwd_reference(xt, dt, dout, tp, racts),
+            lambda: mt.mlp_train_bwd(xt, dt, dout, tp, acts), quick=quick)
+    out["mlp_train_bwd"] = (ms, plain_ms, bwd_bound, worst[0])
+    print(f"19a. width {W}: the train backward's {verdict}")
+    del tp, fo, fr, acts, racts
     torch.cuda.synchronize()
     launches = {"ray_march": kr.ray_march.launches,
                 "nerf_mlp": km.nerf_mlp.launches,
@@ -3431,36 +3615,33 @@ def nerf_width_case(cfg, dev, march_in, module=False):
                 "mlp_train_bwd": mt.mlp_train_bwd.launches}
     if min(launches.values()) == 0:
         fail(f"19a. width {W}: a kernel never launched: {launches}")
-    module_ms = {}
-    if module:
-        # the nearest cuBLAS route: the bf16 module on each kernel's rows
-        # (the march's: every sample of phase 3's inputs, as module_routes)
-        module_ms = module_routes(cfg, dev, padded, model)
-        with torch.no_grad():
-            module_ms["nerf_mlp"] = cuda_ms(lambda: model(x, d), 3)
-            module_ms["nerf_density"] = cuda_ms(lambda: model(x[:nd]), 3)
-    return rp.width, out, launches, module_ms
+    torch.cuda.empty_cache()
+    return packed, out, launches, module_ms, shapes
 
 
-def siren_width_case(cfg, dev, march_in, module=False, packed=None):
+def siren_width_case(cfg, dev, march_in, module=False, packed=None,
+                     wmax=False):
     """19b: kernels 7, 8 (saved and recompute) and 2 of a SiNeRF of cfg's
     width against their plain versions (196,608 rows; phase 3's march
-    inputs), each bitwise repeatable and each launch counted from 0, and
-    each timed in both of its modes (kernel 7 with and without acts,
-    kernel 8 saved and recompute); a kernel that refuses the packed width
-    a ValueError naming its limit and no launch. `packed`: pack at this
-    width instead of kernel_width's (320 reaches the mma.sync forward and
-    march). Returns (width packed, {kernel or "kernel (mode)": (ms, plain
-    ms, bound dict, max err)}, launches, refused, {the same keys: the bf16
-    SiNeRF module's ms on the same rows} with `module`, else {})."""
-    from fsnerf_tpu_torch.core.models import make_model
+    inputs; at W_max, `wmax`, wide_shapes' rows, the plain versions on
+    the first rows of the same launch, kernel 8's on a launch of those
+    rows), each bitwise repeatable and each launch counted from 0, and each
+    timed in both of its modes (kernel 7 with and without acts, kernel 8
+    saved and recompute); a kernel that refuses the packed width a
+    ValueError naming its limit and no launch. `packed`: pack at this width
+    instead of kernel_width's (320 reaches the mma.sync forward and march).
+    Returns (width packed, {kernel or "kernel (mode)": (ms, plain ms, bound
+    dict, max err)}, launches, refused, {the same keys: the bf16 SiNeRF
+    module's ms on the same rows} with `module`, else {}, the shapes
+    run)."""
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.ops.volrend import volume_render
 
     L, W = cfg.model.n_layers, cfg.model.d_filter
-    model = make_model(cfg, torch.bfloat16,
-                       torch.Generator().manual_seed(9), dev)
+    shapes = wide_shapes(W, wmax)
+    quick = shapes["quick"]
+    model = seeded_model(cfg, 9, dev, wmax)
     if packed is None:
         params = ks.prep_siren_params(model.state_dict(), L,
                                       with_transposed=True)
@@ -3469,14 +3650,47 @@ def siren_width_case(cfg, dev, march_in, module=False, packed=None):
                                        None, packed)
     K = params.layout.width
     g = torch.Generator(device=dev).manual_seed(10)
-    n = TRAIN_ROWS
+    n = shapes["train"]
+    npl = shapes["plain"] or n
     x = torch.rand((n, 3), generator=g, device=dev) * 3.0 - 1.5
     d = torch.nn.functional.normalize(
         torch.randn((n, 3), generator=g, device=dev), dim=-1)
     target = torch.cat([torch.rand((n, 3), generator=g, device=dev),
                         torch.zeros((n, 1), device=dev)], dim=-1)
     xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
+    xq, dq = xp[:npl].contiguous(), dp[:npl].contiguous()
     padded, bR, cs = march_in
+    plain_rays = None
+    if shapes["ray_blocks"] is not None:
+        padded = tuple(a[:shapes["ray_blocks"] * bR].contiguous()
+                       for a in padded)
+        plain_rays = bR
+    module_ms = {}
+    if module:
+        # the nearest cuBLAS route: the bf16 SiNeRF module on each kernel's
+        # rows (the march's: every sample of the march inputs, with
+        # volume_render; from 1024 up in W // 512 pieces of rays, as its
+        # f32 activations of every sample at once outgrow the card), before
+        # the kernels' acts streams (6.4 GB each at 1024) exist
+        reps = shapes["module_reps"]
+        xm, dirs, t, deltas, mask = padded
+        m_params = list(model.parameters())
+        pieces = torch.arange(xm.shape[0], device=dev).chunk(max(1, W // 512))
+        with torch.no_grad():
+            def module_march():
+                o = torch.cat([model(xm[p], dirs[p, None, :].expand(
+                    xm[p].shape)).float() for p in pieces])
+                volume_render(o[..., 3], o[..., :3], t, deltas, mask > 0)
+
+            module_ms["siren_ray_march"] = cuda_ms(module_march, reps)
+            module_ms["siren_mlp_fwd"] = cuda_ms(lambda: model(x, d), reps)
+        m_out = model(x, d).float()
+        module_ms["siren_mlp_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            m_out, m_params, torch.full_like(m_out, 1.0 / m_out.numel()),
+            retain_graph=True), reps)
+        del m_out, m_params
+    del model
+    torch.cuda.empty_cache()
     ks.siren_mlp_fwd.launches = ks.siren_mlp_bwd.launches = 0
     kr.siren_ray_march.launches = 0
     out, refused = {}, []
@@ -3493,90 +3707,126 @@ def siren_width_case(cfg, dev, march_in, module=False, packed=None):
 
     fo = acts = None
     if not refuses("siren_mlp_fwd",
-                   lambda: ks.siren_mlp_fwd(xp, dp, params, True)):
+                   lambda: ks.siren_mlp_fwd(xq, dq, params, True)):
         fo, acts = ks.siren_mlp_fwd(xp, dp, params, True)
         fo2, acts2 = ks.siren_mlp_fwd(xp, dp, params, True)
-        fr, racts = ks.siren_mlp_fwd_reference(xp, dp, params, True)
-        rgb_err = float((fo[:, :3] - fr[:, :3]).abs().max())
-        sig = float((fo[:, 3] - fr[:, 3]).abs().max()) / (
+        same = torch.equal(fo, fo2) and torch.equal(acts, acts2)
+        del fo2, acts2
+        fr, _ = ks.siren_mlp_fwd_reference(xq, dq, params)
+        rgb_err = float((fo[:npl, :3] - fr[:, :3]).abs().max())
+        sig = float((fo[:npl, 3] - fr[:, 3]).abs().max()) / (
             float(fr[:, 3].abs().max()) + 1e-9)
         primal, _ = ks.siren_mlp_fwd(xp, dp, params)
         if not torch.isfinite(fo).all() or rgb_err > MLP_RGB_TOL or \
                 sig > MLP_SIGMA_TOL:
             fail(f"19b. SiNeRF width {W}: forward vs plain rgb "
                  f"{rgb_err:.3e}, sigma {sig:.3e} of max")
-        if not (torch.equal(fo, fo2) and torch.equal(acts, acts2)
-                and torch.equal(primal, fo)):
+        if not (same and torch.equal(primal, fo)):
             fail(f"19b. SiNeRF width {W}: two forward runs differ (or the "
                  "forward without acts from the one with)")
+        del primal
         ms, plain_ms = in_turns(
-            lambda: ks.siren_mlp_fwd_reference(xp, dp, params, True),
-            lambda: ks.siren_mlp_fwd(xp, dp, params, True))
+            lambda: ks.siren_mlp_fwd_reference(xq, dq, params, True),
+            lambda: ks.siren_mlp_fwd(xp, dp, params, True), quick=quick)
         out["siren_mlp_fwd"] = (ms, plain_ms, bound(
             2.0 * siren_macs(L, W) * n, nbytes(xp, dp, params.wpack,
                                                params.bpack, fo, acts)),
             max(rgb_err, sig))
         ms, plain_ms = in_turns(
-            lambda: ks.siren_mlp_fwd_reference(xp, dp, params),
-            lambda: ks.siren_mlp_fwd(xp, dp, params))
+            lambda: ks.siren_mlp_fwd_reference(xq, dq, params),
+            lambda: ks.siren_mlp_fwd(xp, dp, params), quick=quick)
         out["siren_mlp_fwd (no acts)"] = (ms, plain_ms, bound(
             2.0 * siren_macs(L, W) * n, nbytes(xp, dp, params.wpack,
                                                params.bpack, fo)),
             max(rgb_err, sig))
-        dout = (2.0 * (fr - target) / fr.numel()).contiguous()
+        # the MSE cotangent of the kernel's rows (the plain version's where
+        # it has them all)
+        dout = (2.0 * ((fr if npl == n else fo) - target) / fo.numel()
+                ).contiguous()
         if not refuses("siren_mlp_bwd", lambda: ks.siren_mlp_bwd(
-                xp, dp, dout, params, acts)):
+                xq, dq, dout[:npl].contiguous(), params, acts[:npl])):
             lay = params.layout
-            grads = {}
-            for mode, a, ra in (("saved", acts, racts),
-                                ("recompute", None, None)):
+            modes = {}
+            for mode, a in (("saved", acts), ("recompute", None)):
                 gk = ks.siren_mlp_bwd(xp, dp, dout, params, a)
-                gk2 = ks.siren_mlp_bwd(xp, dp, dout, params, a)
-                gp = ks.siren_mlp_bwd_reference(xp, dp, dout, params, ra)
-                if not all(torch.equal(u, v) for u, v in zip(gk, gk2)):
+                if not all(torch.equal(u, v) for u, v in zip(
+                        gk, ks.siren_mlp_bwd(xp, dp, dout, params, a))):
                     fail(f"19b. SiNeRF width {W}: two backward ({mode}) "
                          "runs differ")
+                modes[mode] = gk
+                if mode == "saved":
+                    bounds = bound(2.0 * siren_bwd_macs(L, W) * n, nbytes(
+                        xp, dp, dout, acts, params.wpack, params.bpack,
+                        params.wtpack, *gk))
+                else:
+                    # from the inputs alone: the trunk's forward again
+                    bounds = bound(2.0 * (siren_bwd_macs(L, W) + 3 * W
+                                          + (L - 1) * W * W) * n,
+                                   nbytes(xp, dp, dout, params.wpack,
+                                          params.bpack, params.wtpack, *gk))
+                key = ("siren_mlp_bwd" if mode == "saved"
+                       else "siren_mlp_bwd (recompute)")
+                out[key] = [cuda_ms(lambda: ks.siren_mlp_bwd(
+                    xp, dp, dout, params, a), quick or 10), None, bounds,
+                    None]
+            if K in kr.SPLIT_WIDTHS or kr.stream_width(K):
+                if not all(torch.equal(u, v) for u, v in zip(
+                        modes["saved"], modes["recompute"])):
+                    fail(f"19b. SiNeRF width {W}: recompute mode differs "
+                         "from saved mode at a split or streamed width")
+            del modes, gk
+            if npl < n:        # the plain comparison's own launches
+                del acts
+                fo, acts = ks.siren_mlp_fwd(xq, dq, params, True)
+                dout = (2.0 * (fr - target[:npl]) / fr.numel()).contiguous()
+            racts = ks.siren_mlp_fwd_reference(xq, dq, params, True)[1]
+            from fsnerf_tpu_torch.scripts.grad_arbiter import siren_arbiter
+
+            for mode, a, ra in (("saved", acts, racts),
+                                ("recompute", None, None)):
+                gk = ks.siren_mlp_bwd(xq, dq, dout, params, a)
+                gp = ks.siren_mlp_bwd_reference(xq, dq, dout, params, ra)
                 worst = max((float((u - v).abs().max())
                              / (float(v.abs().max()) + 1e-30), name)
                             for name, u, v in zip(
                                 lay.param_names, lay.grads_from_packed(*gk),
                                 lay.grads_from_packed(*gp)))
-                if worst[0] > GRAD_TOL:
-                    fail(f"19b. SiNeRF width {W}: backward ({mode}) vs "
-                         f"plain: {worst[1]} off by {worst[0]:.3e}")
-                grads[mode] = gk
-                ms, plain_ms = in_turns(
-                    lambda: ks.siren_mlp_bwd_reference(xp, dp, dout, params,
-                                                       ra),
-                    lambda: ks.siren_mlp_bwd(xp, dp, dout, params, a))
-                if mode == "saved":
-                    out["siren_mlp_bwd"] = (ms, plain_ms, bound(
-                        2.0 * siren_bwd_macs(L, W) * n,
-                        nbytes(xp, dp, dout, acts, params.wpack,
-                               params.bpack, params.wtpack, *gk)),
-                        worst[0])
+                del gp
+                # recompute mode: from its own bf16 acts (the saved mode's,
+                # bitwise, from 384 up) or, up to 256, its f32 factors,
+                # which the arbiter does not model (kept to GRAD_TOL)
+                verdict = gradient_verdict(
+                    f"19b. SiNeRF width {W}: backward ({mode}) vs plain",
+                    W if mode == "saved" else min(W, 1024), worst,
+                    siren_arbiter, lay, gk, lambda: ks.siren_mlp_bwd_reference(
+                        xq, dq, dout, params, acts[:npl]),
+                    xq, dq, dout, params, acts[:npl])
+                del gk
+                print(f"19b. SiNeRF width {W}: the backward's ({mode}) "
+                      f"{verdict}")
+                key = ("siren_mlp_bwd" if mode == "saved"
+                       else "siren_mlp_bwd (recompute)")
+                if quick:
+                    plain_ms = once_ms(lambda: ks.siren_mlp_bwd_reference(
+                        xq, dq, dout, params, ra))
                 else:
-                    # from the inputs alone: the trunk's forward again
-                    out["siren_mlp_bwd (recompute)"] = (ms, plain_ms, bound(
-                        2.0 * (siren_bwd_macs(L, W) + 3 * W
-                               + (L - 1) * W * W) * n,
-                        nbytes(xp, dp, dout, params.wpack, params.bpack,
-                               params.wtpack, *gk)), worst[0])
-            if K in kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS and not all(
-                    torch.equal(u, v) for u, v in zip(grads["saved"],
-                                                      grads["recompute"])):
-                fail(f"19b. SiNeRF width {W}: recompute mode differs from "
-                     "saved mode at a split or streamed width")
+                    out[key][0], plain_ms = in_turns(
+                        lambda: ks.siren_mlp_bwd_reference(xq, dq, dout,
+                                                           params, ra),
+                        lambda: ks.siren_mlp_bwd(xq, dq, dout, params, a))
+                out[key][1], out[key][3] = plain_ms, worst[0]
+                out[key] = tuple(out[key])
+            del racts
+        del fr
     if not refuses("siren_ray_march", lambda: kr.siren_ray_march(
             *padded, params, bR, cs)):
         r = compare(f"19b. SiNeRF width {W} (packed {K}): march",
                     kr.siren_ray_march, kr.siren_ray_march_reference, padded,
-                    params, bR, cs, cfg.sampling.early_stop_eps)
+                    params, bR, cs, cfg.sampling.early_stop_eps, quick=quick,
+                    plain_rays=plain_rays)
         again, _ = kr.siren_ray_march(*padded, params, bR, cs,
                                       cfg.sampling.early_stop_eps)
-        first, _ = kr.siren_ray_march(*padded, params, bR, cs,
-                                      cfg.sampling.early_stop_eps)
-        if not torch.equal(first, again):
+        if not torch.equal(r.pop("first")[0], again):
             fail(f"19b. SiNeRF width {W}: two march runs differ")
         out["siren_ray_march"] = (r["ms"], r["plain_ms"], bound(
             2.0 * siren_macs(L, W) * r["executed"] * bR * cs,
@@ -3592,35 +3842,73 @@ def siren_width_case(cfg, dev, march_in, module=False, packed=None):
     for name in refused:
         if launches[name]:
             fail(f"19b. SiNeRF width {W}: {name} refused yet launched")
-    module_ms = {}
-    if module:
-        # the nearest cuBLAS route: the bf16 SiNeRF module on each kernel's
-        # rows (the march's: every sample of phase 3's inputs, with
-        # volume_render; from 1024 up in W // 512 pieces of rays, as its
-        # f32 activations of every sample at once outgrow the card beside
-        # this phase's tensors), once the acts streams (6.4 GB each at
-        # 1024) are freed
-        fo = fo2 = acts = acts2 = racts = primal = fr = None
-        torch.cuda.empty_cache()
-        xm, dirs, t, deltas, mask = padded
-        m_params = list(model.parameters())
-        pieces = torch.arange(xm.shape[0], device=dev).chunk(max(1, W // 512))
-        with torch.no_grad():
-            def module_march():
-                o = torch.cat([model(xm[p], dirs[p, None, :].expand(
-                    xm[p].shape)).float() for p in pieces])
-                volume_render(o[..., 3], o[..., :3], t, deltas, mask > 0)
+    for k in out if module_ms else ():
+        module_ms[k] = module_ms[k.split(" ")[0]]
+    del params, fo, acts
+    torch.cuda.empty_cache()
+    return K, out, launches, refused, module_ms, shapes
 
-            module_ms["siren_ray_march"] = cuda_ms(module_march, 3)
-            module_ms["siren_mlp_fwd"] = cuda_ms(lambda: model(x, d), 3)
-        m_out = model(x, d).float()
-        module_ms["siren_mlp_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-            m_out, m_params, torch.full_like(m_out, 1.0 / m_out.numel()),
-            retain_graph=True), 3)
-        del m_out
-        for k in out:
-            module_ms[k] = module_ms[k.split(" ")[0]]
-    return K, out, launches, refused, module_ms
+
+def arbiter_errors(arbiter, lay, grads, plain, *args):
+    """(the kernel's worst gradient error, the plain version's) against a
+    float64 arbiter of scripts/grad_arbiter.py (`arbiter`: nerf_arbiter or
+    siren_arbiter, called with args), each over every gradient tensor
+    relative to the arbiter's max."""
+    dw, db, _ = arbiter(*args)
+    arb = lay.grads_from_packed(dw, db)
+    del dw, db
+
+    def worst(got):
+        return max(float((g - a).abs().max() / (a.abs().max() + 1e-30))
+                   for g, a in zip(lay.grads_from_packed(*got), arb))
+
+    return worst(grads), worst(plain)
+
+
+def gradient_verdict(phase, W, worst, arbiter, lay, grads, plain_fn,
+                     *args) -> str:
+    """Fail unless the gradients' worst error against the plain version
+    (`worst`: (error, tensor)) is within GRAD_TOL or, above width 1024,
+    within ARBITER_FACTOR of the plain version's against the float64
+    arbiter; plain_fn gives the plain version's gradients from the
+    kernel's saved activations. Returns what decided."""
+    if worst[0] <= GRAD_TOL:
+        return f"worst gradient {worst[0]:.3e} of its max ({worst[1]})"
+    if W <= 1024:
+        fail(f"{phase}: {worst[1]} off by {worst[0]:.3e} of its max")
+    k, p = arbiter_errors(arbiter, lay, grads, plain_fn(), *args)
+    if k > ARBITER_FACTOR * p:
+        fail(f"{phase}: {worst[1]} off by {worst[0]:.3e} of its max; "
+             f"against the float64 arbiter the kernel {k:.3e}, the plain "
+             f"version {p:.3e} (over {ARBITER_FACTOR}x)")
+    return (f"worst gradient {worst[0]:.3e} of its max ({worst[1]}) against "
+            f"the plain version; against the float64 arbiter the kernel "
+            f"{k:.3e}, the plain version {p:.3e} (ratio {k / p:.2f}, within "
+            f"{ARBITER_FACTOR}x)")
+
+
+def nerf_max_width(cfg) -> int:
+    """W_max of cfg's NeRF architecture: the widest streamed width whose
+    packed weights int32 offsets address (render.py)."""
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+
+    m, e = cfg.model, cfg.encoder
+    return kr.widest_stream_width(lambda W: mt.TrainLayout.of_module(
+        m.n_layers, m.skip, W, e.n_freqs, e.n_freqs_views).n_w)
+
+
+def shapes_line(shapes) -> str:
+    rays = ("phase 3's rays" if shapes["ray_blocks"] is None
+            else f"the first {shapes['ray_blocks']} ray blocks of phase 3's "
+            "rays (the plain march on the first)")
+    plain = ("the plain versions on the same rows" if shapes["plain"] is None
+             else f"the plain versions on {shapes['plain']} of those rows")
+    return (f"march on {rays}, kernel 3 at {shapes['mlp']} rows, kernel 4 "
+            f"at {shapes['density']}, the train kernels at "
+            f"{shapes['train']}, {plain}; timing "
+            + (f"kernel over {shapes['quick']} calls, plain version one "
+               "call" if shapes["quick"] else "in turns"))
 
 
 def width_line(out, module_ms=None) -> str:
@@ -3635,25 +3923,27 @@ def width_line(out, module_ms=None) -> str:
 def width_kernels(cfg, dev, card, log, march_in):
     """Phase 19a-b: the kernels at widths that are not their own, and width
     192 in each (ptxas lines of every 192 instance). Returns (the 19a
-    numbers of the NeRF kernels at the packed widths 512, 768 and 1024, by
-    packed width: {kernel: (ms, plain ms, bound dict, max err)}, the 19b
-    numbers of the SIREN kernels at the packed widths 512 and 1024 the
-    same way: the report's wide instances)."""
+    numbers of the NeRF kernels at NERF_REPORT_WIDTHS, by packed width:
+    {kernel: (ms, plain ms, bound dict, max err)}, the 19b numbers of the
+    SIREN kernels at SIREN_REPORT_WIDTHS the same way: the report's wide
+    instances)."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
     from fsnerf_tpu_torch.train import step
 
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
     nerf_wide = {}
-    for W, enc in WIDTH_NERF:
+    top = nerf_max_width(cfg)
+    for W, enc in WIDTH_NERF + ((top, {}),):
         wcfg = width_cfg(cfg, W, **enc)
-        K, out, launches, module_ms = nerf_width_case(
-            wcfg, dev, march_in, module=True)
+        K, out, launches, module_ms, shapes = nerf_width_case(
+            wcfg, dev, march_in, module=True, wmax=W == top)
         print(f"19a. NeRF 8 x {W} (packed {K}), n_freqs "
               f"{wcfg.encoder.n_freqs}/{wcfg.encoder.n_freqs_views} on "
               f"{card}: {width_line(out, module_ms)}; launches {launches}; "
-              f"bitwise repeatable, recompute bitwise saved")
-        if K >= 512 and not enc:
+              f"bitwise repeatable, recompute bitwise saved; "
+              f"{shapes_line(shapes)}")
+        if K in NERF_REPORT_WIDTHS and not enc:
             nerf_wide.setdefault(K, out)
     print("19a. the width-384 and 512 instances and kernel 6's 64-row row "
           "pass:\n" + "\n".join(
@@ -3666,14 +3956,16 @@ def width_kernels(cfg, dev, card, log, march_in):
               for line in ptxas_of(log, name).splitlines()
               if any(f"{name}<{w}>" in line for w in widths)
               and ("Used" in line or "spill stores" in line)))
-    print("19a. the streamed instances (768 and 1024):\n" + "\n".join(
+    print("19a. the streamed instances (768 and every multiple of 256 "
+          "up):\n" + "\n".join(
         line for name in ("nerf_march_kernel_stream", "nerf_mlp_kernel_stream",
                           "nerf_density_kernel_stream",
                           "mlp_train_fwd_kernel_stream",
                           "mlp_train_bwd_rows_kernel_stream")
         for line in ptxas_of(log, name).splitlines()
         if "Used" in line or "spill stores" in line))
-    siren_widths = kr.KERNEL_WIDTHS + kr.SPLIT_WIDTHS + kr.STREAM_WIDTHS
+    siren_widths = kr.NERF_KERNEL_WIDTHS + (768, 1024, 1280, 2048,
+                                            ks.siren_max_width(8))
     stages = {k: [(ks.siren_stages(W, k), ks.launcher_stages(W, k))
                   for W in siren_widths]
               for k in ("forward", "march", "backward")}
@@ -3685,25 +3977,26 @@ def width_kernels(cfg, dev, card, log, march_in):
         fail(f"19b. siren.py::siren_stages differs from the launchers' "
              f"rings (Python, C): {stages}")
     wide = {}
-    for W in WIDTH_SIREN:
+    top = ks.siren_max_width(cfg.model.n_layers)
+    for W in WIDTH_SIREN + (top,):
         scfg = sinerf_config(width_cfg(cfg, W))
-        K, out, launches, refused, module_ms = siren_width_case(
-            scfg, dev, march_in, module=True)
+        K, out, launches, refused, module_ms, shapes = siren_width_case(
+            scfg, dev, march_in, module=True, wmax=W == top)
         print(f"19b. SiNeRF 8 x {W} (packed {K}) on {card}: "
               f"{width_line(out, module_ms)}; launches {launches}; "
-              f"bitwise repeatable")
+              f"bitwise repeatable; {shapes_line(shapes)}")
         if refused or {k.split(" ")[0] for k in out} != set(launches):
             fail(f"19b. SiNeRF width {W}: refused {refused}, ran "
                  f"{list(out)}")
-        if K in (kr.SPLIT_WIDTHS[-1], kr.STREAM_WIDTHS[-1]):
+        if K in SIREN_REPORT_WIDTHS:
             wide[K] = out
     # 320 packed at 320: the mma.sync forward and march (siren_fwd_kernel,
     # ray_march_kernel<SirenMarch>), which kernel_width no longer packs at,
     # held the same way; the backward refuses by name (the mma.sync row
     # pass's shared memory)
     scfg = sinerf_config(width_cfg(cfg, 320))
-    K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in,
-                                                    packed=320)
+    K, out, launches, refused, _, _ = siren_width_case(scfg, dev, march_in,
+                                                       packed=320)
     print(f"19b. SiNeRF 8 x 320 (packed {K}, the mma.sync forward and "
           f"march) on {card}: {width_line(out)}; launches {launches}; "
           f"refused by name {refused}; bitwise repeatable")
@@ -3712,30 +4005,32 @@ def width_kernels(cfg, dev, card, log, march_in):
                                               "siren_ray_march"}:
         fail(f"19b. SiNeRF 320 packed at 320: refused {refused}, ran "
              f"{list(out)}")
-    # SiNeRF 1100 (packed 1120): every SIREN kernel refuses by name; the run
-    # takes the printed module route, as a NeRF of 1100 does. SiNeRF and
-    # NeRF 512, 600 and 1024 resolve to the kernels.
-    scfg = sinerf_config(width_cfg(cfg, 1100))
-    K, out, launches, refused, _ = siren_width_case(scfg, dev, march_in)
-    if out or sorted(refused) != ["siren_mlp_fwd", "siren_ray_march"]:
-        fail(f"19b. SiNeRF width 1100: ran {list(out)}, refused {refused}")
-    line = step.report_module_route(scfg, dev)
-    nerf1100 = width_cfg(cfg, 1100)
-    line_nerf = step.report_module_route(nerf1100, dev)
-    if line is None or step.resolve_fused_kernel(scfg, dev) or \
-            line_nerf is None or step.resolve_fused_kernel(nerf1100, dev):
-        fail("SiNeRF or NeRF 1100 did not take the printed module route")
-    for W in (512, 600, 1024):
+    # past W_max: the SIREN kernels refuse a SiNeRF by name (its packed
+    # weights' int32 offsets), and so do the NeRF ones; the run takes the
+    # printed module route. SiNeRF and NeRF 512, 600, 1024, 1100 and 2048
+    # resolve to the kernels.
+    over = {"SiNeRF": sinerf_config(width_cfg(cfg, top + 1)),
+            "NeRF": width_cfg(cfg, nerf_max_width(cfg) + 1)}
+    lines = {}
+    for name, ocfg in over.items():
+        lines[name] = step.report_module_route(ocfg, dev)
+        if lines[name] is None or "W_max" not in lines[name] or \
+                step.resolve_fused_kernel(ocfg, dev):
+            fail(f"{name} {ocfg.model.d_filter} did not take the printed "
+                 f"module route: {lines[name]}")
+    if ks.siren_kernel_error(kr.kernel_width(top + 1), "forward") is None:
+        fail(f"the SIREN forward takes width {kr.kernel_width(top + 1)}")
+    for W in (512, 600, 1024, 1100, 2048):
         for name, ccfg in ((f"SiNeRF {W}", sinerf_config(width_cfg(cfg, W))),
                            (f"NeRF {W}", width_cfg(cfg, W))):
             line_k = step.report_module_route(ccfg, dev)
             if line_k is not None or not step.resolve_fused_kernel(ccfg,
                                                                     dev):
                 fail(f"{name} did not resolve to the kernels: {line_k}")
-    print(f"19b. SiNeRF 1100 (packed {K}): SIREN forward and march refused "
-          f"by name, the backward never reached; the route prints: {line}; "
-          f"NeRF 1100: {line_nerf}; SiNeRF and NeRF 512, 600 and 1024 "
-          "resolve to the kernels")
+    print(f"19b. past W_max (SiNeRF {top}, NeRF {nerf_max_width(cfg)}: "
+          f"the packed weights' int32 offsets) the route prints: "
+          f"{lines['SiNeRF']}; {lines['NeRF']}; SiNeRF and NeRF 512, 600, "
+          "1024, 1100 and 2048 resolve to the kernels")
     print("19b. the width-192 instances:\n" + "\n".join(
         line for name in ("nerf_march_kernel", "nerf_mlp_kernel",
                           "nerf_density_kernel", "mlp_train_fwd_kernel",
@@ -3757,7 +4052,8 @@ def width_kernels(cfg, dev, card, log, march_in):
                                   "siren_bwd_rows_kernel_stream")
                 for line in ptxas_of(log, name).splitlines()
                 if "Used" in line or "spill stores" in line]
-    print("19b. the streamed SIREN instances (768 and 1024):\n"
+    print("19b. the streamed SIREN instances (768 and every multiple of "
+          "256 up):\n"
           + "\n".join(streamed))
     spills = [line for line in streamed if re.search(
         r"[1-9]\d* bytes spill (stores|loads)", line)]
@@ -3767,16 +4063,25 @@ def width_kernels(cfg, dev, card, log, march_in):
     return nerf_wide, wide
 
 
+def release_memory():
+    """Collect what a training slice left (its model, state and CUDA
+    graphs, whose pools hold their memory between replays, once the caller
+    dropped them) before the next run: at 8 x 1536 the SiNeRF module
+    route's eval outgrows the card beside them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def width_train_slices(cfg, dev, card):
     """Phase 19c: the occgrid training slice (WIDTH_TRAIN's graphed steps,
     the 8-view 128x128 sphere, then the held-out views) at 8 x 192, 8 x 200
-    (packed at 256), 8 x 512 (the column-split kernels) and 8 x 1024 (the
-    streamed kernels) through the kernels, launch counts set to 0 before
-    and read after, no NeRF module call; then the same run through the
-    module (cfg.model.fused_kernel and fused_render off: the route these
-    widths took before the kernels took them): steps/s over the whole run
-    and from step 100 on and held-out PSNR side by side, at 512 and 1024
-    within WIDE_PSNR_TOL_DB."""
+    (packed at 256), 8 x 512 (the column-split kernels), 8 x 1024 and 8 x
+    2048 (the streamed kernels) through the kernels, launch counts set to 0
+    before and read after, no NeRF module call; then the same run through
+    the module (cfg.model.fused_kernel and fused_render off: the route
+    these widths took before the kernels took them): steps/s over the whole
+    run and from step 100 on and held-out PSNR side by side, at 512 and
+    1024 within WIDE_PSNR_TOL_DB, at 2048 within WIDEST_PSNR_TOL_DB."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3828,13 +4133,17 @@ def width_train_slices(cfg, dev, card):
             if not losses[-1] < losses[0] or \
                     got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
                 fail(f"19c. 8 x {W} ({route}): did not train")
+            n_cells = state.grid.n_cells
+            del model, state
+            release_memory()
+        tol = WIDEST_PSNR_TOL_DB if W > 1024 else WIDE_PSNR_TOL_DB
         if kr.nerf_kernel_width(W) > 256 and abs(
-                res["kernels"][1] - res["module"][1]) > WIDE_PSNR_TOL_DB:
+                res["kernels"][1] - res["module"][1]) > tol:
             fail(f"19c. 8 x {W}: held-out PSNR {res['kernels'][1]:.3f} "
                  f"through the kernels, {res['module'][1]:.3f} through the "
                  f"module")
         k_launch, m_launch = res["kernels"][2], res["module"][2]
-        want_density = refresh_launches(kcfg, state.grid.n_cells, steps)
+        want_density = refresh_launches(kcfg, n_cells, steps)
         if (k_launch["mlp_train_fwd"] != steps
                 or k_launch["mlp_train_bwd"] != steps
                 or k_launch["nerf_density"] != want_density
@@ -3850,17 +4159,19 @@ def width_train_slices(cfg, dev, card):
               f"{res['module'][1]:.3f}")
 
 
+
 def siren_width_train_slices(cfg, dev, card):
     """Phase 19c for SiNeRF: the occgrid training slice (WIDTH_SIREN_TRAIN's
     graphed steps, the 8-view 128x128 sphere, then the held-out views) at
     8 x W for W in WIDTH_SIREN_TRAIN (512: the column-split SIREN kernels,
-    1024: the streamed ones) through the kernels, launch counts set to 0
+    1536: the streamed ones) through the kernels, launch counts set to 0
     before and read after (kernels 7 and 8 once per step, kernel 2 in the
     eval), the SiNeRF module called only for the grid refresh's densities;
     then the same run through the module (fused_kernel and fused_render
     off: the route a SiNeRF this wide took before the kernels took it):
-    steps/s and held-out PSNR side by side, within WIDE_PSNR_TOL_DB.
-    Returns {packed width: the launch counts of the kernels' run}."""
+    steps/s and held-out PSNR side by side, within WIDE_PSNR_TOL_DB (above
+    1024 WIDEST_PSNR_TOL_DB, both routes' views rendered in chunks of a
+    quarter of cli.EVAL_CHUNK's rays)."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -3872,7 +4183,6 @@ def siren_width_train_slices(cfg, dev, card):
 
     scene = SphereScene(n_imgs=8, hw=128, white_bkgd=True)
     held = cli.split_of(scene.holdout(n=3, seed=101))
-    launches = {}
     for W, n_steps in WIDTH_SIREN_TRAIN.items():
         kcfg = sinerf_config(train_slice_config(width_cfg(cfg, W)),
                              n_iters=n_steps)
@@ -3880,9 +4190,13 @@ def siren_width_train_slices(cfg, dev, card):
             kcfg.model, fused_kernel=False, fused_render=False))
         untrained = make_model(kcfg, torch.bfloat16,
                                torch.Generator().manual_seed(0), dev)
+        # above 1024 the held-out views in quarter chunks: the module's f32
+        # sines of a whole chunk (16,384 rays x K 192 x 1536) take 18 GB
+        chunk = cli.EVAL_CHUNK if W <= 1024 else cli.EVAL_CHUNK // 4
         base, _ = cli.evaluate_split(
             untrained, og.conservative(cli.rebuild_grid(
-                untrained, kcfg, scene.aabb, dev)), held, kcfg, device=dev)
+                untrained, kcfg, scene.aabb, dev)), held, kcfg, chunk,
+            device=dev)
         res = {}
         for route, tcfg in (("kernels", kcfg), ("module", mcfg)):
             kr.siren_ray_march.launches = 0
@@ -3891,7 +4205,7 @@ def siren_width_train_slices(cfg, dev, card):
                 model, state, log, _, train_s, rungs, _ = run_train_slice(
                     tcfg, dev)
                 got, _ = cli.evaluate_split(model, og.conservative(
-                    state.grid), held, tcfg, device=dev)
+                    state.grid), held, tcfg, chunk, device=dev)
                 torch.cuda.synchronize()
             counts = {"siren_mlp_fwd": ks.siren_mlp_fwd.launches,
                       "siren_mlp_bwd": ks.siren_mlp_bwd.launches,
@@ -3912,6 +4226,8 @@ def siren_width_train_slices(cfg, dev, card):
             if not losses[-1] < losses[0] or \
                     got["psnr"] < base["psnr"] + MIN_PSNR_GAIN_DB:
                 fail(f"19c. SiNeRF 8 x {W} ({route}): did not train")
+            del model, state
+            release_memory()
         k_launch, m_launch = res["kernels"][2], res["module"][2]
         steps = res["kernels"][4]
         if (k_launch["siren_mlp_fwd"] != steps
@@ -3923,7 +4239,8 @@ def siren_width_train_slices(cfg, dev, card):
         if any(m_launch.values()) or not res["module"][3]:
             fail(f"19c. SiNeRF 8 x {W}: the module route launched "
                  f"{m_launch}")
-        if abs(res["kernels"][1] - res["module"][1]) > WIDE_PSNR_TOL_DB:
+        tol = WIDEST_PSNR_TOL_DB if W > 1024 else WIDE_PSNR_TOL_DB
+        if abs(res["kernels"][1] - res["module"][1]) > tol:
             fail(f"19c. SiNeRF 8 x {W}: held-out PSNR "
                  f"{res['kernels'][1]:.3f} through the kernels, "
                  f"{res['module'][1]:.3f} through the module")
@@ -3932,8 +4249,6 @@ def siren_width_train_slices(cfg, dev, card):
               f"from step 100 on), PSNR {res['kernels'][1]:.3f}; module "
               f"{res['module'][0]:.2f} steps/s ({res['module'][5]:.2f}), "
               f"PSNR {res['module'][1]:.3f}")
-        launches[kr.kernel_width(W)] = k_launch
-    return launches
 
 
 def main():
@@ -3969,7 +4284,7 @@ def main():
     dev = torch.device("cuda")
     cfg = Config()
     siren_routes(cfg, dev, card)
-    wide_launches = width_routes(cfg, dev, card)
+    wide_launches, siren_wide_launches = width_routes(cfg, dev, card)
 
     # -- 3. kernel vs plain at full width ---------------------------------
     s = cfg.sampling
@@ -4075,11 +4390,11 @@ def main():
     volrend = volrend_kernel(cfg, dev, card)
     fewshot_launches = fewshot_slice(cfg, dev, card)
 
-    # -- 19. the kernels at every width up to 1024 -------------------------
+    # -- 19. the kernels at every width up to W_max ------------------------
     nerf_wide, siren_wide = width_kernels(cfg, dev, card, built.log,
                                           (padded, bR, cs))
     width_train_slices(cfg, dev, card)
-    siren_wide_launches = siren_width_train_slices(cfg, dev, card)
+    siren_width_train_slices(cfg, dev, card)
 
     with tempfile.TemporaryDirectory() as root:
         # -- 17.-18. the data slices: Blender and LLFF through the CLI ------
@@ -4100,6 +4415,12 @@ def main():
         jpeg_phase(card, root, llff_png_psnr)
 
     # -- 23. report ---------------------------------------------------------
+    for family, numbers, counts, widths in (
+            ("NeRF", nerf_wide, wide_launches, NERF_REPORT_WIDTHS),
+            ("SiNeRF", siren_wide, siren_wide_launches, SIREN_REPORT_WIDTHS)):
+        if set(numbers) != set(widths) or not set(widths) <= set(counts):
+            fail(f"the report's {family} widths {widths}: numbers at "
+                 f"{sorted(numbers)}, launch counts at {sorted(counts)}")
     module_ms = dict(module_routes(cfg, dev, padded), nerf_mlp=mlp_module_ms,
                      siren_ray_march=siren_march_module_ms,
                      **siren_module_ms, nerf_density=density_module_ms)
@@ -4189,8 +4510,8 @@ def main():
         "library_ms": None,
     }] + [{
         # the column-split instances at 512 and the streamed ones at 1024
-        # (phase 19b's numbers; launches from phase 19c's SiNeRF 8 x 512 /
-        # 8 x 1024 slice)
+        # (phase 19b's numbers; launches from phase 2b's SiNeRF 8 x 512 /
+        # 8 x 1024 run: 20 train steps, the held-out view)
         "name": f"{name}@{K}",
         "route": "cuda",
         "source": source,
@@ -4208,10 +4529,10 @@ def main():
          "fsnerf_tpu/ops/pallas/siren.py:325"),
         ("siren_mlp_bwd", "fsnerf_tpu_torch/csrc/siren.cu",
          "fsnerf_tpu/ops/pallas/siren.py:355"))] + [{
-        # the NeRF kernels at the packed widths 512 (column-split), 768 and
-        # 1024 (streamed): phase 19a's numbers (NeRF 512, 700, 1024);
-        # launches from phase 2b's run at that width (20 train steps, the
-        # held-out view's occgrid and hierarchical evals)
+        # the NeRF kernels at the packed widths 512 (column-split), 768,
+        # 1024 and 2048 (streamed): phase 19a's numbers (NeRF 512, 700,
+        # 1024, 2048); launches from phase 2b's run at that width (20 train
+        # steps, the held-out view's occgrid and hierarchical evals)
         "name": f"{name}@{K}",
         "route": "cuda",
         "source": source,

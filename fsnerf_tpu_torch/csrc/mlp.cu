@@ -30,14 +30,15 @@
 // ray march and the train forward, which encode inside with a polynomial
 // sin; sigma raw, ReLU or exp(clip(., -15, 15)).
 //
-// At the packed widths 384 and 512 (~4.6 MFLOP a row at 8 x 512) both
-// kernels run ws_trunk.cuh's column-split trunk instead (mlp_rows_split):
-// one consumer warpgroup of 64 rows per CTA, every layer as two column
-// halves, the same numerics. At 768 and 1024 (~18 MFLOP a row at 8 x
-// 1024) they run its streamed trunk (mlp_rows_stream, the kernels
-// nerf_mlp_kernel_stream and nerf_density_kernel_stream: persistent CTAs
-// of 64 rows, each layer's output through device memory and back from L2
-// in 64-column tiles), the same numerics.
+// At the packed widths 384 and 512 (~4.6 MFLOP a row at 8 x 512) both kernels
+// run ws_trunk.cuh's column-split trunk instead (mlp_rows_split): one
+// consumer warpgroup of 64 rows per CTA, every layer as two column halves,
+// the same numerics. At the streamed widths, 768 and every multiple of 256 up
+// (~18 MFLOP a row at 8 x 1024), they run its streamed trunk
+// (mlp_rows_stream, the kernels nerf_mlp_kernel_stream and
+// nerf_density_kernel_stream: persistent CTAs of 64 rows, each layer's output
+// through device memory and back from L2 in 64-column tiles), the same
+// numerics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -268,7 +269,8 @@ __global__ void __launch_bounds__(FwdTraits<W>::kThreads, 1)
                        density_smem_raw);
 }
 
-// mlp_rows at a streamed width W (768, 1024): persistent CTAs, each tile
+// mlp_rows at a streamed width W (768 and every multiple of 256 up, W at
+// run time): persistent CTAs, each tile
 // of 64 rows loading its encodings by TMA (`loaded`, one phase a tile)
 // and running ws_trunk.cuh's streamed trunk, connection and branch, every
 // layer's output through the CTA's scratch slot.
@@ -351,7 +353,7 @@ __device__ __forceinline__ void mlp_rows_stream(
 }
 
 // grid: min(64-row tiles, the scratch's slots) persistent CTAs; block: one
-// consumer warpgroup + the producer's; W = 768 or 1024.
+// consumer warpgroup + the producer's; W a streamed width.
 __global__ void __launch_bounds__(256, 1)
     nerf_mlp_kernel_stream(const __grid_constant__ CUtensorMap map_w,
                            const __grid_constant__ CUtensorMap map_br,
@@ -376,8 +378,8 @@ __global__ void __launch_bounds__(256, 1)
                          n_stages, density_stream_smem_raw);
 }
 
-// nerf_mlp_kernel_stream (kHeads) or nerf_density_kernel_stream at W (768,
-// 1024) on `st`, slab the [slab_ctas * 64, 2 W] bf16 scratch.
+// nerf_mlp_kernel_stream (kHeads) or nerf_density_kernel_stream at a
+// streamed width W on `st`, slab the [slab_ctas * 64, 2 W] bf16 scratch.
 template <bool kHeads>
 cudaError_t launch_mlp_stream(const MlpArgs& a, int W, const bf16* encx,
                               const bf16* encd, const bf16* slab,
@@ -446,6 +448,10 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
   const bf16* x = static_cast<const bf16*>(encx);
   const bf16* d = static_cast<const bf16*>(encd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stream_width(width))
+    return static_cast<int>(launch_mlp_stream<kHeads>(
+        a, width, x, d, static_cast<const bf16*>(slab), slab_ctas,
+        trunk_rows, st));
   switch (width) {
     case 64:
       return static_cast<int>(
@@ -465,11 +471,6 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
     case 512:
       return static_cast<int>(
           launch_mlp_w<512, kHeads>(a, x, d, trunk_rows, st));
-    case 768:
-    case 1024:
-      return static_cast<int>(launch_mlp_stream<kHeads>(
-          a, width, x, d, static_cast<const bf16*>(slab), slab_ctas,
-          trunk_rows, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -484,8 +485,10 @@ int launch_mlp(const MlpArgs& a, int width, const void* encx,
 // cudaErrorInvalidValue for a shape the kernels do not take.
 
 // The forward MLP (ops/kernels/mlp.py::nerf_mlp): out [n_rows, 4]. Takes
-// width 64, 128, 192, 256, 384, 512, 768 or 1024 (the last two with slab,
-// [slab_ctas * 64, 2 width] bf16 scratch; null elsewhere), d_enc_pad a
+// width 64, 128, 192, 256, 384, 512 or a streamed width (768 and every
+// multiple of 256 up, with slab, [slab_ctas * 64, 2 width] bf16 scratch;
+// null elsewhere) whose packed weights number at most kMaxPackedWeights,
+// d_enc_pad a
 // multiple of 64 and d_dir_pad of 16, both up to kMaxEnc (256) and at
 // width 256 together up to 6 blocks of 64 (render.py::kernel_arch_error);
 // trunk_rows must be the rows of wpack's [rows, width] view (the trunk,
@@ -511,7 +514,10 @@ extern "C" int fsnerf_nerf_mlp(const void* encx, const void* encd,
   if (d_enc_pad % 64 || d_enc_pad > kMaxEnc || d_dir_pad % 16 ||
       d_dir_pad > kMaxEnc ||
       trunk_rows !=
-          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
+          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width ||
+      (size_t)trunk_rows * width +
+              (size_t)(width + d_dir_pad) * (width / 2) + 3 * (width / 2) >
+          kMaxPackedWeights)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_mlp<true>(a, width, encx, encd, slab, slab_ctas, trunk_rows,
                           stream);
@@ -539,7 +545,8 @@ extern "C" int fsnerf_nerf_density(const void* encx, const void* wpack,
                   density_act};
   if (d_enc_pad % 64 || d_enc_pad > kMaxEnc ||
       trunk_rows !=
-          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
+          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width ||
+      (size_t)trunk_rows * width > kMaxPackedWeights)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_mlp<false>(a, width, encx, nullptr, slab, slab_ctas,
                            trunk_rows, stream);

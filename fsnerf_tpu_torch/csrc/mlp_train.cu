@@ -30,7 +30,8 @@
 // column-split trunk (one consumer of 64 rows, each layer as two column
 // halves, each half's tile stored to acts' [rows, L * W] layout by TMA).
 // A row there costs ~4.6 MFLOP forward at 8 x 512 (~1.19 at 8 x 256). At
-// 768 and 1024 (~18 MFLOP a row at 8 x 1024) mlp_train_fwd_kernel_stream
+// the streamed widths, 768 and every multiple of 256 up (~18 MFLOP a row
+// at 8 x 1024), mlp_train_fwd_kernel_stream
 // runs its streamed trunk: each layer's 256-column chunks stored to acts
 // (or a scratch) and read back from L2 as the next layer's operand.
 //
@@ -40,7 +41,7 @@
 // across a sequential grid:
 //   1. mlp_train_bwd_rows_kernel, row-parallel (128 rows per CTA; 64 at
 //      the packed widths 384 and 512, one warpgroup, so that its two
-//      activation buffers fit in shared memory; at 768 and 1024
+//      activation buffers fit in shared memory; at the streamed widths
 //      mlp_train_bwd_rows_kernel_stream, which holds no activation buffer
 //      and streams every product's operands from device memory): encodes
 //      the inputs, takes the trunk activations from the forward's stream,
@@ -110,6 +111,13 @@ __host__ __device__ __forceinline__ size_t trunk_offset(const TrainArgs& a,
   for (int k = 1; k < i; ++k)
     off += (size_t)W * W + (((a.skip_mask >> k) & 1) ? (size_t)DE * W : 0);
   return off;
+}
+
+// wpack's element count: the trunk, w_sigma, w_conn, the branch and w_rgb.
+size_t packed_weights(const TrainArgs& a) {
+  const size_t W = a.width, Wh = W / 2;
+  return trunk_offset(a, a.n_layers) + W + W * W + W * Wh +
+         a.d_dir_pad * Wh + Wh * 3;
 }
 
 // The backward row kernel's weight staging: a ring of kBwdStages tiles of
@@ -505,7 +513,7 @@ cudaError_t launch_fwd_w(const TrainArgs& a, int trunk_rows,
   return cudaGetLastError();
 }
 
-// ---- the forward at the streamed widths 768 and 1024 ------------------
+// ---- the forward at the streamed widths (768 and every multiple of 256 up)
 //
 // ws_trunk.cuh's streamed trunk: one consumer warpgroup of 64 rows, the
 // CTAs persistent over the row tiles up to round_up(N, 128), each tile's
@@ -637,15 +645,17 @@ cudaError_t launch_fwd_stream(const TrainArgs& a, int trunk_rows,
 }
 
 // The forward into a.out and (when set) a.acts. The kernel takes W of 64,
-// 128, 192, 256, 384, 512, 768 or 1024 (the last two with slab, [slab_ctas
-// * 64, 2 W] bf16 scratch) and encodings up to kMaxEnc wide (at W = 256 up
+// 128, 192, 256, 384, 512 or a streamed width (with slab, [slab_ctas * 64,
+// 2 W] bf16 scratch) whose packed weights number at most
+// kMaxPackedWeights, and encodings up to kMaxEnc wide (at W = 256 up
 // to 6 blocks of 64 together); trunk_rows must be the rows of wpack's
 // [rows, W] view (the trunk, w_sigma and w_conn).
 cudaError_t launch_fwd(const TrainArgs& a, int trunk_rows, const bf16* slab,
                        int slab_ctas, cudaStream_t st) {
   const int W = a.width;
   if (a.d_enc_pad > kMaxEnc || a.d_dir_pad > kMaxEnc ||
-      (size_t)trunk_rows * W != trunk_offset(a, a.n_layers) + W + W * W)
+      (size_t)trunk_rows * W != trunk_offset(a, a.n_layers) + W + W * W ||
+      packed_weights(a) > kMaxPackedWeights)
     return cudaErrorInvalidValue;
   if (a.N == 0) return cudaGetLastError();
   if (stream_width(W))
@@ -943,7 +953,7 @@ __global__ void __launch_bounds__(2 * R, 1)
   }
 }
 
-// ---- the row pass at the streamed widths 768 and 1024 ------------------
+// ---- the row pass at the streamed widths ---------------------------------
 //
 // mlp_train_bwd_rows_kernel's walk on 64-row CTAs (one warpgroup) with no
 // activation buffer a whole layer wide: every product streams its A
@@ -959,9 +969,12 @@ __global__ void __launch_bounds__(2 * R, 1)
 // other widths' row pass. Per row and layer 2 W^2 FLOP against ~4 W bytes
 // of operands through L2, as the streamed forward's. The products and
 // their ring are train_common.cuh's (stream_rows_gemm, stream_rows_product),
-// which siren.cu's streamed row pass shares.
+// which siren.cu's streamed row pass shares; kSplitK (above a packed width
+// of 1024, kSplitKMinWidth) sums each product's K stage by stage (64 K)
+// into an f32 total.
 
 // grid: one CTA per 64 rows up to round_up(N, 128); block: 128 threads.
+template <bool kSplitK>
 __global__ void __launch_bounds__(128, 1)
     mlp_train_bwd_rows_kernel_stream(TrainArgs a) {
   constexpr int R = 64, T = 128;
@@ -1023,10 +1036,10 @@ __global__ void __launch_bounds__(128, 1)
   const float* b_conn = a.bpack + L * W + 1;
   {
     const RowSeg seg[1] = {{a.acts + (L - 1) * W, LA, w_conn, W, W}};
-    stream_rows_product<true>(seg, 1, W, r0, ring, C, nullptr, 0,
-                              RowChunkOut{b_conn, false, false, nullptr,
-                                          nullptr, nullptr},
-                              a.xs, XW, x_feat, nullptr, 0);
+    stream_rows_product<true, kSplitK>(
+        seg, 1, W, r0, ring, C, nullptr, 0,
+        RowChunkOut{b_conn, false, false, nullptr, nullptr, nullptr}, a.xs,
+        XW, x_feat, nullptr, 0);
   }
   // br = bf16(relu(feat @ w_branch_h + encd @ w_branch_d + b_branch)) to
   // xs, each chunk's rgb partial dots summed per row in order
@@ -1034,7 +1047,8 @@ __global__ void __launch_bounds__(128, 1)
     const RowSeg segs[2] = {{a.xs + x_feat, XW, w_bh, Wh, W},
                             {a.xs + DE, XW, w_bd, Wh, DD}};
     float acc[64];
-    stream_rows_gemm<true>(acc, segs, 2, n0, Wh, r0, ring, nullptr, 0, C);
+    stream_rows_gemm<true, kSplitK>(acc, segs, 2, n0, Wh, r0, ring, nullptr,
+                                    0, C);
     stream_rows_epilogue(RowChunkOut{b_conn + W, true, false, nullptr,
                                      nullptr, nullptr},
                          acc, n0, C);
@@ -1117,16 +1131,16 @@ __global__ void __launch_bounds__(128, 1)
   // conn: d feat = d br_b @ w_branch_h^T (feat has no activation)
   {
     const RowSeg seg[1] = {{a.dy + dy_branch, DYW, w_bh, Wh, Wh}};
-    stream_rows_product<false>(seg, 1, W, r0, ring, C, nullptr, 0,
-                               RowChunkOut{nullptr, false, false, nullptr,
-                                           nullptr, colpart},
-                               a.dy, DYW, dy_conn, pb, off_conn);
+    stream_rows_product<false, kSplitK>(
+        seg, 1, W, r0, ring, C, nullptr, 0,
+        RowChunkOut{nullptr, false, false, nullptr, nullptr, colpart}, a.dy,
+        DYW, dy_conn, pb, off_conn);
   }
   // last trunk layer: d h = d feat_b @ w_conn^T + d sigma_b w_sigma^T,
   // masked by h_{L-1} > 0
   {
     const RowSeg seg[1] = {{a.dy + dy_conn, DYW, w_conn, W, W}};
-    stream_rows_product<false>(
+    stream_rows_product<false, kSplitK>(
         seg, 1, W, r0, ring, C, a.acts + (L - 1) * W, LA,
         RowChunkOut{nullptr, false, true, dsig, a.wpack + trunk_offset(a, L),
                     colpart},
@@ -1136,11 +1150,10 @@ __global__ void __launch_bounds__(128, 1)
   for (int i = L - 1; i >= 1; --i) {
     const RowSeg seg[1] = {{a.dy + i * W, DYW, a.wpack + trunk_offset(a, i),
                             W, W}};
-    stream_rows_product<false>(seg, 1, W, r0, ring, C, a.acts + (i - 1) * W,
-                               LA,
-                               RowChunkOut{nullptr, false, true, nullptr,
-                                           nullptr, colpart},
-                               a.dy, DYW, (i - 1) * W, pb, (i - 1) * W);
+    stream_rows_product<false, kSplitK>(
+        seg, 1, W, r0, ring, C, a.acts + (i - 1) * W, LA,
+        RowChunkOut{nullptr, false, true, nullptr, nullptr, colpart}, a.dy,
+        DYW, (i - 1) * W, pb, (i - 1) * W);
   }
 }
 
@@ -1175,7 +1188,7 @@ void fill_args(TrainArgs& a, const void* x, const void* d, const void* wpack,
 
 // out [n, 4]; acts [round_up(n, 128), n_layers * width] or null; trunk_rows
 // the rows of wpack's [rows, width] view (mlp_train.py::wpack_views); at
-// the streamed widths 768 and 1024 slab [slab_ctas * 64, 2 width] bf16
+// the streamed widths slab [slab_ctas * 64, 2 width] bf16
 // scratch (null elsewhere).
 extern "C" int fsnerf_mlp_train_fwd(
     const void* x, const void* d, const void* wpack, const void* bpack,
@@ -1212,6 +1225,8 @@ extern "C" int fsnerf_mlp_train_bwd(
   TrainArgs a;
   fill_args(a, x, d, wpack, bpack, enc, n, n_layers, skip_mask, width,
             n_freqs, n_freqs_views, d_enc_pad, d_dir_pad);
+  if (packed_weights(a) > kMaxPackedWeights)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.acts = static_cast<bf16*>(acts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -1232,7 +1247,10 @@ extern "C" int fsnerf_mlp_train_bwd(
   const bool streamed = stream_width(width);
   const size_t smem =
       streamed ? stream_rows_smem_bytes() : smem_bytes(width, d_dir_pad);
-  const auto rows_kernel = streamed       ? mlp_train_bwd_rows_kernel_stream
+  const auto rows_kernel = streamed
+                               ? (width >= kSplitKMinWidth
+                                      ? mlp_train_bwd_rows_kernel_stream<true>
+                                      : mlp_train_bwd_rows_kernel_stream<false>)
                            : R == kRows ? mlp_train_bwd_rows_kernel<kRows>
                                         : mlp_train_bwd_rows_kernel<64>;
   err = cudaFuncSetAttribute(rows_kernel,
@@ -1244,8 +1262,7 @@ extern "C" int fsnerf_mlp_train_bwd(
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int Wh = width / 2;
-  const int n_w = (int)(trunk_offset(a, n_layers)) + width + width * width +
-                  width * Wh + d_dir_pad * Wh + Wh * 3;
+  const int n_w = static_cast<int>(packed_weights(a));
   const int n_b = n_layers * width + 1 + width + Wh + 3;
   return static_cast<int>(launch_dw(
       static_cast<const bf16*>(acts), n_layers * width,

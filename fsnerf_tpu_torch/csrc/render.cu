@@ -4,7 +4,7 @@
 //     warp-specialized trunk of ws_trunk.cuh. Replaces
 //     fsnerf_tpu/ops/pallas/render.py::_fused_render_call (kernel 1).
 //   siren_march_kernel (widths 64, 128, 192, 256, 384, 512;
-//     siren_march_kernel_stream at 768 and 1024;
+//     siren_march_kernel_stream at the streamed widths;
 //     ray_march_kernel<SirenMarch> at 288 and 320): the raw points and
 //     directions as bf16 (no encoding) + the SiNeRF MLP of
 //     siren_common.cuh. Replaces
@@ -26,25 +26,26 @@
 //
 // The NeRF march (nerf_march_kernel, below) runs each chunk step on two
 // consumer warpgroups of 64 rows (wgmma, A from shared memory) fed by a
-// producer warpgroup's TMA weight ring; see the notes above it. At the
-// packed widths 384 and 512 one consumer runs the step's two 64-row halves
-// in turn on the column-split trunk (march_consume_split), at 768 and 1024
-// on the streamed trunk (nerf_march_kernel_stream), with the same skip
-// decision per block x chunk step. The SIREN march at widths 64, 128,
-// 192 and 256 (siren_march_kernel) is the same shell around the SIREN
-// forward's warp-specialized MLP, at 384 and 512 the split shell around
-// its column-split MLP (siren_march_consume_split), and at 768 and 1024 the
-// streamed shell around its streamed MLP (siren_march_kernel_stream). At
-// 288 and 320, which no packer lays out any more, the SIREN march's shell
-// (ray_march_kernel) is one CTA of 8 warps: per chunk step it stages the
-// rows into shared memory as bf16 and runs every layer on
-// mma.sync m16n8k16 (bf16, f32 accumulation), ping-ponging two [128 x
-// width] bf16 activation buffers, the weights (L2-resident) streaming
-// through shared memory in double-buffered 64-row slabs; each chunk's
-// sample inputs (x, t, delta, mask; ~3 KB, read once from HBM) are fetched
-// by all threads in one batch of loads issued a chunk ahead. Measured, that
-// shell reached ~160 TFLOP/s: with one CTA per SM the synchronous MMAs and
-// the loads, barriers and epilogues around them barely overlap.
+// producer warpgroup's TMA weight ring; see the notes above it. At the packed
+// widths 384 and 512 one consumer runs the step's two 64-row halves in turn
+// on the column-split trunk (march_consume_split), at the streamed widths
+// (768 and every multiple of 256 up) on the streamed trunk
+// (nerf_march_kernel_stream), with the same skip decision per block x chunk
+// step. The SIREN march at widths 64, 128, 192 and 256 (siren_march_kernel)
+// is the same shell around the SIREN forward's warp-specialized MLP, at 384
+// and 512 the split shell around its column-split MLP
+// (siren_march_consume_split), and at the streamed widths the streamed shell
+// around its streamed MLP (siren_march_kernel_stream). At 288 and 320, which
+// no packer lays out any more, the SIREN march's shell (ray_march_kernel) is
+// one CTA of 8 warps: per chunk step it stages the rows into shared memory as
+// bf16 and runs every layer on mma.sync m16n8k16 (bf16, f32 accumulation),
+// ping-ponging two [128 x width] bf16 activation buffers, the weights
+// (L2-resident) streaming through shared memory in double-buffered 64-row
+// slabs; each chunk's sample inputs (x, t, delta, mask; ~3 KB, read once from
+// HBM) are fetched by all threads in one batch of loads issued a chunk ahead.
+// Measured, that shell reached ~160 TFLOP/s: with one CTA per SM the
+// synchronous MMAs and the loads, barriers and epilogues around them barely
+// overlap.
 //
 // Numerics of the NeRF march, as the TPU kernel (render.py::_mlp_chunk):
 // bf16 operands, f32 accumulation, bias rounded to bf16 then added in f32,
@@ -743,7 +744,7 @@ int launch_nerf_march_w(const NerfMarchArgs& m, int trunk_rows, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The march at a streamed width (768, 1024): nerf_march_kernel_stream, one
+// The march at a streamed width (W at run time): nerf_march_kernel_stream, one
 // consumer warpgroup of 64 rows and the producer's, the CTAs persistent
 // over the ray blocks (block blockIdx.x, then every gridDim.x-th). Each
 // executed block x chunk step runs as march_consume_split's 64-row halves
@@ -877,8 +878,8 @@ __device__ __forceinline__ void march_consume_stream(
 }
 
 // grid: min(n_blocks, the scratch's slots) persistent CTAs over the
-// n_blocks ray blocks; block: one consumer warpgroup + the producer's; W =
-// 768 or 1024.
+// n_blocks ray blocks; block: one consumer warpgroup + the producer's; W a
+// streamed width.
 __global__ void __launch_bounds__(256, 1)
     nerf_march_kernel_stream(const __grid_constant__ CUtensorMap map_w,
                              const __grid_constant__ CUtensorMap map_br,
@@ -908,7 +909,7 @@ __global__ void __launch_bounds__(256, 1)
   march_consume_stream(m, W, n_blocks, r, ar, s, &map_slab, done);
 }
 
-// nerf_march_kernel_stream at W (768, 1024) on `st`, slab the [slab_ctas *
+// nerf_march_kernel_stream at a streamed W on `st`, slab the [slab_ctas *
 // 64, 2 W] bf16 scratch.
 int launch_nerf_march_stream(const NerfMarchArgs& m, int W, int trunk_rows,
                              int n_rays, const bf16* slab, int slab_ctas,
@@ -943,7 +944,7 @@ int launch_nerf_march_stream(const NerfMarchArgs& m, int W, int trunk_rows,
 // .. 2, zeros to 16), runs the sine trunk and the heads (siren_heads, the
 // rows' ray directions, kept in shared memory, for the rgb head's rank-3
 // term). Widths 64, 128, 192, 256, and 384, 512 on the column-split trunk
-// (siren_march_consume_split), 768 and 1024 on the streamed one (below);
+// (siren_march_consume_split), the streamed widths on the streamed one (below);
 // 288 and 320 keep ray_march_kernel<SirenMarch> (its two activation
 // buffers' shared memory).
 struct SirenMarchArgs {
@@ -1277,7 +1278,7 @@ int launch_siren_march_w(const SirenMarchArgs& sa, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The SIREN march at a streamed width (768, 1024): siren_march_kernel_stream,
+// The SIREN march at a streamed width: siren_march_kernel_stream,
 // nerf_march_kernel_stream's shell (persistent CTAs of one 64-row consumer
 // and a producer, every executed block x chunk step as 64-row halves of
 // whole rays with one skip decision per step, the producer released as
@@ -1444,7 +1445,7 @@ int siren_march_stream_stages() {
   return stream_stages(kInPad, 0, kSirenMarchExtra);
 }
 
-// siren_march_kernel_stream at sa.m.width (768, 1024) on `st`, slab the
+// siren_march_kernel_stream at sa.m.width (a streamed width) on `st`, slab the
 // [slab_ctas * 64, 2 W] bf16 scratch.
 int launch_siren_march_stream(const SirenMarchArgs& sa, int n_rays,
                               const bf16* slab, int slab_ctas,
@@ -1495,9 +1496,10 @@ void fill_args(Args& a, const void* x, const void* dirs, const void* t,
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
 // a shape the kernel does not take.
 
-// The NeRF march: width 64, 128, 192, 256, 384, 512, 768 or 1024 (the
-// last two with slab, [slab_ctas * 64, 2 width] bf16 scratch; null
-// elsewhere), encodings up to kMaxEnc (256) wide (at width 256 up to 6
+// The NeRF march: width 64, 128, 192, 256, 384, 512 or a streamed width
+// (768 and every multiple of 256 up, with slab, [slab_ctas * 64, 2 width]
+// bf16 scratch; null elsewhere) whose packed weights number at most
+// kMaxPackedWeights, encodings up to kMaxEnc (256) wide (at width 256 up to 6
 // blocks of 64 together), block_rows * chunk_s <= 128 (above 256 chunk_s
 // dividing 64 when the step has more than 64 rows); trunk_rows the rows of
 // wpack's [rows, width] view (the trunk, w_sigma and w_conn:
@@ -1528,9 +1530,16 @@ extern "C" int fsnerf_ray_march(
       (width > kWholeMaxWidth && block_rows * chunk_s > 64 &&
        64 % chunk_s != 0) ||
       trunk_rows !=
-          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width)
+          trunk_rows_of(n_layers, skip_mask, width, d_enc_pad) + 1 + width ||
+      (size_t)trunk_rows * width +
+              (size_t)(width + d_dir_pad) * (width / 2) + 3 * (width / 2) >
+          kMaxPackedWeights)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stream_width(width))
+    return launch_nerf_march_stream(m, width, trunk_rows, n_rays,
+                                    static_cast<const bf16*>(slab),
+                                    slab_ctas, st);
   switch (width) {
     case 64:
       return launch_nerf_march_w<64>(m, trunk_rows, n_rays, st);
@@ -1544,18 +1553,14 @@ extern "C" int fsnerf_ray_march(
       return launch_nerf_march_w<384>(m, trunk_rows, n_rays, st);
     case 512:
       return launch_nerf_march_w<512>(m, trunk_rows, n_rays, st);
-    case 768:
-    case 1024:
-      return launch_nerf_march_stream(m, width, trunk_rows, n_rays,
-                                      static_cast<const bf16*>(slab),
-                                      slab_ctas, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The SIREN march: wpack / bpack / alphas as ops/kernels/siren.py packs
-// them; the rest (slab at 768 and 1024) as fsnerf_ray_march.
+// them; the rest (slab at the streamed widths, the packed weights' limit)
+// as fsnerf_ray_march.
 extern "C" int fsnerf_siren_ray_march(
     const void* x, const void* dirs, const void* t, const void* deltas,
     const void* mask, const void* wpack, const void* bpack,
@@ -1570,7 +1575,16 @@ extern "C" int fsnerf_siren_ray_march(
                static_cast<const float*>(bpack),
                static_cast<const float*>(alphas), n_layers, width};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (siren_n_w(n_layers, width) > kMaxPackedWeights)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (block_rows * chunk_s <= kRows) {
+    // from 384 up: run as 64-row halves of whole rays
+    const bool halves_ok = block_rows * chunk_s <= 64 || 64 % chunk_s == 0;
+    if (stream_width(width))
+      return halves_ok ? launch_siren_march_stream(
+                             sa, n_rays, static_cast<const bf16*>(slab),
+                             slab_ctas, st)
+                       : static_cast<int>(cudaErrorInvalidValue);
     switch (width) {
       case 64:
         return launch_siren_march_w<64>(sa, n_rays, st);
@@ -1582,15 +1596,7 @@ extern "C" int fsnerf_siren_ray_march(
         return launch_siren_march_w<256>(sa, n_rays, st);
       case 384:
       case 512:
-      case 768:
-      case 1024:
-        // run as 64-row halves of whole rays
-        if (block_rows * chunk_s > 64 && 64 % chunk_s != 0)
-          return static_cast<int>(cudaErrorInvalidValue);
-        if (stream_width(width))
-          return launch_siren_march_stream(sa, n_rays,
-                                           static_cast<const bf16*>(slab),
-                                           slab_ctas, st);
+        if (!halves_ok) return static_cast<int>(cudaErrorInvalidValue);
         return width == 384 ? launch_siren_march_w<384>(sa, n_rays, st)
                             : launch_siren_march_w<512>(sa, n_rays, st);
       default:
@@ -1606,6 +1612,7 @@ extern "C" int fsnerf_siren_ray_march(
 // (its launcher's arithmetic), or 0 where that width has no such instance.
 extern "C" int fsnerf_siren_march_stages(int width) {
   using namespace fsnerf;
+  if (stream_width(width)) return siren_march_stream_stages();
   switch (width) {
     case 64:
     case 128:
@@ -1614,9 +1621,6 @@ extern "C" int fsnerf_siren_march_stages(int width) {
     case 384:
     case 512:
       return fwd_stages(width, kInPad, 0, kSirenMarchExtra);
-    case 768:
-    case 1024:
-      return siren_march_stream_stages();
     default:
       return 0;
   }

@@ -3,17 +3,17 @@
 // derivative to HBM) and the backward to bf16 weight and f32 bias
 // gradients.
 //
-// Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose
-// custom VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
-// siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256 and on the
-// column-split trunk at 384 / 512, siren_fwd_kernel_stream on the streamed
-// trunk at 768 / 1024, else siren_fwd_kernel) and bwd_call (kernel 8; here
-// a row pass, siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 /
-// 192 / 256 and on 64-row CTAs at 384 / 512, siren_bwd_rows_kernel_stream
-// at 768 / 1024, else siren_bwd_rows_kernel, then dw_gemm_kernel and
+// Replaces fsnerf_tpu/ops/pallas/siren.py::make_fused_siren_mlp, whose custom
+// VJP runs two Pallas TPU kernels: fwd_call (kernel 7; here
+// siren_fwd_ws_kernel at widths 64 / 128 / 192 / 256 and on the column-split
+// trunk at 384 / 512, siren_fwd_kernel_stream on the streamed trunk at the
+// streamed widths, else siren_fwd_kernel) and bwd_call (kernel 8; here a row
+// pass, siren_bwd_rows_ws_kernel in saved mode at widths 64 / 128 / 192 / 256
+// and on 64-row CTAs at 384 / 512, siren_bwd_rows_kernel_stream at the
+// streamed widths, else siren_bwd_rows_kernel, then dw_gemm_kernel and
 // dw_reduce_kernel of train_common.cuh). Plain PyTorch twins:
-// fsnerf_tpu_torch/ops/kernels/
-// siren.py::siren_mlp_fwd_reference / siren_mlp_bwd_reference.
+// fsnerf_tpu_torch/ops/kernels/siren.py::siren_mlp_fwd_reference /
+// siren_mlp_bwd_reference.
 //
 // What bounds them on this card. A row of SiNeRF 8x256 costs ~1.18 MFLOP of
 // bf16 GEMMs forward and ~2.6 MFLOP backward (the head recompute, the
@@ -42,20 +42,19 @@
 // factors a_i cos(a_i y_i) in f32 to scratch, as the TPU kernel holds them
 // f32 (the two modes' gradients differ by that rounding, by design).
 //
-// Three row passes. The main path's, saved mode at width 64, 128, 192,
-// 256, 384 or 512, is siren_bwd_rows_ws_kernel (below): warp-specialized,
-// every product on wgmma fed by TMA, the heads' cotangents in registers;
-// at 768 and 1024 siren_bwd_rows_kernel_stream (kernel 6's streamed shape,
+// Three row passes. The main path's, saved mode at width 64, 128, 192, 256,
+// 384 or 512, is siren_bwd_rows_ws_kernel (below): warp-specialized, every
+// product on wgmma fed by TMA, the heads' cotangents in registers; at the
+// streamed widths siren_bwd_rows_kernel_stream (kernel 6's streamed shape,
 // every operand through L2). Recompute mode up to width 256 takes
-// siren_bwd_rows_kernel (which fits in shared memory up to there); from
-// 384 up it runs the forward kernel into an acts stream first and then the
-// saved mode's passes, so there its factors are bf16 and its gradients the
-// saved mode's. siren_bwd_rows_kernel
-// is one CTA of 8 warps, mma.sync through mlp_common.cuh's GEMM core, each phase behind
-// __syncthreads(); at width 256 two [128 x 264] bf16 activation buffers
-// (the heads' f32 cos factors borrow one as a [128 x 128] f32 array), a
-// [128 x 136] bf16 head buffer, the staged inputs and the weight slabs:
-// ~220 KB, one CTA per SM.
+// siren_bwd_rows_kernel (which fits in shared memory up to there); from 384
+// up it runs the forward kernel into an acts stream first and then the saved
+// mode's passes, so there its factors are bf16 and its gradients the saved
+// mode's. siren_bwd_rows_kernel is one CTA of 8 warps, mma.sync through
+// mlp_common.cuh's GEMM core, each phase behind __syncthreads(); at width 256
+// two [128 x 264] bf16 activation buffers (the heads' f32 cos factors borrow
+// one as a [128 x 128] f32 array), a [128 x 136] bf16 head buffer, the staged
+// inputs and the weight slabs: ~220 KB, one CTA per SM.
 //
 // Numerics, as the TPU kernels (siren.py::_bwd_grads_siren): each
 // cotangent is rounded to bf16 before it enters a product; the heads'
@@ -388,7 +387,7 @@ cudaError_t launch_fwd_ws(const SirenTrainArgs& a, int n_blocks,
   return cudaGetLastError();
 }
 
-// ---- the forward at the streamed widths 768 and 1024 ------------------
+// ---- the forward at the streamed widths (768 and every multiple of 256 up)
 //
 // siren_fwd_kernel_stream<kSave>: ws_trunk.cuh's streamed trunk with the
 // sine epilogue and siren_common.cuh's streamed heads, on persistent CTAs
@@ -1576,7 +1575,7 @@ cudaError_t launch_bwd_rows_ws(const SirenTrainArgs& a, int n_blocks,
   return cudaGetLastError();
 }
 
-// ---- the saved-mode row pass at the streamed widths 768 and 1024 -------
+// ---- the saved-mode row pass at the streamed widths ----------------------
 //
 // siren_bwd_rows_kernel_stream: the outputs of siren_bwd_rows_ws_kernel
 // (xs, dy, pbias) on kernel 6's streamed shape (mlp_train.cu
@@ -1941,7 +1940,7 @@ void fill_args(SirenTrainArgs& a, const void* x, const void* d,
 // returns cudaGetLastError() (0 = launched).
 
 // out [n, 4]; acts [round_up(n, 128), 2 n_layers width] or null; at the
-// streamed widths 768 and 1024 slab [slab_ctas * 64, 2 width] bf16
+// streamed widths slab [slab_ctas * 64, 2 width] bf16
 // scratch (null elsewhere).
 extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
                                 const void* wpack, const void* bpack,
@@ -1955,10 +1954,12 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
   a.acts = static_cast<bf16*>(acts);
   a.lda = 2 * n_layers * width;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (siren_n_w(n_layers, width) > kMaxPackedWeights)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
   // widths 64, 128, 192 and 256 on the warp-specialized kernel, 384 and
-  // 512 on its column-split shape, 768 and 1024 on the streamed one,
+  // 512 on its column-split shape, the streamed widths on the streamed one,
   // others (multiples of 32 up to 320) on siren_fwd_kernel
   if (stream_width(width))
     return static_cast<int>(launch_fwd_stream(
@@ -1994,7 +1995,7 @@ extern "C" int fsnerf_siren_fwd(const void* x, const void* d,
 // = L W] bf16 and cfs [n_pad, L W] f32 are scratch the row pass writes.
 // Recompute mode from 384 up (fwd_out given, [n, 4] f32 scratch): the
 // forward kernel first writes acts [n_pad, lda = 2 L W] (its bf16
-// factors; at 768 and 1024 through slab, [slab_ctas * 64, 2 W] bf16
+// factors; at the streamed widths through slab, [slab_ctas * 64, 2 W] bf16
 // scratch), then the saved mode's passes run. xs, dy, pbias ([n_pad / R,
 // n_b]: R = 128, or 64 from 384 up) and part are scratch of the shapes
 // documented in SirenTrainArgs and train_common.cuh::dw_gemm_kernel; jobs
@@ -2019,6 +2020,8 @@ extern "C" int fsnerf_siren_bwd(
   a.dy = static_cast<bf16*>(dy);
   a.pbias = static_cast<float*>(pbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (siren_n_w(n_layers, width) > kMaxPackedWeights)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = (n + kRows - 1) / kRows;
   if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
   const bool streamed = stream_width(width);
@@ -2038,7 +2041,7 @@ extern "C" int fsnerf_siren_bwd(
   // the row pass: saved mode at width 64, 128, 192, 256, 384 or 512 on the
   // warp-specialized kernel (384, 512: its 64-row split shape), where its
   // shared memory fits (up to 256 a ring of 2 stages or more beside the
-  // bias partials), at 768 and 1024 on the streamed one; recompute mode
+  // bias partials), at the streamed widths on the streamed one; recompute mode
   // (f32 factors) up to 256 and other widths on siren_bwd_rows_kernel
   const int Wh = width / 2, L = n_layers;
   const int n_b = siren_n_bias(L, width);
@@ -2071,8 +2074,7 @@ extern "C" int fsnerf_siren_bwd(
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int n_w = kInPad * width + (L - 1) * width * width + width * Wh + Wh +
-                  width * width + width * Wh + kInPad * Wh + Wh * 3;
+  const int n_w = static_cast<int>(siren_n_w(L, width));
   return static_cast<int>(launch_dw(
       static_cast<const bf16*>(acts), lda, static_cast<const bf16*>(xs),
       2 * kInPad + 2 * width, static_cast<const bf16*>(dy),
@@ -2085,7 +2087,7 @@ extern "C" int fsnerf_siren_bwd(
 
 // The ring of stages the warp-specialized forward (kernel 0: saved mode, 1:
 // without acts) or saved-mode row pass (2) launches with at a packed width
-// and n_layers (the launchers' own arithmetic; at 768 and 1024 the
+// and n_layers (the launchers' own arithmetic; at the streamed widths the
 // streamed forward's weight ring and the streamed row pass's cp.async
 // ring), or 0 where that width has no warp-specialized instance or a ring
 // of 2 does not fit.

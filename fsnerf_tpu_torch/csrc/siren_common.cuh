@@ -10,7 +10,7 @@
 // activation) serves the forward and the march at widths 64, 128, 192 and
 // 256, on the column-split trunk (siren_produce_pass_split,
 // siren_heads_split) at 384 and 512, and on the streamed trunk
-// (siren_produce_pass_stream, siren_heads_stream) at 768 and 1024.
+// (siren_produce_pass_stream, siren_heads_stream) at the streamed widths.
 //
 // Numerics, as the TPU kernels (fsnerf_tpu/ops/pallas/siren.py::_fwd_siren,
 // _heads_siren): bf16 operands and f32 accumulation; the f32 bias is added
@@ -77,6 +77,14 @@ struct Siren {
   __device__ __forceinline__ int ob_r0() const { return ob_f() + width; }
   __device__ __forceinline__ int ob_r1() const { return ob_r0() + width / 2; }
 };
+
+// The packed weights' element count of an L-layer SIREN at width W (the
+// walk order of Siren's matrices; ops/kernels/siren.py SirenLayout.n_w).
+inline size_t siren_n_w(int L, int W) {
+  const size_t w = W, wh = W / 2;
+  return kInPad * w + (size_t)(L - 1) * w * w + w * wh + wh + w * w +
+         w * wh + kInPad * wh + 3 * wh;
+}
 
 // The sine epilogue: y = acc + bias (f32), arg = alpha * y, C =
 // bf16(sin_fast(arg)) in shared memory; with cb, bf16(alpha *
@@ -557,7 +565,7 @@ __device__ __forceinline__ void siren_heads_split(float (&acc)[W / 4],
   siren_rgb_out<Wh>(acc, m, dirs, rgb);
 }
 
-// ---- the streamed shape (widths 768 and 1024) --------------------------
+// ---- the streamed shape (widths 768 and every multiple of 256 up) ------
 //
 // ws_trunk.cuh's streamed trunk with the sine activation (one 64-row
 // consumer, each layer in 256-column chunks through device memory and back

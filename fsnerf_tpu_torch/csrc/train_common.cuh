@@ -276,7 +276,7 @@ cudaError_t launch_dw(const bf16* acts, int ld_acts, const bf16* xs,
 }
 
 
-// ---- the streamed row passes' products (packed widths 768 and 1024) ----
+// ---- the streamed row passes' products (the streamed widths) ------------
 //
 // The row passes of the train backwards (mlp_train.cu
 // mlp_train_bwd_rows_kernel_stream, siren.cu siren_bwd_rows_kernel_stream)
@@ -345,13 +345,24 @@ __device__ __forceinline__ void stream_rows_stage(float (&acc)[64],
   for (int kk = 0; kk < KS; ++kk) fence_regs(a[kk]);
 }
 
+// With kSplitK (the row passes above a packed width of 1024) a product's
+// K is summed stage by stage: each stage's wgmma (64 K) accumulate into
+// acc, which is then added into a float32 total by FADD and cleared. The
+// tensor cores' f32 sums lose precision as they run long (a kernel's bf16
+// roundings of feat and br flipped ~7x as often as the plain version's at
+// K = 2048, scripts/grad_arbiter.py; chunks of 256 K still left one seed
+// of ten at 3.4x the plain version's gradient error); a stage bounds that
+// to 64 K, and the stages' totals round to nearest.
+constexpr int kSplitKMinWidth = 1025;
+
 // acc = the sum over segs[0 .. nseg) of A[64, :K] @ B[:K, n0 : n0 + 128)
 // (columns past N: 0), by the CTA's one warpgroup: each stage one 64 x 64
 // A tile and one 128 x 64 B tile (128B-swizzled), by cp.async, kStreamRow-
-// Stages - 1 stages ahead. With mask, rows r0 .. of mask's columns n0 ..
-// n0 + 127 (row stride mask_ld) land in C with the first stage, for the
-// epilogue's ReLU'. Ends past a barrier, the ring free.
-template <bool kTransB>
+// Stages - 1 stages ahead (kSplitK: each stage's sum into a total, above).
+// With mask, rows r0 .. of mask's columns n0 .. n0 + 127 (row stride
+// mask_ld) land in C with the first stage, for the epilogue's ReLU'. Ends
+// past a barrier, the ring free.
+template <bool kTransB, bool kSplitK = false>
 __device__ void stream_rows_gemm(float (&acc)[64], const RowSeg* segs,
                                  int nseg, int n0, int N, int r0,
                                  unsigned char* ring, const bf16* mask,
@@ -405,6 +416,11 @@ __device__ void stream_rows_gemm(float (&acc)[64], const RowSeg* segs,
   }
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float total[kSplitK ? 64 : 1];
+  if constexpr (kSplitK) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = 0.f;
+  }
   for (int kc = 0; kc < ns; ++kc) {
     cp_async_wait<kStreamRowStages - 2>();     // stage kc landed
     fence_proxy_async();                       // ... visible to wgmma
@@ -426,6 +442,19 @@ __device__ void stream_rows_gemm(float (&acc)[64], const RowSeg* segs,
         stream_rows_stage<1, kTransB>(acc, ap + 16 * kk,
                                       tile + (kTransB ? 2048 : 32) * kk);
     }
+    if constexpr (kSplitK) {
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        total[i] = __fadd_rn(total[i], acc[i]);
+        acc[i] = 0.f;
+      }
+      fence_regs(total);
+    }
+  }
+  if constexpr (kSplitK) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = total[i];
   }
   fence_regs(acc);
   cp_async_wait<0>();
@@ -509,7 +538,7 @@ __device__ __forceinline__ void stream_rows_epilogue(const RowChunkOut& o,
 // One product of the row pass, chunk by chunk: out[r0 .., dst_col + n] =
 // the epilogue of (segs @ B) for n < N, through C; with o.colpart, each
 // chunk's column sums (the four warps' in order) to pb[pb_off + n].
-template <bool kTransB>
+template <bool kTransB, bool kSplitK = false>
 __device__ void stream_rows_product(const RowSeg* segs, int nseg, int N,
                                     int r0, unsigned char* ring, bf16* C,
                                     const bf16* mask, int mask_ld,
@@ -517,8 +546,8 @@ __device__ void stream_rows_product(const RowSeg* segs, int nseg, int N,
                                     int dst_col, float* pb, int pb_off) {
   for (int n0 = 0; n0 < N; n0 += kBwdPassCols) {
     float acc[64];
-    stream_rows_gemm<kTransB>(acc, segs, nseg, n0, N, r0, ring, mask,
-                              mask_ld, C);
+    stream_rows_gemm<kTransB, kSplitK>(acc, segs, nseg, n0, N, r0, ring,
+                                       mask, mask_ld, C);
     stream_rows_epilogue(o, acc, n0, C);
     __syncthreads();
     if (o.colpart)

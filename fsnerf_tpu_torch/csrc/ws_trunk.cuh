@@ -26,7 +26,7 @@
 // registers a thread) no longer fits beside the epilogue, so the NeRF and
 // SIREN shells run the column-split trunk below instead: one consumer
 // warpgroup of 64 rows per CTA, each layer's output computed as two column
-// halves of W / 2 into one W / 2 accumulator (FwdTraits). At 768 and 1024
+// halves of W / 2 into one W / 2 accumulator (FwdTraits). From 768 up
 // not even one layer's 64-row input and output tiles fit beside a weight
 // ring, and the NeRF and SIREN shells run the streamed trunk at the end of
 // this file: each layer's output goes to device memory and comes back from
@@ -717,11 +717,13 @@ __device__ __forceinline__ void fwd_branch_split(FwdRing& r,
   branch_rgb<W, NB>(bacc, DD, w_conn, b_conn, rgb);
 }
 
-// ---- the streamed trunk (packed widths 768 and 1024) -------------------
+// ---- the streamed trunk (packed widths 768 and every multiple of 256 up)
 //
 // One consumer warpgroup of 64 rows per CTA and a producer warpgroup, the
 // CTAs persistent over the row tiles (the march's ray blocks), one
-// instance for both widths (W and its loop counts at run time); the NeRF
+// instance for every streamed width (W and its loop counts at run time;
+// W a multiple of 256, as the branch's N = W / 2 runs in 128-column
+// chunks); the NeRF
 // shells' and, with the sine epilogue and siren_common.cuh's streamed
 // heads, the SIREN forward's and march's. Each layer
 // (and the connection) runs as W / kStreamCols output column chunks, one
@@ -746,17 +748,27 @@ __device__ __forceinline__ void fwd_branch_split(FwdRing& r,
 // dots. Per row and layer 2 W^2 FLOP against 4 W bytes through L2 (W / 2
 // FLOP a byte: 384 at 768, 512 at 1024, past the H100's bf16 ridge of
 // ~295 FLOP a byte of HBM), so sending the activations out and back keeps
-// the layers compute-bound. The bf16 values read back are the ones the
-// in-register path rounds, so the numerics are the other widths'.
+// the layers compute-bound, more so as W grows, whether or not the CTAs'
+// scratch slots (64 x 2 W bf16 each) stay in L2. The bf16 values read
+// back are the ones the in-register path rounds, so the numerics are the
+// other widths'.
 
 constexpr int kStreamCols = 256;        // a trunk / connection chunk
 constexpr int kStreamBranchCols = 128;  // a branch chunk
 constexpr int kStreamAStages = 4;       // the A ring's 64 x 64 tiles
 constexpr int kStreamStageBytes = kStreamCols * 128;
 
+constexpr int kStreamMinWidth = 768;
+constexpr int kStreamStep = 256;
+
 __host__ __device__ constexpr bool stream_width(int W) {
-  return W == 768 || W == 1024;
+  return W >= kStreamMinWidth && W % kStreamStep == 0;
 }
+
+// The packed weights are addressed by int32 element offsets (the weight-
+// gradient jobs' w_off, n_w), so a launch takes at most this many (which
+// bounds the streamed width: W_max, ops/kernels/render.py).
+constexpr size_t kMaxPackedWeights = 2147483647;
 
 // (ops/kernels/render.py::shell_smem_bytes mirrors it): the weight ring,
 // the A ring, the output chunk's tile, encx and encd, the ring's and the A

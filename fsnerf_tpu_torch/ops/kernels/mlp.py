@@ -16,11 +16,12 @@ f32 sigmoid. Out [N, 4] float32 = rgb, sigma.
 The density pass (`nerf_density`, the occupancy grid refresh's workload)
 runs the trunk and the sigma head alone, with the same numerics, on the
 positional encodings only. Both kernels are the warp-specialized MLP of
-csrc/ws_trunk.cuh, built for the widths render.py::NERF_KERNEL_WIDTHS (a
-module's width up to 1024 is packed at the next of them, render.py::
-nerf_kernel_width; 384 and 512 run the column-split trunk, 768 and 1024
-the streamed trunk, with a scratch the wrappers allocate) and encodings
-as render.py::kernel_arch_error takes them.
+csrc/ws_trunk.cuh, built for the widths render.py::NERF_KERNEL_WIDTHS and
+the streamed widths (a module's width is packed at the next of them,
+render.py::nerf_kernel_width; 384 and 512 run the column-split trunk, 768
+and every multiple of 256 above the streamed trunk, with a scratch the
+wrappers allocate) and encodings and packed weights as
+render.py::kernel_arch_error takes them.
 
 `nerf_mlp` / `nerf_density` launch csrc/mlp.cu for CUDA tensors and run
 `nerf_mlp_reference` / `nerf_density_reference` only for CPU tensors.
@@ -89,7 +90,7 @@ def prep_params(state_dict: Dict[str, torch.Tensor], n_layers: int = 8,
     d_dir = sd["branch.weight"].shape[1] - W
     de, dd = _round_up(d_enc, 64), _round_up(d_dir, 32)
     wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
-    return MlpParams(wpack, bpack, n_layers, skip, nerf_kernel_width(W),
+    return MlpParams(wpack, bpack, n_layers, skip, nerf_kernel_width(W, dd),
                      d_enc, d_dir, de, dd, W).to(device)
 
 
@@ -221,7 +222,8 @@ def _check_cuda(encx, encd, params: MlpParams, density_activation: str):
     """The kernel's checks: shapes and dtypes, a width and encodings it is
     built for, contiguous tensors on one device."""
     _check(encx, encd, params, density_activation)
-    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad)
+    err = kernel_arch_error(params.width, params.d_enc_pad, params.d_dir_pad,
+                            n_w=params.wpack.numel())
     if err is not None:
         raise ValueError(f"nerf_mlp: {err}")
     for a in (encx, encd, params.wpack, params.bpack):
@@ -292,8 +294,9 @@ def nerf_density_reference(encx, params: MlpParams,
 def nerf_density(encx, params: MlpParams,
                  density_activation: str = "none") -> torch.Tensor:
     """The density pass: csrc/mlp.cu's nerf_density_kernel for CUDA tensors
-    (packed widths render.py::NERF_KERNEL_WIDTHS, d_enc_pad up to
-    KERNEL_MAX_ENC: ValueError otherwise), nerf_density_reference for CPU
+    (packed widths and weights as render.py::kernel_arch_error takes
+    them, d_enc_pad up to KERNEL_MAX_ENC: ValueError otherwise),
+    nerf_density_reference for CPU
     tensors; same
     arguments and return. Any N. Counts its kernel launches in
     `nerf_density.launches`."""
@@ -303,7 +306,8 @@ def nerf_density(encx, params: MlpParams,
         raise ValueError(f"nerf_density runs on cpu or cuda, not "
                          f"{encx.device}")
     _check(encx, None, params, density_activation)
-    err = kernel_arch_error(params.width, params.d_enc_pad)
+    err = kernel_arch_error(params.width, params.d_enc_pad,
+                            n_w=params.wpack.numel())
     if err is not None:
         raise ValueError(f"nerf_density: {err}")
     for a in (encx, params.wpack, params.bpack):

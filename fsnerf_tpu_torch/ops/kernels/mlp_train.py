@@ -19,7 +19,8 @@ gradients come back in the same packed layout, their padded entries
 exactly 0, and TrainLayout.grads_from_packed cuts them to the module's
 shapes. At the packed widths 384 and 512 the forward runs the column-split
 trunk of csrc/ws_trunk.cuh and the backward's row pass 64-row CTAs
-(bwd_rows); at 768 and 1024 the forward runs the streamed trunk (each
+(bwd_rows); at the streamed widths (768 and every multiple of 256 above,
+render.py::stream_width) the forward runs the streamed trunk (each
 layer's output stored to acts, or to a scratch the wrapper allocates, and
 read back as the next layer's operand) and the row pass streams its
 operands from device memory on 64-row CTAs. All write and read the same
@@ -35,10 +36,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...core.encoding import encoded_dim
-from .render import (KERNEL_WIDTHS, STREAM_WIDTHS, _bf16, _ptr, _round_up,
-                     enc_table, encode, heads_forward, kernel_arch_error,
+from .render import (KERNEL_WIDTHS, _bf16, _ptr, _round_up, enc_table,
+                     encode, heads_forward, kernel_arch_error,
                      nerf_kernel_width, pack_weights, stream_scratch,
-                     trunk_forward, unpack)
+                     stream_width, trunk_forward, unpack)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 # weight-gradient output tile: input dims x output dims
@@ -60,12 +61,12 @@ def bwd_rows_smem_bytes(width: int, d_dir_pad: int,
     (default bwd_rows(width); csrc/mlp_train.cu smem_bytes): two activation
     buffers and the direction encoding (rows padded by 8), the weight ring,
     the heads' floats and one row of column sums per warp of 2 rows
-    threads. At STREAM_WIDTHS (and rows None) the streamed row pass's
+    threads. At a streamed width (and rows None) the streamed row pass's
     (csrc/mlp_train.cu stream_rows_smem_bytes): three stages of a 128 x 64
     weight tile and a 64 x 64 operand tile (rows padded by 8), one 64 x 128
     output tile (padded by 8), the heads' floats and four warps' column
     sums of a 128-column chunk, whatever the width and encodings."""
-    if width in STREAM_WIDTHS and rows is None:
+    if stream_width(width) and rows is None:
         return (1024 + 3 * (128 * 128 + 64 * 72 * 2) + 64 * 136 * 2
                 + 4 * (7 * 64 + 4 * 128))
     R = bwd_rows(width) if rows is None else rows
@@ -153,14 +154,18 @@ class TrainLayout:
         """Why the train kernels refuse this layout on the card, or None
         (their plain versions take any width)."""
         return kernel_arch_error(self.width, self.de, self.dd,
-                                 "train kernels")
+                                 "train kernels", self.n_w)
 
     @staticmethod
     def of_module(n_layers: int, skip: Tuple[int, ...], width: int,
                   n_freqs: int, n_freqs_views: int) -> "TrainLayout":
-        """The layout of a NeRF module `width` wide, at the packed width."""
-        return TrainLayout(n_layers, tuple(skip), nerf_kernel_width(width),
-                           n_freqs, n_freqs_views, width)
+        """The layout of a NeRF module `width` wide, at the packed width
+        (nerf_kernel_width of the width and the padded direction
+        encoding)."""
+        dd = _round_up(encoded_dim(3, n_freqs_views), 16)
+        return TrainLayout(n_layers, tuple(skip),
+                           nerf_kernel_width(width, dd), n_freqs,
+                           n_freqs_views, width)
 
     @staticmethod
     def from_config(cfg, device=None) -> "TrainLayout":

@@ -14,35 +14,39 @@ depth, trans_final, 0, 0; the background is blended by the caller.
 
 `ray_march` launches csrc/render.cu for CUDA tensors (the NeRF march on
 the warp-specialized MLP of csrc/ws_trunk.cuh, which is built for the
-widths NERF_KERNEL_WIDTHS) and runs
+widths NERF_KERNEL_WIDTHS and the streamed widths) and runs
 `ray_march_reference` only for CPU tensors. The two share one signature,
 one weight packing and one skip rule, and both return the per-block count of
 executed chunk steps so a run on the card can compare them.
 
 Every packer lays the weights out at the packed width: a NeRF or SiNeRF
-module's width W up to 1024 pads to the next of NERF_KERNEL_WIDTHS
-(`kernel_width`, also named `nerf_kernel_width`), with zero columns (and
-zero biases), the next matrix reading them through zero rows, so the
-padded units' activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and
-the real outputs gain only exact zero products; the plain versions run the
-padded pack as the kernels do. The NeRF and SIREN kernels take every
-packed width (siren.py::siren_kernel_error for the SIREN's).
+module's width W pads to the next of the fixed widths KERNEL_WIDTHS +
+SPLIT_WIDTHS, or above 512 to the next streamed width, a multiple of 256
+from 768 up (`kernel_width`, also named `nerf_kernel_width`; a NeRF of
+width 193-256 whose direction encoding is wider than
+KERNEL_MAX_DIR_AT_256 packs at 384), with zero columns (and zero biases),
+the next matrix reading them through zero rows, so the padded units'
+activations are exactly 0 (ReLU(0) = 0, sin(a 0) = 0) and the real
+outputs gain only exact zero products; the plain versions run the padded
+pack as the kernels do. The NeRF and SIREN kernels take every packed
+width whose packed weights int32 offsets can address (MAX_PACKED_WEIGHTS;
+siren.py::siren_kernel_error for the SIREN's).
 
 The early exit's blocking is the same at every width: from the packed
 width 384 up the kernel runs each block x chunk step (up to 128 rows) as
 two 64-row halves on one consumer warpgroup, but decides the skip once per
 step, over all its rays and samples, as the other widths and the TPU
 kernel do; so ray_march_reference's block x chunk loop is the kernel's at
-every width. At 768 and 1024 each layer's output goes through a scratch in
-device memory and back (the streamed trunk); its bf16 values are the ones
-the other widths keep in shared memory, so the plain version needs no
-change there either.
+every width. At the streamed widths (768 and every multiple of 256 above)
+each layer's output goes through a scratch in device memory and back (the
+streamed trunk); its bf16 values are the ones the other widths keep in
+shared memory, so the plain version needs no change there either.
 
 The SiNeRF march (`siren_ray_march`, `siren_ray_march_reference`) is the
 same shell with the SIREN MLP of siren.py on the raw points and directions
 (bf16, no encoding) in place of the encoding and the NeRF MLP; from 384
 up it runs the same 64-row halves with the same per-step skip decision,
-and at 768 and 1024 through the same streamed trunk.
+and at the streamed widths through the same streamed trunk.
 """
 
 from __future__ import annotations
@@ -70,46 +74,81 @@ KERNEL_MAX_ENC = 256
 # kernel 6's row pass stages the direction encoding (mlp_train.py::
 # bwd_rows_smem_bytes)
 KERNEL_MAX_DIR_AT_256 = 128
-# the widths every packer lays out (kernel_width) and the NeRF and SIREN
-# kernels take: KERNEL_WIDTHS and, on the column-split trunk (one 64-row
-# consumer, each layer as two column halves; the backward row passes of
-# kernels 6 and 8 on 64-row CTAs), 384 and 512. There both encodings reach
-# KERNEL_MAX_ENC: the shells fit a 2-stage ring beside 8 encoding blocks
-# at 512 (shell_smem_bytes(512, 256, 256) = 230,448 bytes), the 64-row
-# pass a 256-wide direction encoding (bwd_rows_smem_bytes(512, 256) =
-# 227,072). Above 512 the input and output activation tiles of one 64-row
-# warpgroup (192 KB at 768) leave no room for the weight ring.
+# the fixed widths every packer lays out (kernel_width) and the NeRF and
+# SIREN kernels take beside the streamed ones: KERNEL_WIDTHS and, on the
+# column-split trunk (one 64-row consumer, each layer as two column halves;
+# the backward row passes of kernels 6 and 8 on 64-row CTAs), 384 and 512.
+# There both encodings reach KERNEL_MAX_ENC: the shells fit a 2-stage ring
+# beside 8 encoding blocks at 512 (shell_smem_bytes(512, 256, 256) =
+# 230,448 bytes), the 64-row pass a 256-wide direction encoding
+# (bwd_rows_smem_bytes(512, 256) = 227,072). Above 512 the input and
+# output activation tiles of one 64-row warpgroup (192 KB at 768) leave no
+# room for the weight ring.
 SPLIT_WIDTHS = (384, 512)
-# ... and on the streamed trunk (csrc/ws_trunk.cuh: one 64-row consumer,
-# each layer in 256-column chunks stored to device memory and read back
-# from L2 as the next layer's operand; the row passes of kernels 6 and 8
-# stream their operands too) the NeRF kernels 1 and 3-6 and the SIREN
-# kernels 2, 7 and 8: 768 and 1024.
-# Their shared memory does not grow with the width: with both encodings
-# 256 wide a 3-stage ring fits (shell_smem_bytes(1024, 256, 256, 3) =
-# 230,496 bytes), the row pass takes 99,072 whatever the encodings. Above
-# 1024 no instance is built: the scratch each persistent CTA streams its
-# layers through (64 rows x 2 W bf16) is meant to stay in the 50 MB L2
-# cache beside the layer's weights being read (at 1024 34.6 MB on 132 SMs
-# beside 2 MB), which it stops doing as W grows (at 1536 52 MB alone).
-STREAM_WIDTHS = (768, 1024)
-NERF_KERNEL_WIDTHS = KERNEL_WIDTHS + SPLIT_WIDTHS + STREAM_WIDTHS
+NERF_KERNEL_WIDTHS = KERNEL_WIDTHS + SPLIT_WIDTHS
+# ... and above them the streamed trunk (csrc/ws_trunk.cuh: one 64-row
+# consumer, each layer in 256-column chunks stored to device memory and
+# read back as the next layer's operand; the row passes of kernels 6 and 8
+# stream their operands too) for the NeRF kernels 1 and 3-6 and the SIREN
+# kernels 2, 7 and 8: one instance each, W at run time, at every multiple
+# of STREAM_STEP from STREAM_MIN_WIDTH up (the branch's N = W / 2 runs in
+# 128-column chunks). Their shared memory does not grow with the width:
+# with both encodings 256 wide a 3-stage ring fits (shell_smem_bytes(W,
+# 256, 256, 3) = 230,496 bytes), the row pass takes 99,072 whatever the
+# encodings. The scratch each persistent CTA streams its layers through
+# (64 rows x 2 W bf16) stays in the 50 MB L2 cache up to 1024 (34.6 MB on
+# 132 SMs); wider, it does not (69 MB at 2048), which costs time, not
+# correctness.
+STREAM_MIN_WIDTH = 768
+STREAM_STEP = 256
+# The packed weights are addressed by int32 element offsets (the weight-
+# gradient pass's job table and the C entries' n_w), so their element
+# count (wpack's numel, TrainLayout.n_w, SirenLayout.n_w) must stay below
+# 2^31: that is what bounds a streamed width (W_max, ~(L + 1/2) W^2
+# elements for a NeRF of L layers: 15,872 at 8 layers, skip 4, n_freqs
+# 10/4; 15,360 for an 8-layer SiNeRF).
+MAX_PACKED_WEIGHTS = 2**31 - 1
 SMEM_LIMIT = 227 * 1024          # an H100 block's shared memory, bytes
 STREAM_ROWS = 64                 # a streamed CTA's rows (its scratch slot)
+
+
+def stream_width(width: int) -> bool:
+    """Whether a packed width runs on the streamed trunk (csrc/ws_trunk.cuh
+    stream_width): a multiple of STREAM_STEP from STREAM_MIN_WIDTH up."""
+    return width >= STREAM_MIN_WIDTH and width % STREAM_STEP == 0
+
+
+def widest_stream_width(n_w_at) -> int:
+    """W_max of an architecture: the widest streamed width W whose packed
+    weights n_w_at(W) (an element count, increasing in W) stay within
+    MAX_PACKED_WEIGHTS."""
+    lo, hi = STREAM_MIN_WIDTH // STREAM_STEP, 2 ** 16 // STREAM_STEP
+    while lo < hi:                  # the largest k with n_w_at(k step) fits
+        mid = (lo + hi + 1) // 2
+        if n_w_at(mid * STREAM_STEP) <= MAX_PACKED_WEIGHTS:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * STREAM_STEP
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def kernel_width(width: int) -> int:
+def kernel_width(width: int, d_dir_pad: int = 0) -> int:
     """The width the NeRF and SiNeRF packers lay a module of `width` out
-    at: the smallest of NERF_KERNEL_WIDTHS that holds it, else (above 1024,
-    where the kernels refuse it) the next multiple of 32."""
+    at: the smallest of NERF_KERNEL_WIDTHS that holds it, else the next
+    streamed width (a multiple of STREAM_STEP, at least STREAM_MIN_WIDTH).
+    A NeRF's padded direction encoding `d_dir_pad` wider than
+    KERNEL_MAX_DIR_AT_256 does not fit the shells' shared memory at 256, so
+    such a module of 193-256 units packs at 384 (the SiNeRF has no
+    direction encoding: 0)."""
     for w in NERF_KERNEL_WIDTHS:
-        if width <= w:
+        if width <= w and not (w == 256
+                               and d_dir_pad > KERNEL_MAX_DIR_AT_256):
             return w
-    return _round_up(width, 32)
+    return max(STREAM_MIN_WIDTH, _round_up(width, STREAM_STEP))
 
 
 nerf_kernel_width = kernel_width       # the NeRF packers' name for it
@@ -121,12 +160,12 @@ def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
     n_stages (csrc/ws_trunk.cuh fwd_smem_bytes, plus the largest shell's
     16 extra bytes): two consumers' tiles of 64 x width, or above 256 the
     column-split trunk's one consumer, stages of 64 x width / 2 and three
-    activation tiles of 64 x width / 2, or at STREAM_WIDTHS the streamed
+    activation tiles of 64 x width / 2, or at a streamed width the streamed
     trunk's (ws_trunk.cuh stream_smem_bytes): stages of 64 x 256, the A
     ring's four 64 x 64 tiles and one 64 x 256 output tile, whatever the
     width."""
     blocks = -(-d_enc_pad // 64) + -(-d_dir_pad // 64)
-    if width in STREAM_WIDTHS:
+    if stream_width(width):
         return (1024 + n_stages * 256 * 128 + (4 + 4 + blocks) * 64 * 64 * 2
                 + (2 * n_stages + 4) * 8 + 16)
     if width > KERNEL_WIDTHS[-1]:
@@ -137,19 +176,25 @@ def shell_smem_bytes(width: int, d_enc_pad: int, d_dir_pad: int,
 
 
 def kernel_arch_error(width: int, d_enc_pad: int, d_dir_pad: int = 0,
-                      what: str = "kernels") -> Optional[str]:
+                      what: str = "kernels",
+                      n_w: int = 0) -> Optional[str]:
     """Why the warp-specialized NeRF kernels (`what`) refuse a packed
-    width (nerf_kernel_width's) and padded encoding widths, or None if they
-    take them."""
+    width (nerf_kernel_width's), padded encoding widths and n_w packed
+    weights, or None if they take them."""
     max_dir = KERNEL_MAX_DIR_AT_256 if width == 256 else KERNEL_MAX_ENC
-    if (width in NERF_KERNEL_WIDTHS and d_enc_pad <= KERNEL_MAX_ENC
-            and d_dir_pad <= max_dir):
+    if ((width in NERF_KERNEL_WIDTHS or stream_width(width))
+            and d_enc_pad <= KERNEL_MAX_ENC
+            and d_dir_pad <= max_dir and n_w <= MAX_PACKED_WEIGHTS):
         return None
-    return (f"the {what} take widths up to {NERF_KERNEL_WIDTHS[-1]} (laid "
-            f"out at {NERF_KERNEL_WIDTHS}; above "
-            f"{NERF_KERNEL_WIDTHS[-1]} no instance is built: the "
-            f"streamed trunk's scratch is sized to stay in the 50 MB L2 "
-            f"cache) and encodings up to "
+    if n_w > MAX_PACKED_WEIGHTS:
+        return (f"the {what} take packed weights of up to "
+                f"{MAX_PACKED_WEIGHTS} elements (int32 offsets address "
+                f"them), not {n_w} at width {width}: widths up to the one "
+                f"whose weights fit (W_max; 15,872 at 8 layers, skip 4, "
+                f"n_freqs 10/4)")
+    return (f"the {what} take widths up to W_max (laid out at "
+            f"{NERF_KERNEL_WIDTHS} and above at multiples of "
+            f"{STREAM_STEP} from {STREAM_MIN_WIDTH}) and encodings up to "
             f"{KERNEL_MAX_ENC} wide (at width 256 a direction encoding up "
             f"to {KERNEL_MAX_DIR_AT_256}: shared memory), not width "
             f"{width} with encodings {d_enc_pad} / {d_dir_pad}")
@@ -181,11 +226,11 @@ def trunk_rows(n_layers: int, skip: Tuple[int, ...], width: int,
 
 
 def stream_scratch(width: int, device):
-    """(scratch, ctas) for a kernel launch at a packed width: at
-    STREAM_WIDTHS the streamed trunk's [ctas * STREAM_ROWS, 2 width] bf16
-    scratch, one slot per persistent CTA, ctas the card's SM count; else
-    (None, 0)."""
-    if width not in STREAM_WIDTHS:
+    """(scratch, ctas) for a kernel launch at a packed width: at a streamed
+    width the streamed trunk's [ctas * STREAM_ROWS, 2 width] bf16 scratch,
+    one slot per persistent CTA, ctas the card's SM count; else (None,
+    0)."""
+    if not stream_width(width):
         return None, 0
     ctas = torch.cuda.get_device_properties(device).multi_processor_count
     return torch.empty((ctas * STREAM_ROWS, 2 * width), dtype=torch.bfloat16,
@@ -252,11 +297,12 @@ def pack_weights(sd: Dict[str, torch.Tensor], n_layers: int,
                  width: Optional[int] = None):
     """(wpack bf16, bpack float32 holding bf16-rounded values) of a
     reference-keyed NeRF state dict in the walk order of RayMarchParams at
-    `width` (default nerf_kernel_width of the module's), on the state dict's
-    device: the trunk's, the connection's and the branch's units past the
-    module's are zero columns with zero biases, read by zero rows."""
+    `width` (default nerf_kernel_width of the module's and d_dir_pad), on
+    the state dict's device: the trunk's, the connection's and the
+    branch's units past the module's are zero columns with zero biases,
+    read by zero rows."""
     W = sd["layers.0.weight"].shape[0]
-    K = nerf_kernel_width(W) if width is None else width
+    K = nerf_kernel_width(W, d_dir_pad) if width is None else width
     Kh = K // 2
 
     mats, biases = [], []
@@ -310,7 +356,9 @@ def prep_params(
     device=None,
 ) -> RayMarchParams:
     """Pack a reference-keyed NeRF state dict (core/models.py) for
-    ray_march, at nerf_kernel_width of its width."""
+    ray_march, at nerf_kernel_width of its width and direction encoding,
+    on the state dict's own device (no host round trip), then on
+    `device` when one is given."""
     skip = tuple(skip)
     if skip and max(skip) >= n_layers - 1:
         raise ValueError(
@@ -318,8 +366,7 @@ def prep_params(
             f"(skip {skip} with n_layers {n_layers} would feed the heads)")
     if density_activation not in _DENSITY_ACT:
         raise ValueError(f"Unknown density activation: {density_activation}")
-    sd = {k: v.detach().to("cpu", torch.float32) for k, v in
-          state_dict.items()}
+    sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
     W = sd["layers.0.weight"].shape[0]
     d_enc = encoded_dim(3, n_freqs)
     d_dir = encoded_dim(3, n_freqs_views)
@@ -328,10 +375,11 @@ def prep_params(
         raise ValueError("state dict does not match n_freqs/n_freqs_views")
     de, dd = _round_up(d_enc, 16), _round_up(d_dir, 16)
     wpack, bpack = pack_weights(sd, n_layers, skip, de, dd)
-    enc = enc_table(n_freqs, n_freqs_views, log_space, pos_mask, dir_mask)
+    enc = enc_table(n_freqs, n_freqs_views, log_space, pos_mask,
+                    dir_mask).to(wpack.device)
     return RayMarchParams(wpack, bpack, enc, n_layers, skip,
-                          nerf_kernel_width(W), n_freqs, n_freqs_views, de,
-                          dd, density_activation, W).to(device)
+                          nerf_kernel_width(W, dd), n_freqs, n_freqs_views,
+                          de, dd, density_activation, W).to(device)
 
 
 def unpack(wflat: torch.Tensor, bflat: torch.Tensor, n_layers: int,
@@ -523,7 +571,7 @@ def ray_march_reference(x, dirs, t, deltas, mask, params: RayMarchParams,
 def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
               block_rows: int, chunk_s: int, early_stop_eps: float = 1e-4):
     """The ray march: csrc/render.cu's nerf_march_kernel for CUDA tensors
-    (packed widths NERF_KERNEL_WIDTHS, encodings as kernel_arch_error and
+    (packed widths, encodings and weights as kernel_arch_error and
     blockings as march_chunk_error take them: ValueError otherwise),
     ray_march_reference for CPU tensors. Same arguments and returns as
     ray_march_reference. Counts its kernel launches in
@@ -532,7 +580,7 @@ def ray_march(x, dirs, t, deltas, mask, params: RayMarchParams,
         return ray_march_reference(x, dirs, t, deltas, mask, params,
                                    block_rows, chunk_s, early_stop_eps)
     err = (kernel_arch_error(params.width, params.d_enc_pad,
-                             params.d_dir_pad)
+                             params.d_dir_pad, n_w=params.wpack.numel())
            or march_chunk_error(params.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"ray_march: {err}")
@@ -699,9 +747,10 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
     width in csrc/render.cu fsnerf_siren_ray_march: widths 64, 128, 192 and
     256 run the warp-specialized march (siren_march_kernel, the SIREN
     forward's wgmma trunk in the NeRF march's shell), 384 and 512 the same
-    kernel on the column-split trunk, 768 and 1024 its streamed instance
-    (siren_march_kernel_stream: persistent CTAs over the ray blocks, each
-    layer through their slots of stream_scratch's scratch; blockings as
+    kernel on the column-split trunk, the streamed widths its streamed
+    instance (siren_march_kernel_stream: persistent CTAs over the ray
+    blocks, each layer through their slots of stream_scratch's scratch;
+    blockings as
     march_chunk_error takes them from 384 up), 288 and 320 (no packer's
     width) the mma.sync one (ray_march_kernel<SirenMarch>); another width
     raises ValueError (siren.py::siren_kernel_error)."""
@@ -711,7 +760,7 @@ def siren_ray_march(x, dirs, t, deltas, mask, params, block_rows: int,
     from .siren import siren_kernel_error
 
     lay = params.layout
-    err = (siren_kernel_error(lay.width, "march")
+    err = (siren_kernel_error(lay.width, "march", lay.n_layers)
            or march_chunk_error(lay.width, block_rows, chunk_s))
     if err is not None:
         raise ValueError(f"siren_ray_march: {err}")

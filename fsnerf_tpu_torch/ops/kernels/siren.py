@@ -39,15 +39,15 @@ On the card the warp-specialized kernels take every packed width:
 64, 128, 192 and 256 with two 64-row consumers of whole rows, 384 and 512
 on csrc/ws_trunk.cuh's column-split trunk (one 64-row consumer, each
 product as two output column halves; the backward's row pass on 64-row
-CTAs), 768 and 1024 on its streamed trunk (persistent CTAs of one 64-row
-consumer, each layer in 256-column chunks through device memory and back
-from L2, the heads in 128-column chunks; the backward's row pass on kernel
-6's streamed shape, every operand through L2), so a SiNeRF of any width up
-to 1024 trains and renders on them (SIREN_MAX_WIDTH). Above 1024 no
-instance is built, for the NeRF kernels' L2 reason (render.py
-STREAM_WIDTHS). The mma.sync forward and march still take 288 and 320,
-which no packer lays out (the card checks reach them through
-_prep_siren_params).
+CTAs), 768 and every multiple of 256 above (render.py::stream_width) on its
+streamed trunk (persistent CTAs of one 64-row consumer, each layer in
+256-column chunks through device memory and back, the heads in 128-column
+chunks; the backward's row pass on kernel 6's streamed shape, every
+operand through L2), so a SiNeRF of any width trains and renders on them
+up to W_max, the widest whose packed weights int32 offsets address
+(render.py::MAX_PACKED_WEIGHTS: 15,360 at 8 layers; siren_kernel_error).
+The mma.sync forward and march still take 288 and 320, which no packer
+lays out (the card checks reach them through _prep_siren_params).
 """
 
 from __future__ import annotations
@@ -61,15 +61,13 @@ import torch
 from .fastmath import sincos_fast
 from .mlp_train import SPLIT_ROWS, _launch_error, bwd_rows, dw_plan
 from .mlp_train import bwd_rows_smem_bytes
-from .render import (SMEM_LIMIT, SPLIT_WIDTHS, STREAM_WIDTHS, _bf16, _ptr,
-                     _round_up, kernel_width, padded, stream_scratch)
+from .render import (MAX_PACKED_WEIGHTS, SMEM_LIMIT, SPLIT_WIDTHS,
+                     STREAM_MIN_WIDTH, STREAM_STEP, _bf16, _ptr, _round_up,
+                     kernel_width, padded, stream_scratch, stream_width,
+                     widest_stream_width)
 
 ROWS = 128              # the kernels' row tile (csrc/mlp_common.cuh kRows)
 D_IN_PAD = 16           # raw coordinates / directions, zero-padded columns
-# the widest packed width of the SIREN kernels on the card: the streamed
-# shapes at 768 and 1024 (render.py STREAM_WIDTHS: past 1024 the scratch the
-# persistent CTAs stream their layers through would outgrow the L2 cache)
-SIREN_MAX_WIDTH = STREAM_WIDTHS[-1]
 # the widest width of the mma.sync SIREN kernels (the forward and the march
 # at 288 and 320, the recompute mode's row pass up to 256): past it they
 # hold two [128, W + 8] bf16 activation buffers beside the weight slabs
@@ -101,7 +99,8 @@ def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
     and three half tiles); default 64 at SPLIT_WIDTHS, else 128. The
     128-row backward also holds each consumer's bias partials (n_layers
     deep); the 64-row one writes them straight to device memory. At
-    STREAM_WIDTHS (and rows None) the streamed shapes', whatever the width:
+    a streamed width (and rows None) the streamed shapes', whatever the
+    width:
     the forward's and the march's (csrc/ws_trunk.cuh stream_smem_bytes:
     stages of 64 x 256, the A ring's four 64 x 64 tiles, one 64 x 256
     output tile, the input tile; the forward's factor staging block and
@@ -109,7 +108,7 @@ def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
     backward's kernel 6's streamed row pass's (n_stages cp.async stages;
     mlp_train.py::bwd_rows_smem_bytes)."""
     blk, bar, Wh = 64 * 64 * 2, 8, width // 2
-    if width in STREAM_WIDTHS and rows is None:
+    if stream_width(width) and rows is None:
         if kernel == "backward":
             return (bwd_rows_smem_bytes(width, 0)
                     + (n_stages - 3) * (128 * 128 + 64 * 72 * 2))
@@ -140,9 +139,9 @@ def siren_smem_bytes(width: int, kernel: str, n_stages: int = 2,
 def siren_stages(width: int, kernel: str, n_layers: int = 8) -> int:
     """The ring the warp-specialized SIREN `kernel` runs at a packed width:
     the deepest up to 4 stages that fits in SMEM_LIMIT (siren_smem_bytes),
-    or 0 if 2 do not; at STREAM_WIDTHS the backward's row pass runs kernel
-    6's fixed ring of 3 cp.async stages (0 if it did not fit)."""
-    if width in STREAM_WIDTHS and kernel == "backward":
+    or 0 if 2 do not; at a streamed width the backward's row pass runs
+    kernel 6's fixed ring of 3 cp.async stages (0 if it did not fit)."""
+    if stream_width(width) and kernel == "backward":
         return 3 if siren_smem_bytes(width, kernel, 3) <= SMEM_LIMIT else 0
     for n in (4, 3, 2):
         if siren_smem_bytes(width, kernel, n, n_layers) <= SMEM_LIMIT:
@@ -164,22 +163,33 @@ def launcher_stages(width: int, kernel: str, n_layers: int = 8) -> int:
         width, {"forward": 0, "backward": 2}[kernel], n_layers)
 
 
-def siren_kernel_error(width: int, kernel: str = "backward") -> Optional[str]:
-    """Why the SIREN `kernel` refuses a packed width on the card, or None.
-    "backward" is the train kernels' limit (the backward and its forward).
-    They take every width render.py::kernel_width packs at up to 1024 (and
-    the mma.sync kernels' widths up to SIREN_MMA_MAX_WIDTH)."""
+def siren_max_width(n_layers: int = 8) -> int:
+    """W_max of an n_layers SiNeRF: the widest streamed width whose packed
+    weights (SirenLayout.n_w; wtpack holds fewer) int32 offsets address."""
+    return widest_stream_width(lambda W: SirenLayout(n_layers, W, ()).n_w)
+
+
+def siren_kernel_error(width: int, kernel: str = "backward",
+                       n_layers: int = 8) -> Optional[str]:
+    """Why the SIREN `kernel` refuses a packed width for an n_layers SiNeRF
+    on the card, or None. "backward" is the train kernels' limit (the
+    backward and its forward). They take every width render.py::
+    kernel_width packs at up to siren_max_width(n_layers) (and the
+    mma.sync kernels' widths up to SIREN_MMA_MAX_WIDTH)."""
     mma = SIREN_MMA_MAX_WIDTH[kernel]
-    if width <= mma or width in SPLIT_WIDTHS + STREAM_WIDTHS:
+    top = siren_max_width(n_layers)
+    if width <= mma or width in SPLIT_WIDTHS or (stream_width(width)
+                                                 and width <= top):
         return None
-    if width > SIREN_MAX_WIDTH:
-        return (f"the SIREN {kernel} kernel takes widths up to "
-                f"{SIREN_MAX_WIDTH} (packed at 64, 128, 192, 256, 384, "
-                f"512, 768, 1024), not {width}: above {SIREN_MAX_WIDTH} no "
-                f"instance is built (the streamed trunk's scratch is sized "
-                f"to stay in the 50 MB L2 cache)")
-    return (f"the SIREN {kernel} kernel takes the packed widths up to {mma} "
-            f"and {SPLIT_WIDTHS + STREAM_WIDTHS}, not {width} (its mma.sync "
+    if stream_width(width):
+        return (f"the SIREN {kernel} kernel takes widths up to W_max = "
+                f"{top} at {n_layers} layers, not {width}: its packed "
+                f"weights ({SirenLayout(n_layers, width, ()).n_w} elements) "
+                f"would pass the {MAX_PACKED_WEIGHTS} that int32 offsets "
+                f"address")
+    return (f"the SIREN {kernel} kernel takes the packed widths up to {mma}, "
+            f"{SPLIT_WIDTHS} and the multiples of {STREAM_STEP} from "
+            f"{STREAM_MIN_WIDTH} up to W_max, not {width} (its mma.sync "
             f"shape's shared memory: {mma_smem_bytes(width, kernel)} bytes "
             f"of {SMEM_LIMIT})")
 
@@ -413,11 +423,23 @@ def siren_mlp_fwd_reference(x, d, params: SirenParams,
     Returns (out [N, 4] float32, acts [N, 2 L W] bf16 or None)."""
     _check_inputs("siren_mlp_fwd_reference", x, d)
     u = _unpacked(params)
-    hs, cs = _trunk(x.to(torch.float32), u, params.layout.alphas, save_acts)
-    hd = _heads(hs[-1], d.to(torch.float32), u)
+    if not save_acts:
+        h = _trunk(x.to(torch.float32), u, params.layout.alphas, False)[0][-1]
+        acts = None
+    else:      # _trunk's walk, each layer's h_i and factor stored as bf16
+        L, W = params.layout.n_layers, params.layout.width
+        acts = torch.empty((x.shape[0], 2 * L * W), dtype=torch.bfloat16,
+                           device=x.device)
+        h = x.to(torch.float32)
+        for i, a in enumerate(params.layout.alphas):
+            hs, cs = _trunk(h, {"t": u["t"][i:i + 1], "b": u["b"][i:i + 1]},
+                            (a,), True)
+            h = hs[0]
+            acts[:, i * W:(i + 1) * W] = h
+            acts[:, (L + i) * W:(L + i + 1) * W] = cs[0]
+            del hs, cs
+    hd = _heads(h, d.to(torch.float32), u)
     out = torch.cat([hd["rgb"], torch.relu(hd["sigma_pre"])], dim=-1)
-    acts = (torch.cat(hs + cs, dim=-1).to(torch.bfloat16) if save_acts
-            else None)
     return out, acts
 
 
@@ -519,8 +541,8 @@ def siren_mlp_fwd(x, d, params: SirenParams, save_acts: bool = False):
     On the card every route is a hand-written kernel, chosen by the packed
     width in csrc/siren.cu fsnerf_siren_fwd: widths 64, 128, 192 and 256
     run the warp-specialized wgmma + TMA forward (siren_fwd_ws_kernel), 384
-    and 512 the same kernel on the column-split trunk (64-row CTAs), 768
-    and 1024 its streamed instance (siren_fwd_kernel_stream: persistent
+    and 512 the same kernel on the column-split trunk (64-row CTAs), the
+    streamed widths its streamed instance (siren_fwd_kernel_stream: persistent
     64-row CTAs, each layer through their slots of render.py::
     stream_scratch's scratch, allocated per call), 288 and 320 (no
     packer's width) the mma.sync one (siren_fwd_kernel); another width
@@ -552,7 +574,7 @@ def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
                       save_acts: bool):
     """One launch of csrc/siren.cu's forward on CUDA tensors: (out, acts
     or None)."""
-    _check_cuda_fwd(x, d, wpack, bpack, alphas, lay.width)
+    _check_cuda_fwd(x, d, wpack, bpack, alphas, lay.width, lay.n_layers)
     from .build import load_library
 
     lib = load_library()
@@ -572,12 +594,12 @@ def _siren_fwd_launch(x, d, wpack, bpack, alphas, lay: SirenLayout,
     return out, acts
 
 
-def _check_cuda_fwd(x, d, wpack, bpack, alphas, width: int):
+def _check_cuda_fwd(x, d, wpack, bpack, alphas, width: int, n_layers: int):
     """The forward launch's checks: inputs, one device, a packed width its
     kernels take."""
     _check_inputs("siren_mlp_fwd", x, d)
     _check_device("siren_mlp_fwd", [x, d, wpack, bpack, alphas])
-    err = siren_kernel_error(width, "forward")
+    err = siren_kernel_error(width, "forward", n_layers)
     if err is not None:
         raise ValueError(f"siren_mlp_fwd: {err}")
 
@@ -608,7 +630,7 @@ def _siren_fwd_fake(x, d, wpack, bpack, alphas, n_layers, width):
     """The output's shape, after the launch's checks."""
     _check_inputs("siren_mlp_fwd", x, d)
     if x.device.type == "cuda":
-        _check_cuda_fwd(x, d, wpack, bpack, alphas, width)
+        _check_cuda_fwd(x, d, wpack, bpack, alphas, width, n_layers)
     lay = SirenLayout(n_layers, width, ())
     if wpack.numel() != lay.n_w or bpack.numel() != lay.n_b \
             or alphas.shape != (n_layers,):
@@ -662,7 +684,7 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None,
     bias partials fit in its shared memory) runs the warp-specialized
     wgmma + TMA row pass (siren_bwd_rows_ws_kernel), at 384 and 512 the
     same kernel on 64-row CTAs, each cotangent product split by output
-    columns, at 768 and 1024 the streamed row pass
+    columns, at the streamed widths the streamed row pass
     (siren_bwd_rows_kernel_stream, kernel 6's streamed shape on 64-row
     CTAs); recompute mode, which is not on the main path, holds its factors
     in f32 by design up to 256 and runs the mma.sync row pass
@@ -685,14 +707,14 @@ def siren_mlp_bwd(x, d, dout, params: SirenParams, acts=None,
     if params.wtpack is None:
         raise ValueError("siren_mlp_bwd needs params packed "
                          "with_transposed=True")
-    err = siren_kernel_error(W, "backward")
+    err = siren_kernel_error(W, "backward", L)
     if err is not None:
         raise ValueError(f"siren_mlp_bwd: {err}")
     _check_device("siren_mlp_bwd", [x, d, dout, params.wpack, params.bpack,
                                     params.wtpack, params.alphas])
     recompute = acts is None
     # from 384 up recompute mode runs the forward kernel, then saved mode
-    wide = W in SPLIT_WIDTHS + STREAM_WIDTHS
+    wide = W in SPLIT_WIDTHS or stream_width(W)
     dev = x.device
     lda = L * W if recompute and not wide else 2 * L * W
     cfs = fwd_out = slab = None

@@ -1,7 +1,9 @@
 """Hold a train backward kernel's gradients and its plain version's against
 a float64 arbiter, on the card: kernel 6 (NeRF, ops/kernels/mlp_train.py::
 mlp_train_bwd) or kernel 8 (SiNeRF, ops/kernels/siren.py::siren_mlp_bwd),
-saved mode, at packed widths 256, 512, 768 and 1024, on --rows rows over
+saved mode, at packed widths 256, 512, 768, 1024, 1280 and 2048 (and at
+W_max, the widest whose packed weights int32 offsets address: 15872 for
+the NeRF, 15360 for the SiNeRF, at 8 layers), on --rows rows over
 --seeds seeds of weights (the port's init, 8 layers) and inputs (points in
 the scene box, unit directions, the cotangent of an MSE loss against a
 seeded target).
@@ -10,7 +12,10 @@ The arbiter is the plain version's walk in float64 from the same saved
 activations (the kernel forward's bf16 stream), rounding to bf16 at the
 same points as the kernel: the saved activations (given), feat and br
 (NeRF) or s_s, feat and s_r (SiNeRF), and every cotangent that enters a
-product. Its gradients are not rounded. The kernel and the plain version
+product. Its gradients are not rounded to bf16 (each is summed in float64
+and kept in float32, which moves it by ~6e-8 of itself, so that the
+arbiter of a model of ~2^31 weights fits on the card beside the kernel's
+and the plain version's). The kernel and the plain version
 (float32, on the card) each differ from it by their own f32 sums, which
 flip some bf16 roundings (and ReLU masks) of their intermediates; a kernel
 whose error against the arbiter stays within a small factor of the plain
@@ -18,7 +23,8 @@ version's is as right as the plain version, whatever the two read against
 each other.
 
     python -m fsnerf_tpu_torch.scripts.grad_arbiter --kernel 6 \\
-        [--widths 256,512,768,1024] [--rows 3000] [--seeds 10] \\
+        [--widths 256,512,768,1024,1280,2048,max] [--rows 3000] \\
+        [--seeds 10] \\
         [--out out/grad_arbiter_k6.jsonl]
 
 Prints one JSON line per width and seed: each gradient tensor's error
@@ -28,7 +34,12 @@ against the plain version (the card tests' measure), and the share of the
 row pass's bf16 intermediates (from its xs scratch) and of the ReLU masks
 of br (NeRF) or the sigma gate (SiNeRF) that differ from the arbiter's,
 for the kernel and for the plain version (for the intermediates also the
-share of the differing values whose magnitude is below the arbiter's);
+share of the differing values whose magnitude is below the arbiter's),
+and the forward kernel's (5 or 7) saved stream and outputs against a
+float64 forward (`fwd`: each layer recomputed from the stream's own
+previous layer, the share of its bf16 values that differ, the flips each
+layer adds; the outputs of a float64 walk from the inputs, rgb's max abs
+error and sigma's of its max, for the kernel and for the plain version);
 then one line per width with the worst of each over the seeds and the
 largest ratio of the kernel's worst error to the plain version's. The
 card's name and power limit are in every line. Refuses to run without
@@ -91,25 +102,127 @@ def _inputs(n: int, seed: int, dev):
     return x, d, target
 
 
+def _nerf_heads(h, ed, hd):
+    """(feat, br, rgb, sigma) in float64 from the last trunk activation, as
+    render.py::heads_forward and sigma_head (raw)."""
+    feat = _bf(h @ hd["conn"] + hd["b_conn"])
+    br = _bf(torch.relu(feat @ hd["branch_h"] + ed @ hd["branch_d"]
+                        + hd["b_branch"]))
+    rgb = torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
+    return feat, br, rgb, h @ hd["sigma"] + hd["b_sigma"]
+
+
+def _fwd_report(out, ref, arb, flips) -> dict:
+    """The forward's numbers: {"kernel" | "plain": [rgb max abs error,
+    sigma's max abs error over its max, share of the stream's bf16 values
+    a layer flipped (NeRF: h; SiNeRF: h, factors)]}."""
+    def errs(o):
+        o = o.to(arb.dtype)
+        return [float((o[:, :3] - arb[:, :3]).abs().max()),
+                float((o[:, 3] - arb[:, 3]).abs().max()
+                      / (arb[:, 3].abs().max() + 1e-30))]
+
+    return {"kernel": errs(out) + flips[0], "plain": errs(ref) + flips[1]}
+
+
+def nerf_fwd_arbiter(x, d, params, streams):
+    """Kernel 5's forward in float64 (mlp_train_fwd_reference's walk, its
+    bf16 roundings): (out [N, 4] rgb and raw sigma from the inputs, and
+    for each saved stream [N, L W] of `streams` [the share of its values
+    that differ from the layer recomputed in float64 from the stream's
+    own previous layer])."""
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels.render import unpack
+
+    f64 = torch.float64
+    lay, W = params.layout, params.layout.width
+    ex, ed = (e.to(f64) for e in mt._encodings(x, d, params))
+    trunk, b_trunk, hd = unpack(params.wpack, params.bpack, lay.n_layers,
+                                lay.skip, W, lay.de, lay.dd)
+    hd = {k: v.to(f64) for k, v in hd.items()}
+
+    def layer(i, h):
+        ws = trunk[i]
+        y = (ex if i == 0 else h) @ ws[0].to(f64)
+        if i > 0 and len(ws) == 2:
+            y = y + ex @ ws[1].to(f64)
+        return _bf(torch.relu(y + b_trunk[i].to(f64)))
+
+    h = None
+    for i in range(lay.n_layers):
+        h = layer(i, h)
+    _, _, rgb, sigma = _nerf_heads(h, ed, hd)
+    flips = []
+    for s in streams:
+        n = 0
+        for i in range(lay.n_layers):
+            prev = None if i == 0 else s[:, (i - 1) * W:i * W].to(f64)
+            n += int((s[:, i * W:(i + 1) * W].to(f64) != layer(i, prev))
+                     .sum())
+        flips.append([n / s.numel()])
+    return torch.cat([rgb, sigma], dim=-1), flips
+
+
+def siren_fwd_arbiter(x, d, params, streams):
+    """Kernel 7's forward in float64 (siren_mlp_fwd_reference's walk, its
+    bf16 roundings, the polynomial sin / cos of fastmath.py): (out [N, 4]
+    rgb and relu(sigma) from the inputs, and for each saved stream [N, 2
+    L W] of `streams` [the share of its h values, the share of its factor
+    values that differ from the layer recomputed in float64 from the
+    stream's own previous h])."""
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+    from fsnerf_tpu_torch.ops.kernels.fastmath import sincos_fast
+
+    f64 = torch.float64
+    lay = params.layout
+    L, W = lay.n_layers, lay.width
+    u = ks.unpack(params.wpack, params.bpack, lay)   # bf16 views
+    u = {k: (v if isinstance(v, list) else v.to(f64)) for k, v in u.items()}
+    xf, df = x.to(f64), d.to(f64)
+
+    def layer(i, h):
+        y = (xf if i == 0 else h) @ u["t"][i].to(f64) + u["b"][i].to(f64)
+        a = lay.alphas[i]
+        s, c = sincos_fast(a * y, True, True)
+        return _bf(s), _bf(a * c)
+
+    h = None
+    for i in range(L):
+        h = layer(i, h)[0]
+    hd = _siren_heads(h, df, u)
+    out = torch.cat([hd["rgb"], torch.relu(hd["sigma_pre"])], dim=-1)
+    flips = []
+    for s in streams:
+        nh = nc = 0
+        for i in range(L):
+            prev = None if i == 0 else s[:, (i - 1) * W:i * W].to(f64)
+            h_i, c_i = layer(i, prev)
+            nh += int((s[:, i * W:(i + 1) * W].to(f64) != h_i).sum())
+            nc += int((s[:, (L + i) * W:(L + i + 1) * W].to(f64) != c_i)
+                      .sum())
+        half = s.numel() / 2
+        flips.append([nh / half, nc / half])
+    return out, flips
+
+
 def nerf_arbiter(x, d, dout, params, acts):
     """Kernel 6's gradients in float64 from the saved activations acts [N,
     L W] (mlp_train.py::_bwd_terms' walk, its bf16 roundings): (dw, db)
     packed as wpack / bpack, and the intermediates feat, br."""
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels.render import unpack
 
     f64 = torch.float64
     lay, W = params.layout, params.layout.width
     ex, ed = (e.to(f64) for e in mt._encodings(x, d, params))
-    trunk, b_trunk, hd = mt._unpacked(params)
-    trunk = [[w.to(f64) for w in ws] for ws in trunk]
+    # bf16 views of the packed weights, each taken to float64 where used
+    trunk, b_trunk, hd = unpack(params.wpack, params.bpack, lay.n_layers,
+                                lay.skip, W, lay.de, lay.dd)
     hd = {k: v.to(f64) for k, v in hd.items()}
     hs = [acts[:, i * W:(i + 1) * W].to(f64) for i in range(lay.n_layers)]
     h = hs[-1]
     dout = dout.to(f64)
-    feat = _bf(h @ hd["conn"] + hd["b_conn"])
-    br = _bf(torch.relu(feat @ hd["branch_h"] + ed @ hd["branch_d"]
-                        + hd["b_branch"]))
-    rgb = torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
+    feat, br, rgb, _ = _nerf_heads(h, ed, hd)
     drgb = dout[:, :3] * rgb * (1.0 - rgb)
     drgb_b = _bf(drgb)
     dbr = torch.where(br > 0, drgb_b @ hd["rgb"].t(), 0.0)
@@ -123,21 +236,37 @@ def nerf_arbiter(x, d, dout, params, acts):
     for i in range(lay.n_layers - 1, -1, -1):
         dh = torch.where(hs[i] > 0, dh, 0.0)
         dh_b = _bf(dh)
-        b_grads[i] = dh.sum(0)
+        b_grads[i] = dh.sum(0).float()
         if i == 0:
-            g_trunk[i] = [ex.t() @ dh_b]
+            g_trunk[i] = [(ex.t() @ dh_b).float()]
         else:
-            g_trunk[i] = [hs[i - 1].t() @ dh_b]
+            g_trunk[i] = [(hs[i - 1].t() @ dh_b).float()]
             if len(trunk[i]) == 2:
-                g_trunk[i].append(ex.t() @ dh_b)
-            dh = dh_b @ trunk[i][0].t()
+                g_trunk[i].append((ex.t() @ dh_b).float())
+            dh = dh_b @ trunk[i][0].to(f64).t()
     heads_w = [h.t() @ dsig_b, h.t() @ dfeat_b, feat.t() @ dbr_b,
                ed.t() @ dbr_b, br.t() @ drgb_b]
     heads_b = [dsig.sum(0), dfeat.sum(0), dbr.sum(0), drgb.sum(0)]
     dw = torch.cat([g.reshape(-1) for gs in g_trunk for g in gs]
-                   + [g.reshape(-1) for g in heads_w])
-    db = torch.cat(b_grads + heads_b)
+                   + [g.float().reshape(-1) for g in heads_w])
+    db = torch.cat(b_grads + [b.float() for b in heads_b])
     return dw, db, {"feat": feat, "br": br}
+
+
+def _siren_heads(h, df, u):
+    """siren.py::_heads in float64 (every intermediate the backward
+    reads)."""
+    from fsnerf_tpu_torch.ops.kernels.fastmath import sincos_fast
+
+    ys = h @ u["ws0"] + u["bs0"]
+    s_s = _bf(sincos_fast(ys)[0])
+    sigma_pre = s_s @ u["ws1"] + u["bs1"]
+    feat = _bf(h @ u["wf"] + u["bf"])
+    yr = feat @ u["wr0f"] + df @ u["wr0d"] + u["br0"]
+    s_r = _bf(sincos_fast(yr)[0])
+    rgb = torch.sigmoid(s_r @ u["wr1"] + u["br1"])
+    return dict(ys=ys, s_s=s_s, sigma_pre=sigma_pre, feat=feat, yr=yr,
+                s_r=s_r, rgb=rgb)
 
 
 def siren_arbiter(x, d, dout, params, acts):
@@ -151,22 +280,17 @@ def siren_arbiter(x, d, dout, params, acts):
     f64 = torch.float64
     lay = params.layout
     L, W = lay.n_layers, lay.width
-    u = ks._unpacked(params)
-    u = {k: ([t.to(f64) for t in v] if isinstance(v, list) else v.to(f64))
-         for k, v in u.items()}
+    u = ks.unpack(params.wpack, params.bpack, lay)   # bf16 views
+    u = {k: (v if isinstance(v, list) else v.to(f64)) for k, v in u.items()}
     xf, df = x.to(f64), d.to(f64)
     a = acts.to(f64)
     hs = [a[:, i * W:(i + 1) * W] for i in range(L)]
     cs = [a[:, (L + i) * W:(L + i + 1) * W] for i in range(L)]
     h = hs[-1]
     dout = dout.to(f64)
-    ys = h @ u["ws0"] + u["bs0"]
-    s_s = _bf(sincos_fast(ys)[0])
-    sigma_pre = s_s @ u["ws1"] + u["bs1"]
-    feat = _bf(h @ u["wf"] + u["bf"])
-    yr = feat @ u["wr0f"] + df @ u["wr0d"] + u["br0"]
-    s_r = _bf(sincos_fast(yr)[0])
-    rgb = torch.sigmoid(s_r @ u["wr1"] + u["br1"])
+    hd = _siren_heads(h, df, u)
+    ys, s_s, sigma_pre = hd["ys"], hd["s_s"], hd["sigma_pre"]
+    feat, yr, s_r, rgb = hd["feat"], hd["yr"], hd["s_r"], hd["rgb"]
     drgb = dout[:, :3] * rgb * (1.0 - rgb)
     drgb_b = _bf(drgb)
     dyr = (drgb_b @ u["wr1"].t()) * sincos_fast(yr, False, True)[1]
@@ -185,12 +309,13 @@ def siren_arbiter(x, d, dout, params, acts):
     for i in range(L - 1, -1, -1):
         dy = dh * cs[i]
         dy_b = _bf(dy)
-        b_trunk[i] = dy.sum(0)
-        g_trunk[i] = (xf if i == 0 else hs[i - 1]).t() @ dy_b
+        b_trunk[i] = dy.sum(0).float()
+        g_trunk[i] = ((xf if i == 0 else hs[i - 1]).t() @ dy_b).float()
         if i > 0:
-            dh = dy_b @ u["t"][i].t()
-    dw = torch.cat([g.reshape(-1) for g in g_trunk + heads_w])
-    db = torch.cat(b_trunk + heads_b)
+            dh = dy_b @ u["t"][i].to(f64).t()
+    dw = torch.cat([g.reshape(-1) for g in g_trunk]
+                   + [g.float().reshape(-1) for g in heads_w])
+    db = torch.cat(b_trunk + [b.float() for b in heads_b])
     return dw, db, {"s_s": s_s, "feat": feat, "s_r": s_r,
                     "sigma_pre": sigma_pre}
 
@@ -209,9 +334,13 @@ def nerf_case(W: int, n: int, seed: int, dev) -> dict:
     params = mt.pack_train_params(
         model.state_dict(), lay,
         kr.enc_table(lay.n_freqs, lay.n_freqs_views, device=dev))
+    del model                         # ~2^31 weights at W_max
     x, d, target = _inputs(n, seed, dev)
-    _, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
-    ref, _ = mt.mlp_train_fwd_reference(x, d, params)
+    out, acts = mt.mlp_train_fwd(x, d, params, save_acts=True)
+    ref, racts = mt.mlp_train_fwd_reference(x, d, params, save_acts=True)
+    arb_out, fwd_flips = nerf_fwd_arbiter(x, d, params, (acts[:n], racts))
+    fwd = _fwd_report(out[:n], ref, arb_out, fwd_flips)
+    del racts, arb_out
     dout = (2.0 * (ref - target) / ref.numel()).contiguous()
     ops = {}
     kern = mt.mlp_train_bwd(x, d, dout, params, acts, operands=ops)
@@ -227,7 +356,7 @@ def nerf_case(W: int, n: int, seed: int, dev) -> dict:
                     _flips(terms["br"], arb["br"].float())),
              "br_mask": (_share(k_br > 0, arb["br"] > 0),
                          _share(terms["br"] > 0, arb["br"] > 0))}
-    return _report(lay, kern, plain, (dw, db), flips)
+    return dict(_report(lay, kern, plain, (dw, db), flips), fwd=fwd)
 
 
 def siren_case(W: int, n: int, seed: int, dev) -> dict:
@@ -242,11 +371,16 @@ def siren_case(W: int, n: int, seed: int, dev) -> dict:
                        torch.Generator().manual_seed(seed), dev)
     params = ks.prep_siren_params(model.state_dict(), cfg.model.n_layers,
                                   with_transposed=True, device=dev)
+    del model                         # ~2^31 weights at W_max
     lay = params.layout
     x, d, target = _inputs(n, seed, dev)
     xp, dp = ks.pad_inputs(x), ks.pad_inputs(d)
-    _, acts = ks.siren_mlp_fwd(xp, dp, params, save_acts=True)
-    ref, _ = ks.siren_mlp_fwd_reference(xp, dp, params)
+    out, acts = ks.siren_mlp_fwd(xp, dp, params, save_acts=True)
+    ref, racts = ks.siren_mlp_fwd_reference(xp, dp, params, save_acts=True)
+    arb_out, fwd_flips = siren_fwd_arbiter(xp, dp, params,
+                                           (acts[:n], racts))
+    fwd = _fwd_report(out[:n], ref, arb_out, fwd_flips)
+    del racts, arb_out
     dout = (2.0 * (ref - target) / ref.numel()).contiguous()
     ops = {}
     kern = ks.siren_mlp_bwd(xp, dp, dout, params, acts, operands=ops)
@@ -264,15 +398,35 @@ def siren_case(W: int, n: int, seed: int, dev) -> dict:
              for k, v in cols.items()}
     flips["sigma_gate"] = (
         None, _share(hd["sigma_pre"] > 0, arb["sigma_pre"] > 0))
-    return _report(lay, kern, plain, (dw, db), flips)
+    return dict(_report(lay, kern, plain, (dw, db), flips), fwd=fwd)
+
+
+# seeds at W_max, whose models hold ~2^31 weights each (init on the host)
+MAX_SEEDS = 3
+
+
+def w_max(kernel: int) -> int:
+    """W_max of the default 8-layer model of kernel 6 (NeRF) or 8
+    (SiNeRF)."""
+    from fsnerf_tpu_torch.config import Config
+    from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
+    from fsnerf_tpu_torch.ops.kernels import siren as ks
+
+    if kernel == 8:
+        return ks.siren_max_width(Config().model.n_layers)
+    return kr.widest_stream_width(lambda W: mt.TrainLayout.of_module(
+        8, (4,), W, 10, 4).n_w)
 
 
 def _report(lay, kern, plain, arb, flips) -> dict:
     names = lay.param_names
-    k = lay.grads_from_packed(*kern)
-    p = lay.grads_from_packed(*plain)
-    a = lay.grads_from_packed(*arb)
-    ek, ep, ekp = _errs(names, k, a), _errs(names, p, a), _errs(names, k, p)
+
+    def errs(got, want):     # two sets of module-shaped copies at a time
+        return _errs(names, lay.grads_from_packed(*got),
+                     lay.grads_from_packed(*want))
+
+    ek, ep, ekp = errs(kern, arb), errs(plain, arb), errs(kern, plain)
     wk, wp = max(ek, key=ek.get), max(ep, key=ep.get)
     return {"tensors": {nm: [ek[nm], ep[nm], ekp[nm]] for nm in names},
             "worst_kernel": [wk, ek[wk]], "worst_plain": [wp, ep[wp]],
@@ -283,7 +437,8 @@ def _report(lay, kern, plain, arb, flips) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", type=int, choices=(6, 8), default=6)
-    ap.add_argument("--widths", default="256,512,768,1024")
+    ap.add_argument("--widths", default="256,512,768,1024,1280,2048,max",
+                    help="packed widths; max: W_max of the kernel's model")
     ap.add_argument("--rows", type=int, default=3000)
     ap.add_argument("--seeds", type=int, default=10)
     ap.add_argument("--out", default=None)
@@ -297,9 +452,11 @@ def main(argv=None) -> int:
     who = card()
     case = nerf_case if args.kernel == 6 else siren_case
     out = open(args.out, "w") if args.out else None
-    for W in (int(w) for w in args.widths.split(",")):
+    for w in args.widths.split(","):
+        W = w_max(args.kernel) if w == "max" else int(w)
         rows = []
-        for seed in range(args.seeds):
+        for seed in range(min(args.seeds, MAX_SEEDS) if w == "max"
+                          else args.seeds):
             r = case(W, args.rows, seed, dev)
             r.update(kernel=args.kernel, width=W, seed=seed, rows=args.rows,
                      card=who)
@@ -309,14 +466,24 @@ def main(argv=None) -> int:
             if out:
                 out.write(line + "\n")
         summary = {
-            "kernel": args.kernel, "width": W, "seeds": args.seeds,
+            "kernel": args.kernel, "width": W, "seeds": len(rows),
             "rows": args.rows, "card": who,
             "worst_kernel": max(r["worst_kernel"][1] for r in rows),
             "worst_plain": max(r["worst_plain"][1] for r in rows),
             "worst_kernel_vs_plain": max(r["worst_kernel_vs_plain"]
                                          for r in rows),
             "max_ratio": max(r["ratio"] for r in rows),
-            "mean_ratio": sum(r["ratio"] for r in rows) / len(rows)}
+            "mean_ratio": sum(r["ratio"] for r in rows) / len(rows),
+            # the forward: the worst of each number over the seeds, and
+            # the largest ratio of the kernel's to the plain version's
+            "fwd_kernel": [max(v) for v in zip(
+                *(r["fwd"]["kernel"] for r in rows))],
+            "fwd_plain": [max(v) for v in zip(
+                *(r["fwd"]["plain"] for r in rows))],
+            "fwd_ratio": [max(r["fwd"]["kernel"][j]
+                              / max(r["fwd"]["plain"][j], 1e-30)
+                              for r in rows)
+                          for j in range(len(rows[0]["fwd"]["kernel"]))]}
         line = json.dumps({"summary": summary})
         print(line, flush=True)
         if out:

@@ -1,5 +1,5 @@
 """Time the NeRF MLP kernels of two source trees in turns on one card,
-NeRF 8x256 with seeded weights:
+NeRF 8x256 (or 8 x --width) with seeded weights:
   train: kernel 5 (the train forward, with and without its saved
     activations, and the wrapper's host time per call) and kernel 6 (the
     backward, saved and recompute mode) at the main path's 196,608 rows
@@ -35,14 +35,18 @@ NeRF 8x256 with seeded weights:
 
     python -m fsnerf_tpu_torch.scripts.train_kernel_turns \\
         --trees build/parent,. [--blocks 3] [--rows 196608] \\
-        [--groups train,density,march,mlp,siren,siren_march,eval]
+        [--groups train,density,march,mlp,siren,siren_march,eval] \\
+        [--width 1024]
 
-Each measurement is a process of its own that imports `fsnerf_tpu_torch`
-from one tree (its kernels built there), in the order A, B, B, A per
-block, so two versions are compared on one card in one call. Prints one
-JSON line per run (CUDA-event ms, host ms, the card's name and power
-limit), then the mean of each tree over its runs. Refuses to run without
-CUDA.
+--width sets the module width of every group's NeRF and SiNeRF (8
+layers; packed at render.py::kernel_width of the tree), so a streamed
+width's kernels (768, 1024 and up) are timed against the parent tree's at
+the same rows. Each measurement is a process of its own that imports
+`fsnerf_tpu_torch` from one tree (its kernels built there), in the order
+A, B, B, A per block, so two versions are compared on one card in one
+call. Prints one JSON line per run (CUDA-event ms, host ms, the card's
+name and power limit, the width), then the mean of each tree over its
+runs. Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -99,7 +103,18 @@ def _host_ms(fn, reps: int) -> float:
     return host
 
 
-def measure(groups, rows: int, reps: int) -> dict:
+def _cfg(width: int):
+    """The default Config (NeRF 8 x 256, skip 4, n_freqs 10/4) at another
+    module width."""
+    import dataclasses
+
+    from fsnerf_tpu_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(model=dataclasses.replace(cfg.model, d_filter=width))
+
+
+def measure(groups, rows: int, reps: int, width: int = 256) -> dict:
     """The numbers of one run, from the `fsnerf_tpu_torch` on sys.path."""
     from fsnerf_tpu_torch.ops.kernels import build
 
@@ -110,21 +125,20 @@ def measure(groups, rows: int, reps: int) -> dict:
                     "march": measure_march, "mlp": measure_mlp,
                     "siren": measure_siren,
                     "siren_march": measure_siren_march,
-                    "eval": measure_eval}[group](rows, reps))
+                    "eval": measure_eval}[group](rows, reps, width))
     return res
 
 
-def measure_train(rows: int, reps: int) -> dict:
+def measure_train(rows: int, reps: int, width: int = 256) -> dict:
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     lay = mt.TrainLayout.from_config(cfg)
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(3), dev)
@@ -153,11 +167,10 @@ def measure_train(rows: int, reps: int) -> dict:
     return res
 
 
-def measure_density(rows: int, reps: int) -> dict:
+def measure_density(rows: int, reps: int, width: int = 256) -> dict:
     import numpy as np
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.encoding import freq_mask, positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops import occgrid as og
@@ -165,7 +178,7 @@ def measure_density(rows: int, reps: int) -> dict:
     from fsnerf_tpu_torch.train.step import make_density_fn
 
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     s = cfg.sampling
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(6), dev)
@@ -256,15 +269,14 @@ def _time_march(prefix, march, reference, inputs, params_of, reps):
     return res
 
 
-def measure_march(rows: int, reps: int) -> dict:
+def measure_march(rows: int, reps: int, width: int = 256) -> dict:
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import render as kr
 
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(0), dev)
     sd = model.state_dict()
@@ -278,18 +290,17 @@ def measure_march(rows: int, reps: int) -> dict:
         reps)
 
 
-def measure_siren_march(rows: int, reps: int) -> dict:
+def measure_siren_march(rows: int, reps: int, width: int = 256) -> dict:
     import dataclasses
 
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import render as kr
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, model="sinerf"))
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(0), dev)
@@ -303,16 +314,15 @@ def measure_siren_march(rows: int, reps: int) -> dict:
         reps)
 
 
-def measure_mlp(rows: int, reps: int) -> dict:
+def measure_mlp(rows: int, reps: int, width: int = 256) -> dict:
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.encoding import positional_encoding
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp as km
 
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(5), dev)
     params = km.prep_params(model.state_dict(), cfg.model.n_layers,
@@ -341,7 +351,7 @@ def measure_mlp(rows: int, reps: int) -> dict:
                                     reps)}
 
 
-def measure_eval(rows: int, reps: int) -> dict:
+def measure_eval(rows: int, reps: int, width: int = 256) -> dict:
     """Seconds per 800x800 validation view through each model's eval
     model_fn, and the two forward wrappers' host ms per call."""
     import dataclasses
@@ -349,7 +359,6 @@ def measure_eval(rows: int, reps: int) -> dict:
     import torch
 
     from fsnerf_tpu_torch import cli
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp as km
     from fsnerf_tpu_torch.ops.kernels import siren as ks
@@ -358,7 +367,7 @@ def measure_eval(rows: int, reps: int) -> dict:
     split = cli.build_split("sphere", 1, 800, True, seed=1)
     res = {}
     for name in ("nerf", "sinerf"):
-        cfg = Config()
+        cfg = _cfg(width)
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, model=name))
         model = make_model(cfg, torch.bfloat16,
                            torch.Generator().manual_seed(5), dev)
@@ -375,7 +384,7 @@ def measure_eval(rows: int, reps: int) -> dict:
         torch.cuda.synchronize()
         key = "val_view_s" if name == "nerf" else "siren_val_view_s"
         res[key] = (time.perf_counter() - t0) / 3
-    model = make_model(Config(), torch.bfloat16,
+    model = make_model(_cfg(width), torch.bfloat16,
                        torch.Generator().manual_seed(5), dev)
     params = km.prep_params(model.state_dict(), 8, (4,), dev)
     n = 2048 * 192
@@ -383,7 +392,7 @@ def measure_eval(rows: int, reps: int) -> dict:
     ed = torch.zeros((n, params.d_dir_pad), dtype=torch.bfloat16, device=dev)
     res["mlp_chunk_host_ms"] = _host_ms(lambda: km.nerf_mlp(ex, ed, params),
                                         reps)
-    scfg = Config()
+    scfg = _cfg(width)
     scfg = scfg.replace(model=dataclasses.replace(scfg.model,
                                                   model="sinerf"))
     smodel = make_model(scfg, torch.bfloat16,
@@ -427,18 +436,17 @@ def _split_ms(fn, names, calls: int) -> dict:
             for name, d in durs.items()}
 
 
-def measure_siren(rows: int, reps: int) -> dict:
+def measure_siren(rows: int, reps: int, width: int = 256) -> dict:
     import dataclasses
 
     import torch
 
-    from fsnerf_tpu_torch.config import Config
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = _cfg(width)
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, model="sinerf"))
     model = make_model(cfg, torch.bfloat16,
                        torch.Generator().manual_seed(10), dev)
@@ -451,7 +459,7 @@ def measure_siren(rows: int, reps: int) -> dict:
         torch.randn((rows, 3), generator=g, device=dev), dim=-1))
     out, acts = ks.siren_mlp_fwd(x, d, params, save_acts=True)
     ref, ref_acts = ks.siren_mlp_fwd_reference(x, d, params, True)
-    LW = cfg.model.n_layers * cfg.model.d_filter
+    LW = cfg.model.n_layers * params.layout.width
     diff = (acts[:rows].float() - ref_acts.float()).abs()
     errs = {"siren_fwd_rgb_err": float((out[:, :3] - ref[:, :3]).abs().max()),
             "siren_acts_h_err": float(diff[:, :LW].max()),
@@ -492,6 +500,9 @@ def main(argv=None):
     ap.add_argument("--blocks", type=int, default=3)
     ap.add_argument("--rows", type=int, default=1024 * 192)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--width", type=int, default=256,
+                    help="the module width of every group's NeRF and "
+                         "SiNeRF (packed at render.py::kernel_width)")
     ap.add_argument("--groups", default="train,density,march",
                     help="which kernels to time: any of train, density, "
                          "march, mlp, siren, siren_march, eval")
@@ -506,7 +517,7 @@ def main(argv=None):
     if any(g not in _KEYS for g in groups):
         raise SystemExit(f"--groups takes {', '.join(_KEYS)}")
     if args.worker:
-        print(json.dumps(measure(groups, args.rows, args.reps)))
+        print(json.dumps(measure(groups, args.rows, args.reps, args.width)))
         return
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -522,7 +533,7 @@ def main(argv=None):
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
                  "--rows", str(args.rows), "--reps", str(args.reps),
-                 "--groups", args.groups],
+                 "--width", str(args.width), "--groups", args.groups],
                 env=env, capture_output=True, text=True, cwd=tree)
             if proc.returncode:
                 raise SystemExit(f"worker in {tree} failed:\n{proc.stdout}"
@@ -530,9 +541,11 @@ def main(argv=None):
             res = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[tree].append(res)
             print(json.dumps(dict(tree=tree, block=block, card=card,
-                                  rows=args.rows, **res)), flush=True)
+                                  rows=args.rows, width=args.width, **res)),
+                  flush=True)
     for tree, rs in runs.items():
-        print(json.dumps(dict(tree=tree, card=card, runs=len(rs), **{
+        print(json.dumps(dict(tree=tree, card=card, width=args.width,
+                              runs=len(rs), **{
             f"mean_{k}": sum(r[k] for r in rs) / len(rs)
             for g in groups for k in _KEYS[g]})))
 

@@ -115,13 +115,15 @@ def fused_kernels_wanted(cfg, device) -> bool:
 
 def kernels_refusal(cfg, device) -> Optional[str]:
     """Why the card's kernels refuse cfg's architecture on `device`, or
-    None. The NeRF and SIREN kernels take every width up to 1024 (packed
-    at ops/kernels/render.py::kernel_width: 384 and 512 on the
-    column-split trunk, 768 and 1024 on the streamed trunk), the NeRF ones
-    encodings up to 256 wide, save at width 256 a direction encoding over
-    128 (render.py::kernel_arch_error). A wider NeRF or SiNeRF has no
-    kernel (render.py::kernel_arch_error, siren.py::siren_kernel_error:
-    the streamed trunk's scratch is sized to stay in the L2 cache) and is
+    None. The NeRF and SIREN kernels take every width (packed at
+    ops/kernels/render.py::kernel_width: 384 and 512 on the column-split
+    trunk, 768 and every multiple of 256 above on the streamed trunk) up
+    to W_max, the widest whose packed weights int32 offsets address
+    (render.py::MAX_PACKED_WEIGHTS: 15,872 for a NeRF of 8 layers, skip 4,
+    n_freqs 10/4; 15,360 for an 8-layer SiNeRF); the NeRF ones encodings
+    up to 256 wide (a module of 193-256 units whose direction encoding is
+    wider than 128 packs at 384). A wider NeRF or SiNeRF has no kernel
+    (render.py::kernel_arch_error, siren.py::siren_kernel_error) and is
     refused. On the CPU their plain versions take any architecture."""
     if torch.device(device).type != "cuda":
         return None
@@ -130,7 +132,8 @@ def kernels_refusal(cfg, device) -> Optional[str]:
     if cfg.model.model == "sinerf":
         from ..ops.kernels.siren import siren_kernel_error
 
-        return siren_kernel_error(kernel_width(cfg.model.d_filter))
+        return siren_kernel_error(kernel_width(cfg.model.d_filter),
+                                  n_layers=cfg.model.n_layers)
     from ..ops.kernels.mlp_train import TrainLayout
 
     return TrainLayout.of_module(cfg.model.n_layers, cfg.model.skip,

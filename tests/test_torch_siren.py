@@ -565,18 +565,19 @@ def test_train_step_matches_jax(jax_interpret_siren):
 
 def test_resolve_fused_kernel_and_weight_reg():
     """SiNeRF takes the SIREN train kernels (view directions and, on the
-    card, a width up to 1024, padded to the kernels' widths); the weight
+    card, a width up to W_max, padded to the kernels' widths); the weight
     regularizer selects the same matrices as the JAX one (rtol 1e-5)."""
     assert step.resolve_fused_kernel(CFG, "cpu")
     auto = CFG.replace(model=dataclasses.replace(CFG.model,
                                                  fused_kernel=None))
     assert step.resolve_fused_kernel(auto, "cuda")
     assert not step.resolve_fused_kernel(auto, "cpu")
-    for change in (dict(model=dataclasses.replace(CFG.model, d_filter=1100)),
+    for change in (dict(model=dataclasses.replace(CFG.model,
+                                                  d_filter=30_000)),
                    dict(encoder=dataclasses.replace(CFG.encoder,
                                                     no_dirs=True))):
         assert not step.resolve_fused_kernel(CFG.replace(**change), "cuda")
-    for width in (48, 320, 600, 1024):
+    for width in (48, 320, 600, 1024, 1100, 2048):
         assert step.resolve_fused_kernel(
             CFG.replace(model=dataclasses.replace(CFG.model, d_filter=width)),
             "cuda")

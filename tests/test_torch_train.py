@@ -385,11 +385,11 @@ def test_resolve_fused_kernel_by_device():
     on = cfg.replace(model=dataclasses.replace(cfg.model, fused_kernel=True))
     assert step.resolve_fused_kernel(on, "cpu")
     for change in (dict(density_activation="relu"), dict(skip=(7,)),
-                   dict(d_filter=1040)):
+                   dict(d_filter=30_000)):
         off = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert not step.resolve_fused_kernel(off, "cuda")
-    # any width up to 1024 (padded to the kernels' widths) takes them
-    for width in (48, 320, 520, 1000):
+    # any width up to W_max (padded to the kernels' widths) takes them
+    for width in (48, 320, 520, 1000, 1040, 2048, 4096):
         odd = cfg.replace(model=dataclasses.replace(cfg.model,
                                                     d_filter=width))
         assert step.resolve_fused_kernel(odd, "cuda")
@@ -406,16 +406,17 @@ def _arch(cfg, **change):
                        encoder=dataclasses.replace(cfg.encoder, **enc))
 
 
-@pytest.mark.parametrize("change", [dict(d_filter=1025),
-                                    dict(d_filter=1100),
-                                    dict(n_freqs_views=21)])
+@pytest.mark.parametrize("change", [dict(n_freqs=43),
+                                    dict(n_freqs_views=43),
+                                    dict(n_freqs=43, n_freqs_views=43)])
 def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
     """On the card the NeRF MLP routes (train, density, march) resolve off
-    only for what the kernels refuse by name: a width above 1024, or at
-    width 256 a direction encoding wider than 128 (21 bands: 144 columns).
-    Such a config trains and evaluates through the module, and building
-    its step prints the one line that says so; the compositing kernel
-    reads no weights and stays on; the CPU's plain versions take it."""
+    only for what the kernels refuse by name: an encoding wider than 256
+    (43 bands: 261 columns; a width past W_max likewise,
+    tests/test_torch_widths.py). Such a config trains and evaluates
+    through the module, and building its step prints the one line that
+    says so; the compositing kernel reads no weights and stays on; the
+    CPU's plain versions take it."""
     from fsnerf_tpu_torch.core.models import make_model
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels import render as kr
@@ -432,7 +433,7 @@ def test_routes_refuse_what_the_card_kernels_refuse(change, capsys):
         mt.TrainLayout.from_config(cfg, "cuda")
     lay = mt.TrainLayout.from_config(cfg, "cpu")
     assert lay.model_width == cfg.model.d_filter
-    assert lay.width == kr.nerf_kernel_width(cfg.model.d_filter)
+    assert lay.width == kr.nerf_kernel_width(cfg.model.d_filter, lay.dd)
     model = make_model(cfg, torch.float32, torch.Generator().manual_seed(0))
     assert cli.make_fused_render_fn(model.state_dict(), cfg,
                                     device="cuda") is None
@@ -475,29 +476,37 @@ def test_routes_take_the_card_kernels_widths(width, capsys):
 @pytest.mark.parametrize("change", [
     dict(n_freqs=21), dict(n_freqs=42, n_freqs_views=20),
     dict(d_filter=192, n_freqs=42, n_freqs_views=42),
-    dict(d_filter=40, n_freqs=42, n_freqs_views=42)])
+    dict(d_filter=40, n_freqs=42, n_freqs_views=42),
+    dict(n_freqs_views=21), dict(d_filter=200, n_freqs_views=42)])
 def test_routes_take_encodings_up_to_256_wide(change):
     """Position and direction encodings up to 256 wide (42 bands) resolve
-    to the kernels on the card, at width 256 with a direction encoding up
-    to 128 wide (20 bands)."""
+    to the kernels on the card; at widths 193-256 a direction encoding up
+    to 128 wide (20 bands) packs at 256, a wider one (21 bands: 144
+    columns) at 384, where the shells' shared memory takes it."""
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
+    from fsnerf_tpu_torch.ops.kernels import render as kr
 
     _, base = _both()
     cfg = _arch(base, **change)
     assert step.resolve_fused_kernel(cfg, "cuda")
     lay = mt.TrainLayout.from_config(cfg, "cuda")
     assert max(lay.de, lay.dd) <= 256
+    assert lay.width == (384 if cfg.model.d_filter > 192
+                         and lay.dd > kr.KERNEL_MAX_DIR_AT_256
+                         else kr.kernel_width(cfg.model.d_filter))
 
 
 @pytest.mark.parametrize("width,takes", [
     (32, True), (40, True), (96, True), (100, True), (192, True),
     (200, True), (256, True), (320, True), (512, True), (600, True),
-    (1024, True), (1100, False)])
+    (1024, True), (1100, True), (2048, True), (20_736, False)])
 def test_sinerf_routes_by_width(width, takes, capsys):
-    """A SiNeRF up to 1024 wide resolves to the SIREN kernels on the card
-    (packed at the next kernel width: 384 and 512 on the column-split
-    trunk, 768 and 1024 on the streamed one); above 1024 the kernels refuse
-    it by name, and the module route is printed."""
+    """A SiNeRF up to W_max wide (20,480 at these 4 layers: the widest
+    whose packed weights int32 offsets address) resolves to the SIREN
+    kernels on the card (packed at the next kernel width: 384 and 512 on
+    the column-split trunk, a multiple of 256 from 768 up on the streamed
+    one); wider, the kernels refuse it by name, and the module route is
+    printed."""
     from fsnerf_tpu_torch.ops.kernels import siren as ks
 
     _, base = _both(model=dict(model="sinerf", n_layers=4, d_filter=width))
@@ -508,7 +517,7 @@ def test_sinerf_routes_by_width(width, takes, capsys):
     line = step.report_module_route(base, "cuda")
     assert (line is None) == takes
     if not takes:
-        assert "SIREN backward kernel takes widths up to 1024" in line
+        assert "SIREN backward kernel takes widths up to W_max" in line
         assert line in capsys.readouterr().err
     assert ks.SirenLayout.from_config(base).model_width == width
 
