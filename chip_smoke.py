@@ -270,8 +270,11 @@ Phases (any failure exits non-zero; nothing is caught):
  22. JPEG on the card's machine, which has no libjpeg (the port's
      decoder, fsnerf_tpu_torch/native):
      a. tests/data/jpeg/'s fixtures (progressive, 4:2:0 with restarts,
-        gray, 4:2:2, 4:4:0, RGB; widths and heights no MCU divides) decoded
-        bitwise to the pixels libjpeg-turbo gives (pixels.npz);
+        gray, 4:2:2, 4:4:0, RGB; arithmetic-coded SOF9 and SOF10, DAC
+        conditioning; block-smoothed progressive files; corrupt files read
+        past a stray marker; widths and heights no MCU divides) decoded
+        bitwise to the pixels libjpeg-turbo gives (pixels.npz), with how
+        many were arithmetic-coded, smoothed and resynchronized;
      b. phase 18's lattice scene with its images_8/ written as JPEG by PIL
         (quality 95, 4:2:0; PIL's JPEG codec must be present): the views
         against PIL's decode of them, then the CLI's LLFF flow with
@@ -281,6 +284,10 @@ Phases (any failure exits non-zero; nothing is caught):
         the val PSNR printed beside phase 18's PNG run;
      c. 20 views at 4032x3024 (4:2:0, quality 95) decoded as images/s and
         megapixels/s, beside PIL's decode of the same files;
+     d. tests/data/jpeg/view/'s 504x378 view as Huffman and SOF9 files of
+        the same coefficients, each decoded JPEG_VIEW_REPS times in one
+        call on the host's threads, in turns: every copy the stored
+        pixels (their SHA-256), images/s and megapixels/s of each;
  23. the nearest cuBLAS route of each kernel (the bf16 NeRF or SiNeRF
      module on the same rows: no single PyTorch call computes these
      functions), one JSON line describing each kernel with its bound (the
@@ -2975,6 +2982,7 @@ def serving_artifact(model, grid, cfg, dev, card, blender):
 # -- 22. JPEG: the decoder on the card's machine -------------------------
 
 JPEG_BIG_VIEWS, JPEG_BIG_W, JPEG_BIG_H = 20, 4032, 3024  # a full-size LLFF set
+JPEG_VIEW_REPS = 200      # 22d: copies of the 504x378 view in one call
 
 
 def jpeg_fixtures():
@@ -2993,11 +3001,73 @@ def jpeg_fixtures():
     bad = [n for n, px in want.items()
            if not np.array_equal(decode_images([os.path.join(root, n)])[0],
                                  np.multiply(px, inv255, dtype=np.float32))]
+    kinds = {k: sum(jpeg_kinds(os.path.join(root, n))[k] for n in want)
+             for k in ("arithmetic", "smoothed", "resynced")}
     print(f"22a. JPEG fixtures: {len(want) - len(bad)} of {len(want)} "
-          f"decoded bitwise to libjpeg-turbo's pixels ({sorted(want)})")
+          f"decoded bitwise to libjpeg-turbo's pixels ({sorted(want)}); "
+          f"of them {kinds['arithmetic']} arithmetic-coded, "
+          f"{kinds['smoothed']} block-smoothed, {kinds['resynced']} read "
+          f"past a stray marker")
     if bad or len(want) < 5:
         fail(f"22a: the decoder's pixels differ from libjpeg-turbo's on "
              f"{bad}")
+    if min(kinds.values()) < 2:
+        fail(f"22a: fixtures of each new kind expected, found {kinds}")
+
+
+def jpeg_kinds(path) -> dict:
+    """Whether the port's parse of the JPEG `path` finds it
+    arithmetic-coded, block-smoothed, or holding a marker libjpeg refuses
+    in a scan's data (read only past it: resynchronized at a restart)."""
+    from fsnerf_tpu_torch.native import jpeg
+
+    with open(path, "rb") as fh:
+        j = jpeg.read_jpeg(path, fh.read())
+    scans = [j.desc[jpeg.D_SCANS + jpeg.SCAN_WORDS * s:][:jpeg.SCAN_WORDS]
+             for s in range(j.desc[jpeg.D_NSCANS])]
+    return {"arithmetic": any(sc[jpeg.S_ARITH] for sc in scans),
+            "smoothed": bool(j.desc[jpeg.D_SMOOTH]),
+            "resynced": any(sc[jpeg.S_LOW] for sc in scans)}
+
+
+def jpeg_view_rate(card):
+    """22d: tests/data/jpeg/view/'s 504x378 view, Huffman and SOF9 files of
+    the same coefficients, each decoded JPEG_VIEW_REPS times in one call
+    (decode_images on the host's threads), in turns (Huffman, SOF9, SOF9,
+    Huffman): every copy must be the stored pixels (sha256.json); the
+    rates of each as images/s and megapixels/s over its two calls."""
+    import hashlib
+    import os
+
+    from fsnerf_tpu_torch.native import decode_images
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg", "view")
+    with open(os.path.join(root, "sha256.json")) as fh:
+        want = json.load(fh)
+    names = sorted(want, key=lambda n: "arith" in n)    # Huffman first
+    secs = {n: [] for n in names}
+    for name in names + names[::-1]:
+        paths = [os.path.join(root, name)] * JPEG_VIEW_REPS
+        t0 = time.perf_counter()
+        imgs = decode_images(paths)
+        secs[name].append(time.perf_counter() - t0)
+        first = np.round(imgs[0] * 255).astype(np.uint8)
+        if list(first.shape) != want[name]["shape"] or hashlib.sha256(
+                first.tobytes()).hexdigest() != want[name]["sha256"] or \
+                not (imgs == imgs[:1]).all():
+            fail(f"22d: {name} decoded otherwise than its stored pixels")
+        del imgs
+    h, w = want[names[0]]["shape"][:2]
+    rates = "; ".join(
+        f"{n} ({os.path.getsize(os.path.join(root, n))} bytes) "
+        f"{np.mean(t):.4f} s per call ({', '.join(f'{x:.4f}' for x in t)}), "
+        f"{JPEG_VIEW_REPS / np.mean(t):.1f} images/s, "
+        f"{JPEG_VIEW_REPS * h * w / 1e6 / np.mean(t):.1f} megapixels/s"
+        for n, t in secs.items())
+    print(f"22d. JPEG view {w}x{h}, {JPEG_VIEW_REPS} copies a call on the "
+          f"host of {card} ({os.cpu_count()} cores), each the stored "
+          f"pixels bitwise: {rates}")
 
 
 def pil_differences(paths, imgs) -> dict:
@@ -3127,8 +3197,9 @@ def jpeg_decode_rate(card, root):
 
 def jpeg_phase(card, root, png_psnr):
     """Phase 22: the decoder's JPEG path on the card's machine (which has
-    no libjpeg): the fixtures, the LLFF flow over JPEG views and the
-    decode rate of a full-size LLFF set."""
+    no libjpeg): the fixtures, the LLFF flow over JPEG views, the decode
+    rate of a full-size LLFF set and of one view, Huffman and
+    arithmetic-coded."""
     import PIL
     import PIL.features
 
@@ -3142,6 +3213,7 @@ def jpeg_phase(card, root, png_psnr):
         fail("22: PIL has no JPEG codec here to write the JPEG scenes")
     jpeg_llff_slice(card, root, png_psnr)
     jpeg_decode_rate(card, root)
+    jpeg_view_rate(card)
     print(f"22. JPEG phase: {time.perf_counter() - t0:.1f} s")
 
 

@@ -15,8 +15,9 @@ by loader.cpp, one image per thread.
 JPEG (native/jpeg.py): the markers are parsed in Python, and loader.cpp
 decodes each image on its own thread as libjpeg-turbo 2.1.5 decodes it
 with that decoder's settings (RGB output, the islow IDCT, fancy
-upsampling); the kinds of JPEG it refuses raise NotImplementedError naming
-why.
+upsampling, block smoothing), Huffman or arithmetic-coded; the kinds of
+JPEG it refuses (those libjpeg-turbo refuses too) raise
+NotImplementedError naming why.
 
 It is the only image reader of the port (data/blender.py, data/llff.py)
 and needs no image library: loader.cpp includes no library headers, and

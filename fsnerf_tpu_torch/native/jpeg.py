@@ -3,33 +3,37 @@ the hot loops in loader.cpp.
 
 `read_jpeg` parses a file's markers as libjpeg-turbo 2.1.5's marker reader
 does (jdmarker.c) and lays its frame, scans, quantization tables (latched
-at each component's first scan, jdinput.c) and Huffman tables out as flat
-arrays; `decode_into` hands them to loader.cpp's `fsnerf_jpeg_decode`,
-which decodes one image per thread (entropy decoding, dequantization, the
-islow integer IDCT, fancy upsampling and YCbCr -> RGB, each as
-libjpeg-turbo computes it) and writes float32 pixels (each 8-bit value
-times 1/255 in float32). The pixels are those fsnerf_tpu/native's libjpeg
-decoder gives with its settings: JCS_RGB output, JDCT_ISLOW, fancy
-upsampling, block smoothing on, whole file read before output.
+at each component's first scan, jdinput.c), Huffman tables, arithmetic
+conditioning (DAC, as each scan starts with it) and block smoothing's
+progression latches out as flat arrays; `decode_into` hands them to
+loader.cpp's `fsnerf_jpeg_decode`, which decodes one image per thread
+(entropy decoding, block smoothing, dequantization, the islow integer
+IDCT, fancy upsampling and YCbCr -> RGB, each as libjpeg-turbo computes
+it) and writes float32 pixels (each 8-bit value times 1/255). The pixels
+are those fsnerf_tpu/native's libjpeg decoder gives with its settings:
+JCS_RGB output, JDCT_ISLOW, fancy upsampling, block smoothing on, whole
+file read before output.
 
-Read: 8-bit Huffman JPEGs, baseline / extended sequential (SOF0, SOF1) and
-progressive (SOF2); interleaved and non-interleaved scans; any integral
-sampling factors; restart intervals; 8- and 16-bit quantization tables;
-one component (gray, output as RGB) or three (YCbCr, or RGB when an Adobe
+Read: 8-bit JPEGs, Huffman or arithmetic-coded, baseline / extended
+sequential (SOF0, SOF1, SOF9) and progressive (SOF2, SOF10); interleaved
+and non-interleaved scans; any integral sampling factors; restart
+intervals; 8- and 16-bit quantization tables; DAC conditioning; one
+component (gray, output as RGB) or three (YCbCr, or RGB when an Adobe
 marker says transform 0 or the component IDs are 'R', 'G', 'B' without a
-JFIF marker). A file cut short decodes as libjpeg decodes it: the missing
-data reads as zero bits, then as empty blocks. Corrupt data follows
-libjpeg-turbo's C code (restart resynchronization, garbage codes, the IDCT
-wrapping overflowing values; its SIMD IDCT, which libjpeg-turbo runs where
-the CPU has it, computes those in 16-bit lanes and differs), except that a stray marker inside
-entropy-coded data ends the scan where libjpeg may resynchronize past it,
-so such a file can be refused where libjpeg reads it.
+JFIF marker). A progressive file whose scans leave any of AC coefficients
+1-9 unrefined (a download cut short, or such a scan script) is
+block-smoothed as libjpeg smooths it (jdcoefct.c). A file cut short
+decodes as libjpeg decodes it: the missing data reads as zero bits, then
+as empty blocks; a marker segment cut short reads the stdio source's fake
+EOIs. Corrupt data follows libjpeg-turbo's C code (restart
+resynchronization, which may skip a stray marker libjpeg refuses
+elsewhere, garbage codes, the IDCT wrapping overflowing values; its SIMD
+IDCT, which libjpeg-turbo runs where the CPU has it, computes those in
+16-bit lanes and differs).
 
-Refused, by name: arithmetic coding (SOF9-11), lossless (SOF3),
+Refused, by name, as the JAX decoder refuses them: lossless (SOF3, SOF11),
 hierarchical (SOF5-7, SOF13-15), 12-bit samples, components other than 1
-or 3 (CMYK / YCCK), fractional sampling ratios, and a progressive file
-whose scans leave any of the first nine AC coefficients unrefined (libjpeg
-applies its block smoothing to such a file, which is not reproduced).
+or 3 (CMYK / YCCK), fractional sampling ratios.
 """
 
 from __future__ import annotations
@@ -51,17 +55,32 @@ NATURAL = np.array([
 (D_WIDTH, D_HEIGHT, D_NCOMP, D_COLOR, D_NSCANS, D_HMAX, D_VMAX,
  D_PROGRESSIVE) = range(8)
 D_COMPS = 8             # h, v of component c at D_COMPS + 2 c
-D_SCANS = 16            # scan s at D_SCANS + SCAN_WORDS s
-SCAN_WORDS = 20         # n, comps[4], Ss, Se, Ah, Al, restart, data start,
-#                         DC tables[4], AC tables[4] (indices into huff)
+D_SMOOTH = 16           # 1: block smoothing (jdcoefct.c) applies
+D_LATCH = 17            # component c's coef_bits_latch[10], then its
+LATCH_WORDS = 20        # prev_coef_bits_latch[10], at D_LATCH + 20 c
+D_SCANS = D_LATCH + 4 * LATCH_WORDS   # scan s at D_SCANS + SCAN_WORDS s
+# a scan's words: the number of its components, their indices (4), Ss, Se,
+# Ah, Al, the restart interval, where its data starts, per component the
+# Huffman DC and AC tables (4 + 4: rows of huff, -1 where none), whether
+# it is arithmetic-coded, whether a marker libjpeg refuses lies in its
+# data (S_LOW), and per component its arithmetic conditioning (COND_WORDS
+# each: DC and AC table numbers, then arith_dc_L and arith_dc_U of its DC
+# table and arith_ac_K of its AC table)
+(S_N, S_COMPS, S_SS, S_SE, S_AH, S_AL, S_RESTART, S_START, S_DC, S_AC,
+ S_ARITH, S_LOW, S_COND) = (0, 1, 5, 6, 7, 8, 9, 10, 11, 15, 19, 20, 21)
+COND_WORDS = 5
+SCAN_WORDS = S_COND + 4 * COND_WORDS
 COLOR_GRAY, COLOR_YCC, COLOR_RGB = 0, 1, 2
+NUM_ARITH_TBLS = 16
 MAX_SAMP, MAX_BLOCKS_IN_MCU, MAX_DIMENSION = 4, 10, 65500
 # quantizer positions block smoothing divides by (jdcoefct.c: Q00 .. Q30)
 SMOOTH_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+# the SOF markers read: (progressive, arithmetic-coded)
+SOF_READ = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+            0xC9: (False, True), 0xCA: (True, True)}
 SOF_NAMES = {
     0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
     0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "hierarchical arithmetic-coded (SOF13)",
     0xCE: "hierarchical arithmetic-coded (SOF14)",
@@ -184,10 +203,14 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
     # the stdio source of libjpeg ends a file cut short with a fake EOI
     buf = raw + b"\xff\xd9"
     markers = _Markers(buf)
-    pos, frame, progressive = 2, None, False
+    pos, frame, progressive, arith = 2, None, False, False
     qtabs, slots, tables = {}, {}, []
+    # jdmarker.c::get_soi: the arithmetic conditioning's defaults
+    dc_l, dc_u = [0] * NUM_ARITH_TBLS, [1] * NUM_ARITH_TBLS
+    ac_k = [5] * NUM_ARITH_TBLS
     restart, jfif, adobe, transform = 0, False, False, None
-    latched, scans, coef_bits = {}, [], None
+    latched, scans, coef_bits, prev_bits = {}, [], None, None
+    in_data = False     # between a scan's header and the marker ending it
     while True:
         found = markers.next(pos)
         if found is None:
@@ -197,27 +220,54 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             break
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:          # RSTn, TEM
             continue
+        if marker < 0xC0 and in_data:
+            # A marker libjpeg refuses, inside a scan's entropy-coded data:
+            # the scan's resynchronization at a restart boundary may skip
+            # it, which only the decoder knows. loader.cpp refuses the file
+            # unless it did (jdmarker.c: read_restart_marker,
+            # jpeg_resync_to_restart).
+            scans[-1][S_LOW] = 1
+            continue
+        in_data = False
         if marker == 0xD8:
             raise IOError(f"{path}: duplicate SOI marker")
-        skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xCC, 0xDC)
-        if pos + 2 > len(raw):
-            raise IOError(f"{path}: JPEG header cut short")
+        skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC)
+        # past the end of a file cut short the stdio source reads fake EOIs
+        # (0xFF 0xD9 again and again): a length or a segment cut short
+        # reads them, and the file then ends at the next one
         (length,) = struct.unpack(">H", buf[pos:pos + 2])
-        if pos + length > len(raw) and skipped:
-            break      # libjpeg skips into its fake EOIs: the file ends
-        if length < 2 or pos + length > len(raw):
-            raise IOError(f"{path}: JPEG header cut short")
-        seg, pos = buf[pos + 2:pos + length], pos + length
-        if marker in (0xC0, 0xC1, 0xC2):
+        if pos + length > len(raw):
+            if skipped:
+                break       # skipped into the fake EOIs
+            buf += b"\xff\xd9" * ((pos + length - len(buf)) // 2 + 2)
+            markers = _Markers(buf)
+        if length < 2 and not skipped:
+            raise IOError(f"{path}: bad marker length {length}")
+        seg, pos = buf[pos + 2:pos + length], pos + max(length, 2)
+        if marker in SOF_READ:
             if frame is not None:
                 raise IOError(f"{path}: duplicate SOF marker")
             frame = _frame(path, seg)
-            progressive = marker == 0xC2
+            progressive, arith = SOF_READ[marker]
         elif marker in SOF_NAMES:
             raise NotImplementedError(
-                f"{path}: {SOF_NAMES[marker]} JPEG; only Huffman-coded "
-                f"baseline, extended sequential and progressive JPEGs are "
-                f"read")
+                f"{path}: {SOF_NAMES[marker]} JPEG; only baseline, "
+                f"extended sequential and progressive JPEGs (Huffman or "
+                f"arithmetic-coded) are read")
+        elif marker == 0xCC:                                  # DAC
+            # jdmarker.c::get_dac (the pairs of a segment that runs past
+            # the end read the fake EOI's bytes, whose index is refused)
+            if len(seg) % 2:
+                raise IOError(f"{path}: bad DAC marker length")
+            for index, val in zip(seg[::2], seg[1::2]):
+                if index >= 2 * NUM_ARITH_TBLS:
+                    raise IOError(f"{path}: bad DAC index {index}")
+                if index >= NUM_ARITH_TBLS:
+                    ac_k[index - NUM_ARITH_TBLS] = val
+                else:
+                    dc_l[index], dc_u[index] = val & 15, val >> 4
+                    if dc_l[index] > dc_u[index]:
+                        raise IOError(f"{path}: bad DAC value {val:#x}")
         elif marker == 0xC4:                                  # DHT
             p = 0
             while len(seg) - p > 16:
@@ -268,14 +318,17 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
                         f"{path}: {len(comps)}-component JPEG (CMYK / "
                         f"YCCK or other); libjpeg gives RGB only for 1 or "
                         f"3 components")
-                # jdhuff.c (sequential files only): jstdhuff.c's tables
-                # for slots 0 and 1 that no DHT defined
-                for t in (0, 1) if not progressive else ():
+                # jdhuff.c (sequential Huffman files only): jstdhuff.c's
+                # tables for slots 0 and 1 that no DHT defined
+                for t in (0, 1) if not progressive and not arith else ():
                     slots.setdefault((0, t), (_STD_DC_BITS[t],
                                               _STD_DC_VALS))
                     slots.setdefault((1, t), (_STD_AC_BITS[t],
                                               _STD_AC_VALS[t]))
+                # jdphuff.c / jdarith.c: the progression status, and
+                # before each component's last scan
                 coef_bits = np.full((len(comps), 64), -1, np.int64)
+                prev_bits = np.zeros((len(comps), 64), np.int64)
             elif not progressive and scans[0][0] == len(comps):
                 raise IOError(f"{path}: a second scan after a single "
                               f"interleaved one (EOI expected)")
@@ -293,19 +346,29 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             else:
                 ss, se, ah, al = 0, 63, 0, 0
                 need = (True, True)
+            if arith:                       # no Huffman tables
+                need = (False, False)
             scan = np.zeros(SCAN_WORDS, np.int32)
-            scan[0] = n
-            scan[5:11] = (ss, se, ah, al, restart, pos)
-            scan[11:19] = -1
+            scan[S_N] = n
+            scan[S_SS:S_START + 1] = (ss, se, ah, al, restart, pos)
+            scan[S_DC:S_AC + 4] = -1
+            scan[S_ARITH] = arith
             ids = [c[0] for c in comps]
             for i in range(n):
                 cid, td = seg[1 + 2 * i], seg[2 + 2 * i]
                 ci = next((k for k, c in enumerate(ids)
-                           if c == cid and k not in scan[1:1 + i]), None)
+                           if c == cid and k not in scan[S_COMPS:S_COMPS + i]),
+                          None)
                 if ci is None:
                     raise IOError(f"{path}: bad component ID {cid} in SOS")
-                scan[1 + i] = ci
-                for cls, tid in ((0, td >> 4), (1, td & 15)):
+                scan[S_COMPS + i] = ci
+                # the arithmetic conditioning, as the scan's start takes
+                # it from the DAC markers read so far (jdarith.c)
+                dct, act = td >> 4, td & 15
+                o = S_COND + COND_WORDS * i
+                scan[o:o + COND_WORDS] = (dct, act, dc_l[dct], dc_u[dct],
+                                          ac_k[act])
+                for cls, tid in ((0, dct), (1, act)):
                     if not need[cls]:
                         continue
                     if (cls, tid) not in slots:
@@ -313,7 +376,7 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
                                       f"defined")
                     bits, vals = slots[(cls, tid)]
                     tables.append(_huff_table(path, bits, vals, cls == 0))
-                    scan[11 + 4 * cls + i] = len(tables) - 1
+                    scan[(S_DC, S_AC)[cls] + i] = len(tables) - 1
                 if ci not in latched:                 # latch_quant_tables
                     tq = comps[ci][3]
                     if tq not in qtabs:
@@ -321,12 +384,17 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
                                       f"not defined")
                     latched[ci] = qtabs[tq].copy()
                 if progressive:
+                    lo, hi = min(ss, 1), max(se, 9) + 1
+                    prev_bits[ci, lo:hi] = coef_bits[ci, lo:hi] \
+                        if scans else 0
                     coef_bits[ci, ss:se + 1] = al
-            if n > 1 and sum(comps[ci][1] * comps[ci][2]
-                             for ci in scan[1:1 + n]) > MAX_BLOCKS_IN_MCU:
+            blocks = sum(comps[ci][1] * comps[ci][2]
+                         for ci in scan[S_COMPS:S_COMPS + n])
+            if n > 1 and blocks > MAX_BLOCKS_IN_MCU:
                 raise IOError(f"{path}: sampling factors too large for an "
                               f"interleaved MCU")
             scans.append(scan)
+            in_data = True
             # the entropy-coded data runs to the next marker that is not a
             # restart marker, where the marker loop goes on
         else:
@@ -341,11 +409,6 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
             raise NotImplementedError(
                 f"{path}: fractional sampling ratio ({hmax}x{vmax} over "
                 f"{hs}x{vs}); libjpeg does not upsample it")
-    if progressive and _smoothing(latched, coef_bits, len(comps)):
-        raise NotImplementedError(
-            f"{path}: progressive JPEG whose scans leave some of the first "
-            f"AC coefficients unrefined (a file cut short?); libjpeg "
-            f"decodes it with block smoothing, which is not reproduced")
     if len(comps) == 1:
         color = COLOR_GRAY
     elif jfif:
@@ -360,6 +423,14 @@ def read_jpeg(path: str, raw: bytes) -> Jpeg:
                                 vmax, progressive)
     for i, (_, hs, vs, _) in enumerate(comps):
         desc[D_COMPS + 2 * i:D_COMPS + 2 * i + 2] = (hs, vs)
+    if progressive and _smoothing(latched, coef_bits, len(comps)):
+        # smoothing_ok's latches: the prior ones read -1 after one scan
+        desc[D_SMOOTH] = 1
+        for ci in range(len(comps)):
+            o = D_LATCH + LATCH_WORDS * ci
+            desc[o:o + 10] = coef_bits[ci, :10]
+            desc[o + 10:o + 20] = prev_bits[ci, :10] if len(scans) > 1 \
+                else -1
     desc[D_SCANS:] = np.concatenate(scans)
     qt = np.zeros((len(comps), 64), np.int16)     # 0: a component no scan
     for ci, table in latched.items():             # carried (gray output)

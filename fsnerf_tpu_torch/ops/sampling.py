@@ -148,6 +148,42 @@ def sample_points(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return rays_o[:, None, :] + rays_d[:, None, :] * t_vals[..., None]
 
 
+def compact_samples(
+    t_mid: torch.Tensor,
+    deltas: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    spread: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-ray compaction to `k` samples, preserving the volume integral:
+    masked samples add no optical depth, so dropping them leaves it as it
+    was.
+
+    With `spread`, rays with more than k valid samples keep k of them
+    evenly spaced among the valid ones, their deltas scaled by n_valid/k
+    (a coarser quadrature of the same interval); without it such a ray
+    keeps its first k valid samples. One stable sort keyed on the inverted
+    mask moves the kept samples to the front in t order, t, deltas and the
+    mask riding along.
+
+    Args: t_mid, deltas [R, S]; mask [R, S] bool.
+    Returns (t_k [R, k], deltas_k [R, k], mask_k [R, k]).
+    """
+    if spread:
+        m = mask.to(torch.int32)
+        nv = m.sum(dim=-1, keepdim=True)                      # [R, 1]
+        nv_safe = torch.clamp(nv, min=1)
+        rank = torch.cumsum(m, dim=-1) - 1                    # among valid
+        keep = mask & ((rank * k) // nv_safe > ((rank - 1) * k) // nv_safe)
+        scale = torch.clamp(nv.to(t_mid.dtype) / k, min=1.0)
+        deltas = torch.where(keep, deltas * scale, deltas)
+        mask = keep
+    order = torch.sort((~mask).to(torch.uint8), dim=-1,
+                       stable=True).indices[:, :k]
+    return (torch.gather(t_mid, 1, order), torch.gather(deltas, 1, order),
+            torch.gather(mask, 1, order))
+
+
 def compact_samples_uniform(
     t_mid: torch.Tensor,
     dt: torch.Tensor,

@@ -44,6 +44,16 @@ then one line per width with the worst of each over the seeds and the
 largest ratio of the kernel's worst error to the plain version's. The
 card's name and power limit are in every line. Refuses to run without
 CUDA.
+
+Kernel 6 is judged by the band rule (`br_band`, `band_summary`). A ReLU
+mask flip of br against the arbiter is charged to a version only where the
+arbiter's own pre-activation lies outside the band the version's
+arithmetic can move it by; such a flip is a fault at any seed. Inside the
+band the arbiter recomputes its gradients with that version's mask at
+those entries, and per seed the kernel's worst error against its arbiter
+stays within 3x the plain version's against its own (`ratio_band`). Over
+the seeds each version's in-band flip rate is reported, and the kernel's
+stays within 1.5x the plain version's. The summary's `ok` holds all three.
 """
 
 from __future__ import annotations
@@ -102,14 +112,38 @@ def _inputs(n: int, seed: int, dev):
     return x, d, target
 
 
-def _nerf_heads(h, ed, hd):
-    """(feat, br, rgb, sigma) in float64 from the last trunk activation, as
-    render.py::heads_forward and sigma_head (raw)."""
+def _nerf_heads(h, ed, hd, mask=None):
+    """(feat, br, rgb, sigma, pre) in float64 from the last trunk
+    activation, as render.py::heads_forward and sigma_head (raw); pre is
+    br's pre-activation. `mask` (bool, br's shape) replaces br's ReLU
+    mask pre > 0."""
     feat = _bf(h @ hd["conn"] + hd["b_conn"])
-    br = _bf(torch.relu(feat @ hd["branch_h"] + ed @ hd["branch_d"]
-                        + hd["b_branch"]))
+    pre = feat @ hd["branch_h"] + ed @ hd["branch_d"] + hd["b_branch"]
+    br = _bf(torch.where(pre > 0 if mask is None else mask, pre, 0.0))
     rgb = torch.sigmoid(br @ hd["rgb"] + hd["b_rgb"])
-    return feat, br, rgb, h @ hd["sigma"] + hd["b_sigma"]
+    return feat, br, rgb, h @ hd["sigma"] + hd["b_sigma"], pre
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of t (0 where t is 0): 2^(e - 8) for |t|
+    = m 2^e, m in [0.5, 1)."""
+    _, e = torch.frexp(t)
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t), e - 8))
+
+
+def br_band(feat, w_br, K):
+    """The band within which a version's float32 arithmetic can move br's
+    pre-activation (feat @ w_br + ...) from the arbiter's, in float64:
+
+        band = K 2^-24 (|feat| @ |w_br|) + ulp(feat) @ |w_br|
+
+    the error bound of a float32 sum of K terms (K = W, the packed width)
+    plus one bf16 ulp of every feat term (a version may round feat to the
+    neighbouring bf16 value). A ReLU mask flip of br where the arbiter's
+    |pre| lies within the band is arithmetic the version may do; one
+    outside it is a fault at any seed."""
+    a = w_br.abs()
+    return K * 2.0 ** -24 * (feat.abs() @ a) + _bf16_ulp(feat) @ a
 
 
 def _fwd_report(out, ref, arb, flips) -> dict:
@@ -151,7 +185,7 @@ def nerf_fwd_arbiter(x, d, params, streams):
     h = None
     for i in range(lay.n_layers):
         h = layer(i, h)
-    _, _, rgb, sigma = _nerf_heads(h, ed, hd)
+    _, _, rgb, sigma, _ = _nerf_heads(h, ed, hd)
     flips = []
     for s in streams:
         n = 0
@@ -205,10 +239,12 @@ def siren_fwd_arbiter(x, d, params, streams):
     return out, flips
 
 
-def nerf_arbiter(x, d, dout, params, acts):
+def nerf_arbiter(x, d, dout, params, acts, mask=None):
     """Kernel 6's gradients in float64 from the saved activations acts [N,
     L W] (mlp_train.py::_bwd_terms' walk, its bf16 roundings): (dw, db)
-    packed as wpack / bpack, and the intermediates feat, br."""
+    packed as wpack / bpack, and the intermediates feat, br, br's
+    pre-activation pre and its band (`br_band`). `mask` replaces br's ReLU
+    mask (a version's mask at its in-band flips)."""
     from fsnerf_tpu_torch.ops.kernels import mlp_train as mt
     from fsnerf_tpu_torch.ops.kernels.render import unpack
 
@@ -222,10 +258,11 @@ def nerf_arbiter(x, d, dout, params, acts):
     hs = [acts[:, i * W:(i + 1) * W].to(f64) for i in range(lay.n_layers)]
     h = hs[-1]
     dout = dout.to(f64)
-    feat, br, rgb, _ = _nerf_heads(h, ed, hd)
+    feat, br, rgb, _, pre = _nerf_heads(h, ed, hd, mask)
     drgb = dout[:, :3] * rgb * (1.0 - rgb)
     drgb_b = _bf(drgb)
-    dbr = torch.where(br > 0, drgb_b @ hd["rgb"].t(), 0.0)
+    dbr = torch.where(br > 0 if mask is None else mask,
+                      drgb_b @ hd["rgb"].t(), 0.0)
     dbr_b = _bf(dbr)
     dfeat = dbr_b @ hd["branch_h"].t()
     dfeat_b = _bf(dfeat)
@@ -250,7 +287,8 @@ def nerf_arbiter(x, d, dout, params, acts):
     dw = torch.cat([g.reshape(-1) for gs in g_trunk for g in gs]
                    + [g.float().reshape(-1) for g in heads_w])
     db = torch.cat(b_grads + [b.float() for b in heads_b])
-    return dw, db, {"feat": feat, "br": br}
+    return dw, db, {"feat": feat, "br": br, "pre": pre,
+                    "band": br_band(feat, hd["branch_h"], W)}
 
 
 def _siren_heads(h, df, u):
@@ -356,7 +394,35 @@ def nerf_case(W: int, n: int, seed: int, dev) -> dict:
                     _flips(terms["br"], arb["br"].float())),
              "br_mask": (_share(k_br > 0, arb["br"] > 0),
                          _share(terms["br"] > 0, arb["br"] > 0))}
-    return dict(_report(lay, kern, plain, (dw, db), flips), fwd=fwd)
+    # the band rule: each version's in-band mask flips of br are charged
+    # to the arbiter (recomputed with that version's mask there), its
+    # flips outside the band to the version
+    on = arb["br"] > 0
+    inside = arb["pre"].abs() <= arb["band"]
+    band, masks = {}, []
+    for name, mask in (("kernel", k_br > 0), ("plain", terms["br"] > 0)):
+        flip = mask != on
+        n_in, n_out = int((flip & inside).sum()), int((flip & ~inside).sum())
+        band[name] = [n_in, n_out, flip.numel()]
+        masks.append(on ^ (flip & inside) if n_in else None)
+    flips["br_band"] = band
+    rep = _report(lay, kern, plain, (dw, db), flips)
+    del dw, db, terms, arb
+    # each version against the arbiter recomputed with its in-band flips,
+    # one at a time (at W_max each arbiter holds ~2^31 gradients)
+    own = []
+    for got, mask, worst in ((kern, masks[0], rep["worst_kernel"][1]),
+                             (plain, masks[1], rep["worst_plain"][1])):
+        if mask is None:
+            own.append(worst)
+            continue
+        a = nerf_arbiter(x, d, dout, params, acts[:n], mask=mask)[:2]
+        own.append(max(_errs(lay.param_names, lay.grads_from_packed(*got),
+                             lay.grads_from_packed(*a)).values()))
+        del a
+    rep.update(worst_kernel_band=own[0], worst_plain_band=own[1],
+               ratio_band=own[0] / max(own[1], 1e-30))
+    return dict(rep, fwd=fwd)
 
 
 def siren_case(W: int, n: int, seed: int, dev) -> dict:
@@ -434,6 +500,33 @@ def _report(lay, kern, plain, arb, flips) -> dict:
             "ratio": ek[wk] / max(ep[wp], 1e-30), "flips": flips}
 
 
+# the band rule's limits: per seed the kernel's worst error against its
+# arbiter within ARBITER_FACTOR of the plain version's against its own;
+# over the seeds the kernel's in-band flip rate within FLIP_RATE_FACTOR of
+# the plain version's
+ARBITER_FACTOR = 3.0
+FLIP_RATE_FACTOR = 1.5
+
+
+def band_summary(rows) -> dict:
+    """Kernel 6's verdict over the seeds under the band rule: out-of-band
+    flips (a fault at any seed), the largest per-seed ratio_band, each
+    version's in-band flip rate of br's mask, and `ok`."""
+    tot = {v: [sum(r["flips"]["br_band"][v][j] for r in rows)
+               for j in range(3)] for v in ("kernel", "plain")}
+    rate = {v: tot[v][0] / tot[v][2] for v in tot}
+    max_ratio = max(r["ratio_band"] for r in rows)
+    out_band = tot["kernel"][1] + tot["plain"][1]
+    rate_ok = rate["kernel"] <= FLIP_RATE_FACTOR * rate["plain"] \
+        or rate["kernel"] == 0.0
+    return {"band_out_flips": [tot["kernel"][1], tot["plain"][1]],
+            "band_in_flips": [tot["kernel"][0], tot["plain"][0]],
+            "band_in_rate": [rate["kernel"], rate["plain"]],
+            "max_ratio_band": max_ratio,
+            "ok": out_band == 0 and max_ratio <= ARBITER_FACTOR
+            and rate_ok}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", type=int, choices=(6, 8), default=6)
@@ -484,6 +577,8 @@ def main(argv=None) -> int:
                               / max(r["fwd"]["plain"][j], 1e-30)
                               for r in rows)
                           for j in range(len(rows[0]["fwd"]["kernel"]))]}
+        if "ratio_band" in rows[0]:
+            summary.update(band_summary(rows))
         line = json.dumps({"summary": summary})
         print(line, flush=True)
         if out:

@@ -30,32 +30,41 @@ from fsnerf_tpu.native import decode_images as jax_decode  # noqa: E402
 from fsnerf_tpu_torch.native import decode_images  # noqa: E402
 
 
+def corrupt_jpegs(n, anywhere=False):
+    """n seeded corrupt JPEGs (bytes): small PIL JPEGs (random sizes,
+    qualities, subsampling, progressive or not, restart intervals) with
+    1-3 bytes overwritten at random in the entropy-coded data (anywhere:
+    after the SOI marker)."""
+    rng = np.random.default_rng(0)
+    for _ in range(n):
+        h, w = rng.integers(8, 60, 2)
+        buf = io.BytesIO()
+        prog = bool(rng.integers(0, 2))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            buf, "JPEG", quality=int(rng.integers(30, 96)),
+            subsampling=int(rng.integers(0, 3)), progressive=prog,
+            restart_marker_blocks=int(rng.integers(0, 3)))
+        raw = bytearray(buf.getvalue())
+        sos = raw.find(b"\xff\xda") if prog else raw.rfind(b"\xff\xda")
+        lo = 2 if anywhere else sos + 14
+        for _ in range(int(rng.integers(1, 4))):
+            raw[int(rng.integers(lo, len(raw) - 2))] = int(
+                rng.integers(0, 256))
+        yield bytes(raw)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("n", type=int, nargs="?", default=300)
     ap.add_argument("--anywhere", action="store_true")
     args = ap.parse_args()
-    rng = np.random.default_rng(0)
     counts = dict(equal=0, different=0, both_refuse=0, jax_only=0,
                   port_only=0)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "c.jpg")
-        for _ in range(args.n):
-            h, w = rng.integers(8, 60, 2)
-            buf = io.BytesIO()
-            prog = bool(rng.integers(0, 2))
-            Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
-                buf, "JPEG", quality=int(rng.integers(30, 96)),
-                subsampling=int(rng.integers(0, 3)), progressive=prog,
-                restart_marker_blocks=int(rng.integers(0, 3)))
-            raw = bytearray(buf.getvalue())
-            sos = raw.find(b"\xff\xda") if prog else raw.rfind(b"\xff\xda")
-            lo = 2 if args.anywhere else sos + 14
-            for _ in range(int(rng.integers(1, 4))):
-                raw[int(rng.integers(lo, len(raw) - 2))] = int(
-                    rng.integers(0, 256))
+        for raw in corrupt_jpegs(args.n, args.anywhere):
             with open(path, "wb") as fh:
-                fh.write(bytes(raw))
+                fh.write(raw)
             try:
                 want = jax_decode([path])
             except IOError:

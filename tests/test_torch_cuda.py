@@ -1321,8 +1321,9 @@ def test_decoder_builds_and_reads_port_written_pngs(cuda, tmp_path):
 def test_decoder_reads_the_jpeg_fixtures_bitwise(cuda):
     """The decoder, built on this machine (which has no libjpeg), reads
     tests/data/jpeg/'s JPEGs (progressive, 4:2:0 with restarts, gray,
-    4:2:2, 4:4:0, RGB; widths and heights no MCU divides) to exactly the
-    pixels libjpeg-turbo gives (pixels.npz) times 1/255, in one call."""
+    4:2:2, 4:4:0, RGB; arithmetic-coded, block-smoothed, read past a stray
+    marker; widths and heights no MCU divides) to exactly the pixels
+    libjpeg-turbo gives (pixels.npz) times 1/255, in one call."""
     import os
 
     import numpy as np

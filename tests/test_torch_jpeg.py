@@ -1,17 +1,28 @@
 """fsnerf_tpu_torch's image decoder against fsnerf_tpu's libjpeg / libpng
 decoder (fsnerf_tpu.native.decode_images, which builds here): JPEG files
 written by PIL and by a small baseline writer (tests/torch_jpeg_writer.py)
-for the layouts PIL does not write, files cut short, the JPEGs the port
-refuses by name, Adam7-interlaced PNGs of every color type and bit depth,
-PNG and JPEG files in one call, and an LLFF scene stored as JPEG.
+for the layouts PIL does not write, arithmetic-coded files made from PIL's
+coefficients (tests/jpeg_transcode.c, compiled here with gcc and
+libjpeg), files cut short, progressive files libjpeg block-smooths,
+corrupt files, the JPEGs the port refuses by name, Adam7-interlaced PNGs
+of every color type and bit depth, PNG and JPEG files in one call, and an
+LLFF scene stored as JPEG.
 
 Every comparison is bitwise on the float32 pixels (each 8-bit value times
 1/255): the port mirrors libjpeg-turbo 2.1.5's islow IDCT, fancy
-upsampling and color conversion, and libpng's conversions.
+upsampling and color conversion, and libpng's conversions. Where block
+smoothing or corrupt data overflow the IDCT, libjpeg-turbo's SIMD IDCT
+(which it runs where the CPU has it) differs from its C IDCT, which the
+port mirrors: those files are compared with the JAX decoder run with
+JSIMD_FORCENONE=1, in a process of its own
+(tests/make_jpeg_fixtures.py::c_idct_pixels).
 """
 
+import hashlib
 import io
+import json
 import os
+import subprocess
 import struct
 import zlib
 
@@ -25,9 +36,38 @@ from fsnerf_tpu.data import llff as jllff
 from fsnerf_tpu.native import decode_images as jdecode
 from fsnerf_tpu_torch import native
 from fsnerf_tpu_torch.data import llff
+from fsnerf_tpu_torch.native.jpeg import D_SMOOTH, read_jpeg
+from make_jpeg_fixtures import c_idct_pixels, transcoder
 from torch_jpeg_writer import write_jpeg
 
 SIZES = [(1, 1), (7, 9), (37, 53), (101, 77)]
+def _assert_same_as_c_idct(paths):
+    """Each file: the port reads it to the pixels of the JAX decoder run
+    with libjpeg's C IDCT (tests/make_jpeg_fixtures.py::c_idct_pixels), or
+    raises IOError where that fails. Returns how many both read."""
+    read = 0
+    for path, want in zip(paths, c_idct_pixels(paths)):
+        if want is None:
+            with pytest.raises(IOError):
+                native.decode_images([str(path)])
+            continue
+        np.testing.assert_array_equal(native.decode_images([str(path)])[0],
+                                      want, err_msg=str(path))
+        read += 1
+    return read
+
+
+@pytest.fixture(scope="module")
+def transcode(tmp_path_factory):
+    """tests/jpeg_transcode.c, compiled: transcode(src, dst, *flags) writes
+    dst from src's coefficients and returns its path."""
+    exe = transcoder(str(tmp_path_factory.mktemp("transcoder")))
+
+    def run(src, dst, *flags):
+        subprocess.run([exe, *flags, str(src), str(dst)], check=True)
+        return str(dst)
+
+    return run
 
 
 def _image(h, w, seed, smooth=False):
@@ -199,15 +239,185 @@ def test_jpeg_cut_short_matches_jax_decoder(tmp_path, case):
     _assert_same_as_jax(str(path))
 
 
+def _arith_flags(progressive, restart=0):
+    return (["-a"] + (["-p"] if progressive else [])
+            + (["-r", str(restart)] if restart else []))
+
+
+@pytest.mark.parametrize("restart", [0, 1, 3])
+@pytest.mark.parametrize("sof", ["sof9", "sof10"])
+def test_arithmetic_jpegs_match_jax_decoder(tmp_path, transcode, sof,
+                                            restart):
+    """PIL's files at SIZES x subsampling 0/1/2, their coefficients taken
+    to arithmetic coding: sequential (SOF9, one DAC marker) or progressive
+    with jpeg_simple_progression's ten scans (SOF10, a DAC marker before
+    each), with restart intervals of 0, 1 and 3 MCUs."""
+    code = b"\xff\xc9" if sof == "sof9" else b"\xff\xca"
+    for h, w in SIZES:
+        for sub in (0, 1, 2):
+            src = tmp_path / f"{h}x{w}-{sub}.jpg"
+            Image.fromarray(_image(h, w, seed=h * w + sub)).save(
+                src, quality=90, subsampling=sub)
+            path = transcode(src, tmp_path / f"a-{h}x{w}-{sub}.jpg",
+                             *_arith_flags(sof == "sof10", restart))
+            with open(path, "rb") as fh:
+                assert code in fh.read()
+            _assert_same_as_jax(path)
+
+
+@pytest.mark.parametrize("sof", ["sof9", "sof10"])
+def test_arithmetic_gray_jpeg_matches_jax_decoder(tmp_path, transcode, sof):
+    """One component, arithmetic-coded: one DC and one AC statistics area
+    per scan."""
+    for h, w in ((1, 1), (37, 53)):
+        src = tmp_path / f"g{h}.jpg"
+        Image.fromarray(_image(h, w, seed=3, smooth=True)[..., 0]).save(
+            src, quality=90)
+        _assert_same_as_jax(transcode(src, tmp_path / f"ag{h}.jpg",
+                                      *_arith_flags(sof == "sof10", 2)))
+
+
+@pytest.mark.parametrize("dac", ["0,0,1", "2,6,12", "15,15,63", "1,1,0"])
+def test_arithmetic_conditioning_matches_jax_decoder(tmp_path, transcode,
+                                                     dac):
+    """DAC markers with other conditioning than the default L 0, U 1, K 5:
+    the DC differences' small and large categories (arith_dc_L, _U) and
+    the AC coefficients past which the larger magnitude categories take
+    the other bins (arith_ac_K), sequential and progressive, on smooth
+    content at quality 50 and noise at quality 95."""
+    for i, (smooth, q) in enumerate(((True, 50), (False, 95))):
+        src = tmp_path / f"s{i}.jpg"
+        Image.fromarray(_image(37, 53, seed=i, smooth=smooth)).save(
+            src, quality=q, subsampling=2)
+        for prog in (False, True):
+            _assert_same_as_jax(transcode(
+                src, tmp_path / f"d{i}{prog}.jpg", "-d", dac,
+                *_arith_flags(prog, 3)))
+
+
+def test_arithmetic_bad_conditioning_raises(tmp_path, transcode):
+    """A DAC value whose L is above its U, and a DAC table index past the
+    16 tables: both decoders refuse the file."""
+    src = tmp_path / "s.jpg"
+    Image.fromarray(_image(13, 11, seed=4)).save(src, quality=90)
+    raw = open(transcode(src, tmp_path / "a.jpg", "-a"), "rb").read()
+    dac = raw.index(b"\xff\xcc")
+    for offset, value in ((5, 0x15), (4, 0x20)):
+        bad = bytearray(raw)
+        bad[dac + offset] = value
+        path = str(tmp_path / f"bad{offset}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(bytes(bad))
+        with pytest.raises(IOError):
+            jdecode([path])
+        with pytest.raises(IOError, match="DAC"):
+            native.decode_images([path])
+
+
+@pytest.mark.parametrize("sof", ["sof9", "sof10"])
+def test_arithmetic_jpeg_cut_short_matches_jax_decoder(tmp_path, transcode,
+                                                       sof):
+    """Arithmetic-coded files cut at ten lengths: past the end the decoder
+    reads zero bytes (a marker inside arithmetic-coded data is legal), at
+    each restart its statistics start again, and a progressive one cut
+    before its last scans is block-smoothed. The zero data decodes to
+    large coefficients: compared with libjpeg's C IDCT."""
+    src = tmp_path / "s.jpg"
+    Image.fromarray(_image(37, 53, seed=5, smooth=True)).save(
+        src, quality=90, subsampling=2)
+    raw = open(transcode(src, tmp_path / "a.jpg",
+                         *_arith_flags(sof == "sof10", 2)), "rb").read()
+    paths = []
+    for frac in (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.97):
+        paths.append(tmp_path / f"cut{frac}.jpg")
+        paths[-1].write_bytes(raw[:int(len(raw) * frac)])
+    assert _assert_same_as_c_idct(paths) >= 5
+
+
+@settings(max_examples=10, deadline=None, database=None)
+@given(h=st.integers(1, 40), w=st.integers(1, 40),
+       sub=st.sampled_from([0, 1, 2]), prog=st.booleans(),
+       quality=st.integers(20, 100), restart=st.integers(0, 4),
+       seed=st.integers(0, 2 ** 16))
+def test_random_arithmetic_jpegs_match_jax_decoder(
+        tmp_path_factory, transcode, h, w, sub, prog, quality, restart,
+        seed):
+    """test_random_jpegs_match_jax_decoder's shapes, arithmetic-coded."""
+    tmp = tmp_path_factory.mktemp("hyp")
+    Image.fromarray(_image(h, w, seed, smooth=seed % 2 == 0)).save(
+        tmp / "r.jpg", quality=quality, subsampling=sub)
+    _assert_same_as_jax(transcode(tmp / "r.jpg", tmp / "a.jpg",
+                                  *_arith_flags(prog, restart)))
+
+
+@pytest.mark.parametrize("sub", [0, 1, 2])
+def test_progressive_jpegs_cut_short_match_jax_decoder(tmp_path, sub):
+    """Progressive files cut at ten fractions of their length: libjpeg
+    block-smooths those whose scans leave some of AC coefficients 1-9
+    unrefined (jdcoefct.c decompress_smooth_data: each block's estimates
+    from the DC values of its 5 x 5 neighbours; without any AC data the
+    DC smoothed too), the iMCU rows past where the last scan's data ran
+    out with the progression before that scan. Its estimates can overflow
+    the IDCT: compared with libjpeg's C IDCT."""
+    paths = []
+    for h, w in ((37, 53), (101, 77)):
+        buf = io.BytesIO()
+        Image.fromarray(_image(h, w, seed=h + sub, smooth=True)).save(
+            buf, "JPEG", quality=90, subsampling=sub, progressive=True)
+        raw = buf.getvalue()
+        for frac in (0.15, 0.25, 0.35, 0.45, 0.55, 0.65, 0.75, 0.85, 0.93,
+                     0.98):
+            paths.append(tmp_path / f"{h}-{frac}.jpg")
+            paths[-1].write_bytes(raw[:int(len(raw) * frac)])
+    smoothed = 0
+    for path in paths:
+        try:
+            smoothed += int(read_jpeg(str(path), path.read_bytes())
+                            .desc[D_SMOOTH])
+        except IOError:
+            pass
+    assert smoothed >= 5
+    assert _assert_same_as_c_idct(paths) >= 10
+
+
+SCRIPTS = {"ac1-9-unrefined": "0,1,2:0-0,0,1;0:1-9,0,2;1:1-9,0,1;"
+                              "0:10-63,0,0;1:10-63,0,0;2:1-63,0,0;"
+                              "0,1,2:0-0,1,0",
+           "dc-only": "0,1,2:0-0,0,0"}
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_smoothed_scan_scripts_match_jax_decoder(tmp_path, transcode,
+                                                 script):
+    """Whole progressive files libjpeg block-smooths: a scan script whose
+    scans never refine AC coefficients 1-9 of the luma and of Cb (each
+    estimate clamped below its coefficient's next bit), and one with the
+    DC scan alone (every AC coefficient and the DC estimated), at SIZES x
+    subsampling 0/1/2; compared with libjpeg's C IDCT."""
+    paths = []
+    for h, w in SIZES:
+        for sub in (0, 1, 2):
+            src = tmp_path / f"{h}x{w}-{sub}.jpg"
+            Image.fromarray(_image(h, w, seed=w + sub, smooth=True)).save(
+                src, quality=90, subsampling=sub)
+            paths.append(transcode(src, tmp_path / f"p-{h}x{w}-{sub}.jpg",
+                                   "-s", SCRIPTS[script]))
+            assert read_jpeg(paths[-1], open(paths[-1], "rb").read()) \
+                .desc[D_SMOOTH]
+    assert _assert_same_as_c_idct(paths) == len(paths)
+
+
 def test_corrupt_jpegs_the_jax_decoder_refuses_raise(tmp_path):
     """60 files with 1-3 entropy-coded bytes overwritten at random (seeded):
-    every file the JAX decoder fails on raises IOError in the port. Those
-    both decode are not compared here: libjpeg-turbo's SIMD IDCT treats
-    the overflowing coefficients of corrupt data otherwise than its C
-    IDCT, which the port mirrors (tests/jpeg_fuzz.py compares them with
-    JSIMD_FORCENONE=1: equal on every file both read)."""
+    every file the JAX decoder fails on raises IOError in the port, and
+    every file it reads the port reads to the same pixels, under
+    libjpeg-turbo's C IDCT (JSIMD_FORCENONE=1: its SIMD IDCT treats the
+    overflowing coefficients of corrupt data otherwise), stray markers in
+    the data included: libjpeg's resynchronization at a restart skips
+    those it refuses elsewhere (tests/jpeg_fuzz.py: the same over 600
+    files)."""
     rng = np.random.default_rng(12)
-    refused = 0
+    paths = []
     for n in range(60):
         buf = io.BytesIO()
         prog = bool(n % 2)
@@ -220,16 +430,11 @@ def test_corrupt_jpegs_the_jax_decoder_refuses_raise(tmp_path):
         for _ in range(int(rng.integers(1, 4))):
             raw[int(rng.integers(sos + 14, len(raw) - 2))] = int(
                 rng.integers(0, 256))
-        path = str(tmp_path / f"c{n}.jpg")
-        with open(path, "wb") as fh:
+        paths.append(str(tmp_path / f"c{n}.jpg"))
+        with open(paths[-1], "wb") as fh:
             fh.write(bytes(raw))
-        try:
-            jdecode([path])
-        except IOError:
-            refused += 1
-            with pytest.raises(IOError):
-                native.decode_images([path])
-    assert refused > 0
+    read = _assert_same_as_c_idct(paths)
+    assert 0 < read < len(paths)
 
 
 def _rewritten(raw, marker, offset, value):
@@ -241,16 +446,21 @@ def _rewritten(raw, marker, offset, value):
 @pytest.mark.parametrize("kind,match,jax_reads", [
     ("sof3", "lossless", False), ("sof5", "hierarchical", False),
     ("sof9", "arithmetic", True), ("sof10", "arithmetic", False),
+    ("sof11", "lossless", False), ("sof13", "hierarchical", False),
     ("12-bit", "12-bit", False), ("cmyk", "4-component", False),
     ("progressive-cut", "block smoothing", True)])
 def test_jpeg_refusals_name_their_reason(tmp_path, kind, match, jax_reads):
-    """The JPEGs the port refuses raise NotImplementedError naming why:
-    the SOF marker byte rewritten (SOF3, SOF5, SOF9, SOF10), the precision
-    byte rewritten to 12, a CMYK file, and a progressive file cut short
-    before its last scans (libjpeg decodes it with block smoothing, not
-    reproduced). The JAX decoder fails on each of these but two: its
-    libjpeg-turbo decodes arithmetic-coded data (the rewritten SOF9 file
-    reads as noise), and it smooths the cut progressive file."""
+    """Files the JAX decoder reads the port reads to the same pixels; those
+    it fails on the port refuses too, naming the kind (`match`) where the
+    port does not read it. The SOF marker byte rewritten: SOF3 (lossless),
+    SOF5 (hierarchical), SOF11 (arithmetic lossless) and SOF13
+    (hierarchical arithmetic) are refused by name; SOF9 reads the Huffman
+    data as arithmetic-coded (noise, the same in both); SOF10 fails on the
+    baseline scan's Ss/Se as progressive parameters (IOError in both). The
+    precision byte rewritten to 12 and a CMYK file are refused by name. A
+    progressive file cut short before its last scans is block-smoothed,
+    the same in both. Compared with libjpeg's C IDCT: the noise and the
+    smoothing overflow the IDCT."""
     buf = io.BytesIO()
     img = Image.fromarray(_image(37, 53, seed=9))
     if kind == "cmyk":
@@ -259,7 +469,8 @@ def test_jpeg_refusals_name_their_reason(tmp_path, kind, match, jax_reads):
         img.save(buf, "JPEG", quality=90,
                  progressive=kind == "progressive-cut")
     raw = buf.getvalue()
-    codes = {"sof3": 0xC3, "sof5": 0xC5, "sof9": 0xC9, "sof10": 0xCA}
+    codes = {"sof3": 0xC3, "sof5": 0xC5, "sof9": 0xC9, "sof10": 0xCA,
+             "sof11": 0xCB, "sof13": 0xCD}
     if kind in codes:
         raw = _rewritten(raw, 0xC0, 1, codes[kind])
     elif kind == "12-bit":
@@ -270,12 +481,16 @@ def test_jpeg_refusals_name_their_reason(tmp_path, kind, match, jax_reads):
     with open(path, "wb") as fh:
         fh.write(raw)
     if jax_reads:
-        assert jdecode([path]).shape == (1, 37, 53, 3)
+        assert _assert_same_as_c_idct([path]) == 1
+        return
+    with pytest.raises(IOError):
+        jdecode([path])
+    if kind == "sof10":
+        with pytest.raises(IOError, match="progressive parameters"):
+            native.decode_images([path])
     else:
-        with pytest.raises(IOError):
-            jdecode([path])
-    with pytest.raises(NotImplementedError, match=match):
-        native.decode_images([path])
+        with pytest.raises(NotImplementedError, match=match):
+            native.decode_images([path])
 
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -294,6 +509,23 @@ def test_jpeg_fixtures_hold_the_jax_decoders_pixels(name):
                            dtype=np.float32)
     np.testing.assert_array_equal(jdecode([path])[0], want)
     np.testing.assert_array_equal(native.decode_images([path])[0], want)
+
+
+def test_view_pair_holds_its_digest():
+    """tests/data/jpeg/view/: one 504x378 view as Huffman and SOF9 files of
+    the same coefficients (chip_smoke.py phase 22d times them on the
+    card's host): both decoders give each the uint8 pixels whose SHA-256
+    sha256.json holds, the same for the two."""
+    root = os.path.join(FIXTURES, "view")
+    with open(os.path.join(root, "sha256.json")) as fh:
+        want = json.load(fh)
+    assert len(want) == 2 and len({v["sha256"] for v in want.values()}) == 1
+    for name, ref in want.items():
+        path = os.path.join(root, name)
+        for px in (jdecode([path])[0], native.decode_images([path])[0]):
+            u8 = np.round(px * 255).astype(np.uint8)
+            assert list(u8.shape) == ref["shape"]
+            assert hashlib.sha256(u8.tobytes()).hexdigest() == ref["sha256"]
 
 
 def test_files_dispatch_by_suffix_then_magic(tmp_path):

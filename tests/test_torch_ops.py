@@ -48,6 +48,30 @@ def test_uniform_samples_and_compaction_exact(stratified):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("spread", [False, True])
+def test_compact_samples_bitwise(spread):
+    """compact_samples against the JAX function: seeded masks whose rays
+    hold 0, fewer than k, exactly k and more than k valid samples, with
+    non-uniform t and deltas."""
+    rng = np.random.default_rng(7)
+    S, k = 32, 8
+    counts = [0, 1, 3, 7, 8, 8, 9, 12, 20, 31, 32, 0]
+    mask = np.zeros((len(counts), S), bool)
+    for r, n in enumerate(counts):
+        mask[r, rng.choice(S, n, replace=False)] = True
+    t_mid = np.sort(rng.uniform(2.0, 6.0, (len(counts), S)), -1).astype(
+        np.float32)
+    deltas = rng.uniform(0.01, 0.2, (len(counts), S)).astype(np.float32)
+    ref = jsamp.compact_samples(jnp.asarray(t_mid), jnp.asarray(deltas),
+                                jnp.asarray(mask), k, spread=spread)
+    got = sampling.compact_samples(t(t_mid), t(deltas), torch.as_tensor(mask),
+                                   k, spread=spread)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.as_tensor(
+            np.asarray(b)).dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def _grids(levels, dilation, res=16):
     jg = jog.create(jnp.asarray(AABB), resolution=res, levels=levels,
                     query_dilation=dilation)
