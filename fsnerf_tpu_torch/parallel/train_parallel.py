@@ -48,7 +48,7 @@ class ParallelTrainStep(TrainStep):
     def __init__(self, model, cfg, optimizer, pool, scene, mesh: Mesh):
         super().__init__(model, cfg, optimizer, pool, scene)
         self.mesh = mesh
-        self.local_bs = max(1, cfg.train.batch_size // mesh.world)
+        self.local_bs = self.rays = max(1, cfg.train.batch_size // mesh.world)
 
     @property
     def graphed(self) -> bool:

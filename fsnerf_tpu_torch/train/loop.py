@@ -9,7 +9,11 @@ on the card each step is one replay of the CUDA graph of its kind, since
 per-step host dispatch (the autograd, optimizer and kernel-launch work of
 an eager step) would otherwise dominate the wall clock. Metrics cross to
 the host only at chunk ends, where the ladder observes, and at log steps
-and validations.
+and validations. The program's work at each chunk end of train() is a
+`train.boundary` span (utils/profiling.py): where it reads the metrics it
+also reads the state's valid-row accumulator into the `rows_valid`
+counter, and at a log step it snapshots the counters before the logger
+sees them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import time
 from typing import Callable, Optional
 
 from ..core.schedules import make_schedule
+from ..utils import profiling
 from .state import TrainState
 from .step import (init_state, make_optimizer, make_train_chunk,
                    make_train_step)
@@ -258,23 +263,38 @@ def train(model, cfg, pool, scene, state: Optional[TrainState] = None,
         n = min(chunk - state.step % chunk, n_iters - state.step)
         state, metrics = make_train_chunk(step_fn, n, graphs)(state)
         k = state.step
-        # the ladder observes each chunk's last step, as the JAX loop
-        # observes each lax.scan chunk's; a new K is a new step function
-        # whose graphs are captured as its kinds come (the JAX recompile).
-        # A capture is synchronous, so TrainConfig.async_ladder stays unread
-        if compactor.enabled and compactor.observe(
-                float(metrics["n_valid_mean"])):
-            _log_graphs(step_fn, k)
-            step_fn.release()
-            step_fn = build(compactor.apply(cfg))
-        if k % log_every == 0 or k == n_iters:
-            m = {name: float(v) for name, v in metrics.items()}
-            dt = time.perf_counter() - t0
-            m["rays_per_sec"] = (k - start) * cfg.train.batch_size / dt
-            m["lr"] = schedule(k - 1)
-            if cfg.train.ao is not None:
-                m["alpha"] = cfg.train.ao
-            m["n_compact"] = compactor.k
+        log = k % log_every == 0 or k == n_iters
+        # the caller's hooks (logger, val_fn, checkpointer) run after the
+        # span: a hook may stop the profiler and start another, and torch
+        # cannot end an annotation under a session it did not begin under
+        with profiling.span("train.boundary", step=k,
+                            ladder=compactor.enabled, swap=False,
+                            log=log) as boundary:
+            # the ladder observes each chunk's last step, as the JAX loop
+            # observes each lax.scan chunk's; a new K is a new step
+            # function whose graphs are captured as its kinds come (the
+            # JAX recompile). A capture is synchronous, so
+            # TrainConfig.async_ladder stays unread
+            if compactor.enabled:
+                swap = compactor.observe(float(metrics["n_valid_mean"]))
+                profiling.count("rows_valid", state.read_rows())
+                boundary.set(swap=swap)
+                if swap:
+                    _log_graphs(step_fn, k)
+                    step_fn.release()
+                    step_fn = build(compactor.apply(cfg))
+            if log:
+                m = {name: float(v) for name, v in metrics.items()}
+                if not compactor.enabled:
+                    profiling.count("rows_valid", state.read_rows())
+                dt = time.perf_counter() - t0
+                m["rays_per_sec"] = (k - start) * cfg.train.batch_size / dt
+                m["lr"] = schedule(k - 1)
+                if cfg.train.ao is not None:
+                    m["alpha"] = cfg.train.ao
+                m["n_compact"] = compactor.k
+                profiling.snapshot(k, compactor.k)
+        if log:
             if logger:
                 logger.log(k, m)
             if guard.observe(k, m):
@@ -335,8 +355,11 @@ def train_scanned(model, cfg, pool, scene,
         state, metrics = run(state)
         if on_chunk:
             on_chunk(c, state, metrics)
-        if compactor.enabled and compactor.observe(
-                float(metrics["n_valid_mean"])):
+        if not compactor.enabled:
+            continue
+        swap = compactor.observe(float(metrics["n_valid_mean"]))
+        profiling.count("rows_valid", state.read_rows())
+        if swap:
             _log_graphs(step_fn, state.step)
             step_fn.release()
             step_fn = build(compactor.apply(cfg))

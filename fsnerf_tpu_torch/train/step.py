@@ -46,6 +46,7 @@ from ..core.schedules import make_schedule
 from ..ops import occgrid as og
 from ..ops.kernels import add_launches, launch_counts
 from ..render.renderer import render_rays_hierarchical, render_rays_occgrid
+from ..utils import profiling
 from .state import TrainState
 
 
@@ -425,6 +426,7 @@ class StepGraph:
                           for k, n in launch_counts().items()})
             raise
         self.capture_s = time.perf_counter() - t0
+        profiling.count_capture(self.capture_s)
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
@@ -445,7 +447,13 @@ class TrainStep:
     On the card `replay(state)` runs the step from the CUDA graph of its
     kind (make_train_chunk's path); `graphs` holds them, `release` frees
     them (a new ladder rung is a new TrainStep, as the JAX loop compiles a
-    new program)."""
+    new program).
+
+    Each step is a `train.step` span (utils/profiling.py) and adds the MLP
+    rows it computes, `k` x `rays`, to the `rows_computed` counter on the
+    host; its device work adds samples_per_ray x `rays` to the state's
+    valid-row accumulator. `k` is the rung's K (every lattice sample
+    without compaction; the hierarchical coarse and fine samples)."""
 
     def __init__(self, model, cfg, optimizer: torch.optim.Optimizer, pool,
                  scene):
@@ -458,6 +466,14 @@ class TrainStep:
         self._warm = set()              # kinds run once eagerly
         self._stream = None             # the capture stream
         self.mesh = None                # the data-parallel group, if any
+        s = cfg.sampling
+        if s.strategy != "occgrid":
+            self.k = s.n_samples + s.n_fine
+        elif s.n_compact and s.n_compact < s.n_samples:
+            self.k = s.n_compact
+        else:
+            self.k = s.n_samples
+        self.rays = cfg.train.batch_size    # this process's rays a step
 
     @property
     def graphed(self) -> bool:
@@ -505,6 +521,7 @@ class TrainStep:
         refresh_grid(self.model, cfg, state, kind, draws, self.device,
                      self.mesh)
         state.step_t += 1
+        state.rows_t.add_(spr, alpha=self.rays)
         return {
             "loss": loss,
             "psnr": psnr_from_mse(main_mse),
@@ -513,10 +530,18 @@ class TrainStep:
             "n_valid_mean": nv,
         }
 
+    def _span(self, state: TrainState, kind: StepKind, mode: str):
+        return profiling.span("train.step", step=state.step, k=self.k,
+                              refresh=kind.refresh, hold=kind.hold,
+                              weight_reg=kind.weight_reg, mode=mode)
+
     def __call__(self, state: TrainState, pool=None,
                  draws=None) -> Tuple[TrainState, dict]:
-        metrics = self.run(state, self.kind(state.step), pool, draws)
+        kind = self.kind(state.step)
+        with self._span(state, kind, "eager"):
+            metrics = self.run(state, kind, pool, draws)
         state.step += 1
+        profiling.count("rows_computed", self.k * self.rays)
         return state, metrics
 
     def replay(self, state: TrainState) -> Dict[str, torch.Tensor]:
@@ -528,22 +553,27 @@ class TrainStep:
         then replayed; a capture that fails raises."""
         kind = self.kind(state.step)
         graph = self.graphs.get(kind)
-        if graph is None:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            if kind not in self._warm:
+        if graph is not None:
+            with self._span(state, kind, "replay"):
+                metrics = graph.replay()
+        elif kind not in self._warm:
+            with self._span(state, kind, "warmup"):
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(self.device)
                 self._warm.add(kind)
+                profiling.count("warmup_steps")
                 current = torch.cuda.current_stream(self.device)
                 self._stream.wait_stream(current)
                 with torch.cuda.stream(self._stream):
                     metrics = self.run(state, kind)
                 current.wait_stream(self._stream)
-                state.step += 1
-                return metrics
-            graph = self.graphs[kind] = StepGraph(self, state, kind,
-                                                  self._stream)
-        metrics = graph.replay()
+        else:
+            with self._span(state, kind, "capture"):
+                graph = self.graphs[kind] = StepGraph(self, state, kind,
+                                                      self._stream)
+                metrics = graph.replay()
         state.step += 1
+        profiling.count("rows_computed", self.k * self.rays)
         return metrics
 
     def release(self) -> None:

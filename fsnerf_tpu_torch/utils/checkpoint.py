@@ -4,7 +4,8 @@ fsnerf_tpu/utils/checkpoint.py, torch.save in place of orbax).
 A checkpoint holds the whole TrainState: the module's parameters, the Adam
 state, the occupancy grid's EMA values, binaries and threshold, the step,
 the generator's state and the compaction ladder's, so a run continued from
-it steps exactly as the unbroken run would have. The grid's query tables
+it steps exactly as the unbroken run would have. The valid-row accumulator
+(TrainState.rows_t), a measurement, starts again at 0. The grid's query tables
 are not stored: `restore` rebuilds them from the EMA values with the plan
 of the template grid (og.create's, from resolve_query_plan), so a
 checkpoint cannot carry a stale or differently packed table.
@@ -100,4 +101,6 @@ class Checkpointer:
         template.generator.set_state(blob["generator"])
         template.set_step(blob["step"])
         template.ladder = blob["ladder"]
+        template.rows_t.zero_()             # not checkpointed
+        template.rows_read = 0.0
         return template

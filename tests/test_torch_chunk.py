@@ -4,7 +4,7 @@ in-place grid refresh, the host's plan of step kinds against the JAX step's
 refresh and weight-regularizer rules, make_train_chunk against the JAX
 chunk (lax.scan) with the JAX draws handed in, train() in chunks and
 train_scanned against the one-step-per-iteration loop, and the profiling
-helpers.
+trace's files.
 
 Every JAX step here runs its XLA module path (fused_kernel off), so no test
 needs an interpret-mode kernel. On the CPU a chunk is a loop of eager
@@ -396,19 +396,18 @@ def test_launch_counts_and_their_replay_delta():
 
 
 def test_profiling_helpers(tmp_path):
-    """trace() writes a Chrome trace of the block; Throughput counts the
-    steps after its warmup; log_compile_time times a first and a second
-    call."""
+    """trace() writes a Chrome trace of the block and, beside it,
+    spans.jsonl: the block's spans, then the counters."""
+    import json
+
     with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(64).sum()
+        with profiling.span("helpers.block", n=64):
+            torch.ones(64).sum()
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
-    tp = profiling.Throughput(batch_size=8, warmup_steps=2)
-    assert tp.summary() == {"steps_per_sec": 0.0, "rays_per_sec": 0.0}
-    for _ in range(5):
-        tp.tick()
-    s = tp.summary()
-    assert tp.counted_steps == 3 and s["rays_per_sec"] == pytest.approx(
-        8 * s["steps_per_sec"])
-    calls = []
-    out = profiling.log_compile_time(lambda x: calls.append(x), 1)
-    assert calls == [1, 1] and set(out) == {"compile_s", "steady_s"}
+    lines = [json.loads(x) for x in
+             (tmp_path / "tr" / "spans.jsonl").read_text().splitlines()]
+    spans = [x for x in lines if x["type"] == "span"]
+    assert [(x["name"], x["attrs"]) for x in spans] == [
+        ("helpers.block", {"n": 64})]
+    assert spans[0]["t1_ns"] >= spans[0]["t0_ns"]
+    assert lines[-1]["type"] == "counters" and "rows_valid" in lines[-1]

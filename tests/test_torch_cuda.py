@@ -65,14 +65,14 @@ runs bitwise equal.
 
 Graphed training (train/step.py::make_train_chunk): train() from CUDA-graph
 replays against the same run by eager steps, bitwise (weights, Adam's
-moments, every grid tensor, the generator, the logged metrics and the
-kernels' launch counts), for the NeRF occgrid path, SiNeRF, the
+moments, every grid tensor, the generator, the valid-row accumulator, the
+logged metrics and the kernels' launch counts), for the NeRF occgrid path, SiNeRF, the
 hierarchical path, width 320 (the column-split kernels at 384), width 600
 (the streamed kernels at 768), an encoding the kernels refuse, the few-shot
 recipe with
 its validations and a resume from a checkpoint, and train_scanned; a
-ladder change that captures a new rung's graphs, and a capture that fails
-raising.
+ladder change that captures a new rung's graphs, the tracer counting each
+capture once, and a capture that fails raising.
 
 The data slice: the image decoder built with g++ on the card's machine
 reading the PNG writer's files exactly and tests/data/jpeg/'s JPEGs to the
@@ -1485,9 +1485,10 @@ def _train_run(cfg, cuda, graphs, scene=None, state=None, model=None,
     return state, log.records, {k: after[k] - before[k] for k in after}
 
 
-def _assert_bitwise(a, b):
+def _assert_bitwise(a, b, rows=True):
     """Weights, Adam's moments and counts, every grid tensor, the
-    generator and both step counters equal."""
+    generator, both step counters and (with `rows`) the valid-row
+    accumulator equal."""
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
         assert torch.equal(pa, pb)
         sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
@@ -1497,6 +1498,7 @@ def _assert_bitwise(a, b):
         assert torch.equal(getattr(a.grid, k), getattr(b.grid, k)), k
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
     assert a.step == b.step == int(a.step_t) == int(b.step_t)
+    assert not rows or torch.equal(a.rows_t, b.rows_t)
 
 
 def _graph_log(caplog):
@@ -1563,6 +1565,43 @@ def test_graphed_ladder_change_recaptures(cuda, caplog):
     _assert_bitwise(g, e)
 
 
+def test_graphed_run_counts_each_capture_once(cuda, caplog):
+    """With the valid-row accumulator in the step, a graphed run over a
+    ladder change (recorded by the tracer) is bitwise its eager run; the
+    tracer counts each capture once: one `capture` step span and one
+    capture_s entry, in order, for each graph the loop logged, and one
+    warm-up for each `warmup` span; both runs count the same rows."""
+    import collections
+    import logging
+
+    from fsnerf_tpu_torch.utils import profiling
+
+    cfg = _graph_cfg(samples=dict(n_compact=128))
+    caplog.set_level(logging.INFO, logger="fsnerf_tpu_torch.train.loop")
+    profiling.reset()
+    with profiling.recording():
+        g, _, _ = _train_run(cfg, cuda, graphs=None)
+    rec = profiling.record()
+    logged = [s for r in _graph_log(caplog) for s in r["capture_s"].values()]
+    modes = collections.Counter(s["attrs"]["mode"] for s in rec["spans"]
+                                if s["name"] == "train.step")
+    c = rec["counters"]
+    assert len(_graph_log(caplog)) >= 2
+    assert c["captures"] == len(logged) == modes["capture"]
+    assert c["capture_s"] == logged
+    assert c["warmup_steps"] == modes["warmup"] >= 2
+    assert sum(modes.values()) == cfg.train.n_iters
+    assert float(g.rows_t) == g.rows_read == c["rows_valid"]
+    profiling.reset()
+    e, _, _ = _train_run(cfg, cuda, graphs=False)
+    _assert_bitwise(g, e)
+    ce = profiling.counters()
+    assert ce["captures"] == ce["warmup_steps"] == 0
+    assert (ce["rows_valid"], ce["rows_computed"]) == (
+        c["rows_valid"], c["rows_computed"])
+    profiling.reset()
+
+
 def test_graphed_capture_failure_raises(cuda, monkeypatch):
     """A step that waits on the host cannot be captured: train() raises
     on the card instead of running the eager loop."""
@@ -1627,7 +1666,9 @@ def test_graphed_fewshot_recipe_and_resume(cuda, tmp_path):
     the weight term's gate at step 150, the occlusion term, validation
     every 100, a checkpoint every 150) against the eager run, bitwise,
     validations included; then the run resumed from its step-150
-    checkpoint, graphed, lands bitwise on the unbroken run."""
+    checkpoint, graphed, lands bitwise on the unbroken run (save the
+    valid-row accumulator, which no checkpoint holds: it counts from the
+    restore)."""
     import dataclasses
 
     from fsnerf_tpu_torch import cli
@@ -1670,7 +1711,8 @@ def test_graphed_fewshot_recipe_and_resume(cuda, tmp_path):
     r, _, _ = _train_run(cfg, cuda, None, scene=scene, model=model,
                          state=state, checkpointer=ckpt,
                          val_fn=cli.make_val_fn(model, cfg, held, cuda))
-    _assert_bitwise(r, g)
+    _assert_bitwise(r, g, rows=False)
+    assert 0 < float(r.rows_t) < float(g.rows_t)
 
 
 def test_graphed_train_scanned_is_the_eager_one(cuda):
